@@ -1,0 +1,107 @@
+"""Kernel 1: the decode matvec y = W·x against Q40 weights in the i4p split-plane layout.
+
+Replaces distributed_llama_tpu/ops/pallas_q4.py `_q4_matvec` (`_matvec_kernel` ->
+`_unpack_dot_epilogue`) and the Q80 row quantizer `_quantize_row` of ops/pallas_q8.py
+that feeds it. The CUDA kernel is csrc/q4_matvec.cu; its header says what bounds it on
+an H100 (bytes: 0.5625 B/weight streamed once) and what its design does about that.
+
+Numerics, shared by the kernel and `q4_matvec_plain`: the activation row is quantized
+per 32-block to Q80 (multiply by 127/absmax, round half to even), the per-block dot
+P[n,b] of (nibble-8) with the int8 row is an exact integer, and y[n] = Σ_b
+(s[n,b]·sx[b])·P[n,b] in float32 — only the order of that last sum differs.
+
+`q4_matvec` takes the plain version for CPU tensors and launches the kernel for CUDA
+tensors; `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..quants import QK, QTensor
+from . import cuda_build
+
+launches = 0
+
+_MAX_K = 32768  # the quantized row (K + 8·K/32 bytes) must fit 48 KB of shared memory
+_BLOCKS_PER_SM = 4
+_P, _I = cuda_build.P, cuda_build.I
+_SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P, _I, _I, _I, _P]}
+
+
+def quantize_row(x_row: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-32-block Q80 quantization of one activation row (K,) -> (xq (K,) int8,
+    sx (K/32,) f32): the reference's Q80 buffer semantics (src/tasks.cpp:96-135)."""
+    k = x_row.shape[0]
+    g = x_row.reshape(k // QK, QK).float()
+    absmax = g.abs().amax(dim=-1)
+    # tensor / tensor: torch turns a python-scalar divisor or dividend into a product
+    # with a reciprocal (two roundings); the kernel and the JAX package divide once
+    c127 = torch.full_like(absmax, 127.0)
+    sx = absmax / c127
+    inv = torch.where(absmax > 0, c127 / absmax, torch.zeros((), device=g.device))
+    xq = torch.round(g * inv[:, None]).to(torch.int8).reshape(k)
+    return xq, sx
+
+
+def q4_matvec_plain(x_row: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch: x_row (K,), packed (N, K/2) u8 i4p,
+    scales (N, K/32) f16 -> y (N,) f32. P is computed in float32, which is exact here
+    (|P| <= 15·127·32 < 2^24)."""
+    n, kh = packed.shape
+    nb = scales.shape[1]
+    xq, sx = quantize_row(x_row)
+    q = torch.cat([packed & 0x0F, packed >> 4], dim=1).float()  # (N, K) nibbles in [0,16)
+    xqf = xq.float().reshape(nb, QK)
+    p = torch.einsum("nbk,bk->nb", q.reshape(n, nb, QK), xqf)
+    p = p - 8.0 * xqf.sum(dim=1)  # remove the nibble offset per block
+    return ((scales.float() * sx) * p).sum(dim=1)
+
+
+def _launch(x_row: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    global launches
+    n, kh = packed.shape
+    k = kh * 2
+    if x_row.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q4_matvec kernel takes f32 or bf16 activations, got {x_row.dtype}")
+    if packed.dtype != torch.uint8 or scales.dtype != torch.float16:
+        raise TypeError(f"q4_matvec kernel takes u8 planes and f16 scales, got "
+                        f"{packed.dtype}/{scales.dtype}")
+    if k % 64 or k > _MAX_K or scales.shape != (n, k // QK):
+        raise ValueError(f"q4_matvec kernel cannot take K={k}, scales {tuple(scales.shape)}")
+    if not (packed.is_contiguous() and scales.is_contiguous()) or packed.data_ptr() % 16:
+        raise ValueError("q4_matvec kernel needs contiguous, 16-byte aligned weight planes")
+    if not (packed.device == scales.device == x_row.device):
+        raise ValueError("q4_matvec: tensors on different devices")
+    x_row = x_row.contiguous()
+    y = torch.empty(n, dtype=torch.float32, device=x_row.device)
+    grid = max(1, min(math.ceil(n / 8),
+                      cuda_build.sm_count(x_row.device.index) * _BLOCKS_PER_SM))
+    lib = cuda_build.load("q4_matvec", _SIGNATURES)
+    rc = lib.q4_matvec(x_row.data_ptr(), int(x_row.dtype == torch.bfloat16),
+                       packed.data_ptr(), scales.data_ptr(), y.data_ptr(), n, k, grid,
+                       cuda_build.stream_of(x_row))
+    cuda_build.check(rc, "q4_matvec")
+    launches += 1
+    return y
+
+
+def q4_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None) -> torch.Tensor:
+    """Decode-path matmul: x (..., K) with leading dims multiplying to 1, i4p-layout
+    QTensor (N, K) -> (..., N)."""
+    if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2:
+        raise ValueError("q4_matvec needs 2-D i4p weights packed with groups=1")
+    lead = x.shape[:-1]
+    if math.prod(lead) != 1:
+        raise ValueError(f"q4_matvec takes one activation row, got {tuple(x.shape)}")
+    x_row = x.reshape(x.shape[-1])
+    if x.device.type == "cuda":
+        y = _launch(x_row, w.data, w.scales)
+    elif x.device.type == "cpu":
+        y = q4_matvec_plain(x_row, w.data, w.scales)
+    else:
+        raise ValueError(f"q4_matvec: no kernel for device {x.device}")
+    return y.reshape(*lead, y.shape[0]).to(out_dtype or x.dtype)

@@ -1,0 +1,217 @@
+"""Inference engine: model loading, chunked prefill, the generation loop, stats.
+
+The single-sequence, single-card counterpart of the JAX package's runtime/engine.py
+(reference: App::run + Inference, src/app.cpp:123-155, src/tasks.cpp:158-230). Prefill
+runs in chunks of [64, 8, 1] tokens; decode runs one token per step against the KV
+cache; attention reads a power-of-two window bucket of the cache that covers the live
+context.
+
+The engine runs on `cuda` unless the caller passes device="cpu"; without a GPU and
+without device="cpu" it raises. It never moves to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..models.forward import forward, init_kv_cache
+from ..models.params import Params, decode_stream_bytes, params_to, prepare_for_cuda
+from ..models.spec import ModelSpec
+from ..ops.rope import RopeTables
+from ..quants import FloatType
+from ..tokenizer.bpe import Tokenizer
+
+PREFILL_CHUNKS = (64, 8, 1)
+
+
+@dataclass
+class GenerationStats:
+    """Per-token timing, the analog of the reference's G/I/T printout
+    (dllama.cpp:76-93)."""
+
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    prefill_ms: float = 0.0
+    # per decoded token: total (sample + step) and step-only wall times, in ms
+    token_ms: list[float] = field(default_factory=list)
+    infer_ms: list[float] = field(default_factory=list)
+
+    @property
+    def avg_token_ms(self) -> float:
+        return float(np.mean(self.token_ms)) if self.token_ms else 0.0
+
+    @property
+    def avg_infer_ms(self) -> float:
+        return float(np.mean(self.infer_ms)) if self.infer_ms else 0.0
+
+    @property
+    def tokens_per_second(self) -> float:
+        return 1000.0 / self.avg_token_ms if self.token_ms else 0.0
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless told otherwise; raise when CUDA is asked for and absent."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(CLI: --device cpu) to run on the CPU")
+    return dev
+
+
+class Engine:
+    def __init__(self, spec: ModelSpec, params: Params, tokenizer: Tokenizer | None = None,
+                 *, device=None, dtype=None, use_kernels: bool | None = None,
+                 prefill_kernel: bool = False):
+        if spec.is_moe:
+            raise NotImplementedError("the port runs dense models only")
+        self.spec = spec
+        self.tokenizer = tokenizer
+        self.device = resolve_device(device)
+        on_gpu = self.device.type == "cuda"
+        # bf16 activations and caches on the card halve cache traffic (the matvec
+        # numerics are Q80 in the kernel either way); f32 on the CPU keeps parity exact
+        self.dtype = dtype if dtype is not None else (torch.bfloat16 if on_gpu
+                                                      else torch.float32)
+        has_quant = any(getattr(t, "ftype", None) in (FloatType.Q40, FloatType.Q80)
+                        for t in params["blocks"].values())
+        if use_kernels is None:
+            use_kernels = on_gpu
+        self.use_kernels = bool(use_kernels) and has_quant
+        # the M > 1 dequant-matmul kernel for prefill chunks is opt-in (the kwarg, or
+        # the CLI's --prefill-kernel)
+        self.prefill_kernel = bool(prefill_kernel) and self.use_kernels
+        if self.prefill_kernel:
+            self.use_kernels = "all"
+        params = params_to(params, self.device)
+        if self.use_kernels:
+            params = prepare_for_cuda(params)
+        self.params = params
+        self.decode_weight_bytes = decode_stream_bytes(self.params)
+        self.rope = RopeTables.create(spec, self.device)
+        self.k_cache, self.v_cache = init_kv_cache(spec, dtype=self.dtype,
+                                                   device=self.device)
+        self.pos = 0
+
+    @classmethod
+    def load(cls, model_path: str, tokenizer_path: str | None = None, *,
+             max_seq_len: int = 0, weights_ftype: FloatType | None = None,
+             **kw) -> "Engine":
+        from ..formats.mfile import load_model
+
+        spec, params = load_model(model_path, max_seq_len, weights_ftype)
+        tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
+        if tokenizer is not None and tokenizer.vocab_size != spec.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {tokenizer.vocab_size} != model vocab {spec.vocab_size}")
+        return cls(spec, params, tokenizer, **kw)
+
+    # attention reads only the first `window` cache positions — a bucket so decode
+    # cache traffic tracks the live context, not the allocated seq_len. Buckets are
+    # powers of two from 256 up.
+    _WINDOW_MIN = 256
+
+    def _window_for(self, pos_end: int) -> int | None:
+        """Smallest window bucket covering cache positions [0, pos_end)."""
+        s = self.spec.seq_len
+        if s <= self._WINDOW_MIN:
+            return None  # tiny contexts: no bucketing
+        w = self._WINDOW_MIN
+        while w < pos_end:
+            w *= 2
+        return None if w >= s else w
+
+    def reset(self) -> None:
+        self.pos = 0
+
+    def seek(self, pos: int) -> None:
+        """Set the decode position (prefix reuse rewind); the cache keeps every row."""
+        assert 0 <= pos <= self.pos, f"seek({pos}) past live context {self.pos}"
+        self.pos = pos
+
+    def infer_chunk(self, tokens: list[int] | np.ndarray) -> np.ndarray:
+        """Run a chunk of tokens at the current position; returns last-token logits
+        (vocab,) and advances pos. Bounds-checked against seq_len (the reference
+        hard-stops at context end, dllama.cpp:190-192)."""
+        return self._infer(tokens)[-1]
+
+    def _infer(self, tokens: list[int] | np.ndarray) -> np.ndarray:
+        """One step over T tokens; returns all T positions' logits (T, vocab)."""
+        tokens = np.asarray(tokens, dtype=np.int64)
+        t = len(tokens)
+        if self.pos + t > self.spec.seq_len:
+            raise ValueError(f"context overflow: pos {self.pos} + {t} > {self.spec.seq_len}")
+        toks = torch.from_numpy(tokens)[None, :].to(self.device)
+        logits, self.k_cache, self.v_cache = forward(
+            self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache, self.pos,
+            dtype=self.dtype, use_kernels=self.use_kernels,
+            attn_window=self._window_for(self.pos + t))
+        self.pos += t
+        return logits[0].cpu().numpy()  # host transfer: the step's fence
+
+    def prefill(self, tokens: list[int], stats: GenerationStats | None = None) -> np.ndarray:
+        """Chunked prompt ingestion; returns logits after the last prompt token."""
+        t0 = time.perf_counter()
+        tokens = list(tokens)
+        logits = None
+        i = 0
+        while i < len(tokens):
+            for chunk in PREFILL_CHUNKS:
+                if len(tokens) - i >= chunk:
+                    logits = self.infer_chunk(tokens[i:i + chunk])
+                    i += chunk
+                    break
+        if stats is not None:
+            stats.prefill_ms = (time.perf_counter() - t0) * 1000.0
+            stats.prompt_tokens = len(tokens)
+        return logits
+
+    def _decode(self, logits: np.ndarray, max_tokens: int, sampler, stats: GenerationStats,
+                on_token=None, stop_check=None) -> list[int]:
+        """Sample/step until max_tokens, context end, or stop_check truth."""
+        out: list[int] = []
+        for _ in range(max_tokens):
+            if self.pos >= self.spec.seq_len:
+                break
+            t0 = time.perf_counter()
+            token = sampler.sample(logits)
+            out.append(token)
+            stats.generated_tokens += 1
+            if on_token is not None:
+                on_token(token)
+            if stop_check is not None and stop_check(token):
+                break
+            if self.pos >= self.spec.seq_len:
+                break
+            t1 = time.perf_counter()
+            logits = self.infer_chunk([token])
+            t2 = time.perf_counter()
+            stats.infer_ms.append((t2 - t1) * 1000.0)
+            stats.token_ms.append((t2 - t0) * 1000.0)
+        return out
+
+    def generate(self, prompt_tokens: list[int], max_tokens: int, sampler,
+                 on_token=None, stop_check=None) -> tuple[list[int], GenerationStats]:
+        """Host generation loop: prefill + sample/step until max_tokens, context end, or
+        stop_check truth. on_token(token_id) streams tokens out."""
+        stats = GenerationStats()
+        logits = self.prefill(prompt_tokens, stats)
+        return self._decode(logits, max_tokens, sampler, stats, on_token, stop_check), stats
+
+    def generate_chunked(self, prompt_tokens: list[int], max_tokens: int, sampler,
+                         on_token=None, stop_check=None) -> tuple[list[int], GenerationStats]:
+        """The JAX package's device-loop generation shape: the prompt minus its last
+        token is prefilled and the last prompt token enters as the first decode step.
+        The port has no on-device loop yet (no chunk of steps per dispatch), so each
+        step is a host step and sampling is the host xorshift* sampler: greedy output
+        equals the JAX device loop's, and a seeded stochastic stream equals this
+        engine's generate()."""
+        stats = GenerationStats()
+        if len(prompt_tokens) > 1:
+            self.prefill(prompt_tokens[:-1], stats)
+        stats.prompt_tokens = len(prompt_tokens)
+        logits = self.infer_chunk(prompt_tokens[-1:])
+        return self._decode(logits, max_tokens, sampler, stats, on_token, stop_check), stats
