@@ -1,0 +1,391 @@
+"""OpenAI-compatible HTTP API server for the PyTorch/CUDA port.
+
+A subset of the JAX package's apps/api_server.py with the same HTTP contract
+(reference: src/apps/dllama-api/dllama-api.cpp): `POST /v1/chat/completions`, streaming
+SSE via chunked transfer and non-streaming JSON, per-request temperature / top_p / seed /
+max_tokens / stop overrides (dllama-api.cpp:351-380), `GET /v1/models` and `/health`
+(`/healthz`). Errors are OpenAI-style `{"error": {"message", "type"}}` bodies.
+
+With `--batch 1` requests serialize behind a generation lock on the single-sequence
+Engine, as the reference's accept loop does (dllama-api.cpp:418-429). With `--batch N`
+(N >= 2) the server runs the port's continuous-batching BatchEngine (superstep 1, paged
+KV): up to N requests decode concurrently in one batched step.
+
+Runs on the GPU unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import queue
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
+
+from ..runtime.engine import Engine
+from ..runtime.errors import EngineClosed, InvalidRequest
+from ..runtime.sampler import Sampler
+from ..tokenizer import ChatItem, ChatTemplate, EosDetector, TemplateType
+from ..tokenizer.eos import TokenStreamer
+
+
+class ApiState:
+    def __init__(self, engine: Engine | None, template_type: TemplateType,
+                 default_sampler: Sampler, batch_engine=None):
+        self.engine = engine
+        self.batch_engine = batch_engine  # BatchEngine when --batch > 1, else None
+        self.lock = threading.Lock()  # serializes the --batch 1 engine
+        tok = (batch_engine or engine).tokenizer
+        self.template = ChatTemplate(template_type, tok.chat_template, tok.eos_piece())
+        self.default_sampler = default_sampler
+        self.model_name = "distributed-llama-tpu"
+
+
+def _now() -> int:
+    return int(time.time())
+
+
+def _completion_payload(state: ApiState, text: str, finish: str, rid: str) -> dict:
+    return {
+        "id": rid,
+        "object": "chat.completion",
+        "created": _now(),
+        "model": state.model_name,
+        "choices": [{
+            "index": 0,
+            "message": {"role": "assistant", "content": text},
+            "finish_reason": finish,
+        }],
+    }
+
+
+def _chunk_payload(state: ApiState, completion_id: str, delta: dict,
+                   finish: str | None) -> dict:
+    # one id across all chunks of a completion, per the OpenAI streaming contract
+    return {
+        "id": completion_id,
+        "object": "chat.completion.chunk",
+        "created": _now(),
+        "model": state.model_name,
+        "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
+    }
+
+
+def _opt(body: dict, key: str, default):
+    """Request override with OpenAI null semantics: explicit null == unset."""
+    v = body.get(key)
+    return default if v is None else v
+
+
+def run_completion(state: ApiState, body: dict, emit):
+    """Shared completion core. `emit(text_delta)` streams; returns (text, finish).
+    Raises InvalidRequest (400) before any generation work for a prompt at or past the
+    context or a bad max_tokens."""
+    runner = state.batch_engine or state.engine
+    tok = runner.tokenizer
+    spec = runner.spec
+    messages = [ChatItem(m.get("role", "user"), m.get("content", ""))
+                for m in body.get("messages", [])]
+    prompt = tok.encode(state.template.generate(messages), add_bos=True)
+    if len(prompt) >= spec.seq_len:
+        raise InvalidRequest(
+            f"prompt is {len(prompt)} tokens but the model context is "
+            f"{spec.seq_len}; reduce the conversation or raise --max-seq-len")
+    mt_raw = _opt(body, "max_tokens", 0)
+    if isinstance(mt_raw, bool) or not isinstance(mt_raw, int) or mt_raw < 0:
+        raise InvalidRequest(
+            f"'max_tokens' must be a non-negative integer, got {mt_raw!r}")
+    sampler = Sampler(
+        spec.vocab_size,
+        float(_opt(body, "temperature", state.default_sampler.temperature)),
+        float(_opt(body, "top_p", state.default_sampler.topp)),
+        int(_opt(body, "seed", _now())),
+    )
+    max_tokens = min(mt_raw or (spec.seq_len - len(prompt)), spec.seq_len - len(prompt))
+    stops = tok.chat_stops()
+    stop_param = _opt(body, "stop", [])
+    if isinstance(stop_param, str):  # OpenAI allows string-or-array
+        stop_param = [stop_param]
+    stops.extend(s.encode() for s in stop_param)
+    detector = EosDetector(tok.chat_eos_id, stops, padding_left=2, padding_right=2)
+    pieces: list[str] = []
+
+    if state.batch_engine is not None:
+        # socket writes are decoupled from the scheduler thread through a queue: a slow
+        # client backpressures only its own handler thread, never the shared decode loop
+        deltas: queue.Queue = queue.Queue()
+
+        def emit_queued(d: bytes):
+            text = d.decode("utf-8", errors="replace")
+            pieces.append(text)
+            deltas.put(text)
+
+        streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit_queued)
+        req = state.batch_engine.submit(prompt, max_tokens, sampler,
+                                        on_token=streamer.on_token,
+                                        stop_check=streamer.stop_check)
+        # the sentinel closes the drain loop once the request completes (the puts
+        # happen-before done.set(), so everything queued is drained first)
+        threading.Thread(target=lambda: (req.done.wait(), deltas.put(None)),
+                         daemon=True).start()
+        try:
+            while (text := deltas.get()) is not None:
+                emit(text)
+        except Exception:
+            req.cancel()  # client went away mid-stream: free the slot
+            raise
+        if req.error is not None:
+            raise req.error
+        return "".join(pieces), "stop" if streamer.stopped else "length"
+
+    def emit_bytes(d: bytes):
+        text = d.decode("utf-8", errors="replace")
+        pieces.append(text)
+        emit(text)
+
+    streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit_bytes)
+    engine = state.engine
+    engine.reset()
+    engine.generate(prompt, max_tokens, sampler, on_token=streamer.on_token,
+                    stop_check=streamer.stop_check)
+    return "".join(pieces), "stop" if streamer.stopped else "length"
+
+
+def _map_error(e: Exception) -> tuple[int, str]:
+    if isinstance(e, EngineClosed):
+        return 503, "server_shutting_down"
+    if isinstance(e, ValueError):  # covers InvalidRequest
+        return 400, "invalid_request_error"
+    return 500, "server_error"
+
+
+class Handler(BaseHTTPRequestHandler):
+    state: ApiState  # injected by serve()
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):
+        print(f"🔷 {self.command} {self.path}")
+
+    def _json(self, code: int, payload: dict, headers: dict | None = None):
+        data = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _error(self, code: int, message: str, etype: str):
+        self._json(code, {"error": {"message": message, "type": etype}})
+
+    def _write_chunk(self, data: bytes):
+        self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+        self.wfile.flush()
+
+    def do_GET(self):
+        if self.path == "/v1/models":
+            self._json(200, {"object": "list", "data": [
+                {"id": self.state.model_name, "object": "model", "created": _now(),
+                 "owned_by": "user"}]})
+        elif self.path in ("/health", "/healthz"):
+            be = self.state.batch_engine
+            if be is not None and not be.scheduler_alive():
+                self._json(503, {"status": "unhealthy",
+                                 "reason": "scheduler thread dead"})
+            else:
+                self._json(200, {"status": "ok"})
+        else:
+            self._error(404, f"Unknown route: {self.path}", "invalid_request_error")
+
+    def do_POST(self):
+        if self.path not in ("/v1/chat/completions", "/chat/completions"):
+            self._error(404, f"Unknown route: {self.path}", "invalid_request_error")
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(length) or b"{}")
+        except (ValueError, json.JSONDecodeError):
+            self._error(400, "Request body is not valid JSON", "invalid_request_error")
+            return
+        if not isinstance(body.get("messages"), list) or not body["messages"]:
+            self._error(400, "'messages' must be a non-empty array",
+                        "invalid_request_error")
+            return
+        state = self.state
+        rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+        # batched mode: the scheduler serializes device access itself
+        guard = contextlib.nullcontext() if state.batch_engine is not None else state.lock
+        with guard:
+            if body.get("stream", False):
+                self._stream(state, body, rid)
+                return
+            try:
+                text, finish = run_completion(state, body, lambda _t: None)
+            except Exception as e:
+                code, etype = _map_error(e)
+                self._error(code, str(e), etype)
+                return
+            self._json(200, _completion_payload(state, text, finish, rid),
+                       {"X-Request-Id": rid})
+
+    def _stream(self, state: ApiState, body: dict, rid: str):
+        # SSE headers are deferred to the first delta: an error raised before any
+        # output gets its real status code instead of a 200 stream with an error event
+        started = [False]
+
+        def start():
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("X-Request-Id", rid)
+            self.end_headers()
+            started[0] = True
+
+        def emit(text):
+            if not started[0]:
+                start()
+            payload = _chunk_payload(state, rid, {"content": text}, None)
+            self._write_chunk(f"data: {json.dumps(payload)}\n\n".encode())
+
+        try:
+            _text, finish = run_completion(state, body, emit)
+        except Exception as e:
+            code, etype = _map_error(e)
+            if not started[0]:
+                self._error(code, str(e), etype)
+                return
+            self._write_chunk(("data: " + json.dumps(
+                {"error": {"message": str(e), "type": etype, "code": code}})
+                + "\n\n").encode())
+            self._write_chunk(b"data: [DONE]\n\n")
+            self._write_chunk(b"")
+            return
+        if not started[0]:  # a zero-delta completion still streams
+            start()
+        self._write_chunk(("data: " + json.dumps(
+            _chunk_payload(state, rid, {}, finish)) + "\n\n").encode())
+        self._write_chunk(b"data: [DONE]\n\n")
+        self._write_chunk(b"")
+
+
+def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
+          template_type: TemplateType = TemplateType.UNKNOWN,
+          default_sampler: Sampler | None = None,
+          batch_engine=None) -> ThreadingHTTPServer:
+    """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
+    serve_forever(). Pass `engine` for --batch 1 serving, or `batch_engine`."""
+    runner = batch_engine or engine
+    state = ApiState(engine, template_type,
+                     default_sampler or Sampler(runner.spec.vocab_size, 0.7, 0.9, 0),
+                     batch_engine=batch_engine)
+    handler = type("BoundHandler", (Handler,), {"state": state})
+    server = ThreadingHTTPServer((host, port), handler)
+    server.daemon_threads = True
+    server.api_state = state
+    print(f"🟢 dllama-api listening on {host}:{server.server_address[1]}")
+    return server
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from .dllama import _FT
+
+    p = argparse.ArgumentParser(prog="dllama-api", description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", required=True)
+    p.add_argument("--tokenizer", required=True)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9990)
+    p.add_argument("--batch", type=int, default=1,
+                   help="continuous-batching slots: up to N requests decode "
+                        "concurrently in one batched step (1 = serialized serving)")
+    p.add_argument("--max-seq-len", type=int, default=0)
+    p.add_argument("--weights-float-type", default=None, choices=list(_FT))
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on: cuda (default) or cpu")
+    p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
+                   help="auto = bfloat16 on the GPU, float32 on the CPU")
+    p.add_argument("--fused-matmul", action="store_true",
+                   help="--batch 1: run prefill chunks through the q4 kernels with the "
+                        "residual and gate-pair epilogues fused (always on for "
+                        "--batch > 1 wherever the kernels run)")
+    p.add_argument("--kv-block-tokens", type=int, default=16, metavar="T",
+                   help="paged KV (--batch > 1): tokens per device pool block")
+    p.add_argument("--kv-pool-blocks", type=int, default=0, metavar="N",
+                   help="paged KV (--batch > 1): pool capacity in blocks (0 = slots x "
+                        "blocks per context + headroom)")
+    p.add_argument("--chat-template", default=None,
+                   choices=[t.value for t in TemplateType])
+    p.add_argument("--no-kernels", action="store_true",
+                   help="run the dequantize path instead of the CUDA kernels")
+    p.add_argument("--temperature", type=float, default=0.8)
+    p.add_argument("--topp", type=float, default=0.9)
+    p.add_argument("--seed", type=int, default=None)
+    return p
+
+
+def engine_kwargs(args) -> dict:
+    """Engine keyword arguments of parsed `main` arguments. Batched serving always
+    fuses: every serving dispatch has M = slots x T > 1 rows, which without the fused
+    rung would dequantize every weight on every step. Where the kernels do not run (the
+    CPU, or --no-kernels) the Engine turns fused_matmul off itself."""
+    return dict(device=args.device,
+                dtype=(None if args.dtype == "auto"
+                       else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
+                use_kernels=False if args.no_kernels else None,
+                fused_matmul=args.fused_matmul or args.batch > 1)
+
+
+def build_server(args) -> ThreadingHTTPServer:
+    """The engine and the bound server of parsed `main` arguments; the server's
+    `api_state` holds both engines."""
+    from .dllama import _FT
+
+    kw = engine_kwargs(args)
+    load_kw = dict(max_seq_len=args.max_seq_len,
+                   weights_ftype=_FT[args.weights_float_type]
+                   if args.weights_float_type else None)
+    batch_engine = engine = None
+    if args.batch > 1:
+        from ..runtime.batch_engine import BatchEngine
+
+        batch_engine = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
+                                        superstep=1, kv_block_tokens=args.kv_block_tokens,
+                                        kv_pool_blocks=args.kv_pool_blocks, **load_kw, **kw)
+        spec = batch_engine.spec
+        print(f"⏩ Continuous batching: {args.batch} slots, paged KV blocks "
+              f"{batch_engine.kv_pool.n_blocks} x {batch_engine.kv_pool.block_tokens} "
+              f"tokens (device={batch_engine.engine.device}, "
+              f"kernels={batch_engine.engine.use_kernels})")
+    else:
+        engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw)
+        spec = engine.spec
+        print(f"⏩ Serving one sequence at a time (device={engine.device}, "
+              f"kernels={engine.use_kernels})")
+    seed = args.seed if args.seed is not None else _now()
+    return serve(engine, args.host, args.port,
+                 TemplateType(args.chat_template) if args.chat_template
+                 else TemplateType.UNKNOWN,
+                 Sampler(spec.vocab_size, args.temperature, args.topp, seed),
+                 batch_engine=batch_engine)
+
+
+def main(argv=None) -> None:
+    server = build_server(build_parser().parse_args(argv))
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        if server.api_state.batch_engine is not None:
+            server.api_state.batch_engine.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
-// q4_matmul: Y = X·dequant(W)^T for M > 1 activation rows (prefill chunks) against
-// Q40 weights in the i4p split-plane layout.
+// q4_matmul: Y = X·dequant(W)^T for M > 1 activation rows (prefill chunks, batched
+// serving steps) against Q40 weights in the i4p split-plane layout, and its residual
+// launch mode q4_matmul_res: Y = R + X·dequant(W)^T.
 //
 // Replaces distributed_llama_tpu/ops/pallas_q4_mm.py `_q4_matmul` (kernel body
-// `_mm_kernel` -> `_tile_partial`).
+// `_mm_kernel` -> `_tile_partial`) and `_q4_matmul_res` (`_mm_res_kernel`, the
+// residual in the accumulator init).
 //
 // What it computes (the same numbers as the TPU kernel): each packed byte c of row n
 // decodes to w[n,c] = bf16((lo - 8) * s[n, c/32]) and w[n,K/2+c] =
@@ -24,6 +26,11 @@
 // writes an f32 partial and a second pass sums the splits in a fixed order
 // (deterministic). The M and N edges and a trailing half chunk are masked; an M tile
 // of 16 serves M <= 16.
+//
+// Residual mode: the residual R (f32 or bf16, (M, N)) is read once in the epilogue
+// and added in f32 before the one f32 write: into the block's accumulator when there
+// is one split, or as the first term of the fixed-order split sum otherwise. It costs
+// one read of R and no extra pass.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -40,6 +47,13 @@ constexpr int kBN = 64;
 constexpr int kBK = 64;        // packed bytes per stage = two quant blocks per plane
 constexpr int kLd = kBK + 8;   // padded shared row (bf16 elements, 144 bytes)
 constexpr int kLdc = kBN + 4;  // padded accumulator staging row (floats)
+
+// residual element i: kind 0 none, 1 f32, 2 bf16
+__device__ __forceinline__ float load_res(const void* res, int kind, size_t i) {
+  if (kind == 1) return static_cast<const float*>(res)[i];
+  if (kind == 2) return __bfloat162float(static_cast<const __nv_bfloat16*>(res)[i]);
+  return 0.0f;
+}
 
 __device__ __forceinline__ void decode16(uint4 w, float s_lo, float s_hi,
                                          __nv_bfloat16* lo, __nv_bfloat16* hi) {
@@ -59,6 +73,7 @@ template <int BM>
 __global__ void __launch_bounds__(kThreads)
 q4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                  const __half* __restrict__ ws, float* __restrict__ part,
+                 const void* __restrict__ res, int res_kind,
                  int m, int n, int k, int chunks_per_split) {
   constexpr int kXSize = 2 * BM * kLd;   // bf16 elements of the two X planes
   constexpr int kWSize = 2 * kBN * kLd;  // bf16 elements of the two W planes
@@ -152,22 +167,53 @@ q4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
                             wmma::mem_row_major);
   __syncthreads();
   float* out = part + static_cast<size_t>(blockIdx.z) * m * n;
+  const int kind = gridDim.z == 1 ? res_kind : 0;  // split partials carry no residual
   for (int i = tid; i < BM * kBN; i += kThreads) {
     const int r = i / kBN;
     const int c = i % kBN;
-    if (m0 + r < m && n0 + c < n)
-      out[static_cast<size_t>(m0 + r) * n + n0 + c] = cs[r * kLdc + c];
+    if (m0 + r < m && n0 + c < n) {
+      const size_t o = static_cast<size_t>(m0 + r) * n + n0 + c;
+      out[o] = load_res(res, kind, o) + cs[r * kLdc + c];
+    }
   }
 }
 
 __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ y,
-                                  int splits, size_t count) {
+                                  const void* __restrict__ res, int res_kind, int splits,
+                                  size_t count) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.0f;
+    float s = load_res(res, res_kind, i);
     for (int z = 0; z < splits; ++z) s += part[z * count + i];
     y[i] = s;
   }
+}
+
+int launch(const void* x, const void* wp, const void* ws, const void* res, int res_kind,
+           void* y, void* part, int m, int n, int k, int splits, cudaStream_t st) {
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* w = static_cast<const uint8_t*>(wp);
+  const auto* s = static_cast<const __half*>(ws);
+  const int chunks = (k / 2 + kBK - 1) / kBK;
+  const int per_split = (chunks + splits - 1) / splits;
+  splits = (chunks + per_split - 1) / per_split;  // no empty split
+  float* out = static_cast<float*>(splits > 1 ? part : y);
+  if (m <= 16) {
+    const dim3 grid((n + kBN - 1) / kBN, (m + 15) / 16, splits);
+    q4_matmul_kernel<16><<<grid, kThreads, 0, st>>>(xb, w, s, out, res, res_kind, m, n, k,
+                                                    per_split);
+  } else {
+    const dim3 grid((n + kBN - 1) / kBN, (m + 63) / 64, splits);
+    q4_matmul_kernel<64><<<grid, kThreads, 0, st>>>(xb, w, s, out, res, res_kind, m, n, k,
+                                                    per_split);
+  }
+  if (splits > 1) {
+    const size_t count = static_cast<size_t>(m) * n;
+    const int blocks = static_cast<int>((count + 255) / 256 < 1024 ? (count + 255) / 256 : 1024);
+    sum_splits_kernel<<<blocks, 256, 0, st>>>(out, static_cast<float*>(y), res, res_kind,
+                                              splits, count);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -178,25 +224,15 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
 // 64-byte chunks.
 extern "C" int q4_matmul(const void* x, const void* wp, const void* ws, void* y,
                          void* part, int m, int n, int k, int splits, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* w = static_cast<const uint8_t*>(wp);
-  const auto* s = static_cast<const __half*>(ws);
-  const int chunks = (k / 2 + kBK - 1) / kBK;
-  const int per_split = (chunks + splits - 1) / splits;
-  splits = (chunks + per_split - 1) / per_split;  // no empty split
-  float* out = static_cast<float*>(splits > 1 ? part : y);
-  if (m <= 16) {
-    const dim3 grid((n + kBN - 1) / kBN, (m + 15) / 16, splits);
-    q4_matmul_kernel<16><<<grid, kThreads, 0, st>>>(xb, w, s, out, m, n, k, per_split);
-  } else {
-    const dim3 grid((n + kBN - 1) / kBN, (m + 63) / 64, splits);
-    q4_matmul_kernel<64><<<grid, kThreads, 0, st>>>(xb, w, s, out, m, n, k, per_split);
-  }
-  if (splits > 1) {
-    const size_t count = static_cast<size_t>(m) * n;
-    const int blocks = static_cast<int>((count + 255) / 256 < 1024 ? (count + 255) / 256 : 1024);
-    sum_splits_kernel<<<blocks, 256, 0, st>>>(out, static_cast<float*>(y), splits, count);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, wp, ws, nullptr, 0, y, part, m, n, k, splits,
+                static_cast<cudaStream_t>(stream));
+}
+
+// As q4_matmul, plus res: (m, n) residual, f32 (res_bf16 = 0) or bf16 (res_bf16 = 1),
+// added in f32: y = res + x·dequant(w)^T.
+extern "C" int q4_matmul_res(const void* x, const void* wp, const void* ws, const void* res,
+                             int res_bf16, void* y, void* part, int m, int n, int k,
+                             int splits, void* stream) {
+  return launch(x, wp, ws, res, res_bf16 ? 2 : 1, y, part, m, n, k, splits,
+                static_cast<cudaStream_t>(stream));
 }

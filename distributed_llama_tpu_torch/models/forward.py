@@ -2,8 +2,8 @@
 src/llama2-tasks.cpp:241-298).
 
 The counterpart of the JAX package's models/forward.py on its dense branch with the
-deferred cache write and a scalar start_pos: pre-norm attention + SwiGLU FFN (w1=gate,
-w3=up, w2=down), layers run as a Python loop over the stacked parameters.
+deferred cache write: pre-norm attention + SwiGLU FFN (w1=gate, w3=up, w2=down), layers
+run as a Python loop over the stacked parameters.
 
 Deferred write: every layer's attention reads only the COMMITTED cache slots
 (< start_pos) plus the chunk's own k/v; the chunk's rows of all layers are written into
@@ -11,9 +11,19 @@ the caches after the last layer. The caches are updated in place (the JAX packag
 returns new arrays; here the write lands in the caller's tensors, which are also
 returned).
 
+Three cache layouts, as in the JAX package:
+- dense, scalar start_pos: (L, 1, hk, S, hs), one sequence (runtime/engine.py);
+- dense, per-row start_pos (B,): (L, B, hk, S, hs), each row at its own offset;
+- block pool, per-row start_pos and (B, W) block tables: (L, N, hk, bt, hs), position p
+  of row b in block tables[b, p // bt] at offset p % bt (the batched serving path,
+  runtime/batch_engine.py).
+
 Kernel paths (use_kernels): decode projections and the logits take kernel 1
-(ops/q4_matvec.py), T=1 attention takes kernel 3 (ops/decode_attention.py), and with
-use_kernels == "all" the prefill projections take kernel 2 (ops/q4_matmul.py).
+(ops/q4_matvec.py), one-sequence T=1 attention takes kernel 3 (ops/decode_attention.py),
+the pool layout's attention takes kernel 9 (ops/paged_attention.py) under
+`paged_kernel`, and with use_kernels in ("all", "fused") the M > 1 projections take
+kernel 2 (ops/q4_matmul.py); "fused" adds the residual mode (kernel 4) for wo and w2 and
+the gate-pair kernel 5 (ops/q4_gated_matmul.py) for separate w1/w3.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ import torch
 from ..ops.attention import gqa_attention
 from ..ops.decode_attention import decode_attention
 from ..ops.kernels import gelu_tanh, rmsnorm, silu
-from ..ops.matmul import qmatmul
+from ..ops.matmul import qmatmul, qmatmul_gated
+from ..ops.paged_attention import paged_attention, paged_gather_kv
 from ..ops.rope import RopeTables, apply_rope
 from ..quants import QTensor
 from .spec import ArchType, HiddenAct, ModelSpec
@@ -33,6 +44,11 @@ from .spec import ArchType, HiddenAct, ModelSpec
 
 def _act(spec: ModelSpec):
     return silu if spec.hidden_act == HiddenAct.SILU else gelu_tanh
+
+
+def _act_name(spec: ModelSpec) -> str:
+    """Activation name for the gate-pair kernel's epilogue."""
+    return "silu" if spec.hidden_act == HiddenAct.SILU else "gelu_tanh"
 
 
 def layer_params(blocks: dict[str, Any], li: int) -> dict[str, Any]:
@@ -48,14 +64,34 @@ def layer_params(blocks: dict[str, Any], li: int) -> dict[str, Any]:
     return out
 
 
-def _attention(x, bp, layer_idx: int, spec: ModelSpec, rope: RopeTables, kc, vc,
-               start_pos: int, positions, use_kernels, window, residual):
-    """Attention sub-block against the full stacked caches (L, 1, hk, S, hs). Returns
+class _Step:
+    """What every layer of one forward call shares: the start positions, the paging
+    tables and the kernel switches."""
+
+    def __init__(self, spec, rope, start_pos, positions, use_kernels, window,
+                 block_tables, block_tokens, paged_kernel, lengths, layer_ids):
+        self.spec = spec
+        self.rope = rope
+        self.start_pos = start_pos  # int, or (B,) int64 tensor
+        self.positions = positions  # (T,) or (B, T) int64
+        self.use_kernels = use_kernels
+        self.window = window
+        self.block_tables = block_tables
+        self.block_tokens = block_tokens
+        self.paged_kernel = paged_kernel
+        self.lengths = lengths  # (B,) int32 on the device, for the paged kernel
+        self.layer_ids = layer_ids  # (L,) int32 on the device, for the paged kernel
+
+
+def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
+    """Attention sub-block against the full stacked caches or pools. Returns
     (residual + attention output, (k_t, v_t)) where k_t/v_t are the chunk's new rows
     (B, hk, T, hs) for forward() to commit."""
+    spec = st.spec
     b, t, _ = x.shape
     hs = spec.head_size
-    _, _, hk, s, _ = kc.shape
+    hk = kc.shape[2]
+    use_kernels = st.use_kernels
     xb = rmsnorm(x, bp["rms_att"], spec.norm_eps)
     if "wqkv" in bp:
         # merged QKV: one launch for the three projections, rows split dim : kv : kv
@@ -71,26 +107,50 @@ def _attention(x, bp, layer_idx: int, spec: ModelSpec, rope: RopeTables, kc, vc,
         k = qmatmul(xb, bp["wk"], use_kernels=use_kernels)
         v = qmatmul(xb, bp["wv"], use_kernels=use_kernels)
     hq = q.shape[-1] // hs
-    q = apply_rope(q.reshape(b, t, hq, hs), rope, positions)
-    k = apply_rope(k.reshape(b, t, hk, hs), rope, positions)
+    q = apply_rope(q.reshape(b, t, hq, hs), st.rope, st.positions)
+    k = apply_rope(k.reshape(b, t, hk, hs), st.rope, st.positions)
     v = v.reshape(b, t, hk, hs)
     k_t = k.transpose(1, 2).to(kc.dtype)  # (B, hk, T, hs)
     v_t = v.transpose(1, 2).to(vc.dtype)
-    win = window or s
-    if use_kernels and t == 1 and b == 1:
-        out = decode_attention(q.reshape(hk, hq // hk, hs).float(), kc, vc, k_t[0], v_t[0],
-                               layer_idx, start_pos, window=win)
+    start = st.start_pos
+    paged = st.block_tables is not None
+    if paged:
+        bt = st.block_tokens
+        w_total = st.block_tables.shape[1]
+        nb = min(-(-(st.window or w_total * bt) // bt), w_total)  # table entries read
+    else:
+        win = st.window or kc.shape[3]
+    if paged and st.paged_kernel:
+        # the kernel reads the table's blocks straight out of the pools
+        li = st.layer_ids[layer_idx:layer_idx + 1] if x.is_cuda else layer_idx
+        out = paged_attention(q.float(), kc, vc, k_t, v_t, st.block_tables, st.lengths,
+                              li, n_read=nb)
+        att = out.reshape(b, t, hq * hs).to(x.dtype)
+    elif not paged and use_kernels and t == 1 and b == 1 and isinstance(start, int):
+        out = decode_attention(q.reshape(hk, hq // hk, hs).float(), kc, vc, k_t[0],
+                               v_t[0], layer_idx, start, window=win)
         att = out.reshape(1, 1, hq * hs).to(x.dtype)
     else:
-        kw = kc[layer_idx, :, :, :win]  # (B, hk, win, hs)
-        vw = vc[layer_idx, :, :, :win]
-        # window slot j holds a committed row iff j < start_pos; stale slots get a
-        # past-seq_len position so the causal compare masks them
-        slot = torch.arange(win, device=x.device)
-        slot_pos = torch.where(slot < start_pos, slot, torch.full_like(slot, s + 1))
-        key_pos = torch.cat([slot_pos, positions])
+        if paged:  # gather the table's blocks into the dense window layout
+            kw, vw = paged_gather_kv(kc, vc, layer_idx, st.block_tables, nb)
+        else:
+            kw = kc[layer_idx, :, :, :win]  # (B, hk, win, hs)
+            vw = vc[layer_idx, :, :, :win]
+        # window slot j holds a committed row iff j < start_pos (per row for a tensor
+        # start); stale, scratch or garbage slots get a past-seq_len position so the
+        # causal compare masks them
+        slot = torch.arange(kw.shape[2], device=x.device)
+        past = torch.full_like(slot, spec.seq_len + 1)
+        if isinstance(start, int):
+            key_pos = torch.cat([torch.where(slot < start, slot, past), st.positions])
+        else:  # (B, win) per-row offsets (continuous batching)
+            key_pos = torch.cat([torch.where(slot[None, :] < start[:, None], slot, past),
+                                 st.positions], dim=1)
         att = gqa_attention(q, torch.cat([kw, k_t], dim=2), torch.cat([vw, v_t], dim=2),
-                            positions, key_positions=key_pos)
+                            st.positions, key_positions=key_pos)
+    if use_kernels == "fused":
+        # the residual add runs in the wo kernel's f32 epilogue
+        return qmatmul(att, bp["wo"], use_kernels=use_kernels, residual=residual), (k_t, v_t)
     y = qmatmul(att, bp["wo"], use_kernels=use_kernels)
     return residual + y, (k_t, v_t)
 
@@ -105,41 +165,98 @@ def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual):
         hl = y.shape[-1] // 2
         h = act(y[..., :hl]) * y[..., hl:]
     else:
-        h = (act(qmatmul(xb, bp["w1"], use_kernels=use_kernels))
-             * qmatmul(xb, bp["w3"], use_kernels=use_kernels))
+        # separate w1/w3: under "fused" one gate-pair kernel launch
+        h = qmatmul_gated(xb, bp["w1"], bp["w3"], act=act, act_name=_act_name(spec),
+                          use_kernels=use_kernels)
+    if use_kernels == "fused":
+        return qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels, residual=residual)
     out = qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels)
     return residual + out
 
 
 def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             tokens: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            start_pos: int, *, dtype=torch.float32, use_kernels: bool | str = False,
-            attn_window: int | None = None):
+            start_pos, *, dtype=torch.float32, use_kernels: bool | str = False,
+            attn_window: int | None = None, block_tables: torch.Tensor | None = None,
+            block_tokens: int = 0, paged_kernel: bool = False):
     """Run T tokens through the model at cache position start_pos.
 
-    tokens: (1, T) integer tensor; k_cache/v_cache: (L, 1, hk, S, hs). attn_window bounds
-    the cache positions attention reads (must cover start_pos + T; None = all of S).
-    Returns (logits (1, T, vocab) f32, k_cache, v_cache) with the chunk's rows committed
-    in place at [start_pos, start_pos + T)."""
+    tokens: (B, T) integer tensor. start_pos: an int (all rows at one offset) or a (B,)
+    integer tensor of per-row offsets (continuous batching). k_cache/v_cache: dense
+    (L, B, hk, S, hs) caches, or with block_tables ((B, W) int32 tensor, per-row
+    start_pos required) (L, N, hk, bt, hs) pools with bt = block_tokens. attn_window
+    bounds the positions attention reads (must cover start_pos + T; None = all).
+    paged_kernel routes the pool layout's attention through kernel 9.
+
+    Rows of a mixed batch need not use all T positions: a decode row in a (B, T) prefill
+    step puts its one real token at index 0 and scratch beyond; causal masking confines
+    token 0's attention to the row's committed history plus itself, and the scratch
+    writes land on positions > start_pos that every read masks until the row's own later
+    tokens overwrite them.
+
+    Returns (logits (B, T, vocab) f32, k_cache, v_cache) with the chunk's rows committed
+    in place."""
     if spec.arch_type != ArchType.LLAMA or spec.is_moe:
         raise NotImplementedError("the port runs the dense Llama architecture only")
+    dev = tokens.device
     t = tokens.shape[1]
-    positions = start_pos + torch.arange(t, device=tokens.device)
+    per_row = isinstance(start_pos, torch.Tensor)
+    if block_tables is not None and not (per_row and block_tokens >= 1):
+        raise ValueError("the block-pool layout needs block_tokens and per-row start_pos")
+    lengths = layer_ids = None
+    if per_row:
+        lengths = start_pos.to(device=dev, dtype=torch.int32)
+        start_pos = start_pos.to(device=dev, dtype=torch.int64)
+        positions = start_pos[:, None] + torch.arange(t, device=dev)[None, :]  # (B, T)
+        if block_tables is not None and paged_kernel and tokens.is_cuda:
+            layer_ids = torch.arange(spec.n_layers, dtype=torch.int32, device=dev)
+    else:
+        positions = start_pos + torch.arange(t, device=dev)
+    st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,
+               block_tokens, paged_kernel, lengths, layer_ids)
     x = params["embedding"][tokens].to(dtype)
     k_rows, v_rows = [], []
     for li in range(spec.n_layers):
         bp = layer_params(params["blocks"], li)
-        x, (k_t, v_t) = _attention(x, bp, li, spec, rope, k_cache, v_cache, start_pos,
-                                   positions, use_kernels, attn_window, residual=x)
+        x, (k_t, v_t) = _attention(x, bp, li, st, k_cache, v_cache, residual=x)
         x = _dense_ffn(x, bp, spec, use_kernels, residual=x)
         k_rows.append(k_t)
         v_rows.append(v_t)
-    # commit all layers' new rows: (L, B, hk, T, hs) at [.., start_pos:start_pos+T, ..]
-    k_cache[:, :, :, start_pos:start_pos + t] = torch.stack(k_rows)
-    v_cache[:, :, :, start_pos:start_pos + t] = torch.stack(v_rows)
+    # commit all layers' new rows: (L, B, hk, T, hs)
+    k_new, v_new = torch.stack(k_rows), torch.stack(v_rows)
+    if block_tables is not None:
+        commit_paged(k_cache, v_cache, k_new, v_new, positions, block_tables,
+                     block_tokens)
+    elif per_row:
+        # per-row offsets, each write clamped into the cache as the JAX package's
+        # dynamic_update_slice clamps it
+        s = k_cache.shape[3]
+        idx = torch.clamp(start_pos, 0, s - t)[:, None] + torch.arange(t, device=dev)[None]
+        rows = torch.arange(tokens.shape[0], device=dev)[:, None]
+        k_cache[:, rows, :, idx, :] = k_new.permute(1, 3, 0, 2, 4)
+        v_cache[:, rows, :, idx, :] = v_new.permute(1, 3, 0, 2, 4)
+    else:
+        k_cache[:, :, :, start_pos:start_pos + t] = k_new
+        v_cache[:, :, :, start_pos:start_pos + t] = v_new
     x = rmsnorm(x, params["rms_final"], spec.norm_eps)
     logits = qmatmul(x, params["wcls"], use_kernels=use_kernels, out_dtype=torch.float32)
     return logits, k_cache, v_cache
+
+
+def commit_paged(k_pool: torch.Tensor, v_pool: torch.Tensor, k_rows: torch.Tensor,
+                 v_rows: torch.Tensor, positions: torch.Tensor, block_tables: torch.Tensor,
+                 block_tokens: int) -> None:
+    """Write a step's new rows (L, B, hk, T, hs) into the (L, N, hk, bt, hs) pools in
+    place: position positions[b, t] of row b lands in block tables[b, p // bt] at offset
+    p % bt, one scatter per pool through the table the reads used. The advanced indices
+    (B, T) lead the indexed shape, as in numpy, so the values are (B, T, L, hk, hs).
+    Positions past the table cannot occur by the scheduler's coverage invariant."""
+    blk = torch.take_along_dim(
+        block_tables.long(),
+        torch.clamp(positions // block_tokens, max=block_tables.shape[1] - 1), dim=1)
+    off = positions % block_tokens
+    k_pool[:, blk, :, off, :] = k_rows.permute(1, 3, 0, 2, 4)
+    v_pool[:, blk, :, off, :] = v_rows.permute(1, 3, 0, 2, 4)
 
 
 def init_kv_cache(spec: ModelSpec, batch: int = 1, dtype=torch.float32, device="cpu",
@@ -147,5 +264,13 @@ def init_kv_cache(spec: ModelSpec, batch: int = 1, dtype=torch.float32, device="
     """Zeroed head-major KV caches (L, B, hk, S, hs)."""
     s = seq_len if seq_len is not None else spec.seq_len
     shape = (spec.n_layers, batch, spec.n_kv_heads, s, spec.head_size)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_kv_pool(spec: ModelSpec, n_blocks: int, block_tokens: int, dtype=torch.float32,
+                 device="cpu"):
+    """Zeroed KV block pools (L, N, hk, bt, hs)."""
+    shape = (spec.n_layers, n_blocks, spec.n_kv_heads, block_tokens, spec.head_size)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

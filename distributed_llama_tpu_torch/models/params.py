@@ -138,12 +138,14 @@ def _kernel_convertible(t) -> bool:
             and t.layout == "planar" and t.shape[-1] % 64 == 0)
 
 
-def fuse_matvec_groups(blocks: Params) -> Params:
+def fuse_matvec_groups(blocks: Params, skip: tuple[str, ...] = ()) -> Params:
     """Replace wq/wk/wv -> wqkv and w1/w3 -> w13 with row-concatenated planar tensors
-    where every member is kernel-convertible. Quant blocks run along the in axis, so row
-    concatenation never touches block structure."""
+    where every member is kernel-convertible, except the groups named in `skip`. Quant
+    blocks run along the in axis, so row concatenation never touches block structure."""
     out = dict(blocks)
     for fused, members in _FUSE_GROUPS.items():
+        if fused in skip:
+            continue
         ts = [blocks.get(m) for m in members]
         if not all(_kernel_convertible(t) for t in ts):
             continue
@@ -154,13 +156,18 @@ def fuse_matvec_groups(blocks: Params) -> Params:
     return out
 
 
-def prepare_for_cuda(params: Params, fuse: bool = True) -> Params:
+def prepare_for_cuda(params: Params, fuse: bool = True,
+                     keep_gate_pair: bool = False) -> Params:
     """Repack the dense matmul weights into the decode-kernel layout (i4p packed nibbles
-    for Q40), merging the QKV and gate/up groups first when `fuse`. The counterpart of
-    the JAX package's prepare_for_pallas at tp=1."""
+    for Q40), merging the QKV and gate/up groups first when `fuse`. keep_gate_pair=True
+    leaves w1/w3 separate for the gate-pair kernel (ops/q4_gated_matmul.py), as the
+    fused serving rung wants. The counterpart of the JAX package's prepare_for_pallas at
+    tp=1."""
     out: Params = {"embedding": params["embedding"], "blocks": {},
                    "rms_final": params["rms_final"]}
-    blocks = fuse_matvec_groups(params["blocks"]) if fuse else params["blocks"]
+    blocks = (fuse_matvec_groups(params["blocks"],
+                                 skip=("w13",) if keep_gate_pair else ())
+              if fuse else params["blocks"])
     for name, t in blocks.items():
         if (name in _DENSE_MATMULS or name in _FUSE_GROUPS) and _kernel_convertible(t):
             out["blocks"][name] = t.to_i4p_layout()

@@ -2,8 +2,9 @@
 attention loop, src/llama2-tasks.cpp:54-94).
 
 This is the T>1 attention that the JAX package leaves to XLA; it stays plain torch here
-(two batched products and a masked softmax, all in float32). Decode (T=1) runs the
-decode-attention kernel instead (ops/decode_attention.py).
+(two batched products and a masked softmax, all in float32). Single-sequence decode (T=1)
+runs the decode-attention kernel instead (ops/decode_attention.py), and the batched
+serving path the paged-attention kernel (ops/paged_attention.py).
 
 Shapes (batch-first, head-major cache):
     q: (B, T, n_q_heads, hs)     k_cache/v_cache: (B, n_kv_heads, S, hs)
@@ -23,10 +24,12 @@ def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   key_positions: torch.Tensor | None = None) -> torch.Tensor:
     """Causal GQA attention of T query tokens against the given keys.
 
-    positions: absolute query positions, (T,). key_positions: absolute position of each
-    key slot, (S,); defaults to arange(S). The deferred-cache-write path passes
-    [window slots ++ current-chunk positions] with stale slots pushed past seq_len, so
-    the causal compare masks them. Returns (B, T, n_q_heads * hs) in q's dtype."""
+    positions: absolute query positions, (T,) shared across the batch or (B, T) per row
+    (continuous batching: each row decodes at its own offset). key_positions: absolute
+    position of each key slot, (S,) or per row (B, S); defaults to arange(S). The
+    deferred-cache-write path passes [window slots ++ current-chunk positions] with stale
+    slots pushed past seq_len, so the causal compare masks them. Returns
+    (B, T, n_q_heads * hs) in q's dtype."""
     b, t, hq, hs = q.shape
     _, hk, s, _ = k_cache.shape
     g = hq // hk
@@ -35,7 +38,12 @@ def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     scores = torch.einsum("btkgd,bksd->bkgts", qg.float(), k_cache.float()) * scale
     if key_positions is None:
         key_positions = torch.arange(s, device=q.device)
-    mask = (key_positions[None, :] <= positions[:, None])[None, None, None]  # (T, S)
+    if positions.dim() == 1:
+        assert key_positions.dim() == 1
+        mask = (key_positions[None, :] <= positions[:, None])[None, None, None]  # (T, S)
+    else:
+        kp = key_positions if key_positions.dim() == 2 else key_positions[None, :]
+        mask = (kp[:, None, :] <= positions[:, :, None])[:, None, None]  # (B, T, S)
     probs = masked_softmax(scores, mask)
     out = torch.einsum("bkgts,bksd->btkgd", probs, v_cache.float())
     return out.reshape(b, t, hq * hs).to(q.dtype)

@@ -1,15 +1,21 @@
 """Quantized matmul dispatch: y[..., out] = x[..., in] · W[out, in] for a dense or
 block-quantized W (reference: the matmul layer, src/funcs.cpp:424-465).
 
-Paths (the JAX package's ops/matmul.py `qmatmul`, at the subset the dense decode path
-reaches):
+Paths (the JAX package's ops/matmul.py `qmatmul` / `qmatmul_gated`, at the subset the
+dense Llama path reaches):
 - one activation row, i4p weights, `use_kernels` on -> kernel 1, `q4_matvec`;
-- M > 1 rows, i4p weights, `use_kernels == "all"` (prefill_kernel) -> kernel 2,
-  `q4_matmul`;
+- M > 1 rows, i4p weights that pass `q4_mm_supported`, `use_kernels` in FUSED_POLICIES
+  -> kernel 2, `q4_matmul`; under "fused" a residual rides in its residual mode
+  (kernel 4);
+- the FFN gate pair under "fused" with M > 1 and an i4p pair that passes
+  `q4_gated_supported` -> kernel 5, `q4_gated_matmul`;
 - everything else -> dequantize to x's dtype, then a float32-accumulated product (the
   counterpart of the JAX package's `_qmatmul_xla`).
 
-There is no fallback: a kernel that cannot take its inputs raises.
+The shape gates mirror the JAX package's `q4_mm_supported` / `q4_gated_supported`
+(ops/pallas_q4_mm.py): they choose a route by shape before any launch, so the port
+computes what the JAX package computes for the same call. There is no fallback: a kernel
+that cannot take its inputs raises.
 """
 
 from __future__ import annotations
@@ -20,48 +26,113 @@ import threading
 import torch
 
 from ..quants import QTensor
+from .q4_gated_matmul import q4_gated_matmul
 from .q4_matmul import q4_matmul
 from .q4_matvec import q4_matvec
 
-# which kernel served each (M, N, K, layout) bucket; bounded by the distinct shapes
+# "fused" is a strict superset of "all": everything "all" runs plus the residual-add
+# and gate-pair epilogues wired through models/forward.py
+FUSED_POLICIES = ("all", "fused")
+
+# which kernel served each (M, N, K, layout, op) bucket; bounded by the distinct shapes
 _selections: dict[str, str] = {}
 _selections_lock = threading.Lock()
 
 
-def _record(kernel: str, m: int, w: QTensor) -> None:
+def _record(kernel: str, m: int, w: QTensor, op: str = "mm") -> None:
     n, kin = w.shape
-    key = f"m={m},n={n},k={kin},layout={w.layout},op=mm"
+    key = f"m={m},n={n},k={kin},layout={w.layout},op={op}"
     with _selections_lock:
         _selections[key] = kernel
 
 
 def kernel_selections() -> dict[str, str]:
-    """Snapshot of {shape-bucket: kernel}. Kernel names: q4_matvec, q4_mm, dequant."""
+    """Snapshot of {shape-bucket: kernel}. Kernel names: q4_matvec, q4_mm, q4_mm+res,
+    q4_gated_mm, dequant."""
     with _selections_lock:
         return dict(_selections)
 
 
+def reset_kernel_selections() -> None:
+    with _selections_lock:
+        _selections.clear()
+
+
+def _pick_bkp(kh: int) -> int | None:
+    """The JAX kernel's packed K tile: the largest of 512/256/128 dividing K/2."""
+    for b in (512, 256, 128):
+        if kh % b == 0:
+            return b
+    return None
+
+
+def q4_mm_supported(w: QTensor, m: int) -> bool:
+    """The JAX package's route gate for the M > 1 dequant-matmul: 2-D i4p packed with
+    groups=1, K/2 a multiple of 128, and at most 512 rows."""
+    if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2:
+        return False
+    return _pick_bkp(w.data.shape[1]) is not None and m <= 512
+
+
+def q4_gated_supported(w1: QTensor, w3: QTensor, m: int) -> bool:
+    """The JAX package's route gate for the gate-pair kernel: both weights pass
+    q4_mm_supported and share one shape."""
+    return (q4_mm_supported(w1, m) and q4_mm_supported(w3, m)
+            and w1.data.shape == w3.data.shape and w1.scales.shape == w3.scales.shape)
+
+
+def _res_add(y: torch.Tensor, residual: torch.Tensor, out_dtype) -> torch.Tensor:
+    return (residual.float() + y.float()).to(out_dtype)
+
+
 def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
-            out_dtype=None) -> torch.Tensor:
+            out_dtype=None, residual: torch.Tensor | None = None) -> torch.Tensor:
     """y = x @ W^T for W of logical shape (out, in); x: (..., in) -> (..., out).
 
     use_kernels: False = dequantize path everywhere; True = kernel 1 for one activation
-    row; "all" = additionally kernel 2 for M > 1 (prefill chunks)."""
+    row; "all" = additionally kernel 2 for M > 1; "fused" = "all" plus the residual mode.
+
+    residual: optional (..., out) tensor; the result is residual + x @ W^T on every path
+    (under "fused" the add runs inside the kernel; elsewhere it is added in f32 before
+    the cast, the same rounding as the kernel's f32 add)."""
     m = math.prod(x.shape[:-1])
-    kernel_w = w.layout == "i4p" and w.groups == 1
-    if use_kernels and m == 1 and kernel_w:
+    out_dtype = out_dtype or x.dtype
+    if use_kernels and m == 1 and w.layout == "i4p" and w.groups == 1:
         _record("q4_matvec", m, w)
-        return q4_matvec(x, w, out_dtype=out_dtype or x.dtype)
-    if use_kernels == "all" and m > 1 and kernel_w:
-        _record("q4_mm", m, w)
-        return q4_matmul(x, w, out_dtype=out_dtype or x.dtype)
+        y = q4_matvec(x, w, out_dtype=out_dtype)
+        return y if residual is None else _res_add(y, residual, out_dtype)
+    if use_kernels in FUSED_POLICIES and m > 1 and q4_mm_supported(w, m):
+        fuse_res = residual is not None and use_kernels == "fused"
+        _record("q4_mm+res" if fuse_res else "q4_mm", m, w)
+        y = q4_matmul(x, w, out_dtype=out_dtype, residual=residual if fuse_res else None)
+        if residual is not None and not fuse_res:
+            return _res_add(y, residual, out_dtype)
+        return y
     _record("dequant", m, w)
-    return _qmatmul_dequant(x, w, out_dtype=out_dtype)
+    return _qmatmul_dequant(x, w, out_dtype=out_dtype, residual=residual)
 
 
-def _qmatmul_dequant(x: torch.Tensor, w: QTensor, *, out_dtype=None) -> torch.Tensor:
+def _qmatmul_dequant(x: torch.Tensor, w: QTensor, *, out_dtype=None,
+                     residual: torch.Tensor | None = None) -> torch.Tensor:
     """Dequantize to x's dtype, then multiply with float32 accumulation (products of
-    x.dtype values are exact in f32)."""
+    x.dtype values are exact in f32); a residual adds in f32 before the cast."""
     wd = w.dequantize(dtype=x.dtype)
     y = torch.matmul(x.float(), wd.float().transpose(-1, -2))
+    if residual is not None:
+        y = residual.float() + y
     return y.to(out_dtype or x.dtype)
+
+
+def qmatmul_gated(x: torch.Tensor, w1: QTensor, w3: QTensor, *, act, act_name: str,
+                  use_kernels: bool | str = False, out_dtype=None) -> torch.Tensor:
+    """FFN gate pair: act(x @ W1^T) * (x @ W3^T). Under use_kernels == "fused" with
+    M > 1 and a pair that passes q4_gated_supported this is one q4_gated_matmul launch;
+    every other configuration runs two qmatmul calls and `act` (the torch function of
+    the kernel's `act_name` epilogue)."""
+    m = math.prod(x.shape[:-1])
+    if (use_kernels == "fused" and m > 1 and act_name in ("silu", "gelu_tanh")
+            and q4_gated_supported(w1, w3, m)):
+        _record("q4_gated_mm", m, w1, op="gated")
+        return q4_gated_matmul(x, w1, w3, act=act_name, out_dtype=out_dtype or x.dtype)
+    return (act(qmatmul(x, w1, use_kernels=use_kernels, out_dtype=out_dtype))
+            * qmatmul(x, w3, use_kernels=use_kernels, out_dtype=out_dtype))

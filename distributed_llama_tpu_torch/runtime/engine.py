@@ -1,10 +1,14 @@
 """Inference engine: model loading, chunked prefill, the generation loop, stats.
 
-The single-sequence, single-card counterpart of the JAX package's runtime/engine.py
-(reference: App::run + Inference, src/app.cpp:123-155, src/tasks.cpp:158-230). Prefill
-runs in chunks of [64, 8, 1] tokens; decode runs one token per step against the KV
-cache; attention reads a power-of-two window bucket of the cache that covers the live
-context.
+The single-card counterpart of the JAX package's runtime/engine.py (reference: App::run
++ Inference, src/app.cpp:123-155, src/tasks.cpp:158-230). Prefill runs in chunks of
+[64, 8, 1] tokens; decode runs one token per step against the KV cache; attention reads
+a power-of-two window bucket of the cache that covers the live context.
+
+Two cache layouts: one sequence in dense (L, 1, hk, S, hs) caches (the generation loop
+below), or, for the batched serving engine (runtime/batch_engine.py), `batch` rows in
+dense (L, B, hk, S, hs) caches or, with `kv_pool=(n_blocks, block_tokens)`, in
+(L, N, hk, bt, hs) block pools read through per-row block tables (`step_rows`).
 
 The engine runs on `cuda` unless the caller passes device="cpu"; without a GPU and
 without device="cpu" it raises. It never moves to the CPU on its own.
@@ -18,7 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models.forward import forward, init_kv_cache
+from ..models.forward import forward, init_kv_cache, init_kv_pool
 from ..models.params import Params, decode_stream_bytes, params_to, prepare_for_cuda
 from ..models.spec import ModelSpec
 from ..ops.rope import RopeTables
@@ -65,7 +69,9 @@ def resolve_device(device=None) -> torch.device:
 class Engine:
     def __init__(self, spec: ModelSpec, params: Params, tokenizer: Tokenizer | None = None,
                  *, device=None, dtype=None, use_kernels: bool | None = None,
-                 prefill_kernel: bool = False):
+                 prefill_kernel: bool = False, fused_matmul: bool = False,
+                 batch: int = 1, kv_pool: tuple[int, int] | None = None,
+                 paged_kernel: bool | None = None):
         if spec.is_moe:
             raise NotImplementedError("the port runs dense models only")
         self.spec = spec
@@ -86,14 +92,30 @@ class Engine:
         self.prefill_kernel = bool(prefill_kernel) and self.use_kernels
         if self.prefill_kernel:
             self.use_kernels = "all"
+        # the fused serving rung (the kwarg, or the server's --fused-matmul): everything
+        # "all" runs plus the residual-add epilogue for wo/w2 and the gate-pair kernel
+        # for separate w1/w3 (kept unmerged for it); subsumes prefill_kernel
+        self.fused_matmul = bool(fused_matmul) and bool(self.use_kernels)
+        if self.fused_matmul:
+            self.use_kernels = "fused"
+        # device block pool for batched serving: (n_blocks, block_tokens)
+        self.batch = batch
+        self.kv_pool = kv_pool
+        # the paged-attention kernel follows use_kernels unless asked for explicitly
+        self.paged_kernel = bool(paged_kernel if paged_kernel is not None
+                                 else self.use_kernels) and kv_pool is not None
         params = params_to(params, self.device)
         if self.use_kernels:
-            params = prepare_for_cuda(params)
+            params = prepare_for_cuda(params, keep_gate_pair=self.fused_matmul)
         self.params = params
         self.decode_weight_bytes = decode_stream_bytes(self.params)
         self.rope = RopeTables.create(spec, self.device)
-        self.k_cache, self.v_cache = init_kv_cache(spec, dtype=self.dtype,
-                                                   device=self.device)
+        if kv_pool is not None:
+            self.k_cache, self.v_cache = init_kv_pool(spec, *kv_pool, dtype=self.dtype,
+                                                      device=self.device)
+        else:
+            self.k_cache, self.v_cache = init_kv_cache(spec, batch, dtype=self.dtype,
+                                                       device=self.device)
         self.pos = 0
 
     @classmethod
@@ -140,6 +162,9 @@ class Engine:
 
     def _infer(self, tokens: list[int] | np.ndarray) -> np.ndarray:
         """One step over T tokens; returns all T positions' logits (T, vocab)."""
+        if self.batch != 1 or self.kv_pool is not None:
+            raise RuntimeError("the single-sequence loop needs batch=1 dense caches; "
+                               "batched engines step through step_rows")
         tokens = np.asarray(tokens, dtype=np.int64)
         t = len(tokens)
         if self.pos + t > self.spec.seq_len:
@@ -151,6 +176,26 @@ class Engine:
             attn_window=self._window_for(self.pos + t))
         self.pos += t
         return logits[0].cpu().numpy()  # host transfer: the step's fence
+
+    def step_rows(self, tokens_rows, starts, tables: torch.Tensor | None,
+                  reads: list[tuple[int, int]]) -> np.ndarray:
+        """One batched (B, T) step for the serving engine: row b's T tokens at its own
+        start position starts[b], through the (B, W) int32 block `tables` on this
+        engine's device in pool mode. Returns the logits of the (row, position) pairs in
+        `reads` as a (len(reads), vocab) array; the host copy is the step's fence."""
+        tok = torch.from_numpy(np.asarray(tokens_rows, dtype=np.int64)).to(self.device)
+        t = tok.shape[1]
+        start = torch.from_numpy(np.asarray(starts, dtype=np.int64)).to(self.device)
+        bt = self.kv_pool[1] if self.kv_pool is not None else 0
+        logits, self.k_cache, self.v_cache = forward(
+            self.params, self.spec, self.rope, tok, self.k_cache, self.v_cache, start,
+            dtype=self.dtype, use_kernels=self.use_kernels,
+            attn_window=self._window_for(max(s + t for s in starts)),
+            block_tables=tables if self.kv_pool is not None else None,
+            block_tokens=bt, paged_kernel=self.paged_kernel)
+        rows = torch.tensor([r for r, _ in reads], dtype=torch.long, device=self.device)
+        cols = torch.tensor([c for _, c in reads], dtype=torch.long, device=self.device)
+        return logits[rows, cols].cpu().numpy()
 
     def prefill(self, tokens: list[int], stats: GenerationStats | None = None) -> np.ndarray:
         """Chunked prompt ingestion; returns logits after the last prompt token."""

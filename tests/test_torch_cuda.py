@@ -4,8 +4,12 @@ skips where no GPU is present (the kernels have no CPU mode). Run on a GPU machi
 `python -m pytest -q -m cuda tests/test_torch_cuda.py`.
 
 Tolerances, relative to max|reference|: q4_matvec 1e-4 (exact integer block dots, f32
-block sum in another order), q4_matmul 1e-3 (identical bf16 operands, tensor-core f32
-accumulation order), decode_attention 1e-4 (f32 softmax, split merge order)."""
+block sum in another order), q4_matmul and its residual mode 1e-3 (identical bf16
+operands, tensor-core f32 accumulation order), q4_gated_matmul 1e-3 (the same products,
+the activation on the same f32 sums), decode_attention and paged_attention 1e-4 (f32
+softmax, split merge order). The serving tests hold the fused BatchEngine on the card
+against the CPU plain versions: identical greedy tokens per request, logits step by step
+within 2e-3·max|logits| (`chip_smoke.serving_parity`)."""
 
 import numpy as np
 import pytest
@@ -15,6 +19,8 @@ from distributed_llama_tpu_torch.models.params import init_random_params
 from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
 from distributed_llama_tpu_torch.ops import decode_attention as da
 from distributed_llama_tpu_torch.ops import matmul as matmul_mod
+from distributed_llama_tpu_torch.ops import paged_attention as pa
+from distributed_llama_tpu_torch.ops import q4_gated_matmul as gm
 from distributed_llama_tpu_torch.ops import q4_matmul as mm
 from distributed_llama_tpu_torch.ops import q4_matvec as mv
 from distributed_llama_tpu_torch.quants import FloatType
@@ -55,7 +61,7 @@ def test_q4_matvec_kernel_matches_plain(cuda, n, k, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(2, 130, 256), (8, 4096, 11008), (64, 12288, 4096),
-                                   (70, 96, 704)])
+                                   (512, 32000, 4096), (70, 96, 704)])
 def test_q4_matmul_kernel_matches_plain(cuda, m, n, k):
     packed, scales = _planes(n, k, cuda, seed=m)
     x = torch.randn(m, k, device=cuda)
@@ -146,3 +152,106 @@ def test_engine_kernels_match_cpu_plain(cuda, monkeypatch):
         lg, cg = run(lambda: gpu.infer_chunk([tg]))
         lc, cc = run(lambda: cpu.infer_chunk([tc]))
     assert all(a > b for a, b in zip((mv.launches, mm.launches, da.launches), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8, 4096, 4096), (64, 4096, 11008), (512, 4096, 11008),
+                                   (3, 96, 704)])
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16])
+def test_q4_matmul_res_kernel_matches_plain(cuda, m, n, k, res_dtype):
+    """(3, 96, 704) splits K, so the residual rides the second pass."""
+    packed, scales = _planes(n, k, cuda, seed=m + 1)
+    x = torch.randn(m, k, device=cuda)
+    res = torch.randn(m, n, device=cuda).to(res_dtype)
+    before = (mm.launches, mm.res_launches)
+    got = mm._launch(x, packed, scales, res)
+    torch.cuda.synchronize()
+    assert (mm.launches, mm.res_launches) == (before[0], before[1] + 1)
+    assert _rel_err(got, mm.q4_matmul_res_plain(x, packed, scales, res)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8, 11008, 4096), (64, 11008, 4096), (512, 11008, 4096),
+                                   (2, 96, 704)])
+@pytest.mark.parametrize("act", ["silu", "gelu_tanh"])
+def test_q4_gated_matmul_kernel_matches_plain(cuda, m, n, k, act):
+    """(2, 96, 704) splits K: the activation must run on the summed partials."""
+    w1, w3 = _planes(n, k, cuda, seed=m + 2), _planes(n, k, cuda, seed=m + 3)
+    x = torch.randn(m, k, device=cuda)
+    before = gm.launches
+    got = gm._launch(x, w1, w3, act)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1
+    assert _rel_err(got, gm.q4_gated_matmul_plain(x, w1, w3, act)) < 1e-3
+
+
+def _paged_inputs(dev, dtype, t, g, hk, hs, lengths, bt=16, n_layers=2, seed=0):
+    """Pools with NaN in the scratch block, in every block no table holds, and in the
+    rows of live blocks at or past each row's length."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lengths)
+    w = -(-(max(lengths) + t) // bt)
+    n_blocks = b * w + 3
+    kc = torch.randn(n_layers, n_blocks, hk, bt, hs, generator=gen, device=dev).to(dtype)
+    vc = torch.randn(n_layers, n_blocks, hk, bt, hs, generator=gen, device=dev).to(dtype)
+    tables = torch.zeros(b, w, dtype=torch.int32)
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    used, live = 0, []
+    for r, ln in enumerate(lengths):
+        nb = -(-ln // bt)
+        tables[r, :nb] = perm[used:used + nb].to(torch.int32)
+        live += perm[used:used + nb].tolist()
+        used += nb
+    dead = torch.ones(n_blocks, dtype=torch.bool)
+    dead[live] = False
+    kc[:, dead.to(dev)] = float("nan")
+    vc[:, dead.to(dev)] = float("nan")
+    for r, ln in enumerate(lengths):
+        if ln % bt:
+            kc[:, int(tables[r, ln // bt]), :, ln % bt:] = float("nan")
+            vc[:, int(tables[r, ln // bt]), :, ln % bt:] = float("nan")
+    q = torch.randn(b, t, hk * g, hs, generator=gen, device=dev)
+    kn = torch.randn(b, hk, t, hs, generator=gen, device=dev).to(dtype)
+    vn = torch.randn(b, hk, t, hs, generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kc, vc, kn, vn, tables.to(dev), lens, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,g,hk,hs", [(1, 1, 32, 128), (5, 4, 2, 64), (8, 1, 32, 128),
+                                       (64, 1, 8, 128), (3, 8, 1, 32)])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, t, g, hk, hs):
+    q, kc, vc, kn, vn, tables, lens, w = _paged_inputs(cuda, dtype, t, g, hk, hs,
+                                                       [0, 37, 300, 16], seed=t + g)
+    layer = torch.ones(1, dtype=torch.int32, device=cuda)
+    before = pa.launches
+    got = pa._launch(q, kc, vc, kn, vn, tables, lens, layer, w)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = pa.paged_attention_plain(q, kc, vc, kn, vn, tables, lens, 1, n_read=w)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_batch_engine_fused_kernels_match_cpu_plain(cuda):
+    """A tiny fused BatchEngine: the card's kernels against the CPU plain versions on
+    staggered requests — identical greedy tokens, and every serving kernel launched."""
+    import chip_smoke
+
+    spec = ModelSpec(arch_type=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2,
+                     n_heads=4, n_kv_heads=2, vocab_size=300, seq_len=512).resolved()
+    before = (mm.launches, mm.res_launches, gm.launches, pa.launches)
+    report = chip_smoke.serving_parity(spec=spec, max_tokens=12)
+    assert "tokens identical" in report
+    after = (mm.launches, mm.res_launches, gm.launches, pa.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+def test_batch_engine_7b_width_matches_cpu_plain(cuda):
+    """The 2-layer model at Llama-2-7B width in f32 (the chip_smoke parity phase)."""
+    import chip_smoke
+
+    assert "tokens identical" in chip_smoke.serving_parity()

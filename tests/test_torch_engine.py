@@ -132,7 +132,8 @@ def test_cli_generate_and_inference_on_cpu(model_files, capsys):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """With jax and distributed_llama_tpu blocked, every port module (and chip_smoke)
-    imports, and one CPU decode step runs."""
+    imports — the serving modules named explicitly — and one CPU decode step of the
+    Engine and a short fused BatchEngine generation run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -150,6 +151,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
         import chip_smoke  # noqa: F401
+        from distributed_llama_tpu_torch.apps import api_server  # noqa: F401
+        from distributed_llama_tpu_torch.cache import device_pool  # noqa: F401
+        from distributed_llama_tpu_torch.ops import paged_attention, q4_gated_matmul  # noqa: F401
+        from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+        from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
         from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
         from distributed_llama_tpu_torch.quants import FloatType
@@ -159,6 +165,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         eng = Engine(spec, init_random_params(spec, FloatType.Q40, seed=1), device="cpu",
                      use_kernels=True)
         assert eng.infer_chunk([3]).shape == (64,)
+        be = BatchEngine(spec, init_random_params(spec, FloatType.Q40, seed=1), slots=2,
+                         device="cpu", use_kernels=True, fused_matmul=True)
+        assert len(be.generate([1, 2, 3], 2, Sampler(64))[0]) == 2
+        be.close()
         assert not any(k.split(".")[0] in blocked for k in sys.modules)
         print("ok")
     """)

@@ -89,3 +89,96 @@ def test_forward_window_bound_equals_full():
                                     attn_window=window)
         outs.append(logits)
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-6)
+
+
+_BKW = dict(dim=256, hidden_dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=262,
+            seq_len=64)
+_BT = 8
+# (tokens (B, T), per-row starts) of four steps of three rows over one block table:
+# a 5-token prefill of every row; a mixed step (row 0 prefills 4 tokens, row 1 rides
+# with one real token and scratch, row 2 parks); two decode steps at ragged positions
+_STEPS = [([[1, 7, 9, 30, 200], [1, 5, 6, 8, 40], [1, 99, 3, 120, 66]], [0, 0, 0]),
+          ([[17, 40, 41, 42], [99, 0, 0, 0], [0, 0, 0, 0]], [5, 5, 5]),
+          ([[3], [120], [66]], [9, 6, 5]),
+          ([[12], [13], [14]], [10, 7, 6])]
+_TABLES = np.array([[1, 2, 0, 0, 0, 0, 0, 0], [3, 4, 0, 0, 0, 0, 0, 0],
+                    [5, 6, 0, 0, 0, 0, 0, 0]], np.int32)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_batched_paged_forward_matches_jax(kernels):
+    """Per-row start_pos through block tables, against JAX forward(block_tables=...):
+    the dequantize regime (use_pallas=False), and the fused kernel regime —
+    use_kernels="fused" with the paged kernel's plain version against
+    use_pallas="fused" + paged_kernel with the Pallas kernels in interpret mode.
+    Logits within atol 1e-4 with identical argmax; the pools equal to 1e-5 outside the
+    scratch block (whose garbage writes may land in either order)."""
+    jspec = ModelSpec(arch_type=ArchType.LLAMA, **_BKW).resolved()
+    tspec = TSpec(arch_type=TArch.LLAMA, **_BKW).resolved()
+    jp = init_random_params(jspec, FloatType.Q40, seed=3)
+    if kernels:
+        jp = prepare_for_pallas(jp, spec=jspec, keep_gate_pair=True)
+        assert "w1" in jp["blocks"] and jp["blocks"]["w1"].layout == "i4p"
+    tp = params_from_numpy(to_numpy_tree(jp))
+    jrope, trope = JRope.create(jspec), TRope.create(tspec)
+    shape = (2, 8, 2, _BT, jspec.head_size)
+    jk, jv = jnp.zeros(shape), jnp.zeros(shape)
+    tk, tv = torch.zeros(shape), torch.zeros(shape)
+    for tokens, starts in _STEPS:
+        jl, jk, jv = jfwd.forward(
+            jp, jspec, jrope, jnp.asarray(tokens), jk, jv, jnp.asarray(starts, jnp.int32),
+            use_pallas="fused" if kernels else False, cache_write="deferred",
+            block_tables=jnp.asarray(_TABLES), block_tokens=_BT, paged_kernel=kernels)
+        tl, tk, tv = tfwd.forward(
+            tp, tspec, trope, torch.tensor(tokens), tk, tv, torch.tensor(starts),
+            use_kernels="fused" if kernels else False,
+            block_tables=torch.from_numpy(_TABLES), block_tokens=_BT,
+            paged_kernel=kernels)
+        jl = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), jl, atol=1e-4, rtol=0)
+        assert (tl.numpy().argmax(-1) == jl.argmax(-1)).all()
+    np.testing.assert_allclose(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:], atol=1e-5, rtol=0)
+
+
+def test_dense_per_row_forward_matches_jax():
+    """Per-row start_pos on dense (L, B, hk, S, hs) caches (the per-row deferred branch
+    and its clamped per-row commit), against JAX forward with (B,) start_pos."""
+    jspec = ModelSpec(arch_type=ArchType.LLAMA, **_KW).resolved()
+    tspec = TSpec(arch_type=TArch.LLAMA, **_KW).resolved()
+    jp = init_random_params(jspec, FloatType.Q40, seed=4)
+    tp = params_from_numpy(to_numpy_tree(jp))
+    jrope, trope = JRope.create(jspec), TRope.create(tspec)
+    jk, jv = jfwd.init_kv_cache(jspec, batch=3)
+    tk, tv = tfwd.init_kv_cache(tspec, batch=3)
+    for tokens, starts in _STEPS:
+        jl, jk, jv = jfwd.forward(jp, jspec, jrope, jnp.asarray(tokens), jk, jv,
+                                  jnp.asarray(starts, jnp.int32), cache_write="deferred")
+        tl, tk, tv = tfwd.forward(tp, tspec, trope, torch.tensor(tokens), tk, tv,
+                                  torch.tensor(starts))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5, rtol=0)
+
+
+def test_paged_commit_lands_each_row_where_numpy_indexing_puts_it():
+    """Every (b, t, l, h) row carries distinct values, so a transposed or misrouted write
+    shows: position p of row b must land in pool block tables[b, p // bt] at offset
+    p % bt, as the JAX package's `.at[:, blk, :, off, :].set(...)` puts it."""
+    lyr, b, hk, t, hs, n, bt = 3, 2, 2, 3, 4, 6, 4
+    rows = (np.arange(lyr * b * hk * t * hs, dtype=np.float32)
+            .reshape(lyr, b, hk, t, hs) + 1.0)
+    positions = np.array([[2, 3, 4], [5, 6, 7]])
+    tables = np.array([[1, 4], [3, 2]], np.int32)
+    kp, vp = torch.zeros(lyr, n, hk, bt, hs), torch.zeros(lyr, n, hk, bt, hs)
+    tfwd.commit_paged(kp, vp, torch.from_numpy(rows), torch.from_numpy(-rows),
+                      torch.from_numpy(positions), torch.from_numpy(tables), bt)
+    blk = np.take_along_axis(tables, positions // bt, axis=1)
+    want = jnp.zeros((lyr, n, hk, bt, hs)).at[:, blk, :, positions % bt, :].set(
+        jnp.transpose(jnp.asarray(rows), (1, 3, 0, 2, 4)))
+    np.testing.assert_array_equal(kp.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(vp.numpy(), -np.asarray(want))
+    for bi in range(b):
+        for ti in range(t):
+            p = positions[bi, ti]
+            got = kp[:, tables[bi, p // bt], :, p % bt, :].numpy()  # (L, hk, hs)
+            np.testing.assert_array_equal(got, rows[:, bi, :, ti, :])

@@ -76,15 +76,16 @@ def test_q4_matmul_plain_matches_pallas(m, n, k):
 
 
 def test_qmatmul_dispatch_selects_kernels():
-    w, packed, scales = _i4p(64, 128, seed=3)
+    # K = 256: K/2 = 128 passes the M > 1 kernel's shape gate (q4_mm_supported)
+    w, packed, scales = _i4p(64, 256, seed=3)
     tw = TQTensor(w.ftype, packed, scales, "i4p")
-    x1, x4 = torch.randn(1, 1, 128), torch.randn(1, 4, 128)
+    x1, x4 = torch.randn(1, 1, 256), torch.randn(1, 4, 256)
     qmatmul(x1, tw, use_kernels=True)
     qmatmul(x4, tw, use_kernels=True)
     qmatmul(x4, tw, use_kernels="all")
     sel = kernel_selections()
-    assert sel["m=1,n=64,k=128,layout=i4p,op=mm"] == "q4_matvec"
-    assert sel["m=4,n=64,k=128,layout=i4p,op=mm"] == "q4_mm"
+    assert sel["m=1,n=64,k=256,layout=i4p,op=mm"] == "q4_matvec"
+    assert sel["m=4,n=64,k=256,layout=i4p,op=mm"] == "q4_mm"
     # the dequantize path equals the dequantized weights' f32 product
     got = qmatmul(x4, tw, use_kernels=False)
     want = x4 @ tw.dequantize(torch.float32).T
