@@ -323,6 +323,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[t.value for t in TemplateType])
     p.add_argument("--no-kernels", action="store_true",
                    help="run the dequantize path instead of the CUDA kernels")
+    p.add_argument("--prologue", action="store_true", default=None,
+                   help="fused rmsnorm+Q80 prologue kernels on the decode path (also "
+                        "DLT_PROLOGUE=1); single-row decode only, so it takes effect at "
+                        "--batch 1")
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
@@ -338,7 +342,8 @@ def engine_kwargs(args) -> dict:
                 dtype=(None if args.dtype == "auto"
                        else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
                 use_kernels=False if args.no_kernels else None,
-                fused_matmul=args.fused_matmul or args.batch > 1)
+                fused_matmul=args.fused_matmul or args.batch > 1,
+                fused_prologue=args.prologue)
 
 
 def build_server(args) -> ThreadingHTTPServer:

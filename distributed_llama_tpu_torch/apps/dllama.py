@@ -51,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the dequantize path instead of the CUDA kernels")
     p.add_argument("--prefill-kernel", action="store_true",
                    help="run prefill chunks through the q4 dequant-matmul kernel")
+    p.add_argument("--prologue", action="store_true", default=None,
+                   help="fused rmsnorm+Q80 prologue kernels on the decode path "
+                        "(ops/prologue.py; also DLT_PROLOGUE=1)")
     return p
 
 
@@ -63,9 +66,10 @@ def make_engine(args) -> Engine:
         dtype=(None if args.dtype == "auto"
                else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
         use_kernels=False if args.no_kernels else None,
-        prefill_kernel=args.prefill_kernel)
+        prefill_kernel=args.prefill_kernel, fused_prologue=args.prologue)
     print(f"⏩ Loaded model in {time.perf_counter() - t0:.1f}s "
-          f"(device={engine.device}, kernels={engine.use_kernels})")
+          f"(device={engine.device}, kernels={engine.use_kernels}, "
+          f"prologue={engine.fused_prologue})")
     spec = engine.spec
     for k in ("dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size",
               "seq_len"):

@@ -1,9 +1,12 @@
 // q4_matvec: y = W·x for one activation row against Q40 weights in the i4p
-// split-plane layout, with x quantized to Q80 inside the kernel.
+// split-plane layout, with x quantized to Q80 inside the kernel (entry `q4_matvec`) or
+// given already quantized as xq int8 + sx f32 block scales (entry `q4_matvec_q80`).
 //
 // Replaces distributed_llama_tpu/ops/pallas_q4.py `_q4_matvec` (kernel body
 // `_matvec_kernel` -> `_unpack_dot_epilogue`) together with the Q80 row quantizer
-// `_quantize_row` of ops/pallas_q8.py that feeds it.
+// `_quantize_row` of ops/pallas_q8.py that feeds it, and `_q4_matvec_inline`
+// (`_matvec_kernel_inline`), which takes the row the fused prologue quantized. The two
+// entries share the row loop; only the staging of the row into shared memory differs.
 //
 // What it computes (the same numbers as the TPU kernel):
 //   xq[j] = round_half_even(x[j] * (127 / absmax_b)), sx[b] = absmax_b / 127
@@ -35,8 +38,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// kPreq: the row arrives quantized (xq_in, sx_in) instead of as floats (x, x_bf16)
+template <bool kPreq>
 __global__ void __launch_bounds__(kThreads)
 q4_matvec_kernel(const void* __restrict__ x, int x_bf16,
+                 const int8_t* __restrict__ xq_in, const float* __restrict__ sx_in,
                  const uint8_t* __restrict__ wp, const __half* __restrict__ ws,
                  float* __restrict__ y, int n, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -48,9 +54,23 @@ q4_matvec_kernel(const void* __restrict__ x, int x_bf16,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // Q80 quantization of the row, one warp per 32-block (ops/pallas_q8.py _quantize_row)
+  // Q80 quantization of the row, one warp per 32-block (ops/pallas_q8.py _quantize_row);
+  // a pre-quantized row is copied with its scales. Either way each block's sum of xq
+  // goes to ssum for the nibble offset.
   for (int b = warp; b < nb; b += kWarps) {
     const int j = b * 32 + lane;
+    if (kPreq) {
+      const int q = xq_in[j];
+      xq[j] = static_cast<int8_t>(q);
+      int s = q;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (lane == 0) {
+        sx[b] = sx_in[b];
+        ssum[b] = s;
+      }
+      continue;
+    }
     const float v = x_bf16
         ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[j])
         : reinterpret_cast<const float*>(x)[j];
@@ -113,13 +133,29 @@ q4_matvec_kernel(const void* __restrict__ x, int x_bf16,
 
 }  // namespace
 
+static size_t smem_bytes(int k) {
+  return static_cast<size_t>(k) + 8 * static_cast<size_t>(k / 32);
+}
+
 // x: (k,) f32 or bf16 (x_bf16); wp: (n, k/2) u8 i4p; ws: (n, k/32) f16; y: (n,) f32.
 // Requires k % 64 == 0 and 16-byte aligned wp. grid: number of blocks to launch.
 extern "C" int q4_matvec(const void* x, int x_bf16, const void* wp, const void* ws,
                          void* y, int n, int k, int grid, void* stream) {
-  const size_t smem = static_cast<size_t>(k) + 8 * static_cast<size_t>(k / 32);
-  q4_matvec_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, x_bf16, static_cast<const uint8_t*>(wp), static_cast<const __half*>(ws),
+  q4_matvec_kernel<false><<<grid, kThreads, smem_bytes(k),
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, x_bf16, nullptr, nullptr, static_cast<const uint8_t*>(wp),
+      static_cast<const __half*>(ws), static_cast<float*>(y), n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq: (k,) int8 and sx: (k/32,) f32, the Q80 row; the rest as q4_matvec.
+extern "C" int q4_matvec_q80(const void* xq, const void* sx, const void* wp,
+                             const void* ws, void* y, int n, int k, int grid,
+                             void* stream) {
+  q4_matvec_kernel<true><<<grid, kThreads, smem_bytes(k),
+                           static_cast<cudaStream_t>(stream)>>>(
+      nullptr, 0, static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
+      static_cast<const uint8_t*>(wp), static_cast<const __half*>(ws),
       static_cast<float*>(y), n, k);
   return static_cast<int>(cudaGetLastError());
 }

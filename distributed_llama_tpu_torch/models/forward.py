@@ -23,7 +23,14 @@ Kernel paths (use_kernels): decode projections and the logits take kernel 1
 the pool layout's attention takes kernel 9 (ops/paged_attention.py) under
 `paged_kernel`, and with use_kernels in ("all", "fused") the M > 1 projections take
 kernel 2 (ops/q4_matmul.py); "fused" adds the residual mode (kernel 4) for wo and w2 and
-the gate-pair kernel 5 (ops/q4_gated_matmul.py) for separate w1/w3.
+the gate-pair kernel 5 (ops/q4_gated_matmul.py) for separate w1/w3. i8 weights (Q80,
+and Q40 that fails the i4p alignment) take q8_matvec (ops/q8_matvec.py) at one row.
+
+The fused activation prologue (`fused_prologue`, single-row decode with the kernels on):
+each layer's rmsnorm and the Q80 quantization of its row run as one kernel
+(ops/prologue.py) before the QKV and gate/up projections, the attention output and the
+FFN hidden are quantized by the prologue's second kernel before wo and w2, and the
+projections take the quantized rows (`qmatmul_q80`); the residual is added outside.
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ import torch
 from ..ops.attention import gqa_attention
 from ..ops.decode_attention import decode_attention
 from ..ops.kernels import gelu_tanh, rmsnorm, silu
-from ..ops.matmul import qmatmul, qmatmul_gated
+from ..ops.matmul import qmatmul, qmatmul_gated, qmatmul_q80
 from ..ops.paged_attention import paged_attention, paged_gather_kv
+from ..ops.prologue import prologue_supported, quantize_q80_row, rmsnorm_quantize_q80
 from ..ops.rope import RopeTables, apply_rope
 from ..quants import QTensor
 from .spec import ArchType, HiddenAct, ModelSpec
@@ -69,7 +77,7 @@ class _Step:
     tables and the kernel switches."""
 
     def __init__(self, spec, rope, start_pos, positions, use_kernels, window,
-                 block_tables, block_tokens, paged_kernel, lengths, layer_ids):
+                 block_tables, block_tokens, paged_kernel, lengths, layer_ids, prologue):
         self.spec = spec
         self.rope = rope
         self.start_pos = start_pos  # int, or (B,) int64 tensor
@@ -81,6 +89,7 @@ class _Step:
         self.paged_kernel = paged_kernel
         self.lengths = lengths  # (B,) int32 on the device, for the paged kernel
         self.layer_ids = layer_ids  # (L,) int32 on the device, for the paged kernel
+        self.prologue = prologue  # the fused activation prologue is on for this step
 
 
 def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
@@ -92,10 +101,20 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
     hs = spec.head_size
     hk = kc.shape[2]
     use_kernels = st.use_kernels
-    xb = rmsnorm(x, bp["rms_att"], spec.norm_eps)
+    if st.prologue:
+        # one kernel normalizes and quantizes the row; the projections take it quantized
+        xq, sx = rmsnorm_quantize_q80(x, bp["rms_att"], spec.norm_eps)
+
+        def project(name):
+            return qmatmul_q80(xq, sx, bp[name], use_kernels=use_kernels, out_dtype=x.dtype)
+    else:
+        xb = rmsnorm(x, bp["rms_att"], spec.norm_eps)
+
+        def project(name):
+            return qmatmul(xb, bp[name], use_kernels=use_kernels)
     if "wqkv" in bp:
         # merged QKV: one launch for the three projections, rows split dim : kv : kv
-        qkv = qmatmul(xb, bp["wqkv"], use_kernels=use_kernels)
+        qkv = project("wqkv")
         total = qkv.shape[-1]
         lq = total * spec.dim // (spec.dim + 2 * spec.kv_dim)
         lkv = (total - lq) // 2
@@ -103,9 +122,9 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         k = qkv[..., lq:lq + lkv]
         v = qkv[..., lq + lkv:]
     else:
-        q = qmatmul(xb, bp["wq"], use_kernels=use_kernels)
-        k = qmatmul(xb, bp["wk"], use_kernels=use_kernels)
-        v = qmatmul(xb, bp["wv"], use_kernels=use_kernels)
+        q = project("wq")
+        k = project("wk")
+        v = project("wv")
     hq = q.shape[-1] // hs
     q = apply_rope(q.reshape(b, t, hq, hs), st.rope, st.positions)
     k = apply_rope(k.reshape(b, t, hk, hs), st.rope, st.positions)
@@ -148,26 +167,50 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
                                  st.positions], dim=1)
         att = gqa_attention(q, torch.cat([kw, k_t], dim=2), torch.cat([vw, v_t], dim=2),
                             st.positions, key_positions=key_pos)
-    if use_kernels == "fused":
+    if st.prologue and prologue_supported(att.shape[-1]):
+        # the attention output is quantized by the prologue's kernel, not in the matvec
+        aq, asx = quantize_q80_row(att)
+        y = qmatmul_q80(aq, asx, bp["wo"], use_kernels=use_kernels, out_dtype=x.dtype)
+    elif use_kernels == "fused":
         # the residual add runs in the wo kernel's f32 epilogue
         return qmatmul(att, bp["wo"], use_kernels=use_kernels, residual=residual), (k_t, v_t)
-    y = qmatmul(att, bp["wo"], use_kernels=use_kernels)
+    else:
+        y = qmatmul(att, bp["wo"], use_kernels=use_kernels)
     return residual + y, (k_t, v_t)
 
 
-def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual):
-    """Dense FFN on the pre-norm block input; returns residual + ffn(x)."""
+def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = False):
+    """Dense FFN on the pre-norm block input; returns residual + ffn(x). Under the
+    prologue the gate/up projections take the normalized row quantized by one kernel and
+    come out in f32, and the hidden row is quantized by the prologue's kernel before w2."""
     act = _act(spec)
-    xb = rmsnorm(x, bp["rms_ffn"], spec.norm_eps)
-    if "w13" in bp:
-        # merged gate+up: [gate | up] rows, act(gate) * up
-        y = qmatmul(xb, bp["w13"], use_kernels=use_kernels)
-        hl = y.shape[-1] // 2
-        h = act(y[..., :hl]) * y[..., hl:]
+    if prologue:
+        xq, sx = rmsnorm_quantize_q80(x, bp["rms_ffn"], spec.norm_eps)
+
+        def project(name):
+            return qmatmul_q80(xq, sx, bp[name], use_kernels=use_kernels,
+                               out_dtype=torch.float32)
+        if "w13" in bp:
+            y = project("w13")
+            hl = y.shape[-1] // 2
+            h = act(y[..., :hl]) * y[..., hl:]
+        else:
+            h = act(project("w1")) * project("w3")
     else:
-        # separate w1/w3: under "fused" one gate-pair kernel launch
-        h = qmatmul_gated(xb, bp["w1"], bp["w3"], act=act, act_name=_act_name(spec),
-                          use_kernels=use_kernels)
+        xb = rmsnorm(x, bp["rms_ffn"], spec.norm_eps)
+        if "w13" in bp:
+            # merged gate+up: [gate | up] rows, act(gate) * up
+            y = qmatmul(xb, bp["w13"], use_kernels=use_kernels)
+            hl = y.shape[-1] // 2
+            h = act(y[..., :hl]) * y[..., hl:]
+        else:
+            # separate w1/w3: under "fused" one gate-pair kernel launch
+            h = qmatmul_gated(xb, bp["w1"], bp["w3"], act=act, act_name=_act_name(spec),
+                              use_kernels=use_kernels)
+    if prologue and prologue_supported(h.shape[-1]):
+        hq, hsx = quantize_q80_row(h)
+        return residual + qmatmul_q80(hq, hsx, bp["w2"], use_kernels=use_kernels,
+                                      out_dtype=x.dtype)
     if use_kernels == "fused":
         return qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels, residual=residual)
     out = qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels)
@@ -178,7 +221,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             tokens: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             start_pos, *, dtype=torch.float32, use_kernels: bool | str = False,
             attn_window: int | None = None, block_tables: torch.Tensor | None = None,
-            block_tokens: int = 0, paged_kernel: bool = False):
+            block_tokens: int = 0, paged_kernel: bool = False,
+            fused_prologue: bool = False):
     """Run T tokens through the model at cache position start_pos.
 
     tokens: (B, T) integer tensor. start_pos: an int (all rows at one offset) or a (B,)
@@ -186,7 +230,10 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     (L, B, hk, S, hs) caches, or with block_tables ((B, W) int32 tensor, per-row
     start_pos required) (L, N, hk, bt, hs) pools with bt = block_tokens. attn_window
     bounds the positions attention reads (must cover start_pos + T; None = all).
-    paged_kernel routes the pool layout's attention through kernel 9.
+    paged_kernel routes the pool layout's attention through kernel 9. fused_prologue
+    turns the fused activation prologue on where it applies, as the JAX package gates
+    it: kernels on, one row of one token at a scalar start_pos, and a model width the
+    prologue kernels take.
 
     Rows of a mixed batch need not use all T positions: a decode row in a (B, T) prefill
     step puts its one real token at index 0 and scratch beyond; causal masking confines
@@ -212,14 +259,16 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             layer_ids = torch.arange(spec.n_layers, dtype=torch.int32, device=dev)
     else:
         positions = start_pos + torch.arange(t, device=dev)
+    prologue = bool(fused_prologue and use_kernels and t == 1 and tokens.shape[0] == 1
+                    and not per_row and prologue_supported(spec.dim))
     st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,
-               block_tokens, paged_kernel, lengths, layer_ids)
+               block_tokens, paged_kernel, lengths, layer_ids, prologue)
     x = params["embedding"][tokens].to(dtype)
     k_rows, v_rows = [], []
     for li in range(spec.n_layers):
         bp = layer_params(params["blocks"], li)
         x, (k_t, v_t) = _attention(x, bp, li, st, k_cache, v_cache, residual=x)
-        x = _dense_ffn(x, bp, spec, use_kernels, residual=x)
+        x = _dense_ffn(x, bp, spec, use_kernels, residual=x, prologue=prologue)
         k_rows.append(k_t)
         v_rows.append(v_t)
     # commit all layers' new rows: (L, B, hk, T, hs)

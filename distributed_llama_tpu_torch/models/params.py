@@ -23,6 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.q4_matvec import MAX_K as Q4_MAX_K
+from ..ops.q8_matvec import MAX_K as Q8_MAX_K
 from ..quants import FloatType, QTensor
 from .spec import ArchType, ModelSpec
 
@@ -89,13 +91,14 @@ def params_from_numpy(tree: dict, device="cpu") -> Params:
     """Build the port's params from the JAX package's params given as numpy leaves.
 
     A quantized leaf is a dict with the JAX QTensor's fields: `ftype`, `data`, `scales`
-    (None for dense), `layout` ("planar" or "i4p"), `groups` and `row_groups`; every
-    other leaf is a float array. i4p scales arrive as the int16 bit patterns of the f16
-    deltas and are viewed as float16 (same bits). Nested dicts without `ftype` recurse."""
+    (None for dense), `layout` ("planar", "i4p" or "i8"), `groups` and `row_groups`;
+    every other leaf is a float array. i4p scales arrive as the int16 bit patterns of the
+    f16 deltas and are viewed as float16 (same bits); i8 scales are float32. Nested dicts
+    without `ftype` recurse."""
 
     def leaf(v):
         if isinstance(v, dict) and "ftype" in v:
-            if v["layout"] not in ("planar", "i4p"):
+            if v["layout"] not in ("planar", "i4p", "i8"):
                 raise ValueError(f"layout {v['layout']!r} is not part of the port yet")
             scales = v["scales"]
             if scales is not None:
@@ -131,25 +134,39 @@ _FUSE_GROUPS = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
 
 
 def _kernel_convertible(t) -> bool:
-    """Q40 planar weights whose K keeps the split-plane boundary on a block boundary
-    (K % 64 == 0) repack to i4p for the q4 kernels; everything else (Q80, dense, odd K)
-    stays as it is and runs the dequantize path."""
-    return (isinstance(t, QTensor) and t.ftype == FloatType.Q40
-            and t.layout == "planar" and t.shape[-1] % 64 == 0)
+    """Planar Q40 and Q80 weights repack for the decode kernels (the JAX package's
+    _I8_CONVERTIBLE); dense weights and tensors already in a kernel layout stay as they
+    are."""
+    return (isinstance(t, QTensor) and t.ftype in (FloatType.Q40, FloatType.Q80)
+            and t.layout == "planar")
+
+
+def _decode_layout(t: QTensor) -> QTensor:
+    """The decode-kernel layout of one weight, as the JAX package's _decode_layout picks
+    it at tp=1: Q40 whose K keeps the split-plane boundary on a block boundary
+    (K % 64 == 0) -> i4p nibbles (0.5625 B/weight, the q4 kernels); every other Q40 and
+    every Q80 weight -> int8 planes (1.125 B/weight, the q8 kernel). A K wider than the
+    kernels stage in shared memory stays planar (the dequantize path); the JAX package's
+    TPU VMEM limit on K (q8_shape_supported) is not a property of this card."""
+    k = t.shape[-1]
+    if t.ftype == FloatType.Q40 and k % 64 == 0 and k <= Q4_MAX_K:
+        return t.to_i4p_layout()
+    return t.to_i8_layout() if k <= Q8_MAX_K else t
 
 
 def fuse_matvec_groups(blocks: Params, skip: tuple[str, ...] = ()) -> Params:
     """Replace wq/wk/wv -> wqkv and w1/w3 -> w13 with row-concatenated planar tensors
-    where every member is kernel-convertible, except the groups named in `skip`. Quant
-    blocks run along the in axis, so row concatenation never touches block structure."""
+    where every member is kernel-convertible and all share one float type, except the
+    groups named in `skip`. Quant blocks run along the in axis, so row concatenation
+    never touches block structure."""
     out = dict(blocks)
     for fused, members in _FUSE_GROUPS.items():
         if fused in skip:
             continue
         ts = [blocks.get(m) for m in members]
-        if not all(_kernel_convertible(t) for t in ts):
+        if not all(_kernel_convertible(t) for t in ts) or len({t.ftype for t in ts}) != 1:
             continue
-        out[fused] = QTensor(FloatType.Q40, torch.cat([t.data for t in ts], dim=1),
+        out[fused] = QTensor(ts[0].ftype, torch.cat([t.data for t in ts], dim=1),
                              torch.cat([t.scales for t in ts], dim=1))
         for m in members:
             del out[m]
@@ -158,11 +175,12 @@ def fuse_matvec_groups(blocks: Params, skip: tuple[str, ...] = ()) -> Params:
 
 def prepare_for_cuda(params: Params, fuse: bool = True,
                      keep_gate_pair: bool = False) -> Params:
-    """Repack the dense matmul weights into the decode-kernel layout (i4p packed nibbles
-    for Q40), merging the QKV and gate/up groups first when `fuse`. keep_gate_pair=True
-    leaves w1/w3 separate for the gate-pair kernel (ops/q4_gated_matmul.py), as the
-    fused serving rung wants. The counterpart of the JAX package's prepare_for_pallas at
-    tp=1."""
+    """Repack the dense matmul weights into the decode-kernel layouts (i4p packed
+    nibbles for Q40 with K % 64 == 0, int8 planes for every other Q40 and all Q80),
+    merging the QKV and gate/up groups first when `fuse`. keep_gate_pair=True leaves
+    w1/w3 separate for the gate-pair kernel (ops/q4_gated_matmul.py), as the fused
+    serving rung wants. Weights already in a kernel layout are left as they are. The
+    counterpart of the JAX package's prepare_for_pallas at tp=1."""
     out: Params = {"embedding": params["embedding"], "blocks": {},
                    "rms_final": params["rms_final"]}
     blocks = (fuse_matvec_groups(params["blocks"],
@@ -170,11 +188,11 @@ def prepare_for_cuda(params: Params, fuse: bool = True,
               if fuse else params["blocks"])
     for name, t in blocks.items():
         if (name in _DENSE_MATMULS or name in _FUSE_GROUPS) and _kernel_convertible(t):
-            out["blocks"][name] = t.to_i4p_layout()
+            out["blocks"][name] = _decode_layout(t)
         else:
             out["blocks"][name] = t
     wcls = params["wcls"]
-    out["wcls"] = wcls.to_i4p_layout() if _kernel_convertible(wcls) else wcls
+    out["wcls"] = _decode_layout(wcls) if _kernel_convertible(wcls) else wcls
     return out
 
 

@@ -1,9 +1,14 @@
 """Quantized matmul dispatch: y[..., out] = x[..., in] · W[out, in] for a dense or
 block-quantized W (reference: the matmul layer, src/funcs.cpp:424-465).
 
-Paths (the JAX package's ops/matmul.py `qmatmul` / `qmatmul_gated`, at the subset the
-dense Llama path reaches):
+Paths (the JAX package's ops/matmul.py `qmatmul` / `qmatmul_gated` / `qmatmul_q80`, at
+the subset the dense Llama path reaches):
 - one activation row, i4p weights, `use_kernels` on -> kernel 1, `q4_matvec`;
+- one activation row, i8 weights (Q80, or Q40 that fails the i4p alignment),
+  `use_kernels` on -> `q8_matvec`;
+- a row the fused prologue quantized (`qmatmul_q80`), `use_kernels` on ->
+  `q4_matvec_q80` on i4p weights, `q8_matvec_q80` on i8 weights; elsewhere the row is
+  dequantized and multiplied in f32;
 - M > 1 rows, i4p weights that pass `q4_mm_supported`, `use_kernels` in FUSED_POLICIES
   -> kernel 2, `q4_matmul`; under "fused" a residual rides in its residual mode
   (kernel 4);
@@ -25,10 +30,11 @@ import threading
 
 import torch
 
-from ..quants import QTensor
+from ..quants import QTensor, dequantize_i8
 from .q4_gated_matmul import q4_gated_matmul
 from .q4_matmul import q4_matmul
-from .q4_matvec import q4_matvec
+from .q4_matvec import q4_matvec, q4_matvec_q80
+from .q8_matvec import q8_matvec, q8_matvec_q80
 
 # "fused" is a strict superset of "all": everything "all" runs plus the residual-add
 # and gate-pair epilogues wired through models/forward.py
@@ -47,8 +53,8 @@ def _record(kernel: str, m: int, w: QTensor, op: str = "mm") -> None:
 
 
 def kernel_selections() -> dict[str, str]:
-    """Snapshot of {shape-bucket: kernel}. Kernel names: q4_matvec, q4_mm, q4_mm+res,
-    q4_gated_mm, dequant."""
+    """Snapshot of {shape-bucket: kernel}. Kernel names: q4_matvec, q8_matvec, q4_mm,
+    q4_mm+res, q4_gated_mm, q4_matvec_q80, q8_matvec_q80 (op=q80), dequant."""
     with _selections_lock:
         return dict(_selections)
 
@@ -89,8 +95,9 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
             out_dtype=None, residual: torch.Tensor | None = None) -> torch.Tensor:
     """y = x @ W^T for W of logical shape (out, in); x: (..., in) -> (..., out).
 
-    use_kernels: False = dequantize path everywhere; True = kernel 1 for one activation
-    row; "all" = additionally kernel 2 for M > 1; "fused" = "all" plus the residual mode.
+    use_kernels: False = dequantize path everywhere; True = kernel 1 (i4p) or q8_matvec
+    (i8) for one activation row; "all" = additionally kernel 2 for M > 1; "fused" = "all"
+    plus the residual mode.
 
     residual: optional (..., out) tensor; the result is residual + x @ W^T on every path
     (under "fused" the add runs inside the kernel; elsewhere it is added in f32 before
@@ -100,6 +107,10 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
     if use_kernels and m == 1 and w.layout == "i4p" and w.groups == 1:
         _record("q4_matvec", m, w)
         y = q4_matvec(x, w, out_dtype=out_dtype)
+        return y if residual is None else _res_add(y, residual, out_dtype)
+    if use_kernels and m == 1 and w.layout == "i8":
+        _record("q8_matvec", m, w)
+        y = q8_matvec(x, w, out_dtype=out_dtype)
         return y if residual is None else _res_add(y, residual, out_dtype)
     if use_kernels in FUSED_POLICIES and m > 1 and q4_mm_supported(w, m):
         fuse_res = residual is not None and use_kernels == "fused"
@@ -121,6 +132,25 @@ def _qmatmul_dequant(x: torch.Tensor, w: QTensor, *, out_dtype=None,
     if residual is not None:
         y = residual.float() + y
     return y.to(out_dtype or x.dtype)
+
+
+def qmatmul_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor, *,
+                use_kernels: bool | str = False, out_dtype=torch.float32) -> torch.Tensor:
+    """Decode matvec against a pre-quantized activation row (the fused prologue's
+    output): xq (1, K) int8, sx (1, K/32) f32 -> (1, 1, N). With the kernels on, i4p
+    weights packed with groups=1 take q4_matvec_q80 and i8 weights q8_matvec_q80; every
+    other weight dequantizes, and so does the row (x̂ = xq·sx), for an f32 product."""
+    if use_kernels and w.layout == "i4p" and w.groups == 1:
+        _record("q4_matvec_q80", 1, w, op="q80")
+        y = q4_matvec_q80(xq, sx, w)
+    elif use_kernels and w.layout == "i8":
+        _record("q8_matvec_q80", 1, w, op="q80")
+        y = q8_matvec_q80(xq, sx, w)
+    else:
+        _record("dequant", 1, w, op="q80")
+        xhat = dequantize_i8(xq, sx, torch.float32)
+        y = torch.matmul(xhat, w.dequantize(torch.float32).transpose(-1, -2))
+    return y.reshape(1, 1, y.shape[-1]).to(out_dtype)
 
 
 def qmatmul_gated(x: torch.Tensor, w1: QTensor, w3: QTensor, *, act, act_name: str,

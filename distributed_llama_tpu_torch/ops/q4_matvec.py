@@ -1,17 +1,21 @@
-"""Kernel 1: the decode matvec y = W·x against Q40 weights in the i4p split-plane layout.
+"""Kernels 1 and 2: the decode matvec y = W·x against Q40 weights in the i4p split-plane
+layout, from a float row or from a row already quantized to Q80.
 
 Replaces distributed_llama_tpu/ops/pallas_q4.py `_q4_matvec` (`_matvec_kernel` ->
-`_unpack_dot_epilogue`) and the Q80 row quantizer `_quantize_row` of ops/pallas_q8.py
-that feeds it. The CUDA kernel is csrc/q4_matvec.cu; its header says what bounds it on
-an H100 (bytes: 0.5625 B/weight streamed once) and what its design does about that.
+`_unpack_dot_epilogue`) with the Q80 row quantizer `_quantize_row` of ops/pallas_q8.py
+that feeds it (`q4_matvec`), and `_q4_matvec_inline` (`q4_matvec_q80`, the entry the
+fused prologue feeds). The CUDA kernel is csrc/q4_matvec.cu, one row loop behind two
+entries; its header says what bounds it on an H100 (bytes: 0.5625 B/weight streamed
+once) and what its design does about that.
 
 Numerics, shared by the kernel and `q4_matvec_plain`: the activation row is quantized
 per 32-block to Q80 (multiply by 127/absmax, round half to even), the per-block dot
 P[n,b] of (nibble-8) with the int8 row is an exact integer, and y[n] = Σ_b
 (s[n,b]·sx[b])·P[n,b] in float32 — only the order of that last sum differs.
 
-`q4_matvec` takes the plain version for CPU tensors and launches the kernel for CUDA
-tensors; `launches` counts kernel launches.
+`q4_matvec` and `q4_matvec_q80` take the plain version for CPU tensors and launch the
+kernel for CUDA tensors; `launches` counts the float entry's launches, `q80_launches`
+the pre-quantized entry's.
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ from ..quants import QK, QTensor
 from . import cuda_build
 
 launches = 0
+q80_launches = 0
 
-_MAX_K = 32768  # the quantized row (K + 8·K/32 bytes) must fit 48 KB of shared memory
+MAX_K = 32768  # the quantized row (K + 8·K/32 bytes) must fit 48 KB of shared memory
 _BLOCKS_PER_SM = 4
 _P, _I = cuda_build.P, cuda_build.I
-_SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+               "q4_matvec_q80": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
 
 
 def quantize_row(x_row: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -46,46 +52,84 @@ def quantize_row(x_row: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
-def q4_matvec_plain(x_row: torch.Tensor, packed: torch.Tensor,
-                    scales: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch: x_row (K,), packed (N, K/2) u8 i4p,
-    scales (N, K/32) f16 -> y (N,) f32. P is computed in float32, which is exact here
-    (|P| <= 15·127·32 < 2^24)."""
-    n, kh = packed.shape
+def q4_matvec_q80_plain(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """Kernel 2's function in plain torch: a pre-quantized row xq (K,) int8 with block
+    scales sx (K/32,) f32, packed (N, K/2) u8 i4p, scales (N, K/32) f16 -> y (N,) f32.
+    P is computed in float32, which is exact here (|P| <= 15·127·32 < 2^24)."""
+    n = packed.shape[0]
     nb = scales.shape[1]
-    xq, sx = quantize_row(x_row)
     q = torch.cat([packed & 0x0F, packed >> 4], dim=1).float()  # (N, K) nibbles in [0,16)
     xqf = xq.float().reshape(nb, QK)
     p = torch.einsum("nbk,bk->nb", q.reshape(n, nb, QK), xqf)
     p = p - 8.0 * xqf.sum(dim=1)  # remove the nibble offset per block
-    return ((scales.float() * sx) * p).sum(dim=1)
+    return ((scales.float() * sx.float()) * p).sum(dim=1)
+
+
+def q4_matvec_plain(x_row: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor) -> torch.Tensor:
+    """Kernel 1's function in plain torch: x_row (K,) quantized by `quantize_row`, then
+    `q4_matvec_q80_plain`."""
+    return q4_matvec_q80_plain(*quantize_row(x_row), packed, scales)
+
+
+def _check_weights(what: str, packed: torch.Tensor, scales: torch.Tensor, dev) -> int:
+    n, kh = packed.shape
+    k = kh * 2
+    if packed.dtype != torch.uint8 or scales.dtype != torch.float16:
+        raise TypeError(f"{what} kernel takes u8 planes and f16 scales, got "
+                        f"{packed.dtype}/{scales.dtype}")
+    if k % 64 or k > MAX_K or scales.shape != (n, k // QK):
+        raise ValueError(f"{what} kernel cannot take K={k}, scales {tuple(scales.shape)}")
+    if not (packed.is_contiguous() and scales.is_contiguous()) or packed.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs contiguous, 16-byte aligned weight planes")
+    if not (packed.device == scales.device == dev):
+        raise ValueError(f"{what}: tensors on different devices")
+    return k
+
+
+def _grid(n: int, dev) -> int:
+    return max(1, min(math.ceil(n / 8), cuda_build.sm_count(dev.index) * _BLOCKS_PER_SM))
 
 
 def _launch(x_row: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     global launches
-    n, kh = packed.shape
-    k = kh * 2
     if x_row.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q4_matvec kernel takes f32 or bf16 activations, got {x_row.dtype}")
-    if packed.dtype != torch.uint8 or scales.dtype != torch.float16:
-        raise TypeError(f"q4_matvec kernel takes u8 planes and f16 scales, got "
-                        f"{packed.dtype}/{scales.dtype}")
-    if k % 64 or k > _MAX_K or scales.shape != (n, k // QK):
-        raise ValueError(f"q4_matvec kernel cannot take K={k}, scales {tuple(scales.shape)}")
-    if not (packed.is_contiguous() and scales.is_contiguous()) or packed.data_ptr() % 16:
-        raise ValueError("q4_matvec kernel needs contiguous, 16-byte aligned weight planes")
-    if not (packed.device == scales.device == x_row.device):
-        raise ValueError("q4_matvec: tensors on different devices")
+    n = packed.shape[0]
+    k = _check_weights("q4_matvec", packed, scales, x_row.device)
+    if x_row.shape != (k,):
+        raise ValueError(f"q4_matvec: row {tuple(x_row.shape)} against K={k}")
     x_row = x_row.contiguous()
     y = torch.empty(n, dtype=torch.float32, device=x_row.device)
-    grid = max(1, min(math.ceil(n / 8),
-                      cuda_build.sm_count(x_row.device.index) * _BLOCKS_PER_SM))
     lib = cuda_build.load("q4_matvec", _SIGNATURES)
     rc = lib.q4_matvec(x_row.data_ptr(), int(x_row.dtype == torch.bfloat16),
-                       packed.data_ptr(), scales.data_ptr(), y.data_ptr(), n, k, grid,
-                       cuda_build.stream_of(x_row))
+                       packed.data_ptr(), scales.data_ptr(), y.data_ptr(), n, k,
+                       _grid(n, x_row.device), cuda_build.stream_of(x_row))
     cuda_build.check(rc, "q4_matvec")
     launches += 1
+    return y
+
+
+def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
+                scales: torch.Tensor) -> torch.Tensor:
+    global q80_launches
+    n = packed.shape[0]
+    k = _check_weights("q4_matvec_q80", packed, scales, xq.device)
+    if xq.dtype != torch.int8 or sx.dtype != torch.float32:
+        raise TypeError(f"q4_matvec_q80 kernel takes an int8 row and f32 block scales, "
+                        f"got {xq.dtype}/{sx.dtype}")
+    if xq.shape != (k,) or sx.shape != (k // QK,) or sx.device != xq.device:
+        raise ValueError(f"q4_matvec_q80: row {tuple(xq.shape)}, scales "
+                         f"{tuple(sx.shape)} against K={k}")
+    xq, sx = xq.contiguous(), sx.contiguous()
+    y = torch.empty(n, dtype=torch.float32, device=xq.device)
+    lib = cuda_build.load("q4_matvec", _SIGNATURES)
+    rc = lib.q4_matvec_q80(xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
+                           scales.data_ptr(), y.data_ptr(), n, k, _grid(n, xq.device),
+                           cuda_build.stream_of(xq))
+    cuda_build.check(rc, "q4_matvec_q80")
+    q80_launches += 1
     return y
 
 
@@ -105,3 +149,16 @@ def q4_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None) -> torch.Tensor:
     else:
         raise ValueError(f"q4_matvec: no kernel for device {x.device}")
     return y.reshape(*lead, y.shape[0]).to(out_dtype or x.dtype)
+
+
+def q4_matvec_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Decode-path matmul on a pre-quantized row: xq (..., K) int8 and sx (..., K/32)
+    f32 with leading dims multiplying to 1, i4p-layout QTensor (N, K) -> (N,) f32."""
+    if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2:
+        raise ValueError("q4_matvec_q80 needs 2-D i4p weights packed with groups=1")
+    xq_row, sx_row = xq.reshape(xq.shape[-1]), sx.reshape(sx.shape[-1])
+    if xq.device.type == "cuda":
+        return _launch_q80(xq_row, sx_row, w.data, w.scales)
+    if xq.device.type == "cpu":
+        return q4_matvec_q80_plain(xq_row, sx_row, w.data, w.scales)
+    raise ValueError(f"q4_matvec_q80: no kernel for device {xq.device}")

@@ -1,0 +1,178 @@
+"""Kernels 6 and 7: the decode matvec y = W·x against weights in the int8-plane (i8)
+layout: Q80 weights, and Q40 weights whose K fails the i4p alignment.
+
+Replaces distributed_llama_tpu/ops/pallas_q8.py `_q8_matvec` (the int8 body
+`_matvec_kernel` with the Q80 row quantizer `_quantize_row` that feeds it: `q8_matvec`;
+the precise body `_matvec_kernel_f32`: `q8_matvec(precise=True)`) and
+`_q8_matvec_inline` (`q8_matvec_q80`, the entry the fused prologue feeds). The CUDA
+kernel is csrc/q8_matvec.cu, one row loop behind three entries; its header says what
+bounds it on an H100 (bytes: 1.125 B/weight streamed once) and what its design does
+about that.
+
+Numerics, shared by the kernel and the plain versions: the activation row is quantized
+per 32-block to Q80 exactly as `quantize_row` does (or comes quantized), the per-block
+dot P[n,b] of the int8 weights with the int8 row is an exact integer, and y[n] =
+Σ_b (s[n,b]·sx[b])·P[n,b] in float32; only the order of that last sum differs. The
+precise mode skips the Q80 step: P[n,b] is an f32 sum of W8·x and sx = 1. No entry point
+of the port passes `precise`, as none of the JAX package's does.
+
+The entries take the plain version for CPU tensors and launch the kernel for CUDA
+tensors. `launches` counts the quantizing entry's launches, `precise_launches` the
+precise mode's, `q80_launches` the pre-quantized entry's.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..quants import QK, QTensor
+from . import cuda_build
+from .q4_matvec import quantize_row
+
+launches = 0
+precise_launches = 0
+q80_launches = 0
+
+MAX_K = 32768  # the int8 row and its f32 scales (1.125·K bytes) fit 48 KB of shared memory
+_PRECISE_MAX_K = 12288  # the precise mode stages the row in f32 (4·K bytes)
+_BLOCKS_PER_SM = 4
+_P, _I = cuda_build.P, cuda_build.I
+_SIGNATURES = {"q8_matvec": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+               "q8_matvec_q80": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
+
+
+def _block_dots(w8: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """P[n,b] = Σ_{j in block b} W8[n,j]·xb[b,j] in float32: exact for int8 rows
+    (|P| <= 128·127·32 < 2^24), an f32 sum for the precise mode's float row."""
+    n, k = w8.shape
+    nb = k // QK
+    return torch.einsum("nbk,bk->nb", w8.float().reshape(n, nb, QK), xb.float())
+
+
+def q8_matvec_q80_plain(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """Kernel 7's function in plain torch: a Q80 row xq (K,) int8 with block scales sx
+    (K/32,) f32, int8 planes w8 (N, K), scales (N, K/32) f32 -> y (N,) f32."""
+    nb = scales.shape[1]
+    p = _block_dots(w8, xq.reshape(nb, QK))
+    return ((scales.float() * sx.float()) * p).sum(dim=1)
+
+
+def q8_matvec_plain(x_row: torch.Tensor, w8: torch.Tensor,
+                    scales: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's function in plain torch: x_row (K,) quantized by `quantize_row`, then
+    `q8_matvec_q80_plain`."""
+    return q8_matvec_q80_plain(*quantize_row(x_row), w8, scales)
+
+
+def q8_matvec_precise_plain(x_row: torch.Tensor, w8: torch.Tensor,
+                            scales: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's precise body in plain torch: x_row (K,) unquantized in f32, sx = 1."""
+    nb = scales.shape[1]
+    p = _block_dots(w8, x_row.float().reshape(nb, QK))
+    return (scales.float() * p).sum(dim=1)
+
+
+def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev) -> int:
+    n, k = w8.shape
+    if w8.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes int8 planes and f32 scales, got "
+                        f"{w8.dtype}/{scales.dtype}")
+    if k % QK or k > MAX_K or scales.shape != (n, k // QK):
+        raise ValueError(f"{what} kernel cannot take K={k}, scales {tuple(scales.shape)}")
+    if not (w8.is_contiguous() and scales.is_contiguous()) or w8.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs contiguous, 16-byte aligned weight planes")
+    if not (w8.device == scales.device == dev):
+        raise ValueError(f"{what}: tensors on different devices")
+    return k
+
+
+def _grid(n: int, dev) -> int:
+    return max(1, min(math.ceil(n / 8), cuda_build.sm_count(dev.index) * _BLOCKS_PER_SM))
+
+
+def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
+            precise: bool = False) -> torch.Tensor:
+    global launches, precise_launches
+    if x_row.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q8_matvec kernel takes f32 or bf16 activations, got {x_row.dtype}")
+    n = w8.shape[0]
+    k = _check_weights("q8_matvec", w8, scales, x_row.device)
+    if x_row.shape != (k,):
+        raise ValueError(f"q8_matvec: row {tuple(x_row.shape)} against K={k}")
+    if precise and k > _PRECISE_MAX_K:
+        raise ValueError(f"q8_matvec precise mode takes K <= {_PRECISE_MAX_K}, got {k}")
+    x_row = x_row.contiguous()
+    y = torch.empty(n, dtype=torch.float32, device=x_row.device)
+    lib = cuda_build.load("q8_matvec", _SIGNATURES)
+    rc = lib.q8_matvec(x_row.data_ptr(), int(x_row.dtype == torch.bfloat16), int(precise),
+                       w8.data_ptr(), scales.data_ptr(), y.data_ptr(), n, k,
+                       _grid(n, x_row.device), cuda_build.stream_of(x_row))
+    cuda_build.check(rc, "q8_matvec")
+    if precise:
+        precise_launches += 1
+    else:
+        launches += 1
+    return y
+
+
+def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
+                scales: torch.Tensor) -> torch.Tensor:
+    global q80_launches
+    n = w8.shape[0]
+    k = _check_weights("q8_matvec_q80", w8, scales, xq.device)
+    if xq.dtype != torch.int8 or sx.dtype != torch.float32:
+        raise TypeError(f"q8_matvec_q80 kernel takes an int8 row and f32 block scales, "
+                        f"got {xq.dtype}/{sx.dtype}")
+    if xq.shape != (k,) or sx.shape != (k // QK,) or sx.device != xq.device:
+        raise ValueError(f"q8_matvec_q80: row {tuple(xq.shape)}, scales "
+                         f"{tuple(sx.shape)} against K={k}")
+    xq, sx = xq.contiguous(), sx.contiguous()
+    if xq.data_ptr() % 16:  # the kernel stages the row with 16-byte loads
+        xq = xq.clone()
+    y = torch.empty(n, dtype=torch.float32, device=xq.device)
+    lib = cuda_build.load("q8_matvec", _SIGNATURES)
+    rc = lib.q8_matvec_q80(xq.data_ptr(), sx.data_ptr(), w8.data_ptr(), scales.data_ptr(),
+                           y.data_ptr(), n, k, _grid(n, xq.device), cuda_build.stream_of(xq))
+    cuda_build.check(rc, "q8_matvec_q80")
+    q80_launches += 1
+    return y
+
+
+def _check_layout(what: str, w: QTensor) -> None:
+    if w.layout != "i8" or w.data.ndim != 2:
+        raise ValueError(f"{what} needs 2-D i8-layout weights (QTensor.to_i8_layout, "
+                         f"models.params.prepare_for_cuda)")
+
+
+def q8_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None,
+              precise: bool = False) -> torch.Tensor:
+    """Decode-path matmul: x (..., K) with leading dims multiplying to 1, i8-layout
+    QTensor (N, K) -> (..., N). precise=True skips the activation's Q80 step."""
+    _check_layout("q8_matvec", w)
+    lead = x.shape[:-1]
+    if math.prod(lead) != 1:
+        raise ValueError(f"q8_matvec takes one activation row, got {tuple(x.shape)}")
+    x_row = x.reshape(x.shape[-1])
+    if x.device.type == "cuda":
+        y = _launch(x_row, w.data, w.scales, precise)
+    elif x.device.type == "cpu":
+        plain = q8_matvec_precise_plain if precise else q8_matvec_plain
+        y = plain(x_row, w.data, w.scales)
+    else:
+        raise ValueError(f"q8_matvec: no kernel for device {x.device}")
+    return y.reshape(*lead, y.shape[0]).to(out_dtype or x.dtype)
+
+
+def q8_matvec_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Decode-path matmul on a pre-quantized row: xq (..., K) int8 and sx (..., K/32)
+    f32 with leading dims multiplying to 1, i8-layout QTensor (N, K) -> (N,) f32."""
+    _check_layout("q8_matvec_q80", w)
+    xq_row, sx_row = xq.reshape(xq.shape[-1]), sx.reshape(sx.shape[-1])
+    if xq.device.type == "cuda":
+        return _launch_q80(xq_row, sx_row, w.data, w.scales)
+    if xq.device.type == "cpu":
+        return q8_matvec_q80_plain(xq_row, sx_row, w.data, w.scales)
+    raise ValueError(f"q8_matvec_q80: no kernel for device {xq.device}")

@@ -7,11 +7,14 @@ src/quants.cpp:137-288, converter/writer.py:29-74). The codecs below work on num
     Q40 "planar":  data uint8 (..., n//32, 16)   + scales float16 (..., n//32)
     Q80 "planar":  data int8  (..., n//32, 32)   + scales float16 (..., n//32)
     Q40 "i4p":     data uint8 (..., n//2)        + scales float16 (..., n//32)
+    Q40/Q80 "i8":  data int8  (..., n)           + scales float32 (..., n//32)
 
 Nibble semantics match the reference exactly (src/quants.cpp:178-182): byte j of a planar
 block holds element j in its low nibble and element j+16 in its high nibble;
 value = (nibble-8)*d. The i4p ("split-plane") layout is what the decode kernels read:
 byte j of a row holds element j in its low nibble and element j+K/2 in its high nibble.
+The i8 ("int8-plane") layout is what the q8 decode kernel reads: one int8 per element
+in natural order ((nibble-8) for Q40, the raw value for Q80) beside f32 block scales.
 """
 
 from __future__ import annotations
@@ -131,6 +134,18 @@ def quantize_q80(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return q, deltas16
 
 
+def dequantize_i8(values: torch.Tensor, scales: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """Dequantize the int8-plane layout: (..., K) int8 + (..., K/32) scales -> (..., K)
+    in `dtype` (value and scale each cast to `dtype` before the product, as the JAX
+    package's jnp_dequantize_i8 does)."""
+    k = values.shape[-1]
+    nb = scales.shape[-1]
+    assert nb * QK == k, (tuple(values.shape), tuple(scales.shape))
+    g = values.reshape(*values.shape[:-1], nb, QK)
+    return (g.to(dtype) * scales.to(dtype)[..., None]).reshape(values.shape)
+
+
 def dequantize_q80(values: np.ndarray, scales: np.ndarray) -> np.ndarray:
     out = values.astype(np.float32) * scales[..., None].astype(np.float32)
     return out.reshape(*values.shape[:-2], values.shape[-2] * QK)
@@ -171,8 +186,8 @@ class QTensor:
 
     ftype: FloatType
     data: torch.Tensor  # dense values, Q40 packed u8, or Q80 int8
-    scales: torch.Tensor | None = None  # f16 per-block deltas for Q40/Q80
-    layout: str = "planar"  # "planar" | "i4p"
+    scales: torch.Tensor | None = None  # per-block deltas: f16, or f32 in the i8 layout
+    layout: str = "planar"  # "planar" | "i4p" | "i8"
     groups: int = 1
     row_groups: int = 1
 
@@ -180,6 +195,8 @@ class QTensor:
     def shape(self) -> tuple[int, ...]:
         """Logical (dequantized) shape."""
         if self.ftype in (FloatType.F32, FloatType.F16):
+            return tuple(self.data.shape)
+        if self.layout == "i8":
             return tuple(self.data.shape)
         if self.layout == "i4p":
             return (*self.data.shape[:-1], self.data.shape[-1] * 2)
@@ -218,6 +235,24 @@ class QTensor:
         return QTensor(self.ftype, data, self.scales.to(torch.float16), layout="i4p",
                        groups=col_groups, row_groups=self.row_groups)
 
+    def to_i8_layout(self) -> "QTensor":
+        """Expand planar Q40/Q80 into int8 planes: data int8 (..., K) holding (nibble-8)
+        for Q40 and the raw int8 for Q80, in natural column order; scales f32 (..., K/32)
+        (the file's f16 deltas, widened exactly). The same bytes as the JAX package's
+        QTensor.to_i8_layout."""
+        assert self.layout == "planar", self.layout
+        if self.ftype == FloatType.Q40:
+            lo = (self.data & 0x0F).to(torch.int8) - 8  # elements 0..15 of each block
+            hi = (self.data >> 4).to(torch.int8) - 8  # elements 16..31
+            vals = torch.cat([lo, hi], dim=-1)  # (..., nb, 32)
+        elif self.ftype == FloatType.Q80:
+            vals = self.data.to(torch.int8)
+        else:
+            raise ValueError(self.ftype)
+        data = vals.reshape(*vals.shape[:-2], vals.shape[-2] * QK).contiguous()
+        return QTensor(self.ftype, data, self.scales.to(torch.float32), layout="i8",
+                       row_groups=self.row_groups)
+
     def _i4p_unpack(self) -> torch.Tensor:
         """Split-plane nibbles -> natural-order values (..., K) minus the 8 offset, int8."""
         wp = self.data
@@ -250,6 +285,8 @@ class QTensor:
         package's dequantize does)."""
         if self.ftype in (FloatType.F32, FloatType.F16):
             return self.data.to(dtype)
+        if self.layout == "i8":
+            return dequantize_i8(self.data, self.scales, dtype)
         if self.layout == "i4p":
             vals = self._i4p_unpack()
             nb = self.scales.shape[-1]

@@ -33,6 +33,7 @@ superstep < 2.
 from __future__ import annotations
 
 import collections
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -134,6 +135,11 @@ class BatchEngine:
             kv_pool_cfg = (max(n_blocks, w + 2), bt)
         self._eng = Engine(spec, params, tokenizer, batch=slots, kv_pool=kv_pool_cfg,
                            **engine_kw)
+        # the engine's resolution (kwarg or DLT_PROLOGUE), as the JAX engine checks it
+        if self._eng.fused_prologue and slots > 1:
+            print("⚠️  --prologue is inert with batched decode (the prologue kernels take "
+                  "one activation row; forward gates them off for B > 1)",
+                  file=sys.stderr, flush=True)
         self.kv_pool = None  # DeviceKVPool metadata (None = dense layout)
         self._kv_bt = 0
         if kv_pool_cfg is not None:

@@ -16,6 +16,7 @@ without device="cpu" it raises. It never moves to the CPU on its own.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -71,7 +72,7 @@ class Engine:
                  *, device=None, dtype=None, use_kernels: bool | None = None,
                  prefill_kernel: bool = False, fused_matmul: bool = False,
                  batch: int = 1, kv_pool: tuple[int, int] | None = None,
-                 paged_kernel: bool | None = None):
+                 paged_kernel: bool | None = None, fused_prologue: bool | None = None):
         if spec.is_moe:
             raise NotImplementedError("the port runs dense models only")
         self.spec = spec
@@ -98,6 +99,13 @@ class Engine:
         self.fused_matmul = bool(fused_matmul) and bool(self.use_kernels)
         if self.fused_matmul:
             self.use_kernels = "fused"
+        # the fused activation prologue (ops/prologue.py): opt-in through the kwarg or
+        # DLT_PROLOGUE=1 (0 means off), as in the JAX engine; forward applies it where it
+        # can (kernels on, one row of one token)
+        if fused_prologue is None:
+            fused_prologue = os.environ.get("DLT_PROLOGUE", "").lower() in ("1", "true",
+                                                                           "yes")
+        self.fused_prologue = bool(fused_prologue)
         # device block pool for batched serving: (n_blocks, block_tokens)
         self.batch = batch
         self.kv_pool = kv_pool
@@ -173,7 +181,7 @@ class Engine:
         logits, self.k_cache, self.v_cache = forward(
             self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache, self.pos,
             dtype=self.dtype, use_kernels=self.use_kernels,
-            attn_window=self._window_for(self.pos + t))
+            attn_window=self._window_for(self.pos + t), fused_prologue=self.fused_prologue)
         self.pos += t
         return logits[0].cpu().numpy()  # host transfer: the step's fence
 
@@ -192,7 +200,8 @@ class Engine:
             dtype=self.dtype, use_kernels=self.use_kernels,
             attn_window=self._window_for(max(s + t for s in starts)),
             block_tables=tables if self.kv_pool is not None else None,
-            block_tokens=bt, paged_kernel=self.paged_kernel)
+            block_tokens=bt, paged_kernel=self.paged_kernel,
+            fused_prologue=self.fused_prologue)
         rows = torch.tensor([r for r, _ in reads], dtype=torch.long, device=self.device)
         cols = torch.tensor([c for _, c in reads], dtype=torch.long, device=self.device)
         return logits[rows, cols].cpu().numpy()

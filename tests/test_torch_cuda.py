@@ -3,8 +3,11 @@ CUDA tensors, and a tiny engine with kernels against the CPU plain path. Marked 
 skips where no GPU is present (the kernels have no CPU mode). Run on a GPU machine with
 `python -m pytest -q -m cuda tests/test_torch_cuda.py`.
 
-Tolerances, relative to max|reference|: q4_matvec 1e-4 (exact integer block dots, f32
-block sum in another order), q4_matmul and its residual mode 1e-3 (identical bf16
+Tolerances, relative to max|reference|: q4_matvec, q4_matvec_q80, q8_matvec (int8 and
+precise) and q8_matvec_q80 1e-4 (exact integer block dots, or f32 block sums of the same
+products; the f32 sum over blocks in another order); the prologue's quantize_q80 exact,
+its rmsnorm_q80 at most 4 xq values one step off (the sum of squares in another order
+can move a value within an ulp of a rounding tie) with sx within rtol 1e-6; q4_matmul and its residual mode 1e-3 (identical bf16
 operands, tensor-core f32 accumulation order), q4_gated_matmul 1e-3 (the same products,
 the activation on the same f32 sums), decode_attention and paged_attention 1e-4 (f32
 softmax, split merge order). The serving tests hold the fused BatchEngine on the card
@@ -18,13 +21,15 @@ import torch
 from distributed_llama_tpu_torch.models.params import init_random_params
 from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
 from distributed_llama_tpu_torch.ops import decode_attention as da
-from distributed_llama_tpu_torch.ops import matmul as matmul_mod
 from distributed_llama_tpu_torch.ops import paged_attention as pa
+from distributed_llama_tpu_torch.ops import prologue as pro
 from distributed_llama_tpu_torch.ops import q4_gated_matmul as gm
 from distributed_llama_tpu_torch.ops import q4_matmul as mm
 from distributed_llama_tpu_torch.ops import q4_matvec as mv
+from distributed_llama_tpu_torch.ops import q8_matvec as q8
 from distributed_llama_tpu_torch.quants import FloatType
 from distributed_llama_tpu_torch.runtime.engine import Engine
+from distributed_llama_tpu_torch.runtime.sampler import Sampler
 
 
 @pytest.fixture
@@ -59,6 +64,103 @@ def test_q4_matvec_kernel_matches_plain(cuda, n, k, dtype):
     assert _rel_err(got, mv.q4_matvec_plain(x, packed, scales)) < 1e-4
 
 
+def _i8_planes(n, k, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g, device=dev)
+    scales = torch.rand((n, k // 32), generator=g, device=dev) * 1e-3
+    return w8, scales
+
+
+def _q80_row(k, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(k, generator=g, device=dev)
+    x[32:64] = 0.0  # an all-zero block
+    return mv.quantize_row(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(300, 96), (4096, 11008), (32000, 4096), (12288, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precise", [False, True])
+def test_q8_matvec_kernel_matches_plain(cuda, n, k, dtype, precise):
+    w8, scales = _i8_planes(n, k, cuda, seed=n + k)
+    x = torch.randn(k, device=cuda).to(dtype)
+    x[32:64] = 0.0
+    before = (q8.launches, q8.precise_launches)
+    got = q8._launch(x, w8, scales, precise)
+    torch.cuda.synchronize()
+    assert (q8.launches, q8.precise_launches) == (before[0] + (not precise),
+                                                  before[1] + precise)
+    plain = q8.q8_matvec_precise_plain if precise else q8.q8_matvec_plain
+    assert _rel_err(got, plain(x, w8, scales)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(300, 128), (12288, 4096), (4096, 11008), (32000, 4096)])
+@pytest.mark.parametrize("layout", ["i8", "i4p"])
+def test_q80_matvec_kernels_match_plain(cuda, n, k, layout):
+    xq, sx = _q80_row(k, cuda, seed=k)
+    if layout == "i8":
+        w = _i8_planes(n, k, cuda, seed=n)
+        before = q8.q80_launches
+        got = q8._launch_q80(xq, sx, *w)
+        want = q8.q8_matvec_q80_plain(xq, sx, *w)
+        counted = q8.q80_launches - before
+    else:
+        w = _planes(n, k, cuda, seed=n)
+        before = mv.q80_launches
+        got = mv._launch_q80(xq, sx, *w)
+        want = mv.q4_matvec_q80_plain(xq, sx, *w)
+        counted = mv.q80_launches - before
+    torch.cuda.synchronize()
+    assert counted == 1
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 4096, 11008])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prologue_kernels_match_plain(cuda, k, dtype):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = (3.0 * torch.randn(k, generator=g, device=cuda)).to(dtype)
+    x[32:64] = 0.0
+    w = 1.0 + 0.1 * torch.randn(k, generator=g, device=cuda)
+    before = (pro.rmsnorm_launches, pro.quantize_launches)
+    xq, sx = pro._launch(x, None, 0.0)
+    rq, rs = pro._launch(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert (pro.rmsnorm_launches, pro.quantize_launches) == (before[0] + 1, before[1] + 1)
+    wq, ws = pro.quantize_q80_plain(x)
+    assert torch.equal(xq, wq) and torch.equal(sx, ws)
+    assert sx[1] == 0.0 and (xq[32:64] == 0).all()
+    pq, ps = pro.rmsnorm_q80_plain(x, w, 1e-5)
+    diff = (rq.int() - pq.int()).abs()
+    assert diff.max() <= 1 and int((diff > 0).sum()) <= 4
+    torch.testing.assert_close(rs, ps, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", [FloatType.Q40, FloatType.Q80])
+def test_engine_prologue_matches_cpu_plain(cuda, ftype):
+    """A tiny model with the prologue: the card's kernels against the CPU plain versions,
+    identical greedy tokens, and the prologue and pre-quantized matvec kernels launched."""
+    spec = ModelSpec(arch_type=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2,
+                     n_heads=4, n_kv_heads=2, vocab_size=300, seq_len=512).resolved()
+    params = init_random_params(spec, ftype, seed=6)
+    kw = dict(dtype=torch.float32, use_kernels=True, fused_prologue=True)
+    gpu = Engine(spec, params, device="cuda", **kw)
+    cpu = Engine(spec, params, device="cpu", **kw)
+    counters = (lambda: (pro.rmsnorm_launches, pro.quantize_launches,
+                         (mv if ftype == FloatType.Q40 else q8).q80_launches))
+    before = counters()
+    prompt = [1] + list(range(3, 12))
+    sampler = lambda: Sampler(spec.vocab_size, temperature=0.0)  # noqa: E731
+    got, _ = gpu.generate(prompt, 12, sampler())
+    want, _ = cpu.generate(prompt, 12, sampler())
+    assert got == want
+    assert all(a > b for a, b in zip(counters(), before))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(2, 130, 256), (8, 4096, 11008), (64, 12288, 4096),
                                    (512, 32000, 4096), (70, 96, 704)])
@@ -91,66 +193,40 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, hk, g, hs, pos, wind
     assert _rel_err(got, want) < 1e-4
 
 
-def _recording(monkeypatch) -> list:
-    """Record the activations every kernel-path matmul receives, as CPU f32 copies."""
-    calls = []
-
-    def wrap(name, fn):
-        def rec(x, w, **kw):
-            calls.append((name, x.detach().float().cpu().reshape(-1, x.shape[-1])))
-            return fn(x, w, **kw)
-        return rec
-
-    monkeypatch.setattr(matmul_mod, "q4_matvec", wrap("q4_matvec", matmul_mod.q4_matvec))
-    monkeypatch.setattr(matmul_mod, "q4_matmul", wrap("q4_matmul", matmul_mod.q4_matmul))
-    return calls
-
-
-def _crossings(calls_g, calls_c) -> int:
-    """Activation elements whose Q80 code (matvec rows) or bf16 rounding (matmul rows)
-    differs between the two runs: a last-bit difference that crossed a rounding boundary."""
-    assert [c[0] for c in calls_g] == [c[0] for c in calls_c]
-    n = 0
-    for (kind, xg), (_, xc) in zip(calls_g, calls_c):
-        if kind == "q4_matvec":
-            n += int((mv.quantize_row(xg[0])[0] != mv.quantize_row(xc[0])[0]).sum())
-        else:
-            n += int((xg.to(torch.bfloat16) != xc.to(torch.bfloat16)).sum())
-    return n
-
-
 @pytest.mark.cuda
-def test_engine_kernels_match_cpu_plain(cuda, monkeypatch):
+def test_engine_kernels_match_cpu_plain(cuda):
+    import chip_smoke
+
     spec = ModelSpec(arch_type=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2,
                      n_heads=4, n_kv_heads=2, vocab_size=300, seq_len=512).resolved()
     params = init_random_params(spec, FloatType.Q40, seed=5)
     kw = dict(dtype=torch.float32, use_kernels=True, prefill_kernel=True)
     gpu = Engine(spec, params, device="cuda", **kw)
     cpu = Engine(spec, params, device="cpu", **kw)
-    calls = _recording(monkeypatch)
-
-    def run(fn):
-        del calls[:]
-        return fn(), list(calls)
-
+    # the activation rows every kernel-path matmul receives, to count the values whose
+    # Q80 code (matvec rows) or bf16 rounding (matmul rows) differs between the runs
+    rec = chip_smoke._Crossings()
     prompt = [1] + list(range(3, 80))
     before = (mv.launches, mm.launches, da.launches)
-    lg, cg = run(lambda: gpu.prefill(prompt))
-    lc, cc = run(lambda: cpu.prefill(prompt))
-    crossed = 0
-    for step in range(13):
-        crossed += _crossings(cg, cc)
-        # 2e-3·max|logits| while no activation has crossed a rounding boundary (only
-        # the sum order differs); once one has, the caches carry it and each crossing
-        # moves the logits by ~1e-3·max at this width: 2e-2·max (card reading before
-        # this check: 3.9e-3 at max 1.25, i.e. 3.1e-3·max, ~90 positions in)
-        tol = (2e-2 if crossed else 2e-3) * np.abs(lc).max()
-        err = np.abs(lg - lc).max()
-        assert err < tol, f"step {step}: max|Δlogits| {err:.3e}, {crossed} crossings"
-        tg, tc = int(np.argmax(lg)), int(np.argmax(lc))
-        assert tg == tc, f"greedy tokens diverge at step {step}"
-        lg, cg = run(lambda: gpu.infer_chunk([tg]))
-        lc, cc = run(lambda: cpu.infer_chunk([tc]))
+    try:
+        lg, cg = gpu.prefill(prompt), rec.take()
+        lc, cc = cpu.prefill(prompt), rec.take()
+        crossed = 0
+        for step in range(13):
+            crossed += rec.count(cg, cc)
+            # 2e-3·max|logits| while no activation has crossed a rounding boundary (only
+            # the sum order differs); once one has, the caches carry it and each crossing
+            # moves the logits by ~1e-3·max at this width: 2e-2·max (card reading before
+            # this check: 3.9e-3 at max 1.25, i.e. 3.1e-3·max, ~90 positions in)
+            tol = (2e-2 if crossed else 2e-3) * np.abs(lc).max()
+            err = np.abs(lg - lc).max()
+            assert err < tol, f"step {step}: max|Δlogits| {err:.3e}, {crossed} crossings"
+            tg, tc = int(np.argmax(lg)), int(np.argmax(lc))
+            assert tg == tc, f"greedy tokens diverge at step {step}"
+            lg, cg = gpu.infer_chunk([tg]), rec.take()
+            lc, cc = cpu.infer_chunk([tc]), rec.take()
+    finally:
+        rec.close()
     assert all(a > b for a, b in zip((mv.launches, mm.launches, da.launches), before))
 
 

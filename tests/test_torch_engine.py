@@ -154,6 +154,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from distributed_llama_tpu_torch.apps import api_server  # noqa: F401
         from distributed_llama_tpu_torch.cache import device_pool  # noqa: F401
         from distributed_llama_tpu_torch.ops import paged_attention, q4_gated_matmul  # noqa: F401
+        from distributed_llama_tpu_torch.ops import prologue, q8_matvec  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
@@ -164,6 +165,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          n_heads=4, n_kv_heads=4, vocab_size=64, seq_len=16).resolved()
         eng = Engine(spec, init_random_params(spec, FloatType.Q40, seed=1), device="cpu",
                      use_kernels=True)
+        assert eng.infer_chunk([3]).shape == (64,)
+        eng = Engine(spec, init_random_params(spec, FloatType.Q80, seed=1), device="cpu",
+                     use_kernels=True, fused_prologue=True)
         assert eng.infer_chunk([3]).shape == (64,)
         be = BatchEngine(spec, init_random_params(spec, FloatType.Q40, seed=1), slots=2,
                          device="cpu", use_kernels=True, fused_matmul=True)
