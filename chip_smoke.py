@@ -29,7 +29,10 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             32000-piece tokenizer: 4 concurrent chat completions (one SSE) over HTTP
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
-            the plain version's time, the bound, and a PyTorch yardstick where one exists
+            the plain version's time, the bound, and a PyTorch yardstick where one
+            exists; the two attention kernels must show one launch per call in a
+            CUDA graph captured around one call, and decode_attention is captured once in a CUDA graph and
+            replayed at two positions written to its device position tensor
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers
 
@@ -48,6 +51,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,6 +93,13 @@ SHAPES_7B = ((12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008), (32000, 
 MEM_RATE = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 L2_BYTES = 50 << 20
+# cycles per second a spin kernel is sized with: above the H100's boost clock, so the
+# spin lasts at least the time asked for
+SPIN_HZ = 2.0e9
+# the kernels phase's profiler windows: taken, retaken because they lost records, and
+# given up after every retake lost records (late in a long run the profiler loses
+# records on the card; PERF.md §6)
+PROFILE_WINDOWS = {"taken": 0, "retaken": 0, "given_up": 0}
 # the serve phase's query tokens per row (decode, 8- and 64-token prefill chunks) and
 # its matmul row counts, 8 slots x T
 SERVE_CHUNKS = (1, 8, 64)
@@ -127,23 +138,108 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, names: tuple[str, ...]) -> float | None:
-    """Device time per call of the kernels whose CUDA names contain any of `names`,
-    from torch.profiler; None when the profiler records no device time."""
+def device_profile(fn, iters: int, names: tuple[str, ...],
+                   per_call: int | None = None, tries: int = 3) -> tuple[float | None, float]:
+    """Device time per call of the kernels whose CUDA names contain any of `names`, and
+    their launches per call, from torch.profiler. The profiler can lose records: a
+    window whose count of matching launches is not within one of `per_call`·iters is
+    taken again, up to `tries` windows, and the time is None when none holds up or no
+    device time was recorded. With per_call None the count must be within one of a
+    whole multiple of iters in two windows in a row that agree within one: lost records
+    can leave a whole multiple too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    count, prev = 0, None
+    for attempt in range(tries):
+        PROFILE_WINDOWS["taken"] += 1
+        PROFILE_WINDOWS["retaken"] += attempt > 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if any(n in ev.key for n in names):
+                us = getattr(ev, "self_device_time_total", 0.0) or getattr(
+                    ev, "self_cuda_time_total", 0.0)
+                total += us
+                count += ev.count if us > 0 else 0
+        want = per_call if per_call is not None else max(1, round(count / iters))
+        whole = total > 0 and abs(count - want * iters) <= 1
+        if whole and (per_call is not None or (prev is not None and abs(count - prev) <= 1)):
+            return total / count * want / 1e3, count / iters
+        prev = count if whole else None
+    PROFILE_WINDOWS["given_up"] += 1
+    return None, count / iters
+
+
+def graph_launches(fn, name: str) -> tuple[int, int]:
+    """Launches of the kernels whose CUDA names contain `name` in one call fn(0), and the
+    nodes of all kinds, read from a CUDA graph captured around that call: a count that,
+    unlike the profiler's records, cannot be lost."""
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    graph.reset()
+    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', dot)[1:]
+    if not nodes:
+        raise AssertionError(f"no nodes in the CUDA graph's dump: {dot[:400]!r}")
+    return sum(name in n for n in nodes), len(nodes)
+
+
+def queued_ms(fn, iters: int, warmup: int = 3) -> tuple[float, bool]:
+    """Mean ms per call of fn(0), ..., fn(iters - 1) from CUDA events, the calls queued
+    behind a spin kernel sized to outlast their enqueueing, so the card runs them back to
+    back: the device time of the whole call, host gaps hidden, without the profiler. The
+    flag says whether the spin did outlast it; it cannot where fn waits on the card (a
+    copy from pageable host memory), and the time then includes host gaps."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    spin_s = 2 * (time.perf_counter() - t0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        torch.cuda._sleep(int(spin_s * SPIN_HZ))
+        start.record()
         for i in range(iters):
             fn(i)
+        end.record()
+        covered = not start.query()  # the spin still ran when the last call was queued
         torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total += getattr(ev, "self_device_time_total", 0.0) or getattr(
-                ev, "self_cuda_time_total", 0.0)
-    return total / iters / 1e3 if total > 0 else None
+        if covered:
+            break
+        spin_s *= 4
+    return start.elapsed_time(end) / iters, covered
+
+
+def device_time(fn, iters: int, names: tuple[str, ...], per_call: int | None = None
+                ) -> tuple[float, str]:
+    """Device ms per call of the kernels named, and its source: the profiler's, or, where
+    the profiler lost records in every window, queued events' time of the whole call."""
+    dv, _ = device_profile(fn, iters, names, per_call)
+    if dv is not None:
+        return dv, "profiler"
+    ms, covered = queued_ms(fn, iters)
+    src = "queued events: the profiler lost records" + ("" if covered else
+                                                        ", host gaps included")
+    what = "every kernel" if names == ("",) else "/".join(names)
+    log(f"[kernels] {what}: {src} in every window")
+    return ms, src
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +298,31 @@ def _record(state, name, err, tol, ms, plain, bnd, lib_ms, work):
     rec["work"].append(work)
 
 
-def _kernel_time(fn, iters: int, names: tuple[str, ...]) -> tuple[float, float | None]:
-    return event_ms(fn, iters), device_ms(fn, iters, names)
+def _kernel_time(fn, iters: int, names: tuple[str, ...]) -> tuple[float, float]:
+    return event_ms(fn, iters), device_time(fn, iters, names)[0]
+
+
+def _one_launch_time(fn, iters: int, name: str) -> tuple[float, float, str]:
+    """Events ms and device ms per call of a kernel that must be one launch per call, and
+    a note on how they were read: a CUDA graph of one call must hold exactly one launch
+    of the kernel. Queued events' time of the whole call is taken beside the device
+    time."""
+    named, nodes = graph_launches(fn, name)
+    if named != 1:
+        raise AssertionError(f"{name}: a CUDA graph of one call holds {named} launches "
+                             f"of it ({nodes} nodes in all), want exactly 1")
+    ev = event_ms(fn, iters)
+    whole, covered = queued_ms(fn, iters)
+    dv, src = device_time(fn, iters, (name,), per_call=1)
+    gaps = "" if covered else ", host gaps included"
+    return ev, dv, (f"{src}, whole call {whole:.5f} ms queued{gaps}; 1 launch/call in a "
+                    f"CUDA graph of one call, {nodes} nodes")
 
 
 def _all_kernels_ms(fn, iters: int) -> float:
     """Device time per call of every kernel fn launches (the plain versions and the
-    PyTorch yardstick), falling back to CUDA events."""
-    dv = device_ms(fn, iters, ("",))
-    return dv if dv is not None else event_ms(fn, iters)
+    PyTorch yardstick)."""
+    return device_time(fn, iters, ("",))[0]
 
 
 def phase_kernels(state: dict) -> None:
@@ -237,9 +349,9 @@ def phase_kernels(state: dict) -> None:
         plain = _all_kernels_ms(lambda i: mv.q4_matvec_plain(x, *ws[i % copies]), 5)
         nbytes = wbytes + k * 2 + n * 4
         bnd = bound(nbytes, 2 * n * k, "int8", rate)
-        ms = dv if dv is not None else ev
+        ms = dv
         log(f"[kernels] q4_matvec N={n} K={k}: max|err| {err:.3e} (tol {tol:.3e}) "
-            f"device {dv if dv is None else round(dv, 5)} ms, events {ev:.5f} ms, "
+            f"device {round(dv, 5)} ms, events {ev:.5f} ms, "
             f"plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
             f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
         _record(state, "q4_matvec", err, tol, ms, plain, bnd, None, f"N={n},K={k}")
@@ -265,16 +377,29 @@ def phase_kernels(state: dict) -> None:
         plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(x, *ws[i % copies]), 3)
         nbytes = wbytes + m * k * 2 + m * n * 4
         bnd = bound(nbytes, 2 * m * n * k, "bf16", rate)
-        ms = dv if dv is not None else ev
+        ms = dv
         log(f"[kernels] q4_matmul M={m} N={n} K={k}: max|err| {err:.3e} "
-            f"(tol {tol:.3e}) device {dv if dv is None else round(dv, 5)} ms, "
+            f"(tol {tol:.3e}) device {round(dv, 5)} ms, "
             f"events {ev:.5f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms "
             f"({bnd[1]}), {2 * m * n * k / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
         _record(state, "q4_matmul", err, tol, ms, plain, bnd, None, f"M={m},N={n},K={k}")
 
-    # kernel 3 — tolerance 1e-4·max|out|: bf16 rows widen exactly to f32 and the
-    # softmax runs in f32 in both; only the order of the sums (split merge) differs
+    # kernel 3 — tolerance 1e-4·max|out|: q and p enter the tensor cores as bf16 hi/lo
+    # pairs against exact bf16 K/V rows (~2^-16 relative), the softmax runs in f32 in
+    # both, and the order of the sums (split merge) differs. NaN fills every slot at or
+    # past the position: the kernel must never read one. Position and layer are device
+    # tensors, as the forward pass hands them.
     n_layers, s_len = 8, 2048
+    layers = [torch.tensor([li], dtype=torch.int32, device=dev) for li in range(n_layers)]
+    from distributed_llama_tpu_torch.ops import cuda_build
+    from distributed_llama_tpu_torch.ops import paged_attention as pa
+
+    fits = {f"{src} {dt} hs={hs} rows={r}": getattr(
+        cuda_build.load(src, mod._SIGNATURES), f"{src}_blocks_per_sm")(
+        int(dt == "bf16"), hs, r)
+        for src, mod in (("decode_attention", da), ("paged_attention", pa))
+        for dt in ("bf16", "f32") for hs in (64, 128) for r in (8, 64)}
+    log(f"[kernels] attention blocks per SM: {json.dumps(fits)}")
     for hk, g in ((32, 1), (8, 4)):
         hs = 128
         kc = torch.randn(n_layers, 1, hk, s_len, hs, generator=gen, device=dev).to(
@@ -284,44 +409,96 @@ def phase_kernels(state: dict) -> None:
         q = torch.randn(hk, g, hs, generator=gen, device=dev)
         kn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(torch.bfloat16)
         vn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(torch.bfloat16)
-        for win in (256, 2048):
-            for pos in (win // 2 + 3, win):
-                out = da._launch(q, kc, vc, kn, vn, 2, pos, win)
-                ref = da.decode_attention_plain(q, kc, vc, kn, vn, 2, pos, win)
-                err = (out - ref).abs().max().item()
-                tol = 1e-4 * ref.abs().max().item()
-                ev, dv = _kernel_time(
-                    lambda i: da._launch(q, kc, vc, kn, vn, i % n_layers, pos, win), 50,
-                    ("attn_split_kernel", "attn_merge_kernel"))
-                plain = _all_kernels_ms(lambda i: da.decode_attention_plain(
-                    q, kc, vc, kn, vn, i % n_layers, pos, win), 10)
-                # yardstick: one SDPA call over the same keys (committed slots + the
-                # current token), inputs prebuilt outside the timed call
-                ks = [torch.cat([kc[li, 0, :, :pos], kn], dim=1).repeat_interleave(g, 0)
-                      for li in range(n_layers)]
-                vs = [torch.cat([vc[li, 0, :, :pos], vn], dim=1).repeat_interleave(g, 0)
-                      for li in range(n_layers)]
-                qb = q.reshape(1, hk * g, 1, hs).to(torch.bfloat16)
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                lib = _all_kernels_ms(
-                    lambda i: sdpa(qb, ks[i % n_layers][None], vs[i % n_layers][None]), 50)
-                nbytes = 2 * hk * pos * hs * 2 + q.numel() * 4 + 2 * hk * hs * 2 + \
-                    out.numel() * 4
-                bnd = bound(nbytes, 4 * hk * g * (pos + 1) * hs, "f32", rate)
-                ms = dv if dv is not None else ev
-                log(f"[kernels] decode_attention hk={hk} g={g} win={win} pos={pos}: "
-                    f"max|err| {err:.3e} (tol {tol:.3e}) device "
-                    f"{dv if dv is None else round(dv, 5)} ms, events {ev:.5f} ms, "
-                    f"plain {plain:.3f} ms, sdpa {lib:.5f} ms, bound {bnd[0]:.5f} ms "
-                    f"({bnd[1]}), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
-                _record(state, "decode_attention", err, tol, ms, plain, bnd, lib,
-                        f"hk={hk},g={g},win={win},pos={pos}")
+        # longest position first: each case fills NaN past its position only
+        cases = sorted(((w, p) for w in (256, 2048) for p in (w // 2 + 3, w)),
+                       key=lambda c: -c[1])
+        for win, pos in cases:
+            if pos < s_len:
+                kc[:, :, :, pos:] = float("nan")
+                vc[:, :, :, pos:] = float("nan")
+            pt = torch.tensor([pos], dtype=torch.int64, device=dev)
+            out = da._launch(q, kc, vc, kn, vn, layers[2], pt, win)
+            ref = da.decode_attention_plain(q, kc, vc, kn, vn, 2, pos, win)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"decode_attention win={win} pos={pos}: "
+                                     "non-finite output")
+            err = (out - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item()
+            ev, dv, how = _one_launch_time(
+                lambda i: da._launch(q, kc, vc, kn, vn, layers[i % n_layers], pt, win),
+                50, "decode_attn_kernel")
+            plain = _all_kernels_ms(lambda i: da.decode_attention_plain(
+                q, kc, vc, kn, vn, i % n_layers, pos, win), 10)
+            # yardstick: one SDPA call over the same keys (committed slots + the
+            # current token), inputs prebuilt outside the timed call
+            ks = [torch.cat([kc[li, 0, :, :pos], kn], dim=1).repeat_interleave(g, 0)
+                  for li in range(n_layers)]
+            vs = [torch.cat([vc[li, 0, :, :pos], vn], dim=1).repeat_interleave(g, 0)
+                  for li in range(n_layers)]
+            qb = q.reshape(1, hk * g, 1, hs).to(torch.bfloat16)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = _all_kernels_ms(
+                lambda i: sdpa(qb, ks[i % n_layers][None], vs[i % n_layers][None]), 50)
+            nbytes = 2 * hk * pos * hs * 2 + q.numel() * 4 + 2 * hk * hs * 2 + \
+                out.numel() * 4
+            # bf16 tensor-core operations: scores and P·V, each issued for the hi and
+            # the lo part of q and p
+            bnd = bound(nbytes, 2 * 4 * hk * g * (pos + 1) * hs, "bf16", rate)
+            ms = dv
+            log(f"[kernels] decode_attention hk={hk} g={g} win={win} pos={pos}: "
+                f"max|err| {err:.3e} (tol {tol:.3e}) device {round(dv, 5)} ms ({how}), "
+                f"events {ev:.5f} ms, plain {plain:.3f} ms, sdpa "
+                f"{lib:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+                f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+            _record(state, "decode_attention", err, tol, ms, plain, bnd, lib,
+                    f"hk={hk},g={g},win={win},pos={pos}")
+            del ks, vs
         del kc, vc
+    _decode_graph_check(gen, dev)
     torch.cuda.empty_cache()
     _kernels_serving(state, gen, dev, rate)
     torch.cuda.empty_cache()
     _kernels_q80(state, gen, dev, rate)
     torch.cuda.empty_cache()
+    log(f"[kernels] profiler windows: {json.dumps(PROFILE_WINDOWS)}")
+
+
+def _decode_graph_check(gen, dev) -> None:
+    """decode_attention captured once in a CUDA graph at 7B width (32 heads, window
+    2048), replayed at two positions after the device position is updated in place;
+    each replay within 1e-4·max|out| of the plain version."""
+    from distributed_llama_tpu_torch.ops import decode_attention as da
+
+    hk, hs, s_len, top = 32, 128, 2048, 1500
+    kc = torch.randn(2, 1, hk, s_len, hs, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(2, 1, hk, s_len, hs, generator=gen, device=dev).to(torch.bfloat16)
+    kc[:, :, :, top:] = float("nan")
+    vc[:, :, :, top:] = float("nan")
+    q = torch.randn(hk, 1, hs, generator=gen, device=dev)
+    kn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.ones(1, dtype=torch.int64, device=dev)
+    layer = torch.ones(1, dtype=torch.int32, device=dev)
+    da._launch(q, kc, vc, kn, vn, layer, pos, s_len)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = da.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da._launch(q, kc, vc, kn, vn, layer, pos, s_len)
+    errs = []
+    for p in (131, top):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = da.decode_attention_plain(q, kc, vc, kn, vn, 1, p, s_len)
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        if not torch.isfinite(out).all() or err > tol:
+            raise AssertionError(f"decode_attention graph replay at pos {p}: max|err| "
+                                 f"{err:.3e} > {tol:.3e}")
+        errs.append(f"pos {p} max|err| {err:.3e} (tol {tol:.3e})")
+    log(f"[kernels] decode_attention captured once ({da.launches - before} launch) and "
+        f"replayed from a CUDA graph: " + "; ".join(errs))
 
 
 def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
@@ -351,9 +528,9 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
                 lambda i: mm.q4_matmul_res_plain(x, *ws[i % copies], res), 3)
             nbytes = wbytes + m * k * 2 + m * n * 2 + m * n * 4
             bnd = bound(nbytes, 2 * m * n * k, "bf16", rate)
-            ms = dv if dv is not None else ev
+            ms = dv
             log(f"[kernels] q4_matmul_res M={m} N={n} K={k}: max|err| {err:.3e} "
-                f"(tol {tol:.3e}) device {dv if dv is None else round(dv, 5)} ms, "
+                f"(tol {tol:.3e}) device {round(dv, 5)} ms, "
                 f"events {ev:.5f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms "
                 f"({bnd[1]}), {2 * m * n * k / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
             _record(state, "q4_matmul_res", err, tol, ms, plain, bnd, None,
@@ -378,18 +555,19 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
             lambda i: gm.q4_gated_matmul_plain(x, *pairs[i % copies], "silu"), 3)
         nbytes = wbytes + m * k * 2 + m * n * 4
         bnd = bound(nbytes, 4 * m * n * k, "bf16", rate)
-        ms = dv if dv is not None else ev
+        ms = dv
         log(f"[kernels] q4_gated_matmul M={m} N={n} K={k} silu: max|err| {err:.3e} "
-            f"(tol {tol:.3e}) device {dv if dv is None else round(dv, 5)} ms, events "
+            f"(tol {tol:.3e}) device {round(dv, 5)} ms, events "
             f"{ev:.5f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
             f"{4 * m * n * k / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
         _record(state, "q4_gated_matmul", err, tol, ms, plain, bnd, None,
                 f"M={m},N={n},K={k}")
     del pairs
 
-    # kernel 9 — tolerance 1e-4·max|out|: bf16 rows widen exactly to f32 and the softmax
-    # runs in f32 in both; only the order of the sums differs. NaN fills the scratch
-    # block, the blocks no table holds, and the rows past each length in live blocks.
+    # kernel 9 — tolerance 1e-4·max|out|: q and p enter the tensor cores as bf16 hi/lo
+    # pairs against exact bf16 K/V rows (~2^-16 relative), the softmax runs in f32 in
+    # both, and the order of the sums differs. NaN fills the scratch block, the blocks no
+    # table holds, and the rows past each length in live blocks.
     b, hk, hs, bt, n_layers = 8, 32, 128, 16, 2
     n_blocks = b * (2048 // bt) + 1
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -432,9 +610,9 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
                 raise AssertionError(f"paged_attention win={win} T={t}: non-finite output")
             err = (out - ref).abs().max().item()
             tol = 1e-4 * ref.abs().max().item()
-            ev, dv = _kernel_time(
+            ev, dv, how = _one_launch_time(
                 lambda i: pa._launch(q, kc, vc, kn, vn, tables, lens, layer, n_read), 30,
-                ("paged_split_kernel", "paged_merge_kernel"))
+                "paged_attn_kernel")
             plain = _all_kernels_ms(lambda i: pa.paged_attention_plain(
                 q, kc, vc, kn, vn, tables, lens, 1, n_read=n_read), 5)
             # yardstick: one SDPA call over the same keys gathered contiguous (committed
@@ -456,12 +634,15 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
             lib = _all_kernels_ms(lambda i: sdpa(qb, kf, vf, attn_mask=mask), 30)
             kv_bytes = sum(2 * hk * ln * hs * 2 for ln in lengths)
             nbytes = kv_bytes + q.numel() * 4 + 2 * kn.numel() * 2 + out.numel() * 4
-            ops = sum(4 * hk * t * (ln + t) * hs for ln in lengths)
-            bnd = bound(nbytes, ops, "f32", rate)
-            ms = dv if dv is not None else ev
+            # bf16 tensor-core operations the data needs (committed slots, the chunk
+            # keys under the causal mask), scores and P·V each issued for the hi and the
+            # lo part of q and p
+            ops = sum(2 * 4 * hk * hs * (t * ln + t * (t + 1) // 2) for ln in lengths)
+            bnd = bound(nbytes, ops, "bf16", rate)
+            ms = dv
             log(f"[kernels] paged_attention B={b} T={t} win={win} hk={hk}: max|err| "
-                f"{err:.3e} (tol {tol:.3e}) device {dv if dv is None else round(dv, 5)} "
-                f"ms, events {ev:.5f} ms, plain {plain:.3f} ms, sdpa {lib:.5f} ms, bound "
+                f"{err:.3e} (tol {tol:.3e}) device {round(dv, 5)} ms ({how}), "
+                f"events {ev:.5f} ms, plain {plain:.3f} ms, sdpa {lib:.5f} ms, bound "
                 f"{bnd[0]:.5f} ms ({bnd[1]}), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
             _record(state, "paged_attention", err, tol, ms, plain, bnd, lib,
                     f"B={b},T={t},win={win}")
@@ -494,9 +675,9 @@ def _matvec_row(state, name: str, kern, plain_fn, copies: int, nbytes: int, n: i
     ev, dv = _kernel_time(kern, 50, names)
     plain = _all_kernels_ms(plain_fn, 5)
     bnd = bound(nbytes, 2 * n * k, "f32" if "precise" in name else "int8", rate)
-    ms = dv if dv is not None else ev
+    ms = dv
     log(f"[kernels] {name} {work}: max|err| {err:.3e} (tol {tol:.3e}) device "
-        f"{dv if dv is None else round(dv, 5)} ms, events {ev:.5f} ms, plain {plain:.3f} "
+        f"{round(dv, 5)} ms, events {ev:.5f} ms, plain {plain:.3f} "
         f"ms, bound {bnd[0]:.5f} ms ({bnd[1]}), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
     _record(state, name, err, tol, ms, plain, bnd, None, work)
 
@@ -582,10 +763,10 @@ def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
         plain = _all_kernels_ms(plain_fn, 20)
         nbytes = k * xs[0].element_size() + (0 if w is None else 4 * k) + k + k // 32 * 4
         bnd = bound(nbytes, (5 if w is not None else 3) * k, "f32", rate)
-        ms = dv if dv is not None else ev
+        ms = dv
         log(f"[kernels] {name} K={k} x {str(dtype)[6:]}: {flips} xq flips over 4 rows, sx "
             f"rel err {sx_rel:.2e}, max|err| of xq·sx {err:.3e} (tol {tol:.3e}) device "
-            f"{dv if dv is None else round(dv, 5)} ms, events {ev:.5f} ms (a 1-element "
+            f"{round(dv, 5)} ms, events {ev:.5f} ms (a 1-element "
             f"torch fill, back to back: {empty_ms:.5f} ms), plain {plain:.3f} ms, bound "
             f"{bnd[0]:.6f} ms ({bnd[1]})")
         _record(state, name, err, tol, ms, plain, bnd, None,

@@ -9,214 +9,128 @@
 // its g query heads, softmax over the committed cache slots [0, min(pos, win)) of layer
 // `layer` plus the current token (k_new, v_new, not yet in the cache), scores
 // (q·k) * 1/sqrt(hs) in f32, output sum_s p_s v_s / sum_s p_s in f32. Slots >= pos and
-// slots >= win are never read at all, so a stale or unwritten slot can touch neither
-// the scores nor the values.
+// slots >= win are never read (their tile rows are zero-filled), so a stale or
+// unwritten slot can touch neither the scores nor the values. pos and the layer index
+// are read from device memory: the launch depends on the window only, so a captured
+// CUDA graph replays at every position of a window.
 //
 // What bounds it on an H100: bytes. Each committed slot's k and v rows are read once
-// (2·hs·2 bytes per slot and kv head in bf16) for ~4·g·hs flops, far under the ridge.
+// (2·hs·2 bytes per slot and kv head in bf16) for ~4·g·hs flops, far under the ridge;
+// at short positions the latency of one block's chain (first tile, products, merge).
 //
-// What the design does: split-K flash decoding. Pass 1 gives each (kv head, 64-slot
-// split) its own block; each of its 4 warps walks slots with an online-softmax
-// (m, l, acc) carry in registers (lane = hs/32 contiguous dims), the warps merge in
-// shared memory, and the block writes one partial (m, l, acc). Pass 2, one block per
-// kv head, folds in the current token and merges the splits. Splits keep every SM busy
-// at long windows where one block per head (32 heads at 7B) would use a quarter of
-// the card.
+// What the design does (csrc/attention_tile.cuh, shared with paged_attention.cu): one
+// launch. A block per (kv head, slot split) streams its 64-slot tiles through a 3-stage
+// ring of bulk copies (two tiles in flight before the first is used), the four warps
+// take 16 slots of each tile on the tensor cores (the narrow body: slots on the MMA
+// rows, the g query heads on its columns), and the last split block of a head folds
+// the partials. The current token follows the last committed slot. The splits
+// are sized from the window, up to the blocks the card holds at once, and deal the
+// tiles in turn, so at any position the splits share the work; a split with no slot
+// below pos writes an empty partial (m = -1e30, l = 0).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSplit = 64;  // cache slots per pass-1 block
-constexpr int kMaxG = 8;    // query heads per kv head
-constexpr int kMaxD = 4;    // head dims per lane (hs <= 128)
-constexpr float kNeg = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+struct ContigSrc {
+  __device__ __forceinline__ static int committed(const attn::Params& p, int) {
+    const long long pos = p.pos[0];
+    return pos <= 0 ? 0 : static_cast<int>(min(pos, static_cast<long long>(p.n_slots)));
+  }
+  __device__ __forceinline__ static int page(const attn::Params&, int, int) { return 0; }
+  __device__ __forceinline__ static size_t row(const attn::Params& p, int h, int layer,
+                                               int s, int) {
+    return (static_cast<size_t>(layer) * p.hk + h) * p.s_len + s;
+  }
+};
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+template <typename T, int HS, bool kNarrow>
+__global__ void __launch_bounds__(attn::kThreads)
+decode_attn_kernel(const attn::Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attn::attention_block<ContigSrc, T, HS, kNarrow>(p, smem);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-                  const T* __restrict__ vc, float* __restrict__ part_m,
-                  float* __restrict__ part_l, float* __restrict__ part_acc,
-                  int g, int hs, int s_len, int end, size_t layer_off, float scale) {
-  __shared__ float sm_m[kWarps][kMaxG];
-  __shared__ float sm_l[kWarps][kMaxG];
-  __shared__ float sm_acc[kWarps][kMaxG][kMaxD * 32];
-  const int h = blockIdx.x;
-  const int j = blockIdx.y;
-  const int nsplit = gridDim.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int dims = hs / 32;
-
-  float qr[kMaxG][kMaxD], m[kMaxG], l[kMaxG], acc[kMaxG][kMaxD];
-#pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) {
-    m[gi] = kNeg;
-    l[gi] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < kMaxD; ++d) {
-      acc[gi][d] = 0.0f;
-      qr[gi][d] = (gi < g && d < dims)
-          ? q[(static_cast<size_t>(h) * g + gi) * hs + lane * dims + d] : 0.0f;
-    }
-  }
-
-  const size_t head_off = layer_off + static_cast<size_t>(h) * s_len * hs;
-  const T* kbase = kc + head_off;
-  const T* vbase = vc + head_off;
-  const int s0 = j * kSplit;
-  const int s1 = min(end, s0 + kSplit);
-  for (int s = s0 + warp; s < s1; s += kWarps) {
-    float kv[kMaxD], vv[kMaxD];
-#pragma unroll
-    for (int d = 0; d < kMaxD; ++d) {
-      kv[d] = d < dims ? to_f(kbase[static_cast<size_t>(s) * hs + lane * dims + d]) : 0.0f;
-      vv[d] = d < dims ? to_f(vbase[static_cast<size_t>(s) * hs + lane * dims + d]) : 0.0f;
-    }
-#pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi < g) {
-        float part = 0.0f;
-#pragma unroll
-        for (int d = 0; d < kMaxD; ++d) part += qr[gi][d] * kv[d];
-        const float sc = warp_sum(part) * scale;
-        const float mn = fmaxf(m[gi], sc);
-        const float a = expf(m[gi] - mn);
-        const float p = expf(sc - mn);
-        l[gi] = l[gi] * a + p;
-#pragma unroll
-        for (int d = 0; d < kMaxD; ++d) acc[gi][d] = acc[gi][d] * a + p * vv[d];
-        m[gi] = mn;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) {
-    if (gi < g) {
-      if (lane == 0) {
-        sm_m[warp][gi] = m[gi];
-        sm_l[warp][gi] = l[gi];
-      }
-#pragma unroll
-      for (int d = 0; d < kMaxD; ++d)
-        if (d < dims) sm_acc[warp][gi][lane * dims + d] = acc[gi][d];
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < g * hs; e += kThreads) {
-    const int gi = e / hs;
-    const int dd = e % hs;
-    float mx = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][gi]);
-    float lsum = 0.0f, asum = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][gi] - mx);
-      lsum += sm_l[w][gi] * f;
-      asum += sm_acc[w][gi][dd] * f;
-    }
-    const size_t pi = (static_cast<size_t>(h) * nsplit + j) * g + gi;
-    part_acc[pi * hs + dd] = asum;
-    if (dd == 0) {
-      part_m[pi] = mx;
-      part_l[pi] = lsum;
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_merge_kernel(const float* __restrict__ q, const T* __restrict__ k_new,
-                  const T* __restrict__ v_new, const float* __restrict__ part_m,
-                  const float* __restrict__ part_l, const float* __restrict__ part_acc,
-                  float* __restrict__ out, int g, int hs, int nsplit, float scale) {
-  __shared__ float s_new[kMaxG];
-  const int h = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int gi = warp; gi < g; gi += kWarps) {
-    float part = 0.0f;
-    for (int d = lane; d < hs; d += 32)
-      part += q[(static_cast<size_t>(h) * g + gi) * hs + d] *
-              to_f(k_new[static_cast<size_t>(h) * hs + d]);
-    part = warp_sum(part);
-    if (lane == 0) s_new[gi] = part * scale;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < g * hs; e += kThreads) {
-    const int gi = e / hs;
-    const int dd = e % hs;
-    const size_t p0 = static_cast<size_t>(h) * nsplit * g + gi;
-    float mx = s_new[gi];
-    for (int j = 0; j < nsplit; ++j) mx = fmaxf(mx, part_m[p0 + static_cast<size_t>(j) * g]);
-    const float pn = expf(s_new[gi] - mx);
-    float lsum = pn;
-    float asum = pn * to_f(v_new[static_cast<size_t>(h) * hs + dd]);
-    for (int j = 0; j < nsplit; ++j) {
-      const size_t pi = p0 + static_cast<size_t>(j) * g;
-      const float f = expf(part_m[pi] - mx);
-      lsum += part_l[pi] * f;
-      asum += part_acc[pi * hs + dd] * f;
-    }
-    out[(static_cast<size_t>(h) * g + gi) * hs + dd] = asum / lsum;
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const void* k_new,
-           const void* v_new, void* part_m, void* part_l, void* part_acc, void* out,
-           int hk, int g, int hs, int s_len, int layer, int end, float scale,
-           cudaStream_t st) {
-  const int nsplit = (end + kSplit - 1) / kSplit;
-  const size_t layer_off = static_cast<size_t>(layer) * hk * s_len * hs;
-  if (nsplit > 0) {
-    attn_split_kernel<T><<<dim3(hk, nsplit), kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-        static_cast<float*>(part_m), static_cast<float*>(part_l),
-        static_cast<float*>(part_acc), g, hs, s_len, end, layer_off, scale);
-  }
-  attn_merge_kernel<T><<<hk, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const float*>(part_acc),
-      static_cast<float*>(out), g, hs, nsplit, scale);
+// Launch, or with p == nullptr return the blocks that fit on one SM (-1 on failure).
+template <typename T, int HS, bool kNarrow>
+int run_body(const attn::Params* p, dim3 grid, cudaStream_t st) {
+  constexpr size_t smem = attn::smem_bytes<T, HS>();
+  if (p == nullptr)
+    return attn::blocks_per_sm(decode_attn_kernel<T, HS, kNarrow>, smem);
+  static const cudaError_t attr = attn::configure(decode_attn_kernel<T, HS, kNarrow>, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  decode_attn_kernel<T, HS, kNarrow><<<grid, attn::kThreads, smem, st>>>(*p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 stores with at most 8 query rows take the narrow body
+template <typename T, int HS>
+int run(const attn::Params* p, int rows, dim3 grid, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    if (rows <= 8) return run_body<T, HS, true>(p, grid, st);
+  }
+  return run_body<T, HS, false>(p, grid, st);
+}
+
+template <typename T>
+int run_hs(const attn::Params* p, int hs, int rows, dim3 grid, cudaStream_t st) {
+  switch (hs) {
+    case 32: return run<T, 32>(p, rows, grid, st);
+    case 64: return run<T, 64>(p, rows, grid, st);
+    case 96: return run<T, 96>(p, rows, grid, st);
+    case 128: return run<T, 128>(p, rows, grid, st);
+    default: return p == nullptr ? -1 : static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q: (hk, g, hs) f32; kc/vc: (L, 1, hk, S, hs) in bf16 (cache_bf16=1) or f32;
-// k_new/v_new: (hk, 1, hs) in the cache dtype; part_m/part_l: (hk, nsplit, g) f32 and
-// part_acc: (hk, nsplit, g, hs) f32 scratch with nsplit = ceil(end / 64);
-// out: (hk, g, hs) f32. end = min(pos, window). hs % 32 == 0, hs <= 128, g <= 8.
+// k_new/v_new: (hk, 1, hs) in the cache dtype; pos: (1,) int64 and layer: (1,) int32 on
+// the device; part_m/part_l: (hk, nsplit, g) f32 and part_acc: (hk, nsplit, g, hs) f32
+// scratch, counters: (hk·npass) i32, zero, left zero — unused when nsplit == 1; out:
+// (hk, g, hs) f32. Slots [0, win) are readable (win <= S); split j takes the 64-slot
+// tiles j, j + nsplit, ..., 1 <= nsplit <= 32. hs in {32, 64, 96, 128};
+// npass = ceil(g / 64).
 extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
-                                const void* k_new, const void* v_new, void* part_m,
-                                void* part_l, void* part_acc, void* out, int cache_bf16,
-                                int hk, int g, int hs, int s_len, int layer, int end,
+                                const void* k_new, const void* v_new, const void* pos,
+                                const void* layer, void* part_m, void* part_l,
+                                void* part_acc, void* counters, void* out, int cache_bf16,
+                                int hk, int g, int hs, int s_len, int win, int nsplit,
                                 float scale, void* stream) {
+  if (nsplit < 1 || nsplit > attn::kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  attn::Params p{};
+  p.q = static_cast<const float*>(q);
+  p.kc = kc;
+  p.vc = vc;
+  p.k_new = k_new;
+  p.v_new = v_new;
+  p.pos = static_cast<const long long*>(pos);
+  p.layer = static_cast<const int*>(layer);
+  p.part_m = static_cast<float*>(part_m);
+  p.part_l = static_cast<float*>(part_l);
+  p.part_acc = static_cast<float*>(part_acc);
+  p.counters = static_cast<int*>(counters);
+  p.out = static_cast<float*>(out);
+  p.hk = hk;
+  p.R = g;
+  p.g = g;
+  p.T = 1;
+  p.nsplit = nsplit;
+  p.n_slots = win;
+  p.s_len = s_len;
+  p.scale = scale;
+  const dim3 grid((g + attn::kPassRows - 1) / attn::kPassRows, nsplit, hk);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cache_bf16)
-    return launch<__nv_bfloat16>(q, kc, vc, k_new, v_new, part_m, part_l, part_acc, out,
-                                 hk, g, hs, s_len, layer, end, scale, st);
-  return launch<float>(q, kc, vc, k_new, v_new, part_m, part_l, part_acc, out, hk, g, hs,
-                       s_len, layer, end, scale, st);
+  if (cache_bf16) return run_hs<__nv_bfloat16>(&p, hs, g, grid, st);
+  return run_hs<float>(&p, hs, g, grid, st);
 }
 
-// Exported split width, so the wrapper sizes the scratch the same way.
-extern "C" int decode_attention_split_slots() { return kSplit; }
+// Blocks of the kernel for this cache dtype, head size and query rows per (row, kv
+// head) that fit on one SM at once (the wrapper sizes its splits so that one wave holds
+// the launch), or -1.
+extern "C" int decode_attention_blocks_per_sm(int cache_bf16, int hs, int rows) {
+  if (cache_bf16) return run_hs<__nv_bfloat16>(nullptr, hs, rows, dim3(), nullptr);
+  return run_hs<float>(nullptr, hs, rows, dim3(), nullptr);
+}

@@ -88,7 +88,7 @@ class _Step:
         self.block_tokens = block_tokens
         self.paged_kernel = paged_kernel
         self.lengths = lengths  # (B,) int32 on the device, for the paged kernel
-        self.layer_ids = layer_ids  # (L,) int32 on the device, for the paged kernel
+        self.layer_ids = layer_ids  # (L,) int32 on the device, for the attention kernels
         self.prologue = prologue  # the fused activation prologue is on for this step
 
 
@@ -146,8 +146,14 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
                               li, n_read=nb)
         att = out.reshape(b, t, hq * hs).to(x.dtype)
     elif not paged and use_kernels and t == 1 and b == 1 and isinstance(start, int):
+        # on the card the kernel reads the position and the layer from device memory
+        # (the step's positions, the layer ids): the step copies nothing to the device
+        if x.is_cuda:
+            pos, li = st.positions[:1], st.layer_ids[layer_idx:layer_idx + 1]
+        else:
+            pos, li = start, layer_idx
         out = decode_attention(q.reshape(hk, hq // hk, hs).float(), kc, vc, k_t[0],
-                               v_t[0], layer_idx, start, window=win)
+                               v_t[0], li, pos, window=win)
         att = out.reshape(1, 1, hq * hs).to(x.dtype)
     else:
         if paged:  # gather the table's blocks into the dense window layout
@@ -259,6 +265,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             layer_ids = torch.arange(spec.n_layers, dtype=torch.int32, device=dev)
     else:
         positions = start_pos + torch.arange(t, device=dev)
+        if use_kernels and t == 1 and tokens.shape[0] == 1 and tokens.is_cuda:
+            layer_ids = torch.arange(spec.n_layers, dtype=torch.int32, device=dev)
     prologue = bool(fused_prologue and use_kernels and t == 1 and tokens.shape[0] == 1
                     and not per_row and prologue_supported(spec.dim))
     st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,

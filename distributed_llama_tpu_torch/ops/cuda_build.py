@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface (pointers and the stream as `void*`,
 sizes as `int`, each function returning `cudaGetLastError()` after its launches). It is
 compiled by `nvcc` for `sm_90a` into `_build/<name>-<hash>.so` at first use, where the
-hash covers the source and the flags, and loaded with ctypes. Nothing is built when the
+hash covers the source, the shared headers `csrc/*.cuh` and the flags, and loaded with
+ctypes. Nothing is built when the
 package is imported; a build that fails raises.
 """
 
@@ -45,9 +46,14 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
+    """Where the built library of one source lives: the name plus a hash of the source,
+    every shared header `csrc/*.cuh` (a source may include any of them) and the flags."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

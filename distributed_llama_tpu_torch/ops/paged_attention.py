@@ -2,8 +2,9 @@
 — the batched serving path's attention, decode (T = 1) and prefill chunks alike.
 
 Replaces distributed_llama_tpu/ops/pallas_paged_attention.py `paged_attention`
-(`_kernel`). The CUDA kernel is csrc/paged_attention.cu; its header says what bounds it
-on an H100 and what its design does about that.
+(`_kernel`). The CUDA kernel is csrc/paged_attention.cu over the block body of
+csrc/attention_tile.cuh, which it shares with decode_attention; its header says what
+bounds it on an H100 and what its design does about that. One launch per call.
 
 KV lives in (L, N, hk, bt, hs) pools; row b's block table maps virtual position p to pool
 block tables[b, p // bt] at offset p % bt, and lengths[b] is the row's committed length
@@ -16,7 +17,9 @@ the product (a NaN left in a scratch or unused block stays out).
 
 `paged_gather_kv` and `paged_attention_plain` port the JAX package's `paged_gather_kv` and
 `paged_attention_xla`. `paged_attention` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; `launches` counts kernel launches.
+launches the kernel for CUDA tensors; `launches` counts kernel launches. The launch
+depends on the shapes and n_read only: tables, lengths and the layer are read on the
+device.
 """
 
 from __future__ import annotations
@@ -28,16 +31,14 @@ import torch
 
 from . import cuda_build
 from .attention import gqa_attention
+from .attention_plan import merge_counters, resident_blocks, split_plan
 
 launches = 0
 
-_MAX_HS = 128
+KERNEL_HS = (32, 64, 96, 128)  # head sizes the kernel is built for
 _P, _I, _F = cuda_build.P, cuda_build.I, cuda_build.F
-_SIGNATURES = {
-    "paged_attention": [_P] * 12 + [_I] * 13 + [_F, _P],
-    "paged_attention_tile_slots": [],
-}
-_ROW_TILE = 16  # query rows per block (csrc/paged_attention.cu kRT)
+_SIGNATURES = {"paged_attention": [_P] * 13 + [_I] * 12 + [_F, _P],
+               "paged_attention_blocks_per_sm": [_I, _I, _I]}
 
 
 def paged_gather_kv(kc: torch.Tensor, vc: torch.Tensor, layer_idx: int,
@@ -97,45 +98,48 @@ def _launch(q, kc, vc, k_new, v_new, tables, lengths, layer: torch.Tensor, n_rea
             vc.dtype == k_new.dtype == v_new.dtype == kc.dtype):
         raise TypeError("paged_attention kernel takes bf16 or f32 pools and chunk k/v of "
                         "the same dtype")
-    if hs > _MAX_HS:
-        raise ValueError(f"paged_attention kernel takes hs <= {_MAX_HS}, got {hs}")
+    if hs not in KERNEL_HS:
+        raise ValueError(f"paged_attention kernel takes hs in {KERNEL_HS}, got {hs}")
+    if t < 1:
+        raise ValueError("paged_attention kernel needs at least one chunk query")
     if tables.dim() != 2 or tables.shape[0] != b or not 1 <= n_read <= tables.shape[1]:
         raise ValueError(f"paged_attention: tables {tuple(tables.shape)}, n_read {n_read}")
     if (tables.dtype, lengths.dtype, layer.dtype) != (torch.int32,) * 3 \
             or lengths.shape != (b,) or layer.numel() != 1:
         raise TypeError("paged_attention kernel takes int32 tables (B, W), lengths (B,) "
                         "and a one-element int32 layer index")
-    if not (kc.is_contiguous() and vc.is_contiguous() and tables.is_contiguous()):
-        raise ValueError("paged_attention kernel needs contiguous pools and tables")
+    if not (kc.is_contiguous() and vc.is_contiguous() and tables.is_contiguous()
+            and lengths.is_contiguous()):
+        raise ValueError("paged_attention kernel needs contiguous pools, tables, lengths")
     if len({x.device for x in (q, kc, vc, k_new, v_new, tables, lengths, layer)}) != 1:
         raise ValueError("paged_attention: tensors on different devices")
     g = hq // hk
     r = t * g
     dev = q.device
     lib = cuda_build.load("paged_attention", _SIGNATURES)
-    tile = lib.paged_attention_tile_slots()
     n_slots = n_read * bt
-    # splits over the readable slots so that pass 1 covers the card about four times
-    row_tiles = -(-r // _ROW_TILE)
-    n_tiles = -(-n_slots // tile)
-    want = -(-4 * cuda_build.sm_count(dev.index) // (row_tiles * b * hk))
-    split_slots = -(-n_tiles // max(1, min(n_tiles, want))) * tile
-    nsplit = -(-n_slots // split_slots)
+    bf16 = kc.dtype == torch.bfloat16
+    npass, nsplit = split_plan(n_slots, r, b * hk, resident_blocks(
+        lib, "paged_attention_blocks_per_sm", bf16, hs, r, dev.index))
     # (B, T, hq, hs) -> (B, hk, T·g, hs): row ti·g + gi of kv head h
     qr = q.float().reshape(b, t, hk, g, hs).permute(0, 2, 1, 3, 4).reshape(b, hk, r, hs)
     qr = qr.contiguous()
     kn, vn = k_new.contiguous(), v_new.contiguous()
-    part_m = torch.empty(b * hk, nsplit, r, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b * hk, nsplit, r, hs, dtype=torch.float32, device=dev)
     out = torch.empty(b, hk, r, hs, dtype=torch.float32, device=dev)
+    if nsplit > 1:
+        part_m = torch.empty(b * hk, nsplit, r, dtype=torch.float32, device=dev)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty(b * hk, nsplit, r, hs, dtype=torch.float32, device=dev)
+        ptrs = (part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+                merge_counters(dev, b * hk * npass).data_ptr())
+    else:
+        ptrs = (None,) * 4
     scale = float(np.float32(1.0 / math.sqrt(hs)))
     rc = lib.paged_attention(
         qr.data_ptr(), kc.data_ptr(), vc.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), layer.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        int(kc.dtype == torch.bfloat16), b, hk, r, g, t, hs, n_blocks, bt,
-        tables.shape[1], n_slots, nsplit, split_slots, scale, cuda_build.stream_of(q))
+        tables.data_ptr(), lengths.data_ptr(), layer.data_ptr(), *ptrs, out.data_ptr(),
+        int(bf16), b, hk, r, g, t, hs, n_blocks, bt,
+        tables.shape[1], n_slots, nsplit, scale, cuda_build.stream_of(q))
     cuda_build.check(rc, "paged_attention")
     launches += 1
     return out.reshape(b, hk, t, g, hs).permute(0, 2, 1, 3, 4).reshape(b, t, hq, hs)

@@ -9,8 +9,9 @@ products; the f32 sum over blocks in another order); the prologue's quantize_q80
 its rmsnorm_q80 at most 4 xq values one step off (the sum of squares in another order
 can move a value within an ulp of a rounding tie) with sx within rtol 1e-6; q4_matmul and its residual mode 1e-3 (identical bf16
 operands, tensor-core f32 accumulation order), q4_gated_matmul 1e-3 (the same products,
-the activation on the same f32 sums), decode_attention and paged_attention 1e-4 (f32
-softmax, split merge order). The serving tests hold the fused BatchEngine on the card
+the activation on the same f32 sums), decode_attention and paged_attention 1e-4 (q and
+p enter the bf16 tensor cores as hi/lo pairs against exact bf16 K/V, ~2^-16 relative;
+f32 softmax; split merge order). The serving tests hold the fused BatchEngine on the card
 against the CPU plain versions: identical greedy tokens per request, logits step by step
 within 2e-3·max|logits| (`chip_smoke.serving_parity`)."""
 
@@ -20,6 +21,7 @@ import torch
 
 from distributed_llama_tpu_torch.models.params import init_random_params
 from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
+from distributed_llama_tpu_torch.ops import attention_plan
 from distributed_llama_tpu_torch.ops import decode_attention as da
 from distributed_llama_tpu_torch.ops import paged_attention as pa
 from distributed_llama_tpu_torch.ops import prologue as pro
@@ -174,7 +176,7 @@ def test_q4_matmul_kernel_matches_plain(cuda, m, n, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hk,g,hs", [(4, 1, 64), (2, 4, 128), (3, 8, 32)])
+@pytest.mark.parametrize("hk,g,hs", [(4, 1, 64), (2, 4, 128), (3, 8, 32), (2, 2, 96)])
 @pytest.mark.parametrize("pos,window", [(0, 256), (1, 256), (130, 256), (256, 256),
                                         (700, 1024)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, hk, g, hs, pos, window):
@@ -191,6 +193,57 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, hk, g, hs, pos, wind
     want = da.decode_attention_plain(q, kc, vc, kn, vn, 1, pos, window)
     assert torch.isfinite(got).all()
     assert _rel_err(got, want) < 1e-4
+
+
+def _decode_inputs(dev, dtype, hk, g, hs, s=1024, n_layers=2, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kc = torch.randn(n_layers, 1, hk, s, hs, generator=gen, device=dev).to(dtype)
+    vc = torch.randn(n_layers, 1, hk, s, hs, generator=gen, device=dev).to(dtype)
+    q = torch.randn(hk, g, hs, generator=gen, device=dev)
+    kn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(dtype)
+    vn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(dtype)
+    return q, kc, vc, kn, vn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 131, 256])
+def test_decode_attention_device_position_matches_int(cuda, pos):
+    """Position and layer as device tensors (int64 and int32, as the forward pass hands
+    them) give the int call's result bit for bit: one launch either way."""
+    q, kc, vc, kn, vn = _decode_inputs(cuda, torch.bfloat16, 32, 1, 128, seed=pos)
+    before = da.launches
+    got = da._launch(q, kc, vc, kn, vn, torch.ones(1, dtype=torch.int32, device=cuda),
+                     torch.full((1,), pos, dtype=torch.int64, device=cuda), 256)
+    want = da._launch(q, kc, vc, kn, vn, 1, pos, 256)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2
+    assert torch.equal(got, want)
+    ref = da.decode_attention_plain(q, kc, vc, kn, vn, 1, pos, 256)
+    assert _rel_err(got, ref) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_replays_from_cuda_graph(cuda, dtype):
+    """One launch captured in a CUDA graph replays at two positions of its window after
+    the device position is updated in place, matching the plain version at each."""
+    q, kc, vc, kn, vn = _decode_inputs(cuda, dtype, 32, 4, 128, seed=7)
+    kc[:, :, :, 700:] = float("nan")  # past both positions: never read
+    vc[:, :, :, 700:] = float("nan")
+    pos = torch.full((1,), 5, dtype=torch.int64, device=cuda)
+    layer = torch.ones(1, dtype=torch.int32, device=cuda)
+    da._launch(q, kc, vc, kn, vn, layer, pos, 1024)  # warm-up: build, attributes, counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da._launch(q, kc, vc, kn, vn, layer, pos, 1024)
+    for p in (131, 699):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, kc, vc, kn, vn, 1, p, 1024)
+        assert torch.isfinite(out).all()
+        assert _rel_err(out, want) < 1e-4, f"pos {p}"
 
 
 @pytest.mark.cuda
@@ -308,6 +361,38 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, t, g, hk, hs):
     want = pa.paged_attention_plain(q, kc, vc, kn, vn, tables, lens, 1, n_read=w)
     assert torch.isfinite(got).all()
     assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["rows512", "mid_tile", "one_split"])
+def test_paged_attention_kernel_edge_shapes(cuda, dtype, case):
+    """R = T·g = 512 query rows (eight 64-row blocks per split), lengths that end inside
+    a 64-slot tile with NaN after them, and a window that one split covers (the block
+    writes the output itself, no merge)."""
+    t, g, hk, hs, lengths = {
+        "rows512": (64, 8, 2, 128, [0, 37, 300, 16]),
+        "mid_tile": (5, 4, 2, 64, [100, 45, 63, 129]),
+        "one_split": (3, 2, 4, 128, [20, 9, 0]),
+    }[case]
+    q, kc, vc, kn, vn, tables, lens, w = _paged_inputs(cuda, dtype, t, g, hk, hs, lengths,
+                                                       seed=len(case))
+    layer = torch.ones(1, dtype=torch.int32, device=cuda)
+    before = pa.launches
+    got = pa._launch(q, kc, vc, kn, vn, tables, lens, layer, w)
+    resident = attention_plan.resident_blocks(
+        pa.cuda_build.load("paged_attention", pa._SIGNATURES),
+        "paged_attention_blocks_per_sm", dtype == torch.bfloat16, hs, t * g, 0)
+    plan = attention_plan.split_plan(w * 16, t * g, len(lengths) * hk, resident)
+    if case == "one_split":
+        assert plan[1] == 1
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = pa.paged_attention_plain(q, kc, vc, kn, vn, tables, lens, 1, n_read=w)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < 1e-4
+    # the counters are left zero for the next call
+    assert int(attention_plan.merge_counters(cuda, 1).abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ Pallas kernels run in interpret mode, on the same seeded inputs.
 - q4_matmul: bf16 operands rounded identically, f32 sums in another order: rtol 1e-5,
   atol 1e-5·max|y|.
 - decode_attention: f32 softmax in both; atol 1e-5, against both the one-block and the
-  window-tiled forms of the TPU kernel.
+  window-tiled forms of the TPU kernel, with the position and layer given as ints or
+  as one-element tensors (as the forward pass hands them to the kernel).
 """
 
 import jax.numpy as jnp
@@ -117,6 +118,26 @@ def test_decode_attention_plain_matches_pallas(monkeypatch, tiled, pos, window):
                                window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     assert tda.launches == before
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("pos,window", [(0, 32), (5, 32), (32, 32), (50, 64)])
+def test_decode_attention_takes_device_style_position(monkeypatch, tiled, pos, window):
+    """pos and layer_idx as one-element tensors (int64 and int32, the forward pass's
+    step positions and layer ids) give the int call's result, and the TPU kernel's."""
+    if tiled:
+        monkeypatch.setattr(pallas_attention, "_FUSED_ONE_BLOCK_LIMIT", 0)
+        monkeypatch.setattr(pallas_attention, "_WT", 16)
+    q, kc, vc, kn, vn = _attn_inputs(2, 4, 32, 64, seed=3 * pos + window)
+    ts = [torch.from_numpy(a) for a in (q, kc, vc, kn, vn)]
+    want = pallas_attention.fused_decode_attention(
+        *(jnp.asarray(a) for a in (q, kc, vc, kn, vn)), 2, pos, window=window,
+        interpret=True)
+    by_int = tda.decode_attention(*ts, 2, pos, window=window)
+    by_tensor = tda.decode_attention(*ts, torch.tensor([2], dtype=torch.int32),
+                                     torch.tensor([pos], dtype=torch.int64), window=window)
+    torch.testing.assert_close(by_tensor, by_int, rtol=0, atol=0)
+    np.testing.assert_allclose(by_tensor.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 def test_decode_attention_plain_masks_stale_values():
