@@ -30,9 +30,12 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
-            exists; the two attention kernels must show one launch per call in a
-            CUDA graph captured around one call, and decode_attention is captured once in a CUDA graph and
-            replayed at two positions written to its device position tensor
+            exists; the two attention kernels and the three Q40 dequant-matmul rows
+            must show one launch per call in a CUDA graph captured around one call
+            (the Q40 rows also print GB/s, TFLOP/s, their share of the bound and, as
+            context only, cuBLAS on the weight dequantized to bf16 beforehand), and
+            decode_attention is captured once in a CUDA graph and replayed at two
+            positions written to its device position tensor
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers
 
@@ -96,10 +99,14 @@ L2_BYTES = 50 << 20
 # cycles per second a spin kernel is sized with: above the H100's boost clock, so the
 # spin lasts at least the time asked for
 SPIN_HZ = 2.0e9
-# the kernels phase's profiler windows: taken, retaken because they lost records, and
-# given up after every retake lost records (late in a long run the profiler loses
-# records on the card; PERF.md §6)
-PROFILE_WINDOWS = {"taken": 0, "retaken": 0, "given_up": 0}
+# the kernels phase's profiler windows: taken, retaken because they lost records, given
+# up after every retake lost records (late in a long run the profiler loses records on
+# the card; PERF.md §6), and retaken because their time disagreed with the queued one
+PROFILE_WINDOWS = {"taken": 0, "retaken": 0, "given_up": 0, "disagreed": 0}
+# how far a one-launch call's profiled kernel time may lie from the queued time of the
+# whole call (which adds the gap between back-to-back launches): relative, absolute
+# ms. A full run on the card once read half the queued time (PERF.md §7).
+PROFILE_AGREE = (0.1, 0.003)
 # the serve phase's query tokens per row (decode, 8- and 64-token prefill chunks) and
 # its matmul row counts, 8 slots x T
 SERVE_CHUNKS = (1, 8, 64)
@@ -306,17 +313,82 @@ def _one_launch_time(fn, iters: int, name: str) -> tuple[float, float, str]:
     """Events ms and device ms per call of a kernel that must be one launch per call, and
     a note on how they were read: a CUDA graph of one call must hold exactly one launch
     of the kernel. Queued events' time of the whole call is taken beside the device
-    time."""
+    time; a profiled time that disagrees with it (PROFILE_AGREE) is retaken, and after
+    three disagreeing windows the queued time stands."""
     named, nodes = graph_launches(fn, name)
     if named != 1:
         raise AssertionError(f"{name}: a CUDA graph of one call holds {named} launches "
                              f"of it ({nodes} nodes in all), want exactly 1")
     ev = event_ms(fn, iters)
     whole, covered = queued_ms(fn, iters)
-    dv, src = device_time(fn, iters, (name,), per_call=1)
+    rel, ab = PROFILE_AGREE
+    for _ in range(3):
+        dv, src = device_time(fn, iters, (name,), per_call=1)
+        # the kernel's time cannot exceed the whole call's, and is all of it where the
+        # call is one node queued without host gaps
+        if dv <= whole * (1 + rel) + ab and (nodes > 1 or not covered
+                                             or dv >= whole * (1 - rel) - ab):
+            break
+        PROFILE_WINDOWS["disagreed"] += 1
+    else:
+        log(f"[kernels] {name}: profiled {dv:.5f} ms against {whole:.5f} ms queued for the "
+            f"whole call ({nodes} nodes) in 3 windows; the queued time stands")
+        dv, src = whole, "queued events: the profiler's time disagreed with them"
     gaps = "" if covered else ", host gaps included"
     return ev, dv, (f"{src}, whole call {whole:.5f} ms queued{gaps}; 1 launch/call in a "
                     f"CUDA graph of one call, {nodes} nodes")
+
+
+BF16 = torch.bfloat16  # the Q40 dequant-matmuls' output on the bf16 paths
+
+
+def _bf16_err(y: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """A bf16 kernel output against its plain version's f32 result: every element of y
+    within the f32 tolerance 1e-3·max|ref| (the same bf16 operands, f32 sums in another
+    order) plus one bf16 ulp at its own magnitude (rounding two f32 values to bf16 moves
+    them at most one ulp further apart) of bf16(ref). Raises where one is not; returns
+    max|y - bf16(ref)| and the largest element's tolerance."""
+    if y.dtype != BF16:
+        raise AssertionError(f"the kernel wrote {y.dtype}, not bf16")
+    want = ref.to(BF16).float()
+    diff = (y.float() - want).abs()
+    big = torch.maximum(ref.abs(), y.float().abs()).clamp_min(2.0 ** -126)
+    tol = 1e-3 * ref.abs().max() + torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    bad = diff > tol
+    if bad.any():
+        at = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"bf16 output off at element {at}: {float(y.flatten()[at])} "
+                             f"against {float(ref.flatten()[at])} (tolerance "
+                             f"{float(tol.flatten()[at]):.3e})")
+    return diff.max().item(), tol.max().item()
+
+
+def _cublas_ms(x, copies: list, iters: int, res=None) -> float:
+    """Context yardstick for the Q40 dequant-matmuls, not the same function: torch.matmul
+    (cuBLAS) of x against each weight of a copy, dequantized to bf16 beforehand (3.6x
+    the weight bytes), plus the residual where there is one; copies (lists of
+    (packed, scales) planes) rotate past the L2; device ms per call."""
+    from distributed_llama_tpu_torch.ops.q4_matmul import dequant_bf16
+
+    per = sum(p.numel() * 4 for p, _ in copies[0])  # bf16 bytes of one copy
+    cb = max(1, min(len(copies), math.ceil(2 * L2_BYTES / per)))
+    wd = [[dequant_bf16(*p) for p in c] for c in copies[:cb]]
+    rb = None if res is None else res.to(torch.bfloat16)
+    fn = ((lambda i: [x @ w.T for w in wd[i % cb]]) if rb is None
+          else (lambda i: torch.add(rb, x @ wd[i % cb][0].T)))
+    ms = _all_kernels_ms(fn, iters)
+    del wd
+    return ms
+
+
+def _q4_log(row: str, shape: str, err, tol, dv, how, ev, plain, bnd, nbytes, flops,
+            cublas) -> None:
+    log(f"[kernels] {row} {shape}: max|err| {err:.3e} (tol {tol:.3e}) device "
+        f"{round(dv, 5)} ms ({how}), events {ev:.5f} ms, plain {plain:.3f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]}), {bnd[0] / dv:.3f} of the bound, "
+        f"{nbytes / (dv * 1e-3) / 1e9:.0f} GB/s, {flops / (dv * 1e-3) / 1e12:.2f} TFLOP/s; "
+        f"cuBLAS on the bf16 weight dequantized beforehand (context, not the same "
+        f"function) {cublas:.5f} ms")
 
 
 def _all_kernels_ms(fn, iters: int) -> float:
@@ -333,6 +405,7 @@ def phase_kernels(state: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     rate = state["rate"]
+    state["q4"] = {}  # (row, M, N, K) -> (device ms, bound ms) of the Q40 dequant-matmuls
 
     # kernel 1 — tolerance 1e-4·max|y|: the block dots are exact integers and only the
     # order of the f32 sum over K/32 block terms differs (relative error ~K/32·2^-24)
@@ -356,8 +429,9 @@ def phase_kernels(state: dict) -> None:
             f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
         _record(state, "q4_matvec", err, tol, ms, plain, bnd, None, f"N={n},K={k}")
 
-    # kernel 2 — tolerance 1e-3·max|y|: bf16 operands are rounded identically, so only
-    # the accumulation order and the tensor cores' f32 accumulate rounding differ
+    # kernel 2 — tolerance 1e-3·max|y| plus one bf16 ulp per element (`_bf16_err`): bf16
+    # operands are rounded identically, so only the accumulation order and the tensor
+    # cores' f32 accumulate rounding differ; the output is bf16, as the paths take it
     # M = 8 and 64: the model phase's 8- and 64-token chunks (all five projections) and
     # the serve phase's decode and 8-token mixed steps; M = 512: the serve phase's
     # 64-token mixed steps, where wqkv and wcls are this kernel's
@@ -368,21 +442,21 @@ def phase_kernels(state: dict) -> None:
         copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
         ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-        y = mm._launch(x, *ws[0])
+        y = mm._launch(x, *ws[0], out_dtype=BF16)
         ref = mm.q4_matmul_plain(x, *ws[0])
-        err = (y - ref).abs().max().item()
-        tol = 1e-3 * ref.abs().max().item()
-        ev, dv = _kernel_time(lambda i: mm._launch(x, *ws[i % copies]), 20,
-                              ("q4_matmul",))
+        err, tol = _bf16_err(y, ref)
+        ev, dv, how = _one_launch_time(
+            lambda i: mm._launch(x, *ws[i % copies], out_dtype=BF16), 20,
+            "q4_matmul_tc_kernel")
         plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(x, *ws[i % copies]), 3)
-        nbytes = wbytes + m * k * 2 + m * n * 4
-        bnd = bound(nbytes, 2 * m * n * k, "bf16", rate)
-        ms = dv
-        log(f"[kernels] q4_matmul M={m} N={n} K={k}: max|err| {err:.3e} "
-            f"(tol {tol:.3e}) device {round(dv, 5)} ms, "
-            f"events {ev:.5f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms "
-            f"({bnd[1]}), {2 * m * n * k / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        _record(state, "q4_matmul", err, tol, ms, plain, bnd, None, f"M={m},N={n},K={k}")
+        nbytes = wbytes + m * k * 2 + m * n * 2
+        flops = 2 * m * n * k
+        bnd = bound(nbytes, flops, "bf16", rate)
+        _q4_log("q4_matmul", f"M={m} N={n} K={k}", err, tol, dv, how, ev, plain, bnd,
+                nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20))
+        _record(state, "q4_matmul", err, tol, dv, plain, bnd, None, f"M={m},N={n},K={k}")
+        state["q4"][("q4_matmul", m, n, k)] = (dv, bnd[0])
+        del ws
 
     # kernel 3 — tolerance 1e-4·max|out|: q and p enter the tensor cores as bf16 hi/lo
     # pairs against exact bf16 K/V rows (~2^-16 relative), the softmax runs in f32 in
@@ -460,7 +534,31 @@ def phase_kernels(state: dict) -> None:
     torch.cuda.empty_cache()
     _kernels_q80(state, gen, dev, rate)
     torch.cuda.empty_cache()
+    _q4_step_sums(state["q4"])
     log(f"[kernels] profiler windows: {json.dumps(PROFILE_WINDOWS)}")
+
+
+def _q4_step_sums(t: dict) -> None:
+    """Log the Q40 dequant-matmuls' device ms and bound summed over the 7B shapes of a
+    step: a serving step of 8 rows x T (wqkv and wcls on q4_matmul, wo and w2 on its
+    residual mode, w1·w3 on q4_gated_matmul) and a single-sequence prefill chunk (every
+    projection on q4_matmul), 32 layers and wcls once."""
+    wqkv, wo, w13, w2, wcls = SHAPES_7B
+    steps = {f"serving step M={m}": [
+        (32, "q4_matmul", m, wqkv), (1, "q4_matmul", m, wcls), (32, "q4_matmul_res", m, wo),
+        (32, "q4_matmul_res", m, w2), (32, "q4_gated_matmul", m, (11008, 4096))]
+        for m in SERVE_ROWS}
+    for m in (64, 8):
+        steps[f"single-sequence {m}-token chunk"] = [
+            (32, "q4_matmul", m, w) for w in (wqkv, wo, w13, w2)] + [
+            (1, "q4_matmul", m, wcls)]
+    parts = []
+    for what, terms in steps.items():
+        got = [(c, t.get((row, m, *w))) for c, row, m, w in terms]
+        if all(v is not None for _, v in got):
+            parts.append(f"{what} {sum(c * v[0] for c, v in got):.3f} ms (bound "
+                         f"{sum(c * v[1] for c, v in got):.3f})")
+    log("[kernels] Q40 dequant-matmuls summed over a step's 7B shapes: " + "; ".join(parts))
 
 
 def _decode_graph_check(gen, dev) -> None:
@@ -509,8 +607,8 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
 
     # every row count the serve phase sends kernels 4 and 5: M = 8 slots x T for decode
     # steps (T = 1) and 8- and 64-token mixed steps
-    # kernel 4 — tolerance 1e-3·max|y|, as kernel 2: identical bf16 operands, f32 sums in
-    # another order, and the residual added in f32 on both sides
+    # kernel 4 — tolerance as kernel 2's: identical bf16 operands, f32 sums in another
+    # order, the residual added in f32 on both sides, the output bf16
     for m in SERVE_ROWS:
         for n, k in ((4096, 4096), (4096, 11008)):
             wbytes = n * k // 2 + n * k // 32 * 2
@@ -518,26 +616,26 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
             ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             res = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
-            y = mm._launch(x, *ws[0], res)
+            y = mm._launch(x, *ws[0], res, out_dtype=BF16)
             ref = mm.q4_matmul_res_plain(x, *ws[0], res)
-            err = (y - ref).abs().max().item()
-            tol = 1e-3 * ref.abs().max().item()
-            ev, dv = _kernel_time(lambda i: mm._launch(x, *ws[i % copies], res), 20,
-                                  ("q4_matmul_kernel", "sum_splits_kernel"))
+            err, tol = _bf16_err(y, ref)
+            ev, dv, how = _one_launch_time(
+                lambda i: mm._launch(x, *ws[i % copies], res, out_dtype=BF16), 20,
+                "q4_matmul_tc_kernel")
             plain = _all_kernels_ms(
                 lambda i: mm.q4_matmul_res_plain(x, *ws[i % copies], res), 3)
-            nbytes = wbytes + m * k * 2 + m * n * 2 + m * n * 4
-            bnd = bound(nbytes, 2 * m * n * k, "bf16", rate)
+            nbytes = wbytes + m * k * 2 + m * n * 2 + m * n * 2
+            flops = 2 * m * n * k
+            bnd = bound(nbytes, flops, "bf16", rate)
             ms = dv
-            log(f"[kernels] q4_matmul_res M={m} N={n} K={k}: max|err| {err:.3e} "
-                f"(tol {tol:.3e}) device {round(dv, 5)} ms, "
-                f"events {ev:.5f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms "
-                f"({bnd[1]}), {2 * m * n * k / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            _q4_log("q4_matmul_res", f"M={m} N={n} K={k}", err, tol, dv, how, ev, plain, bnd,
+                    nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20, res))
             _record(state, "q4_matmul_res", err, tol, ms, plain, bnd, None,
                     f"M={m},N={n},K={k}")
+            state["q4"][("q4_matmul_res", m, n, k)] = (dv, bnd[0])
 
-    # kernel 5 — tolerance 1e-3·max|y|: both products as kernel 2, the activation on the
-    # same f32 sums (expf/tanhf on the card against torch's on the card)
+    # kernel 5 — tolerance as kernel 2's: both products as kernel 2, the activation on
+    # the same f32 sums (expf/tanhf on the card against torch's on the card), bf16 out
     n, k = 11008, 4096
     wbytes = 2 * (n * k // 2 + n * k // 32 * 2)
     copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
@@ -545,23 +643,23 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
              for _ in range(copies)]
     for m in SERVE_ROWS:
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-        y = gm._launch(x, *pairs[0], "silu")
+        y = gm._launch(x, *pairs[0], "silu", out_dtype=BF16)
         ref = gm.q4_gated_matmul_plain(x, *pairs[0], "silu")
-        err = (y - ref).abs().max().item()
-        tol = 1e-3 * ref.abs().max().item()
-        ev, dv = _kernel_time(lambda i: gm._launch(x, *pairs[i % copies], "silu"), 20,
-                              ("gated_kernel", "gated_sum_kernel"))
+        err, tol = _bf16_err(y, ref)
+        ev, dv, how = _one_launch_time(
+            lambda i: gm._launch(x, *pairs[i % copies], "silu", out_dtype=BF16), 20,
+            "q4_gated_tc_kernel")
         plain = _all_kernels_ms(
             lambda i: gm.q4_gated_matmul_plain(x, *pairs[i % copies], "silu"), 3)
-        nbytes = wbytes + m * k * 2 + m * n * 4
-        bnd = bound(nbytes, 4 * m * n * k, "bf16", rate)
+        nbytes = wbytes + m * k * 2 + m * n * 2
+        flops = 4 * m * n * k
+        bnd = bound(nbytes, flops, "bf16", rate)
         ms = dv
-        log(f"[kernels] q4_gated_matmul M={m} N={n} K={k} silu: max|err| {err:.3e} "
-            f"(tol {tol:.3e}) device {round(dv, 5)} ms, events "
-            f"{ev:.5f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
-            f"{4 * m * n * k / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        _q4_log("q4_gated_matmul", f"M={m} N={n} K={k} silu", err, tol, dv, how, ev, plain,
+                bnd, nbytes, flops, _cublas_ms(x, [list(p) for p in pairs], 20))
         _record(state, "q4_gated_matmul", err, tol, ms, plain, bnd, None,
                 f"M={m},N={n},K={k}")
+        state["q4"][("q4_gated_matmul", m, n, k)] = (dv, bnd[0])
     del pairs
 
     # kernel 9 — tolerance 1e-4·max|out|: q and p enter the tensor cores as bf16 hi/lo
@@ -836,14 +934,17 @@ def _llama2_7b(n_layers: int = 32):
 
 class _CheckedSampler:
     """Greedy sampling that asserts every logits row it sees is finite, optionally
-    keeping a copy of each row."""
+    keeping a copy of each row. With `force` it returns force[j] at its j-th row
+    instead of its own choice (another run's tokens, so two runs decode the same
+    sequence)."""
 
-    def __init__(self, vocab_size: int, keep: bool = False):
+    def __init__(self, vocab_size: int, keep: bool = False, force: list | None = None):
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
 
         self.inner = Sampler(vocab_size, temperature=0.0)
         self.rows = 0
         self.kept: list[np.ndarray] = [] if keep else None
+        self.force = force
 
     def sample(self, logits: np.ndarray) -> int:
         if not np.isfinite(logits).all():
@@ -851,14 +952,17 @@ class _CheckedSampler:
         self.rows += 1
         if self.kept is not None:
             self.kept.append(np.array(logits, dtype=np.float32))
-        return self.inner.sample(logits)
+        tok = self.inner.sample(logits)
+        return tok if self.force is None else self.force[self.rows - 1]
 
 
-def staggered(be, prompts, max_tokens: int, after: int, keep: bool = False):
+def staggered(be, prompts, max_tokens: int, after: int, keep: bool = False,
+              force: list | None = None):
     """Submit prompts[0]; submit prompts[i+1] from request i's token callback once it
     has `after` tokens, so every engine sees the same schedule (prefill chunks with
-    decode rows riding them, then batched decode steps). Returns (requests, samplers)
-    after all finished; raises the first request error."""
+    decode rows riding them, then batched decode steps). force[i], where given, are the
+    tokens request i's sampler returns. Returns (requests, samplers) after all
+    finished; raises the first request error."""
     vocab = be.spec.vocab_size
     reqs, samplers = [None] * len(prompts), [None] * len(prompts)
 
@@ -869,7 +973,7 @@ def staggered(be, prompts, max_tokens: int, after: int, keep: bool = False):
             n[0] += 1
             if n[0] == after and i + 1 < len(prompts):
                 submit(i + 1)
-        samplers[i] = _CheckedSampler(vocab, keep)
+        samplers[i] = _CheckedSampler(vocab, keep, None if force is None else force[i])
         reqs[i] = be.submit(prompts[i], max_tokens, samplers[i], on_token=on_token)
     submit(0)
     reqs[0].wait(timeout=900)
@@ -880,12 +984,39 @@ def staggered(be, prompts, max_tokens: int, after: int, keep: bool = False):
     return reqs, samplers
 
 
+class _ExactSums:
+    """While open, the Q40 matmul family's plain versions on the CPU sum in f64: each
+    output is the exact sum of the same bf16 products, rounded once to f32 (what no
+    f32 accumulation order can improve on). A third evaluation of the same function,
+    for the near-ties of `serving_parity`."""
+
+    def __enter__(self):
+        from distributed_llama_tpu_torch.ops import q4_gated_matmul as gm
+        from distributed_llama_tpu_torch.ops import q4_matmul as mm
+
+        def exact(x, packed, scales):
+            w = mm.dequant_bf16(packed, scales).double()
+            return (x.to(torch.bfloat16).double() @ w.T).float()
+        self._orig = [(mod, mod.q4_matmul_plain) for mod in (mm, gm)]
+        for mod, _ in self._orig:
+            mod.q4_matmul_plain = exact
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._orig:
+            mod.q4_matmul_plain = fn
+
+
 def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None) -> str:
     """The fused BatchEngine at full Llama-2-7B width in f32 with seeded weights: the
     card with the kernels against the CPU with their plain versions, on 4 staggered
-    requests. Greedy tokens must be identical per request and the logits of every
-    step within 2e-3·max|logits| (as the Engine parity: sum order, and an activation
-    whose last bits differ can move one bf16 rounding of an operand)."""
+    requests, the card decoding the CPU's tokens. At every step the logits must be
+    within 2e-3·max|logits| (as the Engine parity: sum order, and an activation whose
+    last bits differ can move one bf16 rounding of an operand), and the card's greedy
+    token the CPU's, unless the CPU's logits of the two lie closer than that tolerance:
+    a near-tie the check cannot order. Each near-tie is then held against a third run,
+    the CPU with every matmul summed exactly (`_ExactSums`), which must put the two
+    tokens within the tolerance too; the report says which one it picks."""
     from distributed_llama_tpu_torch.models.params import params_to
     from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
 
@@ -894,21 +1025,23 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None) -> str:
     kw = dict(slots=4, dtype=torch.float32, use_kernels=True, fused_matmul=True)
     rng = np.random.RandomState(4)
     prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (8, 12, 4, 19)]
-    results = []
-    for dev in ("cuda", "cpu"):
+
+    def run(dev, force=None):
         be = BatchEngine(spec, params_to(params, dev), device=dev, **kw)
         assert be.engine.use_kernels == "fused" and be.engine.paged_kernel
         try:
-            results.append(staggered(be, prompts, max_tokens, after=2, keep=True))
+            return staggered(be, prompts, max_tokens, after=2, keep=True, force=force)
         finally:
             be.close()
-        del be
-    (rg, sg), (rc, sc) = results
-    worst, steps = 0.0, 0
+
+    rc, sc = run("cpu")
+    tokens = [r.out for r in rc]
+    rg, sg = run("cuda", force=tokens)
+    worst, steps, ties = 0.0, 0, []
     for i in range(len(prompts)):
-        if rg[i].out != rc[i].out:
-            raise AssertionError(f"serving parity: request {i} greedy tokens differ: "
-                                 f"{rg[i].out} vs {rc[i].out}")
+        if rg[i].out != tokens[i] or len(sg[i].kept) != len(sc[i].kept):
+            raise AssertionError(f"serving parity: request {i} decoded {rg[i].out} on the "
+                                 f"card, not the CPU's {tokens[i]}")
         for step, (lg, lc) in enumerate(zip(sg[i].kept, sc[i].kept)):
             err = float(np.abs(lg - lc).max())
             tol = 2e-3 * float(np.abs(lc).max())
@@ -917,10 +1050,38 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None) -> str:
             if err > tol:
                 raise AssertionError(f"serving parity: request {i} step {step}: "
                                      f"max|Δlogits| {err:.3e} > {tol:.3e}")
+            tg, tc = int(np.argmax(lg)), int(np.argmax(lc))
+            if tg != tc:
+                gap = float(lc[tc] - lc[tg])
+                if gap >= tol:
+                    raise AssertionError(
+                        f"serving parity: request {i} greedy tokens differ at step {step}: "
+                        f"card {tg}, CPU {tc}, {gap:.3e} apart in the CPU's logits "
+                        f"(tolerance {tol:.3e})")
+                ties.append((i, step, tc, tg, gap, tol))
+    report = (f"BatchEngine fused, 4 staggered requests x {max_tokens} greedy tokens: "
+              f"tokens identical {tokens}")
+    if ties:
+        with _ExactSums():
+            _, sw = run("cpu", force=tokens)
+        seen = []
+        for i, step, tc, tg, gap, tol in ties:
+            lw, lc, lg = sw[i].kept[step], sc[i].kept[step], sg[i].kept[step]
+            gw = abs(float(lw[tc] - lw[tg]))
+            if gw >= tol:
+                raise AssertionError(f"serving parity: request {i} step {step}: exact sums "
+                                     f"put tokens {tc} and {tg} {gw:.3e} apart, no near-tie "
+                                     f"(tol {tol:.3e})")
+            tw = int(np.argmax(lw))
+            side = "the CPU's" if tw == tc else "the card's" if tw == tg else f"{tw}"
+            seen.append(f"request {i} step {step}: CPU {tc}, card {tg}, {gap:.2e} apart "
+                        f"(tol {tol:.2e}); exact sums {gw:.2e} apart, pick {side}, lie "
+                        f"{float(np.abs(lw - lc).max()):.2e} from the CPU's logits and "
+                        f"{float(np.abs(lw - lg).max()):.2e} from the card's")
+        report += (f" outside {len(ties)} near-tie(s), where the card decoded the CPU's "
+                   f"token: " + "; ".join(seen))
     torch.cuda.empty_cache()
-    return (f"BatchEngine fused, 4 staggered requests x {max_tokens} greedy tokens: "
-            f"tokens identical {[r.out for r in rg]}; {steps} logits rows, worst "
-            f"max|Δlogits|/tol {worst:.3f}")
+    return (f"{report}; {steps} logits rows, worst max|Δlogits|/tol {worst:.3f}")
 
 
 class _Crossings:

@@ -19,10 +19,6 @@ PASS_ROWS = 64   # query rows per block (attention_tile.cuh kPassRows)
 TILE_SLOTS = 64  # slots per tile; split j takes tiles j, j + nsplit, ... (kKT)
 MAX_SPLITS = 32  # splits of one (row, head, pass) at most (kMaxSplits)
 
-_resident: dict[tuple, int] = {}
-_counters: dict[int, torch.Tensor] = {}
-_retired: list[torch.Tensor] = []
-
 
 def split_plan(n_slots: int, rows: int, heads: int, resident: int) -> tuple[int, int]:
     """(npass, nsplit) for `heads` (batch row, kv head) pairs of `rows` query rows each
@@ -45,26 +41,11 @@ def resident_blocks(lib, fn: str, cache_bf16: bool, hs: int, rows: int,
     """Blocks of one kernel build (cache dtype, head size, and the narrow body for at
     most 8 query rows or the wide one) the card holds at once: the kernel's own
     occupancy query `fn` times the SM count, asked once per build."""
-    narrow = rows <= 8
-    key = (fn, cache_bf16, hs, narrow, device_index)
-    n = _resident.get(key)
-    if n is None:
-        per_sm = getattr(lib, fn)(int(cache_bf16), hs, 8 if narrow else 64)
-        if per_sm < 1:
-            raise RuntimeError(f"{fn}: no block of the kernel fits on an SM (hs={hs}, "
-                               f"bf16={cache_bf16}, rows={rows})")
-        n = _resident[key] = per_sm * cuda_build.sm_count(device_index)
-    return n
+    args = (int(cache_bf16), hs, 8 if rows <= 8 else 64)
+    return cuda_build.resident_blocks(lib, fn, args, device_index)
 
 
 def merge_counters(device: torch.device, n: int) -> torch.Tensor:
     """At least `n` zeroed int32 counters on `device`, the same buffer from call to call
     (so a captured graph keeps its address); a buffer outgrown stays allocated."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    buf = _counters.get(idx)
-    if buf is None or buf.numel() < n:
-        if buf is not None:
-            _retired.append(buf)
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[idx] = buf
-    return buf
+    return cuda_build.device_buffer("merge_counters", device, n, torch.int32, 4096)

@@ -26,6 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_resident: dict[tuple, int] = {}
+_buffers: dict[tuple, object] = {}
+_retired: list = []  # outgrown buffers, kept for the CUDA graphs captured on them
 
 
 def nvcc_path() -> str:
@@ -120,6 +123,36 @@ def sm_count(device_index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def resident_blocks(lib, fn: str, args: tuple, device_index: int) -> int:
+    """Blocks of one kernel build the card holds at once: the kernel's own occupancy
+    query `fn(*args)` (blocks per SM) times the SM count, asked once per build and
+    device."""
+    key = (fn, args, device_index)
+    n = _resident.get(key)
+    if n is None:
+        per_sm = getattr(lib, fn)(*args)
+        if per_sm < 1:
+            raise RuntimeError(f"{fn}{args}: no block of the kernel fits on an SM")
+        n = _resident[key] = per_sm * sm_count(device_index)
+    return n
+
+
+def device_buffer(name: str, device, n: int, dtype, minimum: int):
+    """At least `n` zeroed elements of `dtype` on `device`, the same buffer under `name`
+    from call to call (so a captured CUDA graph keeps its address); a buffer outgrown
+    stays allocated. The kernels that use one leave it as they found it."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    buf = _buffers.get((name, idx))
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
+        buf = torch.zeros(max(n, minimum), dtype=dtype, device=device)
+        _buffers[(name, idx)] = buf
+    return buf
 
 
 def stream_of(t) -> int:

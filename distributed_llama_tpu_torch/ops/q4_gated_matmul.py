@@ -3,15 +3,17 @@ activation rows against two Q40 weights in the i4p split-plane layout, act = sil
 tanh-GELU in float32.
 
 Replaces distributed_llama_tpu/ops/pallas_q4_mm.py `_q4_gated_matmul`
-(`_gated_mm_kernel`). The CUDA kernel is csrc/q4_gated_matmul.cu; its header says what
-bounds it on an H100 and what its design does about that.
+(`_gated_mm_kernel`). The CUDA kernel is csrc/q4_gated_matmul.cu over the block body of
+csrc/q4_mm_tile.cuh with two weight streams; its header says what bounds it on an H100
+and what its design does about that. ops/mm_plan.py sizes each launch.
 
 Numerics, shared by the kernel and `q4_gated_matmul_plain`: each product is the q4
 dequant-matmul's (bf16 operands, float32 sums), and the activation runs in float32 on the
-full gate sum with the formulas of ops/kernels.py.
+full gate sum with the formulas of ops/kernels.py; the kernel rounds the result once to
+the caller's dtype.
 
 `q4_gated_matmul` takes the plain version for CPU tensors and launches the kernel for
-CUDA tensors; `launches` counts kernel launches.
+CUDA tensors, one launch per call; `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,17 +22,17 @@ import math
 
 import torch
 
-from ..quants import QK, QTensor
-from . import cuda_build
+from ..quants import QTensor
+from . import cuda_build, mm_plan
 from .kernels import gelu_tanh, silu
-from .q4_matmul import q4_matmul_plain, splits_for
+from .q4_matmul import OUT_KINDS, check_planes, kernel_input, q4_matmul_plain, split_buffers
 
 launches = 0
 
 ACTS = ("silu", "gelu_tanh")
 _P, _I = cuda_build.P, cuda_build.I
-_SIGNATURES = {"q4_gated_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
-_TILE_N = 32  # output columns per block (csrc/q4_gated_matmul.cu kBN)
+_SIGNATURES = {"q4_gated_matmul": [_P] * 6 + [_I, _P, _P] + [_I] * 8 + [_P],
+               "q4_gated_matmul_blocks_per_sm": [_I]}
 
 
 def q4_gated_matmul_plain(x: torch.Tensor, w1: tuple[torch.Tensor, torch.Tensor],
@@ -42,46 +44,32 @@ def q4_gated_matmul_plain(x: torch.Tensor, w1: tuple[torch.Tensor, torch.Tensor]
     return f(q4_matmul_plain(x, *w1)) * q4_matmul_plain(x, *w3)
 
 
-def _check_planes(x, packed, scales):
-    m, k = x.shape
-    n, kh = packed.shape
-    if packed.dtype != torch.uint8 or scales.dtype != torch.float16:
-        raise TypeError(f"q4_gated_matmul kernel takes u8 planes and f16 scales, got "
-                        f"{packed.dtype}/{scales.dtype}")
-    if kh * 2 != k or k % 64 or scales.shape != (n, k // QK):
-        raise ValueError(f"q4_gated_matmul kernel cannot take x {tuple(x.shape)}, "
-                         f"w {tuple(packed.shape)}, scales {tuple(scales.shape)}")
-    if not (packed.is_contiguous() and scales.is_contiguous()) or packed.data_ptr() % 16:
-        raise ValueError("q4_gated_matmul kernel needs contiguous, 16-byte aligned planes")
-    if not (packed.device == scales.device == x.device):
-        raise ValueError("q4_gated_matmul: tensors on different devices")
-
-
 def _launch(x: torch.Tensor, w1: tuple[torch.Tensor, torch.Tensor],
-            w3: tuple[torch.Tensor, torch.Tensor], act: str = "silu") -> torch.Tensor:
+            w3: tuple[torch.Tensor, torch.Tensor], act: str = "silu",
+            out_dtype=torch.float32) -> torch.Tensor:
     global launches
     if act not in ACTS:
         raise ValueError(f"unsupported epilogue activation {act!r}")
-    _check_planes(x, *w1)
-    _check_planes(x, *w3)
+    check_planes("q4_gated_matmul", x, *w1)
+    check_planes("q4_gated_matmul", x, *w3)
     if w1[0].shape != w3[0].shape:
         raise ValueError(f"q4_gated_matmul: W1 {tuple(w1[0].shape)} and W3 "
                          f"{tuple(w3[0].shape)} differ")
+    if out_dtype not in OUT_KINDS:
+        raise TypeError(f"q4_gated_matmul kernel writes {OUT_KINDS}, not {out_dtype}")
     m, k = x.shape
-    n, kh = w1[0].shape
-    xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:
-        xb = xb.clone()
-    y = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    # split K when the column tiles alone do not cover the card twice over; the
-    # activation then runs on the fixed-order sum of the partials in the second pass
-    splits = splits_for(m, n, kh, x.device.index, tile_n=_TILE_N)
-    part = (torch.empty(splits, 2, m, n, dtype=torch.float32, device=x.device)
-            if splits > 1 else y)
+    n = w1[0].shape[0]
+    xb = kernel_input(x)
+    dev = x.device
+    y = torch.empty(m, n, dtype=out_dtype, device=dev)
     lib = cuda_build.load("q4_gated_matmul", _SIGNATURES)
+    p = mm_plan.plan(m, n, k, 2, mm_plan.resident_blocks(
+        lib, "q4_gated_matmul_blocks_per_sm", mm_plan.pick_tile(m), dev.index))
+    part, counters = split_buffers(p, dev)
     rc = lib.q4_gated_matmul(xb.data_ptr(), w1[0].data_ptr(), w1[1].data_ptr(),
                              w3[0].data_ptr(), w3[1].data_ptr(), y.data_ptr(),
-                             part.data_ptr(), m, n, k, splits, ACTS.index(act),
+                             OUT_KINDS.index(out_dtype), part, counters, m, n, k,
+                             ACTS.index(act), p.cfg, p.splits, p.per_split, p.grid,
                              cuda_build.stream_of(x))
     cuda_build.check(rc, "q4_gated_matmul")
     launches += 1
@@ -100,10 +88,11 @@ def q4_gated_matmul(x: torch.Tensor, w1: QTensor, w3: QTensor, *, act: str = "si
     lead = x.shape[:-1]
     x2 = x.reshape(math.prod(lead), x.shape[-1])
     planes1, planes3 = (w1.data, w1.scales), (w3.data, w3.scales)
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cuda":
-        y = _launch(x2, planes1, planes3, act)
+        y = _launch(x2, planes1, planes3, act, out_dtype)
     elif x.device.type == "cpu":
-        y = q4_gated_matmul_plain(x2, planes1, planes3, act)
+        y = q4_gated_matmul_plain(x2, planes1, planes3, act).to(out_dtype)
     else:
         raise ValueError(f"q4_gated_matmul: no kernel for device {x.device}")
-    return y.reshape(*lead, y.shape[-1]).to(out_dtype or x.dtype)
+    return y.reshape(*lead, y.shape[-1])

@@ -11,7 +11,9 @@ can move a value within an ulp of a rounding tie) with sx within rtol 1e-6; q4_m
 operands, tensor-core f32 accumulation order), q4_gated_matmul 1e-3 (the same products,
 the activation on the same f32 sums), decode_attention and paged_attention 1e-4 (q and
 p enter the bf16 tensor cores as hi/lo pairs against exact bf16 K/V, ~2^-16 relative;
-f32 softmax; split merge order). The serving tests hold the fused BatchEngine on the card
+f32 softmax; split merge order). The Q40 dequant-matmuls also decode bit for bit (one-hot
+X rows), repeat bit for bit, write bf16 within one ulp of the plain result rounded, and
+run as one launch per call. The serving tests hold the fused BatchEngine on the card
 against the CPU plain versions: identical greedy tokens per request, logits step by step
 within 2e-3·max|logits| (`chip_smoke.serving_parity`)."""
 
@@ -163,15 +165,135 @@ def test_engine_prologue_matches_cpu_plain(cuda, ftype):
     assert all(a > b for a, b in zip(counters(), before))
 
 
+# every tile of csrc/q4_matmul.cu and csrc/q4_gated_matmul.cu and both sides of each
+# tile's row limit, with ragged N edges and K = 704 (11 chunks: a trailing stage past
+# K/2, zero-filled)
+M_ROWS = (2, 3, 8, 9, 16, 17, 64, 70, 128, 256, 512)
+_EDGES = [(m, n, k) for m in M_ROWS for n, k in ((130, 256), (96, 704))]
+
+
+def _with_edges(cases):
+    return cases + [e for e in _EDGES if e not in cases]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(2, 130, 256), (8, 4096, 11008), (64, 12288, 4096),
-                                   (512, 32000, 4096), (70, 96, 704)])
+@pytest.mark.parametrize("m,n,k", _with_edges([(2, 130, 256), (8, 4096, 11008),
+                                                (64, 12288, 4096), (512, 32000, 4096),
+                                                (70, 96, 704)]))
 def test_q4_matmul_kernel_matches_plain(cuda, m, n, k):
     packed, scales = _planes(n, k, cuda, seed=m)
     x = torch.randn(m, k, device=cuda)
+    before = (mm.launches, mm.res_launches)
     got = mm._launch(x, packed, scales)
     torch.cuda.synchronize()
+    assert (mm.launches, mm.res_launches) == (before[0] + 1, before[1])
     assert _rel_err(got, mm.q4_matmul_plain(x, packed, scales)) < 1e-3
+
+
+def _one_hot_rows(m, k):
+    """x (m, k) bf16 with row r one-hot at column k_r, the k_r spread over both planes."""
+    cols = torch.linspace(0, k - 1, m).round().long()
+    x = torch.zeros(m, k)
+    x[torch.arange(m), cols] = 1.0
+    return x.to(torch.bfloat16), cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", M_ROWS)
+@pytest.mark.parametrize("n,k", [(130, 704), (300, 4096)])
+def test_q4_matmul_decodes_bit_for_bit(cuda, m, n, k):
+    """With x rows one-hot in k, y[r, n] = w[n, k_r] exactly: every decoded weight the
+    kernel multiplies, low plane and high, equals dequant_bf16 to the bit."""
+    packed, scales = _planes(n, k, cuda, seed=m + n)
+    x, cols = _one_hot_rows(m, k)
+    assert (cols < k // 2).any() and (cols >= k // 2).any()
+    got = mm._launch(x.to(cuda), packed, scales)
+    want = mm.dequant_bf16(packed, scales)[:, cols.to(cuda)].T.float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(3, 96, 704), (8, 4096, 11008), (64, 4096, 11008),
+                                   (512, 4096, 4096)])
+def test_q4_mm_family_is_deterministic(cuda, m, n, k):
+    """Two calls of each mode give bit-identical output (the splits sum in a fixed
+    order), and the counters advance by one per call."""
+    w1, w3 = _planes(n, k, cuda, seed=m + 7), _planes(n, k, cuda, seed=m + 8)
+    x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    res = torch.randn(m, n, device=cuda)
+    calls = {"mm": lambda: mm._launch(x, *w1),
+             "res": lambda: mm._launch(x, *w1, res),
+             "gated": lambda: gm._launch(x, w1, w3, "silu")}
+    counters = lambda: (mm.launches, mm.res_launches, gm.launches)  # noqa: E731
+    for i, call in enumerate(calls.values()):
+        before = counters()
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert [c - p for c, p in zip(counters(), before)] == [2 * (j == i) for j in range(3)]
+
+
+def _ulps_off(got, want32, got32):
+    """How far got (bf16) lies from want32.to(bf16), in bf16 ulps of the larger of the
+    two, beyond what the f32 sums before the rounding differ by (the kernel's got32
+    against want32): rounding two f32 values that far apart moves them at most 1 ulp
+    further apart."""
+    want = want32.to(torch.bfloat16).float()
+    big = torch.maximum(want.abs(), got.float().abs()).clamp_min(2.0 ** -126)
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return (((got.float() - want).abs() - (got32 - want32).abs()) / ulp).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8, 4096, 4096), (64, 4096, 11008), (512, 1024, 4096),
+                                   (3, 96, 704)])
+@pytest.mark.parametrize("mode", ["mm", "res_f32", "res_bf16", "silu", "gelu_tanh"])
+def test_q4_mm_family_writes_bf16(cuda, m, n, k, mode):
+    """The bf16 output is the kernel's own f32 result rounded once, and within one bf16
+    ulp of the plain version's f32 result rounded, with the residual and the activation
+    on and off."""
+    w1, w3 = _planes(n, k, cuda, seed=m + 9), _planes(n, k, cuda, seed=m + 10)
+    x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    if mode == "mm":
+        run = lambda dt: mm._launch(x, *w1, out_dtype=dt)  # noqa: E731
+        want = mm.q4_matmul_plain(x, *w1)
+    elif mode.startswith("res"):
+        res = torch.randn(m, n, device=cuda).to(
+            torch.float32 if mode == "res_f32" else torch.bfloat16)
+        run = lambda dt: mm._launch(x, *w1, res, out_dtype=dt)  # noqa: E731
+        want = mm.q4_matmul_res_plain(x, *w1, res)
+    else:
+        run = lambda dt: gm._launch(x, w1, w3, mode, out_dtype=dt)  # noqa: E731
+        want = gm.q4_gated_matmul_plain(x, w1, w3, mode)
+    got, got32 = run(torch.bfloat16), run(torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, got32.to(torch.bfloat16))
+    assert _ulps_off(got, want, got32) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 64, 512])
+@pytest.mark.parametrize("mode", ["mm", "res", "gated"])
+def test_q4_mm_family_is_one_launch(cuda, m, mode):
+    """A CUDA graph captured around one bf16 call holds exactly one launch of the kernel
+    and nothing else (no split-sum pass, no cast)."""
+    import chip_smoke
+
+    n, k = 4096, 11008
+    w1, w3 = _planes(n, k, cuda, seed=m + 11), _planes(n, k, cuda, seed=m + 12)
+    x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    res = torch.randn(m, n, device=cuda).to(torch.bfloat16)
+    bf = torch.bfloat16
+    fn, name = {"mm": (lambda i: mm._launch(x, *w1, out_dtype=bf), "q4_matmul_tc_kernel"),
+                "res": (lambda i: mm._launch(x, *w1, res, out_dtype=bf),
+                        "q4_matmul_tc_kernel"),
+                "gated": (lambda i: gm._launch(x, w1, w3, "silu", out_dtype=bf),
+                          "q4_gated_tc_kernel")}[mode]
+    named, nodes = chip_smoke.graph_launches(fn, name)
+    assert (named, nodes) == (1, 1)
 
 
 @pytest.mark.cuda
@@ -284,11 +406,12 @@ def test_engine_kernels_match_cpu_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(8, 4096, 4096), (64, 4096, 11008), (512, 4096, 11008),
-                                   (3, 96, 704)])
+@pytest.mark.parametrize("m,n,k", _with_edges([(8, 4096, 4096), (64, 4096, 11008),
+                                                (512, 4096, 11008), (3, 96, 704)]))
 @pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16])
 def test_q4_matmul_res_kernel_matches_plain(cuda, m, n, k, res_dtype):
-    """(3, 96, 704) splits K, so the residual rides the second pass."""
+    """The 4096-column shapes split K (one wave of 64-row tiles covers the card several
+    times over): the residual enters the last split block's ordered sum once."""
     packed, scales = _planes(n, k, cuda, seed=m + 1)
     x = torch.randn(m, k, device=cuda)
     res = torch.randn(m, n, device=cuda).to(res_dtype)
@@ -300,11 +423,11 @@ def test_q4_matmul_res_kernel_matches_plain(cuda, m, n, k, res_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(8, 11008, 4096), (64, 11008, 4096), (512, 11008, 4096),
-                                   (2, 96, 704)])
+@pytest.mark.parametrize("m,n,k", _with_edges([(8, 11008, 4096), (64, 11008, 4096),
+                                                (512, 11008, 4096), (2, 96, 704)]))
 @pytest.mark.parametrize("act", ["silu", "gelu_tanh"])
 def test_q4_gated_matmul_kernel_matches_plain(cuda, m, n, k, act):
-    """(2, 96, 704) splits K: the activation must run on the summed partials."""
+    """M = 8 and 64 split K: the activation must run on the summed partials."""
     w1, w3 = _planes(n, k, cuda, seed=m + 2), _planes(n, k, cuda, seed=m + 3)
     x = torch.randn(m, k, device=cuda)
     before = gm.launches
@@ -398,13 +521,17 @@ def test_paged_attention_kernel_edge_shapes(cuda, dtype, case):
 @pytest.mark.cuda
 def test_batch_engine_fused_kernels_match_cpu_plain(cuda):
     """A tiny fused BatchEngine: the card's kernels against the CPU plain versions on
-    staggered requests — identical greedy tokens, and every serving kernel launched."""
+    staggered requests — identical greedy tokens outside near-ties (the tie rule of
+    `chip_smoke.serving_parity`: request 3's step 8 here puts its top two CPU logits
+    5.0e-4 apart, under the 2.7e-3 tolerance, and exact sums agree), and every serving
+    kernel launched."""
     import chip_smoke
 
     spec = ModelSpec(arch_type=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2,
                      n_heads=4, n_kv_heads=2, vocab_size=300, seq_len=512).resolved()
     before = (mm.launches, mm.res_launches, gm.launches, pa.launches)
     report = chip_smoke.serving_parity(spec=spec, max_tokens=12)
+    print(report)
     assert "tokens identical" in report
     after = (mm.launches, mm.res_launches, gm.launches, pa.launches)
     assert all(a > b for a, b in zip(after, before))

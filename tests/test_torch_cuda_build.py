@@ -6,6 +6,8 @@ needed: only the paths are computed."""
 import os
 import shutil
 
+import pytest
+
 from distributed_llama_tpu_torch.ops import cuda_build
 
 
@@ -39,3 +41,25 @@ def test_a_new_header_and_the_source_change_the_path(tmp_path, monkeypatch):
         f.write("\n")
     third = cuda_build.library_path("decode_attention")
     assert len({first, second, third}) == 3
+
+
+def test_the_shared_headers_are_there(tmp_path, monkeypatch):
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    headers = {f for f in os.listdir(csrc) if f.endswith(".cuh")}
+    assert {"async_copy.cuh", "attention_tile.cuh", "q4_mm_tile.cuh"} <= headers
+
+
+@pytest.mark.parametrize("header,names", [
+    ("async_copy.cuh", ("paged_attention", "decode_attention", "q4_matmul", "q4_gated_matmul")),
+    ("q4_mm_tile.cuh", ("q4_matmul", "q4_gated_matmul")),
+])
+def test_editing_a_copy_or_tile_header_rebuilds_its_kernels(tmp_path, monkeypatch, header,
+                                                            names):
+    """The mbarrier and copy helpers of async_copy.cuh serve both tile bodies, and
+    q4_mm_tile.cuh both Q40 dequant-matmuls: an edit to either reaches every library
+    that includes it."""
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    before = {n: cuda_build.library_path(n) for n in names}
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    assert all(cuda_build.library_path(n) != before[n] for n in names)
