@@ -30,10 +30,12 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
-            exists; the two attention kernels and the three Q40 dequant-matmul rows
-            must show one launch per call in a CUDA graph captured around one call
-            (the Q40 rows also print GB/s, TFLOP/s, their share of the bound and, as
-            context only, cuBLAS on the weight dequantized to bf16 beforehand), and
+            exists; the two attention kernels, the three Q40 dequant-matmul rows and
+            the decode matvec rows (with the output dtype of their paths) must show
+            one launch per call in a CUDA graph captured around one call (the Q40 rows
+            also print GB/s, TFLOP/s, their share of the bound and, as context only,
+            cuBLAS on the weight dequantized to bf16 beforehand; the matvec rows their
+            sums per 7B decode token beside their times before the redesign), and
             decode_attention is captured once in a CUDA graph and replayed at two
             positions written to its device position tensor
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
@@ -342,10 +344,11 @@ def _one_launch_time(fn, iters: int, name: str) -> tuple[float, float, str]:
 BF16 = torch.bfloat16  # the Q40 dequant-matmuls' output on the bf16 paths
 
 
-def _bf16_err(y: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+def _bf16_err(y: torch.Tensor, ref: torch.Tensor, rel: float = 1e-3) -> tuple[float, float]:
     """A bf16 kernel output against its plain version's f32 result: every element of y
-    within the f32 tolerance 1e-3·max|ref| (the same bf16 operands, f32 sums in another
-    order) plus one bf16 ulp at its own magnitude (rounding two f32 values to bf16 moves
+    within the f32 tolerance rel·max|ref| (the Q40 dequant-matmuls 1e-3: the same bf16
+    operands, f32 sums in another order; the decode matvecs 1e-4: exact integer block
+    dots) plus one bf16 ulp at its own magnitude (rounding two f32 values to bf16 moves
     them at most one ulp further apart) of bf16(ref). Raises where one is not; returns
     max|y - bf16(ref)| and the largest element's tolerance."""
     if y.dtype != BF16:
@@ -353,7 +356,7 @@ def _bf16_err(y: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     want = ref.to(BF16).float()
     diff = (y.float() - want).abs()
     big = torch.maximum(ref.abs(), y.float().abs()).clamp_min(2.0 ** -126)
-    tol = 1e-3 * ref.abs().max() + torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    tol = rel * ref.abs().max() + torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
     bad = diff > tol
     if bad.any():
         at = int(bad.flatten().nonzero()[0])
@@ -407,27 +410,18 @@ def phase_kernels(state: dict) -> None:
     rate = state["rate"]
     state["q4"] = {}  # (row, M, N, K) -> (device ms, bound ms) of the Q40 dequant-matmuls
 
-    # kernel 1 — tolerance 1e-4·max|y|: the block dots are exact integers and only the
-    # order of the f32 sum over K/32 block terms differs (relative error ~K/32·2^-24)
+    state["mv"] = {}  # (row, N, K, x dtype) -> (device ms, bound ms) of the matvecs
+
+    # kernel 1 — as the model phase calls it: a bf16 row, bf16 output (`_matvec_row`)
     for n, k in SHAPES_7B:
         wbytes = n * k // 2 + n * k // 32 * 2
         copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))  # defeat L2 reuse
         ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
-        x = torch.randn(k, generator=gen, device=dev).to(torch.bfloat16)
-        y = mv._launch(x, *ws[0])
-        ref = mv.q4_matvec_plain(x, *ws[0])
-        err = (y - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item()
-        ev, dv = _kernel_time(lambda i: mv._launch(x, *ws[i % copies]), 50, ("q4_matvec",))
-        plain = _all_kernels_ms(lambda i: mv.q4_matvec_plain(x, *ws[i % copies]), 5)
-        nbytes = wbytes + k * 2 + n * 4
-        bnd = bound(nbytes, 2 * n * k, "int8", rate)
-        ms = dv
-        log(f"[kernels] q4_matvec N={n} K={k}: max|err| {err:.3e} (tol {tol:.3e}) "
-            f"device {round(dv, 5)} ms, events {ev:.5f} ms, "
-            f"plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
-            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
-        _record(state, "q4_matvec", err, tol, ms, plain, bnd, None, f"N={n},K={k}")
+        x = _test_row(k, gen, dev, BF16)
+        _matvec_row(state, "q4_matvec", lambda i: mv._launch(x, *ws[i % copies], BF16),
+                    lambda i: mv.q4_matvec_plain(x, *ws[i % copies]),
+                    wbytes + k * 2 + n * 2, n, k, rate, "q4_matvec_kernel", "bfloat16")
+        del ws
 
     # kernel 2 — tolerance 1e-3·max|y| plus one bf16 ulp per element (`_bf16_err`): bf16
     # operands are rounded identically, so only the accumulation order and the tensor
@@ -763,21 +757,57 @@ def _test_row(k: int, gen: torch.Generator, dev, dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-def _matvec_row(state, name: str, kern, plain_fn, copies: int, nbytes: int, n: int,
-                k: int, rate: float, names: tuple[str, ...], work: str) -> None:
-    """Hold a decode matvec kern(i) against plain_fn(i) (weights copy i % copies) at
-    1e-4·max|y|, time both and record the row with its byte bound (2·N·K int8 ops)."""
+def _matvec_row(state, name: str, kern, plain_fn, nbytes: int, n: int, k: int,
+                rate: float, kname: str, xdt: str) -> None:
+    """Hold a decode matvec kern(i) (weights copy i) against plain_fn(i): f32 output
+    within 1e-4·max|y| (exact integer block dots, or the precise body's f32 block sums
+    of the same products; the f32 sum over K/32 block terms in another order), bf16
+    output within that plus one bf16 ulp of the plain result rounded (`_bf16_err`). The
+    kernel must be one launch per call in a CUDA graph of one call; time both and record
+    the row with its byte bound (2·N·K int8 ops, or f32 ops for the precise body)."""
     y, ref = kern(0), plain_fn(0)
-    err = (y - ref).abs().max().item()
-    tol = 1e-4 * ref.abs().max().item()
-    ev, dv = _kernel_time(kern, 50, names)
+    if y.dtype == BF16:
+        err, tol = _bf16_err(y, ref, 1e-4)
+    else:
+        err, tol = (y - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+    ev, dv, how = _one_launch_time(kern, 50, kname)
     plain = _all_kernels_ms(plain_fn, 5)
     bnd = bound(nbytes, 2 * n * k, "f32" if "precise" in name else "int8", rate)
-    ms = dv
+    work = f"N={n},K={k},{xdt}->{str(y.dtype)[6:]}"
     log(f"[kernels] {name} {work}: max|err| {err:.3e} (tol {tol:.3e}) device "
-        f"{round(dv, 5)} ms, events {ev:.5f} ms, plain {plain:.3f} "
-        f"ms, bound {bnd[0]:.5f} ms ({bnd[1]}), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
-    _record(state, name, err, tol, ms, plain, bnd, None, work)
+        f"{round(dv, 5)} ms ({how}), events {ev:.5f} ms, plain {plain:.3f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]}), {bnd[0] / dv:.3f} of the bound, "
+        f"{nbytes / (dv * 1e-3) / 1e9:.0f} GB/s")
+    _record(state, name, err, tol, dv, plain, bnd, None, work)
+    state["mv"][(name, n, k, xdt)] = (dv, bnd[0])
+
+
+# the decode matvecs' device time per 7B decode token before their redesign around
+# csrc/matvec_stream.cuh (PERF.md §6, the kernel table's bracketed times), and the
+# redesign's aims
+MV_TOKEN_BEFORE = {"q4_matvec": 3.730, "q4_matvec_q80": 2.484, "q8_matvec": 4.256,
+                "q8_matvec_precise": 4.162, "q8_matvec_q80": 2.902}
+MV_TOKEN_AIM = {"q4_matvec": 1.8, "q4_matvec_q80": 1.6, "q8_matvec": 2.8,
+                "q8_matvec_q80": 2.6}
+
+
+def _matvec_token_sums(t: dict) -> None:
+    """Log each matvec row's device ms and bound per decode token of Llama-2-7B: wqkv,
+    wo, w13 and w2 x 32 layers, wcls once."""
+    parts = []
+    for name, xdt in (("q4_matvec", "bfloat16"), ("q4_matvec_q80", "int8"),
+                      ("q8_matvec", "bfloat16"), ("q8_matvec", "float32"),
+                      ("q8_matvec_precise", "bfloat16"), ("q8_matvec_precise", "float32"),
+                      ("q8_matvec_q80", "int8")):
+        got = [t.get((name, n, k, xdt)) for n, k in SHAPES_7B]
+        if all(v is not None for v in got):
+            ms = 32 * sum(v[0] for v in got[:4]) + got[4][0]
+            bnd = 32 * sum(v[1] for v in got[:4]) + got[4][1]
+            aim = MV_TOKEN_AIM.get(name)
+            parts.append(f"{name} ({xdt} row) {ms:.3f} ms (bound {bnd:.3f}, before "
+                         f"{MV_TOKEN_BEFORE[name]:.3f}" + (f", aim {aim}" if aim else "") + ")")
+    log("[kernels] decode matvecs per 7B token (before: the kernels before the redesign): "
+        + "; ".join(parts))
 
 
 def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
@@ -787,9 +817,9 @@ def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
     from distributed_llama_tpu_torch.ops import q4_matvec as mv
     from distributed_llama_tpu_torch.ops import q8_matvec as q8
 
-    # kernels 6, 7 and 2 — tolerance 1e-4·max|y|, as kernel 1: exact integer block dots
-    # (the precise body: f32 block sums of the same products) and the f32 sum over K/32
-    # blocks in another order
+    # kernels 6, 7 and 2, with the output dtype of their paths: the row's dtype for
+    # q8_matvec (the bf16 engine, and the f32 one of the parity phase), bf16 for the
+    # pre-quantized entries (the bf16 engine's prologue); tolerances as `_matvec_row`
     q8.precise_launches = 0
     for n, k in SHAPES_7B:
         wbytes = n * k + n * k // 32 * 4
@@ -797,28 +827,30 @@ def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
         ws = [_random_i8(gen, dev, n, k) for _ in range(copies)]
         for dtype in (torch.float32, torch.bfloat16):
             x = _test_row(k, gen, dev, dtype)
+            esz = x.element_size()
             for precise in (False, True):
                 plain_fn = q8.q8_matvec_precise_plain if precise else q8.q8_matvec_plain
                 _matvec_row(state, "q8_matvec_precise" if precise else "q8_matvec",
-                            lambda i: q8._launch(x, *ws[i % copies], precise),
-                            lambda i: plain_fn(x, *ws[i % copies]), copies,
-                            wbytes + k * x.element_size() + n * 4, n, k, rate,
-                            ("q8_matvec_kernel",), f"N={n},K={k},{str(dtype)[6:]}")
+                            lambda i: q8._launch(x, *ws[i % copies], precise, dtype),
+                            lambda i: plain_fn(x, *ws[i % copies]),
+                            wbytes + k * esz + n * esz, n, k, rate, "q8_matvec_kernel",
+                            str(dtype)[6:])
         xq, sx = mv.quantize_row(_test_row(k, gen, dev, torch.float32))
-        _matvec_row(state, "q8_matvec_q80", lambda i: q8._launch_q80(xq, sx, *ws[i % copies]),
-                    lambda i: q8.q8_matvec_q80_plain(xq, sx, *ws[i % copies]), copies,
-                    wbytes + k + k // 32 * 4 + n * 4, n, k, rate, ("q8_matvec_kernel",),
-                    f"N={n},K={k}")
+        _matvec_row(state, "q8_matvec_q80",
+                    lambda i: q8._launch_q80(xq, sx, *ws[i % copies], BF16),
+                    lambda i: q8.q8_matvec_q80_plain(xq, sx, *ws[i % copies]),
+                    wbytes + k + k // 32 * 4 + n * 2, n, k, rate, "q8_matvec_kernel", "int8")
         del ws
         wbytes = n * k // 2 + n * k // 32 * 2
         copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
         ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
-        _matvec_row(state, "q4_matvec_q80", lambda i: mv._launch_q80(xq, sx, *ws[i % copies]),
-                    lambda i: mv.q4_matvec_q80_plain(xq, sx, *ws[i % copies]), copies,
-                    wbytes + k + k // 32 * 4 + n * 4, n, k, rate, ("q4_matvec_kernel",),
-                    f"N={n},K={k}")
+        _matvec_row(state, "q4_matvec_q80",
+                    lambda i: mv._launch_q80(xq, sx, *ws[i % copies], BF16),
+                    lambda i: mv.q4_matvec_q80_plain(xq, sx, *ws[i % copies]),
+                    wbytes + k + k // 32 * 4 + n * 2, n, k, rate, "q4_matvec_kernel", "int8")
         del ws
     state["launches"]["q8_matvec_precise"] = q8.precise_launches
+    _matvec_token_sums(state["mv"])
 
     # kernels 10 and 11 — quantize_q80 bit-exact (xq and sx equal); rmsnorm_q80 at most 4
     # xq values one step off (its sum of squares runs in another order than torch.mean)
@@ -1379,6 +1411,11 @@ def phase_q80(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# device busy per single-sequence decode step of each profiled run before the decode
+# matvecs' redesign (PERF.md §5-6), beside which each run reports its own
+BUSY_BEFORE = {"model": 6.867, "model, prologue": 5.228, "q80 (a)": 7.323, "q80 (b)": 5.716}
+
+
 def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
                     tag: str = "model") -> None:
     """Where one decode step's time goes: device time by kernel name from torch.profiler
@@ -1405,7 +1442,8 @@ def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
             rows.append((us / 1e3 / steps, ev.count // steps, ev.key[:60]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[{tag}] decode step: device busy {busy:.3f} ms (profiled); step wall without "
+    log(f"[{tag}] decode step: device busy {busy:.3f} ms (profiled; before the matvec "
+        f"redesign: {BUSY_BEFORE[tag]:.3f}); step wall without "
         f"the profiler {plain_ms:.2f} ms ({steps} steps) and {counted_ms:.2f} ms (counted "
         f"run), with it {profiled_ms:.2f} ms; idle share {1 - busy / plain_ms:.3f} "
         f"({steps} steps), {1 - busy / counted_ms:.3f} (counted run)")

@@ -1,7 +1,9 @@
 // async_copy.cuh: shared-memory addresses, mbarriers and the copies that fill shared
 // memory asynchronously, shared by the attention body (attention_tile.cuh: one
-// cp.async.bulk per K/V row, counted in by an mbarrier) and the Q40 dequant-matmul body
-// (q4_mm_tile.cuh: tensor copies of X and weight tiles, 4-byte cp.async for scales).
+// cp.async.bulk per K/V row, counted in by an mbarrier), the Q40 dequant-matmul body
+// (q4_mm_tile.cuh: tensor copies of X and weight tiles, 4-byte cp.async for scales) and
+// the decode matvec body (matvec_stream.cuh: one cp.async.bulk per ring slot, its
+// scales by 4-byte cp.async counted in by the same mbarrier).
 
 #pragma once
 
@@ -88,6 +90,14 @@ __device__ __forceinline__ void tensor_copy_3d(void* dst, const void* map, int c
 
 __device__ __forceinline__ void prefetch_tensormap(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
+}
+
+// an arrival on `bar` once this thread's earlier cp.async copies have landed; the
+// arrival is not added to the pending count, so the barrier's init counts it
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // close this thread's group of cp.async copies

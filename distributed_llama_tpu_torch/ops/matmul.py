@@ -137,20 +137,21 @@ def _qmatmul_dequant(x: torch.Tensor, w: QTensor, *, out_dtype=None,
 def qmatmul_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor, *,
                 use_kernels: bool | str = False, out_dtype=torch.float32) -> torch.Tensor:
     """Decode matvec against a pre-quantized activation row (the fused prologue's
-    output): xq (1, K) int8, sx (1, K/32) f32 -> (1, 1, N). With the kernels on, i4p
-    weights packed with groups=1 take q4_matvec_q80 and i8 weights q8_matvec_q80; every
-    other weight dequantizes, and so does the row (x̂ = xq·sx), for an f32 product."""
+    output): xq (1, K) int8, sx (1, K/32) f32 -> (1, 1, N) in out_dtype. With the kernels
+    on, i4p weights packed with groups=1 take q4_matvec_q80 and i8 weights
+    q8_matvec_q80, which write out_dtype themselves; every other weight dequantizes, and
+    so does the row (x̂ = xq·sx), for an f32 product."""
     if use_kernels and w.layout == "i4p" and w.groups == 1:
         _record("q4_matvec_q80", 1, w, op="q80")
-        y = q4_matvec_q80(xq, sx, w)
+        y = q4_matvec_q80(xq, sx, w, out_dtype=out_dtype)
     elif use_kernels and w.layout == "i8":
         _record("q8_matvec_q80", 1, w, op="q80")
-        y = q8_matvec_q80(xq, sx, w)
+        y = q8_matvec_q80(xq, sx, w, out_dtype=out_dtype)
     else:
         _record("dequant", 1, w, op="q80")
         xhat = dequantize_i8(xq, sx, torch.float32)
-        y = torch.matmul(xhat, w.dequantize(torch.float32).transpose(-1, -2))
-    return y.reshape(1, 1, y.shape[-1]).to(out_dtype)
+        y = torch.matmul(xhat, w.dequantize(torch.float32).transpose(-1, -2)).to(out_dtype)
+    return y.reshape(1, 1, y.shape[-1])
 
 
 def qmatmul_gated(x: torch.Tensor, w1: QTensor, w3: QTensor, *, act, act_name: str,

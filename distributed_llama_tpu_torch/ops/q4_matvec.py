@@ -4,14 +4,17 @@ layout, from a float row or from a row already quantized to Q80.
 Replaces distributed_llama_tpu/ops/pallas_q4.py `_q4_matvec` (`_matvec_kernel` ->
 `_unpack_dot_epilogue`) with the Q80 row quantizer `_quantize_row` of ops/pallas_q8.py
 that feeds it (`q4_matvec`), and `_q4_matvec_inline` (`q4_matvec_q80`, the entry the
-fused prologue feeds). The CUDA kernel is csrc/q4_matvec.cu, one row loop behind two
-entries; its header says what bounds it on an H100 (bytes: 0.5625 B/weight streamed
-once) and what its design does about that.
+fused prologue feeds). The CUDA kernel is csrc/q4_matvec.cu over the block body it
+shares with q8_matvec (csrc/matvec_stream.cuh); their headers say what bounds it on an
+H100 (bytes: 0.5625 B/weight streamed once) and what the design does about that.
+ops/mv_plan.py sizes each launch: the ring, one wave of blocks.
 
 Numerics, shared by the kernel and `q4_matvec_plain`: the activation row is quantized
 per 32-block to Q80 (multiply by 127/absmax, round half to even), the per-block dot
 P[n,b] of (nibble-8) with the int8 row is an exact integer, and y[n] = Σ_b
-(s[n,b]·sx[b])·P[n,b] in float32 — only the order of that last sum differs.
+(s[n,b]·sx[b])·P[n,b] in float32 — only the order of that last sum differs. The kernel
+rounds y once to the caller's dtype (f32 or bf16), as `.to()` does after the plain
+version: one launch per call.
 
 `q4_matvec` and `q4_matvec_q80` take the plain version for CPU tensors and launch the
 kernel for CUDA tensors; `launches` counts the float entry's launches, `q80_launches`
@@ -25,16 +28,18 @@ import math
 import torch
 
 from ..quants import QK, QTensor
-from . import cuda_build
+from . import cuda_build, mv_plan
 
 launches = 0
 q80_launches = 0
 
-MAX_K = 32768  # the quantized row (K + 8·K/32 bytes) must fit 48 KB of shared memory
-_BLOCKS_PER_SM = 4
+MAX_K = mv_plan.MAX_K
 _P, _I = cuda_build.P, cuda_build.I
-_SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
-               "q4_matvec_q80": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
+               "q4_matvec_q80": [_P] * 5 + [_I] * 7 + [_P],
+               "q4_matvec_blocks_per_sm": [_I] * 6}
+# output dtypes the kernel writes (out_bf16)
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def quantize_row(x_row: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,61 +78,78 @@ def q4_matvec_plain(x_row: torch.Tensor, packed: torch.Tensor,
     return q4_matvec_q80_plain(*quantize_row(x_row), packed, scales)
 
 
-def _check_weights(what: str, packed: torch.Tensor, scales: torch.Tensor, dev) -> int:
+def _check_weights(what: str, packed: torch.Tensor, scales: torch.Tensor, dev,
+                   out_dtype) -> int:
     n, kh = packed.shape
     k = kh * 2
     if packed.dtype != torch.uint8 or scales.dtype != torch.float16:
         raise TypeError(f"{what} kernel takes u8 planes and f16 scales, got "
                         f"{packed.dtype}/{scales.dtype}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{what} kernel writes {OUT_DTYPES}, not {out_dtype}")
     if k % 64 or k > MAX_K or scales.shape != (n, k // QK):
         raise ValueError(f"{what} kernel cannot take K={k}, scales {tuple(scales.shape)}")
-    if not (packed.is_contiguous() and scales.is_contiguous()) or packed.data_ptr() % 16:
-        raise ValueError(f"{what} kernel needs contiguous, 16-byte aligned weight planes")
+    if not (packed.is_contiguous() and scales.is_contiguous()) or packed.data_ptr() % 16 \
+            or scales.data_ptr() % 4:
+        raise ValueError(f"{what} kernel needs contiguous weight planes, 16-byte aligned "
+                         f"(scales 4-byte aligned)")
     if not (packed.device == scales.device == dev):
         raise ValueError(f"{what}: tensors on different devices")
     return k
 
 
-def _grid(n: int, dev) -> int:
-    return max(1, min(math.ceil(n / 8), cuda_build.sm_count(dev.index) * _BLOCKS_PER_SM))
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned, as the kernels load the row."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
-def _launch(x_row: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def _launch(x_row: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+            out_dtype=torch.float32) -> torch.Tensor:
     global launches
     if x_row.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q4_matvec kernel takes f32 or bf16 activations, got {x_row.dtype}")
     n = packed.shape[0]
-    k = _check_weights("q4_matvec", packed, scales, x_row.device)
+    dev = x_row.device
+    k = _check_weights("q4_matvec", packed, scales, dev, out_dtype)
     if x_row.shape != (k,):
         raise ValueError(f"q4_matvec: row {tuple(x_row.shape)} against K={k}")
-    x_row = x_row.contiguous()
-    y = torch.empty(n, dtype=torch.float32, device=x_row.device)
+    x_row = aligned(x_row)
+    xb = x_row.dtype == torch.bfloat16
+    y = torch.empty(n, dtype=out_dtype, device=dev)
     lib = cuda_build.load("q4_matvec", _SIGNATURES)
-    rc = lib.q4_matvec(x_row.data_ptr(), int(x_row.dtype == torch.bfloat16),
-                       packed.data_ptr(), scales.data_ptr(), y.data_ptr(), n, k,
-                       _grid(n, x_row.device), cuda_build.stream_of(x_row))
+    p = mv_plan.for_call(lib, "q4_matvec_blocks_per_sm", n, k, "i4p", "quantize", xb,
+                         dev.index)
+    r = p.ring
+    rc = lib.q4_matvec(x_row.data_ptr(), int(xb), packed.data_ptr(), scales.data_ptr(),
+                       y.data_ptr(), int(out_dtype == torch.bfloat16), n, k, r.rs, r.stages,
+                       r.gw, p.grid, cuda_build.stream_of(x_row))
     cuda_build.check(rc, "q4_matvec")
     launches += 1
     return y
 
 
 def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
-                scales: torch.Tensor) -> torch.Tensor:
+                scales: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     global q80_launches
     n = packed.shape[0]
-    k = _check_weights("q4_matvec_q80", packed, scales, xq.device)
+    dev = xq.device
+    k = _check_weights("q4_matvec_q80", packed, scales, dev, out_dtype)
     if xq.dtype != torch.int8 or sx.dtype != torch.float32:
         raise TypeError(f"q4_matvec_q80 kernel takes an int8 row and f32 block scales, "
                         f"got {xq.dtype}/{sx.dtype}")
-    if xq.shape != (k,) or sx.shape != (k // QK,) or sx.device != xq.device:
+    if xq.shape != (k,) or sx.shape != (k // QK,) or sx.device != dev:
         raise ValueError(f"q4_matvec_q80: row {tuple(xq.shape)}, scales "
                          f"{tuple(sx.shape)} against K={k}")
-    xq, sx = xq.contiguous(), sx.contiguous()
-    y = torch.empty(n, dtype=torch.float32, device=xq.device)
+    xq, sx = aligned(xq), sx.contiguous()
+    y = torch.empty(n, dtype=out_dtype, device=dev)
     lib = cuda_build.load("q4_matvec", _SIGNATURES)
+    p = mv_plan.for_call(lib, "q4_matvec_blocks_per_sm", n, k, "i4p", "q80", False,
+                         dev.index)
+    r = p.ring
     rc = lib.q4_matvec_q80(xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
-                           scales.data_ptr(), y.data_ptr(), n, k, _grid(n, xq.device),
-                           cuda_build.stream_of(xq))
+                           scales.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16),
+                           n, k, r.rs, r.stages, r.gw, p.grid, cuda_build.stream_of(xq))
     cuda_build.check(rc, "q4_matvec_q80")
     q80_launches += 1
     return y
@@ -135,30 +157,33 @@ def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
 
 def q4_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None) -> torch.Tensor:
     """Decode-path matmul: x (..., K) with leading dims multiplying to 1, i4p-layout
-    QTensor (N, K) -> (..., N)."""
+    QTensor (N, K) -> (..., N) in out_dtype (default x's)."""
     if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2:
         raise ValueError("q4_matvec needs 2-D i4p weights packed with groups=1")
     lead = x.shape[:-1]
     if math.prod(lead) != 1:
         raise ValueError(f"q4_matvec takes one activation row, got {tuple(x.shape)}")
     x_row = x.reshape(x.shape[-1])
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cuda":
-        y = _launch(x_row, w.data, w.scales)
+        y = _launch(x_row, w.data, w.scales, out_dtype)
     elif x.device.type == "cpu":
-        y = q4_matvec_plain(x_row, w.data, w.scales)
+        y = q4_matvec_plain(x_row, w.data, w.scales).to(out_dtype)
     else:
         raise ValueError(f"q4_matvec: no kernel for device {x.device}")
-    return y.reshape(*lead, y.shape[0]).to(out_dtype or x.dtype)
+    return y.reshape(*lead, y.shape[0])
 
 
-def q4_matvec_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
+def q4_matvec_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor, *,
+                  out_dtype=torch.float32) -> torch.Tensor:
     """Decode-path matmul on a pre-quantized row: xq (..., K) int8 and sx (..., K/32)
-    f32 with leading dims multiplying to 1, i4p-layout QTensor (N, K) -> (N,) f32."""
+    f32 with leading dims multiplying to 1, i4p-layout QTensor (N, K) -> (N,) in
+    out_dtype."""
     if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2:
         raise ValueError("q4_matvec_q80 needs 2-D i4p weights packed with groups=1")
     xq_row, sx_row = xq.reshape(xq.shape[-1]), sx.reshape(sx.shape[-1])
     if xq.device.type == "cuda":
-        return _launch_q80(xq_row, sx_row, w.data, w.scales)
+        return _launch_q80(xq_row, sx_row, w.data, w.scales, out_dtype)
     if xq.device.type == "cpu":
-        return q4_matvec_q80_plain(xq_row, sx_row, w.data, w.scales)
+        return q4_matvec_q80_plain(xq_row, sx_row, w.data, w.scales).to(out_dtype)
     raise ValueError(f"q4_matvec_q80: no kernel for device {xq.device}")

@@ -5,16 +5,19 @@ Replaces distributed_llama_tpu/ops/pallas_q8.py `_q8_matvec` (the int8 body
 `_matvec_kernel` with the Q80 row quantizer `_quantize_row` that feeds it: `q8_matvec`;
 the precise body `_matvec_kernel_f32`: `q8_matvec(precise=True)`) and
 `_q8_matvec_inline` (`q8_matvec_q80`, the entry the fused prologue feeds). The CUDA
-kernel is csrc/q8_matvec.cu, one row loop behind three entries; its header says what
-bounds it on an H100 (bytes: 1.125 B/weight streamed once) and what its design does
-about that.
+kernel is csrc/q8_matvec.cu over the block body it shares with q4_matvec
+(csrc/matvec_stream.cuh); their headers say what bounds it on an H100 (bytes: 1.125
+B/weight streamed once) and what the design does about that. ops/mv_plan.py sizes each
+launch: the ring, one wave of blocks.
 
 Numerics, shared by the kernel and the plain versions: the activation row is quantized
 per 32-block to Q80 exactly as `quantize_row` does (or comes quantized), the per-block
 dot P[n,b] of the int8 weights with the int8 row is an exact integer, and y[n] =
 Σ_b (s[n,b]·sx[b])·P[n,b] in float32; only the order of that last sum differs. The
 precise mode skips the Q80 step: P[n,b] is an f32 sum of W8·x and sx = 1. No entry point
-of the port passes `precise`, as none of the JAX package's does.
+of the port passes `precise`, as none of the JAX package's does. The kernel rounds y
+once to the caller's dtype (f32 or bf16), as `.to()` does after the plain version: one
+launch per call.
 
 The entries take the plain version for CPU tensors and launch the kernel for CUDA
 tensors. `launches` counts the quantizing entry's launches, `precise_launches` the
@@ -28,19 +31,19 @@ import math
 import torch
 
 from ..quants import QK, QTensor
-from . import cuda_build
-from .q4_matvec import quantize_row
+from . import cuda_build, mv_plan
+from .q4_matvec import OUT_DTYPES, aligned, quantize_row
 
 launches = 0
 precise_launches = 0
 q80_launches = 0
 
-MAX_K = 32768  # the int8 row and its f32 scales (1.125·K bytes) fit 48 KB of shared memory
-_PRECISE_MAX_K = 12288  # the precise mode stages the row in f32 (4·K bytes)
-_BLOCKS_PER_SM = 4
+MAX_K = mv_plan.MAX_K
+_PRECISE_MAX_K = mv_plan.PRECISE_MAX_K
 _P, _I = cuda_build.P, cuda_build.I
-_SIGNATURES = {"q8_matvec": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
-               "q8_matvec_q80": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"q8_matvec": [_P, _I, _I, _P, _P, _P] + [_I] * 7 + [_P],
+               "q8_matvec_q80": [_P] * 5 + [_I] * 7 + [_P],
+               "q8_matvec_blocks_per_sm": [_I] * 6}
 
 
 def _block_dots(w8: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
@@ -75,11 +78,14 @@ def q8_matvec_precise_plain(x_row: torch.Tensor, w8: torch.Tensor,
     return (scales.float() * p).sum(dim=1)
 
 
-def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev) -> int:
+def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev,
+                   out_dtype) -> int:
     n, k = w8.shape
     if w8.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes int8 planes and f32 scales, got "
                         f"{w8.dtype}/{scales.dtype}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{what} kernel writes {OUT_DTYPES}, not {out_dtype}")
     if k % QK or k > MAX_K or scales.shape != (n, k // QK):
         raise ValueError(f"{what} kernel cannot take K={k}, scales {tuple(scales.shape)}")
     if not (w8.is_contiguous() and scales.is_contiguous()) or w8.data_ptr() % 16:
@@ -89,27 +95,28 @@ def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev) -> in
     return k
 
 
-def _grid(n: int, dev) -> int:
-    return max(1, min(math.ceil(n / 8), cuda_build.sm_count(dev.index) * _BLOCKS_PER_SM))
-
-
 def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
-            precise: bool = False) -> torch.Tensor:
+            precise: bool = False, out_dtype=torch.float32) -> torch.Tensor:
     global launches, precise_launches
     if x_row.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q8_matvec kernel takes f32 or bf16 activations, got {x_row.dtype}")
     n = w8.shape[0]
-    k = _check_weights("q8_matvec", w8, scales, x_row.device)
+    dev = x_row.device
+    k = _check_weights("q8_matvec", w8, scales, dev, out_dtype)
     if x_row.shape != (k,):
         raise ValueError(f"q8_matvec: row {tuple(x_row.shape)} against K={k}")
     if precise and k > _PRECISE_MAX_K:
         raise ValueError(f"q8_matvec precise mode takes K <= {_PRECISE_MAX_K}, got {k}")
-    x_row = x_row.contiguous()
-    y = torch.empty(n, dtype=torch.float32, device=x_row.device)
+    x_row = aligned(x_row)
+    xb = x_row.dtype == torch.bfloat16
+    y = torch.empty(n, dtype=out_dtype, device=dev)
     lib = cuda_build.load("q8_matvec", _SIGNATURES)
-    rc = lib.q8_matvec(x_row.data_ptr(), int(x_row.dtype == torch.bfloat16), int(precise),
-                       w8.data_ptr(), scales.data_ptr(), y.data_ptr(), n, k,
-                       _grid(n, x_row.device), cuda_build.stream_of(x_row))
+    p = mv_plan.for_call(lib, "q8_matvec_blocks_per_sm", n, k, "i8",
+                         "precise" if precise else "quantize", xb, dev.index)
+    r = p.ring
+    rc = lib.q8_matvec(x_row.data_ptr(), int(xb), int(precise), w8.data_ptr(),
+                       scales.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16), n,
+                       k, r.rs, r.stages, r.gw, p.grid, cuda_build.stream_of(x_row))
     cuda_build.check(rc, "q8_matvec")
     if precise:
         precise_launches += 1
@@ -119,23 +126,26 @@ def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
 
 
 def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
-                scales: torch.Tensor) -> torch.Tensor:
+                scales: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     global q80_launches
     n = w8.shape[0]
-    k = _check_weights("q8_matvec_q80", w8, scales, xq.device)
+    dev = xq.device
+    k = _check_weights("q8_matvec_q80", w8, scales, dev, out_dtype)
     if xq.dtype != torch.int8 or sx.dtype != torch.float32:
         raise TypeError(f"q8_matvec_q80 kernel takes an int8 row and f32 block scales, "
                         f"got {xq.dtype}/{sx.dtype}")
-    if xq.shape != (k,) or sx.shape != (k // QK,) or sx.device != xq.device:
+    if xq.shape != (k,) or sx.shape != (k // QK,) or sx.device != dev:
         raise ValueError(f"q8_matvec_q80: row {tuple(xq.shape)}, scales "
                          f"{tuple(sx.shape)} against K={k}")
-    xq, sx = xq.contiguous(), sx.contiguous()
-    if xq.data_ptr() % 16:  # the kernel stages the row with 16-byte loads
-        xq = xq.clone()
-    y = torch.empty(n, dtype=torch.float32, device=xq.device)
+    xq, sx = aligned(xq), sx.contiguous()
+    y = torch.empty(n, dtype=out_dtype, device=dev)
     lib = cuda_build.load("q8_matvec", _SIGNATURES)
+    p = mv_plan.for_call(lib, "q8_matvec_blocks_per_sm", n, k, "i8", "q80", False,
+                         dev.index)
+    r = p.ring
     rc = lib.q8_matvec_q80(xq.data_ptr(), sx.data_ptr(), w8.data_ptr(), scales.data_ptr(),
-                           y.data_ptr(), n, k, _grid(n, xq.device), cuda_build.stream_of(xq))
+                           y.data_ptr(), int(out_dtype == torch.bfloat16), n, k, r.rs,
+                           r.stages, r.gw, p.grid, cuda_build.stream_of(xq))
     cuda_build.check(rc, "q8_matvec_q80")
     q80_launches += 1
     return y
@@ -150,29 +160,33 @@ def _check_layout(what: str, w: QTensor) -> None:
 def q8_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None,
               precise: bool = False) -> torch.Tensor:
     """Decode-path matmul: x (..., K) with leading dims multiplying to 1, i8-layout
-    QTensor (N, K) -> (..., N). precise=True skips the activation's Q80 step."""
+    QTensor (N, K) -> (..., N) in out_dtype (default x's). precise=True skips the
+    activation's Q80 step."""
     _check_layout("q8_matvec", w)
     lead = x.shape[:-1]
     if math.prod(lead) != 1:
         raise ValueError(f"q8_matvec takes one activation row, got {tuple(x.shape)}")
     x_row = x.reshape(x.shape[-1])
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cuda":
-        y = _launch(x_row, w.data, w.scales, precise)
+        y = _launch(x_row, w.data, w.scales, precise, out_dtype)
     elif x.device.type == "cpu":
         plain = q8_matvec_precise_plain if precise else q8_matvec_plain
-        y = plain(x_row, w.data, w.scales)
+        y = plain(x_row, w.data, w.scales).to(out_dtype)
     else:
         raise ValueError(f"q8_matvec: no kernel for device {x.device}")
-    return y.reshape(*lead, y.shape[0]).to(out_dtype or x.dtype)
+    return y.reshape(*lead, y.shape[0])
 
 
-def q8_matvec_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
+def q8_matvec_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor, *,
+                  out_dtype=torch.float32) -> torch.Tensor:
     """Decode-path matmul on a pre-quantized row: xq (..., K) int8 and sx (..., K/32)
-    f32 with leading dims multiplying to 1, i8-layout QTensor (N, K) -> (N,) f32."""
+    f32 with leading dims multiplying to 1, i8-layout QTensor (N, K) -> (N,) in
+    out_dtype."""
     _check_layout("q8_matvec_q80", w)
     xq_row, sx_row = xq.reshape(xq.shape[-1]), sx.reshape(sx.shape[-1])
     if xq.device.type == "cuda":
-        return _launch_q80(xq_row, sx_row, w.data, w.scales)
+        return _launch_q80(xq_row, sx_row, w.data, w.scales, out_dtype)
     if xq.device.type == "cpu":
-        return q8_matvec_q80_plain(xq_row, sx_row, w.data, w.scales)
+        return q8_matvec_q80_plain(xq_row, sx_row, w.data, w.scales).to(out_dtype)
     raise ValueError(f"q8_matvec_q80: no kernel for device {xq.device}")

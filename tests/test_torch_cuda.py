@@ -5,7 +5,9 @@ skips where no GPU is present (the kernels have no CPU mode). Run on a GPU machi
 
 Tolerances, relative to max|reference|: q4_matvec, q4_matvec_q80, q8_matvec (int8 and
 precise) and q8_matvec_q80 1e-4 (exact integer block dots, or f32 block sums of the same
-products; the f32 sum over blocks in another order); the prologue's quantize_q80 exact,
+products; the f32 sum over blocks in another order), with bf16 output one bf16 ulp more
+and equal to the kernel's f32 result rounded once, one launch per call in a CUDA graph
+that replays after the row is overwritten in place; the prologue's quantize_q80 exact,
 its rmsnorm_q80 at most 4 xq values one step off (the sum of squares in another order
 can move a value within an ulp of a rounding tie) with sx within rtol 1e-6; q4_matmul and its residual mode 1e-3 (identical bf16
 operands, tensor-core f32 accumulation order), q4_gated_matmul 1e-3 (the same products,
@@ -55,17 +57,34 @@ def _rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _matvec_close(got, want, got32=None):
+    """A matvec output against its plain version's f32 result: f32 within 1e-4·max|want|;
+    bf16 within that plus one bf16 ulp of the plain result rounded (chip_smoke._bf16_err),
+    and equal to the kernel's own f32 result rounded once (got32)."""
+    import chip_smoke
+
+    if got.dtype == torch.float32:
+        assert _rel_err(got, want) < 1e-4
+        return
+    chip_smoke._bf16_err(got, want, 1e-4)
+    assert torch.equal(got, got32.to(torch.bfloat16))
+
+
+# ragged N: 300, 777 and 12289 are no multiple of any plan's rows per block or grid
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(300, 704), (4096, 11008), (32000, 4096)])
+@pytest.mark.parametrize("n,k", [(300, 704), (4096, 11008), (32000, 4096), (12289, 4096),
+                                 (777, 32768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_q4_matvec_kernel_matches_plain(cuda, n, k, dtype):
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_q4_matvec_kernel_matches_plain(cuda, n, k, dtype, out_dtype):
     packed, scales = _planes(n, k, cuda, seed=n)
     x = torch.randn(k, device=cuda).to(dtype)
     before = mv.launches
-    got = mv._launch(x, packed, scales)
+    got = mv._launch(x, packed, scales, out_dtype)
+    got32 = mv._launch(x, packed, scales)
     torch.cuda.synchronize()
-    assert mv.launches == before + 1
-    assert _rel_err(got, mv.q4_matvec_plain(x, packed, scales)) < 1e-4
+    assert mv.launches == before + 2 and got.dtype == out_dtype
+    _matvec_close(got, mv.q4_matvec_plain(x, packed, scales), got32)
 
 
 def _i8_planes(n, k, dev, seed):
@@ -82,43 +101,100 @@ def _q80_row(k, dev, seed):
     return mv.quantize_row(x)
 
 
+# the precise mode takes K <= 12288
+_Q8_CASES = [(n, k, precise) for n, k in ((300, 96), (4096, 11008), (32000, 4096),
+                                          (12288, 4096), (12289, 4096), (777, 12288))
+             for precise in (False, True)] + [(777, 32768, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(300, 96), (4096, 11008), (32000, 4096), (12288, 4096)])
+@pytest.mark.parametrize("n,k,precise", _Q8_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("precise", [False, True])
-def test_q8_matvec_kernel_matches_plain(cuda, n, k, dtype, precise):
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_q8_matvec_kernel_matches_plain(cuda, n, k, dtype, precise, out_dtype):
     w8, scales = _i8_planes(n, k, cuda, seed=n + k)
     x = torch.randn(k, device=cuda).to(dtype)
     x[32:64] = 0.0
     before = (q8.launches, q8.precise_launches)
-    got = q8._launch(x, w8, scales, precise)
+    got = q8._launch(x, w8, scales, precise, out_dtype)
+    got32 = q8._launch(x, w8, scales, precise)
     torch.cuda.synchronize()
-    assert (q8.launches, q8.precise_launches) == (before[0] + (not precise),
-                                                  before[1] + precise)
+    assert (q8.launches, q8.precise_launches) == (before[0] + 2 * (not precise),
+                                                  before[1] + 2 * precise)
+    assert got.dtype == out_dtype
     plain = q8.q8_matvec_precise_plain if precise else q8.q8_matvec_plain
-    assert _rel_err(got, plain(x, w8, scales)) < 1e-4
+    _matvec_close(got, plain(x, w8, scales), got32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(300, 128), (12288, 4096), (4096, 11008), (32000, 4096)])
+@pytest.mark.parametrize("n,k", [(300, 128), (12288, 4096), (4096, 11008), (32000, 4096),
+                                 (12289, 4096), (777, 32768)])
 @pytest.mark.parametrize("layout", ["i8", "i4p"])
-def test_q80_matvec_kernels_match_plain(cuda, n, k, layout):
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_q80_matvec_kernels_match_plain(cuda, n, k, layout, out_dtype):
     xq, sx = _q80_row(k, cuda, seed=k)
     if layout == "i8":
         w = _i8_planes(n, k, cuda, seed=n)
         before = q8.q80_launches
-        got = q8._launch_q80(xq, sx, *w)
+        got = q8._launch_q80(xq, sx, *w, out_dtype)
+        got32 = q8._launch_q80(xq, sx, *w)
         want = q8.q8_matvec_q80_plain(xq, sx, *w)
         counted = q8.q80_launches - before
     else:
         w = _planes(n, k, cuda, seed=n)
         before = mv.q80_launches
-        got = mv._launch_q80(xq, sx, *w)
+        got = mv._launch_q80(xq, sx, *w, out_dtype)
+        got32 = mv._launch_q80(xq, sx, *w)
         want = mv.q4_matvec_q80_plain(xq, sx, *w)
         counted = mv.q80_launches - before
     torch.cuda.synchronize()
-    assert counted == 1
-    assert _rel_err(got, want) < 1e-4
+    assert counted == 2 and got.dtype == out_dtype
+    _matvec_close(got, want, got32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["q4_matvec", "q4_matvec_q80", "q8_matvec",
+                                   "q8_matvec_precise", "q8_matvec_q80"])
+def test_matvec_entries_are_one_launch_and_replay(cuda, entry):
+    """A CUDA graph captured around one bf16 call holds exactly one node, the kernel (no
+    cast), and replays correctly after the row is overwritten in place; repeated calls
+    are bit-identical (each row's sum in a fixed order)."""
+    import chip_smoke
+
+    n, k = 4096, 11008
+    g = torch.Generator(device=cuda).manual_seed(21)
+    bf = torch.bfloat16
+    x = torch.randn(k, generator=g, device=cuda).to(bf)
+    xq, sx = mv.quantize_row(torch.randn(k, generator=g, device=cuda))
+    if entry.startswith("q4"):
+        w, name = _planes(n, k, cuda, seed=3), "q4_matvec_kernel"
+    else:
+        w, name = _i8_planes(n, k, cuda, seed=3), "q8_matvec_kernel"
+    call, plain = {
+        "q4_matvec": (lambda: mv._launch(x, *w, bf), lambda: mv.q4_matvec_plain(x, *w)),
+        "q4_matvec_q80": (lambda: mv._launch_q80(xq, sx, *w, bf),
+                          lambda: mv.q4_matvec_q80_plain(xq, sx, *w)),
+        "q8_matvec": (lambda: q8._launch(x, *w, False, bf), lambda: q8.q8_matvec_plain(x, *w)),
+        "q8_matvec_precise": (lambda: q8._launch(x, *w, True, bf),
+                              lambda: q8.q8_matvec_precise_plain(x, *w)),
+        "q8_matvec_q80": (lambda: q8._launch_q80(xq, sx, *w, bf),
+                          lambda: q8.q8_matvec_q80_plain(xq, sx, *w)),
+    }[entry]
+    assert chip_smoke.graph_launches(lambda i: call(), name) == (1, 1)
+    assert torch.equal(call(), call())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (5, 6):
+        g2 = torch.Generator(device=cuda).manual_seed(seed)
+        x.copy_(torch.randn(k, generator=g2, device=cuda))
+        q, s = mv.quantize_row(torch.randn(k, generator=g2, device=cuda))
+        xq.copy_(q)
+        sx.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        chip_smoke._bf16_err(out, plain(), 1e-4)
 
 
 @pytest.mark.cuda
