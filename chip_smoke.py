@@ -37,7 +37,12 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             cuBLAS on the weight dequantized to bf16 beforehand; the matvec rows their
             sums per 7B decode token beside their times before the redesign), and
             decode_attention is captured once in a CUDA graph and replayed at two
-            positions written to its device position tensor
+            positions written to its device position tensor; the prologue at the path's
+            rows and at rows that span several CTAs, and one 7B layer's four prologue ->
+            pre-quantized matvec pairs on Q40 and on Q80 weights (the chain's outputs
+            bit-identical, queued behind a spin kernel so the programmatic launches
+            overlap, to synchronized calls and to its CUDA graph's replay; its device
+            time beside the matvecs alone and its byte bound)
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers
 
@@ -307,16 +312,15 @@ def _record(state, name, err, tol, ms, plain, bnd, lib_ms, work):
     rec["work"].append(work)
 
 
-def _kernel_time(fn, iters: int, names: tuple[str, ...]) -> tuple[float, float]:
-    return event_ms(fn, iters), device_time(fn, iters, names)[0]
-
-
-def _one_launch_time(fn, iters: int, name: str) -> tuple[float, float, str]:
-    """Events ms and device ms per call of a kernel that must be one launch per call, and
-    a note on how they were read: a CUDA graph of one call must hold exactly one launch
-    of the kernel. Queued events' time of the whole call is taken beside the device
-    time; a profiled time that disagrees with it (PROFILE_AGREE) is retaken, and after
-    three disagreeing windows the queued time stands."""
+def _one_launch_time(fn, iters: int, name: str) -> tuple[float, float, str, float]:
+    """Events ms and device ms per call of a kernel that must be one launch per call, a
+    note on how they were read, and queued events' time of the whole call: a CUDA graph
+    of one call must hold exactly one launch of the kernel. A profiled time that
+    disagrees with the queued one (PROFILE_AGREE) is retaken, and after three
+    disagreeing windows the queued time stands. (A kernel launched with programmatic
+    stream serialization starts before the one ahead of it ends, so back to back its
+    profiled time includes that wait; the queued time is what a stream of its calls
+    takes.)"""
     named, nodes = graph_launches(fn, name)
     if named != 1:
         raise AssertionError(f"{name}: a CUDA graph of one call holds {named} launches "
@@ -338,7 +342,7 @@ def _one_launch_time(fn, iters: int, name: str) -> tuple[float, float, str]:
         dv, src = whole, "queued events: the profiler's time disagreed with them"
     gaps = "" if covered else ", host gaps included"
     return ev, dv, (f"{src}, whole call {whole:.5f} ms queued{gaps}; 1 launch/call in a "
-                    f"CUDA graph of one call, {nodes} nodes")
+                    f"CUDA graph of one call, {nodes} nodes"), whole
 
 
 BF16 = torch.bfloat16  # the Q40 dequant-matmuls' output on the bf16 paths
@@ -439,7 +443,7 @@ def phase_kernels(state: dict) -> None:
         y = mm._launch(x, *ws[0], out_dtype=BF16)
         ref = mm.q4_matmul_plain(x, *ws[0])
         err, tol = _bf16_err(y, ref)
-        ev, dv, how = _one_launch_time(
+        ev, dv, how, _ = _one_launch_time(
             lambda i: mm._launch(x, *ws[i % copies], out_dtype=BF16), 20,
             "q4_matmul_tc_kernel")
         plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(x, *ws[i % copies]), 3)
@@ -492,7 +496,7 @@ def phase_kernels(state: dict) -> None:
                                      "non-finite output")
             err = (out - ref).abs().max().item()
             tol = 1e-4 * ref.abs().max().item()
-            ev, dv, how = _one_launch_time(
+            ev, dv, how, _ = _one_launch_time(
                 lambda i: da._launch(q, kc, vc, kn, vn, layers[i % n_layers], pt, win),
                 50, "decode_attn_kernel")
             plain = _all_kernels_ms(lambda i: da.decode_attention_plain(
@@ -613,7 +617,7 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
             y = mm._launch(x, *ws[0], res, out_dtype=BF16)
             ref = mm.q4_matmul_res_plain(x, *ws[0], res)
             err, tol = _bf16_err(y, ref)
-            ev, dv, how = _one_launch_time(
+            ev, dv, how, _ = _one_launch_time(
                 lambda i: mm._launch(x, *ws[i % copies], res, out_dtype=BF16), 20,
                 "q4_matmul_tc_kernel")
             plain = _all_kernels_ms(
@@ -640,7 +644,7 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
         y = gm._launch(x, *pairs[0], "silu", out_dtype=BF16)
         ref = gm.q4_gated_matmul_plain(x, *pairs[0], "silu")
         err, tol = _bf16_err(y, ref)
-        ev, dv, how = _one_launch_time(
+        ev, dv, how, _ = _one_launch_time(
             lambda i: gm._launch(x, *pairs[i % copies], "silu", out_dtype=BF16), 20,
             "q4_gated_tc_kernel")
         plain = _all_kernels_ms(
@@ -702,7 +706,7 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
                 raise AssertionError(f"paged_attention win={win} T={t}: non-finite output")
             err = (out - ref).abs().max().item()
             tol = 1e-4 * ref.abs().max().item()
-            ev, dv, how = _one_launch_time(
+            ev, dv, how, _ = _one_launch_time(
                 lambda i: pa._launch(q, kc, vc, kn, vn, tables, lens, layer, n_read), 30,
                 "paged_attn_kernel")
             plain = _all_kernels_ms(lambda i: pa.paged_attention_plain(
@@ -770,30 +774,37 @@ def _matvec_row(state, name: str, kern, plain_fn, nbytes: int, n: int, k: int,
         err, tol = _bf16_err(y, ref, 1e-4)
     else:
         err, tol = (y - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
-    ev, dv, how = _one_launch_time(kern, 50, kname)
+    ev, dv, how, whole = _one_launch_time(kern, 50, kname)
+    # the pre-quantized entries launch with programmatic serialization: back to back
+    # each profiled time includes the wait for the call ahead, so they are also timed
+    # alone, the card synchronized after each call
+    alone = dv if not name.endswith("_q80") else device_profile(
+        lambda i: (kern(i), torch.cuda.synchronize()), 20, (kname,), per_call=1)[0]
+    alone = math.nan if alone is None else alone  # every window lost records
     plain = _all_kernels_ms(plain_fn, 5)
     bnd = bound(nbytes, 2 * n * k, "f32" if "precise" in name else "int8", rate)
     work = f"N={n},K={k},{xdt}->{str(y.dtype)[6:]}"
     log(f"[kernels] {name} {work}: max|err| {err:.3e} (tol {tol:.3e}) device "
         f"{round(dv, 5)} ms ({how}), events {ev:.5f} ms, plain {plain:.3f} ms, bound "
         f"{bnd[0]:.5f} ms ({bnd[1]}), {bnd[0] / dv:.3f} of the bound, "
-        f"{nbytes / (dv * 1e-3) / 1e9:.0f} GB/s")
+        f"{nbytes / (dv * 1e-3) / 1e9:.0f} GB/s"
+        + (f"; alone (synchronized after each call) {alone} ms" if alone != dv else ""))
     _record(state, name, err, tol, dv, plain, bnd, None, work)
-    state["mv"][(name, n, k, xdt)] = (dv, bnd[0])
+    state["mv"][(name, n, k, xdt)] = (dv, bnd[0], whole, alone)
 
 
-# the decode matvecs' device time per 7B decode token before their redesign around
-# csrc/matvec_stream.cuh (PERF.md §6, the kernel table's bracketed times), and the
-# redesign's aims
-MV_TOKEN_BEFORE = {"q4_matvec": 3.730, "q4_matvec_q80": 2.484, "q8_matvec": 4.256,
-                "q8_matvec_precise": 4.162, "q8_matvec_q80": 2.902}
-MV_TOKEN_AIM = {"q4_matvec": 1.8, "q4_matvec_q80": 1.6, "q8_matvec": 2.8,
-                "q8_matvec_q80": 2.6}
+# the decode matvecs' device time per 7B decode token in kernels-only runs before the
+# prologue's redesign (PERF.md §6; bf16 rows for the float entries)
+MV_TOKEN_BEFORE = {"q4_matvec": 1.663, "q4_matvec_q80": 1.662, "q8_matvec": 2.789,
+                   "q8_matvec_precise": 3.233, "q8_matvec_q80": 2.790}
 
 
 def _matvec_token_sums(t: dict) -> None:
-    """Log each matvec row's device ms and bound per decode token of Llama-2-7B: wqkv,
-    wo, w13 and w2 x 32 layers, wcls once."""
+    """Log each matvec row's device ms, queued whole-call ms and bound per decode token
+    of Llama-2-7B: wqkv, wo, w13 and w2 x 32 layers, wcls once; for the pre-quantized
+    entries also the device ms of calls timed alone. The queued time is what a stream of
+    the calls takes; back to back, a programmatic launch's profiled time includes its
+    wait for the call ahead, the time alone does not."""
     parts = []
     for name, xdt in (("q4_matvec", "bfloat16"), ("q4_matvec_q80", "int8"),
                       ("q8_matvec", "bfloat16"), ("q8_matvec", "float32"),
@@ -801,18 +812,19 @@ def _matvec_token_sums(t: dict) -> None:
                       ("q8_matvec_q80", "int8")):
         got = [t.get((name, n, k, xdt)) for n, k in SHAPES_7B]
         if all(v is not None for v in got):
-            ms = 32 * sum(v[0] for v in got[:4]) + got[4][0]
-            bnd = 32 * sum(v[1] for v in got[:4]) + got[4][1]
-            aim = MV_TOKEN_AIM.get(name)
-            parts.append(f"{name} ({xdt} row) {ms:.3f} ms (bound {bnd:.3f}, before "
-                         f"{MV_TOKEN_BEFORE[name]:.3f}" + (f", aim {aim}" if aim else "") + ")")
-    log("[kernels] decode matvecs per 7B token (before: the kernels before the redesign): "
+            ms, bnd, whole, alone = (32 * sum(v[j] for v in got[:4]) + got[4][j]
+                                     for j in range(4))
+            parts.append(f"{name} ({xdt} row) {ms:.3f} ms, queued {whole:.3f} ms"
+                         + (f", alone {alone:.3f} ms" if name.endswith("_q80") else "")
+                         + f" (bound {bnd:.3f}, before {MV_TOKEN_BEFORE[name]:.3f})")
+    log("[kernels] decode matvecs per 7B token (device; queued whole calls): "
         + "; ".join(parts))
 
 
 def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
     """Kernels 2, 6 (both bodies), 7, 10 and 11 against their plain versions at the
-    decode shapes of Llama-2-7B (q80 phase and the model phase's prologue run)."""
+    decode shapes of Llama-2-7B (q80 phase and the model phase's prologue run), and one
+    layer's prologue -> pre-quantized matvec chain on Q40 and Q80 weights."""
     from distributed_llama_tpu_torch.ops import prologue as pro
     from distributed_llama_tpu_torch.ops import q4_matvec as mv
     from distributed_llama_tpu_torch.ops import q8_matvec as q8
@@ -855,52 +867,199 @@ def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
     # kernels 10 and 11 — quantize_q80 bit-exact (xq and sx equal); rmsnorm_q80 at most 4
     # xq values one step off (its sum of squares runs in another order than torch.mean)
     # and sx within rtol 1e-6. max_abs_err is taken on the dequantized rows xq·sx, and
-    # the tolerance is one quantization step of the widest block.
-    flip_budget = 4
+    # the tolerance is one quantization step of the widest block. The path's shapes
+    # (K = 4096 and 11008) make the rows; 14336 and 65536, where the row spans several
+    # CTAs, are checked and logged only. Device time with the card synchronized after
+    # each call: back to back, a programmatic launch starts while the one before runs,
+    # and its time would include that wait.
     fill = torch.zeros(1, device=dev)
     empty_ms = event_ms(lambda i: fill.fill_(0.0), 200)
     cases = [("rmsnorm_q80", 4096, dt) for dt in (torch.float32, torch.bfloat16)]
     cases += [("quantize_q80", k, dt) for k in (4096, 11008)
               for dt in (torch.float32, torch.bfloat16)]
-    for name, k, dtype in cases:
+    wide = [(name, k, dt) for name in ("rmsnorm_q80", "quantize_q80")
+            for k in (14336, 65536) for dt in (torch.float32, torch.bfloat16)]
+    for name, k, dtype in cases + wide:
+        norm = name == "rmsnorm_q80"
         xs = [_test_row(k, gen, dev, dtype) * 3.0 for _ in range(4)]
-        w = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev) if name == "rmsnorm_q80" \
-            else None
-        eps = 1e-5
-        if w is None:
-            kern = lambda i: pro._launch(xs[i % 4], None, 0.0)  # noqa: E731
-            plain_fn = lambda i: pro.quantize_q80_plain(xs[i % 4])  # noqa: E731
-        else:
-            kern = lambda i: pro._launch(xs[i % 4], w, eps)  # noqa: E731
-            plain_fn = lambda i: pro.rmsnorm_q80_plain(xs[i % 4], w, eps)  # noqa: E731
-        flips, sx_rel, err, tol = 0, 0.0, 0.0, 0.0
-        for i in range(4):
-            (xq, sx), (pq, ps) = kern(i), plain_fn(i)
-            d = (xq.int() - pq.int()).abs()
-            flips += int((d > 0).sum())
-            if int(d.max()) > 1:
-                raise AssertionError(f"{name} K={k}: an xq value {int(d.max())} steps off")
-            sx_rel = max(sx_rel, ((sx - ps).abs() / ps.abs().clamp_min(1e-30)).max().item())
-            xhat = xq.float().reshape(-1, 32) * sx[:, None]
-            phat = pq.float().reshape(-1, 32) * ps[:, None]
-            err = max(err, (xhat - phat).abs().max().item())
-            tol = max(tol, ps.max().item())
-        exact = name == "quantize_q80"
-        if (exact and (flips or sx_rel)) or flips > flip_budget or sx_rel > 1e-6:
-            raise AssertionError(f"{name} K={k} {dtype}: {flips} xq flips, sx rel err "
-                                 f"{sx_rel:.2e} over 4 rows")
-        ev, dv = _kernel_time(kern, 200, ("prologue_kernel",))
+        w = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev) if norm else None
+        kern, plain_fn = _prologue_fns(xs, w)
+        flips, sx_rel, err, tol = _prologue_check(name, k, dtype, kern, plain_fn)
+        ev = event_ms(kern, 200)
+        dv = _synced_time(kern, 50, ("prologue_kernel",))
         plain = _all_kernels_ms(plain_fn, 20)
-        nbytes = k * xs[0].element_size() + (0 if w is None else 4 * k) + k + k // 32 * 4
-        bnd = bound(nbytes, (5 if w is not None else 3) * k, "f32", rate)
-        ms = dv
+        nbytes = k * xs[0].element_size() + (4 * k if norm else 0) + k + k // 32 * 4
+        bnd = bound(nbytes, (5 if norm else 3) * k, "f32", rate)
+        on_path = (name, k, dtype) in cases
         log(f"[kernels] {name} K={k} x {str(dtype)[6:]}: {flips} xq flips over 4 rows, sx "
             f"rel err {sx_rel:.2e}, max|err| of xq·sx {err:.3e} (tol {tol:.3e}) device "
-            f"{round(dv, 5)} ms, events {ev:.5f} ms (a 1-element "
-            f"torch fill, back to back: {empty_ms:.5f} ms), plain {plain:.3f} ms, bound "
-            f"{bnd[0]:.6f} ms ({bnd[1]})")
-        _record(state, name, err, tol, ms, plain, bnd, None,
-                f"K={k},{str(dtype)[6:]},{flips} flips")
+            f"{round(dv, 5)} ms, events back to back {ev:.5f} ms (a 1-element "
+            f"torch fill: {empty_ms:.5f} ms), plain {plain:.3f} ms, bound "
+            f"{bnd[0]:.6f} ms ({bnd[1]})" + ("" if on_path else
+                                             " (no path's shape: not in the kernels line)"))
+        if on_path:
+            _record(state, name, err, tol, dv, plain, bnd, None,
+                    f"K={k},{str(dtype)[6:]},{flips} flips")
+    for fmt in ("Q40", "Q80"):
+        _layer_chain(fmt, gen, dev, rate)
+        torch.cuda.empty_cache()
+
+
+def _synced_time(fn, iters: int, names: tuple[str, ...]) -> float:
+    """Device ms per call of the kernels named, the card synchronized after each call so
+    no launch overlaps the one before; where the profiler lost every window, their time
+    back to back (`device_time`)."""
+    dv, _ = device_profile(lambda i: (fn(i), torch.cuda.synchronize()), iters, names,
+                           per_call=1)
+    if dv is None:
+        dv, src = device_time(fn, iters, names)
+        log(f"[kernels] {'/'.join(names)}: synchronized calls lost their records in "
+            f"every window; timed back to back ({src})")
+    return dv
+
+
+def _prologue_fns(xs: list, w, eps: float = 1e-5):
+    """The prologue kernel on row i % len(xs) (rmsnorm_q80 with the norm weight w, else
+    quantize_q80), and its plain version."""
+    from distributed_llama_tpu_torch.ops import prologue as pro
+
+    n = len(xs)
+    if w is None:
+        return (lambda i: pro._launch(xs[i % n], None, 0.0),
+                lambda i: pro.quantize_q80_plain(xs[i % n]))
+    return (lambda i: pro._launch(xs[i % n], w, eps),
+            lambda i: pro.rmsnorm_q80_plain(xs[i % n], w, eps))
+
+
+def _prologue_check(name: str, k: int, dtype, kern, plain_fn, rows: int = 4,
+                    flip_budget: int = 4) -> tuple[int, float, float, float]:
+    """Hold the prologue kern(i) against plain_fn(i) on `rows` rows: quantize_q80 bit
+    for bit, rmsnorm_q80 at most `flip_budget` xq values one step off and sx within rtol
+    1e-6. Returns the flips, sx's relative error, max|xq·sx - plain| and one
+    quantization step of the widest block."""
+    flips, sx_rel, err, tol = 0, 0.0, 0.0, 0.0
+    for i in range(rows):
+        (xq, sx), (pq, ps) = kern(i), plain_fn(i)
+        d = (xq.int() - pq.int()).abs()
+        flips += int((d > 0).sum())
+        if int(d.max()) > 1:
+            raise AssertionError(f"{name} K={k}: an xq value {int(d.max())} steps off")
+        sx_rel = max(sx_rel, ((sx - ps).abs() / ps.abs().clamp_min(1e-30)).max().item())
+        xhat = xq.float().reshape(-1, 32) * sx[:, None]
+        phat = pq.float().reshape(-1, 32) * ps[:, None]
+        err = max(err, (xhat - phat).abs().max().item())
+        tol = max(tol, ps.max().item())
+    exact = name == "quantize_q80"
+    if (exact and (flips or sx_rel)) or flips > flip_budget or sx_rel > 1e-6:
+        raise AssertionError(f"{name} K={k} {dtype}: {flips} xq flips, sx rel err "
+                             f"{sx_rel:.2e} over {rows} rows")
+    return flips, sx_rel, err, tol
+
+
+# One Llama-2-7B layer's four prologue -> pre-quantized matvec pairs, in path order:
+# (prologue, N, K) — rmsnorm_q80 -> wqkv, quantize_q80 -> wo, rmsnorm_q80 -> w13,
+# quantize_q80 (K = 11008) -> w2. Rows are bf16 and outputs bf16, as on the path.
+LAYER_PAIRS = (("rmsnorm_q80", 12288, 4096), ("quantize_q80", 4096, 4096),
+               ("rmsnorm_q80", 22016, 4096), ("quantize_q80", 4096, 11008))
+# the prologue's visible cost per layer (chain - matvecs alone, us) the redesign aims at
+CHAIN_AIM_US = 4.0
+
+
+def _layer_chain(fmt: str, gen, dev, rate: float) -> None:
+    """The four pairs of LAYER_PAIRS on Q40 (q4_matvec_q80) or Q80 (q8_matvec_q80)
+    weights, layer copies rotated past the L2: the outputs of the same calls with
+    torch.cuda.synchronize() between them bit-identical to the chain queued behind a
+    spin kernel (the card runs it back to back, its programmatic launches early; the
+    row blocks it takes hold other rows' bits, so a matvec that read its row before the
+    prologue wrote it would differ), to the matvecs alone and to a CUDA graph of the
+    chain replayed; the chain's device time per layer (queued events), the four
+    matvecs alone on rows quantized beforehand, the graph's replay, and the chain's
+    byte bound. (tests/test_torch_cuda.py also forces the matvec resident while its
+    prologue waits, and holds deliberately broken matvecs to that check.)"""
+    from distributed_llama_tpu_torch.ops import prologue as pro
+    from distributed_llama_tpu_torch.ops import q4_matvec as mv
+    from distributed_llama_tpu_torch.ops import q8_matvec as q8
+
+    if fmt == "Q40":
+        launch, draw = mv._launch_q80, lambda n, k: _random_i4p(n, k, gen, dev)
+        wbytes = [n * k // 2 + n * k // 32 * 2 for _, n, k in LAYER_PAIRS]
+    else:
+        launch, draw = q8._launch_q80, lambda n, k: _random_i8(gen, dev, n, k)
+        wbytes = [n * k + n * k // 32 * 4 for _, n, k in LAYER_PAIRS]
+    copies = max(2, math.ceil(2 * L2_BYTES / sum(wbytes)))
+    layers = [[draw(n, k) for _, n, k in LAYER_PAIRS] for _ in range(copies)]
+    norm_w = [1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
+              if name == "rmsnorm_q80" else None for name, _, k in LAYER_PAIRS]
+    rows, others = ([(_test_row(k, gen, dev, BF16) * 3.0, w)
+                     for (_, _, k), w in zip(LAYER_PAIRS, norm_w)] for _ in range(2))
+    eps = 1e-5
+
+    def chain(i, sync=False, xs=rows):
+        out = []
+        for (x, w), wt in zip(xs, layers[i % copies]):
+            xq, sx = pro._launch(x, w, eps)
+            if sync:
+                torch.cuda.synchronize()
+            out.append(launch(xq, sx, *wt, BF16))
+            if sync:
+                torch.cuda.synchronize()
+        return out
+
+    quantized = [pro._launch(x, w, eps) for x, w in rows]
+
+    def alone(i):
+        return [launch(xq, sx, *wt, BF16) for (xq, sx), wt in zip(quantized,
+                                                                   layers[i % copies])]
+
+    synced = chain(0, True)
+    chain(0, True, others)  # the xq/sx blocks the queued chain takes now hold others'
+    torch.cuda._sleep(int(0.05 * SPIN_HZ))
+    queued = chain(0)
+    end = torch.cuda.Event()
+    end.record()
+    if end.query():
+        raise AssertionError(f"{fmt} layer chain: the spin ended before the chain was queued")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for what, ys in (("queued behind a spin kernel", queued),
+                     ("as the matvecs alone on the rows quantized beforehand", alone(0)),
+                     ("replayed from a CUDA graph", captured)):
+        if not all(torch.equal(a, b) for a, b in zip(synced, ys)):
+            raise AssertionError(f"{fmt} layer chain: the outputs of the synchronized calls "
+                                 f"differ from the chain {what}")
+    graph_ms, _ = queued_ms(lambda i: graph.replay(), 20)
+    chain_ms, c1 = queued_ms(chain, 20)
+    alone_ms, c2 = queued_ms(alone, 20)
+
+    # the four matvecs each on its own, the card synchronized after each call (as on a
+    # host-bound path, where no kernel waits queued behind another): profiled device time
+    def isolated(i):
+        for (xq, sx), wt in zip(quantized, layers[i % copies]):
+            launch(xq, sx, *wt, BF16)
+            torch.cuda.synchronize()
+
+    kname = "q4_matvec_kernel" if fmt == "Q40" else "q8_matvec_kernel"
+    iso_ms = device_profile(isolated, 10, (kname,), per_call=4)[0]
+    del graph, captured
+    nbytes = 0
+    for (name, n, k), wb in zip(LAYER_PAIRS, wbytes):
+        nbytes += k * 2 + (4 * k if name == "rmsnorm_q80" else 0) + k + k // 32 * 4
+        nbytes += wb + k + k // 32 * 4 + n * 2
+    t = {"chain": chain_ms * 1e3, "alone": alone_ms * 1e3, "graph": graph_ms * 1e3,
+         "isolated": math.nan if iso_ms is None else iso_ms * 1e3,
+         "bound": nbytes / rate * 1e6}
+    gaps = "" if c1 and c2 else " (host gaps included)"
+    log(f"[kernels] {fmt} layer chain (4 prologue -> {launch.__module__.split('.')[-1]}"
+        f"_q80 pairs, bf16 rows and outputs): {t['chain']:.2f} us per layer queued, "
+        f"matvecs alone {t['alone']:.2f} us (each synchronized: {t['isolated']:.2f} us), "
+        f"the prologue's visible cost {t['chain'] - t['alone']:.2f} us (aim "
+        f"{CHAIN_AIM_US}), CUDA graph replay {t['graph']:.2f} us, bound {t['bound']:.2f} "
+        f"us (bytes){gaps}; the synchronized calls' outputs bit-identical to the queued "
+        f"chain, the matvecs alone and the graph's replay")
 
 
 def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False):
@@ -1411,17 +1570,36 @@ def phase_q80(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
-# device busy per single-sequence decode step of each profiled run before the decode
-# matvecs' redesign (PERF.md §5-6), beside which each run reports its own
-BUSY_BEFORE = {"model": 6.867, "model, prologue": 5.228, "q80 (a)": 7.323, "q80 (b)": 5.716}
+# device busy per single-sequence decode step of each profiled run before the prologue's
+# redesign (a full run, PERF.md §5-6), beside which each run reports its own
+BUSY_BEFORE = {"model": 4.642, "model, prologue": 4.175, "q80 (a)": 5.829, "q80 (b)": 5.322}
+
+
+def _device_union_ms(prof) -> float:
+    """ms during which the card ran at least one of the profiled window's device
+    activities: the union of their intervals. Kernels launched with programmatic stream
+    serialization overlap their predecessors, and the profiler gives each its own
+    duration, so their sum overstates the busy time."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and ev.time_range.end > 0)
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
                     tag: str = "model") -> None:
     """Where one decode step's time goes: device time by kernel name from torch.profiler
-    over `steps` steps (after the counted run). The idle share is taken against step
-    times measured without the profiler, whose hooks inflate the host clock: the same
-    `steps` steps timed just before, and the counted run's mean step (`counted_ms`)."""
+    over `steps` steps (after the counted run); busy is the union of the device
+    intervals (`_device_union_ms`), beside their sum. The idle share is taken against
+    step times measured without the profiler, whose hooks inflate the host clock: the
+    same `steps` steps timed just before, and the counted run's mean step
+    (`counted_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1441,14 +1619,20 @@ def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
         if us > 0:
             rows.append((us / 1e3 / steps, ev.count // steps, ev.key[:60]))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"[{tag}] decode step: device busy {busy:.3f} ms (profiled; before the matvec "
+    summed = sum(r[0] for r in rows)
+    busy = _device_union_ms(prof) / steps
+    log(f"[{tag}] decode step: device busy {busy:.3f} ms (profiled, union of the kernels' "
+        f"intervals; their sum {summed:.3f}; before the prologue "
         f"redesign: {BUSY_BEFORE[tag]:.3f}); step wall without "
         f"the profiler {plain_ms:.2f} ms ({steps} steps) and {counted_ms:.2f} ms (counted "
         f"run), with it {profiled_ms:.2f} ms; idle share {1 - busy / plain_ms:.3f} "
         f"({steps} steps), {1 - busy / counted_ms:.3f} (counted run)")
     for ms, n, key in rows[:8]:
         log(f"[{tag}]   {ms:.4f} ms/step in {n} launches/step: {key}")
+    pro = [r for r in rows if "prologue_kernel" in r[2]]
+    if pro:
+        log(f"[{tag}]   prologue kernels: {sum(r[0] for r in pro):.4f} ms/step in "
+            f"{sum(r[1] for r in pro)} launches/step")
 
 
 # prompt lengths of the serve phase's 8 requests (16-300 tokens, staggered arrivals)

@@ -33,6 +33,20 @@
 //   used), then the first slot, then the row is quantized (each 32-block reduced across
 //   the lanes holding it) or copied, then the other slots: row loads issued behind the
 //   whole ring wait for the megabytes of weights ahead of them in the memory system.
+// - The pre-quantized row comes from the fused prologue (csrc/prologue.cu), the kernel
+//   just ahead in the stream. That entry is launched with programmatic stream
+//   serialization (PDL): its blocks are scheduled as soon as the prologue has started,
+//   issue the first `pre` slots of their weights (never all of a block's slots: a row
+//   load queued behind a block's whole share of weights holds up its dots, as above),
+//   run griddepcontrol.wait (which returns once the prologue's grid has finished and
+//   its writes are visible), and only then load the row (from L2, where the prologue
+//   just wrote it) and issue the rest. So the launch overlaps the prologue, and the
+//   weights stream during whatever of it is left (on an H100 a lone prologue of
+//   1.4-2.2 us has written its row before the blocks reach their row loads).
+//   THE RULE: before griddepcontrol.wait a block reads nothing that another kernel
+//   writes (only the static weights and their scales) and writes no global memory. The
+//   caching allocator reuses freed blocks in stream order, so this kernel's output can
+//   lie in a buffer the prologue (or the kernel before it) is still reading.
 // - Lanes own columns: a row is shared by `gw` warps (one where a slot holds 8 rows),
 //   and lane l of them takes the row's 32-byte chunks l, l + 32·gw, ... (one quant block
 //   of each plane for i4p, one block for i8) of every row it works on. So its part of
@@ -82,11 +96,12 @@ struct Params {
   void* y;             // (n,) f32 or bf16 (out_bf16)
   int n, k, out_bf16;
   int rs, stages, gw;  // rows per slot, slots, warps per row
+  int pre;             // slots issued before griddepcontrol.wait (kPrequantized)
 };
 
 inline Params make_params(const void* x, const void* xq, const void* sx, const void* w,
                           const void* s, void* y, int out_bf16, int n, int k, int rs,
-                          int stages, int gw) {
+                          int stages, int gw, int pre = 0) {
   Params p{};
   p.x = x;
   p.xq = static_cast<const int8_t*>(xq);
@@ -100,6 +115,7 @@ inline Params make_params(const void* x, const void* xq, const void* sx, const v
   p.rs = rs;
   p.stages = stages;
   p.gw = gw;
+  p.pre = pre;
   return p;
 }
 
@@ -135,20 +151,31 @@ __device__ __forceinline__ uint4 ld_nc(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// wait until the grid ahead in the stream has finished and its writes are visible
+// (returns at once when the launch was not programmatic)
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // the row
 // ---------------------------------------------------------------------------
 
 // Round r of a row of `pieces` 16-byte pieces: piece r·kLoads·kThreads + i·kThreads + tid
 // into v[i], every load issued before any is used. Round 0 is loaded before the weight
-// stream starts: behind it, the row's loads would wait for megabytes of weights.
+// stream starts: behind it, the row's loads would wait for megabytes of weights. kCg:
+// load through L2 only (the pre-quantized row, which the prologue writes while this
+// kernel already runs: not read-only for this kernel's lifetime, as ld.global.nc needs).
+template <bool kCg = false>
 __device__ __forceinline__ void load_round(const void* src, int pieces, int r,
                                            uint4 (&v)[kLoads]) {
 #pragma unroll
   for (int i = 0; i < kLoads; ++i) {
     const int pc = (r * kLoads + i) * kThreads + threadIdx.x;
-    v[i] = pc < pieces ? ld_nc(static_cast<const char*>(src) + 16 * static_cast<size_t>(pc))
-                       : make_uint4(0, 0, 0, 0);
+    const char* at = static_cast<const char*>(src) + 16 * static_cast<size_t>(pc);
+    v[i] = pc >= pieces ? make_uint4(0, 0, 0, 0)
+           : kCg        ? __ldcg(reinterpret_cast<const uint4*>(at))
+                        : ld_nc(at);
   }
 }
 
@@ -235,7 +262,7 @@ __device__ void copy_row(const int8_t* xq_in, const float* sx_in, int k,
 #pragma unroll
       for (int i = 0; i < kLoads; ++i) v[i] = v0[i];
     } else {
-      load_round(xq_in, pieces, r, v);
+      load_round<true>(xq_in, pieces, r, v);
     }
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
@@ -254,7 +281,7 @@ __device__ void copy_row(const int8_t* xq_in, const float* sx_in, int k,
     }
   }
   if (threadIdx.x < k / 32) sx[threadIdx.x] = sx0;
-  for (int b = threadIdx.x + kThreads; b < k / 32; b += kThreads) sx[b] = __ldg(sx_in + b);
+  for (int b = threadIdx.x + kThreads; b < k / 32; b += kThreads) sx[b] = __ldcg(sx_in + b);
 }
 
 // The precise row (v0: round 0 of its 16-byte pieces) widened to f32 in shared memory:
@@ -377,7 +404,9 @@ __device__ void run(const Params& p) {
 
   // The row's loads come first: behind the weight stream they would wait for megabytes
   // of weights. Then the first slot, the row's staging, and the other slots, so the
-  // first slot is ahead of the rest in the memory system.
+  // first slot is ahead of the rest in the memory system. The pre-quantized entry
+  // (PDL) first issues `pre` slots of static weights, which need not wait for the
+  // prologue, and loads the row after griddepcontrol.wait (the rule in the header).
   // The lane's part of the row stays in registers for every row it takes: chunks
   // c = gl + m·lanes; the precise row as f32 in natural order, the others as their xq
   // words (in the lane's half order) with the blocks' scales and offsets.
@@ -385,9 +414,15 @@ __device__ void run(const Params& p) {
   uint4 v0[kLoads];
   const void* src = MODE == kPrequantized ? static_cast<const void*>(p.xq) : p.x;
   const int pieces = MODE == kPrequantized ? k / 16 : k / (kXB ? 8 : 4);
-  load_round(src, pieces, 0, v0);
-  const float sx0 = MODE == kPrequantized && tid < nb ? __ldg(p.sx + tid) : 0.f;
-  issue(0);
+  int issued = 0;  // slots issued so far
+  if constexpr (MODE == kPrequantized) {
+    const int pre = max(1, min(p.pre, nst - 1));
+    for (; issued < pre; ++issued) issue(issued);
+    wait_for_predecessor();
+  }
+  load_round<MODE == kPrequantized>(src, pieces, 0, v0);
+  const float sx0 = MODE == kPrequantized && tid < nb ? __ldcg(p.sx + tid) : 0.f;
+  if (issued == 0) issue(issued++);
 
   int8_t* xq = reinterpret_cast<int8_t*>(smem + L.xq);
   float* sx = reinterpret_cast<float*>(smem + L.sx);
@@ -415,7 +450,7 @@ __device__ void run(const Params& p) {
     fence_proxy_async();  // these reads before the copies that refill the slots
     __syncthreads();
   }
-  for (int j = 1; j < min(p.stages, nst); ++j) issue(j);
+  for (; issued < min(p.stages, nst); ++issued) issue(issued);
   __syncthreads();
 
   unsigned xr[MODE == kPrecise ? 1 : CPL][8], xr2[kI4 ? CPL : 1][8];
@@ -542,11 +577,28 @@ cudaError_t configure() {
   return e;
 }
 
-template <auto kKernel>
+// kPdl: launch with programmatic stream serialization (the pre-quantized entry); a
+// launch the card refuses returns its error, never a launch without the attribute
+template <auto kKernel, bool kPdl>
 int launch_one(const Params& p, int smem, int grid, cudaStream_t st) {
   const cudaError_t e = configure<kKernel>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  kKernel<<<grid, kThreads, smem, st>>>(p);
+  if constexpr (kPdl) {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t le = cudaLaunchKernelEx(&cfg, kKernel, p);
+    if (le != cudaSuccess) return static_cast<int>(le);
+  } else {
+    kKernel<<<grid, kThreads, smem, st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,23 +616,25 @@ int fit_one(int smem) {
 // mode 1-2).
 template <int FMT, int MODE, class KS>
 int launch(const Params& p, int grid, cudaStream_t st) {
+  constexpr bool kPdl = MODE == kPrequantized;
   const int smem = layout(FMT, MODE, p.k, p.rs, p.stages, p.gw).total;
   if (smem > kMaxSmem || p.rs < 1 || p.stages < 2 || p.gw < 1 || kWarps % p.gw || grid < 1 ||
+      (MODE == kPrequantized && (p.pre < 1 || p.pre > p.stages)) ||
       (MODE == kPrecise && (p.stages - 1) * layout(FMT, MODE, p.k, p.rs, p.stages, p.gw).stage <
                                4 * p.k))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (MODE == kPrecise) {  // the f32 row in registers: at most 2 chunks
     switch (cpl_of(FMT, p.k, p.gw)) {
-      case 1: return launch_one<KS::template kernel<1>>(p, smem, grid, st);
-      case 2: return launch_one<KS::template kernel<2>>(p, smem, grid, st);
+      case 1: return launch_one<KS::template kernel<1>, kPdl>(p, smem, grid, st);
+      case 2: return launch_one<KS::template kernel<2>, kPdl>(p, smem, grid, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
     switch (cpl_of(FMT, p.k, p.gw)) {
-      case 1: return launch_one<KS::template kernel<1>>(p, smem, grid, st);
-      case 2: return launch_one<KS::template kernel<2>>(p, smem, grid, st);
-      case 3: return launch_one<KS::template kernel<3>>(p, smem, grid, st);
-      case 4: return launch_one<KS::template kernel<4>>(p, smem, grid, st);
+      case 1: return launch_one<KS::template kernel<1>, kPdl>(p, smem, grid, st);
+      case 2: return launch_one<KS::template kernel<2>, kPdl>(p, smem, grid, st);
+      case 3: return launch_one<KS::template kernel<3>, kPdl>(p, smem, grid, st);
+      case 4: return launch_one<KS::template kernel<4>, kPdl>(p, smem, grid, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

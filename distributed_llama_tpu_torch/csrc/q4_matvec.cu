@@ -55,13 +55,15 @@ extern "C" int q4_matvec(const void* x, int x_bf16, const void* wp, const void* 
                       p, grid, st);
 }
 
-// xq: (k,) int8, 16-byte aligned, and sx: (k/32,) f32, the Q80 row; the rest as
-// q4_matvec.
+// xq: (k,) int8, 16-byte aligned, and sx: (k/32,) f32, the Q80 row the fused prologue
+// wrote; the rest as q4_matvec. Launched with programmatic stream serialization: each
+// block issues `pre` (1..stages) slots of weights before griddepcontrol.wait, then
+// loads the row (matvec_stream.cuh); a launch the card refuses returns its error.
 extern "C" int q4_matvec_q80(const void* xq, const void* sx, const void* wp, const void* ws,
                              void* y, int out_bf16, int n, int k, int rs, int stages, int gw,
-                             int grid, void* stream) {
+                             int pre, int grid, void* stream) {
   const mvs::Params p = mvs::make_params(nullptr, xq, sx, wp, ws, y, out_bf16, n, k, rs,
-                                         stages, gw);
+                                         stages, gw, pre);
   return mvs::launch<mvs::kI4p, mvs::kPrequantized, Entry<mvs::kPrequantized, false>>(
       p, grid, static_cast<cudaStream_t>(stream));
 }

@@ -70,13 +70,15 @@ extern "C" int q8_matvec(const void* x, int x_bf16, int precise, const void* w8,
                  : launch_mode<mvs::kQuantize>(p, x_bf16, grid, st);
 }
 
-// xq: (k,) int8, 16-byte aligned, and sx: (k/32,) f32, the Q80 row; the rest as
-// q8_matvec.
+// xq: (k,) int8, 16-byte aligned, and sx: (k/32,) f32, the Q80 row the fused prologue
+// wrote; the rest as q8_matvec. Launched with programmatic stream serialization: each
+// block issues `pre` (1..stages) slots of weights before griddepcontrol.wait, then
+// loads the row (matvec_stream.cuh); a launch the card refuses returns its error.
 extern "C" int q8_matvec_q80(const void* xq, const void* sx, const void* w8, const void* ws,
                              void* y, int out_bf16, int n, int k, int rs, int stages, int gw,
-                             int grid, void* stream) {
+                             int pre, int grid, void* stream) {
   const mvs::Params p = mvs::make_params(nullptr, xq, sx, w8, ws, y, out_bf16, n, k, rs,
-                                         stages, gw);
+                                         stages, gw, pre);
   return mvs::launch<mvs::kI8, mvs::kPrequantized, Entry<mvs::kPrequantized, false>>(
       p, grid, static_cast<cudaStream_t>(stream));
 }

@@ -4,8 +4,10 @@ kernel ("quantize"), a pre-quantized row ("q80") or, for i8, the f32 row ("preci
 
 A block owns a contiguous range of rows; their packed bytes stream through a ring of
 `stages` slots of `rs` whole rows each (one bulk copy per slot), `gw` warps sharing a row
-(`ring`). The grid is one wave of blocks, from the kernel's own occupancy query, and
-rows are split evenly over it: block b takes rows [b·N/G, (b+1)·N/G) (`plan`,
+(`ring`); the pre-quantized entry, launched behind the fused prologue with programmatic
+stream serialization, issues `pre` of those slots before it waits for the prologue.
+The grid is one wave of blocks, from the kernel's own occupancy query, and rows are
+split evenly over it: block b takes rows [b·N/G, (b+1)·N/G) (`plan`,
 `row_ranges`). `layout` gives the block's shared memory as the kernel lays it out.
 """
 
@@ -27,6 +29,11 @@ FORMATS = ("i4p", "i8")
 MODES = ("quantize", "q80", "precise")
 MAX_K = 32768            # the quantized row and its scales (1.25·K bytes) in shared memory
 PRECISE_MAX_K = 12288    # the precise row's f32 chunks fit each lane's registers
+# slots of static weights the pre-quantized entry issues before griddepcontrol.wait (the
+# kernel issues at most all but one of a block's slots, and at least one): 2 ran the
+# Q40 layer chain faster than 1 or the whole ring, and the whole ring held the matvecs
+# alone back (their row's loads queued behind it; PERF.md §6)
+PRE_SLOTS = 2
 
 
 def _up128(b: int) -> int:
@@ -97,6 +104,7 @@ class Ring:
     stages: int  # slots
     smem: int    # shared memory of a block
     cpl: int     # 32-byte chunks of a row per lane, at most (matvec_stream.cuh cpl_of)
+    pre: int     # slots issued before the wait for the prologue (q80; 0 otherwise)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -106,7 +114,8 @@ def ring(k: int, fmt: str, mode: str) -> Ring:
     and leave each lane at most 4 chunks of the row (2 for the precise mode's f32 row:
     its registers); as many rows per warp group as make SLOT_MIN bytes; at least
     MIN_STAGES slots, as many as make RING_BYTES, and for the precise mode enough for
-    the f32 row to pass through all slots but the first."""
+    the f32 row to pass through all slots but the first; for the q80 mode PRE_SLOTS of
+    them issued before the wait for the prologue."""
     check(k, fmt, mode)
     rb = row_bytes(k, fmt)
     top = 2 if mode == "precise" else 4  # chunks per lane
@@ -118,7 +127,8 @@ def ring(k: int, fmt: str, mode: str) -> Ring:
     if mode == "precise":
         stages = max(stages, 1 + -(-4 * k // _up128(rs * rb)))
     cpl = -(-(rb // 32) // (32 * gw))
-    return Ring(gw, rs, stages, layout(k, fmt, mode, rs, stages, gw).total, cpl)
+    pre = min(PRE_SLOTS, stages) if mode == "q80" else 0
+    return Ring(gw, rs, stages, layout(k, fmt, mode, rs, stages, gw).total, cpl, pre)
 
 
 @dataclass(frozen=True)

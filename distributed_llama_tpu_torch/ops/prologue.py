@@ -6,17 +6,20 @@ the Q80 quantization of one activation row in one pass, feeding `qmatmul_q80`.
 
 Replaces distributed_llama_tpu/ops/pallas_prologue.py `_rmsnorm_q80` and `_quantize`.
 The CUDA kernel is csrc/prologue.cu, one source with a flag for the norm; its header
-says what bounds it on an H100 (launch latency) and which rounding rules keep it
-bit-exact.
+says what bounds it on an H100 (latency), how one read of the row and a programmatic
+dependent launch answer that, and which rounding rules keep it bit-exact.
+ops/prologue_plan.py gives each launch its shape (threads, pieces a thread, CTAs).
 
 Numerics: the norm runs in f32 as the port's ops/kernels.py rmsnorm does on an f32 row
 (mean of squares, eps inside, reciprocal of the square root, (x·inv)·w); the quantize
 step is `quantize_row`. The kernel's quantize step gives the plain version's bits; its
-sum of squares runs in another order than torch.mean, so rmsnorm_q80 may move an xq
-value that sits within an ulp of a rounding tie by one.
+sum of squares runs in another (fixed) order than torch.mean, so rmsnorm_q80 may move an
+xq value that sits within an ulp of a rounding tie by one.
 
 The entries take the plain version for CPU tensors and launch the kernel for CUDA
-tensors; `rmsnorm_launches` and `quantize_launches` count each entry's launches.
+tensors, with programmatic stream serialization: the pre-quantized matvec behind it
+is launched while it runs. `rmsnorm_launches` and
+`quantize_launches` count each entry's launches.
 """
 
 from __future__ import annotations
@@ -24,21 +27,20 @@ from __future__ import annotations
 import torch
 
 from ..quants import QK
-from . import cuda_build
+from . import cuda_build, prologue_plan
 from .kernels import rmsnorm
-from .q4_matvec import quantize_row
+from .q4_matvec import aligned, quantize_row
 
 rmsnorm_launches = 0
 quantize_launches = 0
 
-_MAX_K = 1 << 16
 _P, _I, _F = cuda_build.P, cuda_build.I, cuda_build.F
-_SIGNATURES = {"prologue_q80": [_P, _I, _P, _F, _I, _P, _P, _I, _P]}
+_SIGNATURES = {"prologue_q80": [_P, _I, _P, _F, _I, _P, _P] + [_I] * 4 + [_P]}
 
 
 def prologue_supported(k: int) -> bool:
     """Whole 32-blocks and a row of at most 64k elements (the JAX package's gate)."""
-    return k % QK == 0 and k <= _MAX_K
+    return k % QK == 0 and k <= prologue_plan.MAX_K
 
 
 def rmsnorm_q80_plain(x_row: torch.Tensor, w: torch.Tensor,
@@ -61,19 +63,20 @@ def _launch(x_row: torch.Tensor, w: torch.Tensor | None,
         raise TypeError(f"prologue kernel takes f32 or bf16 activations, got {x_row.dtype}")
     if not prologue_supported(k):
         raise ValueError(f"prologue kernel cannot take K={k}")
-    x_row = x_row.contiguous()
+    x_row = aligned(x_row)
     if w is not None:
         if w.shape != (k,) or w.device != x_row.device:
             raise ValueError(f"rmsnorm_q80: weight {tuple(w.shape)} on {w.device} against "
                              f"a row of {k} on {x_row.device}")
-        w = w.float().contiguous()
+        w = aligned(w.float())
+    xb = x_row.dtype == torch.bfloat16
+    p = prologue_plan.plan(k, xb, w is not None)
     xq = torch.empty(k, dtype=torch.int8, device=x_row.device)
     sx = torch.empty(k // QK, dtype=torch.float32, device=x_row.device)
     lib = cuda_build.load("prologue", _SIGNATURES)
-    rc = lib.prologue_q80(x_row.data_ptr(), int(x_row.dtype == torch.bfloat16),
-                          None if w is None else w.data_ptr(), float(eps),
-                          int(w is not None), xq.data_ptr(), sx.data_ptr(), k,
-                          cuda_build.stream_of(x_row))
+    rc = lib.prologue_q80(x_row.data_ptr(), int(xb), None if w is None else w.data_ptr(),
+                          float(eps), int(w is not None), xq.data_ptr(), sx.data_ptr(), k,
+                          p.threads, p.per_thread, p.ctas, cuda_build.stream_of(x_row))
     cuda_build.check(rc, "rmsnorm_q80" if w is not None else "quantize_q80")
     if w is not None:
         rmsnorm_launches += 1

@@ -36,7 +36,7 @@ q80_launches = 0
 MAX_K = mv_plan.MAX_K
 _P, _I = cuda_build.P, cuda_build.I
 _SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
-               "q4_matvec_q80": [_P] * 5 + [_I] * 7 + [_P],
+               "q4_matvec_q80": [_P] * 5 + [_I] * 8 + [_P],
                "q4_matvec_blocks_per_sm": [_I] * 6}
 # output dtypes the kernel writes (out_bf16)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -149,7 +149,8 @@ def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
     r = p.ring
     rc = lib.q4_matvec_q80(xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
                            scales.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16),
-                           n, k, r.rs, r.stages, r.gw, p.grid, cuda_build.stream_of(xq))
+                           n, k, r.rs, r.stages, r.gw, r.pre, p.grid,
+                           cuda_build.stream_of(xq))
     cuda_build.check(rc, "q4_matvec_q80")
     q80_launches += 1
     return y

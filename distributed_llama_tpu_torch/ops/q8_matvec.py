@@ -42,7 +42,7 @@ MAX_K = mv_plan.MAX_K
 _PRECISE_MAX_K = mv_plan.PRECISE_MAX_K
 _P, _I = cuda_build.P, cuda_build.I
 _SIGNATURES = {"q8_matvec": [_P, _I, _I, _P, _P, _P] + [_I] * 7 + [_P],
-               "q8_matvec_q80": [_P] * 5 + [_I] * 7 + [_P],
+               "q8_matvec_q80": [_P] * 5 + [_I] * 8 + [_P],
                "q8_matvec_blocks_per_sm": [_I] * 6}
 
 
@@ -145,7 +145,7 @@ def _launch_q80(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
     r = p.ring
     rc = lib.q8_matvec_q80(xq.data_ptr(), sx.data_ptr(), w8.data_ptr(), scales.data_ptr(),
                            y.data_ptr(), int(out_dtype == torch.bfloat16), n, k, r.rs,
-                           r.stages, r.gw, p.grid, cuda_build.stream_of(xq))
+                           r.stages, r.gw, r.pre, p.grid, cuda_build.stream_of(xq))
     cuda_build.check(rc, "q8_matvec_q80")
     q80_launches += 1
     return y

@@ -27,6 +27,7 @@ from distributed_llama_tpu_torch.models.params import init_random_params
 from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
 from distributed_llama_tpu_torch.ops import attention_plan
 from distributed_llama_tpu_torch.ops import decode_attention as da
+from distributed_llama_tpu_torch.ops import mv_plan, prologue_plan
 from distributed_llama_tpu_torch.ops import paged_attention as pa
 from distributed_llama_tpu_torch.ops import prologue as pro
 from distributed_llama_tpu_torch.ops import q4_gated_matmul as gm
@@ -197,26 +198,267 @@ def test_matvec_entries_are_one_launch_and_replay(cuda, entry):
         chip_smoke._bf16_err(out, plain(), 1e-4)
 
 
+def _cluster_threshold(x_bf16: bool) -> int:
+    """The shortest row rmsnorm_q80 splits over a cluster of CTAs."""
+    return next(k for k in range(32, prologue_plan.MAX_K + 1, 32)
+                if prologue_plan.plan(k, x_bf16, True).ctas > 1)
+
+
+# the path's rows, the largest, and each dtype's cluster threshold and the rows beside it
+PROLOGUE_K = sorted({32, 64, 4096, 11008, 14336, 65536} | {
+    t + d for t in (_cluster_threshold(False), _cluster_threshold(True)) for d in (-32, 0, 32)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [64, 4096, 11008])
+@pytest.mark.parametrize("k", PROLOGUE_K)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prologue_kernels_match_plain(cuda, k, dtype):
+    """quantize_q80 bit for bit; rmsnorm_q80 at most 4 xq values one step off over 4 rows
+    and sx within rtol 1e-6; both repeat bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(k)
-    x = (3.0 * torch.randn(k, generator=g, device=cuda)).to(dtype)
-    x[32:64] = 0.0
     w = 1.0 + 0.1 * torch.randn(k, generator=g, device=cuda)
-    before = (pro.rmsnorm_launches, pro.quantize_launches)
-    xq, sx = pro._launch(x, None, 0.0)
-    rq, rs = pro._launch(x, w, 1e-5)
+    flips = 0
+    for row in range(4):
+        x = (3.0 * torch.randn(k, generator=g, device=cuda)).to(dtype)
+        if k >= 64:
+            x[32:64] = 0.0
+        before = (pro.rmsnorm_launches, pro.quantize_launches)
+        xq, sx = pro._launch(x, None, 0.0)
+        rq, rs = pro._launch(x, w, 1e-5)
+        torch.cuda.synchronize()
+        assert (pro.rmsnorm_launches, pro.quantize_launches) == (before[0] + 1, before[1] + 1)
+        wq, ws = pro.quantize_q80_plain(x)
+        assert torch.equal(xq, wq) and torch.equal(sx, ws)
+        if k >= 64:
+            assert sx[1] == 0.0 and (xq[32:64] == 0).all()
+        pq, ps = pro.rmsnorm_q80_plain(x, w, 1e-5)
+        diff = (rq.int() - pq.int()).abs()
+        assert diff.max() <= 1
+        flips += int((diff > 0).sum())
+        torch.testing.assert_close(rs, ps, rtol=1e-6, atol=0)
+        again = pro._launch(x, w, 1e-5)
+        assert torch.equal(again[0], rq) and torch.equal(again[1], rs)
+    assert flips <= 4
+
+
+def _chain_weights(layout, n, k, dev, seed):
+    return _i8_planes(n, k, dev, seed) if layout == "i8" else _planes(n, k, dev, seed)
+
+
+def _chain_launch(layout):
+    return q8._launch_q80 if layout == "i8" else mv._launch_q80
+
+
+def _pdl_pairs(launch, bases, nw, w, ahead):
+    """Each row of `bases` through the prologue and the pre-quantized matvec behind it,
+    the row's copy freed between the two launches so that the matvec's output (as many
+    bytes) takes its block. ahead None: the card synchronized between the launches.
+    ahead m >= 0: the pair queued behind a spin kernel, so the card runs it back to
+    back, and behind m prologues of a 64k row. Those trigger their dependents at entry
+    and wait for their predecessor, so with m > 0 the pair's prologue is launched
+    while they run and waits for them, and the matvec, launched once the prologue has
+    started, has its blocks resident before the prologue reads x or writes xq.
+    Returns (xq, sx, y, whether y took the freed block) per row."""
+    import chip_smoke
+
+    junk = torch.randn(1 << 16, device=bases[0].device)
+    out = []
+    for base in bases:
+        torch.cuda.synchronize()
+        if ahead is not None:
+            torch.cuda._sleep(int(0.02 * chip_smoke.SPIN_HZ))
+        x = base.clone()
+        ptr = x.data_ptr()
+        held = [pro._launch(junk, None, 0.0) for _ in range(ahead or 0)]
+        xq, sx = pro._launch(x, nw, 1e-5)
+        del x  # back to the allocator while the prologue may still read it
+        if ahead is None:
+            torch.cuda.synchronize()
+        y = launch(xq, sx, *w, torch.bfloat16)
+        if ahead is not None:
+            end = torch.cuda.Event()
+            end.record()
+            assert not end.query(), "the spin ended before the pair was queued"
+        torch.cuda.synchronize()
+        del held
+        out.append((xq, sx, y, y.data_ptr() == ptr))
+    return out
+
+
+def _pdl_case(layout, norm, dev):
+    n = k = 4096  # y (N bf16) has the bytes of x (K bf16)
+    g = torch.Generator(device=dev).manual_seed(31)
+    w = _chain_weights(layout, n, k, dev, seed=5)
+    nw = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev) if norm else None
+    bases = [(3.0 * torch.randn(k, generator=g, device=dev)).to(torch.bfloat16)
+             for _ in range(4)]
+    return _chain_launch(layout), bases, nw, w
+
+
+def _pdl_differs(layout, norm, dev, ahead, rounds):
+    """Pairs over `rounds` runs of _pdl_pairs(ahead) whose xq, sx or y differ from the
+    synchronized run's (kept alive, so no queued xq takes a block holding its row's
+    bits); every y must take the freed block."""
+    launch, bases, nw, w = _pdl_case(layout, norm, dev)
+    torch.cuda.empty_cache()
+    want = _pdl_pairs(launch, bases, nw, w, None)
+    differ = 0
+    for _ in range(rounds):
+        for got, ref in zip(_pdl_pairs(launch, bases, nw, w, ahead), want):
+            assert got[3], "the matvec's output did not take the freed input's block"
+            differ += not all(torch.equal(a, b) for a, b in zip(got[:3], ref[:3]))
+    return differ, want, bases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["i4p", "i8"])
+@pytest.mark.parametrize("norm", [True, False])
+def test_prologue_pdl_chain_matches_synchronized(cuda, layout, norm):
+    """The prologue and the pre-quantized matvec behind it, each launched with
+    programmatic stream serialization, give the xq, sx and y of the same calls with
+    torch.cuda.synchronize() between them: queued back to back, and queued behind
+    prologues that hold the pair's prologue at its wait while the matvec's blocks are
+    resident. The prologue's input is freed before the matvec allocates its output of
+    the same size, so the matvec's output lies in the block the prologue may still be
+    reading: a write before the matvec's wait would corrupt xq, and a read of the row
+    before it would take a stale one (test_pdl_check_catches_a_broken_wait)."""
+    for ahead in (0, 16):
+        differ, want, bases = _pdl_differs(layout, norm, cuda, ahead, rounds=2)
+        assert differ == 0, f"{differ} pairs differ, {ahead} prologues ahead"
+    if not norm:
+        for (xq, sx, _, _), base in zip(want, bases):
+            plain = pro.quantize_q80_plain(base)
+            assert torch.equal(xq, plain[0]) and torch.equal(sx, plain[1])
+
+
+# Deliberately broken pre-quantized matvecs: one edit of csrc/matvec_stream.cuh each
+_WAIT = "    wait_for_predecessor();\n  }\n"
+_ROW = ("  load_round<MODE == kPrequantized>(src, pieces, 0, v0);\n"
+        "  const float sx0 = MODE == kPrequantized && tid < nb ? __ldcg(p.sx + tid) : 0.f;\n")
+_FIRST_SLOTS = "    for (; issued < pre; ++issued) issue(issued);\n"
+_BROKEN = {
+    # the row's loads ahead of griddepcontrol.wait
+    "read_before_wait": (_WAIT + _ROW, "  }\n" + _ROW
+                         + "  if constexpr (MODE == kPrequantized) wait_for_predecessor();\n"),
+    # the output zeroed ahead of griddepcontrol.wait
+    "write_before_wait": (_FIRST_SLOTS, "    for (int i = blockIdx.x * kThreads + tid; "
+                          "i < p.n * (p.out_bf16 ? 2 : 4); i += gridDim.x * kThreads)\n"
+                          "      static_cast<unsigned char*>(p.y)[i] = 0;\n" + _FIRST_SLOTS),
+}
+
+
+@pytest.fixture(scope="module")
+def broken_matvecs(tmp_path_factory):
+    """{(edit, layout): the matvec library built from csrc/ with that edit of
+    _BROKEN}, one nvcc per library, all started together."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    jobs = {}
+    for edit, (old, new) in _BROKEN.items():
+        src = tmp_path_factory.mktemp(edit)
+        shutil.copytree(cuda_build.CSRC_DIR, src, dirs_exist_ok=True)
+        header = src / "matvec_stream.cuh"
+        text = header.read_text()
+        assert text.count(old) == 1, f"{edit}: the edit's anchor moved"
+        header.write_text(text.replace(old, new))
+        for layout, name in (("i4p", "q4_matvec"), ("i8", "q8_matvec")):
+            lib = src / f"{name}.so"
+            jobs[(edit, layout)] = (lib, name, subprocess.Popen(
+                [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+                 str(src / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for key, (path, name, proc) in jobs.items():
+        log = proc.communicate()[0].decode()
+        assert proc.returncode == 0, log
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in (q8 if name == "q8_matvec" else mv)._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[key] = (name, lib)
+    return libs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edit", sorted(_BROKEN))
+@pytest.mark.parametrize("layout", ["i4p", "i8"])
+def test_pdl_check_catches_a_broken_wait(cuda, broken_matvecs, monkeypatch, layout, edit):
+    """The check of test_prologue_pdl_chain_matches_synchronized fails on a matvec that
+    reads its row, or writes its output, before griddepcontrol.wait: with prologues
+    ahead of the pair, at least one pair differs from the synchronized calls. (Printed
+    beside it: the pairs that differ queued with none ahead.)"""
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    name, lib = broken_matvecs[(edit, layout)]
+    monkeypatch.setitem(cuda_build._loaded, name, lib)
+    differ = {ahead: _pdl_differs(layout, True, cuda, ahead, rounds=3)[0]
+              for ahead in (0, 16)}
+    print(f"{edit} {layout}: of 12 pairs, {differ[0]} differ queued with no prologue "
+          f"ahead, {differ[16]} with 16 ahead")
+    assert differ[16] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["i4p", "i8"])
+def test_prologue_chain_replays_from_cuda_graph(cuda, layout):
+    """A layer's four prologue -> pre-quantized matvec pairs (rmsnorm before the QKV and
+    gate/up projections, quantize before wo and w2), each launched with programmatic
+    stream serialization, captured in a CUDA graph: the replay bit-identical to the
+    eager chain, also after the rows are overwritten in place."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    pairs = [(True, 768, 256), (False, 256, 256), (True, 1024, 256), (False, 256, 512)]
+    ws = [_chain_weights(layout, n, k, cuda, seed=n + k) for _, n, k in pairs]
+    rows = [(3.0 * torch.randn(k, generator=g, device=cuda)).to(torch.bfloat16)
+            for _, _, k in pairs]
+    nws = [1.0 + 0.1 * torch.randn(k, generator=g, device=cuda) if norm else None
+           for norm, _, k in pairs]
+    launch = _chain_launch(layout)
+
+    def chain():
+        return [launch(*pro._launch(x, nw, 1e-5), *w, torch.bfloat16)
+                for x, nw, w in zip(rows, nws, ws)]
+
+    chain()
     torch.cuda.synchronize()
-    assert (pro.rmsnorm_launches, pro.quantize_launches) == (before[0] + 1, before[1] + 1)
-    wq, ws = pro.quantize_q80_plain(x)
-    assert torch.equal(xq, wq) and torch.equal(sx, ws)
-    assert sx[1] == 0.0 and (xq[32:64] == 0).all()
-    pq, ps = pro.rmsnorm_q80_plain(x, w, 1e-5)
-    diff = (rq.int() - pq.int()).abs()
-    assert diff.max() <= 1 and int((diff > 0).sum()) <= 4
-    torch.testing.assert_close(rs, ps, rtol=1e-6, atol=0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chain()
+    for seed in (7, 8):
+        g2 = torch.Generator(device=cuda).manual_seed(seed)
+        for x in rows:
+            x.copy_(3.0 * torch.randn(x.shape[0], generator=g2, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, chain()))
+
+
+@pytest.mark.cuda
+def test_refused_prologue_and_pdl_launches_raise(cuda, monkeypatch):
+    """A launch shape the prologue is not built for, and a pre-quantized matvec asked to
+    issue no slot before its wait, are refused by the kernels' hosts: the wrappers raise
+    and nothing runs in their place."""
+    x = torch.randn(4096, device=cuda)
+    monkeypatch.setattr(prologue_plan, "plan",
+                        lambda k, xb, norm: prologue_plan.Plan(1024, 8, 1, False))
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        pro._launch(x, None, 0.0)
+    monkeypatch.undo()
+    xq, sx = pro._launch(x, None, 0.0)
+    monkeypatch.setattr(mv_plan, "PRE_SLOTS", 0)
+    mv_plan.ring.cache_clear()
+    mv_plan.plan.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            mv._launch_q80(xq, sx, *_planes(256, 4096, cuda, seed=1))
+    finally:
+        monkeypatch.undo()
+        mv_plan.ring.cache_clear()
+        mv_plan.plan.cache_clear()
 
 
 @pytest.mark.cuda

@@ -76,6 +76,8 @@ def test_ring_and_row_fit_shared_memory(n, k, fmt, mode):
     # registers; 2 for the precise mode's f32 row)
     assert 1 <= r.cpl <= (2 if mode == "precise" else 4)
     assert r.cpl * 32 * r.gw >= rb // 32 > (r.cpl - 1) * 32 * r.gw
+    # the pre-quantized entry issues 1..stages slots before its wait for the prologue
+    assert (1 <= r.pre <= r.stages) if mode == "q80" else r.pre == 0
 
 
 @pytest.mark.parametrize("n,k,fmt,mode", CASES)

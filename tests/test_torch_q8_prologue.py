@@ -45,6 +45,7 @@ from distributed_llama_tpu_torch.models.spec import ArchType as TArch
 from distributed_llama_tpu_torch.models.spec import ModelSpec as TSpec
 from distributed_llama_tpu_torch.ops import matmul as tmatmul
 from distributed_llama_tpu_torch.ops import prologue as tpro
+from distributed_llama_tpu_torch.ops import prologue_plan as tplan
 from distributed_llama_tpu_torch.ops import q4_matvec as tmv
 from distributed_llama_tpu_torch.ops import q8_matvec as tq8
 from distributed_llama_tpu_torch.ops.rope import RopeTables as TRope
@@ -172,8 +173,16 @@ def test_q80_matvecs_plain_match_inline_pallas(layout):
     _close_scaled(got.numpy(), np.asarray(want)[:, 0])
 
 
+def _cluster_threshold(x_bf16):
+    """The shortest row the port's rmsnorm_q80 kernel splits over a cluster of CTAs."""
+    return next(k for k in range(32, tplan.MAX_K + 1, 32)
+                if tplan.plan(k, x_bf16, True).ctas > 1)
+
+
+# one block, small rows, and the rows beside each dtype's cluster threshold
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
-@pytest.mark.parametrize("k", [64, 256, 352])
+@pytest.mark.parametrize("k", [32, 64, 256, 352] + [
+    _cluster_threshold(xb) + d for xb in (False, True) for d in (-32, 32)])
 def test_prologue_plain_matches_pallas(k, dtype):
     x = _row(k, seed=k) * 3.0
     w = (1.0 + 0.1 * np.random.RandomState(k + 1).randn(k)).astype(np.float32)
@@ -189,7 +198,8 @@ def test_prologue_plain_matches_pallas(k, dtype):
         assert got[0].shape == (1, k) and got[1].shape == (1, k // 32)
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
         np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6, atol=0)
-        assert got[1][0, 1] == 0.0 and (got[0][0, 32:64] == 0).all()  # the zero block
+        if k >= 64:  # the zero block
+            assert got[1][0, 1] == 0.0 and (got[0][0, 32:64] == 0).all()
     assert (tpro.rmsnorm_launches, tpro.quantize_launches) == before
     assert tpro.prologue_supported(k) and not tpro.prologue_supported(k + 16)
 
