@@ -13,18 +13,22 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             BatchEngine on 4 staggered requests (identical greedy tokens, logits step by
             step within tolerance)
   model     Engine at full Llama-2-7B (32 layers, random Q40 weights drawn on the card in
-            i4p layout, bf16, prefill_kernel): a 100-token prompt (chunks 64, 8, 1) and
-            64 greedy tokens, with every kernel's launch count over that run; then the
-            same weights with the fused prologue, 32 greedy tokens
-  q80       Engine at full Llama-2-7B on random Q80 weights drawn on the card in the i8
-            layout: (a) the default engine, a 100-token prompt and 64 greedy tokens;
-            (b) the fused prologue, the same; launch counts against the schedule, ms per
-            token, the device-busy and idle share of 8 profiled steps, peak memory
+            i4p layout, bf16, prefill_kernel), each one-token step a CUDA graph replay: a
+            100-token prompt (chunks 64, 8, 1) and 64 greedy tokens, every kernel's
+            launches over that run (graph replays x each graph's launches) against the
+            schedule; the eager step (cuda_graph=False) beside it, 16 steps' logits
+            bit-identical; the device loop (generate_chunked, chunks of 16) with the host
+            loop's greedy tokens; ms/token and idle share of eager, graph and loop. Then
+            the same with the fused prologue, 32 greedy tokens, and the count of
+            programmatic (PDL) edges in the step's graph
+  q80       the same on random Q80 weights drawn on the card in the i8 layout: (a) the
+            default engine, (b) the fused prologue, 64 greedy tokens each
   serve     BatchEngine at full Llama-2-7B (8 slots, fused_matmul, paged KV of 1033
             blocks of 16 tokens): 8 staggered requests of 16-300 prompt tokens and 48
-            greedy tokens each; launch counts against the schedule, tokens/s, ms per
-            batched decode step, time to first token, peak memory, the pool drained,
-            and the device-busy share of 8 profiled decode steps
+            greedy tokens each, run at superstep 1 and at superstep 8 pipelined (each
+            step a graph replay), the tokens identical; launch counts against the
+            schedule, tokens/s, time to first token, peak memory, the pool drained, and
+            the device-busy share of the decode step
   http      the port's api_server serve() on the same 7B engine with a synthetic
             32000-piece tokenizer: 4 concurrent chat completions (one SSE) over HTTP
   kernels   each kernel against its plain torch version on the card at the main paths'
@@ -49,7 +53,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
 When the model, q80, serve and kernels phases all ran, it prints before the last line
 {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces, launches in
 its path's run — `path` names the run: the model phase and its prologue run, the q80
-phase's runs (a) and (b), the serve phase; the precise mode of q8_matvec has no path and
+phase's runs (a) and (b), the serve phase's superstep-8 run; the precise mode of
+q8_matvec has no path and
 reports its launches in the kernels phase — max_abs_err, ms, plain_ms, bound_ms,
 bound_by, library_ms). The last line is {"ok": true, "device": {...}}. Exits nonzero
 without printing a result when no CUDA device is available.
@@ -84,8 +89,9 @@ KERNELS = {
     "q4_matvec": ("q4_matvec", _TPU + "pallas_q4.py:142", "model"),
     "q4_matvec_q80": ("q4_matvec", _TPU + "pallas_q4.py:168", "model, prologue run"),
     "q4_matmul": ("q4_matmul", _TPU + "pallas_q4_mm.py:200", "model"),
-    "q4_matmul_res": ("q4_matmul", _TPU + "pallas_q4_mm.py:220", "serve"),
-    "q4_gated_matmul": ("q4_gated_matmul", _TPU + "pallas_q4_mm.py:246", "serve"),
+    "q4_matmul_res": ("q4_matmul", _TPU + "pallas_q4_mm.py:220", "serve, superstep 8"),
+    "q4_gated_matmul": ("q4_gated_matmul", _TPU + "pallas_q4_mm.py:246",
+                        "serve, superstep 8"),
     "q8_matvec": ("q8_matvec", _TPU + "pallas_q8.py:107", "q80, run (a)"),
     "q8_matvec_precise": ("q8_matvec", _TPU + "pallas_q8.py:107",
                           "kernels phase (the precise body, _matvec_kernel_f32 at "
@@ -93,7 +99,7 @@ KERNELS = {
     "q8_matvec_q80": ("q8_matvec", _TPU + "pallas_q8.py:132", "q80, run (b)"),
     "decode_attention": ("decode_attention", _TPU + "pallas_attention.py:191", "model"),
     "paged_attention": ("paged_attention", _TPU + "pallas_paged_attention.py:176",
-                        "serve"),
+                        "serve, superstep 8"),
     "rmsnorm_q80": ("prologue", _TPU + "pallas_prologue.py:78", "q80, run (b)"),
     "quantize_q80": ("prologue", _TPU + "pallas_prologue.py:98", "q80, run (b)"),
 }
@@ -199,16 +205,49 @@ def graph_launches(fn, name: str) -> tuple[int, int]:
     graph.enable_debug_mode()
     with torch.cuda.graph(graph):
         fn(0)
+    dot = _graph_dot(graph)
+    graph.reset()
+    nodes = _dot_nodes(dot)
+    return sum(name in n for n in nodes), len(nodes)
+
+
+def _dot_nodes(dot: str) -> list[str]:
+    """The node records of a CUDA graph's DOT dump (cudaGraphDebugDotPrint): a kernel
+    node's record names its function."""
+    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', dot)[1:]
+    if not nodes:
+        raise AssertionError(f"no nodes in the CUDA graph's dump: {dot[:400]!r}")
+    return nodes
+
+
+def _graph_dot(graph) -> str:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "graph.dot")
         graph.debug_dump(path)
         with open(path) as f:
-            dot = f.read()
-    graph.reset()
-    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', dot)[1:]
-    if not nodes:
-        raise AssertionError(f"no nodes in the CUDA graph's dump: {dot[:400]!r}")
-    return sum(name in n for n in nodes), len(nodes)
+            return f.read()
+
+
+def programmatic_edges(graph) -> tuple[int, int]:
+    """(programmatic, all) dependency edges of a kept CUDA graph, read through the
+    libcuda's cuGraphGetEdges_v2: an edge of type CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC
+    lets its consumer launch before its producer ends (PDL kept by the capture)."""
+    import ctypes
+
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    rc = fn(raw, None, None, None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetEdges_v2 (count) returned {rc}")
+    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    data = (ctypes.c_uint8 * (8 * n.value))()  # CUgraphEdgeData: ports, type, reserved
+    rc = fn(raw, src, dst, data, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetEdges_v2 returned {rc}")
+    return bytes(data)[2::8].count(1), n.value
 
 
 def queued_ms(fn, iters: int, warmup: int = 3) -> tuple[float, bool]:
@@ -1345,7 +1384,9 @@ def engine_parity(spec, params, crossing_tol: bool = False, **kw) -> str:
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
     kw = dict(dtype=torch.float32, use_kernels=True, **kw)
-    gpu = Engine(spec, params_to(params, "cuda"), device="cuda", **kw)
+    # eager steps: _Crossings copies each row to the host, which a graph capture cannot
+    # hold (the model and q80 phases hold the replay to the eager step bit for bit)
+    gpu = Engine(spec, params_to(params, "cuda"), device="cuda", cuda_graph=False, **kw)
     cpu = Engine(spec, params, device="cpu", **kw)
     prompt = [1] + [int(t) for t in np.random.RandomState(3).randint(3, 32000, 8)]
     rec = _Crossings()
@@ -1407,75 +1448,173 @@ def phase_parity(state: dict) -> None:
 
 
 def phase_model(state: dict) -> None:
-    from distributed_llama_tpu_torch.runtime.engine import Engine
-
     spec = _llama2_7b()
-    dev = torch.device("cuda")
-    eng = Engine(spec, _random_i4p_params(spec, dev, seed=11), device="cuda",
-                 prefill_kernel=True, fused_prologue=False)
-    assert eng.dtype == torch.bfloat16 and eng.use_kernels == "all"
-    prompt = [1] + torch.randint(3, spec.vocab_size, (99,),
-                                 generator=torch.Generator().manual_seed(5)).tolist()
-    eng.generate(prompt[:9], 2, _CheckedSampler(spec.vocab_size))  # warm-up
-    eng.reset()
-    torch.cuda.synchronize()
-    counters = _single_counters()
-    _zero(counters)
-    sampler = _CheckedSampler(spec.vocab_size)
-    out, stats = eng.generate(prompt, 64, sampler)
-    launches = _read(counters)
-    # T=1 steps: the 4 one-token prefill chunks + 64 decode steps; M>1 chunks: 64, 8 x4
-    t1_steps, mm_chunks = 4 + 64, 5
+    params = _random_i4p_params(spec, torch.device("cuda"), seed=11)
     per_step = 4 * spec.n_layers + 1
-    want = {name: 0 for name in counters} | {
-        "q4_matvec": t1_steps * per_step, "q4_matmul": mm_chunks * per_step,
-        "decode_attention": t1_steps * spec.n_layers}
+    # T=1 steps (the 4 one-token prefill chunks and the decode steps) replay the step's
+    # graph; the M > 1 chunks (64, 8 x4) run q4_matmul eagerly
+    launches = _decode_path(state, "model", spec, params, 64,
+                            dict(prefill_kernel=True, fused_prologue=False),
+                            {"q4_matvec": per_step, "decode_attention": spec.n_layers},
+                            {"q4_matmul": per_step})
     for name in ("q4_matvec", "q4_matmul", "decode_attention"):
         state["launches"][name] = launches[name]
-    if launches != want or len(out) != 64 or sampler.rows != 64:
-        raise AssertionError(f"model run: launches {launches} (want {want}), "
-                             f"{len(out)} tokens, {sampler.rows} logits rows")
-    log(f"[model] Llama-2-7B Q40 bf16 (32 layers, random weights): prefill "
-        f"{stats.prompt_tokens} tokens {stats.prefill_ms:.1f} ms, decode "
-        f"{stats.avg_infer_ms:.2f} ms/token (step), {stats.tokens_per_second:.2f} tok/s; "
-        f"weights {eng.decode_weight_bytes / 1e9:.3f} GB/token -> "
-        f"{eng.decode_weight_bytes / (stats.avg_infer_ms * 1e-3) / 1e9:.0f} GB/s; "
-        f"floor {eng.decode_weight_bytes / state['rate'] * 1e3:.3f} ms/token at the "
-        f"data-sheet rate")
-    log(f"[model] launches in the run: {json.dumps(launches)}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    _profile_decode(eng, out[-1], stats.avg_infer_ms)
-    params = eng.params
-    del eng
+    # the fused prologue on the same weights: rmsnorm_q80 and quantize_q80 twice per
+    # layer and the pre-quantized matvec on the four projections; the logits keep the
+    # float entry
+    launches = _decode_path(state, "model, prologue", spec, params, 32,
+                            dict(prefill_kernel=True, fused_prologue=True),
+                            {"q4_matvec": 1, "q4_matvec_q80": 4 * spec.n_layers,
+                             "decode_attention": spec.n_layers,
+                             "rmsnorm_q80": 2 * spec.n_layers,
+                             "quantize_q80": 2 * spec.n_layers},
+                            {"q4_matmul": per_step})
+    state["launches"]["q4_matvec_q80"] = launches["q4_matvec_q80"]
+    del params
     torch.cuda.empty_cache()
 
-    # the fused prologue on the same (already packed) weights: every T=1 step runs
-    # rmsnorm_q80 and quantize_q80 twice per layer and the pre-quantized matvec on the
-    # four projections; the logits keep the float entry
-    eng = Engine(spec, params, device="cuda", prefill_kernel=True, fused_prologue=True)
-    eng.generate(prompt[:9], 2, _CheckedSampler(spec.vocab_size))  # warm-up
+
+def _prompt_100(spec) -> list[int]:
+    return [1] + torch.randint(3, spec.vocab_size, (99,),
+                               generator=torch.Generator().manual_seed(5)).tolist()
+
+
+def host_loop_tokens(eng, prompt: list[int], n: int, sampler=None) -> list[int]:
+    """The host loop's greedy tokens after the device loop's prefill (the prompt but
+    its last token in chunks, the last token as a one-token step), from position 0."""
+    from distributed_llama_tpu_torch.runtime.engine import GenerationStats
+
+    eng.reset()
+    if len(prompt) > 1:
+        eng.prefill(prompt[:-1])
+    logits = eng.infer_chunk(prompt[-1:])
+    return eng._decode(logits, n, sampler or _CheckedSampler(eng.spec.vocab_size),
+                       GenerationStats())
+
+
+# tokens of the eager-against-graph comparison and the device loop's chunk
+COMPARE_TOKENS, LOOP_CHUNK = 16, 16
+
+
+def _decode_path(state: dict, tag: str, spec, params, n: int, kw: dict, t1: dict,
+                 chunked: dict) -> dict:
+    """One single-sequence decode path at full Llama-2-7B: the Engine (CUDA graphs on)
+    on a 100-token prompt (chunks 64, 8 x4, 1 x4) and n greedy tokens, its launches held
+    to `t1` per one-token step (graph replays times each graph's launches, read from
+    its captures and its node dump) and `chunked` per M > 1 chunk; its decode step
+    profiled. Then the eager step beside it (cuda_graph=False, same weights):
+    COMPARE_TOKENS steps whose logits must equal the graph's bit for bit; and the device
+    loop (generate_chunked, chunks of LOOP_CHUNK replays), whose greedy tokens must equal
+    the host loop's after the same prefill. ms/token and the idle share of each; the
+    programmatic edges of the step's graph. Returns the counted run's launches."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    vocab = spec.vocab_size
+    prompt = _prompt_100(spec)
+    counters = _single_counters()
+    eng = Engine(spec, params, device="cuda", **kw)
+    eng.graphs = counting_graphs(eng.device, counters)
+    assert eng.dtype == torch.bfloat16 and eng.cuda_graph
+    eng.generate(prompt[:9], 2, _CheckedSampler(vocab))  # warm-up: builds, captures
     eng.reset()
     torch.cuda.synchronize()
     _zero(counters)
-    sampler = _CheckedSampler(spec.vocab_size)
-    out, stats = eng.generate(prompt, 32, sampler)
-    launches = _read(counters)
-    t1_steps = 4 + 32
-    want = {"q4_matvec": t1_steps, "q4_matvec_q80": 4 * spec.n_layers * t1_steps,
-            "q4_matmul": mm_chunks * per_step, "q8_matvec": 0, "q8_matvec_q80": 0,
-            "decode_attention": t1_steps * spec.n_layers,
-            "rmsnorm_q80": 2 * spec.n_layers * t1_steps,
-            "quantize_q80": 2 * spec.n_layers * t1_steps}
-    if launches != want or len(out) != 32 or sampler.rows != 32:
-        raise AssertionError(f"model prologue run: launches {launches} (want {want}), "
-                             f"{len(out)} tokens, {sampler.rows} logits rows")
-    state["launches"]["q4_matvec_q80"] = launches["q4_matvec_q80"]
-    log(f"[model] with the fused prologue: prefill {stats.prompt_tokens} tokens "
+    snap = graph_snapshot(counters, eng.graphs)
+    sampler = _CheckedSampler(vocab)
+    out, stats = eng.generate(prompt, n, sampler)
+    launches, replays, new = run_launches(counters, eng.graphs, snap)
+    t1_steps, chunks = 4 + n, 5
+    key = ("step", "logits", eng._window_for(len(prompt) + n), 1)
+    want = {name: t1.get(name, 0) * (t1_steps + new) + chunked.get(name, 0) * chunks
+            for name in counters}
+    per_replay = {name: t1.get(name, 0) for name in counters}
+    if (launches != want or replays != t1_steps or eng.graphs.per_step[key] != per_replay
+            or len(out) != n or sampler.rows != n):
+        raise AssertionError(f"{tag} run: launches {launches} (want {want}), {replays} "
+                             f"replays of {t1_steps} steps, a step's graph "
+                             f"{eng.graphs.per_step[key]}, {len(out)} tokens")
+    log(f"[{tag}] Llama-2-7B {'Q40' if 'q4_matvec' in t1 else 'Q80'} bf16 (32 layers, "
+        f"random weights), CUDA graphs: prefill {stats.prompt_tokens} tokens "
         f"{stats.prefill_ms:.1f} ms, decode {stats.avg_infer_ms:.2f} ms/token (step), "
-        f"{stats.tokens_per_second:.2f} tok/s; launches in the run: {json.dumps(launches)}")
-    _profile_decode(eng, out[-1], stats.avg_infer_ms, tag="model, prologue")
-    del eng, params
+        f"{stats.tokens_per_second:.2f} tok/s; weights "
+        f"{eng.decode_weight_bytes / 1e9:.3f} GB/token -> "
+        f"{eng.decode_weight_bytes / (stats.avg_infer_ms * 1e-3) / 1e9:.0f} GB/s; floor "
+        f"{eng.decode_weight_bytes / state['rate'] * 1e3:.3f} ms/token at the data-sheet "
+        f"rate")
+    log(f"[{tag}] launches in the run: {json.dumps(launches)} = per one-token step "
+        f"{json.dumps({k: v for k, v in t1.items()})} x {t1_steps} ({replays} graph "
+        f"replays of {eng.graphs.nodes[key]} nodes, {new} captured in the run) + per "
+        f"chunk {json.dumps(chunked)} x {chunks}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    pdl = ""
+    if kw.get("fused_prologue"):
+        prog, edges = programmatic_edges(eng.graphs.graph(key))
+        pdl = f"; the step's graph keeps {prog} programmatic edges of {edges}"
+        log(f"[{tag}] programmatic (PDL) edges in the captured step: {prog} of {edges} "
+            f"edges ({prog / spec.n_layers:.0f} per layer)")
+    busy_g, wall_g = _profile_decode(eng, out[-1], stats.avg_infer_ms, tag=tag)
+
+    eager = Engine(spec, params, device="cuda", cuda_graph=False, **kw)
+    eager.generate(prompt[:9], 2, _CheckedSampler(vocab))
+    runs = []
+    for e in (eng, eager):
+        e.reset()
+        smp = _CheckedSampler(vocab, keep=True)
+        o, st = e.generate(prompt, COMPARE_TOKENS, smp)
+        runs.append((o, smp.kept, st))
+    (og, lg, _), (oe, le, se) = runs
+    if og != oe or not all(np.array_equal(a, b) for a, b in zip(lg, le)):
+        raise AssertionError(f"{tag}: the graph's logits differ from the eager step's")
+    busy_e, wall_e = _profile_decode(eager, oe[-1], se.avg_infer_ms, tag=f"{tag}, eager")
+    del eager
+
+    host = host_loop_tokens(eng, prompt, n)
+    eng.reset()
+    loop_out, lst = eng.generate_chunked(prompt, n, Sampler(vocab, 0.0), chunk=LOOP_CHUNK)
+    if loop_out != host:
+        raise AssertionError(f"{tag}: the device loop's tokens {loop_out} differ from the "
+                             f"host loop's {host}")
+    busy_l, loop_ms = _profile_loop(eng, loop_out[-1])
+    log(f"[{tag}] ms/token (idle share): eager {se.avg_infer_ms:.3f} "
+        f"({1 - busy_e / wall_e:.3f}), CUDA graph {stats.avg_infer_ms:.3f} "
+        f"({1 - busy_g / wall_g:.3f}), device loop of {LOOP_CHUNK} {loop_ms:.3f} "
+        f"({1 - busy_l / loop_ms:.3f}; its first {n} tokens, the loop's capture included, "
+        f"{np.mean(lst.token_ms):.3f}); busy per token eager {busy_e:.3f}, graph "
+        f"{busy_g:.3f}, loop {busy_l:.3f} ms; {COMPARE_TOKENS} steps' logits bit-identical "
+        f"graph and eager; the loop's {n} greedy tokens the host loop's{pdl}")
+    state.setdefault("decode", {})[tag] = dict(
+        eager_ms=se.avg_infer_ms, graph_ms=stats.avg_infer_ms, loop_ms=loop_ms,
+        busy_eager=busy_e, busy_graph=busy_g, busy_loop=busy_l)
+    del eng
     torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_loop(eng, token: int, calls: int = 3) -> tuple[float, float]:
+    """Device busy and wall ms per token of the device loop: one chunk of LOOP_CHUNK
+    replays from the engine's position and its fence, timed `calls` times without the
+    profiler, then once under it (the writes past the position are the same each
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_llama_tpu_torch.runtime.device_loop import prng_key, split
+    from distributed_llama_tpu_torch.runtime.step_graph import copy_to_host
+
+    loop = eng._decode_loop(LOOP_CHUNK, "greedy", eng._window_for(eng.pos + LOOP_CHUNK))
+    key = split(prng_key(0))[1].tolist()
+
+    def chunk():
+        toks = loop(eng.rope, token, eng.k_cache, eng.v_cache, eng.pos, key, 0.0, 0.9)[0]
+        copy_to_host(toks)()
+    chunk()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        chunk()
+    wall = (time.perf_counter() - t0) * 1e3 / calls / LOOP_CHUNK
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk()
+    return _device_union_ms(prof) / LOOP_CHUNK, wall
 
 
 def _single_counters():
@@ -1502,6 +1641,73 @@ def _read(counters) -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
 
+# the CUDA function each launch counter's kernel runs, as a graph's node dump names it
+KERNEL_NODES = {"q4_matvec": "q4_matvec_kernel", "q4_matvec_q80": "q4_matvec_kernel",
+                "q8_matvec": "q8_matvec_kernel", "q8_matvec_q80": "q8_matvec_kernel",
+                "q4_matmul": "q4_matmul_tc_kernel", "q4_matmul_res": "q4_matmul_tc_kernel",
+                "q4_gated_matmul": "q4_gated_tc_kernel",
+                "decode_attention": "decode_attn_kernel",
+                "paged_attention": "paged_attn_kernel",
+                "rmsnorm_q80": "prologue_kernel", "quantize_q80": "prologue_kernel"}
+
+
+def counting_graphs(device, counters):
+    """The engine's StepGraphs, keeping each captured graph and recording its kernel
+    launches per replay. A wrapper counts once per call, and a capture calls each
+    wrapper twice per launch of the step (its warm-up step, which launches, and the
+    captured call, which adds a node): half of the counters' rise over a capture is the
+    graph's launches, which must match the kernel nodes of its dump by function name. A
+    replay calls no wrapper, so a run's launches are its counters' rise, less the
+    captured calls, plus each graph's launches times its replays (`run_launches`)."""
+    from distributed_llama_tpu_torch.runtime.step_graph import StepGraphs
+
+    class CountingGraphs(StepGraphs):
+        def __init__(self):
+            super().__init__(device, True, keep=True)
+            self.per_step: dict[tuple, dict[str, int]] = {}
+            self.nodes: dict[tuple, int] = {}
+
+        def _capture(self, key, step, carry):
+            before = _read(counters)
+            cap = super()._capture(key, step, carry)
+            rise = {n: v - before[n] for n, v in _read(counters).items()}
+            if any(v % 2 for v in rise.values()):
+                raise AssertionError(f"graph {key}: odd counter rise {rise} over a capture")
+            per = {n: v // 2 for n, v in rise.items()}
+            nodes = _dot_nodes(_graph_dot(cap.graph))
+            for fn in sorted({KERNEL_NODES[n] for n in per}):
+                got = sum(fn in nd for nd in nodes)
+                want = sum(c for n, c in per.items() if KERNEL_NODES[n] == fn)
+                if got != want:
+                    raise AssertionError(f"graph {key}: {got} {fn} nodes, {want} launches "
+                                         f"captured")
+            self.per_step[key], self.nodes[key] = per, len(nodes)
+            return cap
+    return CountingGraphs()
+
+
+def graph_snapshot(counters, graphs) -> tuple:
+    """The counters (zeroed just before a counted run) and each graph's replays."""
+    return (_read(counters), {k: graphs.replays_of(k) for k in graphs.keys()})
+
+
+def run_launches(counters, graphs, snap) -> tuple[dict, int, int]:
+    """Each counted kernel's launches since `snap` (eager calls, warm-up steps and graph
+    replays; see counting_graphs), the graph replays, and the graphs captured."""
+    before, replays = snap
+    out = {n: v - before[n] for n, v in _read(counters).items()}
+    n_replays = n_new = 0
+    for key in graphs.keys():
+        per = graphs.per_step[key]
+        dr = graphs.replays_of(key) - replays.get(key, 0)
+        new = key not in replays
+        n_replays += dr
+        n_new += new
+        for n, c in per.items():
+            out[n] += c * dr - (c if new else 0)
+    return out, n_replays, n_new
+
+
 # Q80 decode launches per T=1 step of Llama-2-7B: (a) the default engine — wqkv, wo,
 # w13, w2 per layer and wcls through q8_matvec; (b) the fused prologue — the four
 # projections through q8_matvec_q80, rmsnorm_q80 before wqkv and w13, quantize_q80
@@ -1512,67 +1718,28 @@ Q80_PROLOGUE_PER_STEP = {"q8_matvec": 1, "q8_matvec_q80": 128, "decode_attention
 
 
 def phase_q80(state: dict) -> None:
-    from distributed_llama_tpu_torch.runtime.engine import Engine
-
     spec = _llama2_7b()
-    dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    params = _random_i8_params(spec, dev, seed=17)
-    prompt = [1] + torch.randint(3, spec.vocab_size, (99,),
-                                 generator=torch.Generator().manual_seed(5)).tolist()
-    counters = _single_counters()
-    t1_steps = 4 + 64  # the 4 one-token prefill chunks + 64 decode steps
+    params = _random_i8_params(spec, torch.device("cuda"), seed=17)
     for run, prologue, per_step in (("a", False, Q80_PER_STEP),
                                     ("b", True, Q80_PROLOGUE_PER_STEP)):
-        eng = Engine(spec, params, device="cuda", fused_prologue=prologue)
-        assert eng.dtype == torch.bfloat16 and eng.use_kernels is True
-        assert all(t.layout == "i8" for t in list(eng.params["blocks"].values())[:4])
-        eng.generate(prompt[:9], 2, _CheckedSampler(spec.vocab_size))  # warm-up
-        eng.reset()
-        torch.cuda.synchronize()
-        _zero(counters)
-        sampler = _CheckedSampler(spec.vocab_size)
-        out, stats = eng.generate(prompt, 64, sampler)
-        launches = _read(counters)
-        want = {name: per_step.get(name, 0) * t1_steps for name in counters}
-        if launches != want or len(out) != 64 or sampler.rows != 64:
-            raise AssertionError(f"q80 run ({run}): launches {launches} (want {want}), "
-                                 f"{len(out)} tokens, {sampler.rows} logits rows")
+        # the M > 1 prefill chunks dequantize the i8 weights (the JAX package's route
+        # too; no kernel computes it)
+        launches = _decode_path(state, f"q80 ({run})", spec, params, 64,
+                                dict(fused_prologue=prologue), per_step, {})
         if prologue:
             for name in ("q8_matvec_q80", "rmsnorm_q80", "quantize_q80"):
                 state["launches"][name] = launches[name]
         else:
             state["launches"]["q8_matvec"] = launches["q8_matvec"]
-        log(f"[q80] ({run}) Llama-2-7B Q80 bf16 (32 layers, random weights, i8 layout)"
-            f"{', fused prologue' if prologue else ''}: prefill {stats.prompt_tokens} "
-            f"tokens {stats.prefill_ms:.1f} ms, decode {stats.avg_infer_ms:.2f} ms/token "
-            f"(step), {stats.tokens_per_second:.2f} tok/s; weights "
-            f"{eng.decode_weight_bytes / 1e9:.3f} GB/token -> "
-            f"{eng.decode_weight_bytes / (stats.avg_infer_ms * 1e-3) / 1e9:.0f} GB/s; "
-            f"floor {eng.decode_weight_bytes / state['rate'] * 1e3:.3f} ms/token at the "
-            f"data-sheet rate")
-        log(f"[q80] ({run}) launches in the run: {json.dumps(launches)} = per T=1 step "
-            f"{json.dumps(per_step)} x {t1_steps}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        _profile_decode(eng, out[-1], stats.avg_infer_ms, tag=f"q80 ({run})")
-        if not prologue:
-            # one 64-token prefill chunk: at M > 1 the i8 weights dequantize whole (the
-            # JAX package's route too; no kernel computes it)
-            eng.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.infer_chunk(prompt[:64])
-            log(f"[q80] (a) one 64-token prefill chunk (dequantize path): "
-                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-        del eng
-        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
 
 
-# device busy per single-sequence decode step of each profiled run before the prologue's
-# redesign (a full run, PERF.md §5-6), beside which each run reports its own
-BUSY_BEFORE = {"model": 4.642, "model, prologue": 4.175, "q80 (a)": 5.829, "q80 (b)": 5.322}
+# device busy per single-sequence decode step of each profiled run while the steps ran
+# eagerly, before they were captured (a full run, PERF.md §6), beside which each run
+# reports its own
+BUSY_BEFORE = {"model": 4.661, "model, prologue": 3.823, "q80 (a)": 5.845, "q80 (b)": 4.992}
 
 
 def _device_union_ms(prof) -> float:
@@ -1593,13 +1760,14 @@ def _device_union_ms(prof) -> float:
 
 
 def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
-                    tag: str = "model") -> None:
+                    tag: str = "model") -> tuple[float, float]:
     """Where one decode step's time goes: device time by kernel name from torch.profiler
-    over `steps` steps (after the counted run); busy is the union of the device
-    intervals (`_device_union_ms`), beside their sum. The idle share is taken against
-    step times measured without the profiler, whose hooks inflate the host clock: the
-    same `steps` steps timed just before, and the counted run's mean step
-    (`counted_ms`)."""
+    over `steps` steps (after the counted run; kineto records the kernels of a graph
+    replay one by one); busy is the union of the device intervals (`_device_union_ms`),
+    beside their sum. The idle share is taken against step times measured without the
+    profiler, whose hooks inflate the host clock: the same `steps` steps timed just
+    before, and the counted run's mean step (`counted_ms`). Returns (busy, unprofiled
+    step) ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1621,9 +1789,13 @@ def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
     rows.sort(reverse=True)
     summed = sum(r[0] for r in rows)
     busy = _device_union_ms(prof) / steps
+    if busy <= 0:
+        raise AssertionError(f"[{tag}] the profiler recorded no device time")
+    before = BUSY_BEFORE.get(tag)
     log(f"[{tag}] decode step: device busy {busy:.3f} ms (profiled, union of the kernels' "
-        f"intervals; their sum {summed:.3f}; before the prologue "
-        f"redesign: {BUSY_BEFORE[tag]:.3f}); step wall without "
+        f"intervals; their sum {summed:.3f}"
+        + (f"; eager before the graphs: {before:.3f}" if before else "")
+        + "); step wall without "
         f"the profiler {plain_ms:.2f} ms ({steps} steps) and {counted_ms:.2f} ms (counted "
         f"run), with it {profiled_ms:.2f} ms; idle share {1 - busy / plain_ms:.3f} "
         f"({steps} steps), {1 - busy / counted_ms:.3f} (counted run)")
@@ -1633,6 +1805,7 @@ def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
     if pro:
         log(f"[{tag}]   prologue kernels: {sum(r[0] for r in pro):.4f} ms/step in "
             f"{sum(r[1] for r in pro)} launches/step")
+    return busy, plain_ms
 
 
 # prompt lengths of the serve phase's 8 requests (16-300 tokens, staggered arrivals)
@@ -1654,66 +1827,52 @@ def _serve_counters():
             "q4_gated_matmul": (gm, "launches"), "paged_attention": (pa, "launches")}
 
 
-def _serve_engine():
+def _serve_engine(params, superstep: int):
+    """The 8-slot fused BatchEngine at full Llama-2-7B, super-steps of `superstep`
+    (pipelined from 2), its graphs counted (`counting_graphs`)."""
     from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
 
     spec = _llama2_7b()
-    be = BatchEngine(spec, _random_i4p_params(spec, torch.device("cuda"), seed=13,
-                                              gate_pair=True),
-                     slots=8, device="cuda", fused_matmul=True, kv_block_tokens=16)
+    be = BatchEngine(spec, params, slots=8, device="cuda", fused_matmul=True,
+                     kv_block_tokens=16, superstep=superstep)
     eng = be.engine
+    eng.graphs = counting_graphs(eng.device, _serve_counters())
     assert eng.dtype == torch.bfloat16 and eng.use_kernels == "fused" and eng.paged_kernel
     assert be.kv_pool.n_blocks == 8 * (spec.seq_len // 16) + 8 + 1
-    # warm-up: loads the kernel libraries and warms the allocator
-    be.generate([1] + list(range(5, 80)), 2, _CheckedSampler(spec.vocab_size))
+    assert be.pipeline == (superstep >= 2)
+    # warm-up: loads the kernel libraries, warms the allocator and, from superstep 2,
+    # captures a super-step's graph
+    be.generate([1] + list(range(5, 80)), 2 + superstep, _CheckedSampler(spec.vocab_size))
     be.release_idle()
     return be
 
 
+# the serve phase's super-step and the runs it compares: superstep 1 (host sampling
+# every step) and the server's default, SERVE_K steps per dispatch, pipelined
+SERVE_K = 8
+
+
 def phase_serve(state: dict) -> None:
-    torch.cuda.reset_peak_memory_stats()
-    be = _serve_engine()
-    spec = be.spec
-    counters = _serve_counters()
-    _zero(counters)
-    be.dispatches = be.decode_steps = be.mixed_steps = 0
-    be.dispatch_ms = {k: [] for k in be.dispatch_ms}
+    spec = _llama2_7b()
+    params = _random_i4p_params(spec, torch.device("cuda"), seed=13, gate_pair=True)
     gen = torch.Generator().manual_seed(21)
     prompts = [[1] + torch.randint(3, spec.vocab_size, (n - 1,), generator=gen).tolist()
                for n in SERVE_PROMPTS]
-    t0 = time.perf_counter()
-    reqs, samplers = staggered(be, prompts, SERVE_TOKENS, after=4)
-    wall = time.perf_counter() - t0
-    launches = _read(counters)
-    want = {name: n * be.dispatches for name, n in SERVE_PER_DISPATCH.items()}
-    outs = [len(r.out) for r in reqs]
-    if launches != want or outs != [SERVE_TOKENS] * len(prompts):
-        raise AssertionError(f"serve run: launches {launches} (want {want} for "
-                             f"{be.dispatches} dispatches), tokens {outs}")
-    if sum(s.rows for s in samplers) != sum(outs):
-        raise AssertionError("serve run: a delivered token without its logits row")
-    free = be.release_idle()
-    if free != be.kv_pool.n_blocks - 1:
-        raise AssertionError(f"serve run: {free} blocks free after the run, want "
-                             f"{be.kv_pool.n_blocks - 1} (all but scratch)")
-    state["launches"].update({k: v for k, v in launches.items() if k != "q4_matmul"})
-    ttft = [(r.first_token_t - r.submit_t) * 1e3 for r in reqs]
-    dec = be.dispatch_ms["decode"]
-    log(f"[serve] Llama-2-7B Q40 bf16 fused, 8 slots, paged KV "
-        f"{be.kv_pool.n_blocks} x 16 tokens: {len(prompts)} staggered requests, prompts "
-        f"{list(SERVE_PROMPTS)}, {SERVE_TOKENS} greedy tokens each, in {wall:.2f} s: "
-        f"{sum(outs) / wall:.1f} tok/s aggregate; {be.dispatches} dispatches "
-        f"({be.decode_steps} decode, {be.mixed_steps} mixed, "
-        f"{len(be.dispatch_ms['prefill'])} prefill-only)")
-    log(f"[serve] batched decode dispatch (host sampling excluded) {np.mean(dec):.2f} ms "
-        f"mean, {np.median(dec):.2f} ms median over {len(dec)} steps; mixed dispatch "
-        f"{np.mean(be.dispatch_ms['mixed']):.2f} ms mean; time to first token mean {np.mean(ttft):.1f} ms, max "
-        f"{np.max(ttft):.1f} ms; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; pool drained to "
-        f"{free} free blocks")
-    log(f"[serve] launches in the run: {json.dumps(launches)} = per dispatch "
-        f"{json.dumps(SERVE_PER_DISPATCH)} x {be.dispatches}")
-    _profile_serve_decode(be, np.mean(dec))
+    tokens = {}
+    for k in (1, SERVE_K):
+        torch.cuda.reset_peak_memory_stats()
+        be = _serve_engine(params, k)
+        tokens[k] = _serve_run(state, be, prompts, k)
+        if k == 1:
+            be.close()
+            del be
+            torch.cuda.empty_cache()
+    if tokens[1] != tokens[SERVE_K]:
+        diff = [i for i, (a, b) in enumerate(zip(tokens[1], tokens[SERVE_K])) if a != b]
+        raise AssertionError(f"serve: superstep {SERVE_K} tokens differ from superstep 1 "
+                             f"in requests {diff}")
+    log(f"[serve] superstep {SERVE_K} pipelined: every request's {SERVE_TOKENS} greedy "
+        f"tokens identical to superstep 1")
     if "http" in state["phases"]:
         state["serve_engine"] = be
     else:
@@ -1721,7 +1880,142 @@ def phase_serve(state: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> None:
+def _serve_run(state: dict, be, prompts, k: int) -> list[list[int]]:
+    """The 8 staggered requests on one engine (request i+1 submitted at request i's
+    first token: both engines then take the same mixed steps, and decode rows the same
+    M = 8 kernels), launches against the schedule (SERVE_PER_DISPATCH per forward step:
+    eager steps, super-step graph replays, and a warm-up step per capture), tok/s,
+    TTFT and the decode step; returns each request's tokens."""
+    spec = be.spec
+    graphs = be.engine.graphs
+    counters = _serve_counters()
+    be.dispatches = be.decode_steps = be.mixed_steps = be.super_steps = 0
+    be.loop_steps = be.chained = 0
+    be.dispatch_ms = {key: [] for key in be.dispatch_ms}
+    _zero(counters)
+    snap = graph_snapshot(counters, graphs)
+    t0 = time.perf_counter()
+    reqs, samplers = staggered(be, prompts, SERVE_TOKENS, after=1)
+    wall = time.perf_counter() - t0
+    launches, replays, new = run_launches(counters, graphs, snap)
+    eager_steps = be.dispatches - be.loop_steps // k
+    steps = eager_steps + replays + new
+    want = {name: n * steps for name, n in SERVE_PER_DISPATCH.items()}
+    outs = [len(r.out) for r in reqs]
+    if launches != want or outs != [SERVE_TOKENS] * len(prompts) or replays != be.loop_steps:
+        raise AssertionError(f"serve run (superstep {k}): launches {launches} (want {want} "
+                             f"for {eager_steps} eager steps, {replays} replays, {new} "
+                             f"captures; {be.loop_steps} loop steps), tokens {outs}")
+    host_sampled = sum(s.rows for s in samplers)
+    if (k == 1 and host_sampled != sum(outs)) or host_sampled > sum(outs):
+        raise AssertionError("serve run: a host-sampled token without its logits row")
+    free = be.release_idle()
+    if free != be.kv_pool.n_blocks - 1:
+        raise AssertionError(f"serve run: {free} blocks free after the run, want "
+                             f"{be.kv_pool.n_blocks - 1} (all but scratch)")
+    if k == SERVE_K:
+        state["launches"].update({n: v for n, v in launches.items() if n != "q4_matmul"})
+    ttft = [(r.first_token_t - r.submit_t) * 1e3 for r in reqs]
+    dec = be.dispatch_ms["decode"]
+    sup = be.dispatch_ms["super"]
+    tag = f"[serve] superstep {k}" + (", pipelined" if be.pipeline else "")
+    log(f"{tag}: Llama-2-7B Q40 bf16 fused, 8 slots, paged KV {be.kv_pool.n_blocks} x 16 "
+        f"tokens: {len(prompts)} staggered requests, prompts {list(SERVE_PROMPTS)}, "
+        f"{SERVE_TOKENS} greedy tokens each, in {wall:.2f} s: {sum(outs) / wall:.1f} tok/s "
+        f"aggregate; {be.dispatches} dispatches ({be.decode_steps - be.super_steps} "
+        f"single decode, {be.super_steps} super-steps of {k} delivered, {be.chained} "
+        f"chained, {dict(be.flushes)} flushed, {be.mixed_steps} mixed, "
+        f"{len(be.dispatch_ms['prefill'])} prefill-only)")
+    log(f"{tag}: time to first token mean {np.mean(ttft):.1f} ms, max {np.max(ttft):.1f} "
+        f"ms; single decode dispatch {np.mean(dec) if dec else math.nan:.2f} ms mean over "
+        f"{len(dec)}; super-step {np.mean(sup) if sup else math.nan:.2f} ms mean over "
+        f"{len(sup)} ({np.mean(sup) / k if sup else math.nan:.3f} ms per step); mixed "
+        f"dispatch {np.mean(be.dispatch_ms['mixed']):.2f} ms mean; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; pool drained to {free} "
+        f"free blocks")
+    log(f"{tag}: launches in the run: {json.dumps(launches)} = per forward step "
+        f"{json.dumps(SERVE_PER_DISPATCH)} x {steps} ({eager_steps} eager, {replays} graph "
+        f"replays, {new} warm-up steps of captures)")
+    serve = state.setdefault("serve", {})
+    serve[k] = dict(tok_s=sum(outs) / wall, ttft_mean=float(np.mean(ttft)),
+                    ttft_max=float(np.max(ttft)))
+    if k == 1:
+        serve[k].update(_profile_serve_decode(be, np.mean(dec)))
+    else:
+        serve[k].update(_profile_serve_superstep(be, k))
+    return [r.out for r in reqs]
+
+
+def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4) -> dict:
+    """The pipelined super-step in steady state: 8 requests of 8-token prompts decode
+    together; full deliveries (8 rows, K tokens each) are timed without the profiler (the
+    step period: their spacing over K). Then the scheduler pauses after a delivery while
+    this thread drains the card and starts the profiler, runs on through `window` full
+    deliveries, and pauses again while the card drains and the profiler stops. Busy per
+    step is the union of the recorded kernels' intervals over the steps they hold
+    (paged_attention launches over the layers); the idle share is the rest of the
+    period."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marks: list[float] = []
+    gates = [threading.Event() for _ in range(4)]  # at start, started, at end, stopped
+    orig = be._deliver_super_step
+
+    def wrapped(fl):
+        status = orig(fl)
+        if len(fl.rows) == be.slots_n and all(fl.budget[s.index] == k for s, _ in fl.rows):
+            marks.append(time.perf_counter())
+            if len(marks) == warm + 1:
+                gates[0].set()
+                gates[1].wait(300)
+            elif len(marks) == warm + 1 + window:
+                gates[2].set()
+                gates[3].wait(300)
+        return status
+
+    be._deliver_super_step = wrapped
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        reqs = [be.submit([1] + list(range(100 + 10 * i, 107 + 10 * i)),
+                          k * (warm + window + 4), _CheckedSampler(be.spec.vocab_size))
+                for i in range(8)]
+        for start in (True, False):
+            if not gates[0 if start else 2].wait(900):
+                raise AssertionError(f"serve profile: only {len(marks)} full super-steps")
+            torch.cuda.synchronize()
+            prof.start() if start else prof.stop()
+            gates[1 if start else 3].set()
+        for r in reqs:
+            r.wait(timeout=900)
+    finally:
+        be._deliver_super_step = orig
+        for e in gates:
+            e.set()
+    be.release_idle()
+    rows, attn = [], 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
+            ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key[:60]))
+            if "paged_attn_kernel" in ev.key:
+                attn += ev.count
+    steps = attn / be.spec.n_layers
+    if steps < (window - 1) * k:
+        raise AssertionError(f"serve profile: {steps} steps recorded in the window")
+    busy = _device_union_ms(prof) / steps
+    period = (marks[warm] - marks[0]) / warm / k * 1e3
+    rows.sort(reverse=True)
+    log(f"[serve] superstep {k} step (8 rows): device busy {busy:.3f} ms (profiled over "
+        f"{steps:.0f} replayed steps, union of the kernels' intervals); step period "
+        f"without the profiler {period:.3f} ms ({warm} full super-steps); idle share "
+        f"{1 - busy / period:.3f} of the period")
+    for ms, n, key in rows[:8]:
+        log(f"[serve]   {ms / steps:.4f} ms/step in {n / steps:.1f} launches/step: {key}")
+    return dict(busy=busy, period=period)
+
+
+def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> dict:
     """Where one batched decode step's time goes: 8 requests decode together; of the
     decode steps with all 8 rows active, `steps` are timed without the profiler and
     the next `steps` under it. The scheduler thread pauses at both edges of the
@@ -1787,7 +2081,7 @@ def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> None:
     period = (starts[steps] - starts[0]) * 1e3 / steps
     dispatch = float(np.mean(full[:steps]))
     profiled = float(np.mean(full[steps:2 * steps]))
-    log(f"[serve] batched decode step (8 rows): device busy {busy:.3f} ms (profiled); "
+    log(f"[serve] superstep 1 step (8 rows): device busy {busy:.3f} ms (profiled); "
         f"without the profiler, step period {period:.2f} ms and dispatch {dispatch:.2f} "
         f"ms ({steps} steps), dispatch {counted_ms:.2f} ms (counted run); dispatch with "
         f"the profiler {profiled:.2f} ms; idle share {1 - busy / period:.3f} of the period"
@@ -1795,6 +2089,7 @@ def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> None:
         f"{1 - busy / counted_ms:.3f} of the dispatch (counted run)")
     for ms, n, key in rows[:10]:
         log(f"[serve]   {ms:.4f} ms/step in {n} launches/step: {key}")
+    return dict(busy=busy, period=period)
 
 
 def _synthetic_tokenizer(path: str, vocab_size: int) -> None:
@@ -1821,7 +2116,9 @@ def phase_http(state: dict) -> None:
     from distributed_llama_tpu_torch.runtime.sampler import Sampler
     from distributed_llama_tpu_torch.tokenizer import TemplateType, Tokenizer
 
-    be = state.pop("serve_engine", None) or _serve_engine()
+    be = state.pop("serve_engine", None) or _serve_engine(
+        _random_i4p_params(_llama2_7b(), torch.device("cuda"), seed=13, gate_pair=True),
+        SERVE_K)
     try:
         with tempfile.TemporaryDirectory() as tmp:
             tpath = os.path.join(tmp, "synthetic.t")

@@ -8,8 +8,9 @@ max_tokens / stop overrides (dllama-api.cpp:351-380), `GET /v1/models` and `/hea
 
 With `--batch 1` requests serialize behind a generation lock on the single-sequence
 Engine, as the reference's accept loop does (dllama-api.cpp:418-429). With `--batch N`
-(N >= 2) the server runs the port's continuous-batching BatchEngine (superstep 1, paged
-KV): up to N requests decode concurrently in one batched step.
+(N >= 2) the server runs the port's continuous-batching BatchEngine (paged KV): up to N
+requests decode concurrently, in K-step device super-steps (`--superstep`, default 8),
+pipelined (`--pipeline`, on by default).
 
 Runs on the GPU unless `--device cpu` is given.
 """
@@ -310,6 +311,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on: cuda (default) or cpu")
     p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                    help="auto = bfloat16 on the GPU, float32 on the CPU")
+    p.add_argument("--superstep", type=int, default=8,
+                   help="--batch > 1: decode K tokens per device dispatch, sampling on "
+                        "the device (one host fence per K tokens); the scheduler takes "
+                        "single steps while a new request waits, so admission latency "
+                        "stays one step. 1 = host sampling every token")
+    p.add_argument("--pipeline", action=argparse.BooleanOptionalAction, default=True,
+                   help="--batch > 1, --superstep >= 2: issue super-step N+1 from N's "
+                        "device state while N's block is delivered on the host; the "
+                        "output stays token-identical (a diverging chained dispatch is "
+                        "discarded)")
     p.add_argument("--fused-matmul", action="store_true",
                    help="--batch 1: run prefill chunks through the q4 kernels with the "
                         "residual and gate-pair epilogues fused (always on for "
@@ -360,13 +371,17 @@ def build_server(args) -> ThreadingHTTPServer:
         from ..runtime.batch_engine import BatchEngine
 
         batch_engine = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
-                                        superstep=1, kv_block_tokens=args.kv_block_tokens,
+                                        superstep=max(args.superstep, 1),
+                                        pipeline=args.pipeline,
+                                        kv_block_tokens=args.kv_block_tokens,
                                         kv_pool_blocks=args.kv_pool_blocks, **load_kw, **kw)
         spec = batch_engine.spec
         print(f"⏩ Continuous batching: {args.batch} slots, paged KV blocks "
               f"{batch_engine.kv_pool.n_blocks} x {batch_engine.kv_pool.block_tokens} "
-              f"tokens (device={batch_engine.engine.device}, "
-              f"kernels={batch_engine.engine.use_kernels})")
+              f"tokens, super-step K={batch_engine.superstep}, pipelined decode "
+              f"{'on' if batch_engine.pipeline else 'off'} (device="
+              f"{batch_engine.engine.device}, kernels={batch_engine.engine.use_kernels}, "
+              f"CUDA graphs={batch_engine.engine.cuda_graph})")
     else:
         engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw)
         spec = engine.spec

@@ -54,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prologue", action="store_true", default=None,
                    help="fused rmsnorm+Q80 prologue kernels on the decode path "
                         "(ops/prologue.py; also DLT_PROLOGUE=1)")
+    p.add_argument("--device-loop", type=int, default=0, metavar="CHUNK",
+                   help="decode CHUNK tokens per dispatch with the device loop, sampling "
+                        "on the device (runtime/device_loop.py); 0 = per-token host loop")
     return p
 
 
@@ -92,7 +95,8 @@ def mode_inference(args) -> None:
     def on_token(t):
         pieces.append(tok.decode_piece(prompt[-1] if not pieces else 0, t))
 
-    _, stats = engine.generate(prompt, args.steps, sampler, on_token=on_token)
+    _, stats = engine.generate_with(prompt, args.steps, sampler, on_token=on_token,
+                                    device_loop_chunk=args.device_loop)
     print(b"".join(pieces).decode("utf-8", errors="replace"))
     # G = total per token, I = the device step including the logits copy to the host,
     # H = host sampling and bookkeeping
@@ -124,8 +128,9 @@ def mode_generate(args) -> None:
         sys.stdout.flush()
         prev = t
 
-    engine.generate(prompt, args.steps, sampler, on_token=on_token,
-                    stop_check=lambda t: t == tok.eos_id)
+    engine.generate_with(prompt, args.steps, sampler, on_token=on_token,
+                         stop_check=lambda t: t == tok.eos_id,
+                         device_loop_chunk=args.device_loop)
     print()
 
 
@@ -165,8 +170,9 @@ def mode_chat(args) -> None:
             sys.stdout.flush()
 
         streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit)
-        engine.generate(prompt, engine.spec.seq_len - engine.pos - 1, sampler,
-                        on_token=streamer.on_token, stop_check=streamer.stop_check)
+        engine.generate_with(prompt, engine.spec.seq_len - engine.pos - 1, sampler,
+                             on_token=streamer.on_token, stop_check=streamer.stop_check,
+                             device_loop_chunk=args.device_loop)
         if engine.pos >= engine.spec.seq_len - 1:
             print("\n(context end reached)")
             break

@@ -80,7 +80,7 @@ class _Step:
                  block_tables, block_tokens, paged_kernel, lengths, layer_ids, prologue):
         self.spec = spec
         self.rope = rope
-        self.start_pos = start_pos  # int, or (B,) int64 tensor
+        self.start_pos = start_pos  # int, 0-d int64 tensor, or (B,) int64 tensor
         self.positions = positions  # (T,) or (B, T) int64
         self.use_kernels = use_kernels
         self.window = window
@@ -90,6 +90,7 @@ class _Step:
         self.lengths = lengths  # (B,) int32 on the device, for the paged kernel
         self.layer_ids = layer_ids  # (L,) int32 on the device, for the attention kernels
         self.prologue = prologue  # the fused activation prologue is on for this step
+        self.per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
 
 
 def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
@@ -145,7 +146,7 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         out = paged_attention(q.float(), kc, vc, k_t, v_t, st.block_tables, st.lengths,
                               li, n_read=nb)
         att = out.reshape(b, t, hq * hs).to(x.dtype)
-    elif not paged and use_kernels and t == 1 and b == 1 and isinstance(start, int):
+    elif not paged and use_kernels and t == 1 and b == 1 and not st.per_row:
         # on the card the kernel reads the position and the layer from device memory
         # (the step's positions, the layer ids): the step copies nothing to the device
         if x.is_cuda:
@@ -166,7 +167,7 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         # causal compare masks them
         slot = torch.arange(kw.shape[2], device=x.device)
         past = torch.full_like(slot, spec.seq_len + 1)
-        if isinstance(start, int):
+        if not st.per_row:
             key_pos = torch.cat([torch.where(slot < start, slot, past), st.positions])
         else:  # (B, win) per-row offsets (continuous batching)
             key_pos = torch.cat([torch.where(slot[None, :] < start[:, None], slot, past),
@@ -231,15 +232,17 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             fused_prologue: bool = False):
     """Run T tokens through the model at cache position start_pos.
 
-    tokens: (B, T) integer tensor. start_pos: an int (all rows at one offset) or a (B,)
-    integer tensor of per-row offsets (continuous batching). k_cache/v_cache: dense
+    tokens: (B, T) integer tensor. start_pos: one offset for all rows — an int, or a
+    0-d integer tensor on the device (a captured step reads its position from there; the
+    commit writes through a device index) — or a (B,) integer tensor of per-row offsets
+    (continuous batching). k_cache/v_cache: dense
     (L, B, hk, S, hs) caches, or with block_tables ((B, W) int32 tensor, per-row
     start_pos required) (L, N, hk, bt, hs) pools with bt = block_tokens. attn_window
     bounds the positions attention reads (must cover start_pos + T; None = all).
     paged_kernel routes the pool layout's attention through kernel 9. fused_prologue
     turns the fused activation prologue on where it applies, as the JAX package gates
-    it: kernels on, one row of one token at a scalar start_pos, and a model width the
-    prologue kernels take.
+    it: kernels on, one row of one token at one start_pos for all rows, and a model width
+    the prologue kernels take.
 
     Rows of a mixed batch need not use all T positions: a decode row in a (B, T) prefill
     step puts its one real token at index 0 and scratch beyond; causal masking confines
@@ -253,7 +256,7 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
         raise NotImplementedError("the port runs the dense Llama architecture only")
     dev = tokens.device
     t = tokens.shape[1]
-    per_row = isinstance(start_pos, torch.Tensor)
+    per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
     if block_tables is not None and not (per_row and block_tokens >= 1):
         raise ValueError("the block-pool layout needs block_tokens and per-row start_pos")
     lengths = layer_ids = None
@@ -264,6 +267,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
         if block_tables is not None and paged_kernel and tokens.is_cuda:
             layer_ids = torch.arange(spec.n_layers, dtype=torch.int32, device=dev)
     else:
+        if isinstance(start_pos, torch.Tensor):
+            start_pos = start_pos.to(device=dev, dtype=torch.int64)
         positions = start_pos + torch.arange(t, device=dev)
         if use_kernels and t == 1 and tokens.shape[0] == 1 and tokens.is_cuda:
             layer_ids = torch.arange(spec.n_layers, dtype=torch.int32, device=dev)
@@ -293,8 +298,9 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
         k_cache[:, rows, :, idx, :] = k_new.permute(1, 3, 0, 2, 4)
         v_cache[:, rows, :, idx, :] = v_new.permute(1, 3, 0, 2, 4)
     else:
-        k_cache[:, :, :, start_pos:start_pos + t] = k_new
-        v_cache[:, :, :, start_pos:start_pos + t] = v_new
+        # through the positions on the device: no host integer enters the commit
+        k_cache.index_copy_(3, positions, k_new)
+        v_cache.index_copy_(3, positions, v_new)
     x = rmsnorm(x, params["rms_final"], spec.norm_eps)
     logits = qmatmul(x, params["wcls"], use_kernels=use_kernels, out_dtype=torch.float32)
     return logits, k_cache, v_cache

@@ -1,9 +1,9 @@
 """Continuous-batching engine: concurrent sequences share one batched step.
 
-The counterpart of the JAX package's runtime/batch_engine.py in its single-step
-configuration (superstep=1, no pipelining, no prefix cache, no speculation): the same
-scheduling decisions and the same host sampling, so a request served here gets the
-tokens the JAX engine gives it in that configuration.
+The counterpart of the JAX package's runtime/batch_engine.py without the prefix cache,
+speculation, tenants or SLOs: the same scheduling decisions, the same host sampling and
+the same K-step device super-steps, pipelined, so a request served here gets the tokens
+the JAX engine gives it in the same configuration (prefix_cache=False).
 
 - B cache "slots", each holding one sequence's KV (a block table into the device pool,
   or a row of dense caches) and host-side state. One scheduler thread owns the device.
@@ -11,8 +11,20 @@ tokens the JAX engine gives it in that configuration.
   with the active decode rows in one mixed (B, chunk) step — the prefill row carries its
   chunk, each decode row its next token at index 0 (its other positions are scratch
   writes on masked future slots), and each decode row's logits are read at index 0.
-- With no prefill pending, every active row advances one token in a single batched T=1
-  step. Sampling runs on the host with each request's Sampler.
+- With no prefill pending, every active row advances in one batched T=1 dispatch: at
+  superstep 1 one step, sampled on the host with each request's Sampler; at superstep
+  K >= 2, when nothing waits for admission and some row may take 2 or more tokens, a
+  super-step of K steps with sampling on the device (runtime/device_loop.py
+  make_batched_decode_loop; on the card each step is one CUDA graph replay). The host
+  reads the (K, B) token block after one fence, delivers it row by row with the
+  stop/EOS/max checks, and rolls a row that stopped mid-block back to its frontier
+  (the over-decoded tail sits on masked slots). Each request's xorshift* state goes to
+  the device before the dispatch and comes back after delivery.
+- Pipelining (superstep >= 2): super-step N+1 is issued from N's device carry (last
+  token, positions, sampler state) before N's block is delivered, on a schedule that
+  assumes N delivers every budgeted token; N+1 is kept only if it did, else it is
+  flushed (its writes land past every row's frontier) and the next dispatch starts from
+  host state again. An admission breaks the chain.
 - Idle rows ride along with their start parked at their current position: their writes
   land at future positions that are masked now and overwritten when those positions
   really decode.
@@ -22,12 +34,11 @@ tokens the JAX engine gives it in that configuration.
 - Paged KV (default): KV lives in a (L, N, hk, bt, hs) device block pool and each slot
   holds a block table (cache/device_pool.py); blocks are allocated as a slot grows and
   reclaimed from idle slots under pressure. A pool that cannot serve fails only the
-  request whose growth needed the blocks.
+  request whose growth needed the blocks. The (B, W) table is one static device buffer
+  that a table edit is copied into, so a captured step always reads the current table.
 
-What the JAX engine has that this one refuses with NotImplementedError: the K-step
-device loop (superstep > 1), speculation and the drafter, the radix prefix cache,
-tenants and SLO shedding. `pipeline` is accepted: the JAX engine turns it off at
-superstep < 2.
+What the JAX engine has that this one refuses with NotImplementedError: speculation and
+the drafter, the radix prefix cache, tenants and SLO shedding.
 """
 
 from __future__ import annotations
@@ -45,6 +56,8 @@ import torch
 from ..models.spec import ModelSpec
 from .engine import PREFILL_CHUNKS, Engine, GenerationStats
 from .errors import EngineClosed, classify
+from .sampler import _random_u32
+from .step_graph import copy_to_host, upload
 
 __all__ = ["BatchEngine", "BatchRequest"]
 
@@ -96,6 +109,36 @@ class _Slot:
         # last_token is sampled and delivered but its KV not yet written: a dispatch
         # that fails after _advance_row must not re-advance the row on retry
         self.armed = False
+        # token sampled on the device (the tail of a super-step block) and delivered,
+        # its KV not yet written: consumed by _advance_row instead of a host sample
+        self.next_token: int | None = None
+        # set when a super-step parks this row clamped at seq_len - 1, whose scratch
+        # write destroys that history row: the history is truncated to it
+        self.clamp_pos: int | None = None
+
+
+class _InflightStep:
+    """An issued, not yet delivered K-step super-step: the host copy of its (K, B)
+    token block and (B, 2) sampler states (`fetch`), the device carry (last token,
+    positions, sampler state) a chained dispatch starts from, and the host schedule it
+    was issued against — full B-length starts/budget/temps and the (slot, request)
+    pairs of its live rows. A chained dispatch's schedule assumes its predecessor
+    delivers every budgeted token, and is checked against the actual delivery."""
+
+    __slots__ = ("rows", "k", "starts", "budget", "temps", "fetch", "tok", "pos", "rng",
+                 "t_issue")
+
+    def __init__(self, rows, k, starts, budget, temps, fetch, tok, pos, rng, t_issue):
+        self.rows = rows  # list[(slot, request)] of the rows with budget > 0
+        self.k = k
+        self.starts = starts  # each row's expected start position
+        self.budget = budget
+        self.temps = temps
+        self.fetch = fetch  # waits for the block's host copy: (toks (K, B), rng (2, B))
+        self.tok = tok  # device (B,) block-tail tokens (the next dispatch's input)
+        self.pos = pos  # device (B,) positions after the budgeted steps
+        self.rng = rng  # device (B, 2) advanced xorshift* states
+        self.t_issue = t_issue
 
 
 class BatchEngine:
@@ -110,8 +153,7 @@ class BatchEngine:
                  slo_ttft_interactive: float = 0.0, slo_ttft_batch: float = 0.0,
                  slo_tpot_interactive: float = 0.0, paged_kv: bool = True,
                  kv_block_tokens: int = 16, kv_pool_blocks: int = 0, **engine_kw):
-        refused = {"superstep > 1 (the K-step device loop)": superstep > 1,
-                   "speculative > 0": speculative > 0,
+        refused = {"speculative > 0": speculative > 0,
                    "draft_model": draft_model is not None,
                    "prefix_cache": bool(prefix_cache),
                    "tenants": tenants is not None,
@@ -120,8 +162,14 @@ class BatchEngine:
         for what, asked in refused.items():
             if asked:
                 raise NotImplementedError(f"{what} is not part of the port yet")
-        assert slots >= 1
+        assert slots >= 1 and superstep >= 1
         self.slots_n = slots
+        self.superstep = superstep  # K: decode steps per super-step dispatch
+        # chain dispatch N+1 from N's device carry while N is delivered; K = 1 has no
+        # block to overlap
+        self.pipeline = bool(pipeline) and superstep >= 2
+        self._inflight: _InflightStep | None = None
+        self._loops: dict = {}  # (k, mode, window) -> batched decode loop
         self.spec = spec
         self.tokenizer = tokenizer
         kv_pool_cfg = None
@@ -148,19 +196,30 @@ class BatchEngine:
             n_blocks, self._kv_bt = kv_pool_cfg
             self.kv_pool = DeviceKVPool(n_blocks, self._kv_bt)
             self._tables_np = np.zeros((slots, spec.seq_len // self._kv_bt), np.int32)
-            self._tables_dev: torch.Tensor | None = None  # re-uploaded after edits
+            # the static device table: edits copy into it before the next dispatch
+            self._tables_dev = torch.zeros(self._tables_np.shape, dtype=torch.int32,
+                                           device=self._eng.device)
+            self._tables_dirty = False
         self._slots = [_Slot(i) for i in range(slots)]
         self._queue: collections.deque[BatchRequest] = collections.deque()
         self._plock = threading.Lock()  # guards: _queue
         # held by the scheduler for each pass and by release_idle
         self._slock = threading.Lock()  # guards: _slots, kv_pool, _tables_np
-        self.decode_steps = 0  # batched T=1 dispatches
+        self.decode_steps = 0  # batched T=1 dispatches (a super-step counts once)
+        self.super_steps = 0  # K-step dispatches delivered (a subset of decode_steps)
+        self.loop_steps = 0  # decode steps run by super-steps, flushed ones included
         self.mixed_steps = 0  # prefill dispatches carrying decode rows
-        self.dispatches = 0  # every device dispatch
-        # wall ms of each dispatch by kind: "decode", "prefill", "mixed"; as in the JAX
-        # engine, a decode step's time starts after the host sampling of its rows
-        self.dispatch_ms: dict[str, list[float]] = {"decode": [], "prefill": [],
-                                                    "mixed": []}
+        self.dispatches = 0  # every device dispatch (a super-step counts once)
+        self.chained = 0  # super-steps issued from a predecessor's device carry
+        self.flushes: collections.Counter = collections.Counter()  # chained, by reason
+        self.rollback_tokens = 0  # device-decoded tokens discarded (stop, cancel, flush)
+        # wall ms of each dispatch by kind: "decode" (one step), "super" (K steps, from
+        # the later of its issue and the previous delivery to its block on the host),
+        # "prefill", "mixed"; as in the JAX engine, a decode step's time starts after
+        # the host sampling of its rows
+        self.dispatch_ms: dict[str, list[float]] = {"decode": [], "super": [],
+                                                    "prefill": [], "mixed": []}
+        self._last_ready_t: float | None = None
         # scheduler wakeup: submit() and close() notify
         self._cond = threading.Condition()
         self._shutdown = False
@@ -288,6 +347,8 @@ class BatchEngine:
         best.history = list(full[:reuse])
         best.pending = full[reuse:]
         best.last_logits = None
+        best.next_token = None
+        best.clamp_pos = None
         best.armed = False
         req.stats.prompt_tokens = len(full)
         return best
@@ -297,11 +358,12 @@ class BatchEngine:
     # ------------------------------------------------------------------
 
     def _tables(self) -> torch.Tensor:
-        """Current (B, W) device block table; re-uploaded only after a table edit (a
-        few hundred bytes of metadata, never KV rows)."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._tables_np.copy()).to(
-                self._eng.device)
+        """The static (B, W) device block table, brought up to date after a table edit
+        (a few hundred bytes of metadata, never KV rows) by a copy queued behind the
+        dispatches already issued, which read the table they were issued with."""
+        if self._tables_dirty:
+            upload(self._tables_dev, self._tables_np)
+            self._tables_dirty = False
         return self._tables_dev
 
     def _table_row(self, slot: _Slot) -> None:
@@ -310,7 +372,7 @@ class BatchEngine:
         row = self._tables_np[slot.index]
         row[:] = 0
         row[:len(slot.blocks)] = slot.blocks
-        self._tables_dev = None
+        self._tables_dirty = True
 
     def _paged_release_slot(self, slot: _Slot) -> None:
         """Drop a slot's whole table (and the rewind stock it backs)."""
@@ -360,7 +422,7 @@ class BatchEngine:
         start = len(slot.blocks)
         slot.blocks.extend(ids)
         self._tables_np[slot.index, start:start + need] = ids
-        self._tables_dev = None
+        self._tables_dirty = True
 
     def _paged_adopt_rewind_only(self, slot: _Slot, rewind: int) -> None:
         """Admission: keep only the rewound prefix's blocks. Without a prefix cache no
@@ -386,6 +448,11 @@ class BatchEngine:
         req.finish = finish
         slot.req = None
         slot.pending = []
+        slot.next_token = None
+        if slot.clamp_pos is not None:
+            # a super-step parked this row clamped: its history ends before that row
+            del slot.history[slot.clamp_pos:]
+            slot.clamp_pos = None
         req.done.set()
 
     def _park_positions(self, t: int) -> list[int]:
@@ -445,25 +512,34 @@ class BatchEngine:
 
     def _fail_all(self, e: Exception) -> None:
         """Blast radius 'engine': the shared dispatch failed unattributably — fail every
-        in-flight request. The scheduler thread survives."""
+        in-flight request. The scheduler thread survives; a chained super-step issued
+        against the failed schedule is dropped (the next dispatch uploads host state)."""
+        if self._inflight is not None:
+            self.flushes["error"] += 1
+            self._inflight = None
         for s in self._slots:
             if s.req is not None:
                 s.req.error = e
                 self._finish(s, "error")
 
     def _loop(self) -> None:
-        while not self._shutdown:
-            try:
-                self._loop_once()
-            except Exception as e:
-                # no exception may kill the scheduler thread
+        try:
+            while not self._shutdown:
                 try:
-                    self._fail_all(e)
-                except Exception:
-                    pass
-                with self._cond:
-                    if not self._shutdown:
-                        self._cond.wait(timeout=0.05)
+                    self._loop_once()
+                except Exception as e:
+                    # no exception may kill the scheduler thread
+                    try:
+                        self._fail_all(e)
+                    except Exception:
+                        pass
+                    with self._cond:
+                        if not self._shutdown:
+                            self._cond.wait(timeout=0.05)
+        finally:
+            if self._inflight is not None:  # close() with a chained super-step issued
+                self.flushes["close"] += 1
+                self._inflight = None
 
     def _loop_once(self) -> None:
         failed = False
@@ -473,7 +549,12 @@ class BatchEngine:
             prefill = [s for s in self._slots if s.req and s.pending]
             active = [s for s in self._slots if s.req and not s.pending]
             try:
-                if prefill:
+                if self._inflight is not None:
+                    # a chained super-step runs on the card: deliver it (and maybe chain
+                    # its successor) before any other dispatch
+                    fl, self._inflight = self._inflight, None
+                    self._pipeline_advance(fl)
+                elif prefill:
                     victim = prefill[0]  # lowest slot index first
                     try:
                         # mixed step: active decode rows ride the prefill dispatch at T=1
@@ -491,7 +572,7 @@ class BatchEngine:
             except Exception as e:  # unattributable: fail all, survive, back off
                 self._fail_all(e)
                 failed = True
-        if failed or not (prefill or active):
+        if failed or not (prefill or active or self._inflight is not None):
             with self._cond:
                 with self._plock:
                     idle = not self._queue
@@ -526,6 +607,11 @@ class BatchEngine:
             self._finish(slot, "cancelled")
             return False
         if slot.armed:  # last_token already holds the next un-ingested token
+            return True
+        if slot.next_token is not None:  # sampled on the device, already delivered
+            slot.last_token = slot.next_token
+            slot.next_token = None
+            slot.armed = True
             return True
         if slot.last_logits is None:  # context end hit during prefill
             self._finish(slot, "length")
@@ -626,6 +712,20 @@ class BatchEngine:
                     active.remove(slot)
         if not active:
             return
+        k = self.superstep
+        if k > 1:
+            with self._plock:
+                waiting = bool(self._queue)
+            if not waiting:
+                # per-row step budget: stop at max_tokens or the context end (the row
+                # parks for the rest of the block)
+                budgets = {slot.index: min(k, slot.req.max_tokens - len(slot.req.out),
+                                           self.spec.seq_len - slot.pos)
+                           for slot in active}
+                if max(budgets.values()) >= 2:
+                    self._super_step(active, k, budgets)
+                    return
+        # one batched T=1 step: the admission-latency (and tail) path
         t0 = time.perf_counter()
         starts = self._park_positions(1)
         rows = [[0]] * self.slots_n
@@ -643,3 +743,248 @@ class BatchEngine:
             slot.armed = False  # the dispatch ingested last_token's KV
             slot.req.stats.token_ms.append(dt_ms)
             slot.req.stats.infer_ms.append(dt_ms)
+
+    # ------------------------------------------------------------------
+    # K-step super-steps, pipelined
+    # ------------------------------------------------------------------
+
+    def _batched_loop(self, k: int, mode: str, window: int | None):
+        """The K-step batched device loop for this engine, one per (k, mode, window
+        bucket), each step a CUDA graph on the card."""
+        key = (k, mode, window)
+        if key not in self._loops:
+            from .device_loop import make_batched_decode_loop
+
+            eng = self._eng
+            self._loops[key] = make_batched_decode_loop(
+                self.spec, eng.params, k, mode=mode, dtype=eng.dtype,
+                use_kernels=eng.use_kernels, attn_window=window,
+                fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
+                paged_kernel=eng.paged_kernel, graphs=eng.graphs)
+        return self._loops[key]
+
+    def _super_step(self, active: list[_Slot], k: int, budgets: dict[int, int]) -> None:
+        """One K-step dispatch from host state: every active row decodes up to its
+        budget on the device, sampling included, then the (K, B) block is delivered.
+        With pipelining the next super-step is issued from this one's device carry
+        before delivery starts (_pipeline_advance)."""
+        if self.kv_pool is not None:
+            for slot in active[:]:
+                try:
+                    self._paged_ensure(slot, slot.pos + budgets[slot.index])
+                except Exception as e:
+                    if classify(e) != "request":
+                        raise
+                    self._fail_request(slot, e)
+                    active.remove(slot)
+            if not active:
+                return
+        starts = self._park_positions(1)
+        budget = [0] * self.slots_n
+        rows: list[tuple[_Slot, BatchRequest]] = []
+        for slot in active:
+            starts[slot.index] = slot.pos
+            budget[slot.index] = budgets[slot.index]
+            rows.append((slot, slot.req))
+        fl = self._issue_super_step(rows, k, budget, starts)
+        self._pipeline_advance(fl)
+
+    def _pipeline_advance(self, fl: _InflightStep) -> None:
+        """One pipeline turn: maybe issue the super-step after `fl` from its device
+        carry (so the card does not idle through the delivery below), then deliver
+        `fl`; the chained dispatch is kept only if every row it decodes delivered its
+        full budget and stayed live."""
+        nxt = None
+        plan = self._plan_chain(fl) if self.pipeline and not self._shutdown else None
+        if plan is not None:
+            with self._plock:
+                waiting = bool(self._queue)
+            if waiting or any(s.req and s.pending for s in self._slots):
+                # a request needs the next dispatch for its admission or prefill
+                self.flushes["admission"] += 1
+                plan = None
+        if plan is not None and self.kv_pool is not None:
+            # block coverage for the chained dispatch's writes before it is issued; a
+            # pool that cannot serve declines the chain instead of failing rows
+            rows, starts, budget, _ = plan
+            try:
+                for slot, _req in rows:
+                    self._paged_ensure(slot, starts[slot.index] + budget[slot.index])
+            except Exception:
+                self.flushes["pool"] += 1
+                plan = None
+        if plan is not None:
+            rows, starts, budget, clamp = plan
+            for slot in clamp:
+                # the chained dispatch parks this row clamped at seq_len - 1
+                slot.clamp_pos = self.spec.seq_len - 1
+            nxt = self._issue_super_step(rows, self.superstep, budget, starts, chain=fl)
+        status = self._deliver_super_step(fl)
+        if nxt is not None:
+            reason = self._chain_divergence(nxt, status)
+            if reason is not None:
+                self.flushes[reason] += 1
+                self.rollback_tokens += sum(nxt.budget)
+            else:
+                self._inflight = nxt
+
+    def _plan_chain(self, fl: _InflightStep):
+        """The schedule of the super-step after `fl`, assuming `fl` delivers every
+        budgeted token: the same rows with budgets re-derived from the expected
+        positions and output lengths. Returns (rows, starts, budget, clamp slots), or
+        None when no row would decode 2 or more steps (the single-step path takes over)
+        or a row was cancelled (its reap comes next pass)."""
+        k, s = self.superstep, self.spec.seq_len
+        starts = [st + g for st, g in zip(fl.starts, fl.budget)]
+        budget = [0] * self.slots_n
+        rows: list[tuple[_Slot, BatchRequest]] = []
+        clamp: list[_Slot] = []
+        for slot, req in fl.rows:
+            i = slot.index
+            if req.cancelled:
+                return None
+            b = min(k, req.max_tokens - (len(req.out) + fl.budget[i]), s - starts[i])
+            if b > 0:
+                budget[i] = b
+                rows.append((slot, req))
+            elif starts[i] >= s:
+                clamp.append(slot)
+        if not rows or max(budget) < 2:
+            return None
+        return rows, starts, budget, clamp
+
+    def _issue_super_step(self, rows: list, k: int, budget: list[int], starts: list[int],
+                          chain: _InflightStep | None = None) -> _InflightStep:
+        """Queue one K-step batched decode without waiting for it. chain=None uploads
+        host state (each row's last token and position, each sampler's xorshift*
+        state); chain=<predecessor> starts from that dispatch's device carry, with
+        `starts`/`budget` the caller's speculative schedule. The block's copy to the
+        host starts right after the dispatch."""
+        eng = self._eng
+        n = self.slots_n
+        temps, topps, tokens = [0.0] * n, [0.9] * n, [0] * n
+        rng = np.zeros((n, 2), np.int64)
+        for slot, req in rows:
+            i = slot.index
+            smp = req.sampler
+            temps[i] = float(getattr(smp, "temperature", 0.0))
+            topps[i] = float(getattr(smp, "topp", 0.9))
+            if chain is None:
+                tokens[i] = slot.last_token
+                state = int(getattr(smp, "state", 0)) & ((1 << 64) - 1)
+                rng[i] = state >> 32, state & 0xFFFFFFFF
+        mode = "greedy" if all(t == 0.0 for t in temps) else "sample"
+        window = eng._window_for(min(max(st + max(b, 1) for st, b in zip(starts, budget)),
+                                     self.spec.seq_len))
+        loop = self._batched_loop(k, mode, window)
+        if chain is None:
+            tok_in, pos_in, rng_in = tokens, starts, rng
+        else:
+            tok_in, pos_in, rng_in = chain.tok, chain.pos, chain.rng
+            self.chained += 1
+        t_issue = time.perf_counter()
+        tables = self._tables() if self.kv_pool is not None else None
+        toks, tok, pos, rng_out, _, _ = loop(eng.rope, tok_in, eng.k_cache, eng.v_cache,
+                                             pos_in, rng_in, temps, topps, budget, tables)
+        fetch = copy_to_host(toks, rng_out.T)
+        self.dispatches += 1
+        self.loop_steps += k
+        return _InflightStep(rows, k, starts, budget, temps, fetch, tok, pos, rng_out,
+                             t_issue)
+
+    def _deliver_super_step(self, fl: _InflightStep) -> dict[int, str]:
+        """Wait for an issued super-step's (K, B) block, then per row emit its tokens
+        with the stop/EOS/max checks and resync the sampler (a full delivery adopts the
+        device state, a partial one replays exactly the delivered coins). Returns per
+        slot index "alive" (full budget delivered, still decoding) or the finish
+        reason: the check of a dispatch chained from this one."""
+        k, s = fl.k, self.spec.seq_len
+        toks, rng_out = fl.fetch()  # the super-step's one fence
+        t_ready = time.perf_counter()
+        # the dispatch could not start before its issue nor before the previous
+        # block was ready
+        base = fl.t_issue
+        if self._last_ready_t is not None and self._last_ready_t > base:
+            base = self._last_ready_t
+        dev_ms = max((t_ready - base) * 1000.0, 1e-6)
+        self._last_ready_t = t_ready
+        self.decode_steps += 1
+        self.super_steps += 1
+        self.dispatch_ms["super"].append(dev_ms)
+        status: dict[int, str] = {}
+        for slot, req in fl.rows:
+            i = slot.index
+            b = fl.budget[i]
+            if slot.req is not req or req.done.is_set():
+                # reaped (cancel, close) between issue and delivery
+                self.rollback_tokens += b
+                status[i] = "cancelled"
+                continue
+            if not self._advance_row(slot):
+                # a chained dispatch consumes the previous block's tail token here; a
+                # cancel seen now finishes the row and discards its block
+                self.rollback_tokens += b
+                status[i] = req.finish
+                continue
+            if b < k and fl.starts[i] + b >= s:
+                # the block parked this row clamped at s - 1 after its budget
+                slot.clamp_pos = s - 1
+            block = toks[:b, i].tolist()
+            smp = req.sampler
+            state0 = int(getattr(smp, "state", 0))
+            per_tok = dev_ms / b
+            x = slot.last_token  # the input the block's first step ingested
+            slot.armed = False
+            alive = True
+            delivered = 0
+            try:
+                for tok in block:
+                    if req.cancelled:
+                        self._finish(slot, "cancelled")
+                        alive = False
+                        break
+                    slot.history.append(x)
+                    slot.pos += 1  # pos counts ingestions through this token's input
+                    req.stats.token_ms.append(per_tok)
+                    req.stats.infer_ms.append(per_tok)
+                    delivered += 1
+                    if not self._emit(slot, tok):
+                        alive = False
+                        break
+                    x = tok
+            except Exception as e:
+                # a broken callback fails only this request
+                req.error = e
+                self._finish(slot, "error")
+                alive = False
+            self.rollback_tokens += b - delivered  # the tail past a stop, on masked slots
+            if fl.temps[i] != 0.0 and hasattr(smp, "state"):
+                # the sampler advances by the coins of the DELIVERED tokens only, so a
+                # sampler reused across requests sees one unbroken stream
+                if alive and delivered == b:
+                    smp.state = np.uint64((int(rng_out[0, i]) << 32) | int(rng_out[1, i]))
+                else:
+                    s64 = np.uint64(state0)
+                    for _ in range(delivered):
+                        s64, _ = _random_u32(s64)
+                    smp.state = s64
+            if alive:
+                # the block's tail is sampled and delivered, its KV not yet written
+                slot.next_token = block[-1]
+                slot.last_logits = None
+                if slot.clamp_pos is not None:
+                    del slot.history[slot.clamp_pos:]
+                    slot.clamp_pos = None
+            status[i] = "alive" if alive else req.finish
+        return status
+
+    @staticmethod
+    def _chain_divergence(nxt: _InflightStep, status: dict[int, str]) -> str | None:
+        """None when every row the chained dispatch decodes delivered its predecessor's
+        full budget and is still live; else the flush reason."""
+        for slot, _req in nxt.rows:
+            st = status.get(slot.index, "cancelled")
+            if st != "alive":
+                return {"stop": "stop", "cancelled": "cancel",
+                        "error": "error"}.get(st, "finish")
+        return None

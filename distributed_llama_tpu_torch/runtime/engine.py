@@ -10,6 +10,13 @@ below), or, for the batched serving engine (runtime/batch_engine.py), `batch` ro
 dense (L, B, hk, S, hs) caches or, with `kv_pool=(n_blocks, block_tokens)`, in
 (L, N, hk, bt, hs) block pools read through per-row block tables (`step_rows`).
 
+One-token steps of the single-sequence loop run a step function of static device
+buffers (the token and a 0-d position tensor): on the card with the kernels on it is
+captured once per window bucket as a CUDA graph and replayed (runtime/step_graph.py, the
+counterpart of the JAX engine's jitted step; `cuda_graph=False` runs the same step
+eagerly beside it), on the CPU it runs eagerly. Prefill chunks of more than one token
+run eagerly. generate_chunked runs the K-step device loop (runtime/device_loop.py).
+
 The engine runs on `cuda` unless the caller passes device="cpu"; without a GPU and
 without device="cpu" it raises. It never moves to the CPU on its own.
 """
@@ -29,6 +36,7 @@ from ..models.spec import ModelSpec
 from ..ops.rope import RopeTables
 from ..quants import FloatType
 from ..tokenizer.bpe import Tokenizer
+from .step_graph import StepGraphs, copy_to_host
 
 PREFILL_CHUNKS = (64, 8, 1)
 
@@ -72,7 +80,8 @@ class Engine:
                  *, device=None, dtype=None, use_kernels: bool | None = None,
                  prefill_kernel: bool = False, fused_matmul: bool = False,
                  batch: int = 1, kv_pool: tuple[int, int] | None = None,
-                 paged_kernel: bool | None = None, fused_prologue: bool | None = None):
+                 paged_kernel: bool | None = None, fused_prologue: bool | None = None,
+                 cuda_graph: bool = True):
         if spec.is_moe:
             raise NotImplementedError("the port runs dense models only")
         self.spec = spec
@@ -125,6 +134,13 @@ class Engine:
             self.k_cache, self.v_cache = init_kv_cache(spec, batch, dtype=self.dtype,
                                                        device=self.device)
         self.pos = 0
+        # the decode steps replay CUDA graphs on the card with the kernels on
+        self.cuda_graph = bool(cuda_graph) and on_gpu and bool(self.use_kernels)
+        self.graphs = StepGraphs(self.device, self.cuda_graph)
+        # the one-token step's static inputs: the token and a 0-d position
+        self._tok1 = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
+        self._pos1 = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._decode_loops: dict = {}
 
     @classmethod
     def load(cls, model_path: str, tokenizer_path: str | None = None, *,
@@ -177,13 +193,28 @@ class Engine:
         t = len(tokens)
         if self.pos + t > self.spec.seq_len:
             raise ValueError(f"context overflow: pos {self.pos} + {t} > {self.spec.seq_len}")
-        toks = torch.from_numpy(tokens)[None, :].to(self.device)
-        logits, self.k_cache, self.v_cache = forward(
-            self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache, self.pos,
-            dtype=self.dtype, use_kernels=self.use_kernels,
-            attn_window=self._window_for(self.pos + t), fused_prologue=self.fused_prologue)
+        window = self._window_for(self.pos + t)
+        if t == 1:
+            self._tok1.fill_(int(tokens[0]))
+            self._pos1.fill_(self.pos)
+            logits = self.graphs.run(("step", "logits", window, 1),
+                                     lambda: self._step_t1(window))
+        else:
+            toks = torch.from_numpy(tokens)[None, :].to(self.device)
+            logits, _, _ = forward(
+                self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache,
+                self.pos, dtype=self.dtype, use_kernels=self.use_kernels,
+                attn_window=window, fused_prologue=self.fused_prologue)
         self.pos += t
         return logits[0].cpu().numpy()  # host transfer: the step's fence
+
+    def _step_t1(self, window: int | None) -> torch.Tensor:
+        """The one-token step on the static token and position: (1, 1, vocab) logits."""
+        logits, _, _ = forward(
+            self.params, self.spec, self.rope, self._tok1, self.k_cache, self.v_cache,
+            self._pos1, dtype=self.dtype, use_kernels=self.use_kernels,
+            attn_window=window, fused_prologue=self.fused_prologue)
+        return logits
 
     def step_rows(self, tokens_rows, starts, tables: torch.Tensor | None,
                   reads: list[tuple[int, int]]) -> np.ndarray:
@@ -255,17 +286,90 @@ class Engine:
         logits = self.prefill(prompt_tokens, stats)
         return self._decode(logits, max_tokens, sampler, stats, on_token, stop_check), stats
 
+    def generate_with(self, prompt_tokens: list[int], max_tokens: int, sampler, *,
+                      device_loop_chunk: int = 0, **kw) -> tuple[list[int], GenerationStats]:
+        """generate or generate_chunked: the single switch point for the entry points'
+        --device-loop flag, as in the JAX engine."""
+        if device_loop_chunk > 0:
+            return self.generate_chunked(prompt_tokens, max_tokens, sampler,
+                                         chunk=device_loop_chunk, **kw)
+        return self.generate(prompt_tokens, max_tokens, sampler, **kw)
+
+    def _decode_loop(self, chunk: int, mode: str, window: int | None):
+        key = (chunk, mode, window)
+        if key not in self._decode_loops:
+            from .device_loop import make_decode_loop
+
+            self._decode_loops[key] = make_decode_loop(
+                self.spec, self.params, chunk, mode=mode, dtype=self.dtype,
+                use_kernels=self.use_kernels, attn_window=window,
+                fused_prologue=self.fused_prologue, graphs=self.graphs)
+        return self._decode_loops[key]
+
     def generate_chunked(self, prompt_tokens: list[int], max_tokens: int, sampler,
-                         on_token=None, stop_check=None) -> tuple[list[int], GenerationStats]:
-        """The JAX package's device-loop generation shape: the prompt minus its last
-        token is prefilled and the last prompt token enters as the first decode step.
-        The port has no on-device loop yet (no chunk of steps per dispatch), so each
-        step is a host step and sampling is the host xorshift* sampler: greedy output
-        equals the JAX device loop's, and a seeded stochastic stream equals this
-        engine's generate()."""
+                         on_token=None, stop_check=None, chunk: int = 16,
+                         ) -> tuple[list[int], GenerationStats]:
+        """Generate with the device loop (runtime/device_loop.py): forward and sampling
+        stay on the card, and each dispatch of `chunk` steps (a CUDA graph replayed
+        `chunk` times on the card) returns `chunk` tokens after one host fence, their
+        copy to pinned memory. The prompt minus its last token is prefilled; the last
+        prompt token enters as the first loop step. Greedy output is the host loop's;
+        stochastic coins come from the JAX engine's threefry stream (key PRNGKey(seed),
+        split per chunk, fold_in per step), so a seeded run gives the JAX
+        generate_chunked's tokens, not the xorshift* host sampler's.
+
+        Near the context end (fewer than `chunk` positions left) the host loop decodes
+        the tail. A stop inside a chunk advances the position only to the stop: the
+        cache rows past it are overwritten by later writes."""
+        from .device_loop import prng_key, split
+
         stats = GenerationStats()
         if len(prompt_tokens) > 1:
             self.prefill(prompt_tokens[:-1], stats)
         stats.prompt_tokens = len(prompt_tokens)
-        logits = self.infer_chunk(prompt_tokens[-1:])
-        return self._decode(logits, max_tokens, sampler, stats, on_token, stop_check), stats
+        # sampler.state is a full-range uint64; the JAX engine masks it to an int64 seed
+        key = prng_key(int(getattr(sampler, "state", 0)) & (2**63 - 1))
+        temperature = getattr(sampler, "temperature", 0.0)
+        topp = getattr(sampler, "topp", 0.9)
+        mode = "greedy" if temperature == 0.0 else "sample"
+        out: list[int] = []
+        token = prompt_tokens[-1]
+        done = False
+        while not done and len(out) < max_tokens:
+            want = max_tokens - len(out)
+            seq_left = self.spec.seq_len - self.pos
+            if seq_left <= 0:
+                break
+            if seq_left < chunk:
+                tail, tail_stats = self.generate([token], min(want, seq_left), sampler,
+                                                 on_token=on_token, stop_check=stop_check)
+                out.extend(tail)
+                stats.generated_tokens += len(tail)
+                stats.token_ms.extend(tail_stats.token_ms)
+                stats.infer_ms.extend(tail_stats.infer_ms)
+                break
+            # the full chunk always runs; a short tail (want < chunk) keeps its first
+            # tokens, and the cache rows past pos are overwritten later
+            loop = self._decode_loop(chunk, mode, self._window_for(self.pos + chunk))
+            t0 = time.perf_counter()
+            key, sub = split(key)
+            toks, _, _, _ = loop(self.rope, token, self.k_cache, self.v_cache, self.pos,
+                                 sub.tolist(), temperature, topp)
+            tokens = copy_to_host(toks)()[0][:want].tolist()  # the chunk's one fence
+            # per-token time: the dispatch computes `chunk` tokens even when fewer are kept
+            dt_ms = (time.perf_counter() - t0) * 1000.0 / chunk
+            for i, t in enumerate(tokens):
+                out.append(t)
+                stats.generated_tokens += 1
+                stats.token_ms.append(dt_ms)
+                stats.infer_ms.append(dt_ms)
+                if on_token is not None:
+                    on_token(t)
+                if stop_check is not None and stop_check(t):
+                    done = True
+                    self.pos += i + 1
+                    break
+            else:
+                self.pos += len(tokens)
+                token = tokens[-1]
+        return out, stats

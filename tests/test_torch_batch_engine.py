@@ -1,6 +1,7 @@
 """PyTorch port: the continuous-batching BatchEngine (runtime/batch_engine.py) against
 the JAX package's BatchEngine in the same configuration (tp=1, superstep=1,
-pipeline=False, prefix_cache=False) on one tiny `.m`/`.t` pair.
+pipeline=False, prefix_cache=False) on one tiny `.m`/`.t` pair (super-steps:
+tests/test_torch_superstep.py).
 
 Requests are staggered deterministically: request i+1 is submitted from request i's
 token callback after its third token, so both engines see the same schedule — prefill
@@ -163,7 +164,7 @@ def test_release_idle_races_the_scheduler_safely(model_files):
     assert be.release_idle() == be.kv_pool.n_blocks - 1
 
 
-@pytest.mark.parametrize("kw", [dict(superstep=2), dict(speculative=1),
+@pytest.mark.parametrize("kw", [dict(speculative=1),
                                 dict(draft_model="draft.m"), dict(prefix_cache=True),
                                 dict(tenants=object()), dict(slo_ttft_interactive=1.0)])
 def test_out_of_slice_arguments_raise(model_files, kw):

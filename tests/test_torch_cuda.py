@@ -35,6 +35,7 @@ from distributed_llama_tpu_torch.ops import q4_matmul as mm
 from distributed_llama_tpu_torch.ops import q4_matvec as mv
 from distributed_llama_tpu_torch.ops import q8_matvec as q8
 from distributed_llama_tpu_torch.quants import FloatType
+from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
 from distributed_llama_tpu_torch.runtime.engine import Engine
 from distributed_llama_tpu_torch.runtime.sampler import Sampler
 
@@ -694,7 +695,9 @@ def test_engine_kernels_match_cpu_plain(cuda):
                      n_heads=4, n_kv_heads=2, vocab_size=300, seq_len=512).resolved()
     params = init_random_params(spec, FloatType.Q40, seed=5)
     kw = dict(dtype=torch.float32, use_kernels=True, prefill_kernel=True)
-    gpu = Engine(spec, params, device="cuda", **kw)
+    # eager steps: the recorder below copies each row to the host, which a graph capture
+    # cannot hold (test_graph_replay_matches_eager holds the replay to the eager step)
+    gpu = Engine(spec, params, device="cuda", cuda_graph=False, **kw)
     cpu = Engine(spec, params, device="cpu", **kw)
     # the activation rows every kernel-path matmul receives, to count the values whose
     # Q80 code (matvec rows) or bf16 rounding (matmul rows) differs between the runs
@@ -861,3 +864,146 @@ def test_batch_engine_7b_width_matches_cpu_plain(cuda):
     import chip_smoke
 
     assert "tokens identical" in chip_smoke.serving_parity()
+
+
+# ------------------------------------------------------------------ CUDA graphs, loops
+
+
+DECODE_PATHS = [("q40", False), ("q40", True), ("q80", False), ("q80", True)]
+
+
+def _path_engines(dev, fmt: str, prologue: bool, seed: int = 31):
+    """A 2-layer model at Llama-2-7B width (bf16, random weights drawn on the card in
+    the kernels' layout) behind two Engines on the same weights: CUDA graphs on (the
+    default) and off."""
+    import chip_smoke
+
+    spec = chip_smoke._llama2_7b(n_layers=2)
+    draw = chip_smoke._random_i4p_params if fmt == "q40" else chip_smoke._random_i8_params
+    params = draw(spec, dev, seed=seed)
+    kw = dict(device="cuda", prefill_kernel=fmt == "q40", fused_prologue=prologue)
+    return spec, Engine(spec, params, **kw), Engine(spec, params, cuda_graph=False, **kw)
+
+
+def _prompt(n: int, seed: int) -> list[int]:
+    return [1] + np.random.RandomState(seed).randint(3, 32000, n - 1).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,prologue", DECODE_PATHS)
+def test_graph_replay_matches_eager(cuda, fmt, prologue):
+    """The one-token step replayed from its CUDA graph gives the eager step's logits bit
+    for bit at every step (one graph per window bucket: the prompt and 12 tokens cross
+    from window 256 into 512)."""
+    import chip_smoke
+
+    spec, graph_eng, eager = _path_engines(cuda, fmt, prologue)
+    assert graph_eng.cuda_graph and not eager.cuda_graph
+    prompt = _prompt(250, 3)
+    runs = []
+    for eng in (graph_eng, eager):
+        smp = chip_smoke._CheckedSampler(spec.vocab_size, keep=True)
+        runs.append((eng.generate(prompt, 12, smp)[0], smp.kept))
+    (tg, lg), (te, le) = runs
+    assert tg == te and len(lg) == len(le) == 12
+    assert all(np.array_equal(a, b) for a, b in zip(lg, le))
+    assert graph_eng.graphs.captures == 2 and graph_eng.graphs.replays >= 12
+    assert eager.graphs.replays == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,prologue", DECODE_PATHS)
+def test_device_loop_matches_host_loop(cuda, fmt, prologue):
+    """generate_chunked (the K-step device loop, each step a graph replay) gives the
+    host loop's greedy tokens after the same prefill (the prompt but its last token in
+    chunks, the last token as the first one-token step); a seeded stochastic loop
+    repeats itself."""
+    import chip_smoke
+
+    spec, eng, _ = _path_engines(cuda, fmt, prologue)
+    prompt = _prompt(40, 4)
+    host = chip_smoke.host_loop_tokens(eng, prompt, 24)
+    eng.reset()
+    loop = eng.generate_chunked(prompt, 24, Sampler(spec.vocab_size, 0.0), chunk=8)[0]
+    assert loop == host
+    sampled = []
+    for _ in range(2):
+        eng.reset()
+        sampled.append(eng.generate_chunked(prompt, 16, Sampler(spec.vocab_size, 0.8, 0.9,
+                                                                seed=5), chunk=8)[0])
+    assert sampled[0] == sampled[1] and all(0 <= t < spec.vocab_size for t in sampled[0])
+
+
+@pytest.mark.cuda
+def test_superstep_pipelined_batch_engine_matches_superstep_1(cuda):
+    """The fused BatchEngine at 2 layers of Llama-2-7B width: super-steps of 4,
+    pipelined (each step a graph replay), give the single-step engine's greedy tokens.
+    Request i+1 arrives at request i's first token, so both engines run the same mixed
+    steps and their decode steps the same kernels."""
+    import chip_smoke
+
+    spec = chip_smoke._llama2_7b(n_layers=2)
+    params = chip_smoke._random_i4p_params(spec, cuda, seed=41, gate_pair=True)
+    prompts = [_prompt(n, 10 + n) for n in (70, 9, 33, 17)]
+    outs = []
+    for k in (1, 4):
+        be = BatchEngine(spec, params, slots=4, device="cuda", fused_matmul=True,
+                         superstep=k)
+        try:
+            reqs, _ = chip_smoke.staggered(be, prompts, 14, after=1)
+            outs.append([r.out for r in reqs])
+            if k == 4:
+                assert be.super_steps > 0 and be.chained > 0
+                assert be.engine.graphs.replays == be.loop_steps
+        finally:
+            be.close()
+    assert outs[0] == outs[1]
+
+
+def _split_calls(dev):
+    """One call of each kernel that splits its work and merges through the shared tile
+    counters, at the decode shapes where it splits: decode_attention, paged_attention
+    and the split-K Q40 dequant-matmuls (the plan of the plain mode splits)."""
+    q, kc, vc, kn, vn = _decode_inputs(dev, torch.bfloat16, 8, 4, 128, s=2048, seed=3)
+    pos = torch.full((1,), 1500, dtype=torch.int64, device=dev)
+    layer = torch.ones(1, dtype=torch.int32, device=dev)
+    x = torch.randn(8, 11008, device=dev).to(torch.bfloat16)
+    packed, scales = _planes(4096, 11008, dev, 5)
+    pq, pkc, pvc, pkn, pvn, tables, lens, w = _paged_inputs(dev, torch.bfloat16, 1, 1, 32,
+                                                            128, [1900, 700, 1200, 5])
+    lib = attention_plan.cuda_build.load("q4_matmul", mm._SIGNATURES)
+    p = mm.mm_plan.plan(8, 4096, 11008, 1, mm.mm_plan.resident_blocks(
+        lib, "q4_matmul_blocks_per_sm", mm.mm_plan.pick_tile(8), dev.index))
+    assert p.splits > 1
+    res = torch.randn(8, 4096, device=dev).to(torch.bfloat16)
+    xg = x[:, :4096].contiguous()
+    pair = (_planes(11008, 4096, dev, 6), _planes(11008, 4096, dev, 7))
+    return {"decode_attention": lambda: da._launch(q, kc, vc, kn, vn, layer, pos, 2048),
+            "paged_attention": lambda: pa._launch(pq, pkc, pvc, pkn, pvn, tables, lens,
+                                                  layer, w),
+            "q4_matmul": lambda: mm._launch(x, packed, scales, out_dtype=torch.bfloat16),
+            "q4_matmul_res": lambda: mm._launch(x, packed, scales, res,
+                                                out_dtype=torch.bfloat16),
+            "q4_gated_matmul": lambda: gm._launch(xg, *pair, "silu",
+                                                  out_dtype=torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention", "paged_attention", "q4_matmul",
+                                    "q4_matmul_res", "q4_gated_matmul"])
+def test_split_kernel_counters_reset_across_replays(cuda, kernel):
+    """A split kernel captured once and replayed 100 times writes the same bits every
+    time and leaves the shared tile counters zero: a counter left set would make a later
+    replay merge too early."""
+    fn = _split_calls(cuda)[kernel]
+    want = fn()  # warm-up: build, attributes, buffers
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(100):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    counters = attention_plan.merge_counters(cuda, 1)
+    assert int(counters.abs().sum()) == 0
