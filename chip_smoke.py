@@ -31,6 +31,18 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             the device-busy share of the decode step
   http      the port's api_server serve() on the same 7B engine with a synthetic
             32000-piece tokenizer: 4 concurrent chat completions (one SSE) over HTTP
+  moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
+            with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
+            phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
+            launches per token against the schedule — 193 q4_matvec launches, 128 of
+            them through the expert entry — 16 steps' logits bit-identical graph and
+            eager, the device loop's tokens the host loop's, ms/token, idle share and
+            busy against the token's byte floor), the distinct experts each layer chose,
+            and the peak memory; Mixtral on random Q80 weights (i8, 8 layers: the
+            q8_matvec expert entry's path); Mixtral at 2 layers in f32, card against CPU
+            (the Engine, and the fused BatchEngine on 4 staggered requests); Grok-1's
+            block at full width (grok1_l2: 2 layers, 16 greedy tokens, graph against
+            eager, and card against CPU in f32)
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
@@ -46,14 +58,18 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             pre-quantized matvec pairs on Q40 and on Q80 weights (the chain's outputs
             bit-identical, queued behind a spin kernel so the programmatic launches
             overlap, to synchronized calls and to its CUDA graph's replay; its device
-            time beside the matvecs alone and its byte bound)
+            time beside the matvecs alone and its byte bound); the matvecs' expert
+            entries at Mixtral-8x7B's expert shapes, each call reading another expert of
+            an 8-expert stack from its device index, beside the 2-D entry on the same
+            planes
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers
 
-When the model, q80, serve and kernels phases all ran, it prints before the last line
+When the model, q80, serve, moe and kernels phases all ran, it prints before the last line
 {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces, launches in
 its path's run — `path` names the run: the model phase and its prologue run, the q80
-phase's runs (a) and (b), the serve phase's superstep-8 run; the precise mode of
+phase's runs (a) and (b), the serve phase's superstep-8 run, the moe phase's Mixtral
+runs (Q40 and Q80); the precise mode of
 q8_matvec has no path and
 reports its launches in the kernels phase — max_abs_err, ms, plain_ms, bound_ms,
 bound_by, library_ms). The last line is {"ok": true, "device": {...}}. Exits nonzero
@@ -63,6 +79,7 @@ without printing a result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -80,7 +97,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
-ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "kernels", "cli")
+ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "moe", "kernels",
+              "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -92,7 +110,9 @@ KERNELS = {
     "q4_matmul_res": ("q4_matmul", _TPU + "pallas_q4_mm.py:220", "serve, superstep 8"),
     "q4_gated_matmul": ("q4_gated_matmul", _TPU + "pallas_q4_mm.py:246",
                         "serve, superstep 8"),
+    "q4_matvec_expert": ("q4_matvec", _TPU + "pallas_q4.py:142", "moe, Mixtral-8x7B"),
     "q8_matvec": ("q8_matvec", _TPU + "pallas_q8.py:107", "q80, run (a)"),
+    "q8_matvec_expert": ("q8_matvec", _TPU + "pallas_q8.py:107", "moe, Mixtral Q80"),
     "q8_matvec_precise": ("q8_matvec", _TPU + "pallas_q8.py:107",
                           "kernels phase (the precise body, _matvec_kernel_f32 at "
                           "pallas_q8.py:56, has no path: no entry point passes precise)"),
@@ -328,9 +348,18 @@ def phase_build(state: dict) -> None:
                         log(f"[build] {name}: {line.strip()}")
 
 
-def _random_i4p(n: int, k: int, gen: torch.Generator, dev) -> tuple[torch.Tensor, ...]:
-    packed = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, generator=gen, device=dev)
-    scales = (torch.rand((n, k // 32), generator=gen, device=dev) * 0.004 + 0.002
+def _random_i4p(n: int, k: int, gen: torch.Generator, dev, lead: tuple = (),
+                lo: int = 0) -> tuple[torch.Tensor, ...]:
+    """Random i4p planes (*lead, N, K/2) u8 and f16 scales (*lead, N, K/32): bytes
+    uniform over 0..255, or with `lo` each nibble uniform over lo..15."""
+    shape = (*lead, n, k // 2)
+    if lo:
+        packed = torch.randint(lo, 16, shape, dtype=torch.uint8, generator=gen, device=dev)
+        packed |= torch.randint(lo, 16, shape, dtype=torch.uint8, generator=gen,
+                                device=dev) << 4
+    else:
+        packed = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen, device=dev)
+    scales = (torch.rand((*lead, n, k // 32), generator=gen, device=dev) * 0.004 + 0.002
               ).to(torch.float16)
     return packed, scales
 
@@ -445,7 +474,6 @@ def _all_kernels_ms(fn, iters: int) -> float:
 
 def phase_kernels(state: dict) -> None:
     from distributed_llama_tpu_torch.ops import decode_attention as da
-    from distributed_llama_tpu_torch.ops import q4_matmul as mm
     from distributed_llama_tpu_torch.ops import q4_matvec as mv
 
     dev = torch.device("cuda")
@@ -475,25 +503,7 @@ def phase_kernels(state: dict) -> None:
     cases = [(m, n, k) for m in (8, 64) for n, k in SHAPES_7B]
     cases += [(512, n, k) for n, k in (SHAPES_7B[0], SHAPES_7B[4])]
     for m, n, k in cases:
-        wbytes = n * k // 2 + n * k // 32 * 2
-        copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
-        ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
-        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-        y = mm._launch(x, *ws[0], out_dtype=BF16)
-        ref = mm.q4_matmul_plain(x, *ws[0])
-        err, tol = _bf16_err(y, ref)
-        ev, dv, how, _ = _one_launch_time(
-            lambda i: mm._launch(x, *ws[i % copies], out_dtype=BF16), 20,
-            "q4_matmul_tc_kernel")
-        plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(x, *ws[i % copies]), 3)
-        nbytes = wbytes + m * k * 2 + m * n * 2
-        flops = 2 * m * n * k
-        bnd = bound(nbytes, flops, "bf16", rate)
-        _q4_log("q4_matmul", f"M={m} N={n} K={k}", err, tol, dv, how, ev, plain, bnd,
-                nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20))
-        _record(state, "q4_matmul", err, tol, dv, plain, bnd, None, f"M={m},N={n},K={k}")
-        state["q4"][("q4_matmul", m, n, k)] = (dv, bnd[0])
-        del ws
+        _q4_matmul_row(state, m, n, k, gen, dev, rate)
 
     # kernel 3 — tolerance 1e-4·max|out|: q and p enter the tensor cores as bf16 hi/lo
     # pairs against exact bf16 K/V rows (~2^-16 relative), the softmax runs in f32 in
@@ -571,8 +581,35 @@ def phase_kernels(state: dict) -> None:
     torch.cuda.empty_cache()
     _kernels_q80(state, gen, dev, rate)
     torch.cuda.empty_cache()
+    _kernels_moe(state, gen, dev, rate)
+    torch.cuda.empty_cache()
     _q4_step_sums(state["q4"])
     log(f"[kernels] profiler windows: {json.dumps(PROFILE_WINDOWS)}")
+
+
+def _q4_matmul_row(state: dict, m: int, n: int, k: int, gen, dev, rate: float) -> None:
+    """Hold q4_matmul at M x N x K (bf16 row and output) against its plain version
+    (`_bf16_err`), time it as one launch per call and record the row with its bound."""
+    from distributed_llama_tpu_torch.ops import q4_matmul as mm
+
+    wbytes = n * k // 2 + n * k // 32 * 2
+    copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))  # defeat L2 reuse
+    ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    y = mm._launch(x, *ws[0], out_dtype=BF16)
+    ref = mm.q4_matmul_plain(x, *ws[0])
+    err, tol = _bf16_err(y, ref)
+    ev, dv, how, _ = _one_launch_time(
+        lambda i: mm._launch(x, *ws[i % copies], out_dtype=BF16), 20,
+        "q4_matmul_tc_kernel")
+    plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(x, *ws[i % copies]), 3)
+    nbytes = wbytes + m * k * 2 + m * n * 2
+    flops = 2 * m * n * k
+    bnd = bound(nbytes, flops, "bf16", rate)
+    _q4_log("q4_matmul", f"M={m} N={n} K={k}", err, tol, dv, how, ev, plain, bnd,
+            nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20))
+    _record(state, "q4_matmul", err, tol, dv, plain, bnd, None, f"M={m},N={n},K={k}")
+    state["q4"][("q4_matmul", m, n, k)] = (dv, bnd[0])
 
 
 def _q4_step_sums(t: dict) -> None:
@@ -944,6 +981,109 @@ def _kernels_q80(state: dict, gen, dev, rate: float) -> None:
         torch.cuda.empty_cache()
 
 
+# the expert matmuls of a Mixtral-8x7B decode token as (N, K): moe_gu and moe_down
+SHAPES_MIXTRAL = ((28672, 4096), (4096, 14336))
+# grok1_l2's: moe_gu and moe_down
+SHAPES_GROK_EXPERTS = ((65536, 6144), (6144, 32768))
+# the moe phase's 2-D projections the 7B shapes do not cover: Mixtral's wqkv (its wo and
+# wcls are the 7B shapes), grok1_l2's wqkv, wo and wcls
+SHAPES_MOE_2D = ((6144, 4096), (8192, 6144), (6144, 6144), (131072, 6144))
+
+
+def _kernels_moe(state: dict, gen, dev, rate: float) -> None:
+    """The moe phase's kernels at its own shapes against their plain versions: the 2-D
+    q4_matvec (and q8_matvec at Mixtral's wqkv, the Q80 run's) at the projections the 7B
+    rows do not cover, q4_matmul at M = 8 and 64 (the prefill chunks) at every
+    projection of the two models' that is not a 7B shape, and the expert entries."""
+    from distributed_llama_tpu_torch.ops import q4_matvec as mv
+    from distributed_llama_tpu_torch.ops import q8_matvec as q8
+
+    for n, k in SHAPES_MOE_2D:
+        wbytes = n * k // 2 + n * k // 32 * 2
+        copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
+        ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
+        x = _test_row(k, gen, dev, BF16)
+        _matvec_row(state, "q4_matvec", lambda i: mv._launch(x, *ws[i % copies], BF16),
+                    lambda i: mv.q4_matvec_plain(x, *ws[i % copies]),
+                    wbytes + k * 2 + n * 2, n, k, rate, "q4_matvec_kernel", "bfloat16")
+        del ws
+    n, k = SHAPES_MOE_2D[0]
+    wbytes = n * k + n * k // 32 * 4
+    copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
+    ws = [_random_i8(gen, dev, n, k) for _ in range(copies)]
+    x = _test_row(k, gen, dev, BF16)
+    _matvec_row(state, "q8_matvec", lambda i: q8._launch(x, *ws[i % copies], False, BF16),
+                lambda i: q8.q8_matvec_plain(x, *ws[i % copies]),
+                wbytes + k * 2 + n * 2, n, k, rate, "q8_matvec_kernel", "bfloat16")
+    del ws
+    for m in (8, 64):
+        for n, k in SHAPES_MOE_2D[:1] + SHAPES_MIXTRAL + SHAPES_MOE_2D[1:] + \
+                SHAPES_GROK_EXPERTS:
+            _q4_matmul_row(state, m, n, k, gen, dev, rate)
+        torch.cuda.empty_cache()
+    _kernels_experts(state, gen, dev, rate)
+
+
+def _kernels_experts(state: dict, gen, dev, rate: float) -> None:
+    """The expert entries of the decode matvecs at Mixtral-8x7B's expert shapes (q4 and
+    q8) and grok1_l2's (q4), bf16 row and output as the moe phase calls them: one
+    layer's stack of 8 experts, the call i reading expert i % 8 from its device index
+    (the stack is 2x past the L2, so each call streams its expert from device memory),
+    against the plain version on the same expert (`_matvec_row`: tolerance, one launch
+    per call, bound); and beside it the 2-D entry on the same expert's planes, the time
+    the index read and the offset may add to."""
+    from distributed_llama_tpu_torch.ops import q4_matvec as mv
+    from distributed_llama_tpu_torch.ops import q8_matvec as q8
+
+    n_e = 8
+    es = [torch.tensor([e], dtype=torch.int64, device=dev) for e in range(n_e)]
+    per_token = {}
+    cases = [("q4", s, "Mixtral-8x7B") for s in SHAPES_MIXTRAL]
+    cases += [("q8", s, "Mixtral-8x7B") for s in SHAPES_MIXTRAL]
+    cases += [("q4", s, "grok1_l2") for s in SHAPES_GROK_EXPERTS]
+    for fmt, (n, k), model in cases:
+        name = f"{fmt}_matvec_expert"
+        if fmt == "q4":
+            wbytes = n * k // 2 + n * k // 32 * 2
+            w, sc = _random_i4p(n_e * n, k, gen, dev)
+            w, sc = w.reshape(n_e, n, k // 2), sc.reshape(n_e, n, k // 32)
+            launch, plain, two_d = mv._launch, mv.q4_matvec_expert_plain, mv._launch
+            kname = "q4_matvec_kernel"
+        else:
+            wbytes = n * k + n * k // 32 * 4
+            w, sc = _random_i8(gen, dev, n_e, n, k)
+            launch, plain, two_d = q8._launch, q8.q8_matvec_expert_plain, q8._launch
+            kname = "q8_matvec_kernel"
+        x = _test_row(k, gen, dev, BF16)
+        kw = {} if fmt == "q4" else {"precise": False}
+        _matvec_row(state, name,
+                    lambda i: launch(x, w, sc, out_dtype=BF16, e=es[i % n_e], **kw),
+                    lambda i: plain(x, w, sc, es[i % n_e]),
+                    wbytes + k * 2 + n * 2, n, k, rate, kname, "bfloat16")
+        y2 = two_d(x, w[3], sc[3], out_dtype=BF16, **kw)
+        ye = launch(x, w, sc, out_dtype=BF16, e=es[3], **kw)
+        if not torch.equal(y2, ye):
+            raise AssertionError(f"{name} N={n} K={k}: expert 3 differs from the 2-D "
+                                 f"entry on its planes")
+        _, dv2, how2, _ = _one_launch_time(
+            lambda i: two_d(x, w[i % n_e], sc[i % n_e], out_dtype=BF16, **kw), 50, kname)
+        dv = state["mv"][(name, n, k, "bfloat16")][0]
+        log(f"[kernels] {name} N={n} K={k}: the 2-D entry on the same experts' planes "
+            f"{round(dv2, 5)} ms ({how2}); the expert entry {round(dv, 5)} ms, "
+            f"{dv - dv2:+.5f} ms for the index read; expert 3 bit-identical to the 2-D "
+            f"entry on its planes")
+        # a decode token: 2 experts in each layer, each once through gu and once
+        # through down (Mixtral-8x7B 32 layers, grok1_l2 2)
+        calls = 2 * (32 if model == "Mixtral-8x7B" else 2)
+        acc = per_token.setdefault((name, model, calls), [0.0, 0.0, 0.0])
+        for j, v in enumerate((dv, dv2, state["mv"][(name, n, k, "bfloat16")][1])):
+            acc[j] += calls * v
+        del w, sc
+    for (name, model, calls), (dv, dv2, bnd) in per_token.items():
+        log(f"[kernels] {name} per {model} decode token ({calls} gu + {calls} down "
+            f"calls): {dv:.3f} ms, the 2-D entry {dv2:.3f} ms, bound {bnd:.3f} ms")
+
+
 def _synced_time(fn, iters: int, names: tuple[str, ...]) -> float:
     """Device ms per call of the kernels named, the card synchronized after each call so
     no launch overlaps the one before; where the profiler lost every window, their time
@@ -1112,12 +1252,8 @@ def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False):
     L, d, h = spec.n_layers, spec.dim, spec.hidden_dim
 
     def q40(*shape):
-        n, k = shape[-2], shape[-1]
-        packed = torch.randint(0, 256, (*shape[:-2], n, k // 2), dtype=torch.uint8,
-                               generator=gen, device=dev)
-        scales = (torch.rand((*shape[:-2], n, k // 32), generator=gen, device=dev)
-                  * 0.004 + 0.002).to(torch.float16)
-        return QTensor(FloatType.Q40, packed, scales, layout="i4p")
+        return QTensor(FloatType.Q40, *_random_i4p(shape[-2], shape[-1], gen, dev,
+                                                   shape[:-2]), layout="i4p")
 
     def norm(*shape):
         return 1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)
@@ -1154,6 +1290,94 @@ def _random_i8_params(spec, dev, seed: int):
             "blocks": blocks, "rms_final": norm(d), "wcls": q80(spec.vocab_size, d)}
 
 
+def _random_moe_params(spec, dev, seed: int, fmt: str = "q40"):
+    """Mixtral or Grok-1 params with random weights drawn on `dev` directly in the
+    kernels' layouts, one layer at a time (the transient is one layer's), from a seeded
+    torch.Generator: wqkv, wo, the merged [up | gate] expert stack moe_gu and moe_down,
+    and wcls in i4p (fmt "q40") or i8 ("q80"); the router planar in the same type (the
+    forward pass dequantizes it, as the JAX package runs it); the norms (and Grok-1's
+    rms_moe and rms_ffn2).
+
+    Two choices keep the routing alive over 32 layers of random weights. The embedding
+    has unit scale after Grok-1's multiplier, as a projection of a unit-RMS row has: at
+    0.02 (the 7B draws) a token's own row is lost under the first attention output, and
+    each decode step feeds the next layers nearly the same row, so greedy decoding
+    repeats one token and every layer but the first picks one pair of experts for good
+    (this script's moe phase on the card, with the 7B draws). Q40
+    nibbles come from 1..15, so a weight (q - 8)·d is symmetric about zero as a
+    quantized trained weight is; uniform over 0..15 they have mean -0.5·d, a component
+    every output row shares."""
+    from distributed_llama_tpu_torch.models.forward import GROK_EMBEDDING_SCALE
+    from distributed_llama_tpu_torch.models.spec import ArchType
+    from distributed_llama_tpu_torch.quants import FloatType, QTensor
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, d, h, e = spec.n_layers, spec.dim, spec.hidden_dim, spec.n_experts
+    q40 = fmt == "q40"
+    ft = FloatType.Q40 if q40 else FloatType.Q80
+
+    def draw(shape):  # one (..., N, K) block of weights in the kernel layout
+        if q40:
+            return _random_i4p(shape[-2], shape[-1], gen, dev, shape[:-2], lo=1)
+        return _random_i8(gen, dev, *shape)
+
+    def layered(*shape):  # (L, ..., N, K), drawn layer by layer
+        first = draw(shape[1:])
+        data = torch.empty((L, *first[0].shape), dtype=first[0].dtype, device=dev)
+        scales = torch.empty((L, *first[1].shape), dtype=first[1].dtype, device=dev)
+        data[0], scales[0] = first
+        del first
+        for li in range(1, L):
+            data[li], scales[li] = draw(shape[1:])
+        return QTensor(ft, data, scales, layout="i4p" if q40 else "i8")
+
+    def norm(*shape):
+        return 1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)
+
+    # the router as the file holds it: planar blocks of the weights' type
+    data, scales = draw((L, e, d))
+    router = QTensor(ft, data.reshape(L, e, d // 32, -1), scales.half())
+    blocks = {"wqkv": layered(L, d + 2 * spec.kv_dim, d), "wo": layered(L, d, d),
+              "router": router, "moe_gu": layered(L, e, 2 * h, d),
+              "moe_down": layered(L, e, d, h), "rms_att": norm(L, d), "rms_ffn": norm(L, d)}
+    if spec.arch_type == ArchType.GROK1:
+        blocks.update(rms_moe=norm(L, d), rms_ffn2=norm(L, d))
+    wcls = QTensor(ft, *draw((spec.vocab_size, d)), layout="i4p" if q40 else "i8")
+    emb = 1.0 / GROK_EMBEDDING_SCALE if spec.arch_type == ArchType.GROK1 else 1.0
+    return {"embedding": emb * torch.randn(spec.vocab_size, d, generator=gen, device=dev),
+            "blocks": blocks, "rms_final": norm(d), "wcls": wcls}
+
+
+def _param_bytes(params) -> int:
+    """Bytes of every tensor of a params dict."""
+    from distributed_llama_tpu_torch.quants import QTensor
+
+    leaves = [*params["blocks"].values(), params["wcls"], params["embedding"],
+              params["rms_final"]]
+    return sum(t.nbytes() if isinstance(t, QTensor) else t.nbytes for t in leaves)
+
+
+def _mixtral_8x7b(n_layers: int = 32):
+    """Mixtral-8x7B (the repo's mixtral_8x7b configuration at its full 32 layers)."""
+    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec, RopeType
+
+    return ModelSpec(arch_type=ArchType.MIXTRAL, dim=4096, hidden_dim=14336,
+                     n_layers=n_layers, n_heads=32, n_kv_heads=8, vocab_size=32000,
+                     seq_len=2048, n_experts=8, n_active_experts=2,
+                     rope_type=RopeType.FALCON).resolved()
+
+
+def _grok1(n_layers: int = 2):
+    """Grok-1's block at full width (the repo's grok1_l2 configuration)."""
+    from distributed_llama_tpu_torch.models.spec import (ArchType, HiddenAct, ModelSpec,
+                                                         RopeType)
+
+    return ModelSpec(arch_type=ArchType.GROK1, dim=6144, hidden_dim=32768,
+                     n_layers=n_layers, n_heads=48, n_kv_heads=8, vocab_size=131072,
+                     seq_len=2048, n_experts=8, n_active_experts=2,
+                     hidden_act=HiddenAct.GELU, rope_type=RopeType.FALCON).resolved()
+
+
 def _llama2_7b(n_layers: int = 32):
     from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
 
@@ -1166,20 +1390,25 @@ class _CheckedSampler:
     """Greedy sampling that asserts every logits row it sees is finite, optionally
     keeping a copy of each row. With `force` it returns force[j] at its j-th row
     instead of its own choice (another run's tokens, so two runs decode the same
-    sequence)."""
+    sequence). With `mark` it keeps mark()'s value at each row (where a recorder of the
+    forward pass's calls stood when the row was sampled)."""
 
-    def __init__(self, vocab_size: int, keep: bool = False, force: list | None = None):
+    def __init__(self, vocab_size: int, keep: bool = False, force: list | None = None,
+                 mark=None):
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
 
         self.inner = Sampler(vocab_size, temperature=0.0)
         self.rows = 0
         self.kept: list[np.ndarray] = [] if keep else None
         self.force = force
+        self.mark, self.marks = mark, []
 
     def sample(self, logits: np.ndarray) -> int:
         if not np.isfinite(logits).all():
             raise AssertionError("non-finite logits")
         self.rows += 1
+        if self.mark is not None:
+            self.marks.append(self.mark())
         if self.kept is not None:
             self.kept.append(np.array(logits, dtype=np.float32))
         tok = self.inner.sample(logits)
@@ -1187,7 +1416,7 @@ class _CheckedSampler:
 
 
 def staggered(be, prompts, max_tokens: int, after: int, keep: bool = False,
-              force: list | None = None):
+              force: list | None = None, mark=None):
     """Submit prompts[0]; submit prompts[i+1] from request i's token callback once it
     has `after` tokens, so every engine sees the same schedule (prefill chunks with
     decode rows riding them, then batched decode steps). force[i], where given, are the
@@ -1203,7 +1432,8 @@ def staggered(be, prompts, max_tokens: int, after: int, keep: bool = False,
             n[0] += 1
             if n[0] == after and i + 1 < len(prompts):
                 submit(i + 1)
-        samplers[i] = _CheckedSampler(vocab, keep, None if force is None else force[i])
+        samplers[i] = _CheckedSampler(vocab, keep, None if force is None else force[i],
+                                      mark)
         reqs[i] = be.submit(prompts[i], max_tokens, samplers[i], on_token=on_token)
     submit(0)
     reqs[0].wait(timeout=900)
@@ -1237,36 +1467,119 @@ class _ExactSums:
             mod.q4_matmul_plain = fn
 
 
-def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None) -> str:
-    """The fused BatchEngine at full Llama-2-7B width in f32 with seeded weights: the
-    card with the kernels against the CPU with their plain versions, on 4 staggered
-    requests, the card decoding the CPU's tokens. At every step the logits must be
-    within 2e-3·max|logits| (as the Engine parity: sum order, and an activation whose
-    last bits differ can move one bf16 rounding of an operand), and the card's greedy
-    token the CPU's, unless the CPU's logits of the two lie closer than that tolerance:
-    a near-tie the check cannot order. Each near-tie is then held against a third run,
-    the CPU with every matmul summed exactly (`_ExactSums`), which must put the two
-    tokens within the tolerance too; the report says which one it picks."""
+class _SharedDequant:
+    """While open, the bf16 decode of Q40 planes on the CPU (`q4_matmul.dequant_bf16`,
+    under the plain versions of the dequant-matmul family) runs once per weight and is
+    kept, beside a reference to the planes so that their storage is not reused: the
+    parities' CPU runs read the same weights in every chunk and dispatch. The decode is
+    a pure function of the planes, so every result is bit-identical to an uncached
+    run's."""
+
+    def __enter__(self):
+        from distributed_llama_tpu_torch.ops import q4_matmul as mm
+
+        self._mm, self._fn, cache = mm, mm.dequant_bf16, {}
+
+        def dequant(packed, scales):
+            if packed.device.type != "cpu":
+                return self._fn(packed, scales)
+            key = (packed.data_ptr(), packed.shape, packed.stride(), scales.data_ptr(),
+                   scales.shape, scales.stride())
+            if key not in cache:
+                cache[key] = (packed, scales, self._fn(packed, scales))
+            return cache[key][2]
+        mm.dequant_bf16 = dequant
+        return self
+
+    def __exit__(self, *exc):
+        self._mm.dequant_bf16 = self._fn
+
+
+def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
+                   prompt_lens=(8, 12, 4, 19), crossing_tol: bool = False,
+                   after: int = 2, fed: bool = False, params=None) -> str:
+    """The fused BatchEngine at full Llama-2-7B width (or `spec`'s) in f32 with seeded
+    weights: the card with the kernels against the CPU with their plain versions, on 4
+    staggered requests (prompts of `prompt_lens` tokens), the card decoding the CPU's
+    tokens. At every step the logits must be within 2e-3·max|logits| (as the Engine
+    parity: sum order, and an activation whose last bits differ can move one bf16
+    rounding of an operand) — with crossing_tol, `engine_parity`'s rule: 2e-2·max|logits|
+    once an activation value has rounded differently in the two runs' calls up to that
+    row — and the card's greedy token the CPU's, unless the CPU's logits of the two lie
+    closer than that tolerance: a near-tie the check cannot order. Each near-tie is then
+    held against a third run, the CPU with every matmul summed exactly (`_ExactSums`),
+    which must put the two tokens within the tolerance too; the report says which one
+    it picks. Request i+1 arrives at request i's `after`-th token. With crossing_tol the
+    report gives where the first value rounded differently and the router choices that
+    differ; with `fed` (crossing_tol too) another card run takes the CPU run's operands
+    at every kernel call, as `engine_parity`'s, and its logits must be within
+    2e-3·max|logits| at every row. `params` (CPU tensors) replace the seeded draw."""
     from distributed_llama_tpu_torch.models.params import params_to
     from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
 
     spec = spec or _llama2_7b(n_layers=n_layers)
-    params = _random_i4p_params(spec, torch.device("cpu"), seed=8, gate_pair=True)
+    if params is None:  # CPU tensors: the gate-pair layout the fused engine takes
+        params = _random_i4p_params(spec, torch.device("cpu"), seed=8, gate_pair=True)
     kw = dict(slots=4, dtype=torch.float32, use_kernels=True, fused_matmul=True)
     rng = np.random.RandomState(4)
-    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (8, 12, 4, 19)]
+    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in prompt_lens]
+    # the BatchEngine at superstep 1 runs its steps eagerly, so the recorder can copy
+    # each call's rows to the host
+    rec = _Crossings() if crossing_tol else None
+    mark = (lambda: len(rec.calls)) if rec else None
 
     def run(dev, force=None):
         be = BatchEngine(spec, params_to(params, dev), device=dev, **kw)
         assert be.engine.use_kernels == "fused" and be.engine.paged_kernel
         try:
-            return staggered(be, prompts, max_tokens, after=2, keep=True, force=force)
+            return staggered(be, prompts, max_tokens, after=after, keep=True,
+                             force=force, mark=mark)
         finally:
             be.close()
 
-    rc, sc = run("cpu")
-    tokens = [r.out for r in rc]
-    rg, sg = run("cuda", force=tokens)
+    fed_report = ""
+    try:
+        rc, sc = run("cpu")
+        calls_c, routes_c = (rec.take(), rec.take_routes()) if rec else ([], [])
+        tokens = [r.out for r in rc]
+        rg, sg = run("cuda", force=tokens)
+        calls_g, routes_g = (rec.take(), rec.take_routes()) if rec else ([], [])
+        if fed:
+            rec.feed = calls_c
+            try:
+                _, sf = run("cuda", force=tokens)
+            finally:
+                rec.feed = None
+                rec.take()
+            fed_worst = 0.0
+            for i in range(len(prompts)):
+                for step, (lf, lc) in enumerate(zip(sf[i].kept, sc[i].kept)):
+                    err, tol = float(np.abs(lf - lc).max()), 2e-3 * float(np.abs(lc).max())
+                    fed_worst = max(fed_worst, err / tol)
+                    if err > tol:
+                        raise AssertionError(f"fed serving parity: request {i} step {step}:"
+                                             f" max|Δlogits| {err:.3e} > {tol:.3e} on the "
+                                             f"CPU's operands")
+            fed_report = (f"; fed the CPU's operands at every kernel call: logits worst "
+                          f"max|Δ|/(2e-3·max) {fed_worst:.3f}, each kernel's worst error / "
+                          f"its tolerance " + json.dumps(
+                              {k: round(v, 4) for k, v in rec.fed_worst.items()}))
+    finally:
+        if rec:
+            rec.close()
+    crossed_at: dict[int, int] = {}  # the calls before a row -> values rounded differently
+
+    def crossed(i, step) -> int:
+        if rec is None:
+            return 0
+        n = sc[i].marks[step]
+        if sg[i].marks[step] != n:
+            raise AssertionError(f"serving parity: request {i} step {step} came after "
+                                 f"{sg[i].marks[step]} calls on the card, {n} on the CPU")
+        if n not in crossed_at:
+            crossed_at[n] = _Crossings.count(calls_c[:n], calls_g[:n])
+        return crossed_at[n]
+
     worst, steps, ties = 0.0, 0, []
     for i in range(len(prompts)):
         if rg[i].out != tokens[i] or len(sg[i].kept) != len(sc[i].kept):
@@ -1274,12 +1587,13 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None) -> str:
                                  f"card, not the CPU's {tokens[i]}")
         for step, (lg, lc) in enumerate(zip(sg[i].kept, sc[i].kept)):
             err = float(np.abs(lg - lc).max())
-            tol = 2e-3 * float(np.abs(lc).max())
+            tol = (2e-2 if crossed(i, step) else 2e-3) * float(np.abs(lc).max())
             worst = max(worst, err / tol)
             steps += 1
             if err > tol:
                 raise AssertionError(f"serving parity: request {i} step {step}: "
-                                     f"max|Δlogits| {err:.3e} > {tol:.3e}")
+                                     f"max|Δlogits| {err:.3e} > {tol:.3e} ({crossed(i, step)} "
+                                     f"values rounded differently)")
             tg, tc = int(np.argmax(lg)), int(np.argmax(lc))
             if tg != tc:
                 gap = float(lc[tc] - lc[tg])
@@ -1291,6 +1605,11 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None) -> str:
                 ties.append((i, step, tc, tg, gap, tol))
     report = (f"BatchEngine fused, 4 staggered requests x {max_tokens} greedy tokens: "
               f"tokens identical {tokens}")
+    if rec:
+        flips, pairs = _Crossings.route_flips(routes_c, routes_g)
+        report += (f"; {max(crossed_at.values(), default=0)} activation values rounded "
+                   f"differently (first at {_Crossings.first(calls_c, calls_g)}); router "
+                   f"choices differing {flips} of {pairs} token-layer pairs{fed_report}")
     if ties:
         with _ExactSums():
             _, sw = run("cpu", force=tokens)
@@ -1319,13 +1638,27 @@ class _Crossings:
     same step: the Q80 codes of every quantized row (the prologue's outputs, and the
     rows the float matvec entries quantize inside their kernels) and the bf16 operands
     of the M > 1 dequant-matmul. Installed around the forward pass's calls, it records
-    each call's row on the host, then restores the originals on close()."""
+    each call's row and output on the host, and the experts each MoE router chose
+    (`take_routes`), then restores the originals on close().
+
+    Fed (`feed` set to another run's calls, in the same order): each float-row matvec
+    and dequant-matmul call takes that run's input (and residual) in place of its own,
+    and its output is held against that run's output for the call — within
+    1e-4·max|y| for the matvecs (`_matvec_row`'s rule) and 1e-3·max|y| for the
+    dequant-matmul (tests/test_torch_cuda.py's): every kernel of the path at its own
+    shapes and operands, without the propagation of earlier roundings. `fed_worst`
+    keeps each kernel's worst error over its tolerance."""
+
+    FED_TOL = {"row": 1e-4, "bf16": 1e-3}
 
     def __init__(self):
         from distributed_llama_tpu_torch.models import forward as fw
         from distributed_llama_tpu_torch.ops import matmul as mt
 
-        self.calls: list[tuple[str, torch.Tensor]] = []
+        self.calls: list[tuple] = []  # (kind, row (M, K), output, name, residual)
+        self.routes: list[torch.Tensor] = []
+        self.feed: list | None = None
+        self.fed_worst: dict[str, float] = {}
         self._orig = []
 
         def wrap(mod, name, kind, quantizes):
@@ -1333,9 +1666,17 @@ class _Crossings:
             self._orig.append((mod, name, fn))
 
             def rec(*a, **kw):
+                ref = None
+                if self.feed is not None and not quantizes:
+                    a, kw, ref = self._fed(name, a, kw)
                 out = fn(*a, **kw)
                 row = (out[0] if quantizes else a[0]).detach().float().cpu()
-                self.calls.append((kind, row.reshape(-1, row.shape[-1])))
+                y = None if quantizes else out.detach().float().cpu()
+                if ref is not None:
+                    self._hold(name, kind, y, ref[2])
+                res = kw.get("residual")
+                self.calls.append((kind, row.reshape(-1, row.shape[-1]), y, name,
+                                   None if res is None else res.detach().float().cpu()))
                 return out
             setattr(mod, name, rec)
 
@@ -1343,67 +1684,141 @@ class _Crossings:
         wrap(fw, "quantize_q80_row", "q80", True)
         wrap(mt, "q4_matvec", "row", False)
         wrap(mt, "q8_matvec", "row", False)
+        wrap(mt, "q4_matvec_expert", "row", False)
+        wrap(mt, "q8_matvec_expert", "row", False)
         wrap(mt, "q4_matmul", "bf16", False)
+        route = fw._route
+        self._orig.append((fw, "_route", route))
+
+        def routed(xb, bp, spec):
+            top_i, w = route(xb, bp, spec)
+            self.routes.append(top_i.detach().cpu())
+            return top_i, w
+        fw._route = routed
+
+    def _fed(self, name, a, kw):
+        """The call's arguments with the fed run's input (and residual) for this call."""
+        i = len(self.calls)
+        if i >= len(self.feed) or self.feed[i][3] != name:
+            raise AssertionError(f"fed parity: call {i} is {name}, the fed run's "
+                                 f"{self.feed[i][3] if i < len(self.feed) else 'none'}")
+        x, r = a[0], kw.get("residual")
+        a = (self.feed[i][1].reshape(x.shape).to(x.device, x.dtype), *a[1:])
+        if r is not None:
+            kw = {**kw, "residual": self.feed[i][4].reshape(r.shape).to(r.device, r.dtype)}
+        return a, kw, self.feed[i]
+
+    def _hold(self, name, kind, y, ref) -> None:
+        tol = self.FED_TOL[kind] * float(ref.abs().max())
+        err = float((y - ref).abs().max())
+        self.fed_worst[name] = max(self.fed_worst.get(name, 0.0), err / tol)
+        if not err <= tol:
+            raise AssertionError(f"fed parity: {name} call {len(self.calls)} "
+                                 f"{tuple(ref.shape)}: max|err| {err:.3e} > {tol:.3e} on "
+                                 f"the fed run's operands")
 
     def take(self) -> list:
         out, self.calls = self.calls, []
         return out
 
+    def take_routes(self) -> list:
+        out, self.routes = self.routes, []
+        return out
+
     @staticmethod
-    def count(a: list, b: list) -> int:
+    def route_flips(a: list, b: list) -> tuple[int, int]:
+        """Token-layer pairs whose chosen expert set differs between two runs' routes,
+        and the pairs."""
+        n = sum(int((torch.sort(ra, -1)[0] != torch.sort(rb, -1)[0]).any(-1).sum())
+                for ra, rb in zip(a, b))
+        return n, sum(r[..., 0].numel() for r in a)
+
+    @staticmethod
+    def per_call(a: list, b: list) -> list[int]:
+        """The values rounded differently in each call of two runs of the same step."""
         from distributed_llama_tpu_torch.ops.q4_matvec import quantize_row
 
         if [c[0] for c in a] != [c[0] for c in b]:
             raise AssertionError("parity: the two runs took different kernel routes")
-        n = 0
-        for (kind, xa), (_, xb) in zip(a, b):
+        out = []
+        for (kind, xa, *_), (_, xb, *_) in zip(a, b):
             if kind == "q80":
-                n += int((xa != xb).sum())
+                out.append(int((xa != xb).sum()))
             elif kind == "row":
-                n += int((quantize_row(xa[0])[0] != quantize_row(xb[0])[0]).sum())
+                out.append(int((quantize_row(xa[0])[0] != quantize_row(xb[0])[0]).sum()))
             else:
-                n += int((xa.to(torch.bfloat16) != xb.to(torch.bfloat16)).sum())
-        return n
+                out.append(int((xa.to(torch.bfloat16) != xb.to(torch.bfloat16)).sum()))
+        return out
+
+    @staticmethod
+    def count(a: list, b: list) -> int:
+        return sum(_Crossings.per_call(a, b))
+
+    @staticmethod
+    def first(a: list, b: list) -> str:
+        """Where the first value rounded differently: the call, its kernel and rows."""
+        for i, n in enumerate(_Crossings.per_call(a, b)):
+            if n:
+                return f"call {i} of {len(a)} ({a[i][3]}, {tuple(a[i][1].shape)}): {n}"
+        return "none"
 
     def close(self) -> None:
         for mod, name, fn in self._orig:
             setattr(mod, name, fn)
 
 
-def engine_parity(spec, params, crossing_tol: bool = False, **kw) -> str:
+def engine_parity(spec, params, crossing_tol: bool = False, steps: int = 8,
+                  fed: bool = False, **kw) -> str:
     """The Engine on the card with the kernels against the CPU with their plain versions
-    on the same weights (CPU tensors), f32: a 9-token prompt and 8 greedy steps. Greedy
+    on the same weights (CPU tensors), f32: a 9-token prompt and `steps` greedy steps. Greedy
     tokens must be identical at every step, and the logits within 2e-3·max|logits|
     (kernels and plain versions differ in sum order). With crossing_tol, the rule of
     tests/test_torch_cuda.py::test_engine_kernels_match_cpu_plain: 2e-3·max|logits| while
     no activation value has rounded differently in the two runs, 2e-2·max|logits| once
     one has — one Q80 code one step off moves the next rows' codes and the logits with
     them (on the Q80 weights here, a single attention-output code one step off in layer 1
-    moved the logits by 7e-3·max, card and CPU alike)."""
+    moved the logits by 7e-3·max, card and CPU alike).
+
+    With `fed`, a second card run takes the CPU run's operands at every kernel call
+    (`_Crossings` fed): each call's output is held to the CPU's for that call, and the
+    logits to 2e-3·max|logits| at every step, so what rounded differently in the first
+    run is shown to be the cause of any excess over 2e-3. The report also gives where the
+    first value rounded differently and the router choices (token-layer pairs) that
+    differ between the card's and the CPU's first runs."""
     from distributed_llama_tpu_torch.models.params import params_to
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
     kw = dict(dtype=torch.float32, use_kernels=True, **kw)
+
     # eager steps: _Crossings copies each row to the host, which a graph capture cannot
     # hold (the model and q80 phases hold the replay to the eager step bit for bit)
-    gpu = Engine(spec, params_to(params, "cuda"), device="cuda", cuda_graph=False, **kw)
+    def card():
+        return Engine(spec, params_to(params, "cuda"), device="cuda", cuda_graph=False, **kw)
+    gpu = card()
     cpu = Engine(spec, params, device="cpu", **kw)
     prompt = [1] + [int(t) for t in np.random.RandomState(3).randint(3, 32000, 8)]
     rec = _Crossings()
+    cpu_steps = []  # (chunk, the CPU's calls, the CPU's logits) of every step
     try:
-        lg, cg = gpu.prefill(prompt), rec.take()
-        lc, cc = cpu.prefill(prompt), rec.take()
-        worst, crossed = 0.0, 0
-        toks_g, toks_c = [], []
-        for step in range(9):
+        lg, cg, rg = gpu.prefill(prompt), rec.take(), rec.take_routes()
+        lc, cc, rc = cpu.prefill(prompt), rec.take(), rec.take_routes()
+        worst, crossed, first, flips, pairs = 0.0, 0, None, 0, 0
+        toks_g, toks_c, chunk = [], [], prompt
+        for step in range(steps + 1):
             crossed += rec.count(cg, cc)
+            if first is None and crossed:
+                first = f"step {step}, " + rec.first(cc, cg)
+            f, p = rec.route_flips(rg, rc)
+            flips, pairs = flips + f, pairs + p
+            cpu_steps.append((chunk, cc, lc))
             err = float(np.abs(lg - lc).max())
             tol = (2e-2 if crossed and crossing_tol else 2e-3) * float(np.abs(lc).max())
             worst = max(worst, err / tol)
             if err > tol or not np.isfinite(lg).all():
                 raise AssertionError(f"parity step {step}: max|Δlogits| {err:.3e} > "
-                                     f"{tol:.3e} ({crossed} values rounded differently)")
-            if step == 8:
+                                     f"{tol:.3e} ({crossed} values rounded differently; "
+                                     f"{flips} router choices differ)")
+            if step == steps:
                 break
             tg, tc = int(np.argmax(lg)), int(np.argmax(lc))
             toks_g.append(tg)
@@ -1411,15 +1826,37 @@ def engine_parity(spec, params, crossing_tol: bool = False, **kw) -> str:
             if tg != tc:
                 raise AssertionError(f"parity: greedy tokens diverge at step {step}: "
                                      f"{toks_g} vs {toks_c}")
-            lg, cg = gpu.infer_chunk([tg]), rec.take()
-            lc, cc = cpu.infer_chunk([tc]), rec.take()
+            chunk = [tc]
+            lg, cg, rg = gpu.infer_chunk(chunk), rec.take(), rec.take_routes()
+            lc, cc, rc = cpu.infer_chunk(chunk), rec.take(), rec.take_routes()
+        routes = (f"; router choices differing {flips} of {pairs} token-layer pairs"
+                  if pairs else "")
+        report = (f"prefill {len(prompt)} tokens + {steps} greedy steps, tokens identical "
+                  f"{toks_g}; {crossed} activation values rounded differently (first at "
+                  f"{first or 'none'}){routes}; worst max|Δlogits|/tol {worst:.3f}")
+        if fed:
+            del gpu
+            torch.cuda.empty_cache()
+            gpu, fed_worst = card(), 0.0
+            for step, (chunk, cc, lc) in enumerate(cpu_steps):
+                rec.feed = cc
+                lf = gpu.prefill(chunk) if step == 0 else gpu.infer_chunk(chunk)
+                rec.feed = None
+                rec.take()
+                err, tol = float(np.abs(lf - lc).max()), 2e-3 * float(np.abs(lc).max())
+                fed_worst = max(fed_worst, err / tol)
+                if err > tol:
+                    raise AssertionError(f"fed parity step {step}: max|Δlogits| {err:.3e} "
+                                         f"> {tol:.3e} on the CPU's operands")
+            report += (f"; fed the CPU's operands at every kernel call: logits worst "
+                       f"max|Δ|/(2e-3·max) {fed_worst:.3f}, each kernel's worst error / "
+                       f"its tolerance " + json.dumps(
+                           {k: round(v, 4) for k, v in rec.fed_worst.items()}))
     finally:
         rec.close()
     del gpu
     torch.cuda.empty_cache()
-    return (f"prefill {len(prompt)} tokens + 8 greedy steps, tokens identical {toks_g}; "
-            f"{crossed} activation values rounded differently; worst max|Δlogits|/tol "
-            f"{worst:.3f}")
+    return report
 
 
 def phase_parity(state: dict) -> None:
@@ -1430,21 +1867,22 @@ def phase_parity(state: dict) -> None:
     spec = _llama2_7b(n_layers=2)
     cpu = torch.device("cpu")
     q40 = _random_i4p_params(spec, cpu, seed=7)
-    log(f"[parity] 2-layer Llama-2-7B width, f32, Q40: "
-        f"{engine_parity(spec, q40, prefill_kernel=True)}")
-    for label, params, counter in (("Q40", q40, lambda: mv.q80_launches),
-                                   ("Q80", _random_i8_params(spec, cpu, seed=9),
-                                    lambda: q8.q80_launches)):
-        before = (counter(), pro.rmsnorm_launches, pro.quantize_launches)
-        report = engine_parity(spec, params, crossing_tol=True, prefill_kernel=True,
-                               fused_prologue=True)
-        after = (counter(), pro.rmsnorm_launches, pro.quantize_launches)
-        if not all(a > b for a, b in zip(after, before)):
-            raise AssertionError(f"parity {label} prologue: kernels not launched "
-                                 f"{before} -> {after}")
-        log(f"[parity] 2-layer Llama-2-7B width, f32, {label} with the fused prologue: "
-            f"{report}")
-    log(f"[parity] 2-layer Llama-2-7B width, f32: {serving_parity()}")
+    with _SharedDequant():
+        log(f"[parity] 2-layer Llama-2-7B width, f32, Q40: "
+            f"{engine_parity(spec, q40, prefill_kernel=True)}")
+        for label, params, counter in (("Q40", q40, lambda: mv.q80_launches),
+                                       ("Q80", _random_i8_params(spec, cpu, seed=9),
+                                        lambda: q8.q80_launches)):
+            before = (counter(), pro.rmsnorm_launches, pro.quantize_launches)
+            report = engine_parity(spec, params, crossing_tol=True, prefill_kernel=True,
+                                   fused_prologue=True)
+            after = (counter(), pro.rmsnorm_launches, pro.quantize_launches)
+            if not all(a > b for a, b in zip(after, before)):
+                raise AssertionError(f"parity {label} prologue: kernels not launched "
+                                     f"{before} -> {after}")
+            log(f"[parity] 2-layer Llama-2-7B width, f32, {label} with the fused prologue: "
+                f"{report}")
+        log(f"[parity] 2-layer Llama-2-7B width, f32: {serving_parity()}")
 
 
 def phase_model(state: dict) -> None:
@@ -1497,8 +1935,8 @@ COMPARE_TOKENS, LOOP_CHUNK = 16, 16
 
 
 def _decode_path(state: dict, tag: str, spec, params, n: int, kw: dict, t1: dict,
-                 chunked: dict) -> dict:
-    """One single-sequence decode path at full Llama-2-7B: the Engine (CUDA graphs on)
+                 chunked: dict, label: str = "Llama-2-7B") -> dict:
+    """One single-sequence decode path of the model `label` names: the Engine (CUDA graphs on)
     on a 100-token prompt (chunks 64, 8 x4, 1 x4) and n greedy tokens, its launches held
     to `t1` per one-token step (graph replays times each graph's launches, read from
     its captures and its node dump) and `chunked` per M > 1 chunk; its decode step
@@ -1534,7 +1972,8 @@ def _decode_path(state: dict, tag: str, spec, params, n: int, kw: dict, t1: dict
         raise AssertionError(f"{tag} run: launches {launches} (want {want}), {replays} "
                              f"replays of {t1_steps} steps, a step's graph "
                              f"{eng.graphs.per_step[key]}, {len(out)} tokens")
-    log(f"[{tag}] Llama-2-7B {'Q40' if 'q4_matvec' in t1 else 'Q80'} bf16 (32 layers, "
+    fmt = "Q40" if "q4_matvec" in t1 else "Q80"
+    log(f"[{tag}] {label} {fmt} bf16 ({spec.n_layers} layers, "
         f"random weights), CUDA graphs: prefill {stats.prompt_tokens} tokens "
         f"{stats.prefill_ms:.1f} ms, decode {stats.avg_infer_ms:.2f} ms/token (step), "
         f"{stats.tokens_per_second:.2f} tok/s; weights "
@@ -1626,6 +2065,8 @@ def _single_counters():
     from distributed_llama_tpu_torch.ops import q8_matvec as q8
 
     return {"q4_matvec": (mv, "launches"), "q4_matvec_q80": (mv, "q80_launches"),
+            "q4_matvec_expert": (mv, "expert_launches"),
+            "q8_matvec_expert": (q8, "expert_launches"),
             "q4_matmul": (mm, "launches"), "q8_matvec": (q8, "launches"),
             "q8_matvec_q80": (q8, "q80_launches"), "decode_attention": (da, "launches"),
             "rmsnorm_q80": (pro, "rmsnorm_launches"),
@@ -1643,6 +2084,7 @@ def _read(counters) -> dict:
 
 # the CUDA function each launch counter's kernel runs, as a graph's node dump names it
 KERNEL_NODES = {"q4_matvec": "q4_matvec_kernel", "q4_matvec_q80": "q4_matvec_kernel",
+                "q4_matvec_expert": "q4_matvec_kernel", "q8_matvec_expert": "q8_matvec_kernel",
                 "q8_matvec": "q8_matvec_kernel", "q8_matvec_q80": "q8_matvec_kernel",
                 "q4_matmul": "q4_matmul_tc_kernel", "q4_matmul_res": "q4_matmul_tc_kernel",
                 "q4_gated_matmul": "q4_gated_tc_kernel",
@@ -2183,6 +2625,160 @@ def phase_http(state: dict) -> None:
         torch.cuda.empty_cache()
 
 
+class _ExpertLog:
+    """While open, every one-row forward pass also writes the k experts each layer chose
+    into a device history (MAX_STEPS, L, k) at a device step counter: at the last layer
+    the layers' choices are stacked and copied in, four small kernels a step, captured
+    into a step's CUDA graph like the route itself, so each replay records the experts
+    that replay chose (a routing frozen into the graph would record one set per layer).
+    `distinct()` reads the history after the run."""
+
+    MAX_STEPS = 4096
+
+    def __init__(self, spec, dev):
+        from distributed_llama_tpu_torch.models import forward as fw
+
+        self.fw, self.spec = fw, spec
+        self.hist = torch.full((self.MAX_STEPS, spec.n_layers, spec.n_active_experts), -1,
+                               dtype=torch.int64, device=dev)
+        self.count = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.layers: list[torch.Tensor] = []
+        self._route = fw._route
+
+    def __enter__(self):
+        def route(xb, bp, spec):
+            top_i, w = self._route(xb, bp, spec)
+            if xb.shape[0] * xb.shape[1] == 1:  # forward routes once per layer, in order
+                self.layers.append(top_i.reshape(1, -1))
+                if len(self.layers) == spec.n_layers:
+                    self.hist.index_copy_(0, self.count % self.MAX_STEPS,
+                                          torch.stack(self.layers, dim=1))
+                    self.count += 1
+                    self.layers = []
+            return top_i, w
+        self.fw._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.fw._route = self._route
+
+    def distinct(self) -> tuple[list[int], int]:
+        """Distinct experts each layer chose over the recorded one-row steps, and the
+        steps recorded."""
+        n = min(int(self.count), self.MAX_STEPS)
+        hist = self.hist[:n].cpu()
+        return [len(set(hist[:, li].flatten().tolist()))
+                for li in range(self.spec.n_layers)], n
+
+
+def _moe_decode(state: dict, tag: str, spec, params, n: int, kw: dict, t1: dict,
+                chunked: dict, label: str) -> dict:
+    """`_decode_path` for a MoE model with the experts it chose recorded
+    (`_ExpertLog`): every layer must pick more than k distinct experts over the run's
+    one-token steps. Returns the counted run's launches."""
+    t0 = time.perf_counter()
+    with _ExpertLog(spec, torch.device("cuda")) as experts:
+        launches = _decode_path(state, tag, spec, params, n, kw, t1, chunked, label=label)
+    per, steps = experts.distinct()
+    log(f"[{tag}] distinct experts each layer chose over {steps} one-token steps (graph, "
+        f"eager, host loop, device loop): {per}; the path in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if min(per) <= spec.n_active_experts:
+        raise AssertionError(f"{tag}: a layer kept one set of {spec.n_active_experts} "
+                             f"experts over {steps} steps: {per}")
+    return launches
+
+
+def phase_moe(state: dict) -> None:
+    """Mixtral-8x7B at full size, its Q80 path, parity at Mixtral width, Grok-1's block."""
+    from distributed_llama_tpu_torch.models.params import params_to
+
+    dev = torch.device("cuda")
+    gc.collect()  # the earlier phases' engines, caught in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    spec = _mixtral_8x7b()
+    t0 = time.perf_counter()
+    params = _random_moe_params(spec, dev, seed=21)
+    torch.cuda.synchronize()
+    log(f"[moe] Mixtral-8x7B random Q40 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {_param_bytes(params) / 1e9:.2f} GB "
+        f"({held / 2**30:.2f} GiB still allocated from the earlier phases)")
+    # per one-token step: wqkv and wo through q4_matvec and two experts' gu and down
+    # through the expert entry in each layer, wcls once; attention once per layer. Each
+    # M > 1 prefill chunk (64 and 8 tokens: k·T > E) runs the expert-major loop: wqkv, wo
+    # and the 8 experts' gu and down through q4_matmul in each layer, wcls once.
+    L = spec.n_layers
+    t1 = {"q4_matvec": 2 * L + 1, "q4_matvec_expert": 4 * L, "decode_attention": L}
+    launches = _moe_decode(state, "moe", spec, params, 64,
+                           dict(prefill_kernel=True, fused_prologue=False), t1,
+                           {"q4_matmul": 18 * L + 1}, "Mixtral-8x7B")
+    log(f"[moe] q4_matvec launches per decode token: {t1['q4_matvec']} + "
+        f"{t1['q4_matvec_expert']} through the expert entry = "
+        f"{t1['q4_matvec'] + t1['q4_matvec_expert']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
+    state["launches"]["q4_matvec_expert"] = launches["q4_matvec_expert"]
+    del params
+    torch.cuda.empty_cache()
+
+    # Q80 Mixtral (i8 layout) at 8 layers: the q8_matvec expert entry's path; the M > 1
+    # prefill chunks dequantize the i8 experts (the JAX package's route too)
+    spec8 = _mixtral_8x7b(n_layers=8)
+    params = _random_moe_params(spec8, dev, seed=23, fmt="q80")
+    L = spec8.n_layers
+    launches = _moe_decode(state, "moe q80", spec8, params, 16, dict(fused_prologue=False),
+                           {"q8_matvec": 2 * L + 1, "q8_matvec_expert": 4 * L,
+                            "decode_attention": L}, {}, "Mixtral-8x7B")
+    state["launches"]["q8_matvec_expert"] = launches["q8_matvec_expert"]
+    del params
+    torch.cuda.empty_cache()
+
+    # Grok-1's block at full width: the graph run against eager
+    spec_g = _grok1()
+    params = _random_moe_params(spec_g, dev, seed=27)
+    L = spec_g.n_layers
+    _moe_decode(state, "moe grok1", spec_g, params, 16,
+                dict(prefill_kernel=True, fused_prologue=False),
+                {"q4_matvec": 2 * L + 1, "q4_matvec_expert": 4 * L, "decode_attention": L},
+                {"q4_matmul": 18 * L + 1}, "Grok-1 (grok1_l2)")
+
+    # card against CPU in f32 on the weights drawn on the card (copied to the host):
+    # grok1_l2, then 2 layers of Mixtral width (the Engine, and the fused BatchEngine).
+    # Each takes the crossing rule (`engine_parity`) and a fed run, which must hold
+    # 2e-3·max|logits| and every kernel call to its plain version on the CPU's
+    # operands: the card runs of this script found these models' logits moved past
+    # 2e-3·max by values that rounded differently (grok1_l2: 3.3e-2 against 7.5e-3, with
+    # 1.86M values rounded differently), and the fed run and the router choices show
+    # where that comes from. Depth of the CPU side cut to keep the run short: grok1_l2
+    # prefill + 1 step, Mixtral 4 steps, the serving parity 4 requests x 2 tokens, each
+    # arriving at the previous one's first token.
+    t0 = time.perf_counter()
+    cpu_params = params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[moe] parity, grok1_l2, f32, Q40: "
+        f"{engine_parity(spec_g, cpu_params, True, steps=1, fed=True, prefill_kernel=True)}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    del cpu_params
+    spec2 = _mixtral_8x7b(n_layers=2)
+    t0 = time.perf_counter()
+    cpu_params = params_to(_random_moe_params(spec2, dev, seed=25), "cpu")
+    torch.cuda.empty_cache()
+    with _SharedDequant():  # one CPU model for both: its experts decoded once
+        report = engine_parity(spec2, cpu_params, True, steps=4, fed=True,
+                               prefill_kernel=True)
+        log(f"[moe] parity, 2-layer Mixtral width, f32, Q40: {report} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        report = serving_parity(spec=spec2, max_tokens=2, prompt_lens=(8, 9, 1, 8),
+                                crossing_tol=True, after=1, fed=True, params=cpu_params)
+    del cpu_params
+    log(f"[moe] parity, 2-layer Mixtral width, f32: {report} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_cli(state: dict) -> None:
     from distributed_llama_tpu_torch.formats.mfile import params_file_order, write_model
     from distributed_llama_tpu_torch.formats.tfile import TokenizerData, write_tokenizer
@@ -2253,8 +2849,8 @@ def main(argv=None) -> int:
             globals()[f"phase_{name}"](state)
             log(f"[{name}] done in {time.perf_counter() - t:.1f} s")
     log(f"[total] {time.perf_counter() - t0:.1f} s")
-    # launches come from the model, q80 and serve phases' runs
-    if {"kernels", "model", "q80", "serve"} <= set(phases):
+    # launches come from the model, q80, serve and moe phases' runs
+    if {"kernels", "model", "q80", "serve", "moe"} <= set(phases):
         log(kernels_line(state))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -74,8 +74,9 @@ def make_engine(args) -> Engine:
           f"(device={engine.device}, kernels={engine.use_kernels}, "
           f"prologue={engine.fused_prologue})")
     spec = engine.spec
+    moe = ("n_experts", "n_active_experts") if spec.is_moe else ()
     for k in ("dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size",
-              "seq_len"):
+              "seq_len", *moe):
         print(f"💡 {k}: {getattr(spec, k)}")
     return engine
 

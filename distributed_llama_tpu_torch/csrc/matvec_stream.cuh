@@ -33,6 +33,13 @@
 //   used), then the first slot, then the row is quantized (each 32-block reduced across
 //   the lanes holding it) or copied, then the other slots: row loads issued behind the
 //   whole ring wait for the megabytes of weights ahead of them in the memory system.
+// - Experts (the q4/q8 expert entries, float row only): the weights are one layer's
+//   stack of E matrices and a one-element index in device memory, written by the
+//   router's top-k just ahead in the stream, says which. Every block loads the index
+//   first, with its row loads, and offsets its weight and scale bases by e·n rows
+//   before its first bulk copy: one dependent load ahead of the ring, and no copy of
+//   the expert, no host read of the index, so a captured step replays with the index
+//   the router writes that step (the JAX package's dynamic_slice_in_dim on the stack).
 // - The pre-quantized row comes from the fused prologue (csrc/prologue.cu), the kernel
 //   just ahead in the stream. That entry is launched with programmatic stream
 //   serialization (PDL): its blocks are scheduled as soon as the prologue has started,
@@ -97,6 +104,10 @@ struct Params {
   int n, k, out_bf16;
   int rs, stages, gw;  // rows per slot, slots, warps per row
   int pre;             // slots issued before griddepcontrol.wait (kPrequantized)
+  // the expert entries: w and s hold a stack of n_experts (n, k) matrices, and the
+  // kernel reads which one from *e, in device memory (clamped into the stack)
+  const long long* e;
+  int n_experts;
 };
 
 inline Params make_params(const void* x, const void* xq, const void* sx, const void* w,
@@ -116,6 +127,8 @@ inline Params make_params(const void* x, const void* xq, const void* sx, const v
   p.stages = stages;
   p.gw = gw;
   p.pre = pre;
+  p.e = nullptr;
+  p.n_experts = 0;
   return p;
 }
 
@@ -378,6 +391,14 @@ __device__ void run(const Params& p) {
   // the other half, so the 8 lanes of a shared-memory phase hit distinct banks
   const int h0 = (lane >> 2) & 1;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  // the expert entries: the index, clamped into the stack, picks the matrix
+  const uint8_t* wbase = p.w;
+  const char* sbase = static_cast<const char*>(p.s);
+  if (p.e != nullptr) {
+    const long long e = min(max(*p.e, 0LL), static_cast<long long>(p.n_experts - 1));
+    wbase += e * p.n * static_cast<long long>(rb);
+    sbase += e * p.n * static_cast<long long>(srow);
+  }
 
   if (tid == 0) {
     // per slot and use: thread 0's arrival with the bulk bytes, and every thread's
@@ -393,9 +414,9 @@ __device__ void run(const Params& p) {
     const size_t row0 = static_cast<size_t>(r0) + static_cast<size_t>(j) * p.rs;
     if (tid == 0) {
       mbar_arrive_expect_tx(&bars[slot], rows * rb);
-      bulk_copy(smem + L.ring + slot * L.stage, p.w + row0 * rb, rows * rb, &bars[slot]);
+      bulk_copy(smem + L.ring + slot * L.stage, wbase + row0 * rb, rows * rb, &bars[slot]);
     }
-    const char* src = static_cast<const char*>(p.s) + row0 * srow;
+    const char* src = sbase + row0 * srow;
     unsigned char* dst = smem + L.sring + slot * L.sstage;
     for (int i = tid; i < rows * srow / 4; i += kThreads)
       cp_async4(dst + 4 * i, src + 4 * i, 4);
@@ -619,6 +640,7 @@ int launch(const Params& p, int grid, cudaStream_t st) {
   constexpr bool kPdl = MODE == kPrequantized;
   const int smem = layout(FMT, MODE, p.k, p.rs, p.stages, p.gw).total;
   if (smem > kMaxSmem || p.rs < 1 || p.stages < 2 || p.gw < 1 || kWarps % p.gw || grid < 1 ||
+      (p.e != nullptr && (MODE != kQuantize || p.n_experts < 1)) ||
       (MODE == kPrequantized && (p.pre < 1 || p.pre > p.stages)) ||
       (MODE == kPrecise && (p.stages - 1) * layout(FMT, MODE, p.k, p.rs, p.stages, p.gw).stage <
                                4 * p.k))

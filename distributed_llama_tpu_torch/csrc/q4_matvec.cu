@@ -1,6 +1,8 @@
 // q4_matvec: y = W·x for one activation row against Q40 weights in the i4p
-// split-plane layout, with x quantized to Q80 inside the kernel (entry `q4_matvec`) or
-// given already quantized as xq int8 + sx f32 block scales (entry `q4_matvec_q80`).
+// split-plane layout, with x quantized to Q80 inside the kernel (entry `q4_matvec`; entry
+// `q4_matvec_expert` against one expert of a layer's stack, chosen by an index in device
+// memory) or given already quantized as xq int8 + sx f32 block scales (entry
+// `q4_matvec_q80`).
 //
 // Replaces distributed_llama_tpu/ops/pallas_q4.py `_q4_matvec` (kernel body
 // `_matvec_kernel` -> `_unpack_dot_epilogue`) together with the Q80 row quantizer
@@ -48,6 +50,23 @@ extern "C" int q4_matvec(const void* x, int x_bf16, const void* wp, const void* 
                          void* stream) {
   const mvs::Params p = mvs::make_params(x, nullptr, nullptr, wp, ws, y, out_bf16, n, k, rs,
                                          stages, gw);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? mvs::launch<mvs::kI4p, mvs::kQuantize, Entry<mvs::kQuantize, true>>(
+                      p, grid, st)
+                : mvs::launch<mvs::kI4p, mvs::kQuantize, Entry<mvs::kQuantize, false>>(
+                      p, grid, st);
+}
+
+// The expert entry: wp (n_experts, n, k/2) and ws (n_experts, n, k/32), one layer's
+// stack; e: one int64 in device memory, the expert (clamped into [0, n_experts)); the
+// rest as q4_matvec, computed against matrix e of the stack.
+extern "C" int q4_matvec_expert(const void* x, int x_bf16, const void* wp, const void* ws,
+                                const void* e, int n_experts, void* y, int out_bf16, int n,
+                                int k, int rs, int stages, int gw, int grid, void* stream) {
+  mvs::Params p = mvs::make_params(x, nullptr, nullptr, wp, ws, y, out_bf16, n, k, rs,
+                                   stages, gw);
+  p.e = static_cast<const long long*>(e);
+  p.n_experts = n_experts;
   const auto st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? mvs::launch<mvs::kI4p, mvs::kQuantize, Entry<mvs::kQuantize, true>>(
                       p, grid, st)

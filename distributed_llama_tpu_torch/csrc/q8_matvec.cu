@@ -5,7 +5,7 @@
 // `_matvec_kernel` and the precise `_matvec_kernel_f32`) together with the Q80 row
 // quantizer `_quantize_row` that feeds it, and `_q8_matvec_inline`
 // (`_matvec_kernel_inline`), which takes the row the fused prologue quantized. Three
-// entries over one block body:
+// entries over one block body, and an expert entry:
 //   q8_matvec      x f32/bf16 is quantized to Q80 in the kernel:
 //                    xq[j] = round_half_even(x[j] * (127 / absmax_b)), sx[b] = absmax_b/127
 //   q8_matvec_q80  xq int8 and sx f32 come in already quantized
@@ -14,7 +14,9 @@
 //   q8_matvec(precise)  x f32/bf16 stays unquantized, sx = 1:
 //                  P[n,b] = sum_{j in block b} W8[n,j] * x[j]           (f32 sums)
 //                  y[n]   = sum_b s[n,b] * P[n,b]
-// y is written as f32 or bf16 (rounded once).
+// y is written as f32 or bf16 (rounded once). q8_matvec_expert is q8_matvec (quantized
+// row) against one expert of a layer's (E, n, k) stack, chosen by an index in device
+// memory.
 //
 // What bounds it on an H100: bytes. One decode token streams every weight once at
 // 1.125 B/weight (1 B of int8 plus a 4-byte scale per 32) and does 2 integer ops per
@@ -68,6 +70,19 @@ extern "C" int q8_matvec(const void* x, int x_bf16, int precise, const void* w8,
   const auto st = static_cast<cudaStream_t>(stream);
   return precise ? launch_mode<mvs::kPrecise>(p, x_bf16, grid, st)
                  : launch_mode<mvs::kQuantize>(p, x_bf16, grid, st);
+}
+
+// The expert entry: w8 (n_experts, n, k) and ws (n_experts, n, k/32), one layer's stack;
+// e: one int64 in device memory, the expert (clamped into [0, n_experts)); the rest as
+// q8_matvec with the row quantized, computed against matrix e of the stack.
+extern "C" int q8_matvec_expert(const void* x, int x_bf16, const void* w8, const void* ws,
+                                const void* e, int n_experts, void* y, int out_bf16, int n,
+                                int k, int rs, int stages, int gw, int grid, void* stream) {
+  mvs::Params p = mvs::make_params(x, nullptr, nullptr, w8, ws, y, out_bf16, n, k, rs,
+                                   stages, gw);
+  p.e = static_cast<const long long*>(e);
+  p.n_experts = n_experts;
+  return launch_mode<mvs::kQuantize>(p, x_bf16, grid, static_cast<cudaStream_t>(stream));
 }
 
 // xq: (k,) int8, 16-byte aligned, and sx: (k/32,) f32, the Q80 row the fused prologue

@@ -1,9 +1,21 @@
-"""Transformer forward pass for the dense Llama architecture (reference:
-src/llama2-tasks.cpp:241-298).
+"""Transformer forward pass for Llama, Mixtral and Grok-1 (reference:
+src/llama2-tasks.cpp:241-298, src/mixtral-tasks.cpp:5-78, src/grok1-tasks.cpp:275-354).
 
-The counterpart of the JAX package's models/forward.py on its dense branch with the
-deferred cache write: pre-norm attention + SwiGLU FFN (w1=gate, w3=up, w2=down), layers
-run as a Python loop over the stacked parameters.
+The counterpart of the JAX package's models/forward.py at tp=1 with the deferred cache
+write, layers run as a Python loop over the stacked parameters:
+- LLAMA: pre-norm attention + SwiGLU FFN (w1=gate, w3=up, w2=down);
+- MIXTRAL: attention as llama; the FFN is a top-k-of-E MoE (router softmax over all
+  experts, top-k renormalized, hb_e = up_e(x) * act(gate_e(x)), out = sum_j w_j ·
+  down_e(hb_e));
+- GROK1: embedding x GROK_EMBEDDING_SCALE; the attention output is rmsnorm'd (rms_ffn)
+  before its residual join; the MoE input norm is rms_moe and its output is rmsnorm'd
+  (rms_ffn2) before its join; logits x GROK_LOGITS_SCALE; GELU-tanh.
+
+The MoE FFN (`_moe_ffn`) takes the JAX package's three routes by the same gates: one
+row with the kernels on runs the k chosen experts through the matvecs' expert entries
+(the index stays on the device: a captured step replays with each step's experts); up
+to n_experts token-expert pairs gather and dequantize the chosen experts; more run the
+expert-major loop over all E experts, each masked by its routing weights.
 
 Deferred write: every layer's attention reads only the COMMITTED cache slots
 (< start_pos) plus the chunk's own k/v; the chunk's rows of all layers are written into
@@ -24,7 +36,8 @@ the pool layout's attention takes kernel 9 (ops/paged_attention.py) under
 `paged_kernel`, and with use_kernels in ("all", "fused") the M > 1 projections take
 kernel 2 (ops/q4_matmul.py); "fused" adds the residual mode (kernel 4) for wo and w2 and
 the gate-pair kernel 5 (ops/q4_gated_matmul.py) for separate w1/w3. i8 weights (Q80,
-and Q40 that fails the i4p alignment) take q8_matvec (ops/q8_matvec.py) at one row.
+and Q40 that fails the i4p alignment) take q8_matvec (ops/q8_matvec.py) at one row. A
+one-row MoE step's experts take the expert entries of both (`qmatmul(expert=)`).
 
 The fused activation prologue (`fused_prologue`, single-row decode with the kernels on):
 each layer's rmsnorm and the Q80 quantization of its row run as one kernel
@@ -48,6 +61,10 @@ from ..ops.prologue import prologue_supported, quantize_q80_row, rmsnorm_quantiz
 from ..ops.rope import RopeTables, apply_rope
 from ..quants import QTensor
 from .spec import ArchType, HiddenAct, ModelSpec
+
+
+GROK_EMBEDDING_SCALE = 78.38367176906169  # grok1-tasks.cpp:13
+GROK_LOGITS_SCALE = 0.5773502691896257  # grok1-tasks.cpp:272
 
 
 def _act(spec: ModelSpec):
@@ -96,7 +113,8 @@ class _Step:
 def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
     """Attention sub-block against the full stacked caches or pools. Returns
     (residual + attention output, (k_t, v_t)) where k_t/v_t are the chunk's new rows
-    (B, hk, T, hs) for forward() to commit."""
+    (B, hk, T, hs) for forward() to commit; with residual None (Grok-1, which joins the
+    normalized output) the attention output alone."""
     spec = st.spec
     b, t, _ = x.shape
     hs = spec.head_size
@@ -183,7 +201,7 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         return qmatmul(att, bp["wo"], use_kernels=use_kernels, residual=residual), (k_t, v_t)
     else:
         y = qmatmul(att, bp["wo"], use_kernels=use_kernels)
-    return residual + y, (k_t, v_t)
+    return (y if residual is None else residual + y), (k_t, v_t)
 
 
 def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = False):
@@ -198,18 +216,14 @@ def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = F
             return qmatmul_q80(xq, sx, bp[name], use_kernels=use_kernels,
                                out_dtype=torch.float32)
         if "w13" in bp:
-            y = project("w13")
-            hl = y.shape[-1] // 2
-            h = act(y[..., :hl]) * y[..., hl:]
+            h = _gated_split(project("w13"), act, gate_first=True)
         else:
             h = act(project("w1")) * project("w3")
     else:
         xb = rmsnorm(x, bp["rms_ffn"], spec.norm_eps)
         if "w13" in bp:
-            # merged gate+up: [gate | up] rows, act(gate) * up
-            y = qmatmul(xb, bp["w13"], use_kernels=use_kernels)
-            hl = y.shape[-1] // 2
-            h = act(y[..., :hl]) * y[..., hl:]
+            h = _gated_split(qmatmul(xb, bp["w13"], use_kernels=use_kernels), act,
+                             gate_first=True)
         else:
             # separate w1/w3: under "fused" one gate-pair kernel launch
             h = qmatmul_gated(xb, bp["w1"], bp["w3"], act=act, act_name=_act_name(spec),
@@ -222,6 +236,104 @@ def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = F
         return qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels, residual=residual)
     out = qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels)
     return residual + out
+
+
+def _gated_split(y, act, gate_first: bool):
+    """Gated-FFN combine of a merged projection's halves: w13 is [gate | up]
+    (act(first) * second), moe_gu is [up | gate] (first * act(second))."""
+    hl = y.shape[-1] // 2
+    a, b = y[..., :hl], y[..., hl:]
+    return act(a) * b if gate_first else a * act(b)
+
+
+def _expert_out(xb, bp, e, act, use_kernels):
+    """Expert e's output down(up(x) * act(gate(x))), from the merged [up | gate] stack or
+    the separate pair; e a Python int or a one-element index tensor (`qmatmul`)."""
+    def project(x, w):
+        return qmatmul(x, w, use_kernels=use_kernels, expert=e)
+    if "moe_gu" in bp:
+        hb = _gated_split(project(xb, bp["moe_gu"]), act, gate_first=False)
+    else:
+        hb = project(xb, bp["moe_up"]) * act(project(xb, bp["moe_gate"]))
+    return project(hb, bp["moe_down"])
+
+
+def _gather_expert(w: QTensor, idx: torch.Tensor) -> QTensor:
+    """The experts idx (B, T, K) of a stacked QTensor (E, out, in) -> (B, T, K, out, in)."""
+    return QTensor(w.ftype, w.data[idx], None if w.scales is None else w.scales[idx],
+                   w.layout, w.groups, w.row_groups)
+
+
+def _route(xb, bp, spec: ModelSpec):
+    """The router: f32 logits, softmax over ALL experts, the top k, renormalized
+    (grokMoeNormWeights). The top k come from a stable descending sort, so ties go to
+    the lower expert index first, as jax.lax.top_k orders them. Returns (top_i (B, T, K)
+    int64, weights (B, T, K) f32)."""
+    logits = qmatmul(xb, bp["router"], use_kernels=False).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :spec.n_active_experts], top_i[..., :spec.n_active_experts]
+    return top_i, top_p / top_p.sum(dim=-1, keepdim=True)
+
+
+def _moe_ffn(xb, bp, spec: ModelSpec, use_kernels):
+    """Top-k MoE FFN on the normalized block input xb (grokMoeRouter..grokMoeBlock2,
+    grok1-tasks.cpp:56-228), by the JAX package's gates:
+    (a) one row with the kernels on and i4p/i8 stacks: the k experts in top-k order
+        through the matvecs' expert entries, out += out_e · w_j;
+    (b) b·t·k <= n_experts: gather the chosen experts, dequantize, einsum;
+    (c) otherwise: expert-major over all E experts, each expert's rows weighted by its
+        routing weight (zero where a token did not choose it), summed in expert order."""
+    b, t, _ = xb.shape
+    k = spec.n_active_experts
+    act = _act(spec)
+    top_i, weights = _route(xb, bp, spec)
+    merged = "moe_gu" in bp
+    stack = bp["moe_gu"] if merged else bp["moe_up"]
+    if use_kernels and b * t == 1 and stack.layout in ("i4p", "i8"):
+        # the expert index stays on the device: each entry reads it from top_i
+        out = torch.zeros_like(xb)
+        idx, wts = top_i.reshape(k), weights.reshape(k)
+        for j in range(k):
+            out = out + _expert_out(xb, bp, idx[j:j + 1], act, True) * wts[j].to(xb.dtype)
+        return out
+    if b * t * k <= spec.n_experts:
+        down_w = _gather_expert(bp["moe_down"], top_i).dequantize(dtype=xb.dtype)
+        if merged:
+            gu_w = _gather_expert(bp["moe_gu"], top_i).dequantize(dtype=xb.dtype)
+            hb = _gated_split(torch.einsum("btd,btkhd->btkh", xb, gu_w), act,
+                              gate_first=False)
+        else:
+            up_w = _gather_expert(bp["moe_up"], top_i).dequantize(dtype=xb.dtype)
+            gate_w = _gather_expert(bp["moe_gate"], top_i).dequantize(dtype=xb.dtype)
+            hb = (torch.einsum("btd,btkhd->btkh", xb, up_w)
+                  * act(torch.einsum("btd,btkhd->btkh", xb, gate_w)))
+        out = torch.einsum("btkh,btkdh->btkd", hb, down_w)
+        return torch.einsum("btkd,btk->btd", out, weights.to(xb.dtype))
+    experts = torch.arange(spec.n_experts, device=xb.device)
+    one_hot = (top_i[..., None] == experts).to(xb.dtype)  # (B, T, K, E)
+    combine = torch.einsum("btke,btk->ebt", one_hot, weights.to(xb.dtype))
+    acc = torch.zeros_like(xb)
+    for e in range(stack.shape[0]):  # a Python int: a view, the kernel routes of M > 1
+        acc = acc + _expert_out(xb, bp, e, act, use_kernels) * combine[e][..., None]
+    return acc
+
+
+def _block(x, bp, li: int, st: _Step, kc, vc):
+    """One transformer block; returns (x, (k_t, v_t))."""
+    spec = st.spec
+    if spec.arch_type == ArchType.GROK1:
+        # the NORMALIZED attention output joins the residual, so wo takes none
+        attn_out, kv = _attention(x, bp, li, st, kc, vc, residual=None)
+        x = x + rmsnorm(attn_out, bp["rms_ffn"], spec.norm_eps)
+        xb = rmsnorm(x, bp["rms_moe"], spec.norm_eps)
+        moe_out = _moe_ffn(xb, bp, spec, st.use_kernels)
+        return x + rmsnorm(moe_out, bp["rms_ffn2"], spec.norm_eps), kv
+    x, kv = _attention(x, bp, li, st, kc, vc, residual=x)
+    if spec.is_moe:
+        xb = rmsnorm(x, bp["rms_ffn"], spec.norm_eps)
+        return x + _moe_ffn(xb, bp, spec, st.use_kernels), kv
+    return _dense_ffn(x, bp, spec, st.use_kernels, residual=x, prologue=st.prologue), kv
 
 
 def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
@@ -252,8 +364,6 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
 
     Returns (logits (B, T, vocab) f32, k_cache, v_cache) with the chunk's rows committed
     in place."""
-    if spec.arch_type != ArchType.LLAMA or spec.is_moe:
-        raise NotImplementedError("the port runs the dense Llama architecture only")
     dev = tokens.device
     t = tokens.shape[1]
     per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
@@ -277,11 +387,13 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,
                block_tokens, paged_kernel, lengths, layer_ids, prologue)
     x = params["embedding"][tokens].to(dtype)
+    if spec.arch_type == ArchType.GROK1:
+        # the scale in x's dtype, as the JAX package's weakly typed constant
+        x = x * torch.tensor(GROK_EMBEDDING_SCALE, dtype=dtype)
     k_rows, v_rows = [], []
     for li in range(spec.n_layers):
         bp = layer_params(params["blocks"], li)
-        x, (k_t, v_t) = _attention(x, bp, li, st, k_cache, v_cache, residual=x)
-        x = _dense_ffn(x, bp, spec, use_kernels, residual=x, prologue=prologue)
+        x, (k_t, v_t) = _block(x, bp, li, st, k_cache, v_cache)
         k_rows.append(k_t)
         v_rows.append(v_t)
     # commit all layers' new rows: (L, B, hk, T, hs)
@@ -303,6 +415,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
         v_cache.index_copy_(3, positions, v_new)
     x = rmsnorm(x, params["rms_final"], spec.norm_eps)
     logits = qmatmul(x, params["wcls"], use_kernels=use_kernels, out_dtype=torch.float32)
+    if spec.arch_type == ArchType.GROK1:
+        logits = logits * GROK_LOGITS_SCALE
     return logits, k_cache, v_cache
 
 

@@ -125,12 +125,19 @@ def params_to(params: Params, device) -> Params:
     return out
 
 
-# per-layer tensors whose layer slice is the 2-D matvec the decode kernels consume
-_DENSE_MATMULS = {"wq", "wk", "wv", "wo", "w1", "w2", "w3"}
+# per-layer tensors whose layer slice (and, for the MoE stacks, expert slice) is the 2-D
+# matvec the decode kernels consume. The router stays planar: the forward pass runs it
+# on the dequantize path, as the JAX package does.
+_DENSE_MATMULS = {"wq", "wk", "wv", "wo", "w1", "w2", "w3",
+                  "moe_up", "moe_gate", "moe_down"}
 
 # merged matvec groups: members share the same activation vector, so one kernel launch
-# with the row blocks concatenated replaces 3 (QKV) / 2 (gate+up) launches
-_FUSE_GROUPS = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
+# with the row blocks concatenated replaces 3 (QKV) / 2 (gate+up) launches. moe_gu is
+# [up | gate] per expert, the opposite order of w13's [gate | up].
+_FUSE_GROUPS = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3"),
+                "moe_gu": ("moe_up", "moe_gate")}
+# the out axis of each group's stacked leaves: (L, out, ...) or (L, E, out, ...)
+_FUSE_ROW_AXIS = {"wqkv": 1, "w13": 1, "moe_gu": 2}
 
 
 def _kernel_convertible(t) -> bool:
@@ -155,10 +162,10 @@ def _decode_layout(t: QTensor) -> QTensor:
 
 
 def fuse_matvec_groups(blocks: Params, skip: tuple[str, ...] = ()) -> Params:
-    """Replace wq/wk/wv -> wqkv and w1/w3 -> w13 with row-concatenated planar tensors
-    where every member is kernel-convertible and all share one float type, except the
-    groups named in `skip`. Quant blocks run along the in axis, so row concatenation
-    never touches block structure."""
+    """Replace wq/wk/wv -> wqkv, w1/w3 -> w13 and moe_up/moe_gate -> moe_gu with
+    row-concatenated planar tensors where every member is kernel-convertible and all
+    share one float type, except the groups named in `skip`. Quant blocks run along the
+    in axis, so row concatenation never touches block structure."""
     out = dict(blocks)
     for fused, members in _FUSE_GROUPS.items():
         if fused in skip:
@@ -166,8 +173,9 @@ def fuse_matvec_groups(blocks: Params, skip: tuple[str, ...] = ()) -> Params:
         ts = [blocks.get(m) for m in members]
         if not all(_kernel_convertible(t) for t in ts) or len({t.ftype for t in ts}) != 1:
             continue
-        out[fused] = QTensor(ts[0].ftype, torch.cat([t.data for t in ts], dim=1),
-                             torch.cat([t.scales for t in ts], dim=1))
+        axis = _FUSE_ROW_AXIS[fused]
+        out[fused] = QTensor(ts[0].ftype, torch.cat([t.data for t in ts], dim=axis),
+                             torch.cat([t.scales for t in ts], dim=axis))
         for m in members:
             del out[m]
     return out
@@ -175,9 +183,10 @@ def fuse_matvec_groups(blocks: Params, skip: tuple[str, ...] = ()) -> Params:
 
 def prepare_for_cuda(params: Params, fuse: bool = True,
                      keep_gate_pair: bool = False) -> Params:
-    """Repack the dense matmul weights into the decode-kernel layouts (i4p packed
-    nibbles for Q40 with K % 64 == 0, int8 planes for every other Q40 and all Q80),
-    merging the QKV and gate/up groups first when `fuse`. keep_gate_pair=True leaves
+    """Repack the dense matmul weights and the MoE expert stacks into the decode-kernel
+    layouts (i4p packed nibbles for Q40 with K % 64 == 0, int8 planes for every other
+    Q40 and all Q80; the leading layer and expert axes are kept), merging the QKV and
+    gate/up groups first when `fuse`. keep_gate_pair=True leaves
     w1/w3 separate for the gate-pair kernel (ops/q4_gated_matmul.py), as the fused
     serving rung wants. Weights already in a kernel layout are left as they are. The
     counterpart of the JAX package's prepare_for_pallas at tp=1."""
@@ -196,10 +205,16 @@ def prepare_for_cuda(params: Params, fuse: bool = True,
     return out
 
 
-def decode_stream_bytes(params: Params) -> int:
+def decode_stream_bytes(params: Params, spec: ModelSpec | None = None) -> int:
     """Weight + scale bytes one decode step streams from device memory (embedding row
-    reads excluded)."""
+    reads excluded). An MoE expert stack counts the n_active_experts of its n_experts
+    that a token reads, so a MoE model needs its `spec`; the router counts whole."""
     total = 0
-    for t in list(params["blocks"].values()) + [params["wcls"]]:
-        total += t.nbytes() if isinstance(t, QTensor) else t.numel() * t.element_size()
+    for name, t in list(params["blocks"].items()) + [("wcls", params["wcls"])]:
+        n = t.nbytes() if isinstance(t, QTensor) else t.numel() * t.element_size()
+        if name.startswith("moe_"):
+            if spec is None or not spec.is_moe:
+                raise ValueError("decode_stream_bytes of a MoE model needs its spec")
+            n = n * spec.n_active_experts // spec.n_experts
+        total += n
     return total

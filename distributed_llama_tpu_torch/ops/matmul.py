@@ -14,6 +14,10 @@ the subset the dense Llama path reaches):
   (kernel 4);
 - the FFN gate pair under "fused" with M > 1 and an i4p pair that passes
   `q4_gated_supported` -> kernel 5, `q4_gated_matmul`;
+- one expert of a layer's MoE stack (`expert=`): a Python int is a view of the stack and
+  takes the routes above; an index tensor with one row and `use_kernels` on ->
+  `q4_matvec_expert` on i4p stacks, `q8_matvec_expert` on i8 stacks, otherwise the
+  expert is sliced and dequantized;
 - everything else -> dequantize to x's dtype, then a float32-accumulated product (the
   counterpart of the JAX package's `_qmatmul_xla`).
 
@@ -33,8 +37,8 @@ import torch
 from ..quants import QTensor, dequantize_i8
 from .q4_gated_matmul import q4_gated_matmul
 from .q4_matmul import q4_matmul
-from .q4_matvec import q4_matvec, q4_matvec_q80
-from .q8_matvec import q8_matvec, q8_matvec_q80
+from .q4_matvec import expert_slice, q4_matvec, q4_matvec_expert, q4_matvec_q80
+from .q8_matvec import q8_matvec, q8_matvec_expert, q8_matvec_q80
 
 # "fused" is a strict superset of "all": everything "all" runs plus the residual-add
 # and gate-pair epilogues wired through models/forward.py
@@ -46,7 +50,7 @@ _selections_lock = threading.Lock()
 
 
 def _record(kernel: str, m: int, w: QTensor, op: str = "mm") -> None:
-    n, kin = w.shape
+    n, kin = w.shape[-2:]
     key = f"m={m},n={n},k={kin},layout={w.layout},op={op}"
     with _selections_lock:
         _selections[key] = kernel
@@ -54,7 +58,8 @@ def _record(kernel: str, m: int, w: QTensor, op: str = "mm") -> None:
 
 def kernel_selections() -> dict[str, str]:
     """Snapshot of {shape-bucket: kernel}. Kernel names: q4_matvec, q8_matvec, q4_mm,
-    q4_mm+res, q4_gated_mm, q4_matvec_q80, q8_matvec_q80 (op=q80), dequant."""
+    q4_mm+res, q4_gated_mm, q4_matvec_q80, q8_matvec_q80 (op=q80), q4_matvec_expert,
+    q8_matvec_expert (op=expert), dequant."""
     with _selections_lock:
         return dict(_selections)
 
@@ -92,7 +97,8 @@ def _res_add(y: torch.Tensor, residual: torch.Tensor, out_dtype) -> torch.Tensor
 
 
 def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
-            out_dtype=None, residual: torch.Tensor | None = None) -> torch.Tensor:
+            out_dtype=None, residual: torch.Tensor | None = None,
+            expert: torch.Tensor | int | None = None) -> torch.Tensor:
     """y = x @ W^T for W of logical shape (out, in); x: (..., in) -> (..., out).
 
     use_kernels: False = dequantize path everywhere; True = kernel 1 (i4p) or q8_matvec
@@ -101,17 +107,35 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
 
     residual: optional (..., out) tensor; the result is residual + x @ W^T on every path
     (under "fused" the add runs inside the kernel; elsewhere it is added in f32 before
-    the cast, the same rounding as the kernel's f32 add)."""
+    the cast, the same rounding as the kernel's f32 add).
+
+    expert: W is one layer's MoE stack (E, out, in) and the product takes its expert
+    `expert`: a Python int (a view of the stack), or a one-element int64 tensor on x's
+    device, which the matvecs' expert entries read themselves (no copy of the expert, no
+    host read of the index)."""
     m = math.prod(x.shape[:-1])
     out_dtype = out_dtype or x.dtype
+    if isinstance(expert, int):
+        w, expert = expert_of(w, expert), None
+    op = "mm" if expert is None else "expert"
     if use_kernels and m == 1 and w.layout == "i4p" and w.groups == 1:
-        _record("q4_matvec", m, w)
-        y = q4_matvec(x, w, out_dtype=out_dtype)
+        if expert is None:
+            _record("q4_matvec", m, w)
+            y = q4_matvec(x, w, out_dtype=out_dtype)
+        else:
+            _record("q4_matvec_expert", m, w, op=op)
+            y = q4_matvec_expert(x, w, expert, out_dtype=out_dtype)
         return y if residual is None else _res_add(y, residual, out_dtype)
     if use_kernels and m == 1 and w.layout == "i8":
-        _record("q8_matvec", m, w)
-        y = q8_matvec(x, w, out_dtype=out_dtype)
+        if expert is None:
+            _record("q8_matvec", m, w)
+            y = q8_matvec(x, w, out_dtype=out_dtype)
+        else:
+            _record("q8_matvec_expert", m, w, op=op)
+            y = q8_matvec_expert(x, w, expert, out_dtype=out_dtype)
         return y if residual is None else _res_add(y, residual, out_dtype)
+    if expert is not None:
+        w = expert_of(w, expert)
     if use_kernels in FUSED_POLICIES and m > 1 and q4_mm_supported(w, m):
         fuse_res = residual is not None and use_kernels == "fused"
         _record("q4_mm+res" if fuse_res else "q4_mm", m, w)
@@ -119,7 +143,7 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
         if residual is not None and not fuse_res:
             return _res_add(y, residual, out_dtype)
         return y
-    _record("dequant", m, w)
+    _record("dequant", m, w, op=op)
     return _qmatmul_dequant(x, w, out_dtype=out_dtype, residual=residual)
 
 
@@ -132,6 +156,17 @@ def _qmatmul_dequant(x: torch.Tensor, w: QTensor, *, out_dtype=None,
     if residual is not None:
         y = residual.float() + y
     return y.to(out_dtype or x.dtype)
+
+
+def expert_of(w: QTensor, e: torch.Tensor | int) -> QTensor:
+    """Expert e of a stacked (E, out, in) QTensor: a view for a Python int, an
+    index_select for a one-element index tensor."""
+    if isinstance(e, int):
+        return QTensor(w.ftype, w.data[e], None if w.scales is None else w.scales[e],
+                       w.layout, w.groups, w.row_groups)
+    return QTensor(w.ftype, expert_slice(w.data, e),
+                   None if w.scales is None else expert_slice(w.scales, e),
+                   w.layout, w.groups, w.row_groups)
 
 
 def qmatmul_q80(xq: torch.Tensor, sx: torch.Tensor, w: QTensor, *,

@@ -19,9 +19,14 @@ of the port passes `precise`, as none of the JAX package's does. The kernel roun
 once to the caller's dtype (f32 or bf16), as `.to()` does after the plain version: one
 launch per call.
 
+`q8_matvec_expert` is the quantizing entry against one expert of a layer's (E, N, K)
+stack, chosen by a one-element int64 index in device memory that the kernel reads
+itself (ops/q4_matvec.py says why).
+
 The entries take the plain version for CPU tensors and launch the kernel for CUDA
-tensors. `launches` counts the quantizing entry's launches, `precise_launches` the
-precise mode's, `q80_launches` the pre-quantized entry's.
+tensors. `launches` counts the quantizing entry's launches, `expert_launches` the
+expert entry's, `precise_launches` the precise mode's, `q80_launches` the pre-quantized
+entry's.
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ import torch
 
 from ..quants import QK, QTensor
 from . import cuda_build, mv_plan
-from .q4_matvec import OUT_DTYPES, aligned, quantize_row
+from .q4_matvec import OUT_DTYPES, aligned, check_expert_index, expert_slice, quantize_row
 
 launches = 0
+expert_launches = 0
 precise_launches = 0
 q80_launches = 0
 
@@ -42,6 +48,7 @@ MAX_K = mv_plan.MAX_K
 _PRECISE_MAX_K = mv_plan.PRECISE_MAX_K
 _P, _I = cuda_build.P, cuda_build.I
 _SIGNATURES = {"q8_matvec": [_P, _I, _I, _P, _P, _P] + [_I] * 7 + [_P],
+               "q8_matvec_expert": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 7 + [_P],
                "q8_matvec_q80": [_P] * 5 + [_I] * 8 + [_P],
                "q8_matvec_blocks_per_sm": [_I] * 6}
 
@@ -70,6 +77,13 @@ def q8_matvec_plain(x_row: torch.Tensor, w8: torch.Tensor,
     return q8_matvec_q80_plain(*quantize_row(x_row), w8, scales)
 
 
+def q8_matvec_expert_plain(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
+                           e: torch.Tensor) -> torch.Tensor:
+    """The expert entry's function in plain torch: x_row (K,), w8 (E, N, K) int8,
+    scales (E, N, K/32) f32, e one-element int -> `q8_matvec_plain` against expert e."""
+    return q8_matvec_plain(x_row, expert_slice(w8, e), expert_slice(scales, e))
+
+
 def q8_matvec_precise_plain(x_row: torch.Tensor, w8: torch.Tensor,
                             scales: torch.Tensor) -> torch.Tensor:
     """Kernel 6's precise body in plain torch: x_row (K,) unquantized in f32, sx = 1."""
@@ -80,13 +94,13 @@ def q8_matvec_precise_plain(x_row: torch.Tensor, w8: torch.Tensor,
 
 def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev,
                    out_dtype) -> int:
-    n, k = w8.shape
+    n, k = w8.shape[-2:]
     if w8.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes int8 planes and f32 scales, got "
                         f"{w8.dtype}/{scales.dtype}")
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"{what} kernel writes {OUT_DTYPES}, not {out_dtype}")
-    if k % QK or k > MAX_K or scales.shape != (n, k // QK):
+    if k % QK or k > MAX_K or scales.shape != (*w8.shape[:-1], k // QK):
         raise ValueError(f"{what} kernel cannot take K={k}, scales {tuple(scales.shape)}")
     if not (w8.is_contiguous() and scales.is_contiguous()) or w8.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs contiguous, 16-byte aligned weight planes")
@@ -96,15 +110,21 @@ def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev,
 
 
 def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
-            precise: bool = False, out_dtype=torch.float32) -> torch.Tensor:
-    global launches, precise_launches
+            precise: bool = False, out_dtype=torch.float32,
+            e: torch.Tensor | None = None) -> torch.Tensor:
+    """The float entry (quantizing, or precise); with `e`, the expert entry against
+    matrix e of the (E, N, K) stack `w8`."""
+    global launches, precise_launches, expert_launches
+    what = "q8_matvec" if e is None else "q8_matvec_expert"
     if x_row.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q8_matvec kernel takes f32 or bf16 activations, got {x_row.dtype}")
-    n = w8.shape[0]
+        raise TypeError(f"{what} kernel takes f32 or bf16 activations, got {x_row.dtype}")
+    if w8.ndim != (2 if e is None else 3) or (precise and e is not None):
+        raise ValueError(f"{what}: weights {tuple(w8.shape)}, precise={precise}")
+    n = w8.shape[-2]
     dev = x_row.device
-    k = _check_weights("q8_matvec", w8, scales, dev, out_dtype)
+    k = _check_weights(what, w8, scales, dev, out_dtype)
     if x_row.shape != (k,):
-        raise ValueError(f"q8_matvec: row {tuple(x_row.shape)} against K={k}")
+        raise ValueError(f"{what}: row {tuple(x_row.shape)} against K={k}")
     if precise and k > _PRECISE_MAX_K:
         raise ValueError(f"q8_matvec precise mode takes K <= {_PRECISE_MAX_K}, got {k}")
     x_row = aligned(x_row)
@@ -114,11 +134,21 @@ def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     p = mv_plan.for_call(lib, "q8_matvec_blocks_per_sm", n, k, "i8",
                          "precise" if precise else "quantize", xb, dev.index)
     r = p.ring
-    rc = lib.q8_matvec(x_row.data_ptr(), int(xb), int(precise), w8.data_ptr(),
-                       scales.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16), n,
-                       k, r.rs, r.stages, r.gw, p.grid, cuda_build.stream_of(x_row))
-    cuda_build.check(rc, "q8_matvec")
-    if precise:
+    ob = int(out_dtype == torch.bfloat16)
+    if e is None:
+        rc = lib.q8_matvec(x_row.data_ptr(), int(xb), int(precise), w8.data_ptr(),
+                           scales.data_ptr(), y.data_ptr(), ob, n, k, r.rs, r.stages, r.gw,
+                           p.grid, cuda_build.stream_of(x_row))
+    else:
+        check_expert_index(what, e, dev)
+        rc = lib.q8_matvec_expert(x_row.data_ptr(), int(xb), w8.data_ptr(),
+                                  scales.data_ptr(), e.data_ptr(), w8.shape[0],
+                                  y.data_ptr(), ob, n, k, r.rs, r.stages, r.gw, p.grid,
+                                  cuda_build.stream_of(x_row))
+    cuda_build.check(rc, what)
+    if e is not None:
+        expert_launches += 1
+    elif precise:
         precise_launches += 1
     else:
         launches += 1
@@ -175,6 +205,28 @@ def q8_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None,
         y = plain(x_row, w.data, w.scales).to(out_dtype)
     else:
         raise ValueError(f"q8_matvec: no kernel for device {x.device}")
+    return y.reshape(*lead, y.shape[0])
+
+
+def q8_matvec_expert(x: torch.Tensor, w: QTensor, e: torch.Tensor, *,
+                     out_dtype=None) -> torch.Tensor:
+    """Decode-path matmul against one expert: x (..., K) with leading dims multiplying
+    to 1, w one layer's i8-layout expert stack (E, N, K), e a one-element int64 tensor
+    on x's device -> (..., N) in out_dtype (default x's)."""
+    if w.layout != "i8" or w.data.ndim != 3:
+        raise ValueError("q8_matvec_expert needs a 3-D i8-layout expert stack")
+    lead = x.shape[:-1]
+    if math.prod(lead) != 1:
+        raise ValueError(f"q8_matvec_expert takes one activation row, got "
+                         f"{tuple(x.shape)}")
+    x_row = x.reshape(x.shape[-1])
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cuda":
+        y = _launch(x_row, w.data, w.scales, out_dtype=out_dtype, e=e)
+    elif x.device.type == "cpu":
+        y = q8_matvec_expert_plain(x_row, w.data, w.scales, e).to(out_dtype)
+    else:
+        raise ValueError(f"q8_matvec_expert: no kernel for device {x.device}")
     return y.reshape(*lead, y.shape[0])
 
 

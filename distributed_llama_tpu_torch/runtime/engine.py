@@ -82,8 +82,6 @@ class Engine:
                  batch: int = 1, kv_pool: tuple[int, int] | None = None,
                  paged_kernel: bool | None = None, fused_prologue: bool | None = None,
                  cuda_graph: bool = True):
-        if spec.is_moe:
-            raise NotImplementedError("the port runs dense models only")
         self.spec = spec
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
@@ -125,7 +123,7 @@ class Engine:
         if self.use_kernels:
             params = prepare_for_cuda(params, keep_gate_pair=self.fused_matmul)
         self.params = params
-        self.decode_weight_bytes = decode_stream_bytes(self.params)
+        self.decode_weight_bytes = decode_stream_bytes(self.params, spec)
         self.rope = RopeTables.create(spec, self.device)
         if kv_pool is not None:
             self.k_cache, self.v_cache = init_kv_pool(spec, *kv_pool, dtype=self.dtype,

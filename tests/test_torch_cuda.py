@@ -1007,3 +1007,126 @@ def test_split_kernel_counters_reset_across_replays(cuda, kernel):
         assert torch.equal(out, want)
     counters = attention_plan.merge_counters(cuda, 1)
     assert int(counters.abs().sum()) == 0
+
+
+# the MoE path: the decode matvecs' expert entries, and attention at Grok-1's g = 6
+def _expert_stack(fmt, n_e, n, k, dev, seed):
+    if fmt == "q4":
+        packed, scales = _planes(n_e * n, k, dev, seed)
+        return (packed.reshape(n_e, n, k // 2), scales.reshape(n_e, n, k // 32),
+                mv._launch, mv.q4_matvec_expert_plain, mv)
+    w8, scales = _i8_planes(n_e * n, k, dev, seed)
+    return (w8.reshape(n_e, n, k), scales.reshape(n_e, n, k // 32), q8._launch,
+            q8.q8_matvec_expert_plain, q8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q4", "q8"])
+@pytest.mark.parametrize("n,k", [(300, 704), (28672, 4096), (4096, 14336), (777, 32768)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_moe_expert_entries_match_plain(cuda, fmt, n, k, out_dtype):
+    """The expert entry against its plain version on each expert of a 4-expert stack
+    (the `_matvec_close` tolerances), bit-identical to the 2-D entry on that expert's
+    planes, one launch per call on its own counter; an index past either end clamps."""
+    w, s, launch, plain, mod = _expert_stack(fmt, 4, n, k, cuda, seed=n + k)
+    x = torch.randn(k, device=cuda).to(torch.bfloat16)
+    for e, at in ((0, 0), (2, 2), (3, 3), (-1, 0), (7, 3)):
+        idx = torch.tensor([e], dtype=torch.int64, device=cuda)
+        before = (mod.expert_launches, mod.launches)
+        got = launch(x, w, s, out_dtype=out_dtype, e=idx)
+        got32 = launch(x, w, s, e=idx)
+        assert (mod.expert_launches, mod.launches) == (before[0] + 2, before[1])
+        two_d = launch(x, w[at], s[at], out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, two_d), f"expert {e}"
+        _matvec_close(got, plain(x, w, s, idx), got32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q4", "q8"])
+def test_moe_expert_index_replays_from_cuda_graph(cuda, fmt):
+    """One expert-entry launch captured in a CUDA graph replays against the expert whose
+    index is written into its index tensor before each replay: the captured launch reads
+    the index, it was not frozen into the graph."""
+    w, s, launch, _, _ = _expert_stack(fmt, 8, 4096, 14336, cuda, seed=5)
+    x = torch.randn(14336, device=cuda).to(torch.bfloat16)
+    idx = torch.zeros(1, dtype=torch.int64, device=cuda)
+    launch(x, w, s, out_dtype=torch.bfloat16, e=idx)  # warm-up: build, attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(x, w, s, out_dtype=torch.bfloat16, e=idx)
+    outs = []
+    for e in (5, 2, 5):
+        idx.fill_(e)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, launch(x, w[e], s[e], out_dtype=torch.bfloat16)), e
+        outs.append(out.clone())
+    assert not torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos,window", [(0, 256), (130, 256), (700, 1024)])
+def test_moe_decode_attention_grok_group(cuda, dtype, pos, window):
+    """decode_attention at Grok-1's heads: 8 kv heads of 6 query heads, hs 128."""
+    q, kc, vc, kn, vn = _decode_inputs(cuda, dtype, 8, 6, 128, seed=pos)
+    kc[:, :, :, pos:] = float("nan")
+    vc[:, :, :, pos:] = float("nan")
+    got = da._launch(q, kc, vc, kn, vn, 1, pos, window)
+    torch.cuda.synchronize()
+    want = da.decode_attention_plain(q, kc, vc, kn, vn, 1, pos, window)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 8, 64])
+def test_moe_paged_attention_grok_group(cuda, dtype, t):
+    """paged_attention at Grok-1's heads (8 kv heads of 6 query heads, hs 128)."""
+    q, kc, vc, kn, vn, tables, lens, w = _paged_inputs(cuda, dtype, t, 6, 8, 128,
+                                                       [0, 37, 300, 16], seed=t)
+    layer = torch.ones(1, dtype=torch.int32, device=cuda)
+    got = pa._launch(q, kc, vc, kn, vn, tables, lens, layer, w)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q, kc, vc, kn, vn, tables, lens, 1, n_read=w)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral", "grok1"])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_moe_graph_replay_and_device_loop(cuda, arch, prologue):
+    """A 2-layer model at Mixtral or Grok-1 width, random Q40 drawn on the card, with
+    and without the fused prologue (which takes the attention only): the one-token step
+    replayed from its CUDA graph gives the eager step's logits bit for bit (the routing,
+    the top-k and the expert indices made inside the captured step), the device loop
+    gives the host loop's greedy tokens, and the experts each layer chose differ from
+    step to step."""
+    import chip_smoke
+
+    spec = chip_smoke._mixtral_8x7b(2) if arch == "mixtral" else chip_smoke._grok1(2)
+    params = chip_smoke._random_moe_params(spec, cuda, seed=33)
+    kw = dict(device="cuda", prefill_kernel=True, fused_prologue=prologue)
+    graph_eng, eager = Engine(spec, params, **kw), Engine(spec, params, cuda_graph=False, **kw)
+    prompt = _prompt(40, 5)
+    runs = []
+    before = (pro.rmsnorm_launches, mv.q80_launches)
+    with chip_smoke._ExpertLog(spec, cuda) as log:
+        for eng in (graph_eng, eager):
+            smp = chip_smoke._CheckedSampler(spec.vocab_size, keep=True)
+            runs.append((eng.generate(prompt, 12, smp)[0], smp.kept))
+    (tg, lg), (te, le) = runs
+    assert tg == te and all(np.array_equal(a, b) for a, b in zip(lg, le))
+    assert graph_eng.graphs.replays >= 12
+    per, steps = log.distinct()
+    assert steps >= 24 and min(per) > 2, per
+    launched = (pro.rmsnorm_launches > before[0], mv.q80_launches > before[1])
+    assert launched == (prologue, prologue)
+    host = chip_smoke.host_loop_tokens(graph_eng, prompt, 16)
+    graph_eng.reset()
+    loop = graph_eng.generate_chunked(prompt, 16, Sampler(spec.vocab_size, 0.0), chunk=8)[0]
+    assert loop == host
