@@ -31,6 +31,24 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             the device-busy share of the decode step
   http      the port's api_server serve() on the same 7B engine with a synthetic
             32000-piece tokenizer: 4 concurrent chat completions (one SSE) over HTTP
+  prefix    the prefix cache over paged KV on the serve phase's weights (the serve phase
+            itself runs with the cache off): (1) 2 slots at superstep 1 and 8, hits on a
+            512-token prefix P one at a time, each remapping 32 directory blocks (0 bytes
+            moved) and prefilling 512 tokens fewer, with every host-sampled logits row
+            bit-identical to the cache-off run; a hit of exactly P (31 blocks remapped, the
+            boundary block copied) held by the near-tie rule with an f64 witness; (2) 8
+            slots, superstep 8 pipelined, 8 hits on P together: every first logits row
+            bit-identical to a serial cache-off reference, first tokens identical to
+            the cache-off run; time to first token, prefill, dispatches, launches
+            against the serve schedule, and the super-step period and profiled device
+            busy with and without the cache; (3)
+            a pool of 130 blocks whose pressure demotes the directory to the host tier, hot
+            and Q80, and a hit that promotes it back: the promoted rows against the rows
+            read before the demotion (hot bit for bit), the seed bytes, the pool drained;
+            (4) the single-sequence Engine through SingleSlotCache: a 512-row seed after a
+            displacing conversation, 16 steps' logits bit-identical to a fresh prefill,
+            graph replays, and a follow-up turn on the resident rewind. Any cache
+            degradation (warn_degraded) fails the phase
   moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
             with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
             phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
@@ -97,8 +115,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
-ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "moe", "kernels",
-              "cli")
+ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "moe",
+              "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -2201,6 +2219,29 @@ def _device_union_ms(prof) -> float:
     return total / 1e3
 
 
+def _device_gaps_ms(prof) -> tuple[list[float], dict[tuple[str, str], float]]:
+    """The gaps (ms) between the profiled window's device activities, the stretches
+    inside its span during which the card ran none of them, and their sum by the pair
+    of activities around each (the one that ended last before it, the one after)."""
+    from torch.autograd import DeviceType
+
+    def short(name: str) -> str:
+        name = re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", name)
+        return name.split("<")[0].split("(")[0][:40]
+
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and ev.time_range.end > 0)
+    gaps, by_pair, end, last = [], {}, None, ""
+    for a, b, name in spans:
+        if end is not None and a > end:
+            gaps.append((a - end) / 1e3)
+            pair = (short(last), short(name))
+            by_pair[pair] = by_pair.get(pair, 0.0) + gaps[-1]
+        if end is None or b > end:
+            end, last = b, name
+    return gaps, by_pair
+
+
 def _profile_decode(eng, token: int, counted_ms: float, steps: int = 8,
                     tag: str = "model") -> tuple[float, float]:
     """Where one decode step's time goes: device time by kernel name from torch.profiler
@@ -2276,7 +2317,7 @@ def _serve_engine(params, superstep: int):
 
     spec = _llama2_7b()
     be = BatchEngine(spec, params, slots=8, device="cuda", fused_matmul=True,
-                     kv_block_tokens=16, superstep=superstep)
+                     kv_block_tokens=16, superstep=superstep, prefix_cache=False)
     eng = be.engine
     eng.graphs = counting_graphs(eng.device, _serve_counters())
     assert eng.dtype == torch.bfloat16 and eng.use_kernels == "fused" and eng.paged_kernel
@@ -2297,6 +2338,7 @@ SERVE_K = 8
 def phase_serve(state: dict) -> None:
     spec = _llama2_7b()
     params = _random_i4p_params(spec, torch.device("cuda"), seed=13, gate_pair=True)
+    state["serve_params"] = params  # the prefix phase runs on the same weights
     gen = torch.Generator().manual_seed(21)
     prompts = [[1] + torch.randint(3, spec.vocab_size, (n - 1,), generator=gen).tolist()
                for n in SERVE_PROMPTS]
@@ -2388,10 +2430,12 @@ def _serve_run(state: dict, be, prompts, k: int) -> list[list[int]]:
     return [r.out for r in reqs]
 
 
-def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4) -> dict:
-    """The pipelined super-step in steady state: 8 requests of 8-token prompts decode
-    together; full deliveries (8 rows, K tokens each) are timed without the profiler (the
-    step period: their spacing over K). Then the scheduler pauses after a delivery while
+def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4, submit=None,
+                             tag: str = "[serve]") -> dict:
+    """The pipelined super-step in steady state: the requests `submit()` returns (by
+    default 8 requests of 8-token prompts) decode together; the first `warm` + 1 full
+    deliveries (8 rows, K tokens each) are timed without the profiler (the step period:
+    their spacing over K). Then the scheduler pauses after a delivery while
     this thread drains the card and starts the profiler, runs on through `window` full
     deliveries, and pauses again while the card drains and the profiler stops. Busy per
     step is the union of the recorded kernels' intervals over the steps they hold
@@ -2402,6 +2446,14 @@ def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4) -> dict
     marks: list[float] = []
     gates = [threading.Event() for _ in range(4)]  # at start, started, at end, stopped
     orig = be._deliver_super_step
+    gc_ms = [0.0, 0, 0.0]  # ms in collections, full ones, start of the running one
+
+    def gc_timed(phase, info):
+        if phase == "start":
+            gc_ms[2] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_ms[2]) * 1e3
+            gc_ms[1] += info["generation"] == 2
 
     def wrapped(fl):
         status = orig(fl)
@@ -2416,14 +2468,20 @@ def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4) -> dict
         return status
 
     be._deliver_super_step = wrapped
+    chain0 = (be.chained, dict(be.flushes))
+    gc.callbacks.append(gc_timed)
     prof = profile(activities=[ProfilerActivity.CUDA])
     try:
-        reqs = [be.submit([1] + list(range(100 + 10 * i, 107 + 10 * i)),
-                          k * (warm + window + 4), _CheckedSampler(be.spec.vocab_size))
-                for i in range(8)]
+        reqs = submit() if submit else [
+            be.submit([1] + list(range(100 + 10 * i, 107 + 10 * i)), k * (warm + window + 4),
+                      _CheckedSampler(be.spec.vocab_size)) for i in range(8)]
         for start in (True, False):
-            if not gates[0 if start else 2].wait(900):
-                raise AssertionError(f"serve profile: only {len(marks)} full super-steps")
+            gate = gates[0 if start else 2]
+            t0 = time.perf_counter()
+            while not gate.wait(1.0):
+                if all(r.done.is_set() for r in reqs) or time.perf_counter() - t0 > 900:
+                    raise AssertionError(f"{tag} profile: only {len(marks)} full "
+                                         f"super-steps")
             torch.cuda.synchronize()
             prof.start() if start else prof.stop()
             gates[1 if start else 3].set()
@@ -2431,9 +2489,13 @@ def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4) -> dict
             r.wait(timeout=900)
     finally:
         be._deliver_super_step = orig
+        gc.callbacks.remove(gc_timed)
         for e in gates:
             e.set()
     be.release_idle()
+    chained = be.chained - chain0[0]
+    flushes = {r: n - chain0[1].get(r, 0) for r, n in be.flushes.items()
+               if n != chain0[1].get(r, 0)}
     rows, attn = [], 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0) or getattr(
@@ -2444,17 +2506,34 @@ def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4) -> dict
                 attn += ev.count
     steps = attn / be.spec.n_layers
     if steps < (window - 1) * k:
-        raise AssertionError(f"serve profile: {steps} steps recorded in the window")
+        raise AssertionError(f"{tag} profile: {steps} steps recorded in the window")
     busy = _device_union_ms(prof) / steps
+    gaps, by_pair = _device_gaps_ms(prof)
+    pairs = sorted(by_pair.items(), key=lambda kv: -kv[1])[:4]
+    span = (busy * steps + sum(gaps)) / steps
+    big = [g for g in gaps if g > 0.25]
     period = (marks[warm] - marks[0]) / warm / k * 1e3
+    # the full deliveries after the profiler stopped (the first one spans the pause)
+    tail = marks[warm + window + 2:]
+    after = (tail[-1] - tail[0]) / (len(tail) - 1) / k * 1e3 if len(tail) > 3 else math.nan
     rows.sort(reverse=True)
-    log(f"[serve] superstep {k} step (8 rows): device busy {busy:.3f} ms (profiled over "
+    log(f"{tag} superstep {k} step (8 rows): device busy {busy:.3f} ms (profiled over "
         f"{steps:.0f} replayed steps, union of the kernels' intervals); step period "
         f"without the profiler {period:.3f} ms ({warm} full super-steps); idle share "
-        f"{1 - busy / period:.3f} of the period")
+        f"{1 - busy / period:.3f} of the period"
+        + (f"; after the profiled window {after:.3f} ms ({len(tail) - 1} full "
+           f"super-steps)" if len(tail) > 3 else ""))
+    log(f"{tag} the profiled window spans {span:.3f} ms/step: idle {span - busy:.3f} "
+        f"ms/step, of it {len(big)} gaps over 0.25 ms ({sum(big) / steps:.3f} ms/step; "
+        f"largest {max(gaps, default=0.0):.3f} ms) in {steps / k:.0f} super-steps; "
+        f"{chained} dispatches chained, flushed {flushes}; Python's "
+        f"collector ran {gc_ms[0]:.1f} ms ({gc_ms[1]} full collections) in the run; the "
+        f"idle by the kernels around it, ms/step: "
+        + ", ".join(f"{a} -> {b} {ms / steps:.3f}" for (a, b), ms in pairs))
     for ms, n, key in rows[:8]:
-        log(f"[serve]   {ms / steps:.4f} ms/step in {n / steps:.1f} launches/step: {key}")
-    return dict(busy=busy, period=period)
+        log(f"{tag}   {ms / steps:.4f} ms/step in {n / steps:.1f} launches/step: {key}")
+    return dict(busy=busy, period=period, period_after=after, span=span, big_gaps=len(big),
+                big_gap_ms=sum(big) / steps, chained=chained, gc_ms=gc_ms[0])
 
 
 def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> dict:
@@ -2623,6 +2702,630 @@ def phase_http(state: dict) -> None:
         be.close()
         del be
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ the prefix phase
+
+# the shared prefix P (32 blocks of 16, a multiple of the 64-token prefill chunk), the
+# suffixes of the requests that hit it, and the tokens each generates
+PREFIX_P = 512
+PREFIX_SUFFIXES = (17, 24, 33, 40)
+PREFIX_CONCURRENT = (17, 20, 24, 28, 31, 35, 38, 40)
+PREFIX_TOKENS = 16
+# part 2's tokens a hit: enough that every row still decodes after the slowest prefill
+# for PREFIX_PERIOD_STEPS + PREFIX_PROFILED + 1 full super-steps (the cache-off run's
+# first row rides ~100 mixed dispatches), and every position stays under 1024
+PREFIX_CONCURRENT_TOKENS = 288
+PREFIX_PERIOD_STEPS, PREFIX_PROFILED = 12, 4
+# a near-tie: two greedy picks closer than this share of max|logits| in a run's logits
+# (bf16 activations over 32 layers; the parity phase's f32 bound is 2e-3)
+NEAR_TIE = 1e-2
+
+
+class _CountDegraded:
+    """While open, counts every prefix-cache degradation (`cache.warn_degraded`): on
+    the card a broken promotion or copy-on-write must not pass as a cache miss."""
+
+    def __enter__(self):
+        from distributed_llama_tpu_torch import cache
+
+        self._mod, self._fn, self.calls = cache, cache.warn_degraded, []
+
+        def counted(what, exc):
+            self.calls.append(f"{what}: {type(exc).__name__}: {exc}")
+            self._fn(what, exc)
+        cache.warn_degraded = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.warn_degraded = self._fn
+
+
+class _F64Dequant:
+    """While open, the dequantize path's products (`matmul._qmatmul_dequant`) run in
+    f64 on the card: the witness of a near-tie, a third evaluation of the same function
+    that sums every product in f64."""
+
+    def __enter__(self):
+        from distributed_llama_tpu_torch.ops import matmul as mm
+
+        def exact(x, w, *, out_dtype=None, residual=None):
+            y = torch.matmul(x.double(), w.dequantize(dtype=torch.float64).transpose(-1, -2))
+            if residual is not None:
+                y = residual.double() + y
+            return y.to(out_dtype or x.dtype)
+        self._mm, self._fn = mm, mm._qmatmul_dequant
+        mm._qmatmul_dequant = exact
+        return self
+
+    def __exit__(self, *exc):
+        self._mm._qmatmul_dequant = self._fn
+
+
+def _prefix_tokens(spec) -> dict:
+    """The phase's prompts, from one seed. Leading tokens keep the slot choice fixed:
+    P starts with 1, the primers with 2, the displacing requests with 3, so every
+    request shares no token with another role's history and lands on the lowest free
+    slot."""
+    rng = np.random.RandomState(61)
+
+    def toks(first: int, n: int) -> list[int]:
+        return [first] + rng.randint(4, spec.vocab_size, n - 1).tolist()
+    p = toks(1, PREFIX_P)
+    return {"P": p, "sd": toks(4, 24)[1:] + [5], "R0": toks(2, 4), "R1": toks(2, 600),
+            "W": toks(3, 1900), "Y": [toks(3, 20) for _ in range(8)],
+            "hits": [p + toks(6, n)[1:] + [7] for n in PREFIX_SUFFIXES],
+            "many": [p + toks(8, n)[1:] + [9] for n in PREFIX_CONCURRENT],
+            "s3": toks(10, 30)[1:] + [11]}
+
+
+def _prefix_engine(spec, params, slots: int, superstep: int, on: bool,
+                   counted: bool = False, **kw):
+    """The serve phase's BatchEngine with the cache on or off; with `counted` its graphs
+    record their launches (`counting_graphs`)."""
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    be = BatchEngine(spec, params, slots=slots, device="cuda", fused_matmul=True,
+                     kv_block_tokens=16, superstep=superstep, prefix_cache=on, **kw)
+    assert be.engine.dtype == torch.bfloat16 and be.engine.paged_kernel
+    if counted:
+        be.engine.graphs = counting_graphs(be.engine.device, _serve_counters())
+    return be
+
+
+def _ask(be, prompt, n: int, keep: bool = False):
+    """One request, waited for: (request, its sampler)."""
+    smp = _CheckedSampler(be.spec.vocab_size, keep)
+    req = be.submit(prompt, n, smp)
+    req.wait(timeout=900)
+    return req, smp
+
+
+def _primers(be, t: dict) -> None:
+    """R0 (4 tokens) then R1 (600) submitted back to back: R0 takes slot 0, R1 slot 1,
+    where its history (608 tokens) stays parked, so every prefill chunk of P reads the
+    1024-token window in both runs of a comparison."""
+    reqs = [be.submit(t[k], 8, _CheckedSampler(be.spec.vocab_size)) for k in ("R0", "R1")]
+    for r in reqs:
+        r.wait(timeout=900)
+    held = be._slots[1].history
+    if not (PREFIX_P - 64 < len(held) <= 1024 - 64 and held[0] == 2):
+        raise AssertionError(f"prefix: the long primer is not parked on slot 1 "
+                             f"({len(held)} tokens)")
+
+
+def _settle_cache(be) -> None:
+    """Every lease released and the last harvest landed (the scheduler harvests inside
+    the pass that holds _slock)."""
+    t0 = time.perf_counter()
+    while be.prefix_cache is not None and be.prefix_cache.total_refs():
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError("prefix: leases still held 60 s after the last request")
+        time.sleep(0.01)
+    with be._slock:
+        pass
+
+
+def _drained(be, tag: str) -> int:
+    _settle_cache(be)
+    free = be.release_idle()
+    if free != be.kv_pool.n_blocks - 1:
+        raise AssertionError(f"prefix {tag}: {free} blocks free after the run, want "
+                             f"{be.kv_pool.n_blocks - 1} (all but scratch)")
+    return free
+
+
+def _witness_logits(state: dict, spec, params, history: list[int]) -> np.ndarray:
+    """The f64 witness: the single-sequence Engine on the dequantize path (f32
+    activations, every product summed in f64) prefills `history`; its last logits row."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    eng = state.get("prefix_witness")
+    if eng is None:
+        eng = state["prefix_witness"] = Engine(spec, params, device="cuda",
+                                               dtype=torch.float32, use_kernels=False,
+                                               cuda_graph=False)
+    eng.reset()
+    with _F64Dequant():
+        return eng.prefill(history)
+
+
+def _witness(state: dict, spec, params, history: list[int], a: int, b: int
+             ) -> tuple[float, float]:
+    """(|logits[a] - logits[b]|, the near-tie bound) in the witness's last row."""
+    logits = _witness_logits(state, spec, params, history)
+    return abs(float(logits[a] - logits[b])), NEAR_TIE * float(np.abs(logits).max())
+
+
+def _held(state, spec, params, tag: str, prompt, got: list[int], want: list[int],
+          got_rows=None, want_rows=None) -> str:
+    """Greedy tokens of two runs of one request under the near-tie rule: identical, or
+    identical up to a step j where the runs' logits (where the host sampled them) and
+    the f64 witness on the common history put the two picks within NEAR_TIE·max|logits|.
+    Returns "" or a description of the near-tie."""
+    if got == want:
+        return ""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        raise AssertionError(f"prefix {tag}: {len(got)} tokens against {len(want)}")
+    a, b = got[j], want[j]
+    for rows in (got_rows, want_rows):
+        if rows is not None and j < len(rows):
+            gap, tol = abs(float(rows[j][a] - rows[j][b])), NEAR_TIE * float(
+                np.abs(rows[j]).max())
+            if gap >= tol:
+                raise AssertionError(f"prefix {tag}: step {j} picks {a} against {b}, "
+                                     f"{gap:.3e} apart in a run's logits (bound {tol:.3e})")
+    gap, tol = _witness(state, spec, params, list(prompt) + want[:j], a, b)
+    if gap >= tol:
+        raise AssertionError(f"prefix {tag}: step {j} picks {a} against {b}; the f64 "
+                             f"witness puts them {gap:.3e} apart (bound {tol:.3e})")
+    return f"{tag} near-tie at step {j} ({a} vs {b}, f64 witness {gap:.2e} < {tol:.2e})"
+
+
+def _prefix_serial(state: dict, spec, params, t: dict, k: int) -> dict:
+    """Part 1: 2 slots, superstep k. R0/R1 primers, the donor P + sd, then for each hit
+    a displacing request Y_i and the hit P + s_i (one at a time), the last hit exactly P
+    (511 tokens remapped, the boundary block copied). The same on an engine with the
+    cache off; every host-sampled logits row of the 64-aligned hits bit-identical."""
+    runs = {}
+    for on in (False, True):
+        be = _prefix_engine(spec, params, 2, k, on)
+        try:
+            _primers(be, t)
+            _ask(be, t["P"] + t["sd"], 8)
+            rows = []
+            for i, prompt in enumerate(t["hits"] + [t["P"]]):
+                _ask(be, t["Y"][i], 4)
+                _settle_cache(be)
+                c0 = (be.prefilled_tokens, be.remapped_blocks, be.kv_pool.cow_blocks,
+                      be.seed_bytes, be.seed_ms)
+                t0 = time.perf_counter()
+                req, smp = _ask(be, prompt, PREFIX_TOKENS, keep=True)
+                rows.append(dict(
+                    out=req.out, kept=smp.kept, ttft=(req.first_token_t - req.submit_t) * 1e3,
+                    e2e=(time.perf_counter() - t0) * 1e3,
+                    prefilled=be.prefilled_tokens - c0[0], remapped=be.remapped_blocks - c0[1],
+                    cow=be.kv_pool.cow_blocks - c0[2], seed_bytes=be.seed_bytes - c0[3],
+                    seed_ms=be.seed_ms - c0[4]))
+            stats = be.prefix_cache.stats() if on else {}
+            _drained(be, f"part 1 (superstep {k}, cache {'on' if on else 'off'})")
+            if on and be.prefix_cache.total_refs():
+                raise AssertionError("prefix part 1: leases held after the run")
+            runs[on] = (rows, stats)
+        finally:
+            be.close()
+            del be
+            gc.collect()  # the engine's graphs and pool sit in reference cycles
+            torch.cuda.empty_cache()
+    (off, _), (hot, stats) = runs[False], runs[True]
+    ties = []
+    for i, (a, b) in enumerate(zip(hot, off)):
+        last = i == len(PREFIX_SUFFIXES)
+        want_remap, want_cow = (31, 1) if last else (32, 0)
+        if (a["remapped"], a["cow"], a["seed_bytes"]) != (want_remap, want_cow, 0):
+            raise AssertionError(f"prefix part 1 hit {i}: remapped {a['remapped']}, copied "
+                                 f"{a['cow']}, seed bytes {a['seed_bytes']} (want "
+                                 f"{want_remap}, {want_cow}, 0)")
+        skipped = b["prefilled"] - a["prefilled"]
+        if skipped != (511 if last else 512):
+            raise AssertionError(f"prefix part 1 hit {i}: prefill fell by {skipped} tokens")
+        if last:
+            note = _held(state, spec, params, f"part 1 superstep {k} exact-P hit", t["P"],
+                         a["out"], b["out"], a["kept"], b["kept"])
+            if note:
+                ties.append(note)
+            continue
+        if a["out"] != b["out"] or len(a["kept"]) != len(b["kept"]) or not all(
+                np.array_equal(x, y) for x, y in zip(a["kept"], b["kept"])):
+            raise AssertionError(f"prefix part 1 (superstep {k}) hit {i}: tokens or logits "
+                                 f"differ from the cache-off run")
+    wnote = ""
+    if k == 1:
+        # the witness on every run: P's next token against the exact-P hit's first one
+        wl = _witness_logits(state, spec, params, t["P"])
+        pick, card = int(np.argmax(wl)), hot[-1]["out"][0]
+        gap, tol = abs(float(wl[pick] - wl[card])), NEAR_TIE * float(np.abs(wl).max())
+        if gap >= tol:
+            raise AssertionError(f"prefix part 1: the f64 witness picks {pick} after P, "
+                                 f"the card {card}, {gap:.3e} apart (bound {tol:.3e})")
+        wnote = f"; the f64 witness after P picks {pick} (the card {card}, {gap:.2e} apart)"
+    n_rows = sum(len(a["kept"]) for a in hot[:-1])
+    log(f"[prefix] part 1, 2 slots, superstep {k}" + (", pipelined" if k > 1 else "")
+        + f": {len(PREFIX_SUFFIXES)} hits on P ({PREFIX_P} tokens) each remapped 32 blocks "
+        f"(0 bytes moved) and prefilled 512 tokens fewer; every token and all {n_rows} "
+        f"host-sampled logits rows bit-identical to the cache-off run; the exact-P hit "
+        f"remapped 31 blocks and copied 1, its tokens "
+        + ("identical" if not ties else "; ".join(ties)) + wnote + "; time to first token on "
+        f"{[round(a['ttft'], 1) for a in hot]} ms, off {[round(b['ttft'], 1) for b in off]} "
+        f"ms; seed ms {[round(a['seed_ms'], 3) for a in hot]}; directory {stats}")
+    return {"ttft_on": [a["ttft"] for a in hot], "ttft_off": [b["ttft"] for b in off],
+            "seed_ms": [a["seed_ms"] for a in hot], "ties": ties}
+
+
+def _prefix_reference(spec, params, t: dict) -> list[tuple[int, np.ndarray]]:
+    """Part 2's bit-exact reference, cache off on the 8-slot engine: each hit alone on
+    slot 0 (after a displacing request) while the long primer stays parked on slot 1, so
+    every chunk of P and of the suffix runs at the chunk size, batch shape (8 rows) and
+    window (1024) at which the cache-on run's donor and its hits ran it. Each hit's first
+    token and its logits row."""
+    be = _prefix_engine(spec, params, 8, SERVE_K, False)
+    try:
+        _primers(be, t)
+        out = []
+        for y, p in zip(t["Y"], t["many"]):
+            _ask(be, y, 4)
+            req, smp = _ask(be, p, 1, keep=True)
+            if be._slots[0].history[:len(p)] != p:
+                raise AssertionError("prefix part 2 reference: a hit left slot 0")
+            out.append((req.out[0], smp.kept[0]))
+        held = be._slots[1].history
+        if not (PREFIX_P - 64 < len(held) <= 1024 - 64 and held[0] == 2):
+            raise AssertionError("prefix part 2 reference: the long primer left slot 1")
+        return out
+    finally:
+        be.close()
+        del be
+        gc.collect()  # the engine's graphs and pool sit in reference cycles
+        torch.cuda.empty_cache()
+
+
+def _prefix_concurrent(state: dict, spec, params, t: dict) -> dict:
+    """Part 2: the serve phase's engine (8 slots, superstep 8 pipelined, pool of 1033
+    blocks, its graphs counted): the primers, the donor, 8 displacing requests, then 8
+    hits on P submitted together, PREFIX_CONCURRENT_TOKENS greedy tokens each, with the
+    cache on and off. The hits' launches (eager prefill chunks, graph replays) are held
+    to the serve phase's schedule; the super-step period is the spacing of full
+    deliveries and device busy a step comes from torch.profiler over the next ones
+    (`_profile_serve_superstep`). Every hit's first logits row is bit-identical to the
+    serial reference's (`_prefix_reference`) and its first token is the cache-off run's."""
+    ref = _prefix_reference(spec, params, t)
+    counters = _serve_counters()
+    runs = {}
+    for on in (False, True):
+        held = torch.cuda.memory_allocated()
+        be = _prefix_engine(spec, params, 8, SERVE_K, on, counted=True)
+        try:
+            _primers(be, t)
+            _ask(be, t["P"] + t["sd"], 8)
+            ys = [be.submit(y, 4, _CheckedSampler(spec.vocab_size)) for y in t["Y"]]
+            for r in ys:
+                r.wait(timeout=900)
+            _settle_cache(be)
+            graphs = be.engine.graphs
+            _zero(counters)
+            snap = graph_snapshot(counters, graphs)
+            c0 = (be.prefilled_tokens, be.remapped_blocks, be.kv_pool.cow_blocks,
+                  be.seed_bytes, be.seed_ms, {k: len(v) for k, v in be.dispatch_ms.items()},
+                  be.dispatches, be.loop_steps)
+            smps = [_CheckedSampler(spec.vocab_size, keep=True) for _ in t["many"]]
+            reqs = []
+
+            def submit():
+                reqs.extend(be.submit(p, PREFIX_CONCURRENT_TOKENS, s)
+                            for p, s in zip(t["many"], smps))
+                return reqs
+            prof = _profile_serve_superstep(
+                be, SERVE_K, warm=PREFIX_PERIOD_STEPS, window=PREFIX_PROFILED, submit=submit,
+                tag=f"[prefix] part 2, cache {'on' if on else 'off'},")
+            launches, replays, new = run_launches(counters, graphs, snap)
+            loop = be.loop_steps - c0[7]
+            eager = be.dispatches - c0[6] - loop // SERVE_K
+            steps = eager + replays + new
+            want = {name: n * steps for name, n in SERVE_PER_DISPATCH.items()}
+            if launches != want or replays != loop or any(
+                    len(r.out) != PREFIX_CONCURRENT_TOKENS for r in reqs):
+                raise AssertionError(f"prefix part 2 (cache {'on' if on else 'off'}): "
+                                     f"launches {launches} (want {want} for {eager} eager "
+                                     f"steps, {replays} replays, {new} captures; {loop} "
+                                     f"loop steps), tokens {[len(r.out) for r in reqs]}")
+            runs[on] = dict(
+                outs=[r.out for r in reqs], first=[s.kept[0] for s in smps],
+                ttft=[(r.first_token_t - r.submit_t) * 1e3 for r in reqs],
+                prefilled=be.prefilled_tokens - c0[0], remapped=be.remapped_blocks - c0[1],
+                cow=be.kv_pool.cow_blocks - c0[2], seed_bytes=be.seed_bytes - c0[3],
+                seed_ms=be.seed_ms - c0[4],
+                dispatches={k: len(v) - c0[5][k] for k, v in be.dispatch_ms.items()},
+                launches=launches, steps=(eager, replays, new), period=prof["period"],
+                busy=prof["busy"], prof=prof, held=held)
+            _drained(be, f"part 2 (cache {'on' if on else 'off'})")
+        finally:
+            be.close()
+            del be
+            gc.collect()  # the engine's graphs and pool sit in reference cycles
+            torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    if on["remapped"] != 32 * len(t["many"]) or on["seed_bytes"] or on["cow"]:
+        raise AssertionError(f"prefix part 2: remapped {on['remapped']}, copied "
+                             f"{on['cow']}, seed bytes {on['seed_bytes']}")
+    worst, ties = 0.0, []
+    for i, p in enumerate(t["many"]):
+        a, b = on["first"][i], off["first"][i]
+        if not np.array_equal(a, ref[i][1]) or on["outs"][i][0] != ref[i][0]:
+            raise AssertionError(f"prefix part 2 request {i}: its first logits differ from "
+                                 f"the serial cache-off reference's")
+        if on["outs"][i][0] != off["outs"][i][0]:
+            raise AssertionError(f"prefix part 2 request {i}: first token "
+                                 f"{on['outs'][i][0]} with the cache, {off['outs'][i][0]} "
+                                 f"without")
+        # the cache-off run's prefill of P read other windows (the other rows' positions)
+        err, tol = float(np.abs(a - b).max()), NEAR_TIE * float(np.abs(b).max())
+        worst = max(worst, err / tol)
+        if err > tol:
+            raise AssertionError(f"prefix part 2 request {i}: first logits {err:.3e} from "
+                                 f"the cache-off run's (bound {tol:.3e})")
+        note = _held(state, spec, params, f"part 2 request {i}", p, on["outs"][i],
+                     off["outs"][i], [a], [b])
+        if note:
+            ties.append(note)
+    log(f"[prefix] part 2, 8 slots, superstep {SERVE_K} pipelined, pool 1033 x 16: 8 hits "
+        f"on P submitted together, {PREFIX_CONCURRENT_TOKENS} greedy tokens each: time to "
+        f"first token mean {np.mean(on['ttft']):.1f} ms, max {np.max(on['ttft']):.1f} ms "
+        f"with the cache, {np.mean(off['ttft']):.1f} / {np.max(off['ttft']):.1f} ms without; "
+        f"prefilled {on['prefilled']} against {off['prefilled']} tokens; dispatches "
+        f"{on['dispatches']} against {off['dispatches']}; remapped {on['remapped']} "
+        f"blocks, copied {on['cow']}, seed {on['seed_ms']:.3f} ms ({on['seed_bytes']} "
+        f"bytes); launches {json.dumps(on['launches'])} against {json.dumps(off['launches'])}"
+        f" = per forward step {json.dumps(SERVE_PER_DISPATCH)} x (eager, replays, captures) "
+        f"{on['steps']} against {off['steps']}; super-step period "
+        f"{on['period']:.3f} ms/step against {off['period']:.3f} ({PREFIX_PERIOD_STEPS} full "
+        f"super-steps each), device busy {on['busy']:.3f} against {off['busy']:.3f} ms/step "
+        f"(profiled over the next {PREFIX_PROFILED}; idle in its span "
+        f"{on['prof']['span'] - on['busy']:.3f} against {off['prof']['span'] - off['busy']:.3f}"
+        f" ms/step, gaps over 0.25 ms {on['prof']['big_gaps']} against "
+        f"{off['prof']['big_gaps']}; after it {on['prof']['period_after']:.3f} against "
+        f"{off['prof']['period_after']:.3f} ms/step); device memory held when the engine "
+        f"was built {on['held'] / 2**30:.2f} against {off['held'] / 2**30:.2f} GiB; chained "
+        f"{on['prof']['chained']} against {off['prof']['chained']}, Python's collector "
+        f"{on['prof']['gc_ms']:.1f} against {off['prof']['gc_ms']:.1f} ms; all 8 first "
+        f"logits rows "
+        f"bit-identical to the serial cache-off reference, first tokens identical, the "
+        f"cache-off run's first rows within {worst:.3f} of {NEAR_TIE}·max|logits|; tokens "
+        + ("identical" if not ties else "; ".join(ties)))
+    return {"ttft_mean_on": float(np.mean(on["ttft"])), "ttft_max_on": float(np.max(on["ttft"])),
+            "ttft_mean_off": float(np.mean(off["ttft"])),
+            "ttft_max_off": float(np.max(off["ttft"])), "prefilled_on": on["prefilled"],
+            "prefilled_off": off["prefilled"], "dispatches_on": on["dispatches"],
+            "dispatches_off": off["dispatches"], "seed_ms": on["seed_ms"],
+            "remapped": on["remapped"], "cow": on["cow"], "period_on": on["period"],
+            "period_off": off["period"], "busy_on": on["busy"], "busy_off": off["busy"],
+            "host_on": on["prof"], "host_off": off["prof"],
+            "first_logits_worst": worst, "ties": ties}
+
+
+def _tier_run(spec, params, t: dict, on: bool, q80: bool = False) -> dict:
+    """One run of part 3's sequence: the primers, the donor, a 1900-token request W, a
+    displacing request, then the hit P + s3. With the cache on, the smallest pool the
+    engine takes (one context, the scratch block and one spare) and a host tier of 72
+    blocks (Q80 with `q80`), and the P rows read before W and after the hit; the
+    cache-off run keeps the default pool, so its primer stays parked."""
+    tag = "Q80" if q80 else "hot"
+    kw = dict(kv_pool_blocks=130, prefix_cache_blocks=72, prefix_cache_q80=q80) if on \
+        else {}
+    be = _prefix_engine(spec, params, 2, SERVE_K, on, **kw)
+    try:
+        _primers(be, t)
+        _ask(be, t["P"] + t["sd"], 8)
+        _settle_cache(be)
+        if on:
+            with be._slock:
+                before = [be._read_block(b) for b in be._slots[0].blocks[:32]]
+            st0 = be.prefix_cache.stats()
+        t0 = time.perf_counter()
+        _ask(be, t["W"], 8)
+        w_ms = (time.perf_counter() - t0) * 1e3
+        # a displacing request rewinds W's slot to its first token, so W's blocks
+        # belong to the directory alone and can make room for the promotions
+        _ask(be, t["Y"][0], 4)
+        _settle_cache(be)
+        c0 = (be.seed_bytes, be.seed_ms, be.prefix_cache.stats() if on else None)
+        req, smp = _ask(be, t["P"] + t["s3"], PREFIX_TOKENS, keep=True)
+        run = dict(out=req.out, kept=smp.kept, w_ms=w_ms,
+                   ttft=(req.first_token_t - req.submit_t) * 1e3)
+        if on:
+            _settle_cache(be)
+            with be._slock:
+                after = [be._read_block(b) for b in be._slots[0].blocks[:32]]
+            st1 = be.prefix_cache.stats()
+            run.update(before=before, after=after, st0=st0, mid=c0[2], st1=st1,
+                       seed_bytes=be.seed_bytes - c0[0], seed_ms=be.seed_ms - c0[1],
+                       demoted=st1["demoted_blocks"] - st0["demoted_blocks"],
+                       promoted=st1["promoted_blocks"] - c0[2]["promoted_blocks"])
+        d0 = be.prefix_cache.stats()["demoted_blocks"] if on else 0
+        t0 = time.perf_counter()
+        run["free"] = _drained(be, f"part 3 {tag} (cache {'on' if on else 'off'})")
+        if on:
+            # the drain demotes the rest of the directory: a pure demotion pass
+            n = be.prefix_cache.stats()["demoted_blocks"] - d0
+            run["demote_ms"] = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+            run["drain_demoted"] = n
+        if on and be.prefix_cache.total_refs():
+            raise AssertionError(f"prefix part 3 {tag}: leases held after the run")
+        return run
+    finally:
+        be.close()
+        del be
+        gc.collect()  # the engine's graphs and pool sit in reference cycles
+        torch.cuda.empty_cache()
+
+
+def _prefix_tiers(state: dict, spec, params, t: dict, q80: bool, off: dict) -> dict:
+    """Part 3: 2 slots, a pool of 130 blocks. After the primers and the donor, a
+    1900-token request W needs more blocks than are free: its growth reclaims the
+    directory, demoting LRU blocks to the host tier (the primer's, then P's first ones),
+    and after a displacing request the hit on P promotes them back (one upload each).
+    The P rows the hit's table reads afterwards against the donor's rows read before the
+    demotion: hot, bit for bit; Q80, within the Q80 round trip's bound. `off` is the
+    cache-off run of the same sequence (`_tier_run`), shared by both tiers."""
+    tag = "Q80" if q80 else "hot"
+    runs = {True: _tier_run(spec, params, t, True, q80), False: off}
+    on, off = runs[True], runs[False]
+    if on["promoted"] < 1 or on["mid"]["demoted_blocks"] <= on["st0"]["demoted_blocks"]:
+        raise AssertionError(f"prefix part 3 {tag}: demoted {on['demoted']}, promoted "
+                             f"{on['promoted']}: the directory did not go through the tier")
+    block_bytes = 2 * spec.n_layers * spec.n_kv_heads * 16 * spec.head_size * 2
+    if on["seed_bytes"] != on["promoted"] * block_bytes:
+        raise AssertionError(f"prefix part 3 {tag}: seed bytes {on['seed_bytes']} for "
+                             f"{on['promoted']} promoted blocks")
+    exact, worst = 0, 0.0
+    for (bk, bv), (ak, av) in zip(on["before"], on["after"]):
+        for x, y in ((bk, ak), (bv, av)):
+            if torch.equal(x.view(torch.int16), y.view(torch.int16)):
+                exact += 1
+                continue
+            # one Q80 step (max|x|/127 over the block, the CPU tests' bound) plus the
+            # bf16 rounding of the restored value
+            bound_ = float(x.float().abs().max()) / 127 * 1.01 + 2 ** -8 * float(
+                x.float().abs().max())
+            err = float((x.float() - y.float()).abs().max())
+            worst = max(worst, err / bound_)
+            if q80 and err <= bound_:
+                continue
+            raise AssertionError(f"prefix part 3 {tag}: a promoted block differs from "
+                                 f"the rows read before its demotion (max|err| {err:.3e})")
+    if q80 and exact == 64:
+        raise AssertionError("prefix part 3 Q80: no promoted block went through Q80")
+    if not q80:
+        if on["out"] != off["out"] or not all(
+                np.array_equal(x, y) for x, y in zip(on["kept"], off["kept"])):
+            raise AssertionError("prefix part 3 hot: tokens or logits differ from the "
+                                 "cache-off run")
+    same = sum(a == b for a, b in zip(on["out"], off["out"]))
+    grew = on["mid"]["demoted_blocks"] - on["st0"]["demoted_blocks"]
+    log(f"[prefix] part 3 {tag} tier, 2 slots, pool 130 x 16, host tier 72 blocks: the "
+        f"1900-token request's growth demoted {grew} directory blocks in "
+        f"{on['w_ms']:.1f} ms (its whole request); the hit promoted "
+        f"{on['promoted']} blocks ({on['seed_bytes']} bytes, seed {on['seed_ms']:.2f} ms) "
+        f"and remapped {32 - on['promoted']}; P's 32 blocks after it: {exact} of 64 K/V "
+        f"halves bit-identical to the rows read before the demotion"
+        + (f", the rest within the Q80 bound (worst {worst:.3f} of it)" if q80 else "")
+        + f"; tokens {'identical to' if on['out'] == off['out'] else f'{same} of 16 equal to'} "
+        f"the cache-off run's ({on['out']})"
+        + ("" if q80 else ", logits bit-identical") + f"; demoted {on['st1']['demoted_blocks']}, "
+        f"promoted {on['st1']['promoted_blocks']} in all; the drain demoted "
+        f"{on['drain_demoted']} more at {on['demote_ms']:.2f} ms a block; pool drained to "
+        f"{on['free']} free")
+    return {"promoted": on["promoted"], "seed_ms": on["seed_ms"], "w_ms": on["w_ms"],
+            "demote_ms_per_block": on["demote_ms"], "drain_demoted": on["drain_demoted"],
+            "demoted": grew,
+            "exact_halves": exact}
+
+
+def _prefix_single(state: dict, spec, params, t: dict) -> dict:
+    """Part 4: the single-sequence Engine (dense bf16 cache, graph-replayed steps)
+    through SingleSlotCache: A = P + s, an unrelated B of 600 tokens, then A' = P + s'
+    (a radix seed of 512 rows, 256 MiB host->device) whose 16 steps' logits must equal a
+    fresh Engine's prefill of A' bit for bit, and a follow-up turn served by the
+    resident rewind."""
+    from distributed_llama_tpu_torch.cache import SingleSlotCache, make_prefix_cache
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(spec, params, device="cuda", fused_matmul=True)
+    assert eng.cuda_graph and eng.dtype == torch.bfloat16
+    ptrs = (eng.k_cache.data_ptr(), eng.v_cache.data_ptr())
+    pc = make_prefix_cache(eng.k_cache.shape, eng.k_cache.element_size(), slots=1)
+    ssc = SingleSlotCache(eng, pc)
+    vocab = spec.vocab_size
+
+    def turn(prompt, n, keep=False):
+        smp = _CheckedSampler(vocab, keep)
+        first = []
+        t0 = time.perf_counter()
+        reuse = ssc.begin(prompt)
+        t_seed = time.perf_counter()
+        out, _ = eng.generate(prompt[reuse:], n, smp,
+                              on_token=lambda _t: first or first.append(time.perf_counter()))
+        ssc.end((prompt + out)[:eng.pos])
+        return dict(reuse=reuse, out=out, kept=smp.kept, seed_ms=(t_seed - t0) * 1e3,
+                    ttft=(first[0] - t0) * 1e3)
+
+    a = t["P"] + t["sd"]
+    a2 = t["P"] + t["s3"]
+    turn(a, 8)
+    turn(t["R1"], 8)
+    replays = eng.graphs.replays
+    got = turn(a2, PREFIX_TOKENS, keep=True)
+    replayed = eng.graphs.replays - replays
+    follow = a2 + got["out"] + t["sd"][:5]
+    hits = pc.hits
+    again = turn(follow, 4)
+    fresh = Engine(spec, params, device="cuda", fused_matmul=True)
+    smp = _CheckedSampler(vocab, keep=True)
+    first = []
+    t0 = time.perf_counter()
+    want, _ = fresh.generate(a2, PREFIX_TOKENS, smp,
+                             on_token=lambda _t: first or first.append(time.perf_counter()))
+    off_ttft = (first[0] - t0) * 1e3
+    del fresh
+    if got["reuse"] != PREFIX_P:
+        raise AssertionError(f"prefix part 4: A' reused {got['reuse']} tokens, want the "
+                             f"{PREFIX_P}-row seed")
+    if got["out"] != want or not all(np.array_equal(x, y)
+                                     for x, y in zip(got["kept"], smp.kept)):
+        raise AssertionError("prefix part 4: the seeded A' differs from a fresh prefill")
+    if again["reuse"] < len(a2) or pc.hits != hits or pc.total_refs():
+        raise AssertionError(f"prefix part 4: the follow-up reused {again['reuse']} tokens, "
+                             f"hits {hits} -> {pc.hits}, refs {pc.total_refs()}")
+    if (eng.k_cache.data_ptr(), eng.v_cache.data_ptr()) != ptrs or replayed < PREFIX_TOKENS - 1:
+        raise AssertionError("prefix part 4: the cache moved, or the steps did not replay")
+    log(f"[prefix] part 4, single sequence (dense bf16 cache, graph replays): A' seeded "
+        f"{PREFIX_P} rows ({PREFIX_P * 4 * spec.n_layers * spec.n_kv_heads * spec.head_size} "
+        f"bytes) in {got['seed_ms']:.2f} "
+        f"ms, time to first token {got['ttft']:.1f} ms against {off_ttft:.1f} ms for a "
+        f"fresh prefill; {PREFIX_TOKENS} steps' logits bit-identical ({replayed} graph "
+        f"replays); the follow-up turn rewound {again['reuse']} resident tokens; "
+        f"{pc.stats()}")
+    return {"seed_ms": got["seed_ms"], "ttft_on": got["ttft"], "ttft_off": off_ttft}
+
+
+def phase_prefix(state: dict) -> None:
+    """The prefix cache over paged KV at Llama-2-7B (the serve phase's weights)."""
+    spec = _llama2_7b()
+    params = state.pop("serve_params", None) or _random_i4p_params(
+        spec, torch.device("cuda"), seed=13, gate_pair=True)
+    t = _prefix_tokens(spec)
+    numbers, seconds = {}, {}
+    with _CountDegraded() as deg:
+        t0 = time.perf_counter()
+        for k in (1, SERVE_K):
+            numbers[f"part1_k{k}"] = _prefix_serial(state, spec, params, t, k)
+        seconds["part1"], t0 = time.perf_counter() - t0, time.perf_counter()
+        numbers["part2"] = _prefix_concurrent(state, spec, params, t)
+        seconds["part2"], t0 = time.perf_counter() - t0, time.perf_counter()
+        off = _tier_run(spec, params, t, False)
+        for q80 in (False, True):
+            numbers["part3_q80" if q80 else "part3_hot"] = _prefix_tiers(state, spec,
+                                                                         params, t, q80, off)
+        seconds["part3"], t0 = time.perf_counter() - t0, time.perf_counter()
+        numbers["part4"] = _prefix_single(state, spec, params, t)
+        seconds["part4"] = time.perf_counter() - t0
+    numbers["seconds"] = seconds
+    state.pop("prefix_witness", None)
+    if deg.calls:
+        raise AssertionError(f"prefix: {len(deg.calls)} cache degradation(s): {deg.calls}")
+    log("[prefix] numbers: " + json.dumps(numbers, default=float))
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class _ExpertLog:

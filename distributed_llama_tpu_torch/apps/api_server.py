@@ -7,10 +7,14 @@ max_tokens / stop overrides (dllama-api.cpp:351-380), `GET /v1/models` and `/hea
 (`/healthz`). Errors are OpenAI-style `{"error": {"message", "type"}}` bodies.
 
 With `--batch 1` requests serialize behind a generation lock on the single-sequence
-Engine, as the reference's accept loop does (dllama-api.cpp:418-429). With `--batch N`
-(N >= 2) the server runs the port's continuous-batching BatchEngine (paged KV): up to N
-requests decode concurrently, in K-step device super-steps (`--superstep`, default 8),
-pipelined (`--pipeline`, on by default).
+Engine, as the reference's accept loop does (dllama-api.cpp:418-429), and reuse KV
+through cache/single_slot.py: the resident conversation's common prefix rewinds, and a
+longer prefix in the shared-prefix cache is written into the cache instead of
+re-prefilled. With `--batch N` (N >= 2) the server runs the port's continuous-batching
+BatchEngine (paged KV, `--no-paged-kv` for dense caches): up to N requests decode
+concurrently, in K-step device super-steps (`--superstep`, default 8), pipelined
+(`--pipeline`, on by default), and prompts that share full blocks with earlier requests
+get them from the prefix cache. `--no-prefix-cache` turns the cache off in both modes.
 
 Runs on the GPU unless `--device cpu` is given.
 """
@@ -37,10 +41,23 @@ from ..tokenizer.eos import TokenStreamer
 
 class ApiState:
     def __init__(self, engine: Engine | None, template_type: TemplateType,
-                 default_sampler: Sampler, batch_engine=None):
+                 default_sampler: Sampler, batch_engine=None, prefix_cache=True,
+                 prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
+                 prefix_cache_q80: bool = False):
         self.engine = engine
         self.batch_engine = batch_engine  # BatchEngine when --batch > 1, else None
         self.lock = threading.Lock()  # serializes the --batch 1 engine
+        # --batch 1 prefix reuse: the resident-conversation rewind plus the
+        # cross-conversation pool (the BatchEngine owns its own prefix cache)
+        self.cache = None
+        if engine is not None:
+            from ..cache import SingleSlotCache, make_prefix_cache
+
+            pc = make_prefix_cache(engine.k_cache.shape, engine.k_cache.element_size(),
+                                   slots=1, prefix_cache=prefix_cache,
+                                   blocks=prefix_cache_blocks,
+                                   block_tokens=prefix_block_tokens, q80=prefix_cache_q80)
+            self.cache = SingleSlotCache(engine, pc)
         tok = (batch_engine or engine).tokenizer
         self.template = ChatTemplate(template_type, tok.chat_template, tok.eos_piece())
         self.default_sampler = default_sampler
@@ -151,9 +168,20 @@ def run_completion(state: ApiState, body: dict, emit):
 
     streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit_bytes)
     engine = state.engine
-    engine.reset()
-    engine.generate(prompt, max_tokens, sampler, on_token=streamer.on_token,
-                    stop_check=streamer.stop_check)
+    # prefix reuse: rewind over the resident conversation's common prefix and/or seed
+    # rows from the cross-conversation pool; prefill covers only the rest
+    reuse = state.cache.begin(prompt)
+    try:
+        out, _ = engine.generate(prompt[reuse:], max_tokens, sampler,
+                                 on_token=streamer.on_token,
+                                 stop_check=streamer.stop_check)
+    except Exception:
+        # the cache may hold a half-written conversation: drop the reuse record
+        state.cache.invalidate()
+        raise
+    # only tokens whose KV is written are reusable (a final stop token is sampled but
+    # never inferred, so engine.pos may be one short of prompt + out)
+    state.cache.end((prompt + out)[:engine.pos])
     return "".join(pieces), "stop" if streamer.stopped else "length"
 
 
@@ -278,14 +306,19 @@ class Handler(BaseHTTPRequestHandler):
 
 def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
           template_type: TemplateType = TemplateType.UNKNOWN,
-          default_sampler: Sampler | None = None,
-          batch_engine=None) -> ThreadingHTTPServer:
+          default_sampler: Sampler | None = None, batch_engine=None, prefix_cache=True,
+          prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
+          prefix_cache_q80: bool = False) -> ThreadingHTTPServer:
     """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
-    serve_forever(). Pass `engine` for --batch 1 serving, or `batch_engine`."""
+    serve_forever(). Pass `engine` for --batch 1 serving (the prefix_* arguments size
+    its prefix cache), or `batch_engine`."""
     runner = batch_engine or engine
     state = ApiState(engine, template_type,
                      default_sampler or Sampler(runner.spec.vocab_size, 0.7, 0.9, 0),
-                     batch_engine=batch_engine)
+                     batch_engine=batch_engine, prefix_cache=prefix_cache,
+                     prefix_cache_blocks=prefix_cache_blocks,
+                     prefix_block_tokens=prefix_block_tokens,
+                     prefix_cache_q80=prefix_cache_q80)
     handler = type("BoundHandler", (Handler,), {"state": state})
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
@@ -325,6 +358,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--batch 1: run prefill chunks through the q4 kernels with the "
                         "residual and gate-pair epilogues fused (always on for "
                         "--batch > 1 wherever the kernels run)")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable the cross-request shared-prefix KV cache; prefix reuse "
+                        "falls back to the reference-style resident/slot rewind only")
+    p.add_argument("--prefix-cache-blocks", type=int, default=0, metavar="N",
+                   help="prefix-cache host pool capacity in blocks (the paged engine's "
+                        "cold tier; 0 = auto: 4 contexts per slot set, capped at ~1 GiB "
+                        "of host RAM)")
+    p.add_argument("--prefix-cache-block-tokens", type=int, default=16, metavar="T",
+                   help="tokens per prefix-cache block of the dense caches (--batch 1, "
+                        "--no-paged-kv; paged engines reuse in --kv-block-tokens blocks)")
+    p.add_argument("--prefix-cache-q80", action="store_true",
+                   help="Q80-compress cold prefix-cache blocks (~3.8x denser than f32): "
+                        "capacity over bit-exactness, a cold hit is a dequantized seed")
+    p.add_argument("--no-paged-kv", action="store_true",
+                   help="--batch > 1: dense per-slot KV caches instead of the device block "
+                        "pool and block tables; prefix hits then copy rows host->device "
+                        "instead of remapping tables")
     p.add_argument("--kv-block-tokens", type=int, default=16, metavar="T",
                    help="paged KV (--batch > 1): tokens per device pool block")
     p.add_argument("--kv-pool-blocks", type=int, default=0, metavar="N",
@@ -363,6 +413,10 @@ def build_server(args) -> ThreadingHTTPServer:
     from .dllama import _FT
 
     kw = engine_kwargs(args)
+    cache_kw = dict(prefix_cache=not args.no_prefix_cache,
+                    prefix_cache_blocks=args.prefix_cache_blocks,
+                    prefix_block_tokens=args.prefix_cache_block_tokens,
+                    prefix_cache_q80=args.prefix_cache_q80)
     load_kw = dict(max_seq_len=args.max_seq_len,
                    weights_ftype=_FT[args.weights_float_type]
                    if args.weights_float_type else None)
@@ -372,13 +426,17 @@ def build_server(args) -> ThreadingHTTPServer:
 
         batch_engine = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
                                         superstep=max(args.superstep, 1),
-                                        pipeline=args.pipeline,
+                                        pipeline=args.pipeline, paged_kv=not args.no_paged_kv,
                                         kv_block_tokens=args.kv_block_tokens,
-                                        kv_pool_blocks=args.kv_pool_blocks, **load_kw, **kw)
+                                        kv_pool_blocks=args.kv_pool_blocks,
+                                        **cache_kw, **load_kw, **kw)
         spec = batch_engine.spec
-        print(f"⏩ Continuous batching: {args.batch} slots, paged KV blocks "
-              f"{batch_engine.kv_pool.n_blocks} x {batch_engine.kv_pool.block_tokens} "
-              f"tokens, super-step K={batch_engine.superstep}, pipelined decode "
+        pool = batch_engine.kv_pool
+        print(f"⏩ Continuous batching: {args.batch} slots, "
+              + (f"paged KV blocks {pool.n_blocks} x {pool.block_tokens} tokens"
+                 if pool is not None else "dense KV caches")
+              + f", prefix cache {'on' if batch_engine.prefix_cache else 'off'}, "
+              f"super-step K={batch_engine.superstep}, pipelined decode "
               f"{'on' if batch_engine.pipeline else 'off'} (device="
               f"{batch_engine.engine.device}, kernels={batch_engine.engine.use_kernels}, "
               f"CUDA graphs={batch_engine.engine.cuda_graph})")
@@ -386,13 +444,14 @@ def build_server(args) -> ThreadingHTTPServer:
         engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw)
         spec = engine.spec
         print(f"⏩ Serving one sequence at a time (device={engine.device}, "
-              f"kernels={engine.use_kernels})")
+              f"kernels={engine.use_kernels}, prefix cache "
+              f"{'off' if args.no_prefix_cache else 'on'})")
     seed = args.seed if args.seed is not None else _now()
     return serve(engine, args.host, args.port,
                  TemplateType(args.chat_template) if args.chat_template
                  else TemplateType.UNKNOWN,
                  Sampler(spec.vocab_size, args.temperature, args.topp, seed),
-                 batch_engine=batch_engine)
+                 batch_engine=batch_engine, **(cache_kw if batch_engine is None else {}))
 
 
 def main(argv=None) -> None:

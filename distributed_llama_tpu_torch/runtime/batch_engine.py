@@ -1,9 +1,9 @@
 """Continuous-batching engine: concurrent sequences share one batched step.
 
-The counterpart of the JAX package's runtime/batch_engine.py without the prefix cache,
-speculation, tenants or SLOs: the same scheduling decisions, the same host sampling and
-the same K-step device super-steps, pipelined, so a request served here gets the tokens
-the JAX engine gives it in the same configuration (prefix_cache=False).
+The counterpart of the JAX package's runtime/batch_engine.py without speculation,
+tenants or SLOs: the same scheduling decisions, the same host sampling, the same K-step
+device super-steps, pipelined, and the same shared-prefix cache, so a request served
+here gets the tokens the JAX engine gives it in the same configuration.
 
 - B cache "slots", each holding one sequence's KV (a block table into the device pool,
   or a row of dense caches) and host-side state. One scheduler thread owns the device.
@@ -33,12 +33,22 @@ the JAX engine gives it in the same configuration (prefix_cache=False).
   dllama-api.cpp:187-232, per slot).
 - Paged KV (default): KV lives in a (L, N, hk, bt, hs) device block pool and each slot
   holds a block table (cache/device_pool.py); blocks are allocated as a slot grows and
-  reclaimed from idle slots under pressure. A pool that cannot serve fails only the
-  request whose growth needed the blocks. The (B, W) table is one static device buffer
-  that a table edit is copied into, so a captured step always reads the current table.
+  reclaimed from the directory and idle slots under pressure. A pool that cannot serve
+  fails only the request whose growth needed the blocks. The (B, W) table is one static
+  device buffer that a table edit is copied into, so a captured step always reads the
+  current table.
+- The prefix cache (default on): with paged KV a radix DIRECTORY over device blocks
+  (cache/device_pool.py PagedPrefixCache) — a finished request's full blocks join it by
+  reference, and a prompt that shares full blocks with it gets them remapped into its
+  table (zero KV bytes moved) and prefills only the rest; a slot about to write into a
+  shared block copies it first (copy-on-write), and under pool pressure unreferenced
+  directory blocks are demoted to a host tier (engine dtype, or Q80) and promoted back
+  by one upload on a later hit. Dense caches use the host PrefixCache (copy-in seeds,
+  copy-out harvests). Every write into the pool tensors is in place, so the captured
+  steps read the blocks the tables name.
 
 What the JAX engine has that this one refuses with NotImplementedError: speculation and
-the drafter, the radix prefix cache, tenants and SLO shedding.
+the drafter, tenants and SLO shedding.
 """
 
 from __future__ import annotations
@@ -115,6 +125,8 @@ class _Slot:
         # set when a super-step parks this row clamped at seq_len - 1, whose scratch
         # write destroys that history row: the history is truncated to it
         self.clamp_pos: int | None = None
+        # the prefix-cache lease the request was seeded from (released at _finish)
+        self.lease = None
 
 
 class _InflightStep:
@@ -148,14 +160,17 @@ class BatchEngine:
     The scheduler thread starts lazily on first submit and stops with close()."""
 
     def __init__(self, spec: ModelSpec, params, tokenizer=None, *, slots: int = 2,
-                 superstep: int = 1, pipeline: bool = True, prefix_cache=False,
-                 speculative: int = 0, draft_model=None, tenants=None,
-                 slo_ttft_interactive: float = 0.0, slo_ttft_batch: float = 0.0,
-                 slo_tpot_interactive: float = 0.0, paged_kv: bool = True,
-                 kv_block_tokens: int = 16, kv_pool_blocks: int = 0, **engine_kw):
+                 superstep: int = 1, pipeline: bool = True, prefix_cache=True,
+                 prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
+                 prefix_cache_q80: bool = False, speculative: int = 0, draft_model=None,
+                 tenants=None, slo_ttft_interactive: float = 0.0,
+                 slo_ttft_batch: float = 0.0, slo_tpot_interactive: float = 0.0,
+                 paged_kv: bool = True, kv_block_tokens: int = 16,
+                 kv_pool_blocks: int = 0, **engine_kw):
+        from ..cache import PrefixCache
+
         refused = {"speculative > 0": speculative > 0,
                    "draft_model": draft_model is not None,
-                   "prefix_cache": bool(prefix_cache),
                    "tenants": tenants is not None,
                    "SLO targets": bool(slo_ttft_interactive or slo_ttft_batch
                                        or slo_tpot_interactive)}
@@ -173,7 +188,9 @@ class BatchEngine:
         self.spec = spec
         self.tokenizer = tokenizer
         kv_pool_cfg = None
-        if paged_kv:
+        # a shared host PrefixCache instance asks for its copy-in/copy-out semantics:
+        # the dense layout
+        if paged_kv and not isinstance(prefix_cache, PrefixCache):
             bt = max(int(kv_block_tokens), 1)
             while bt > 1 and spec.seq_len % bt:
                 bt //= 2  # block tokens divide seq_len
@@ -200,6 +217,35 @@ class BatchEngine:
             self._tables_dev = torch.zeros(self._tables_np.shape, dtype=torch.int32,
                                            device=self._eng.device)
             self._tables_dirty = False
+        # the prefix cache: in pool mode the radix directory over device blocks, whose
+        # cold tier is a host KVBlockPool sized like the dense host cache; dense: the
+        # host PrefixCache (False disables, a PrefixCache instance is shared)
+        self.prefix_cache = None
+        eng = self._eng
+        if self.kv_pool is not None:
+            if prefix_cache:
+                from ..cache import default_pool_blocks
+                from ..cache.device_pool import PagedPrefixCache
+
+                cold = prefix_cache_blocks or default_pool_blocks(
+                    (spec.n_layers, slots, spec.n_kv_heads, spec.seq_len, spec.head_size),
+                    eng.k_cache.element_size(), self._kv_bt, slots)
+                self.prefix_cache = PagedPrefixCache(self.kv_pool, self._kv_bt,
+                                                     cold_blocks=cold, q80=prefix_cache_q80)
+        else:
+            from ..cache import make_prefix_cache
+
+            self.prefix_cache = make_prefix_cache(
+                eng.k_cache.shape, eng.k_cache.element_size(), slots=slots,
+                prefix_cache=prefix_cache, blocks=prefix_cache_blocks,
+                block_tokens=prefix_block_tokens, q80=prefix_cache_q80)
+        # admission seeding: host->device KV bytes moved and wall ms spent seeding slots
+        # (0 bytes for a directory remap; a cold promotion or a dense seed moves rows),
+        # and the directory blocks remapped into slot tables
+        self.seed_bytes = 0
+        self.seed_ms = 0.0
+        self.remapped_blocks = 0
+        self.prefilled_tokens = 0  # tokens run through prefill dispatches
         self._slots = [_Slot(i) for i in range(slots)]
         self._queue: collections.deque[BatchRequest] = collections.deque()
         self._plock = threading.Lock()  # guards: _queue
@@ -278,15 +324,19 @@ class BatchEngine:
         return t is None or t.is_alive()
 
     def release_idle(self) -> int:
-        """Drop the rewind stock (block tables and histories) of every idle slot, so
-        the pool holds only the blocks of live requests. Safe from any thread: it runs
-        between two scheduler passes. Returns the pool's free blocks."""
+        """Drop the rewind stock (block tables and histories) of every idle slot and move
+        every unreferenced directory block off the card (demoted to the host tier, or
+        evicted without one), so the pool holds only the blocks of live requests. Safe
+        from any thread: it runs between two scheduler passes. Returns the pool's free
+        blocks."""
         if self.kv_pool is None:
             return 0
         with self._slock:
             for sl in self._slots:
                 if sl.req is None and sl.blocks:
                     self._paged_release_slot(sl)
+            if self.prefix_cache is not None:
+                self.prefix_cache.reclaim(self.kv_pool.n_blocks, self._read_block)
             return self.kv_pool.free_blocks()
 
     def close(self) -> None:
@@ -301,6 +351,9 @@ class BatchEngine:
         err = EngineClosed("BatchEngine closed")
         with self._plock:
             for s in self._slots:
+                if self.prefix_cache is not None and s.lease is not None:
+                    self.prefix_cache.release(s.lease)
+                    s.lease = None
                 req = s.req
                 if req is not None and not req.done.is_set():
                     req.error = err
@@ -325,7 +378,9 @@ class BatchEngine:
 
     def _assign(self, req: BatchRequest) -> _Slot | None:
         """Place a request on the free slot with the longest common token prefix and
-        rewind it there (the multi-slot generalization of the reference NaiveCache)."""
+        rewind it there (the multi-slot generalization of the reference NaiveCache),
+        then extend the reuse from the prefix cache where it covers more of the prompt:
+        a directory remap (paged) or a seed of the slot's rows (dense)."""
         free = [s for s in self._slots if s.req is None]
         if not free:
             return None
@@ -341,7 +396,11 @@ class BatchEngine:
         best = max(free, key=common)
         reuse = common(best)
         if self.kv_pool is not None:
-            self._paged_adopt_rewind_only(best, reuse)
+            reuse = self._paged_adopt(best, reuse, full)
+        elif self.prefix_cache is not None:
+            # [0, reuse) is the slot's own rows; a seed on top counts as hit_tokens
+            self.prefix_cache.note_resident(reuse)
+            reuse = self._seed_from_cache(best, reuse, full)
         best.req = req
         best.pos = reuse
         best.history = list(full[:reuse])
@@ -401,8 +460,15 @@ class BatchEngine:
         return ids
 
     def _paged_reclaim(self, need: int, exclude: _Slot | None = None) -> None:
-        """Free device blocks by dropping idle slots' retained rewind tables, until
-        `need` are free."""
+        """Free device blocks until `need` are free: demote (or evict) LRU unreferenced
+        directory nodes first — the cold tier keeps the prefix servable — then drop idle
+        slots' retained rewind tables (their committed blocks live on through the
+        directory where it references them). Only the deficit is reclaimed."""
+        deficit = need - self.kv_pool.free_blocks()
+        if deficit <= 0:
+            return
+        if self.prefix_cache is not None:
+            self.prefix_cache.reclaim(deficit, self._read_block)
         if self.kv_pool.free_blocks() >= need:
             return
         for sl in self._slots:
@@ -410,6 +476,21 @@ class BatchEngine:
                 self._paged_release_slot(sl)
                 if self.kv_pool.free_blocks() >= need:
                     return
+
+    def _read_block(self, bid: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pool block's rows (L, hk, bt, hs) on the host in the cache dtype — the
+        directory's demotion payload, read behind every dispatch already issued."""
+        from ..cache.wire import host_rows
+
+        eng = self._eng
+        return host_rows(eng.k_cache[:, bid]), host_rows(eng.v_cache[:, bid])
+
+    def _block_copy(self, src: int, dst: int) -> None:
+        """Device copy of pool block src into block dst, in place in both pools (queued
+        on the stream the dispatches run on)."""
+        eng = self._eng
+        eng.k_cache[:, dst].copy_(eng.k_cache[:, src])
+        eng.v_cache[:, dst].copy_(eng.v_cache[:, src])
 
     def _paged_ensure(self, slot: _Slot, upto: int) -> None:
         """Grow the slot's table so every position < upto has a real block (writes
@@ -424,15 +505,158 @@ class BatchEngine:
         self._tables_np[slot.index, start:start + need] = ids
         self._tables_dirty = True
 
-    def _paged_adopt_rewind_only(self, slot: _Slot, rewind: int) -> None:
-        """Admission: keep only the rewound prefix's blocks. Without a prefix cache no
-        block is shared, so the boundary block is the slot's own and needs no
-        copy-on-write."""
-        keep = min(-(-rewind // self._kv_bt), len(slot.blocks))
+    def _paged_cow(self, slot: _Slot, lo: int, hi: int) -> None:
+        """Copy-on-write: make the blocks backing positions [lo, hi) exclusively owned
+        before the slot writes there. A shared block (a directory reference or a sibling
+        slot's remap) gets a private device copy, so the shared copy's committed rows
+        are never written."""
+        bt = self._kv_bt
+        for idx in range(lo // bt, min(-(-hi // bt), len(slot.blocks))):
+            bid = slot.blocks[idx]
+            if not self.kv_pool.shared(bid):
+                continue
+            nb = self._paged_alloc(1, exclude=slot)[0]
+            self._block_copy(bid, nb)
+            self.kv_pool.decref([bid])
+            self.kv_pool.note_cow()
+            slot.blocks[idx] = nb
+            self._tables_np[slot.index, idx] = nb
+            self._tables_dirty = True
+
+    def _paged_adopt(self, slot: _Slot, rewind: int, full: list[int]) -> int:
+        """Paged admission: extend the same-slot rewind with a DIRECTORY REMAP — shared
+        full blocks are increfed into the slot's table (zero bytes moved), a partly used
+        boundary block gets a private device copy the slot can append into, and a cold
+        (demoted) block pays one host→device upload into a fresh block, which the
+        directory adopts. Returns the reuse length (the prefill start). Any failure
+        falls back to what the rewind covers (warn_degraded).
+
+        A chained super-step may still be in flight here (the scheduler admits before
+        it delivers): the table edit reaches the device buffer at the next dispatch,
+        and the copies and uploads below queue behind the in-flight step on the same
+        stream, which writes only past its rows' frontiers."""
+        bt = self._kv_bt
+        pc = self.prefix_cache
+        t0 = time.perf_counter()
+        lease = None
+        if pc is not None:
+            pc.note_resident(rewind)
+            try:
+                lease = pc.lookup(full, cap=self.spec.seq_len - 1)
+                if lease is not None and lease.tokens <= rewind:
+                    pc.mark_unused(lease)
+                    lease = None
+            except Exception as e:
+                from ..cache import warn_degraded
+
+                warn_degraded("lookup", e)
+                lease = None
+        if lease is None:
+            reuse = self._paged_adopt_rewind_only(slot, rewind)
+            self.seed_ms += (time.perf_counter() - t0) * 1e3
+            return reuse
+        n = lease.tokens
+        m = n // bt
+        blocks: list[int] = []
+        moved = 0
+        try:
+            for i, node in enumerate(lease.nodes):
+                tier, h = node.handle
+                if tier == "cold":
+                    # promote: one upload into a fresh block, then the directory holds
+                    # the device copy again. promote() takes the directory's own ref —
+                    # the allocation ref is dropped right after
+                    k, v = pc.fetch_cold(h)
+                    nb = self._paged_alloc(1, exclude=slot)[0]
+                    eng = self._eng
+                    eng.k_cache[:, nb].copy_(k)
+                    eng.v_cache[:, nb].copy_(v)
+                    moved += k.nbytes + v.nbytes
+                    pc.promote(node, nb)
+                    self.kv_pool.decref([nb])
+                    tier, h = node.handle
+                if i < m:
+                    self.kv_pool.incref([h])
+                    blocks.append(h)
+                else:
+                    # the partial boundary block: a private copy to append into
+                    nb = self._paged_alloc(1, exclude=slot)[0]
+                    self._block_copy(h, nb)
+                    self.kv_pool.note_cow()
+                    blocks.append(nb)
+        except Exception as e:
+            if blocks:
+                self.kv_pool.decref(blocks)
+            pc.mark_unused(lease)
+            from ..cache import warn_degraded
+
+            warn_degraded("seed", e)  # fall back to the rewind stock
+            self.seed_ms += (time.perf_counter() - t0) * 1e3
+            return self._paged_adopt_rewind_only(slot, rewind)
+        old = slot.blocks
+        slot.blocks = blocks
+        if old:
+            self.kv_pool.decref(old)
+        self._table_row(slot)
+        slot.lease = lease
+        pc.mark_seeded(lease, n - rewind)
+        self.remapped_blocks += m
+        self.seed_bytes += moved
+        self.seed_ms += (time.perf_counter() - t0) * 1e3
+        return n
+
+    def _paged_adopt_rewind_only(self, slot: _Slot, rewind: int) -> int:
+        """Admission without a directory hit: keep only the rewound prefix's blocks and
+        make the boundary block writable (the first append lands at `rewind`, possibly
+        inside a block the directory shares)."""
+        bt = self._kv_bt
+        keep = min(-(-rewind // bt), len(slot.blocks))
         if keep < len(slot.blocks):
             self.kv_pool.decref(slot.blocks[keep:])
             del slot.blocks[keep:]
             self._table_row(slot)
+        if rewind % bt:
+            self._paged_cow(slot, rewind, rewind + 1)
+        return rewind
+
+    def _seed_from_cache(self, slot: _Slot, reuse: int, full: list[int]) -> int:
+        """Dense admission: when the host prefix cache covers more of the prompt than the
+        slot's rewind, write the cached rows [reuse, n) into the slot's cache rows in
+        place and return n (the prefill start). The lease stays on the slot until
+        _finish; a failure falls back to plain prefill."""
+        pc = self.prefix_cache
+        try:
+            lease = pc.lookup(full, cap=self.spec.seq_len - 1)
+            if lease is None:
+                return reuse
+            if lease.tokens <= reuse:
+                pc.mark_unused(lease)
+                return reuse
+        except Exception as e:
+            from ..cache import warn_degraded
+
+            warn_degraded("lookup", e)
+            return reuse
+        eng = self._eng
+        n = lease.tokens
+        t0 = time.perf_counter()
+        try:
+            # the span the rewind does not hold, as one (2, L, hk, n - reuse, hs) buffer:
+            # one host->device transfer, one copy per cache tensor
+            rows = pc.fetch_packed(lease, skip=reuse).to(eng.device, eng.dtype)
+            eng.k_cache[:, slot.index, :, reuse:n].copy_(rows[0])
+            eng.v_cache[:, slot.index, :, reuse:n].copy_(rows[1])
+        except Exception as e:
+            pc.mark_unused(lease)
+            from ..cache import warn_degraded
+
+            warn_degraded("seed", e)
+            return reuse
+        self.seed_bytes += rows.numel() * rows.element_size()
+        self.seed_ms += (time.perf_counter() - t0) * 1e3
+        slot.lease = lease
+        pc.mark_seeded(lease, n - reuse)
+        return n
 
     def _step(self, tokens_rows: list[list[int]], starts: list[int], t: int,
               reads: list[tuple[int, int]]) -> np.ndarray:
@@ -449,18 +673,64 @@ class BatchEngine:
         slot.req = None
         slot.pending = []
         slot.next_token = None
+        if self.prefix_cache is not None and slot.lease is not None:
+            # the lease pins blocks for the in-flight period only: released before
+            # done.set(), so a caller seeing completion sees no residual reservation
+            self.prefix_cache.release(slot.lease)
+            slot.lease = None
         if slot.clamp_pos is not None:
             # a super-step parked this row clamped: its history ends before that row
-            del slot.history[slot.clamp_pos:]
+            self._truncate_history(slot, slot.clamp_pos)
             slot.clamp_pos = None
         req.done.set()
+        # the harvest runs after done.set(): the slot's history and rows stay valid (they
+        # also back the same-slot rewind), and it must not extend the client's wait
+        if self.prefix_cache is not None:
+            self._harvest_into_cache(slot)
+
+    def _harvest_into_cache(self, slot: _Slot) -> None:
+        """Commit the finished slot's history to the prefix cache: its full blocks join
+        the directory by reference (paged: no copy at all), or its rows are copied into
+        the host pool (dense). history's rows [0, len(history)) are committed by
+        construction — every truncation site shrinks history before the rows are
+        overwritten, and a chained super-step still in flight writes only past it."""
+        pc = self.prefix_cache
+        try:
+            if self.kv_pool is not None:
+                n = len(slot.history) // self._kv_bt
+                if n:
+                    pc.insert_blocks(slot.history, slot.blocks[:n])
+            elif len(slot.history) >= pc.block_tokens:
+                eng = self._eng
+                from ..cache.wire import host_rows
+
+                def harvest(t0: int, t1: int):
+                    return (host_rows(eng.k_cache[:, slot.index, :, t0:t1]),
+                            host_rows(eng.v_cache[:, slot.index, :, t0:t1]))
+
+                pc.insert(slot.history, harvest)
+        except Exception as e:  # a failed insert must not kill the scheduler
+            from ..cache import warn_degraded
+
+            warn_degraded("insert", e)
+
+    def _truncate_history(self, sl: _Slot, p: int) -> None:
+        """Truncate a slot's reusable history to p tokens — its rows >= p are (about to
+        be) overwritten by clamped scratch writes — and shrink any prefix-cache lease
+        past p, so the reservation does not pin blocks the slot no longer holds."""
+        if p < len(sl.history):
+            sl.history = sl.history[:p]
+        if sl.lease is not None and p < sl.lease.tokens:
+            self.prefix_cache.shrink(sl.lease, p)
 
     def _park_positions(self, t: int) -> list[int]:
         """Per-row start positions for rows not participating in this step: park at
         the row's current pos so garbage lands on masked future positions, clamped so
         the write stays inside the cache. A clamped park (a row within t of the end)
-        overwrites that row's tail history, so its reusable prefix is truncated; an idle
-        paged slot is released instead."""
+        overwrites that row's tail history, so its reusable prefix is truncated and, in
+        pool mode, the blocks the scratch writes land in are made private first; an idle
+        paged slot is released instead. A pool that cannot serve that copy fails only
+        the row's request (callers re-filter their rows afterwards)."""
         s = self.spec.seq_len
         starts = []
         for sl in self._slots:
@@ -468,9 +738,18 @@ class BatchEngine:
             if p < sl.pos:
                 if self.kv_pool is not None and sl.req is None:
                     self._paged_release_slot(sl)
-                    p = 0
-                elif p < len(sl.history):
-                    sl.history = sl.history[:p]
+                    starts.append(0)
+                    continue
+                self._truncate_history(sl, p)
+                if self.kv_pool is not None:
+                    try:
+                        self._paged_cow(sl, p, min(p + t, s))
+                    except Exception as e:
+                        if classify(e) != "request":
+                            raise
+                        self._fail_request(sl, e)
+                        self._paged_release_slot(sl)
+                        p = 0
             starts.append(p)
         return starts
 
@@ -653,6 +932,9 @@ class BatchEngine:
         piece = slot.pending[:chunk]
         t = len(piece)
         starts = self._park_positions(t)
+        if slot.req is None:  # reaped by a clamped park's copy-on-write exhaustion
+            return
+        riders = [r for r in riders if r.req is not None]
         starts[slot.index] = slot.pos
         rows = [[0] * t for _ in self._slots]
         rows[slot.index] = piece
@@ -679,6 +961,7 @@ class BatchEngine:
             self.mixed_steps += 1
         dt_ms = (time.perf_counter() - t0) * 1000.0
         self.dispatch_ms["mixed" if riders else "prefill"].append(dt_ms)
+        self.prefilled_tokens += t
         slot.pos += t
         slot.history.extend(piece)
         slot.pending = slot.pending[t:]
@@ -728,6 +1011,10 @@ class BatchEngine:
         # one batched T=1 step: the admission-latency (and tail) path
         t0 = time.perf_counter()
         starts = self._park_positions(1)
+        # a clamped park's copy-on-write under pool exhaustion may have reaped a row
+        active = [s for s in active if s.req is not None]
+        if not active:
+            return
         rows = [[0]] * self.slots_n
         for slot in active:
             starts[slot.index] = slot.pos
@@ -780,6 +1067,9 @@ class BatchEngine:
             if not active:
                 return
         starts = self._park_positions(1)
+        active = [s for s in active if s.req is not None]
+        if not active:
+            return
         budget = [0] * self.slots_n
         rows: list[tuple[_Slot, BatchRequest]] = []
         for slot in active:
@@ -804,12 +1094,15 @@ class BatchEngine:
                 self.flushes["admission"] += 1
                 plan = None
         if plan is not None and self.kv_pool is not None:
-            # block coverage for the chained dispatch's writes before it is issued; a
-            # pool that cannot serve declines the chain instead of failing rows
-            rows, starts, budget, _ = plan
+            # block coverage for the chained dispatch's writes, and private blocks under
+            # its clamped parks, before it is issued; a pool that cannot serve declines
+            # the chain instead of failing rows
+            rows, starts, budget, clamp = plan
             try:
                 for slot, _req in rows:
                     self._paged_ensure(slot, starts[slot.index] + budget[slot.index])
+                for slot in clamp:
+                    self._paged_cow(slot, self.spec.seq_len - 1, self.spec.seq_len)
             except Exception:
                 self.flushes["pool"] += 1
                 plan = None
@@ -972,9 +1265,11 @@ class BatchEngine:
                 # the block's tail is sampled and delivered, its KV not yet written
                 slot.next_token = block[-1]
                 slot.last_logits = None
-                if slot.clamp_pos is not None:
-                    del slot.history[slot.clamp_pos:]
-                    slot.clamp_pos = None
+            if slot.clamp_pos is not None:
+                # the row did not finish in the loop (_finish consumes clamp_pos): the
+                # clamp's truncation, with the lease shrink
+                self._truncate_history(slot, slot.clamp_pos)
+                slot.clamp_pos = None
             status[i] = "alive" if alive else req.finish
         return status
 

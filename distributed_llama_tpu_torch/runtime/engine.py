@@ -176,6 +176,32 @@ class Engine:
         assert 0 <= pos <= self.pos, f"seek({pos}) past live context {self.pos}"
         self.pos = pos
 
+    def seed_rows(self, start: int, k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
+        """Write cached KV rows (L, hk, n, hs) of one sequence into cache positions
+        [start, start + n) of every batch row, in place (the captured steps read these
+        tensors), then move pos forward to start + n: the prefix cache's seed
+        (cache/single_slot.py). The one forward move of pos; seek only rewinds."""
+        if self.kv_pool is not None:
+            raise RuntimeError("seed_rows writes the dense cache layout")
+        assert start == self.pos, f"seed at {start} with the live context at {self.pos}"
+        end = start + k_rows.shape[2]
+        if end > self.spec.seq_len:
+            raise ValueError(f"context overflow: seed to {end} > {self.spec.seq_len}")
+        for cache, rows in ((self.k_cache, k_rows), (self.v_cache, v_rows)):
+            rows = rows.to(self.device, self.dtype)
+            cache[:, :, :, start:end].copy_(rows[:, None].expand(-1, cache.shape[1],
+                                                                 -1, -1, -1))
+        self.pos = end
+
+    def read_rows(self, t0: int, t1: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Committed KV rows [t0, t1) of batch row 0 as CPU tensors (L, hk, t1 - t0, hs)
+        in the cache dtype: the prefix cache's harvest. The copy queues behind the
+        steps already issued."""
+        from ..cache.wire import host_rows
+
+        return (host_rows(self.k_cache[:, 0, :, t0:t1]),
+                host_rows(self.v_cache[:, 0, :, t0:t1]))
+
     def infer_chunk(self, tokens: list[int] | np.ndarray) -> np.ndarray:
         """Run a chunk of tokens at the current position; returns last-token logits
         (vocab,) and advances pos. Bounds-checked against seq_len (the reference

@@ -137,3 +137,77 @@ def test_serialized_server_serves_the_same_greedy_content(model_files):  # noqa:
             if srv.api_state.batch_engine is not None:
                 srv.api_state.batch_engine.close()
     assert contents[0] == contents[1]
+
+
+def test_serialized_server_reuses_prefixes_as_the_jax_server(model_files):  # noqa: F811
+    """--batch 1 serves through the single-slot prefix cache: conversation A, an
+    unrelated B that displaces it, then A' (A, its reply and a new user turn), whose
+    shared full blocks come from the pool — the JAX server's content and its
+    prefix-cache hits."""
+    from distributed_llama_tpu.runtime.engine import Engine as JEngine
+
+    mpath, tpath = model_files
+    system = {"role": "system", "content": "Be terse, ab cd."}
+    a = {"messages": [system, {"role": "user", "content": "ab cd ab"}]}
+    b = {"messages": [{"role": "user", "content": "cd cd"}]}
+    jsrv = jserve(JEngine.load(mpath, tpath, tp=1), "127.0.0.1", 0, JTemplateType.LLAMA2,
+                  JSampler(V, 0.0, 0.9, 0))
+    srv = api_server.build_server(api_server.build_parser().parse_args(
+        ["--model", mpath, "--tokenizer", tpath, "--batch", "1", "--device", "cpu",
+         "--host", "127.0.0.1", "--port", "0", "--chat-template", "llama2",
+         "--temperature", "0"]))
+    urls = [_start(jsrv), _start(srv)]
+    try:
+        contents = []
+        for url in urls:
+            got = []
+            for body in (a, b):
+                _, _, raw = _post(url, {**BODY, **body})
+                got.append(json.loads(raw)["choices"][0]["message"]["content"])
+            a2 = {"messages": a["messages"] + [
+                {"role": "assistant", "content": got[0]},
+                {"role": "user", "content": "cd ab"}]}
+            _, _, raw = _post(url, {**BODY, **a2})
+            got.append(json.loads(raw)["choices"][0]["message"]["content"])
+            contents.append(got)
+        assert contents[0] == contents[1]
+        st, jst = srv.api_state.cache.stats(), jsrv.api_state.cache.stats()
+        assert st["hits"] == jst["hits"] >= 1 and st["hit_tokens"] == jst["hit_tokens"]
+        assert srv.api_state.cache.cache.total_refs() == 0
+    finally:
+        for s in (jsrv, srv):
+            s.shutdown()
+            s.server_close()
+
+
+@pytest.mark.parametrize("argv", [["--batch", "1"], ["--batch", "2"],
+                                  ["--batch", "2", "--no-paged-kv"]])
+@pytest.mark.parametrize("off", [False, True])
+def test_prefix_cache_flags(model_files, argv, off):  # noqa: F811
+    """--no-prefix-cache turns the cache off at --batch 1 and --batch N; --no-paged-kv
+    serves dense caches with the host PrefixCache; the sizing flags reach the cache."""
+    from distributed_llama_tpu_torch.cache import PagedPrefixCache, PrefixCache
+
+    mpath, tpath = model_files
+    flags = ["--no-prefix-cache"] if off else ["--prefix-cache-blocks", "7",
+                                               "--prefix-cache-block-tokens", "8",
+                                               "--prefix-cache-q80"]
+    srv = api_server.build_server(api_server.build_parser().parse_args(
+        ["--model", mpath, "--tokenizer", tpath, "--device", "cpu", "--host",
+         "127.0.0.1", "--port", "0", "--chat-template", "llama2", *argv, *flags]))
+    be = srv.api_state.batch_engine
+    try:
+        pc = be.prefix_cache if be is not None else srv.api_state.cache.cache
+        if off:
+            assert pc is None
+            return
+        paged = be is not None and "--no-paged-kv" not in argv
+        assert isinstance(pc, PagedPrefixCache if paged else PrefixCache)
+        assert (be is not None and be.kv_pool is not None) == paged
+        pool = pc.cold if paged else pc.pool
+        assert pool.max_blocks == 7 and pool.q80
+        assert pc.block_tokens == (16 if paged else 8)  # paged: the kv block tokens
+    finally:
+        srv.server_close()
+        if be is not None:
+            be.close()

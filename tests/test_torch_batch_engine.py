@@ -12,6 +12,8 @@ plain versions on the CPU) is held against the JAX engine with the Pallas kernel
 interpret mode: greedy identity, with the kernel selections showing every fused route."""
 
 import threading
+import time
+from collections import Counter
 
 import pytest
 
@@ -86,7 +88,8 @@ def test_token_identity_with_jax_batch_engine(model_files, temperature, paged):
     jbe = JBatchEngine.load(mpath, tpath, slots=3, tp=1, superstep=1, pipeline=False,
                             prefix_cache=False, paged_kv=paged)
     want = staggered(jbe, JSampler, temperature)
-    be = BatchEngine.load(mpath, tpath, slots=3, device="cpu", paged_kv=paged)
+    be = BatchEngine.load(mpath, tpath, slots=3, device="cpu", paged_kv=paged,
+                          prefix_cache=False)
     assert (be.kv_pool is not None) == paged and be.engine.use_kernels is False
     got = staggered(be, Sampler, temperature)
     assert got == want and all(len(o) == 10 for o in got)
@@ -101,7 +104,7 @@ def test_fused_kernels_token_identity_with_jax(model_files):
     want = staggered(jbe, JSampler, 0.0)
     tmm.reset_kernel_selections()
     be = BatchEngine.load(mpath, tpath, slots=3, device="cpu", use_kernels=True,
-                          fused_matmul=True)
+                          fused_matmul=True, prefix_cache=False)
     assert be.engine.use_kernels == "fused" and be.engine.paged_kernel
     assert "w1" in be.engine.params["blocks"]  # the gate pair stays unmerged
     got = staggered(be, Sampler, 0.0)
@@ -136,10 +139,20 @@ def test_pool_exhaustion_fails_only_the_starving_request(model_files):
         be.close()
 
 
+def _settled(be) -> None:
+    """Wait until every prefix lease is released (the harvest runs just after a
+    request's done.set())."""
+    t0 = time.monotonic()
+    while be.prefix_cache.total_refs():
+        assert time.monotonic() - t0 < 60, "prefix leases still held"
+        time.sleep(0.01)
+
+
 def test_release_idle_races_the_scheduler_safely(model_files):
     """release_idle from another thread while staggered requests run, under a pool small
-    enough that the scheduler reclaims idle slots itself: every request still gets its
-    tokens, and the refcounts end consistent with the free list."""
+    enough that the scheduler reclaims idle slots and the prefix directory itself: every
+    request still gets its tokens, and the refcounts end consistent with the slots' tables
+    and the directory's nodes."""
     mpath, tpath = model_files
     be = BatchEngine.load(mpath, tpath, slots=3, device="cpu", kv_pool_blocks=12)
     stop = threading.Event()
@@ -157,15 +170,23 @@ def test_release_idle_races_the_scheduler_safely(model_files):
         stop.set()
         t.join(60)
     assert all(isinstance(o, list) and len(o) == 6 for o in outs), outs
-    held = [b for sl in be._slots for b in sl.blocks]
-    refs = be.kv_pool.refcounts()
-    assert refs[0] == 1 and sorted(held) == sorted(set(held))
-    assert [int(r) for r in refs[1:]] == [int(b in held) for b in range(1, len(refs))]
+    _settled(be)
+    with be._slock:
+        # one reference per slot table entry and per directory node on a device block
+        held = Counter(b for sl in be._slots for b in sl.blocks)
+        stack = list(be.prefix_cache.radix.root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.handle[0] == "dev":
+                held[node.handle[1]] += 1
+        refs = be.kv_pool.refcounts()
+    assert refs[0] == 1
+    assert [int(r) for r in refs[1:]] == [held[b] for b in range(1, len(refs))]
     assert be.release_idle() == be.kv_pool.n_blocks - 1
 
 
-@pytest.mark.parametrize("kw", [dict(speculative=1),
-                                dict(draft_model="draft.m"), dict(prefix_cache=True),
+@pytest.mark.parametrize("kw", [dict(speculative=1), dict(draft_model="draft.m"),
                                 dict(tenants=object()), dict(slo_ttft_interactive=1.0)])
 def test_out_of_slice_arguments_raise(model_files, kw):
     with pytest.raises(NotImplementedError):

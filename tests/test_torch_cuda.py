@@ -17,7 +17,10 @@ f32 softmax; split merge order). The Q40 dequant-matmuls also decode bit for bit
 X rows), repeat bit for bit, write bf16 within one ulp of the plain result rounded, and
 run as one launch per call. The serving tests hold the fused BatchEngine on the card
 against the CPU plain versions: identical greedy tokens per request, logits step by step
-within 2e-3·max|logits| (`chip_smoke.serving_parity`)."""
+within 2e-3·max|logits| (`chip_smoke.serving_parity`). The prefix-cache tests hold the
+bf16 host tier bit-exact through a demotion and a promotion, the pools' storage fixed
+through copy-on-write and promotion, captured super-steps against eager ones after a
+remap and a copy, and the single-slot seed against a fresh prefill, bit for bit."""
 
 import numpy as np
 import pytest
@@ -1130,3 +1133,151 @@ def test_moe_graph_replay_and_device_loop(cuda, arch, prologue):
     graph_eng.reset()
     loop = graph_eng.generate_chunked(prompt, 16, Sampler(spec.vocab_size, 0.0), chunk=8)[0]
     assert loop == host
+
+
+# ------------------------------------------------------------------ the prefix cache
+
+
+def _prefix_model(dev):
+    """2 layers at Llama-2-7B width, random Q40 weights drawn on the card (the gate
+    pair kept for the fused serving engine), and a 64-token prefix: 4 blocks of 16."""
+    import chip_smoke
+
+    spec = chip_smoke._llama2_7b(n_layers=2)
+    return spec, chip_smoke._random_i4p_params(spec, dev, seed=43, gate_pair=True), \
+        _prompt(64, 50)
+
+
+def _prefix_batch(spec, params, **kw):
+    be = BatchEngine(spec, params, slots=2, device="cuda", fused_matmul=True, superstep=4,
+                     **kw)
+    assert be.engine.dtype == torch.bfloat16 and be.prefix_cache is not None
+    return be
+
+
+def _settled(be):
+    """Every lease released and the last finish's harvest landed."""
+    import time
+
+    t0 = time.time()
+    while be.prefix_cache.total_refs() and time.time() - t0 < 60:
+        time.sleep(0.01)
+    with be._slock:
+        assert be.prefix_cache.total_refs() == 0
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16)
+
+
+@pytest.mark.cuda
+def test_prefix_hot_demote_promote_is_bit_exact_in_bf16(cuda):
+    """A finished request's prefix blocks demoted device -> host (the hot tier keeps the
+    engine dtype) and promoted back by a later hit: the rows the hit's table reads are the
+    donor's bf16 rows bit for bit, and the seed moved exactly the promoted blocks."""
+    spec, params, p = _prefix_model(cuda)
+    be = _prefix_batch(spec, params)
+    try:
+        be.generate(p + [5, 6, 7], 4, Sampler(spec.vocab_size))
+        _settled(be)
+        with be._slock:
+            before = [be._read_block(b) for b in be._slots[0].blocks[:4]]
+        assert be.release_idle() == be.kv_pool.n_blocks - 1
+        st = be.prefix_cache.stats()
+        assert st["dev_blocks"] == 0 and st["cold_blocks"] == st["demoted_blocks"] >= 4
+        assert be.prefix_cache.cold.hot_count() == st["cold_blocks"]  # hot tier, no Q80
+        be.generate(p + [9, 10], 4, Sampler(spec.vocab_size))
+        _settled(be)
+        with be._slock:
+            after = [be._read_block(b) for b in be._slots[0].blocks[:4]]
+        block_bytes = 2 * spec.n_layers * spec.n_kv_heads * 16 * spec.head_size * 2
+        assert be.prefix_cache.stats()["promoted_blocks"] == 4
+        assert be.seed_bytes == 4 * block_bytes and be.remapped_blocks == 4
+        for (bk, bv), (ak, av) in zip(before, after):
+            assert bk.dtype == ak.dtype == torch.bfloat16
+            assert torch.equal(_bits(bk), _bits(ak)) and torch.equal(_bits(bv), _bits(av))
+    finally:
+        be.close()
+
+
+@pytest.mark.cuda
+def test_prefix_cow_and_promotion_keep_the_pool_storage(cuda):
+    """Copy-on-write and promotion write into the pool tensors in place: the hit of
+    exactly the prefix after a demotion promotes its blocks and copies the boundary
+    block, and both pools keep the storage the captured steps were recorded on."""
+    spec, params, p = _prefix_model(cuda)
+    be = _prefix_batch(spec, params)
+    try:
+        ptrs = (be.engine.k_cache.data_ptr(), be.engine.v_cache.data_ptr())
+        be.generate(p + [5, 6, 7], 8, Sampler(spec.vocab_size))
+        _settled(be)
+        be.release_idle()
+        out = be.generate(p, 8, Sampler(spec.vocab_size))[0]
+        _settled(be)
+        st = be.prefix_cache.stats()
+        assert len(out) == 8 and st["promoted_blocks"] == 4 and be.kv_pool.cow_blocks >= 1
+        assert (be.engine.k_cache.data_ptr(), be.engine.v_cache.data_ptr()) == ptrs
+        assert be.engine.graphs.replays > 0
+    finally:
+        be.close()
+
+
+@pytest.mark.cuda
+def test_captured_superstep_reads_remapped_and_copied_blocks(cuda):
+    """Super-steps captured as CUDA graphs during the donor's decode, replayed after a
+    directory remap (a hit on the prefix) and a copy-on-write (a hit of exactly the
+    prefix): every request's greedy tokens equal the eager engine's on the same
+    sequence, so each replay read the blocks the edited tables name."""
+    spec, params, p = _prefix_model(cuda)
+    # two different displacing requests: the same one twice would remap its own block
+    displace = [[3] + _prompt(20, seed)[1:] for seed in (51, 53)]
+    runs = []
+    for graphs in (True, False):
+        be = _prefix_batch(spec, params, cuda_graph=graphs)
+        try:
+            outs = [be.generate(p + [5, 6, 7], 12, Sampler(spec.vocab_size))[0]]
+            for hit, other in zip((p + [9, 10], p), displace):
+                be.generate(other, 6, Sampler(spec.vocab_size))
+                outs.append(be.generate(hit, 12, Sampler(spec.vocab_size))[0])
+            _settled(be)
+            runs.append((outs, be.remapped_blocks, be.kv_pool.cow_blocks,
+                         be.engine.graphs.replays))
+        finally:
+            be.close()
+    (g_outs, g_remap, g_cow, g_replays), (e_outs, e_remap, e_cow, e_replays) = runs
+    assert g_outs == e_outs and (g_remap, g_cow) == (e_remap, e_cow) == (7, 1)
+    assert g_replays > 0 and e_replays == 0
+
+
+@pytest.mark.cuda
+def test_single_slot_seed_then_graph_replay(cuda):
+    """The single-sequence Engine through SingleSlotCache: conversation A, a displacing
+    B, then A' sharing A's prefix is seeded from the pool in place, and its decode steps
+    (CUDA graph replays) give a fresh Engine's logits bit for bit."""
+    import chip_smoke
+
+    from distributed_llama_tpu_torch.cache import PrefixCache, SingleSlotCache
+
+    spec, params, p = _prefix_model(cuda)
+    eng = Engine(spec, params, device="cuda", fused_matmul=True)
+    ptrs = (eng.k_cache.data_ptr(), eng.v_cache.data_ptr())
+    ssc = SingleSlotCache(eng, PrefixCache(max_blocks=64, block_tokens=16))
+
+    def turn(prompt, n, smp):
+        reuse = ssc.begin(prompt)
+        out, _ = eng.generate(prompt[reuse:], n, smp)
+        ssc.end((prompt + out)[:eng.pos])
+        return reuse, out
+
+    turn(p + [5, 6, 7], 6, Sampler(spec.vocab_size))
+    turn([3] + _prompt(90, 52)[1:], 6, Sampler(spec.vocab_size))
+    replays = eng.graphs.replays
+    a2 = p + [9, 10, 11]
+    got = chip_smoke._CheckedSampler(spec.vocab_size, keep=True)
+    reuse, out = turn(a2, 12, got)
+    want = chip_smoke._CheckedSampler(spec.vocab_size, keep=True)
+    fresh = Engine(spec, params, device="cuda", fused_matmul=True)
+    assert fresh.generate(a2, 12, want)[0] == out and reuse == 64
+    assert all(np.array_equal(a, b) for a, b in zip(got.kept, want.kept))
+    assert eng.graphs.replays - replays >= 11 and ssc.cache.total_refs() == 0
+    assert (eng.k_cache.data_ptr(), eng.v_cache.data_ptr()) == ptrs

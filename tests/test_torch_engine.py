@@ -153,6 +153,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import chip_smoke  # noqa: F401
         from distributed_llama_tpu_torch.apps import api_server  # noqa: F401
         from distributed_llama_tpu_torch.cache import device_pool  # noqa: F401
+        from distributed_llama_tpu_torch.cache import block_pool, prefix_cache  # noqa: F401
+        from distributed_llama_tpu_torch.cache import radix, single_slot, wire  # noqa: F401
         from distributed_llama_tpu_torch.ops import paged_attention, q4_gated_matmul  # noqa: F401
         from distributed_llama_tpu_torch.ops import prologue, q8_matvec  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
@@ -172,6 +174,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         be = BatchEngine(spec, init_random_params(spec, FloatType.Q40, seed=1), slots=2,
                          device="cpu", use_kernels=True, fused_matmul=True)
         assert len(be.generate([1, 2, 3], 2, Sampler(64))[0]) == 2
+        assert be.prefix_cache is not None  # the directory is on by default
         be.close()
         assert not any(k.split(".")[0] in blocked for k in sys.modules)
         print("ok")

@@ -445,7 +445,7 @@ def test_batch_engine_greedy_identity_with_jax(moe_files, fused, superstep):
     want = _staggered(jbe, JSampler, prompts)
     tkw = dict(use_kernels=True, fused_matmul=True) if fused else {}
     be = BatchEngine.load(paths["mixtral"], tpath, slots=3, device="cpu",
-                          superstep=superstep, pipeline=pipe, **tkw)
+                          superstep=superstep, pipeline=pipe, prefix_cache=False, **tkw)
     got = _staggered(be, Sampler, prompts)
     assert got == want and all(len(o) == 8 for o in got)
 

@@ -63,7 +63,8 @@ def jax_engines(files):
 
 
 def _port(files, **kw):
-    return BatchEngine.load(*files, slots=2, device="cpu", superstep=4, **kw)
+    return BatchEngine.load(*files, slots=2, device="cpu", superstep=4, prefix_cache=False,
+                            **kw)
 
 
 def staggered(be, sampler_cls, temp, after=3, seed=100):
@@ -263,7 +264,7 @@ def test_budget_clamps_at_context_end(tmp_path):
         jbe.close()
     for pipeline in (False, True):
         be = BatchEngine.load(*files16, slots=2, device="cpu", superstep=8,
-                              pipeline=pipeline)
+                              pipeline=pipeline, prefix_cache=False)
         try:
             req = be.submit([1, 2, 3, 4], 100, Sampler(V, 0.0))
             assert req.wait(timeout=300) == want
