@@ -49,6 +49,20 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             displacing conversation, 16 steps' logits bit-identical to a fresh prefill,
             graph replays, and a follow-up turn on the resident rewind. Any cache
             degradation (warn_degraded) fails the phase
+  spec      speculative decoding: (1) the fused BatchEngine(speculative=8) at 2 layers of
+            Llama-2-7B width in f32, card against CPU, 4 staggered requests whose blocks
+            are drafted from a speculation-off run's tokens (half of them corrupted at
+            the third draft): the card's tokens and verify turns the CPU's (a near-tie
+            held by the CPU's and an exact-sum run's logits); (2) at full Llama-2-7B on the serve phase's
+            weights, 8 slots, superstep 8 pipelined: 8 prompts (a repeated random
+            segment extended by the speculation-off engine's own greedy continuation),
+            speculation off then on, tokens held by the near-tie rule (f64 witness),
+            at least one accepted draft, launches against the serve schedule, verify
+            blocks replayed per bucket, tok/s, dispatches, accept rate, the graphs and
+            their memory, ms per batched step at T = 1, 2, 3, 5, 9, the pool drained;
+            (3) the single-sequence Engine's generate_speculative at 7B
+            (prefill_kernel), graphs against eager (identical) and against generate()
+            under the near-tie rule, ms per token
   moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
             with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
             phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
@@ -68,7 +82,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             the decode matvec rows (with the output dtype of their paths) must show
             one launch per call in a CUDA graph captured around one call (the Q40 rows
             also print GB/s, TFLOP/s, their share of the bound and, as context only,
-            cuBLAS on the weight dequantized to bf16 beforehand; the matvec rows their
+            cuBLAS on the weight dequantized to bf16 beforehand, except at the verify
+            shapes M = 2, 3, 5, 9, 16, 24, 40, 72; the matvec rows their
             sums per 7B decode token beside their times before the redesign), and
             decode_attention is captured once in a CUDA graph and replayed at two
             positions written to its device position tensor; the prologue at the path's
@@ -83,10 +98,11 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers
 
-When the model, q80, serve, moe and kernels phases all ran, it prints before the last line
-{"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces, launches in
-its path's run — `path` names the run: the model phase and its prologue run, the q80
-phase's runs (a) and (b), the serve phase's superstep-8 run, the moe phase's Mixtral
+When the model, q80, serve, spec, moe and kernels phases all ran, it prints before the
+last line {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
+launches in its path's run — `path` names the run: the model phase and its prologue
+run, the q80 phase's runs (a) and (b), the spec phase's speculating run (the four
+serving kernels: prefill, super-steps and verify blocks), the moe phase's Mixtral
 runs (Q40 and Q80); the precise mode of
 q8_matvec has no path and
 reports its launches in the kernels phase — max_abs_err, ms, plain_ms, bound_ms,
@@ -115,19 +131,21 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
-ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "moe",
-              "kernels", "cli")
+ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
+              "moe", "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
+# the run that counts the launches of the serving kernels: the spec phase's speculating
+# engine (its prefill and mixed steps, single decode steps, super-steps and verify blocks)
+SPEC_PATH = "spec, speculation-on run (8 slots, superstep 8 pipelined, speculative 8)"
 # kernel row -> (CUDA source, TPU kernel it replaces, the run that counts its launches)
 KERNELS = {
     "q4_matvec": ("q4_matvec", _TPU + "pallas_q4.py:142", "model"),
     "q4_matvec_q80": ("q4_matvec", _TPU + "pallas_q4.py:168", "model, prologue run"),
-    "q4_matmul": ("q4_matmul", _TPU + "pallas_q4_mm.py:200", "model"),
-    "q4_matmul_res": ("q4_matmul", _TPU + "pallas_q4_mm.py:220", "serve, superstep 8"),
-    "q4_gated_matmul": ("q4_gated_matmul", _TPU + "pallas_q4_mm.py:246",
-                        "serve, superstep 8"),
+    "q4_matmul": ("q4_matmul", _TPU + "pallas_q4_mm.py:200", SPEC_PATH),
+    "q4_matmul_res": ("q4_matmul", _TPU + "pallas_q4_mm.py:220", SPEC_PATH),
+    "q4_gated_matmul": ("q4_gated_matmul", _TPU + "pallas_q4_mm.py:246", SPEC_PATH),
     "q4_matvec_expert": ("q4_matvec", _TPU + "pallas_q4.py:142", "moe, Mixtral-8x7B"),
     "q8_matvec": ("q8_matvec", _TPU + "pallas_q8.py:107", "q80, run (a)"),
     "q8_matvec_expert": ("q8_matvec", _TPU + "pallas_q8.py:107", "moe, Mixtral Q80"),
@@ -137,7 +155,7 @@ KERNELS = {
     "q8_matvec_q80": ("q8_matvec", _TPU + "pallas_q8.py:132", "q80, run (b)"),
     "decode_attention": ("decode_attention", _TPU + "pallas_attention.py:191", "model"),
     "paged_attention": ("paged_attention", _TPU + "pallas_paged_attention.py:176",
-                        "serve, superstep 8"),
+                        SPEC_PATH),
     "rmsnorm_q80": ("prologue", _TPU + "pallas_prologue.py:78", "q80, run (b)"),
     "quantize_q80": ("prologue", _TPU + "pallas_prologue.py:98", "q80, run (b)"),
 }
@@ -162,6 +180,10 @@ PROFILE_AGREE = (0.1, 0.003)
 # its matmul row counts, 8 slots x T
 SERVE_CHUNKS = (1, 8, 64)
 SERVE_ROWS = tuple(8 * t for t in SERVE_CHUNKS)
+# the spec phase's verify blocks: T = 2, 3, 5 and 9 positions a row (SPEC_BUCKETS), so
+# M = 8 slots x T in the batched engine and M = T in the single-sequence Engine
+VERIFY_T = (2, 3, 5, 9)
+VERIFY_ROWS = tuple(8 * t for t in VERIFY_T)
 
 
 def log(msg: str) -> None:
@@ -476,12 +498,15 @@ def _cublas_ms(x, copies: list, iters: int, res=None) -> float:
 
 def _q4_log(row: str, shape: str, err, tol, dv, how, ev, plain, bnd, nbytes, flops,
             cublas) -> None:
+    """One Q40 dequant-matmul row's line; cublas None: the context yardstick was not
+    timed (the verify shapes, to keep the phase short)."""
+    ctx = ("" if cublas is None else f"; cuBLAS on the bf16 weight dequantized beforehand "
+           f"(context, not the same function) {cublas:.5f} ms")
     log(f"[kernels] {row} {shape}: max|err| {err:.3e} (tol {tol:.3e}) device "
         f"{round(dv, 5)} ms ({how}), events {ev:.5f} ms, plain {plain:.3f} ms, bound "
         f"{bnd[0]:.5f} ms ({bnd[1]}), {bnd[0] / dv:.3f} of the bound, "
-        f"{nbytes / (dv * 1e-3) / 1e9:.0f} GB/s, {flops / (dv * 1e-3) / 1e12:.2f} TFLOP/s; "
-        f"cuBLAS on the bf16 weight dequantized beforehand (context, not the same "
-        f"function) {cublas:.5f} ms")
+        f"{nbytes / (dv * 1e-3) / 1e9:.0f} GB/s, {flops / (dv * 1e-3) / 1e12:.2f} TFLOP/s"
+        f"{ctx}")
 
 
 def _all_kernels_ms(fn, iters: int) -> float:
@@ -522,6 +547,12 @@ def phase_kernels(state: dict) -> None:
     cases += [(512, n, k) for n, k in (SHAPES_7B[0], SHAPES_7B[4])]
     for m, n, k in cases:
         _q4_matmul_row(state, m, n, k, gen, dev, rate)
+    # the verify blocks of the spec phase: the single-sequence Engine's (M = T, every
+    # projection) and the batched engine's wqkv and wcls (M = 8 x T)
+    cases = [(m, n, k) for m in VERIFY_T for n, k in SHAPES_7B]
+    cases += [(m, n, k) for m in VERIFY_ROWS for n, k in (SHAPES_7B[0], SHAPES_7B[4])]
+    for m, n, k in cases:
+        _q4_matmul_row(state, m, n, k, gen, dev, rate, cublas=False)
 
     # kernel 3 — tolerance 1e-4·max|out|: q and p enter the tensor cores as bf16 hi/lo
     # pairs against exact bf16 K/V rows (~2^-16 relative), the softmax runs in f32 in
@@ -605,9 +636,11 @@ def phase_kernels(state: dict) -> None:
     log(f"[kernels] profiler windows: {json.dumps(PROFILE_WINDOWS)}")
 
 
-def _q4_matmul_row(state: dict, m: int, n: int, k: int, gen, dev, rate: float) -> None:
+def _q4_matmul_row(state: dict, m: int, n: int, k: int, gen, dev, rate: float,
+                   cublas: bool = True) -> None:
     """Hold q4_matmul at M x N x K (bf16 row and output) against its plain version
-    (`_bf16_err`), time it as one launch per call and record the row with its bound."""
+    (`_bf16_err`), time it as one launch per call and record the row with its bound
+    (and, with `cublas`, time the cuBLAS context yardstick)."""
     from distributed_llama_tpu_torch.ops import q4_matmul as mm
 
     wbytes = n * k // 2 + n * k // 32 * 2
@@ -625,7 +658,7 @@ def _q4_matmul_row(state: dict, m: int, n: int, k: int, gen, dev, rate: float) -
     flops = 2 * m * n * k
     bnd = bound(nbytes, flops, "bf16", rate)
     _q4_log("q4_matmul", f"M={m} N={n} K={k}", err, tol, dv, how, ev, plain, bnd,
-            nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20))
+            nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20) if cublas else None)
     _record(state, "q4_matmul", err, tol, dv, plain, bnd, None, f"M={m},N={n},K={k}")
     state["q4"][("q4_matmul", m, n, k)] = (dv, bnd[0])
 
@@ -639,8 +672,8 @@ def _q4_step_sums(t: dict) -> None:
     steps = {f"serving step M={m}": [
         (32, "q4_matmul", m, wqkv), (1, "q4_matmul", m, wcls), (32, "q4_matmul_res", m, wo),
         (32, "q4_matmul_res", m, w2), (32, "q4_gated_matmul", m, (11008, 4096))]
-        for m in SERVE_ROWS}
-    for m in (64, 8):
+        for m in SERVE_ROWS + VERIFY_ROWS}
+    for m in (64, 8) + VERIFY_T:
         steps[f"single-sequence {m}-token chunk"] = [
             (32, "q4_matmul", m, w) for w in (wqkv, wo, w13, w2)] + [
             (1, "q4_matmul", m, wcls)]
@@ -697,11 +730,12 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
     from distributed_llama_tpu_torch.ops import q4_gated_matmul as gm
     from distributed_llama_tpu_torch.ops import q4_matmul as mm
 
-    # every row count the serve phase sends kernels 4 and 5: M = 8 slots x T for decode
-    # steps (T = 1) and 8- and 64-token mixed steps
+    # every row count the serve and spec phases send kernels 4 and 5: M = 8 slots x T for
+    # decode steps (T = 1), 8- and 64-token mixed steps and the verify blocks (T = 2, 3,
+    # 5, 9; their cuBLAS yardstick is not timed)
     # kernel 4 — tolerance as kernel 2's: identical bf16 operands, f32 sums in another
     # order, the residual added in f32 on both sides, the output bf16
-    for m in SERVE_ROWS:
+    for m in SERVE_ROWS + VERIFY_ROWS:
         for n, k in ((4096, 4096), (4096, 11008)):
             wbytes = n * k // 2 + n * k // 32 * 2
             copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
@@ -721,7 +755,8 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
             bnd = bound(nbytes, flops, "bf16", rate)
             ms = dv
             _q4_log("q4_matmul_res", f"M={m} N={n} K={k}", err, tol, dv, how, ev, plain, bnd,
-                    nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20, res))
+                    nbytes, flops, _cublas_ms(x, [[w] for w in ws], 20, res)
+                    if m in SERVE_ROWS else None)
             _record(state, "q4_matmul_res", err, tol, ms, plain, bnd, None,
                     f"M={m},N={n},K={k}")
             state["q4"][("q4_matmul_res", m, n, k)] = (dv, bnd[0])
@@ -733,7 +768,7 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
     copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
     pairs = [(_random_i4p(n, k, gen, dev), _random_i4p(n, k, gen, dev))
              for _ in range(copies)]
-    for m in SERVE_ROWS:
+    for m in SERVE_ROWS + VERIFY_ROWS:
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         y = gm._launch(x, *pairs[0], "silu", out_dtype=BF16)
         ref = gm.q4_gated_matmul_plain(x, *pairs[0], "silu")
@@ -748,7 +783,8 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
         bnd = bound(nbytes, flops, "bf16", rate)
         ms = dv
         _q4_log("q4_gated_matmul", f"M={m} N={n} K={k} silu", err, tol, dv, how, ev, plain,
-                bnd, nbytes, flops, _cublas_ms(x, [list(p) for p in pairs], 20))
+                bnd, nbytes, flops, _cublas_ms(x, [list(p) for p in pairs], 20)
+                if m in SERVE_ROWS else None)
         _record(state, "q4_gated_matmul", err, tol, ms, plain, bnd, None,
                 f"M={m},N={n},K={k}")
         state["q4"][("q4_gated_matmul", m, n, k)] = (dv, bnd[0])
@@ -762,7 +798,7 @@ def _kernels_serving(state: dict, gen, dev, rate: float) -> None:
     n_blocks = b * (2048 // bt) + 1
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for win in (256, 2048):
-        for t in SERVE_CHUNKS:
+        for t in SERVE_CHUNKS + VERIFY_T:
             kc = torch.randn(n_layers, n_blocks, hk, bt, hs, generator=gen,
                              device=dev).to(torch.bfloat16)
             vc = torch.randn(n_layers, n_blocks, hk, bt, hs, generator=gen,
@@ -1259,11 +1295,12 @@ def _layer_chain(fmt: str, gen, dev, rate: float) -> None:
         f"chain, the matvecs alone and the graph's replay")
 
 
-def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False):
+def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False, lo: int = 0):
     """Llama params with random Q40 weights drawn on `dev` directly in the i4p layout
     the kernels take, from a seeded torch.Generator: wqkv, wo, w2, wcls, and either the
     merged w13 (the single-sequence Engine) or the separate w1/w3 of the gate-pair
-    kernel (`gate_pair`, the fused serving engine)."""
+    kernel (`gate_pair`, the fused serving engine). `lo` as `_random_i4p`'s: nibbles
+    from 1..15 have no bias toward one sign (0..15 centre on -0.5)."""
     from distributed_llama_tpu_torch.quants import FloatType, QTensor
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1271,7 +1308,7 @@ def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False):
 
     def q40(*shape):
         return QTensor(FloatType.Q40, *_random_i4p(shape[-2], shape[-1], gen, dev,
-                                                   shape[:-2]), layout="i4p")
+                                                   shape[:-2], lo), layout="i4p")
 
     def norm(*shape):
         return 1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)
@@ -2310,19 +2347,21 @@ def _serve_counters():
             "q4_gated_matmul": (gm, "launches"), "paged_attention": (pa, "launches")}
 
 
-def _serve_engine(params, superstep: int):
+def _serve_engine(params, superstep: int, speculative: int = 0):
     """The 8-slot fused BatchEngine at full Llama-2-7B, super-steps of `superstep`
-    (pipelined from 2), its graphs counted (`counting_graphs`)."""
+    (pipelined from 2), speculating `speculative` tokens a row, its graphs counted
+    (`counting_graphs`)."""
     from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
 
     spec = _llama2_7b()
     be = BatchEngine(spec, params, slots=8, device="cuda", fused_matmul=True,
-                     kv_block_tokens=16, superstep=superstep, prefix_cache=False)
+                     kv_block_tokens=16, superstep=superstep, prefix_cache=False,
+                     speculative=speculative)
     eng = be.engine
     eng.graphs = counting_graphs(eng.device, _serve_counters())
     assert eng.dtype == torch.bfloat16 and eng.use_kernels == "fused" and eng.paged_kernel
     assert be.kv_pool.n_blocks == 8 * (spec.seq_len // 16) + 8 + 1
-    assert be.pipeline == (superstep >= 2)
+    assert be.pipeline == (superstep >= 2) and be.spec_k == speculative
     # warm-up: loads the kernel libraries, warms the allocator and, from superstep 2,
     # captures a super-step's graph
     be.generate([1] + list(range(5, 80)), 2 + superstep, _CheckedSampler(spec.vocab_size))
@@ -2867,18 +2906,18 @@ def _held(state, spec, params, tag: str, prompt, got: list[int], want: list[int]
         return ""
     j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if j is None:
-        raise AssertionError(f"prefix {tag}: {len(got)} tokens against {len(want)}")
+        raise AssertionError(f"{tag}: {len(got)} tokens against {len(want)}")
     a, b = got[j], want[j]
     for rows in (got_rows, want_rows):
         if rows is not None and j < len(rows):
             gap, tol = abs(float(rows[j][a] - rows[j][b])), NEAR_TIE * float(
                 np.abs(rows[j]).max())
             if gap >= tol:
-                raise AssertionError(f"prefix {tag}: step {j} picks {a} against {b}, "
+                raise AssertionError(f"{tag}: step {j} picks {a} against {b}, "
                                      f"{gap:.3e} apart in a run's logits (bound {tol:.3e})")
     gap, tol = _witness(state, spec, params, list(prompt) + want[:j], a, b)
     if gap >= tol:
-        raise AssertionError(f"prefix {tag}: step {j} picks {a} against {b}; the f64 "
+        raise AssertionError(f"{tag}: step {j} picks {a} against {b}; the f64 "
                              f"witness puts them {gap:.3e} apart (bound {tol:.3e})")
     return f"{tag} near-tie at step {j} ({a} vs {b}, f64 witness {gap:.2e} < {tol:.2e})"
 
@@ -2931,7 +2970,7 @@ def _prefix_serial(state: dict, spec, params, t: dict, k: int) -> dict:
         if skipped != (511 if last else 512):
             raise AssertionError(f"prefix part 1 hit {i}: prefill fell by {skipped} tokens")
         if last:
-            note = _held(state, spec, params, f"part 1 superstep {k} exact-P hit", t["P"],
+            note = _held(state, spec, params, f"prefix part 1 superstep {k} exact-P hit", t["P"],
                          a["out"], b["out"], a["kept"], b["kept"])
             if note:
                 ties.append(note)
@@ -3074,7 +3113,7 @@ def _prefix_concurrent(state: dict, spec, params, t: dict) -> dict:
         if err > tol:
             raise AssertionError(f"prefix part 2 request {i}: first logits {err:.3e} from "
                                  f"the cache-off run's (bound {tol:.3e})")
-        note = _held(state, spec, params, f"part 2 request {i}", p, on["outs"][i],
+        note = _held(state, spec, params, f"prefix part 2 request {i}", p, on["outs"][i],
                      off["outs"][i], [a], [b])
         if note:
             ties.append(note)
@@ -3301,8 +3340,12 @@ def _prefix_single(state: dict, spec, params, t: dict) -> dict:
 def phase_prefix(state: dict) -> None:
     """The prefix cache over paged KV at Llama-2-7B (the serve phase's weights)."""
     spec = _llama2_7b()
-    params = state.pop("serve_params", None) or _random_i4p_params(
+    # the spec phase reads the same weights after this one
+    take = state.get if "spec" in state["phases"] else state.pop
+    params = take("serve_params", None) or _random_i4p_params(
         spec, torch.device("cuda"), seed=13, gate_pair=True)
+    if "spec" in state["phases"]:
+        state["serve_params"] = params
     t = _prefix_tokens(spec)
     numbers, seconds = {}, {}
     with _CountDegraded() as deg:
@@ -3324,6 +3367,434 @@ def phase_prefix(state: dict) -> None:
     if deg.calls:
         raise AssertionError(f"prefix: {len(deg.calls)} cache degradation(s): {deg.calls}")
     log("[prefix] numbers: " + json.dumps(numbers, default=float))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ speculative decoding
+
+SPEC_K = 8  # draft tokens a row at most: verify blocks of T = 2, 3, 5 and 9
+SPEC_BUCKETS = VERIFY_T
+# the full-size run: 8 prompts of a 24-token random segment three times (73 tokens),
+# each extended by the SPEC_PROBE greedy tokens the speculation-off engine decodes after
+# it, then SPEC_TOKENS greedy tokens a request
+SPEC_SEGMENT, SPEC_PROBE, SPEC_TOKENS = 24, 32, 64
+
+
+def _spec_run(state: dict, be, prompts, tag: str) -> dict:
+    """The 8 staggered requests (request i+1 at request i's first token) on one engine:
+    SPEC_TOKENS greedy tokens each, launches held to SERVE_PER_DISPATCH per forward step
+    (eager steps, graph replays of super-steps and verify blocks, a warm-up step per
+    capture), the pool drained after; the run's numbers."""
+    counters = _serve_counters()
+    graphs = be.engine.graphs
+    be.dispatches = be.decode_steps = be.mixed_steps = be.super_steps = 0
+    be.loop_steps = be.chained = be.verify_steps = be.spec_drafted = be.spec_accepted = 0
+    be.flushes.clear()
+    be.dispatch_ms = {key: [] for key in be.dispatch_ms}
+    _zero(counters)
+    snap = graph_snapshot(counters, graphs)
+    t0 = time.perf_counter()
+    reqs, _ = staggered(be, prompts, SPEC_TOKENS, after=1)
+    wall = time.perf_counter() - t0
+    launches, replays, new = run_launches(counters, graphs, snap)
+    eager = be.dispatches - be.loop_steps // SERVE_K - be.verify_steps
+    steps = eager + replays + new
+    want = {name: n * steps for name, n in SERVE_PER_DISPATCH.items()}
+    outs = [r.out for r in reqs]
+    if launches != want or [len(o) for o in outs] != [SPEC_TOKENS] * len(prompts):
+        raise AssertionError(f"spec run ({tag}): launches {launches} (want {want} for "
+                             f"{eager} eager steps, {replays} replays, {new} captures), "
+                             f"tokens {[len(o) for o in outs]}")
+    free = be.release_idle()
+    if free != be.kv_pool.n_blocks - 1:
+        raise AssertionError(f"spec run ({tag}): {free} blocks free after the run, want "
+                             f"{be.kv_pool.n_blocks - 1} (all but scratch)")
+    verify_replays = {f"T={k[4]} win={k[2]}": graphs.replays_of(k) - snap[1].get(k, 0)
+                      for k in graphs.keys() if k[0] == "batched_verify"}
+    turns = [t for r in reqs for t in r.stats.spec_turns]
+    n_tok = sum(len(o) for o in outs)
+    ver, sup = be.dispatch_ms["verify"], be.dispatch_ms["super"]
+    out = dict(outs=outs, wall=wall, tok_s=n_tok / wall, launches=launches,
+               dispatches=be.dispatches, eager=eager, replays=replays, captures=new,
+               verify=be.verify_steps, super=be.super_steps, chained=be.chained,
+               flushes=dict(be.flushes), drafted=be.spec_drafted,
+               accepted=be.spec_accepted, accepting_turns=sum(t[2] >= 1 for t in turns),
+               turns=len(turns), verify_replays=verify_replays,
+               verify_ms=float(np.mean(ver)) if ver else None,
+               super_ms=float(np.mean(sup)) if sup else None, free=free,
+               decode_dispatches=be.verify_steps + be.super_steps)
+    log(f"[spec] {tag}: Llama-2-7B Q40 bf16 fused, 8 slots, superstep {SERVE_K} "
+        f"pipelined, speculative {be.spec_k}: {n_tok} tokens in {wall:.2f} s, "
+        f"{out['tok_s']:.1f} tok/s; {be.dispatches} dispatches ({eager} eager, "
+        f"{be.super_steps} super-steps, {be.verify_steps} verify blocks, {be.chained} "
+        f"chained, flushes {dict(be.flushes)}); drafted {be.spec_drafted}, accepted "
+        f"{be.spec_accepted} in {out['accepting_turns']} of {len(turns)} row turns; "
+        f"verify replays by bucket {json.dumps(verify_replays)}; dispatch ms: verify "
+        f"{out['verify_ms']}, super-step {out['super_ms']}; launches {json.dumps(launches)}"
+        f" = per forward step x {steps}; pool drained to {free} free blocks")
+    return out
+
+
+def _spec_step_ms(be) -> dict:
+    """Device ms of one batched step of the 8-slot engine at each block length: T = 1
+    (a super-step of SERVE_K steps over SERVE_K) and the verify buckets, greedy, every
+    row at positions 200-221 (window 256), by CUDA events over graph replays."""
+    eng = be.engine
+    starts = [200 + 3 * i for i in range(8)]
+    rng = np.zeros((8, 2), np.int64)
+    window = eng._window_for(256)
+    out = {}
+    with be._slock:  # the scheduler is idle; this thread drives the loops
+        for sl in be._slots:
+            be._paged_ensure(sl, 256)
+        tables = be._tables()
+        loop = be._batched_loop(SERVE_K, "greedy", window)
+        out[1] = event_ms(lambda i: loop(eng.rope, [5] * 8, eng.k_cache, eng.v_cache,
+                                         starts, rng, [0.0] * 8, [0.9] * 8,
+                                         [SERVE_K] * 8, tables), 10) / SERVE_K
+        for t in SPEC_BUCKETS:
+            vloop = be._verify_loop(t, "greedy", window)
+            props = [[5] * t for _ in range(8)]
+            out[t] = event_ms(lambda i: vloop(eng.rope, props, eng.k_cache, eng.v_cache,
+                                              starts, rng, [0.0] * 8, [0.9] * 8,
+                                              [t - 1] * 8, tables), 20)
+    free = be.release_idle()
+    if free != be.kv_pool.n_blocks - 1:
+        raise AssertionError(f"spec: {free} blocks free after the step timing")
+    return out
+
+
+def _spec_full(state: dict, spec, params) -> dict:
+    """Speculation at full Llama-2-7B on the serve phase's weights: speculation off,
+    then on, on the same prompts (a repeated random segment, extended by the
+    speculation-off engine's own greedy continuation), tokens held by the near-tie
+    rule, at least one accepted draft, verify blocks replayed per bucket, tok/s and ms
+    per step at each block length."""
+    gen = torch.Generator().manual_seed(71)
+    bases = [[1] + torch.randint(3, spec.vocab_size, (SPEC_SEGMENT,),
+                                 generator=gen).tolist() * 3 for _ in range(8)]
+    be = _serve_engine(params, SERVE_K)
+    try:
+        # the probe: its tokens extend the prompts, so each prompt ends in the model's
+        # own greedy continuation
+        probe, _ = staggered(be, bases, SPEC_PROBE, after=1)
+        prompts = [b + r.out for b, r in zip(bases, probe)]
+        be.release_idle()
+        off = _spec_run(state, be, prompts, "speculation off")
+    finally:
+        be.close()
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    be = _serve_engine(params, SERVE_K, SPEC_K)
+    try:
+        alloc, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        warm, _ = staggered(be, prompts, SPEC_TOKENS, after=1)  # captures the graphs
+        be.release_idle()
+        graph_mem = (torch.cuda.memory_allocated() - alloc,
+                     torch.cuda.memory_reserved() - reserved)
+        on = _spec_run(state, be, prompts, "speculation on")
+        if on["outs"] != [r.out for r in warm]:
+            raise AssertionError("spec: the speculating engine's two runs decoded "
+                                 "different tokens")
+        step_ms = _spec_step_ms(be)
+        keys = be.engine.graphs.keys()
+    finally:
+        be.close()
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    notes = [n for i in range(8) if (n := _held(state, spec, params, f"spec request {i}",
+                                                 prompts[i], on["outs"][i],
+                                                 off["outs"][i]))]
+    if on["accepting_turns"] < 1:
+        raise AssertionError(f"spec: no verify turn accepted a draft ({on['turns']} row "
+                             f"turns, {on['drafted']} drafted)")
+    missing = [t for t in SPEC_BUCKETS if not any(f"T={t} " in k and n > 0
+                                                  for k, n in on["verify_replays"].items())]
+    if missing:
+        raise AssertionError(f"spec: the speculating run replayed no verify graph at T = "
+                             f"{missing} ({on['verify_replays']})")
+    state["launches"].update(on["launches"])
+    verify_keys = [k for k in keys if k[0] == "batched_verify"]
+    log(f"[spec] speculation on against off: tokens "
+        + ("identical" if not notes else "identical outside " + "; ".join(notes))
+        + f"; tok/s {off['tok_s']:.1f} -> {on['tok_s']:.1f}; decode dispatches (super-"
+        f"steps + verify blocks) {off['decode_dispatches']} -> {on['decode_dispatches']}"
+        f" for {8 * SPEC_TOKENS} tokens; tokens per decode dispatch and row "
+        f"{8 * SPEC_TOKENS / max(off['decode_dispatches'], 1) / 8:.2f} -> "
+        f"{8 * SPEC_TOKENS / max(on['decode_dispatches'], 1) / 8:.2f}; accept rate "
+        f"{on['accepted'] / max(on['drafted'], 1):.3f} ({on['accepted']}/{on['drafted']});"
+        f" every bucket T = {list(SPEC_BUCKETS)} replayed in the run")
+    log(f"[spec] ms per batched step, 8 rows, window 256 (CUDA events over graph "
+        f"replays): " + ", ".join(f"T={t} {ms:.3f}" for t, ms in step_ms.items())
+        + "; against T=1: " + ", ".join(f"T={t} {step_ms[t] / step_ms[1]:.2f}x"
+                                        for t in SPEC_BUCKETS))
+    log(f"[spec] graphs: {len(keys)} captured in the speculating engine ({len(verify_keys)}"
+        f" verify: {sorted((k[1], k[2], k[4]) for k in verify_keys)}), one memory pool; "
+        f"memory allocated grew {graph_mem[0] / 2**20:.1f} MiB and reserved "
+        f"{graph_mem[1] / 2**20:.1f} MiB over the run that captured them")
+    return dict(off={k: v for k, v in off.items() if k != "outs"},
+                on={k: v for k, v in on.items() if k != "outs"}, step_ms=step_ms,
+                graphs=len(keys), verify_graphs=len(verify_keys),
+                graph_mem_mib=[m / 2**20 for m in graph_mem], near_ties=notes)
+
+
+def _spec_single(state: dict, spec, params) -> dict:
+    """Engine.generate_speculative at full Llama-2-7B (the serve weights, prefill_kernel:
+    the verify blocks run q4_matmul at M = T), CUDA graphs per verify bucket against
+    the eager engine (identical tokens and turns), and against generate() under the
+    near-tie rule; ms per token of both. The graph engine's run is counted: q4_matmul
+    once per projection (161 on the serve weights: wqkv, wo, w1, w3, w2 x 32 and wcls)
+    per verify forward step (replays and the warm-up step of each capture) and per
+    prefill chunk of M > 1, q4_matvec as often and decode_attention once a layer per
+    T = 1 step, every verify graph's capture holding exactly that q4_matmul count."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    gen = torch.Generator().manual_seed(72)
+    base = [1] + torch.randint(3, spec.vocab_size, (SPEC_SEGMENT,),
+                               generator=gen).tolist() * 3
+    counters = _single_counters()
+    eng = Engine(spec, params, device="cuda", prefill_kernel=True)
+    eng.graphs = counting_graphs(eng.device, counters)
+    eager = Engine(spec, params, device="cuda", prefill_kernel=True, cuda_graph=False)
+    assert eng.cuda_graph and not eager.cuda_graph
+    vocab = spec.vocab_size
+    prompt = base + eng.generate(base, SPEC_PROBE, _CheckedSampler(vocab))[0]
+    n = SPEC_TOKENS
+    eng.reset()
+    plain, pstats = eng.generate(prompt, n, _CheckedSampler(vocab))
+    runs = []
+    for e in (eng, eager):
+        e.reset()
+        torch.cuda.synchronize()
+        if e is eng:
+            _zero(counters)
+            snap = graph_snapshot(counters, eng.graphs)
+        t0 = time.perf_counter()
+        toks, st = e.generate_speculative(prompt, n, _CheckedSampler(vocab), k=SPEC_K)
+        runs.append((toks, st, time.perf_counter() - t0 - st.prefill_ms / 1e3))
+        if e is eng:
+            launches, _, _ = run_launches(counters, eng.graphs, snap)
+    (got, st, wall), (got_e, st_e, wall_e) = runs
+    if got != got_e or st.spec_turns != st_e.spec_turns:
+        raise AssertionError("spec single sequence: the graph engine's tokens or turns "
+                             "differ from the eager engine's")
+    note = _held(state, spec, params, "spec single sequence", prompt, got, plain)
+    per_step = (4 + ("w1" in params["blocks"])) * spec.n_layers + 1
+    t1 = {"q4_matvec": per_step, "decode_attention": spec.n_layers}
+    # forward steps in the run (replays, and the warm-up step of each capture) and the
+    # replays alone (one per verify turn or one-token prefill chunk)
+    steps, replays = {"verify": 0, "step": 0}, {"verify": 0, "step": 0}
+    for key in eng.graphs.keys():
+        dr = eng.graphs.replays_of(key) - snap[1].get(key, 0)
+        want = {"q4_matmul": per_step} if key[0] == "verify" else t1
+        if dr and eng.graphs.per_step[key] != {c: want.get(c, 0) for c in counters}:
+            raise AssertionError(f"spec single sequence: graph {key} launches "
+                                 f"{eng.graphs.per_step[key]}, want {want}")
+        steps[key[0]] += dr + (key not in snap[1])
+        replays[key[0]] += dr
+    m = len(prompt) - 1  # the prefill: prompt[:-1] in chunks of 64, 8 and 1
+    chunks, t1_chunks = m // 64 + m % 64 // 8, m % 8
+    want = {c: 0 for c in counters}
+    want["q4_matmul"] = per_step * (steps["verify"] + chunks)
+    for c, v in t1.items():
+        want[c] = v * steps["step"]
+    if (launches != want or not steps["verify"]
+            or replays["verify"] + replays["step"] != st.spec_steps + t1_chunks):
+        raise AssertionError(f"spec single sequence: launches {launches} (want {want} for "
+                             f"{steps['verify']} verify and {steps['step']} one-token "
+                             f"forward steps, {chunks} prefill chunks of M > 1), "
+                             f"{st.spec_steps} verify turns")
+    verify = {f"T={k[3]} win={k[2]}": eng.graphs.replays_of(k)
+              for k in eng.graphs.keys() if k[0] == "verify"}
+    out = dict(tokens=len(got), spec_steps=st.spec_steps, drafted=st.spec_drafted,
+               accepted=st.spec_accepted, ms_per_token=wall * 1e3 / len(got),
+               eager_ms_per_token=wall_e * 1e3 / len(got),
+               plain_ms_per_token=float(np.mean(pstats.infer_ms)),
+               verify_replays=verify, launches=launches, near_tie=note)
+    log(f"[spec] single sequence, Llama-2-7B Q40 bf16 prefill_kernel: generate_speculative"
+        f" k={SPEC_K}, {len(got)} tokens in {st.spec_steps} verify steps, accepted "
+        f"{st.spec_accepted}/{st.spec_drafted}; graph and eager tokens and turns "
+        f"identical; against generate(): " + (note or "identical") + f"; ms/token "
+        f"{out['ms_per_token']:.2f} (eager {out['eager_ms_per_token']:.2f}) against the "
+        f"one-token graph step's {out['plain_ms_per_token']:.2f}; verify graph replays "
+        f"{json.dumps(verify)}; launches {json.dumps({c: v for c, v in launches.items() if v})}"
+        f" = q4_matmul {per_step} x ({steps['verify']} verify forward steps + {chunks} "
+        f"prefill chunks), {json.dumps(t1)} x {steps['step']} one-token steps")
+    del eng, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class _ReferenceDrafts:
+    """A proposer (the n-gram proposer's interface, in its place on the engine) that
+    drafts each request's reference continuation: the tokens a speculation-off run gave
+    the same prompt. For requests whose index is odd the third draft of every block is
+    replaced by another token, so their blocks take the correction path; the others'
+    blocks are accepted whole wherever the verify's target at each position is the
+    reference token, which checks the verify step's argmax at every position. The drafts
+    depend on the reference and the count of delivered tokens, not on their values.
+    `log` lists the verify turns in delivery order: (request index, its turn number)."""
+
+    name = "reference"
+
+    def __init__(self, prompts, refs, vocab: int):
+        self.ref = {tuple(p): (i, list(r)) for i, (p, r) in enumerate(zip(prompts, refs))}
+        self.vocab = vocab
+        self.rows: dict[int, list] = {}  # row -> [request index, reference, delivered]
+        self.log: list[tuple[int, int]] = []
+
+    def attach(self, row, tokens):
+        i, ref = self.ref[tuple(tokens)]
+        self.rows[row] = [i, ref, 0]
+
+    def detach(self, row):
+        self.rows.pop(row, None)
+
+    def push(self, row, tok):
+        if row in self.rows:
+            self.rows[row][2] += 1
+
+    def propose(self, row, k):
+        if row not in self.rows or k <= 0:
+            return []
+        i, ref, n = self.rows[row]
+        d = ref[n:n + k]
+        if i % 2 and len(d) > 2:
+            d[2] = (d[2] + 1) % self.vocab
+        return d
+
+    def propose_batch(self, want):
+        return {r: d for r, k in want.items() if (d := self.propose(r, k))}
+
+    def observe(self, row, accepted):
+        i = self.rows[row][0]
+        self.log.append((i, sum(r == i for r, _ in self.log)))
+
+    def ready(self, row, k, min_draft):
+        return len(self.propose(row, k)) >= min_draft
+
+
+def spec_parity(n_layers: int = 2, max_tokens: int = 16) -> str:
+    """The fused BatchEngine(speculative=8) at full Llama-2-7B width, 2 layers, f32 with
+    seeded weights (nibbles 1..15, so greedy streams vary), on 4 staggered requests
+    (superstep 4, pipelined): a speculation-off CPU run gives each request's reference
+    tokens; then the CPU with the kernels' plain versions and the card with the kernels
+    run with every block drafted from the reference (`_ReferenceDrafts`: half the
+    requests' blocks corrupted at their third draft), so both decode the same (B, T)
+    blocks. The CPU must accept drafts (how many requests keep the reference's tokens is
+    reported: the reference ran each position at another M, and the plain versions
+    round activations to bf16), and the card's tokens must be the CPU's, unless a
+    request's tokens part at a near-tie: there the CPU's logits (the single-sequence
+    Engine on the plain versions) and an exact-sum run (`_ExactSums`) must both put the
+    two picks within 2e-3·max|logits|, and tokens past that point are not compared.
+    The verify turns (request, output length, drafted, accepted), in delivery order,
+    must be the CPU's: all of them without a near-tie, else every turn delivered before
+    the first turn a tie can reach: one of the tied request's turns that emits a later
+    token, or that emits the tied step as its correction (a bonus token, past a fully
+    accepted draft, leaves its turn as it was). The drafts ignore the tokens' values,
+    so nothing before that turn can differ."""
+    import contextlib
+
+    from distributed_llama_tpu_torch.models.params import params_to
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    spec = _llama2_7b(n_layers=n_layers)
+    params = _random_i4p_params(spec, torch.device("cpu"), seed=8, gate_pair=True, lo=1)
+    kw = dict(slots=4, dtype=torch.float32, use_kernels=True, fused_matmul=True,
+              superstep=4, prefix_cache=False)
+    rng = np.random.RandomState(7)
+    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (18, 27, 15, 21)]
+
+    def run(dev, refs=None):
+        be = BatchEngine(spec, params_to(params, dev), device=dev,
+                         speculative=SPEC_K if refs else 0, **kw)
+        assert be.engine.use_kernels == "fused" and be.engine.paged_kernel
+        if refs:
+            be.proposer = _ReferenceDrafts(prompts, refs, spec.vocab_size)
+        try:
+            reqs, _ = staggered(be, prompts, max_tokens, after=1)
+            turns = ([(i,) + reqs[i].stats.spec_turns[n] for i, n in be.proposer.log]
+                     if refs else [])
+            return ([r.out for r in reqs], turns, be.verify_steps, be.spec_accepted,
+                    be.spec_drafted)
+        finally:
+            be.close()
+
+    with _SharedDequant():
+        refs = run("cpu")[0]
+        cpu = run("cpu", refs)
+        if not cpu[3]:
+            raise AssertionError(f"spec parity: the CPU's speculating run accepted no draft "
+                                 f"of {cpu[4]}")
+        # against the reference only reported: the speculation-off run decoded each
+        # position at another M, and the plain versions round activations to bf16, so a
+        # near-tie may part the two CPU runs
+        same = sum(a == b for a, b in zip(cpu[0], refs))
+        card = run("cuda", refs)
+        ties, cut = [], len(cpu[1])  # cut: the verify turns held equal
+        for i, (a, b) in enumerate(zip(card[0], cpu[0])):
+            if a == b:
+                continue
+            j = next((x for x, (p, q) in enumerate(zip(a, b)) if p != q), None)
+            if j is None:
+                raise AssertionError(f"spec parity: request {i} decoded {len(a)} tokens on "
+                                     f"the card, {len(b)} on the CPU")
+            gaps = []
+            for exact in (False, True):
+                eng = Engine(spec, params, device="cpu", dtype=torch.float32,
+                             use_kernels=True, fused_matmul=True)
+                with _ExactSums() if exact else contextlib.nullcontext():
+                    logits = eng.infer_chunk_logits(prompts[i] + b[:j])[-1]
+                gap = abs(float(logits[a[j]] - logits[b[j]]))
+                tol = 2e-3 * float(np.abs(logits).max())
+                if gap >= tol:
+                    raise AssertionError(
+                        f"spec parity: request {i} step {j}: card {a[j]}, CPU {b[j]}, "
+                        f"{gap:.3e} apart in the {'exact-sum' if exact else 'CPU'} logits "
+                        f"(tolerance {tol:.3e})")
+                gaps.append(f"{gap:.2e} (tol {tol:.2e})")
+            ties.append(f"request {i} step {j}: card {a[j]}, CPU {b[j]}, CPU gap {gaps[0]}, "
+                        f"exact-sum gap {gaps[1]}")
+            # a turn of request i that emits past step j, or corrects at j, is the first
+            # the tie can reach (a bonus token at j leaves its own turn as it was)
+            cut = min(cut, next((x for x, (r, o, nd, acc) in enumerate(cpu[1])
+                                 if r == i and (o + acc > j or o + acc == j < o + nd)),
+                                cut))
+    if card[1][:cut] != cpu[1][:cut] or (not ties and card[1] != cpu[1]):
+        raise AssertionError(f"spec parity: verify turns differ in the first {cut}: card "
+                             f"{card[1]}, CPU {cpu[1]}")
+    torch.cuda.empty_cache()
+    return (f"fused BatchEngine(speculative={SPEC_K}), 4 staggered requests x {max_tokens} "
+            f"greedy tokens drafted from a speculation-off run's tokens (requests 1 and 3 "
+            f"corrupted at each block's third draft): the CPU's tokens equal that run's in "
+            f"{same} of 4 requests ({cpu[2]} verify blocks, {cpu[3]}/{cpu[4]} drafts "
+            f"accepted); the card's "
+            + (f"identical outside near-ties: {'; '.join(ties)}" if ties else
+               f"identical ({card[2]} verify blocks, {card[3]}/{card[4]} drafts "
+               f"accepted)") + f"; verify turns (request, output length, drafted, "
+            f"accepted) equal in delivery order: {cut} of the CPU's {len(cpu[1])}"
+            + (" (those before the first turn a near-tie reaches)" if ties else "")
+            + f" {cpu[1][:cut]}; tokens {cpu[0]}")
+
+
+def phase_spec(state: dict) -> None:
+    """Speculative decoding: card-against-CPU parity at 2 layers, then full Llama-2-7B
+    (the serve phase's weights) in the batched engine and the single-sequence Engine."""
+    t0 = time.perf_counter()
+    log(f"[spec] parity: {spec_parity()} ({time.perf_counter() - t0:.1f} s)")
+    spec = _llama2_7b()
+    params = state.pop("serve_params", None) or _random_i4p_params(
+        spec, torch.device("cuda"), seed=13, gate_pair=True)
+    numbers = {"full": _spec_full(state, spec, params),
+               "single": _spec_single(state, spec, params)}
+    state.pop("prefix_witness", None)
+    log("[spec] numbers: " + json.dumps(numbers, default=float))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3552,8 +4023,8 @@ def main(argv=None) -> int:
             globals()[f"phase_{name}"](state)
             log(f"[{name}] done in {time.perf_counter() - t:.1f} s")
     log(f"[total] {time.perf_counter() - t0:.1f} s")
-    # launches come from the model, q80, serve and moe phases' runs
-    if {"kernels", "model", "q80", "serve", "moe"} <= set(phases):
+    # launches come from the model, q80, serve, spec and moe phases' runs
+    if {"kernels", "model", "q80", "serve", "spec", "moe"} <= set(phases):
         log(kernels_line(state))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,9 @@ BatchEngine (paged KV, `--no-paged-kv` for dense caches): up to N requests decod
 concurrently, in K-step device super-steps (`--superstep`, default 8), pipelined
 (`--pipeline`, on by default), and prompts that share full blocks with earlier requests
 get them from the prefix cache. `--no-prefix-cache` turns the cache off in both modes.
+`--speculative K` drafts up to K tokens per request from its own context and verifies
+them in one step: in the BatchEngine's batched verify (greedy and seeded sampling alike)
+at `--batch N`, through the Engine's greedy-only generate_speculative at `--batch 1`.
 
 Runs on the GPU unless `--device cpu` is given.
 """
@@ -43,9 +46,11 @@ class ApiState:
     def __init__(self, engine: Engine | None, template_type: TemplateType,
                  default_sampler: Sampler, batch_engine=None, prefix_cache=True,
                  prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
-                 prefix_cache_q80: bool = False):
+                 prefix_cache_q80: bool = False, speculative_k: int = 0):
         self.engine = engine
         self.batch_engine = batch_engine  # BatchEngine when --batch > 1, else None
+        # --batch 1 speculation (the BatchEngine speculates on its own)
+        self.speculative_k = speculative_k
         self.lock = threading.Lock()  # serializes the --batch 1 engine
         # --batch 1 prefix reuse: the resident-conversation rewind plus the
         # cross-conversation pool (the BatchEngine owns its own prefix cache)
@@ -172,9 +177,12 @@ def run_completion(state: ApiState, body: dict, emit):
     # rows from the cross-conversation pool; prefill covers only the rest
     reuse = state.cache.begin(prompt)
     try:
-        out, _ = engine.generate(prompt[reuse:], max_tokens, sampler,
-                                 on_token=streamer.on_token,
-                                 stop_check=streamer.stop_check)
+        # the proposer drafts from the whole conversation, not only the delta
+        out, _ = engine.generate_with(prompt[reuse:], max_tokens, sampler,
+                                      on_token=streamer.on_token,
+                                      stop_check=streamer.stop_check,
+                                      speculative_k=state.speculative_k,
+                                      history_tokens=prompt)
     except Exception:
         # the cache may hold a half-written conversation: drop the reuse record
         state.cache.invalidate()
@@ -308,17 +316,24 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
           template_type: TemplateType = TemplateType.UNKNOWN,
           default_sampler: Sampler | None = None, batch_engine=None, prefix_cache=True,
           prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
-          prefix_cache_q80: bool = False) -> ThreadingHTTPServer:
+          prefix_cache_q80: bool = False, speculative_k: int = 0) -> ThreadingHTTPServer:
     """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
     serve_forever(). Pass `engine` for --batch 1 serving (the prefix_* arguments size
-    its prefix cache), or `batch_engine`."""
+    its prefix cache, speculative_k > 0 verifies drafts of greedy requests), or
+    `batch_engine`, which speculates only when built with speculative=K."""
+    # a batch engine built without speculation would leave speculative_k silently inert
+    if (batch_engine is not None and speculative_k > 0
+            and not getattr(batch_engine, "spec_k", 0)):
+        raise ValueError("speculative_k > 0 with a batch_engine requires the engine to be "
+                         "constructed with speculative=K (the BatchEngine owns the "
+                         "batched draft-verify path)")
     runner = batch_engine or engine
     state = ApiState(engine, template_type,
                      default_sampler or Sampler(runner.spec.vocab_size, 0.7, 0.9, 0),
                      batch_engine=batch_engine, prefix_cache=prefix_cache,
                      prefix_cache_blocks=prefix_cache_blocks,
                      prefix_block_tokens=prefix_block_tokens,
-                     prefix_cache_q80=prefix_cache_q80)
+                     prefix_cache_q80=prefix_cache_q80, speculative_k=speculative_k)
     handler = type("BoundHandler", (Handler,), {"state": state})
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
@@ -388,6 +403,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fused rmsnorm+Q80 prologue kernels on the decode path (also "
                         "DLT_PROLOGUE=1); single-row decode only, so it takes effect at "
                         "--batch 1")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="prompt-lookup speculative decoding: draft up to K tokens per "
+                        "request from its context and verify them in one step; --batch > "
+                        "1 verifies every row's block in one batched dispatch (greedy and "
+                        "seeded sampling, token-identical either way), --batch 1 speeds up "
+                        "greedy requests only")
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
@@ -427,6 +448,7 @@ def build_server(args) -> ThreadingHTTPServer:
         batch_engine = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
                                         superstep=max(args.superstep, 1),
                                         pipeline=args.pipeline, paged_kv=not args.no_paged_kv,
+                                        speculative=args.speculative,
                                         kv_block_tokens=args.kv_block_tokens,
                                         kv_pool_blocks=args.kv_pool_blocks,
                                         **cache_kw, **load_kw, **kw)
@@ -437,7 +459,9 @@ def build_server(args) -> ThreadingHTTPServer:
                  if pool is not None else "dense KV caches")
               + f", prefix cache {'on' if batch_engine.prefix_cache else 'off'}, "
               f"super-step K={batch_engine.superstep}, pipelined decode "
-              f"{'on' if batch_engine.pipeline else 'off'} (device="
+              f"{'on' if batch_engine.pipeline else 'off'}"
+              + (f", speculative k={batch_engine.spec_k}" if batch_engine.spec_k else "")
+              + f" (device="
               f"{batch_engine.engine.device}, kernels={batch_engine.engine.use_kernels}, "
               f"CUDA graphs={batch_engine.engine.cuda_graph})")
     else:
@@ -451,7 +475,8 @@ def build_server(args) -> ThreadingHTTPServer:
                  TemplateType(args.chat_template) if args.chat_template
                  else TemplateType.UNKNOWN,
                  Sampler(spec.vocab_size, args.temperature, args.topp, seed),
-                 batch_engine=batch_engine, **(cache_kw if batch_engine is None else {}))
+                 batch_engine=batch_engine, speculative_k=args.speculative,
+                 **(cache_kw if batch_engine is None else {}))
 
 
 def main(argv=None) -> None:

@@ -57,6 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-loop", type=int, default=0, metavar="CHUNK",
                    help="decode CHUNK tokens per dispatch with the device loop, sampling "
                         "on the device (runtime/device_loop.py); 0 = per-token host loop")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="prompt-lookup speculative decoding: draft up to K tokens from "
+                        "context n-gram matches and verify them in one step "
+                        "(runtime/speculative.py); greedy only (temperature 0), a sampled "
+                        "run falls back to the loop it would take without it")
     return p
 
 
@@ -97,7 +102,8 @@ def mode_inference(args) -> None:
         pieces.append(tok.decode_piece(prompt[-1] if not pieces else 0, t))
 
     _, stats = engine.generate_with(prompt, args.steps, sampler, on_token=on_token,
-                                    device_loop_chunk=args.device_loop)
+                                    device_loop_chunk=args.device_loop,
+                                    speculative_k=args.speculative)
     print(b"".join(pieces).decode("utf-8", errors="replace"))
     # G = total per token, I = the device step including the logits copy to the host,
     # H = host sampling and bookkeeping
@@ -114,6 +120,12 @@ def mode_inference(args) -> None:
               f"({engine.decode_weight_bytes / 1e9:.3f} GB/step)")
     print(f"Prefill time:        {stats.prefill_ms:.2f} ms "
           f"({stats.prompt_tokens} tokens)")
+    if stats.spec_steps:
+        # speculative decoding: dispatches against tokens
+        acc = stats.spec_accepted / max(stats.spec_drafted, 1)
+        print(f"Speculative:         {stats.generated_tokens} tokens in "
+              f"{stats.spec_steps} verify steps "
+              f"({stats.spec_accepted}/{stats.spec_drafted} drafts accepted, {acc:.0%})")
 
 
 def mode_generate(args) -> None:
@@ -131,7 +143,8 @@ def mode_generate(args) -> None:
 
     engine.generate_with(prompt, args.steps, sampler, on_token=on_token,
                          stop_check=lambda t: t == tok.eos_id,
-                         device_loop_chunk=args.device_loop)
+                         device_loop_chunk=args.device_loop,
+                         speculative_k=args.speculative)
     print()
 
 
@@ -173,7 +186,8 @@ def mode_chat(args) -> None:
         streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit)
         engine.generate_with(prompt, engine.spec.seq_len - engine.pos - 1, sampler,
                              on_token=streamer.on_token, stop_check=streamer.stop_check,
-                             device_loop_chunk=args.device_loop)
+                             device_loop_chunk=args.device_loop,
+                             speculative_k=args.speculative)
         if engine.pos >= engine.spec.seq_len - 1:
             print("\n(context end reached)")
             break

@@ -39,7 +39,8 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     produce zeros (not NaN).
     """
     neg = torch.finfo(torch.float32).min
-    s = torch.where(mask, scores.float(), torch.tensor(neg, device=scores.device))
+    # a fill on the device, not a host copy: a captured step (a verify block) runs it
+    s = torch.where(mask, scores.float(), scores.new_full((), neg, dtype=torch.float32))
     m = torch.amax(s, dim=-1, keepdim=True)
     e = torch.exp(s - m)
     e = torch.where(mask, e, torch.zeros((), device=e.device))

@@ -1,9 +1,10 @@
 """Continuous-batching engine: concurrent sequences share one batched step.
 
-The counterpart of the JAX package's runtime/batch_engine.py without speculation,
+The counterpart of the JAX package's runtime/batch_engine.py without the drafter,
 tenants or SLOs: the same scheduling decisions, the same host sampling, the same K-step
-device super-steps, pipelined, and the same shared-prefix cache, so a request served
-here gets the tokens the JAX engine gives it in the same configuration.
+device super-steps, pipelined, the same prompt-lookup speculation and the same
+shared-prefix cache, so a request served here gets the tokens the JAX engine gives it
+in the same configuration.
 
 - B cache "slots", each holding one sequence's KV (a block table into the device pool,
   or a row of dense caches) and host-side state. One scheduler thread owns the device.
@@ -19,12 +20,23 @@ here gets the tokens the JAX engine gives it in the same configuration.
   reads the (K, B) token block after one fence, delivers it row by row with the
   stop/EOS/max checks, and rolls a row that stopped mid-block back to its frontier
   (the over-decoded tail sits on masked slots). Each request's xorshift* state goes to
-  the device before the dispatch and comes back after delivery.
+  the device before the dispatch; delivery advances the host sampler one coin per
+  delivered token, before the token is emitted.
 - Pipelining (superstep >= 2): super-step N+1 is issued from N's device carry (last
   token, positions, sampler state) before N's block is delivered, on a schedule that
   assumes N delivers every budgeted token; N+1 is kept only if it did, else it is
   flushed (its writes land past every row's frontier) and the next dispatch starts from
   host state again. An admission breaks the chain.
+- Speculation (speculative=K): where the rows' n-gram proposers (runtime/speculative.py,
+  one index per slot over prompt and delivered tokens) draft at least SPEC_MIN_DRAFT
+  tokens, the dispatch is one (B, T) verify block instead of a super-step: each row's
+  pending token and its draft, padded to a bucket T of 2, 3, 5, 9, ...; the device
+  samples a target at every position and counts the accepted drafts
+  (make_batched_verify_loop; on the card one CUDA graph per bucket), and delivery emits
+  acc + 1 tokens per row. Each row's draft length follows its own accept EMA
+  (AdaptiveK). The device carry is rewound to each row's frontier, so a super-step may
+  chain from a verify; while the engine's accept EMA is at or above SPEC_CHAIN_EXPECT,
+  chaining is declined (flush reason "spec") in favour of the next verify.
 - Idle rows ride along with their start parked at their current position: their writes
   land at future positions that are masked now and overwritten when those positions
   really decode.
@@ -47,8 +59,8 @@ here gets the tokens the JAX engine gives it in the same configuration.
   copy-out harvests). Every write into the pool tensors is in place, so the captured
   steps read the blocks the tables name.
 
-What the JAX engine has that this one refuses with NotImplementedError: speculation and
-the drafter, tenants and SLO shedding.
+What the JAX engine has that this one refuses with NotImplementedError: the model
+drafter, tenants and SLO shedding.
 """
 
 from __future__ import annotations
@@ -67,9 +79,17 @@ from ..models.spec import ModelSpec
 from .engine import PREFILL_CHUNKS, Engine, GenerationStats
 from .errors import EngineClosed, classify
 from .sampler import _random_u32
+from .speculative import AdaptiveK, NgramProposer, verify_block_bucket
 from .step_graph import copy_to_host, upload
 
 __all__ = ["BatchEngine", "BatchRequest"]
+
+# speculation (the JAX engine's defaults): a verify needs at least SPEC_MIN_DRAFT
+# drafted tokens over its rows (below it the super-step serves better); while the
+# accept EMA is at or above SPEC_CHAIN_EXPECT, back-to-back verifies beat chained
+# super-steps
+SPEC_MIN_DRAFT = 1
+SPEC_CHAIN_EXPECT = 2.0
 
 
 @dataclass
@@ -130,27 +150,36 @@ class _Slot:
 
 
 class _InflightStep:
-    """An issued, not yet delivered K-step super-step: the host copy of its (K, B)
-    token block and (B, 2) sampler states (`fetch`), the device carry (last token,
-    positions, sampler state) a chained dispatch starts from, and the host schedule it
-    was issued against — full B-length starts/budget/temps and the (slot, request)
-    pairs of its live rows. A chained dispatch's schedule assumes its predecessor
-    delivers every budgeted token, and is checked against the actual delivery."""
+    """An issued, not yet delivered K-step super-step or draft-verify block: the host
+    copy of its (K, B) token block (`fetch`), the device
+    carry (last token, positions, sampler state) a chained dispatch starts from, and the
+    host schedule it was issued against — full B-length starts/budget/temps and the
+    (slot, request) pairs of its live rows. A chained dispatch's schedule assumes its
+    predecessor delivers every budgeted token, and is checked against the actual
+    delivery.
+
+    kind "verify": the block is the (T, B) per-position targets, `fetch` also returns
+    the (B,) accepted lengths, `ndraft` holds the per-row draft counts (-1 = parked)
+    and `budget` the per-row maximum emit (ndraft + 1); delivery emits acc + 1. The
+    carry is rewound to each row's frontier on the device."""
 
     __slots__ = ("rows", "k", "starts", "budget", "temps", "fetch", "tok", "pos", "rng",
-                 "t_issue")
+                 "t_issue", "kind", "ndraft")
 
-    def __init__(self, rows, k, starts, budget, temps, fetch, tok, pos, rng, t_issue):
+    def __init__(self, rows, k, starts, budget, temps, fetch, tok, pos, rng, t_issue,
+                 kind="scan", ndraft=None):
         self.rows = rows  # list[(slot, request)] of the rows with budget > 0
         self.k = k
         self.starts = starts  # each row's expected start position
         self.budget = budget
         self.temps = temps
-        self.fetch = fetch  # waits for the block's host copy: (toks (K, B), rng (2, B))
+        self.fetch = fetch  # waits for the block's host copy: [toks (K, B)] (+ acc)
         self.tok = tok  # device (B,) block-tail tokens (the next dispatch's input)
         self.pos = pos  # device (B,) positions after the budgeted steps
         self.rng = rng  # device (B, 2) advanced xorshift* states
         self.t_issue = t_issue
+        self.kind = kind  # "scan" | "verify"
+        self.ndraft = ndraft  # verify: per-row draft counts (-1 = parked)
 
 
 class BatchEngine:
@@ -162,15 +191,15 @@ class BatchEngine:
     def __init__(self, spec: ModelSpec, params, tokenizer=None, *, slots: int = 2,
                  superstep: int = 1, pipeline: bool = True, prefix_cache=True,
                  prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
-                 prefix_cache_q80: bool = False, speculative: int = 0, draft_model=None,
-                 tenants=None, slo_ttft_interactive: float = 0.0,
-                 slo_ttft_batch: float = 0.0, slo_tpot_interactive: float = 0.0,
+                 prefix_cache_q80: bool = False, speculative: int = 0,
+                 draft_model=None, tenants=None,
+                 slo_ttft_interactive: float = 0.0, slo_ttft_batch: float = 0.0,
+                 slo_tpot_interactive: float = 0.0,
                  paged_kv: bool = True, kv_block_tokens: int = 16,
                  kv_pool_blocks: int = 0, **engine_kw):
         from ..cache import PrefixCache
 
-        refused = {"speculative > 0": speculative > 0,
-                   "draft_model": draft_model is not None,
+        refused = {"draft_model": draft_model is not None,
                    "tenants": tenants is not None,
                    "SLO targets": bool(slo_ttft_interactive or slo_ttft_batch
                                        or slo_tpot_interactive)}
@@ -184,8 +213,20 @@ class BatchEngine:
         # block to overlap
         self.pipeline = bool(pipeline) and superstep >= 2
         self._inflight: _InflightStep | None = None
-        self._loops: dict = {}  # (k, mode, window) -> batched decode loop
+        # (k, mode, window) -> batched decode loop; ("verify", t, mode, window) -> verify
+        self._loops: dict = {}
         self.spec = spec
+        # speculation: up to spec_k drafted tokens per row, verified in one (B, 1 + k)
+        # dispatch
+        self.spec_k = max(int(speculative), 0)
+        if self.spec_k:
+            # a verify block must fit the context with room to decode
+            self.spec_k = min(self.spec_k, spec.seq_len - 2)
+        # optimistic start: speculation engages at once and the EMA adapts down
+        self._spec_ema = float(self.spec_k)
+        # per-row draft length from each row's accept EMA, in verify-bucket steps
+        self.adaptive = AdaptiveK(self.spec_k) if self.spec_k else None
+        self.proposer = NgramProposer()
         self.tokenizer = tokenizer
         kv_pool_cfg = None
         # a shared host PrefixCache instance asks for its copy-in/copy-out semantics:
@@ -253,6 +294,9 @@ class BatchEngine:
         self._slock = threading.Lock()  # guards: _slots, kv_pool, _tables_np
         self.decode_steps = 0  # batched T=1 dispatches (a super-step counts once)
         self.super_steps = 0  # K-step dispatches delivered (a subset of decode_steps)
+        self.verify_steps = 0  # draft-verify dispatches delivered (a subset too)
+        self.spec_drafted = 0  # draft tokens verified
+        self.spec_accepted = 0  # draft tokens accepted
         self.loop_steps = 0  # decode steps run by super-steps, flushed ones included
         self.mixed_steps = 0  # prefill dispatches carrying decode rows
         self.dispatches = 0  # every device dispatch (a super-step counts once)
@@ -261,10 +305,11 @@ class BatchEngine:
         self.rollback_tokens = 0  # device-decoded tokens discarded (stop, cancel, flush)
         # wall ms of each dispatch by kind: "decode" (one step), "super" (K steps, from
         # the later of its issue and the previous delivery to its block on the host),
-        # "prefill", "mixed"; as in the JAX engine, a decode step's time starts after
-        # the host sampling of its rows
+        # "verify" (timed as "super"), "prefill", "mixed"; as in the JAX engine, a
+        # decode step's time starts after the host sampling of its rows
         self.dispatch_ms: dict[str, list[float]] = {"decode": [], "super": [],
-                                                    "prefill": [], "mixed": []}
+                                                    "verify": [], "prefill": [],
+                                                    "mixed": []}
         self._last_ready_t: float | None = None
         # scheduler wakeup: submit() and close() notify
         self._cond = threading.Condition()
@@ -322,6 +367,25 @@ class BatchEngine:
         """True while the scheduler can serve (running, or not yet started)."""
         t = self._thread
         return t is None or t.is_alive()
+
+    def spec_stats(self) -> dict | None:
+        """Speculation counters (the JAX engine's /v1/stats block, from the engine's
+        own counters): verify dispatches, drafted and accepted tokens, the proposer and
+        the adaptive controller's per-row k. None when speculation is off."""
+        if not self.spec_k:
+            return None
+        out = {"k": self.spec_k, "verify_steps": self.verify_steps,
+               "drafted_tokens": self.spec_drafted,
+               "accepted_tokens": self.spec_accepted,
+               "accept_rate": (self.spec_accepted / self.spec_drafted
+                               if self.spec_drafted else None),
+               "proposer": self.proposer.name}
+        if self.adaptive is not None:
+            out["adaptive"] = {"k_cap": self.adaptive.k_cap,
+                               "buckets": list(self.adaptive.buckets),
+                               "rows": {str(r): v
+                                        for r, v in self.adaptive.stats().items()}}
+        return out
 
     def release_idle(self) -> int:
         """Drop the rewind stock (block tables and histories) of every idle slot and move
@@ -409,6 +473,13 @@ class BatchEngine:
         best.next_token = None
         best.clamp_pos = None
         best.armed = False
+        # the drafting corpus: the whole prompt, the reused prefix included
+        if self.spec_k:
+            self.proposer.attach(best.index, full)
+            if self.adaptive is not None:
+                self.adaptive.attach(best.index)
+        else:
+            self.proposer.detach(best.index)
         req.stats.prompt_tokens = len(full)
         return best
 
@@ -673,6 +744,9 @@ class BatchEngine:
         slot.req = None
         slot.pending = []
         slot.next_token = None
+        self.proposer.detach(slot.index)
+        if self.adaptive is not None:
+            self.adaptive.detach(slot.index)
         if self.prefix_cache is not None and slot.lease is not None:
             # the lease pins blocks for the in-flight period only: released before
             # done.set(), so a caller seeing completion sees no residual reservation
@@ -864,6 +938,8 @@ class BatchEngine:
         already count the ingestion of this token's input."""
         req = slot.req
         req.out.append(token)
+        # the proposer's corpus follows every delivered token, in order
+        self.proposer.push(slot.index, token)
         if req.stats.generated_tokens == 0:
             req.first_token_t = time.perf_counter()
         req.stats.generated_tokens += 1
@@ -995,6 +1071,13 @@ class BatchEngine:
                     active.remove(slot)
         if not active:
             return
+        if self.spec_k:
+            # where a row has a draft worth verifying, this dispatch is a (B, T) verify
+            # block instead of a super-step: one weight stream for up to T tokens a row
+            plan = self._plan_verify(active)
+            if plan is not None:
+                self._verify_step(*plan)
+                return
         k = self.superstep
         if k > 1:
             with self._plock:
@@ -1049,6 +1132,149 @@ class BatchEngine:
                 fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
                 paged_kernel=eng.paged_kernel, graphs=eng.graphs)
         return self._loops[key]
+
+    def _verify_loop(self, t: int, mode: str, window: int | None):
+        """The (B, T=t) draft-verify step for this engine, one per (t, mode, window
+        bucket), a CUDA graph on the card."""
+        key = ("verify", t, mode, window)
+        if key not in self._loops:
+            from .device_loop import make_batched_verify_loop
+
+            eng = self._eng
+            self._loops[key] = make_batched_verify_loop(
+                self.spec, eng.params, t, mode=mode, dtype=eng.dtype,
+                use_kernels=eng.use_kernels, attn_window=window,
+                fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
+                paged_kernel=eng.paged_kernel, graphs=eng.graphs)
+        return self._loops[key]
+
+    def _verify_block_for(self, t: int) -> int:
+        """Block-length bucket (2, 3, 5, 9, 17, ... capped at 1 + spec_k): one verify
+        step per bucket, so per-dispatch lengths make O(log k) graphs, not O(k). Padding
+        positions are scratch writes past the frontier, masked like every over-decode."""
+        return verify_block_bucket(t, 1 + self.spec_k)
+
+    def _plan_verify(self, active: list[_Slot]):
+        """Draft per-row proposals for one verify dispatch. Returns (active, T, drafts),
+        or None when the rows drafted fewer than SPEC_MIN_DRAFT tokens (a draftless
+        verify emits one token a row for a full-width dispatch: the super-step serves
+        that better). A row drafts at most min(k, its max_tokens room - 1, its context
+        room - 2) and its adaptive k, so the accepted block never overruns max_tokens or
+        the cache, as in the sequential loop; T shrinks to a bucket so every live row's
+        T writes stay inside seq_len."""
+        s = self.spec.seq_len
+        want: dict[int, int] = {}
+        for slot in active:
+            req = slot.req
+            cap = min(self.spec_k, req.max_tokens - len(req.out) - 1, s - slot.pos - 2)
+            if self.adaptive is not None:
+                cap = min(cap, self.adaptive.k_for(slot.index))
+            want[slot.index] = cap
+        drafts = self.proposer.propose_batch({i: c for i, c in want.items() if c > 0})
+        total = 0
+        max_pos = 0
+        for slot in active:
+            d = drafts.setdefault(slot.index, [])
+            del d[max(want[slot.index], 0):]  # never draft past the caps
+            total += len(d)
+            max_pos = max(max_pos, slot.pos)
+        if total < SPEC_MIN_DRAFT:
+            return None
+        t = self._verify_block_for(1 + max(len(d) for d in drafts.values()))
+        room = s - max_pos
+        if t > room:
+            # near the context end the block rounds DOWN to a bucket (a step per tail
+            # length would add a graph for each)
+            b = 2
+            while b < t and 2 * (b - 1) + 1 <= room:
+                b = 2 * (b - 1) + 1
+            t = b if b <= room else 0
+        if t < 2:
+            return None
+        for d in drafts.values():
+            del d[t - 1:]  # the context-end shrink may cut long drafts
+        return active, t, drafts
+
+    def _verify_step(self, active: list[_Slot], t: int,
+                     drafts: dict[int, list[int]]) -> None:
+        """One draft-verify dispatch: every active row rides a (B, T) block (its pending
+        token and its draft, padded), the device verifies all rows in one forward, and
+        delivery emits each row's accepted drafts and the correction or bonus token.
+        Rejected tails sit past the frontier on masked slots; the device carry is
+        rewound to the frontier, so a chained super-step composes with any outcome."""
+        if self.kv_pool is not None:
+            for slot in active[:]:
+                try:
+                    self._paged_ensure(slot, slot.pos + t)
+                except Exception as e:
+                    if classify(e) != "request":
+                        raise
+                    self._fail_request(slot, e)
+                    active.remove(slot)
+                    drafts.pop(slot.index, None)
+            if not active:
+                return
+        starts = self._park_positions(t)
+        # a clamped park's copy-on-write under pool exhaustion may have reaped a row
+        active = [s for s in active if s.req is not None]
+        if not active:
+            return
+        ndraft = [-1] * self.slots_n  # -1 parks the row inside the block
+        props = [[0] * t for _ in range(self.slots_n)]
+        budget = [0] * self.slots_n  # per-row maximum emit (accepted + correction)
+        rows: list[tuple[_Slot, BatchRequest]] = []
+        for slot in active:
+            i = slot.index
+            d = drafts.get(i, [])
+            starts[i] = slot.pos
+            props[i] = [slot.last_token] + d + [0] * (t - 1 - len(d))
+            ndraft[i] = len(d)
+            budget[i] = len(d) + 1
+            rows.append((slot, slot.req))
+        fl = self._issue_verify_step(rows, t, ndraft, props, budget, starts)
+        self._pipeline_advance(fl)
+
+    def _issue_verify_step(self, rows: list, t: int, ndraft: list[int],
+                           props: list[list[int]], budget: list[int],
+                           starts: list[int]) -> _InflightStep:
+        """Queue one (B, T) verify block without waiting for it. It always uploads host
+        state (its proposals are drafted from delivered tokens, so a verify is never
+        chained from a predecessor), but its carry is rewound to the frontier on the
+        device, so a super-step may chain from it."""
+        eng = self._eng
+        n = self.slots_n
+        temps, topps = [0.0] * n, [0.9] * n
+        rng = np.zeros((n, 2), np.int64)
+        for slot, req in rows:
+            i = slot.index
+            smp = req.sampler
+            temps[i] = float(getattr(smp, "temperature", 0.0))
+            topps[i] = float(getattr(smp, "topp", 0.9))
+            state = int(getattr(smp, "state", 0)) & ((1 << 64) - 1)
+            rng[i] = state >> 32, state & 0xFFFFFFFF
+        mode = "greedy" if all(x == 0.0 for x in temps) else "sample"
+        window = eng._window_for(min(max(starts) + t, self.spec.seq_len))
+        loop = self._verify_loop(t, mode, window)
+        t_issue = time.perf_counter()
+        tables = self._tables() if self.kv_pool is not None else None
+        toks, acc, tok, pos, rng_out, _, _ = loop(eng.rope, props, eng.k_cache,
+                                                  eng.v_cache, starts, rng, temps, topps,
+                                                  ndraft, tables)
+        fetch = copy_to_host(toks, acc)
+        self.dispatches += 1
+        return _InflightStep(rows, t, starts, budget, temps, fetch, tok, pos, rng_out,
+                             t_issue, kind="verify", ndraft=ndraft)
+
+    def _drafts_ready(self, rows: list) -> bool:
+        """Would a verify dispatch have drafts to work with? The accept-aware chain
+        policy asks before the in-flight block is delivered, so it sees the corpus
+        before that block: advisory only."""
+        for slot, _req in rows:
+            k = (self.adaptive.k_for(slot.index) if self.adaptive is not None
+                 else self.spec_k)
+            if k > 0 and self.proposer.ready(slot.index, k, SPEC_MIN_DRAFT):
+                return True
+        return False
 
     def _super_step(self, active: list[_Slot], k: int, budgets: dict[int, int]) -> None:
         """One K-step dispatch from host state: every active row decodes up to its
@@ -1125,10 +1351,31 @@ class BatchEngine:
         """The schedule of the super-step after `fl`, assuming `fl` delivers every
         budgeted token: the same rows with budgets re-derived from the expected
         positions and output lengths. Returns (rows, starts, budget, clamp slots), or
-        None when no row would decode 2 or more steps (the single-step path takes over)
-        or a row was cancelled (its reap comes next pass)."""
+        None when no row would decode 2 or more steps (the single-step path takes over),
+        a row was cancelled (its reap comes next pass), or the accept-aware policy
+        declines: while the accept EMA is at or above SPEC_CHAIN_EXPECT the next
+        dispatch should be a host-drafted verify (which cannot chain: its proposals need
+        the delivered tokens), not a super-step that dilutes it.
+
+        A verify predecessor is planned against full acceptance, the largest positions
+        and output lengths, so the budgets are safe for any actual accept: the chained
+        super-step starts from the carry the verify rewound to the true frontier, and a
+        row that accepted less decodes with a smaller budget than it could. Only a row
+        that finished in the verify flushes the chain, as after a super-step."""
         k, s = self.superstep, self.spec.seq_len
-        starts = [st + g for st, g in zip(fl.starts, fl.budget)]
+        if fl.kind == "verify":
+            if self._spec_ema >= SPEC_CHAIN_EXPECT:
+                self.flushes["spec"] += 1
+                return None
+            gain = [nd + 1 if nd >= 0 else 0 for nd in fl.ndraft]
+        elif (self.spec_k and self._spec_ema >= SPEC_CHAIN_EXPECT
+              and self._drafts_ready(fl.rows)):
+            # chaining would outrun the verify those drafts are ready for
+            self.flushes["spec"] += 1
+            return None
+        else:
+            gain = fl.budget
+        starts = [st + g for st, g in zip(fl.starts, gain)]
         budget = [0] * self.slots_n
         rows: list[tuple[_Slot, BatchRequest]] = []
         clamp: list[_Slot] = []
@@ -1136,7 +1383,7 @@ class BatchEngine:
             i = slot.index
             if req.cancelled:
                 return None
-            b = min(k, req.max_tokens - (len(req.out) + fl.budget[i]), s - starts[i])
+            b = min(k, req.max_tokens - (len(req.out) + gain[i]), s - starts[i])
             if b > 0:
                 budget[i] = b
                 rows.append((slot, req))
@@ -1179,20 +1426,26 @@ class BatchEngine:
         tables = self._tables() if self.kv_pool is not None else None
         toks, tok, pos, rng_out, _, _ = loop(eng.rope, tok_in, eng.k_cache, eng.v_cache,
                                              pos_in, rng_in, temps, topps, budget, tables)
-        fetch = copy_to_host(toks, rng_out.T)
+        fetch = copy_to_host(toks)
         self.dispatches += 1
         self.loop_steps += k
         return _InflightStep(rows, k, starts, budget, temps, fetch, tok, pos, rng_out,
                              t_issue)
 
     def _deliver_super_step(self, fl: _InflightStep) -> dict[int, str]:
-        """Wait for an issued super-step's (K, B) block, then per row emit its tokens
-        with the stop/EOS/max checks and resync the sampler (a full delivery adopts the
-        device state, a partial one replays exactly the delivered coins). Returns per
-        slot index "alive" (full budget delivered, still decoding) or the finish
-        reason: the check of a dispatch chained from this one."""
+        """Wait for an issued super-step's (K, B) block (or a verify's (T, B) targets
+        and accepted lengths), then per row emit its tokens with the stop/EOS/max
+        checks. A stochastic row's sampler advances one coin before each token is
+        emitted, so the state is final for the delivered tokens before a finish wakes
+        the request's waiters (the device drew coins for the whole block; a stop
+        mid-block must not advance the caller's sampler past the delivered ones).
+        Returns per slot index "alive" (full budget delivered, still decoding) or the
+        finish reason: the check of a dispatch chained from this one."""
         k, s = fl.k, self.spec.seq_len
-        toks, rng_out = fl.fetch()  # the super-step's one fence
+        verify = fl.kind == "verify"
+        got = fl.fetch()  # the dispatch's one fence
+        toks = got[0]
+        acc = got[1] if verify else None
         t_ready = time.perf_counter()
         # the dispatch could not start before its issue nor before the previous
         # block was ready
@@ -1202,12 +1455,18 @@ class BatchEngine:
         dev_ms = max((t_ready - base) * 1000.0, 1e-6)
         self._last_ready_t = t_ready
         self.decode_steps += 1
-        self.super_steps += 1
-        self.dispatch_ms["super"].append(dev_ms)
+        if verify:
+            self.verify_steps += 1
+            self.dispatch_ms["verify"].append(dev_ms)
+        else:
+            self.super_steps += 1
+            self.dispatch_ms["super"].append(dev_ms)
         status: dict[int, str] = {}
+        accs: list[int] = []  # per-row accepted lengths (the verify EMA's input)
         for slot, req in fl.rows:
             i = slot.index
-            b = fl.budget[i]
+            # a verify emits the accepted drafts and the correction or bonus token
+            b = int(acc[i]) + 1 if verify else fl.budget[i]
             if slot.req is not req or req.done.is_set():
                 # reaped (cancel, close) between issue and delivery
                 self.rollback_tokens += b
@@ -1219,12 +1478,30 @@ class BatchEngine:
                 self.rollback_tokens += b
                 status[i] = req.finish
                 continue
-            if b < k and fl.starts[i] + b >= s:
-                # the block parked this row clamped at s - 1 after its budget
+            if not verify and b < k and fl.starts[i] + b >= s:
+                # the block parked this row clamped at s - 1 after its budget (a verify
+                # never clamps a live row: _plan_verify shrinks T to fit)
                 slot.clamp_pos = s - 1
+            if verify:
+                # per-request accounting before the emit loop: spec_turns keys on the
+                # output length before the block
+                nd = fl.ndraft[i]
+                a = b - 1
+                accs.append(a)
+                if self.adaptive is not None:
+                    self.adaptive.observe(i, nd, a)
+                self.proposer.observe(i, a)
+                req.stats.spec_steps += 1
+                req.stats.spec_drafted += nd
+                req.stats.spec_accepted += a
+                req.stats.spec_turns.append((len(req.out), nd, a))
+                req.stats.spec_step_ms.append(dev_ms)
+                self.spec_drafted += nd
+                self.spec_accepted += a
             block = toks[:b, i].tolist()
             smp = req.sampler
-            state0 = int(getattr(smp, "state", 0))
+            # the device drew one coin per live stochastic step: replayed one by one
+            coins = fl.temps[i] != 0.0 and hasattr(smp, "state")
             per_tok = dev_ms / b
             x = slot.last_token  # the input the block's first step ingested
             slot.armed = False
@@ -1241,6 +1518,8 @@ class BatchEngine:
                     req.stats.token_ms.append(per_tok)
                     req.stats.infer_ms.append(per_tok)
                     delivered += 1
+                    if coins:
+                        smp.state, _ = _random_u32(smp.state)
                     if not self._emit(slot, tok):
                         alive = False
                         break
@@ -1251,16 +1530,6 @@ class BatchEngine:
                 self._finish(slot, "error")
                 alive = False
             self.rollback_tokens += b - delivered  # the tail past a stop, on masked slots
-            if fl.temps[i] != 0.0 and hasattr(smp, "state"):
-                # the sampler advances by the coins of the DELIVERED tokens only, so a
-                # sampler reused across requests sees one unbroken stream
-                if alive and delivered == b:
-                    smp.state = np.uint64((int(rng_out[0, i]) << 32) | int(rng_out[1, i]))
-                else:
-                    s64 = np.uint64(state0)
-                    for _ in range(delivered):
-                        s64, _ = _random_u32(s64)
-                    smp.state = s64
             if alive:
                 # the block's tail is sampled and delivered, its KV not yet written
                 slot.next_token = block[-1]
@@ -1271,6 +1540,21 @@ class BatchEngine:
                 self._truncate_history(slot, slot.clamp_pos)
                 slot.clamp_pos = None
             status[i] = "alive" if alive else req.finish
+        if verify:
+            if accs:
+                # the accept EMA drives the chain policy: a high expected accept wants
+                # back-to-back verifies, a low one chained super-steps
+                self._spec_ema = 0.7 * self._spec_ema + 0.3 * (sum(accs) / len(accs))
+        elif self.spec_k:
+            # a slow regression toward optimism while super-steps run, so a decayed EMA
+            # cannot disengage speculation for good: after about a dozen super-steps
+            # the policy re-probes with one verify
+            self._spec_ema += 0.05 * (self.spec_k - self._spec_ema)
+            if self.adaptive is not None:
+                # the same slow re-probe per row: a turn passed without these rows
+                # drafting
+                for slot, _req in fl.rows:
+                    self.adaptive.tick(slot.index)
         return status
 
     @staticmethod

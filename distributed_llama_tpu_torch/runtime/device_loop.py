@@ -7,11 +7,14 @@ buffers that a CUDA graph captures once (runtime/step_graph.py) and the loop rep
 times back to back. The host gets a chunk of tokens per dispatch instead of one, and
 reads them after one fence.
 
-Two loops: make_decode_loop (one sequence, the `--device-loop` CLI path and
-Engine.generate_chunked) and make_batched_decode_loop (per-row positions, budgets and
-sampler state: the BatchEngine's K-step super-step). The batched loop samples with the
-host Sampler's own xorshift* generator, bit-exact with runtime/sampler._random_u32, so a
-request's sample stream stays one sequence across host- and device-sampled tokens. The
+Two loops and one verify step: make_decode_loop (one sequence, the `--device-loop` CLI
+path and Engine.generate_chunked), make_batched_decode_loop (per-row positions, budgets
+and sampler state: the BatchEngine's K-step super-step) and make_batched_verify_loop
+(one (B, T) forward over each row's speculative draft block, acceptance on the device:
+the BatchEngine's verify dispatch). The batched loop and the verify step sample with
+the host Sampler's own xorshift* generator, bit-exact with runtime/sampler._random_u32,
+so a request's sample stream stays one sequence across host- and device-sampled
+tokens. The
 single-sequence loop draws its coins from JAX's counter-based PRNG (threefry2x32,
 `jax.random.PRNGKey` / `split` / `fold_in` / `uniform`), ported bit for bit so a seeded
 stochastic loop gives the JAX engine's tokens.
@@ -338,5 +341,130 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
             else:
                 graphs.run(("batched_loop", mode, attn_window, b, n_steps), step, carry)
         return (st["toks"], *st["carry"], kc, vc)
+
+    return run
+
+
+def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
+                             mode: str = "greedy", dtype=torch.float32, use_kernels=False,
+                             attn_window: int | None = None,
+                             fused_prologue: bool = False, kv_block_tokens: int = 0,
+                             paged_kernel: bool = False,
+                             graphs: StepGraphs | None = None):
+    """Batched draft-verify step: ONE (B, T=block) forward ingests each row's proposal
+    block, and acceptance on the device turns it into up to T tokens per row — the
+    speculative counterpart of make_batched_decode_loop (the JAX package's
+    make_batched_verify_loop, unmasked).
+
+    Builds fn(rope, proposals (B, T), kc, vc, start_pos (B,), rng (B, 2) [hi, lo],
+    temperature (B,), topp (B,), ndraft (B,), tables=None) ->
+    (targets (T, B), acc (B,), last_tok (B,), pos (B,), rng (B, 2), kc, vc).
+
+    Row r: proposals[r] = [pending token, draft_0 .. draft_{nd-1}, pad ...] with
+    nd = ndraft[r]; -1 parks the row (its start_pos must already be clamped so all T
+    scratch writes stay in the cache, as the scheduler's _park_positions does). The
+    forward writes the block's KV at start_pos .. start_pos + T - 1; a target is sampled
+    at every position with the host Sampler's semantics (argmax for greedy; for
+    sampling, T xorshift* coins in the host stream's order, coin i for position i), and
+    acc[r] counts the leading drafts whose target matched: the emitted tokens are
+    targets[0 .. acc], where targets[acc] is the correction (the first mismatch's own
+    sample) or the bonus token (every draft accepted). Rejected positions hold KV of
+    rejected inputs past the verified frontier start_pos + acc + 1, where every read
+    masks them.
+
+    The (last_tok, pos, rng) trailer is the carry rewound to the frontier on the
+    device: last_tok = targets[acc] (sampled, its KV not yet written), pos = start_pos +
+    acc + 1, and rng the xorshift* state after exactly acc + 1 coins for live
+    stochastic rows (greedy and parked rows draw none), so a super-step chained from it
+    (make_batched_decode_loop) continues the stream for any accept outcome. The inputs
+    are host values (a verify is never chained from a device carry: its proposals are
+    drafted from delivered tokens); the outputs are static device buffers, valid until
+    the next call. The step reads only its input buffers and writes only its output
+    buffers and the caches, so a capture's warm-up needs no restore; on the card with
+    `graphs` enabled it is one CUDA graph per (mode, window bucket, rows, T)."""
+    assert mode in ("greedy", "sample"), mode
+    assert block >= 2, "a verify block needs at least one draft position"
+    paged = kv_block_tokens > 0
+    st: dict = {}
+
+    def step():
+        pos, hi, lo, nd = st["ints"]  # views: rows of one buffer
+        temp, topp = st["floats"]
+        props = st["props"]
+        b, t = props.shape
+        live = nd >= 0
+        logits, _, _ = forward(params, spec, st["rope"], props, st["kc"], st["vc"], pos,
+                               dtype=dtype, use_kernels=use_kernels,
+                               attn_window=attn_window,
+                               block_tables=st["tables"] if paged else None,
+                               block_tokens=kv_block_tokens, paged_kernel=paged_kernel,
+                               fused_prologue=fused_prologue)
+        rows = logits.float()  # (B, T, vocab)
+        if mode == "greedy":
+            targets = rows.argmax(-1)  # (B, T)
+        else:
+            # T coins per row in the host stream's order: coin i (and the state after
+            # i + 1 draws) samples the block's i-th emitted token
+            coins, his, los = [], [], []
+            h, l = hi, lo
+            for _ in range(t):
+                h, l, c = xorshift_coin(h, l)
+                coins.append(c)
+                his.append(h)
+                los.append(l)
+            flat = device_sample_coin(rows.reshape(b * t, -1),
+                                      torch.stack(coins, 1).reshape(-1),
+                                      temp.repeat_interleave(t), topp.repeat_interleave(t))
+            targets = flat.reshape(b, t)
+        # accepted length: leading draft positions whose target matched (the sum of the
+        # cumulative product of matches), capped by the row's real draft count
+        di = torch.arange(t - 1, device=props.device)
+        match = (targets[:, :-1] == props[:, 1:]) & (di[None, :] < nd[:, None])
+        acc = torch.cumprod(match.long(), dim=1).sum(1)
+        acc = torch.where(live, acc, torch.zeros_like(acc))
+        out = st["out"]
+        st["targets"].copy_(targets.T)
+        st["acc"].copy_(acc)
+        out[0].copy_(torch.where(live, targets.gather(1, acc[:, None])[:, 0], props[:, 0]))
+        out[1].copy_(torch.where(live, pos + acc + 1, pos))
+        if mode == "sample":
+            # the carry rewound to the verified frontier: acc + 1 coins drawn
+            drew = live & (temp != 0)
+            out[2].copy_(torch.where(drew, torch.stack(his).gather(0, acc[None])[0], hi))
+            out[3].copy_(torch.where(drew, torch.stack(los).gather(0, acc[None])[0], lo))
+        else:
+            out[2:4].copy_(st["ints"][1:3])
+
+    def run(rope, proposals, kc, vc, start_pos, rng, temperature, topp, ndraft,
+            tables=None):
+        props = np.asarray(proposals, np.int64)
+        b, t = props.shape
+        if t != block:
+            raise ValueError(f"a verify loop of block {block} got {t} positions")
+        if not st:
+            dev = kc.device
+            st.update(rope=rope, kc=kc, vc=vc, tables=tables,
+                      props=torch.zeros(b, t, dtype=torch.int64, device=dev),
+                      ints=torch.zeros(4, b, dtype=torch.int64, device=dev),
+                      floats=torch.zeros(2, b, dtype=torch.float32, device=dev),
+                      targets=torch.zeros(t, b, dtype=torch.int64, device=dev),
+                      acc=torch.zeros(b, dtype=torch.int64, device=dev),
+                      out=torch.zeros(4, b, dtype=torch.int64, device=dev))
+            out = st["out"]
+            st["carry"] = (out[0], out[1], out[2:4].T)
+        elif kc is not st["kc"] or vc is not st["vc"] or tables is not st["tables"]:
+            raise ValueError("a batched verify loop runs on the caches and block table "
+                             "it was built on")
+        rng = np.asarray(rng, np.int64).reshape(b, 2)
+        upload(st["props"], props)
+        upload(st["ints"], np.stack([np.asarray(start_pos, np.int64), rng[:, 0], rng[:, 1],
+                                     np.asarray(ndraft, np.int64)]))
+        upload(st["floats"], np.stack([np.asarray(temperature, np.float32),
+                                       np.asarray(topp, np.float32)]))
+        if graphs is None:
+            step()
+        else:
+            graphs.run(("batched_verify", mode, attn_window, b, t), step)
+        return (st["targets"], st["acc"], *st["carry"], kc, vc)
 
     return run

@@ -16,6 +16,9 @@ captured once per window bucket as a CUDA graph and replayed (runtime/step_graph
 counterpart of the JAX engine's jitted step; `cuda_graph=False` runs the same step
 eagerly beside it), on the CPU it runs eagerly. Prefill chunks of more than one token
 run eagerly. generate_chunked runs the K-step device loop (runtime/device_loop.py).
+generate_speculative verifies prompt-lookup drafts (runtime/speculative.py) in T > 1
+steps through infer_chunk_logits; a block is padded to its verify bucket (2, 3, 5, 9,
+...), and on the card with the kernels on each bucket's step is a CUDA graph.
 
 The engine runs on `cuda` unless the caller passes device="cpu"; without a GPU and
 without device="cpu" it raises. It never moves to the CPU on its own.
@@ -36,7 +39,7 @@ from ..models.spec import ModelSpec
 from ..ops.rope import RopeTables
 from ..quants import FloatType
 from ..tokenizer.bpe import Tokenizer
-from .step_graph import StepGraphs, copy_to_host
+from .step_graph import StepGraphs, copy_to_host, upload
 
 PREFILL_CHUNKS = (64, 8, 1)
 
@@ -49,9 +52,19 @@ class GenerationStats:
     prompt_tokens: int = 0
     generated_tokens: int = 0
     prefill_ms: float = 0.0
-    # per decoded token: total (sample + step) and step-only wall times, in ms
+    # per decoded token: total (sample + step) and step-only wall times, in ms. Where
+    # one dispatch covers several tokens (a verify block, a device-loop chunk, a
+    # super-step) each entry is the dispatch time over its token count: an average
     token_ms: list[float] = field(default_factory=list)
     infer_ms: list[float] = field(default_factory=list)
+    # speculative decoding (runtime/speculative.py, the BatchEngine's verify path):
+    # verify dispatches, draft tokens proposed and accepted, each verify dispatch's
+    # wall ms, and one (tokens out before the turn, drafted, accepted) per verify turn
+    spec_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_step_ms: list[float] = field(default_factory=list)
+    spec_turns: list = field(default_factory=list)
 
     @property
     def avg_token_ms(self) -> float:
@@ -139,6 +152,7 @@ class Engine:
         self._tok1 = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
         self._pos1 = torch.zeros((), dtype=torch.int64, device=self.device)
         self._decode_loops: dict = {}
+        self._verify_toks: dict[int, torch.Tensor] = {}  # bucket -> static (1, T) tokens
 
     @classmethod
     def load(cls, model_path: str, tokenizer_path: str | None = None, *,
@@ -232,6 +246,44 @@ class Engine:
         self.pos += t
         return logits[0].cpu().numpy()  # host transfer: the step's fence
 
+    def infer_chunk_logits(self, tokens: list[int] | np.ndarray) -> np.ndarray:
+        """infer_chunk, but returns all T positions' logits (T, vocab): the verify step
+        of speculative decoding (runtime/speculative.py), which needs every position's
+        argmax. Advances pos by T; speculative callers seek() back to the verified
+        frontier. A block of T > 1 runs at its verify bucket (one step, and on the card
+        one CUDA graph, per bucket), the padding positions being scratch writes past the
+        frontier that every read masks and the caller's seek() rewinds. A block whose
+        bucket would pass the end of the cache runs eagerly at its own length, as the
+        BatchEngine's _plan_verify keeps its buckets inside the cache."""
+        tokens = np.asarray(tokens, dtype=np.int64)
+        t = len(tokens)
+        from .speculative import verify_block_bucket
+
+        b = verify_block_bucket(t, self.spec.seq_len)
+        if t == 1 or self.pos + b > self.spec.seq_len:
+            return self._infer(tokens)
+        if self.batch != 1 or self.kv_pool is not None:
+            raise RuntimeError("the single-sequence loop needs batch=1 dense caches")
+        window = self._window_for(self.pos + b)
+        buf = self._verify_toks.get(b)
+        if buf is None:
+            buf = self._verify_toks[b] = torch.zeros((1, b), dtype=torch.int64,
+                                                     device=self.device)
+        upload(buf, np.concatenate([tokens, np.zeros(b - t, np.int64)])[None])
+        self._pos1.fill_(self.pos)
+        logits = self.graphs.run(("verify", "logits", window, b),
+                                 lambda: self._step_block(buf, window))
+        self.pos += t
+        return logits[0, :t].cpu().numpy()  # host transfer: the step's fence
+
+    def _step_block(self, toks: torch.Tensor, window: int | None) -> torch.Tensor:
+        """A verify block's step on its static tokens and the static position."""
+        logits, _, _ = forward(
+            self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache,
+            self._pos1, dtype=self.dtype, use_kernels=self.use_kernels,
+            attn_window=window, fused_prologue=self.fused_prologue)
+        return logits
+
     def _step_t1(self, window: int | None) -> torch.Tensor:
         """The one-token step on the static token and position: (1, 1, vocab) logits."""
         logits, _, _ = forward(
@@ -310,10 +362,40 @@ class Engine:
         logits = self.prefill(prompt_tokens, stats)
         return self._decode(logits, max_tokens, sampler, stats, on_token, stop_check), stats
 
+    def generate_speculative(self, prompt_tokens: list[int], max_tokens: int, sampler, *,
+                             k: int = 8, on_token=None, stop_check=None,
+                             history_tokens: list[int] | None = None):
+        """Greedy prompt-lookup speculative decoding (runtime/speculative.py): emits
+        exactly generate()'s tokens, usually in fewer dispatches."""
+        from .speculative import generate_speculative
+
+        return generate_speculative(self, prompt_tokens, max_tokens, sampler, k=k,
+                                    on_token=on_token, stop_check=stop_check,
+                                    history_tokens=history_tokens)
+
     def generate_with(self, prompt_tokens: list[int], max_tokens: int, sampler, *,
-                      device_loop_chunk: int = 0, **kw) -> tuple[list[int], GenerationStats]:
-        """generate or generate_chunked: the single switch point for the entry points'
-        --device-loop flag, as in the JAX engine."""
+                      device_loop_chunk: int = 0, speculative_k: int = 0,
+                      history_tokens: list[int] | None = None,
+                      **kw) -> tuple[list[int], GenerationStats]:
+        """generate, generate_chunked or generate_speculative: the single switch point
+        for the entry points' --device-loop and --speculative flags, as in the JAX
+        engine. Speculation is greedy-only and wins over the device loop; a sampled
+        request falls back (one warning per engine). history_tokens (speculative only):
+        the whole cached context for the n-gram proposer when prompt_tokens is a
+        prefix-reuse delta."""
+        if speculative_k > 0:
+            if getattr(sampler, "temperature", 0.0) == 0.0:
+                return self.generate_speculative(prompt_tokens, max_tokens, sampler,
+                                                 k=speculative_k,
+                                                 history_tokens=history_tokens, **kw)
+            if not getattr(self, "_warned_spec_fallback", False):
+                self._warned_spec_fallback = True
+                import sys
+
+                print("⚠️  --speculative is greedy-only (temperature 0); falling back "
+                      "to the " + ("on-device loop" if device_loop_chunk > 0
+                                   else "sequential host loop")
+                      + " for sampled requests.", file=sys.stderr)
         if device_loop_chunk > 0:
             return self.generate_chunked(prompt_tokens, max_tokens, sampler,
                                          chunk=device_loop_chunk, **kw)

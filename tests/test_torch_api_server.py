@@ -211,3 +211,40 @@ def test_prefix_cache_flags(model_files, argv, off):  # noqa: F811
         srv.server_close()
         if be is not None:
             be.close()
+
+
+@pytest.mark.parametrize("batch", ["1", "2"])
+def test_speculative_flag_serves_the_same_greedy_content(model_files, batch):  # noqa: F811
+    """--speculative 4 builds BatchEngine(speculative=4) at --batch 2 and passes
+    speculative_k (and the whole conversation for the proposer) to generate_with at
+    --batch 1; the greedy content equals the server's without the flag. A batch engine
+    built without speculation refuses speculative_k."""
+    mpath, tpath = model_files
+    body = {"messages": [{"role": "user", "content": "ab cd ab cd ab cd ab cd ab"}],
+            "max_tokens": 12, "temperature": 0, "seed": 1}
+    contents = []
+    for flags in ([], ["--speculative", "4"]):
+        args = api_server.build_parser().parse_args(
+            ["--model", mpath, "--tokenizer", tpath, "--batch", batch, "--device", "cpu",
+             "--host", "127.0.0.1", "--port", "0", "--chat-template", "llama2", *flags])
+        srv = api_server.build_server(args)
+        be = srv.api_state.batch_engine
+        try:
+            if be is not None:
+                assert be.spec_k == (4 if flags else 0)
+            else:
+                assert srv.api_state.speculative_k == (4 if flags else 0)
+            _, _, raw = _post(_start(srv), body)
+            contents.append(json.loads(raw)["choices"][0])
+            if be is not None and flags:
+                assert be.verify_steps >= 1
+            if be is not None and not flags:
+                with pytest.raises(ValueError):
+                    api_server.serve(None, "127.0.0.1", 0, batch_engine=be,
+                                     speculative_k=4)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            if be is not None:
+                be.close()
+    assert contents[0] == contents[1]

@@ -186,7 +186,8 @@ def test_release_idle_races_the_scheduler_safely(model_files):
     assert be.release_idle() == be.kv_pool.n_blocks - 1
 
 
-@pytest.mark.parametrize("kw", [dict(speculative=1), dict(draft_model="draft.m"),
+@pytest.mark.parametrize("kw", [dict(speculative=1, draft_model="draft.m"),
+                                dict(draft_model="draft.m"),
                                 dict(tenants=object()), dict(slo_ttft_interactive=1.0)])
 def test_out_of_slice_arguments_raise(model_files, kw):
     with pytest.raises(NotImplementedError):

@@ -1281,3 +1281,110 @@ def test_single_slot_seed_then_graph_replay(cuda):
     assert all(np.array_equal(a, b) for a, b in zip(got.kept, want.kept))
     assert eng.graphs.replays - replays >= 11 and ssc.cache.total_refs() == 0
     assert (eng.k_cache.data_ptr(), eng.v_cache.data_ptr()) == ptrs
+
+
+# ------------------------------------------------------------------ speculative decoding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "sample"])
+def test_batched_verify_graph_matches_eager(cuda, mode):
+    """make_batched_verify_loop at 2 layers of Llama-2-7B width (fused, paged, bf16):
+    the captured step replayed from its CUDA graph gives the eager step's targets,
+    accepted lengths and carry, and writes the same KV bits; the pools keep the storage
+    the graph was captured on. Three live rows (greedy, sampled, near-greedy) and one
+    parked row, a block of 9 whose drafts are the eager run's own targets."""
+    from distributed_llama_tpu_torch.runtime.device_loop import make_batched_verify_loop
+
+    spec, params, p = _prefix_model(cuda)
+    be = BatchEngine(spec, params, slots=4, device="cuda", fused_matmul=True,
+                     superstep=4, speculative=8, prefix_cache=False)
+    eng = be.engine
+    try:
+        starts = [40, 17, 63, 5]
+        for sl, st in zip(be._slots, starts):
+            be._paged_ensure(sl, st + 9)
+        tables = be._tables()
+        ptrs = (eng.k_cache.data_ptr(), eng.v_cache.data_ptr())
+        temps = [0.0, 0.8, 0.02, 0.0] if mode == "sample" else [0.0] * 4
+        rng = np.array([[1, 2], [0x12345678, 0x9ABCDEF0], [7, 99], [0, 0]], np.int64)
+        props = [[p[i]] + p[i + 1:i + 9] for i in range(4)]
+        ndraft = [8, 8, 4, -1]
+        loops = {g: make_batched_verify_loop(
+            spec, eng.params, 9, mode=mode, dtype=eng.dtype, use_kernels=eng.use_kernels,
+            attn_window=eng._window_for(80), kv_block_tokens=be._kv_bt,
+            paged_kernel=eng.paged_kernel, graphs=eng.graphs if g else None)
+            for g in (False, True)}
+        first = loops[False](eng.rope, props, eng.k_cache, eng.v_cache, starts, rng,
+                             temps, [0.9] * 4, ndraft, tables)
+        props = [[props[r][0]] + first[0][:8, r].tolist() for r in range(4)]
+        runs = []
+        for g in (False, True, True):
+            out = loops[g](eng.rope, props, eng.k_cache, eng.v_cache, starts, rng, temps,
+                           [0.9] * 4, ndraft, tables)
+            torch.cuda.synchronize()
+            runs.append(([t.cpu().clone() for t in out[:5]],
+                         eng.k_cache.view(torch.int16).clone().cpu(),
+                         eng.v_cache.view(torch.int16).clone().cpu()))
+        for other in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0][0], other[0]))
+            assert torch.equal(runs[0][1], other[1]) and torch.equal(runs[0][2], other[2])
+        assert int(runs[0][0][1][0]) >= 1  # the greedy row accepted its own targets
+        assert int(runs[0][0][3][3]) == starts[3]  # the parked row kept its position
+        key = ("batched_verify", mode, eng._window_for(80), 4, 9)
+        assert key in eng.graphs.keys() and eng.graphs.replays_of(key) == 2
+        assert (eng.k_cache.data_ptr(), eng.v_cache.data_ptr()) == ptrs
+    finally:
+        be.close()
+
+
+@pytest.mark.cuda
+def test_speculative_batch_engine_graph_matches_eager(cuda):
+    """The fused BatchEngine(speculative=8) at 2 layers of Llama-2-7B width: with CUDA
+    graphs (one per verify bucket) and without, the same tokens and verify turns for
+    four staggered repetitive requests, pipelined; the pools keep their storage."""
+    import chip_smoke
+
+    spec, params, _ = _prefix_model(cuda)
+    base = _prompt(24, 60)
+    prompts = [[1] + base[1:13] * 4, [1] + base[5:17] * 3, base + base[:20], base * 2]
+    runs = []
+    for graph in (True, False):
+        be = BatchEngine(spec, params, slots=4, device="cuda", fused_matmul=True,
+                         superstep=4, speculative=8, prefix_cache=False,
+                         cuda_graph=graph)
+        eng = be.engine
+        try:
+            ptrs = (eng.k_cache.data_ptr(), eng.v_cache.data_ptr())
+            reqs, _ = chip_smoke.staggered(be, prompts, 24, after=1)
+            runs.append([(r.out, r.stats.spec_turns) for r in reqs])
+            assert be.verify_steps > 0
+            verify = [k for k in eng.graphs.keys() if k[0] == "batched_verify"]
+            assert bool(verify) == graph
+            assert (eng.k_cache.data_ptr(), eng.v_cache.data_ptr()) == ptrs
+        finally:
+            be.close()
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefill_kernel", [False, True])
+def test_generate_speculative_graph_matches_eager(cuda, prefill_kernel):
+    """Engine.generate_speculative at 2 layers of Llama-2-7B width: each verify block
+    padded to its bucket and replayed from that bucket's CUDA graph gives the eager
+    engine's tokens and turns."""
+    import chip_smoke
+
+    spec = chip_smoke._llama2_7b(n_layers=2)
+    params = chip_smoke._random_i4p_params(spec, cuda, seed=31)
+    base = _prompt(20, 61)
+    prompt = base + base[1:] + base[1:11]
+    runs = []
+    for graph in (True, False):
+        eng = Engine(spec, params, device="cuda", prefill_kernel=prefill_kernel,
+                     cuda_graph=graph)
+        out, st = eng.generate_speculative(prompt, 32, Sampler(spec.vocab_size, 0.0), k=8)
+        runs.append((out, st.spec_turns))
+        verify = [k for k in eng.graphs.keys() if k[0] == "verify"]
+        assert bool(verify) == graph and st.spec_steps > 0
+    assert runs[0] == runs[1]

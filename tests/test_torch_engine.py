@@ -130,6 +130,22 @@ def test_cli_generate_and_inference_on_cpu(model_files, capsys):
     assert "Generated tokens:    6" in out and "Prefill time:" in out
 
 
+def test_cli_speculative_on_cpu(model_files, capsysbinary):
+    """dllama --speculative K: the greedy text equals the run without it, and inference
+    mode prints the verify steps against the tokens."""
+    mpath, tpath = model_files
+    common = ["--model", mpath, "--tokenizer", tpath, "--steps", "12", "--device", "cpu",
+              "--temperature", "0", "--seed", "1", "--prompt", "ab cd ab cd ab cd ab"]
+    texts = []
+    for flags in ([], ["--speculative", "4"]):
+        dllama.main(["generate", *common, *flags])
+        texts.append(capsysbinary.readouterr().out.rstrip(b"\n").split(b"\n")[-1])
+    assert texts[0] == texts[1]
+    dllama.main(["inference", *common, "--speculative", "4"])
+    out = capsysbinary.readouterr().out.decode("utf-8", "replace")
+    assert "Generated tokens:    12" in out and "Speculative:         12 tokens in" in out
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """With jax and distributed_llama_tpu blocked, every port module (and chip_smoke)
     imports — the serving modules named explicitly — and one CPU decode step of the
@@ -157,6 +173,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from distributed_llama_tpu_torch.cache import radix, single_slot, wire  # noqa: F401
         from distributed_llama_tpu_torch.ops import paged_attention, q4_gated_matmul  # noqa: F401
         from distributed_llama_tpu_torch.ops import prologue, q8_matvec  # noqa: F401
+        from distributed_llama_tpu_torch.runtime import speculative  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
@@ -175,6 +192,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          device="cpu", use_kernels=True, fused_matmul=True)
         assert len(be.generate([1, 2, 3], 2, Sampler(64))[0]) == 2
         assert be.prefix_cache is not None  # the directory is on by default
+        be.close()
+        be = BatchEngine(spec, init_random_params(spec, FloatType.Q40, seed=1), slots=2,
+                         device="cpu", superstep=4, speculative=4)
+        assert len(be.generate([1, 2, 3, 1, 2, 3], 6, Sampler(64))[0]) == 6
         be.close()
         assert not any(k.split(".")[0] in blocked for k in sys.modules)
         print("ok")

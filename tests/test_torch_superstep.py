@@ -152,7 +152,11 @@ def test_batched_loop_matches_jax_and_chains(files, jax_engines):
 def test_sampler_state_resync_after_mid_block_stop(files, jax_engines, pipeline):
     """A stop inside a block discards the tail, whose coins must not advance the
     caller's sampler: a sampler reused for a second request sees one unbroken stream,
-    as in the JAX engine."""
+    as in the JAX engine. The JAX engine writes the sampler's state after the request's
+    done is set, so its side is read only after a barrier: a third one-token request
+    (another sampler) that the single scheduler thread serves after that write. The
+    port's engine writes it first (test_torch_speculative.py
+    test_sampler_state_final_before_done) and is read at once."""
     results = []
     for be in (jax_engines[pipeline], _port(files, pipeline=pipeline)):
         smp_cls = JSampler if isinstance(be, JBatchEngine) else Sampler
@@ -161,6 +165,8 @@ def test_sampler_state_resync_after_mid_block_stop(files, jax_engines, pipeline)
         first = be.submit([1, 7, 23], 16, smp,
                           stop_check=lambda t: seen.append(t) or len(seen) >= 6).wait(300)
         second = be.submit([1, 5, 2], 8, smp).wait(timeout=300)
+        if isinstance(be, JBatchEngine):
+            be.submit([1, 4], 1, smp_cls(V, 0.0)).wait(timeout=300)  # the barrier
         results.append((first, second, int(smp.state)))
         if isinstance(be, BatchEngine):
             be.close()
