@@ -28,7 +28,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             greedy tokens each, run at superstep 1 and at superstep 8 pipelined (each
             step a graph replay), the tokens identical; launch counts against the
             schedule, tokens/s, time to first token, peak memory, the pool drained, and
-            the device-busy share of the decode step
+            the device-busy share of the decode step, greedy and seeded; the host cost
+            of the seeded picks, one device_sample_coin call against one per row
   http      the port's api_server serve() on the same 7B engine with a synthetic
             32000-piece tokenizer: 4 concurrent chat completions (one SSE) over HTTP
   prefix    the prefix cache over paged KV on the serve phase's weights (the serve phase
@@ -63,6 +64,25 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             (3) the single-sequence Engine's generate_speculative at 7B
             (prefill_kernel), graphs against eager (identical) and against generate()
             under the near-tie rule, ms per token
+  resil     request control and recovery on the serve phase's weights, in the 8-slot
+            fused BatchEngine with the serving defaults (superstep 8 pipelined, paged KV,
+            the prefix cache), every run of 8 requests (4 greedy, 4 seeded) started from
+            emptied caches and admitted in one pass: (1) a victim killed by a fault at
+            its prefill, and one at its token delivery mid-super-step: the survivors'
+            tokens those of the fault-free runs; (2) two transient super-step dispatch
+            failures retried (tokens identical, no new capture); (3) with every slot
+            held by callbacks waiting on an event, a queue TTL expiry and a max_queue
+            shed, and a deadline after the first token keeping the partial output; (5)
+            the supervisor recovering a dispatch parked for 600 s: the in-flight requests
+            fail EngineWedged, recover_wedged within 1.5 s with the pool's storage kept,
+            the abandoned thread making no launch when woken, the graphs captured again
+            and the same tokens after; (6) 8 seeded requests resumed at k = 1, 7, 23,
+            each continuation the uninterrupted run's, their prompts remapped; (4) a
+            drain with 8 requests in flight; (7) the server on a fresh engine: 503 with
+            Retry-After, 408 for an expired X-Deadline-Ms, begin_drain with a stream in
+            flight (/healthz 503 "draining", the stream completes). Times: detection to
+            healthy, the first super-step after recovery against a warm one, a retry, the
+            drain
   moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
             with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
             phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
@@ -123,6 +143,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -132,7 +153,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
-              "moe", "kernels", "cli")
+              "resil", "moe", "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -2464,6 +2485,9 @@ def _serve_run(state: dict, be, prompts, k: int) -> list[list[int]]:
                     ttft_max=float(np.max(ttft)))
     if k == 1:
         serve[k].update(_profile_serve_decode(be, np.mean(dec)))
+        seeded = _profile_serve_decode(be, np.mean(dec), seeded=True)
+        serve[k].update(seeded_busy=seeded["busy"], seeded_period=seeded["period"])
+        _pick_paths(be.spec.vocab_size)
     else:
         serve[k].update(_profile_serve_superstep(be, k))
     return [r.out for r in reqs]
@@ -2575,10 +2599,12 @@ def _profile_serve_superstep(be, k: int, warm: int = 3, window: int = 4, submit=
                 big_gap_ms=sum(big) / steps, chained=chained, gc_ms=gc_ms[0])
 
 
-def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> dict:
-    """Where one batched decode step's time goes: 8 requests decode together; of the
-    decode steps with all 8 rows active, `steps` are timed without the profiler and
-    the next `steps` under it. The scheduler thread pauses at both edges of the
+def _profile_serve_decode(be, counted_ms: float, steps: int = 8,
+                          seeded: bool = False) -> dict:
+    """Where one batched decode step's time goes: 8 requests decode together (greedy,
+    or `seeded`: temperature 0.8, top-p 0.9, each its own seed); of the decode steps
+    with all 8 rows active, `steps` are timed without the profiler and the next `steps`
+    under it. The scheduler thread pauses at both edges of the
     profiled window while this thread starts and stops the profiler, so the window
     holds exactly those steps' device work. The idle share is the profiled device time
     against the unprofiled step period: the time from one decode step's start to the
@@ -2608,9 +2634,13 @@ def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> dict:
 
     be._decode_step = wrapped
     try:
+        from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
         prompts = [[1] + list(range(100 + 10 * i, 107 + 10 * i)) for i in range(8)]
-        reqs = [be.submit(p, 8 + 3 * steps, _CheckedSampler(be.spec.vocab_size))
-                for p in prompts]
+        reqs = [be.submit(p, 8 + 3 * steps,
+                          Sampler(be.spec.vocab_size, 0.8, 0.9, seed=17 + i) if seeded
+                          else _CheckedSampler(be.spec.vocab_size))
+                for i, p in enumerate(prompts)]
         prof = profile(activities=[ProfilerActivity.CUDA])
         if not edges[0].wait(900):
             raise AssertionError(f"serve profile: only {len(full)} full decode steps")
@@ -2641,7 +2671,8 @@ def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> dict:
     period = (starts[steps] - starts[0]) * 1e3 / steps
     dispatch = float(np.mean(full[:steps]))
     profiled = float(np.mean(full[steps:2 * steps]))
-    log(f"[serve] superstep 1 step (8 rows): device busy {busy:.3f} ms (profiled); "
+    rows_tag = "8 seeded rows" if seeded else "8 rows"
+    log(f"[serve] superstep 1 step ({rows_tag}): device busy {busy:.3f} ms (profiled); "
         f"without the profiler, step period {period:.2f} ms and dispatch {dispatch:.2f} "
         f"ms ({steps} steps), dispatch {counted_ms:.2f} ms (counted run); dispatch with "
         f"the profiler {profiled:.2f} ms; idle share {1 - busy / period:.3f} of the period"
@@ -2650,6 +2681,48 @@ def _profile_serve_decode(be, counted_ms: float, steps: int = 8) -> dict:
     for ms, n, key in rows[:10]:
         log(f"[serve]   {ms:.4f} ms/step in {n} launches/step: {key}")
     return dict(busy=busy, period=period)
+
+
+def _pick_paths(vocab: int, rows: int = 8, iters: int = 20) -> None:
+    """The host cost of picking a one-token step's seeded tokens on the card, at full
+    vocabulary: one device_sample_coin call on the step's (rows, vocab) logits with one
+    upload of the coins (the BatchEngine's one-token and prefill steps), against one
+    call per row from the host copy of its logits (an upload of the row and three
+    scalars, the call, a wait on its pick). Both pick the same tokens."""
+    from distributed_llama_tpu_torch.runtime.device_loop import device_sample_coin
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    logits = (torch.randn(rows, vocab, generator=gen) * 3).to(dev)
+    host = logits.cpu().numpy()
+    u = torch.rand(rows, generator=gen).tolist()
+    temps, topps = [0.8] * rows, [0.9] * rows
+
+    def batched():
+        vals = torch.tensor([u, temps, topps], dtype=torch.float32).to(dev)
+        return device_sample_coin(logits, vals[0], vals[1], vals[2]).cpu().tolist()
+
+    def per_row():
+        return [int(device_sample_coin(
+            torch.from_numpy(host[r:r + 1]).to(dev),
+            torch.tensor([u[r]], dtype=torch.float32, device=dev),
+            torch.tensor([temps[r]], dtype=torch.float32, device=dev),
+            torch.tensor([topps[r]], dtype=torch.float32, device=dev))[0])
+            for r in range(rows)]
+
+    if batched() != per_row():
+        raise AssertionError("serve: the batched device pick differs from the per-row "
+                             "one")
+    ms = {}
+    for name, fn in (("batched", batched), ("per_row", per_row)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / iters  # the later of two rounds
+    log(f"[serve] seeded picks of {rows} rows x {vocab} on the card (host wall, {iters} "
+        f"calls): one device_sample_coin call {ms['batched']:.3f} ms, one call per row "
+        f"from the host copy {ms['per_row']:.3f} ms; same tokens")
 
 
 def _synthetic_tokenizer(path: str, vocab_size: int) -> None:
@@ -3340,11 +3413,12 @@ def _prefix_single(state: dict, spec, params, t: dict) -> dict:
 def phase_prefix(state: dict) -> None:
     """The prefix cache over paged KV at Llama-2-7B (the serve phase's weights)."""
     spec = _llama2_7b()
-    # the spec phase reads the same weights after this one
-    take = state.get if "spec" in state["phases"] else state.pop
+    # the spec and resil phases read the same weights after this one
+    later = {"spec", "resil"} & set(state["phases"])
+    take = state.get if later else state.pop
     params = take("serve_params", None) or _random_i4p_params(
         spec, torch.device("cuda"), seed=13, gate_pair=True)
-    if "spec" in state["phases"]:
+    if later:
         state["serve_params"] = params
     t = _prefix_tokens(spec)
     numbers, seconds = {}, {}
@@ -3788,12 +3862,614 @@ def phase_spec(state: dict) -> None:
     t0 = time.perf_counter()
     log(f"[spec] parity: {spec_parity()} ({time.perf_counter() - t0:.1f} s)")
     spec = _llama2_7b()
-    params = state.pop("serve_params", None) or _random_i4p_params(
+    # the resil phase reads the same weights after this one
+    take = state.get if "resil" in state["phases"] else state.pop
+    params = take("serve_params", None) or _random_i4p_params(
         spec, torch.device("cuda"), seed=13, gate_pair=True)
     numbers = {"full": _spec_full(state, spec, params),
                "single": _spec_single(state, spec, params)}
     state.pop("prefix_witness", None)
     log("[spec] numbers: " + json.dumps(numbers, default=float))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ request control
+
+# the resil phase's requests: prompt lengths whose positions all stay under the first
+# 256-position attention window (so every run's steps read the same window bucket) and
+# the tokens each generates; rows 0-3 greedy, rows 4-7 seeded (temperature 0.8)
+RESIL_PROMPTS = (21, 48, 17, 60, 33, 25, 52, 40)
+RESIL_TOKENS = 96
+# resume: 32-token prompts (two full 16-token blocks) and 24 tokens, so every resumed
+# prompt (32 + k, k in RESIL_K) leaves under 8 tokens past its last full block: its tail
+# is prefilled one token a step, the (8, 1) shape the uninterrupted run decoded it in,
+# and all the rest is remapped from the directory
+RESIL_RESUME_P = 32
+RESIL_RESUME_N = 24
+RESIL_K = (1, 7, RESIL_RESUME_N - 1)
+RESIL_HOLD = 1.0  # seconds a held scheduler waits past a TTL of RESIL_HOLD / 10
+
+
+def _resil_engine(params):
+    """The 8-slot fused BatchEngine at full Llama-2-7B with the serving defaults: paged
+    KV with the prefix cache, super-steps of SERVE_K, pipelined."""
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    be = BatchEngine(_llama2_7b(), params, slots=8, device="cuda", fused_matmul=True,
+                     kv_block_tokens=16, superstep=SERVE_K)
+    assert be.prefix_cache is not None and be.kv_pool is not None and be.pipeline
+    assert be.engine.use_kernels == "fused" and be.engine.cuda_graph
+    return be
+
+
+def _resil_fresh(be) -> None:
+    """Empty every cache of an idle engine — the slots' rewind stock, the prefix
+    directory, the pool metadata — so that each run starts from the state a recovery
+    leaves and takes the same schedule."""
+    with be._slock:
+        assert all(s.req is None for s in be._slots)
+        for sl in be._slots:
+            be._paged_release_slot(sl)
+        be.prefix_cache.reset()
+        be.kv_pool.reset()
+
+
+_RESIL_ROWS: list = []  # logits rows the greedy rows' samplers saw (host-side picks)
+
+
+def _resil_smp(i: int, vocab: int):
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    if i < 4:
+        smp = _CheckedSampler(vocab, keep=True)
+        _RESIL_ROWS.append(smp.kept)
+        return smp
+    return Sampler(vocab, 0.8, 0.9, 1000 + i)
+
+
+def _sampler_paths(rows, dev, temperature: float = 0.8, topp: float = 0.9,
+                   coins: int = 256) -> tuple[int, int]:
+    """The host Sampler's nucleus pick against the device sampler's
+    (device_loop.device_sample_coin) on the same 7B logits rows and coins: (picks that
+    differ, picks). Why the engine picks host-side stochastic tokens on the card with
+    the device sampler."""
+    from distributed_llama_tpu_torch.runtime.device_loop import device_sample_coin
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler, _softmax
+
+    gen = np.random.default_rng(5)
+    differ = total = 0
+    for row in rows:
+        row = np.asarray(row, np.float32)
+        us = (gen.integers(0, 1 << 24, coins) / 16777216.0).astype(np.float32)
+        host = Sampler(len(row), temperature, topp)
+        probs = _softmax(row / host.temperature)
+        picks = [host._sample_topp(probs, float(u)) for u in us]
+        picked = device_sample_coin(
+            torch.from_numpy(row).to(dev).expand(coins, -1).contiguous(),
+            torch.from_numpy(us).to(dev), torch.full((coins,), temperature, device=dev),
+            torch.full((coins,), topp, device=dev)).tolist()
+        differ += sum(a != b for a, b in zip(picks, picked))
+        total += coins
+    return differ, total
+
+
+def _resil_submit(be, prompts, n: int, samplers, **kw) -> list:
+    """Submit while holding the scheduler lock: one pass admits every request, so a run
+    from the same state takes the same schedule."""
+    with be._slock:
+        return [be.submit(list(p), n, s, **kw) for p, s in zip(prompts, samplers)]
+
+
+def _resil_outs(reqs) -> list[list[int]]:
+    return [r.wait(timeout=600) for r in reqs]
+
+
+def _resil_until(cond, timeout: float = 300.0, what: str = "condition") -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"resil: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _resil_raises(req, err, what: str) -> None:
+    try:
+        req.wait(timeout=600)
+    except err:
+        return
+    raise AssertionError(f"resil: {what}: expected {err.__name__}, got finish "
+                         f"{req.finish!r} error {req.error!r}")
+
+
+class _ResilHold:
+    """Blockers on every slot whose token callback waits on an event once all slots hold
+    a request: the scheduler thread (the callback's thread) is parked until release(), so
+    nothing is admitted, reaped or dispatched meanwhile — no timing race."""
+
+    def __init__(self, be, first: int = 100):
+        from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+        self.event, self.parked = threading.Event(), threading.Event()
+
+        def on_token(_t):
+            if all(s.req is not None for s in be._slots):
+                self.parked.set()
+                self.event.wait(120)
+        self.reqs = [be.submit([1, first + i], 200, Sampler(be.spec.vocab_size),
+                               on_token=on_token) for i in range(be.slots_n)]
+        if not self.parked.wait(300):
+            raise AssertionError("resil: the blockers never held every slot")
+
+    def release(self) -> None:
+        self.event.set()
+        for r in self.reqs:
+            r.cancel()
+        for r in self.reqs:
+            r.done.wait(120)
+
+
+def _resil_blast(be, prompts, numbers: dict) -> list[list[int]]:
+    """Part 1: a victim killed at its prefill (run P), and one killed mid-super-step at
+    its token delivery (run E): the survivors' tokens equal a fault-free run's. Returns
+    the fault-free tokens of all 8 requests (run R8)."""
+    from distributed_llama_tpu_torch.resilience import faults
+    from distributed_llama_tpu_torch.resilience.errors import FaultInjected
+    from distributed_llama_tpu_torch.resilience.faults import FaultSpec
+
+    v = be.spec.vocab_size
+    n = RESIL_TOKENS
+    _resil_fresh(be)
+    ref7 = _resil_outs(_resil_submit(be, prompts[:7], n, [_resil_smp(i, v)
+                                                          for i in range(7)]))
+    _resil_fresh(be)
+    surv = _resil_submit(be, prompts[:7], n, [_resil_smp(i, v) for i in range(7)])
+    _resil_until(lambda: all(r.out for r in surv), what="the survivors' first tokens")
+    free = [s.index for s in be._slots if s.req is None]
+    assert free == [7], free
+    with faults.active(FaultSpec("batch.prefill", kind="error", count=1,
+                                 match={"slot": 7})) as plan:
+        victim = be.submit(prompts[7], n, _resil_smp(7, v))
+        _resil_raises(victim, FaultInjected, "prefill victim")
+        got = _resil_outs(surv)
+        assert plan.fired() == 1
+    if got != ref7:
+        raise AssertionError("resil: survivors of the prefill victim differ in rows "
+                             f"{[i for i in range(7) if got[i] != ref7[i]]}")
+    _resil_fresh(be)
+    ref8 = _resil_outs(_resil_submit(be, prompts, n, [_resil_smp(i, v) for i in range(8)]))
+    _resil_fresh(be)
+    reqs = _resil_submit(be, prompts, n, [_resil_smp(i, v) for i in range(8)])
+    _resil_until(lambda: all(r.out for r in reqs), what="every first token")
+    s0 = be.super_steps
+    with faults.active(FaultSpec("batch.emit", kind="error", count=1, after=2,
+                                 match={"slot": 7})) as plan:
+        _resil_raises(reqs[7], FaultInjected, "emit victim")
+        got = _resil_outs(reqs[:7])
+        assert plan.fired() == 1
+    if got != ref8[:7]:
+        raise AssertionError("resil: survivors of the emit victim differ in rows "
+                             f"{[i for i in range(7) if got[i] != ref8[i]]}")
+    if not be.scheduler_alive() or be.super_steps == s0:
+        raise AssertionError("resil: the scheduler died, or no super-step ran")
+    numbers["blast"] = {"prefill_victim_survivors": 7, "emit_victim_tokens":
+                        len(reqs[7].out), "super_steps": be.super_steps - s0}
+    log(f"[resil] blast radius: prefill victim and emit victim (after "
+        f"{len(reqs[7].out)} tokens, inside super-step delivery) each failed alone; 7 "
+        f"survivors x {n} tokens (4 greedy, 3 seeded) identical to the fault-free runs")
+    return ref8
+
+
+def _resil_transient(be, prompts, ref8, wall_ref: float, numbers: dict) -> None:
+    """Part 2: two transient failures of super-step dispatches, retried before their
+    first launch: the same tokens, 2 retries, no new graph capture."""
+    from distributed_llama_tpu_torch.resilience import faults
+    from distributed_llama_tpu_torch.resilience.faults import FaultSpec
+
+    v = be.spec.vocab_size
+    _resil_fresh(be)
+    r0, caps0 = be.retries, be.engine.graphs.captures
+    # each super-step issue's wall, with its retries: the retried one against the rest
+    issues: list[tuple[float, int]] = []
+    real = be._dispatched
+
+    def timed(kind, call):
+        n, t = be.retries, time.perf_counter()
+        out = real(kind, call)
+        if kind == "super_step":
+            issues.append((time.perf_counter() - t, be.retries - n))
+        return out
+    be._dispatched = timed
+    t0 = time.perf_counter()
+    try:
+        with faults.active(FaultSpec("batch.dispatch", kind="transient", count=2,
+                                     match={"kind": "super_step"})) as plan:
+            got = _resil_outs(_resil_submit(be, prompts, RESIL_TOKENS,
+                                            [_resil_smp(i, v) for i in range(8)]))
+            assert plan.fired() == 2
+    finally:
+        del be._dispatched
+    wall = time.perf_counter() - t0
+    if got != ref8:
+        raise AssertionError("resil: tokens changed under retried transient faults")
+    if be.retries - r0 != 2 or be.engine.graphs.captures != caps0:
+        raise AssertionError(f"resil: retries {be.retries - r0}, captures "
+                             f"{caps0} -> {be.engine.graphs.captures}")
+    retried = [(dt, n) for dt, n in issues if n]
+    plain = float(np.median([dt for dt, n in issues if not n]))
+    per = (sum(dt for dt, _ in retried) - plain * len(retried)) / 2
+    numbers["transient"] = {"retries": 2, "retried_issues": len(retried),
+                            "retried_issue_ms": [dt * 1e3 for dt, _ in retried],
+                            "plain_issue_ms": plain * 1e3, "ms_per_retry": per * 1e3,
+                            "wall_s": wall, "wall_ref_s": wall_ref}
+    log(f"[resil] transient: 2 super-step dispatch attempts failed and were retried before "
+        f"their first launch, tokens identical, captures unchanged ({caps0}); the retried "
+        f"issue took {', '.join(f'{dt * 1e3:.1f}' for dt, _ in retried)} ms against "
+        f"{plain * 1e3:.2f} ms for a plain one: {per * 1e3:.1f} ms a retry (backoff 50 "
+        f"then 100 ms); run wall {wall:.3f} s against {wall_ref:.3f} s fault-free (the "
+        f"backoff overlaps the super-step in flight)")
+
+
+def _resil_admission(be, numbers: dict) -> None:
+    """Part 3: with all 8 slots held, a queue TTL expires (DeadlineExceeded) and
+    max_queue sheds (EngineSaturated, Retry-After > 0); a generation deadline that
+    passes after the first token keeps the partial output."""
+    from distributed_llama_tpu_torch.resilience.errors import (DeadlineExceeded,
+                                                               EngineSaturated)
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    v = be.spec.vocab_size
+    _resil_fresh(be)
+    hold = _ResilHold(be)
+    try:
+        ttl = be.submit([1, 2, 3], 4, Sampler(v), ttl=RESIL_HOLD / 10)
+        be.max_queue = 2
+        queued = be.submit([1, 4, 5], 4, Sampler(v))
+        try:
+            be.submit([1, 6, 7], 4, Sampler(v))
+            raise AssertionError("resil: max_queue did not shed")
+        except EngineSaturated as e:
+            retry_after = e.retry_after
+        load = be.load_stats()
+        time.sleep(RESIL_HOLD)
+    finally:
+        be.max_queue = 0
+        hold.release()
+    _resil_raises(ttl, DeadlineExceeded, "queue TTL")
+    queued.cancel()
+    queued.done.wait(120)
+    if retry_after <= 0 or load["free_slots"] or load["queue_depth"] != 2:
+        raise AssertionError(f"resil: retry_after {retry_after}, load {load}")
+    first = []
+
+    def on_token(_t):
+        if not first:
+            first.append(time.perf_counter())
+            time.sleep(2 * RESIL_HOLD)
+    req = be.submit([1, 9], 200, Sampler(v), on_token=on_token, deadline=RESIL_HOLD)
+    out = req.wait(timeout=600)
+    if req.finish != "deadline" or req.error is not None or not 1 <= len(out) <= 9:
+        raise AssertionError(f"resil: generation deadline: finish {req.finish!r}, "
+                             f"{len(out)} tokens, error {req.error!r}")
+    numbers["admission"] = {"retry_after_s": retry_after, "deadline_tokens": len(out)}
+    log(f"[resil] admission: queue TTL {RESIL_HOLD / 10:g} s expired with all 8 slots "
+        f"held (DeadlineExceeded), max_queue=2 shed with retry_after {retry_after:.3f} s, "
+        f"a {RESIL_HOLD:g} s deadline kept {len(out)} tokens (finish 'deadline')")
+
+
+def _resil_wedge(be, prompts, ref8, numbers: dict) -> None:
+    """Part 5: the supervisor recovers a dispatch parked for 600 s: every in-flight
+    request fails with EngineWedged, recover_wedged keeps the pool's storage and takes
+    about the 1 s join, the abandoned thread makes no launch when woken, the graphs are
+    captured again and the same prompts give the same tokens."""
+    from distributed_llama_tpu_torch.resilience import faults
+    from distributed_llama_tpu_torch.resilience.errors import EngineWedged
+    from distributed_llama_tpu_torch.resilience.faults import FaultSpec
+    from distributed_llama_tpu_torch.resilience.supervisor import EngineSupervisor
+
+    v = be.spec.vocab_size
+    eng, graphs = be.engine, be.engine.graphs
+    slowest = max(max(ms) for ms in be.dispatch_ms.values() if ms) / 1e3
+    threshold = slowest + 2.0
+    sup = EngineSupervisor(be, threshold=threshold, poll=0.05)
+    timing = {}
+    recover = be.recover_wedged
+
+    def timed(*a, **kw):
+        timing["detect"] = time.perf_counter()
+        ok = recover(*a, **kw)
+        timing["done"] = time.perf_counter()
+        return ok
+    be.recover_wedged = timed
+    ptrs = (eng.k_cache.data_ptr(), eng.v_cache.data_ptr(), be._tables_dev.data_ptr())
+    _resil_fresh(be)
+    reqs = _resil_submit(be, prompts, RESIL_TOKENS, [_resil_smp(i, v) for i in range(8)])
+    _resil_until(lambda: all(r.out for r in reqs), what="every first token")
+    try:
+        plan = faults.install([FaultSpec("batch.dispatch", kind="latency",
+                                         delay_ms=600_000, count=1)])
+        _resil_until(lambda: plan.fired() == 1, what="the parked dispatch")
+        zombie = be._thread
+        old = {k: graphs._graphs[k] for k in graphs.keys()}
+        replays = {k: c.replays for k, c in old.items()}
+        sup.start()
+        for i, r in enumerate(reqs):
+            _resil_raises(r, EngineWedged, f"in-flight request {i}")
+        _resil_until(lambda: sup.recoveries == 1 and sup.healthy and "done" in timing,
+                     what="the supervisor's recovery")
+        sup.stop()
+        counters = _serve_counters()
+        before = (_read(counters), be.dispatches, graphs.replays)
+        faults.release()  # wake the abandoned thread
+        zombie.join(60)
+        if zombie.is_alive():
+            raise AssertionError("resil: the abandoned scheduler thread did not exit")
+        after = (_read(counters), be.dispatches, graphs.replays)
+        stale = {k: c.replays - replays[k] for k, c in old.items() if c.replays != replays[k]}
+        if after != before or stale:
+            raise AssertionError(f"resil: the abandoned thread launched: {before} -> "
+                                 f"{after}, replays on the old keys {stale}")
+    finally:
+        faults.release()
+        faults.uninstall()
+        sup.stop()
+        del be.recover_wedged
+    recovered = timing["done"] - timing["detect"]
+    if (eng.k_cache.data_ptr(), eng.v_cache.data_ptr(),
+            be._tables_dev.data_ptr()) != ptrs:
+        raise AssertionError("resil: the recovery moved the pool or the block table")
+    if recovered > 1.5 or graphs.keys():
+        raise AssertionError(f"resil: recover_wedged took {recovered:.3f} s, graphs left "
+                             f"{graphs.keys()}")
+    caps0 = graphs.captures
+    n_super = len(be.dispatch_ms["super"])
+    got = _resil_outs(_resil_submit(be, prompts, RESIL_TOKENS,
+                                    [_resil_smp(i, v) for i in range(8)]))
+    if got != ref8:
+        raise AssertionError("resil: tokens after the recovery differ in rows "
+                             f"{[i for i in range(8) if got[i] != ref8[i]]}")
+    if graphs.captures <= caps0:
+        raise AssertionError("resil: no graph was captured again after the recovery")
+    free = be.release_idle()
+    if free != be.kv_pool.n_blocks - 1:
+        raise AssertionError(f"resil: {free} free blocks after release_idle, want "
+                             f"{be.kv_pool.n_blocks - 1}")
+    # the first super-step after the recovery captures its graph again; the warm ones
+    # are the same run's later super-steps
+    post = be.dispatch_ms["super"][n_super:]
+    first_ms, warm_ms = post[0], float(np.median(post[1:]))
+    numbers["wedge"] = {"threshold_s": threshold, "recover_s": recovered,
+                        "captures_after": graphs.captures - caps0,
+                        "first_super_ms": first_ms, "warm_super_ms": warm_ms}
+    log(f"[resil] wedge: supervisor (threshold {threshold:.2f} s) recovered a dispatch "
+        f"parked for 600 s: 8 in-flight requests failed EngineWedged, recover_wedged "
+        f"{recovered:.3f} s (detection to healthy), pool and table storage kept, the "
+        f"abandoned thread made no launch and no replay on the {len(old)} old graph(s), "
+        f"{graphs.captures - caps0} graph(s) captured again, 8 x {RESIL_TOKENS} tokens "
+        f"identical to before the wedge, pool whole ({free} free); first super-step "
+        f"after recovery {first_ms:.1f} ms (with the capture) against {warm_ms:.1f} ms "
+        f"warm")
+
+
+def _resil_resume(be, numbers: dict) -> None:
+    """Part 6: 8 seeded requests resumed at k in RESIL_K (prompt plus k delivered
+    tokens, the sampler fast-forwarded by k): each continuation equals the
+    uninterrupted run, and the prompt half comes from the directory (remapped)."""
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    v = be.spec.vocab_size
+    gen = torch.Generator().manual_seed(61)
+    prompts = [[1] + torch.randint(3, v, (RESIL_RESUME_P - 1,), generator=gen).tolist()
+               for _ in range(8)]
+
+    def smp(i, ff=0):
+        s = Sampler(v, 0.8, 0.9, 2000 + i)
+        s.fast_forward(ff)
+        return s
+    _resil_fresh(be)
+    # the uninterrupted runs one at a time: no request rides another's prefill, so every
+    # generated token was ingested in an (8, 1) step
+    refs = [be.submit(p, RESIL_RESUME_N, smp(i)).wait(timeout=600)
+            for i, p in enumerate(prompts)]
+    remapped = {}
+    for k in RESIL_K:
+        # 8 fillers take every slot, so the resumes find their prompts in the directory
+        _resil_outs(_resil_submit(be, [[1, 300 + i] for i in range(8)], 2,
+                                  [Sampler(v) for _ in range(8)]))
+        r0 = be.remapped_blocks
+        reqs = [None] * 8
+        with be._slock:
+            for i, p in enumerate(prompts):
+                reqs[i] = be.submit(p + refs[i][:k], RESIL_RESUME_N - k, smp(i, k),
+                                    resume_tokens=k)
+        got = _resil_outs(reqs)
+        bad = [i for i in range(8) if got[i] != refs[i][k:]]
+        if bad:
+            raise AssertionError(f"resil: resume at k={k} differs in requests {bad}")
+        remapped[k] = be.remapped_blocks - r0
+        if remapped[k] < 8 * (RESIL_RESUME_P // 16):
+            raise AssertionError(f"resil: resume at k={k} remapped {remapped[k]} blocks")
+    rows = [r for kept in _RESIL_ROWS for r in kept][:16]
+    differ, total = _sampler_paths(rows, be.engine.device)
+    numbers["resume"] = {"remapped_blocks": remapped, "sampler_paths_differ": differ,
+                         "sampler_paths_picks": total}
+    log(f"[resil] resume: 8 seeded requests resumed at k = {RESIL_K}: every "
+        f"continuation identical to the uninterrupted run; blocks remapped {remapped}; "
+        f"on {len(rows)} of the run's 7B logits rows x 256 coins (temperature 0.8, "
+        f"top-p 0.9) the host Sampler's pick and the device sampler's differ in "
+        f"{differ} of {total}")
+
+
+def _resil_drain(be, prompts, ref8, numbers: dict) -> None:
+    """Part 4: close(drain=True) with 8 requests in flight: a new submit gets
+    EngineDraining and all 8 finish "length" with the fault-free tokens."""
+    from distributed_llama_tpu_torch.resilience.errors import EngineDraining
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    v = be.spec.vocab_size
+    _resil_fresh(be)
+    reqs = _resil_submit(be, prompts, RESIL_TOKENS, [_resil_smp(i, v) for i in range(8)])
+    _resil_until(lambda: all(r.out for r in reqs), what="every first token")
+    t0 = time.perf_counter()
+    th = threading.Thread(target=be.close, kwargs={"drain": True, "timeout": 120})
+    th.start()
+    _resil_until(lambda: be.draining, what="the drain")
+    try:
+        be.submit([1, 2], 2, Sampler(v))
+        raise AssertionError("resil: a submit while draining was admitted")
+    except EngineDraining:
+        pass
+    th.join(300)
+    drain_s = time.perf_counter() - t0
+    got = [r.wait(timeout=1) for r in reqs]
+    if got != ref8 or any(r.finish != "length" for r in reqs):
+        raise AssertionError("resil: the drained requests did not finish as fault-free")
+    numbers["drain"] = {"drain_s": drain_s}
+    log(f"[resil] drain: close(drain=True) with 8 requests in flight: a new submit got "
+        f"EngineDraining, all 8 finished 'length' with the fault-free tokens, drained in "
+        f"{drain_s:.3f} s")
+
+
+def _resil_sse(url: str, body: dict, first: threading.Event, out: dict) -> None:
+    req = urllib.request.Request(url + "/v1/chat/completions", json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out["status"] = r.status
+        events = []
+        for line in r:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                events.append(line[6:])
+                first.set()
+        out["events"] = events
+
+
+def _resil_http(params, numbers: dict) -> None:
+    """Part 7: the port's server on a fresh 8-slot engine: 503 with Retry-After under
+    max_queue, 408 for an X-Deadline-Ms that expires in the queue, and an in-process
+    begin_drain with a stream in flight: /healthz answers 503 "draining" and the stream
+    completes."""
+    from distributed_llama_tpu_torch.apps.api_server import begin_drain, serve
+    from distributed_llama_tpu_torch.resilience import faults
+    from distributed_llama_tpu_torch.resilience.faults import FaultSpec
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+    from distributed_llama_tpu_torch.tokenizer import TemplateType, Tokenizer
+
+    be = _resil_engine(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath = os.path.join(tmp, "synthetic.t")
+        _synthetic_tokenizer(tpath, be.spec.vocab_size)
+        be.tokenizer = Tokenizer.load(tpath)
+    srv = serve(None, "127.0.0.1", 0, TemplateType.LLAMA2,
+                Sampler(be.spec.vocab_size, 0.0, 0.9, 1), batch_engine=be)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    body = {"messages": [{"role": "user", "content": "hello w1 w7"}], "max_tokens": 8,
+            "temperature": 0}
+
+    def call(b, headers=None, path="/v1/chat/completions"):
+        req = urllib.request.Request(url + path, None if b is None else
+                                     json.dumps(b).encode(),
+                                     {"Content-Type": "application/json",
+                                      **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, dict(r.headers), r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read().decode()
+    try:
+        status, _, raw = call(body)  # warm: the graphs of this engine
+        assert status == 200, raw
+        hold = _ResilHold(be)
+        got = {}
+        try:
+            be.max_queue = 1
+            queued = be.submit([1, 2, 3], 4, Sampler(be.spec.vocab_size))
+            shed = call(body)
+            be.max_queue = 0
+            th = threading.Thread(target=lambda: got.update(
+                r=call(body, {"X-Deadline-Ms": str(RESIL_HOLD * 100)})))
+            th.start()
+            _resil_until(lambda: len(be._queue) == 2, what="the deadline request queued")
+            time.sleep(RESIL_HOLD)
+        finally:
+            be.max_queue = 0
+            hold.release()
+        queued.cancel()
+        th.join(300)
+        code, headers, raw = shed
+        if code != 503 or int(headers.get("Retry-After", 0)) < 1 or json.loads(
+                raw)["error"]["type"] != "overloaded_error":
+            raise AssertionError(f"resil http: shed {code} {headers} {raw}")
+        code, _, raw = got["r"]
+        if code != 408 or json.loads(raw)["error"]["type"] != "timeout_error":
+            raise AssertionError(f"resil http: deadline {code} {raw}")
+        # the drain: each dispatch held 200 ms, so the stream outlives the checks by
+        # seconds
+        first, out = threading.Event(), {}
+        with faults.active(FaultSpec("batch.dispatch", kind="latency", delay_ms=200)):
+            th = threading.Thread(target=_resil_sse, args=(
+                url, {**body, "max_tokens": 48, "stream": True}, first, out))
+            th.start()
+            if not first.wait(300):
+                raise AssertionError("resil http: the stream never started")
+            drain = threading.Thread(target=begin_drain, args=(srv, srv.api_state, 120.0))
+            drain.start()
+            _resil_until(lambda: srv.api_state.draining, what="draining")
+            code, _, raw = call(None, path="/healthz")
+            if code != 503 or json.loads(raw)["status"] != "draining":
+                raise AssertionError(f"resil http: /healthz {code} {raw}")
+            th.join(600)
+            drain.join(600)
+        events = out.get("events", [])
+        finish = json.loads(events[-2])["choices"][0]["finish_reason"] if len(
+            events) >= 2 else None
+        if out.get("status") != 200 or events[-1:] != ["[DONE]"] or finish not in (
+                "length", "stop"):
+            raise AssertionError(f"resil http: the drained stream: {out}")
+        numbers["http"] = {"retry_after_header": headers.get("Retry-After")}
+        log("[resil] http: 503 + Retry-After under max_queue, 408 for an X-Deadline-Ms "
+            "expired in the queue, begin_drain with a stream in flight: /healthz 503 "
+            f"'draining', the stream finished {finish!r}")
+    finally:
+        srv.server_close()
+        be.close()
+
+
+def phase_resil(state: dict) -> None:
+    """Request control and recovery at Llama-2-7B on the serve phase's weights."""
+    spec = _llama2_7b()
+    params = state.pop("serve_params", None) or _random_i4p_params(
+        spec, torch.device("cuda"), seed=13, gate_pair=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator().manual_seed(29)
+    prompts = [[1] + torch.randint(3, spec.vocab_size, (n - 1,), generator=gen).tolist()
+               for n in RESIL_PROMPTS]
+    numbers: dict = {"card": smi}
+    be = _resil_engine(params)
+    try:
+        be.generate([1] + list(range(5, 40)), 10, _CheckedSampler(spec.vocab_size))
+        ref8 = _resil_blast(be, prompts, numbers)
+        _resil_fresh(be)
+        t0 = time.perf_counter()
+        again = _resil_outs(_resil_submit(be, prompts, RESIL_TOKENS,
+                                          [_resil_smp(i, spec.vocab_size)
+                                           for i in range(8)]))
+        wall_ref = time.perf_counter() - t0
+        if again != ref8:
+            raise AssertionError("resil: two fault-free runs from one state differ")
+        _resil_transient(be, prompts, ref8, wall_ref, numbers)
+        _resil_admission(be, numbers)
+        _resil_wedge(be, prompts, ref8, numbers)
+        _resil_resume(be, numbers)
+        _resil_drain(be, prompts, ref8, numbers)
+    finally:
+        be.close()
+    _resil_http(params, numbers)
+    log(f"[resil] {smi}: numbers " + json.dumps(numbers, default=float))
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -19,6 +19,18 @@ get them from the prefix cache. `--no-prefix-cache` turns the cache off in both 
 them in one step: in the BatchEngine's batched verify (greedy and seeded sampling alike)
 at `--batch N`, through the Engine's greedy-only generate_speculative at `--batch 1`.
 
+Request control and recovery (resilience/): typed errors map to honest statuses (503
+with Retry-After when `--max-queue` sheds, 503 `server_wedged` for a request the
+supervisor failed, 503 while closing or draining, 408 for an expired queue TTL or
+deadline, 400 for caller errors); `--queue-ttl`, `--request-deadline` and the
+`X-Deadline-Ms` header (min-combined) bound a request; SIGTERM drains (`/healthz`
+answers 503 "draining", in-flight requests finish within `--drain-timeout`);
+`--supervisor-threshold` recovers a hung engine and folds its state into `/healthz`,
+whose `replica` block (slots, free slots, queue depth, draining, pid, uptime) a fleet
+router polls. A durable router resumes a request elsewhere with `{"resume": {"tokens":
+[...]}}` and reads the token ids of each SSE chunk (`"dllama": {"n", "toks"}`) when it
+sends `X-Dllama-Journal`. `DLLAMA_FAULTS` injects faults (resilience/faults.py).
+
 Runs on the GPU unless `--device cpu` is given.
 """
 
@@ -26,7 +38,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import hashlib
 import json
+import os
 import queue
 import threading
 import time
@@ -35,8 +50,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from ..resilience import faults
+from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
+                                 EngineSaturated, EngineWedged, InvalidRequest,
+                                 QuotaExceeded, retriable)
 from ..runtime.engine import Engine
-from ..runtime.errors import EngineClosed, InvalidRequest
 from ..runtime.sampler import Sampler
 from ..tokenizer import ChatItem, ChatTemplate, EosDetector, TemplateType
 from ..tokenizer.eos import TokenStreamer
@@ -46,9 +64,22 @@ class ApiState:
     def __init__(self, engine: Engine | None, template_type: TemplateType,
                  default_sampler: Sampler, batch_engine=None, prefix_cache=True,
                  prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
-                 prefix_cache_q80: bool = False, speculative_k: int = 0):
+                 prefix_cache_q80: bool = False, speculative_k: int = 0,
+                 request_deadline: float = 0.0):
         self.engine = engine
         self.batch_engine = batch_engine  # BatchEngine when --batch > 1, else None
+        # the replica's identity (host:port, set once the socket binds) and start time:
+        # the /healthz replica block a fleet router polls
+        self.replica_id = ""
+        self.started_mono = time.monotonic()
+        # set by begin_drain (SIGTERM): /healthz answers 503 "draining" and new
+        # completions are refused while in-flight ones finish
+        self.draining = False
+        # the server's wall-clock deadline per request (seconds, 0 = none)
+        self.request_deadline = request_deadline
+        # the hung-engine supervisor (serve(supervisor_threshold > 0)), folded into
+        # /healthz
+        self.supervisor = None
         # --batch 1 speculation (the BatchEngine speculates on its own)
         self.speculative_k = speculative_k
         self.lock = threading.Lock()  # serializes the --batch 1 engine
@@ -71,6 +102,33 @@ class ApiState:
 
 def _now() -> int:
     return int(time.time())
+
+
+def model_config_hash(spec) -> str:
+    """A short stable hash of the model configuration (the ModelSpec fields, not the
+    weights): the replica-identity field a fleet router compares across replicas."""
+    d = {f.name: str(getattr(spec, f.name)) for f in dataclasses.fields(spec)}
+    return hashlib.sha1(json.dumps(d, sort_keys=True).encode()).hexdigest()[:12]
+
+
+def _load_block(state: ApiState) -> dict:
+    """The replica's identity and load, served in /healthz: what a fleet router's
+    membership poller reads (slots, free slots, queue depth, draining). No device
+    work."""
+    be = state.batch_engine
+    if be is not None:
+        load = be.load_stats()
+        load["draining"] = bool(state.draining or be.draining)
+    else:
+        # one slot, free unless the generation lock is held; requests queue on the lock
+        locked = state.lock.locked()
+        load = {"slots": 1, "free_slots": 0 if locked else 1, "queue_depth": 0,
+                "draining": state.draining}
+    spec = (be or state.engine).spec
+    return {"id": state.replica_id, "model": state.model_name,
+            "model_hash": model_config_hash(spec), "batched": be is not None,
+            "pid": os.getpid(),
+            "uptime_s": round(time.monotonic() - state.started_mono, 1), **load}
 
 
 def _completion_payload(state: ApiState, text: str, finish: str, rid: str) -> dict:
@@ -105,20 +163,58 @@ def _opt(body: dict, key: str, default):
     return default if v is None else v
 
 
-def run_completion(state: ApiState, body: dict, emit):
+def _parse_resume(body: dict, spec) -> list[int]:
+    """The durable-resume payload `{"resume": {"tokens": [...]}}`: the tokens a failed
+    replica already generated and delivered, which this replica takes as committed
+    output (prefilled, mostly from the prefix cache; the sampler fast-forwarded past
+    their coins; fed through the stop detector), so generation continues as the
+    uninterrupted run would."""
+    raw = body.get("resume")
+    if raw is None:
+        return []
+    if not isinstance(raw, dict) or not isinstance(raw.get("tokens"), list):
+        raise InvalidRequest("'resume' must be {\"tokens\": [int, ...]}")
+    toks = raw["tokens"]
+    if not all(isinstance(t, int) and not isinstance(t, bool) and 0 <= t < spec.vocab_size
+               for t in toks):
+        raise InvalidRequest(
+            f"'resume.tokens' must be token ids in [0, {spec.vocab_size})")
+    return list(toks)
+
+
+def run_completion(state: ApiState, body: dict, emit, *, journal=None,
+                   deadline_s: float | None = None):
     """Shared completion core. `emit(text_delta)` streams; returns (text, finish).
-    Raises InvalidRequest (400) before any generation work for a prompt at or past the
-    context or a bad max_tokens."""
+
+    `journal` (a durable router's request): a {"toks": [], "n": 0} the caller owns; the
+    token ids of each text delta are appended, and "n" advanced to the delivered count,
+    before emit runs, so the stream can put them on the chunk that carries their text.
+    `deadline_s` is the client's remaining deadline (X-Deadline-Ms), min-combined with
+    the server's --request-deadline.
+
+    Raises typed errors before any generation work, for the HTTP layer to map:
+    InvalidRequest (400) for a prompt at or past the context, a bad max_tokens or a
+    malformed resume; EngineDraining (503) while draining; the engine's own at submit."""
+    faults.fire("api.request", replica=state.replica_id)
+    if state.draining:
+        raise EngineDraining("server is draining (shutting down)")
     runner = state.batch_engine or state.engine
     tok = runner.tokenizer
     spec = runner.spec
     messages = [ChatItem(m.get("role", "user"), m.get("content", ""))
                 for m in body.get("messages", [])]
     prompt = tok.encode(state.template.generate(messages), add_bos=True)
+    resume = _parse_resume(body, spec)
     if len(prompt) >= spec.seq_len:
         raise InvalidRequest(
             f"prompt is {len(prompt)} tokens but the model context is "
             f"{spec.seq_len}; reduce the conversation or raise --max-seq-len")
+    if len(prompt) + len(resume) > spec.seq_len:
+        # more than the context could ever have generated; exactly seq_len is the run
+        # that ended at the context wall after its last delivered token
+        raise InvalidRequest(
+            f"resume carries {len(resume)} tokens but the context has room for "
+            f"{spec.seq_len - len(prompt)} past the prompt")
     mt_raw = _opt(body, "max_tokens", 0)
     if isinstance(mt_raw, bool) or not isinstance(mt_raw, int) or mt_raw < 0:
         raise InvalidRequest(
@@ -129,7 +225,16 @@ def run_completion(state: ApiState, body: dict, emit):
         float(_opt(body, "top_p", state.default_sampler.topp)),
         int(_opt(body, "seed", _now())),
     )
-    max_tokens = min(mt_raw or (spec.seq_len - len(prompt)), spec.seq_len - len(prompt))
+    # the whole budget comes from the original prompt, so a resumed request stops where
+    # the uninterrupted run would; the delivered tokens spent part of it
+    max_tokens = max(min((mt_raw or (spec.seq_len - len(prompt))) - len(resume),
+                         spec.seq_len - len(prompt) - len(resume)), 0)
+    if resume:
+        # every stochastic sample drew one xorshift* coin (greedy none): skip the
+        # delivered tokens' coins so the continuation draws the uninterrupted stream
+        sampler.fast_forward(len(resume))
+    deadlines = [d for d in (state.request_deadline, deadline_s) if d]
+    eff_deadline = min(deadlines) if deadlines else 0.0
     stops = tok.chat_stops()
     stop_param = _opt(body, "stop", [])
     if isinstance(stop_param, str):  # OpenAI allows string-or-array
@@ -137,68 +242,150 @@ def run_completion(state: ApiState, body: dict, emit):
     stops.extend(s.encode() for s in stop_param)
     detector = EosDetector(tok.chat_eos_id, stops, padding_left=2, padding_right=2)
     pieces: list[str] = []
+    prompt_full = prompt + resume
 
     if state.batch_engine is not None:
         # socket writes are decoupled from the scheduler thread through a queue: a slow
         # client backpressures only its own handler thread, never the shared decode loop
         deltas: queue.Queue = queue.Queue()
+        # token ids delivered since the last text flush: on_token appends them on the
+        # scheduler thread and the streamer's emit moves them into the queue entry of
+        # the text they produced (the pairing a durable router's journal rides on)
+        pending_toks: list[int] = []
 
         def emit_queued(d: bytes):
             text = d.decode("utf-8", errors="replace")
             pieces.append(text)
-            deltas.put(text)
+            toks, pending_toks[:] = pending_toks[:], []
+            deltas.put((text, toks))
 
         streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit_queued)
-        req = state.batch_engine.submit(prompt, max_tokens, sampler,
-                                        on_token=streamer.on_token,
-                                        stop_check=streamer.stop_check)
-        # the sentinel closes the drain loop once the request completes (the puts
-        # happen-before done.set(), so everything queued is drained first)
-        threading.Thread(target=lambda: (req.done.wait(), deltas.put(None)),
-                         daemon=True).start()
+
+        def on_token(t: int):
+            pending_toks.append(t)
+            streamer.on_token(t)
+
+        # a resume feeds the delivered tokens through the same streamer first: their
+        # text is emitted again (a router splices by position) and the stop detector
+        # reaches the failed replica's state, so a stop spanning the failover fires
+        for t in resume:
+            if streamer.stopped:
+                break
+            on_token(t)
+        req = None
+        # a resume with no budget left (the original run ended right after its last
+        # delivered token) needs no engine work
+        if not streamer.stopped and not (resume and max_tokens == 0):
+            req = state.batch_engine.submit(prompt_full, max_tokens, sampler,
+                                            on_token=on_token,
+                                            stop_check=streamer.stop_check,
+                                            deadline=eff_deadline or None,
+                                            resume_tokens=len(resume))
+            # the sentinel closes the drain loop once the request completes (the puts
+            # happen-before done.set(), so everything queued is drained first)
+            threading.Thread(target=lambda: (req.done.wait(), deltas.put(None)),
+                             daemon=True).start()
+        else:
+            deltas.put(None)
         try:
-            while (text := deltas.get()) is not None:
+            while (item := deltas.get()) is not None:
+                text, toks = item
+                if journal is not None:
+                    journal["toks"].extend(toks)
+                    journal["n"] += len(toks)
                 emit(text)
         except Exception:
-            req.cancel()  # client went away mid-stream: free the slot
+            if req is not None:
+                req.cancel()  # client went away mid-stream: free the slot
             raise
-        if req.error is not None:
+        if req is not None and req.error is not None:
             raise req.error
-        return "".join(pieces), "stop" if streamer.stopped else "length"
+        if streamer.stopped:
+            return "".join(pieces), "stop"
+        if req is not None and req.finish == "deadline":
+            # the deadline passed mid-generation: the partial output is the answer
+            return "".join(pieces), "deadline"
+        return "".join(pieces), "length"
+
+    jpending: list[int] = []  # tokens since the last flush (the journal's pairing)
 
     def emit_bytes(d: bytes):
         text = d.decode("utf-8", errors="replace")
         pieces.append(text)
+        if journal is not None:
+            journal["toks"].extend(jpending)
+            journal["n"] += len(jpending)
+        jpending.clear()
         emit(text)
 
     streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit_bytes)
+
+    def on_token(t: int):
+        jpending.append(t)
+        streamer.on_token(t)
+
+    # the single engine's deadline: checked per decoded token through stop_check
+    # (finish "deadline", partial output delivered); the lock wait precedes it
+    finish = ["length"]
+    deadline_t = time.perf_counter() + eff_deadline if eff_deadline else None
+
+    def stop_or_deadline(t):
+        if streamer.stop_check(t):
+            return True
+        if deadline_t is not None and time.perf_counter() >= deadline_t:
+            finish[0] = "deadline"
+            return True
+        return False
+
+    for t in resume:  # the resume re-feed, as in the batched path
+        if streamer.stopped:
+            break
+        on_token(t)
+    if streamer.stopped:
+        return "".join(pieces), "stop"
+    if resume and max_tokens == 0:
+        return "".join(pieces), "length"
     engine = state.engine
     # prefix reuse: rewind over the resident conversation's common prefix and/or seed
-    # rows from the cross-conversation pool; prefill covers only the rest
-    reuse = state.cache.begin(prompt)
+    # rows from the cross-conversation pool; prefill covers only the rest (for a resume,
+    # prompt plus the delivered tokens, whose prompt half is usually cached)
+    reuse = state.cache.begin(prompt_full)
     try:
         # the proposer drafts from the whole conversation, not only the delta
-        out, _ = engine.generate_with(prompt[reuse:], max_tokens, sampler,
-                                      on_token=streamer.on_token,
-                                      stop_check=streamer.stop_check,
+        out, _ = engine.generate_with(prompt_full[reuse:], max_tokens, sampler,
+                                      on_token=on_token, stop_check=stop_or_deadline,
                                       speculative_k=state.speculative_k,
-                                      history_tokens=prompt)
+                                      history_tokens=prompt_full)
     except Exception:
         # the cache may hold a half-written conversation: drop the reuse record
         state.cache.invalidate()
         raise
     # only tokens whose KV is written are reusable (a final stop token is sampled but
     # never inferred, so engine.pos may be one short of prompt + out)
-    state.cache.end((prompt + out)[:engine.pos])
-    return "".join(pieces), "stop" if streamer.stopped else "length"
+    state.cache.end((prompt_full + out)[:engine.pos])
+    if streamer.stopped:
+        finish[0] = "stop"
+    return "".join(pieces), finish[0]
 
 
-def _map_error(e: Exception) -> tuple[int, str]:
-    if isinstance(e, EngineClosed):
-        return 503, "server_shutting_down"
+def _map_error(e: Exception) -> tuple[int, str, float | None]:
+    """A typed error -> (status, OpenAI error type, Retry-After seconds or None).
+    InvalidRequest subclasses ValueError, so the specific mappings come first and any
+    other ValueError (a template or encode failure on caller input) stays a 400."""
+    if isinstance(e, QuotaExceeded):
+        return 429, "rate_limit_error", getattr(e, "retry_after", 1.0)
+    if isinstance(e, EngineSaturated):
+        return 503, "overloaded_error", getattr(e, "retry_after", 1.0)
+    if isinstance(e, EngineWedged):
+        # failed while the supervisor recovers the engine: retriable, elsewhere or later
+        return 503, "server_wedged", 1.0
+    if isinstance(e, EngineClosed):  # covers EngineDraining
+        return 503, "server_shutting_down", None
+    if isinstance(e, DeadlineExceeded):
+        return 408, "timeout_error", None
     if isinstance(e, ValueError):  # covers InvalidRequest
-        return 400, "invalid_request_error"
-    return 500, "server_error"
+        return 400, "invalid_request_error", None
+    return 500, "server_error", None
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -218,8 +405,16 @@ class Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
-    def _error(self, code: int, message: str, etype: str):
-        self._json(code, {"error": {"message": message, "type": etype}})
+    def _error(self, code: int, message: str, etype: str,
+               retry_after: float | None = None):
+        """OpenAI-style error body; a load-shed 503 carries Retry-After."""
+        headers = ({"Retry-After": str(max(int(retry_after + 0.5), 1))}
+                   if retry_after is not None else None)
+        self._json(code, {"error": {"message": message, "type": etype}}, headers)
+
+    def _mapped_error(self, e: Exception):
+        code, etype, retry_after = _map_error(e)
+        self._error(code, str(e), etype, retry_after)
 
     def _write_chunk(self, data: bytes):
         self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
@@ -231,12 +426,27 @@ class Handler(BaseHTTPRequestHandler):
                 {"id": self.state.model_name, "object": "model", "created": _now(),
                  "owned_by": "user"}]})
         elif self.path in ("/health", "/healthz"):
-            be = self.state.batch_engine
-            if be is not None and not be.scheduler_alive():
+            # the load balancer's probe, no device work: 503 "draining" once SIGTERM or
+            # begin_drain flips the state, 503 "unhealthy" when the scheduler thread died
+            # or the supervisor is recovering (or gave up on) the engine
+            state = self.state
+            be = state.batch_engine
+            sup = state.supervisor
+            replica = _load_block(state)
+            if state.draining or (be is not None and be.draining):
+                self._json(503, {"status": "draining", "replica": replica})
+            elif be is not None and not be.scheduler_alive():
                 self._json(503, {"status": "unhealthy",
-                                 "reason": "scheduler thread dead"})
+                                 "reason": "scheduler thread dead", "replica": replica})
+            elif sup is not None and not sup.healthy:
+                self._json(503, {"status": "unhealthy",
+                                 "reason": f"supervisor: engine {sup.state}",
+                                 "supervisor": sup.stats(), "replica": replica})
             else:
-                self._json(200, {"status": "ok"})
+                payload = {"status": "ok", "replica": replica}
+                if sup is not None:
+                    payload["supervisor"] = sup.stats()
+                self._json(200, payload)
         else:
             self._error(404, f"Unknown route: {self.path}", "invalid_request_error")
 
@@ -255,23 +465,44 @@ class Handler(BaseHTTPRequestHandler):
                         "invalid_request_error")
             return
         state = self.state
+        # the client's remaining deadline: a durable router relays the original
+        # X-Deadline-Ms less the time spent, across every retry and resume; a budget
+        # already spent is an immediate 408
+        deadline_s = None
+        hdr = self.headers.get("X-Deadline-Ms")
+        if hdr is not None:
+            try:
+                v = float(hdr)
+                if v != v or v in (float("inf"), float("-inf")):
+                    raise ValueError(hdr)
+                deadline_s = max(v, 0.0) / 1000.0
+            except ValueError:
+                self._error(400, "X-Deadline-Ms must be a finite number (ms)",
+                            "invalid_request_error")
+                return
+            if deadline_s <= 0.0:
+                self._error(408, "client deadline already expired", "timeout_error")
+                return
+        # journal mode: a durable router asks for the token ids of each SSE delta
+        journal = {"toks": [], "n": 0} if self.headers.get("X-Dllama-Journal") else None
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
         # batched mode: the scheduler serializes device access itself
         guard = contextlib.nullcontext() if state.batch_engine is not None else state.lock
         with guard:
             if body.get("stream", False):
-                self._stream(state, body, rid)
+                self._stream(state, body, rid, journal, deadline_s)
                 return
             try:
-                text, finish = run_completion(state, body, lambda _t: None)
+                text, finish = run_completion(state, body, lambda _t: None,
+                                              deadline_s=deadline_s)
             except Exception as e:
-                code, etype = _map_error(e)
-                self._error(code, str(e), etype)
+                self._mapped_error(e)
                 return
             self._json(200, _completion_payload(state, text, finish, rid),
                        {"X-Request-Id": rid})
 
-    def _stream(self, state: ApiState, body: dict, rid: str):
+    def _stream(self, state: ApiState, body: dict, rid: str, journal=None,
+                deadline_s: float | None = None):
         # SSE headers are deferred to the first delta: an error raised before any
         # output gets its real status code instead of a 200 stream with an error event
         started = [False]
@@ -289,17 +520,27 @@ class Handler(BaseHTTPRequestHandler):
             if not started[0]:
                 start()
             payload = _chunk_payload(state, rid, {"content": text}, None)
+            if journal is not None:
+                # the token ids whose text this chunk carries and the delivered count:
+                # the router's journal entry (it strips the field before the client)
+                payload["dllama"] = {"n": journal["n"], "toks": journal["toks"]}
+                journal["toks"] = []
             self._write_chunk(f"data: {json.dumps(payload)}\n\n".encode())
 
         try:
-            _text, finish = run_completion(state, body, emit)
+            _text, finish = run_completion(state, body, emit, journal=journal,
+                                           deadline_s=deadline_s)
         except Exception as e:
-            code, etype = _map_error(e)
             if not started[0]:
-                self._error(code, str(e), etype)
+                self._mapped_error(e)
                 return
+            # mid-stream: an error event, then the end of the stream. `retriable` is the
+            # durable router's failover switch: True when the replica failed around an
+            # innocent request (wedged, closed, an engine-scope fault)
+            code, etype, _ = _map_error(e)
             self._write_chunk(("data: " + json.dumps(
-                {"error": {"message": str(e), "type": etype, "code": code}})
+                {"error": {"message": str(e), "type": etype, "code": code,
+                           "retriable": retriable(e)}})
                 + "\n\n").encode())
             self._write_chunk(b"data: [DONE]\n\n")
             self._write_chunk(b"")
@@ -316,11 +557,16 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
           template_type: TemplateType = TemplateType.UNKNOWN,
           default_sampler: Sampler | None = None, batch_engine=None, prefix_cache=True,
           prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
-          prefix_cache_q80: bool = False, speculative_k: int = 0) -> ThreadingHTTPServer:
+          prefix_cache_q80: bool = False, speculative_k: int = 0,
+          request_deadline: float = 0.0, supervisor_threshold: float = 0.0,
+          supervisor_poll: float = 1.0) -> ThreadingHTTPServer:
     """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
     serve_forever(). Pass `engine` for --batch 1 serving (the prefix_* arguments size
     its prefix cache, speculative_k > 0 verifies drafts of greedy requests), or
-    `batch_engine`, which speculates only when built with speculative=K."""
+    `batch_engine`, which speculates only when built with speculative=K.
+    `request_deadline` (seconds, 0 = none) bounds every request; `supervisor_threshold`
+    > 0 starts an EngineSupervisor on the batch engine (`server.api_state.supervisor`;
+    the caller stops it)."""
     # a batch engine built without speculation would leave speculative_k silently inert
     if (batch_engine is not None and speculative_k > 0
             and not getattr(batch_engine, "spec_k", 0)):
@@ -333,13 +579,65 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
                      batch_engine=batch_engine, prefix_cache=prefix_cache,
                      prefix_cache_blocks=prefix_cache_blocks,
                      prefix_block_tokens=prefix_block_tokens,
-                     prefix_cache_q80=prefix_cache_q80, speculative_k=speculative_k)
+                     prefix_cache_q80=prefix_cache_q80, speculative_k=speculative_k,
+                     request_deadline=request_deadline)
     handler = type("BoundHandler", (Handler,), {"state": state})
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
     server.api_state = state
+    state.replica_id = f"{host}:{server.server_address[1]}"
+    if supervisor_threshold > 0 and batch_engine is not None:
+        from ..resilience.supervisor import EngineSupervisor
+
+        state.supervisor = EngineSupervisor(batch_engine, threshold=supervisor_threshold,
+                                            poll=supervisor_poll).start()
+        print(f"🛡️  supervisor armed: a dispatch hung past {supervisor_threshold:g} s "
+              "fails the in-flight requests (retriable) and re-initializes the engine")
     print(f"🟢 dllama-api listening on {host}:{server.server_address[1]}")
     return server
+
+
+def begin_drain(server: ThreadingHTTPServer, state: ApiState,
+                drain_timeout: float = 30.0) -> None:
+    """Graceful drain (the SIGTERM body): flip state.draining (/healthz answers 503
+    "draining", new completions get 503), let in-flight and queued requests finish for
+    at most drain_timeout seconds (BatchEngine.close(drain=True); --batch 1 waits for
+    the generation lock), then stop the server. A second call goes straight to the
+    shutdown."""
+    already = state.draining
+    state.draining = True
+    be = state.batch_engine
+    if not already:
+        print(f"🟡 draining: letting in-flight requests finish (timeout "
+              f"{drain_timeout:g} s)")
+        if be is not None:
+            be.close(drain=True, timeout=drain_timeout)
+        else:
+            end = time.monotonic() + drain_timeout
+            while time.monotonic() < end:
+                if state.lock.acquire(timeout=0.1):
+                    state.lock.release()
+                    break
+    server.shutdown()
+    print("🔴 drained, server stopped")
+
+
+def install_sigterm_drain(server: ThreadingHTTPServer, state: ApiState,
+                          drain_timeout: float = 30.0) -> bool:
+    """Install the SIGTERM -> begin_drain handler (main thread only; False where a
+    handler cannot be installed). The drain runs on a thread of its own, so the signal
+    frame returns at once; serve_forever() returns when the drain shuts the server."""
+    import signal
+
+    def on_term(signum, frame):
+        threading.Thread(target=begin_drain, args=(server, state, drain_timeout),
+                         name="drain", daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, on_term)
+    except ValueError:  # not the main thread
+        return False
+    return True
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -409,6 +707,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "1 verifies every row's block in one batched dispatch (greedy and "
                         "seeded sampling, token-identical either way), --batch 1 speeds up "
                         "greedy requests only")
+    p.add_argument("--max-queue", type=int, default=0, metavar="N",
+                   help="--batch > 1: refuse new requests with 503 + Retry-After once N "
+                        "wait for a slot (0 = unbounded)")
+    p.add_argument("--queue-ttl", type=float, default=0.0, metavar="S",
+                   help="--batch > 1: expire requests that waited more than S seconds "
+                        "for a slot: 408, finish reason 'deadline' (0 = no TTL)")
+    p.add_argument("--request-deadline", type=float, default=0.0, metavar="S",
+                   help="wall-clock deadline per request: generation past S seconds stops "
+                        "with finish reason 'deadline' and the partial output; with "
+                        "--batch > 1 it bounds queue and generation and an expiry before "
+                        "the first token is a 408, with --batch 1 it is checked per token "
+                        "(0 = none). An X-Deadline-Ms header tightens it per request")
+    p.add_argument("--drain-timeout", type=float, default=30.0, metavar="S",
+                   help="SIGTERM drain: /healthz answers 503 'draining', admissions "
+                        "stop, and in-flight requests get up to S seconds to finish")
+    p.add_argument("--supervisor-threshold", type=float, default=0.0, metavar="S",
+                   help="--batch > 1: when no device dispatch completes for S seconds "
+                        "while requests are in flight, fail them with a retriable 503 "
+                        "and re-initialize the engine (its step graphs are captured "
+                        "again); /healthz is unhealthy meanwhile (0 = off). S must exceed "
+                        "the slowest legitimate dispatch, a graph capture or an eager "
+                        "prefill included: a dispatch still launching when the recovery "
+                        "starts writes into the pool that the recovery hands to new "
+                        "requests")
+    p.add_argument("--supervisor-poll", type=float, default=1.0, metavar="S",
+                   help="the supervisor's sampling period (detection takes up to "
+                        "threshold + poll)")
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
@@ -451,6 +776,8 @@ def build_server(args) -> ThreadingHTTPServer:
                                         speculative=args.speculative,
                                         kv_block_tokens=args.kv_block_tokens,
                                         kv_pool_blocks=args.kv_pool_blocks,
+                                        max_queue=args.max_queue,
+                                        queue_ttl=args.queue_ttl,
                                         **cache_kw, **load_kw, **kw)
         spec = batch_engine.spec
         pool = batch_engine.kv_pool
@@ -476,18 +803,29 @@ def build_server(args) -> ThreadingHTTPServer:
                  else TemplateType.UNKNOWN,
                  Sampler(spec.vocab_size, args.temperature, args.topp, seed),
                  batch_engine=batch_engine, speculative_k=args.speculative,
+                 request_deadline=args.request_deadline,
+                 supervisor_threshold=args.supervisor_threshold,
+                 supervisor_poll=args.supervisor_poll,
                  **(cache_kw if batch_engine is None else {}))
 
 
 def main(argv=None) -> None:
-    server = build_server(build_parser().parse_args(argv))
+    faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
+    args = build_parser().parse_args(argv)
+    server = build_server(args)
+    # SIGTERM: /healthz turns to draining, admissions stop, in-flight requests finish
+    install_sigterm_drain(server, server.api_state, args.drain_timeout)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+        if server.api_state.supervisor is not None:
+            server.api_state.supervisor.stop()
         if server.api_state.batch_engine is not None:
+            # after a drain this finds nothing left; on Ctrl-C the waiters get
+            # EngineClosed instead of a scheduler left running
             server.api_state.batch_engine.close()
 
 

@@ -8,6 +8,10 @@ Modes (dllama.cpp:230-245):
     inference  — run prompt + --steps tokens, print per-token stats
     generate   — stream tokens until EOS or --steps
     chat       — interactive REPL with chat template + stop detection (dllama.cpp:111-194)
+
+The first SIGTERM stops a generation after its current token (the partial output and the
+stats still print); a second one stops at once. `DLLAMA_FAULTS` injects faults
+(resilience/faults.py).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from ..models.spec import ModelSpec
 from ..quants import FloatType
+from ..resilience import faults
 from ..runtime.engine import Engine
 from ..runtime.sampler import Sampler
 from ..tokenizer import ChatItem, ChatTemplate, EosDetector, TemplateType
@@ -65,6 +70,39 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+_GRACEFUL_STOP = None  # threading.Event set by the first SIGTERM
+
+
+def install_graceful_stop():
+    """SIGTERM during a generation stops it after the current token instead of killing
+    the process mid-dispatch; a second SIGTERM hard-stops (KeyboardInterrupt). Returns
+    the Event, or None where a handler cannot be installed (not the main thread)."""
+    global _GRACEFUL_STOP
+    import signal
+    import threading
+
+    ev = threading.Event()
+
+    def on_term(signum, frame):
+        if ev.is_set():
+            raise KeyboardInterrupt
+        ev.set()
+        print("\n🟡 SIGTERM: finishing the current token, then stopping (send again to "
+              "hard-stop)", file=sys.stderr)
+
+    try:
+        signal.signal(signal.SIGTERM, on_term)
+    except ValueError:  # not the main thread
+        return None
+    _GRACEFUL_STOP = ev
+    return ev
+
+
+def stop_requested() -> bool:
+    """True once SIGTERM asked the generation loop to wind down."""
+    return _GRACEFUL_STOP is not None and _GRACEFUL_STOP.is_set()
+
+
 def make_engine(args) -> Engine:
     t0 = time.perf_counter()
     engine = Engine.load(
@@ -102,6 +140,7 @@ def mode_inference(args) -> None:
         pieces.append(tok.decode_piece(prompt[-1] if not pieces else 0, t))
 
     _, stats = engine.generate_with(prompt, args.steps, sampler, on_token=on_token,
+                                    stop_check=lambda t: stop_requested(),
                                     device_loop_chunk=args.device_loop,
                                     speculative_k=args.speculative)
     print(b"".join(pieces).decode("utf-8", errors="replace"))
@@ -142,7 +181,7 @@ def mode_generate(args) -> None:
         prev = t
 
     engine.generate_with(prompt, args.steps, sampler, on_token=on_token,
-                         stop_check=lambda t: t == tok.eos_id,
+                         stop_check=lambda t: t == tok.eos_id or stop_requested(),
                          device_loop_chunk=args.device_loop,
                          speculative_k=args.speculative)
     print()
@@ -185,9 +224,13 @@ def mode_chat(args) -> None:
 
         streamer = TokenStreamer(detector, lambda t: tok.decode_piece(0, t), emit)
         engine.generate_with(prompt, engine.spec.seq_len - engine.pos - 1, sampler,
-                             on_token=streamer.on_token, stop_check=streamer.stop_check,
+                             on_token=streamer.on_token,
+                             stop_check=lambda t: streamer.stop_check(t) or stop_requested(),
                              device_loop_chunk=args.device_loop,
                              speculative_k=args.speculative)
+        if stop_requested():
+            print("\n(terminated)")
+            break
         if engine.pos >= engine.spec.seq_len - 1:
             print("\n(context end reached)")
             break
@@ -195,6 +238,8 @@ def mode_chat(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
+    install_graceful_stop()  # SIGTERM: stop after the current token
     {"inference": mode_inference, "generate": mode_generate,
      "chat": mode_chat}[args.mode](args)
 

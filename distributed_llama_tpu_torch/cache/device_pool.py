@@ -100,6 +100,15 @@ class DeviceKVPool:
         with self._lock:
             return len(self._free)
 
+    def reset(self) -> None:
+        """Drop every allocation (engine re-initialization: nothing references the old
+        blocks any more). Metadata only: the pool tensors, which the captured steps
+        read by address, are not touched."""
+        with self._lock:
+            self._refs[:] = 0
+            self._refs[SCRATCH_BLOCK] = 1
+            self._free = list(range(self.n_blocks - 1, 0, -1))
+
     def refcounts(self) -> np.ndarray:
         """Snapshot for tests/stats."""
         with self._lock:

@@ -21,7 +21,10 @@ in the same configuration.
   stop/EOS/max checks, and rolls a row that stopped mid-block back to its frontier
   (the over-decoded tail sits on masked slots). Each request's xorshift* state goes to
   the device before the dispatch; delivery advances the host sampler one coin per
-  delivered token, before the token is emitted.
+  delivered token, before the token is emitted. On the card a one-token step or a
+  prefill picks its stochastic rows' tokens too with the device sampler, in one call on
+  the step's logits with one coin from each row's Sampler (_step), so a request's
+  stream does not depend on where the schedule sampled each token.
 - Pipelining (superstep >= 2): super-step N+1 is issued from N's device carry (last
   token, positions, sampler state) before N's block is delivered, on a schedule that
   assumes N delivers every budgeted token; N+1 is kept only if it did, else it is
@@ -58,6 +61,23 @@ in the same configuration.
   by one upload on a later hit. Dense caches use the host PrefixCache (copy-in seeds,
   copy-out harvests). Every write into the pool tensors is in place, so the captured
   steps read the blocks the tables name.
+- Request control and recovery (resilience/): `submit(deadline=, ttl=)` and the
+  engine's `queue_ttl` expire requests (finish "deadline", DeadlineExceeded before the
+  first token), `max_queue` sheds with EngineSaturated and a Retry-After from the
+  measured drain rate, every device dispatch retries transient failures raised before
+  its first launch (`_dispatched`), a request-scope fault fails only its request,
+  `close(drain=True)` lets in-flight and queued requests finish, and
+  `recover_wedged()` (resilience/supervisor.py) abandons a scheduler thread stuck in a
+  dispatch, fails its requests with the retriable EngineWedged and re-initializes the
+  device side in place: the captured steps are dropped and captured again, the KV pool
+  keeps its storage. `submit(resume_tokens=k)` admits a durable resume (prompt plus k
+  tokens delivered elsewhere, the sampler fast-forwarded by the caller).
+
+  The captured steps read and write their buffers in place, so an abandoned thread
+  must never reach the stream again: each scheduler thread carries the epoch it was
+  born into, and a dispatch checks it after its fault point and before its first
+  launch (and after the call); a mismatch unwinds the thread through _StaleEpoch
+  without touching engine state.
 
 What the JAX engine has that this one refuses with NotImplementedError: the model
 drafter, tenants and SLO shedding.
@@ -76,8 +96,11 @@ import numpy as np
 import torch
 
 from ..models.spec import ModelSpec
+from ..resilience import faults
+from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
+                                 EngineSaturated, EngineWedged, classify)
+from ..resilience.tenancy import DrainRate
 from .engine import PREFILL_CHUNKS, Engine, GenerationStats
-from .errors import EngineClosed, classify
 from .sampler import _random_u32
 from .speculative import AdaptiveK, NgramProposer, verify_block_bucket
 from .step_graph import copy_to_host, upload
@@ -90,6 +113,17 @@ __all__ = ["BatchEngine", "BatchRequest"]
 # super-steps
 SPEC_MIN_DRAFT = 1
 SPEC_CHAIN_EXPECT = 2.0
+# a transient dispatch failure (the JAX engine's defaults): up to MAX_RETRIES retries,
+# the backoff starting at RETRY_BACKOFF seconds and doubling, capped at 1 s
+MAX_RETRIES = 3
+RETRY_BACKOFF = 0.05
+
+
+class _StaleEpoch(BaseException):
+    """Raised inside a scheduler thread that recover_wedged abandoned while it was stuck
+    in a dispatch: the thread unwinds without touching engine state (the slots and
+    requests it knew were replaced). A BaseException, so no `except Exception` keeps the
+    abandoned thread serving."""
 
 
 @dataclass
@@ -108,6 +142,14 @@ class BatchRequest:
     cancelled: bool = False
     submit_t: float = 0.0  # perf_counter at submit()
     first_token_t: float = 0.0  # perf_counter at the first delivered token
+    # absolute perf_counter deadline of the whole request (queue + decode), 0 = none;
+    # enforced once per scheduler pass, so its granularity is one dispatch
+    deadline_t: float = 0.0
+    # absolute perf_counter bound on the time queued before a slot, 0 = none
+    queue_ttl_t: float = 0.0
+    # durable resume: the last resume_tokens entries of `prompt` were generated and
+    # delivered elsewhere (the caller's sampler arrives fast-forwarded past them)
+    resume_tokens: int = 0
 
     def cancel(self) -> None:
         """Ask the scheduler to stop decoding this request (client went away)."""
@@ -133,6 +175,9 @@ class _Slot:
         self.pending: list[int] = []  # prompt tokens not yet prefilled
         self.last_token = 0  # feeds the next decode step
         self.last_logits: np.ndarray | None = None
+        # on the card, the device sampler's pick from last_logits for a stochastic row
+        # (its coin already drawn): taken by _advance_row in place of a host sample
+        self.picked: int | None = None
         # pool block ids backing positions [0, len(blocks)·bt); retained across requests
         # like `history` — the same-slot rewind's backing store
         self.blocks: list[int] = []
@@ -147,6 +192,7 @@ class _Slot:
         self.clamp_pos: int | None = None
         # the prefix-cache lease the request was seeded from (released at _finish)
         self.lease = None
+        self.admit_t = 0.0  # monotonic time of the admission (the dispatch watchdog)
 
 
 class _InflightStep:
@@ -196,7 +242,8 @@ class BatchEngine:
                  slo_ttft_interactive: float = 0.0, slo_ttft_batch: float = 0.0,
                  slo_tpot_interactive: float = 0.0,
                  paged_kv: bool = True, kv_block_tokens: int = 16,
-                 kv_pool_blocks: int = 0, **engine_kw):
+                 kv_pool_blocks: int = 0, max_queue: int = 0, queue_ttl: float = 0.0,
+                 **engine_kw):
         from ..cache import PrefixCache
 
         refused = {"draft_model": draft_model is not None,
@@ -314,8 +361,23 @@ class BatchEngine:
         # scheduler wakeup: submit() and close() notify
         self._cond = threading.Condition()
         self._shutdown = False
+        self._draining = False  # close(drain=True): serve in-flight and queued, refuse new
         self._thread: threading.Thread | None = None
-        self._lock = threading.Lock()  # guards: _thread
+        self._lock = threading.Lock()  # guards: _thread, _epoch
+        # the scheduler epoch: recover_wedged bumps it to abandon a thread stuck in a
+        # dispatch. Each scheduler thread keeps the epoch it was born into in _tls, so
+        # its checks compare against that, not against a value read after the bump
+        self._epoch = 0
+        self._tls = threading.local()
+        self.wedge_recoveries = 0  # recover_wedged calls
+        # admission control: max_queue bounds the requests waiting for a slot (0 =
+        # unbounded), queue_ttl how long one may wait (0 = no bound); plain attributes,
+        # so a server can tune them live
+        self.max_queue = max_queue
+        self.queue_ttl = queue_ttl
+        self.retries = 0  # transient dispatch failures retried
+        self._last_dispatch_t: float | None = None  # monotonic: the watchdog's mark
+        self._drain = DrainRate()  # completions/s: the Retry-After estimate
 
     @classmethod
     def load(cls, model_path: str, tokenizer_path: str | None = None, *,
@@ -341,14 +403,43 @@ class BatchEngine:
     # ------------------------------------------------------------------
 
     def submit(self, prompt: list[int], max_tokens: int, sampler, on_token=None,
-               stop_check=None) -> BatchRequest:
-        """Enqueue a request; raises EngineClosed after close()."""
+               stop_check=None, *, deadline: float | None = None,
+               ttl: float | None = None, resume_tokens: int = 0) -> BatchRequest:
+        """Enqueue a request. `deadline` (seconds) bounds the whole request (queue and
+        generation; finish "deadline" with the partial output, DeadlineExceeded before
+        the first token); `ttl` bounds the queue wait only (in place of the engine's
+        queue_ttl). `resume_tokens` marks the last N entries of `prompt` as tokens a
+        failed replica already generated and delivered (a durable resume): the caller
+        passes the sampler fast-forwarded past their coins, admission prefills prompt
+        plus those tokens (mostly a prefix-cache remap) and generation continues as the
+        uninterrupted run would. Raises EngineDraining while draining, EngineClosed after
+        close(), EngineSaturated when max_queue requests already wait."""
+        if self._draining and not self._shutdown:
+            raise EngineDraining("BatchEngine is draining (serving in-flight requests "
+                                 "only)")
         if self._shutdown:
             raise EngineClosed("BatchEngine is closed")
+        faults.fire("batch.submit")
+        with self._plock:
+            queued = len(self._queue)
+        if self.max_queue and queued >= self.max_queue:
+            raise EngineSaturated(
+                f"admission refused: queue depth {queued} at max_queue={self.max_queue}",
+                retry_after=self._drain.retry_after(queued + 1))
         req = BatchRequest(list(prompt), max_tokens, sampler, on_token, stop_check)
         if not req.prompt:
             req.prompt = [self.tokenizer.bos_id if self.tokenizer else 1]
+        req.resume_tokens = min(max(int(resume_tokens), 0), len(req.prompt))
         req.submit_t = time.perf_counter()
+        if deadline is not None and deadline > 0:
+            req.deadline_t = req.submit_t + deadline
+        eff_ttl = self.queue_ttl if ttl is None else ttl
+        if eff_ttl and eff_ttl > 0:
+            req.queue_ttl_t = req.submit_t + eff_ttl
+        # the queue first, then the thread: racing a recover_wedged, a request queued
+        # before its epoch bump is failed (retriable) by the recovery, and one queued
+        # after it finds _thread None and starts the fresh scheduler, which waits for
+        # the recovery to finish
         with self._plock:
             self._queue.append(req)
         self._ensure_thread()
@@ -363,10 +454,37 @@ class BatchEngine:
         out = req.wait()
         return out, req.stats
 
+    @property
+    def draining(self) -> bool:
+        return self._draining and not self._shutdown
+
     def scheduler_alive(self) -> bool:
         """True while the scheduler can serve (running, or not yet started)."""
         t = self._thread
         return t is None or t.is_alive()
+
+    def load_stats(self) -> dict:
+        """The load reading a fleet router's poller takes from /healthz: slots, slots
+        with no request, requests waiting for one, and whether the engine drains."""
+        with self._plock:
+            occupied = sum(1 for s in self._slots if s.req is not None)
+            queued = len(self._queue)
+        return {"slots": self.slots_n, "free_slots": self.slots_n - occupied,
+                "queue_depth": queued, "draining": self.draining}
+
+    def dispatch_age(self) -> float:
+        """The watchdog reading (resilience/supervisor.py): 0 while no request holds a
+        slot (an idle scheduler is not a hung one), else seconds since the scheduler
+        last made progress — the later of the last completed dispatch and the oldest
+        live admission, so a hang in the first dispatch after an idle spell counts from
+        the moment work arrived."""
+        busy = [s.admit_t for s in self._slots if s.req is not None]
+        if not busy:
+            return 0.0
+        ref = min(busy)
+        if self._last_dispatch_t is not None and self._last_dispatch_t > ref:
+            ref = self._last_dispatch_t
+        return max(time.monotonic() - ref, 0.0)
 
     def spec_stats(self) -> dict | None:
         """Speculation counters (the JAX engine's /v1/stats block, from the engine's
@@ -403,8 +521,108 @@ class BatchEngine:
                 self.prefix_cache.reclaim(self.kv_pool.n_blocks, self._read_block)
             return self.kv_pool.free_blocks()
 
-    def close(self) -> None:
-        """Stop the engine: waiters of in-flight and queued requests get EngineClosed."""
+    def recover_wedged(self, error: Exception | None = None) -> bool:
+        """The supervisor's escalation (resilience/supervisor.py): the scheduler made no
+        progress — a dispatch or its result transfer hangs — so act on it:
+
+        1. abandon the stuck scheduler thread: bump the epoch. The thread cannot be
+           interrupted, but every path it can wake on checks its epoch before the next
+           launch or state change and unwinds through _StaleEpoch; its locals hold the
+           old slot objects, which are replaced below;
+        2. fail every in-flight request, and every request queued before the bump, with
+           EngineWedged (retriable: a durable fleet router resumes each elsewhere);
+        3. re-initialize: drop the device loops and every captured step (each is
+           captured again at its next use), zero the KV pool in place — its tensors
+           keep their storage, which a second pool might not find room for beside the
+           first — and empty the pool metadata, the prefix directory and the block
+           tables. Nothing here waits for the device. Returns False when the
+           re-initialization raised (the replica should stay unhealthy).
+
+        A request submitted after the bump waits for the scheduler that its submit()
+        starts, which runs once the engine is whole again. Safe from any thread."""
+        err = error if error is not None else EngineWedged(
+            f"engine made no dispatch progress for {self.dispatch_age():.1f}s; in-flight "
+            "requests failed (retriable) and the engine was re-initialized")
+        # a fresh scheduler lock, installed with the bump and held through the swap and
+        # the re-init: the abandoned thread may hold the old one for as long as it stays
+        # stuck, and a scheduler started after the bump (a racing submit finds _thread
+        # None) waits on this one until the engine is whole again
+        slock = threading.Lock()
+        slock.acquire()
+        try:
+            with self._lock:
+                with self._plock:  # _admit checks the epoch under it: no stale admission
+                    self._epoch += 1
+                    stale = self._thread
+                    self._thread = None  # the next submit starts a fresh scheduler
+                    self._slock = slock
+                    doomed = list(self._queue)
+                    self._queue.clear()
+            if (stale is not None and stale.is_alive()
+                    and stale is not threading.current_thread()):
+                # a live but slow scheduler sees the bump at its next check and exits; a
+                # stuck one times this out and unwinds when it wakes
+                stale.join(timeout=1.0)
+            self.wedge_recoveries += 1
+            old_slots = self._slots
+            with self._plock:
+                # fresh slot objects: nothing the abandoned thread holds reaches them
+                self._slots = [_Slot(i) for i in range(self.slots_n)]
+            for s in old_slots:
+                if self.prefix_cache is not None and s.lease is not None:
+                    self.prefix_cache.release(s.lease)
+                    s.lease = None
+                if self.kv_pool is not None and s.blocks:
+                    self.kv_pool.decref(s.blocks)
+                    s.blocks = []
+                req, s.req, s.pending = s.req, None, []
+                self.proposer.detach(s.index)
+                if self.adaptive is not None:
+                    self.adaptive.detach(s.index)
+                if req is not None:
+                    doomed.append(req)
+            for req in doomed:
+                if not req.done.is_set():
+                    req.error = err
+                    req.finish = "error"
+                    req.done.set()
+            self._inflight = None
+            self._last_ready_t = None
+            self._last_dispatch_t = None  # the age restarts at the next admission
+            try:
+                faults.fire("engine.reinit")
+                self._loops.clear()
+                self._eng.reset_backend()
+                if self.kv_pool is not None:
+                    self.kv_pool.reset()
+                    if self.prefix_cache is not None:
+                        self.prefix_cache.reset()
+                    self._tables_np[:] = 0
+                    self._tables_dev.zero_()  # queued; the same storage
+                    self._tables_dirty = False
+            except Exception as e:
+                print(f"🔴 engine re-initialization failed: {e!r}", file=sys.stderr,
+                      flush=True)
+                return False
+            return True
+        finally:
+            slock.release()
+
+    def close(self, drain: bool = False, timeout: float | None = None) -> None:
+        """Stop the engine. drain=True (the SIGTERM path): refuse new submits
+        (EngineDraining) and let every in-flight and queued request finish, for at most
+        `timeout` seconds (None = 30), then close. drain=False: the waiters of in-flight
+        and queued requests get EngineClosed at once."""
+        if drain and not self._shutdown:
+            self._draining = True
+            end = time.monotonic() + (30.0 if timeout is None else timeout)
+            while time.monotonic() < end:
+                with self._plock:
+                    busy = (any(s.req is not None for s in self._slots)
+                            or bool(self._queue))
+                if not busy:
+                    break
+                time.sleep(0.01)
         self._shutdown = True
         with self._cond:
             self._cond.notify_all()
@@ -436,8 +654,10 @@ class BatchEngine:
     def _ensure_thread(self) -> None:
         with self._lock:
             if self._thread is None or not self._thread.is_alive():
-                self._thread = threading.Thread(target=self._loop, daemon=True,
-                                                name="batch-engine")
+                # the epoch is fixed here, under the lock: a thread that starts running
+                # after a recover_wedged bump exits at once
+                self._thread = threading.Thread(target=self._loop, args=(self._epoch,),
+                                                daemon=True, name="batch-engine")
                 self._thread.start()
 
     def _assign(self, req: BatchRequest) -> _Slot | None:
@@ -465,6 +685,7 @@ class BatchEngine:
             # [0, reuse) is the slot's own rows; a seed on top counts as hit_tokens
             self.prefix_cache.note_resident(reuse)
             reuse = self._seed_from_cache(best, reuse, full)
+        best.admit_t = time.monotonic()  # before .req: the watchdog keys on req
         best.req = req
         best.pos = reuse
         best.history = list(full[:reuse])
@@ -481,6 +702,11 @@ class BatchEngine:
         else:
             self.proposer.detach(best.index)
         req.stats.prompt_tokens = len(full)
+        # the queue TTL bounds the wait before the first service only
+        req.queue_ttl_t = 0.0
+        # the prefill this admission skipped (rewind and remap or seed): for a resume,
+        # the measure of what the new replica did not run again
+        req.stats.reused_tokens = reuse
         return best
 
     # ------------------------------------------------------------------
@@ -613,6 +839,8 @@ class BatchEngine:
         if pc is not None:
             pc.note_resident(rewind)
             try:
+                # a seed fault costs only the cache hit: the request prefills instead
+                self._fire("batch.cache_seed", slot=slot.index)
                 lease = pc.lookup(full, cap=self.spec.seq_len - 1)
                 if lease is not None and lease.tokens <= rewind:
                     pc.mark_unused(lease)
@@ -697,6 +925,7 @@ class BatchEngine:
         _finish; a failure falls back to plain prefill."""
         pc = self.prefix_cache
         try:
+            self._fire("batch.cache_seed", slot=slot.index)
             lease = pc.lookup(full, cap=self.spec.seq_len - 1)
             if lease is None:
                 return reuse
@@ -729,14 +958,105 @@ class BatchEngine:
         pc.mark_seeded(lease, n - reuse)
         return n
 
+    def _fire(self, point: str, **ctx) -> None:
+        """A fault point on the scheduler thread. A latency fault may park the thread
+        past a recover_wedged; waking, it must go no further into the new epoch's
+        state."""
+        faults.fire(point, **ctx)
+        self._check_epoch()
+
+    def _check_epoch(self) -> None:
+        if self._epoch != getattr(self._tls, "epoch", self._epoch):
+            raise _StaleEpoch()
+
+    def _before_launch(self) -> None:
+        """Run by every dispatch just before its first launch: the epoch check (an
+        abandoned thread never reaches the stream, where the captured steps would write
+        the live pool and carries in place), the mark after which a failure is not
+        retried, and the block table's upload."""
+        self._check_epoch()
+        self._tls.launched = True
+        if self.kv_pool is not None:
+            self._tables()
+
+    def _dispatched(self, kind: str, call):
+        """Run one device dispatch with transient-fault retry. `call` runs
+        _before_launch before its first launch. A failure classify()-ed 'transient' and
+        raised before that point (an injected TransientDispatchError at a fault point)
+        is retried up to MAX_RETRIES times with capped exponential backoff: nothing has
+        reached the stream, so no carry or cache has moved. Anything else, and anything
+        raised after the first launch, propagates (engine scope: a replay advances its
+        buffers in place). The fault point `batch.dispatch` fires (kind, attempt)
+        before each attempt. The epoch is checked before the first launch and after the
+        call; a mismatch raises _StaleEpoch."""
+        delay = RETRY_BACKOFF
+        attempt = 0
+        # the thread's epoch, not a fresh read: a bump landing before this call must
+        # still be seen after it
+        epoch = getattr(self._tls, "epoch", self._epoch)
+        while True:
+            self._tls.launched = False
+            try:
+                faults.fire("batch.dispatch", kind=kind, attempt=attempt)
+                out = call()
+                if self._epoch != epoch:
+                    raise _StaleEpoch()
+                self._last_dispatch_t = time.monotonic()
+                return out
+            except Exception as e:
+                if self._epoch != epoch:
+                    raise _StaleEpoch() from None
+                if (classify(e) != "transient" or self._tls.launched
+                        or attempt >= MAX_RETRIES):
+                    raise
+                self.retries += 1
+                attempt += 1
+                time.sleep(min(delay, 1.0))
+                delay *= 2
+
     def _step(self, tokens_rows: list[list[int]], starts: list[int], t: int,
-              reads: list[tuple[int, int]]) -> np.ndarray:
+              reads: list[tuple[int, int]], kind: str, samplers: list = ()
+              ) -> tuple[np.ndarray, list]:
         """Run one batched (B, t) step; returns the logits of the (row, position) pairs
-        in `reads`, (len(reads), vocab)."""
-        tables = self._tables() if self.kv_pool is not None else None
-        out = self._eng.step_rows(tokens_rows, starts, tables, reads)
+        in `reads`, (len(reads), vocab), and per read the token the device sampler
+        picked from them, or None. On the card each read whose Sampler (`samplers[j]`)
+        is stochastic is picked there, all in one call: one coin from each Sampler, as a
+        host sample would draw, and the same sampler the super-steps run."""
+        picks: list = [None] * len(reads)
+
+        def call():
+            self._before_launch()
+            tables = self._tables_dev if self.kv_pool is not None else None
+            # the coins after the launch mark: an attempt is retried only before it,
+            # so no coin is drawn twice
+            coins = self._coins(samplers)
+            out = self._eng.step_rows(tokens_rows, starts, tables, reads, coins)
+            if coins is None:
+                return out
+            logits, toks = out
+            for j, tok in zip(coins[0], toks):
+                picks[j] = tok
+            return logits
+        logits = self._dispatched(kind, call)
         self.dispatches += 1
-        return out
+        return logits, picks
+
+    def _coins(self, samplers) -> tuple | None:
+        """The device sampler's inputs for the stochastic reads of a step on the card:
+        (read indices, coins, temperatures, top-ps), each coin drawn from its read's
+        Sampler; None on the CPU, where the host Sampler samples, or with none."""
+        if self._eng.device.type != "cuda":
+            return None
+        idx, coins, temps, topps = [], [], [], []
+        for j, smp in enumerate(samplers):
+            temp = float(getattr(smp, "temperature", 0.0))
+            if temp == 0.0 or not hasattr(smp, "next_coin"):
+                continue
+            idx.append(j)
+            coins.append(smp.next_coin())
+            temps.append(temp)
+            topps.append(float(smp.topp))
+        return (idx, coins, temps, topps) if idx else None
 
     def _finish(self, slot: _Slot, finish: str) -> None:
         req = slot.req
@@ -747,6 +1067,7 @@ class BatchEngine:
         self.proposer.detach(slot.index)
         if self.adaptive is not None:
             self.adaptive.detach(slot.index)
+        self._drain.note()  # one completion: the Retry-After estimate's rate
         if self.prefix_cache is not None and slot.lease is not None:
             # the lease pins blocks for the in-flight period only: released before
             # done.set(), so a caller seeing completion sees no residual reservation
@@ -828,9 +1149,25 @@ class BatchEngine:
         return starts
 
     def _admit(self) -> None:
-        """Assign queued requests in arrival order onto free slots; cancelled queued
-        requests finish without a slot."""
+        """Expire queued requests past their queue TTL or deadline (finish "deadline",
+        DeadlineExceeded), then assign queued requests in arrival order onto free slots;
+        cancelled queued requests finish without a slot."""
+        now = time.perf_counter()
         with self._plock:
+            # under the lock recover_wedged bumps the epoch with: an abandoned thread
+            # admits nothing queued after the bump
+            self._check_epoch()
+            # every queued request, not just the head: under sustained occupancy the
+            # head may never admit, and the requests behind it must still time out
+            expired = [(req, "queue_ttl" if req.queue_ttl_t and now >= req.queue_ttl_t
+                        else "deadline") for req in self._queue
+                       if (req.queue_ttl_t and now >= req.queue_ttl_t)
+                       or (req.deadline_t and now >= req.deadline_t)]
+            for req, by in expired:
+                self._queue.remove(req)
+                req.finish = "deadline"
+                req.error = DeadlineExceeded(f"request expired in queue ({by})")
+                req.done.set()
             while self._queue:
                 req = self._queue[0]
                 if req.cancelled:
@@ -852,10 +1189,21 @@ class BatchEngine:
                 self._queue.popleft()
 
     def _reap_slots(self) -> None:
-        """Free slots whose request was cancelled."""
+        """Free slots whose request was cancelled or whose deadline passed (finish
+        "deadline": the partial output is kept; DeadlineExceeded only when nothing was
+        generated)."""
+        now = time.perf_counter()
         for sl in self._slots:
-            if sl.req is not None and sl.req.cancelled:
+            req = sl.req
+            if req is None:
+                continue
+            if req.cancelled:
                 self._finish(sl, "cancelled")
+            elif req.deadline_t and now >= req.deadline_t:
+                if not req.out:
+                    req.error = DeadlineExceeded(
+                        "generation deadline expired before the first token")
+                self._finish(sl, "deadline")
 
     def _fail_request(self, slot: _Slot, e: Exception) -> None:
         """Blast radius 'request': fail only this slot's request; the other co-batched
@@ -875,13 +1223,18 @@ class BatchEngine:
                 s.req.error = e
                 self._finish(s, "error")
 
-    def _loop(self) -> None:
+    def _loop(self, epoch: int) -> None:
+        self._tls.epoch = epoch  # the epoch this thread was born into
         try:
-            while not self._shutdown:
+            while not self._shutdown and self._epoch == epoch:
                 try:
                     self._loop_once()
+                except _StaleEpoch:
+                    return  # abandoned by recover_wedged: unwind without a trace
                 except Exception as e:
                     # no exception may kill the scheduler thread
+                    if self._epoch != epoch:
+                        return  # the state is the new epoch's, not ours to fail
                     try:
                         self._fail_all(e)
                     except Exception:
@@ -890,7 +1243,9 @@ class BatchEngine:
                         if not self._shutdown:
                             self._cond.wait(timeout=0.05)
         finally:
-            if self._inflight is not None:  # close() with a chained super-step issued
+            # close() with a chained super-step issued; an abandoned thread's exit
+            # leaves the new epoch's pipeline alone
+            if self._epoch == epoch and self._inflight is not None:
                 self.flushes["close"] += 1
                 self._inflight = None
 
@@ -937,6 +1292,9 @@ class BatchEngine:
         host-side finish checks. Returns False when the request finished. slot.pos must
         already count the ingestion of this token's input."""
         req = slot.req
+        # a request-scope fault point inside the callers' try blocks that guard a broken
+        # sampler or callback: an injected error fails exactly this request
+        self._fire("batch.emit", slot=slot.index, n_out=len(req.out))
         req.out.append(token)
         # the proposer's corpus follows every delivered token, in order
         self.proposer.push(slot.index, token)
@@ -975,7 +1333,8 @@ class BatchEngine:
             self._finish(slot, "length")
             return False
         try:
-            token = req.sampler.sample(slot.last_logits)
+            token = (slot.picked if slot.picked is not None
+                     else req.sampler.sample(slot.last_logits))
             alive = self._emit(slot, token)
         except Exception as e:
             # a broken callback (e.g. client gone mid-stream) fails only this request
@@ -986,10 +1345,14 @@ class BatchEngine:
             return False
         slot.last_token = token
         slot.last_logits = None
+        slot.picked = None
         slot.armed = True
         return True
 
     def _prefill_step(self, slot: _Slot, riders: list[_Slot] = ()) -> None:
+        # a request-scope fault point before the riders advance and before the dispatch:
+        # an injected error is attributable to the prefilling request alone
+        self._fire("batch.prefill", slot=slot.index, pending=len(slot.pending))
         t0 = time.perf_counter()
         s = self.spec.seq_len
         room = s - slot.pos
@@ -1032,7 +1395,9 @@ class BatchEngine:
                     riders.remove(r)
         done = t == len(slot.pending)
         reads = ([(slot.index, t - 1)] if done else []) + [(r.index, 0) for r in riders]
-        logits = self._step(rows, starts, t, reads)
+        samplers = ([slot.req.sampler] if done else []) + [r.req.sampler for r in riders]
+        logits, picks = self._step(rows, starts, t, reads,
+                                   "mixed" if riders else "prefill", samplers)
         if riders:
             self.mixed_steps += 1
         dt_ms = (time.perf_counter() - t0) * 1000.0
@@ -1042,11 +1407,11 @@ class BatchEngine:
         slot.history.extend(piece)
         slot.pending = slot.pending[t:]
         if done:
-            slot.last_logits = logits[0]
+            slot.last_logits, slot.picked = logits[0], picks[0]
             slot.last_token = slot.history[-1]
         slot.req.stats.prefill_ms += dt_ms
         for i, r in enumerate(riders):  # each rider decoded one token in this dispatch
-            r.last_logits = logits[i + int(done)]
+            r.last_logits, r.picked = logits[i + int(done)], picks[i + int(done)]
             r.history.append(r.last_token)
             r.pos += 1
             r.armed = False  # the dispatch ingested last_token's KV
@@ -1102,12 +1467,13 @@ class BatchEngine:
         for slot in active:
             starts[slot.index] = slot.pos
             rows[slot.index] = [slot.last_token]
-        logits = self._step(rows, starts, 1, [(slot.index, 0) for slot in active])
+        logits, picks = self._step(rows, starts, 1, [(slot.index, 0) for slot in active],
+                                   "single_step", [slot.req.sampler for slot in active])
         self.decode_steps += 1
         dt_ms = (time.perf_counter() - t0) * 1000.0
         self.dispatch_ms["decode"].append(dt_ms)
         for i, slot in enumerate(active):
-            slot.last_logits = logits[i]
+            slot.last_logits, slot.picked = logits[i], picks[i]
             slot.history.append(slot.last_token)
             slot.pos += 1
             slot.armed = False  # the dispatch ingested last_token's KV
@@ -1202,6 +1568,7 @@ class BatchEngine:
         delivery emits each row's accepted drafts and the correction or bonus token.
         Rejected tails sit past the frontier on masked slots; the device carry is
         rewound to the frontier, so a chained super-step composes with any outcome."""
+        self._fire("batch.verify", rows=len(active), block=t)
         if self.kv_pool is not None:
             for slot in active[:]:
                 try:
@@ -1256,11 +1623,14 @@ class BatchEngine:
         window = eng._window_for(min(max(starts) + t, self.spec.seq_len))
         loop = self._verify_loop(t, mode, window)
         t_issue = time.perf_counter()
-        tables = self._tables() if self.kv_pool is not None else None
-        toks, acc, tok, pos, rng_out, _, _ = loop(eng.rope, props, eng.k_cache,
-                                                  eng.v_cache, starts, rng, temps, topps,
-                                                  ndraft, tables)
-        fetch = copy_to_host(toks, acc)
+        tables = self._tables_dev if self.kv_pool is not None else None
+
+        def call():
+            toks, acc, tok, pos, rng_out, _, _ = loop(
+                eng.rope, props, eng.k_cache, eng.v_cache, starts, rng, temps, topps,
+                ndraft, tables, guard=self._before_launch)
+            return copy_to_host(toks, acc), tok, pos, rng_out
+        fetch, tok, pos, rng_out = self._dispatched("verify", call)
         self.dispatches += 1
         return _InflightStep(rows, t, starts, budget, temps, fetch, tok, pos, rng_out,
                              t_issue, kind="verify", ndraft=ndraft)
@@ -1311,7 +1681,8 @@ class BatchEngine:
         `fl`; the chained dispatch is kept only if every row it decodes delivered its
         full budget and stayed live."""
         nxt = None
-        plan = self._plan_chain(fl) if self.pipeline and not self._shutdown else None
+        plan = (self._plan_chain(fl)
+                if self.pipeline and not self._shutdown and not self._draining else None)
         if plan is not None:
             with self._plock:
                 waiting = bool(self._queue)
@@ -1363,6 +1734,7 @@ class BatchEngine:
         row that accepted less decodes with a smaller budget than it could. Only a row
         that finished in the verify flushes the chain, as after a super-step."""
         k, s = self.superstep, self.spec.seq_len
+        now = time.perf_counter()
         if fl.kind == "verify":
             if self._spec_ema >= SPEC_CHAIN_EXPECT:
                 self.flushes["spec"] += 1
@@ -1381,8 +1753,8 @@ class BatchEngine:
         clamp: list[_Slot] = []
         for slot, req in fl.rows:
             i = slot.index
-            if req.cancelled:
-                return None
+            if req.cancelled or (req.deadline_t and now >= req.deadline_t):
+                return None  # the reap comes next pass: do not outrun it
             b = min(k, req.max_tokens - (len(req.out) + gain[i]), s - starts[i])
             if b > 0:
                 budget[i] = b
@@ -1423,10 +1795,14 @@ class BatchEngine:
             tok_in, pos_in, rng_in = chain.tok, chain.pos, chain.rng
             self.chained += 1
         t_issue = time.perf_counter()
-        tables = self._tables() if self.kv_pool is not None else None
-        toks, tok, pos, rng_out, _, _ = loop(eng.rope, tok_in, eng.k_cache, eng.v_cache,
-                                             pos_in, rng_in, temps, topps, budget, tables)
-        fetch = copy_to_host(toks)
+        tables = self._tables_dev if self.kv_pool is not None else None
+
+        def call():
+            toks, tok, pos, rng_out, _, _ = loop(
+                eng.rope, tok_in, eng.k_cache, eng.v_cache, pos_in, rng_in, temps, topps,
+                budget, tables, guard=self._before_launch)
+            return copy_to_host(toks), tok, pos, rng_out
+        fetch, tok, pos, rng_out = self._dispatched("super_step", call)
         self.dispatches += 1
         self.loop_steps += k
         return _InflightStep(rows, k, starts, budget, temps, fetch, tok, pos, rng_out,
@@ -1444,6 +1820,10 @@ class BatchEngine:
         k, s = fl.k, self.spec.seq_len
         verify = fl.kind == "verify"
         got = fl.fetch()  # the dispatch's one fence
+        # a hung transfer is the other place a wedged thread blocks: woken after a
+        # recovery, it must not deliver into slots that now hold other requests
+        self._check_epoch()
+        self._last_dispatch_t = time.monotonic()
         toks = got[0]
         acc = got[1] if verify else None
         t_ready = time.perf_counter()

@@ -33,6 +33,7 @@ import torch
 
 from ..models.forward import forward
 from ..models.spec import ModelSpec
+from ..resilience import faults
 from .step_graph import StepGraphs, upload
 
 M32 = 0xFFFFFFFF
@@ -216,6 +217,7 @@ def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "gree
         i.add_(1)
 
     def run(rope, token, kc, vc, start_pos, key, temperature=0.0, topp=0.9):
+        faults.fire("device_loop.dispatch", n_steps=n_steps)
         if not st:
             dev = kc.device
             st.update(rope=rope, kc=kc, vc=vc,
@@ -278,7 +280,11 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
 
     kv_block_tokens > 0: kc/vc are (L, N, hk, bt, hs) block pools read through the
     (B, W) int32 `tables`. A captured step runs on the caches and table it was first
-    called with."""
+    called with.
+
+    The fault point `device_loop.batched_dispatch` fires on the host before anything is
+    uploaded or replayed; then `guard()`, where given, may still refuse the dispatch by
+    raising (the BatchEngine's epoch check)."""
     assert mode in ("greedy", "sample"), mode
     paged = kv_block_tokens > 0
     seq_len = spec.seq_len
@@ -310,7 +316,11 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
         pos.copy_(torch.where(live, pos + 1, pos))
         i.add_(1)
 
-    def run(rope, tokens, kc, vc, start_pos, rng, temperature, topp, budget, tables=None):
+    def run(rope, tokens, kc, vc, start_pos, rng, temperature, topp, budget, tables=None,
+            guard=None):
+        faults.fire("device_loop.batched_dispatch", n_steps=n_steps)
+        if guard is not None:
+            guard()  # the caller's last word before anything reaches the stream
         b = len(budget)
         if not st:
             dev = kc.device
@@ -381,7 +391,9 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
     drafted from delivered tokens); the outputs are static device buffers, valid until
     the next call. The step reads only its input buffers and writes only its output
     buffers and the caches, so a capture's warm-up needs no restore; on the card with
-    `graphs` enabled it is one CUDA graph per (mode, window bucket, rows, T)."""
+    `graphs` enabled it is one CUDA graph per (mode, window bucket, rows, T). The fault
+    point `device_loop.verify_dispatch` and then `guard()` run before any upload, as in
+    make_batched_decode_loop."""
     assert mode in ("greedy", "sample"), mode
     assert block >= 2, "a verify block needs at least one draft position"
     paged = kv_block_tokens > 0
@@ -436,7 +448,10 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
             out[2:4].copy_(st["ints"][1:3])
 
     def run(rope, proposals, kc, vc, start_pos, rng, temperature, topp, ndraft,
-            tables=None):
+            tables=None, guard=None):
+        faults.fire("device_loop.verify_dispatch", block=block)
+        if guard is not None:
+            guard()
         props = np.asarray(proposals, np.int64)
         b, t = props.shape
         if t != block:

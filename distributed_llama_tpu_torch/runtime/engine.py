@@ -38,6 +38,7 @@ from ..models.params import Params, decode_stream_bytes, params_to, prepare_for_
 from ..models.spec import ModelSpec
 from ..ops.rope import RopeTables
 from ..quants import FloatType
+from ..resilience import faults
 from ..tokenizer.bpe import Tokenizer
 from .step_graph import StepGraphs, copy_to_host, upload
 
@@ -51,6 +52,10 @@ class GenerationStats:
 
     prompt_tokens: int = 0
     generated_tokens: int = 0
+    # prompt tokens whose prefill admission skipped (same-slot rewind and prefix-cache
+    # remap or seed): for a resumed request, the share of prompt + delivered tokens the
+    # new replica did not run again
+    reused_tokens: int = 0
     prefill_ms: float = 0.0
     # per decoded token: total (sample + step) and step-only wall times, in ms. Where
     # one dispatch covers several tokens (a verify block, a device-loop chunk, a
@@ -148,11 +153,28 @@ class Engine:
         # the decode steps replay CUDA graphs on the card with the kernels on
         self.cuda_graph = bool(cuda_graph) and on_gpu and bool(self.use_kernels)
         self.graphs = StepGraphs(self.device, self.cuda_graph)
+        self._init_steps()
+
+    def _init_steps(self) -> None:
+        """The static step buffers and the step caches built on them."""
         # the one-token step's static inputs: the token and a 0-d position
         self._tok1 = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
         self._pos1 = torch.zeros((), dtype=torch.int64, device=self.device)
         self._decode_loops: dict = {}
         self._verify_toks: dict[int, torch.Tensor] = {}  # bucket -> static (1, T) tokens
+
+    def reset_backend(self) -> None:
+        """Re-initialize the device side after a wedge (BatchEngine.recover_wedged):
+        drop every captured step graph, the device loops and the static step buffers,
+        so each step is captured again at its next use, and zero the KV caches in place.
+        The cache tensors keep their storage (a second pool of a large model may not fit
+        beside the first while an abandoned thread still holds it), and nothing here
+        waits for the device: on a hung stream the zeroing only queues."""
+        self.graphs.reset()
+        self._init_steps()
+        self.k_cache.zero_()
+        self.v_cache.zero_()
+        self.pos = 0
 
     @classmethod
     def load(cls, model_path: str, tokenizer_path: str | None = None, *,
@@ -231,6 +253,7 @@ class Engine:
         t = len(tokens)
         if self.pos + t > self.spec.seq_len:
             raise ValueError(f"context overflow: pos {self.pos} + {t} > {self.spec.seq_len}")
+        faults.fire("engine.dispatch", t=t, pos=self.pos)
         window = self._window_for(self.pos + t)
         if t == 1:
             self._tok1.fill_(int(tokens[0]))
@@ -264,6 +287,7 @@ class Engine:
             return self._infer(tokens)
         if self.batch != 1 or self.kv_pool is not None:
             raise RuntimeError("the single-sequence loop needs batch=1 dense caches")
+        faults.fire("engine.dispatch", t=t, pos=self.pos)
         window = self._window_for(self.pos + b)
         buf = self._verify_toks.get(b)
         if buf is None:
@@ -293,11 +317,14 @@ class Engine:
         return logits
 
     def step_rows(self, tokens_rows, starts, tables: torch.Tensor | None,
-                  reads: list[tuple[int, int]]) -> np.ndarray:
+                  reads: list[tuple[int, int]], coins: tuple | None = None):
         """One batched (B, T) step for the serving engine: row b's T tokens at its own
         start position starts[b], through the (B, W) int32 block `tables` on this
         engine's device in pool mode. Returns the logits of the (row, position) pairs in
-        `reads` as a (len(reads), vocab) array; the host copy is the step's fence."""
+        `reads` as a (len(reads), vocab) array; the host copy is the step's fence. With
+        `coins` = (read indices, coins, temperatures, top-ps) it also samples those
+        reads on this device (device_loop.device_sample_coin, one call) and returns
+        (logits, their tokens)."""
         tok = torch.from_numpy(np.asarray(tokens_rows, dtype=np.int64)).to(self.device)
         t = tok.shape[1]
         start = torch.from_numpy(np.asarray(starts, dtype=np.int64)).to(self.device)
@@ -311,7 +338,15 @@ class Engine:
             fused_prologue=self.fused_prologue)
         rows = torch.tensor([r for r, _ in reads], dtype=torch.long, device=self.device)
         cols = torch.tensor([c for _, c in reads], dtype=torch.long, device=self.device)
-        return logits[rows, cols].cpu().numpy()
+        sel = logits[rows, cols]
+        if coins is None:
+            return sel.cpu().numpy()
+        from .device_loop import device_sample_coin
+
+        idx, u, temps, topps = coins
+        vals = torch.tensor([u, temps, topps], dtype=torch.float32).to(self.device)
+        toks = device_sample_coin(sel[idx].float(), vals[0], vals[1], vals[2])
+        return sel.cpu().numpy(), toks.cpu().tolist()
 
     def prefill(self, tokens: list[int], stats: GenerationStats | None = None) -> np.ndarray:
         """Chunked prompt ingestion; returns logits after the last prompt token."""

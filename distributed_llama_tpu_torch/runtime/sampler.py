@@ -43,7 +43,9 @@ class Sampler:
     def set_seed(self, seed: int) -> None:
         self.state = np.uint64(seed)
 
-    def _coin(self) -> float:
+    def next_coin(self) -> float:
+        """Draw the coin of the next stochastic sample (one per sample): what a device
+        sampler picks with in this Sampler's place."""
         self.state, u = _random_u32(self.state)
         return (u >> 8) / 16777216.0  # randomF32, utils.cpp:88-90
 
@@ -66,7 +68,7 @@ class Sampler:
         if self.temperature == 0.0:
             return int(np.argmax(logits))
         probs = _softmax(logits / self.temperature)
-        coin = self._coin()
+        coin = self.next_coin()
         if self.topp <= 0 or self.topp >= 1:
             return self._sample_mult(probs, coin)
         return self._sample_topp(probs, coin)

@@ -58,6 +58,14 @@ class StepGraphs:
     def keys(self) -> list[tuple]:
         return list(self._graphs)
 
+    def reset(self) -> None:
+        """Drop every captured graph and their memory pool (an engine re-initialization:
+        each key is captured again at its next use, in a fresh pool). The counters
+        stay. Calls nothing that waits for the device; a graph's memory returns to the
+        allocator once nothing holds its static outputs."""
+        self._graphs = {}
+        self._pool = None
+
     def graph(self, key: tuple) -> torch.cuda.CUDAGraph:
         return self._graphs[key].graph
 

@@ -20,7 +20,9 @@ against the CPU plain versions: identical greedy tokens per request, logits step
 within 2e-3·max|logits| (`chip_smoke.serving_parity`). The prefix-cache tests hold the
 bf16 host tier bit-exact through a demotion and a promotion, the pools' storage fixed
 through copy-on-write and promotion, captured super-steps against eager ones after a
-remap and a copy, and the single-slot seed against a fresh prefill, bit for bit."""
+remap and a copy, and the single-slot seed against a fresh prefill, bit for bit. The
+recovery test holds recover_wedged to its contract on the card: the pool's storage kept,
+no launch from the abandoned thread, every graph captured again, the same tokens."""
 
 import numpy as np
 import pytest
@@ -1388,3 +1390,94 @@ def test_generate_speculative_graph_matches_eager(cuda, prefill_kernel):
         verify = [k for k in eng.graphs.keys() if k[0] == "verify"]
         assert bool(verify) == graph and st.spec_steps > 0
     assert runs[0] == runs[1]
+
+
+# ------------------------------------------------------------------ recovery
+
+
+@pytest.mark.cuda
+def test_recover_wedged_recaptures_and_keeps_the_pool(cuda):
+    """The fused BatchEngine at 2 layers of Llama-2-7B width parked in a dispatch by a
+    600 s latency fault: recover_wedged fails both in-flight requests (EngineWedged)
+    within 1.5 s, keeps the pool tensors' storage, and the abandoned thread makes no
+    launch and no replay when woken; afterwards every graph is captured again and the
+    same prompts from the same (emptied) state give the same tokens."""
+    import time
+
+    from distributed_llama_tpu_torch.resilience import faults
+    from distributed_llama_tpu_torch.resilience.errors import EngineWedged
+    from distributed_llama_tpu_torch.resilience.faults import FaultSpec
+
+    spec, params, p = _prefix_model(cuda)
+    be = _prefix_batch(spec, params)
+    prompts = [p[:21], p[:37] + [9]]
+
+    def run():
+        with be._slock:  # one pass admits both: the same schedule each time
+            reqs = [be.submit(q, 24, Sampler(spec.vocab_size)) for q in prompts]
+        return [r.wait(timeout=300) for r in reqs]
+    try:
+        before = run()
+        eng, graphs = be.engine, be.engine.graphs
+        ptrs = (eng.k_cache.data_ptr(), eng.v_cache.data_ptr(), be._tables_dev.data_ptr())
+        assert graphs.keys()
+        old = {k: graphs._graphs[k] for k in graphs.keys()}
+        replays = {k: c.replays for k, c in old.items()}
+        plan = faults.install([FaultSpec("batch.dispatch", kind="latency",
+                                         delay_ms=600_000, count=1)])
+        with be._slock:
+            reqs = [be.submit(q, 24, Sampler(spec.vocab_size)) for q in prompts]
+        t0 = time.time()
+        while plan.fired() == 0 and time.time() - t0 < 60:
+            time.sleep(0.005)
+        zombie = be._thread
+        t0 = time.perf_counter()
+        assert be.recover_wedged()
+        assert time.perf_counter() - t0 < 1.5
+        for r in reqs:
+            with pytest.raises(EngineWedged):
+                r.wait(timeout=10)
+        d0, r0 = be.dispatches, graphs.replays
+        faults.release()
+        zombie.join(30)
+        assert not zombie.is_alive()
+        assert (be.dispatches, graphs.replays) == (d0, r0)
+        assert {k: c.replays for k, c in old.items()} == replays
+        faults.uninstall()
+        assert (eng.k_cache.data_ptr(), eng.v_cache.data_ptr(),
+                be._tables_dev.data_ptr()) == ptrs
+        assert not graphs.keys()
+        caps = graphs.captures
+        assert run() == before
+        assert graphs.captures > caps and set(graphs.keys()) == set(old)
+        assert be.release_idle() == be.kv_pool.n_blocks - 1
+    finally:
+        faults.release()
+        faults.uninstall()
+        be.close()
+
+
+@pytest.mark.cuda
+def test_seeded_tokens_do_not_depend_on_where_they_are_sampled(cuda):
+    """On the card a stochastic token picked on the host (after a prefill, in a one-token
+    step) takes the device sampler's pick, as super-step tokens do: a seeded request
+    gives the same tokens at superstep 1 (every token a host step) and at superstep 4
+    (super-steps on the device), and a resume at k from the same state continues it."""
+    spec, params, p = _prefix_model(cuda)
+    outs = {}
+    for k in (1, 4):
+        be = BatchEngine(spec, params, slots=2, device="cuda", fused_matmul=True,
+                         superstep=k)
+        try:
+            outs[k] = [be.submit(p[:30] + [i], 24, Sampler(spec.vocab_size, 0.8, 0.9,
+                                                           77 + i)).wait(timeout=300)
+                       for i in range(2)]
+            if k == 4:
+                smp = Sampler(spec.vocab_size, 0.8, 0.9, 77)
+                smp.fast_forward(5)
+                got = be.submit(p[:30] + [0] + outs[k][0][:5], 19, smp,
+                                resume_tokens=5).wait(timeout=300)
+                assert got == outs[k][0][5:]
+        finally:
+            be.close()
+    assert outs[1] == outs[4]

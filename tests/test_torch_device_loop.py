@@ -82,7 +82,7 @@ def test_xorshift_matches_jax_and_host_sampler(family):
 def test_xorshift_coin_matches_host_coin(seed):
     """The JAX test's oracle (test_superstep.py::test_device_coin_matches_host_coin):
     the device coin is the host Sampler's randomF32, for the port and for JAX."""
-    want = Sampler(16, temperature=1.0, seed=seed)._coin()
+    want = Sampler(16, temperature=1.0, seed=seed).next_coin()
     _, _, coin = tdl.xorshift_coin(torch.tensor([seed >> 32]), torch.tensor([seed & M32]))
     _, _, jcoin = jdl.xorshift_coin(jnp.uint32(seed >> 32), jnp.uint32(seed & M32))
     assert coin.dtype == torch.float32

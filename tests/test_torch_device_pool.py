@@ -8,7 +8,7 @@ import pytest
 from distributed_llama_tpu.cache.device_pool import DeviceKVPool as JPool
 from distributed_llama_tpu_torch.cache.device_pool import (SCRATCH_BLOCK, DeviceKVPool,
                                                            KVPoolExhausted)
-from distributed_llama_tpu_torch.runtime.errors import classify
+from distributed_llama_tpu_torch.resilience.errors import classify
 
 
 def test_pool_matches_jax_under_random_operations():

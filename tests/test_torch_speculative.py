@@ -472,7 +472,7 @@ def test_sampler_state_final_before_done(models, kind):
         assert req.done.seen == int(smp.state)
         want = Sampler(V, *temp)
         for _ in out:
-            want._coin()
+            want.next_coin()
         assert int(smp.state) == int(want.state)
         if kind == "verify":
             assert req.stats.spec_accepted >= 1
