@@ -83,6 +83,23 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             flight (/healthz 503 "draining", the stream completes). Times: detection to
             healthy, the first super-step after recovery against a warm one, a retry, the
             drain
+  tenancy   tenancy on the serve phase's weights, in the resil phase's engine: 8 batch
+            requests of tenant flood (100-token prompts, 128 tokens) admitted in one
+            pass from emptied caches; request 7's token callback submits an
+            interactive request of tenant gold at its 16th token, which preempts request
+            7 (the batch row with the least output) at the next super-step boundary:
+            the victim's tokens equal its uninterrupted run's (all greedy, then 4 greedy
+            and 4 seeded), its re-admission remaps 7 blocks and prefills its 5-token
+            tail; the interactive TTFT (its wait for admission and its prefill
+            dispatches) beside the super-step period, the rollback, the launches
+  disagg    disaggregated prefill on the same weights: two port servers in this process
+            (roles prefill and decode, each its own 8-slot engine); the script plays
+            the router: POST /v1/kv (X-Tenant gold, X-Class batch) with a 517-token
+            prompt, then the streamed completion with that kv_source to the decode
+            server, whose 32 greedy tokens equal its monolithic run from emptied caches
+            and which prefills only the 5-token tail; again on the Q80 wire (fewer
+            bytes); export ms a block, wire bytes, fetch-and-decode, insert_cold and
+            promotion ms, seed bytes, the split TTFT against the monolithic one
   moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
             with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
             phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
@@ -153,7 +170,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
-              "resil", "moe", "kernels", "cli")
+              "resil", "tenancy", "disagg", "moe", "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -2209,20 +2226,22 @@ def graph_snapshot(counters, graphs) -> tuple:
     return (_read(counters), {k: graphs.replays_of(k) for k in graphs.keys()})
 
 
-def run_launches(counters, graphs, snap) -> tuple[dict, int, int]:
+def run_launches(counters, graphs, snap, more=()) -> tuple[dict, int, int]:
     """Each counted kernel's launches since `snap` (eager calls, warm-up steps and graph
-    replays; see counting_graphs), the graph replays, and the graphs captured."""
-    before, replays = snap
-    out = {n: v - before[n] for n, v in _read(counters).items()}
+    replays; see counting_graphs), the graph replays, and the graphs captured. `more`
+    holds (graphs, snap) pairs of other engines run meanwhile: the counters are
+    module-wide, each engine's graphs its own."""
+    out = {n: v - snap[0][n] for n, v in _read(counters).items()}
     n_replays = n_new = 0
-    for key in graphs.keys():
-        per = graphs.per_step[key]
-        dr = graphs.replays_of(key) - replays.get(key, 0)
-        new = key not in replays
-        n_replays += dr
-        n_new += new
-        for n, c in per.items():
-            out[n] += c * dr - (c if new else 0)
+    for g, (_before, replays) in ((graphs, snap), *more):
+        for key in g.keys():
+            per = g.per_step[key]
+            dr = g.replays_of(key) - replays.get(key, 0)
+            new = key not in replays
+            n_replays += dr
+            n_new += new
+            for n, c in per.items():
+                out[n] += c * dr - (c if new else 0)
     return out, n_replays, n_new
 
 
@@ -3410,16 +3429,26 @@ def _prefix_single(state: dict, spec, params, t: dict) -> dict:
     return {"seed_ms": got["seed_ms"], "ttft_on": got["ttft"], "ttft_off": off_ttft}
 
 
+# the phases after serve that run on its 7B weights, in their order
+SERVE_WEIGHT_PHASES = ("prefix", "spec", "resil", "tenancy", "disagg")
+
+
+def _take_serve_params(state: dict, phase: str):
+    """The serve phase's 7B weights (drawn here when that phase did not run), kept in
+    `state` while a later phase of SERVE_WEIGHT_PHASES still reads them."""
+    later = SERVE_WEIGHT_PHASES[SERVE_WEIGHT_PHASES.index(phase) + 1:]
+    keep = bool(set(later) & set(state["phases"]))
+    params = (state.get if keep else state.pop)("serve_params", None) or \
+        _random_i4p_params(_llama2_7b(), torch.device("cuda"), seed=13, gate_pair=True)
+    if keep:
+        state["serve_params"] = params
+    return params
+
+
 def phase_prefix(state: dict) -> None:
     """The prefix cache over paged KV at Llama-2-7B (the serve phase's weights)."""
     spec = _llama2_7b()
-    # the spec and resil phases read the same weights after this one
-    later = {"spec", "resil"} & set(state["phases"])
-    take = state.get if later else state.pop
-    params = take("serve_params", None) or _random_i4p_params(
-        spec, torch.device("cuda"), seed=13, gate_pair=True)
-    if later:
-        state["serve_params"] = params
+    params = _take_serve_params(state, "prefix")
     t = _prefix_tokens(spec)
     numbers, seconds = {}, {}
     with _CountDegraded() as deg:
@@ -3862,10 +3891,7 @@ def phase_spec(state: dict) -> None:
     t0 = time.perf_counter()
     log(f"[spec] parity: {spec_parity()} ({time.perf_counter() - t0:.1f} s)")
     spec = _llama2_7b()
-    # the resil phase reads the same weights after this one
-    take = state.get if "resil" in state["phases"] else state.pop
-    params = take("serve_params", None) or _random_i4p_params(
-        spec, torch.device("cuda"), seed=13, gate_pair=True)
+    params = _take_serve_params(state, "spec")
     numbers = {"full": _spec_full(state, spec, params),
                "single": _spec_single(state, spec, params)}
     state.pop("prefix_witness", None)
@@ -4440,8 +4466,7 @@ def _resil_http(params, numbers: dict) -> None:
 def phase_resil(state: dict) -> None:
     """Request control and recovery at Llama-2-7B on the serve phase's weights."""
     spec = _llama2_7b()
-    params = state.pop("serve_params", None) or _random_i4p_params(
-        spec, torch.device("cuda"), seed=13, gate_pair=True)
+    params = _take_serve_params(state, "resil")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -4471,6 +4496,294 @@ def phase_resil(state: dict) -> None:
     _resil_http(params, numbers)
     log(f"[resil] {smi}: numbers " + json.dumps(numbers, default=float))
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ tenancy
+
+TENANCY_P = 100  # the flood's prompt tokens
+TENANCY_N = 128  # tokens a flood request
+# the victim's tokens when the interactive request arrives: request 7, prefilled last,
+# has 1 token after its prefill and 8 a super-step, so it is preempted with 17 tokens at
+# the boundary after its 16th; re-admitted with prompt + 17 = 117 tokens, 7 blocks
+# remapped, its 5-token tail prefilled one token a step: the (8, 1) shape it decoded in
+TENANCY_AT = 16
+TENANCY_INTERACTIVE = (24, 16)  # the interactive request's prompt tokens and tokens
+
+
+def _counted_engine(params):
+    """_resil_engine with its graphs counted (counting_graphs), warmed up."""
+    be = _resil_engine(params)
+    be.engine.graphs = counting_graphs(be.engine.device, _serve_counters())
+    be.generate([1] + list(range(5, 40)), 10, _CheckedSampler(be.spec.vocab_size))
+    return be
+
+
+def _tenancy_run(be, prompts, samplers, interactive: list | None = None):
+    """The 8 flood requests (tenant flood, class batch) admitted in one pass; with
+    `interactive` (a prompt), request 7's callback submits it (tenant gold, class
+    interactive) at its TENANCY_AT-th token. Returns (requests, interactive request)."""
+    _resil_fresh(be)
+    got: list = []
+
+    def on_token(_t, n=[0]):
+        n[0] += 1
+        if interactive is not None and n[0] == TENANCY_AT:
+            got.append(be.submit(list(interactive), TENANCY_INTERACTIVE[1],
+                                 _CheckedSampler(be.spec.vocab_size), tenant="gold"))
+    with be._slock:
+        reqs = [be.submit(list(p), TENANCY_N, s, tenant="flood", klass="batch",
+                          on_token=on_token if i == 7 else None)
+                for i, (p, s) in enumerate(zip(prompts, samplers))]
+    _resil_outs(reqs)
+    if got:
+        got[0].wait(timeout=600)
+    return reqs, (got[0] if got else None)
+
+
+def phase_tenancy(state: dict) -> None:
+    """Tenancy at Llama-2-7B on the serve phase's weights (8 slots, superstep 8
+    pipelined, prefix cache): an interactive arrival preempts the batch row with the
+    least output, which resumes with its uninterrupted run's tokens."""
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    spec = _llama2_7b()
+    params = _take_serve_params(state, "tenancy")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    v = spec.vocab_size
+    gen = torch.Generator().manual_seed(37)
+    prompts = [[1] + torch.randint(3, v, (TENANCY_P - 1,), generator=gen).tolist()
+               for _ in range(8)]
+    inter = [1] + torch.randint(3, v, (TENANCY_INTERACTIVE[0] - 1,), generator=gen).tolist()
+    counters = _serve_counters()
+    numbers: dict = {"card": smi}
+    be = _counted_engine(params)
+    try:
+        for mode in ("greedy", "seeded"):
+            def smps():
+                return [_CheckedSampler(v) if mode == "greedy" or i < 4
+                        else Sampler(v, 0.8, 0.9, 3000 + i) for i in range(8)]
+            be.dispatch_ms = {key: [] for key in be.dispatch_ms}
+            ref, _ = _tenancy_run(be, prompts, smps())
+            period = float(np.mean(be.dispatch_ms["super"]))
+            r0, m0, s0 = be.rollback_tokens, be.remapped_blocks, be.seed_bytes
+            _zero(counters)
+            snap = graph_snapshot(counters, be.engine.graphs)
+            reqs, gold = _tenancy_run(be, prompts, smps(), inter)
+            launches, replays, _new = run_launches(counters, be.engine.graphs, snap)
+            victim = reqs[7]
+            if [r.preemptions for r in reqs] != [0] * 7 + [1] or gold.preemptions:
+                raise AssertionError(f"tenancy ({mode}): preemptions "
+                                     f"{[r.preemptions for r in reqs]}, gold "
+                                     f"{gold.preemptions}")
+            if victim.out != ref[7].out:
+                first = next(i for i, (a, b) in enumerate(zip(victim.out, ref[7].out))
+                             if a != b)
+                raise AssertionError(f"tenancy ({mode}): the victim's tokens differ from "
+                                     f"its uninterrupted run from token {first}")
+            prefilled = victim.stats.prompt_tokens - victim.stats.reused_tokens
+            remapped = be.remapped_blocks - m0
+            if remapped < 1 or prefilled > 16 or len(gold.out) != TENANCY_INTERACTIVE[1]:
+                raise AssertionError(f"tenancy ({mode}): re-admission remapped {remapped} "
+                                     f"blocks and prefilled {prefilled} tokens; gold "
+                                     f"{len(gold.out)} tokens")
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"tenancy ({mode}): launches {launches}")
+            ttft = (gold.first_token_t - gold.submit_t) * 1e3
+            numbers[mode] = {
+                "interactive_ttft_ms": ttft, "superstep_period_ms": period,
+                "interactive_queue_ms": (gold.admit_t - gold.submit_t) * 1e3,
+                "interactive_prefill_ms": gold.stats.prefill_ms,
+                "victim_out_at_preemption": victim.stats.prompt_tokens - TENANCY_P,
+                "victim_prefilled_tokens": prefilled,
+                "victim_reused_tokens": victim.stats.reused_tokens,
+                "remapped_blocks": remapped, "seed_bytes": be.seed_bytes - s0,
+                "rollback_tokens": be.rollback_tokens - r0, "launches": launches,
+                "graph_replays": replays}
+            mix = "4 greedy and 4 seeded" if mode == "seeded" else "greedy"
+            log(f"[tenancy] {mode}: 8 batch requests of tenant flood ({TENANCY_P}-token "
+                f"prompts, {TENANCY_N} tokens, {mix}); "
+                f"an interactive request of tenant gold ({TENANCY_INTERACTIVE[0]}-token "
+                f"prompt) arrived at request 7's token {TENANCY_AT} and preempted it at "
+                f"{victim.stats.prompt_tokens - TENANCY_P} tokens: TTFT {ttft:.2f} ms "
+                f"({(gold.admit_t - gold.submit_t) * 1e3:.2f} ms to its admission, "
+                f"{gold.stats.prefill_ms:.2f} ms in its prefill dispatches) against a "
+                f"super-step period of {period:.2f} ms; the victim's "
+                f"{TENANCY_N} tokens identical to its uninterrupted run; re-admission "
+                f"remapped {remapped} blocks ({be.seed_bytes - s0} seed bytes) and "
+                f"prefilled {prefilled} tokens; {be.rollback_tokens - r0} rollback tokens; "
+                f"launches {json.dumps(launches)} ({replays} graph replays)")
+    finally:
+        be.close()
+    log(f"[tenancy] {smi}: numbers " + json.dumps(numbers, default=float))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ disaggregated prefill
+
+# the split prompt's tokens: 32 full blocks shipped and a 5-token tail, which both the
+# monolithic run and the split prefill one token a step (the chunk rule takes 64-token
+# chunks up to 512), so their dispatch shapes match and the tokens are bit-identical
+DISAGG_P = 517
+DISAGG_N = 32
+
+
+def _disagg_messages(tok, template, n: int) -> list:
+    """Chat messages whose rendered prompt is `n` tokens: one user turn of letters, each
+    a byte-fallback token of the synthetic tokenizer."""
+    from distributed_llama_tpu_torch.tokenizer import ChatItem
+
+    gen = np.random.default_rng(41)
+    size = n
+    for _ in range(8):
+        text = "".join(chr(97 + int(c)) for c in gen.integers(0, 22, size))
+        got = len(tok.encode(template.generate([ChatItem("user", text)]), add_bos=True))
+        if got == n:
+            return [{"role": "user", "content": text}]
+        size += n - got
+    raise AssertionError(f"disagg: no prompt of {n} tokens (last {got})")
+
+
+def _disagg_stream(url: str, body: dict, headers: dict | None = None) -> dict:
+    """A streamed completion in journal mode: its token ids, text, and the seconds to
+    its first chunk."""
+    req = urllib.request.Request(url + "/v1/chat/completions", json.dumps(body).encode(),
+                                 {"Content-Type": "application/json",
+                                  "X-Dllama-Journal": "1", **(headers or {})})
+    t0 = time.perf_counter()
+    toks, first = [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            payload = json.loads(line[6:])
+            if "error" in payload:
+                raise AssertionError(f"disagg: stream error {payload}")
+            if first is None:
+                first = time.perf_counter()
+            toks.extend(payload.get("dllama", {}).get("toks", []))
+    return {"toks": toks, "t0": t0, "first": first}
+
+
+def _kv_post(url: str, messages: list) -> tuple[dict, float]:
+    req = urllib.request.Request(url + "/v1/kv",
+                                 json.dumps({"messages": messages}).encode(),
+                                 {"Content-Type": "application/json", "X-Tenant": "gold",
+                                  "X-Class": "batch"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read()), t0
+
+
+def phase_disagg(state: dict) -> None:
+    """Disaggregated prefill at Llama-2-7B on the serve phase's weights: two port
+    servers in this process (roles prefill and decode, each its own 8-slot engine on the
+    same weights); this script plays the router: POST /v1/kv to the prefill server, then
+    the completion with that kv_source to the decode server."""
+    from distributed_llama_tpu_torch.apps.api_server import serve
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+    from distributed_llama_tpu_torch.tokenizer import ChatTemplate, TemplateType, Tokenizer
+
+    spec = _llama2_7b()
+    params = _take_serve_params(state, "disagg")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    counters = _serve_counters()
+    engines, servers = [], []
+    numbers: dict = {"card": smi}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tpath = os.path.join(tmp, "synthetic.t")
+            _synthetic_tokenizer(tpath, spec.vocab_size)
+            tok = Tokenizer.load(tpath)
+        for role in ("prefill", "decode"):
+            be = _counted_engine(params)
+            be.tokenizer = tok
+            srv = serve(None, "127.0.0.1", 0, TemplateType.LLAMA2,
+                        Sampler(spec.vocab_size, 0.0, 0.9, 1), batch_engine=be, role=role)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            engines.append(be)
+            servers.append(srv)
+        pre, dec = engines
+        purl, durl = (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)
+        for url, role in ((purl, "prefill"), (durl, "decode")):
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                if json.loads(r.read())["replica"]["role"] != role:
+                    raise AssertionError(f"disagg: /healthz role of the {role} server")
+        template = ChatTemplate(TemplateType.LLAMA2, tok.chat_template, tok.eos_piece())
+        messages = _disagg_messages(tok, template, DISAGG_P)
+        body = {"messages": messages, "max_tokens": DISAGG_N, "temperature": 0,
+                "stream": True}
+        _resil_fresh(dec)
+        mono = _disagg_stream(durl, body)
+        mono_ttft = (mono["first"] - mono["t0"]) * 1e3
+        runs = {}
+        for wire in ("raw", "q80"):
+            servers[0].api_state.kv_wire_q80 = wire == "q80"
+            _resil_fresh(dec)
+            e0, x0 = pre.export_ms, pre.exported_blocks
+            p0, s0, sm0, m0 = (dec.prefilled_tokens, dec.seed_bytes, dec.seed_ms,
+                               dec.remapped_blocks)
+            _zero(counters)
+            snaps = [graph_snapshot(counters, be.engine.graphs) for be in engines]
+            desc, t0 = _kv_post(purl, messages)
+            t_desc = time.perf_counter()
+            got = _disagg_stream(durl, {**body, "kv_source": {
+                **desc, "replica": f"127.0.0.1:{servers[0].server_address[1]}"}})
+            launches, _r, _n = run_launches(
+                counters, pre.engine.graphs, snaps[0],
+                more=[(dec.engine.graphs, snaps[1])])
+            rec = servers[1].api_state.last_import or {}
+            n_blocks = pre.exported_blocks - x0
+            runs[wire] = {
+                "split_ttft_ms": (got["first"] - t0) * 1e3,
+                "kv_post_ms": (t_desc - t0) * 1e3,
+                "export_ms": pre.export_ms - e0, "exported_blocks": n_blocks,
+                "export_ms_per_block": (pre.export_ms - e0) / max(n_blocks, 1),
+                "wire_bytes": rec.get("bytes"), "fetch_decode_ms": rec.get("fetch_ms"),
+                "insert_cold_ms": rec.get("insert_ms"),
+                "promotion_seed_ms": dec.seed_ms - sm0, "seed_bytes": dec.seed_bytes - s0,
+                "remapped_blocks": dec.remapped_blocks - m0,
+                "decode_prefilled_tokens": dec.prefilled_tokens - p0, "launches": launches}
+            r = runs[wire]
+            if (desc.get("n_tokens") != DISAGG_P // 16 * 16 or desc.get("wire") != wire
+                    or rec.get("outcome") != "imported"
+                    or r["decode_prefilled_tokens"] != DISAGG_P % 16
+                    or len(got["toks"]) != DISAGG_N or min(launches.values()) <= 0):
+                raise AssertionError(f"disagg ({wire}): descriptor {desc}, import {rec}, "
+                                     f"run {r}, {len(got['toks'])} tokens")
+            if wire == "raw" and got["toks"] != mono["toks"]:
+                raise AssertionError("disagg: the split's tokens differ from the "
+                                     "monolithic run's")
+            log(f"[disagg] {wire} wire: /v1/kv on the prefill server {r['kv_post_ms']:.1f} "
+                f"ms (export {r['export_ms']:.1f} ms for {n_blocks} blocks, "
+                f"{r['export_ms_per_block']:.2f} ms a block); {r['wire_bytes']} wire bytes "
+                f"fetched and decoded in {r['fetch_decode_ms']:.1f} ms, insert_cold "
+                f"{r['insert_cold_ms']:.1f} ms; admission promoted {r['remapped_blocks']} "
+                f"blocks ({r['seed_bytes']} seed bytes, {r['promotion_seed_ms']:.1f} ms) "
+                f"and prefilled {r['decode_prefilled_tokens']} tokens; split TTFT "
+                f"{r['split_ttft_ms']:.1f} ms against monolithic {mono_ttft:.1f} ms"
+                + ("; tokens identical to the monolithic run" if wire == "raw" else "")
+                + f"; launches {json.dumps(launches)}")
+        if not runs["q80"]["wire_bytes"] < runs["raw"]["wire_bytes"]:
+            raise AssertionError(f"disagg: the Q80 wire shipped "
+                                 f"{runs['q80']['wire_bytes']} bytes, the raw "
+                                 f"{runs['raw']['wire_bytes']}")
+        numbers.update(monolithic_ttft_ms=mono_ttft, **runs)
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        for be in engines:
+            be.close()
+    log(f"[disagg] {smi}: numbers " + json.dumps(numbers, default=float))
+    del params, engines
     gc.collect()
     torch.cuda.empty_cache()
 

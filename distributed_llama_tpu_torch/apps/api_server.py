@@ -31,6 +31,16 @@ router polls. A durable router resumes a request elsewhere with `{"resume": {"to
 [...]}}` and reads the token ids of each SSE chunk (`"dllama": {"n", "toks"}`) when it
 sends `X-Dllama-Journal`. `DLLAMA_FAULTS` injects faults (resilience/faults.py).
 
+Tenancy (resilience/tenancy.py): `--tenants` configures weights and token-bucket quotas;
+a request names its tenant in `X-Tenant` and its class ("interactive", the default, or
+"batch") in the body's `"class"` or an `X-Class` header. An exhausted quota is a 429
+with Retry-After; `--slo-ttft-interactive`, `--slo-ttft-batch` and `--slo-tpot` shed by
+class. Disaggregated prefill (fleet/disagg.py): `--role` is advertised in /healthz;
+`POST /v1/kv` runs a prompt's prefill and registers its KV blocks for export, `GET
+/v1/kv/<id>?from=F&n=N` serves them (`--kv-wire-q80` compresses the wire), and a
+completion carrying a router's `kv_source` imports them before admission, falling back
+to a local prefill on any failure.
+
 Runs on the GPU unless `--device cpu` is given.
 """
 
@@ -47,13 +57,16 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 import torch
 
+from ..fleet.disagg import ROLES, KVTransferTable
 from ..resilience import faults
 from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
                                  EngineSaturated, EngineWedged, InvalidRequest,
                                  QuotaExceeded, retriable)
+from ..resilience.tenancy import CLASSES, DEFAULT_TENANT, TenantRegistry, sanitize_tenant
 from ..runtime.engine import Engine
 from ..runtime.sampler import Sampler
 from ..tokenizer import ChatItem, ChatTemplate, EosDetector, TemplateType
@@ -65,8 +78,24 @@ class ApiState:
                  default_sampler: Sampler, batch_engine=None, prefix_cache=True,
                  prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
                  prefix_cache_q80: bool = False, speculative_k: int = 0,
-                 request_deadline: float = 0.0):
+                 request_deadline: float = 0.0, tenants: TenantRegistry | None = None,
+                 role: str = "both", kv_wire_q80: bool = False,
+                 kv_transfer_ttl: float = 120.0, kv_transfer_cap: int = 32):
         self.engine = engine
+        # disaggregation: the role advertised in /healthz (a routing preference: the
+        # engine serves anything), the export wire's mode, and the bounded table of host
+        # snapshots GET /v1/kv/<id> serves
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        self.role = role
+        self.kv_wire_q80 = kv_wire_q80
+        self.kv_transfers = (KVTransferTable(cap=kv_transfer_cap, ttl=kv_transfer_ttl)
+                             if batch_engine is not None else None)
+        # the last kv_source import's record (outcome, wire bytes, fetch and insert ms)
+        self.last_import: dict | None = None
+        # the tenant registry: the batch engine's own (it enforces at submit), or the
+        # --batch 1 server's, which debits the quota here
+        self.tenants = tenants
         self.batch_engine = batch_engine  # BatchEngine when --batch > 1, else None
         # the replica's identity (host:port, set once the socket binds) and start time:
         # the /healthz replica block a fleet router polls
@@ -126,7 +155,9 @@ def _load_block(state: ApiState) -> dict:
                 "draining": state.draining}
     spec = (be or state.engine).spec
     return {"id": state.replica_id, "model": state.model_name,
-            "model_hash": model_config_hash(spec), "batched": be is not None,
+            "model_hash": model_config_hash(spec),
+            # the disaggregation role, which role-aware routers key on
+            "role": state.role, "batched": be is not None,
             "pid": os.getpid(),
             "uptime_s": round(time.monotonic() - state.started_mono, 1), **load}
 
@@ -163,6 +194,15 @@ def _opt(body: dict, key: str, default):
     return default if v is None else v
 
 
+def _class_from(body: dict) -> str:
+    """The scheduling class of the body's "class" field (do_POST folds an X-Class header
+    into it; the body wins): "interactive" when absent, a 400 when unknown."""
+    raw = str(body.get("class") or "interactive").strip().lower()
+    if raw not in CLASSES:
+        raise InvalidRequest(f"'class' must be one of {CLASSES}, got {raw!r}")
+    return raw
+
+
 def _parse_resume(body: dict, spec) -> list[int]:
     """The durable-resume payload `{"resume": {"tokens": [...]}}`: the tokens a failed
     replica already generated and delivered, which this replica takes as committed
@@ -183,21 +223,24 @@ def _parse_resume(body: dict, spec) -> list[int]:
 
 
 def run_completion(state: ApiState, body: dict, emit, *, journal=None,
-                   deadline_s: float | None = None):
+                   deadline_s: float | None = None, tenant: str = DEFAULT_TENANT):
     """Shared completion core. `emit(text_delta)` streams; returns (text, finish).
 
     `journal` (a durable router's request): a {"toks": [], "n": 0} the caller owns; the
     token ids of each text delta are appended, and "n" advanced to the delivered count,
     before emit runs, so the stream can put them on the chunk that carries their text.
     `deadline_s` is the client's remaining deadline (X-Deadline-Ms), min-combined with
-    the server's --request-deadline.
+    the server's --request-deadline. `tenant` is the request's tenant (X-Tenant); the
+    class comes from the body.
 
     Raises typed errors before any generation work, for the HTTP layer to map:
-    InvalidRequest (400) for a prompt at or past the context, a bad max_tokens or a
-    malformed resume; EngineDraining (503) while draining; the engine's own at submit."""
+    InvalidRequest (400) for a prompt at or past the context, a bad max_tokens, a
+    malformed resume or an unknown class; EngineDraining (503) while draining;
+    QuotaExceeded (429) for an exhausted tenant; the engine's own at submit."""
     faults.fire("api.request", replica=state.replica_id)
     if state.draining:
         raise EngineDraining("server is draining (shutting down)")
+    klass = _class_from(body)
     runner = state.batch_engine or state.engine
     tok = runner.tokenizer
     spec = runner.spec
@@ -219,6 +262,16 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     if isinstance(mt_raw, bool) or not isinstance(mt_raw, int) or mt_raw < 0:
         raise InvalidRequest(
             f"'max_tokens' must be a non-negative integer, got {mt_raw!r}")
+    ks = body.get("kv_source")
+    if isinstance(ks, dict) and state.batch_engine is not None:
+        # a disaggregated admission: a prefill replica already computed this prompt's
+        # KV; its blocks go into the prefix cache before admission, so the lookup remaps
+        # them instead of prefilling. Any failure returns 0: a plain local prefill
+        from ..fleet.disagg import import_kv_source
+
+        rec: dict = {}
+        import_kv_source(state.batch_engine, prompt, ks, record=rec)
+        state.last_import = rec
     sampler = Sampler(
         spec.vocab_size,
         float(_opt(body, "temperature", state.default_sampler.temperature)),
@@ -235,6 +288,10 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
         sampler.fast_forward(len(resume))
     deadlines = [d for d in (state.request_deadline, deadline_s) if d]
     eff_deadline = min(deadlines) if deadlines else 0.0
+    if state.batch_engine is None and state.tenants is not None:
+        # --batch 1 has no scheduler to enforce the quota: it is debited here (the
+        # batched path leaves it to BatchEngine.submit, on the same registry)
+        state.tenants.acquire(tenant, float(len(prompt) + max(max_tokens, 1)))
     stops = tok.chat_stops()
     stop_param = _opt(body, "stop", [])
     if isinstance(stop_param, str):  # OpenAI allows string-or-array
@@ -280,7 +337,8 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
                                             on_token=on_token,
                                             stop_check=streamer.stop_check,
                                             deadline=eff_deadline or None,
-                                            resume_tokens=len(resume))
+                                            resume_tokens=len(resume), tenant=tenant,
+                                            klass=klass)
             # the sentinel closes the drain loop once the request completes (the puts
             # happen-before done.set(), so everything queued is drained first)
             threading.Thread(target=lambda: (req.done.wait(), deltas.put(None)),
@@ -416,12 +474,23 @@ class Handler(BaseHTTPRequestHandler):
         code, etype, retry_after = _map_error(e)
         self._error(code, str(e), etype, retry_after)
 
+    def _raw(self, code: int, ctype: str, data: bytes, headers: dict | None = None):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
     def _write_chunk(self, data: bytes):
         self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
         self.wfile.flush()
 
     def do_GET(self):
-        if self.path == "/v1/models":
+        if self.path.startswith("/v1/kv/"):
+            self._get_kv()
+        elif self.path == "/v1/models":
             self._json(200, {"object": "list", "data": [
                 {"id": self.state.model_name, "object": "model", "created": _now(),
                  "owned_by": "user"}]})
@@ -450,7 +519,102 @@ class Handler(BaseHTTPRequestHandler):
         else:
             self._error(404, f"Unknown route: {self.path}", "invalid_request_error")
 
+    def _post_kv(self):
+        """POST /v1/kv: the prefill-only admission of a disaggregated request. The
+        messages are tokenized as a completion's, the prefill runs through the batch
+        scheduler (one throwaway greedy token: the decode replica generates from token
+        zero with its own sampler) charged to the relayed X-Tenant at its X-Class, and
+        the prompt's host-snapshot blocks are registered in the transfer table. The
+        answer is the descriptor a router injects as ``kv_source``; n_blocks 0 says the
+        prompt holds no full block to ship."""
+        state = self.state
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(body.get("messages"), list) or not body["messages"]:
+                raise ValueError("'messages' must be a non-empty array")
+        except (ValueError, json.JSONDecodeError):
+            self._error(400, "Request body is not valid JSON with a non-empty 'messages' "
+                        "array", "invalid_request_error")
+            return
+        be = state.batch_engine
+        if be is None or state.kv_transfers is None:
+            self._error(501, "KV transfer requires a batched engine (--batch > 1)",
+                        "invalid_request_error")
+            return
+        try:
+            faults.fire("disagg.prefill")
+            if state.draining:
+                raise EngineDraining("server is draining (shutting down)")
+            tok = be.tokenizer
+            messages = [ChatItem(m.get("role", "user"), m.get("content", ""))
+                        for m in body["messages"] if isinstance(m, dict)]
+            prompt = tok.encode(state.template.generate(messages), add_bos=True)
+            if len(prompt) >= be.spec.seq_len:
+                raise InvalidRequest(f"prompt is {len(prompt)} tokens but the model "
+                                     f"context is {be.spec.seq_len}")
+            # the remote prefill is charged to the requesting tenant at its real class:
+            # a batch tenant's split prefills must not jump the queue as interactive
+            tenant = sanitize_tenant(self.headers.get("X-Tenant"))
+            klass = str(self.headers.get("X-Class") or "interactive").strip().lower()
+            if klass not in CLASSES:
+                klass = "interactive"
+            req = be.submit(prompt, 1, Sampler(be.spec.vocab_size, 0.0, 0.9, 0),
+                            export_kv=True, tenant=tenant, klass=klass)
+            req.wait(timeout=300)
+        except Exception as e:
+            self._mapped_error(e)
+            return
+        exp = req.kv_export
+        if not exp or not exp[1]:
+            self._json(200, {"xfer_id": None, "n_tokens": 0, "n_blocks": 0})
+            return
+        tokens, blocks, bt = exp
+        self._json(200, state.kv_transfers.open(tokens, blocks, bt,
+                                                "q80" if state.kv_wire_q80 else "raw"))
+
+    def _get_kv(self):
+        """GET /v1/kv/<xfer_id>?from=F&n=N: wire-encoded blocks [F, F+N) of a registered
+        transfer. Every range is an independent read of the host snapshot, so a decode
+        replica resumes a broken transfer by fetching the range again; an unknown or
+        expired id is a 404."""
+        state = self.state
+        parts = urlsplit(self.path)
+        xfer_id = parts.path[len("/v1/kv/"):]
+        t = state.kv_transfers.get(xfer_id) if state.kv_transfers is not None else None
+        if t is None:
+            self._error(404, f"no KV transfer {xfer_id!r} (unknown or expired)",
+                        "invalid_request_error")
+            return
+        qs = parse_qs(parts.query)
+        try:
+            frm = int(qs.get("from", ["0"])[0])
+            n = int(qs.get("n", [str(len(t.blocks) - max(frm, 0))])[0])
+        except ValueError:
+            self._error(400, "'from' and 'n' must be integers", "invalid_request_error")
+            return
+        if frm < 0 or n < 0 or frm + n > len(t.blocks):
+            self._error(400, f"range [{frm}, {frm + n}) outside [0, {len(t.blocks)})",
+                        "invalid_request_error")
+            return
+        try:
+            faults.fire("disagg.export", xfer=xfer_id)
+            from ..cache.wire import encode_blocks
+
+            payload = encode_blocks(t.blocks[frm:frm + n], q80=state.kv_wire_q80)
+        except Exception as e:
+            self._error(500, f"export failed: {e}", "server_error")
+            return
+        # a range covering the final block consumes the transfer: its place in the
+        # capped table frees after a short retry grace instead of the full TTL
+        state.kv_transfers.note_served(t, frm, n)
+        self._raw(200, "application/octet-stream", payload,
+                  {"X-KV-From": str(frm), "X-KV-Count": str(n)})
+
     def do_POST(self):
+        if self.path == "/v1/kv":
+            self._post_kv()
+            return
         if self.path not in ("/v1/chat/completions", "/chat/completions"):
             self._error(404, f"Unknown route: {self.path}", "invalid_request_error")
             return
@@ -486,15 +650,20 @@ class Handler(BaseHTTPRequestHandler):
         # journal mode: a durable router asks for the token ids of each SSE delta
         journal = {"toks": [], "n": 0} if self.headers.get("X-Dllama-Journal") else None
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+        # the tenant (X-Tenant, relayed by a fleet router on every try and resume) and
+        # an X-Class header, which the body's "class" overrides
+        tenant = sanitize_tenant(self.headers.get("X-Tenant"))
+        if "class" not in body and self.headers.get("X-Class"):
+            body["class"] = self.headers.get("X-Class")
         # batched mode: the scheduler serializes device access itself
         guard = contextlib.nullcontext() if state.batch_engine is not None else state.lock
         with guard:
             if body.get("stream", False):
-                self._stream(state, body, rid, journal, deadline_s)
+                self._stream(state, body, rid, journal, deadline_s, tenant)
                 return
             try:
                 text, finish = run_completion(state, body, lambda _t: None,
-                                              deadline_s=deadline_s)
+                                              deadline_s=deadline_s, tenant=tenant)
             except Exception as e:
                 self._mapped_error(e)
                 return
@@ -502,7 +671,7 @@ class Handler(BaseHTTPRequestHandler):
                        {"X-Request-Id": rid})
 
     def _stream(self, state: ApiState, body: dict, rid: str, journal=None,
-                deadline_s: float | None = None):
+                deadline_s: float | None = None, tenant: str = DEFAULT_TENANT):
         # SSE headers are deferred to the first delta: an error raised before any
         # output gets its real status code instead of a 200 stream with an error event
         started = [False]
@@ -529,7 +698,7 @@ class Handler(BaseHTTPRequestHandler):
 
         try:
             _text, finish = run_completion(state, body, emit, journal=journal,
-                                           deadline_s=deadline_s)
+                                           deadline_s=deadline_s, tenant=tenant)
         except Exception as e:
             if not started[0]:
                 self._mapped_error(e)
@@ -559,14 +728,18 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
           prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
           prefix_cache_q80: bool = False, speculative_k: int = 0,
           request_deadline: float = 0.0, supervisor_threshold: float = 0.0,
-          supervisor_poll: float = 1.0) -> ThreadingHTTPServer:
+          supervisor_poll: float = 1.0, tenants: TenantRegistry | None = None,
+          role: str = "both", kv_wire_q80: bool = False, kv_transfer_ttl: float = 120.0,
+          kv_transfer_cap: int = 32) -> ThreadingHTTPServer:
     """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
     serve_forever(). Pass `engine` for --batch 1 serving (the prefix_* arguments size
     its prefix cache, speculative_k > 0 verifies drafts of greedy requests), or
     `batch_engine`, which speculates only when built with speculative=K.
     `request_deadline` (seconds, 0 = none) bounds every request; `supervisor_threshold`
     > 0 starts an EngineSupervisor on the batch engine (`server.api_state.supervisor`;
-    the caller stops it)."""
+    the caller stops it). `tenants` is the --batch 1 server's registry (a batch engine
+    brings its own); `role`, `kv_wire_q80` and the kv_transfer_* bounds configure the
+    disaggregated prefill's export side."""
     # a batch engine built without speculation would leave speculative_k silently inert
     if (batch_engine is not None and speculative_k > 0
             and not getattr(batch_engine, "spec_k", 0)):
@@ -574,13 +747,19 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
                          "constructed with speculative=K (the BatchEngine owns the "
                          "batched draft-verify path)")
     runner = batch_engine or engine
+    # one policy authority per replica: the batch engine's own registry, so the server
+    # and the scheduler agree on every tenant's weight and bucket
+    if tenants is None and batch_engine is not None:
+        tenants = batch_engine.tenants
     state = ApiState(engine, template_type,
                      default_sampler or Sampler(runner.spec.vocab_size, 0.7, 0.9, 0),
                      batch_engine=batch_engine, prefix_cache=prefix_cache,
                      prefix_cache_blocks=prefix_cache_blocks,
                      prefix_block_tokens=prefix_block_tokens,
                      prefix_cache_q80=prefix_cache_q80, speculative_k=speculative_k,
-                     request_deadline=request_deadline)
+                     request_deadline=request_deadline, tenants=tenants, role=role,
+                     kv_wire_q80=kv_wire_q80, kv_transfer_ttl=kv_transfer_ttl,
+                     kv_transfer_cap=kv_transfer_cap)
     handler = type("BoundHandler", (Handler,), {"state": state})
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
@@ -734,6 +913,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--supervisor-poll", type=float, default=1.0, metavar="S",
                    help="the supervisor's sampling period (detection takes up to "
                         "threshold + poll)")
+    p.add_argument("--role", choices=ROLES, default="both",
+                   help="disaggregation role advertised in /healthz: a role-aware router "
+                        "sends long-prompt admissions to 'prefill' replicas (which ship "
+                        "the prompt's KV blocks over /v1/kv) and decode chains to "
+                        "'decode' replicas. A routing preference, not a capability: the "
+                        "engine serves anything")
+    p.add_argument("--kv-wire-q80", action="store_true",
+                   help="Q80-compress KV blocks on the /v1/kv export wire (fewer bytes; "
+                        "bounded error, not bit-exact)")
+    p.add_argument("--kv-transfer-ttl", type=float, default=120.0, metavar="S",
+                   help="how long an exported KV transfer stays servable for decode "
+                        "replicas' fetches (fully fetched transfers free their place "
+                        "after a short retry grace instead)")
+    p.add_argument("--kv-transfer-cap", type=int, default=32, metavar="N",
+                   help="most KV export transfers held at once (each a host snapshot of "
+                        "one prompt's KV blocks); beyond N the oldest is evicted")
+    p.add_argument("--tenants", default=None, metavar="SPEC",
+                   help="multi-tenant policy: ';'-separated name[:weight=W,rate=R,burst=B] "
+                        "entries; W drives weighted-fair scheduling, R/B a token-bucket "
+                        "quota in tokens/s (429 + Retry-After when exhausted; absent = "
+                        "unlimited). A request names its tenant in X-Tenant; unknown ids "
+                        "share the 'default' entry. Example: "
+                        "'gold:weight=4;free:weight=1,rate=50,burst=100'")
+    p.add_argument("--slo-ttft-interactive", type=float, default=0.0, metavar="S",
+                   help="--batch > 1: refuse an interactive admission when the measured "
+                        "queue drain rate projects its wait past S seconds, after first "
+                        "evicting queued batch-class work; 0 = off")
+    p.add_argument("--slo-ttft-batch", type=float, default=0.0, metavar="S",
+                   help="--batch > 1: refuse batch admissions whose projected queue wait "
+                        "exceeds S seconds (503 + Retry-After); 0 = off")
+    p.add_argument("--slo-tpot", type=float, default=0.0, metavar="S",
+                   help="--batch > 1: interactive seconds-per-token target; while the "
+                        "measured decode pace exceeds it, batch-class admissions are "
+                        "refused; 0 = off")
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
@@ -758,6 +971,8 @@ def build_server(args) -> ThreadingHTTPServer:
     `api_state` holds both engines."""
     from .dllama import _FT
 
+    # tenant policy is operator configuration: a malformed spec fails before any load
+    tenants = TenantRegistry.parse(args.tenants) if args.tenants else None
     kw = engine_kwargs(args)
     cache_kw = dict(prefix_cache=not args.no_prefix_cache,
                     prefix_cache_blocks=args.prefix_cache_blocks,
@@ -777,7 +992,10 @@ def build_server(args) -> ThreadingHTTPServer:
                                         kv_block_tokens=args.kv_block_tokens,
                                         kv_pool_blocks=args.kv_pool_blocks,
                                         max_queue=args.max_queue,
-                                        queue_ttl=args.queue_ttl,
+                                        queue_ttl=args.queue_ttl, tenants=tenants,
+                                        slo_ttft_interactive=args.slo_ttft_interactive,
+                                        slo_ttft_batch=args.slo_ttft_batch,
+                                        slo_tpot_interactive=args.slo_tpot,
                                         **cache_kw, **load_kw, **kw)
         spec = batch_engine.spec
         pool = batch_engine.kv_pool
@@ -805,7 +1023,9 @@ def build_server(args) -> ThreadingHTTPServer:
                  batch_engine=batch_engine, speculative_k=args.speculative,
                  request_deadline=args.request_deadline,
                  supervisor_threshold=args.supervisor_threshold,
-                 supervisor_poll=args.supervisor_poll,
+                 supervisor_poll=args.supervisor_poll, tenants=tenants, role=args.role,
+                 kv_wire_q80=args.kv_wire_q80, kv_transfer_ttl=args.kv_transfer_ttl,
+                 kv_transfer_cap=args.kv_transfer_cap,
                  **(cache_kw if batch_engine is None else {}))
 
 

@@ -218,6 +218,13 @@ class PrefixCache:
                 self.radix.release(prefix_nodes)
         return created
 
+    def covered_blocks(self, tokens: list[int]) -> int:
+        """How many leading full blocks of `tokens` the index holds now: what an import
+        reports (the span the cache can serve, not the span it was handed). No refs
+        taken; touches LRU stamps like any match."""
+        with self._lock:
+            return len(self.radix.match(tokens))
+
     def total_refs(self) -> int:
         """Live reservation count, read under the lock."""
         with self._lock:

@@ -5,7 +5,9 @@ package's resilience/ gives its engines, without its metric families and flight 
   codes, `classify()` (the scheduler's blast-radius switch: transient / request /
   engine) and `retriable()` (the durable router's mid-stream failover switch);
 - `faults.py` — named, seeded fault-injection points (`faults.fire`), `DLLAMA_FAULTS`;
-- `tenancy.py` — `DrainRate`, the completion-rate estimate behind `Retry-After`;
+- `tenancy.py` — tenants: quotas (`TenantRegistry`, `TokenBucket`), the two-class
+  weighted-fair wait queue (`WeightedFairQueue`, `FairGate`) and `DrainRate`, the
+  completion-rate estimate behind `Retry-After`;
 - `supervisor.py` — `EngineSupervisor`: a dispatch that hangs past a threshold fails the
   in-flight requests (retriable) and re-initializes the engine.
 """

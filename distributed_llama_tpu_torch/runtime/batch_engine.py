@@ -1,9 +1,9 @@
 """Continuous-batching engine: concurrent sequences share one batched step.
 
-The counterpart of the JAX package's runtime/batch_engine.py without the drafter,
-tenants or SLOs: the same scheduling decisions, the same host sampling, the same K-step
-device super-steps, pipelined, the same prompt-lookup speculation and the same
-shared-prefix cache, so a request served here gets the tokens the JAX engine gives it
+The counterpart of the JAX package's runtime/batch_engine.py without the model drafter:
+the same scheduling decisions, the same host sampling, the same K-step device
+super-steps, pipelined, the same prompt-lookup speculation, the same shared-prefix cache
+and the same tenancy, so a request served here gets the tokens the JAX engine gives it
 in the same configuration.
 
 - B cache "slots", each holding one sequence's KV (a block table into the device pool,
@@ -72,6 +72,23 @@ in the same configuration.
   device side in place: the captured steps are dropped and captured again, the KV pool
   keeps its storage. `submit(resume_tokens=k)` admits a durable resume (prompt plus k
   tokens delivered elsewhere, the sampler fast-forwarded by the caller).
+- Tenancy (resilience/tenancy.py): `submit(tenant=, klass=)` debits the tenant's token
+  bucket (QuotaExceeded, refunded when the request is then shed) and queues the request
+  in a two-class weighted-fair queue: interactive before batch, tenants by weight. At
+  submit, SLO shedding refuses a class whose projected queue wait (`slo_ttft_*`, only
+  with a backlog) or the measured decode pace (`slo_tpot_interactive`, batch only) is
+  past its target; an interactive arrival that would be refused evicts the least
+  entitled queued batch request instead, and at max_queue a batch arrival more entitled
+  than the queue's worst batch resident displaces it. With no free slot, an interactive
+  head preempts the batch row with the least output at the super-step boundary: the
+  victim's blocks join the prefix cache (dense rows are copied to the host before the
+  slot is handed on), its request is re-queued and re-admitted later as prompt plus
+  delivered tokens — mostly a directory remap — and continues as the uninterrupted run.
+- Disaggregated prefill (fleet/disagg.py): `submit(export_kv=True)` snapshots the
+  prompt's full KV blocks to the host at finish (`req.kv_export`), and
+  `import_kv_blocks` takes blocks shipped from another replica into the prefix cache
+  (cold directory nodes, or the dense host cache), so the admission after it prefills
+  only the tail.
 
   The captured steps read and write their buffers in place, so an abandoned thread
   must never reach the stream again: each scheduler thread carries the epoch it was
@@ -80,7 +97,7 @@ in the same configuration.
   without touching engine state.
 
 What the JAX engine has that this one refuses with NotImplementedError: the model
-drafter, tenants and SLO shedding.
+drafter.
 """
 
 from __future__ import annotations
@@ -98,10 +115,11 @@ import torch
 from ..models.spec import ModelSpec
 from ..resilience import faults
 from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
-                                 EngineSaturated, EngineWedged, classify)
-from ..resilience.tenancy import DrainRate
+                                 EngineSaturated, EngineWedged, InvalidRequest, classify)
+from ..resilience.tenancy import (CLASSES, DEFAULT_TENANT, DrainRate, TenantRegistry,
+                                  WeightedFairQueue)
 from .engine import PREFILL_CHUNKS, Engine, GenerationStats
-from .sampler import _random_u32
+from .sampler import _random_u32, _xorshift_back
 from .speculative import AdaptiveK, NgramProposer, verify_block_bucket
 from .step_graph import copy_to_host, upload
 
@@ -142,6 +160,7 @@ class BatchRequest:
     cancelled: bool = False
     submit_t: float = 0.0  # perf_counter at submit()
     first_token_t: float = 0.0  # perf_counter at the first delivered token
+    admit_t: float = 0.0  # perf_counter at the (latest) slot assignment
     # absolute perf_counter deadline of the whole request (queue + decode), 0 = none;
     # enforced once per scheduler pass, so its granularity is one dispatch
     deadline_t: float = 0.0
@@ -150,6 +169,18 @@ class BatchRequest:
     # durable resume: the last resume_tokens entries of `prompt` were generated and
     # delivered elsewhere (the caller's sampler arrives fast-forwarded past them)
     resume_tokens: int = 0
+    # tenancy: the tenant (quota and fair-share key), the class ("interactive": strict
+    # queue priority, may preempt batch rows; "batch": shed and preempted first), the
+    # fair queue's virtual cost (prompt plus max_tokens) and the slots lost to
+    # interactive arrivals
+    tenant: str = DEFAULT_TENANT
+    klass: str = "interactive"
+    wfq_cost: float = 1.0
+    preemptions: int = 0
+    # disaggregation: export_kv asks _finish for a host snapshot of the prompt's full KV
+    # blocks, kv_export = (tokens, [(k, v) per block], block_tokens), set before done
+    export_kv: bool = False
+    kv_export: tuple | None = None
 
     def cancel(self) -> None:
         """Ask the scheduler to stop decoding this request (client went away)."""
@@ -246,13 +277,8 @@ class BatchEngine:
                  **engine_kw):
         from ..cache import PrefixCache
 
-        refused = {"draft_model": draft_model is not None,
-                   "tenants": tenants is not None,
-                   "SLO targets": bool(slo_ttft_interactive or slo_ttft_batch
-                                       or slo_tpot_interactive)}
-        for what, asked in refused.items():
-            if asked:
-                raise NotImplementedError(f"{what} is not part of the port yet")
+        if draft_model is not None:
+            raise NotImplementedError("draft_model is not part of the port yet")
         assert slots >= 1 and superstep >= 1
         self.slots_n = slots
         self.superstep = superstep  # K: decode steps per super-step dispatch
@@ -333,9 +359,22 @@ class BatchEngine:
         self.seed_bytes = 0
         self.seed_ms = 0.0
         self.remapped_blocks = 0
+        # disaggregation: blocks exported at finish and the wall ms their host copies took
+        self.exported_blocks = 0
+        self.export_ms = 0.0
         self.prefilled_tokens = 0  # tokens run through prefill dispatches
         self._slots = [_Slot(i) for i in range(slots)]
-        self._queue: collections.deque[BatchRequest] = collections.deque()
+        # tenancy: the registry of quotas and weights (None: one default tenant, no
+        # quota, uniform weights), the SLO targets of the admission shed (0 = off) and
+        # the measured decode pace the TPOT gate reads
+        self.tenants: TenantRegistry | None = tenants
+        self.slo_ttft = {"interactive": max(slo_ttft_interactive, 0.0),
+                         "batch": max(slo_ttft_batch, 0.0)}
+        self.slo_tpot_interactive = max(slo_tpot_interactive, 0.0)
+        self._tpot_ema_ms = 0.0  # ms per delivered token, decayed (scheduler-written)
+        self.preempted = 0  # batch rows preempted for an interactive admission
+        # the wait queue: two-class weighted-fair over tenants
+        self._queue = WeightedFairQueue(tenants)
         self._plock = threading.Lock()  # guards: _queue
         # held by the scheduler for each pass and by release_idle
         self._slock = threading.Lock()  # guards: _slots, kv_pool, _tables_np
@@ -404,7 +443,8 @@ class BatchEngine:
 
     def submit(self, prompt: list[int], max_tokens: int, sampler, on_token=None,
                stop_check=None, *, deadline: float | None = None,
-               ttl: float | None = None, resume_tokens: int = 0) -> BatchRequest:
+               ttl: float | None = None, resume_tokens: int = 0, tenant: str = "",
+               klass: str = "interactive", export_kv: bool = False) -> BatchRequest:
         """Enqueue a request. `deadline` (seconds) bounds the whole request (queue and
         generation; finish "deadline" with the partial output, DeadlineExceeded before
         the first token); `ttl` bounds the queue wait only (in place of the engine's
@@ -412,21 +452,39 @@ class BatchEngine:
         failed replica already generated and delivered (a durable resume): the caller
         passes the sampler fast-forwarded past their coins, admission prefills prompt
         plus those tokens (mostly a prefix-cache remap) and generation continues as the
-        uninterrupted run would. Raises EngineDraining while draining, EngineClosed after
-        close(), EngineSaturated when max_queue requests already wait."""
+        uninterrupted run would. `tenant` (default: the default tenant) keys the quota
+        and the fair share; `klass` is "interactive" (strict priority, may preempt batch
+        rows) or "batch" (shed and preempted first). `export_kv` snapshots the prompt's
+        full KV blocks into `req.kv_export` before the request completes. Raises
+        InvalidRequest for an unknown class, EngineDraining while draining, EngineClosed
+        after close(), QuotaExceeded when the tenant's bucket is empty, EngineSaturated
+        when max_queue requests already wait or an SLO target sheds the class."""
         if self._draining and not self._shutdown:
             raise EngineDraining("BatchEngine is draining (serving in-flight requests "
                                  "only)")
         if self._shutdown:
             raise EngineClosed("BatchEngine is closed")
         faults.fire("batch.submit")
-        with self._plock:
-            queued = len(self._queue)
-        if self.max_queue and queued >= self.max_queue:
-            raise EngineSaturated(
-                f"admission refused: queue depth {queued} at max_queue={self.max_queue}",
-                retry_after=self._drain.retry_after(queued + 1))
+        if klass not in CLASSES:
+            raise InvalidRequest(
+                f"unknown scheduling class {klass!r} (want one of {CLASSES})")
+        tenant = tenant or DEFAULT_TENANT
+        cost = float(len(prompt) + max(max_tokens, 1))
+        if self.tenants is not None:
+            # the quota first: a throttled tenant gets its 429 even on an empty queue
+            self.tenants.acquire(tenant, cost)
+        try:
+            self._admission_control(tenant, klass, cost)
+        except Exception:
+            # a shed request received no service: its debit goes back
+            if self.tenants is not None:
+                self.tenants.refund(tenant, cost)
+            raise
         req = BatchRequest(list(prompt), max_tokens, sampler, on_token, stop_check)
+        req.tenant = tenant
+        req.klass = klass
+        req.wfq_cost = cost
+        req.export_kv = export_kv
         if not req.prompt:
             req.prompt = [self.tokenizer.bos_id if self.tokenizer else 1]
         req.resume_tokens = min(max(int(resume_tokens), 0), len(req.prompt))
@@ -446,6 +504,59 @@ class BatchEngine:
         with self._cond:
             self._cond.notify()
         return req
+
+    def _admission_control(self, tenant: str, klass: str, cost: float) -> None:
+        """Load shedding at submit. A refusal reason is the queue bound, the projected
+        wait of the last place in line past the class's TTFT target (only with a
+        backlog: an idle engine serves within a dispatch whatever a decayed drain rate
+        says), or, for a batch arrival, the measured decode pace past the interactive
+        TPOT target. Two displacements order the shed by policy, not by arrival: an
+        interactive arrival that would be refused evicts the least entitled queued batch
+        request instead, and a batch arrival at max_queue displaces the queue's least
+        entitled batch resident when its own virtual finish tag is smaller. Every
+        refusal carries a Retry-After from the measured drain rate."""
+        with self._plock:
+            queued = len(self._queue)
+        reason = None
+        if self.max_queue and queued >= self.max_queue:
+            reason = "queue"
+        tgt = self.slo_ttft.get(klass, 0.0)
+        if reason is None and tgt and queued > 0:
+            if self._drain.queue_wait(queued + 1) > tgt:
+                reason = "slo_ttft"
+        if (reason is None and klass == "batch" and self.slo_tpot_interactive
+                and self._tpot_ema_ms > self.slo_tpot_interactive * 1e3):
+            # decode is already past the interactive TPOT target: one more batch row
+            # widens every shared dispatch further
+            reason = "slo_tpot"
+        if reason is None:
+            return
+        victim = None
+        if klass == "interactive":
+            with self._plock:
+                victim = self._queue.evict_last("batch")
+        elif reason == "queue":
+            with self._plock:
+                worst = self._queue.last_tag("batch")
+                if (worst is not None
+                        and self._queue.entry_tag(tenant, "batch", cost) < worst):
+                    victim = self._queue.evict_last("batch")
+        if victim is not None:
+            self._shed_queued(victim, reason, queued)
+            return
+        raise EngineSaturated(
+            f"admission refused ({reason}): class={klass}, queue depth {queued}"
+            + (f" at max_queue={self.max_queue}" if reason == "queue" else ""),
+            retry_after=self._drain.retry_after(queued + 1))
+
+    def _shed_queued(self, req: BatchRequest, reason: str, queued: int) -> None:
+        """Fail a queued request displaced by a more entitled arrival with the error
+        and Retry-After an admission-time shed would have given it."""
+        req.error = EngineSaturated(
+            f"shed from the wait queue ({reason}): a more entitled admission displaced "
+            "this batch request", retry_after=self._drain.retry_after(queued))
+        req.finish = "error"
+        req.done.set()
 
     def generate(self, prompt: list[int], max_tokens: int, sampler, on_token=None,
                  stop_check=None) -> tuple[list[int], GenerationStats]:
@@ -642,10 +753,10 @@ class BatchEngine:
                     s.req = None
                     s.pending = []
                     req.done.set()
-            while self._queue:
-                req = self._queue.popleft()
+            for req in self._queue:
                 req.error = err
                 req.done.set()
+            self._queue.clear()
 
     # ------------------------------------------------------------------
     # scheduler
@@ -668,7 +779,9 @@ class BatchEngine:
         free = [s for s in self._slots if s.req is None]
         if not free:
             return None
-        full = req.prompt
+        # a preempted request re-admits as its prompt plus the tokens it delivered, the
+        # construction of a durable resume: its sampler sits after exactly their coins
+        full = req.prompt + req.out if req.out else req.prompt
 
         def common(s: _Slot) -> int:
             n = 0
@@ -686,6 +799,7 @@ class BatchEngine:
             self.prefix_cache.note_resident(reuse)
             reuse = self._seed_from_cache(best, reuse, full)
         best.admit_t = time.monotonic()  # before .req: the watchdog keys on req
+        req.admit_t = time.perf_counter()
         best.req = req
         best.pos = reuse
         best.history = list(full[:reuse])
@@ -1077,6 +1191,14 @@ class BatchEngine:
             # a super-step parked this row clamped: its history ends before that row
             self._truncate_history(slot, slot.clamp_pos)
             slot.clamp_pos = None
+        if req.export_kv:
+            # before done.set(): the /v1/kv handler wakes on done and reads kv_export
+            try:
+                req.kv_export = self._export_slot_blocks(slot, len(req.prompt))
+            except Exception as e:
+                from ..cache import warn_degraded
+
+                warn_degraded("export", e)
         req.done.set()
         # the harvest runs after done.set(): the slot's history and rows stay valid (they
         # also back the same-slot rewind), and it must not extend the client's wait
@@ -1108,6 +1230,64 @@ class BatchEngine:
             from ..cache import warn_degraded
 
             warn_degraded("insert", e)
+
+    def _export_slot_blocks(self, slot: _Slot, prompt_len: int):
+        """Host snapshot of the slot's committed prompt KV as full blocks — the
+        disaggregation export: (tokens, [(k, v) per block], block_tokens), each side an
+        (L, hk, bt, hs) CPU tensor in the cache dtype, or None when the prompt holds no
+        full block. Only full blocks go (a partial tail has no directory home on the
+        importing side); the history is already truncated at a clamped park."""
+        from ..cache.wire import host_rows
+
+        bt = self._kv_bt or (self.prefix_cache.block_tokens
+                             if self.prefix_cache is not None else 0)
+        if bt <= 0:
+            return None
+        n = min(prompt_len, len(slot.history)) // bt
+        if n == 0:
+            return None
+        t0 = time.perf_counter()
+        eng = self._eng
+        if self.kv_pool is not None:
+            blocks = [self._read_block(bid) for bid in slot.blocks[:n]]
+        else:
+            k = host_rows(eng.k_cache[:, slot.index, :, :n * bt])
+            v = host_rows(eng.v_cache[:, slot.index, :, :n * bt])
+            blocks = [(k[:, :, i * bt:(i + 1) * bt], v[:, :, i * bt:(i + 1) * bt])
+                      for i in range(n)]
+        self.export_ms += (time.perf_counter() - t0) * 1e3
+        self.exported_blocks += n
+        return list(slot.history[:n * bt]), blocks, bt
+
+    def import_kv_blocks(self, tokens: list[int], blocks: list) -> int:
+        """Adopt KV blocks shipped from another replica (the decode half of a
+        disaggregated admission) into the prefix cache: `blocks[i]` is the (k, v) host
+        pair, (L, hk, bt, hs) each, of token block i of `tokens`. Host bookkeeping only,
+        safe from any thread: the paged directory takes them as cold nodes (admission
+        promotes them with one upload on the scheduler thread), the dense host cache
+        inserts them (admission seeds the slot's rows from it). Blocks of another
+        geometry are refused. Returns the token span the cache now covers (0: nothing
+        imported, the request prefills locally)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return 0
+        bt = pc.block_tokens
+        n = min(len(tokens) // bt, len(blocks))
+        if n <= 0:
+            return 0
+        sp = self.spec
+        want = (sp.n_layers, sp.n_kv_heads, bt, sp.head_size)
+        if any(tuple(x.shape) != want for b in blocks[:n] for x in b):
+            return 0
+        span = list(tokens[:n * bt])
+        if self.kv_pool is not None:
+            return pc.insert_cold(span, blocks[:n]) * bt
+        k = torch.cat([torch.as_tensor(b[0]) for b in blocks[:n]], dim=2)
+        v = torch.cat([torch.as_tensor(b[1]) for b in blocks[:n]], dim=2)
+        pc.insert(span, lambda t0, t1: (k[:, :, t0:t1], v[:, :, t0:t1]))
+        # what the cache holds, not what it was handed: a pool pinned full by leases
+        # may refuse blocks, and the admission would then prefill them
+        return pc.covered_blocks(span) * bt
 
     def _truncate_history(self, sl: _Slot, p: int) -> None:
         """Truncate a slot's reusable history to p tokens — its rows >= p are (about to
@@ -1149,9 +1329,12 @@ class BatchEngine:
         return starts
 
     def _admit(self) -> None:
-        """Expire queued requests past their queue TTL or deadline (finish "deadline",
-        DeadlineExceeded), then assign queued requests in arrival order onto free slots;
-        cancelled queued requests finish without a slot."""
+        """Expire queued requests past their queue TTL or deadline (finish "deadline";
+        DeadlineExceeded unless a preemption left delivered output), then assign queued
+        requests in weighted-fair order onto free slots — interactive first, tenants by
+        weight; cancelled queued requests finish without a slot. With no free slot an
+        interactive head preempts a batch row (_try_preempt), so its wait is one
+        dispatch, not a batch request's whole generation."""
         now = time.perf_counter()
         with self._plock:
             # under the lock recover_wedged bumps the epoch with: an abandoned thread
@@ -1166,12 +1349,19 @@ class BatchEngine:
             for req, by in expired:
                 self._queue.remove(req)
                 req.finish = "deadline"
-                req.error = DeadlineExceeded(f"request expired in queue ({by})")
+                if not req.out:  # a preempted request keeps its delivered output
+                    req.error = DeadlineExceeded(f"request expired in queue ({by})")
                 req.done.set()
-            while self._queue:
-                req = self._queue[0]
+            while True:
+                req = self._queue.peek_next()
+                if req is None:
+                    break
+                # heads leave through pop_next(), never remove(): pop advances the
+                # class's virtual time to the served tag, which anchors a tenant
+                # returning from idle at "now" instead of zero (else it would be
+                # charged its whole past service against the others, and starve)
                 if req.cancelled:
-                    self._queue.popleft()
+                    self._queue.pop_next()
                     req.finish = "cancelled"
                     req.done.set()
                     continue
@@ -1179,14 +1369,69 @@ class BatchEngine:
                     assigned = self._assign(req)
                 except Exception as e:
                     # an admission failure belongs to the request being admitted
-                    self._queue.popleft()
+                    self._queue.pop_next()
                     req.error = e
                     req.finish = "error"
                     req.done.set()
                     continue
                 if assigned is None:
+                    # no free slot: an interactive head may preempt a batch row (the
+                    # scheduler is between dispatches: a super-step boundary)
+                    if req.klass == "interactive" and self._try_preempt():
+                        continue  # a slot is free now
                     break
-                self._queue.popleft()
+                self._queue.pop_next()
+
+    def _try_preempt(self) -> bool:  # holds: self._plock
+        """Free one slot for a waiting interactive request by preempting the batch row
+        with the least delivered output (the cheapest resume). Interactive rows are
+        never preempted. Returns True when a slot was freed."""
+        victims = [s for s in self._slots
+                   if s.req is not None and s.req.klass == "batch"
+                   and not s.req.done.is_set() and not s.req.cancelled]
+        if not victims:
+            return False
+        self._preempt_slot(min(victims, key=lambda s: len(s.req.out)))
+        return True
+
+    def _preempt_slot(self, slot: _Slot) -> None:  # holds: self._plock
+        """Release a batch row at a super-step boundary and re-queue its request. The
+        release mirrors _finish without completing the request: the lease is released
+        and the committed history joins the prefix cache — by reference when paged, as
+        a host copy of the rows when dense, taken here on the scheduler thread before
+        the slot is handed on (the caches are written in place: a deferred copy could
+        read the next request's rows). The later re-admission (prompt plus delivered
+        tokens, _assign) is then mostly a cache hit. A chained super-step in flight over
+        this row is discarded at its delivery (slot.req changed), like a cancel; the
+        sampler already sits at the delivered coins."""
+        req = slot.req
+        req.preemptions += 1
+        self.preempted += 1
+        if slot.picked is not None:
+            # the device sampler drew this pick's coin, but its token was never
+            # delivered: the coin goes back, for the re-admission's first pick to draw
+            req.sampler.state = _xorshift_back(req.sampler.state)
+        slot.req = None
+        slot.pending = []
+        slot.next_token = None
+        slot.last_logits = None
+        slot.picked = None
+        slot.armed = False
+        self.proposer.detach(slot.index)
+        if self.adaptive is not None:
+            self.adaptive.detach(slot.index)
+        if self.prefix_cache is not None and slot.lease is not None:
+            self.prefix_cache.release(slot.lease)
+            slot.lease = None
+        if slot.clamp_pos is not None:
+            # an in-flight super-step parks this row clamped: its tail is not committed
+            self._truncate_history(slot, slot.clamp_pos)
+            slot.clamp_pos = None
+        if self.prefix_cache is not None:
+            self._harvest_into_cache(slot)
+        # a nominal cost: the first admission charged the whole request to the tenant's
+        # virtual time, and charging the rest again would bill every preemption twice
+        self._queue.push(req, req.tenant, req.klass, 1.0)
 
     def _reap_slots(self) -> None:
         """Free slots whose request was cancelled or whose deadline passed (finish
@@ -1263,7 +1508,11 @@ class BatchEngine:
                     fl, self._inflight = self._inflight, None
                     self._pipeline_advance(fl)
                 elif prefill:
-                    victim = prefill[0]  # lowest slot index first
+                    # an interactive row's prefill first (then the lowest slot index):
+                    # slot order could keep an interactive admission waiting behind
+                    # batch rows' long prompts
+                    victim = min(prefill, key=lambda s: (s.req.klass != "interactive",
+                                                         s.index))
                     try:
                         # mixed step: active decode rows ride the prefill dispatch at T=1
                         self._prefill_step(victim, riders=active)
@@ -1883,6 +2132,8 @@ class BatchEngine:
             # the device drew one coin per live stochastic step: replayed one by one
             coins = fl.temps[i] != 0.0 and hasattr(smp, "state")
             per_tok = dev_ms / b
+            # the measured decode pace the slo_tpot_interactive admission gate reads
+            self._tpot_ema_ms += 0.2 * (per_tok - self._tpot_ema_ms)
             x = slot.last_token  # the input the block's first step ingested
             slot.armed = False
             alive = True

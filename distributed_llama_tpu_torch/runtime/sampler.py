@@ -23,6 +23,22 @@ def _random_u32(state: np.uint64) -> tuple[np.uint64, int]:
     return np.uint64(s), int(out)
 
 
+def _xorshift_back(state: np.uint64) -> np.uint64:
+    """The state before the _random_u32 step that produced `state`: each xorshift of
+    the step is undone in reverse order (x ^= x >> k by x ^= x >> k ^ x >> 2k ^ ...,
+    likewise for <<). Gives back the coin of a pick that was drawn but never
+    delivered."""
+    m = 0xFFFFFFFFFFFFFFFF
+    s = int(state)
+    for k, left in ((27, False), (25, True), (12, False)):
+        y, x, sh = s, s, k
+        while sh < 64:
+            x ^= ((y << sh) & m) if left else (y >> sh)
+            sh += k
+        s = x
+    return np.uint64(s)
+
+
 def _softmax(x: np.ndarray) -> np.ndarray:
     m = np.max(x)
     e = np.exp(x - m)

@@ -186,9 +186,12 @@ def test_release_idle_races_the_scheduler_safely(model_files):
     assert be.release_idle() == be.kv_pool.n_blocks - 1
 
 
+# tenants and the SLO targets are part of the port now: the model drafter stays refused,
+# with them as without them
 @pytest.mark.parametrize("kw", [dict(speculative=1, draft_model="draft.m"),
                                 dict(draft_model="draft.m"),
-                                dict(tenants=object()), dict(slo_ttft_interactive=1.0)])
+                                dict(draft_model="draft.m", tenants=None),
+                                dict(draft_model="draft.m", slo_ttft_interactive=1.0)])
 def test_out_of_slice_arguments_raise(model_files, kw):
     with pytest.raises(NotImplementedError):
         BatchEngine.load(*model_files, slots=2, device="cpu", **kw)

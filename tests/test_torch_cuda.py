@@ -22,7 +22,9 @@ bf16 host tier bit-exact through a demotion and a promotion, the pools' storage 
 through copy-on-write and promotion, captured super-steps against eager ones after a
 remap and a copy, and the single-slot seed against a fresh prefill, bit for bit. The
 recovery test holds recover_wedged to its contract on the card: the pool's storage kept,
-no launch from the abandoned thread, every graph captured again, the same tokens."""
+no launch from the abandoned thread, every graph captured again, the same tokens. The
+tenancy and disaggregation tests hold a preempted request and an imported prompt to the
+tokens of their uninterrupted, monolithic runs at the same batch shape, exactly."""
 
 import numpy as np
 import pytest
@@ -255,16 +257,27 @@ def _chain_launch(layout):
     return q8._launch_q80 if layout == "i8" else mv._launch_q80
 
 
+# seconds of the spin kernel the racing pairs queue behind: the host must queue the m
+# prologues ahead and the pair within it. 20 ms was too short for a loaded host (a pair
+# queued after the spin had ended, 2 of 439 card tests), so the spin is 100 ms and the
+# host's queueing time is measured inside it
+PDL_SPIN_S = 0.1
+
+
 def _pdl_pairs(launch, bases, nw, w, ahead):
     """Each row of `bases` through the prologue and the pre-quantized matvec behind it,
     the row's copy freed between the two launches so that the matvec's output (as many
     bytes) takes its block. ahead None: the card synchronized between the launches.
-    ahead m >= 0: the pair queued behind a spin kernel, so the card runs it back to
-    back, and behind m prologues of a 64k row. Those trigger their dependents at entry
-    and wait for their predecessor, so with m > 0 the pair's prologue is launched
-    while they run and waits for them, and the matvec, launched once the prologue has
-    started, has its blocks resident before the prologue reads x or writes xq.
-    Returns (xq, sx, y, whether y took the freed block) per row."""
+    ahead m >= 0: the pair queued behind a spin kernel of PDL_SPIN_S, so the card runs
+    it back to back, and behind m prologues of a 64k row. Those trigger their dependents
+    at entry and wait for their predecessor, so with m > 0 the pair's prologue is
+    launched while they run and waits for them, and the matvec, launched once the
+    prologue has started, has its blocks resident before the prologue reads x or writes
+    xq. The host's time from the spin's launch to the pair's last launch must lie
+    inside the spin, and the spin must still run then. Returns (xq, sx, y, whether y
+    took the freed block) per row."""
+    import time
+
     import chip_smoke
 
     junk = torch.randn(1 << 16, device=bases[0].device)
@@ -272,7 +285,8 @@ def _pdl_pairs(launch, bases, nw, w, ahead):
     for base in bases:
         torch.cuda.synchronize()
         if ahead is not None:
-            torch.cuda._sleep(int(0.02 * chip_smoke.SPIN_HZ))
+            torch.cuda._sleep(int(PDL_SPIN_S * chip_smoke.SPIN_HZ))
+            t_spin = time.perf_counter()
         x = base.clone()
         ptr = x.data_ptr()
         held = [pro._launch(junk, None, 0.0) for _ in range(ahead or 0)]
@@ -284,7 +298,11 @@ def _pdl_pairs(launch, bases, nw, w, ahead):
         if ahead is not None:
             end = torch.cuda.Event()
             end.record()
-            assert not end.query(), "the spin ended before the pair was queued"
+            queued_ms = (time.perf_counter() - t_spin) * 1e3
+            assert queued_ms < 1e3 * PDL_SPIN_S and not end.query(), (
+                f"the spin ended before the pair was queued: the host took "
+                f"{queued_ms:.1f} ms to queue {ahead} prologues and the pair behind a "
+                f"{1e3 * PDL_SPIN_S:.0f} ms spin")
         torch.cuda.synchronize()
         del held
         out.append((xq, sx, y, y.data_ptr() == ptr))
@@ -1481,3 +1499,80 @@ def test_seeded_tokens_do_not_depend_on_where_they_are_sampled(cuda):
         finally:
             be.close()
     assert outs[1] == outs[4]
+
+
+# ------------------------------------------------------------------ tenancy, disaggregation
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp", [0.0, 0.8], ids=["greedy", "seeded"])
+@pytest.mark.parametrize("k", [1, 4], ids=["superstep1", "superstep4_pipelined"])
+def test_preempted_batch_resumes_identical_on_the_card(cuda, k, temp):
+    """One slot at 2 layers of Llama-2-7B width: a batch request preempted by an
+    interactive arrival resumes with the tokens of its uninterrupted run. Its 32-token
+    prompt's two blocks are remapped at re-admission and the tail past them (under 8
+    tokens) is prefilled one token a step, the (1, 1) shape it was decoded in; at
+    superstep 1 the preempted row's undelivered device pick gives its coin back. Both
+    runs start from emptied caches: a directory hit would prefill the prompt's last
+    token alone, in another shape than the reference's 8-token chunk."""
+    import chip_smoke
+
+    spec, params, p = _prefix_model(cuda)
+    be = BatchEngine(spec, params, slots=1, device="cuda", fused_matmul=True,
+                     superstep=k)
+    assert be.pipeline == (k > 1)
+    try:
+        ref = be.submit(p[:32], 24, Sampler(spec.vocab_size, temp, 0.9, 5),
+                        klass="batch").wait(timeout=300)
+        chip_smoke._resil_fresh(be)
+        inter = []
+
+        def on_token(_t, n=[0]):
+            n[0] += 1
+            if n[0] == 3:
+                inter.append(be.submit([1, 2, 3], 4, Sampler(spec.vocab_size),
+                                       klass="interactive"))
+        r0 = be.remapped_blocks
+        victim = be.submit(p[:32], 24, Sampler(spec.vocab_size, temp, 0.9, 5),
+                           klass="batch", on_token=on_token)
+        assert victim.wait(timeout=300) == ref
+        assert len(inter[0].wait(timeout=300)) == 4
+        assert victim.preemptions == 1 and be.remapped_blocks - r0 >= 2
+        assert victim.stats.reused_tokens == 32
+    finally:
+        be.close()
+
+
+@pytest.mark.cuda
+def test_kv_export_wire_import_round_trip_on_the_card(cuda):
+    """Export a prompt's blocks (bf16, read from the pool), ship them over the raw wire
+    and import them into a fresh engine: it prefills only the 5-token tail and decodes
+    the monolithic run's greedy tokens; the Q80 wire ships fewer bytes and completes."""
+    from distributed_llama_tpu_torch.cache.wire import decode_blocks, encode_blocks
+
+    spec, params, p = _prefix_model(cuda)
+    prompt = p[:37]
+
+    def fresh():
+        return BatchEngine(spec, params, slots=2, device="cuda", fused_matmul=True,
+                           superstep=4)
+    pre, mono, dec = fresh(), fresh(), fresh()
+    try:
+        want = mono.submit(prompt, 16, Sampler(spec.vocab_size)).wait(timeout=300)
+        req = pre.submit(prompt, 1, Sampler(spec.vocab_size), export_kv=True)
+        req.wait(timeout=300)
+        tokens, blocks, bt = req.kv_export
+        assert tokens == prompt[:32] and bt == 16 and len(blocks) == 2
+        assert blocks[0][0].dtype == torch.bfloat16 and blocks[0][0].device.type == "cpu"
+        raw = encode_blocks(blocks)
+        assert dec.import_kv_blocks(tokens, decode_blocks(raw)) == 32
+        p0 = dec.prefilled_tokens
+        got = dec.submit(prompt, 16, Sampler(spec.vocab_size)).wait(timeout=300)
+        assert dec.prefilled_tokens - p0 == 5 and got == want
+        q80 = encode_blocks(blocks, q80=True)
+        assert len(q80) < len(raw)
+        dec.close()
+        dec = fresh()
+        assert dec.import_kv_blocks(tokens, decode_blocks(q80)) == 32
+        assert len(dec.submit(prompt, 16, Sampler(spec.vocab_size)).wait(timeout=300)) == 16
+    finally:
+        for be in (pre, mono, dec):
+            be.close()

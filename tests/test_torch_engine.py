@@ -176,6 +176,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from distributed_llama_tpu_torch.runtime import speculative  # noqa: F401
         from distributed_llama_tpu_torch.resilience import faults, supervisor  # noqa: F401
         from distributed_llama_tpu_torch.resilience import tenancy  # noqa: F401
+        from distributed_llama_tpu_torch.fleet import disagg  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
@@ -198,6 +199,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         be = BatchEngine(spec, init_random_params(spec, FloatType.Q40, seed=1), slots=2,
                          device="cpu", superstep=4, speculative=4)
         assert len(be.generate([1, 2, 3, 1, 2, 3], 6, Sampler(64))[0]) == 6
+        be.close()
+        be = BatchEngine(spec, init_random_params(spec, FloatType.Q40, seed=1), slots=1,
+                         device="cpu", kv_block_tokens=4,
+                         tenants=tenancy.TenantRegistry.parse("a:weight=2"))
+        req = be.submit(list(range(1, 9)), 1, Sampler(64), tenant="a", klass="batch",
+                        export_kv=True)
+        req.wait(60)
+        assert req.kv_export[0] == list(range(1, 9)) and len(req.kv_export[1]) == 2
+        assert be.import_kv_blocks(*req.kv_export[:2]) == 8
         be.close()
         assert not any(k.split(".")[0] in blocked for k in sys.modules)
         print("ok")
