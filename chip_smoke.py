@@ -100,6 +100,18 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             and which prefills only the 5-token tail; again on the Q80 wire (fewer
             bytes); export ms a block, wire bytes, fetch-and-decode, insert_cold and
             promotion ms, seed bytes, the split TTFT against the monolithic one
+  obs       observability on the same weights in the resil phase's engine: the port's
+            server with the tracer annotating serves 8 staggered streamed requests of
+            64 tokens, each with its own traceparent; the deltas of the decode- and
+            prefill-token counters, the requests by finish and the super-step dispatch
+            count equal the engine's counts, the matmul selections name only the Q40
+            dequant-matmuls, every /metrics line passes the strict exposition rule,
+            every /v1/requests/<id> holds admitted, prefill_chunk and super_step,
+            /v1/trace's super-step spans run in sequence and carry each request's trace
+            id; under torch.profiler an annotated range encloses its graph launch; the
+            disabled per-dispatch bundle against a one-token graph replay (under 1%),
+            and the super-step period with the defaults, the tracer on and the flight
+            recorder off
   moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
             with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
             phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
@@ -133,7 +145,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             an 8-expert stack from its device index, beside the 2-D entry on the same
             planes
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
-            .m/.t pair written by the port's writers
+            .m/.t pair written by the port's writers, then with `--device-loop 8
+            --trace`: the trace holds engine.prefill and engine.device_loop spans
 
 When the model, q80, serve, spec, moe and kernels phases all ran, it prints before the
 last line {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
@@ -150,6 +163,7 @@ without printing a result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -170,7 +184,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
-              "resil", "tenancy", "disagg", "moe", "kernels", "cli")
+              "resil", "tenancy", "disagg", "obs", "moe", "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -2454,7 +2468,8 @@ def _serve_run(state: dict, be, prompts, k: int) -> list[list[int]]:
     counters = _serve_counters()
     be.dispatches = be.decode_steps = be.mixed_steps = be.super_steps = 0
     be.loop_steps = be.chained = 0
-    be.dispatch_ms = {key: [] for key in be.dispatch_ms}
+    for times in be.dispatch_ms.values():
+        times.clear()
     _zero(counters)
     snap = graph_snapshot(counters, graphs)
     t0 = time.perf_counter()
@@ -3430,7 +3445,7 @@ def _prefix_single(state: dict, spec, params, t: dict) -> dict:
 
 
 # the phases after serve that run on its 7B weights, in their order
-SERVE_WEIGHT_PHASES = ("prefix", "spec", "resil", "tenancy", "disagg")
+SERVE_WEIGHT_PHASES = ("prefix", "spec", "resil", "tenancy", "disagg", "obs")
 
 
 def _take_serve_params(state: dict, phase: str):
@@ -3494,7 +3509,8 @@ def _spec_run(state: dict, be, prompts, tag: str) -> dict:
     be.dispatches = be.decode_steps = be.mixed_steps = be.super_steps = 0
     be.loop_steps = be.chained = be.verify_steps = be.spec_drafted = be.spec_accepted = 0
     be.flushes.clear()
-    be.dispatch_ms = {key: [] for key in be.dispatch_ms}
+    for times in be.dispatch_ms.values():
+        times.clear()
     _zero(counters)
     snap = graph_snapshot(counters, graphs)
     t0 = time.perf_counter()
@@ -4263,7 +4279,7 @@ def _resil_wedge(be, prompts, ref8, numbers: dict) -> None:
                              f"{be.kv_pool.n_blocks - 1}")
     # the first super-step after the recovery captures its graph again; the warm ones
     # are the same run's later super-steps
-    post = be.dispatch_ms["super"][n_super:]
+    post = list(be.dispatch_ms["super"])[n_super:]
     first_ms, warm_ms = post[0], float(np.median(post[1:]))
     numbers["wedge"] = {"threshold_s": threshold, "recover_s": recovered,
                         "captures_after": graphs.captures - caps0,
@@ -4566,7 +4582,8 @@ def phase_tenancy(state: dict) -> None:
             def smps():
                 return [_CheckedSampler(v) if mode == "greedy" or i < 4
                         else Sampler(v, 0.8, 0.9, 3000 + i) for i in range(8)]
-            be.dispatch_ms = {key: [] for key in be.dispatch_ms}
+            for times in be.dispatch_ms.values():
+                times.clear()
             ref, _ = _tenancy_run(be, prompts, smps())
             period = float(np.mean(be.dispatch_ms["super"]))
             r0, m0, s0 = be.rollback_tokens, be.remapped_blocks, be.seed_bytes
@@ -4788,6 +4805,395 @@ def phase_disagg(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ observability
+
+# the obs phase's served run: 8 chat requests, each started at the previous one's first
+# streamed token, OBS_TOKENS greedy tokens each (the synthetic tokenizer has no stop in
+# its byte tokens' reach, so each runs to its budget unless it samples </s>)
+OBS_REQUESTS = 8
+OBS_TOKENS = 64
+# the steady-state period runs: 8 requests admitted in one pass, short prompts,
+# OBS_PERIOD_TOKENS tokens each (OBS_PERIOD_TOKENS / SERVE_K full super-steps)
+OBS_PERIOD_TOKENS = 96
+# iterations of the disabled per-dispatch bundle, and replays of the one-token graph
+OBS_BUNDLE_ITERS = 200_000
+OBS_REPLAYS = 50
+_PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*\})? '
+    r"(-?\d+(\.\d+)?([eE][+-]?\d+)?|\+Inf|-Inf|NaN)$")
+
+
+def _prometheus_samples(text: str) -> dict:
+    """The strict exposition rule (every non-comment line a valid sample of a family
+    declared by a # TYPE line above it); {sample with labels: value}."""
+    if not text.endswith("\n"):
+        raise AssertionError("obs: /metrics does not end with a newline")
+    samples, typed = {}, set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            typed.add(line.split()[2])
+        if not line or line.startswith("#"):
+            continue
+        if not _PROM_SAMPLE.match(line):
+            raise AssertionError(f"obs: bad exposition line {line!r}")
+        name, val = line.rsplit(" ", 1)
+        base = name.split("{")[0]
+        if base not in typed and re.sub(r"_(bucket|sum|count)$", "", base) not in typed:
+            raise AssertionError(f"obs: sample {base} without a # TYPE line")
+        samples[name] = float(val.replace("+Inf", "inf"))
+    return samples
+
+
+def _obs_bundle_us() -> float:
+    """Microseconds of the per-dispatch instrumentation with the tracer and the flight
+    recorder off (the JAX package's perf/obs_overhead.py bundle, without its constrain
+    scan, which the port does not have): a disabled span with its args dict, two clock
+    reads, a histogram observe, a counter inc, a disabled flight event and a trace
+    context re-entry."""
+    from distributed_llama_tpu_torch.obs import flight, metrics, reqctx, trace
+
+    trace.uninstall()
+    flight.uninstall()
+    hist = metrics.histogram("obs_overhead_bench_seconds", "bench-only")
+    ctr = metrics.counter("obs_overhead_bench_total", "bench-only")
+    ctx = reqctx.new_context("req-bench")
+    try:
+        t_start = time.perf_counter()
+        for i in range(OBS_BUNDLE_ITERS):
+            with reqctx.use(ctx):
+                with trace.span("engine.dispatch", {"t": 1, "pos": i}):
+                    pass
+                t0 = time.perf_counter()
+                hist.observe(time.perf_counter() - t0)
+                ctr.inc()
+                flight.event("req-bench", "super_step", k=8, delivered=8)
+        return (time.perf_counter() - t_start) / OBS_BUNDLE_ITERS * 1e6
+    finally:
+        flight.install()  # the server's always-on recorder, as serve() installs it
+
+
+def _obs_flight_event_us(n: int = 20_000) -> float:
+    """Microseconds of one flight.event with a recorder installed (a delivery records
+    one per row of a super-step)."""
+    from distributed_llama_tpu_torch.obs import flight
+
+    rec = flight.FlightRecorder(capacity=64, live_capacity=64, max_events=n + 1)
+    rec.start("req-bench")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rec.event("req-bench", "super_step", k=8, budget=8, delivered=8, chained=True)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _obs_replay_ms(spec, params) -> tuple[float, object]:
+    """Device ms of one Llama-2-7B one-token CUDA graph replay (the single-sequence
+    Engine's step on the serve weights, CUDA events over OBS_REPLAYS replays), and the
+    engine."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(spec, params, device="cuda", prefill_kernel=True)
+    eng.generate([1] + list(range(5, 40)), 4, _CheckedSampler(spec.vocab_size))
+    key = next(k for k in eng.graphs.keys() if k[0] == "step")
+    g = eng.graphs.graph(key)
+    for _ in range(3):
+        g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(OBS_REPLAYS):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / OBS_REPLAYS, eng
+
+
+def _obs_period_ms(be, prompts, tracer: bool, recorder: bool) -> float:
+    """Steady-state super-step period per step (ms): the 8 requests admitted in one
+    pass, the mean of their delivered super-steps' dispatch times over SERVE_K, the
+    tracer (annotated) and the flight recorder on or off."""
+    from distributed_llama_tpu_torch.obs import flight, trace
+
+    trace.uninstall()
+    if tracer:
+        trace.install(annotate=True)
+    if not recorder:
+        flight.uninstall()
+    elif flight.current() is None:
+        flight.install()
+    try:
+        _resil_fresh(be)
+        for times in be.dispatch_ms.values():
+            times.clear()
+        with be._slock:
+            reqs = [be.submit(list(p), OBS_PERIOD_TOKENS, _CheckedSampler(be.spec.vocab_size))
+                    for p in prompts]
+        _resil_outs(reqs)
+        sup = list(be.dispatch_ms["super"])[2:]
+        return float(np.mean(sup)) / SERVE_K
+    finally:
+        trace.uninstall()
+        if flight.current() is None:
+            flight.install()
+
+
+def _obs_sse(url: str, body: dict, tid: str, first: threading.Event, out: dict) -> None:
+    """One streamed completion with its own traceparent: its id, text chunks and
+    finish; `first` is set at its first chunk."""
+    req = urllib.request.Request(
+        url + "/v1/chat/completions", json.dumps(body).encode(),
+        {"Content-Type": "application/json", "traceparent": f"00-{tid}-{'5a' * 8}-01"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out["id"] = r.headers.get("X-Request-Id")
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                payload = json.loads(line[6:])
+                if "error" in payload:
+                    raise AssertionError(f"obs: stream error {payload['error']}")
+                first.set()
+                fin = payload["choices"][0]["finish_reason"]
+                if fin:
+                    out["finish"] = fin
+    except Exception as e:  # noqa: BLE001 — reported by the caller
+        out["error"] = e
+    finally:
+        first.set()
+
+
+def _obs_get(url: str, path: str):
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def _obs_annotation(be, eng) -> str:
+    """Under torch.profiler (started on this thread) with the tracer annotating: a
+    scheduler-thread super-step's issue range around its graph launch, or, where the
+    profiler records no range of the scheduler thread, the single-sequence Engine's
+    engine.dispatch range around its step's graph launch. Returns which one held."""
+    from distributed_llama_tpu_torch.obs import trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def enclosed(prof, name):
+        evs = prof.events()
+        ranges = [e for e in evs if e.name == name]
+        launches = [e for e in evs if "GraphLaunch" in e.name]
+        return ranges, any(r.time_range.start <= g.time_range.start
+                           and g.time_range.end <= r.time_range.end
+                           for r in ranges for g in launches)
+
+    trace.install(annotate=True)
+    try:
+        _resil_fresh(be)
+        with torch.profiler.profile(activities=acts) as prof:
+            be.generate([1] + list(range(7, 30)), 3 * SERVE_K, _CheckedSampler(
+                be.spec.vocab_size))
+            torch.cuda.synchronize()
+        ranges, ok = enclosed(prof, "batch.super_step_issue")
+        if ok:
+            return f"scheduler thread: {len(ranges)} batch.super_step_issue ranges"
+        with torch.profiler.profile(activities=acts) as prof:
+            eng.infer_chunk([5])
+            torch.cuda.synchronize()
+        eranges, eok = enclosed(prof, "engine.dispatch")
+        if not eok:
+            raise AssertionError(
+                f"obs: no annotated range encloses a graph launch ({len(ranges)} "
+                f"batch.super_step_issue ranges from the scheduler thread, "
+                f"{len(eranges)} engine.dispatch ranges from the main thread)")
+        return (f"main thread only ({len(ranges)} batch.super_step_issue ranges from the "
+                f"scheduler thread enclose no graph launch): engine.dispatch encloses "
+                f"the Engine's graph launch")
+    finally:
+        trace.uninstall()
+
+
+def phase_obs(state: dict) -> None:
+    """Observability at Llama-2-7B on the serve weights (8 slots, superstep 8 pipelined,
+    prefix cache on): the port's server with the tracer annotating serves 8 staggered
+    streamed requests, each with its own traceparent; the counters' deltas against the
+    engine's own counts, the strict exposition, the flight records, the Chrome trace and
+    the profiler ranges; then the costs: the disabled per-dispatch bundle against a
+    one-token graph replay (under 1%), and the serving period with the tracer and the
+    flight recorder on and off."""
+    from distributed_llama_tpu_torch.apps.api_server import serve
+    from distributed_llama_tpu_torch.obs import flight, metrics, trace
+    from distributed_llama_tpu_torch.ops import matmul as matmul_ops
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+    from distributed_llama_tpu_torch.tokenizer import TemplateType, Tokenizer
+
+    spec = _llama2_7b()
+    params = _take_serve_params(state, "obs")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    numbers: dict = {"card": smi}
+    replay_ms, eng = _obs_replay_ms(spec, params)
+    bundle_us = _obs_bundle_us()
+    numbers.update(replay_ms=replay_ms, bundle_us=bundle_us,
+                   bundle_share=bundle_us / (replay_ms * 1e3),
+                   flight_event_us=_obs_flight_event_us())
+    if numbers["bundle_share"] >= 0.01:
+        raise AssertionError(f"obs: the disabled bundle takes {bundle_us:.3f} us, "
+                             f"{100 * numbers['bundle_share']:.2f}% of a {replay_ms:.3f} "
+                             "ms one-token graph replay (the gate is 1%)")
+    be = _resil_engine(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath = os.path.join(tmp, "synthetic.t")
+        _synthetic_tokenizer(tpath, spec.vocab_size)
+        be.tokenizer = Tokenizer.load(tpath)
+    be.generate([1] + list(range(5, 40)), 10, _CheckedSampler(spec.vocab_size))
+    trace.install(annotate=True)  # the server's --trace --trace-annotate
+    srv = serve(None, "127.0.0.1", 0, TemplateType.LLAMA2,
+                Sampler(spec.vocab_size, 0.0, 0.9, 1), batch_engine=be)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        snap0 = metrics.snapshot()
+        kernels0 = dict(snap0.get("matmul_kernel_selected_total", {}))
+        matmul_ops.reset_kernel_selections()
+        c0 = (be.super_steps, be.prefilled_tokens)
+        tids = [f"{i + 1:032x}" for i in range(OBS_REQUESTS)]
+        outs = [{} for _ in tids]
+        firsts = [threading.Event() for _ in tids]
+        threads = []
+        t0 = time.perf_counter()
+        for i, tid in enumerate(tids):
+            body = {"messages": [{"role": "user", "content": f"hello w{i} w{3 * i + 1}"}],
+                    "max_tokens": OBS_TOKENS, "temperature": 0, "stream": True}
+            th = threading.Thread(target=_obs_sse, args=(url, body, tid, firsts[i],
+                                                         outs[i]))
+            th.start()
+            threads.append(th)
+            firsts[i].wait(600)
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        for i, o in enumerate(outs):
+            if "error" in o or o.get("finish") not in ("length", "stop"):
+                raise AssertionError(f"obs: request {i}: {o}")
+        snap1 = metrics.snapshot()
+
+        def grew(name, key="{}"):
+            def val(s):
+                v = s.get(name, 0)
+                return v.get(key, 0) if isinstance(v, dict) else v
+            return val(snap1) - val(snap0)
+
+        # the flight records: the request-level numbers and the scheduler's events
+        recs = []
+        for i, o in enumerate(outs):
+            status, raw = _obs_get(url, f"/v1/requests/{o['id']}")
+            rec = json.loads(raw)
+            names = {e["event"] for e in rec["events"]}
+            if (status != 200 or rec["trace_id"] != tids[i] or rec["finish"] != o["finish"]
+                    or not {"admitted", "prefill_chunk", "super_step"} <= names):
+                raise AssertionError(f"obs: request {i}'s flight record {rec}")
+            recs.append(rec)
+        status, raw = _obs_get(url, "/v1/requests?slowest=3")
+        if status != 200 or len(json.loads(raw)["completed"]) != 3:
+            raise AssertionError(f"obs: /v1/requests?slowest=3 answered {raw[:300]}")
+        delivered = sum(r["tokens"] for r in recs)
+        finishes = collections.Counter(r["finish"] for r in recs)
+        sup_count = (snap1["batch_dispatch_seconds"]['{kind="super_step"}']["count"]
+                     - snap0["batch_dispatch_seconds"].get('{kind="super_step"}',
+                                                           {"count": 0})["count"])
+        checks = {
+            "batch_decode_tokens_total": (grew("batch_decode_tokens_total"), delivered),
+            "batch_prefill_tokens_total": (grew("batch_prefill_tokens_total"),
+                                           be.prefilled_tokens - c0[1]),
+            "batch_dispatch_seconds{kind=super_step} count": (sup_count,
+                                                              be.super_steps - c0[0]),
+        }
+        for fin, n in finishes.items():
+            checks[f"batch_requests_total{{finish={fin}}}"] = (
+                grew("batch_requests_total", f'{{finish="{fin}"}}'), n)
+        off = {k: v for k, v in checks.items() if v[0] != v[1]}
+        if off:
+            raise AssertionError(f"obs: counters against the engine's counts {off}")
+        kernels1 = metrics.snapshot()["matmul_kernel_selected_total"]
+        picked = {k: kernels1[k] - kernels0.get(k, 0) for k in kernels1}
+        sel = set(matmul_ops.kernel_selections().values())
+        want = {"q4_mm", "q4_mm+res", "q4_gated_mm"}
+        if (not all(picked.get(f'{{kernel="{k}"}}', 0) > 0 for k in want)
+                or picked.get('{kernel="dequant"}', 0) or not sel <= want):
+            raise AssertionError(f"obs: kernel selections {picked}, {sel}")
+        # the exposition, under the strict rule
+        samples = _prometheus_samples(_obs_get(url, "/metrics")[1])
+        # the Chrome trace: super-step spans in sequence on the scheduler thread, every
+        # request's trace id on its scheduler-side events
+        doc = json.loads(_obs_get(url, "/v1/trace")[1])
+        evs = doc["traceEvents"]
+        supers = sorted((e for e in evs if e.get("name") == "batch.super_step"),
+                        key=lambda e: e["ts"])
+        overlap = [(a["ts"], b["ts"]) for a, b in zip(supers, supers[1:])
+                   if a["ts"] + a["dur"] > b["ts"] + 1e-3]
+        stamped = collections.defaultdict(set)
+        for e in evs:
+            t = (e.get("args") or {}).get("trace_id")
+            if t:
+                stamped[t].add(e["name"])
+        # a request's prefill chunks are batch.prefill, or batch.mixed_step where
+        # decode rows ride them
+        missing = [t for t in tids if "batch.row_delivered" not in stamped.get(t, set())
+                   or not {"batch.prefill", "batch.mixed_step"} & stamped[t]]
+        issue_ms = [e["dur"] / 1e3 for e in evs if e.get("name") == "batch.super_step_issue"]
+        if not supers or not issue_ms or overlap or missing:
+            raise AssertionError(f"obs: {len(supers)} batch.super_step spans, overlapping "
+                                 f"{overlap[:3]}; trace ids without their spans {missing}")
+        numbers["served"] = {
+            "requests": OBS_REQUESTS, "tokens": delivered, "wall_s": wall,
+            "finishes": dict(finishes), "super_steps": be.super_steps - c0[0],
+            "prefilled_tokens": be.prefilled_tokens - c0[1],
+            "metrics_samples": len(samples), "trace_events": len(evs),
+            "super_step_spans": len(supers),
+            "super_step_span_ms": float(np.mean([e["dur"] for e in supers]) / 1e3),
+            "super_step_issue_ms": float(np.mean(issue_ms)),
+            "ttft_ms": float(np.mean([r["ttft_ms"] for r in recs])),
+            "kernels_selected": picked}
+        log(f"[obs] {smi}: 8 staggered streamed requests with their own traceparent, "
+            f"{delivered} tokens in {wall:.2f} s: batch_decode_tokens_total, "
+            f"batch_prefill_tokens_total, batch_requests_total and the super-step "
+            f"dispatch count equal the engine's counts ({json.dumps(checks)}); "
+            f"{len(samples)} exposition samples pass the strict rule; every flight "
+            f"record holds admitted, prefill_chunk and super_step; {len(supers)} "
+            f"batch.super_step spans (mean {numbers['served']['super_step_span_ms']:.3f} "
+            f"ms) in sequence, issue spans mean "
+            f"{numbers['served']['super_step_issue_ms']:.3f} ms; every trace id on its "
+            f"prefill (or mixed) span and batch.row_delivered instants; kernels selected "
+            f"{picked}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        trace.uninstall()
+    try:
+        numbers["annotation"] = _obs_annotation(be, eng)
+        log(f"[obs] torch.profiler with annotated spans: {numbers['annotation']}")
+        gen = torch.Generator().manual_seed(53)
+        prompts = [[1] + torch.randint(3, spec.vocab_size, (7,), generator=gen).tolist()
+                   for _ in range(8)]
+        periods = {}
+        for tag, tr, rec in (("defaults", False, True), ("tracer", True, True),
+                             ("defaults", False, True), ("tracer", True, True),
+                             ("no_flight", False, False)):
+            periods.setdefault(tag, []).append(_obs_period_ms(be, prompts, tr, rec))
+        numbers["period_ms"] = periods
+        log(f"[obs] {smi}: disabled bundle {bundle_us:.3f} us = "
+            f"{100 * numbers['bundle_share']:.4f}% of a {replay_ms:.3f} ms Llama-2-7B "
+            f"one-token graph replay; flight event {numbers['flight_event_us']:.2f} us "
+            f"(x8 rows a delivery); super-step period per step, 8 rows: "
+            + ", ".join(f"{k} {', '.join(f'{p:.3f}' for p in v)} ms"
+                        for k, v in periods.items()))
+    finally:
+        be.close()
+    log(f"[obs] {smi}: numbers " + json.dumps(numbers, default=float))
+    del params, be, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class _ExpertLog:
     """While open, every one-row forward pass also writes the k experts each layer chose
     into a device history (MAX_STEPS, L, k) at a device step counter: at the last layer
@@ -4962,14 +5368,24 @@ def phase_cli(state: dict) -> None:
         cmd = [sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama", "generate",
                "--model", mpath, "--tokenizer", tpath, "--steps", "16", "--prompt",
                "hello", "--temperature", "0", "--seed", "1"]
-        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, timeout=300)
-    # random weights emit arbitrary byte pieces: decode leniently
-    out = res.stdout.decode("utf-8", "replace")
-    if res.returncode != 0:
-        raise AssertionError(f"CLI exited {res.returncode}:\n{out}\n"
-                             f"{res.stderr.decode('utf-8', 'replace')}")
+        tpath_json = os.path.join(tmp, "trace.json")
+        runs = [subprocess.run(c, cwd=ROOT, capture_output=True, timeout=300)
+                for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json])]
+        for res in runs:
+            # random weights emit arbitrary byte pieces: decode leniently
+            out = res.stdout.decode("utf-8", "replace")
+            if res.returncode != 0:
+                raise AssertionError(f"CLI exited {res.returncode}:\n{out}\n"
+                                     f"{res.stderr.decode('utf-8', 'replace')}")
+        with open(tpath_json) as f:
+            spans = collections.Counter(e["name"] for e in json.load(f)["traceEvents"]
+                                        if e.get("ph") == "X")
+    if not spans["engine.prefill"] or not spans["engine.device_loop"]:
+        raise AssertionError(f"cli: dllama --trace wrote the spans {dict(spans)}")
+    out = runs[0].stdout.decode("utf-8", "replace")
     loaded = [ln for ln in out.splitlines() if ln.startswith("⏩")]
-    log(f"[cli] dllama generate exited 0: {loaded[0] if loaded else out[-200:]!r}")
+    log(f"[cli] dllama generate exited 0: {loaded[0] if loaded else out[-200:]!r}; "
+        f"with --device-loop 8 --trace: spans {json.dumps(dict(spans))}")
 
 
 def kernels_line(state: dict) -> str:

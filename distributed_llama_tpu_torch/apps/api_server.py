@@ -41,6 +41,14 @@ class. Disaggregated prefill (fleet/disagg.py): `--role` is advertised in /healt
 completion carrying a router's `kv_source` imports them before admission, falling back
 to a local prefill on any failure.
 
+Observability (obs/): `GET /metrics` (Prometheus text), `GET /v1/stats` (a JSON snapshot
+of every metric with the replica, engine, cache, tenancy and disaggregation state), `GET
+/v1/requests[?slowest=K&tenant=T]` and `/v1/requests/<id>` (the flight recorder's
+per-request timelines, by completion id or trace id; `--flight-requests`, `--slow-log`,
+`--slow-threshold`) and `GET /v1/trace` (the live Chrome trace under `--trace`). A W3C
+`traceparent` header is adopted, and its trace id follows the request into the
+scheduler's spans and flight events.
+
 Runs on the GPU unless `--device cpu` is given.
 """
 
@@ -62,6 +70,9 @@ from urllib.parse import parse_qs, urlsplit
 import torch
 
 from ..fleet.disagg import ROLES, KVTransferTable
+from ..obs import flight, metrics, reqctx, trace
+from ..obs.process import install_process_metrics
+from ..ops import matmul as matmul_ops
 from ..resilience import faults
 from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
                                  EngineSaturated, EngineWedged, InvalidRequest,
@@ -71,6 +82,65 @@ from ..runtime.engine import Engine
 from ..runtime.sampler import Sampler
 from ..tokenizer import ChatItem, ChatTemplate, EosDetector, TemplateType
 from ..tokenizer.eos import TokenStreamer
+
+# Per-request serving latencies (the JAX server's families): TTFT is request arrival to
+# the first text delta (queue wait + prefill + first decode), TPOT the mean inter-token
+# time after it, E2E the whole completion.
+_TTFT = metrics.histogram(
+    "api_request_ttft_seconds", "Request arrival to first streamed text delta")
+_TPOT = metrics.histogram(
+    "api_request_tpot_seconds",
+    "Mean per-token time after the first token, per request")
+_E2E = metrics.histogram(
+    "api_request_e2e_seconds", "Request arrival to completion")
+_HTTP = metrics.counter(
+    "api_http_requests_total", "HTTP requests by route and status code",
+    labelnames=("route", "code"))
+# durable-request resume admissions: how many, the resumed tokens they carried, and how
+# much of each resume's prompt + delivered prefix the admission reused
+_RESUMED = metrics.counter(
+    "api_resumed_requests_total",
+    "Completions admitted with a resume payload (router failover re-submits)")
+_RESUME_TOKENS = metrics.counter(
+    "api_resume_tokens_total",
+    "Delivered-elsewhere tokens carried by resume payloads (RNG coins "
+    "fast-forwarded; tokens re-fed through the stop detector)")
+_RESUME_PREFIX = metrics.counter(
+    "api_resume_prefix_tokens_total",
+    "Total prompt ⊕ delivered prefix length of resume admissions")
+_RESUME_REUSED = metrics.counter(
+    "api_resume_reused_tokens_total",
+    "Resume prefix tokens whose prefill was skipped (slot rewind + radix "
+    "prefix-cache seed) at resume admission")
+
+_KNOWN_ROUTES = ("/v1/chat/completions", "/chat/completions", "/v1/models",
+                 "/v1/stats", "/metrics", "/health", "/healthz",
+                 "/v1/requests", "/v1/trace", "/v1/kv")
+
+# the prefill replica's side of the disaggregation transfer: /v1/kv prefill-only
+# admissions and the chunked block export they feed
+_KV_PREFILLS = metrics.counter(
+    "disagg_prefill_requests_total",
+    "POST /v1/kv prefill-only admissions by outcome (ok, empty = prompt "
+    "shorter than one full block, error)", labelnames=("outcome",))
+_KV_EXPORT_BLOCKS = metrics.counter(
+    "disagg_export_blocks_total",
+    "KV blocks served to decode replicas over GET /v1/kv/<id>")
+_KV_EXPORT_BYTES = metrics.counter(
+    "disagg_export_bytes_total",
+    "Wire bytes served to decode replicas (post-codec payload)")
+
+
+def _count_http(path: str, code: int) -> None:
+    # unknown paths fold into one label value so scrapes stay bounded; per-request
+    # flight lookups and per-transfer chunk fetches fold into their route
+    path = path.split("?", 1)[0]
+    if path.startswith("/v1/requests/"):
+        path = "/v1/requests"
+    if path.startswith("/v1/kv/"):
+        path = "/v1/kv"
+    route = path if path in _KNOWN_ROUTES else "other"
+    _HTTP.labels(route=route, code=str(code)).inc()
 
 
 class ApiState:
@@ -162,6 +232,73 @@ def _load_block(state: ApiState) -> dict:
             "uptime_s": round(time.monotonic() - state.started_mono, 1), **load}
 
 
+def _stats_payload(state: ApiState) -> dict:
+    """GET /v1/stats: one JSON snapshot of every metric plus the scheduler, cache and
+    engine state — the numbers of /metrics shaped for people and scripts. Host state
+    only: no block reads the device, so a scrape never waits on the scheduler's
+    stream."""
+    out: dict = {"model": state.model_name, "time": _now(),
+                 "replica": _load_block(state), "metrics": metrics.snapshot()}
+    if state.supervisor is not None:
+        out["supervisor"] = state.supervisor.stats()
+    if state.kv_transfers is not None:
+        out["disagg"] = {"role": state.role,
+                         "kv_wire": "q80" if state.kv_wire_q80 else "raw",
+                         "transfers": state.kv_transfers.stats()}
+    if state.tenants is not None:
+        out["tenants"] = state.tenants.stats()
+    be = state.batch_engine
+    pc = (be.prefix_cache if be is not None
+          else state.cache.cache if state.cache is not None else None)
+    if pc is not None:
+        out["prefix_cache"] = pc.stats()
+    if be is not None:
+        out["batch_engine"] = {
+            "slots": be.slots_n, "superstep": be.superstep, "pipeline": be.pipeline,
+            "prefilled_tokens": be.prefilled_tokens, "decode_steps": be.decode_steps,
+            "super_steps": be.super_steps, "mixed_steps": be.mixed_steps,
+            "occupied": sum(1 for s in be._slots if s.req is not None),
+            "scheduler_alive": be.scheduler_alive(), "draining": be.draining,
+            "max_queue": be.max_queue, "queue_ttl": be.queue_ttl,
+        }
+        if be.kv_pool is not None:  # the paged KV pool's metadata
+            out["batch_engine"]["paged_kv"] = dict(
+                be.kv_pool.stats(), seed_bytes=be.seed_bytes,
+                seed_ms=round(be.seed_ms, 3))
+        spec_block = be.spec_stats()
+        if spec_block is not None:
+            out["speculative"] = spec_block
+    elif state.engine is not None:
+        eng = state.engine
+        out["engine"] = {"pos": eng.pos, "seq_len": eng.spec.seq_len,
+                         "device": str(eng.device), "cuda_graph": eng.cuda_graph}
+    # which kernel each matmul shape took: the readable view of
+    # matmul_kernel_selected_total
+    inner = be.engine if be is not None else state.engine
+    if inner is not None:
+        out["kernels"] = {"policy": str(inner.use_kernels),
+                          "fused_matmul": bool(inner.fused_matmul),
+                          "selections": matmul_ops.kernel_selections()}
+    return out
+
+
+def _observe_done(t_start: float, ttft: list, n_tokens: int,
+                  finish: str | None = None) -> None:
+    dt = time.perf_counter() - t_start
+    _E2E.observe(dt)
+    tpot = None
+    if ttft[0] is not None and n_tokens > 1:
+        tpot = (dt - ttft[0]) / (n_tokens - 1)
+        _TPOT.observe(tpot)
+    # complete the flight record with the request-level numbers only the HTTP layer
+    # knows (the request id resolves from the bound trace context)
+    flight.finish(
+        None, finish,
+        ttft_ms=round(ttft[0] * 1e3, 3) if ttft[0] is not None else None,
+        tpot_ms=round(tpot * 1e3, 3) if tpot is not None else None,
+        e2e_ms=round(dt * 1e3, 3), tokens=n_tokens)
+
+
 def _completion_payload(state: ApiState, text: str, finish: str, rid: str) -> dict:
     return {
         "id": rid,
@@ -223,15 +360,16 @@ def _parse_resume(body: dict, spec) -> list[int]:
 
 
 def run_completion(state: ApiState, body: dict, emit, *, journal=None,
-                   deadline_s: float | None = None, tenant: str = DEFAULT_TENANT):
+                   deadline_s: float | None = None):
     """Shared completion core. `emit(text_delta)` streams; returns (text, finish).
 
     `journal` (a durable router's request): a {"toks": [], "n": 0} the caller owns; the
     token ids of each text delta are appended, and "n" advanced to the delivered count,
     before emit runs, so the stream can put them on the chunk that carries their text.
     `deadline_s` is the client's remaining deadline (X-Deadline-Ms), min-combined with
-    the server's --request-deadline. `tenant` is the request's tenant (X-Tenant); the
-    class comes from the body.
+    the server's --request-deadline. The tenant (X-Tenant) rides on the bound trace
+    context (do_POST); the class comes from the body. The flight record opens here, under
+    the context's request id, and closes with the request-level numbers.
 
     Raises typed errors before any generation work, for the HTTP layer to map:
     InvalidRequest (400) for a prompt at or past the context, a bad max_tokens, a
@@ -240,7 +378,24 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     faults.fire("api.request", replica=state.replica_id)
     if state.draining:
         raise EngineDraining("server is draining (shutting down)")
+    rc = reqctx.current()
+    tenant = rc.tenant if rc is not None and rc.tenant else DEFAULT_TENANT
     klass = _class_from(body)
+    if rc is not None:
+        # the HTTP boundary opens the record; the BatchEngine enriches the same one
+        flight.start(rc.request_id, rc.trace_id, replica=state.replica_id,
+                     stream=bool(body.get("stream", False)),
+                     **{"tenant": tenant, "class": klass})
+    t_start = time.perf_counter()
+    ttft: list = [None]
+    user_emit = emit
+
+    def emit(text):
+        if ttft[0] is None:
+            ttft[0] = time.perf_counter() - t_start
+            _TTFT.observe(ttft[0])
+        user_emit(text)
+
     runner = state.batch_engine or state.engine
     tok = runner.tokenizer
     spec = runner.spec
@@ -262,6 +417,7 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     if isinstance(mt_raw, bool) or not isinstance(mt_raw, int) or mt_raw < 0:
         raise InvalidRequest(
             f"'max_tokens' must be a non-negative integer, got {mt_raw!r}")
+    imported = 0
     ks = body.get("kv_source")
     if isinstance(ks, dict) and state.batch_engine is not None:
         # a disaggregated admission: a prefill replica already computed this prompt's
@@ -270,8 +426,10 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
         from ..fleet.disagg import import_kv_source
 
         rec: dict = {}
-        import_kv_source(state.batch_engine, prompt, ks, record=rec)
+        imported = import_kv_source(state.batch_engine, prompt, ks, record=rec)
         state.last_import = rec
+        if imported:
+            flight.event(None, "kv_imported", tokens=imported)
     sampler = Sampler(
         spec.vocab_size,
         float(_opt(body, "temperature", state.default_sampler.temperature)),
@@ -286,6 +444,10 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
         # every stochastic sample drew one xorshift* coin (greedy none): skip the
         # delivered tokens' coins so the continuation draws the uninterrupted stream
         sampler.fast_forward(len(resume))
+        _RESUMED.inc()
+        _RESUME_TOKENS.inc(len(resume))
+        _RESUME_PREFIX.inc(len(prompt) + len(resume))
+        flight.event(None, "resume_admitted", tokens=len(resume))
     deadlines = [d for d in (state.request_deadline, deadline_s) if d]
     eff_deadline = min(deadlines) if deadlines else 0.0
     if state.batch_engine is None and state.tenants is not None:
@@ -333,12 +495,12 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
         # a resume with no budget left (the original run ended right after its last
         # delivered token) needs no engine work
         if not streamer.stopped and not (resume and max_tokens == 0):
+            # the request id, trace context and tenant come from the bound context
             req = state.batch_engine.submit(prompt_full, max_tokens, sampler,
                                             on_token=on_token,
                                             stop_check=streamer.stop_check,
                                             deadline=eff_deadline or None,
-                                            resume_tokens=len(resume), tenant=tenant,
-                                            klass=klass)
+                                            resume_tokens=len(resume), klass=klass)
             # the sentinel closes the drain loop once the request completes (the puts
             # happen-before done.set(), so everything queued is drained first)
             threading.Thread(target=lambda: (req.done.wait(), deltas.put(None)),
@@ -358,12 +520,24 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
             raise
         if req is not None and req.error is not None:
             raise req.error
+        finish = "length"
         if streamer.stopped:
-            return "".join(pieces), "stop"
-        if req is not None and req.finish == "deadline":
+            finish = "stop"
+        elif req is not None and req.finish == "deadline":
             # the deadline passed mid-generation: the partial output is the answer
-            return "".join(pieces), "deadline"
-        return "".join(pieces), "length"
+            finish = "deadline"
+        if req is not None:
+            if resume:
+                _RESUME_REUSED.inc(req.stats.reused_tokens)
+            if imported:
+                # the shipped span less the last token's mandatory inference: any
+                # shortfall is KV that crossed the wire and was prefilled again anyway
+                from ..fleet.disagg import note_reprefill
+
+                note_reprefill(min(imported, len(prompt) - 1), req.stats.reused_tokens)
+        _observe_done(t_start, ttft, req.stats.generated_tokens if req is not None else 0,
+                      finish)
+        return "".join(pieces), finish
 
     jpending: list[int] = []  # tokens since the last flush (the journal's pairing)
 
@@ -400,14 +574,18 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
             break
         on_token(t)
     if streamer.stopped:
+        _observe_done(t_start, ttft, 0, "stop")
         return "".join(pieces), "stop"
     if resume and max_tokens == 0:
+        _observe_done(t_start, ttft, 0, "length")
         return "".join(pieces), "length"
     engine = state.engine
     # prefix reuse: rewind over the resident conversation's common prefix and/or seed
     # rows from the cross-conversation pool; prefill covers only the rest (for a resume,
     # prompt plus the delivered tokens, whose prompt half is usually cached)
     reuse = state.cache.begin(prompt_full)
+    if resume:
+        _RESUME_REUSED.inc(reuse)
     try:
         # the proposer drafts from the whole conversation, not only the delta
         out, _ = engine.generate_with(prompt_full[reuse:], max_tokens, sampler,
@@ -423,7 +601,21 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     state.cache.end((prompt_full + out)[:engine.pos])
     if streamer.stopped:
         finish[0] = "stop"
+    _observe_done(t_start, ttft, len(out), finish[0])
     return "".join(pieces), finish[0]
+
+
+def _flight_error(rid: str, e: Exception) -> None:
+    """Complete or discard the flight record of a failed completion. Admission sheds
+    (saturated, draining or closed 503s, quota 429s) and caller errors (ValueError
+    covers InvalidRequest and template or encode failures: the 400s) are dropped: they
+    arrive at client-request rate, and finishing each would flood --slow-log and churn
+    every real timeline out of the ring. Server-side failures (500s, deadline expiries)
+    stay as exemplars."""
+    if isinstance(e, (EngineSaturated, EngineClosed, QuotaExceeded, ValueError)):
+        flight.drop(rid)
+    else:
+        flight.finish(rid, None, error=str(e))
 
 
 def _map_error(e: Exception) -> tuple[int, str, float | None]:
@@ -454,25 +646,35 @@ class Handler(BaseHTTPRequestHandler):
         print(f"🔷 {self.command} {self.path}")
 
     def _json(self, code: int, payload: dict, headers: dict | None = None):
-        data = json.dumps(payload).encode()
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(data)))
-        for k, v in (headers or {}).items():
-            self.send_header(k, v)
-        self.end_headers()
-        self.wfile.write(data)
+        self._raw(code, "application/json", json.dumps(payload).encode(), headers)
 
     def _error(self, code: int, message: str, etype: str,
-               retry_after: float | None = None):
+               retry_after: float | None = None, headers: dict | None = None):
         """OpenAI-style error body; a load-shed 503 carries Retry-After."""
-        headers = ({"Retry-After": str(max(int(retry_after + 0.5), 1))}
-                   if retry_after is not None else None)
-        self._json(code, {"error": {"message": message, "type": etype}}, headers)
+        hdrs = dict(headers or {})
+        if retry_after is not None:
+            hdrs["Retry-After"] = str(max(int(retry_after + 0.5), 1))
+        self._json(code, {"error": {"message": message, "type": etype}}, hdrs or None)
 
-    def _mapped_error(self, e: Exception):
+    def _mapped_error(self, e: Exception, rid: str | None = None):
+        # an errored request is the flight recorder's first exemplar: its response
+        # names the lookup key (X-Request-Id) for GET /v1/requests/<id>
         code, etype, retry_after = _map_error(e)
-        self._error(code, str(e), etype, retry_after)
+        hdrs = ({"X-Request-Id": rid, "X-Replica": self._replica_addr()}
+                if rid else None)
+        self._error(code, str(e), etype, retry_after, hdrs)
+
+    def _replica_addr(self) -> str:
+        """This replica's routable address for the X-Replica header: the address the
+        client connected to when the server is bound to 0.0.0.0."""
+        rid = self.state.replica_id
+        if not rid.startswith("0.0.0.0:"):
+            return rid
+        try:
+            host, port = self.connection.getsockname()[:2]
+            return f"{host}:{port}"
+        except (OSError, ValueError):
+            return rid
 
     def _raw(self, code: int, ctype: str, data: bytes, headers: dict | None = None):
         self.send_response(code)
@@ -482,6 +684,7 @@ class Handler(BaseHTTPRequestHandler):
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
+        _count_http(self.path, code)
 
     def _write_chunk(self, data: bytes):
         self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
@@ -516,8 +719,51 @@ class Handler(BaseHTTPRequestHandler):
                 if sup is not None:
                     payload["supervisor"] = sup.stats()
                 self._json(200, payload)
+        elif self.path == "/metrics":
+            self._raw(200, "text/plain; version=0.0.4; charset=utf-8",
+                      metrics.render().encode())
+        elif self.path == "/v1/stats":
+            self._json(200, _stats_payload(self.state))
+        elif (self.path.split("?", 1)[0] == "/v1/requests"
+              or self.path.startswith("/v1/requests/")):
+            self._get_requests()
+        elif self.path == "/v1/trace":
+            # this replica's live Chrome trace (a fleet router's /v1/trace merges them)
+            t = trace.current()
+            if t is None:
+                self._error(404, "tracing is not enabled on this replica (start with "
+                            "--trace)", "invalid_request_error")
+            else:
+                self._json(200, t.to_chrome_trace())
         else:
             self._error(404, f"Unknown route: {self.path}", "invalid_request_error")
+
+    def _get_requests(self):
+        """GET /v1/requests[?slowest=K&tenant=T] | /v1/requests/<id>: the flight
+        recorder's per-request timelines."""
+        rec = flight.current()
+        if rec is None:
+            self._error(404, "flight recorder is not enabled", "invalid_request_error")
+            return
+        parts = urlsplit(self.path)
+        if parts.path.startswith("/v1/requests/"):
+            key = parts.path[len("/v1/requests/"):]
+            r = rec.get(key)
+            if r is None:
+                self._error(404, f"no flight record for {key!r} (the ring keeps the "
+                            f"last {rec.capacity} completed requests)",
+                            "invalid_request_error")
+            else:
+                self._json(200, r)
+            return
+        qs = parse_qs(parts.query)
+        try:
+            slowest = int(qs.get("slowest", ["0"])[0])
+        except ValueError:
+            self._error(400, "'slowest' must be an integer", "invalid_request_error")
+            return
+        tenant = qs.get("tenant", [None])[0]
+        self._json(200, rec.requests(slowest=slowest, tenant=tenant))
 
     def _post_kv(self):
         """POST /v1/kv: the prefill-only admission of a disaggregated request. The
@@ -563,15 +809,19 @@ class Handler(BaseHTTPRequestHandler):
                             export_kv=True, tenant=tenant, klass=klass)
             req.wait(timeout=300)
         except Exception as e:
+            _KV_PREFILLS.labels(outcome="error").inc()
             self._mapped_error(e)
             return
         exp = req.kv_export
         if not exp or not exp[1]:
+            _KV_PREFILLS.labels(outcome="empty").inc()
             self._json(200, {"xfer_id": None, "n_tokens": 0, "n_blocks": 0})
             return
         tokens, blocks, bt = exp
-        self._json(200, state.kv_transfers.open(tokens, blocks, bt,
-                                                "q80" if state.kv_wire_q80 else "raw"))
+        desc = state.kv_transfers.open(tokens, blocks, bt,
+                                       "q80" if state.kv_wire_q80 else "raw")
+        _KV_PREFILLS.labels(outcome="ok").inc()
+        self._json(200, desc)
 
     def _get_kv(self):
         """GET /v1/kv/<xfer_id>?from=F&n=N: wire-encoded blocks [F, F+N) of a registered
@@ -605,6 +855,8 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:
             self._error(500, f"export failed: {e}", "server_error")
             return
+        _KV_EXPORT_BLOCKS.inc(n)
+        _KV_EXPORT_BYTES.inc(len(payload))
         # a range covering the final block consumes the transfer: its place in the
         # capped table frees after a short retry grace instead of the full TTL
         state.kv_transfers.note_served(t, frm, n)
@@ -649,29 +901,34 @@ class Handler(BaseHTTPRequestHandler):
                 return
         # journal mode: a durable router asks for the token ids of each SSE delta
         journal = {"toks": [], "n": 0} if self.headers.get("X-Dllama-Journal") else None
+        # the request's identity: the completion id doubles as the flight-recorder key,
+        # and an inbound W3C traceparent (a fleet router stamps one on every proxied
+        # hop) is adopted, or a trace originated here. The tenant (X-Tenant, relayed by
+        # a router on every try and resume) rides the context into the engine
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
-        # the tenant (X-Tenant, relayed by a fleet router on every try and resume) and
+        ctx = reqctx.adopt(self.headers.get("traceparent"), request_id=rid,
+                           tenant=sanitize_tenant(self.headers.get("X-Tenant")))
         # an X-Class header, which the body's "class" overrides
-        tenant = sanitize_tenant(self.headers.get("X-Tenant"))
         if "class" not in body and self.headers.get("X-Class"):
             body["class"] = self.headers.get("X-Class")
         # batched mode: the scheduler serializes device access itself
         guard = contextlib.nullcontext() if state.batch_engine is not None else state.lock
-        with guard:
+        with guard, reqctx.use(ctx):
             if body.get("stream", False):
-                self._stream(state, body, rid, journal, deadline_s, tenant)
+                self._stream(state, body, rid, journal, deadline_s)
                 return
             try:
                 text, finish = run_completion(state, body, lambda _t: None,
-                                              deadline_s=deadline_s, tenant=tenant)
+                                              deadline_s=deadline_s)
             except Exception as e:
-                self._mapped_error(e)
+                _flight_error(rid, e)
+                self._mapped_error(e, rid)
                 return
             self._json(200, _completion_payload(state, text, finish, rid),
-                       {"X-Request-Id": rid})
+                       {"X-Request-Id": rid, "X-Replica": self._replica_addr()})
 
     def _stream(self, state: ApiState, body: dict, rid: str, journal=None,
-                deadline_s: float | None = None, tenant: str = DEFAULT_TENANT):
+                deadline_s: float | None = None):
         # SSE headers are deferred to the first delta: an error raised before any
         # output gets its real status code instead of a 200 stream with an error event
         started = [False]
@@ -682,7 +939,9 @@ class Handler(BaseHTTPRequestHandler):
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Transfer-Encoding", "chunked")
             self.send_header("X-Request-Id", rid)
+            self.send_header("X-Replica", self._replica_addr())
             self.end_headers()
+            _count_http(self.path, 200)
             started[0] = True
 
         def emit(text):
@@ -698,10 +957,11 @@ class Handler(BaseHTTPRequestHandler):
 
         try:
             _text, finish = run_completion(state, body, emit, journal=journal,
-                                           deadline_s=deadline_s, tenant=tenant)
+                                           deadline_s=deadline_s)
         except Exception as e:
+            _flight_error(rid, e)
             if not started[0]:
-                self._mapped_error(e)
+                self._mapped_error(e, rid)
                 return
             # mid-stream: an error event, then the end of the stream. `retriable` is the
             # durable router's failover switch: True when the replica failed around an
@@ -730,7 +990,9 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
           request_deadline: float = 0.0, supervisor_threshold: float = 0.0,
           supervisor_poll: float = 1.0, tenants: TenantRegistry | None = None,
           role: str = "both", kv_wire_q80: bool = False, kv_transfer_ttl: float = 120.0,
-          kv_transfer_cap: int = 32) -> ThreadingHTTPServer:
+          kv_transfer_cap: int = 32, flight_requests: int = 256,
+          slow_log: str | None = None,
+          slow_threshold: float = 1.0) -> ThreadingHTTPServer:
     """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
     serve_forever(). Pass `engine` for --batch 1 serving (the prefix_* arguments size
     its prefix cache, speculative_k > 0 verifies drafts of greedy requests), or
@@ -739,7 +1001,9 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
     > 0 starts an EngineSupervisor on the batch engine (`server.api_state.supervisor`;
     the caller stops it). `tenants` is the --batch 1 server's registry (a batch engine
     brings its own); `role`, `kv_wire_q80` and the kv_transfer_* bounds configure the
-    disaggregated prefill's export side."""
+    disaggregated prefill's export side. The flight recorder is always on: a ring of the
+    last `flight_requests` timelines, and `slow_log` appends every request slower than
+    `slow_threshold` seconds (or failed) as one JSON line."""
     # a batch engine built without speculation would leave speculative_k silently inert
     if (batch_engine is not None and speculative_k > 0
             and not getattr(batch_engine, "spec_k", 0)):
@@ -765,6 +1029,14 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
     server.daemon_threads = True
     server.api_state = state
     state.replica_id = f"{host}:{server.server_address[1]}"
+    # the flight recorder, always on: GET /v1/requests answers "why was this one slow"
+    # without a restart. A recorder already installed (tests, two servers in one
+    # process) is kept only when this server asks for the defaults
+    if (flight.current() is None or slow_log is not None or flight_requests != 256
+            or slow_threshold != 1.0):
+        flight.install(flight_requests, slow_log=slow_log, slow_threshold=slow_threshold)
+    install_process_metrics()
+    trace.set_process_name(f"api_server {state.replica_id}")
     if supervisor_threshold > 0 and batch_engine is not None:
         from ..resilience.supervisor import EngineSupervisor
 
@@ -901,6 +1173,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout", type=float, default=30.0, metavar="S",
                    help="SIGTERM drain: /healthz answers 503 'draining', admissions "
                         "stop, and in-flight requests get up to S seconds to finish")
+    p.add_argument("--flight-requests", type=int, default=256, metavar="N",
+                   help="flight recorder ring: keep the last N completed "
+                        "request timelines for GET /v1/requests")
+    p.add_argument("--slow-log", default=None, metavar="OUT.jsonl",
+                   help="append every request slower than --slow-threshold "
+                        "as one JSON line (its full flight-recorder "
+                        "timeline) — durable exemplars after the ring "
+                        "rotates")
+    p.add_argument("--slow-threshold", type=float, default=1.0, metavar="S",
+                   help="E2E seconds over which a request lands in "
+                        "--slow-log (default 1.0)")
+    p.add_argument("--trace", default=None, metavar="OUT.json",
+                   help="record runtime spans (prefill chunks, decode "
+                        "dispatches, super-steps) and write a Chrome trace-event JSON "
+                        "at exit — load it in Perfetto (ui.perfetto.dev) or "
+                        "chrome://tracing; GET /v1/trace serves it live")
+    p.add_argument("--trace-annotate", action="store_true",
+                   help="with --trace: also enter each span as a "
+                        "torch.profiler.record_function range, so spans appear "
+                        "around their kernels in a torch.profiler trace")
     p.add_argument("--supervisor-threshold", type=float, default=0.0, metavar="S",
                    help="--batch > 1: when no device dispatch completes for S seconds "
                         "while requests are in flight, fail them with a retriable 503 "
@@ -1026,12 +1318,17 @@ def build_server(args) -> ThreadingHTTPServer:
                  supervisor_poll=args.supervisor_poll, tenants=tenants, role=args.role,
                  kv_wire_q80=args.kv_wire_q80, kv_transfer_ttl=args.kv_transfer_ttl,
                  kv_transfer_cap=args.kv_transfer_cap,
+                 flight_requests=args.flight_requests, slow_log=args.slow_log,
+                 slow_threshold=args.slow_threshold,
                  **(cache_kw if batch_engine is None else {}))
 
 
 def main(argv=None) -> None:
+    from .dllama import dump_trace, install_trace
+
     faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
     args = build_parser().parse_args(argv)
+    install_trace(args)  # --trace: before the load, so its spans are recorded too
     server = build_server(args)
     # SIGTERM: /healthz turns to draining, admissions stop, in-flight requests finish
     install_sigterm_drain(server, server.api_state, args.drain_timeout)
@@ -1047,6 +1344,7 @@ def main(argv=None) -> None:
             # after a drain this finds nothing left; on Ctrl-C the waiters get
             # EngineClosed instead of a scheduler left running
             server.api_state.batch_engine.close()
+        dump_trace(args)  # --trace: write the span buffer on shutdown
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ Modes (dllama.cpp:230-245):
 
 The first SIGTERM stops a generation after its current token (the partial output and the
 stats still print); a second one stops at once. `DLLAMA_FAULTS` injects faults
-(resilience/faults.py).
+(resilience/faults.py). `--trace out.json` records the runtime's spans (obs/trace.py) and
+writes a Chrome trace at exit; open it in Perfetto (ui.perfetto.dev).
 """
 
 from __future__ import annotations
@@ -62,6 +63,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-loop", type=int, default=0, metavar="CHUNK",
                    help="decode CHUNK tokens per dispatch with the device loop, sampling "
                         "on the device (runtime/device_loop.py); 0 = per-token host loop")
+    p.add_argument("--trace", default=None, metavar="OUT.json",
+                   help="record runtime spans (prefill chunks, decode "
+                        "dispatches, device-loop chunks) and write a Chrome "
+                        "trace-event JSON at exit — load it in Perfetto "
+                        "(ui.perfetto.dev) or chrome://tracing")
+    p.add_argument("--trace-annotate", action="store_true",
+                   help="with --trace: also enter each span as a "
+                        "torch.profiler.record_function range, so spans appear "
+                        "around their kernels in a torch.profiler trace")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
                    help="prompt-lookup speculative decoding: draft up to K tokens from "
                         "context n-gram matches and verify them in one step "
@@ -236,12 +246,39 @@ def mode_chat(args) -> None:
             break
 
 
+def install_trace(args) -> bool:
+    """--trace: install the process-wide tracer before any engine work, so the load's
+    spans are recorded too (shared by dllama and api_server). True when tracing is
+    on."""
+    if not getattr(args, "trace", None):
+        return False
+    from ..obs import trace
+
+    trace.install(annotate=getattr(args, "trace_annotate", False))
+    return True
+
+
+def dump_trace(args) -> None:
+    """Write the Chrome trace to args.trace (a no-op without --trace)."""
+    from ..obs import trace
+
+    t = trace.current()
+    if getattr(args, "trace", None) and t is not None:
+        t.dump(args.trace)
+        print(f"🧭 wrote {len(t.events())} trace events to {args.trace} "
+              f"({t.dropped_events} dropped) — open in ui.perfetto.dev", file=sys.stderr)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    install_trace(args)
     faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
     install_graceful_stop()  # SIGTERM: stop after the current token
-    {"inference": mode_inference, "generate": mode_generate,
-     "chat": mode_chat}[args.mode](args)
+    try:
+        {"inference": mode_inference, "generate": mode_generate,
+         "chat": mode_chat}[args.mode](args)
+    finally:
+        dump_trace(args)
 
 
 if __name__ == "__main__":

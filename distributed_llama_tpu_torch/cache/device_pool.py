@@ -1,7 +1,7 @@
 """Device-resident paged KV: block-pool metadata + the radix *directory*.
 
-The port's copy of the JAX package's cache/device_pool.py, without its process-wide
-metric families (every per-instance counter and `stats()` key is kept). KV lives in a
+The port's copy of the JAX package's cache/device_pool.py, with its process-wide metric
+families beside every per-instance counter and `stats()` key. KV lives in a
 device POOL of fixed-size blocks, (L, N, hk, block_tokens, hs) per side, and each slot
 carries a BLOCK TABLE mapping virtual positions [0, seq_len) to pool blocks (position p
 lives in block table[p // bt] at offset p % bt). The tensors stay on the Engine and are
@@ -34,12 +34,41 @@ import threading
 
 import numpy as np
 
+from ..obs import metrics
+from .prefix_cache import (_EVICTED, _HIT_TOKENS, _HITS, _INSERTED, _MISSES,
+                           _RESIDENT_TOKENS, _UNUSED)
 from .radix import RadixIndex, RadixNode
 
 __all__ = ["DeviceKVPool", "PagedPrefixCache", "PagedLease", "KVPoolExhausted",
            "SCRATCH_BLOCK"]
 
 SCRATCH_BLOCK = 0  # permanent garbage target; never allocated, never read
+
+# the JAX package's families; every value is host metadata (no device read)
+_POOL_BLOCKS = metrics.gauge(
+    "paged_kv_pool_blocks", "Device KV pool capacity in blocks (--kv-pool-blocks)")
+_POOL_FREE = metrics.gauge(
+    "paged_kv_free_blocks", "Device KV pool blocks currently unallocated")
+_REMAPPED = metrics.counter(
+    "paged_kv_remapped_blocks_total",
+    "Directory blocks remapped into a slot's table at admission "
+    "(zero-copy prefix reuse — no KV bytes moved)")
+_COW = metrics.counter(
+    "paged_kv_cow_blocks_total",
+    "Copy-on-write block duplications (a slot about to append into a "
+    "shared block gets a private device-side copy)")
+_DEMOTED = metrics.counter(
+    "paged_kv_demoted_blocks_total",
+    "Directory blocks demoted device->host under pool pressure (into the "
+    "unified cache/block_pool.py tier)")
+_PROMOTED = metrics.counter(
+    "paged_kv_promoted_blocks_total",
+    "Cold directory blocks promoted host->device on a prefix hit")
+_SEED_BYTES = metrics.counter(
+    "paged_kv_seed_bytes_total",
+    "KV bytes moved host->device at admission seeding (0 for device-tier "
+    "hits — the zero-copy remap claim, asserted by the shared-prefix bench; "
+    "nonzero only when a cold block is promoted)")
 
 
 class KVPoolExhausted(RuntimeError):
@@ -64,6 +93,8 @@ class DeviceKVPool:
         self._refs[SCRATCH_BLOCK] = 1  # permanently pinned, never allocatable
         self._free = list(range(n_blocks - 1, 0, -1))  # stack, low ids first out
         self.cow_blocks = 0  # copy-on-write duplications the engine made (note_cow)
+        _POOL_BLOCKS.set(n_blocks)
+        _POOL_FREE.set(len(self._free))
 
     def alloc(self, n: int) -> list[int] | None:
         """Allocate n blocks (refcount 1 each), all-or-nothing. None when fewer than n
@@ -75,6 +106,7 @@ class DeviceKVPool:
             for b in ids:
                 assert self._refs[b] == 0, (b, int(self._refs[b]))
                 self._refs[b] = 1
+            _POOL_FREE.set(len(self._free))
             return ids
 
     def incref(self, ids) -> None:
@@ -94,6 +126,7 @@ class DeviceKVPool:
                 if self._refs[b] == 0:
                     self._free.append(b)
                     freed += 1
+            _POOL_FREE.set(len(self._free))
         return freed
 
     def free_blocks(self) -> int:
@@ -108,6 +141,7 @@ class DeviceKVPool:
             self._refs[:] = 0
             self._refs[SCRATCH_BLOCK] = 1
             self._free = list(range(self.n_blocks - 1, 0, -1))
+            _POOL_FREE.set(len(self._free))
 
     def refcounts(self) -> np.ndarray:
         """Snapshot for tests/stats."""
@@ -127,6 +161,7 @@ class DeviceKVPool:
     def note_cow(self) -> None:
         with self._lock:
             self.cow_blocks += 1
+        _COW.inc()
 
     def stats(self) -> dict:
         with self._lock:
@@ -193,6 +228,7 @@ class PagedPrefixCache:
                 n = min(n, cap)
             if n < 1:
                 self.misses += 1
+                _MISSES.inc()
                 return None
             nodes = nodes[:(n + self.block_tokens - 1) // self.block_tokens]
             self.radix.acquire(nodes)
@@ -202,18 +238,22 @@ class PagedPrefixCache:
         with self._lock:
             self.hits += 1
             self.hit_tokens += used_tokens
+        _HITS.inc()
+        _HIT_TOKENS.inc(used_tokens)
 
     def note_resident(self, tokens: int) -> None:
         if tokens <= 0:
             return
         with self._lock:
             self.resident_tokens += tokens
+        _RESIDENT_TOKENS.inc(tokens)
 
     def mark_unused(self, lease: PagedLease | None) -> None:
         if lease is None:
             return
         with self._lock:
             self.unused_hits += 1
+        _UNUSED.inc()
         self.release(lease)
 
     def release(self, lease: PagedLease | None) -> None:
@@ -259,6 +299,7 @@ class PagedPrefixCache:
 
         with self._lock:
             self.radix.insert(blocked, make_handle)
+        _INSERTED.inc(created)
         return created
 
     def insert_cold(self, tokens: list[int], blocks: list) -> int:
@@ -275,9 +316,11 @@ class PagedPrefixCache:
         if n_blocks == 0:
             return 0
         blocked = tokens[:n_blocks * bt]
+        created = 0
         dev_freed: list[int] = []
 
         def make_handle(i: int):
+            nonlocal created
             k, v = blocks[i]
             h = self.cold.put(k, v)
             if h is None:
@@ -285,6 +328,7 @@ class PagedPrefixCache:
                 h = self.cold.put(k, v)
             if h is None:
                 return None  # cold tier pinned full: stop extending
+            created += 1
             return ("cold", h)
 
         with self._lock:
@@ -293,6 +337,7 @@ class PagedPrefixCache:
             # dev-tier descendants dropped with an evicted cold subtree surrender their
             # pool refs (the same contract as reclaim())
             self.pool.decref(dev_freed)
+        _INSERTED.inc(created)
         return len(chain)
 
     def promote(self, node: RadixNode, new_bid: int) -> None:
@@ -307,6 +352,7 @@ class PagedPrefixCache:
             if self.cold is not None:
                 self.cold.free(h)
             self.promoted += 1
+        _PROMOTED.inc()
 
     def reclaim(self, n_blocks: int, read_block) -> int:
         """Free up to n_blocks device blocks by demoting (or, with no cold tier,
@@ -354,6 +400,7 @@ class PagedPrefixCache:
                     if h is not None:
                         node.handle = ("cold", h)
                         self.demoted += 1
+                        _DEMOTED.inc()
                         released.append(bid)
                         continue
                 # no cold tier (or it refused): evict the node and its whole subtree
@@ -376,6 +423,7 @@ class PagedPrefixCache:
         del node.parent.children[node.key]
         self.radix.nodes -= len(doomed)
         self.evicted_blocks += len(doomed)
+        _EVICTED.inc(len(doomed))
         dev_ids = []
         for n in doomed:
             tier, h = n.handle

@@ -1,7 +1,8 @@
 """Shared-prefix KV cache facade: radix index + block pool + leases.
 
-The port's copy of the JAX package's cache/prefix_cache.py, without its process-wide
-metric families (every per-instance `stats()` counter is kept). A finished request's
+The port's copy of the JAX package's cache/prefix_cache.py, with its process-wide metric
+families (shared with the paged directory, cache/device_pool.py) beside the per-instance
+`stats()` counters. A finished request's
 committed prefix is harvested into the host block pool (copy-out), and a new request
 whose prompt shares a cached block-prefix seeds its cache rows from the pool (copy-in),
 so prefill runs only on the uncached suffix. The paged engine uses the directory over
@@ -25,10 +26,42 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..obs import metrics
 from .block_pool import KVBlockPool
 from .radix import RadixIndex, RadixNode
 
 __all__ = ["PrefixCache", "PrefixLease"]
+
+
+# the JAX package's families: process-global (every engine in the process shares
+# them); the per-instance copies live on the caches for stats isolation
+_HITS = metrics.counter(
+    "prefix_cache_hits_total",
+    "Lookups whose cached blocks were actually applied to a slot")
+_MISSES = metrics.counter(
+    "prefix_cache_misses_total", "Prompt lookups with no cached block")
+_UNUSED = metrics.counter(
+    "prefix_cache_unused_hits_total",
+    "Lookups that matched blocks the slot rewind already covered (discarded)")
+_HIT_TOKENS = metrics.counter(
+    "prefix_cache_hit_tokens_total",
+    "Prompt tokens served from cached KV blocks instead of prefill")
+_RESIDENT_TOKENS = metrics.counter(
+    "prefix_cache_resident_tokens_total",
+    "Prompt tokens covered by the slot's own resident rewind (reuse that "
+    "never touched the pool)")
+_EVICTED = metrics.counter(
+    "prefix_cache_evicted_blocks_total", "Blocks LRU-evicted from the pool")
+_INSERTED = metrics.counter(
+    "prefix_cache_inserted_blocks_total", "Blocks committed to the pool")
+_POOL_BLOCKS = metrics.gauge(
+    "prefix_cache_pool_blocks", "Blocks resident in the pool (hot + cold)")
+_POOL_HOT = metrics.gauge(
+    "prefix_cache_pool_hot_blocks", "Blocks resident in the uncompressed tier")
+_POOL_BYTES = metrics.gauge(
+    "prefix_cache_pool_bytes", "Host bytes held by the block pool")
+_TREE_NODES = metrics.gauge(
+    "prefix_cache_tree_nodes", "Nodes in the radix index")
 
 
 @dataclass
@@ -79,6 +112,7 @@ class PrefixCache:
                 n = min(n, cap)
             if n < 1:
                 self.misses += 1
+                _MISSES.inc()
                 return None
             nodes = nodes[:(n + self.block_tokens - 1) // self.block_tokens]
             self.radix.acquire(nodes)
@@ -124,6 +158,8 @@ class PrefixCache:
         with self._lock:
             self.hits += 1
             self.hit_tokens += used_tokens
+        _HITS.inc()
+        _HIT_TOKENS.inc(used_tokens)
 
     def note_resident(self, tokens: int) -> None:
         """The engine's own slot rewind covered `tokens` leading prompt tokens before the
@@ -132,6 +168,7 @@ class PrefixCache:
             return
         with self._lock:
             self.resident_tokens += tokens
+        _RESIDENT_TOKENS.inc(tokens)
 
     def mark_unused(self, lease: PrefixLease | None) -> None:
         """The caller discarded the lease without applying it (the rewind already
@@ -140,6 +177,7 @@ class PrefixCache:
             return
         with self._lock:
             self.unused_hits += 1
+        _UNUSED.inc()
         self.release(lease)
 
     def release(self, lease: PrefixLease | None) -> None:
@@ -202,6 +240,7 @@ class PrefixCache:
                     for h in freed:
                         self.pool.free(h)
                     self.evicted_blocks += len(freed)
+                    _EVICTED.inc(len(freed))
 
                 def make_handle(i: int) -> int | None:
                     nonlocal created
@@ -216,6 +255,8 @@ class PrefixCache:
         finally:
             with self._lock:
                 self.radix.release(prefix_nodes)
+        _INSERTED.inc(created)
+        self._publish_gauges()
         return created
 
     def covered_blocks(self, tokens: list[int]) -> int:
@@ -229,6 +270,17 @@ class PrefixCache:
         """Live reservation count, read under the lock."""
         with self._lock:
             return self.radix.total_refs()
+
+    def _publish_gauges(self) -> None:
+        # under the lock: hot_count/nbytes iterate the pool's block dict, which a
+        # concurrent insert/evict mutates
+        with self._lock:
+            blocks, hot = len(self.pool), self.pool.hot_count()
+            nbytes, nodes = self.pool.nbytes(), self.radix.nodes
+        _POOL_BLOCKS.set(blocks)
+        _POOL_HOT.set(hot)
+        _POOL_BYTES.set(nbytes)
+        _TREE_NODES.set(nodes)
 
     # ------------------------------------------------------------------
     # stats

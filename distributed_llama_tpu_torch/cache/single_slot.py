@@ -19,6 +19,7 @@ interleave; the PrefixCache itself is still internally locked.
 
 from __future__ import annotations
 
+from ..obs import trace
 from .prefix_cache import PrefixCache, PrefixLease
 
 __all__ = ["SingleSlotCache"]
@@ -50,10 +51,12 @@ class SingleSlotCache:
             lease = self.cache.lookup(prompt, cap=eng.spec.seq_len - 1)
             if lease is not None and lease.tokens > reuse:
                 try:
-                    eng.seek(min(reuse, eng.pos))
-                    # fetch only beyond the resident rows
-                    ck, cv = self.cache.fetch(lease, skip=reuse)
-                    eng.seed_rows(reuse, ck, cv)
+                    with trace.span("api.prefix_seed",
+                                    {"tokens": lease.tokens, "resident": reuse}):
+                        eng.seek(min(reuse, eng.pos))
+                        # fetch only beyond the resident rows
+                        ck, cv = self.cache.fetch(lease, skip=reuse)
+                        eng.seed_rows(reuse, ck, cv)
                 except Exception as e:
                     # a partial write may have corrupted rows >= reuse of the resident
                     # conversation too — truncate the reuse record to the rows still
@@ -80,7 +83,8 @@ class SingleSlotCache:
         eng = self.engine
         try:
             if self.cache is not None and committed:
-                self.cache.insert(committed, eng.read_rows)
+                with trace.span("api.prefix_insert", {"tokens": len(committed)}):
+                    self.cache.insert(committed, eng.read_rows)
         except Exception as e:
             # the generation succeeded — a failed harvest must neither fail the request
             # nor leak the lease

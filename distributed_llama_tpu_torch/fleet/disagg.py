@@ -1,7 +1,7 @@
 """Prefill/decode disaggregation, the replica's side: a copy of the replica-side half of
-the JAX package's fleet/disagg.py, without its metric families and trace spans. The
-router's half (the planner) stays in the JAX package's stdlib router, which fronts the
-port's servers over HTTP.
+the JAX package's fleet/disagg.py, with its replica-side metric families and the
+`disagg.import` span. The router's half (the planner and its families) stays in the JAX
+package's stdlib router, which fronts the port's servers over HTTP.
 
 A replica advertises a ROLE in its /healthz replica block: ``prefill`` (long-prompt
 admissions land here), ``decode`` (short chains and the decode half of split requests)
@@ -31,12 +31,43 @@ import time
 import uuid
 from http.client import HTTPConnection
 
+from ..obs import metrics, trace
 from ..resilience import faults
 
 __all__ = ["ROLES", "KVTransferTable", "tokens_hash", "fetch_kv_blocks",
-           "import_kv_source"]
+           "import_kv_source", "note_reprefill"]
 
 ROLES = ("prefill", "decode", "both")
+
+# Decode-replica-side import telemetry (the JAX package's families).
+_IMPORTS = metrics.counter(
+    "disagg_import_requests_total",
+    "kv_source imports attempted at the decode replica, by outcome: "
+    "imported, config_mismatch (block geometry differs), hash_mismatch "
+    "(tokenizations disagree), error (fetch/decode failed -> local "
+    "prefill), empty (descriptor carried no blocks)",
+    labelnames=("outcome",))
+_IMPORT_TOKENS = metrics.counter(
+    "disagg_import_tokens_total",
+    "Prompt tokens whose KV arrived over the wire and entered the prefix "
+    "cache (the span admission reuses instead of re-prefilling)")
+_IMPORT_BYTES = metrics.counter(
+    "disagg_import_bytes_total",
+    "Wire bytes fetched from prefill replicas (post-codec payload)")
+_IMPORT_SECONDS = metrics.histogram(
+    "disagg_import_seconds",
+    "Wall time of one kv_source import (all chunk fetches + host insert)")
+_FETCH_HEDGES = metrics.counter(
+    "disagg_fetch_hedges_total",
+    "Duplicate KV-chunk fetches raced against a chunk quiet past the "
+    "adaptive soft deadline (ranges are independently re-fetchable and "
+    "idempotent, so first result wins — the gray-failure hedging idiom "
+    "applied to the transfer leg)")
+_REPREFILL = metrics.counter(
+    "disagg_reprefill_tokens_total",
+    "Shipped-span tokens a disaggregated admission re-prefilled anyway "
+    "(0 in a healthy fleet — the mixed-context bench asserts it in-run; "
+    "nonzero means the imported blocks missed the radix lookup)")
 
 
 def tokens_hash(tokens) -> str:
@@ -151,6 +182,7 @@ def fetch_kv_blocks(host: str, port: int, xfer_id: str, frm: int, n: int,
             raise RuntimeError(f"kv fetch {xfer_id}[{frm}:{frm + n}] -> {resp.status}")
     finally:
         conn.close()
+    _IMPORT_BYTES.inc(len(data))
     if record is not None:
         record["bytes"] = record.get("bytes", 0) + len(data)
     blocks = decode_blocks(data)
@@ -228,6 +260,7 @@ def _fetch_chunk_hedged(host: str, port: int, xfer_id: str, frm: int, n: int, *,
         if hedge:
             state["started"] += 1
     if hedge:
+        _FETCH_HEDGES.inc()
         threading.Thread(target=attempt, daemon=True, name="kv-fetch-hedge").start()
     with cv:
         # the final wait is bounded by the configured cap: `hard` bounds each socket
@@ -251,6 +284,12 @@ def import_kv_source(engine, prompt: list[int], ks: dict, *, timeout: float = 30
     with their decoding and of the insert."""
     rec = record if record is not None else {}
     rec.update(outcome="error", bytes=0, fetch_ms=0.0, insert_ms=0.0, tokens=0)
+    t0 = time.perf_counter()
+
+    def outcome(name: str) -> int:
+        rec["outcome"] = name
+        _IMPORTS.labels(outcome=name).inc()
+        return 0
     try:
         n_tokens = int(ks["n_tokens"])
         n_blocks = int(ks["n_blocks"])
@@ -258,49 +297,59 @@ def import_kv_source(engine, prompt: list[int], ks: dict, *, timeout: float = 30
         host, port = _parse_addr(str(ks["replica"]))
         xfer_id = str(ks["xfer_id"])
     except (KeyError, TypeError, ValueError):
-        return 0
+        return outcome("error")
     if n_blocks <= 0:
-        rec["outcome"] = "empty"
-        return 0
+        return outcome("empty")
     pc = getattr(engine, "prefix_cache", None)
     if pc is None or bt != pc.block_tokens or n_tokens > len(prompt) \
             or n_tokens != n_blocks * bt:
-        rec["outcome"] = "config_mismatch"
-        return 0
+        return outcome("config_mismatch")
     if tokens_hash(prompt[:n_tokens]) != ks.get("tokens_hash"):
         # another tokenization (mixed fleet): the shipped rows would seed KV for tokens
         # this replica never saw
-        rec["outcome"] = "hash_mismatch"
-        return 0
+        return outcome("hash_mismatch")
     blocks: list = []
     chunk_lat = _ChunkTime()
     try:
-        t0 = time.perf_counter()
-        for frm in range(0, n_blocks, max(chunk_blocks, 1)):
-            want = min(max(chunk_blocks, 1), n_blocks - frm)
-            for attempt in (0, 1):  # a per-chunk retry: ranges are resumable
-                try:
-                    if attempt == 0:
-                        blocks.extend(_fetch_chunk_hedged(
-                            host, port, xfer_id, frm, want, timeout=timeout,
-                            chunk_lat=chunk_lat, record=rec))
-                    else:
-                        # the retry runs untightened: the hedged attempt's deadline may
-                        # be exactly why the first try failed
-                        blocks.extend(fetch_kv_blocks(host, port, xfer_id, frm, want,
-                                                      timeout=timeout, record=rec))
-                    break
-                except Exception:
-                    if attempt:
-                        raise
-        t1 = time.perf_counter()
-        imported = engine.import_kv_blocks(prompt[:n_tokens], blocks)
-        rec["fetch_ms"] = (t1 - t0) * 1e3
-        rec["insert_ms"] = (time.perf_counter() - t1) * 1e3
+        with trace.span("disagg.import", {"xfer": xfer_id, "blocks": n_blocks}):
+            for frm in range(0, n_blocks, max(chunk_blocks, 1)):
+                want = min(max(chunk_blocks, 1), n_blocks - frm)
+                for attempt in (0, 1):  # a per-chunk retry: ranges are resumable
+                    try:
+                        if attempt == 0:
+                            blocks.extend(_fetch_chunk_hedged(
+                                host, port, xfer_id, frm, want, timeout=timeout,
+                                chunk_lat=chunk_lat, record=rec))
+                        else:
+                            # the retry runs untightened: the hedged attempt's deadline
+                            # may be exactly why the first try failed
+                            blocks.extend(fetch_kv_blocks(host, port, xfer_id, frm,
+                                                          want, timeout=timeout,
+                                                          record=rec))
+                        break
+                    except Exception:
+                        if attempt:
+                            raise
+            t1 = time.perf_counter()
+            imported = engine.import_kv_blocks(prompt[:n_tokens], blocks)
+            rec["fetch_ms"] = (t1 - t0) * 1e3
+            rec["insert_ms"] = (time.perf_counter() - t1) * 1e3
     except Exception:
-        return 0
+        return outcome("error")
     if imported <= 0:
-        rec["outcome"] = "empty"
-        return 0
+        return outcome("empty")
+    _IMPORTS.labels(outcome="imported").inc()
+    _IMPORT_TOKENS.inc(imported)
+    _IMPORT_SECONDS.observe(time.perf_counter() - t0)
     rec.update(outcome="imported", tokens=imported)
     return imported
+
+
+def note_reprefill(shipped: int, reused: int) -> int:
+    """Admission accounting for a streamed-KV request: how many shipped tokens were
+    re-prefilled anyway (the reuse fell short of the shipped span). 0 in a healthy
+    fleet."""
+    missed = max(shipped - reused, 0)
+    if missed:
+        _REPREFILL.inc(missed)
+    return missed

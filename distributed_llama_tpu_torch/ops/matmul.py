@@ -34,6 +34,7 @@ import threading
 
 import torch
 
+from ..obs import metrics
 from ..quants import QTensor, dequantize_i8
 from .q4_gated_matmul import q4_gated_matmul
 from .q4_matmul import q4_matmul
@@ -44,6 +45,15 @@ from .q8_matvec import q8_matvec, q8_matvec_expert, q8_matvec_q80
 # and gate-pair epilogues wired through models/forward.py
 FUSED_POLICIES = ("all", "fused")
 
+# the JAX package's family; it moves only when a shape bucket's kernel changes, so it
+# reads the same whether a step runs eagerly or replays from a CUDA graph (a replay runs
+# no host code, and _record runs at every eager call and at every capture)
+_KERNEL_SELECTED = metrics.counter(
+    "matmul_kernel_selected_total",
+    "matmul kernel lowerings by selected kernel (counted at trace time: one "
+    "per compiled program per call site, not per dispatch)",
+    labelnames=("kernel",))
+
 # which kernel served each (M, N, K, layout, op) bucket; bounded by the distinct shapes
 _selections: dict[str, str] = {}
 _selections_lock = threading.Lock()
@@ -53,7 +63,9 @@ def _record(kernel: str, m: int, w: QTensor, op: str = "mm") -> None:
     n, kin = w.shape[-2:]
     key = f"m={m},n={n},k={kin},layout={w.layout},op={op}"
     with _selections_lock:
-        _selections[key] = kernel
+        if _selections.get(key) != kernel:
+            _selections[key] = kernel
+            _KERNEL_SELECTED.labels(kernel=kernel).inc()
 
 
 def kernel_selections() -> dict[str, str]:

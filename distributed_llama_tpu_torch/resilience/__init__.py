@@ -1,5 +1,5 @@
 """Request control and recovery for the port's serving stack: a copy of what the JAX
-package's resilience/ gives its engines, without its metric families and flight hooks.
+package's resilience/ gives its engines, with its metric families and flight hooks.
 
 - `errors.py` — the typed errors the engines raise and the HTTP layer maps to status
   codes, `classify()` (the scheduler's blast-radius switch: transient / request /

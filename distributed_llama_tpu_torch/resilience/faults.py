@@ -1,5 +1,5 @@
 """Deterministic fault injection for the port's serving runtime: a copy of the JAX
-package's resilience/faults.py without its metric family and flight-recorder hook.
+package's resilience/faults.py, with its metric family and flight-recorder hook.
 
 - **Injection points** are `faults.fire("name", **ctx)` calls in the runtime:
   `batch.submit`, `batch.dispatch` (kind, attempt), `batch.prefill` (slot, pending),
@@ -39,12 +39,18 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
+from ..obs import flight, metrics
 from .errors import FaultInjected, TransientDispatchError
 
 __all__ = ["KINDS", "FaultSpec", "FaultPlan", "fire", "install", "uninstall", "active",
            "current", "parse_faults", "install_from_env", "release"]
 
 KINDS = ("error", "transient", "latency")
+
+_INJECTED = metrics.counter(
+    "faults_injected_total",
+    "Faults fired by the injection framework (docs/ROBUSTNESS.md)",
+    labelnames=("point", "kind"))
 
 _WAKE = threading.Condition()  # guards: _wakes
 _wakes = 0  # release() calls
@@ -124,6 +130,10 @@ class FaultPlan:
                 spec.fired += 1
                 if not spec.first_fire_t:
                     spec.first_fire_t = time.monotonic()
+            _INJECTED.labels(point=point, kind=spec.kind).inc()
+            # a point that fires inside a request's bound trace context lands the fault
+            # on that request's flight timeline (GET /v1/requests/<id>)
+            flight.note_fault(point, spec.kind)
             if spec.kind == "latency":
                 _stall(spec.delay_ms / 1000.0)
                 continue  # a latency spike does not shadow later error specs

@@ -1,5 +1,5 @@
-"""Hung-engine supervisor: a copy of the JAX package's resilience/supervisor.py without
-its state gauge.
+"""Hung-engine supervisor: a copy of the JAX package's resilience/supervisor.py, with its
+state gauge.
 
 A daemon thread polls `engine.dispatch_age()`; past `threshold` seconds it escalates:
 
@@ -19,7 +19,16 @@ from __future__ import annotations
 import threading
 import time
 
+from ..obs import metrics
+
 __all__ = ["EngineSupervisor"]
+
+_STATE = metrics.gauge(
+    "engine_supervisor_state",
+    "Hung-engine supervisor state: 0 ok, 1 recovering, 2 failed "
+    "(docs/ROBUSTNESS.md)")
+
+_STATES = {"ok": 0, "recovering": 1, "failed": 2}
 
 
 class EngineSupervisor:
@@ -48,6 +57,7 @@ class EngineSupervisor:
         self.last_recovery_t: float | None = None
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        _STATE.set(0)
 
     @property
     def healthy(self) -> bool:
@@ -102,7 +112,7 @@ class EngineSupervisor:
         self._escalate(age)
 
     def _escalate(self, age: float) -> None:
-        self.state = "recovering"
+        self._set_state("recovering")
         self.recoveries += 1
         self._consecutive += 1
         self._progress_mark = self._progress()
@@ -117,9 +127,13 @@ class EngineSupervisor:
         except Exception as e:
             print(f"🔴 supervisor: recover_wedged raised: {e!r}")
         if not ok or self._consecutive >= self.max_recoveries:
-            self.state = "failed"
+            self._set_state("failed")
             print(f"🔴 supervisor: engine marked FAILED (reinit_ok={ok}, "
                   f"consecutive={self._consecutive}) — /healthz stays unhealthy; "
                   "restart the replica")
         else:
-            self.state = "ok"
+            self._set_state("ok")
+
+    def _set_state(self, state: str) -> None:
+        self.state = state
+        _STATE.set(_STATES[state])

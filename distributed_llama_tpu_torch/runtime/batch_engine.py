@@ -95,6 +95,17 @@ in the same configuration.
   born into, and a dispatch checks it after its fault point and before its first
   launch (and after the call); a mismatch unwinds the thread through _StaleEpoch
   without touching engine state.
+- Observability (obs/): the JAX engine's metric families (queue, slots, dispatch
+  times by shape, super-step tokens, rollback, parked rows, tokens, requests by finish,
+  prefix seeding, errors, retries, sheds, deadlines, scheduler liveness, dispatch age
+  and gap, pipeline depth and flushes, resume, tenants, preemption, SLO sheds, quotas,
+  drain rate, wedge recoveries), its spans and its flight-recorder events, at the same
+  host sites: admission, dispatch, delivery and finish. None is inside a captured step
+  (a replay runs no host code), and none reads the device: the dispatch times are the
+  host clocks the scheduler already keeps. `submit(rid=, ctx=)` names the request and
+  its trace context (by default the caller's bound one, api_server's handler thread);
+  the scheduler re-enters each request's context around its work, so its spans carry
+  the request's trace id.
 
 What the JAX engine has that this one refuses with NotImplementedError: the model
 drafter.
@@ -103,16 +114,20 @@ drafter.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import sys
 import threading
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..cache.device_pool import _REMAPPED, _SEED_BYTES
 from ..models.spec import ModelSpec
+from ..obs import flight, metrics, reqctx, trace
 from ..resilience import faults
 from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
                                  EngineSaturated, EngineWedged, InvalidRequest, classify)
@@ -135,6 +150,143 @@ SPEC_CHAIN_EXPECT = 2.0
 # the backoff starting at RETRY_BACKOFF seconds and doubling, capped at 1 s
 MAX_RETRIES = 3
 RETRY_BACKOFF = 0.05
+# the most dispatch times kept per kind in `dispatch_ms` (the newest; a bounded window,
+# so a long-running server does not grow)
+DISPATCH_MS_KEEP = 4096
+
+# Scheduler telemetry: the JAX engine's families, names and meanings (its constrain_*
+# families come with constrained decoding)
+_QUEUE_WAIT = metrics.histogram(
+    "batch_queue_wait_seconds",
+    "submit() to slot assignment (admission latency incl. queueing)")
+_QUEUE_DEPTH = metrics.gauge(
+    "batch_queue_depth", "Requests waiting for a free slot")
+_SLOTS_TOTAL = metrics.gauge(
+    "batch_slots_total", "Configured cache slots (--batch)")
+_SLOTS_OCCUPIED = metrics.gauge(
+    "batch_slots_occupied", "Cache slots holding a live request")
+_DISPATCH_SECONDS = metrics.histogram(
+    "batch_dispatch_seconds",
+    "Wall time of one scheduler device dispatch, by shape",
+    labelnames=("kind",))
+_DISP_PREFILL = _DISPATCH_SECONDS.labels(kind="prefill")
+_DISP_MIXED = _DISPATCH_SECONDS.labels(kind="mixed")
+_DISP_SINGLE = _DISPATCH_SECONDS.labels(kind="single_step")
+_DISP_SUPER = _DISPATCH_SECONDS.labels(kind="super_step")
+_DISP_VERIFY = _DISPATCH_SECONDS.labels(kind="verify")
+_SUPERSTEP_TOKENS = metrics.histogram(
+    "batch_superstep_tokens",
+    "Tokens decoded per super-step dispatch (sum of row budgets)",
+    buckets=metrics.DEFAULT_SIZE_BUCKETS)
+_ROLLBACK_TOKENS = metrics.counter(
+    "batch_rollback_tokens_total",
+    "Device-decoded tokens discarded by host-side stop/cancel frontier rewind")
+_PARKED_ROW_STEPS = metrics.counter(
+    "batch_parked_row_steps_total",
+    "Row-steps spent parked (rows riding a dispatch without advancing)")
+_PREFILL_TOKENS = metrics.counter(
+    "batch_prefill_tokens_total", "Prompt tokens prefilled by the scheduler")
+_DECODE_TOKENS = metrics.counter(
+    "batch_decode_tokens_total", "Tokens delivered to requests by the scheduler")
+_REQUESTS = metrics.counter(
+    "batch_requests_total", "Completed requests by finish reason",
+    labelnames=("finish",))
+_PREFIX_SEEDED = metrics.counter(
+    "batch_prefix_seeded_tokens_total",
+    "Cache rows copied from the prefix-cache pool at admission "
+    "(prompt tokens whose prefill was skipped beyond the same-slot rewind)")
+_ENGINE_ERRORS = metrics.counter(
+    "engine_errors_total",
+    "Dispatch/scheduler errors by blast radius "
+    "(transient=retried, request=failed one request, engine=failed all)",
+    labelnames=("kind",))
+_RETRIES = metrics.counter(
+    "engine_retries_total",
+    "Transient dispatch failures retried with backoff")
+_SHED = metrics.counter(
+    "engine_shed_requests_total",
+    "Admissions refused because the queue was at --max-queue")
+_DEADLINE_EXPIRED = metrics.counter(
+    "engine_deadline_expired_total",
+    "Requests expired by queue TTL or generation deadline, by where",
+    labelnames=("where",))
+_SCHED_ALIVE = metrics.gauge(
+    "batch_scheduler_alive",
+    "1 while the BatchEngine scheduler thread is running (0 = dead/idle)")
+_DISPATCH_AGE = metrics.gauge(
+    "batch_dispatch_age_seconds",
+    "Dispatch watchdog: seconds since the scheduler last completed a device "
+    "dispatch, 0 while idle (read at scrape time)")
+_DISPATCH_GAP = metrics.histogram(
+    "batch_dispatch_gap_seconds",
+    "Device-idle gap before a decode super-step: host time between the "
+    "previous dispatch's results landing and this dispatch being issued "
+    "(0 when chained from device state while the predecessor is in flight)")
+_PIPELINE_DEPTH = metrics.gauge(
+    "batch_pipeline_depth",
+    "Decode super-steps currently in flight on device (2 = overlapped: one "
+    "executing while its predecessor's block is delivered host-side)")
+_PIPELINE_FLUSHES = metrics.counter(
+    "batch_pipeline_flushes_total",
+    "Pipeline breaks by reason: an eagerly chained super-step was discarded "
+    "before delivery (stop/cancel/error/finish — its rows diverged from the "
+    "speculated schedule) or chaining was declined (admission/close, or "
+    "'spec': the accept-aware policy preferred a host-drafted verify "
+    "dispatch over extending the scan chain)",
+    labelnames=("reason",))
+_SPEC_VERIFY_STEPS = metrics.counter(
+    "batch_spec_verify_steps_total",
+    "Batched draft-verify super-step dispatches")
+_SPEC_DRAFTED = metrics.counter(
+    "batch_spec_drafted_tokens_total",
+    "Draft tokens proposed to batched verify dispatches (per row)")
+_SPEC_ACCEPTED = metrics.counter(
+    "batch_spec_accepted_tokens_total",
+    "Draft tokens batched verify dispatches accepted")
+_SPEC_ACCEPT_RATE = metrics.gauge(
+    "batch_spec_accept_rate",
+    "Cumulative batched accepted/drafted ratio (process lifetime)")
+_RESUMED = metrics.counter(
+    "batch_resumed_requests_total",
+    "Requests admitted with a resume prefix (mid-stream failover re-submits)")
+_RESUME_TOKENS = metrics.counter(
+    "batch_resume_prefix_tokens_total",
+    "Delivered-elsewhere tokens carried by resume admissions (the suffix the "
+    "new replica must re-prefill or reuse)")
+_TENANT_TOKENS = metrics.counter(
+    "batch_tenant_tokens_total",
+    "Decode tokens delivered, by canonical tenant", labelnames=("tenant",))
+_TENANT_REQUESTS = metrics.counter(
+    "batch_tenant_requests_total",
+    "Completed requests by canonical tenant and class",
+    labelnames=("tenant", "class"))
+_PREEMPTED = metrics.counter(
+    "batch_preempted_total",
+    "Batch-class rows preempted at a super-step boundary so a waiting "
+    "interactive request could take the slot (the preempted request is "
+    "re-queued and later resumes byte-identical)")
+_SLO_SHED = metrics.counter(
+    "engine_slo_shed_total",
+    "Admissions refused (or queued batch work evicted for an interactive "
+    "arrival) because the projected queue wait exceeded the class's TTFT "
+    "target or measured TPOT exceeded the interactive target, by class",
+    labelnames=("class",))
+_QUOTA_THROTTLED = metrics.counter(
+    "engine_quota_throttled_total",
+    "Admissions refused with 429: the tenant's token-bucket quota was "
+    "exhausted", labelnames=("tenant",))
+_DRAIN_RATE = metrics.gauge(
+    "engine_drain_rate",
+    "Measured request completions/sec (decayed EMA, resilience/tenancy.py "
+    "DrainRate) — the denominator of drain-derived Retry-After hints")
+_WEDGE_RECOVERIES = metrics.counter(
+    "engine_wedge_recoveries_total",
+    "Supervisor escalations: a wedged scheduler was abandoned and the engine "
+    "re-initialized, by outcome", labelnames=("outcome",))
+_WEDGE_FAILED = metrics.counter(
+    "engine_wedge_failed_requests_total",
+    "In-flight/queued requests failed with EngineWedged by a supervisor "
+    "recovery (retriable: a durable router resumes them elsewhere)")
 
 
 class _StaleEpoch(BaseException):
@@ -181,6 +333,11 @@ class BatchRequest:
     # blocks, kv_export = (tokens, [(k, v) per block], block_tokens), set before done
     export_kv: bool = False
     kv_export: tuple | None = None
+    # identity: the request id (the flight-recorder key) and its trace context
+    # (obs.reqctx.TraceContext), which the scheduler thread re-enters around the
+    # request's work
+    rid: str = ""
+    ctx: object = None
 
     def cancel(self) -> None:
         """Ask the scheduler to stop decoding this request (client went away)."""
@@ -224,6 +381,8 @@ class _Slot:
         # the prefix-cache lease the request was seeded from (released at _finish)
         self.lease = None
         self.admit_t = 0.0  # monotonic time of the admission (the dispatch watchdog)
+        # the request's per-tenant delivery counter, resolved once at admission
+        self.tok_counter = None
 
 
 class _InflightStep:
@@ -241,10 +400,10 @@ class _InflightStep:
     carry is rewound to each row's frontier on the device."""
 
     __slots__ = ("rows", "k", "starts", "budget", "temps", "fetch", "tok", "pos", "rng",
-                 "t_issue", "kind", "ndraft")
+                 "t_issue", "kind", "ndraft", "chained")
 
     def __init__(self, rows, k, starts, budget, temps, fetch, tok, pos, rng, t_issue,
-                 kind="scan", ndraft=None):
+                 kind="scan", ndraft=None, chained=False):
         self.rows = rows  # list[(slot, request)] of the rows with budget > 0
         self.k = k
         self.starts = starts  # each row's expected start position
@@ -257,6 +416,7 @@ class _InflightStep:
         self.t_issue = t_issue
         self.kind = kind  # "scan" | "verify"
         self.ndraft = ndraft  # verify: per-row draft counts (-1 = parked)
+        self.chained = chained  # issued from a predecessor's device carry
 
 
 class BatchEngine:
@@ -392,11 +552,15 @@ class BatchEngine:
         # wall ms of each dispatch by kind: "decode" (one step), "super" (K steps, from
         # the later of its issue and the previous delivery to its block on the host),
         # "verify" (timed as "super"), "prefill", "mixed"; as in the JAX engine, a
-        # decode step's time starts after the host sampling of its rows
-        self.dispatch_ms: dict[str, list[float]] = {"decode": [], "super": [],
-                                                    "verify": [], "prefill": [],
-                                                    "mixed": []}
+        # decode step's time starts after the host sampling of its rows. The newest
+        # DISPATCH_MS_KEEP of each kind (batch_dispatch_seconds counts them all)
+        self.dispatch_ms: dict[str, collections.deque] = {
+            key: collections.deque(maxlen=DISPATCH_MS_KEEP)
+            for key in ("decode", "super", "verify", "prefill", "mixed")}
         self._last_ready_t: float | None = None
+        # perf_counter at which the last dispatch's results reached the host: the
+        # reference of batch_dispatch_gap_seconds
+        self._gap_t: float | None = None
         # scheduler wakeup: submit() and close() notify
         self._cond = threading.Condition()
         self._shutdown = False
@@ -417,6 +581,8 @@ class BatchEngine:
         self.retries = 0  # transient dispatch failures retried
         self._last_dispatch_t: float | None = None  # monotonic: the watchdog's mark
         self._drain = DrainRate()  # completions/s: the Retry-After estimate
+        _DISPATCH_AGE.set_function(self.dispatch_age)
+        _SLOTS_TOTAL.set(slots)
 
     @classmethod
     def load(cls, model_path: str, tokenizer_path: str | None = None, *,
@@ -443,17 +609,20 @@ class BatchEngine:
 
     def submit(self, prompt: list[int], max_tokens: int, sampler, on_token=None,
                stop_check=None, *, deadline: float | None = None,
-               ttl: float | None = None, resume_tokens: int = 0, tenant: str = "",
-               klass: str = "interactive", export_kv: bool = False) -> BatchRequest:
+               ttl: float | None = None, rid: str | None = None, ctx=None,
+               resume_tokens: int = 0, tenant: str = "", klass: str = "interactive",
+               export_kv: bool = False) -> BatchRequest:
         """Enqueue a request. `deadline` (seconds) bounds the whole request (queue and
         generation; finish "deadline" with the partial output, DeadlineExceeded before
         the first token); `ttl` bounds the queue wait only (in place of the engine's
-        queue_ttl). `resume_tokens` marks the last N entries of `prompt` as tokens a
+        queue_ttl). `rid` and `ctx` set the request id (the flight-recorder key) and the
+        trace context; both default from the caller's bound reqctx (api_server's handler
+        thread) or are originated here. `resume_tokens` marks the last N entries of `prompt` as tokens a
         failed replica already generated and delivered (a durable resume): the caller
         passes the sampler fast-forwarded past their coins, admission prefills prompt
         plus those tokens (mostly a prefix-cache remap) and generation continues as the
-        uninterrupted run would. `tenant` (default: the default tenant) keys the quota
-        and the fair share; `klass` is "interactive" (strict priority, may preempt batch
+        uninterrupted run would. `tenant` (default: the context's tenant, else the
+        default tenant) keys the quota and the fair share; `klass` is "interactive" (strict priority, may preempt batch
         rows) or "batch" (shed and preempted first). `export_kv` snapshots the prompt's
         full KV blocks into `req.kv_export` before the request completes. Raises
         InvalidRequest for an unknown class, EngineDraining while draining, EngineClosed
@@ -468,11 +637,16 @@ class BatchEngine:
         if klass not in CLASSES:
             raise InvalidRequest(
                 f"unknown scheduling class {klass!r} (want one of {CLASSES})")
-        tenant = tenant or DEFAULT_TENANT
+        c = ctx if ctx is not None else reqctx.current()
+        tenant = tenant or (c.tenant if c is not None else "") or DEFAULT_TENANT
         cost = float(len(prompt) + max(max_tokens, 1))
         if self.tenants is not None:
             # the quota first: a throttled tenant gets its 429 even on an empty queue
-            self.tenants.acquire(tenant, cost)
+            try:
+                self.tenants.acquire(tenant, cost)
+            except Exception:
+                _QUOTA_THROTTLED.labels(tenant=self.tenants.canonical(tenant)).inc()
+                raise
         try:
             self._admission_control(tenant, klass, cost)
         except Exception:
@@ -488,6 +662,22 @@ class BatchEngine:
         if not req.prompt:
             req.prompt = [self.tokenizer.bos_id if self.tokenizer else 1]
         req.resume_tokens = min(max(int(resume_tokens), 0), len(req.prompt))
+        if req.resume_tokens:
+            _RESUMED.inc()
+            _RESUME_TOKENS.inc(req.resume_tokens)
+        # the request's identity: the caller's trace context or a new one, carrying the
+        # request id, so a fault fired in the request's scheduler scope lands on its
+        # flight timeline
+        rid = rid or (c.request_id if c is not None and c.request_id else "")
+        req.rid = rid or f"req-{uuid.uuid4().hex[:16]}"
+        if c is None:
+            req.ctx = reqctx.new_context(req.rid, tenant)
+        elif c.request_id != req.rid or c.tenant != tenant:
+            req.ctx = dataclasses.replace(c, request_id=req.rid, tenant=tenant)
+        else:
+            req.ctx = c
+        flight.start(req.rid, req.ctx.trace_id, prompt_tokens=len(req.prompt),
+                     max_tokens=max_tokens, **{"tenant": tenant, "class": klass})
         req.submit_t = time.perf_counter()
         if deadline is not None and deadline > 0:
             req.deadline_t = req.submit_t + deadline
@@ -543,7 +733,12 @@ class BatchEngine:
                     victim = self._queue.evict_last("batch")
         if victim is not None:
             self._shed_queued(victim, reason, queued)
+            if klass == "interactive":
+                _SLO_SHED.labels(**{"class": "batch"}).inc()
             return
+        _SHED.inc()
+        if reason != "queue":
+            _SLO_SHED.labels(**{"class": klass}).inc()
         raise EngineSaturated(
             f"admission refused ({reason}): class={klass}, queue depth {queued}"
             + (f" at max_queue={self.max_queue}" if reason == "queue" else ""),
@@ -552,10 +747,13 @@ class BatchEngine:
     def _shed_queued(self, req: BatchRequest, reason: str, queued: int) -> None:
         """Fail a queued request displaced by a more entitled arrival with the error
         and Retry-After an admission-time shed would have given it."""
+        _SHED.inc()
         req.error = EngineSaturated(
             f"shed from the wait queue ({reason}): a more entitled admission displaced "
             "this batch request", retry_after=self._drain.retry_after(queued))
         req.finish = "error"
+        _REQUESTS.labels(finish="error").inc()
+        flight.finish(req.rid, "error", error=repr(req.error))
         req.done.set()
 
     def generate(self, prompt: list[int], max_tokens: int, sampler, on_token=None,
@@ -696,8 +894,13 @@ class BatchEngine:
                 if not req.done.is_set():
                     req.error = err
                     req.finish = "error"
+                    _WEDGE_FAILED.inc()
+                    flight.finish(req.rid, "error", error=repr(err))
                     req.done.set()
+            _QUEUE_DEPTH.set(0)
+            _SLOTS_OCCUPIED.set(0)
             self._inflight = None
+            _PIPELINE_DEPTH.set(0)
             self._last_ready_t = None
             self._last_dispatch_t = None  # the age restarts at the next admission
             try:
@@ -714,7 +917,9 @@ class BatchEngine:
             except Exception as e:
                 print(f"🔴 engine re-initialization failed: {e!r}", file=sys.stderr,
                       flush=True)
+                _WEDGE_RECOVERIES.labels(outcome="reinit_failed").inc()
                 return False
+            _WEDGE_RECOVERIES.labels(outcome="ok").inc()
             return True
         finally:
             slock.release()
@@ -741,6 +946,11 @@ class BatchEngine:
             t = self._thread
         if t is not None:
             t.join(timeout=30)
+        # detach the watchdog callback if it is still this engine's (a later engine may
+        # have claimed the gauge): a bound method left on the module-global gauge would
+        # keep this engine's weights and caches alive
+        if _DISPATCH_AGE._fn == self.dispatch_age:
+            _DISPATCH_AGE.set_function(None)
         err = EngineClosed("BatchEngine closed")
         with self._plock:
             for s in self._slots:
@@ -752,9 +962,11 @@ class BatchEngine:
                     req.error = err
                     s.req = None
                     s.pending = []
+                    flight.finish(req.rid, "error", error=repr(err))
                     req.done.set()
             for req in self._queue:
                 req.error = err
+                flight.finish(req.rid, "error", error=repr(err))
                 req.done.set()
             self._queue.clear()
 
@@ -791,13 +1003,17 @@ class BatchEngine:
                 n += 1
             return min(n, len(full) - 1)
         best = max(free, key=common)
-        reuse = common(best)
+        rewind = reuse = common(best)
+        # the seed runs on the scheduler thread but belongs to this request: its
+        # batch.prefix_seed span carries the request's trace id
         if self.kv_pool is not None:
-            reuse = self._paged_adopt(best, reuse, full)
+            with reqctx.use(req.ctx):
+                reuse = self._paged_adopt(best, reuse, full)
         elif self.prefix_cache is not None:
             # [0, reuse) is the slot's own rows; a seed on top counts as hit_tokens
             self.prefix_cache.note_resident(reuse)
-            reuse = self._seed_from_cache(best, reuse, full)
+            with reqctx.use(req.ctx):
+                reuse = self._seed_from_cache(best, reuse, full)
         best.admit_t = time.monotonic()  # before .req: the watchdog keys on req
         req.admit_t = time.perf_counter()
         best.req = req
@@ -815,12 +1031,22 @@ class BatchEngine:
                 self.adaptive.attach(best.index)
         else:
             self.proposer.detach(best.index)
+        # the per-tenant delivery counter, resolved once so _emit pays no label lookup
+        best.tok_counter = _TENANT_TOKENS.labels(
+            tenant=self.tenants.canonical(req.tenant) if self.tenants is not None
+            else req.tenant)
         req.stats.prompt_tokens = len(full)
         # the queue TTL bounds the wait before the first service only
         req.queue_ttl_t = 0.0
         # the prefill this admission skipped (rewind and remap or seed): for a resume,
         # the measure of what the new replica did not run again
         req.stats.reused_tokens = reuse
+        qw_ms = (time.perf_counter() - req.submit_t) * 1e3 if req.submit_t else 0.0
+        if req.submit_t:
+            _QUEUE_WAIT.observe(qw_ms / 1e3)
+        flight.event(req.rid, "admitted", slot=best.index, queue_wait_ms=round(qw_ms, 3),
+                     rewind_tokens=rewind, seeded_tokens=reuse - rewind,
+                     **({"resume_tokens": req.resume_tokens} if req.resume_tokens else {}))
         return best
 
     # ------------------------------------------------------------------
@@ -973,30 +1199,32 @@ class BatchEngine:
         blocks: list[int] = []
         moved = 0
         try:
-            for i, node in enumerate(lease.nodes):
-                tier, h = node.handle
-                if tier == "cold":
-                    # promote: one upload into a fresh block, then the directory holds
-                    # the device copy again. promote() takes the directory's own ref —
-                    # the allocation ref is dropped right after
-                    k, v = pc.fetch_cold(h)
-                    nb = self._paged_alloc(1, exclude=slot)[0]
-                    eng = self._eng
-                    eng.k_cache[:, nb].copy_(k)
-                    eng.v_cache[:, nb].copy_(v)
-                    moved += k.nbytes + v.nbytes
-                    pc.promote(node, nb)
-                    self.kv_pool.decref([nb])
+            with trace.span("batch.prefix_seed", {"slot": slot.index, "tokens": n,
+                                                  "rewind": rewind, "remap": True}):
+                for i, node in enumerate(lease.nodes):
                     tier, h = node.handle
-                if i < m:
-                    self.kv_pool.incref([h])
-                    blocks.append(h)
-                else:
-                    # the partial boundary block: a private copy to append into
-                    nb = self._paged_alloc(1, exclude=slot)[0]
-                    self._block_copy(h, nb)
-                    self.kv_pool.note_cow()
-                    blocks.append(nb)
+                    if tier == "cold":
+                        # promote: one upload into a fresh block, then the directory
+                        # holds the device copy again. promote() takes the directory's
+                        # own ref — the allocation ref is dropped right after
+                        k, v = pc.fetch_cold(h)
+                        nb = self._paged_alloc(1, exclude=slot)[0]
+                        eng = self._eng
+                        eng.k_cache[:, nb].copy_(k)
+                        eng.v_cache[:, nb].copy_(v)
+                        moved += k.nbytes + v.nbytes
+                        pc.promote(node, nb)
+                        self.kv_pool.decref([nb])
+                        tier, h = node.handle
+                    if i < m:
+                        self.kv_pool.incref([h])
+                        blocks.append(h)
+                    else:
+                        # the partial boundary block: a private copy to append into
+                        nb = self._paged_alloc(1, exclude=slot)[0]
+                        self._block_copy(h, nb)
+                        self.kv_pool.note_cow()
+                        blocks.append(nb)
         except Exception as e:
             if blocks:
                 self.kv_pool.decref(blocks)
@@ -1013,6 +1241,10 @@ class BatchEngine:
         self._table_row(slot)
         slot.lease = lease
         pc.mark_seeded(lease, n - rewind)
+        _PREFIX_SEEDED.inc(n - rewind)
+        _REMAPPED.inc(m)
+        if moved:
+            _SEED_BYTES.inc(moved)
         self.remapped_blocks += m
         self.seed_bytes += moved
         self.seed_ms += (time.perf_counter() - t0) * 1e3
@@ -1055,11 +1287,13 @@ class BatchEngine:
         n = lease.tokens
         t0 = time.perf_counter()
         try:
-            # the span the rewind does not hold, as one (2, L, hk, n - reuse, hs) buffer:
-            # one host->device transfer, one copy per cache tensor
-            rows = pc.fetch_packed(lease, skip=reuse).to(eng.device, eng.dtype)
-            eng.k_cache[:, slot.index, :, reuse:n].copy_(rows[0])
-            eng.v_cache[:, slot.index, :, reuse:n].copy_(rows[1])
+            with trace.span("batch.prefix_seed", {"slot": slot.index, "tokens": n,
+                                                  "rewind": reuse}):
+                # the span the rewind does not hold, as one (2, L, hk, n - reuse, hs)
+                # buffer: one host->device transfer, one copy per cache tensor
+                rows = pc.fetch_packed(lease, skip=reuse).to(eng.device, eng.dtype)
+                eng.k_cache[:, slot.index, :, reuse:n].copy_(rows[0])
+                eng.v_cache[:, slot.index, :, reuse:n].copy_(rows[1])
         except Exception as e:
             pc.mark_unused(lease)
             from ..cache import warn_degraded
@@ -1070,6 +1304,7 @@ class BatchEngine:
         self.seed_ms += (time.perf_counter() - t0) * 1e3
         slot.lease = lease
         pc.mark_seeded(lease, n - reuse)
+        _PREFIX_SEEDED.inc(n - reuse)
         return n
 
     def _fire(self, point: str, **ctx) -> None:
@@ -1124,7 +1359,14 @@ class BatchEngine:
                         or attempt >= MAX_RETRIES):
                     raise
                 self.retries += 1
+                _ENGINE_ERRORS.labels(kind="transient").inc()
+                _RETRIES.inc()
                 attempt += 1
+                # the retry stalls every in-flight request alike: each timeline says so
+                for s in self._slots:
+                    if s.req is not None:
+                        flight.event(s.req.rid, "dispatch_retry", kind=kind,
+                                     attempt=attempt)
                 time.sleep(min(delay, 1.0))
                 delay *= 2
 
@@ -1152,6 +1394,9 @@ class BatchEngine:
                 picks[j] = tok
             return logits
         logits = self._dispatched(kind, call)
+        # the step's logits are on the host: the reference the next decode issue's
+        # device-idle gap is measured from
+        self._gap_t = time.perf_counter()
         self.dispatches += 1
         return logits, picks
 
@@ -1175,13 +1420,22 @@ class BatchEngine:
     def _finish(self, slot: _Slot, finish: str) -> None:
         req = slot.req
         req.finish = finish
+        # the engine's side of the flight record; the api layer adds TTFT and E2E after.
+        # `error` only when real: it marks the record for the slow log
+        flight.finish(req.rid, finish, generated_tokens=req.stats.generated_tokens,
+                      **({"error": repr(req.error)} if req.error is not None else {}))
         slot.req = None
         slot.pending = []
         slot.next_token = None
+        slot.tok_counter = None
         self.proposer.detach(slot.index)
         if self.adaptive is not None:
             self.adaptive.detach(slot.index)
         self._drain.note()  # one completion: the Retry-After estimate's rate
+        _DRAIN_RATE.set(self._drain.rate())
+        _TENANT_REQUESTS.labels(
+            tenant=(self.tenants.canonical(req.tenant) if self.tenants is not None
+                    else req.tenant), **{"class": req.klass}).inc()
         if self.prefix_cache is not None and slot.lease is not None:
             # the lease pins blocks for the in-flight period only: released before
             # done.set(), so a caller seeing completion sees no residual reservation
@@ -1199,6 +1453,7 @@ class BatchEngine:
                 from ..cache import warn_degraded
 
                 warn_degraded("export", e)
+        _REQUESTS.labels(finish=finish).inc()
         req.done.set()
         # the harvest runs after done.set(): the slot's history and rows stay valid (they
         # also back the same-slot rewind), and it must not extend the client's wait
@@ -1216,7 +1471,10 @@ class BatchEngine:
             if self.kv_pool is not None:
                 n = len(slot.history) // self._kv_bt
                 if n:
-                    pc.insert_blocks(slot.history, slot.blocks[:n])
+                    with trace.span("batch.prefix_insert",
+                                    {"slot": slot.index, "tokens": n * self._kv_bt,
+                                     "remap": True}):
+                        pc.insert_blocks(slot.history, slot.blocks[:n])
             elif len(slot.history) >= pc.block_tokens:
                 eng = self._eng
                 from ..cache.wire import host_rows
@@ -1225,7 +1483,9 @@ class BatchEngine:
                     return (host_rows(eng.k_cache[:, slot.index, :, t0:t1]),
                             host_rows(eng.v_cache[:, slot.index, :, t0:t1]))
 
-                pc.insert(slot.history, harvest)
+                with trace.span("batch.prefix_insert",
+                                {"slot": slot.index, "tokens": len(slot.history)}):
+                    pc.insert(slot.history, harvest)
         except Exception as e:  # a failed insert must not kill the scheduler
             from ..cache import warn_degraded
 
@@ -1351,6 +1611,9 @@ class BatchEngine:
                 req.finish = "deadline"
                 if not req.out:  # a preempted request keeps its delivered output
                     req.error = DeadlineExceeded(f"request expired in queue ({by})")
+                _DEADLINE_EXPIRED.labels(where="queue").inc()
+                _REQUESTS.labels(finish="deadline").inc()
+                flight.finish(req.rid, "deadline", expired_by=by)
                 req.done.set()
             while True:
                 req = self._queue.peek_next()
@@ -1363,6 +1626,8 @@ class BatchEngine:
                 if req.cancelled:
                     self._queue.pop_next()
                     req.finish = "cancelled"
+                    _REQUESTS.labels(finish="cancelled").inc()
+                    flight.finish(req.rid, "cancelled")
                     req.done.set()
                     continue
                 try:
@@ -1370,8 +1635,10 @@ class BatchEngine:
                 except Exception as e:
                     # an admission failure belongs to the request being admitted
                     self._queue.pop_next()
+                    _ENGINE_ERRORS.labels(kind="request").inc()
                     req.error = e
                     req.finish = "error"
+                    _REQUESTS.labels(finish="error").inc()
                     req.done.set()
                     continue
                 if assigned is None:
@@ -1381,6 +1648,7 @@ class BatchEngine:
                         continue  # a slot is free now
                     break
                 self._queue.pop_next()
+            _QUEUE_DEPTH.set(len(self._queue))
 
     def _try_preempt(self) -> bool:  # holds: self._plock
         """Free one slot for a waiting interactive request by preempting the batch row
@@ -1407,6 +1675,8 @@ class BatchEngine:
         req = slot.req
         req.preemptions += 1
         self.preempted += 1
+        _PREEMPTED.inc()
+        flight.event(req.rid, "preempted", slot=slot.index, delivered=len(req.out))
         if slot.picked is not None:
             # the device sampler drew this pick's coin, but its token was never
             # delivered: the coin goes back, for the re-admission's first pick to draw
@@ -1417,6 +1687,7 @@ class BatchEngine:
         slot.last_logits = None
         slot.picked = None
         slot.armed = False
+        slot.tok_counter = None
         self.proposer.detach(slot.index)
         if self.adaptive is not None:
             self.adaptive.detach(slot.index)
@@ -1448,11 +1719,13 @@ class BatchEngine:
                 if not req.out:
                     req.error = DeadlineExceeded(
                         "generation deadline expired before the first token")
+                _DEADLINE_EXPIRED.labels(where="decode").inc()
                 self._finish(sl, "deadline")
 
     def _fail_request(self, slot: _Slot, e: Exception) -> None:
         """Blast radius 'request': fail only this slot's request; the other co-batched
         slots keep decoding."""
+        _ENGINE_ERRORS.labels(kind="request").inc()
         slot.req.error = e
         self._finish(slot, "error")
 
@@ -1460,9 +1733,11 @@ class BatchEngine:
         """Blast radius 'engine': the shared dispatch failed unattributably — fail every
         in-flight request. The scheduler thread survives; a chained super-step issued
         against the failed schedule is dropped (the next dispatch uploads host state)."""
+        _ENGINE_ERRORS.labels(kind="engine").inc()
         if self._inflight is not None:
-            self.flushes["error"] += 1
+            self._note_flush("error")
             self._inflight = None
+            _PIPELINE_DEPTH.set(0)
         for s in self._slots:
             if s.req is not None:
                 s.req.error = e
@@ -1470,6 +1745,7 @@ class BatchEngine:
 
     def _loop(self, epoch: int) -> None:
         self._tls.epoch = epoch  # the epoch this thread was born into
+        _SCHED_ALIVE.set(1)
         try:
             while not self._shutdown and self._epoch == epoch:
                 try:
@@ -1489,10 +1765,13 @@ class BatchEngine:
                             self._cond.wait(timeout=0.05)
         finally:
             # close() with a chained super-step issued; an abandoned thread's exit
-            # leaves the new epoch's pipeline alone
-            if self._epoch == epoch and self._inflight is not None:
-                self.flushes["close"] += 1
-                self._inflight = None
+            # leaves the new epoch's pipeline and liveness gauge alone
+            if self._epoch == epoch:
+                if self._inflight is not None:
+                    self._note_flush("close")
+                    self._inflight = None
+                _PIPELINE_DEPTH.set(0)
+                _SCHED_ALIVE.set(0)
 
     def _loop_once(self) -> None:
         failed = False
@@ -1501,6 +1780,7 @@ class BatchEngine:
             self._reap_slots()
             prefill = [s for s in self._slots if s.req and s.pending]
             active = [s for s in self._slots if s.req and not s.pending]
+            _SLOTS_OCCUPIED.set(sum(1 for s in self._slots if s.req is not None))
             try:
                 if self._inflight is not None:
                     # a chained super-step runs on the card: deliver it (and maybe chain
@@ -1541,24 +1821,30 @@ class BatchEngine:
         host-side finish checks. Returns False when the request finished. slot.pos must
         already count the ingestion of this token's input."""
         req = slot.req
-        # a request-scope fault point inside the callers' try blocks that guard a broken
-        # sampler or callback: an injected error fails exactly this request
-        self._fire("batch.emit", slot=slot.index, n_out=len(req.out))
-        req.out.append(token)
-        # the proposer's corpus follows every delivered token, in order
-        self.proposer.push(slot.index, token)
-        if req.stats.generated_tokens == 0:
-            req.first_token_t = time.perf_counter()
-        req.stats.generated_tokens += 1
-        if req.on_token is not None:
-            req.on_token(token)
-        if req.stop_check is not None and req.stop_check(token):
-            self._finish(slot, "stop")
-            return False
-        if len(req.out) >= req.max_tokens or slot.pos >= self.spec.seq_len:
-            self._finish(slot, "length")
-            return False
-        return True
+        # under the request's trace context: a fault injected here (or a broken
+        # callback) lands on this request's flight timeline
+        with reqctx.use(req.ctx):
+            # a request-scope fault point inside the callers' try blocks that guard a
+            # broken sampler or callback: an injected error fails exactly this request
+            self._fire("batch.emit", slot=slot.index, n_out=len(req.out))
+            req.out.append(token)
+            # the proposer's corpus follows every delivered token, in order
+            self.proposer.push(slot.index, token)
+            if req.stats.generated_tokens == 0:
+                req.first_token_t = time.perf_counter()
+            req.stats.generated_tokens += 1
+            _DECODE_TOKENS.inc()
+            if slot.tok_counter is not None:  # the tenant's delivery share
+                slot.tok_counter.inc()
+            if req.on_token is not None:
+                req.on_token(token)
+            if req.stop_check is not None and req.stop_check(token):
+                self._finish(slot, "stop")
+                return False
+            if len(req.out) >= req.max_tokens or slot.pos >= self.spec.seq_len:
+                self._finish(slot, "length")
+                return False
+            return True
 
     def _advance_row(self, slot: _Slot) -> bool:
         """Ensure slot.last_token holds the row's next un-ingested token: a fresh host
@@ -1587,6 +1873,7 @@ class BatchEngine:
             alive = self._emit(slot, token)
         except Exception as e:
             # a broken callback (e.g. client gone mid-stream) fails only this request
+            _ENGINE_ERRORS.labels(kind="request").inc()
             req.error = e
             self._finish(slot, "error")
             return False
@@ -1601,7 +1888,8 @@ class BatchEngine:
     def _prefill_step(self, slot: _Slot, riders: list[_Slot] = ()) -> None:
         # a request-scope fault point before the riders advance and before the dispatch:
         # an injected error is attributable to the prefilling request alone
-        self._fire("batch.prefill", slot=slot.index, pending=len(slot.pending))
+        with reqctx.use(slot.req.ctx):
+            self._fire("batch.prefill", slot=slot.index, pending=len(slot.pending))
         t0 = time.perf_counter()
         s = self.spec.seq_len
         room = s - slot.pos
@@ -1645,12 +1933,23 @@ class BatchEngine:
         done = t == len(slot.pending)
         reads = ([(slot.index, t - 1)] if done else []) + [(r.index, 0) for r in riders]
         samplers = ([slot.req.sampler] if done else []) + [r.req.sampler for r in riders]
-        logits, picks = self._step(rows, starts, t, reads,
-                                   "mixed" if riders else "prefill", samplers)
+        # the dispatch belongs to the prefilling request: its span (and any dispatch
+        # fault) carries that request's trace id
+        with reqctx.use(slot.req.ctx), \
+                trace.span("batch.mixed_step" if riders else "batch.prefill",
+                           {"chunk": t, "riders": len(riders)}):
+            logits, picks = self._step(rows, starts, t, reads,
+                                       "mixed" if riders else "prefill", samplers)
         if riders:
             self.mixed_steps += 1
         dt_ms = (time.perf_counter() - t0) * 1000.0
         self.dispatch_ms["mixed" if riders else "prefill"].append(dt_ms)
+        flight.event(slot.req.rid, "prefill_chunk", chunk=t, riders=len(riders),
+                     ms=round(dt_ms, 3))
+        (_DISP_MIXED if riders else _DISP_PREFILL).observe(dt_ms / 1000.0)
+        _PREFILL_TOKENS.inc(t)
+        # rows neither prefilling nor riding spent this dispatch parked
+        _PARKED_ROW_STEPS.inc(self.slots_n - 1 - len(riders))
         self.prefilled_tokens += t
         slot.pos += t
         slot.history.extend(piece)
@@ -1716,11 +2015,15 @@ class BatchEngine:
         for slot in active:
             starts[slot.index] = slot.pos
             rows[slot.index] = [slot.last_token]
-        logits, picks = self._step(rows, starts, 1, [(slot.index, 0) for slot in active],
-                                   "single_step", [slot.req.sampler for slot in active])
+        with trace.span("batch.single_step", {"rows": len(active)}):
+            logits, picks = self._step(rows, starts, 1,
+                                       [(slot.index, 0) for slot in active],
+                                       "single_step", [slot.req.sampler for slot in active])
         self.decode_steps += 1
         dt_ms = (time.perf_counter() - t0) * 1000.0
         self.dispatch_ms["decode"].append(dt_ms)
+        _DISP_SINGLE.observe(dt_ms / 1000.0)
+        _PARKED_ROW_STEPS.inc(self.slots_n - len(active))
         for i, slot in enumerate(active):
             slot.last_logits, slot.picked = logits[i], picks[i]
             slot.history.append(slot.last_token)
@@ -1871,6 +2174,8 @@ class BatchEngine:
         mode = "greedy" if all(x == 0.0 for x in temps) else "sample"
         window = eng._window_for(min(max(starts) + t, self.spec.seq_len))
         loop = self._verify_loop(t, mode, window)
+        if self._gap_t is not None:
+            _DISPATCH_GAP.observe(max(time.perf_counter() - self._gap_t, 0.0))
         t_issue = time.perf_counter()
         tables = self._tables_dev if self.kv_pool is not None else None
 
@@ -1879,7 +2184,11 @@ class BatchEngine:
                 eng.rope, props, eng.k_cache, eng.v_cache, starts, rng, temps, topps,
                 ndraft, tables, guard=self._before_launch)
             return copy_to_host(toks, acc), tok, pos, rng_out
-        fetch, tok, pos, rng_out = self._dispatched("verify", call)
+        with trace.span("batch.verify_issue",
+                        {"block": t, "rows": len(rows),
+                         "drafted": sum(max(n, 0) for n in ndraft)}):
+            fetch, tok, pos, rng_out = self._dispatched("verify", call)
+        _PIPELINE_DEPTH.set(1)
         self.dispatches += 1
         return _InflightStep(rows, t, starts, budget, temps, fetch, tok, pos, rng_out,
                              t_issue, kind="verify", ndraft=ndraft)
@@ -1937,7 +2246,7 @@ class BatchEngine:
                 waiting = bool(self._queue)
             if waiting or any(s.req and s.pending for s in self._slots):
                 # a request needs the next dispatch for its admission or prefill
-                self.flushes["admission"] += 1
+                self._note_flush("admission")
                 plan = None
         if plan is not None and self.kv_pool is not None:
             # block coverage for the chained dispatch's writes, and private blocks under
@@ -1950,7 +2259,7 @@ class BatchEngine:
                 for slot in clamp:
                     self._paged_cow(slot, self.spec.seq_len - 1, self.spec.seq_len)
             except Exception:
-                self.flushes["pool"] += 1
+                self._note_flush("pool")
                 plan = None
         if plan is not None:
             rows, starts, budget, clamp = plan
@@ -1958,14 +2267,43 @@ class BatchEngine:
                 # the chained dispatch parks this row clamped at seq_len - 1
                 slot.clamp_pos = self.spec.seq_len - 1
             nxt = self._issue_super_step(rows, self.superstep, budget, starts, chain=fl)
-        status = self._deliver_super_step(fl)
+        try:
+            # the wait for the block and its delivery (one scheduler thread delivers, so
+            # these spans never overlap)
+            with trace.span("batch.super_step", {"k": fl.k, "rows": len(fl.rows),
+                                                 "tokens": sum(fl.budget),
+                                                 "kind": fl.kind, "chained": fl.chained}):
+                status = self._deliver_super_step(fl)
+        except BaseException:
+            if nxt is not None:
+                # the chained dispatch is still a local here: _fail_all sees only
+                # self._inflight
+                self._note_flush("error")
+            _PIPELINE_DEPTH.set(0)
+            raise
         if nxt is not None:
             reason = self._chain_divergence(nxt, status)
             if reason is not None:
-                self.flushes[reason] += 1
-                self.rollback_tokens += sum(nxt.budget)
+                self._flush_inflight(nxt, reason)
             else:
                 self._inflight = nxt
+        _PIPELINE_DEPTH.set(1 if self._inflight is not None else 0)
+
+    def _note_flush(self, reason: str) -> None:
+        """One pipeline break: a chained super-step discarded, or chaining declined."""
+        self.flushes[reason] += 1
+        _PIPELINE_FLUSHES.labels(reason=reason).inc()
+
+    def _flush_inflight(self, fl: _InflightStep, reason: str) -> None:
+        """Discard a chained super-step whose schedule diverged from what its
+        predecessor delivered: its writes lie at or past every row's frontier, and the
+        next dispatch uploads host state."""
+        self._note_flush(reason)
+        self.rollback_tokens += sum(fl.budget)
+        _ROLLBACK_TOKENS.inc(sum(fl.budget))
+        for slot, req in fl.rows:
+            flight.event(req.rid, "pipeline_flush", reason=reason,
+                         tokens=fl.budget[slot.index])
 
     def _plan_chain(self, fl: _InflightStep):
         """The schedule of the super-step after `fl`, assuming `fl` delivers every
@@ -1986,13 +2324,13 @@ class BatchEngine:
         now = time.perf_counter()
         if fl.kind == "verify":
             if self._spec_ema >= SPEC_CHAIN_EXPECT:
-                self.flushes["spec"] += 1
+                self._note_flush("spec")
                 return None
             gain = [nd + 1 if nd >= 0 else 0 for nd in fl.ndraft]
         elif (self.spec_k and self._spec_ema >= SPEC_CHAIN_EXPECT
               and self._drafts_ready(fl.rows)):
             # chaining would outrun the verify those drafts are ready for
-            self.flushes["spec"] += 1
+            self._note_flush("spec")
             return None
         else:
             gain = fl.budget
@@ -2040,9 +2378,14 @@ class BatchEngine:
         loop = self._batched_loop(k, mode, window)
         if chain is None:
             tok_in, pos_in, rng_in = tokens, starts, rng
+            if self._gap_t is not None:
+                # the previous dispatch's results landed at _gap_t and the device had
+                # nothing queued since
+                _DISPATCH_GAP.observe(max(time.perf_counter() - self._gap_t, 0.0))
         else:
             tok_in, pos_in, rng_in = chain.tok, chain.pos, chain.rng
             self.chained += 1
+            _DISPATCH_GAP.observe(0.0)  # chained: the device never went idle
         t_issue = time.perf_counter()
         tables = self._tables_dev if self.kv_pool is not None else None
 
@@ -2051,11 +2394,16 @@ class BatchEngine:
                 eng.rope, tok_in, eng.k_cache, eng.v_cache, pos_in, rng_in, temps, topps,
                 budget, tables, guard=self._before_launch)
             return copy_to_host(toks), tok, pos, rng_out
-        fetch, tok, pos, rng_out = self._dispatched("super_step", call)
+        # the issue returns once the graph replays are queued; the wait for the block
+        # and its delivery are the batch.super_step span
+        with trace.span("batch.super_step_issue",
+                        {"k": k, "rows": len(rows), "chained": chain is not None}):
+            fetch, tok, pos, rng_out = self._dispatched("super_step", call)
+        _PIPELINE_DEPTH.set(2 if chain is not None else 1)
         self.dispatches += 1
         self.loop_steps += k
         return _InflightStep(rows, k, starts, budget, temps, fetch, tok, pos, rng_out,
-                             t_issue)
+                             t_issue, chained=chain is not None)
 
     def _deliver_super_step(self, fl: _InflightStep) -> dict[int, str]:
         """Wait for an issued super-step's (K, B) block (or a verify's (T, B) targets
@@ -2083,13 +2431,21 @@ class BatchEngine:
             base = self._last_ready_t
         dev_ms = max((t_ready - base) * 1000.0, 1e-6)
         self._last_ready_t = t_ready
+        self._gap_t = t_ready
         self.decode_steps += 1
         if verify:
             self.verify_steps += 1
             self.dispatch_ms["verify"].append(dev_ms)
+            _SPEC_VERIFY_STEPS.inc()
+            _DISP_VERIFY.observe(dev_ms / 1000.0)
         else:
             self.super_steps += 1
             self.dispatch_ms["super"].append(dev_ms)
+            _DISP_SUPER.observe(dev_ms / 1000.0)
+        _SUPERSTEP_TOKENS.observe(sum(fl.budget))
+        # rows riding without a live request park for all k steps; rows with a short
+        # budget park for the steps past it
+        _PARKED_ROW_STEPS.inc(self.slots_n * k - sum(fl.budget))
         status: dict[int, str] = {}
         accs: list[int] = []  # per-row accepted lengths (the verify EMA's input)
         for slot, req in fl.rows:
@@ -2099,18 +2455,22 @@ class BatchEngine:
             if slot.req is not req or req.done.is_set():
                 # reaped (cancel, close) between issue and delivery
                 self.rollback_tokens += b
+                _ROLLBACK_TOKENS.inc(b)
+                flight.event(req.rid, "rollback", tokens=b, where="reaped")
                 status[i] = "cancelled"
                 continue
             if not self._advance_row(slot):
                 # a chained dispatch consumes the previous block's tail token here; a
                 # cancel seen now finishes the row and discards its block
                 self.rollback_tokens += b
+                _ROLLBACK_TOKENS.inc(b)
                 status[i] = req.finish
                 continue
             if not verify and b < k and fl.starts[i] + b >= s:
                 # the block parked this row clamped at s - 1 after its budget (a verify
                 # never clamps a live row: _plan_verify shrinks T to fit)
                 slot.clamp_pos = s - 1
+                flight.event(req.rid, "park_clamped", pos=s - 1)
             if verify:
                 # per-request accounting before the emit loop: spec_turns keys on the
                 # output length before the block
@@ -2127,6 +2487,9 @@ class BatchEngine:
                 req.stats.spec_step_ms.append(dev_ms)
                 self.spec_drafted += nd
                 self.spec_accepted += a
+                _SPEC_DRAFTED.inc(nd)
+                _SPEC_ACCEPTED.inc(a)
+                flight.event(req.rid, "verify_step", block=k, drafted=nd, accepted=a)
             block = toks[:b, i].tolist()
             smp = req.sampler
             # the device drew one coin per live stochastic step: replayed one by one
@@ -2157,10 +2520,15 @@ class BatchEngine:
                     x = tok
             except Exception as e:
                 # a broken callback fails only this request
+                _ENGINE_ERRORS.labels(kind="request").inc()
                 req.error = e
                 self._finish(slot, "error")
                 alive = False
             self.rollback_tokens += b - delivered  # the tail past a stop, on masked slots
+            if delivered < b:
+                _ROLLBACK_TOKENS.inc(b - delivered)
+                flight.event(req.rid, "rollback", tokens=b - delivered,
+                             where="mid_block")
             if alive:
                 # the block's tail is sampled and delivered, its KV not yet written
                 slot.next_token = block[-1]
@@ -2170,8 +2538,19 @@ class BatchEngine:
                 # clamp's truncation, with the lease shrink
                 self._truncate_history(slot, slot.clamp_pos)
                 slot.clamp_pos = None
+            # one timeline entry per request the block advanced and, with tracing on, a
+            # per-row instant under the request's context, so the shared dispatch is
+            # attributable per request
+            flight.event(req.rid, "super_step", k=k, budget=b, delivered=delivered,
+                         chained=fl.chained)
+            if trace.current() is not None:
+                with reqctx.use(req.ctx):
+                    trace.instant("batch.row_delivered",
+                                  {"slot": i, "delivered": delivered, "k": k})
             status[i] = "alive" if alive else req.finish
         if verify:
+            if _SPEC_DRAFTED.value > 0:
+                _SPEC_ACCEPT_RATE.set(_SPEC_ACCEPTED.value / _SPEC_DRAFTED.value)
             if accs:
                 # the accept EMA drives the chain policy: a high expected accept wants
                 # back-to-back verifies, a low one chained super-steps

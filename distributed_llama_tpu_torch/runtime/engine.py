@@ -36,6 +36,7 @@ import torch
 from ..models.forward import forward, init_kv_cache, init_kv_pool
 from ..models.params import Params, decode_stream_bytes, params_to, prepare_for_cuda
 from ..models.spec import ModelSpec
+from ..obs import flight, metrics, trace
 from ..ops.rope import RopeTables
 from ..quants import FloatType
 from ..resilience import faults
@@ -43,6 +44,21 @@ from ..tokenizer.bpe import Tokenizer
 from .step_graph import StepGraphs, copy_to_host, upload
 
 PREFILL_CHUNKS = (64, 8, 1)
+
+# the JAX engine's families: per-dispatch wall times (the step and its logits' host
+# copy), prompt tokens prefilled and tokens decoded by the single-sequence loops. All
+# are observed on the host around a dispatch, never inside a captured step
+_DISPATCH_SECONDS = metrics.histogram(
+    "engine_dispatch_seconds",
+    "Wall time of one device dispatch (incl. the logits host transfer)",
+    labelnames=("kind",))
+_DISP_PREFILL = _DISPATCH_SECONDS.labels(kind="prefill")
+_DISP_DECODE = _DISPATCH_SECONDS.labels(kind="decode")
+_DISP_LOOP = _DISPATCH_SECONDS.labels(kind="device_loop")
+_PREFILL_TOKENS = metrics.counter(
+    "engine_prefill_tokens_total", "Prompt tokens run through prefill")
+_DECODE_TOKENS = metrics.counter(
+    "engine_decode_tokens_total", "Tokens decoded by the sequential engine")
 
 
 @dataclass
@@ -253,21 +269,28 @@ class Engine:
         t = len(tokens)
         if self.pos + t > self.spec.seq_len:
             raise ValueError(f"context overflow: pos {self.pos} + {t} > {self.spec.seq_len}")
-        faults.fire("engine.dispatch", t=t, pos=self.pos)
-        window = self._window_for(self.pos + t)
-        if t == 1:
-            self._tok1.fill_(int(tokens[0]))
-            self._pos1.fill_(self.pos)
-            logits = self.graphs.run(("step", "logits", window, 1),
-                                     lambda: self._step_t1(window))
-        else:
-            toks = torch.from_numpy(tokens)[None, :].to(self.device)
-            logits, _, _ = forward(
-                self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache,
-                self.pos, dtype=self.dtype, use_kernels=self.use_kernels,
-                attn_window=window, fused_prologue=self.fused_prologue)
-        self.pos += t
-        return logits[0].cpu().numpy()  # host transfer: the step's fence
+        with trace.span("engine.dispatch", {"t": t, "pos": self.pos}):
+            faults.fire("engine.dispatch", t=t, pos=self.pos)
+            t0 = time.perf_counter()
+            window = self._window_for(self.pos + t)
+            if t == 1:
+                self._tok1.fill_(int(tokens[0]))
+                self._pos1.fill_(self.pos)
+                logits = self.graphs.run(("step", "logits", window, 1),
+                                         lambda: self._step_t1(window))
+            else:
+                toks = torch.from_numpy(tokens)[None, :].to(self.device)
+                logits, _, _ = forward(
+                    self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache,
+                    self.pos, dtype=self.dtype, use_kernels=self.use_kernels,
+                    attn_window=window, fused_prologue=self.fused_prologue)
+            self.pos += t
+            out = logits[0].cpu().numpy()  # host transfer: the step's fence
+            # a one-token dispatch is decode-shaped whichever loop issued it; decode
+            # tokens are counted by the loops, which know a decoded token from a prompt
+            # token
+            (_DISP_PREFILL if t > 1 else _DISP_DECODE).observe(time.perf_counter() - t0)
+            return out
 
     def infer_chunk_logits(self, tokens: list[int] | np.ndarray) -> np.ndarray:
         """infer_chunk, but returns all T positions' logits (T, vocab): the verify step
@@ -287,18 +310,22 @@ class Engine:
             return self._infer(tokens)
         if self.batch != 1 or self.kv_pool is not None:
             raise RuntimeError("the single-sequence loop needs batch=1 dense caches")
-        faults.fire("engine.dispatch", t=t, pos=self.pos)
-        window = self._window_for(self.pos + b)
-        buf = self._verify_toks.get(b)
-        if buf is None:
-            buf = self._verify_toks[b] = torch.zeros((1, b), dtype=torch.int64,
-                                                     device=self.device)
-        upload(buf, np.concatenate([tokens, np.zeros(b - t, np.int64)])[None])
-        self._pos1.fill_(self.pos)
-        logits = self.graphs.run(("verify", "logits", window, b),
-                                 lambda: self._step_block(buf, window))
-        self.pos += t
-        return logits[0, :t].cpu().numpy()  # host transfer: the step's fence
+        with trace.span("engine.dispatch", {"t": t, "pos": self.pos}):
+            faults.fire("engine.dispatch", t=t, pos=self.pos)
+            t0 = time.perf_counter()
+            window = self._window_for(self.pos + b)
+            buf = self._verify_toks.get(b)
+            if buf is None:
+                buf = self._verify_toks[b] = torch.zeros((1, b), dtype=torch.int64,
+                                                         device=self.device)
+            upload(buf, np.concatenate([tokens, np.zeros(b - t, np.int64)])[None])
+            self._pos1.fill_(self.pos)
+            logits = self.graphs.run(("verify", "logits", window, b),
+                                     lambda: self._step_block(buf, window))
+            self.pos += t
+            out = logits[0, :t].cpu().numpy()  # host transfer: the step's fence
+            _DISP_PREFILL.observe(time.perf_counter() - t0)
+            return out
 
     def _step_block(self, toks: torch.Tensor, window: int | None) -> torch.Tensor:
         """A verify block's step on its static tokens and the static position."""
@@ -354,14 +381,20 @@ class Engine:
         tokens = list(tokens)
         logits = None
         i = 0
-        while i < len(tokens):
-            for chunk in PREFILL_CHUNKS:
-                if len(tokens) - i >= chunk:
-                    logits = self.infer_chunk(tokens[i:i + chunk])
-                    i += chunk
-                    break
+        with trace.span("engine.prefill", {"tokens": len(tokens)}):
+            while i < len(tokens):
+                for chunk in PREFILL_CHUNKS:
+                    if len(tokens) - i >= chunk:
+                        logits = self.infer_chunk(tokens[i:i + chunk])
+                        i += chunk
+                        break
+        _PREFILL_TOKENS.inc(len(tokens))
+        dt_ms = (time.perf_counter() - t0) * 1000.0
+        # the single-sequence server's timeline entry: the request id resolves from the
+        # caller's bound trace context (a no-op outside a recorded request)
+        flight.event(None, "prefill", tokens=len(tokens), ms=round(dt_ms, 3))
         if stats is not None:
-            stats.prefill_ms = (time.perf_counter() - t0) * 1000.0
+            stats.prefill_ms = dt_ms
             stats.prompt_tokens = len(tokens)
         return logits
 
@@ -385,6 +418,7 @@ class Engine:
             t1 = time.perf_counter()
             logits = self.infer_chunk([token])
             t2 = time.perf_counter()
+            _DECODE_TOKENS.inc()
             stats.infer_ms.append((t2 - t1) * 1000.0)
             stats.token_ms.append((t2 - t0) * 1000.0)
         return out
@@ -493,12 +527,18 @@ class Engine:
             # tokens, and the cache rows past pos are overwritten later
             loop = self._decode_loop(chunk, mode, self._window_for(self.pos + chunk))
             t0 = time.perf_counter()
-            key, sub = split(key)
-            toks, _, _, _ = loop(self.rope, token, self.k_cache, self.v_cache, self.pos,
-                                 sub.tolist(), temperature, topp)
-            tokens = copy_to_host(toks)()[0][:want].tolist()  # the chunk's one fence
+            with trace.span("engine.device_loop", {"chunk": chunk, "pos": self.pos}):
+                key, sub = split(key)
+                toks, _, _, _ = loop(self.rope, token, self.k_cache, self.v_cache,
+                                     self.pos, sub.tolist(), temperature, topp)
+                tokens = copy_to_host(toks)()[0][:want].tolist()  # the chunk's one fence
+            dt_full = (time.perf_counter() - t0) * 1000.0
+            _DISP_LOOP.observe(dt_full / 1000.0)
+            _DECODE_TOKENS.inc(len(tokens))
+            flight.event(None, "device_loop", chunk=chunk, emitted=len(tokens),
+                         ms=round(dt_full, 3))
             # per-token time: the dispatch computes `chunk` tokens even when fewer are kept
-            dt_ms = (time.perf_counter() - t0) * 1000.0 / chunk
+            dt_ms = dt_full / chunk
             for i, t in enumerate(tokens):
                 out.append(t)
                 stats.generated_tokens += 1

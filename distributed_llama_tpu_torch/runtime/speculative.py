@@ -1,8 +1,9 @@
 """Prompt-lookup speculative decoding (greedy single sequence; the batched verify).
 
-The port's copy of the JAX package's runtime/speculative.py, without its metric
-families and trace spans: the counts live on GenerationStats (spec_steps, spec_drafted,
-spec_accepted, spec_turns, spec_step_ms) and on the BatchEngine (verify_steps,
+The port's copy of the JAX package's runtime/speculative.py with its engine-side metric
+families and the `spec.verify` span, without the proposer mux and its families: the
+per-request counts live on GenerationStats (spec_steps, spec_drafted, spec_accepted,
+spec_turns, spec_step_ms), the batched ones on the BatchEngine (verify_steps,
 spec_stats()).
 
 A verify step over T = 1 + k tokens streams the weights once for up to k + 1 tokens,
@@ -23,6 +24,20 @@ position, and every read masks slots at or past it, so the next step overwrites 
 from __future__ import annotations
 
 import time
+
+from ..obs import metrics, trace
+
+_DRAFTED = metrics.counter(
+    "spec_drafted_tokens_total", "Draft tokens proposed by prompt lookup")
+_ACCEPTED = metrics.counter(
+    "spec_accepted_tokens_total", "Draft tokens the verify step accepted")
+_VERIFY_STEPS = metrics.counter(
+    "spec_verify_steps_total", "Speculative verify dispatches")
+_ACCEPT_RATE = metrics.gauge(
+    "spec_accept_rate", "Cumulative accepted/drafted ratio (process lifetime)")
+# the shared decode-token counter (get-or-create returns engine.py's instance)
+_ENGINE_DECODE_TOKENS = metrics.counter(
+    "engine_decode_tokens_total", "Tokens decoded by the sequential engine")
 
 
 def propose_ngram(tokens: list[int], k: int, *, max_ngram: int = 4,
@@ -389,7 +404,8 @@ def generate_speculative(engine, prompt_tokens: list[int], max_tokens: int,
             min(k, room - 1, max_tokens - len(out) - 1))
         block = [last] + draft
         pos_before = engine.pos
-        full = engine.infer_chunk_logits(block)  # (T, vocab)
+        with trace.span("spec.verify", {"draft": len(draft), "pos": pos_before}):
+            full = engine.infer_chunk_logits(block)  # (T, vocab)
         stats.spec_steps += 1
         stats.spec_drafted += len(draft)
         accepted = 0
@@ -403,6 +419,11 @@ def generate_speculative(engine, prompt_tokens: list[int], max_tokens: int,
                 break
         stats.spec_accepted += accepted
         stats.spec_turns.append((len(out), len(draft), accepted))
+        _VERIFY_STEPS.inc()
+        _DRAFTED.inc(len(draft))
+        _ACCEPTED.inc(accepted)
+        if _DRAFTED.value > 0:
+            _ACCEPT_RATE.set(_ACCEPTED.value / _DRAFTED.value)
         # real per-dispatch verify time; token_ms/infer_ms get the per-token
         # AVERAGE of it (see GenerationStats: percentiles are synthetic when
         # spec_steps > 0, aggregate tokens/s stays correct)
@@ -414,6 +435,7 @@ def generate_speculative(engine, prompt_tokens: list[int], max_tokens: int,
             out.append(tok)
             history.append(tok)
             stats.generated_tokens += 1
+            _ENGINE_DECODE_TOKENS.inc()
             stats.token_ms.append(dt_ms)
             stats.infer_ms.append(dt_ms)
             if on_token is not None:

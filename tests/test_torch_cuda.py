@@ -1576,3 +1576,111 @@ def test_kv_export_wire_import_round_trip_on_the_card(cuda):
     finally:
         for be in (pre, mono, dec):
             be.close()
+
+
+def _obs_counter(name: str) -> float:
+    from distributed_llama_tpu_torch.obs import metrics
+
+    return metrics.REGISTRY.counter(name, "").value
+
+
+@pytest.mark.cuda
+def test_token_counters_count_every_graph_replay(cuda):
+    """batch_decode_tokens_total and engine_decode_tokens_total move by the tokens
+    delivered, every one of them from a graph replay after the first captures: the
+    counters sit on the host's delivery paths, never inside a captured step."""
+    import chip_smoke
+
+    spec = chip_smoke._llama2_7b(n_layers=2)
+    params = chip_smoke._random_i4p_params(spec, cuda, seed=41, gate_pair=True)
+    be = BatchEngine(spec, params, slots=4, device="cuda", fused_matmul=True, superstep=4)
+    try:
+        d0 = _obs_counter("batch_decode_tokens_total")
+        reqs, _ = chip_smoke.staggered(be, [_prompt(n, 20 + n) for n in (30, 9, 17, 12)],
+                                       24, after=1)
+        delivered = sum(len(r.out) for r in reqs)
+        assert delivered == 4 * 24
+        assert be.engine.graphs.replays == be.loop_steps > 2 * be.engine.graphs.captures
+        assert _obs_counter("batch_decode_tokens_total") - d0 == delivered
+    finally:
+        be.close()
+    eng = Engine(spec, chip_smoke._random_i4p_params(spec, cuda, seed=42),
+                 device="cuda")
+    d0 = _obs_counter("engine_decode_tokens_total")
+    out, _ = eng.generate(_prompt(20, 5), 24, Sampler(spec.vocab_size))
+    assert len(out) == 24 and eng.graphs.replays >= 20
+    assert _obs_counter("engine_decode_tokens_total") - d0 == 24
+
+
+@pytest.mark.cuda
+def test_scrape_does_not_synchronize_the_stream(cuda, tmp_path):
+    """/metrics and /v1/stats answer while a 100 ms spin holds the engine's stream: both
+    return before the spin ends (no gauge callback or stats block waits on the
+    device), measured as the PDL tests measure their queueing time."""
+    import http.client
+    import threading
+    import time
+
+    import chip_smoke
+    from distributed_llama_tpu_torch.apps import api_server
+    from distributed_llama_tpu_torch.tokenizer import TemplateType, Tokenizer
+
+    spec = chip_smoke._llama2_7b(n_layers=2)
+    params = chip_smoke._random_i4p_params(spec, cuda, seed=43, gate_pair=True)
+    chip_smoke._synthetic_tokenizer(str(tmp_path / "t.t"), spec.vocab_size)
+    be = BatchEngine(spec, params, Tokenizer.load(str(tmp_path / "t.t")), slots=2,
+                     device="cuda", fused_matmul=True, superstep=4)
+    srv = api_server.serve(None, "127.0.0.1", 0, TemplateType.LLAMA2, batch_engine=be)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        be.generate(_prompt(20, 7), 8, Sampler(spec.vocab_size))
+        port = srv.server_address[1]
+        for path in ("/metrics", "/v1/stats", "/v1/requests"):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            conn.request("GET", path)  # a warm connection path before the timed one
+            assert conn.getresponse().read()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(PDL_SPIN_S * chip_smoke.SPIN_HZ))
+            end = torch.cuda.Event()
+            end.record()
+            t_spin = time.perf_counter()
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            body = resp.read()
+            scraped_ms = (time.perf_counter() - t_spin) * 1e3
+            assert resp.status == 200 and body
+            assert scraped_ms < 1e3 * PDL_SPIN_S and not end.query(), (
+                f"GET {path} took {scraped_ms:.1f} ms behind a "
+                f"{1e3 * PDL_SPIN_S:.0f} ms spin, or waited for it")
+            torch.cuda.synchronize()
+            conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        be.close()
+
+
+@pytest.mark.cuda
+def test_annotated_span_encloses_its_graph_launch(cuda):
+    """With the tracer's annotation on, a profiled one-token step shows the
+    engine.dispatch range, and the step's graph launch lies inside it."""
+    from distributed_llama_tpu_torch.obs import trace
+
+    spec, eng, _ = _path_engines(cuda, "q40", False)
+    eng.generate(_prompt(8, 2), 2, Sampler(spec.vocab_size))  # captures the step
+    trace.install(annotate=True)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]
+                                    ) as prof:
+            eng.infer_chunk([5])
+            torch.cuda.synchronize()
+    finally:
+        trace.uninstall()
+    evs = prof.events()
+    ranges = [e for e in evs if e.name == "engine.dispatch"]
+    launches = [e for e in evs if "GraphLaunch" in e.name]
+    assert ranges and launches, sorted({e.name for e in evs})[:40]
+    r = ranges[0]
+    assert any(r.time_range.start <= g.time_range.start
+               and g.time_range.end <= r.time_range.end for g in launches)

@@ -177,6 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from distributed_llama_tpu_torch.resilience import faults, supervisor  # noqa: F401
         from distributed_llama_tpu_torch.resilience import tenancy  # noqa: F401
         from distributed_llama_tpu_torch.fleet import disagg  # noqa: F401
+        from distributed_llama_tpu_torch.obs import flight, metrics, process  # noqa: F401
+        from distributed_llama_tpu_torch.obs import reqctx, trace  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
