@@ -11,7 +11,11 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             Q40 weights, and with the fused prologue on Q40 and on Q80 weights (logits
             within tolerance, identical greedy tokens for 8 steps), and the fused
             BatchEngine on 4 staggered requests (identical greedy tokens, logits step by
-            step within tolerance)
+            step within tolerance); then the fused BatchEngine with two constrained
+            rows (a JSON schema, a regex) and two free ones, speculation off (masked
+            super-steps) and on (masked verify blocks), and the model drafter's scan (a
+            self-draft, 4 rows, 4 turns): the card's tokens and drafts the CPU's outside
+            near-ties held by the CPU's and an exact-sum run's logits
   model     Engine at full Llama-2-7B (32 layers, random Q40 weights drawn on the card in
             i4p layout, bf16, prefill_kernel), each one-token step a CUDA graph replay: a
             100-token prompt (chunks 64, 8, 1) and 64 greedy tokens, every kernel's
@@ -112,6 +116,30 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             disabled per-dispatch bundle against a one-token graph replay (under 1%),
             and the super-step period with the defaults, the tracer on and the flight
             recorder off
+  constrain grammar-constrained decoding on the same weights (8 slots, superstep 8
+            pipelined, speculative 8): 8 requests of 48 tokens admitted together, 2 under
+            a JSON schema and 2 under the regex [a-z]{24} (compiled against the synthetic
+            tokenizer's 32000 pieces), 4 unconstrained; all greedy, then 4 greedy and 4
+            seeded: every constrained output valid; speculation off, the unconstrained
+            rows identical to the grammar-free batch and the constrained greedy rows equal
+            to their unconstrained stream up to the grammar's first veto; seeded runs
+            repeat; speculation on (the grammar proposer's forced chains in masked verify
+            blocks) against off, greedy rows under the near-tie rule; each seeded row's
+            stream held exactly at its own dispatch shapes from the device sampler's
+            records (`_seeded_exact`: every token the pick of its own coin, mask and
+            logits row), where on and off part the same coin on each run's own logits;
+            masked graphs replayed, no row degraded, the kernels launched on the path;
+            ms per masked step against unmasked at T = 1, 2, 3, 5, 9, compile ms, the
+            grammar proposer's accept rate
+  draft     the model drafter on the same weights: a TinyLlama-1.1B-shaped drafter
+            (random Q40 drawn on the card) beside the 8-slot engine (speculative 8):
+            tokens against speculation off (the same rules), the drafter live with no
+            proposer error, the kernels launched in the target's and the drafter's graphs;
+            scan ms per step at each bucket (CUDA events) against the drafter's byte
+            floor, drafted and accepted counts, frontier hits, the serving period with
+            the drafter against n-gram drafting; then the 7B self-draft on the target's
+            own weights (no copy): every greedy turn accepts every draft, or a rejection
+            is a near-tie of the f64 witness
   moe       Mixtral-8x7B at full size (32 layers, random Q40 drawn on the card in i4p
             with the merged [up | gate] expert stack, bf16, prefill_kernel): the model
             phase's checks (100-token prompt, 64 greedy tokens as graph replays, the
@@ -184,7 +212,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
-              "resil", "tenancy", "disagg", "obs", "moe", "kernels", "cli")
+              "resil", "tenancy", "disagg", "obs", "constrain", "draft", "moe", "kernels",
+              "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -1990,6 +2019,13 @@ def phase_parity(state: dict) -> None:
             log(f"[parity] 2-layer Llama-2-7B width, f32, {label} with the fused prologue: "
                 f"{report}")
         log(f"[parity] 2-layer Llama-2-7B width, f32: {serving_parity()}")
+        p8 = _random_i4p_params(spec, cpu, seed=8, gate_pair=True, lo=1)
+        for label, check in (("constrained", constrain_parity), ("the drafter",
+                                                                  drafter_parity)):
+            t0 = time.perf_counter()
+            report = check(p8)
+            log(f"[parity] 2-layer Llama-2-7B width, f32, {label}: {report} "
+                f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_model(state: dict) -> None:
@@ -3029,6 +3065,161 @@ def _held(state, spec, params, tag: str, prompt, got: list[int], want: list[int]
     return f"{tag} near-tie at step {j} ({a} vs {b}, f64 witness {gap:.2e} < {tol:.2e})"
 
 
+class _SampleTap:
+    """While open, every call of the device sampler (`device_loop.device_sample_coin`:
+    inside the serving engine's super-step and verify graphs captured while it is open,
+    and in its eager prefill picks) also writes the logits rows it samples from (after
+    the grammar's mask), their coins, temperatures and picks into device histories at a
+    device counter, so each graph replay records what it sampled. `take()` returns the
+    records since the last take (coins, temperatures, picks on the host; the rows stay
+    on the card, a copy) and clears the count."""
+
+    CAP = 8192
+
+    def __init__(self, vocab_size: int):
+        from distributed_llama_tpu_torch.runtime import device_loop
+
+        dev = torch.device("cuda")
+        self._dl, self._fn = device_loop, device_loop.device_sample_coin
+        self.rows = torch.zeros((self.CAP, vocab_size), dtype=torch.float32, device=dev)
+        self.meta = torch.zeros((3, self.CAP), dtype=torch.float64, device=dev)
+        self.count = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def __enter__(self):
+        def tapped(logits, u, temperature, topp):
+            picks = self._fn(logits, u, temperature, topp)
+            idx = (self.count + torch.arange(logits.shape[0], device=logits.device)
+                   ) % self.CAP
+            self.rows.index_copy_(0, idx, logits.float())
+            self.meta.index_copy_(1, idx, torch.stack([u.double(), temperature.double(),
+                                                       picks.double()]))
+            self.count += logits.shape[0]
+            return picks
+        self._dl.device_sample_coin = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._dl.device_sample_coin = self._fn
+
+    def take(self) -> tuple[np.ndarray, torch.Tensor]:
+        n = int(self.count)
+        if n > self.CAP:
+            raise AssertionError(f"sample tap: {n} samples overflow its {self.CAP} rows")
+        meta = np.array(self.meta[:, :n].cpu())  # a copy: the history is reused
+        self.count.zero_()
+        return meta, self.rows[:n].clone()
+
+
+def _seeded_exact(state, spec, params, tag: str, prompt, out: list[int], seed: int,
+                  rec: tuple, aut=None) -> tuple[torch.Tensor, list[int]]:
+    """A seeded row's stream held exactly at its own dispatch shapes, from the device
+    sampler's records of its run (`_SampleTap`): every delivered token k is the pick of
+    a sample drawn with the row's k-th coin (temperature 0.8, top-p 0.9; the last such
+    sample that picked it), and the port's sampler picks it again from that sample's
+    logits row under the grammar's mask at the state after out[:k] (`aut`, where given;
+    else no entry masked), whose allowed set the row must show; the row is within
+    NEAR_TIE·max|logits| of the fused bf16 Engine's logits after prompt + out[:k] (one
+    forward of the whole stream), or else of its prefill of prompt + out[:k]. Catches a
+    misaligned coin, another row's or state's mask, and a row that is no evaluation of
+    this prefix (as far as the logits of random weights tell prefixes apart). Returns
+    the rows sampled, (len(out), V) on the card, and the tokens held by the prefill."""
+    from distributed_llama_tpu_torch.runtime.device_loop import MASK_NEG, device_sample_coin
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    meta, rows = rec
+    smp = Sampler(spec.vocab_size, 0.8, 0.9, seed)
+    coins = [smp.next_coin() for _ in range(len(out))]
+    # every sample drawn with each coin: a row parked in a super-step draws its next
+    # coin at every step until a live step draws it again
+    drawn: dict[float, list[int]] = {}
+    for i in np.nonzero(meta[1] != 0)[0]:
+        drawn.setdefault(float(meta[0, i]), []).append(int(i))
+    lost = [k for k, c in enumerate(coins) if c not in drawn]
+    if lost:
+        raise AssertionError(f"{tag}: no device sample drew the coins of tokens {lost}")
+    # the last sample with the coin that picked the delivered token, else the last one
+    idx = [next((i for i in reversed(drawn[c]) if int(meta[2, i]) == t), drawn[c][-1])
+           for c, t in zip(coins, out)]
+    picks = meta[2, idx].astype(np.int64).tolist()
+    if picks != out:
+        k = next(k for k, (p, t) in enumerate(zip(picks, out)) if p != t)
+        raise AssertionError(f"{tag}: token {k} is {out[k]}, the sample drawn with its "
+                             f"coin picked {picks[k]}")
+    got = rows[idx]
+    eng = state.get("tie_engine")
+    if eng is None:
+        eng = state["tie_engine"] = Engine(spec, params, device="cuda", fused_matmul=True,
+                                           cuda_graph=False)
+    eng.reset()
+    full = list(prompt) + out
+    ref = eng.infer_chunk_logits(full[:-1])[len(prompt) - 1:]
+    allowed = np.ones((len(out), spec.vocab_size), bool)
+    if aut is not None:
+        st = 0
+        for k, t in enumerate(out):
+            allowed[k] = aut.mask_bool(st)[:spec.vocab_size]
+            st = aut.advance(st, t)
+    host = got.cpu().numpy()
+    shown = host > MASK_NEG / 2
+    if not (shown == allowed).all():
+        k = int(np.nonzero((shown != allowed).any(1))[0][0])
+        raise AssertionError(f"{tag}: token {k} was sampled from a row masked otherwise "
+                             f"than its grammar state allows")
+    again = device_sample_coin(got, torch.tensor(coins, device=got.device),
+                               torch.full((len(out),), 0.8, device=got.device),
+                               torch.full((len(out),), 0.9, device=got.device)).tolist()
+    if again != out:
+        raise AssertionError(f"{tag}: the sampler picks {again} from the recorded rows, "
+                             f"the run delivered {out}")
+    err = np.where(allowed, np.abs(host - ref), 0).max(1)
+    tol = NEAR_TIE * np.where(allowed, np.abs(ref), 0).max(1)
+    second = []
+    for k in np.nonzero(err > tol)[0].tolist():
+        # a second evaluation at other shapes (the Engine's prefill chunks): with random
+        # weights a position can turn on one rounding (an attention softmax flipping
+        # between keys), so the two evaluations of one prefix may disagree there
+        eng.reset()
+        alt = eng.prefill(full[:len(prompt) + k])
+        e2 = float(np.where(allowed[k], np.abs(host[k] - alt), 0).max())
+        t2 = NEAR_TIE * float(np.where(allowed[k], np.abs(alt), 0).max())
+        if e2 > t2:
+            near = np.abs(host[k][None] - ref).max(1)
+            raise AssertionError(
+                f"{tag}: token {k} was sampled from a row {err[k]:.3e} from the stream's "
+                f"logits there (bound {tol[k]:.3e}) and {e2:.3e} from its prefill's "
+                f"(bound {t2:.3e}), nearest the stream's logits for token "
+                f"{int(near.argmin())} ({near.min():.3e})")
+        second.append(k)
+    return got, second
+
+
+def _seeded_pair(state, spec, params, tag: str, prompt, got: list[int], want: list[int],
+                 seed: int, recs: tuple, aut=None) -> str:
+    """Seeded tokens of two runs of one request at other dispatch shapes (a verify
+    block's M against a super-step's): each run held exactly at its own shapes
+    (`_seeded_exact`), so where they part, at step j, both drew the same coin and the
+    same sampler picked each run's token from that run's own logits, rows within
+    NEAR_TIE·max|logits| of one forward of the stream. Returns "" or a description of
+    the step, with how far apart the two runs' rows lay."""
+    a_rows, a_alt = _seeded_exact(state, spec, params, f"{tag} (got)", prompt, got, seed,
+                                  recs[0], aut)
+    b_rows, b_alt = _seeded_exact(state, spec, params, f"{tag} (want)", prompt, want,
+                                  seed, recs[1], aut)
+    alt = (f" (held by their prefill's logits: tokens {a_alt} and {b_alt})"
+           if a_alt or b_alt else "")
+    if got == want:
+        return f"{tag} identical{alt}" if alt else ""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        raise AssertionError(f"{tag}: {len(got)} tokens against {len(want)}")
+    x, y = a_rows[j], b_rows[j]
+    live = (x > -1e29) & (y > -1e29)
+    gap = float(((x - y).abs() * live).max() / (y.abs() * live).max())
+    return (f"{tag} parts at step {j} ({got[j]} vs {want[j]}): the same coin, each run's "
+            f"own logits rows {gap:.2e}·max|logits| apart{alt}")
+
+
 def _prefix_serial(state: dict, spec, params, t: dict, k: int) -> dict:
     """Part 1: 2 slots, superstep k. R0/R1 primers, the donor P + sd, then for each hit
     a displacing request Y_i and the hit P + s_i (one at a time), the last hit exactly P
@@ -3445,7 +3636,8 @@ def _prefix_single(state: dict, spec, params, t: dict) -> dict:
 
 
 # the phases after serve that run on its 7B weights, in their order
-SERVE_WEIGHT_PHASES = ("prefix", "spec", "resil", "tenancy", "disagg", "obs")
+SERVE_WEIGHT_PHASES = ("prefix", "spec", "resil", "tenancy", "disagg", "obs", "constrain",
+                       "draft")
 
 
 def _take_serve_params(state: dict, phase: str):
@@ -3855,30 +4047,10 @@ def spec_parity(n_layers: int = 2, max_tokens: int = 16) -> str:
         # near-tie may part the two CPU runs
         same = sum(a == b for a, b in zip(cpu[0], refs))
         card = run("cuda", refs)
-        ties, cut = [], len(cpu[1])  # cut: the verify turns held equal
-        for i, (a, b) in enumerate(zip(card[0], cpu[0])):
-            if a == b:
-                continue
-            j = next((x for x, (p, q) in enumerate(zip(a, b)) if p != q), None)
-            if j is None:
-                raise AssertionError(f"spec parity: request {i} decoded {len(a)} tokens on "
-                                     f"the card, {len(b)} on the CPU")
-            gaps = []
-            for exact in (False, True):
-                eng = Engine(spec, params, device="cpu", dtype=torch.float32,
-                             use_kernels=True, fused_matmul=True)
-                with _ExactSums() if exact else contextlib.nullcontext():
-                    logits = eng.infer_chunk_logits(prompts[i] + b[:j])[-1]
-                gap = abs(float(logits[a[j]] - logits[b[j]]))
-                tol = 2e-3 * float(np.abs(logits).max())
-                if gap >= tol:
-                    raise AssertionError(
-                        f"spec parity: request {i} step {j}: card {a[j]}, CPU {b[j]}, "
-                        f"{gap:.3e} apart in the {'exact-sum' if exact else 'CPU'} logits "
-                        f"(tolerance {tol:.3e})")
-                gaps.append(f"{gap:.2e} (tol {tol:.2e})")
-            ties.append(f"request {i} step {j}: card {a[j]}, CPU {b[j]}, CPU gap {gaps[0]}, "
-                        f"exact-sum gap {gaps[1]}")
+        ties = _parity_streams(spec, params, prompts, card[0], cpu[0],
+                               "spec parity request")
+        cut = len(cpu[1])  # the verify turns held equal
+        for i, j, _ in ties:
             # a turn of request i that emits past step j, or corrects at j, is the first
             # the tie can reach (a bonus token at j leaves its own turn as it was)
             cut = min(cut, next((x for x, (r, o, nd, acc) in enumerate(cpu[1])
@@ -3893,12 +4065,158 @@ def spec_parity(n_layers: int = 2, max_tokens: int = 16) -> str:
             f"corrupted at each block's third draft): the CPU's tokens equal that run's in "
             f"{same} of 4 requests ({cpu[2]} verify blocks, {cpu[3]}/{cpu[4]} drafts "
             f"accepted); the card's "
-            + (f"identical outside near-ties: {'; '.join(ties)}" if ties else
+            + (f"identical outside near-ties: {'; '.join(t for _, _, t in ties)}" if ties else
                f"identical ({card[2]} verify blocks, {card[3]}/{card[4]} drafts "
                f"accepted)") + f"; verify turns (request, output length, drafted, "
             f"accepted) equal in delivery order: {cut} of the CPU's {len(cpu[1])}"
             + (" (those before the first turn a near-tie reaches)" if ties else "")
             + f" {cpu[1][:cut]}; tokens {cpu[0]}")
+
+
+def _parity_tie(spec, params, history: list[int], a: int, b: int, what: str) -> str:
+    """Two greedy picks a (card) and b (CPU) after `history`, held as a near-tie: the
+    CPU's logits (the single-sequence Engine on the plain versions) and an exact-sum run
+    (`_ExactSums`) must both put them within 2e-3·max|logits|."""
+    import contextlib
+
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(spec, params, device="cpu", dtype=torch.float32, use_kernels=True,
+                 fused_matmul=True)
+    gaps = []
+    for exact in (False, True):
+        eng.reset()
+        with _ExactSums() if exact else contextlib.nullcontext():
+            logits = eng.infer_chunk_logits(history)[-1]
+        gap = abs(float(logits[a] - logits[b]))
+        tol = 2e-3 * float(np.abs(logits).max())
+        if gap >= tol:
+            raise AssertionError(f"{what}: card {a}, CPU {b}, {gap:.3e} apart in the "
+                                 f"{'exact-sum' if exact else 'CPU'} logits (tolerance "
+                                 f"{tol:.3e})")
+        gaps.append(f"{gap:.2e} (tol {tol:.2e})")
+    return f"{what}: card {a}, CPU {b}, CPU gap {gaps[0]}, exact-sum gap {gaps[1]}"
+
+
+def _parity_streams(spec, params, prompts, card, cpu, what: str
+                    ) -> list[tuple[int, int, str]]:
+    """Greedy streams of the card against the CPU's: identical, or identical up to a
+    near-tie (`_parity_tie`) past which they are not compared. Returns (stream, step,
+    description) of each near-tie."""
+    ties = []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a == b:
+            continue
+        j = next((x for x, (p, q) in enumerate(zip(a, b)) if p != q), None)
+        if j is None:
+            raise AssertionError(f"{what} {i}: {len(a)} tokens on the card, {len(b)} on "
+                                 f"the CPU")
+        ties.append((i, j, _parity_tie(spec, params, list(prompts[i]) + b[:j], a[j], b[j],
+                                       f"{what} {i} step {j}")))
+    return ties
+
+
+def constrain_parity(params, n_layers: int = 2, max_tokens: int = 16) -> str:
+    """The masked super-step and the masked verify in the fused BatchEngine at full
+    Llama-2-7B width, 2 layers, f32 with seeded weights (nibbles 1..15): the card with
+    the kernels against the CPU with their plain versions, 4 requests admitted together
+    (the schema, the branchy regex, 2 unconstrained; prompts of 8 and 16 tokens, so the
+    prefill takes few dispatches), greedy, speculative 8: the grammar proposer's forced
+    chains run in masked verify blocks and the branch points in masked super-steps. The
+    card's tokens are the CPU's outside near-ties, every constrained output is valid,
+    and both masked builds run on both. `params`: the 2-layer CPU weights (seed 8,
+    nibbles 1..15) in the gate-pair layout."""
+    from distributed_llama_tpu_torch.constrain import compile_grammar
+    from distributed_llama_tpu_torch.models.params import params_to
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    spec = _llama2_7b(n_layers=n_layers)
+    # the synthetic tokenizer's vocab: one token a byte, so the schema has forced chains
+    vocab, eos = _constrain_vocab(spec.vocab_size)
+    grammars = [compile_grammar("json_schema", CONSTRAIN_SCHEMA, vocab, eos),
+                compile_grammar("regex", CONSTRAIN_REGEX, vocab, eos), None, None]
+    rng = np.random.RandomState(9)
+    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (7, 15, 7, 15)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        be = BatchEngine(spec, params_to(params, dev), device=dev, slots=4,
+                         dtype=torch.float32, use_kernels=True, fused_matmul=True,
+                         superstep=4, speculative=SPEC_K, prefix_cache=False)
+        try:
+            with be._slock:
+                reqs = [be.submit(list(p), max_tokens, _CheckedSampler(spec.vocab_size),
+                                  **({} if g is None else dict(constraint=g[0])))
+                        for p, g in zip(prompts, grammars)]
+            outs = [r.wait(timeout=900) for r in reqs]
+            keys = be.engine.graphs.keys() if dev == "cuda" else list(be._loops)
+            masked = sorted({"verify" if "verify" in str(k[0]) else "scan"
+                             for k in keys if k[-1] == "mask"})
+            runs[dev] = (outs, masked, be.verify_steps)
+            if masked != ["scan", "verify"] or be.constrain_degraded:
+                raise AssertionError(f"constrain parity ({dev}): masked builds run {masked}"
+                                     f", {be.constrain_degraded} degraded")
+        finally:
+            be.close()
+        for i in range(2):
+            _constrain_valid(grammars[i][0], runs[dev][0][i], eos,
+                             f"constrain parity {dev} {i}")
+    ties = _parity_streams(spec, params, prompts, runs["cuda"][0], runs["cpu"][0],
+                           "constrain parity request")
+    torch.cuda.empty_cache()
+    return (f"fused BatchEngine(speculative={SPEC_K}), schema + regex + 2 free rows x "
+            f"{max_tokens} greedy tokens: masked super-steps and verify blocks on both, "
+            f"{runs['cuda'][2]} verify blocks on the card ({runs['cpu'][2]} on the CPU); "
+            f"tokens " + ("identical" if not ties else "identical outside "
+                          + "; ".join(t for _, _, t in ties)) + f" {runs['cpu'][0]}")
+
+
+def drafter_parity(params, n_layers: int = 2, turns: int = 3) -> str:
+    """The drafter's catch-up + draft scan at full Llama-2-7B width, 2 layers, f32 with
+    seeded weights (a self-draft): the card with the kernels (each scan step a CUDA
+    graph) against the CPU with their plain versions, 4 rows of different prompts, each
+    turn's pushes the CPU's drafts' first two and one correction token: the card's
+    drafts the CPU's outside near-ties, turn after turn, and its prefill and scan ran.
+    `params`: as constrain_parity's."""
+    from distributed_llama_tpu_torch.draft.drafter import ModelDrafter
+    from distributed_llama_tpu_torch.models.params import params_to
+
+    spec = _llama2_7b(n_layers=n_layers)
+    rng = np.random.RandomState(11)
+    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (12, 30, 7, 44)]
+    drafters = {dev: ModelDrafter(spec, params_to(params, dev), slots=4, target_spec=spec,
+                                  device=dev, dtype=torch.float32, use_kernels="fused")
+                for dev in ("cpu", "cuda")}
+    streams = {dev: [list(p) for p in prompts] for dev in drafters}
+    for d in drafters.values():
+        for r, p in enumerate(prompts):
+            d.attach(r, p)
+    ties = []
+    for turn in range(turns):
+        want = {r: 8 for r in range(4)}
+        cpu = drafters["cpu"].propose_batch(want)
+        card = drafters["cuda"].propose_batch(want)
+        if set(cpu) != set(card):
+            raise AssertionError(f"drafter parity turn {turn}: rows {sorted(card)} on the "
+                                 f"card, {sorted(cpu)} on the CPU")
+        rows = sorted(cpu)
+        ties += [t for _, _, t in _parity_streams(
+            spec, params, [streams["cpu"][r] for r in rows], [card[r] for r in rows],
+            [cpu[r] for r in rows], f"drafter parity turn {turn} row")]
+        for r in rows:
+            push = cpu[r][:2] + [(cpu[r][2] + 1) % spec.vocab_size]
+            for dev, d in drafters.items():
+                for t in push:
+                    d.push(r, t)
+            streams["cpu"][r] += push
+    g = drafters["cuda"].graphs
+    if not g.enabled or not g.keys() or drafters["cuda"].prefill_tokens <= 0:
+        raise AssertionError(f"drafter parity: scans captured {g.keys()}, prefill tokens "
+                             f"{drafters['cuda'].prefill_tokens}")
+    torch.cuda.empty_cache()
+    return (f"self-draft scans over {turns} turns of 4 rows x 8 drafts: the card's drafts "
+            + ("identical" if not ties else "identical outside " + "; ".join(ties))
+            + f"; scan graphs {sorted(k[1] for k in g.keys())}, prefill tokens "
+            f"{drafters['cuda'].prefill_tokens}")
 
 
 def phase_spec(state: dict) -> None:
@@ -5190,6 +5508,516 @@ def phase_obs(state: dict) -> None:
         be.close()
     log(f"[obs] {smi}: numbers " + json.dumps(numbers, default=float))
     del params, be, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ constrained decoding
+
+# the grammars of tests/test_constrain.py: the schema (forced chains: the grammar
+# proposer drafts them) and the branchy regex (no forced chain: the masked super-step)
+CONSTRAIN_SCHEMA = {"type": "object", "properties": {
+    "name": {"enum": ["alpha", "beta"]}, "ok": {"type": "boolean"}}}
+CONSTRAIN_REGEX = "[a-z]{24}"
+CONSTRAIN_PROMPTS = (21, 48, 17, 60, 33, 25, 52, 40)  # inside the first 256-position window
+CONSTRAIN_TOKENS = 48
+
+
+def _constrain_vocab(vocab_size: int):
+    """The synthetic tokenizer's served vocab (`_synthetic_tokenizer`: its <0xNN> byte
+    tokens spell every byte, so grammars compile against it) and its EOS id."""
+    from distributed_llama_tpu_torch.constrain import vocab_bytes
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "synthetic.t")
+        _synthetic_tokenizer(path, vocab_size)
+        tok = Tokenizer.load(path)
+    return vocab_bytes(tok), tok.eos_id
+
+
+def _constrain_valid(aut, out: list[int], eos: int, what: str) -> None:
+    """A constrained output is grammar-valid: the stream up to its first EOS is a word of
+    the grammar (EOS then repeats: the done state's self-loop), or, without an EOS, a
+    prefix of one."""
+    if eos in out:
+        i = out.index(eos)
+        ok = set(out[i:]) == {eos} and aut.validate(out[:i + 1]) == (True, True)
+    else:
+        ok = aut.validate(out)[0]
+    if not ok:
+        raise AssertionError(f"{what}: output leaves its grammar: {out}")
+
+
+def _constrain_run(be, prompts, grammars, seeded: bool) -> tuple[list, list]:
+    """The 8 requests admitted in one pass (submitted under the scheduler lock), the
+    grammars attached where given; odd rows seeded (temperature 0.8, top-p 0.9) when
+    `seeded`. Returns (outputs, requests)."""
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    v = be.spec.vocab_size
+    smps = [Sampler(v, 0.8, 0.9, 300 + i) if seeded and i % 2 else _CheckedSampler(v)
+            for i in range(len(prompts))]
+    with be._slock:
+        reqs = [be.submit(list(p), CONSTRAIN_TOKENS, s,
+                          **({} if g is None else dict(constraint=g[0],
+                                                       constraint_hash=g[1])))
+                for p, s, g in zip(prompts, smps, grammars)]
+    outs = [r.wait(timeout=600) for r in reqs]
+    be.release_idle()
+    return outs, reqs
+
+
+def _metric_sum(name: str, label: str = "") -> float:
+    """A counter family's total (over the samples whose labels contain `label`)."""
+    from distributed_llama_tpu_torch.obs import metrics
+
+    v = metrics.snapshot().get(name, 0)
+    if isinstance(v, dict):
+        return float(sum(x for k, x in v.items() if label in k))
+    return float(v)
+
+
+def _constrain_step_ms(be, auts) -> dict:
+    """Device ms of one batched step of the 8-slot engine, masked against unmasked: a
+    super-step of SERVE_K steps over SERVE_K, and the verify buckets, greedy, rows 0-1
+    under the schema, 2-3 under the regex, 4-7 on the universal state, every row at
+    positions 200-221 (window 256), by CUDA events over graph replays."""
+    eng = be.engine
+    starts = [200 + 3 * i for i in range(8)]
+    rng = np.zeros((8, 2), np.int64)
+    window = eng._window_for(256)
+    out = {}
+    with be._slock:  # the scheduler is idle; this thread drives the loops
+        tbl = be.constrain_table
+        offs = [tbl.alloc(i, auts[i // 2]) for i in range(4)]
+        cons = ([o for o in offs] + [0] * 4, *tbl.device())
+        try:
+            for sl in be._slots:
+                be._paged_ensure(sl, 256)
+            tables = be._tables()
+            for masked in (False, True):
+                kw = dict(constrain=cons) if masked else {}
+                loop = be._batched_loop(SERVE_K, "greedy", window, masked)
+                out[(1, masked)] = event_ms(
+                    lambda i: loop(eng.rope, [5] * 8, eng.k_cache, eng.v_cache, starts,
+                                   rng, [0.0] * 8, [0.9] * 8, [SERVE_K] * 8, tables, **kw),
+                    10) / SERVE_K
+                for t in SPEC_BUCKETS:
+                    vloop = be._verify_loop(t, "greedy", window, masked)
+                    props = [[5] * t for _ in range(8)]
+                    out[(t, masked)] = event_ms(
+                        lambda i: vloop(eng.rope, props, eng.k_cache, eng.v_cache, starts,
+                                        rng, [0.0] * 8, [0.9] * 8, [t - 1] * 8, tables,
+                                        **kw), 20)
+        finally:
+            for i in range(4):
+                tbl.free(i)
+    free = be.release_idle()
+    if free != be.kv_pool.n_blocks - 1:
+        raise AssertionError(f"constrain: {free} blocks free after the step timing")
+    return out
+
+
+def phase_constrain(state: dict) -> None:
+    """Grammar-constrained decoding at Llama-2-7B on the serve weights (8 slots,
+    superstep 8 pipelined, speculative 8): 8 requests of 48 tokens admitted together, 2
+    under the JSON schema, 2 under the branchy regex, 4 unconstrained co-batched. Every
+    constrained output is valid; with speculation off, the unconstrained rows are
+    byte-identical to the batch with no grammar attached (the same dispatch shapes) and
+    each constrained greedy row equals its unconstrained stream up to the grammar's first
+    veto; seeded runs repeat; speculation on (the grammar proposer drafting forced
+    chains into masked verify blocks) gives speculation off's tokens (greedy under the
+    near-tie rule `_held`; each seeded run held exactly at its own dispatch shapes,
+    `_seeded_pair`, the two runs parting only where each run's own logits pick another
+    token with the same coin); the masked graphs replay; nothing degrades. Then ms
+    per masked step against the unmasked one, the grammar compile at V = 32000, and the
+    grammar proposer's accept rate."""
+    from distributed_llama_tpu_torch.constrain import automaton, compile_grammar
+    from distributed_llama_tpu_torch.constrain.compiler import schema_to_regex
+
+    spec = _llama2_7b()
+    params = _take_serve_params(state, "constrain")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    vocab, eos = _constrain_vocab(spec.vocab_size)
+    numbers: dict = {"card": smi, "compile_ms": {}}
+    grammars = []
+    for kind, src, pattern in (("json_schema", CONSTRAIN_SCHEMA,
+                                schema_to_regex(CONSTRAIN_SCHEMA)),
+                               ("regex", CONSTRAIN_REGEX, CONSTRAIN_REGEX)):
+        # a cold compile is the uncached lowering (an earlier phase may have filled the
+        # LRU cache with these grammars); compile_grammar's own call may be a hit
+        t0 = time.perf_counter()
+        automaton.regex_token_automaton(pattern, vocab, eos)
+        numbers["compile_ms"][kind] = (time.perf_counter() - t0) * 1e3
+        grammars.append(compile_grammar(kind, src, vocab, eos))
+    auts = [g[0] for g in grammars]
+    per_row = [grammars[0], grammars[0], grammars[1], grammars[1]] + [None] * 4
+    gen = torch.Generator().manual_seed(37)
+    prompts = [[1] + torch.randint(3, spec.vocab_size, (n - 1,), generator=gen).tolist()
+               for n in CONSTRAIN_PROMPTS]
+    tap = _SampleTap(spec.vocab_size).__enter__()  # before any graph is captured
+    be = _serve_engine(params, SERVE_K, SPEC_K)
+    eng = be.engine
+    degraded0 = _metric_sum("constrain_degraded_total")
+    try:
+        k = be.spec_k
+        be.spec_k = 0
+        off, _ = _constrain_run(be, prompts, per_row, False)
+        plain, _ = _constrain_run(be, prompts, [None] * 8, False)
+        tap.take()
+        off_s, _ = _constrain_run(be, prompts, per_row, True)
+        rec_off = tap.take()
+        again_s, _ = _constrain_run(be, prompts, per_row, True)
+        be.spec_k = k
+        # the main path: speculation on, the counts zeroed just before and read after
+        counters = _serve_counters()
+        _zero(counters)
+        snap = graph_snapshot(counters, eng.graphs)
+        drafted0 = _metric_sum("batch_spec_proposer_drafted_total", "grammar")
+        accepted0 = _metric_sum("batch_spec_proposer_accepted_total", "grammar")
+        t0 = time.perf_counter()
+        on, _ = _constrain_run(be, prompts, per_row, False)
+        tap.take()
+        on_s, _ = _constrain_run(be, prompts, per_row, True)
+        wall = time.perf_counter() - t0
+        rec_on = tap.take()
+        launches, replays, new = run_launches(counters, eng.graphs, snap)
+        g_drafted = _metric_sum("batch_spec_proposer_drafted_total", "grammar") - drafted0
+        g_accepted = _metric_sum("batch_spec_proposer_accepted_total", "grammar") - accepted0
+        masked = {k_: eng.graphs.replays_of(k_) for k_ in eng.graphs.keys()
+                  if k_[-1] == "mask"}
+        step_ms = _constrain_step_ms(be, auts)
+    finally:
+        be.close()
+        tap.__exit__()
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    for outs, what in ((off, "greedy"), (off_s, "seeded"), (on, "greedy, speculating"),
+                       (on_s, "seeded, speculating")):
+        for i in range(4):
+            _constrain_valid(auts[i // 2], outs[i], eos, f"constrain {what} request {i}")
+    if off[4:] != plain[4:]:
+        raise AssertionError("constrain: the unconstrained rows differ from the batch with "
+                             "no grammar attached")
+    for i in range(4):
+        st = 0
+        for c, u in zip(off[i], plain[i]):
+            if c != u:
+                if auts[i // 2].allows(st, u):
+                    raise AssertionError(f"constrain: request {i} replaced {u}, which its "
+                                         f"grammar allows, by {c}")
+                break
+            st = auts[i // 2].advance(st, c)
+    if again_s != off_s:
+        raise AssertionError("constrain: two seeded runs from one state differ")
+    notes = [n for i in range(8) if (n := _held(
+        state, spec, params, f"constrain request {i}", prompts[i], on[i], off[i]))]
+    for i in range(8):
+        tag = f"constrain seeded-run request {i}"
+        aut = auts[i // 2] if i < 4 else None
+        n = (_seeded_pair(state, spec, params, tag, prompts[i], on_s[i], off_s[i],
+                          300 + i, (rec_on, rec_off), aut) if i % 2
+             else _held(state, spec, params, tag, prompts[i], on_s[i], off_s[i]))
+        if n:
+            notes.append(n)
+    del tap, rec_on, rec_off
+    state.pop("prefix_witness", None)
+    state.pop("tie_engine", None)
+    if _metric_sum("constrain_degraded_total") != degraded0:
+        raise AssertionError("constrain: a constrained row degraded")
+    if not masked or not any(n > 0 for n in masked.values()):
+        raise AssertionError(f"constrain: no masked graph replayed ({masked})")
+    if not any(k_[0] == "batched_verify" for k_ in masked) or g_drafted <= 0:
+        raise AssertionError(f"constrain: no masked verify block ({masked}; grammar "
+                             f"proposer drafted {g_drafted})")
+    lost = [n for n in SERVE_PER_DISPATCH if launches.get(n, 0) <= 0]
+    if lost:
+        raise AssertionError(f"constrain: kernels {lost} not launched on the path "
+                             f"({launches})")
+    n_tok = sum(len(o) for o in on + on_s)
+    numbers.update(launches=launches, replays=replays, captures=new,
+                   masked_replays={str(k_): n for k_, n in masked.items()},
+                   tok_s=n_tok / wall, grammar_drafted=g_drafted,
+                   grammar_accepted=g_accepted,
+                   grammar_accept_rate=g_accepted / max(g_drafted, 1),
+                   step_ms={f"T={t} {'masked' if m else 'unmasked'}": v
+                            for (t, m), v in step_ms.items()},
+                   near_ties=notes)
+    log(f"[constrain] {smi}: Llama-2-7B Q40 bf16 fused, 8 slots, superstep {SERVE_K} "
+        f"pipelined, speculative {SPEC_K}; grammars lowered cold against the 32000-piece "
+        f"vocab in {numbers['compile_ms']['json_schema']:.1f} ms (schema, "
+        f"{auts[0].n_states} states) and {numbers['compile_ms']['regex']:.1f} ms (regex, "
+        f"{auts[1].n_states} states)")
+    log(f"[constrain] 2 schema + 2 regex + 4 unconstrained rows x {CONSTRAIN_TOKENS} "
+        f"tokens: every constrained output valid; unconstrained rows identical to the "
+        f"grammar-free batch; constrained greedy rows equal their unconstrained stream "
+        f"up to the first veto; seeded runs repeat; speculation on against off "
+        + ("identical" if not notes else "identical outside " + "; ".join(notes))
+        + f"; 0 degraded; speculating runs {n_tok} tokens in {wall:.2f} s; the grammar "
+        f"proposer drafted {g_drafted:.0f} tokens, accepted {g_accepted:.0f} "
+        f"({numbers['grammar_accept_rate']:.3f}); masked graph replays "
+        f"{json.dumps(numbers['masked_replays'])}; launches on the path "
+        f"{json.dumps(launches)} ({replays} replays, {new} captures)")
+    log(f"[constrain] ms per batched step, 8 rows, window 256 (CUDA events over graph "
+        f"replays), unmasked -> masked: " + ", ".join(
+            f"T={t} {step_ms[(t, False)]:.3f} -> {step_ms[(t, True)]:.3f} "
+            f"({step_ms[(t, True)] / step_ms[(t, False)]:.3f}x)" for t in (1, *SPEC_BUCKETS)))
+    log("[constrain] numbers: " + json.dumps(numbers, default=float))
+
+
+# ------------------------------------------------------------------ the model drafter
+
+DRAFT_PROMPTS = (40, 72, 33, 96, 57, 25, 80, 48)
+DRAFT_TOKENS = 48
+
+
+def _tinyllama():
+    """TinyLlama-1.1B's shape (bench.py's tinyllama_1_1b): Llama-2's 32000 vocab."""
+    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
+
+    return ModelSpec(arch_type=ArchType.LLAMA, dim=2048, hidden_dim=5632, n_layers=22,
+                     n_heads=32, n_kv_heads=4, vocab_size=32000, seq_len=2048).resolved()
+
+
+def _draft_engine(params, draft_model):
+    """The 8-slot fused serving engine (superstep 8 pipelined, speculative 8) with a
+    model drafter; its graphs and the drafter's counted (`counting_graphs`)."""
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    be = BatchEngine(_llama2_7b(), params, slots=8, device="cuda", fused_matmul=True,
+                     kv_block_tokens=16, superstep=SERVE_K, prefix_cache=False,
+                     speculative=SPEC_K, draft_model=draft_model)
+    if be.drafter is None:
+        raise AssertionError("draft: the drafter did not load")
+    dev = be.engine.device
+    be.engine.graphs = counting_graphs(dev, _serve_counters())
+    be.drafter.graphs = counting_graphs(dev, _serve_counters())
+    assert be.drafter.use_kernels == "fused" and be.drafter.graphs.enabled
+    return be
+
+
+def _draft_run(be, prompts, seeded: bool):
+    """The 8 requests admitted in one pass; odd rows seeded when `seeded`."""
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+
+    v = be.spec.vocab_size
+    smps = [Sampler(v, 0.8, 0.9, 500 + i) if seeded and i % 2 else _CheckedSampler(v)
+            for i in range(len(prompts))]
+    with be._slock:
+        reqs = [be.submit(list(p), DRAFT_TOKENS, s) for p, s in zip(prompts, smps)]
+    outs = [r.wait(timeout=600) for r in reqs]
+    be.release_idle()
+    return outs, reqs
+
+
+def _draft_scan_ms(be) -> dict:
+    """Device ms of one drafter scan step, 8 rows, at each scan length the run used, by
+    CUDA events over graph replays (rows at positions 200-221: window 256)."""
+    dr = be.drafter
+    out = {}
+    starts = np.array([200 + 3 * i for i in range(8)])
+    with be._slock:
+        for steps in sorted({s for s, _w in dr._loops}):
+            loop = dr._loop(steps, dr._window_for(int(starts.max()) + steps))
+            catchup = np.full((8, steps), 5)
+            out[steps] = event_ms(lambda i: loop(dr.rope, catchup, dr.k_cache, dr.v_cache,
+                                                 starts, [1] * 8, [steps] * 8), 10) / steps
+    return out
+
+
+def _self_draft(state: dict, spec, params, prompts) -> dict:
+    """Self-draft: the target drafting for itself on its own weights (no copy). Every
+    greedy verify turn accepts every draft, unless its first rejected draft and the
+    target's token are a near-tie of the f64 witness (the drafter's dense scan and the
+    target's paged verify run the same weights at other shapes)."""
+    be = _draft_engine(params, (spec, params))
+    eng = be.engine
+    try:
+        shared = all(be.drafter.params["blocks"][n].data.data_ptr()
+                     == eng.params["blocks"][n].data.data_ptr() for n in ("wqkv", "w1"))
+        if not shared:
+            raise AssertionError("draft: the self-drafter copied the target's weights")
+        drafts: dict = {}
+        orig = be.proposer.propose_batch
+
+        def spy(want):
+            out = orig(want)
+            for r, d in out.items():
+                req = be._slots[r].req
+                drafts[(req.rid, len(req.out))] = (be.proposer.last_src[r], list(d))
+            return out
+        be.proposer.propose_batch = spy
+        hits0 = _metric_sum("batch_draft_frontier_hits_total")
+        outs, reqs = _draft_run(be, prompts[:4], False)
+        turns = rejected = 0
+        notes = []
+        for i, r in enumerate(reqs):
+            for n_out, nd, acc in r.stats.spec_turns:
+                src, d = drafts.get((r.rid, n_out), ("?", []))
+                if src != "model":
+                    continue
+                turns += 1
+                if acc < nd:
+                    rejected += 1
+                    a, b = d[acc], outs[i][n_out + acc]
+                    gap, tol = _witness(state, spec, params,
+                                        list(prompts[i]) + outs[i][:n_out + acc], a, b)
+                    if gap >= tol:
+                        raise AssertionError(f"draft: self-draft request {i} rejected draft "
+                                             f"{a} for {b} at output {n_out + acc}, "
+                                             f"{gap:.3e} apart (bound {tol:.3e})")
+                    notes.append(f"request {i} output {n_out + acc}: {a} vs {b}, f64 "
+                                 f"witness {gap:.2e} < {tol:.2e}")
+        if turns < 3:
+            raise AssertionError(f"draft: only {turns} self-draft turns")
+        return dict(turns=turns, rejected_turns=rejected, near_ties=notes,
+                    drafted=be.spec_drafted, accepted=be.spec_accepted,
+                    frontier_hits=_metric_sum("batch_draft_frontier_hits_total") - hits0)
+    finally:
+        be.close()
+        state.pop("prefix_witness", None)
+
+
+def phase_draft(state: dict) -> None:
+    """The model drafter at Llama-2-7B on the serve weights (8 slots, superstep 8
+    pipelined, speculative 8) with a TinyLlama-1.1B-shaped drafter (random Q40 drawn on
+    the card): tokens against speculation off (greedy under the near-tie rule `_held`,
+    each seeded run held exactly at its own dispatch shapes, `_seeded_pair`), the
+    drafter live (no
+    proposer error, not disabled), the kernels launched on the path (the target's and
+    the drafter's graphs counted); the drafter's scan ms per bucket against its byte
+    floor, drafted and accepted counts, frontier hits, and the serving period with the
+    drafter against n-gram drafting. Then the self-draft."""
+    from distributed_llama_tpu_torch.models.params import decode_stream_bytes
+
+    spec = _llama2_7b()
+    params = _take_serve_params(state, "draft")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    dspec = _tinyllama()
+    dparams = _random_i4p_params(dspec, torch.device("cuda"), seed=29, gate_pair=True)
+    gen = torch.Generator().manual_seed(41)
+    prompts = [[1] + torch.randint(3, spec.vocab_size, (n - 1,), generator=gen).tolist()
+               for n in DRAFT_PROMPTS]
+    numbers: dict = {"card": smi}
+    tap = _SampleTap(spec.vocab_size).__enter__()  # before any graph is captured
+    be = _draft_engine(params, (dspec, dparams))
+    eng, dr = be.engine, be.drafter
+    try:
+        dbytes = decode_stream_bytes(dr.params, dspec)
+        kv_bytes = 2 * dr.k_cache.numel() * dr.k_cache.element_size()
+        k = be.spec_k
+        be.spec_k = 0
+        off, _ = _draft_run(be, prompts, False)
+        tap.take()
+        off_s, _ = _draft_run(be, prompts, True)
+        rec_off = tap.take()
+        be.spec_k = k
+        counters = _serve_counters()
+        _zero(counters)
+        snap = graph_snapshot(counters, eng.graphs)
+        dsnap = graph_snapshot(counters, dr.graphs)
+        d0 = (dr.dispatches, _metric_sum("batch_draft_frontier_hits_total"),
+              be.spec_drafted, be.spec_accepted)
+        model0 = (_metric_sum("batch_spec_proposer_drafted_total", "model"),
+                  _metric_sum("batch_spec_proposer_accepted_total", "model"))
+        t0 = time.perf_counter()
+        on, _ = _draft_run(be, prompts, False)
+        wall_model = time.perf_counter() - t0
+        tap.take()
+        on_s, _ = _draft_run(be, prompts, True)
+        rec_on = tap.take()
+        launches, replays, new = run_launches(counters, eng.graphs, snap,
+                                              more=((dr.graphs, dsnap),))
+        d_launches = {n: sum(c * (dr.graphs.replays_of(key) - dsnap[1].get(key, 0))
+                             for key in dr.graphs.keys()
+                             for n2, c in dr.graphs.per_step[key].items() if n2 == n)
+                      for n in counters}
+        model = (_metric_sum("batch_spec_proposer_drafted_total", "model") - model0[0],
+                 _metric_sum("batch_spec_proposer_accepted_total", "model") - model0[1])
+        runs = dict(dispatches=dr.dispatches - d0[0],
+                    frontier_hits=_metric_sum("batch_draft_frontier_hits_total") - d0[1],
+                    drafted=be.spec_drafted - d0[2], accepted=be.spec_accepted - d0[3])
+        desc = be.proposer.describe()
+        if desc["disabled"] or desc["errors"] or be.drafter is None:
+            raise AssertionError(f"draft: the drafter is not live ({desc})")
+        # the serving period with n-gram drafting alone (the mux skips a disabled drafter)
+        be.proposer.disabled = True
+        t0 = time.perf_counter()
+        ngram, _ = _draft_run(be, prompts, False)
+        wall_ngram = time.perf_counter() - t0
+        be.proposer.disabled = False
+        scan_ms = _draft_scan_ms(be)
+    finally:
+        be.close()
+        tap.__exit__()
+    del be, dr, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    notes = [n for i in range(8) if (n := _held(state, spec, params, f"draft request {i}",
+                                                 prompts[i], on[i], off[i]))]
+    notes += [n for i in range(8) if (n := _held(state, spec, params,
+                                                 f"draft n-gram run request {i}",
+                                                 prompts[i], ngram[i], off[i]))]
+    for i in range(8):
+        tag = f"draft seeded-run request {i}"
+        n = (_seeded_pair(state, spec, params, tag, prompts[i], on_s[i], off_s[i],
+                          500 + i, (rec_on, rec_off)) if i % 2
+             else _held(state, spec, params, tag, prompts[i], on_s[i], off_s[i]))
+        if n:
+            notes.append(n)
+    del tap, rec_on, rec_off
+    state.pop("prefix_witness", None)
+    state.pop("tie_engine", None)
+    lost = [n for n in SERVE_PER_DISPATCH if launches.get(n, 0) <= 0]
+    d_lost = [n for n in ("q4_matmul", "q4_matmul_res", "q4_gated_matmul")
+              if d_launches.get(n, 0) <= 0]
+    if lost or d_lost or runs["dispatches"] <= 0:
+        raise AssertionError(f"draft: kernels not launched on the path: target {lost}, "
+                             f"drafter {d_lost} ({launches}; drafter {d_launches}; "
+                             f"{runs['dispatches']} scans)")
+    rate = mem_rate(torch.cuda.get_device_name(0))
+    floor_ms = dbytes / rate * 1e3
+    n_tok = 8 * DRAFT_TOKENS
+    numbers.update(drafter=dict(weights_gb=dbytes / 1e9, kv_gb=kv_bytes / 1e9,
+                                step_floor_ms=floor_ms),
+                   launches=launches, drafter_launches=d_launches, replays=replays,
+                   captures=new, run=runs, model_drafted=model[0], model_accepted=model[1],
+                   accept_rate=runs["accepted"] / max(runs["drafted"], 1),
+                   scan_step_ms=scan_ms,
+                   period_ms=dict(drafter=wall_model / n_tok * 1e3,
+                                  ngram=wall_ngram / n_tok * 1e3),
+                   near_ties=notes)
+    numbers["self_draft"] = _self_draft(state, spec, params, prompts)
+    log(f"[draft] {smi}: Llama-2-7B Q40 bf16 fused target, 8 slots, superstep {SERVE_K} "
+        f"pipelined, speculative {SPEC_K}; TinyLlama-1.1B-shaped drafter (random Q40 "
+        f"{dbytes / 1e9:.3f} GB, dense KV {kv_bytes / 1e9:.3f} GB, step floor "
+        f"{floor_ms:.3f} ms at {rate / 1e12:.2f} TB/s)")
+    log(f"[draft] tokens against speculation off "
+        + ("identical" if not notes else "identical outside " + "; ".join(notes))
+        + f" (greedy and seeded); drafter live, 0 proposer errors; {runs['dispatches']} "
+        f"scans, drafted {runs['drafted']}, accepted {runs['accepted']} "
+        f"({numbers['accept_rate']:.3f}), model-drafted {model[0]:.0f}, accepted "
+        f"{model[1]:.0f}; frontier hits {runs['frontier_hits']:.0f}; scan ms per step by "
+        f"length (CUDA events) {json.dumps({s: round(v, 4) for s, v in scan_ms.items()})}"
+        f"; serving period "
+        f"{numbers['period_ms']['drafter']:.3f} ms/token with the drafter, "
+        f"{numbers['period_ms']['ngram']:.3f} with n-gram drafting; launches on the path "
+        f"(target and drafter) {json.dumps(launches)}, of them in the drafter's scan "
+        f"graphs {json.dumps(d_launches)}")
+    sd = numbers["self_draft"]
+    log(f"[draft] self-draft (the 7B target drafting for itself, no copy of its "
+        f"weights): {sd['turns']} model-drafted greedy turns, {sd['rejected_turns']} with "
+        f"a rejected draft" + (f" (near-ties: {'; '.join(sd['near_ties'])})"
+                               if sd["near_ties"] else "")
+        + f"; drafted {sd['drafted']}, accepted {sd['accepted']}, frontier hits "
+        f"{sd['frontier_hits']:.0f}")
+    log("[draft] numbers: " + json.dumps(numbers, default=float))
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -18,6 +18,11 @@ get them from the prefix cache. `--no-prefix-cache` turns the cache off in both 
 `--speculative K` drafts up to K tokens per request from its own context and verifies
 them in one step: in the BatchEngine's batched verify (greedy and seeded sampling alike)
 at `--batch N`, through the Engine's greedy-only generate_speculative at `--batch 1`.
+`--draft-model PATH` (`--batch N` only; implies `--speculative 8` when K is unset) adds
+a second, small model that drafts for every row (`--draft-k` caps its draft length),
+n-gram lookup staying the per-row fallback. A request's `response_format` (`json_schema`,
+`regex`, `grammar` or `text`; `--batch N` only) constrains its output to the grammar,
+compiled at the edge against the served vocab: a malformed grammar is a 400.
 
 Request control and recovery (resilience/): typed errors map to honest statuses (503
 with Retry-After when `--max-queue` sheds, 503 `server_wedged` for a request the
@@ -61,6 +66,7 @@ import hashlib
 import json
 import os
 import queue
+import sys
 import threading
 import time
 import uuid
@@ -196,6 +202,9 @@ class ApiState:
         tok = (batch_engine or engine).tokenizer
         self.template = ChatTemplate(template_type, tok.chat_template, tok.eos_piece())
         self.default_sampler = default_sampler
+        # constrained decoding: the per-token byte pieces grammars compile against,
+        # resolved at the first response_format request
+        self.constrain_vocab: list[bytes] | None = None
         self.model_name = "distributed-llama-tpu"
 
 
@@ -268,6 +277,10 @@ def _stats_payload(state: ApiState) -> dict:
         spec_block = be.spec_stats()
         if spec_block is not None:
             out["speculative"] = spec_block
+        # constrained decoding: the edge's compile cache and the engine's table
+        from ..constrain import compile_stats
+
+        out["constrain"] = dict(be.constrain_stats(), compile=compile_stats())
     elif state.engine is not None:
         eng = state.engine
         out["engine"] = {"pos": eng.pos, "seq_len": eng.spec.seq_len,
@@ -359,6 +372,59 @@ def _parse_resume(body: dict, spec) -> list[int]:
     return list(toks)
 
 
+def _parse_response_format(state: ApiState, body: dict, runner):
+    """Validate and compile `response_format` at the edge, before any queue work, so a
+    malformed or unsupported grammar is a 400 invalid_request_error, never a stalled
+    slot. Returns (TokenAutomaton, grammar hash) or (None, "").
+
+    Accepted forms (the grammar under its own key; OpenAI's `{"json_schema": {"schema":
+    {...}}}` nesting is honored too):
+
+      {"type": "json_schema", "json_schema": {...}}
+      {"type": "regex",       "regex": "..."}
+      {"type": "grammar",     "grammar": "root ::= ..."}
+      {"type": "text"}   (no constraint)
+
+    Compiles are LRU-cached by grammar hash (constrain/compiler.py)."""
+    rf = body.get("response_format")
+    if rf is None:
+        return None, ""
+    if not isinstance(rf, dict) or not isinstance(rf.get("type"), str):
+        raise InvalidRequest("'response_format' must be an object with a string 'type' "
+                             "(json_schema | regex | grammar | text)")
+    kind = rf["type"]
+    if kind == "text":
+        return None, ""
+    if kind not in ("json_schema", "regex", "grammar"):
+        raise InvalidRequest(f"unsupported response_format type {kind!r} "
+                             "(want json_schema | regex | grammar | text)")
+    if state.batch_engine is None:
+        raise InvalidRequest("response_format requires the batched engine (--batch >= 2); "
+                             "this server runs the sequential engine")
+    tok = runner.tokenizer
+    if tok is None:
+        raise InvalidRequest("response_format requires a tokenizer (token-level grammar "
+                             "masks are compiled against the served vocab)")
+    source = rf.get(kind)
+    if kind == "json_schema" and isinstance(source, dict) and "schema" in source:
+        source = source["schema"]  # OpenAI response_format nesting
+    if source is None:
+        raise InvalidRequest(f"response_format type {kind!r} needs the grammar under the "
+                             f"{kind!r} key")
+    from ..constrain import CompileError, compile_grammar, vocab_bytes
+
+    if state.constrain_vocab is None:
+        state.constrain_vocab = vocab_bytes(tok)
+    eos = getattr(tok, "chat_eos_id", None) or tok.eos_id
+    try:
+        aut, ghash = compile_grammar(kind, source, state.constrain_vocab, eos)
+    except CompileError as e:
+        raise InvalidRequest(f"invalid response_format: {e}") from None
+    flight.event(None, "constrain_compiled", kind=kind, grammar=ghash,
+                 states=aut.n_states)
+    return aut, ghash
+
+
 def run_completion(state: ApiState, body: dict, emit, *, journal=None,
                    deadline_s: float | None = None):
     """Shared completion core. `emit(text_delta)` streams; returns (text, finish).
@@ -374,7 +440,8 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     Raises typed errors before any generation work, for the HTTP layer to map:
     InvalidRequest (400) for a prompt at or past the context, a bad max_tokens, a
     malformed resume or an unknown class; EngineDraining (503) while draining;
-    QuotaExceeded (429) for an exhausted tenant; the engine's own at submit."""
+    QuotaExceeded (429) for an exhausted tenant; the engine's own at submit. A
+    response_format compiles here too (a malformed grammar is InvalidRequest)."""
     faults.fire("api.request", replica=state.replica_id)
     if state.draining:
         raise EngineDraining("server is draining (shutting down)")
@@ -417,6 +484,8 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     if isinstance(mt_raw, bool) or not isinstance(mt_raw, int) or mt_raw < 0:
         raise InvalidRequest(
             f"'max_tokens' must be a non-negative integer, got {mt_raw!r}")
+    # the grammar compiles at the edge: the engine gets a ready automaton
+    constraint, constraint_hash = _parse_response_format(state, body, runner)
     imported = 0
     ks = body.get("kv_source")
     if isinstance(ks, dict) and state.batch_engine is not None:
@@ -500,7 +569,9 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
                                             on_token=on_token,
                                             stop_check=streamer.stop_check,
                                             deadline=eff_deadline or None,
-                                            resume_tokens=len(resume), klass=klass)
+                                            resume_tokens=len(resume), klass=klass,
+                                            constraint=constraint,
+                                            constraint_hash=constraint_hash)
             # the sentinel closes the drain loop once the request completes (the puts
             # happen-before done.set(), so everything queued is drained first)
             threading.Thread(target=lambda: (req.done.wait(), deltas.put(None)),
@@ -1158,6 +1229,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "1 verifies every row's block in one batched dispatch (greedy and "
                         "seeded sampling, token-identical either way), --batch 1 speeds up "
                         "greedy requests only")
+    p.add_argument("--draft-model", default=None, metavar="PATH",
+                   help="--batch > 1: model-based drafting — a second, small model (a .m "
+                        "file of the same vocab) beside the target drafts k tokens per "
+                        "row in one scan dispatch; n-gram lookup stays the per-row "
+                        "fallback. Implies --speculative 8 when K is unset")
+    p.add_argument("--draft-k", type=int, default=0, metavar="K",
+                   help="cap the model drafter's draft length per row (default: the "
+                        "--speculative K)")
+    p.add_argument("--prefill-kernel", action="store_true",
+                   help="--batch 1: run prefill chunks through the q4 dequant-matmul "
+                        "kernel (--batch > 1 always does, through the fused rung)")
     p.add_argument("--max-queue", type=int, default=0, metavar="N",
                    help="--batch > 1: refuse new requests with 503 + Retry-After once N "
                         "wait for a slot (0 = unbounded)")
@@ -1254,6 +1336,7 @@ def engine_kwargs(args) -> dict:
                 dtype=(None if args.dtype == "auto"
                        else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
                 use_kernels=False if args.no_kernels else None,
+                prefill_kernel=args.prefill_kernel,
                 fused_matmul=args.fused_matmul or args.batch > 1,
                 fused_prologue=args.prologue)
 
@@ -1280,7 +1363,13 @@ def build_server(args) -> ThreadingHTTPServer:
         batch_engine = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
                                         superstep=max(args.superstep, 1),
                                         pipeline=args.pipeline, paged_kv=not args.no_paged_kv,
-                                        speculative=args.speculative,
+                                        # the drafter needs the verify path: --draft-model
+                                        # without --speculative takes the default width
+                                        speculative=(args.speculative or (
+                                            (args.draft_k or 8) if args.draft_model
+                                            else 0)),
+                                        draft_model=args.draft_model,
+                                        draft_k=args.draft_k,
                                         kv_block_tokens=args.kv_block_tokens,
                                         kv_pool_blocks=args.kv_pool_blocks,
                                         max_queue=args.max_queue,
@@ -1298,10 +1387,15 @@ def build_server(args) -> ThreadingHTTPServer:
               f"super-step K={batch_engine.superstep}, pipelined decode "
               f"{'on' if batch_engine.pipeline else 'off'}"
               + (f", speculative k={batch_engine.spec_k}" if batch_engine.spec_k else "")
+              + (" (model drafter co-resident)" if batch_engine.drafter is not None
+                 else "")
               + f" (device="
               f"{batch_engine.engine.device}, kernels={batch_engine.engine.use_kernels}, "
               f"CUDA graphs={batch_engine.engine.cuda_graph})")
     else:
+        if args.draft_model:
+            print("⚠️  --draft-model needs the batched verify path: add --batch N (N > 1). "
+                  "Serving WITHOUT model-based drafting.", file=sys.stderr)
         engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw)
         spec = engine.spec
         print(f"⏩ Serving one sequence at a time (device={engine.device}, "

@@ -77,6 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "context n-gram matches and verify them in one step "
                         "(runtime/speculative.py); greedy only (temperature 0), a sampled "
                         "run falls back to the loop it would take without it")
+    p.add_argument("--draft-model", default=None, metavar="PATH",
+                   help="model-based drafting (api_server --batch > 1 only): load a "
+                        "second, small model from PATH (a .m file of the same vocab) "
+                        "that drafts k tokens per row in one scan dispatch; this "
+                        "single-sequence CLI keeps prompt-lookup drafting")
+    p.add_argument("--draft-k", type=int, default=0, metavar="K",
+                   help="cap the model drafter's draft length per row (default: the "
+                        "--speculative K)")
     return p
 
 
@@ -271,6 +279,10 @@ def dump_trace(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.draft_model:
+        print("⚠️  --draft-model needs the batched verify path — it is an api_server "
+              "--batch > 1 feature; the sequential CLI keeps prompt-lookup drafting "
+              "(--speculative).", file=sys.stderr)
     install_trace(args)
     faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
     install_graceful_stop()  # SIGTERM: stop after the current token

@@ -5,10 +5,12 @@ package's resilience/faults.py, with its metric family and flight-recorder hook.
   `batch.submit`, `batch.dispatch` (kind, attempt), `batch.prefill` (slot, pending),
   `batch.emit` (slot, n_out), `batch.cache_seed` (slot), `batch.verify` (rows, block),
   `engine.dispatch` (t, pos), `engine.reinit`, `device_loop.dispatch` (n_steps),
-  `device_loop.batched_dispatch` (n_steps), `device_loop.verify_dispatch` (block) and
-  `api.request` (replica). Every point fires on the host before the device work it
-  guards, never inside a step a CUDA graph captures (there it would fire only at the
-  capture).
+  `device_loop.batched_dispatch` (n_steps), `device_loop.verify_dispatch` (block),
+  `api.request` (replica), `constrain.compile` (kind), `constrain.mask` (slot: an error
+  degrades that row to unconstrained decoding), `draft.load`, `draft.propose` (rows) and
+  `draft.dispatch` (steps) (an error gives way to n-gram drafting). Every point fires on
+  the host before the device work it guards, never inside a step a CUDA graph captures
+  (there it would fire only at the capture).
 - **FaultSpec** says what happens at a point: raise an error (with a declared
   blast-radius `scope`), raise a TransientDispatchError (the scheduler retries these),
   or sleep (a latency spike). Specs select by point name (fnmatch glob), a context

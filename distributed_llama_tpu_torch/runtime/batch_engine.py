@@ -1,10 +1,11 @@
 """Continuous-batching engine: concurrent sequences share one batched step.
 
-The counterpart of the JAX package's runtime/batch_engine.py without the model drafter:
-the same scheduling decisions, the same host sampling, the same K-step device
-super-steps, pipelined, the same prompt-lookup speculation, the same shared-prefix cache
-and the same tenancy, so a request served here gets the tokens the JAX engine gives it
-in the same configuration.
+The counterpart of the JAX package's runtime/batch_engine.py: the same scheduling
+decisions, the same host sampling, the same K-step device super-steps, pipelined, the
+same speculation (prompt lookup, the grammar's forced chains and the model drafter), the
+same grammar-constrained decoding, the same shared-prefix cache and the same tenancy,
+so a request served here gets the tokens the JAX engine gives it in the same
+configuration.
 
 - B cache "slots", each holding one sequence's KV (a block table into the device pool,
   or a row of dense caches) and host-side state. One scheduler thread owns the device.
@@ -106,9 +107,25 @@ in the same configuration.
   its trace context (by default the caller's bound one, api_server's handler thread);
   the scheduler re-enters each request's context around its work, so its spans carry
   the request's trace id.
-
-What the JAX engine has that this one refuses with NotImplementedError: the model
-drafter.
+- Grammar-constrained decoding (constrain/): `submit(constraint=, constraint_hash=)`
+  binds a compiled TokenAutomaton to the request. At admission its states are rebased
+  into a region of the engine's ConstraintTable (`constrain_states` rows, created at the
+  first constrained admission, its device buffers allocated once and re-uploaded in
+  place, so the captured steps keep reading them); a dispatch with a live constrained
+  row runs the masked build of the super-step or verify (its own graph keys), where each
+  row's GLOBAL state rides the carry and disallowed logits fall to MASK_NEG before the
+  sampler; an all-unconstrained batch keeps the unmasked graphs. The host samples of
+  constrained rows (and the card's device picks) are masked the same way; delivery
+  advances a host mirror of each row's state. A full table, a fault at
+  `constrain.mask` or a delivered token outside the grammar degrades the row to
+  unconstrained decoding (constrain_degraded_total, a flight event), never fails it.
+- The model drafter (draft/): `draft_model=` (a `.m` path, or a (spec, params) pair)
+  loads a second, small model beside the target that drafts up to `draft_k` tokens per
+  row in one scan dispatch. The proposer is a ProposerMux: a row's grammar proposer
+  first (forced chains, certain accepts), then the model drafter, then n-gram lookup. A
+  drafter that fails to load or propose (its own failure: a speculative.DrafterError
+  such as a vocab mismatch, or an injected `draft.*` fault) gives way to n-gram
+  drafting; any other exception, a kernel's or the card's among them, propagates.
 """
 
 from __future__ import annotations
@@ -135,7 +152,8 @@ from ..resilience.tenancy import (CLASSES, DEFAULT_TENANT, DrainRate, TenantRegi
                                   WeightedFairQueue)
 from .engine import PREFILL_CHUNKS, Engine, GenerationStats
 from .sampler import _random_u32, _xorshift_back
-from .speculative import AdaptiveK, NgramProposer, verify_block_bucket
+from .speculative import (AdaptiveK, NgramProposer, ProposerMux, drafter_failure,
+                          verify_block_bucket)
 from .step_graph import copy_to_host, upload
 
 __all__ = ["BatchEngine", "BatchRequest"]
@@ -154,8 +172,7 @@ RETRY_BACKOFF = 0.05
 # so a long-running server does not grow)
 DISPATCH_MS_KEEP = 4096
 
-# Scheduler telemetry: the JAX engine's families, names and meanings (its constrain_*
-# families come with constrained decoding)
+# Scheduler telemetry: the JAX engine's families, names and meanings
 _QUEUE_WAIT = metrics.histogram(
     "batch_queue_wait_seconds",
     "submit() to slot assignment (admission latency incl. queueing)")
@@ -287,6 +304,22 @@ _WEDGE_FAILED = metrics.counter(
     "engine_wedge_failed_requests_total",
     "In-flight/queued requests failed with EngineWedged by a supervisor "
     "recovery (retriable: a durable router resumes them elsewhere)")
+# grammar-constrained decoding: rows with an attached automaton, masked dispatches
+# issued, and rows degraded to unconstrained output (a service condition, never a
+# client-visible failure)
+_CONSTRAIN_ROWS = metrics.gauge(
+    "constrain_rows",
+    "Batch rows currently decoding under an attached grammar automaton")
+_CONSTRAIN_DISPATCHES = metrics.counter(
+    "constrain_masked_dispatches_total",
+    "Batched decode/verify dispatches issued through the masked program "
+    "variants (>= 1 live constrained row in the batch)")
+_CONSTRAIN_DEGRADED = metrics.counter(
+    "constrain_degraded_total",
+    "Constrained rows degraded to unconstrained decoding, by reason "
+    "(capacity = constraint table full, mask = masking fault, "
+    "divergence = delivered token left the grammar)",
+    labelnames=("reason",))
 
 
 class _StaleEpoch(BaseException):
@@ -338,6 +371,11 @@ class BatchRequest:
     # request's work
     rid: str = ""
     ctx: object = None
+    # grammar-constrained decoding: the compiled TokenAutomaton the output must satisfy
+    # (None = unconstrained) and the grammar hash the api edge logged. Compiled at the
+    # edge, so the engine never needs tokenizer bytes
+    constraint: object = None
+    constraint_hash: str = ""
 
     def cancel(self) -> None:
         """Ask the scheduler to stop decoding this request (client went away)."""
@@ -352,6 +390,30 @@ class BatchRequest:
         if self.error is not None:
             raise self.error
         return self.out
+
+
+class _SlotConstraint:
+    """Per-slot grammar state (scheduler-thread-only). `state` is the LOCAL automaton
+    state, the host mirror of the device carry, advanced in _emit per DELIVERED token, so
+    after a full delivery host and device agree exactly (a flushed or partial dispatch
+    uploads from here, as the sampler state does). `offset` rebases local states into the
+    engine's ConstraintTable; `degraded` parks the row on the universal state 0 after a
+    mask fault or a divergence — visible in metrics and the flight record, never to the
+    client."""
+
+    __slots__ = ("automaton", "state", "offset", "ghash", "degraded")
+
+    def __init__(self, automaton, offset: int, ghash: str = ""):
+        self.automaton = automaton
+        self.state = 0
+        self.offset = offset
+        self.ghash = ghash
+        self.degraded = False
+
+    @property
+    def gstate(self) -> int:
+        """The GLOBAL table state uploaded to the device (0 = the universal row)."""
+        return 0 if self.degraded else self.offset + self.state
 
 
 class _Slot:
@@ -383,6 +445,9 @@ class _Slot:
         self.admit_t = 0.0  # monotonic time of the admission (the dispatch watchdog)
         # the request's per-tenant delivery counter, resolved once at admission
         self.tok_counter = None
+        # the grammar handle: attached at admission when the request carries an
+        # automaton, advanced in _emit, released at finish, preemption and recovery
+        self.constraint: _SlotConstraint | None = None
 
 
 class _InflightStep:
@@ -400,10 +465,10 @@ class _InflightStep:
     carry is rewound to each row's frontier on the device."""
 
     __slots__ = ("rows", "k", "starts", "budget", "temps", "fetch", "tok", "pos", "rng",
-                 "t_issue", "kind", "ndraft", "chained")
+                 "t_issue", "kind", "ndraft", "chained", "cstate")
 
     def __init__(self, rows, k, starts, budget, temps, fetch, tok, pos, rng, t_issue,
-                 kind="scan", ndraft=None, chained=False):
+                 kind="scan", ndraft=None, chained=False, cstate=None):
         self.rows = rows  # list[(slot, request)] of the rows with budget > 0
         self.k = k
         self.starts = starts  # each row's expected start position
@@ -417,6 +482,9 @@ class _InflightStep:
         self.kind = kind  # "scan" | "verify"
         self.ndraft = ndraft  # verify: per-row draft counts (-1 = parked)
         self.chained = chained  # issued from a predecessor's device carry
+        # masked dispatch only: device (B,) GLOBAL constraint states after the budgeted
+        # emissions, which a chained masked super-step starts from
+        self.cstate = cstate
 
 
 class BatchEngine:
@@ -429,16 +497,16 @@ class BatchEngine:
                  superstep: int = 1, pipeline: bool = True, prefix_cache=True,
                  prefix_cache_blocks: int = 0, prefix_block_tokens: int = 16,
                  prefix_cache_q80: bool = False, speculative: int = 0,
-                 draft_model=None, tenants=None,
+                 draft_model=None, draft_k: int = 0, constrain_states: int = 512,
+                 tenants=None,
                  slo_ttft_interactive: float = 0.0, slo_ttft_batch: float = 0.0,
                  slo_tpot_interactive: float = 0.0,
                  paged_kv: bool = True, kv_block_tokens: int = 16,
                  kv_pool_blocks: int = 0, max_queue: int = 0, queue_ttl: float = 0.0,
                  **engine_kw):
         from ..cache import PrefixCache
+        from ..constrain import GrammarProposer
 
-        if draft_model is not None:
-            raise NotImplementedError("draft_model is not part of the port yet")
         assert slots >= 1 and superstep >= 1
         self.slots_n = slots
         self.superstep = superstep  # K: decode steps per super-step dispatch
@@ -459,7 +527,6 @@ class BatchEngine:
         self._spec_ema = float(self.spec_k)
         # per-row draft length from each row's accept EMA, in verify-bucket steps
         self.adaptive = AdaptiveK(self.spec_k) if self.spec_k else None
-        self.proposer = NgramProposer()
         self.tokenizer = tokenizer
         kv_pool_cfg = None
         # a shared host PrefixCache instance asks for its copy-in/copy-out semantics:
@@ -474,6 +541,39 @@ class BatchEngine:
             kv_pool_cfg = (max(n_blocks, w + 2), bt)
         self._eng = Engine(spec, params, tokenizer, batch=slots, kv_pool=kv_pool_cfg,
                            **engine_kw)
+        # the model drafter: a second, small model beside the target that drafts up to
+        # draft_k (default spec_k) tokens a row in one scan; n-gram lookup stays the
+        # per-row fallback, and the whole proposer when the drafter does not load (its
+        # own failure, speculative.drafter_failure; anything else propagates)
+        self.drafter = None
+        if draft_model is not None and self.spec_k:
+            try:
+                from ..draft.drafter import ModelDrafter
+
+                eng = self._eng
+                dkw = dict(slots=slots, target_spec=spec, tokenizer=tokenizer,
+                           device=eng.device, dtype=eng.dtype, use_kernels=eng.use_kernels,
+                           k_cap=min(int(draft_k) or self.spec_k, self.spec_k),
+                           cuda_graph=eng.cuda_graph)
+                if isinstance(draft_model, (tuple, list)):
+                    self.drafter = ModelDrafter(draft_model[0], draft_model[1], **dkw)
+                else:
+                    self.drafter = ModelDrafter.load(str(draft_model), **dkw)
+            except Exception as e:
+                if not drafter_failure(e):
+                    raise
+                print(f"⚠️  draft model unavailable ({e!r}) — degrading to n-gram drafting",
+                      file=sys.stderr, flush=True)
+        # grammar-constrained decoding: the ConstraintTable is created at the first
+        # constrained admission (an unconstrained engine never pays its (cap, V) arrays),
+        # and the GrammarProposer rides the mux, so constrained rows draft their forced
+        # chains while co-batched rows keep model or n-gram drafts
+        self.constrain_states = max(int(constrain_states), 2)
+        self.constrain_table = None
+        self.constrain_degraded = 0
+        self.grammar_proposer = GrammarProposer()
+        self.proposer = ProposerMux(NgramProposer(), self.drafter,
+                                    grammar=self.grammar_proposer)
         # the engine's resolution (kwarg or DLT_PROLOGUE), as the JAX engine checks it
         if self._eng.fused_prologue and slots > 1:
             print("⚠️  --prologue is inert with batched decode (the prologue kernels take "
@@ -611,7 +711,8 @@ class BatchEngine:
                stop_check=None, *, deadline: float | None = None,
                ttl: float | None = None, rid: str | None = None, ctx=None,
                resume_tokens: int = 0, tenant: str = "", klass: str = "interactive",
-               export_kv: bool = False) -> BatchRequest:
+               export_kv: bool = False, constraint=None,
+               constraint_hash: str = "") -> BatchRequest:
         """Enqueue a request. `deadline` (seconds) bounds the whole request (queue and
         generation; finish "deadline" with the partial output, DeadlineExceeded before
         the first token); `ttl` bounds the queue wait only (in place of the engine's
@@ -624,8 +725,11 @@ class BatchEngine:
         uninterrupted run would. `tenant` (default: the context's tenant, else the
         default tenant) keys the quota and the fair share; `klass` is "interactive" (strict priority, may preempt batch
         rows) or "batch" (shed and preempted first). `export_kv` snapshots the prompt's
-        full KV blocks into `req.kv_export` before the request completes. Raises
-        InvalidRequest for an unknown class, EngineDraining while draining, EngineClosed
+        full KV blocks into `req.kv_export` before the request completes. `constraint` (a
+        constrain.TokenAutomaton) constrains the output to its grammar, `constraint_hash`
+        names the grammar in the flight record. Raises InvalidRequest for an unknown
+        class or a grammar larger than the constraint table, EngineDraining while
+        draining, EngineClosed
         after close(), QuotaExceeded when the tenant's bucket is empty, EngineSaturated
         when max_queue requests already wait or an SLO target sheds the class."""
         if self._draining and not self._shutdown:
@@ -659,6 +763,18 @@ class BatchEngine:
         req.klass = klass
         req.wfq_cost = cost
         req.export_kv = export_kv
+        if constraint is not None:
+            # an automaton that can never fit the table is the client's error (a 400),
+            # not the runtime capacity condition alloc degrades on
+            if getattr(constraint, "n_states", 0) > self.constrain_states - 1:
+                if self.tenants is not None:
+                    self.tenants.refund(tenant, cost)
+                raise InvalidRequest(
+                    f"grammar too large: {constraint.n_states} automaton states exceed "
+                    f"the engine's constraint table ({self.constrain_states - 1} usable "
+                    "states)")
+            req.constraint = constraint
+            req.constraint_hash = constraint_hash
         if not req.prompt:
             req.prompt = [self.tokenizer.bos_id if self.tokenizer else 1]
         req.resume_tokens = min(max(int(resume_tokens), 0), len(req.prompt))
@@ -797,8 +913,9 @@ class BatchEngine:
 
     def spec_stats(self) -> dict | None:
         """Speculation counters (the JAX engine's /v1/stats block, from the engine's
-        own counters): verify dispatches, drafted and accepted tokens, the proposer and
-        the adaptive controller's per-row k. None when speculation is off."""
+        own counters): verify dispatches, drafted and accepted tokens, the proposer mux
+        (which drafter is live, its errors, whether it is disabled) and the adaptive
+        controller's per-row k. None when speculation is off."""
         if not self.spec_k:
             return None
         out = {"k": self.spec_k, "verify_steps": self.verify_steps,
@@ -806,13 +923,24 @@ class BatchEngine:
                "accepted_tokens": self.spec_accepted,
                "accept_rate": (self.spec_accepted / self.spec_drafted
                                if self.spec_drafted else None),
-               "proposer": self.proposer.name}
+               "proposer": self.proposer.describe()}
         if self.adaptive is not None:
             out["adaptive"] = {"k_cap": self.adaptive.k_cap,
                                "buckets": list(self.adaptive.buckets),
                                "rows": {str(r): v
                                         for r, v in self.adaptive.stats().items()}}
         return out
+
+    def constrain_stats(self) -> dict:
+        """The constrained-decoding block of /v1/stats: rows decoding under a grammar,
+        the table's capacity and use, and degradations (the api layer adds the edge's
+        compile-cache stats)."""
+        tbl = self.constrain_table
+        return {"active_rows": tbl.active_rows if tbl is not None else 0,
+                "table_states": self.constrain_states,
+                "table_used": (sum(n for _off, n in tbl._regions.values())
+                               if tbl is not None else 0),
+                "degraded": self.constrain_degraded}
 
     def release_idle(self) -> int:
         """Drop the rewind stock (block tables and histories) of every idle slot and move
@@ -877,6 +1005,11 @@ class BatchEngine:
             with self._plock:
                 # fresh slot objects: nothing the abandoned thread holds reaches them
                 self._slots = [_Slot(i) for i in range(self.slots_n)]
+                # the constraint table's regions were keyed by the old slots: the whole
+                # table goes (created again at the next constrained admission), and with
+                # it, below, every loop and captured masked step that read it
+                self.constrain_table = None
+                _CONSTRAIN_ROWS.set(0)
             for s in old_slots:
                 if self.prefix_cache is not None and s.lease is not None:
                     self.prefix_cache.release(s.lease)
@@ -907,6 +1040,10 @@ class BatchEngine:
                 faults.fire("engine.reinit")
                 self._loops.clear()
                 self._eng.reset_backend()
+                if self.drafter is not None:
+                    # an abandoned thread may still hold the drafter's steps: its graphs
+                    # and scans go, its caches are zeroed in place, its rows re-prefill
+                    self.drafter.reset_backend()
                 if self.kv_pool is not None:
                     self.kv_pool.reset()
                     if self.prefix_cache is not None:
@@ -1031,6 +1168,7 @@ class BatchEngine:
                 self.adaptive.attach(best.index)
         else:
             self.proposer.detach(best.index)
+        self._attach_constraint(best, req)
         # the per-tenant delivery counter, resolved once so _emit pays no label lookup
         best.tok_counter = _TENANT_TOKENS.labels(
             tenant=self.tenants.canonical(req.tenant) if self.tenants is not None
@@ -1048,6 +1186,121 @@ class BatchEngine:
                      rewind_tokens=rewind, seeded_tokens=reuse - rewind,
                      **({"resume_tokens": req.resume_tokens} if req.resume_tokens else {}))
         return best
+
+    # ------------------------------------------------------------------
+    # grammar constraints
+    # ------------------------------------------------------------------
+
+    def _attach_constraint(self, slot: _Slot, req: BatchRequest) -> None:
+        """Bind the request's automaton to the slot: a region of the constraint table
+        (created here at the first constrained admission, on the engine's device), the
+        tokens the grammar already consumed replayed (a resume prefix, then a preempted
+        request's delivered output), and the handle registered with the GrammarProposer.
+        A full table degrades the row to unconstrained decoding."""
+        slot.constraint = None
+        self.grammar_proposer.detach(slot.index)
+        aut = req.constraint
+        if aut is None:
+            if self.constrain_table is not None:
+                _CONSTRAIN_ROWS.set(self.constrain_table.active_rows)
+            return
+        if self.constrain_table is None:
+            from ..constrain import ConstraintTable
+
+            self.constrain_table = ConstraintTable(self.spec.vocab_size,
+                                                   self.constrain_states,
+                                                   device=self._eng.device)
+        off = self.constrain_table.alloc(slot.index, aut)
+        if off is None:
+            self.constrain_degraded += 1
+            _CONSTRAIN_DEGRADED.labels(reason="capacity").inc()
+            flight.event(req.rid, "constrain_degraded", reason="capacity",
+                         grammar=req.constraint_hash)
+            _CONSTRAIN_ROWS.set(self.constrain_table.active_rows)
+            return
+        sc = _SlotConstraint(aut, off, req.constraint_hash)
+        # a replayed token outside the grammar means the constraint cannot be honored
+        # from here: degrade rather than mask from the wrong state
+        replay = req.prompt[len(req.prompt) - req.resume_tokens:] if req.resume_tokens else []
+        for t in list(replay) + list(req.out):
+            nxt = aut.advance(sc.state, t)
+            if nxt < 0:
+                sc.degraded = True
+                self.constrain_degraded += 1
+                _CONSTRAIN_DEGRADED.labels(reason="divergence").inc()
+                flight.event(req.rid, "constrain_degraded", reason="divergence",
+                             grammar=sc.ghash)
+                break
+            sc.state = nxt
+        slot.constraint = sc
+        self.grammar_proposer.attach_constraint(slot.index, sc)
+        flight.event(req.rid, "constrain_attached", grammar=sc.ghash,
+                     states=aut.n_states, offset=off)
+        _CONSTRAIN_ROWS.set(self.constrain_table.active_rows)
+
+    def _release_constraint(self, slot: _Slot) -> None:
+        """Free the slot's table region (finish, preemption); the proposer side is
+        cleared by ProposerMux.detach at the same call sites."""
+        slot.constraint = None
+        if self.constrain_table is not None:
+            self.constrain_table.free(slot.index)
+            _CONSTRAIN_ROWS.set(self.constrain_table.active_rows)
+
+    def _degrade_constraint(self, slot: _Slot, reason: str) -> None:
+        """Park the row on the universal (unconstrained) state after a masking fault or
+        a grammar divergence: decoding continues without the constraint, and the
+        degradation shows in constrain_degraded_total and the flight record."""
+        sc = slot.constraint
+        if sc is None or sc.degraded:
+            return
+        sc.degraded = True
+        self.constrain_degraded += 1
+        _CONSTRAIN_DEGRADED.labels(reason=reason).inc()
+        if slot.req is not None:
+            flight.event(slot.req.rid, "constrain_degraded", reason=reason,
+                         grammar=sc.ghash)
+
+    def _live_constraint(self, slot: _Slot) -> _SlotConstraint | None:
+        sc = slot.constraint
+        return sc if sc is not None and not sc.degraded else None
+
+    def _mask_row(self, slot: _Slot) -> np.ndarray | None:
+        """The packed allowed bitmask (W,) int32 of a constrained row's current state, or
+        None when the row is unconstrained. The fault point `constrain.mask` fires here;
+        an error degrades the row (None)."""
+        sc = self._live_constraint(slot)
+        if sc is None:
+            return None
+        try:
+            faults.fire("constrain.mask", slot=slot.index)
+        except Exception:
+            self._degrade_constraint(slot, "mask")
+            return None
+        return sc.automaton.mask[sc.state].view(np.int32)
+
+    def _constrained(self, rows) -> bool:
+        """True when a live row of this dispatch decodes under a non-degraded grammar:
+        only then do the masked builds engage, so unconstrained batches never pay the
+        mask gather."""
+        return any(self._live_constraint(s) is not None for s, _req in rows)
+
+    def _cstate_vec(self) -> np.ndarray:
+        """(B,) GLOBAL constraint states from the host mirrors, uploaded when a masked
+        dispatch is not chained (a chained one starts from its predecessor's device
+        carry). Unconstrained rows ride the universal state 0. `constrain.mask` fires
+        here per constrained row: an error degrades that row."""
+        cs = np.zeros(self.slots_n, np.int64)
+        for s in self._slots:
+            sc = s.constraint
+            if sc is None:
+                continue
+            if not sc.degraded:
+                try:
+                    faults.fire("constrain.mask", slot=s.index)
+                except Exception:
+                    self._degrade_constraint(s, "mask")
+            cs[s.index] = sc.gstate
+        return cs
 
     # ------------------------------------------------------------------
     # device-resident paged KV
@@ -1377,7 +1630,8 @@ class BatchEngine:
         in `reads`, (len(reads), vocab), and per read the token the device sampler
         picked from them, or None. On the card each read whose Sampler (`samplers[j]`)
         is stochastic is picked there, all in one call: one coin from each Sampler, as a
-        host sample would draw, and the same sampler the super-steps run."""
+        host sample would draw, and the same sampler the super-steps run; a constrained
+        row's pick is masked by its grammar state, as its host sample would be."""
         picks: list = [None] * len(reads)
 
         def call():
@@ -1385,7 +1639,7 @@ class BatchEngine:
             tables = self._tables_dev if self.kv_pool is not None else None
             # the coins after the launch mark: an attempt is retried only before it,
             # so no coin is drawn twice
-            coins = self._coins(samplers)
+            coins = self._coins(samplers, [self._slots[r] for r, _ in reads])
             out = self._eng.step_rows(tokens_rows, starts, tables, reads, coins)
             if coins is None:
                 return out
@@ -1400,13 +1654,15 @@ class BatchEngine:
         self.dispatches += 1
         return logits, picks
 
-    def _coins(self, samplers) -> tuple | None:
+    def _coins(self, samplers, slots: list) -> tuple | None:
         """The device sampler's inputs for the stochastic reads of a step on the card:
-        (read indices, coins, temperatures, top-ps), each coin drawn from its read's
-        Sampler; None on the CPU, where the host Sampler samples, or with none."""
+        (read indices, coins, temperatures, top-ps, masks), each coin drawn from its
+        read's Sampler; masks is None, or (n, W) int32 packed bitmasks (all ones for an
+        unconstrained read) when a read's row decodes under a grammar. None on the CPU,
+        where the host Sampler samples, or with no stochastic read."""
         if self._eng.device.type != "cuda":
             return None
-        idx, coins, temps, topps = [], [], [], []
+        idx, coins, temps, topps, masks = [], [], [], [], []
         for j, smp in enumerate(samplers):
             temp = float(getattr(smp, "temperature", 0.0))
             if temp == 0.0 or not hasattr(smp, "next_coin"):
@@ -1415,7 +1671,14 @@ class BatchEngine:
             coins.append(smp.next_coin())
             temps.append(temp)
             topps.append(float(smp.topp))
-        return (idx, coins, temps, topps) if idx else None
+            masks.append(self._mask_row(slots[j]))
+        if not idx:
+            return None
+        if all(m is None for m in masks):
+            return idx, coins, temps, topps, None
+        words = (self.spec.vocab_size + 31) // 32
+        full = np.full(words, -1, np.int32)
+        return idx, coins, temps, topps, np.stack([full if m is None else m for m in masks])
 
     def _finish(self, slot: _Slot, finish: str) -> None:
         req = slot.req
@@ -1431,6 +1694,7 @@ class BatchEngine:
         self.proposer.detach(slot.index)
         if self.adaptive is not None:
             self.adaptive.detach(slot.index)
+        self._release_constraint(slot)
         self._drain.note()  # one completion: the Retry-After estimate's rate
         _DRAIN_RATE.set(self._drain.rate())
         _TENANT_REQUESTS.labels(
@@ -1691,6 +1955,9 @@ class BatchEngine:
         self.proposer.detach(slot.index)
         if self.adaptive is not None:
             self.adaptive.detach(slot.index)
+        # the grammar state is not kept: the re-admission replays prompt and delivered
+        # tokens through the automaton (_attach_constraint)
+        self._release_constraint(slot)
         if self.prefix_cache is not None and slot.lease is not None:
             self.prefix_cache.release(slot.lease)
             slot.lease = None
@@ -1830,6 +2097,17 @@ class BatchEngine:
             req.out.append(token)
             # the proposer's corpus follows every delivered token, in order
             self.proposer.push(slot.index, token)
+            sc = self._live_constraint(slot)
+            if sc is not None:
+                # the host mirror of the device constraint carry, exact per delivered
+                # token; a token the grammar disallows can only come off a degraded or
+                # unmasked path: the row goes on unconstrained rather than mask from a
+                # wrong state
+                nxt = sc.automaton.advance(sc.state, token)
+                if nxt < 0:
+                    self._degrade_constraint(slot, "divergence")
+                else:
+                    sc.state = nxt
             if req.stats.generated_tokens == 0:
                 req.first_token_t = time.perf_counter()
             req.stats.generated_tokens += 1
@@ -1867,9 +2145,23 @@ class BatchEngine:
         if req.max_tokens <= 0:  # parity with Engine.generate: zero-token request
             self._finish(slot, "length")
             return False
+        logits = slot.last_logits
+        if slot.picked is None and self._mask_row(slot) is not None:
+            # a constrained row's host sample: the same f32 MASK_NEG as the masked device
+            # steps, so host and device masked picks agree (a device pick was masked on
+            # the card already); a masking fault (in _mask_row) degrades the row
+            from .device_loop import MASK_NEG
+
+            sc = slot.constraint
+            allowed = sc.automaton.mask_bool(sc.state)
+            arr = np.array(logits, dtype=np.float32).reshape(-1)
+            n = min(arr.shape[0], allowed.shape[0])
+            arr[:n][~allowed[:n]] = np.float32(MASK_NEG)
+            arr[n:] = np.float32(MASK_NEG)  # vocab padding: never legal
+            logits = arr
         try:
             token = (slot.picked if slot.picked is not None
-                     else req.sampler.sample(slot.last_logits))
+                     else req.sampler.sample(logits))
             alive = self._emit(slot, token)
         except Exception as e:
             # a broken callback (e.g. client gone mid-stream) fails only this request
@@ -2036,10 +2328,12 @@ class BatchEngine:
     # K-step super-steps, pipelined
     # ------------------------------------------------------------------
 
-    def _batched_loop(self, k: int, mode: str, window: int | None):
+    def _batched_loop(self, k: int, mode: str, window: int | None, masked: bool = False):
         """The K-step batched device loop for this engine, one per (k, mode, window
-        bucket), each step a CUDA graph on the card."""
-        key = (k, mode, window)
+        bucket), each step a CUDA graph on the card. `masked` selects the grammar-
+        constrained build, a loop (and graph) of its own, so unconstrained service keeps
+        the unmasked graphs."""
+        key = (k, mode, window) + (("mask",) if masked else ())
         if key not in self._loops:
             from .device_loop import make_batched_decode_loop
 
@@ -2048,13 +2342,14 @@ class BatchEngine:
                 self.spec, eng.params, k, mode=mode, dtype=eng.dtype,
                 use_kernels=eng.use_kernels, attn_window=window,
                 fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
-                paged_kernel=eng.paged_kernel, graphs=eng.graphs)
+                paged_kernel=eng.paged_kernel, graphs=eng.graphs, masked=masked)
         return self._loops[key]
 
-    def _verify_loop(self, t: int, mode: str, window: int | None):
+    def _verify_loop(self, t: int, mode: str, window: int | None, masked: bool = False):
         """The (B, T=t) draft-verify step for this engine, one per (t, mode, window
-        bucket), a CUDA graph on the card."""
-        key = ("verify", t, mode, window)
+        bucket), a CUDA graph on the card; `masked` selects the grammar-constrained
+        build (its own graph), where a draft the grammar forbids is never accepted."""
+        key = ("verify", t, mode, window) + (("mask",) if masked else ())
         if key not in self._loops:
             from .device_loop import make_batched_verify_loop
 
@@ -2063,7 +2358,7 @@ class BatchEngine:
                 self.spec, eng.params, t, mode=mode, dtype=eng.dtype,
                 use_kernels=eng.use_kernels, attn_window=window,
                 fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
-                paged_kernel=eng.paged_kernel, graphs=eng.graphs)
+                paged_kernel=eng.paged_kernel, graphs=eng.graphs, masked=masked)
         return self._loops[key]
 
     def _verify_block_for(self, t: int) -> int:
@@ -2173,25 +2468,35 @@ class BatchEngine:
             rng[i] = state >> 32, state & 0xFFFFFFFF
         mode = "greedy" if all(x == 0.0 for x in temps) else "sample"
         window = eng._window_for(min(max(starts) + t, self.spec.seq_len))
-        loop = self._verify_loop(t, mode, window)
+        masked = self._constrained(rows)
+        loop = self._verify_loop(t, mode, window, masked)
         if self._gap_t is not None:
             _DISPATCH_GAP.observe(max(time.perf_counter() - self._gap_t, 0.0))
         t_issue = time.perf_counter()
         tables = self._tables_dev if self.kv_pool is not None else None
+        constrain = None
+        if masked:
+            # a verify is never chained from a predecessor, so its constraint states come
+            # from the delivered host mirrors, as its sampler states do; a mask fault in
+            # _cstate_vec parks that row on the universal state, where the masked step
+            # leaves its logits as they are
+            constrain = (self._cstate_vec(), *self.constrain_table.device())
+            _CONSTRAIN_DISPATCHES.inc()
 
         def call():
-            toks, acc, tok, pos, rng_out, _, _ = loop(
-                eng.rope, props, eng.k_cache, eng.v_cache, starts, rng, temps, topps,
-                ndraft, tables, guard=self._before_launch)
-            return copy_to_host(toks, acc), tok, pos, rng_out
+            out = loop(eng.rope, props, eng.k_cache, eng.v_cache, starts, rng, temps,
+                       topps, ndraft, tables, guard=self._before_launch,
+                       constrain=constrain)
+            toks, acc, tok, pos, rng_out = out[:5]
+            return copy_to_host(toks, acc), tok, pos, rng_out, out[7] if masked else None
         with trace.span("batch.verify_issue",
                         {"block": t, "rows": len(rows),
                          "drafted": sum(max(n, 0) for n in ndraft)}):
-            fetch, tok, pos, rng_out = self._dispatched("verify", call)
+            fetch, tok, pos, rng_out, cst = self._dispatched("verify", call)
         _PIPELINE_DEPTH.set(1)
         self.dispatches += 1
         return _InflightStep(rows, t, starts, budget, temps, fetch, tok, pos, rng_out,
-                             t_issue, kind="verify", ndraft=ndraft)
+                             t_issue, kind="verify", ndraft=ndraft, cstate=cst)
 
     def _drafts_ready(self, rows: list) -> bool:
         """Would a verify dispatch have drafts to work with? The accept-aware chain
@@ -2375,7 +2680,8 @@ class BatchEngine:
         mode = "greedy" if all(t == 0.0 for t in temps) else "sample"
         window = eng._window_for(min(max(st + max(b, 1) for st, b in zip(starts, budget)),
                                      self.spec.seq_len))
-        loop = self._batched_loop(k, mode, window)
+        masked = self._constrained(rows)
+        loop = self._batched_loop(k, mode, window, masked)
         if chain is None:
             tok_in, pos_in, rng_in = tokens, starts, rng
             if self._gap_t is not None:
@@ -2388,22 +2694,33 @@ class BatchEngine:
             _DISPATCH_GAP.observe(0.0)  # chained: the device never went idle
         t_issue = time.perf_counter()
         tables = self._tables_dev if self.kv_pool is not None else None
+        constrain = None
+        if masked:
+            # the constraint carry: a chained dispatch starts from its predecessor's
+            # device states (as from its tokens and samplers), an unchained one from the
+            # host mirrors. A predecessor over the same rows was masked too: the row set
+            # decides, so a chain does not cross from an unmasked build to a masked one
+            cin = (chain.cstate if chain is not None and chain.cstate is not None
+                   else self._cstate_vec())
+            constrain = (cin, *self.constrain_table.device())
+            _CONSTRAIN_DISPATCHES.inc()
 
         def call():
-            toks, tok, pos, rng_out, _, _ = loop(
-                eng.rope, tok_in, eng.k_cache, eng.v_cache, pos_in, rng_in, temps, topps,
-                budget, tables, guard=self._before_launch)
-            return copy_to_host(toks), tok, pos, rng_out
+            out = loop(eng.rope, tok_in, eng.k_cache, eng.v_cache, pos_in, rng_in, temps,
+                       topps, budget, tables, guard=self._before_launch,
+                       constrain=constrain)
+            toks, tok, pos, rng_out = out[:4]
+            return copy_to_host(toks), tok, pos, rng_out, out[6] if masked else None
         # the issue returns once the graph replays are queued; the wait for the block
         # and its delivery are the batch.super_step span
         with trace.span("batch.super_step_issue",
                         {"k": k, "rows": len(rows), "chained": chain is not None}):
-            fetch, tok, pos, rng_out = self._dispatched("super_step", call)
+            fetch, tok, pos, rng_out, cst = self._dispatched("super_step", call)
         _PIPELINE_DEPTH.set(2 if chain is not None else 1)
         self.dispatches += 1
         self.loop_steps += k
         return _InflightStep(rows, k, starts, budget, temps, fetch, tok, pos, rng_out,
-                             t_issue, chained=chain is not None)
+                             t_issue, chained=chain is not None, cstate=cst)
 
     def _deliver_super_step(self, fl: _InflightStep) -> dict[int, str]:
         """Wait for an issued super-step's (K, B) block (or a verify's (T, B) targets

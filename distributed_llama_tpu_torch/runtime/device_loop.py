@@ -11,7 +11,11 @@ Two loops and one verify step: make_decode_loop (one sequence, the `--device-loo
 path and Engine.generate_chunked), make_batched_decode_loop (per-row positions, budgets
 and sampler state: the BatchEngine's K-step super-step) and make_batched_verify_loop
 (one (B, T) forward over each row's speculative draft block, acceptance on the device:
-the BatchEngine's verify dispatch). The batched loop and the verify step sample with
+the BatchEngine's verify dispatch). The two batched builds take `masked=True` for
+grammar-constrained decoding (constrain/): each row's automaton state rides the carry,
+the row's packed bitmask is gathered from the device constraint table and disallowed
+logits are lowered to MASK_NEG before the sampler (_apply_token_mask); the unmasked
+builds are unchanged. The batched loop and the verify step sample with
 the host Sampler's own xorshift* generator, bit-exact with runtime/sampler._random_u32,
 so a request's sample stream stays one sequence across host- and device-sampled
 tokens. The
@@ -37,6 +41,24 @@ from ..resilience import faults
 from .step_graph import StepGraphs, upload
 
 M32 = 0xFFFFFFFF
+
+# disallowed-logit fill for grammar masking (constrain/): finite so the softmax shift
+# never meets inf - inf, large enough that exp underflows to 0 exactly. The host mask
+# path (batch_engine._advance_row) uses the same constant, in f32, so host and device
+# masked picks agree
+MASK_NEG = -1e30
+
+
+def _apply_token_mask(rows: torch.Tensor, mrow: torch.Tensor) -> torch.Tensor:
+    """Lower disallowed logits: `mrow` is the packed allowed bitmask gathered per row
+    (..., W) int32 from the constraint table; bit v & 31 of word v >> 5 covers token v
+    (an arithmetic shift and `& 1` read the bit whatever the word's sign). Universal
+    rows (all ones) make this the identity, so unconstrained co-batched rows are
+    bit-identical to the unmasked step."""
+    vi = torch.arange(rows.shape[-1], device=rows.device)
+    words = torch.index_select(mrow, -1, vi >> 5)  # (..., V)
+    allowed = ((words >> (vi & 31).to(words.dtype)) & 1).bool()
+    return rows.masked_fill(~allowed, MASK_NEG)
 
 
 # ------------------------------------------------------------------
@@ -255,7 +277,7 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
                              attn_window: int | None = None,
                              fused_prologue: bool = False, kv_block_tokens: int = 0,
                              paged_kernel: bool = False,
-                             graphs: StepGraphs | None = None):
+                             graphs: StepGraphs | None = None, masked: bool = False):
     """Batched K-step super-step: n_steps decode steps for all B cache rows, sampling on
     the device — the serving-path counterpart of make_decode_loop.
 
@@ -284,7 +306,17 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
 
     The fault point `device_loop.batched_dispatch` fires on the host before anything is
     uploaded or replayed; then `guard()`, where given, may still refuse the dispatch by
-    raising (the BatchEngine's epoch check)."""
+    raising (the BatchEngine's epoch check).
+
+    masked=True builds the grammar-constrained variant (constrain/): the per-row GLOBAL
+    automaton state rides the carry, each step gathers the state's packed bitmask row
+    from the device constraint table, lowers disallowed logits to MASK_NEG before the
+    argmax or the sampler, and advances the state through the emitted token. run() then
+    takes constrain=(cstate (B,), mask (S, W) int32, delta (S, V) int32) — cstate host
+    values or a previous masked call's device carry, mask and delta the table's static
+    buffers, which the captured steps read — and appends the final state to its outputs.
+    Rows at state 0 (the universal row) sample as the unmasked build does. Each step of
+    the masked build is its own graph (key suffix "mask")."""
     assert mode in ("greedy", "sample"), mode
     paged = kv_block_tokens > 0
     seq_len = spec.seq_len
@@ -292,7 +324,7 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
 
     def step():
         ints, i = st["ints"], st["step"]
-        tok, pos, hi, lo, budget = ints  # views: rows of one buffer
+        tok, pos, hi, lo, budget = ints[:5]  # views: rows of one buffer
         temp, topp = st["floats"]
         live = i < budget
         step_pos = torch.where(live, pos, pos.clamp(max=seq_len - 1))
@@ -303,6 +335,9 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
                                block_tokens=kv_block_tokens, paged_kernel=paged_kernel,
                                fused_prologue=fused_prologue)
         rows = logits[:, -1].float()  # (B, vocab)
+        if masked:
+            cst = ints[5]
+            rows = _apply_token_mask(rows, st["cmask"][cst])
         if mode == "greedy":
             nxt = rows.argmax(-1)
         else:
@@ -311,31 +346,38 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
             drew = live & (temp != 0)
             hi.copy_(torch.where(drew, nhi, hi))
             lo.copy_(torch.where(drew, nlo, lo))
+        if masked:
+            # advance the automaton through the emitted token (a masked sample is always
+            # an allowed transition)
+            cst.copy_(torch.where(live, st["cdelta"][cst, nxt].long(), cst))
         st["toks"].index_copy_(0, i, nxt[None])
         tok.copy_(torch.where(live, nxt, tok))
         pos.copy_(torch.where(live, pos + 1, pos))
         i.add_(1)
 
     def run(rope, tokens, kc, vc, start_pos, rng, temperature, topp, budget, tables=None,
-            guard=None):
+            guard=None, constrain=None):
         faults.fire("device_loop.batched_dispatch", n_steps=n_steps)
         if guard is not None:
             guard()  # the caller's last word before anything reaches the stream
         b = len(budget)
+        cstate, cmask, cdelta = constrain if masked else (None, None, None)
         if not st:
             dev = kc.device
-            st.update(rope=rope, kc=kc, vc=vc, tables=tables,
-                      ints=torch.zeros(5, b, dtype=torch.int64, device=dev),
+            st.update(rope=rope, kc=kc, vc=vc, tables=tables, cmask=cmask, cdelta=cdelta,
+                      ints=torch.zeros(6 if masked else 5, b, dtype=torch.int64,
+                                       device=dev),
                       floats=torch.zeros(2, b, dtype=torch.float32, device=dev),
                       step=torch.zeros(1, dtype=torch.int64, device=dev),
                       toks=torch.zeros(n_steps, b, dtype=torch.int64, device=dev))
             ints = st["ints"]
-            st["carry"] = (ints[0], ints[1], ints[2:4].T)
-        elif kc is not st["kc"] or vc is not st["vc"] or tables is not st["tables"]:
-            raise ValueError("a batched decode loop runs on the caches and block table "
-                             "it was built on")
+            st["carry"] = (ints[0], ints[1], ints[2:4].T) + ((ints[5],) if masked else ())
+        elif (kc is not st["kc"] or vc is not st["vc"] or tables is not st["tables"]
+              or cmask is not st["cmask"] or cdelta is not st["cdelta"]):
+            raise ValueError("a batched decode loop runs on the caches, block table and "
+                             "constraint table it was built on")
         ints = st["ints"]
-        for dst, v in zip(st["carry"], (tokens, start_pos, rng)):
+        for dst, v in zip(st["carry"], (tokens, start_pos, rng, cstate)):
             if not isinstance(v, torch.Tensor):  # host state
                 upload(dst, np.asarray(v, np.int64).reshape(dst.shape))
             elif v is not dst:  # another loop's carry: a copy on the device
@@ -345,11 +387,14 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
                                        np.asarray(topp, np.float32)]))
         st["step"].zero_()
         carry = (ints, st["step"])
+        key = ("batched_loop", mode, attn_window, b, n_steps) + (("mask",) if masked else ())
         for _ in range(n_steps):
             if graphs is None:
                 step()
             else:
-                graphs.run(("batched_loop", mode, attn_window, b, n_steps), step, carry)
+                graphs.run(key, step, carry)
+        if masked:
+            return (st["toks"], *st["carry"][:3], kc, vc, st["carry"][3])
         return (st["toks"], *st["carry"], kc, vc)
 
     return run
@@ -360,7 +405,7 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
                              attn_window: int | None = None,
                              fused_prologue: bool = False, kv_block_tokens: int = 0,
                              paged_kernel: bool = False,
-                             graphs: StepGraphs | None = None):
+                             graphs: StepGraphs | None = None, masked: bool = False):
     """Batched draft-verify step: ONE (B, T=block) forward ingests each row's proposal
     block, and acceptance on the device turns it into up to T tokens per row — the
     speculative counterpart of make_batched_decode_loop (the JAX package's
@@ -393,14 +438,22 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
     buffers and the caches, so a capture's warm-up needs no restore; on the card with
     `graphs` enabled it is one CUDA graph per (mode, window bucket, rows, T). The fault
     point `device_loop.verify_dispatch` and then `guard()` run before any upload, as in
-    make_batched_decode_loop."""
+    make_batched_decode_loop.
+
+    masked=True is the grammar-constrained variant (constrain/): the automaton state
+    chain runs along each row's PROPOSAL tokens, so position i's target is sampled under
+    the mask of the state reached after drafts 0 .. i-1 — a draft token the grammar
+    disallows can never be accepted (its position's masked target cannot equal it).
+    run() takes constrain=(cstate, mask, delta) as the masked decode loop does and
+    appends the frontier state: the chain state at the accept boundary advanced through
+    the emitted correction or bonus token. Its graph key ends in "mask"."""
     assert mode in ("greedy", "sample"), mode
     assert block >= 2, "a verify block needs at least one draft position"
     paged = kv_block_tokens > 0
     st: dict = {}
 
     def step():
-        pos, hi, lo, nd = st["ints"]  # views: rows of one buffer
+        pos, hi, lo, nd = st["ints"][:4]  # views: rows of one buffer
         temp, topp = st["floats"]
         props = st["props"]
         b, t = props.shape
@@ -412,6 +465,16 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
                                block_tokens=kv_block_tokens, paged_kernel=paged_kernel,
                                fused_prologue=fused_prologue)
         rows = logits.float()  # (B, T, vocab)
+        if masked:
+            # automaton states along the proposal path: position i is masked by the state
+            # after drafts 0 .. i-1 (chain[i]); the chain equals the emitted path up to and
+            # including the first mismatch, all the scheduler ever delivers
+            cdelta = st["cdelta"]
+            sts = [st["ints"][4]]
+            for i in range(1, t):
+                sts.append(cdelta[sts[-1], props[:, i]].long())
+            chain = torch.stack(sts)  # (T, B)
+            rows = _apply_token_mask(rows, st["cmask"][chain.T])  # (B, T, V)
         if mode == "greedy":
             targets = rows.argmax(-1)  # (B, T)
         else:
@@ -446,9 +509,14 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
             out[3].copy_(torch.where(drew, torch.stack(los).gather(0, acc[None])[0], lo))
         else:
             out[2:4].copy_(st["ints"][1:3])
+        if masked:
+            # the frontier state: `out[0]` was sampled under chain[acc]'s mask, so the
+            # transition is always an allowed one
+            front = chain.gather(0, acc[None])[0]
+            out[4].copy_(torch.where(live, cdelta[front, out[0]].long(), st["ints"][4]))
 
     def run(rope, proposals, kc, vc, start_pos, rng, temperature, topp, ndraft,
-            tables=None, guard=None):
+            tables=None, guard=None, constrain=None):
         faults.fire("device_loop.verify_dispatch", block=block)
         if guard is not None:
             guard()
@@ -456,30 +524,39 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
         b, t = props.shape
         if t != block:
             raise ValueError(f"a verify loop of block {block} got {t} positions")
+        cstate, cmask, cdelta = constrain if masked else (None, None, None)
+        rows = 5 if masked else 4
         if not st:
             dev = kc.device
-            st.update(rope=rope, kc=kc, vc=vc, tables=tables,
+            st.update(rope=rope, kc=kc, vc=vc, tables=tables, cmask=cmask, cdelta=cdelta,
                       props=torch.zeros(b, t, dtype=torch.int64, device=dev),
-                      ints=torch.zeros(4, b, dtype=torch.int64, device=dev),
+                      ints=torch.zeros(rows, b, dtype=torch.int64, device=dev),
                       floats=torch.zeros(2, b, dtype=torch.float32, device=dev),
                       targets=torch.zeros(t, b, dtype=torch.int64, device=dev),
                       acc=torch.zeros(b, dtype=torch.int64, device=dev),
-                      out=torch.zeros(4, b, dtype=torch.int64, device=dev))
+                      out=torch.zeros(rows, b, dtype=torch.int64, device=dev))
             out = st["out"]
-            st["carry"] = (out[0], out[1], out[2:4].T)
-        elif kc is not st["kc"] or vc is not st["vc"] or tables is not st["tables"]:
-            raise ValueError("a batched verify loop runs on the caches and block table "
-                             "it was built on")
+            st["carry"] = (out[0], out[1], out[2:4].T) + ((out[4],) if masked else ())
+        elif (kc is not st["kc"] or vc is not st["vc"] or tables is not st["tables"]
+              or cmask is not st["cmask"] or cdelta is not st["cdelta"]):
+            raise ValueError("a batched verify loop runs on the caches, block table and "
+                             "constraint table it was built on")
         rng = np.asarray(rng, np.int64).reshape(b, 2)
         upload(st["props"], props)
-        upload(st["ints"], np.stack([np.asarray(start_pos, np.int64), rng[:, 0], rng[:, 1],
-                                     np.asarray(ndraft, np.int64)]))
+        ints = [np.asarray(start_pos, np.int64), rng[:, 0], rng[:, 1],
+                np.asarray(ndraft, np.int64)]
+        if masked:
+            ints.append(np.asarray(cstate, np.int64))
+        upload(st["ints"], np.stack(ints))
         upload(st["floats"], np.stack([np.asarray(temperature, np.float32),
                                        np.asarray(topp, np.float32)]))
         if graphs is None:
             step()
         else:
-            graphs.run(("batched_verify", mode, attn_window, b, t), step)
+            graphs.run(("batched_verify", mode, attn_window, b, t)
+                       + (("mask",) if masked else ()), step)
+        if masked:
+            return (st["targets"], st["acc"], *st["carry"][:3], kc, vc, st["carry"][3])
         return (st["targets"], st["acc"], *st["carry"], kc, vc)
 
     return run

@@ -109,6 +109,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def window_bucket(pos_end: int, seq_len: int, minimum: int) -> int | None:
+    """Smallest window bucket (a power of two from `minimum` up) covering cache positions
+    [0, pos_end) of a seq_len cache; None: the whole cache."""
+    if seq_len <= minimum:
+        return None  # tiny contexts: no bucketing
+    w = minimum
+    while w < pos_end:
+        w *= 2
+    return None if w >= seq_len else w
+
+
 class Engine:
     def __init__(self, spec: ModelSpec, params: Params, tokenizer: Tokenizer | None = None,
                  *, device=None, dtype=None, use_kernels: bool | None = None,
@@ -212,13 +223,7 @@ class Engine:
 
     def _window_for(self, pos_end: int) -> int | None:
         """Smallest window bucket covering cache positions [0, pos_end)."""
-        s = self.spec.seq_len
-        if s <= self._WINDOW_MIN:
-            return None  # tiny contexts: no bucketing
-        w = self._WINDOW_MIN
-        while w < pos_end:
-            w *= 2
-        return None if w >= s else w
+        return window_bucket(pos_end, self.spec.seq_len, self._WINDOW_MIN)
 
     def reset(self) -> None:
         self.pos = 0
@@ -349,9 +354,10 @@ class Engine:
         start position starts[b], through the (B, W) int32 block `tables` on this
         engine's device in pool mode. Returns the logits of the (row, position) pairs in
         `reads` as a (len(reads), vocab) array; the host copy is the step's fence. With
-        `coins` = (read indices, coins, temperatures, top-ps) it also samples those
-        reads on this device (device_loop.device_sample_coin, one call) and returns
-        (logits, their tokens)."""
+        `coins` = (read indices, coins, temperatures, top-ps, masks) it also samples
+        those reads on this device (device_loop.device_sample_coin, one call; masks,
+        where not None, are (n, W) int32 packed grammar bitmasks applied first) and
+        returns (logits, their tokens)."""
         tok = torch.from_numpy(np.asarray(tokens_rows, dtype=np.int64)).to(self.device)
         t = tok.shape[1]
         start = torch.from_numpy(np.asarray(starts, dtype=np.int64)).to(self.device)
@@ -368,11 +374,14 @@ class Engine:
         sel = logits[rows, cols]
         if coins is None:
             return sel.cpu().numpy()
-        from .device_loop import device_sample_coin
+        from .device_loop import _apply_token_mask, device_sample_coin
 
-        idx, u, temps, topps = coins
+        idx, u, temps, topps, masks = coins
         vals = torch.tensor([u, temps, topps], dtype=torch.float32).to(self.device)
-        toks = device_sample_coin(sel[idx].float(), vals[0], vals[1], vals[2])
+        rows = sel[idx].float()
+        if masks is not None:
+            rows = _apply_token_mask(rows, torch.from_numpy(masks).to(self.device))
+        toks = device_sample_coin(rows, vals[0], vals[1], vals[2])
         return sel.cpu().numpy(), toks.cpu().tolist()
 
     def prefill(self, tokens: list[int], stats: GenerationStats | None = None) -> np.ndarray:

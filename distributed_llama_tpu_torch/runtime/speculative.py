@@ -1,10 +1,10 @@
 """Prompt-lookup speculative decoding (greedy single sequence; the batched verify).
 
-The port's copy of the JAX package's runtime/speculative.py with its engine-side metric
-families and the `spec.verify` span, without the proposer mux and its families: the
-per-request counts live on GenerationStats (spec_steps, spec_drafted, spec_accepted,
-spec_turns, spec_step_ms), the batched ones on the BatchEngine (verify_steps,
-spec_stats()).
+The port's copy of the JAX package's runtime/speculative.py with its metric families,
+the `spec.verify` span and the proposer mux (ProposerMux: the grammar proposer, the
+model drafter and n-gram lookup per row): the per-request counts live on
+GenerationStats (spec_steps, spec_drafted, spec_accepted, spec_turns, spec_step_ms),
+the batched ones on the BatchEngine (verify_steps, spec_stats()).
 
 A verify step over T = 1 + k tokens streams the weights once for up to k + 1 tokens,
 so on a bandwidth-bound card it costs little more than one decode step. Drafts come
@@ -26,6 +26,7 @@ from __future__ import annotations
 import time
 
 from ..obs import metrics, trace
+from ..resilience.errors import FaultInjected, TransientDispatchError
 
 _DRAFTED = metrics.counter(
     "spec_drafted_tokens_total", "Draft tokens proposed by prompt lookup")
@@ -179,12 +180,13 @@ class NgramIndex:
 # ----------------------------------------------------------------------
 # Proposer protocol (docs/SERVING.md "Model-based drafting")
 # ----------------------------------------------------------------------
-# A proposer supplies per-row draft tokens to the BatchEngine's verify path.
-# The port implements NgramProposer (prompt-lookup, below); the JAX package's
-# model drafter and the mux routing rows between the two are not ported yet. All
-# methods run on the scheduler thread; `row` is the engine slot index.
+# A proposer supplies per-row draft tokens to the BatchEngine's verify path:
+# NgramProposer (prompt lookup, below), constrain.GrammarProposer (forced chains of
+# a row's grammar) and draft.ModelDrafter (a second, small model), routed per row by
+# ProposerMux (below). All methods run on the scheduler thread; `row` is the engine
+# slot index.
 #
-#   name: str                      # "ngram" (spec_stats)
+#   name: str                      # "ngram" | "grammar" | "model" | "mux"
 #   attach(row, tokens)            # bind a row; tokens = prompt ⊕ delivered
 #   detach(row)                    # release the row (finish/preempt/wedge)
 #   push(row, tok)                 # one delivered token (corpus/frontier sync)
@@ -351,6 +353,172 @@ class AdaptiveK:
             snap = dict(self._ema)
         return {row: {"ema": round(ema, 3), "k": self._k_from_ema(ema)}
                 for row, ema in snap.items()}
+
+
+class DrafterError(ValueError):
+    """A failure of the model drafter's own: its file does not load, its vocabulary is
+    not the target's, its bookkeeping is inconsistent. With an injected fault, the only
+    failure ProposerMux and the BatchEngine's drafter load degrade on."""
+
+
+def drafter_failure(e: BaseException) -> bool:
+    """True for the failures the drafter may degrade on: a DrafterError, or a fault
+    injected at one of its points. Everything else (a kernel build error, a kernel
+    wrapper refusing its inputs, a CUDA launch error, a device fault) propagates as on
+    every other path."""
+    return isinstance(e, (DrafterError, FaultInjected, TransientDispatchError))
+
+
+class ProposerMux:
+    """Per-row routing between a model drafter and the n-gram fallback
+    (docs/SERVING.md "Model-based drafting"). The drafter serves every row
+    it can (attached, within its own context window, healthy) in one scan
+    dispatch; remaining rows fall back to prompt lookup. A raising drafter
+    degrades: the failing dispatch's rows fall back to n-gram proposals
+    (the request never sees the failure), and `max_failures` CONSECUTIVE
+    propose failures disable the drafter for the engine's lifetime —
+    n-gram-only from then on, exactly the pre-drafter behavior.
+
+    `grammar` (constrain.GrammarProposer) is consulted FIRST for rows it
+    serves: a grammar-constrained row whose automaton sits on a
+    forced-transition chain drafts that chain — the target's only legal
+    continuation, guaranteed accept, zero drafting compute — while
+    co-batched unconstrained rows in the SAME want dict fall through to
+    the model/ngram routing unchanged.
+
+    Scheduler-thread-only except stats()/describe() (reads of counters and
+    the drafter's own locked stats — torn reads only skew a stats scrape)."""
+
+    name = "mux"
+
+    def __init__(self, ngram: NgramProposer, drafter=None, *,
+                 grammar=None, max_failures: int = 8):
+        self.ngram = ngram
+        self.drafter = drafter
+        self.grammar = grammar
+        self.max_failures = max_failures
+        self.failures = 0  # consecutive; reset on success
+        self.errors = 0  # lifetime (stats)
+        self.disabled = False
+        # which proposer drafted each row's LAST proposal (per-proposer
+        # accept attribution; scheduler-thread-only)
+        self.last_src: dict[int, str] = {}
+
+    def _model_ok(self) -> bool:
+        return self.drafter is not None and not self.disabled
+
+    def attach(self, row: int, tokens: list[int]) -> None:
+        self.ngram.attach(row, tokens)
+        if self.drafter is not None:
+            self.drafter.attach(row, tokens)
+
+    def detach(self, row: int) -> None:
+        self.ngram.detach(row)
+        if self.drafter is not None:
+            self.drafter.detach(row)
+        if self.grammar is not None:
+            self.grammar.detach(row)
+        self.last_src.pop(row, None)
+
+    def push(self, row: int, tok: int) -> None:
+        self.ngram.push(row, tok)
+        if self.drafter is not None:
+            self.drafter.push(row, tok)
+
+    def propose(self, row: int, k: int) -> list[int]:
+        return self.propose_batch({row: k}).get(row, [])
+
+    def propose_batch(self, want: dict[int, int]) -> dict[int, list[int]]:
+        out: dict[int, list[int]] = {}
+        # grammar first: forced-chain drafts are certain accepts, so they
+        # always beat a learned draft for the rows they cover; remaining
+        # (unconstrained / off-chain) rows keep the model/ngram routing
+        if self.grammar is not None:
+            for row, d in self.grammar.propose_batch(want).items():
+                out[row] = d
+                self.last_src[row] = "grammar"
+                _PROPOSED.labels(proposer="grammar").inc(len(d))
+            want = {row: k for row, k in want.items() if row not in out}
+            if not want:
+                return out
+        mout: dict[int, list[int]] = {}
+        if self._model_ok():
+            try:
+                mout = self.drafter.propose_batch(want)
+                self.failures = 0
+            except Exception as e:
+                if not drafter_failure(e):
+                    raise  # the card's and the kernels' faults are not the drafter's
+                # a failing drafter costs only its drafts — every row falls
+                # back to prompt lookup below, the request never notices
+                self.failures += 1
+                self.errors += 1
+                _DRAFT_ERRORS.inc()
+                if self.failures >= self.max_failures and not self.disabled:
+                    self.disabled = True
+                    _DRAFT_DISABLED.set(1)
+                    import sys
+
+                    print(f"🔴 model drafter disabled after "
+                          f"{self.failures} consecutive failures: {e!r} — "
+                          "degrading to n-gram drafting", file=sys.stderr)
+                mout = {}
+        for row, d in mout.items():
+            out[row] = d
+            self.last_src[row] = "model"
+            _PROPOSED.labels(proposer="model").inc(len(d))
+        for row, k in want.items():
+            if row in out:
+                continue
+            d = self.ngram.propose(row, k)
+            if d:
+                out[row] = d
+                self.last_src[row] = "ngram"
+                _PROPOSED.labels(proposer="ngram").inc(len(d))
+        return out
+
+    def observe(self, row: int, accepted: int) -> None:
+        src = self.last_src.get(row)
+        if src is not None and accepted > 0:
+            _PROP_ACCEPTED.labels(proposer=src).inc(accepted)
+        if self.drafter is not None:
+            self.drafter.observe(row, accepted)
+
+    def ready(self, row: int, k: int, min_draft: int) -> bool:
+        if k <= 0:
+            return False
+        if self.grammar is not None and self.grammar.ready(row, k,
+                                                           min_draft):
+            return True  # a forced chain long enough is a certain accept
+        if self._model_ok() and self.drafter.can_serve(row, k):
+            return True  # a model drafts k tokens whenever it can run
+        return self.ngram.ready(row, k, min_draft)
+
+    def describe(self) -> dict:
+        d = self.drafter
+        out = {"model": d is not None, "disabled": self.disabled,
+               "errors": self.errors}
+        if d is not None:
+            out["drafter"] = d.stats()
+        if self.grammar is not None:
+            out["grammar"] = self.grammar.stats()
+        return out
+
+
+_PROPOSED = metrics.counter(
+    "batch_spec_proposer_drafted_total",
+    "Draft tokens fed to batched verify dispatches, by proposer",
+    labelnames=("proposer",))
+_PROP_ACCEPTED = metrics.counter(
+    "batch_spec_proposer_accepted_total",
+    "Accepted draft tokens, by the proposer that drafted them",
+    labelnames=("proposer",))
+_DRAFT_ERRORS = metrics.counter(
+    "batch_draft_errors_total",
+    "Model-drafter propose failures degraded to n-gram drafting")
+_DRAFT_DISABLED = metrics.gauge(
+    "batch_draft_disabled",
+    "1 while the model drafter is disabled after consecutive failures")
 
 
 def generate_speculative(engine, prompt_tokens: list[int], max_tokens: int,

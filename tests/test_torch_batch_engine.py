@@ -186,12 +186,19 @@ def test_release_idle_races_the_scheduler_safely(model_files):
     assert be.release_idle() == be.kv_pool.n_blocks - 1
 
 
-# tenants and the SLO targets are part of the port now: the model drafter stays refused,
-# with them as without them
+# the model drafter is part of the port now: a drafter that does not load degrades to
+# n-gram drafting with a warning, as the JAX engine does, with tenants and the SLO targets
+# as without them; without speculation no drafter is built at all
 @pytest.mark.parametrize("kw", [dict(speculative=1, draft_model="draft.m"),
                                 dict(draft_model="draft.m"),
                                 dict(draft_model="draft.m", tenants=None),
                                 dict(draft_model="draft.m", slo_ttft_interactive=1.0)])
-def test_out_of_slice_arguments_raise(model_files, kw):
-    with pytest.raises(NotImplementedError):
-        BatchEngine.load(*model_files, slots=2, device="cpu", **kw)
+def test_out_of_slice_arguments_raise(model_files, kw, capsys):
+    be = BatchEngine.load(*model_files, slots=2, device="cpu", **kw)
+    try:
+        assert be.drafter is None
+        warned = "degrading to n-gram drafting" in capsys.readouterr().err
+        assert warned == bool(kw.get("speculative"))
+        assert len(be.generate([1, 2, 3], 3, Sampler(V, 0.0))[0]) == 3
+    finally:
+        be.close()

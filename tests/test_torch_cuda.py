@@ -24,7 +24,11 @@ remap and a copy, and the single-slot seed against a fresh prefill, bit for bit.
 recovery test holds recover_wedged to its contract on the card: the pool's storage kept,
 no launch from the abandoned thread, every graph captured again, the same tokens. The
 tenancy and disaggregation tests hold a preempted request and an imported prompt to the
-tokens of their uninterrupted, monolithic runs at the same batch shape, exactly."""
+tokens of their uninterrupted, monolithic runs at the same batch shape, exactly. The
+constrained-decoding tests hold a masked step's graph replay to the eager step bit for
+bit (a grammar attached after the capture included, its table's buffers at the same
+addresses) and a constrained engine's tokens with graphs to those without; the drafter
+test holds the scan's graph replay to the eager scan's drafts, exactly."""
 
 import numpy as np
 import pytest
@@ -1684,3 +1688,194 @@ def test_annotated_span_encloses_its_graph_launch(cuda):
     r = ranges[0]
     assert any(r.time_range.start <= g.time_range.start
                and g.time_range.end <= r.time_range.end for g in launches)
+
+
+# ------------------------------------------------------------------ constraints, drafter
+
+_CONSTRAIN_SCHEMA = {"type": "object", "properties": {
+    "name": {"enum": ["alpha", "beta"]}, "ok": {"type": "boolean"}}}
+
+
+def _grammars(vocab: int):
+    """The schema and the branchy regex of tests/test_constrain.py against chip_smoke's
+    synthetic tokenizer of the card model's vocab size (one token a byte: the schema has
+    forced chains; EOS is 2)."""
+    import chip_smoke
+    from distributed_llama_tpu_torch.constrain import compile_grammar
+
+    pieces, eos = chip_smoke._constrain_vocab(vocab)
+    assert eos == 2
+    return (compile_grammar("json_schema", _CONSTRAIN_SCHEMA, pieces, eos)[0],
+            compile_grammar("regex", "[a-z]{24}", pieces, eos)[0])
+
+
+def _masked_loops(be, mode, masked_window):
+    from distributed_llama_tpu_torch.runtime.device_loop import make_batched_decode_loop
+
+    eng = be.engine
+    return {g: make_batched_decode_loop(
+        be.spec, eng.params, 4, mode=mode, dtype=eng.dtype, use_kernels=eng.use_kernels,
+        attn_window=masked_window, kv_block_tokens=be._kv_bt, paged_kernel=eng.paged_kernel,
+        graphs=eng.graphs if g else None, masked=True) for g in (False, True)}
+
+
+def _allowed_walk(aut, local: int, toks) -> bool:
+    for t in toks:
+        local = aut.advance(local, int(t))
+        if local < 0:
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "sample"])
+def test_constrain_masked_graph_replay_matches_eager(cuda, mode):
+    """The masked K-step loop at 2 layers of Llama-2-7B width (fused, paged, bf16): the
+    captured step replayed from its CUDA graph gives the eager step's tokens, carry and
+    constraint states and writes the same KV bits. Rows 0 and 1 decode under the schema
+    and the branchy regex (their tokens allowed by their grammars), rows 2 and 3 ride the
+    universal state."""
+    from distributed_llama_tpu_torch.constrain import ConstraintTable
+
+    spec, params, p = _prefix_model(cuda)
+    be = BatchEngine(spec, params, slots=4, device="cuda", fused_matmul=True, superstep=4,
+                     prefix_cache=False)
+    eng = be.engine
+    try:
+        auts = _grammars(spec.vocab_size)
+        tbl = ConstraintTable(spec.vocab_size, 512, device=cuda)
+        offs = [tbl.alloc(i, a) for i, a in enumerate(auts)]
+        cmask, cdelta = tbl.device()
+        starts = [40, 17, 63, 5]
+        for sl, st in zip(be._slots, starts):
+            be._paged_ensure(sl, st + 4)
+        tables = be._tables()
+        temps = [0.0, 0.8, 0.02, 0.0] if mode == "sample" else [0.0] * 4
+        rng = np.array([[1, 2], [0x12345678, 0x9ABCDEF0], [7, 99], [0, 0]], np.int64)
+        cstate = [offs[0], offs[1], 0, 0]
+        loops = _masked_loops(be, mode, eng._window_for(80))
+        runs = []
+        for g in (False, True, True):
+            out = loops[g](eng.rope, [p[i] for i in range(4)], eng.k_cache, eng.v_cache,
+                           starts, rng, temps, [0.9] * 4, [4] * 4, tables,
+                           constrain=(cstate, cmask, cdelta))
+            torch.cuda.synchronize()
+            runs.append(([t.cpu().clone() for t in out[:4] + (out[6],)],
+                         eng.k_cache.view(torch.int16).clone().cpu()))
+        for other in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0][0], other[0]))
+            assert torch.equal(runs[0][1], other[1])
+        toks = runs[0][0][0]
+        for r, aut in enumerate(auts):
+            assert _allowed_walk(aut, 0, toks[:, r].tolist()), (r, toks[:, r])
+        key = ("batched_loop", mode, eng._window_for(80), 4, 4, "mask")
+        assert key in eng.graphs.keys() and eng.graphs.replays_of(key) == 8
+    finally:
+        be.close()
+
+
+@pytest.mark.cuda
+def test_constrain_attach_after_capture_reuploads_in_place(cuda):
+    """A masked step captured while the table holds one grammar: a second grammar
+    attached afterwards goes into the same device buffers (their addresses unchanged),
+    and the replayed graph masks the new row by it, equal to an eager step."""
+    from distributed_llama_tpu_torch.constrain import ConstraintTable
+
+    spec, params, p = _prefix_model(cuda)
+    be = BatchEngine(spec, params, slots=2, device="cuda", fused_matmul=True, superstep=4,
+                     prefix_cache=False)
+    eng = be.engine
+    try:
+        schema, branchy = _grammars(spec.vocab_size)
+        tbl = ConstraintTable(spec.vocab_size, 512, device=cuda)
+        off0 = tbl.alloc(0, schema)
+        cmask, cdelta = tbl.device()
+        ptrs = (cmask.data_ptr(), cdelta.data_ptr())
+        starts = [30, 50]
+        for sl, st in zip(be._slots, starts):
+            be._paged_ensure(sl, st + 4)
+        tables = be._tables()
+        rng = np.zeros((2, 2), np.int64)
+        loops = _masked_loops(be, "greedy", None)
+        args = (eng.rope, [p[3], p[9]], eng.k_cache, eng.v_cache, starts, rng, [0.0] * 2,
+                [0.9] * 2, [4, 4], tables)
+        loops[True](*args, constrain=([off0, 0], cmask, cdelta))  # captures
+        captures = eng.graphs.captures
+        off1 = tbl.alloc(1, branchy)
+        m2, d2 = tbl.device()
+        assert m2 is cmask and d2 is cdelta
+        assert (cmask.data_ptr(), cdelta.data_ptr()) == ptrs
+        got = [t.cpu().clone() for t in loops[True](*args, constrain=([off0, off1], cmask,
+                                                                        cdelta))[:4]]
+        want = [t.cpu().clone() for t in loops[False](*args, constrain=([off0, off1], cmask,
+                                                                          cdelta))[:4]]
+        assert eng.graphs.captures == captures
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert _allowed_walk(branchy, 0, got[0][:, 1].tolist())
+        assert _allowed_walk(schema, 0, got[0][:, 0].tolist())
+    finally:
+        be.close()
+
+
+@pytest.mark.cuda
+def test_constrain_batch_engine_graph_matches_eager(cuda):
+    """The fused BatchEngine(speculative=8) at 2 layers of Llama-2-7B width with two
+    constrained rows (the schema greedy, the branchy regex seeded) and two unconstrained
+    ones: with CUDA graphs and without, the same tokens, every constrained output
+    grammar-valid, the masked graphs replayed, nothing degraded."""
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler as S
+
+    spec, params, p = _prefix_model(cuda)
+    auts = _grammars(spec.vocab_size)
+    runs = []
+    for graph in (True, False):
+        be = BatchEngine(spec, params, slots=4, device="cuda", fused_matmul=True,
+                         superstep=4, speculative=8, prefix_cache=False, cuda_graph=graph)
+        try:
+            smps = [S(spec.vocab_size, 0.0), S(spec.vocab_size, 0.8, 0.9, 5),
+                    S(spec.vocab_size, 0.0), S(spec.vocab_size, 0.8, 0.9, 6)]
+            cons = [auts[0], auts[1], None, None]
+            reqs = [be.submit(p[i:i + 12], 30, smps[i], constraint=cons[i])
+                    for i in range(4)]
+            outs = [r.wait(timeout=600) for r in reqs]
+            for aut, out in zip(auts, outs):
+                cut = out.index(2) + 1 if 2 in out else len(out)
+                assert aut.validate(out[:cut])[0], out
+            assert be.constrain_degraded == 0 and be.verify_steps > 0
+            masked = {k[0] for k in be.engine.graphs.keys() if k[-1] == "mask"}
+            assert masked == ({"batched_loop", "batched_verify"} if graph else set())
+            runs.append(outs)
+        finally:
+            be.close()
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_drafter_scan_graph_matches_eager(cuda):
+    """The drafter's catch-up + draft scan at 2 layers of Llama-2-7B width (fused, bf16,
+    a self-draft on the target's own prepared weights): replayed from its CUDA graph per
+    scan bucket it drafts the eager scan's tokens, turn after turn."""
+    from distributed_llama_tpu_torch.draft.drafter import ModelDrafter
+
+    spec, params, p = _prefix_model(cuda)
+    eng = Engine(spec, params, device="cuda", fused_matmul=True)
+    drafters = [ModelDrafter(spec, eng.params, slots=4, target_spec=spec, device="cuda",
+                             dtype=torch.bfloat16, use_kernels="fused", cuda_graph=g)
+                for g in (True, False)]
+    assert drafters[0].graphs.enabled and not drafters[1].graphs.enabled
+    # no copy of the weights: the drafter reads the target's storage
+    assert all(drafters[0].params["blocks"][n].data.data_ptr()
+               == eng.params["blocks"][n].data.data_ptr() for n in ("wqkv", "w1", "w2"))
+    outs = []
+    for d in drafters:
+        for r in range(3):
+            d.attach(r, p[:20 + 7 * r])
+        turns = [d.propose_batch({0: 8, 1: 4, 2: 2})]
+        for r, drafts in turns[0].items():
+            for t in drafts[:2] + [5]:
+                d.push(r, t)
+        turns.append(d.propose_batch({0: 8, 1: 8, 2: 8}))
+        outs.append(turns)
+    assert outs[0] == outs[1]
+    keys = drafters[0].graphs.keys()
+    assert keys and all(k[0] == "draft_scan" for k in keys)

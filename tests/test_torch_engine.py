@@ -149,7 +149,8 @@ def test_cli_speculative_on_cpu(model_files, capsysbinary):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """With jax and distributed_llama_tpu blocked, every port module (and chip_smoke)
     imports — the serving modules named explicitly — and one CPU decode step of the
-    Engine and a short fused BatchEngine generation run."""
+    Engine, a short fused BatchEngine generation, a constrained request and a
+    BatchEngine with a model drafter run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -179,6 +180,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from distributed_llama_tpu_torch.fleet import disagg  # noqa: F401
         from distributed_llama_tpu_torch.obs import flight, metrics, process  # noqa: F401
         from distributed_llama_tpu_torch.obs import reqctx, trace  # noqa: F401
+        from distributed_llama_tpu_torch.constrain import byte_vocab, compile_grammar
+        from distributed_llama_tpu_torch.constrain import table  # noqa: F401
+        from distributed_llama_tpu_torch.draft import drafter, loop  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
@@ -210,6 +214,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         req.wait(60)
         assert req.kv_export[0] == list(range(1, 9)) and len(req.kv_export[1]) == 2
         assert be.import_kv_blocks(*req.kv_export[:2]) == 8
+        be.close()
+        params = init_random_params(spec, FloatType.Q40, seed=1)
+        be = BatchEngine(spec, params, slots=2, device="cpu", superstep=4, speculative=4,
+                         draft_model=(spec, params))
+        assert be.drafter is not None
+        aut, gh = compile_grammar("regex", "[0-9]{3}", byte_vocab(64), 2)
+        out = be.submit([1, 2, 3], 4, Sampler(64), constraint=aut,
+                        constraint_hash=gh).wait(60)
+        assert aut.validate(out)[0] and be.constrain_stats()["active_rows"] == 0
+        assert len(be.generate([1, 2, 3, 1, 2, 3], 6, Sampler(64))[0]) == 6
         be.close()
         assert not any(k.split(".")[0] in blocked for k in sys.modules)
         print("ok")

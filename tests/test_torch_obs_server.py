@@ -5,9 +5,9 @@
   OpenAI error bodies, /v1/requests and /v1/requests/<id> (by completion id and trace
   id), traceparent adoption and /v1/trace, process telemetry with torch in the build
   info, and super-step spans that never overlap (pipelined and not);
-- the same family names as the JAX server over the same requests, less the families of
-  the modules the port does not have yet (constrained decoding, the drafter's proposer
-  mux) and the router's;
+- the same family names as the JAX server over the same requests (constrained decoding
+  and the drafter's proposer mux included), less the families of the modules the port
+  does not have yet (the host KV spill, the collective-bytes counter) and the router's;
 - the engines against the JAX package's: `dllama --trace` writes JAX's span names for
   the same run, and on the same weights and requests the BatchEngines' prefill- and
   decode-token counter deltas and flight event names are equal, as are the
@@ -29,6 +29,7 @@ import importlib
 import json
 import re
 import threading
+import time
 
 import pytest
 
@@ -59,11 +60,9 @@ from distributed_llama_tpu_torch.tokenizer import TemplateType
 
 V = 262
 TENANTS = "gold:weight=4;free:weight=1"
-# families the JAX server may show that the port does not have yet: constrained decoding,
-# the model drafter and its proposer mux (ROADMAP Queue A item 6), the host KV spill
-# (paged_* other than paged_kv_*) and the collective-bytes counter (item 8)
-NOT_PORTED = re.compile(r"^(constrain_|batch_draft_|batch_spec_proposer_|"
-                        r"paged_(?!kv_)|collective_)")
+# families the JAX server may show that the port does not have yet: the host KV spill
+# (paged_* other than paged_kv_*) and the collective-bytes counter (ROADMAP Queue A item 8)
+NOT_PORTED = re.compile(r"^(paged_(?!kv_)|collective_)")
 
 
 @pytest.fixture(scope="module")
@@ -430,10 +429,11 @@ def test_family_names_match_the_jax_server(pair):
     the JAX family of the same name and type, and the JAX families the port lacks are
     only the not-yet-ported modules' and the router's."""
     be, jbe = pair
-    # a family is declared when its module is imported: import the JAX counterparts of
-    # the port modules a server imports only when asked for them (the supervisor)
-    importlib.import_module("distributed_llama_tpu.resilience.supervisor")
-    importlib.import_module("distributed_llama_tpu_torch.resilience.supervisor")
+    # a family is declared when its module is imported: import both packages' modules a
+    # server imports only when asked for them (the supervisor, the model drafter)
+    for mod in ("resilience.supervisor", "draft.drafter", "constrain.compiler"):
+        importlib.import_module(f"distributed_llama_tpu.{mod}")
+        importlib.import_module(f"distributed_llama_tpu_torch.{mod}")
     srv = api_server.serve(None, "127.0.0.1", 0, TemplateType.CHATML, batch_engine=be)
     jsrv = jserve(None, host="127.0.0.1", port=0, template_type=JTemplateType.CHATML,
                   batch_engine=jbe)
@@ -647,8 +647,15 @@ def test_trace_context_propagates_through_fleet_concurrently(fleet):
                 per_tid[t].append(e["name"])
         for t in tids:
             assert any(nm.startswith("batch.") for nm in per_tid[t]), (t, per_tid[t])
-        router_tids = {(e.get("args") or {}).get("trace_id") for e in jtr.events()
-                       if e["name"] == "router.proxy"}
+        # the router closes a request's `router.proxy` span after relaying the body, so
+        # the span can land just after its client has read the response
+        deadline = time.monotonic() + 10.0
+        while True:
+            router_tids = {(e.get("args") or {}).get("trace_id") for e in jtr.events()
+                           if e["name"] == "router.proxy"}
+            if set(tids) <= router_tids or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
         assert set(tids) <= router_tids
         via = json.loads(_get(fleet["port"], f"/v1/requests/{results[0]['rid']}").read())
         assert via["id"] == results[0]["rid"] and via["trace_id"] == tids[0]
