@@ -152,6 +152,20 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             (the Engine, and the fused BatchEngine on 4 staggered requests); Grok-1's
             block at full width (grok1_l2: 2 layers, 16 greedy tokens, graph against
             eager, and card against CPU in f32)
+  spill     the host KV spill at Llama-2-7B (random Q40 drawn on the card, bf16, kernels
+            on, prefill_kernel): Engine(kv_cache_storage="host", kv_cache_resident=512)
+            beside a dense Engine on the same weights; a warm run (100-token prompt, 32
+            greedy tokens inside the ring, one-token steps as graph replays) bit-identical
+            to the dense engine; run (a): a 1600-token prompt through the (64, 8, 1)
+            ladder (the ring wraps three times) and 32 greedy tokens, every step's logits
+            within NEAR_TIE·max|logits| of the dense engine's, the picks equal outside
+            near-ties the f64 witness confirms, the store's rows [0, 512) bit-identical to
+            the dense cache's, the cold counters on the cost model L·2·hk·(pos-R)·hs·2 at
+            every step; the kernels' launches over both runs; run (b): a disc store at 7B
+            width and 4 layers (1200-token prompt, 8 tokens), the file pair's sizes and
+            the owned temp dir's cleanup; ms/token warm and paged (with the cold
+            attention's host share from its span and its GB/s), prefill ms, the dense
+            engine's beside them
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
@@ -212,8 +226,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
-              "resil", "tenancy", "disagg", "obs", "constrain", "draft", "moe", "kernels",
-              "cli")
+              "resil", "tenancy", "disagg", "obs", "constrain", "draft", "moe", "spill",
+              "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -3110,6 +3124,115 @@ class _SampleTap:
         return meta, self.rows[:n].clone()
 
 
+class _LayerTap:
+    """While open, keeps the output of every transformer block the forward pass runs
+    (`models.forward._block`): calls[i][layer] is call i's (T, dim) block output in f32
+    on the host."""
+
+    def __enter__(self):
+        from distributed_llama_tpu_torch.models import forward as fw
+
+        self._fw, self._fn, self.calls = fw, fw._block, []
+
+        def tapped(x, bp, li, st, kc, vc):
+            out = self._fn(x, bp, li, st, kc, vc)
+            if li == 0:
+                self.calls.append([])
+            self.calls[-1].append(out[0][0].float().cpu())
+            return out
+        fw._block = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._fw._block = self._fn
+
+
+def _two_evaluations(spec, params, eng, full: list[int], n: int, served: np.ndarray,
+                     allowed: np.ndarray) -> str:
+    """Where two evaluations of one prefix full[:n] disagree (`_seeded_exact`'s second
+    evaluation): the logits of position n - 1 from (A) `eng.infer_chunk_logits` of the
+    whole stream full[:-1], (B) `eng.prefill(full[:n])`, (D) the whole stream on the
+    dequantize path in bf16 (kernels off: no Q40 tile) and (C) the whole stream and (C')
+    the prefill in f32 with the kernels and TF32 off, each against C in max|logits| of
+    C, the served row (its allowed entries) beside them; and layer by layer the relative
+    distance
+    |h - h_C| / |h_C| of the block outputs at that position, with the first layer where A
+    departs from B by more than 10x. Returns the report line."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    plain = Engine(spec, params, device="cuda", dtype=torch.float32, use_kernels=False,
+                   cuda_graph=False)
+    bf16 = Engine(spec, params, device="cuda", dtype=torch.bfloat16, use_kernels=False,
+                  cuda_graph=False)
+    rows, layers, first = {}, {}, {}
+    for tag, e, whole in (("A", eng, True), ("B", eng, False), ("D", bf16, True),
+                          ("C", plain, True), ("C'", plain, False)):
+        e.reset()
+        with _LayerTap() as tap:
+            if whole:
+                rows[tag] = e.infer_chunk_logits(full[:-1])[n - 1]
+                layers[tag] = [h[n - 1] for h in tap.calls[0]]
+                first[tag] = tap.calls[0][0][:n]
+            else:
+                rows[tag] = e.prefill(full[:n])
+                layers[tag] = [h[-1] for h in tap.calls[-1]]
+    del plain, bf16
+    torch.cuda.empty_cache()
+    ref = rows["C"]
+    scale = float(np.abs(ref).max())
+    off = {tag: float(np.abs(r - ref).max()) / scale for tag, r in rows.items() if tag != "C"}
+    off["served"] = float(np.where(allowed, np.abs(served - ref), 0).max()) / scale
+
+    def rel(tag):
+        return [float((h - c).norm() / c.norm()) for h, c in zip(layers[tag], layers["C"])]
+    dist = {tag: rel(tag) for tag in ("A", "B", "D")}
+    first_layer = next((i for i, (a, b) in enumerate(zip(dist["A"], dist["B"]))
+                        if a > 10 * max(b, 1e-6)), None)
+    fmt = "; ".join(f"{tag} {' '.join(f'{d:.1e}' for d in ds)}" for tag, ds in dist.items())
+    # layer 1's attention at the position, recomputed in f32 from each whole-stream
+    # evaluation's layer-0 output: the key each head weighs most, and its margin
+    att = {tag: _layer_scores(spec, params, first[tag], 1) for tag in ("C", "D", "A")}
+    top = {tag: sc.topk(2, dim=-1) for tag, sc in att.items()}
+    moved = {tag: (top[tag].indices[:, 0] != top["C"].indices[:, 0]).nonzero().flatten()
+             for tag in ("D", "A")}
+    gap = top["C"].values[:, 0] - top["C"].values[:, 1]
+    p_max = torch.softmax(att["C"], dim=-1).max(dim=-1).values
+    heads = "; ".join(
+        f"{tag}: {len(h)} of {len(gap)} heads (" + ", ".join(
+            f"head {i}: key {int(top['C'].indices[i, 0])} -> {int(top[tag].indices[i, 0])}, "
+            f"f32 top-2 gap {float(gap[i]):.3f} of scores to {float(top['C'].values[i, 0]):.1f}"
+            for i in h.tolist()[:4]) + ")" for tag, h in moved.items())
+    return (f"position {n - 1} (prefix of {n}): max|logits| {scale:.2f} (f32 C); off C "
+            f"by {', '.join(f'{k} {v:.2e}' for k, v in off.items())}; A departs from B "
+            f"first at layer {first_layer}; |h - h_C| / |h_C| by layer: {fmt}; layer 1's "
+            f"attention at the position (f32 from each layer-0 output): max softmax weight "
+            f"{float(p_max.min()):.3f}-{float(p_max.max()):.3f} over the heads, the top key "
+            f"moved from C's in {heads}")
+
+
+def _layer_scores(spec, params, h: torch.Tensor, layer: int) -> torch.Tensor:
+    """Attention scores (heads, n) of the last of n positions at `layer`, in f32 on the
+    dequantize path, from the (n, dim) input rows `h` of that layer (the block output of
+    the layer before)."""
+    from distributed_llama_tpu_torch.models.forward import layer_params
+    from distributed_llama_tpu_torch.ops.kernels import rmsnorm
+    from distributed_llama_tpu_torch.ops.matmul import qmatmul
+    from distributed_llama_tpu_torch.ops.rope import RopeTables, apply_rope
+
+    n, hs = h.shape[0], spec.head_size
+    bp = layer_params(params["blocks"], layer)
+    x = rmsnorm(h.to("cuda")[None], bp["rms_att"].float(), spec.norm_eps)
+    qkv = qmatmul(x, bp["wqkv"], out_dtype=torch.float32)
+    pos = torch.arange(n, device="cuda")
+    rope = RopeTables.create(spec, "cuda")
+    q = apply_rope(qkv[..., :spec.dim].reshape(1, n, spec.n_heads, hs), rope, pos)
+    k = apply_rope(qkv[..., spec.dim:spec.dim + spec.kv_dim].reshape(1, n, spec.n_kv_heads,
+                                                                      hs), rope, pos)
+    g = spec.n_heads // spec.n_kv_heads
+    k = k[0].repeat_interleave(g, dim=1)  # (n, hq, hs)
+    return torch.einsum("hd,nhd->hn", q[0, -1], k) / math.sqrt(hs)
+
+
 def _seeded_exact(state, spec, params, tag: str, prompt, out: list[int], seed: int,
                   rec: tuple, aut=None) -> tuple[torch.Tensor, list[int]]:
     """A seeded row's stream held exactly at its own dispatch shapes, from the device
@@ -3191,6 +3314,8 @@ def _seeded_exact(state, spec, params, tag: str, prompt, out: list[int], seed: i
                 f"(bound {t2:.3e}), nearest the stream's logits for token "
                 f"{int(near.argmin())} ({near.min():.3e})")
         second.append(k)
+        log(f"[two evaluations] {tag}, token {k}: "
+            f"{_two_evaluations(spec, params, eng, full, len(prompt) + k, host[k], allowed[k])}")
     return got, second
 
 
@@ -6174,6 +6299,287 @@ def phase_moe(state: dict) -> None:
     del cpu_params
     log(f"[moe] parity, 2-layer Mixtral width, f32: {report} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+# the spill phase: the paged engine's ring (`kv_cache_resident`), run (a)'s prompt and
+# greedy tokens (the ring wraps three times), the warm run's prompt (`_prompt_100`) and
+# tokens, all inside the ring, and run (b)'s disc store: layers, prompt, tokens
+SPILL_R = 512
+SPILL_PROMPT, SPILL_TOKENS = 1600, 32
+SPILL_WARM_TOKENS = 32
+SPILL_DISC = (4, 1200, 8)
+
+
+def _ladder(n: int) -> list[int]:
+    """The chunk lengths `Engine.prefill` takes for an n-token prompt (64, 8, 1)."""
+    from distributed_llama_tpu_torch.runtime.engine import PREFILL_CHUNKS
+
+    out = []
+    while n:
+        c = next(c for c in PREFILL_CHUNKS if c <= n)
+        out.append(c)
+        n -= c
+    return out
+
+
+def _spill_step(tag: str, paged, dense, toks: list[int], times: dict) -> tuple:
+    """One chunk through both engines, each timed to its logits' host copy; the paged
+    logits held to the dense engine's within NEAR_TIE·max|logits|, and the cold counters'
+    rise to the cost model: L calls and L·2·hk·(pos-R)·hs·itemsize bytes when the step
+    starts past the ring, none before; a warm-phase step's logits bit-identical. The
+    dense engine's rise of the launch counters (`times["counters"]`) is summed into
+    `times["dense_rise"]`. Returns (paged logits, dense logits)."""
+    from distributed_llama_tpu_torch.runtime import paged_cache as pc
+
+    spec, pos = paged.spec, paged.pos
+    calls0, bytes0 = pc._COLD_CALLS.value, pc._COLD_BYTES.value
+    t0 = time.perf_counter()
+    lp = paged.infer_chunk(toks)
+    t1 = time.perf_counter()
+    got = (pc._COLD_CALLS.value - calls0, pc._COLD_BYTES.value - bytes0)
+    before = _read(times["counters"])
+    ld = dense.infer_chunk(toks)
+    t2 = time.perf_counter()
+    rise = times.setdefault("dense_rise", collections.Counter())
+    rise.update({n: v - before[n] for n, v in _read(times["counters"]).items()})
+    phase = "warm" if pos + len(toks) <= paged.kv_resident else "paged"
+    key = (phase, "decode" if len(toks) == 1 else "prefill")
+    times.setdefault(key, []).append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    cold = max(0, pos - paged.kv_resident)
+    item = paged.store.k.element_size()
+    want = (spec.n_layers * (cold > 0),
+            spec.n_layers * 2 * spec.n_kv_heads * cold * spec.head_size * item)
+    if got != want:
+        raise AssertionError(f"{tag}: at pos {pos} the cold counters rose by {got}, the "
+                             f"cost model says {want}")
+    err, tol = float(np.abs(lp - ld).max()), NEAR_TIE * float(np.abs(ld).max())
+    if not err <= tol:
+        raise AssertionError(f"{tag}: at pos {pos} ({len(toks)} tokens, {phase}) the paged "
+                             f"logits lie {err:.3e} from the dense engine's (bound {tol:.3e})")
+    times.setdefault("err", []).append(err / float(np.abs(ld).max()))
+    if phase == "warm" and not np.array_equal(lp, ld):
+        raise AssertionError(f"{tag}: at pos {pos} the warm phase's logits differ from the "
+                             f"dense engine's (the same steps on a ring-sized cache)")
+    return lp, ld
+
+
+def _spill_decode(state, tag: str, spec, params, paged, dense, prompt, n: int,
+                  times: dict) -> tuple[list[str], list[int]]:
+    """n greedy steps, both engines fed the dense engine's pick: each step's logits held
+    by `_spill_step`, and the paged engine's pick the dense one's unless the two are a
+    near-tie in both runs' logits that the f64 witness confirms. Returns the near-ties and
+    the tokens fed; the paged rows are kept in times["rows"]."""
+    ties, fed = [], []
+    lp, ld = times.pop("last")
+    for j in range(n):
+        a, b = int(np.argmax(lp)), int(np.argmax(ld))
+        if a != b:
+            for row in (lp, ld):
+                gap = abs(float(row[a] - row[b]))
+                if gap >= NEAR_TIE * float(np.abs(row).max()):
+                    raise AssertionError(f"{tag}: step {j} picks {a} against {b}, "
+                                         f"{gap:.3e} apart in a run's logits")
+            gap, tol = _witness(state, spec, params, list(prompt) + fed, a, b)
+            if gap >= tol:
+                raise AssertionError(f"{tag}: step {j} picks {a} against {b}; the f64 "
+                                     f"witness puts them {gap:.3e} apart (bound {tol:.3e})")
+            ties.append(f"step {j} ({a} vs {b}, f64 witness {gap:.2e} < {tol:.2e})")
+        fed.append(b)
+        lp, ld = _spill_step(tag, paged, dense, [b], times)
+        times.setdefault("rows", []).append(lp)
+    return ties, fed
+
+
+def _ms(times: dict, key, i: int) -> float:
+    rows = times.get(key, [])
+    return float(np.mean([r[i] for r in rows])) if rows else float("nan")
+
+
+def _spill_alone(eng, start: int, fed: list[int]) -> tuple[float, list]:
+    """The engine rewound to `start` (seek) and stepped alone through `fed`: mean ms per
+    step to its logits' host copy, and the logits."""
+    eng.seek(start)
+    rows, t = [], []
+    for tok in fed:
+        t0 = time.perf_counter()
+        rows.append(eng.infer_chunk([tok]))
+        t.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(t)), rows
+
+
+def phase_spill(state: dict) -> None:
+    """The host KV spill at Llama-2-7B (random Q40 drawn on the card, bf16, kernels on,
+    prefill_kernel): Engine(kv_cache_storage="host", kv_cache_resident=512) beside a dense
+    Engine on the same weights. A warm run (100-token prompt, 32 greedy tokens, all inside
+    the ring: its one-token steps graph replays) bit-identical to the dense engine; then
+    run (a): a 1600-token prompt through the (64, 8, 1) ladder (the ring wraps three
+    times) and 32 greedy tokens, every step's logits within NEAR_TIE·max|logits| of the
+    dense engine's and the picks equal outside near-ties the f64 witness confirms, the
+    store's rows [0, 512) bit-identical to the dense cache's, the cold counters on the
+    cost model at every step; the paged engine's launches over both runs (counted from 0,
+    the dense engine's calls taken out) on the schedule: 4L+1 q4_matvec a one-token step,
+    L decode_attention a warm one, 4L+1 q4_matmul a chunk. Then each engine rewound
+    (seek) and stepped alone through run (a)'s 32 tokens, timed: the paged steps under
+    the tracer, the cold attention's host time from its spans. Run (b): a disc store at
+    7B width and 4 layers, a 1200-token prompt and 8 tokens against the dense engine, the
+    file pair's sizes, the owned temp dir gone after cleanup()."""
+    from distributed_llama_tpu_torch.obs import trace
+    from distributed_llama_tpu_torch.quants import QTensor
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    spec = _llama2_7b()
+    dev = torch.device("cuda")
+    params = _random_i4p_params(spec, dev, seed=11)  # the model phase's weights, drawn once
+    kw = dict(device="cuda", prefill_kernel=True)
+    dense = Engine(spec, params, **kw)
+    paged = Engine(spec, params, kv_cache_storage="host", kv_cache_resident=SPILL_R, **kw)
+    on_card = [t.data.is_cuda for t in paged.params["blocks"].values()
+               if isinstance(t, QTensor)] + [paged.k_cache.is_cuda, paged.v_cache.is_cuda]
+    if not (paged.paged and all(on_card) and paged.k_cache.shape[3] == SPILL_R
+            and paged.cuda_graph and paged.use_kernels == "all"
+            and paged.store.k.dtype == torch.bfloat16):
+        raise AssertionError(f"spill: the paged engine is not on the card with its kernels "
+                             f"(paged {paged.paged}, ring {tuple(paged.k_cache.shape)}, "
+                             f"kernels {paged.use_kernels}, graphs {paged.cuda_graph})")
+    counters = _single_counters()
+    paged.graphs = counting_graphs(paged.device, counters)
+    vocab = spec.vocab_size
+    for e in (paged, dense):  # warm-up: builds, captures
+        e.generate(_prompt_100(spec)[:9], 2, _CheckedSampler(vocab))
+        e.reset()
+    torch.cuda.synchronize()
+
+    # the main path: the counts zeroed just before the warm run and read after run (a)
+    _zero(counters)
+    snap = graph_snapshot(counters, paged.graphs)
+    warm = _prompt_100(spec)
+    times = {"counters": counters}
+    pos = 0
+    for c in _ladder(len(warm)):
+        times["last"] = _spill_step("spill warm", paged, dense, warm[pos:pos + c], times)
+        pos += c
+    ties, _ = _spill_decode(state, "spill warm", spec, params, paged, dense, warm,
+                            SPILL_WARM_TOKENS, times)
+    warm_ms = (_ms(times, ("warm", "decode"), 0), _ms(times, ("warm", "decode"), 1))
+    for e in (paged, dense):
+        e.reset()
+    prompt = [1] + torch.randint(3, vocab, (SPILL_PROMPT - 1,),
+                                 generator=torch.Generator().manual_seed(71)).tolist()
+    times = {"counters": counters, "dense_rise": times["dense_rise"]}
+    pos = 0
+    for c in _ladder(len(prompt)):
+        times["last"] = _spill_step("spill (a)", paged, dense, prompt[pos:pos + c], times)
+        pos += c
+    for side, cache in ((paged.store.k, dense.k_cache), (paged.store.v, dense.v_cache)):
+        if not torch.equal(side[:, :, :, :SPILL_R], cache[:, :, :, :SPILL_R].cpu()):
+            raise AssertionError("spill (a): the store's warm rows differ from the dense "
+                                 "cache's")
+    prefill_ms = [sum(r[i] for k in (("warm", "prefill"), ("paged", "prefill"))
+                      for r in times.get(k, [])) for i in (0, 1)]
+    more, fed = _spill_decode(state, "spill (a)", spec, params, paged, dense, prompt,
+                              SPILL_TOKENS, times)
+    ties += more
+    launches, replays, new = run_launches(counters, paged.graphs, snap)
+    path = {n: v - times["dense_rise"][n] for n, v in launches.items()
+            if v - times["dense_rise"][n]}
+    per_step, t1_warm = 4 * spec.n_layers + 1, _ladder(len(warm)).count(1) + SPILL_WARM_TOKENS
+    chunks = sum(c > 1 for c in _ladder(len(warm)) + _ladder(SPILL_PROMPT))
+    want = {"q4_matvec": per_step * (t1_warm + SPILL_TOKENS),
+            "q4_matmul": per_step * chunks, "decode_attention": spec.n_layers * t1_warm}
+    if path != want:
+        raise AssertionError(f"spill: the paged engine's launches {path}, the schedule "
+                             f"says {want}")
+
+    # each engine alone through run (a)'s tokens again: the step times without the other
+    # engine's work between them, the paged steps' cold spans under the tracer
+    trace.install()
+    try:
+        paged_ms, rows = _spill_alone(paged, SPILL_PROMPT, fed)
+        events = [e for e in trace.current().events() if e.get("name") == "paged.cold_attend"]
+    finally:
+        trace.uninstall()
+    dense_ms, _ = _spill_alone(dense, SPILL_PROMPT, fed)
+    again = max(float(np.abs(a - b).max()) for a, b in zip(rows, times["rows"]))
+    if len(events) != spec.n_layers * SPILL_TOKENS:
+        raise AssertionError(f"spill (a): {len(events)} cold spans over {SPILL_TOKENS} "
+                             f"paged steps")
+    cold_ms = sum(e["dur"] for e in events) / 1e3 / SPILL_TOKENS
+    item = paged.store.k.element_size()
+    # the store bytes the cold partials of those steps read, at pos SPILL_PROMPT ..
+    cold_gb = sum(spec.n_layers * 2 * spec.n_kv_heads * (p - SPILL_R) * spec.head_size
+                  * item for p in range(SPILL_PROMPT, SPILL_PROMPT + SPILL_TOKENS)) / 1e9
+    # the warm phase's append of one step's rows, alone
+    ring = (paged.k_cache[:, :, :, 7:8], paged.v_cache[:, :, :, 7:8])
+    append_ms = event_ms(lambda i: paged.store.append(*ring, 7), 20)
+    # what a cold partial on the card would first pay: one token's cold rows (at pos
+    # SPILL_PROMPT) copied to the card from pinned host memory
+    n = spec.n_layers * 2 * spec.n_kv_heads * (SPILL_PROMPT - SPILL_R) * spec.head_size
+    src = torch.empty(n, dtype=torch.bfloat16, pin_memory=True)
+    dst = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    h2d_ms = event_ms(lambda i: dst.copy_(src, non_blocking=True), 5, warmup=2)
+    del src, dst
+    log(f"[spill] Llama-2-7B Q40 bf16, kernels on, ring {SPILL_R} of seq_len "
+        f"{spec.seq_len}, host store {paged.store.nbytes() / 1e9:.3f} GB bf16: warm run "
+        f"({len(warm)}-token prompt, {SPILL_WARM_TOKENS} tokens) logits bit-identical to "
+        f"the dense engine's; run (a) {SPILL_PROMPT}-token prompt "
+        f"({len(_ladder(SPILL_PROMPT))} chunks) and {SPILL_TOKENS} tokens, logits within "
+        f"{max(times['err']):.2e}·max|logits| (bound {NEAR_TIE}), store rows [0, "
+        f"{SPILL_R}) bit-identical, cold counters on the cost model at every step; the "
+        f"steps again after seek({SPILL_PROMPT}) within {again:.2e} of the first pass; "
+        f"near-ties {ties or 'none'}")
+    log(f"[spill] ms/token (paged / dense engine, each step to its logits' host copy): "
+        f"warm phase {warm_ms[0]:.3f} / {warm_ms[1]:.3f} (graph replays, steps "
+        f"interleaved; the paged step's store append alone {append_ms:.3f} ms); paged "
+        f"phase at pos {SPILL_PROMPT}-{SPILL_PROMPT + SPILL_TOKENS - 1}, each engine "
+        f"alone: {paged_ms:.3f} / {dense_ms:.3f}, of it cold attention on the host "
+        f"{cold_ms:.3f} ms ({cold_ms / paged_ms:.3f} of the step; "
+        f"{cold_gb / SPILL_TOKENS:.3f} GB of bf16 rows a token -> "
+        f"{cold_gb / (cold_ms * SPILL_TOKENS * 1e-3):.2f} GB/s); interleaved "
+        f"{_ms(times, ('paged', 'decode'), 0):.3f} / {_ms(times, ('paged', 'decode'), 1):.3f};"
+        f" prefill of {SPILL_PROMPT} tokens {prefill_ms[0]:.1f} / {prefill_ms[1]:.1f} ms; "
+        f"one token's cold rows ({n * 2 / 1e9:.3f} GB) pinned host -> card {h2d_ms:.3f} ms "
+        f"({n * 2 / (h2d_ms * 1e-3) / 1e9:.1f} GB/s)")
+    log(f"[spill] the paged engine's launches over the warm run and run (a), counted from "
+        f"0: {json.dumps(path)} = the schedule ({replays} graph replays, {new} graphs "
+        f"captured in the run)")
+    state["spill"] = dict(launches=path, warm_ms=warm_ms, paged_ms=paged_ms,
+                          dense_ms=dense_ms, cold_ms=cold_ms, prefill_ms=prefill_ms,
+                          h2d_ms=h2d_ms)
+    del paged, dense, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run (b): the disc store at 7B width, depth cut to 4 layers
+    n_layers, n_prompt, n_tok = SPILL_DISC
+    spec4 = _llama2_7b(n_layers)
+    params = _random_i4p_params(spec4, dev, seed=11)
+    dense = Engine(spec4, params, **kw)
+    paged = Engine(spec4, params, kv_cache_storage="disc", kv_cache_resident=SPILL_R, **kw)
+    files = paged.store.paths
+    size = spec4.n_layers * spec4.n_kv_heads * spec4.seq_len * spec4.head_size * 2
+    sizes = [os.path.getsize(p) for p in files]
+    if sizes != [size, size] or not paged.store._owned_dir:
+        raise AssertionError(f"spill (b): the disc pair is {sizes} bytes, want {size} each")
+    times = {"counters": counters}
+    pos = 0
+    for c in _ladder(n_prompt):
+        times["last"] = _spill_step("spill (b)", paged, dense, prompt[pos:pos + c], times)
+        pos += c
+    ties, _ = _spill_decode(state, "spill (b)", spec4, params, paged, dense,
+                            prompt[:n_prompt], n_tok, times)
+    d = os.path.dirname(files[0])
+    paged.store.cleanup()
+    if os.path.exists(d):
+        raise AssertionError(f"spill (b): cleanup() left the owned directory {d}")
+    log(f"[spill] run (b): disc store, {n_layers} layers at 7B width, {n_prompt}-token "
+        f"prompt and {n_tok} tokens: logits within {max(times['err']):.2e}·max|logits| "
+        f"of the dense engine's, near-ties {ties or 'none'}; two files of {size} bytes "
+        f"(L·hk·S·hs·2), the owned temp dir removed by cleanup(); paged-phase ms/token "
+        f"{_ms(times, ('paged', 'decode'), 0):.3f} / dense "
+        f"{_ms(times, ('paged', 'decode'), 1):.3f} (interleaved)")
+    del paged, dense, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_cli(state: dict) -> None:

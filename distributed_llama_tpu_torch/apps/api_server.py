@@ -70,7 +70,7 @@ import sys
 import threading
 import time
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qs, urlsplit
 
 import torch
@@ -80,6 +80,7 @@ from ..obs import flight, metrics, reqctx, trace
 from ..obs.process import install_process_metrics
 from ..ops import matmul as matmul_ops
 from ..resilience import faults
+from ..resilience.quiet_http import QuietServer
 from ..resilience.errors import (DeadlineExceeded, EngineClosed, EngineDraining,
                                  EngineSaturated, EngineWedged, InvalidRequest,
                                  QuotaExceeded, retriable)
@@ -194,10 +195,11 @@ class ApiState:
         if engine is not None:
             from ..cache import SingleSlotCache, make_prefix_cache
 
-            pc = make_prefix_cache(engine.k_cache.shape, engine.k_cache.element_size(),
-                                   slots=1, prefix_cache=prefix_cache,
-                                   blocks=prefix_cache_blocks,
-                                   block_tokens=prefix_block_tokens, q80=prefix_cache_q80)
+            # a paged engine (the host KV spill) keeps resident-only reuse: no pool
+            pc = None if engine.paged else make_prefix_cache(
+                engine.k_cache.shape, engine.k_cache.element_size(), slots=1,
+                prefix_cache=prefix_cache, blocks=prefix_cache_blocks,
+                block_tokens=prefix_block_tokens, q80=prefix_cache_q80)
             self.cache = SingleSlotCache(engine, pc)
         tok = (batch_engine or engine).tokenizer
         self.template = ChatTemplate(template_type, tok.chat_template, tok.eos_piece())
@@ -283,7 +285,7 @@ def _stats_payload(state: ApiState) -> dict:
         out["constrain"] = dict(be.constrain_stats(), compile=compile_stats())
     elif state.engine is not None:
         eng = state.engine
-        out["engine"] = {"pos": eng.pos, "seq_len": eng.spec.seq_len,
+        out["engine"] = {"pos": eng.pos, "seq_len": eng.spec.seq_len, "paged": eng.paged,
                          "device": str(eng.device), "cuda_graph": eng.cuda_graph}
     # which kernel each matmul shape took: the readable view of
     # matmul_kernel_selected_total
@@ -1063,7 +1065,7 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
           role: str = "both", kv_wire_q80: bool = False, kv_transfer_ttl: float = 120.0,
           kv_transfer_cap: int = 32, flight_requests: int = 256,
           slow_log: str | None = None,
-          slow_threshold: float = 1.0) -> ThreadingHTTPServer:
+          slow_threshold: float = 1.0) -> QuietServer:
     """Bind the server (port 0 = an ephemeral port) and return it; the caller runs
     serve_forever(). Pass `engine` for --batch 1 serving (the prefix_* arguments size
     its prefix cache, speculative_k > 0 verifies drafts of greedy requests), or
@@ -1096,7 +1098,7 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
                      kv_wire_q80=kv_wire_q80, kv_transfer_ttl=kv_transfer_ttl,
                      kv_transfer_cap=kv_transfer_cap)
     handler = type("BoundHandler", (Handler,), {"state": state})
-    server = ThreadingHTTPServer((host, port), handler)
+    server = QuietServer((host, port), handler)
     server.daemon_threads = True
     server.api_state = state
     state.replica_id = f"{host}:{server.server_address[1]}"
@@ -1119,7 +1121,7 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
     return server
 
 
-def begin_drain(server: ThreadingHTTPServer, state: ApiState,
+def begin_drain(server: QuietServer, state: ApiState,
                 drain_timeout: float = 30.0) -> None:
     """Graceful drain (the SIGTERM body): flip state.draining (/healthz answers 503
     "draining", new completions get 503), let in-flight and queued requests finish for
@@ -1144,7 +1146,7 @@ def begin_drain(server: ThreadingHTTPServer, state: ApiState,
     print("🔴 drained, server stopped")
 
 
-def install_sigterm_drain(server: ThreadingHTTPServer, state: ApiState,
+def install_sigterm_drain(server: QuietServer, state: ApiState,
                           drain_timeout: float = 30.0) -> bool:
     """Install the SIGTERM -> begin_drain handler (main thread only; False where a
     handler cannot be installed). The drain runs on a thread of its own, so the signal
@@ -1163,7 +1165,7 @@ def install_sigterm_drain(server: ThreadingHTTPServer, state: ApiState,
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from .dllama import _FT
+    from .dllama import _FT, add_kv_storage_flags
 
     p = argparse.ArgumentParser(prog="dllama-api", description=__doc__.split("\n\n")[0])
     p.add_argument("--model", required=True)
@@ -1324,7 +1326,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
+    add_kv_storage_flags(p)
     return p
+
+
+def check_args(p: argparse.ArgumentParser, args) -> None:
+    """Refuse flag combinations the engines cannot serve (argparse exit 2)."""
+    if args.batch > 1 and args.kv_cache_storage in ("host", "disc"):
+        # refuse loudly rather than allocate the full-seq_len device cache in exactly
+        # the overflow case the flag exists for
+        p.error("--kv-cache-storage host|disc requires --batch 1: the paged cache is "
+                "single-sequence. For long-context serving use --batch 1.")
 
 
 def engine_kwargs(args) -> dict:
@@ -1341,7 +1353,7 @@ def engine_kwargs(args) -> dict:
                 fused_prologue=args.prologue)
 
 
-def build_server(args) -> ThreadingHTTPServer:
+def build_server(args) -> QuietServer:
     """The engine and the bound server of parsed `main` arguments; the server's
     `api_state` holds both engines."""
     from .dllama import _FT
@@ -1393,14 +1405,22 @@ def build_server(args) -> ThreadingHTTPServer:
               f"{batch_engine.engine.device}, kernels={batch_engine.engine.use_kernels}, "
               f"CUDA graphs={batch_engine.engine.cuda_graph})")
     else:
+        from .dllama import check_kv_storage
+
         if args.draft_model:
             print("⚠️  --draft-model needs the batched verify path: add --batch N (N > 1). "
                   "Serving WITHOUT model-based drafting.", file=sys.stderr)
-        engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw)
+        check_kv_storage(args)  # the paged mode's cost notice, as the CLI's
+        engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw,
+                             kv_cache_storage=args.kv_cache_storage,
+                             kv_cache_resident=args.kv_cache_resident,
+                             kv_cache_dir=args.kv_cache_dir)
         spec = engine.spec
         print(f"⏩ Serving one sequence at a time (device={engine.device}, "
               f"kernels={engine.use_kernels}, prefix cache "
-              f"{'off' if args.no_prefix_cache else 'on'})")
+              f"{'off' if args.no_prefix_cache or engine.paged else 'on'}"
+              + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "")
+              + ")")
     seed = args.seed if args.seed is not None else _now()
     return serve(engine, args.host, args.port,
                  TemplateType(args.chat_template) if args.chat_template
@@ -1421,7 +1441,9 @@ def main(argv=None) -> None:
     from .dllama import dump_trace, install_trace
 
     faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    check_args(p, args)
     install_trace(args)  # --trace: before the load, so its spans are recorded too
     server = build_server(args)
     # SIGTERM: /healthz turns to draining, admissions stop, in-flight requests finish

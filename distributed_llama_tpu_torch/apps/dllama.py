@@ -13,6 +13,10 @@ The first SIGTERM stops a generation after its current token (the partial output
 stats still print); a second one stops at once. `DLLAMA_FAULTS` injects faults
 (resilience/faults.py). `--trace out.json` records the runtime's spans (obs/trace.py) and
 writes a Chrome trace at exit; open it in Perfetto (ui.perfetto.dev).
+`--kv-cache-storage host|disc` runs the paged KV cache (runtime/paged_cache.py): a device
+ring of `--kv-cache-resident` positions and the whole history in host RAM or a memmap'd
+file pair. `--nthreads` is accepted and ignored, and `--pipeline` is accepted (only the
+batched server reads it), as the JAX package's shared parser takes them.
 """
 
 from __future__ import annotations
@@ -57,6 +61,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the dequantize path instead of the CUDA kernels")
     p.add_argument("--prefill-kernel", action="store_true",
                    help="run prefill chunks through the q4 dequant-matmul kernel")
+    p.add_argument("--fused-matmul", action="store_true",
+                   help="--prefill-kernel plus the residual-add and gate-pair epilogues "
+                        "of the q4 kernels (Engine(fused_matmul=True))")
+    p.add_argument("--cache-write", default=None, choices=["deferred", "inscan"],
+                   help="KV cache discipline: the port's forward is deferred-only (the "
+                        "caches are read by every layer and the new rows committed once "
+                        "after the last); 'inscan' is refused")
+    p.add_argument("--pipeline", action=argparse.BooleanOptionalAction, default=True,
+                   help="pipelined super-steps of batched serving (api_server --batch > "
+                        "1); accepted here, where one sequence has nothing to pipeline")
+    p.add_argument("--nthreads", type=int, default=None,
+                   help="ignored (CUDA owns the card)")
     p.add_argument("--prologue", action="store_true", default=None,
                    help="fused rmsnorm+Q80 prologue kernels on the decode path "
                         "(ops/prologue.py; also DLT_PROLOGUE=1)")
@@ -85,7 +101,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft-k", type=int, default=0, metavar="K",
                    help="cap the model drafter's draft length per row (default: the "
                         "--speculative K)")
+    add_kv_storage_flags(p)
     return p
+
+
+def add_kv_storage_flags(p: argparse.ArgumentParser) -> None:
+    """--kv-cache-storage, --kv-cache-resident and --kv-cache-dir (dllama and
+    api_server)."""
+    p.add_argument("--kv-cache-storage", default=None, choices=["ram", "host", "disc"],
+                   help="'ram' (default): the KV cache in device memory. 'host'/'disc': "
+                        "the paged out-of-core cache (runtime/paged_cache.py): a device "
+                        "ring of --kv-cache-resident recent positions plus the full "
+                        "history in host RAM / an mmap'd file pair (the reference's disc "
+                        "cache, transformer.cpp:312-318, rebuilt flash-attention-style). "
+                        "A capacity valve: exact attention over the whole context at "
+                        "host-bandwidth speed")
+    p.add_argument("--kv-cache-resident", type=int, default=1024, metavar="R",
+                   help="paged mode: positions kept in device memory (rounded up to a "
+                        "multiple of 64)")
+    p.add_argument("--kv-cache-dir", default=None, metavar="DIR",
+                   help="paged 'disc' mode: directory for the key/value cache files "
+                        "(default: a fresh temp dir, removed at exit)")
+
+
+def check_kv_storage(args) -> None:
+    """The reference's `--kv-cache-storage disc` spills the KV cache to mmap'd files
+    (src/transformer.cpp:312-318, utils.cpp:50-67). The paged cache is its counterpart:
+    the hot ring on the card, the full history on the host, exact merged attention. It
+    states the cost up front: every decoded token reads the cold history from host
+    memory, so throughput falls as the context grows."""
+    if args.kv_cache_storage in ("host", "disc"):
+        print(f"💡 paged KV cache ({args.kv_cache_storage}): hot ring of "
+              f"{args.kv_cache_resident} positions on the card, full history "
+              f"{'on disk (mmap)' if args.kv_cache_storage == 'disc' else 'in host RAM'}."
+              " Decode slows as the cold history grows.", file=sys.stderr)
+
+
+def check_args(p: argparse.ArgumentParser, args) -> None:
+    """Refuse what the port cannot run (argparse exit 2)."""
+    if args.cache_write == "inscan":
+        p.error("--cache-write inscan: the port's forward is deferred-only "
+                "(models/forward.py); use --cache-write deferred or leave it out")
 
 
 _GRACEFUL_STOP = None  # threading.Event set by the first SIGTERM
@@ -130,10 +186,13 @@ def make_engine(args) -> Engine:
         dtype=(None if args.dtype == "auto"
                else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
         use_kernels=False if args.no_kernels else None,
-        prefill_kernel=args.prefill_kernel, fused_prologue=args.prologue)
+        prefill_kernel=args.prefill_kernel, fused_matmul=args.fused_matmul,
+        fused_prologue=args.prologue, kv_cache_storage=args.kv_cache_storage,
+        kv_cache_resident=args.kv_cache_resident, kv_cache_dir=args.kv_cache_dir)
     print(f"⏩ Loaded model in {time.perf_counter() - t0:.1f}s "
           f"(device={engine.device}, kernels={engine.use_kernels}, "
-          f"prologue={engine.fused_prologue})")
+          f"prologue={engine.fused_prologue}"
+          + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "") + ")")
     spec = engine.spec
     moe = ("n_experts", "n_active_experts") if spec.is_moe else ()
     for k in ("dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size",
@@ -278,7 +337,10 @@ def dump_trace(args) -> None:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    check_args(p, args)
+    check_kv_storage(args)
     if args.draft_model:
         print("⚠️  --draft-model needs the batched verify path — it is an api_server "
               "--batch > 1 feature; the sequential CLI keeps prompt-lookup drafting "

@@ -2,7 +2,9 @@
 
 - `radix.py`       — token-block radix index (refcounts, LRU, hit accounting)
 - `wire.py`        — the Q80 round trip and the KV block wire framing
-- `block_pool.py`  — bounded host block store (hot engine-dtype tier + optional Q80 tier)
+- `block_pool.py`  — bounded host block store (hot engine-dtype tier + optional Q80 tier),
+  and `HostKVArena`, the RAM-or-disc (memmap) K/V arena of the paged engine's host
+  spill (runtime/paged_cache.py)
 - `prefix_cache.py` — the facade over both: lookup/insert/leases/eviction + stats
 - `device_pool.py` — device-resident paged KV: block-pool refcounts + the radix
   DIRECTORY over device blocks (zero-copy remap hits, device→host demotion into the
@@ -15,11 +17,12 @@ harvest in `_finish`). Submodules are imported lazily (PEP 562).
 
 from __future__ import annotations
 
-__all__ = ["DeviceKVPool", "KVBlockPool", "PagedPrefixCache", "PrefixCache",
+__all__ = ["DeviceKVPool", "HostKVArena", "KVBlockPool", "PagedPrefixCache", "PrefixCache",
            "PrefixLease", "RadixIndex", "SingleSlotCache", "default_pool_blocks",
            "make_prefix_cache", "warn_degraded"]
 
-_LAZY = {"DeviceKVPool": "device_pool", "KVBlockPool": "block_pool",
+_LAZY = {"DeviceKVPool": "device_pool", "HostKVArena": "block_pool",
+         "KVBlockPool": "block_pool",
          "PagedPrefixCache": "device_pool", "PrefixCache": "prefix_cache",
          "PrefixLease": "prefix_cache", "RadixIndex": "radix",
          "SingleSlotCache": "single_slot"}

@@ -1,8 +1,11 @@
-"""Bounded host-side KV block store: engine-dtype hot tier + optional Q80 cold tier.
+"""Bounded host-side KV block store (engine-dtype hot tier + optional Q80 cold tier),
+and the RAM-or-disc K/V arena of the host spill.
 
-The port's copy of the JAX package's cache/block_pool.py `KVBlockPool` (its
-`HostKVArena`, the paged engine's host/disc spill, is not ported). Blocks are CPU torch
-tensors, so a bf16 block keeps its exact bits (numpy has no bfloat16).
+The port's copy of the JAX package's cache/block_pool.py: `KVBlockPool`, and
+`HostKVArena`, the storage of the long-context paged engine's authoritative store
+(runtime/paged_cache.py `HostKVStore`). Rows and blocks are CPU torch tensors in the
+engine dtype, so bf16 keeps its exact bits (numpy has no bfloat16); a disc arena holds
+bf16 in an int16 memmap viewed as bfloat16, the same raw bits as the JAX package's file.
 
 Each block holds the committed (K, V) rows of `block_tokens` consecutive positions for
 every layer — shape (L, hk, block_tokens, hs) per side: what the dense engine's admission
@@ -25,11 +28,69 @@ from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
 
 from .wire import host_rows, q80_compress, q80_compressible, q80_restore
 
-__all__ = ["KVBlockPool"]
+__all__ = ["HostKVArena", "KVBlockPool"]
+
+# the numpy storage dtype of a memmap'd arena: bf16 has none, so its raw bits live in
+# int16 and the tensor is a bfloat16 view of them
+_MEMMAP_DTYPE = {torch.float32: np.float32, torch.float16: np.float16,
+                 torch.bfloat16: np.int16}
+
+
+class HostKVArena:
+    """A (K, V) pair of CPU tensors in host RAM ("host") or over an np.memmap'd file
+    pair ("disc", files `names` in `directory`). A directory this arena created itself
+    (a fresh temp dir) is removed at GC or exit through weakref.finalize, never atexit
+    (which would pin every arena for the process lifetime); a caller's directory is
+    kept. The one storage backend of the host KV spill."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype = torch.float32, *,
+                 storage: str = "host", directory: str | None = None,
+                 names: tuple[str, str] = ("key.cache", "value.cache")):
+        import os
+
+        assert storage in ("host", "disc"), storage
+        self.storage = storage
+        self.paths: tuple[str, str] | None = None
+        self._owned_dir: str | None = None
+        self._memmaps = None
+        if storage == "disc":
+            import shutil
+            import tempfile
+            import weakref
+
+            if dtype not in _MEMMAP_DTYPE:
+                raise ValueError(f"no memmap storage for {dtype}")
+            if directory is None:
+                directory = tempfile.mkdtemp(prefix="dlt_kv_cache_")
+                self._owned_dir = directory
+                self._finalizer = weakref.finalize(
+                    self, shutil.rmtree, directory, ignore_errors=True)
+            os.makedirs(directory, exist_ok=True)
+            self.paths = (os.path.join(directory, names[0]),
+                          os.path.join(directory, names[1]))
+            self._memmaps = tuple(np.memmap(path, dtype=_MEMMAP_DTYPE[dtype], mode="w+",
+                                            shape=tuple(shape)) for path in self.paths)
+            self.k, self.v = (torch.from_numpy(mm).view(dtype) for mm in self._memmaps)
+        else:
+            self.k = torch.zeros(tuple(shape), dtype=dtype)
+            self.v = torch.zeros(tuple(shape), dtype=dtype)
+
+    def cleanup(self) -> None:
+        """Delete the file pair and the directory IF this arena created the directory
+        itself. Idempotent; detaches the GC/exit finalizer."""
+        if not self._owned_dir:
+            return
+        self._owned_dir = None
+        self.k = self.v = self._memmaps = None  # drop the memmaps before unlinking
+        self._finalizer()
+
+    def nbytes(self) -> int:
+        return 2 * self.k.numel() * self.k.element_size()
 
 
 class _Block:

@@ -11,7 +11,9 @@ Two reuse sources, best wins:
   token prefix rewinds `pos` (Engine.seek) — token-granular, zero copies.
 - radix: cached blocks cover a longer prefix than the resident rows do; the rows beyond
   the resident-common point are written into the engine's cache in place
-  (Engine.seed_rows) and `pos` moves FORWARD to the seeded length.
+  (Engine.seed_rows) and `pos` moves FORWARD to the seeded length. Dense engines only: a
+  paged engine's (the host KV spill's) ring has no notion of rows never appended to its
+  host store, so it keeps resident-only reuse, with no PrefixCache.
 
 The API server's generation lock serializes callers, so begin/end pairs never
 interleave; the PrefixCache itself is still internally locked.
@@ -28,7 +30,8 @@ __all__ = ["SingleSlotCache"]
 class SingleSlotCache:
     def __init__(self, engine, cache: PrefixCache | None):
         self.engine = engine
-        self.cache = cache
+        # paged mode: resident-only (see the module docstring)
+        self.cache = None if getattr(engine, "paged", False) else cache
         self.resident: list[int] = []  # tokens whose KV the engine holds
         self._lease: PrefixLease | None = None
 

@@ -23,12 +23,15 @@ the caches after the last layer. The caches are updated in place (the JAX packag
 returns new arrays; here the write lands in the caller's tensors, which are also
 returned).
 
-Three cache layouts, as in the JAX package:
+Four cache layouts, as in the JAX package:
 - dense, scalar start_pos: (L, 1, hk, S, hs), one sequence (runtime/engine.py);
 - dense, per-row start_pos (B,): (L, B, hk, S, hs), each row at its own offset;
 - block pool, per-row start_pos and (B, W) block tables: (L, N, hk, bt, hs), position p
   of row b in block tables[b, p // bt] at offset p % bt (the batched serving path,
-  runtime/batch_engine.py).
+  runtime/batch_engine.py);
+- hot ring, scalar start_pos and `paged_cold`: (L, 1, hk, R, hs), position p in slot
+  p mod R; attention over the ring is merged with the host's partial over the older
+  history (the host KV spill, runtime/paged_cache.py).
 
 Kernel paths (use_kernels): decode projections and the logits take kernel 1
 (ops/q4_matvec.py), one-sequence T=1 attention takes kernel 3 (ops/decode_attention.py),
@@ -52,7 +55,7 @@ from typing import Any
 
 import torch
 
-from ..ops.attention import gqa_attention
+from ..ops.attention import gqa_attention, gqa_attention_lse, merge_attention_partials
 from ..ops.decode_attention import decode_attention
 from ..ops.kernels import gelu_tanh, rmsnorm, silu
 from ..ops.matmul import qmatmul, qmatmul_gated, qmatmul_q80
@@ -94,7 +97,8 @@ class _Step:
     tables and the kernel switches."""
 
     def __init__(self, spec, rope, start_pos, positions, use_kernels, window,
-                 block_tables, block_tokens, paged_kernel, lengths, layer_ids, prologue):
+                 block_tables, block_tokens, paged_kernel, lengths, layer_ids, prologue,
+                 paged_cold=None):
         self.spec = spec
         self.rope = rope
         self.start_pos = start_pos  # int, 0-d int64 tensor, or (B,) int64 tensor
@@ -107,6 +111,7 @@ class _Step:
         self.lengths = lengths  # (B,) int32 on the device, for the paged kernel
         self.layer_ids = layer_ids  # (L,) int32 on the device, for the attention kernels
         self.prologue = prologue  # the fused activation prologue is on for this step
+        self.paged_cold = paged_cold  # the host's cold-history partial (hot-ring layout)
         self.per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
 
 
@@ -158,7 +163,10 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         nb = min(-(-(st.window or w_total * bt) // bt), w_total)  # table entries read
     else:
         win = st.window or kc.shape[3]
-    if paged and st.paged_kernel:
+    if st.paged_cold is not None:
+        att = _ring_attention(q, k_t, v_t, kc[layer_idx], vc[layer_idx], layer_idx, st)
+        att = att.reshape(b, t, hq * hs).to(x.dtype)
+    elif paged and st.paged_kernel:
         # the kernel reads the table's blocks straight out of the pools
         li = st.layer_ids[layer_idx:layer_idx + 1] if x.is_cuda else layer_idx
         out = paged_attention(q.float(), kc, vc, k_t, v_t, st.block_tables, st.lengths,
@@ -202,6 +210,27 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
     else:
         y = qmatmul(att, bp["wo"], use_kernels=use_kernels)
     return (y if residual is None else residual + y), (k_t, v_t)
+
+
+def _ring_attention(q, k_t, v_t, kl, vl, layer_idx: int, st: _Step):
+    """Attention of the chunk against the hot ring (B, hk, R, hs) plus the host's cold
+    partial, merged by log-sum-exp. Slot j's newest committed position is
+    p_j = j + R·floor((start - 1 - j) / R) (< start by construction; negative: never
+    written, masked), so the committed ring covers [max(0, start - R), start) and the
+    host segment [0, max(0, start - R)), with no overlap. Returns (B, T, hq, hs) f32."""
+    start = st.start_pos
+    r = kl.shape[2]
+    slot = torch.arange(r, device=q.device)
+    # a floor quotient: a truncated one would label a never-written slot committed
+    p_j = slot + r * torch.div(start - 1 - slot, r, rounding_mode="floor")
+    key_pos = torch.cat([torch.where(p_j >= 0, p_j, torch.full_like(p_j, 1 << 30)),
+                         st.positions])
+    out_h, lse_h = gqa_attention_lse(q, torch.cat([kl, k_t], dim=2),
+                                     torch.cat([vl, v_t], dim=2), st.positions,
+                                     key_positions=key_pos)
+    out_c, lse_c = st.paged_cold(layer_idx, q.float(), start)
+    return merge_attention_partials(out_h, lse_h, out_c.to(out_h.device),
+                                    lse_c.to(out_h.device))
 
 
 def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = False):
@@ -341,7 +370,7 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             start_pos, *, dtype=torch.float32, use_kernels: bool | str = False,
             attn_window: int | None = None, block_tables: torch.Tensor | None = None,
             block_tokens: int = 0, paged_kernel: bool = False,
-            fused_prologue: bool = False):
+            fused_prologue: bool = False, paged_cold=None):
     """Run T tokens through the model at cache position start_pos.
 
     tokens: (B, T) integer tensor. start_pos: one offset for all rows — an int, or a
@@ -356,6 +385,12 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     it: kernels on, one row of one token at one start_pos for all rows, and a model width
     the prologue kernels take.
 
+    paged_cold (the host KV spill, runtime/paged_cache.py): the caches are the hot ring
+    (L, 1, hk, R, hs) of the R newest positions, and paged_cold(layer, q (B, T, hq, hs)
+    f32, start_pos) -> (out, lse) gives attention's partial over the older history. It
+    needs a scalar start_pos and T <= R; the chunk's rows commit into slots
+    (start_pos + arange(T)) mod R, and forward also returns them for the host store.
+
     Rows of a mixed batch need not use all T positions: a decode row in a (B, T) prefill
     step puts its one real token at index 0 and scratch beyond; causal masking confines
     token 0's attention to the row's committed history plus itself, and the scratch
@@ -363,12 +398,16 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     tokens overwrite them.
 
     Returns (logits (B, T, vocab) f32, k_cache, v_cache) with the chunk's rows committed
-    in place."""
+    in place; with paged_cold also (k_rows, v_rows), the chunk's rows (L, B, hk, T, hs)."""
     dev = tokens.device
     t = tokens.shape[1]
     per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
     if block_tables is not None and not (per_row and block_tokens >= 1):
         raise ValueError("the block-pool layout needs block_tokens and per-row start_pos")
+    if paged_cold is not None and (per_row or block_tables is not None
+                                   or t > k_cache.shape[3]):
+        raise ValueError(f"the hot-ring layout needs a scalar start_pos, dense caches and "
+                         f"a chunk within the {k_cache.shape[3]}-slot ring (T = {t})")
     lengths = layer_ids = None
     if per_row:
         lengths = start_pos.to(device=dev, dtype=torch.int32)
@@ -385,7 +424,7 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     prologue = bool(fused_prologue and use_kernels and t == 1 and tokens.shape[0] == 1
                     and not per_row and prologue_supported(spec.dim))
     st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,
-               block_tokens, paged_kernel, lengths, layer_ids, prologue)
+               block_tokens, paged_kernel, lengths, layer_ids, prologue, paged_cold)
     x = params["embedding"][tokens].to(dtype)
     if spec.arch_type == ArchType.GROK1:
         # the scale in x's dtype, as the JAX package's weakly typed constant
@@ -401,6 +440,12 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     if block_tables is not None:
         commit_paged(k_cache, v_cache, k_new, v_new, positions, block_tables,
                      block_tokens)
+    elif paged_cold is not None:
+        # ring commit: position p into slot p mod R (the chunk may wrap); the rows it
+        # overwrites live on in the host store, which the caller appends these rows to
+        ring = positions % k_cache.shape[3]
+        k_cache.index_copy_(3, ring, k_new)
+        v_cache.index_copy_(3, ring, v_new)
     elif per_row:
         # per-row offsets, each write clamped into the cache as the JAX package's
         # dynamic_update_slice clamps it
@@ -417,6 +462,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     logits = qmatmul(x, params["wcls"], use_kernels=use_kernels, out_dtype=torch.float32)
     if spec.arch_type == ArchType.GROK1:
         logits = logits * GROK_LOGITS_SCALE
+    if paged_cold is not None:
+        return logits, k_cache, v_cache, (k_new, v_new)
     return logits, k_cache, v_cache
 
 

@@ -10,6 +10,8 @@ package's resilience/ gives its engines, with its metric families and flight hoo
   completion-rate estimate behind `Retry-After`;
 - `supervisor.py` — `EngineSupervisor`: a dispatch that hangs past a threshold fails the
   in-flight requests (retriable) and re-initializes the engine.
+- `quiet_http.py` — `QuietServer`, the api_server's ThreadingHTTPServer that prints no
+  traceback for a routine peer disconnect.
 """
 
 from . import faults

@@ -8,7 +8,8 @@ package's resilience/faults.py, with its metric family and flight-recorder hook.
   `device_loop.batched_dispatch` (n_steps), `device_loop.verify_dispatch` (block),
   `api.request` (replica), `constrain.compile` (kind), `constrain.mask` (slot: an error
   degrades that row to unconstrained decoding), `draft.load`, `draft.propose` (rows) and
-  `draft.dispatch` (steps) (an error gives way to n-gram drafting). Every point fires on
+  `draft.dispatch` (steps) (an error gives way to n-gram drafting), `paged.append` (pos)
+  and `paged.cold_attend` (layer) (the host KV spill). Every point fires on
   the host before the device work it guards, never inside a step a CUDA graph captures
   (there it would fire only at the capture).
 - **FaultSpec** says what happens at a point: raise an error (with a declared

@@ -20,6 +20,13 @@ generate_speculative verifies prompt-lookup drafts (runtime/speculative.py) in T
 steps through infer_chunk_logits; a block is padded to its verify bucket (2, 3, 5, 9,
 ...), and on the card with the kernels on each bucket's step is a CUDA graph.
 
+Host KV spill (`kv_cache_storage="host"|"disc"`, runtime/paged_cache.py): the device
+caches are a ring of the `kv_cache_resident` newest positions and a HostKVStore holds the
+whole history. While pos + T <= R (the warm phase) the ring is a plain cache prefix and
+the ordinary steps run (one-token steps as CUDA graphs), the new rows copied into the
+store after each; past it every step runs forward(paged_cold=store.cold_attend) eagerly
+and appends its rows before pos advances.
+
 The engine runs on `cuda` unless the caller passes device="cpu"; without a GPU and
 without device="cpu" it raises. It never moves to the CPU on its own.
 """
@@ -126,7 +133,8 @@ class Engine:
                  prefill_kernel: bool = False, fused_matmul: bool = False,
                  batch: int = 1, kv_pool: tuple[int, int] | None = None,
                  paged_kernel: bool | None = None, fused_prologue: bool | None = None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, kv_cache_storage: str | None = None,
+                 kv_cache_resident: int = 1024, kv_cache_dir: str | None = None):
         self.spec = spec
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
@@ -164,6 +172,27 @@ class Engine:
         # the paged-attention kernel follows use_kernels unless asked for explicitly
         self.paged_kernel = bool(paged_kernel if paged_kernel is not None
                                  else self.use_kernels) and kv_pool is not None
+        # the host KV spill: one rounded resident size drives the fits-check and the ring
+        self.kv_resident = max(64, (kv_cache_resident + 63) // 64 * 64)
+        if kv_cache_storage not in (None, "ram", "host", "disc"):
+            raise ValueError(f"kv_cache_storage {kv_cache_storage!r}: ram, host or disc")
+        self.paged = (kv_cache_storage in ("host", "disc")
+                      and spec.seq_len > self.kv_resident)
+        self.store = None
+        if kv_cache_storage in ("host", "disc") and not self.paged:
+            import sys
+
+            print(f"💡 kv-cache-storage={kv_cache_storage} ignored: the full "
+                  f"seq_len {spec.seq_len} cache fits the {self.kv_resident}-"
+                  "slot resident budget (nothing to page)", file=sys.stderr)
+        if self.paged:
+            if batch != 1 or kv_pool is not None:
+                raise ValueError("the paged KV cache is single-sequence: batch=1 and no "
+                                 "kv_pool")
+            from .paged_cache import HostKVStore
+
+            self.store = HostKVStore(spec, self.kv_resident, storage=kv_cache_storage,
+                                     directory=kv_cache_dir, dtype=self.dtype)
         params = params_to(params, self.device)
         if self.use_kernels:
             params = prepare_for_cuda(params, keep_gate_pair=self.fused_matmul)
@@ -173,6 +202,11 @@ class Engine:
         if kv_pool is not None:
             self.k_cache, self.v_cache = init_kv_pool(spec, *kv_pool, dtype=self.dtype,
                                                       device=self.device)
+        elif self.paged:
+            from .paged_cache import init_ring_cache
+
+            self.k_cache, self.v_cache = init_ring_cache(
+                spec, self.kv_resident, dtype=self.dtype, device=self.device)
         else:
             self.k_cache, self.v_cache = init_kv_cache(spec, batch, dtype=self.dtype,
                                                        device=self.device)
@@ -193,7 +227,8 @@ class Engine:
     def reset_backend(self) -> None:
         """Re-initialize the device side after a wedge (BatchEngine.recover_wedged):
         drop every captured step graph, the device loops and the static step buffers,
-        so each step is captured again at its next use, and zero the KV caches in place.
+        so each step is captured again at its next use, and zero the KV caches (a paged
+        engine's ring; its host store is left as it is) in place.
         The cache tensors keep their storage (a second pool of a large model may not fit
         beside the first while an abandoned thread still holds it), and nothing here
         waits for the device: on a hung stream the zeroing only queues."""
@@ -222,15 +257,42 @@ class Engine:
     _WINDOW_MIN = 256
 
     def _window_for(self, pos_end: int) -> int | None:
-        """Smallest window bucket covering cache positions [0, pos_end)."""
-        return window_bucket(pos_end, self.spec.seq_len, self._WINDOW_MIN)
+        """Smallest window bucket covering cache positions [0, pos_end) (of the ring in
+        paged mode, whose warm phase is the only user there)."""
+        s = self.kv_resident if self.paged else self.spec.seq_len
+        return window_bucket(pos_end, s, self._WINDOW_MIN)
 
     def reset(self) -> None:
         self.pos = 0
 
     def seek(self, pos: int) -> None:
-        """Set the decode position (prefix reuse rewind); the cache keeps every row."""
+        """Set the decode position (prefix reuse rewind); the cache keeps every row.
+
+        Paged mode: after a wrap, ring slots hold rows of the abandoned continuation's
+        later positions, which the slot-position formula would take for earlier rows,
+        so the ring is restored from the host store, in place (captured steps read these
+        tensors): a rollback of fewer than R positions returns each rolled-back slot to
+        its previous occupant (position q - R; a slot with none stays masked), a longer
+        one rebuilds the ring."""
         assert 0 <= pos <= self.pos, f"seek({pos}) past live context {self.pos}"
+        if self.paged and pos < self.pos:
+            r = self.kv_resident
+            if self.pos - pos < r:
+                # the speculative rollback runs this after every rejected draft
+                prev = torch.arange(pos, self.pos) - r
+                prev = prev[prev >= 0]
+                if prev.numel():
+                    slots = (prev % r).to(self.device)
+                    for cache, store in ((self.k_cache, self.store.k),
+                                         (self.v_cache, self.store.v)):
+                        cache.index_copy_(3, slots, store[:, :, :, prev].to(self.device))
+            else:
+                lo = max(0, pos - r)
+                slots = (torch.arange(lo, pos) % r).to(self.device)
+                for cache, store in ((self.k_cache, self.store.k),
+                                     (self.v_cache, self.store.v)):
+                    cache.zero_()
+                    cache.index_copy_(3, slots, store[:, :, :, lo:pos].to(self.device))
         self.pos = pos
 
     def seed_rows(self, start: int, k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
@@ -238,7 +300,7 @@ class Engine:
         [start, start + n) of every batch row, in place (the captured steps read these
         tensors), then move pos forward to start + n: the prefix cache's seed
         (cache/single_slot.py). The one forward move of pos; seek only rewinds."""
-        if self.kv_pool is not None:
+        if self.kv_pool is not None or self.paged:
             raise RuntimeError("seed_rows writes the dense cache layout")
         assert start == self.pos, f"seed at {start} with the live context at {self.pos}"
         end = start + k_rows.shape[2]
@@ -256,6 +318,9 @@ class Engine:
         steps already issued."""
         from ..cache.wire import host_rows
 
+        if self.paged:
+            raise RuntimeError("read_rows reads the dense cache layout; a paged engine's "
+                               "history is its host store")
         return (host_rows(self.k_cache[:, 0, :, t0:t1]),
                 host_rows(self.v_cache[:, 0, :, t0:t1]))
 
@@ -277,18 +342,28 @@ class Engine:
         with trace.span("engine.dispatch", {"t": t, "pos": self.pos}):
             faults.fire("engine.dispatch", t=t, pos=self.pos)
             t0 = time.perf_counter()
-            window = self._window_for(self.pos + t)
-            if t == 1:
-                self._tok1.fill_(int(tokens[0]))
-                self._pos1.fill_(self.pos)
-                logits = self.graphs.run(("step", "logits", window, 1),
-                                         lambda: self._step_t1(window))
+            if self.paged and self.pos + t > self.kv_resident:
+                logits = self._step_paged(tokens)
             else:
-                toks = torch.from_numpy(tokens)[None, :].to(self.device)
-                logits, _, _ = forward(
-                    self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache,
-                    self.pos, dtype=self.dtype, use_kernels=self.use_kernels,
-                    attn_window=window, fused_prologue=self.fused_prologue)
+                window = self._window_for(self.pos + t)
+                if t == 1:
+                    self._tok1.fill_(int(tokens[0]))
+                    self._pos1.fill_(self.pos)
+                    logits = self.graphs.run(("step", "logits", window, 1),
+                                             lambda: self._step_t1(window))
+                else:
+                    toks = torch.from_numpy(tokens)[None, :].to(self.device)
+                    logits, _, _ = forward(
+                        self.params, self.spec, self.rope, toks, self.k_cache,
+                        self.v_cache, self.pos, dtype=self.dtype,
+                        use_kernels=self.use_kernels, attn_window=window,
+                        fused_prologue=self.fused_prologue)
+                if self.paged:
+                    # warm phase: slot == position; the new rows go to the authoritative
+                    # store, which the cold partials read once the ring wraps
+                    self.store.append(self.k_cache[:, :, :, self.pos:self.pos + t],
+                                      self.v_cache[:, :, :, self.pos:self.pos + t],
+                                      self.pos)
             self.pos += t
             out = logits[0].cpu().numpy()  # host transfer: the step's fence
             # a one-token dispatch is decode-shaped whichever loop issued it; decode
@@ -296,6 +371,18 @@ class Engine:
             # token
             (_DISP_PREFILL if t > 1 else _DISP_DECODE).observe(time.perf_counter() - t0)
             return out
+
+    def _step_paged(self, tokens: np.ndarray) -> torch.Tensor:
+        """A paged-phase step, eager: the hot ring's attention merged with the host's
+        cold partial per layer, then the rows appended to the store before pos
+        advances. Returns (1, T, vocab) logits."""
+        toks = torch.from_numpy(tokens)[None, :].to(self.device)
+        logits, _, _, (k_rows, v_rows) = forward(
+            self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache, self.pos,
+            dtype=self.dtype, use_kernels=self.use_kernels,
+            fused_prologue=self.fused_prologue, paged_cold=self.store.cold_attend)
+        self.store.append(k_rows, v_rows, self.pos)
+        return logits
 
     def infer_chunk_logits(self, tokens: list[int] | np.ndarray) -> np.ndarray:
         """infer_chunk, but returns all T positions' logits (T, vocab): the verify step
@@ -305,13 +392,15 @@ class Engine:
         one CUDA graph, per bucket), the padding positions being scratch writes past the
         frontier that every read masks and the caller's seek() rewinds. A block whose
         bucket would pass the end of the cache runs eagerly at its own length, as the
-        BatchEngine's _plan_verify keeps its buckets inside the cache."""
+        BatchEngine's _plan_verify keeps its buckets inside the cache. A paged engine runs
+        every block at its own length, as the JAX engine does: padding would scatter
+        scratch rows into live ring slots that seek() does not restore."""
         tokens = np.asarray(tokens, dtype=np.int64)
         t = len(tokens)
         from .speculative import verify_block_bucket
 
         b = verify_block_bucket(t, self.spec.seq_len)
-        if t == 1 or self.pos + b > self.spec.seq_len:
+        if t == 1 or self.paged or self.pos + b > self.spec.seq_len:
             return self._infer(tokens)
         if self.batch != 1 or self.kv_pool is not None:
             raise RuntimeError("the single-sequence loop needs batch=1 dense caches")
@@ -472,11 +561,17 @@ class Engine:
 
                 print("⚠️  --speculative is greedy-only (temperature 0); falling back "
                       "to the " + ("on-device loop" if device_loop_chunk > 0
-                                   else "sequential host loop")
+                                   and not self.paged else "sequential host loop")
                       + " for sampled requests.", file=sys.stderr)
         if device_loop_chunk > 0:
-            return self.generate_chunked(prompt_tokens, max_tokens, sampler,
-                                         chunk=device_loop_chunk, **kw)
+            if not self.paged:
+                return self.generate_chunked(prompt_tokens, max_tokens, sampler,
+                                             chunk=device_loop_chunk, **kw)
+            import sys
+
+            print("⚠️  --device-loop is incompatible with the paged KV cache (host-store "
+                  "appends happen between dispatches); using the host loop.",
+                  file=sys.stderr)
         return self.generate(prompt_tokens, max_tokens, sampler, **kw)
 
     def _decode_loop(self, chunk: int, mode: str, window: int | None):
@@ -507,6 +602,9 @@ class Engine:
         cache rows past it are overwritten by later writes."""
         from .device_loop import prng_key, split
 
+        if self.paged:
+            raise RuntimeError("the device loop writes a plain cache; a paged engine "
+                               "decodes through the host loop (generate_with)")
         stats = GenerationStats()
         if len(prompt_tokens) > 1:
             self.prefill(prompt_tokens[:-1], stats)

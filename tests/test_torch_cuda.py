@@ -1879,3 +1879,53 @@ def test_drafter_scan_graph_matches_eager(cuda):
     assert outs[0] == outs[1]
     keys = drafters[0].graphs.keys()
     assert keys and all(k[0] == "draft_scan" for k in keys)
+
+
+def _paged_pair(kernels: bool):
+    """A dense and a paged Engine (ring of 64, host store) on the card, f32, on one tiny
+    Q40 model of seq_len 512."""
+    spec = ModelSpec(arch_type=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2,
+                     n_heads=4, n_kv_heads=2, vocab_size=300, seq_len=512).resolved()
+    params = init_random_params(spec, FloatType.Q40, seed=5)
+    kw = dict(device="cuda", dtype=torch.float32, use_kernels=kernels,
+              prefill_kernel=kernels)
+    return (Engine(spec, params, **kw),
+            Engine(spec, params, kv_cache_storage="host", kv_cache_resident=64, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernels", [False, True])
+def test_paged_engine_matches_dense_on_card(cuda, kernels):
+    """The host KV spill on the card in f32 (TF32 off) against the dense engine, chunk by
+    chunk over (64, 8, 1, 1, 7, 1) to 200 positions (the ring wraps twice): 2e-4·max
+    |logits| on the dequantize path (only the attention's order differs); with the kernels
+    on 2e-2·max (a Q80 activation code may cross a rounding boundary between the two
+    attention orders, as in test_engine_kernels_match_cpu_plain)."""
+    dense, paged = _paged_pair(kernels)
+    assert paged.paged and paged.k_cache.shape[3] == 64
+    rng = np.random.default_rng(0)
+    pos, i, mix = 0, 0, (64, 8, 1, 1, 7, 1)
+    while pos < 200:
+        t = min(mix[i % len(mix)], 200 - pos)
+        toks = rng.integers(0, 300, size=t).tolist()
+        want = dense.infer_chunk(toks)
+        got = paged.infer_chunk(toks)
+        tol = (2e-2 if kernels else 2e-4) * np.abs(want).max()
+        assert np.abs(got - want).max() < tol, f"pos {pos}, {t} tokens"
+        pos, i = pos + t, i + 1
+
+
+@pytest.mark.cuda
+def test_paged_engine_keeps_ring_and_projections_on_card(cuda):
+    """Past the ring, a paged step keeps its ring on the card and launches the decode
+    kernels (q4_matvec at one token, q4_matmul for a chunk); only the cold partial and the
+    store are on the host."""
+    _dense, paged = _paged_pair(True)
+    paged.infer_chunk(list(range(3, 67)))  # 64 tokens: the ring is full
+    before = (mv.launches, mm.launches)
+    paged.infer_chunk(list(range(5, 13)))
+    paged.infer_chunk([7])
+    assert mv.launches > before[0] and mm.launches > before[1]
+    assert paged.k_cache.is_cuda and paged.v_cache.is_cuda
+    assert paged.store.k.device.type == "cpu" and paged.pos == 73
+    assert all(t.data.is_cuda for t in paged.params["blocks"].values() if hasattr(t, "data"))
