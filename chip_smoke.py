@@ -148,10 +148,10 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             eager, the device loop's tokens the host loop's, ms/token, idle share and
             busy against the token's byte floor), the distinct experts each layer chose,
             and the peak memory; Mixtral on random Q80 weights (i8, 8 layers: the
-            q8_matvec expert entry's path); Mixtral at 2 layers in f32, card against CPU
+            q8_matvec expert entry's path); Mixtral at 1 layer in f32, card against CPU
             (the Engine, and the fused BatchEngine on 4 staggered requests); Grok-1's
             block at full width (grok1_l2: 2 layers, 16 greedy tokens, graph against
-            eager, and card against CPU in f32)
+            eager; its first layer card against CPU in f32)
   spill     the host KV spill at Llama-2-7B (random Q40 drawn on the card, bf16, kernels
             on, prefill_kernel): Engine(kv_cache_storage="host", kv_cache_resident=512)
             beside a dense Engine on the same weights; a warm run (100-token prompt, 32
@@ -166,6 +166,25 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             the owned temp dir's cleanup; ms/token warm and paged (with the cold
             attention's host share from its span and its GB/s), prefill ms, the dense
             engine's beside them
+  tp        tensor parallelism (parallel/), two ranks on cuda:0 over gloo (host-staged: a
+            wiring figure, not a tensor-parallel speed): q4_matvec, q4_matmul, q8_matvec,
+            decode_attention and the wire's quantize against their plain versions at
+            Llama-2-7B's tp = 2 shard shapes, each timed by the profiler with its
+            weights rotated past the L2 and its bound beside it; (a) 2 layers at 7B
+            width in f32, the parity phase's Q40 and Q80 weights, raw and Q80 wire:
+            tp = 2 on the card against the CPU (tp = 1 for the raw wire, its own tp = 2
+            run over a CPU gloo world for the Q80 wire; engine_parity's tolerances,
+            identical greedy tokens for 8 steps), each rank's launches on the schedule,
+            the counted wire bytes on collective_kbytes_per_token; (b) Llama-2-7B at 32
+            layers (Q40, bf16, prefill_kernel), Q80 and raw wire: a 100-token prompt and
+            32 greedy tokens, ms/token, the wire bytes a token exactly on the model,
+            launches per rank on the schedule, each rank's peak on the card held within
+            its shard + KV + TP_PEAK_MARGIN (the weights drawn into host memory, each
+            Engine repacking and cutting there), the first step's logits against the
+            tp = 1 engine within a set tolerance and where the greedy tokens part; (c)
+            an NCCL world of one (the collectives eager and in a CUDA graph), two NCCL
+            ranks on one card (NCCL's words), NCCL across two cards where the machine
+            has them
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
@@ -188,7 +207,13 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             planes
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers, then with `--device-loop 8
-            --trace`: the trace holds engine.prefill and engine.device_loop spans
+            --trace`: the trace holds engine.prefill and engine.device_loop spans; then
+            `--dtype float32` with and without `--tp 2 --device cuda:0 --dist-backend
+            gloo --buffer-float-type f32`: the same text; then `--tp 2` on the Q80 wire
+            (the default): its text is that of the same generation in a world of 2 on
+            cuda:0, whose logits are held (2e-3·max|logits|, the near-tie rule) against
+            the same wire's world of 2 on the CPU fed its tokens; where its tokens part
+            from tp = 1's, tp = 1's own top-two gap there is logged
 
 When the model, q80, serve, spec, moe and kernels phases all ran, it prints before the
 last line {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
@@ -227,7 +252,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
               "resil", "tenancy", "disagg", "obs", "constrain", "draft", "moe", "spill",
-              "kernels", "cli")
+              "tp", "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -1390,23 +1415,27 @@ def _layer_chain(fmt: str, gen, dev, rate: float) -> None:
         f"chain, the matvecs alone and the graph's replay")
 
 
-def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False, lo: int = 0):
+def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False, lo: int = 0,
+                       to=None):
     """Llama params with random Q40 weights drawn on `dev` directly in the i4p layout
     the kernels take, from a seeded torch.Generator: wqkv, wo, w2, wcls, and either the
     merged w13 (the single-sequence Engine) or the separate w1/w3 of the gate-pair
     kernel (`gate_pair`, the fused serving engine). `lo` as `_random_i4p`'s: nibbles
-    from 1..15 have no bias toward one sign (0..15 centre on -0.5)."""
+    from 1..15 have no bias toward one sign (0..15 centre on -0.5). With `to`, each
+    tensor moves there as soon as it is drawn: the same weights, and `dev` never holds
+    more than one of them."""
     from distributed_llama_tpu_torch.quants import FloatType, QTensor
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, h = spec.n_layers, spec.dim, spec.hidden_dim
+    out = dev if to is None else torch.device(to)
 
     def q40(*shape):
-        return QTensor(FloatType.Q40, *_random_i4p(shape[-2], shape[-1], gen, dev,
-                                                   shape[:-2], lo), layout="i4p")
+        packed, scales = _random_i4p(shape[-2], shape[-1], gen, dev, shape[:-2], lo)
+        return QTensor(FloatType.Q40, packed.to(out), scales.to(out), layout="i4p")
 
     def norm(*shape):
-        return 1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)
+        return (1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)).to(out)
 
     blocks = {"wqkv": q40(L, d + 2 * spec.kv_dim, d), "wo": q40(L, d, d)}
     if gate_pair:
@@ -1414,8 +1443,9 @@ def _random_i4p_params(spec, dev, seed: int, gate_pair: bool = False, lo: int = 
     else:
         blocks["w13"] = q40(L, 2 * h, d)
     blocks.update(w2=q40(L, d, h), rms_att=norm(L, d), rms_ffn=norm(L, d))
-    return {"embedding": 0.02 * torch.randn(spec.vocab_size, d, generator=gen, device=dev),
-            "blocks": blocks, "rms_final": norm(d), "wcls": q40(spec.vocab_size, d)}
+    emb = (0.02 * torch.randn(spec.vocab_size, d, generator=gen, device=dev)).to(out)
+    return {"embedding": emb, "blocks": blocks, "rms_final": norm(d),
+            "wcls": q40(spec.vocab_size, d)}
 
 
 def _random_i8_params(spec, dev, seed: int):
@@ -1438,6 +1468,18 @@ def _random_i8_params(spec, dev, seed: int):
               "rms_ffn": norm(L, d)}
     return {"embedding": 0.02 * torch.randn(spec.vocab_size, d, generator=gen, device=dev),
             "blocks": blocks, "rms_final": norm(d), "wcls": q80(spec.vocab_size, d)}
+
+
+def _first_layer(params):
+    """Params cut to their first layer: every block tensor's leading layer axis."""
+    from distributed_llama_tpu_torch.quants import QTensor
+
+    def cut(t):
+        if isinstance(t, QTensor):
+            return QTensor(t.ftype, t.data[:1], None if t.scales is None else t.scales[:1],
+                           t.layout, t.groups, t.row_groups)
+        return t[:1]
+    return dict(params, blocks={k: cut(v) for k, v in params["blocks"].items()})
 
 
 def _random_moe_params(spec, dev, seed: int, fmt: str = "q40"):
@@ -6267,37 +6309,40 @@ def phase_moe(state: dict) -> None:
                 {"q4_matmul": 18 * L + 1}, "Grok-1 (grok1_l2)")
 
     # card against CPU in f32 on the weights drawn on the card (copied to the host):
-    # grok1_l2, then 2 layers of Mixtral width (the Engine, and the fused BatchEngine).
+    # grok1_l2's first layer, then 1 layer of Mixtral width (the Engine, and the fused
+    # BatchEngine).
     # Each takes the crossing rule (`engine_parity`) and a fed run, which must hold
     # 2e-3·max|logits| and every kernel call to its plain version on the CPU's
     # operands: the card runs of this script found these models' logits moved past
     # 2e-3·max by values that rounded differently (grok1_l2: 3.3e-2 against 7.5e-3, with
     # 1.86M values rounded differently), and the fed run and the router choices show
-    # where that comes from. Depth of the CPU side cut to keep the run short: grok1_l2
-    # prefill + 1 step, Mixtral 4 steps, the serving parity 4 requests x 2 tokens, each
-    # arriving at the previous one's first token.
+    # where that comes from. Depth of the CPU side cut to keep the run short: grok1_l2's
+    # first layer prefill + 1 step, Mixtral width at 1 layer (2 until the tp phase came)
+    # 4 steps, the serving parity 4 requests x 2 tokens, each arriving at the previous
+    # one's first token.
     t0 = time.perf_counter()
-    cpu_params = params_to(params, "cpu")
+    cpu_params = params_to(_first_layer(params), "cpu")
     del params
     torch.cuda.empty_cache()
-    log(f"[moe] parity, grok1_l2, f32, Q40: "
-        f"{engine_parity(spec_g, cpu_params, True, steps=1, fed=True, prefill_kernel=True)}"
-        f" ({time.perf_counter() - t0:.1f} s)")
+    report = engine_parity(_grok1(n_layers=1), cpu_params, True, steps=1, fed=True,
+                           prefill_kernel=True)
+    log(f"[moe] parity, grok1_l2's first layer, f32, Q40: {report} "
+        f"({time.perf_counter() - t0:.1f} s)")
     del cpu_params
-    spec2 = _mixtral_8x7b(n_layers=2)
+    spec2 = _mixtral_8x7b(n_layers=1)
     t0 = time.perf_counter()
     cpu_params = params_to(_random_moe_params(spec2, dev, seed=25), "cpu")
     torch.cuda.empty_cache()
     with _SharedDequant():  # one CPU model for both: its experts decoded once
         report = engine_parity(spec2, cpu_params, True, steps=4, fed=True,
                                prefill_kernel=True)
-        log(f"[moe] parity, 2-layer Mixtral width, f32, Q40: {report} "
+        log(f"[moe] parity, 1-layer Mixtral width, f32, Q40: {report} "
             f"({time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         report = serving_parity(spec=spec2, max_tokens=2, prompt_lens=(8, 9, 1, 8),
                                 crossing_tol=True, after=1, fed=True, params=cpu_params)
     del cpu_params
-    log(f"[moe] parity, 2-layer Mixtral width, f32: {report} "
+    log(f"[moe] parity, 1-layer Mixtral width, f32: {report} "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -6582,6 +6627,523 @@ def phase_spill(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------------------
+# tp: tensor parallelism over torch.distributed (parallel/), two ranks on one card
+# --------------------------------------------------------------------------------------
+
+TP = 2
+TP_STEPS = 8  # (a): greedy steps after the 9-token prompt, as engine_parity
+TP_TOKENS = 32  # (b): greedy tokens after the 100-token prompt
+# (b): the first step's logits against the tp = 1 engine on the card, x max|logits| (bf16
+# roundings of the partial sums and the Q80 wire's steps; PERF.md §6, set before the run)
+TP_FIRST_TOL = {"raw": 5e-2, "q80": 1e-1}
+# (b): what a rank's card may hold beyond its shard and KV caches at its peak, from the
+# Engine's construction through the run: activations, logits, the wire's buffers and
+# the kernels' workspaces (PERF.md §6, set before the run). The whole 7B draw is 3.5 GiB.
+TP_PEAK_MARGIN = 512 << 20
+# the decode shard shapes of Llama-2-7B at tp = 2 as (N, K): wqkv, wo, w13, w2, wcls
+SHAPES_7B_TP2 = ((6144, 4096), (4096, 2048), (11008, 4096), (4096, 5504), (16000, 4096))
+
+
+def _tp_prompt9() -> list[int]:
+    return [1] + [int(t) for t in np.random.RandomState(3).randint(3, 32000, 8)]
+
+
+def _tp_params(weights: str, dev):
+    """(a)'s weights, drawn again by every rank from their seeds: the parity phase's Q40
+    set, or its Q80 set."""
+    spec = _llama2_7b(n_layers=2)
+    if weights == "q40":
+        return spec, _random_i4p_params(spec, dev, seed=7)
+    return spec, _random_i8_params(spec, dev, seed=9)
+
+
+def _wire_launches(t: int, spec, tp: int) -> int:
+    """Kernel 11's launches in one forward step of t tokens on the Q80 wire: two merge
+    points a layer, each quantizing the (t, dim) partial and the (t, dim/tp) reduced
+    chunk in pieces of at most the prologue's row."""
+    from distributed_llama_tpu_torch.ops import prologue_plan
+
+    def pieces(n):
+        return -(-n // prologue_plan.MAX_K)
+    return 2 * spec.n_layers * (pieces(t * spec.dim) + pieces(t * spec.dim // tp))
+
+
+def _mm_launches(spec, tp: int) -> int:
+    """q4_matmul's launches in one M > 1 step of a rank: the projections whose shard
+    passes the card's route gate (ops/matmul.py q4_mm_supported: K a multiple of 64, as
+    csrc/q4_matmul.cu takes it), at tp = 2 all four, w2's K = 5504 included, and
+    wcls."""
+    ks = (spec.dim, spec.dim // tp, spec.dim, spec.hidden_dim // tp)  # wqkv wo w13 w2
+    return spec.n_layers * sum(k % 64 == 0 for k in ks) + 1  # + wcls
+
+
+def tp_rank_parity(mesh, cases):
+    """(a) on one rank: each case (weights, compress, feed) runs the 9-token prompt and
+    TP_STEPS one-token steps in f32 with the kernels (their plain versions on the CPU),
+    feeding `feed`'s tokens (None: its own greedy picks). Returns per case rank 0's
+    logits of every step, the tokens fed, this rank's launches and counted wire bytes."""
+    from distributed_llama_tpu_torch.parallel.collectives import broadcast_int
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(4)
+    counters = _single_counters()
+    out = []
+    for weights, compress, feed in cases:
+        spec, params = _tp_params(weights, torch.device("cpu"))
+        eng = Engine(spec, params, mesh=mesh, dtype=torch.float32, use_kernels=True,
+                     prefill_kernel=True, compress_collectives=compress)
+        del params
+        _zero(counters)
+        logits = [eng.prefill(_tp_prompt9())]
+        fed, sent = [], 0.0
+        for step in range(TP_STEPS):
+            tok = feed[step] if feed is not None else broadcast_int(
+                int(np.argmax(logits[-1])), mesh)
+            fed.append(tok)
+            with mesh.counter.window() as traffic:
+                logits.append(eng.infer_chunk([tok]))
+            sent += traffic.sent_bytes_per_device
+        out.append({"logits": logits if mesh.rank == 0 else None, "tokens": fed,
+                    "launches": _read(counters), "bytes_per_step": sent / TP_STEPS})
+        del eng
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor (QTensor data and scales) in a params dict."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if hasattr(tree, "nbytes") and callable(tree.nbytes):
+        return tree.nbytes()
+    return tree.numel() * tree.element_size()
+
+
+def tp_rank_full(mesh, wires):
+    """(b) on one rank: Llama-2-7B (the model phase's seed) drawn on the card tensor by
+    tensor into host memory, as Engine.load holds a `.m` file, then for each wire an
+    Engine on the card from those host weights: bf16, prefill_kernel, the 100-token
+    prompt and TP_TOKENS greedy tokens, ms per one-token step (this rank's wall, the
+    logits on the host), the counted wire bytes of every step, launches against the
+    schedule, and the card's memory from the Engine on: resident, peak, and what the
+    rank must hold (its shard and its KV caches)."""
+    from distributed_llama_tpu_torch.parallel.collectives import broadcast_int
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    spec = _llama2_7b()
+    dev = mesh.device
+    counters = _single_counters()
+    host = _random_i4p_params(spec, dev, seed=11, to="cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for wire in wires:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        eng = Engine(spec, host, mesh=mesh, prefill_kernel=True,
+                     compress_collectives=wire == "q80")
+        load_s = time.perf_counter() - t0
+        gc.collect()
+        resident = torch.cuda.memory_allocated(dev) - base  # shard, caches, tables
+        held = (_tree_bytes(eng.params) + eng.k_cache.numel() * eng.k_cache.element_size()
+                + eng.v_cache.numel() * eng.v_cache.element_size())
+        eng.collective_stats()  # the decode step's traffic (a probe step at position 0)
+        _zero(counters)
+        t0 = time.perf_counter()
+        logits = eng.prefill(_prompt_100(spec))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first = logits if mesh.rank == 0 else None
+        prefill_launches = _read(counters)
+        _zero(counters)
+        tokens, ms, sent = [], [], 0.0
+        for _ in range(TP_TOKENS):
+            tok = broadcast_int(int(np.argmax(logits)), mesh)
+            tokens.append(tok)
+            t0 = time.perf_counter()
+            with mesh.counter.window() as traffic:
+                logits = eng.infer_chunk([tok])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            sent += traffic.sent_bytes_per_device
+        out[wire] = {"first": first, "tokens": tokens, "ms": ms, "prefill_ms": prefill_ms,
+                     "bytes_per_token": sent / TP_TOKENS,
+                     "counted": eng.collective_stats().sent_bytes_per_device,
+                     "prefill_launches": prefill_launches, "launches": _read(counters),
+                     "resident": resident, "held": held, "load_s": load_s,
+                     "peak": torch.cuda.max_memory_allocated(dev) - base}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_nccl_one(mesh):
+    """(c): an NCCL world of one on this card: the port's all-reduce, Q80 two-phase wire
+    and logits gather over the one-member group (a real collective each: the public
+    entries return x for one member), eager and captured in a CUDA graph, then replayed
+    on new inputs."""
+    import torch.distributed as dist
+
+    from distributed_llama_tpu_torch.parallel import collectives as coll
+    from distributed_llama_tpu_torch.parallel.mesh import Mesh
+
+    m = Mesh(rank=0, shape=dict(mesh.shape), group=dist.group.WORLD, device=mesh.device,
+             backend=dist.get_backend())
+    gen = torch.Generator(device=mesh.device).manual_seed(3)
+    x = torch.randn(1, 1, 4096, generator=gen, device=mesh.device).to(torch.bfloat16)
+    lg = torch.randn(1, 1, 16000, generator=gen, device=mesh.device)
+
+    def step():
+        return (coll._all_reduce_f32(x, m), coll._two_phase(x, m), coll._gather_last(lg, m))
+
+    def want():
+        v, s = coll.wire_quantize(x)
+        v, s = coll.wire_quantize(coll.wire_dequantize(v, s))
+        return x, coll.wire_dequantize(v, s).reshape(x.shape).to(x.dtype), lg
+
+    def same(got, ref):
+        return all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    eager = same(step(), want())
+    side = torch.cuda.Stream(mesh.device)
+    side.wait_stream(torch.cuda.current_stream(mesh.device))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(mesh.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    x.copy_(torch.randn(x.shape, generator=gen, device=mesh.device))
+    lg.copy_(torch.randn(lg.shape, generator=gen, device=mesh.device))
+    graph.replay()
+    torch.cuda.synchronize(mesh.device)
+    return {"eager": eager, "graph": same(outs, want())}
+
+
+def _nccl_pair_one_card(q, rank: int, rendezvous: str) -> None:
+    """One of two NCCL ranks on cuda:0: what NCCL says."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=rendezvous, rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60),
+                                device_id=torch.device("cuda:0"))
+        t = torch.ones(8, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        q.put((rank, f"ran: all_reduce gave {float(t[0])}"))
+        dist.destroy_process_group()
+    except Exception as e:  # the words are the result: reported, and the phase goes on
+        q.put((rank, " / ".join(str(e).strip().splitlines()[-2:])))
+
+
+def _tp_held(tag: str, got: list, want: list, tol_rel: float = 2e-3) -> tuple[float, list]:
+    """engine_parity's rule on a tp run's logits against a reference's, the run fed the
+    reference's tokens: every step within tol_rel·max|logits|, and the same greedy pick
+    unless the reference's own logit of the run's pick lies within that tolerance of its
+    top (a near-tie, serving_parity's rule). Returns the worst max|Δ|/max|ref| and the
+    near-tie steps."""
+    worst, ties = 0.0, []
+    for step, (g, w) in enumerate(zip(got, want)):
+        err, scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+        worst = max(worst, err / scale)
+        if err > tol_rel * scale or not np.isfinite(g).all():
+            raise AssertionError(f"[tp] {tag} step {step}: max|Δlogits| {err:.3e} > "
+                                 f"{tol_rel:.0e}·{scale:.3e}")
+        pick = int(np.argmax(g))
+        if pick != int(np.argmax(w)):
+            gap = float(w.max() - w[pick])
+            if gap > tol_rel * scale:
+                raise AssertionError(f"[tp] {tag}: greedy picks part at step {step}, the "
+                                     f"reference's top two {gap:.3e} apart")
+            ties.append((step, round(gap / scale, 6)))
+    return worst, ties
+
+
+def _tp_cpu_reference(weights: str) -> tuple[list, list]:
+    """(a)'s tp = 1 reference on the CPU with the plain versions: the logits of every
+    step and its greedy tokens."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    spec, params = _tp_params(weights, torch.device("cpu"))
+    eng = Engine(spec, params, device="cpu", dtype=torch.float32, use_kernels=True,
+                 prefill_kernel=True)
+    logits, toks = [eng.prefill(_tp_prompt9())], []
+    for _ in range(TP_STEPS):
+        toks.append(int(np.argmax(logits[-1])))
+        logits.append(eng.infer_chunk([toks[-1]]))
+    return logits, toks
+
+
+def _tp_shard_kernels(gen, dev, rate: float) -> None:
+    """The kernels this slice runs, each against its plain version at Llama-2-7B's tp = 2
+    shard shapes (the kernels phase's tolerances) and timed as the kernels phase times
+    them: torch.profiler's device time, one launch a call, the weights (and caches)
+    rotated past the L2, a bound beside each. q4_matvec and q8_matvec (bf16 row and
+    output) and q4_matmul (M = 64, bf16) on every decode projection's shard,
+    decode_attention over a rank's 16 of 32 heads, and the wire's quantize at a one-token
+    partial (4096), its reduced chunk (2048) and a whole prefill piece (65536), the card
+    synchronized after each call (its launch is programmatic)."""
+    from distributed_llama_tpu_torch.ops import decode_attention as da
+    from distributed_llama_tpu_torch.ops import prologue as pro
+    from distributed_llama_tpu_torch.ops import q4_matmul as mm
+    from distributed_llama_tpu_torch.ops import q4_matvec as mv
+    from distributed_llama_tpu_torch.ops import q8_matvec as q8
+
+    rows = []
+
+    def row(what, err, dv, plain, nbytes, ops, peak):
+        bnd = bound(nbytes, ops, peak, rate)
+        rows.append(f"{what}: max|err| {err:.2e}, device {dv:.5f} ms, plain {plain:.4f} "
+                    f"ms, bound {bnd[0]:.3g} ms ({bnd[1]}), {bnd[0] / dv:.3f} of it")
+
+    for n, k in SHAPES_7B_TP2:
+        wbytes = n * k // 2 + n * k // 32 * 2
+        copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
+        ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
+        x = _test_row(k, gen, dev, BF16)
+        err, _ = _bf16_err(mv._launch(x, *ws[0], BF16), mv.q4_matvec_plain(x, *ws[0]), 1e-4)
+        dv = _one_launch_time(lambda i: mv._launch(x, *ws[i % copies], BF16), 50,
+                              "q4_matvec_kernel")[1]
+        plain = _all_kernels_ms(lambda i: mv.q4_matvec_plain(x, *ws[i % copies]), 5)
+        row(f"q4_matvec N={n} K={k}", err, dv, plain, wbytes + k * 2 + n * 2, 2 * n * k,
+            "int8")
+        xm = torch.randn(64, k, generator=gen, device=dev).to(BF16)
+        err, _ = _bf16_err(mm._launch(xm, *ws[0], out_dtype=BF16),
+                           mm.q4_matmul_plain(xm, *ws[0]))
+        dv = _one_launch_time(lambda i: mm._launch(xm, *ws[i % copies], out_dtype=BF16),
+                              20, "q4_matmul_tc_kernel")[1]
+        plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(xm, *ws[i % copies]), 3)
+        row(f"q4_matmul M=64 N={n} K={k}", err, dv, plain,
+            wbytes + 64 * k * 2 + 64 * n * 2, 2 * 64 * n * k, "bf16")
+        del ws
+        w8bytes = n * k + n * k // 32 * 4
+        copies = max(1, min(16, math.ceil(2 * L2_BYTES / w8bytes)))
+        w8s = [_random_i8(gen, dev, n, k) for _ in range(copies)]
+        err, _ = _bf16_err(q8._launch(x, *w8s[0], False, BF16),
+                           q8.q8_matvec_plain(x, *w8s[0]), 1e-4)
+        dv = _one_launch_time(lambda i: q8._launch(x, *w8s[i % copies], False, BF16), 50,
+                              "q8_matvec_kernel")[1]
+        plain = _all_kernels_ms(lambda i: q8.q8_matvec_plain(x, *w8s[i % copies]), 5)
+        row(f"q8_matvec N={n} K={k}", err, dv, plain, w8bytes + k * 2 + n * 2, 2 * n * k,
+            "int8")
+        del w8s
+    hk, hs, s_len, n_layers = 16, 128, 2048, 8  # 8 layers of caches: 128 MiB, past the L2
+    layers = [torch.tensor([li], dtype=torch.int32, device=dev) for li in range(n_layers)]
+    kc = torch.randn(n_layers, 1, hk, s_len, hs, generator=gen, device=dev).to(BF16)
+    vc = torch.randn(n_layers, 1, hk, s_len, hs, generator=gen, device=dev).to(BF16)
+    q = torch.randn(hk, 1, hs, generator=gen, device=dev)
+    kn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(BF16)
+    vn = torch.randn(hk, 1, hs, generator=gen, device=dev).to(BF16)
+    for pos, win in ((131, 256), (1027, 2048)):
+        pt = torch.tensor([pos], dtype=torch.int64, device=dev)
+        y = da._launch(q, kc, vc, kn, vn, layers[2], pt, win)
+        ref = da.decode_attention_plain(q, kc, vc, kn, vn, 2, pos, win)
+        err, tol = float((y - ref).abs().max()), 1e-4 * float(ref.abs().max())
+        if err > tol or not torch.isfinite(y).all():
+            raise AssertionError(f"[tp] decode_attention 16 heads pos {pos}: {err:.3e}")
+        dv = _one_launch_time(
+            lambda i: da._launch(q, kc, vc, kn, vn, layers[i % n_layers], pt, win), 50,
+            "decode_attn_kernel")[1]
+        plain = _all_kernels_ms(lambda i: da.decode_attention_plain(
+            q, kc, vc, kn, vn, i % n_layers, pos, win), 10)
+        nbytes = 2 * hk * pos * hs * 2 + q.numel() * 4 + 2 * hk * hs * 2 + y.numel() * 4
+        row(f"decode_attention 16 heads pos {pos} win {win}", err, dv, plain, nbytes,
+            2 * 4 * hk * (pos + 1) * hs, "bf16")
+    del kc, vc
+    for k in (4096, 2048, 65536):
+        xs = [torch.randn(k, generator=gen, device=dev) for _ in range(4)]
+        xq, sx = pro.quantize_q80_row(xs[0])
+        pq, ps = pro.quantize_q80_plain(xs[0])
+        if not (torch.equal(xq[0], pq) and torch.equal(sx[0], ps)):
+            raise AssertionError(f"[tp] quantize_q80 K={k}: not bit-identical to plain")
+        dv = _synced_time(lambda i: pro.quantize_q80_row(xs[i % 4]), 50,
+                          ("prologue_kernel",))
+        plain = _all_kernels_ms(lambda i: pro.quantize_q80_plain(xs[i % 4]), 10)
+        row(f"quantize_q80 K={k} (exact)", 0.0, dv, plain, k * 4 + k + k // 32 * 4, 3 * k,
+            "f32")
+    log("[tp] shard-shape kernels against their plain versions, device times from the "
+        "profiler, weights rotated past the L2: " + "; ".join(rows))
+
+
+def phase_tp(state: dict) -> None:
+    """Tensor parallelism on one card: (a) f32 parity of two ranks on cuda:0 over gloo
+    against the CPU, (b) Llama-2-7B at full depth with tp = 2, (c) NCCL. Two ranks
+    time-slice one card and their wire is staged through the host: the times are a
+    wiring figure, not a tensor-parallel speed."""
+    import multiprocessing
+
+    from distributed_llama_tpu_torch.parallel import launch
+    from distributed_llama_tpu_torch.runtime.engine import (Engine, GenerationStats,
+                                                            collective_kbytes_per_token)
+
+    dev = torch.device("cuda")
+    _tp_shard_kernels(torch.Generator(device=dev).manual_seed(17), dev, state["rate"])
+
+    # (a) f32 parity, 2 layers at full 7B width, raw and Q80 wire, Q40 and Q80 weights
+    t0 = time.perf_counter()
+    ref1 = {w: _tp_cpu_reference(w) for w in ("q40", "q80")}
+    # the Q80 wire's own CPU run (tp = 2 over gloo, plain versions): its numerics are the
+    # wire's, which tp = 1 has not
+    ref2 = launch.run("chip_smoke:tp_rank_parity", TP, "cpu",
+                      args=([("q40", True, None), ("q80", True, None)],), deadline=600)
+    cases = [("q40", False, ref1["q40"][1]), ("q40", True, ref2[0][0]["tokens"]),
+             ("q80", False, ref1["q80"][1]), ("q80", True, ref2[0][1]["tokens"])]
+    card = launch.run("chip_smoke:tp_rank_parity", TP, "cuda:0", backend="gloo",
+                      args=(cases,), deadline=600)
+    spec2 = _llama2_7b(n_layers=2)
+    matvec = {"q40": "q4_matvec", "q80": "q8_matvec"}
+    for i, (weights, compress, _) in enumerate(cases):
+        tag = f"{weights.upper()} weights, {'Q80' if compress else 'raw'} wire"
+        # the Q40 weights' rule is 2e-3; Q80 weights take engine_parity's crossing
+        # rule's 2e-2: the tp split sums each projection in another f32 order than one
+        # card, and q8_matvec quantizes every activation row to Q80, where a value within
+        # an ulp of a rounding boundary moves a code
+        tol = 2e-3 if weights == "q40" else 2e-2
+        want = ref2[0][i // 2]["logits"] if compress else ref1[weights][0]
+        worst, ties = _tp_held(f"(a) {tag}", card[0][i]["logits"], want, tol)
+        wire_note = ""
+        if compress:
+            # the Q80 wire against tp = 1: the wire's own error, over the steps whose
+            # fed history is still tp = 1's (the wire's greedy tokens may part from it)
+            fed, toks1 = card[0][i]["tokens"], ref1[weights][1]
+            part = next((k for k, (a, b) in enumerate(zip(fed, toks1)) if a != b), None)
+            upto = TP_STEPS + 1 if part is None else part + 1
+            dev1 = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in
+                       zip(card[0][i]["logits"][:upto], ref1[weights][0][:upto]))
+            wire_note = (f"; against the CPU's tp=1 {dev1:.3e}·max over the first {upto} "
+                         f"steps, the wire's greedy tokens "
+                         + ("tp=1's" if part is None else f"part from tp=1's at step {part}"))
+        steps = TP_STEPS + 1  # the 1-token tail of the prompt and the fed steps
+        per = 4 * spec2.n_layers + 1
+        sched = {matvec[weights]: steps * per, "decode_attention": steps * spec2.n_layers,
+                 "q4_matmul": _mm_launches(spec2, TP) if weights == "q40" else 0,
+                 "quantize_q80": (_wire_launches(8, spec2, TP) + steps
+                                  * _wire_launches(1, spec2, TP)) if compress else 0}
+        for r in range(TP):
+            got = {k: card[r][i]["launches"][k] for k in sched}
+            if got != sched:
+                raise AssertionError(f"[tp] (a) {tag} rank {r}: launches {got}, "
+                                     f"schedule {sched}")
+        model = collective_kbytes_per_token(spec2, TP, compress) * 1024
+        if any(card[r][i]["bytes_per_step"] != model for r in range(TP)):
+            raise AssertionError(f"[tp] (a) {tag}: counted bytes "
+                                 f"{[c[i]['bytes_per_step'] for c in card]} != {model}")
+        log(f"[tp] (a) 2-layer Llama-2-7B width, f32, {tag}, 2 ranks on cuda:0 over gloo "
+            f"against the CPU {'tp=2 run of the same wire' if compress else 'tp=1 run'}: "
+            f"9-token prompt + {TP_STEPS} steps, greedy picks "
+            + (f"identical but at near-ties (step, gap/max) {ties}" if ties
+               else "identical")
+            + f", worst max|Δlogits|/max {worst:.3e} (rule {tol:.0e}){wire_note}; "
+            f"launches per rank {json.dumps(sched)}; wire {model:.0f} B a step")
+    log(f"[tp] (a) done in {time.perf_counter() - t0:.1f} s")
+
+    # (b) Llama-2-7B at 32 layers, bf16, tp = 2 on cuda:0, Q80 wire and raw wire
+    t0 = time.perf_counter()
+    spec = _llama2_7b()
+    ref = Engine(spec, _random_i4p_params(spec, dev, seed=11), prefill_kernel=True)
+    first1 = ref.prefill(_prompt_100(spec))
+    toks1 = ref._decode(first1, TP_TOKENS, _CheckedSampler(spec.vocab_size),
+                        GenerationStats())
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = launch.run("chip_smoke:tp_rank_full", TP, "cuda:0", backend="gloo",
+                      args=(("q80", "raw"),), deadline=900)
+    per, L = 4 * spec.n_layers + 1, spec.n_layers
+    for wire in ("q80", "raw"):
+        r0 = full[0][wire]
+        model = collective_kbytes_per_token(spec, TP, wire == "q80") * 1024
+        sched = {"q4_matvec": TP_TOKENS * per, "decode_attention": TP_TOKENS * L,
+                 "quantize_q80": TP_TOKENS * _wire_launches(1, spec, TP)
+                 if wire == "q80" else 0}
+        pre = {"q4_matmul": 5 * _mm_launches(spec, TP), "q4_matvec": 4 * per,
+               "decode_attention": 4 * L,
+               "quantize_q80": (_wire_launches(64, spec, TP) + 4 * _wire_launches(8, spec, TP)
+                                + 4 * _wire_launches(1, spec, TP)) if wire == "q80" else 0}
+        for r in range(TP):
+            row = full[r][wire]
+            got = {k: row["launches"][k] for k in sched}
+            got_pre = {k: row["prefill_launches"][k] for k in pre}
+            if got != sched or got_pre != pre:
+                raise AssertionError(f"[tp] (b) {wire} rank {r}: launches {got} / prefill "
+                                     f"{got_pre}, schedule {sched} / {pre}")
+            if row["bytes_per_token"] != model or row["counted"] != model:
+                raise AssertionError(f"[tp] (b) {wire} rank {r}: counted "
+                                     f"{row['bytes_per_token']} B a token, model {model}")
+            if row["tokens"] != r0["tokens"]:
+                raise AssertionError(f"[tp] (b) {wire}: ranks decoded different tokens")
+            if row["peak"] > row["held"] + TP_PEAK_MARGIN:
+                raise AssertionError(
+                    f"[tp] (b) {wire} rank {r}: peak {row['peak'] / 2**30:.3f} GiB on the "
+                    f"card against its shard and KV caches {row['held'] / 2**30:.3f} GiB "
+                    f"+ {TP_PEAK_MARGIN / 2**30:.2f}")
+        err = float(np.abs(r0["first"] - first1).max() / np.abs(first1).max())
+        if err > TP_FIRST_TOL[wire] or not np.isfinite(r0["first"]).all():
+            raise AssertionError(f"[tp] (b) {wire}: first-step logits {err:.3e}·max from "
+                                 f"tp=1, tolerance {TP_FIRST_TOL[wire]}")
+        part = next((i for i, (a, b) in enumerate(zip(r0["tokens"], toks1)) if a != b),
+                    None)
+        ms = np.array(r0["ms"])
+        log(f"[tp] (b) Llama-2-7B 32 layers bf16 Q40, tp=2 ({wire} wire), two ranks "
+            f"time-slicing cuda:0 over gloo (host-staged: a wiring figure, not a tp "
+            f"speed): 100-token prompt {r0['prefill_ms']:.1f} ms, {TP_TOKENS} greedy "
+            f"tokens {ms.mean():.3f} ms/token (rank 0 wall; min {ms.min():.3f}, median "
+            f"{np.median(ms):.3f}, max {ms.max():.3f}); wire {r0['bytes_per_token']:.1f} B a "
+            f"token = collective_kbytes_per_token {model / 1024:.1f} kB (exact); launches "
+            f"per rank on the schedule {json.dumps(sched)} + prefill {json.dumps(pre)}; "
+            f"first-step logits {err:.3e}·max from tp=1 (tolerance {TP_FIRST_TOL[wire]}); "
+            f"greedy tokens part from tp=1 at "
+            f"{'none of ' + str(TP_TOKENS) if part is None else 'position ' + str(part)}; "
+            f"memory per rank on the card, the Engine built from host weights in "
+            + ", ".join(f"{full[r][wire]['load_s']:.1f}" for r in range(TP))
+            + " s: shard + KV caches "
+            + ", ".join(f"{full[r][wire]['held'] / 2**30:.3f}" for r in range(TP))
+            + " GiB, resident "
+            + ", ".join(f"{full[r][wire]['resident'] / 2**30:.3f}" for r in range(TP))
+            + " GiB, peak " + ", ".join(f"{full[r][wire]['peak'] / 2**30:.3f}"
+                                        for r in range(TP))
+            + f" GiB (held within shard + KV + {TP_PEAK_MARGIN / 2**30:.2f} GiB)")
+    log(f"[tp] (b) done in {time.perf_counter() - t0:.1f} s")
+
+    # (c) NCCL: a world of one, eager and captured; two ranks on one card; two cards
+    t0 = time.perf_counter()
+    one = launch.run("chip_smoke:tp_rank_nccl_one", 1, "cuda:0", backend="nccl",
+                     deadline=300)[0]
+    if not (one["eager"] and one["graph"]):
+        raise AssertionError(f"[tp] (c) NCCL world of one: {one}")
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_nccl_pair_one_card,
+                             args=(q, r, "file://" + os.path.join(tmp, "rdv")))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        words = dict(q.get(timeout=120) for _ in procs)
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    log(f"[tp] (c) NCCL world of one on cuda:0: all-reduce, the Q80 two-phase wire and "
+        f"the logits gather bit-exact eager and in a CUDA graph replayed on new inputs; "
+        f"two NCCL ranks on cuda:0: rank 0 {words[0]!r}; rank 1 {words[1]!r}")
+    if torch.cuda.device_count() >= 2:
+        across = launch.run("chip_smoke:tp_rank_parity", TP, ["cuda:0", "cuda:1"],
+                            backend="nccl", args=(cases[:1],), deadline=600)
+        worst, _ = _tp_held("(c) NCCL cuda:0 + cuda:1", across[0][0]["logits"],
+                            ref1["q40"][0])
+        log(f"[tp] (c) (a)'s Q40 raw-wire case over NCCL on cuda:0 and cuda:1: worst "
+            f"{worst:.3e}")
+    else:
+        log(f"[tp] (c) NCCL across cards not run: torch.cuda.device_count() is "
+            f"{torch.cuda.device_count()} on this machine")
+    log(f"[tp] (c) done in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_cli(state: dict) -> None:
     from distributed_llama_tpu_torch.formats.mfile import params_file_order, write_model
     from distributed_llama_tpu_torch.formats.tfile import TokenizerData, write_tokenizer
@@ -6603,8 +7165,11 @@ def phase_cli(state: dict) -> None:
                "--model", mpath, "--tokenizer", tpath, "--steps", "16", "--prompt",
                "hello", "--temperature", "0", "--seed", "1"]
         tpath_json = os.path.join(tmp, "trace.json")
+        f32 = cmd + ["--dtype", "float32"]
+        tp2 = f32 + ["--tp", "2", "--device", "cuda:0", "--dist-backend", "gloo"]
         runs = [subprocess.run(c, cwd=ROOT, capture_output=True, timeout=300)
-                for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json])]
+                for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json], f32,
+                          tp2 + ["--buffer-float-type", "f32"], tp2)]
         for res in runs:
             # random weights emit arbitrary byte pieces: decode leniently
             out = res.stdout.decode("utf-8", "replace")
@@ -6614,12 +7179,93 @@ def phase_cli(state: dict) -> None:
         with open(tpath_json) as f:
             spans = collections.Counter(e["name"] for e in json.load(f)["traceEvents"]
                                         if e.get("ph") == "X")
+        texts = [r.stdout.rstrip(b"\n").split(b"\n")[-1] for r in runs]
+        q80_note = _cli_q80_wire(mpath, tpath, texts[4], texts[2])
     if not spans["engine.prefill"] or not spans["engine.device_loop"]:
         raise AssertionError(f"cli: dllama --trace wrote the spans {dict(spans)}")
     out = runs[0].stdout.decode("utf-8", "replace")
     loaded = [ln for ln in out.splitlines() if ln.startswith("⏩")]
+    text1, text2 = texts[2:4]
+    if text1 != text2:
+        raise AssertionError(f"cli: --tp 2 printed {text2!r}, --tp 1 {text1!r}")
+    loaded2 = [ln for ln in runs[3].stdout.decode("utf-8", "replace").splitlines()
+               if ln.startswith("⏩")]
     log(f"[cli] dllama generate exited 0: {loaded[0] if loaded else out[-200:]!r}; "
-        f"with --device-loop 8 --trace: spans {json.dumps(dict(spans))}")
+        f"with --device-loop 8 --trace: spans {json.dumps(dict(spans))}; --tp 2 --device "
+        f"cuda:0 --dist-backend gloo --dtype float32 --buffer-float-type f32 "
+        f"({loaded2[0] if loaded2 else ''}) printed --tp 1's f32 text; the same on the "
+        f"Q80 wire (the CLI's default): {q80_note}")
+
+
+CLI_STEPS = 16  # the cli phase's generated tokens
+
+
+def cli_rank_q80(mesh, mpath: str, tpath: str, feed):
+    """The cli phase's Q80-wire generation on one rank as `dllama generate --tp 2 --dtype
+    float32 --temperature 0 --prompt hello` runs it (Engine.load on the rank's mesh,
+    the kernels on (their plain versions on the CPU), the Q80 wire): rank 0's greedy
+    picks broadcast, or `feed`'s tokens where given. Returns the tokens, the text the
+    CLI prints for them, and on rank 0 the logits each token was picked from."""
+    from distributed_llama_tpu_torch.parallel.collectives import broadcast_int
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(4)
+    eng = Engine.load(mpath, tpath, mesh=mesh, dtype=torch.float32, use_kernels=True,
+                      compress_collectives=True)
+    tok = eng.tokenizer
+    prompt = tok.encode("hello", add_bos=True)
+    logits, toks = [eng.prefill(prompt)], []
+    for step in range(CLI_STEPS):
+        toks.append(feed[step] if feed is not None
+                    else broadcast_int(int(np.argmax(logits[-1])), mesh))
+        if step + 1 < CLI_STEPS:
+            logits.append(eng.infer_chunk([toks[-1]]))
+    text, prev = b"", prompt[-1]
+    for t in toks:
+        text, prev = text + tok.decode_piece(prev, t), t
+    return {"tokens": toks, "text": text, "logits": logits if mesh.rank == 0 else None}
+
+
+def _cli_q80_wire(mpath: str, tpath: str, printed: bytes, printed_tp1: bytes) -> str:
+    """The card's Q80-wire CLI text, held: the same generation in a world of 2 on
+    cuda:0 must print it; that run's logits, held by `_tp_held` (2e-3·max|logits|, the
+    near-tie rule) against the same wire's world of 2 on the CPU fed the same tokens;
+    where its tokens part from tp = 1's (the CPU, fed the same tokens), tp = 1's own
+    top-two gap there and the wire's deviation, logged. Returns the log's note."""
+    from distributed_llama_tpu_torch.parallel import launch
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    card = launch.run("chip_smoke:cli_rank_q80", 2, "cuda:0", backend="gloo",
+                      args=(mpath, tpath, None), deadline=300)
+    if any(r["text"] != printed for r in card):
+        raise AssertionError(f"cli: the Q80 wire's CLI printed {printed!r}, the same run "
+                             f"in a world of 2 {card[0]['text']!r}")
+    toks = card[0]["tokens"]
+    cpu = launch.run("chip_smoke:cli_rank_q80", 2, "cpu", args=(mpath, tpath, toks),
+                     deadline=300)
+    worst, ties = _tp_held("cli Q80 wire, the card against the CPU", card[0]["logits"],
+                           cpu[0]["logits"])
+    eng = Engine.load(mpath, tpath, device="cpu", dtype=torch.float32, use_kernels=True)
+    ref = [eng.prefill(eng.tokenizer.encode("hello", add_bos=True))]
+    for t in toks[:-1]:
+        ref.append(eng.infer_chunk([t]))
+    part = next((i for i, (t, w) in enumerate(zip(toks, ref)) if t != int(np.argmax(w))),
+                None)
+    if part is None:
+        wire1 = "its tokens are tp=1's"
+    else:
+        w, g = ref[part], card[0]["logits"][part]
+        scale = float(np.abs(w).max())
+        wire1 = (f"its pick parts from tp=1's at step {part} ({toks[part]} against "
+                 f"{int(np.argmax(w))}), where tp=1's own top two lie "
+                 f"{float(w.max() - w[toks[part]]) / scale:.3e}·max|logits| apart and the "
+                 f"wire moves the logits {float(np.abs(g - w).max()) / scale:.3e}·max")
+    return (f"printed {printed!r} (--tp 1: {printed_tp1!r}), the text of the same run in a "
+            f"world of 2 on cuda:0, whose logits lie within {worst:.3e}·max|logits| of "
+            f"the same wire's world of 2 on the CPU fed its tokens (rule 2e-03"
+            + (f", near-ties (step, gap/max) {ties}" if ties else ", picks identical")
+            + f"); {wire1}")
 
 
 def kernels_line(state: dict) -> str:

@@ -17,11 +17,22 @@ writes a Chrome trace at exit; open it in Perfetto (ui.perfetto.dev).
 ring of `--kv-cache-resident` positions and the whole history in host RAM or a memmap'd
 file pair. `--nthreads` is accepted and ignored, and `--pipeline` is accepted (only the
 batched server reads it), as the JAX package's shared parser takes them.
+
+Tensor parallelism (the reference's `--workers`, the JAX package's `--tp N`): `--tp N`
+starts N local ranks (parallel/launch.py), rank i on cuda:i, or every rank on the one
+device `--device` names (`--device cuda:0` with `--dist-backend gloo` shares one card;
+`--device cpu` runs on the CPU). `--pod` instead joins a job of one process per host
+(`--coordinator`, `--num-processes`, `--process-id`): run the same command on every host.
+`--buffer-float-type q80` (the default) reduces the partial sums through the Q80 wire.
+`--dist-backend` is the port's own: torch.distributed needs its backend named where ranks
+share a card or run on the CPU. Only rank 0 prints; in chat mode it reads the console
+and hands every line to the other ranks.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -102,7 +113,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cap the model drafter's draft length per row (default: the "
                         "--speculative K)")
     add_kv_storage_flags(p)
+    add_parallel_flags(p)
     return p
+
+
+def add_parallel_flags(p: argparse.ArgumentParser) -> None:
+    """--tp, --buffer-float-type, --pod and its rendezvous, --dist-backend."""
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel ranks: every projection sharded, the KV cache by "
+                        "heads, the partial sums reduced per layer (parallel/)")
+    p.add_argument("--buffer-float-type", default="q80",
+                   choices=["f32", "f16", "q40", "q80"],
+                   help="the tp wire: q80 reduces the partial sums through the Q80-"
+                        "compressed all-reduce (the reference's wire compression, "
+                        "tasks.cpp:96-135); any other value sends f32")
+    p.add_argument("--pod", action="store_true",
+                   help="join a job of one process per host over torch.distributed and "
+                        "put every process on the tp axis (the reference's `dllama "
+                        "worker` + --workers bootstrap, dllama.cpp:205-221); needs "
+                        "--coordinator, --num-processes and --process-id. Run the same "
+                        "command on every host")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="--pod rendezvous: host:port where process 0 listens (or a "
+                        "tcp:// or file:// URL)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes in the --pod job")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in the --pod job")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of the tp ranks (default: nccl on the "
+                        "GPU, gloo on the CPU); gloo lets ranks share one card (--device "
+                        "cuda:0), staging the wire through the host. The port's own flag")
 
 
 def add_kv_storage_flags(p: argparse.ArgumentParser) -> None:
@@ -142,6 +183,39 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
     if args.cache_write == "inscan":
         p.error("--cache-write inscan: the port's forward is deferred-only "
                 "(models/forward.py); use --cache-write deferred or leave it out")
+    if args.pod and None in (args.coordinator, args.num_processes, args.process_id):
+        p.error("--pod needs --coordinator, --num-processes and --process-id")
+
+
+def check_tp(args) -> None:
+    """What tp > 1 cannot be combined with yet, before any rank starts (the engine
+    refuses the same; ROADMAP Queue A)."""
+    if (args.tp or 1) <= 1:
+        return
+    from ..runtime.engine import Engine
+
+    if args.draft_model:
+        raise ValueError("--draft-model under tp > 1 is not in the port yet (ROADMAP "
+                         "Queue A item 1: speculation and the drafter under tp)")
+    Engine._refuse_under_tp(device_loop=args.device_loop > 0,
+                            speculative=args.speculative > 0,
+                            kv_cache_storage=args.kv_cache_storage)
+
+
+def rank_devices(device: str, tp: int) -> list[str]:
+    """Each local rank's device: `cpu` for all on the CPU, rank i on cuda:i for a bare
+    `cuda`, or every rank on the one card a `cuda:K` names. A tp larger than the visible
+    cards raises unless one card is named."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return ["cpu"] * tp
+    if dev.index is not None:
+        return [str(dev)] * tp
+    n = torch.cuda.device_count()
+    if tp > n:
+        raise ValueError(f"--tp {tp} needs {tp} cards, {n} visible; name one card "
+                         "(--device cuda:0 --dist-backend gloo) to run every rank on it")
+    return [f"cuda:{i}" for i in range(tp)]
 
 
 _GRACEFUL_STOP = None  # threading.Event set by the first SIGTERM
@@ -178,11 +252,16 @@ def stop_requested() -> bool:
 
 
 def make_engine(args) -> Engine:
+    """The mode's Engine: on args.device, or on the rank's mesh (`args.mesh`, set by
+    rank_main and --pod) with the wire --buffer-float-type names."""
     t0 = time.perf_counter()
+    mesh = getattr(args, "mesh", None)
+    tp = mesh.tp if mesh is not None else 1
     engine = Engine.load(
         args.model, args.tokenizer, max_seq_len=args.max_seq_len,
         weights_ftype=_FT[args.weights_float_type] if args.weights_float_type else None,
-        device=args.device,
+        device=args.device if mesh is None else None, mesh=mesh,
+        compress_collectives=args.buffer_float_type == "q80" and tp > 1,
         dtype=(None if args.dtype == "auto"
                else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
         use_kernels=False if args.no_kernels else None,
@@ -192,7 +271,10 @@ def make_engine(args) -> Engine:
     print(f"⏩ Loaded model in {time.perf_counter() - t0:.1f}s "
           f"(device={engine.device}, kernels={engine.use_kernels}, "
           f"prologue={engine.fused_prologue}"
-          + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "") + ")")
+          + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "")
+          + (f", tp={engine.tp} over {mesh.backend}"
+             + (", Q80 wire" if engine.compress else ", f32 wire") if tp > 1 else "")
+          + ")")
     spec = engine.spec
     moe = ("n_experts", "n_active_experts") if spec.is_moe else ()
     for k in ("dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size",
@@ -212,6 +294,13 @@ def mode_inference(args) -> None:
     tok = engine.tokenizer
     prompt = tok.encode(args.prompt or "Hello world", add_bos=True)
     pieces: list[bytes] = []
+    if engine.tp > 1:
+        # the decode step's collectives, counted as issued, so the S/R columns are
+        # measured (the reference counted socket bytes; dllama.cpp:76-93)
+        mt = engine.collective_stats()
+        counts = " ".join(f"{k}x{v}" for k, v in sorted(mt.counts.items()))
+        print(f"🔷 Collectives/step: {counts} "
+              f"({mt.total_payload_bytes / 1024:.0f} kB payload)")
 
     def on_token(t):
         pieces.append(tok.decode_piece(prompt[-1] if not pieces else 0, t))
@@ -222,18 +311,25 @@ def mode_inference(args) -> None:
                                     speculative_k=args.speculative)
     print(b"".join(pieces).decode("utf-8", errors="replace"))
     # G = total per token, I = the device step including the logits copy to the host,
-    # H = host sampling and bookkeeping
+    # H = host sampling and bookkeeping; under tp, S/R = wire kB a token per device
     for i, (g, inf) in enumerate(zip(stats.token_ms, stats.infer_ms)):
+        sr = (f"S {stats.sent_kbytes_per_token:8.0f} kB R "
+              f"{stats.recv_kbytes_per_token:8.0f} kB " if engine.tp > 1 else "")
         print(f"🔶 G {g:7.2f} ms I {inf:7.2f} ms H {g - inf:7.2f} ms "
-              f"{pieces[i].decode('utf-8', 'replace')}")
+              f"{sr}{pieces[i].decode('utf-8', 'replace')}")
+    if engine.tp > 1:
+        print(f"S/R source:          {stats.traffic_source} per-device ring bytes")
     print(f"Generated tokens:    {stats.generated_tokens}")
     print(f"Avg tokens / second: {stats.tokens_per_second:.2f}")
     print(f"Avg generation time: {stats.avg_token_ms:.2f} ms")
     print(f"Avg inference time:  {stats.avg_infer_ms:.2f} ms")
     if stats.avg_infer_ms > 0:
-        gbps = engine.decode_weight_bytes / 1e9 / (stats.avg_infer_ms / 1e3)
-        print(f"Weight stream:       {gbps:.1f} GB/s "
-              f"({engine.decode_weight_bytes / 1e9:.3f} GB/step)")
+        # a card streams its shard: 1/tp of every shard's bytes
+        gbps = engine.decode_weight_bytes / engine.tp / 1e9 / (stats.avg_infer_ms / 1e3)
+        print(f"Weight stream:       {gbps:.1f} GB/s"
+              + (f" per card ({engine.decode_weight_bytes / 1e9:.3f} GB/step over "
+                 f"{engine.tp} cards)" if engine.tp > 1 else
+                 f" ({engine.decode_weight_bytes / 1e9:.3f} GB/step)"))
     print(f"Prefill time:        {stats.prefill_ms:.2f} ms "
           f"({stats.prompt_tokens} tokens)")
     if stats.spec_steps:
@@ -264,10 +360,29 @@ def mode_generate(args) -> None:
     print()
 
 
+def _line_reader(mesh, inbox):
+    """The chat's console: stdin on one process; under tp rank 0 reads it (local ranks:
+    the lines the launching process forwards to `inbox`, "" at the end; --pod: its own
+    stdin) and every rank receives rank 0's line."""
+    if mesh is None or mesh.tp <= 1:
+        return sys.stdin.readline
+    import torch.distributed as dist
+
+    def read() -> str:
+        line = None
+        if mesh.rank == 0:
+            line = inbox.get() if inbox is not None else sys.stdin.readline()
+        box = [line]
+        dist.broadcast_object_list(box, src=0, group=mesh.group)
+        return box[0]
+    return read
+
+
 def mode_chat(args) -> None:
     """Interactive REPL (Chat::chat, dllama.cpp:132-193): KV position persists across
     turns; generation stops on chat EOS or stop strings."""
     engine = make_engine(args)
+    readline = _line_reader(getattr(args, "mesh", None), getattr(args, "inbox", None))
     sampler = make_sampler(args, engine.spec)
     tok = engine.tokenizer
     template = ChatTemplate(args.chat_template or TemplateType.UNKNOWN,
@@ -275,11 +390,11 @@ def mode_chat(args) -> None:
     stops = tok.chat_stops()
 
     print("💻 System prompt (optional): ", end="", flush=True)
-    system = sys.stdin.readline().strip()
+    system = readline().strip()
     first = True
     while True:
         print("\n👱 User\n> ", end="", flush=True)
-        user = sys.stdin.readline()
+        user = readline()
         if not user:
             break
         items = []
@@ -336,23 +451,80 @@ def dump_trace(args) -> None:
               f"({t.dropped_events} dropped) — open in ui.perfetto.dev", file=sys.stderr)
 
 
-def main(argv=None) -> None:
-    p = build_parser()
-    args = p.parse_args(argv)
-    check_args(p, args)
-    check_kv_storage(args)
-    if args.draft_model:
-        print("⚠️  --draft-model needs the batched verify path — it is an api_server "
-              "--batch > 1 feature; the sequential CLI keeps prompt-lookup drafting "
-              "(--speculative).", file=sys.stderr)
+def rank_main(mesh, argv: list[str], inbox=None) -> None:
+    """One local rank of `dllama --tp N` (parallel/launch.py): the mode on this rank's
+    mesh. Only rank 0 prints and writes the trace."""
+    args = build_parser().parse_args(argv)
+    args.mesh, args.inbox = mesh, inbox
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    _run(args)
+
+
+def _run(args) -> None:
     install_trace(args)
     faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
     install_graceful_stop()  # SIGTERM: stop after the current token
+    mesh = getattr(args, "mesh", None)
     try:
         {"inference": mode_inference, "generate": mode_generate,
          "chat": mode_chat}[args.mode](args)
     finally:
-        dump_trace(args)
+        if mesh is None or mesh.rank == 0:
+            dump_trace(args)
+
+
+def _launch_local(args, argv: list[str]) -> None:
+    """--tp N without --pod: N local ranks, the console forwarded to rank 0 in chat."""
+    from ..parallel import launch
+    from ..parallel.mesh import backend_for
+
+    devices = rank_devices(args.device, args.tp)
+    inbox = None
+    if args.mode == "chat":
+        import multiprocessing
+        import threading
+
+        inbox = multiprocessing.get_context("spawn").Queue()
+
+        def forward_console():
+            for line in sys.stdin:
+                inbox.put(line)
+            inbox.put("")
+        threading.Thread(target=forward_console, daemon=True).start()
+    try:
+        launch.run("distributed_llama_tpu_torch.apps.dllama:rank_main", args.tp, devices,
+                   args=(argv, inbox), backend=args.dist_backend or backend_for(devices[0]))
+    except launch.RankFailed as e:
+        raise SystemExit(f"❌ {e}") from e
+
+
+def main(argv=None) -> None:
+    p = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = p.parse_args(argv)
+    check_args(p, args)
+    check_kv_storage(args)
+    check_tp(args)
+    if args.draft_model:
+        print("⚠️  --draft-model needs the batched verify path — it is an api_server "
+              "--batch > 1 feature; the sequential CLI keeps prompt-lookup drafting "
+              "(--speculative).", file=sys.stderr)
+    if (args.tp or 1) > 1 and not args.pod:
+        _launch_local(args, argv)
+        return
+    if args.pod:
+        from ..parallel.mesh import backend_for, init_multihost, make_pod_mesh
+
+        device = torch.device(args.device)
+        init_multihost(args.coordinator, args.num_processes, args.process_id,
+                       args.dist_backend or backend_for(device))
+        args.mesh = make_pod_mesh(tp=args.tp, device=device)
+        print(f"🌐 Pod process {args.mesh.rank}/{args.num_processes} on {device} "
+              f"({args.mesh.backend})", file=sys.stderr)
+        if args.mesh.rank != 0:
+            sys.stdout = open(os.devnull, "w")
+    _run(args)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Transformer forward pass for Llama, Mixtral and Grok-1 (reference:
 src/llama2-tasks.cpp:241-298, src/mixtral-tasks.cpp:5-78, src/grok1-tasks.cpp:275-354).
 
-The counterpart of the JAX package's models/forward.py at tp=1 with the deferred cache
-write, layers run as a Python loop over the stacked parameters:
+The counterpart of the JAX package's models/forward.py with the deferred cache write,
+layers run as a Python loop over the stacked parameters:
 - LLAMA: pre-norm attention + SwiGLU FFN (w1=gate, w3=up, w2=down);
 - MIXTRAL: attention as llama; the FFN is a top-k-of-E MoE (router softmax over all
   experts, top-k renormalized, hb_e = up_e(x) * act(gate_e(x)), out = sum_j w_j ·
@@ -47,6 +47,16 @@ each layer's rmsnorm and the Q80 quantization of its row run as one kernel
 (ops/prologue.py) before the QKV and gate/up projections, the attention output and the
 FFN hidden are quantized by the prologue's second kernel before wo and w2, and the
 projections take the quantized rows (`qmatmul_q80`); the residual is added outside.
+
+Tensor parallelism (`mesh`, parallel/): each rank runs this function on its own shard of
+the weights (parallel/tp.py shard_params) and caches (its KV heads). The partial sums of
+the column-split projections are reduced where the reference's root merged the slices and
+where the JAX package calls psum: after wo, after w2 and after the MoE down projection
+(parallel/collectives.py psum, through the Q80 wire with `compress_collectives`), and the
+vocab-split logits are gathered along their last axis. The reduction comes before the
+residual join, so the wo and w2 kernels' residual epilogue is off whenever the merge
+points are on. Attention runs on the rank's heads; the router, the norms and rope are
+replicated.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from ..ops.matmul import qmatmul, qmatmul_gated, qmatmul_q80
 from ..ops.paged_attention import paged_attention, paged_gather_kv
 from ..ops.prologue import prologue_supported, quantize_q80_row, rmsnorm_quantize_q80
 from ..ops.rope import RopeTables, apply_rope
+from ..parallel.collectives import all_gather_last, psum
 from ..quants import QTensor
 from .spec import ArchType, HiddenAct, ModelSpec
 
@@ -98,7 +109,7 @@ class _Step:
 
     def __init__(self, spec, rope, start_pos, positions, use_kernels, window,
                  block_tables, block_tokens, paged_kernel, lengths, layer_ids, prologue,
-                 paged_cold=None):
+                 paged_cold=None, mesh=None, compress=False):
         self.spec = spec
         self.rope = rope
         self.start_pos = start_pos  # int, 0-d int64 tensor, or (B,) int64 tensor
@@ -113,6 +124,13 @@ class _Step:
         self.prologue = prologue  # the fused activation prologue is on for this step
         self.paged_cold = paged_cold  # the host's cold-history partial (hot-ring layout)
         self.per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
+        self.mesh = mesh  # the tp merge points are on (parallel/), or None
+        self.compress = compress  # the merge points reduce through the Q80 wire
+
+    def merge(self, y: torch.Tensor) -> torch.Tensor:
+        """A tp merge point: the sum of every rank's partial y (y itself without a
+        mesh)."""
+        return y if self.mesh is None else psum(y, self.mesh, self.compress)
 
 
 def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
@@ -204,11 +222,13 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         # the attention output is quantized by the prologue's kernel, not in the matvec
         aq, asx = quantize_q80_row(att)
         y = qmatmul_q80(aq, asx, bp["wo"], use_kernels=use_kernels, out_dtype=x.dtype)
-    elif use_kernels == "fused":
-        # the residual add runs in the wo kernel's f32 epilogue
+    elif use_kernels == "fused" and st.mesh is None:
+        # the residual add runs in the wo kernel's f32 epilogue (tp partials are reduced
+        # before the join, so only without merge points)
         return qmatmul(att, bp["wo"], use_kernels=use_kernels, residual=residual), (k_t, v_t)
     else:
         y = qmatmul(att, bp["wo"], use_kernels=use_kernels)
+    y = st.merge(y)
     return (y if residual is None else residual + y), (k_t, v_t)
 
 
@@ -233,10 +253,12 @@ def _ring_attention(q, k_t, v_t, kl, vl, layer_idx: int, st: _Step):
                                     lse_c.to(out_h.device))
 
 
-def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = False):
+def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = False,
+               merge=None):
     """Dense FFN on the pre-norm block input; returns residual + ffn(x). Under the
     prologue the gate/up projections take the normalized row quantized by one kernel and
-    come out in f32, and the hidden row is quantized by the prologue's kernel before w2."""
+    come out in f32, and the hidden row is quantized by the prologue's kernel before w2.
+    `merge` (a _Step's merge, with a tp mesh) reduces the w2 partials before the join."""
     act = _act(spec)
     if prologue:
         xq, sx = rmsnorm_quantize_q80(x, bp["rms_ffn"], spec.norm_eps)
@@ -259,12 +281,12 @@ def _dense_ffn(x, bp, spec: ModelSpec, use_kernels, residual, prologue: bool = F
                               use_kernels=use_kernels)
     if prologue and prologue_supported(h.shape[-1]):
         hq, hsx = quantize_q80_row(h)
-        return residual + qmatmul_q80(hq, hsx, bp["w2"], use_kernels=use_kernels,
-                                      out_dtype=x.dtype)
-    if use_kernels == "fused":
+        out = qmatmul_q80(hq, hsx, bp["w2"], use_kernels=use_kernels, out_dtype=x.dtype)
+    elif use_kernels == "fused" and merge is None:
         return qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels, residual=residual)
-    out = qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels)
-    return residual + out
+    else:
+        out = qmatmul(h.to(x.dtype), bp["w2"], use_kernels=use_kernels)
+    return residual + (out if merge is None else merge(out))
 
 
 def _gated_split(y, act, gate_first: bool):
@@ -356,13 +378,14 @@ def _block(x, bp, li: int, st: _Step, kc, vc):
         attn_out, kv = _attention(x, bp, li, st, kc, vc, residual=None)
         x = x + rmsnorm(attn_out, bp["rms_ffn"], spec.norm_eps)
         xb = rmsnorm(x, bp["rms_moe"], spec.norm_eps)
-        moe_out = _moe_ffn(xb, bp, spec, st.use_kernels)
+        moe_out = st.merge(_moe_ffn(xb, bp, spec, st.use_kernels))
         return x + rmsnorm(moe_out, bp["rms_ffn2"], spec.norm_eps), kv
     x, kv = _attention(x, bp, li, st, kc, vc, residual=x)
     if spec.is_moe:
         xb = rmsnorm(x, bp["rms_ffn"], spec.norm_eps)
-        return x + _moe_ffn(xb, bp, spec, st.use_kernels), kv
-    return _dense_ffn(x, bp, spec, st.use_kernels, residual=x, prologue=st.prologue), kv
+        return x + st.merge(_moe_ffn(xb, bp, spec, st.use_kernels)), kv
+    return _dense_ffn(x, bp, spec, st.use_kernels, residual=x, prologue=st.prologue,
+                      merge=None if st.mesh is None else st.merge), kv
 
 
 def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
@@ -370,7 +393,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             start_pos, *, dtype=torch.float32, use_kernels: bool | str = False,
             attn_window: int | None = None, block_tables: torch.Tensor | None = None,
             block_tokens: int = 0, paged_kernel: bool = False,
-            fused_prologue: bool = False, paged_cold=None):
+            fused_prologue: bool = False, paged_cold=None, mesh=None,
+            compress_collectives: bool = False):
     """Run T tokens through the model at cache position start_pos.
 
     tokens: (B, T) integer tensor. start_pos: one offset for all rows — an int, or a
@@ -396,6 +420,11 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     token 0's attention to the row's committed history plus itself, and the scratch
     writes land on positions > start_pos that every read masks until the row's own later
     tokens overwrite them.
+
+    mesh (parallel/mesh.py): this rank's tp mesh, its params a shard (parallel/tp.py) and
+    its caches its KV heads; the merge points reduce over it, through the Q80 wire with
+    compress_collectives. None runs one card's model with no merge points (also what a
+    one-member mesh without compression means: parallel/tp.py make_sharded_forward).
 
     Returns (logits (B, T, vocab) f32, k_cache, v_cache) with the chunk's rows committed
     in place; with paged_cold also (k_rows, v_rows), the chunk's rows (L, B, hk, T, hs)."""
@@ -424,7 +453,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     prologue = bool(fused_prologue and use_kernels and t == 1 and tokens.shape[0] == 1
                     and not per_row and prologue_supported(spec.dim))
     st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,
-               block_tokens, paged_kernel, lengths, layer_ids, prologue, paged_cold)
+               block_tokens, paged_kernel, lengths, layer_ids, prologue, paged_cold, mesh,
+               compress_collectives)
     x = params["embedding"][tokens].to(dtype)
     if spec.arch_type == ArchType.GROK1:
         # the scale in x's dtype, as the JAX package's weakly typed constant
@@ -460,6 +490,8 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
         v_cache.index_copy_(3, positions, v_new)
     x = rmsnorm(x, params["rms_final"], spec.norm_eps)
     logits = qmatmul(x, params["wcls"], use_kernels=use_kernels, out_dtype=torch.float32)
+    if mesh is not None:
+        logits = all_gather_last(logits, mesh)  # wcls is split by vocab rows
     if spec.arch_type == ArchType.GROK1:
         logits = logits * GROK_LOGITS_SCALE
     if paged_cold is not None:

@@ -21,10 +21,11 @@ the subset the dense Llama path reaches):
 - everything else -> dequantize to x's dtype, then a float32-accumulated product (the
   counterpart of the JAX package's `_qmatmul_xla`).
 
-The shape gates mirror the JAX package's `q4_mm_supported` / `q4_gated_supported`
-(ops/pallas_q4_mm.py): they choose a route by shape before any launch, so the port
-computes what the JAX package computes for the same call. There is no fallback: a kernel
-that cannot take its inputs raises.
+The shape gates choose a route by shape before any launch. On the CPU they mirror the
+JAX package's `q4_mm_supported` / `q4_gated_supported` (ops/pallas_q4_mm.py), so the port
+computes what the JAX package computes for the same call; on the card they take every K
+the CUDA kernels take (a multiple of 64), where the JAX gate held the TPU kernel's
+128-lane tile. There is no fallback: a kernel that cannot take its inputs raises.
 """
 
 from __future__ import annotations
@@ -90,16 +91,23 @@ def _pick_bkp(kh: int) -> int | None:
 
 
 def q4_mm_supported(w: QTensor, m: int) -> bool:
-    """The JAX package's route gate for the M > 1 dequant-matmul: 2-D i4p packed with
-    groups=1, K/2 a multiple of 128, and at most 512 rows."""
-    if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2:
+    """The route gate for the M > 1 dequant-matmul: 2-D i4p packed with groups=1, at
+    most 512 rows, and a K the kernel that runs takes. On the card that is
+    csrc/q4_matmul.cu's own (ops/mm_plan.py: K a multiple of 64, so a tp shard such as
+    Llama-2-7B's w2 at tp=2, K=5504, takes it); elsewhere, where the plain version
+    stands in, the JAX package's gate (K/2 a multiple of 128, its TPU kernel's lane
+    tile), so the CPU routes every shape as the reference does."""
+    if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 2 or m > 512:
         return False
-    return _pick_bkp(w.data.shape[1]) is not None and m <= 512
+    kh = w.data.shape[1]
+    if w.data.device.type == "cuda":
+        return kh * 2 % 64 == 0
+    return _pick_bkp(kh) is not None
 
 
 def q4_gated_supported(w1: QTensor, w3: QTensor, m: int) -> bool:
-    """The JAX package's route gate for the gate-pair kernel: both weights pass
-    q4_mm_supported and share one shape."""
+    """The route gate for the gate-pair kernel: both weights pass q4_mm_supported and
+    share one shape (the JAX package's rule)."""
     return (q4_mm_supported(w1, m) and q4_mm_supported(w3, m)
             and w1.data.shape == w3.data.shape and w1.scales.shape == w3.scales.shape)
 

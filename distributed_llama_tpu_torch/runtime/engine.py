@@ -27,8 +27,17 @@ the ordinary steps run (one-token steps as CUDA graphs), the new rows copied int
 store after each; past it every step runs forward(paged_cold=store.cold_attend) eagerly
 and appends its rows before pos advances.
 
-The engine runs on `cuda` unless the caller passes device="cpu"; without a GPU and
-without device="cpu" it raises. It never moves to the CPU on its own.
+Tensor parallelism (`tp`, `mesh`, parallel/): one Engine per rank, each holding its
+shard of the weights and its KV heads (parallel/tp.py), every rank running the same
+steps on the same tokens; the forward pass reduces the partial sums over the mesh
+(through the Q80 wire with `compress_collectives`). Rank 0's sampled token is broadcast
+so no rank can decode another token. A tp step runs eagerly: the gloo wire is host-side
+and cannot be captured in a CUDA graph, so cuda_graph is off under tp > 1. The device
+loop, speculation, the host KV spill, batch > 1 and the block pool are refused there
+(ROADMAP Queue A).
+
+The engine runs on `cuda` unless the caller passes device="cpu" (or a mesh on the CPU);
+without a GPU and without device="cpu" it raises. It never moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from ..models.params import Params, decode_stream_bytes, params_to, prepare_for_
 from ..models.spec import ModelSpec
 from ..obs import flight, metrics, trace
 from ..ops.rope import RopeTables
+from ..parallel.collectives import broadcast_int
+from ..parallel.traffic import CollectiveTraffic, publish_traffic
 from ..quants import FloatType
 from ..resilience import faults
 from ..tokenizer.bpe import Tokenizer
@@ -93,6 +104,12 @@ class GenerationStats:
     spec_accepted: int = 0
     spec_step_ms: list[float] = field(default_factory=list)
     spec_turns: list = field(default_factory=list)
+    # collective wire bytes per decoded token, per device (the reference's S/R socket
+    # columns, dllama.cpp:76-93): "measured" counts the decode step's collectives
+    # (Engine.collective_stats), "modeled" is collective_kbytes_per_token
+    sent_kbytes_per_token: float = 0.0
+    recv_kbytes_per_token: float = 0.0
+    traffic_source: str = "modeled"
 
     @property
     def avg_token_ms(self) -> float:
@@ -116,6 +133,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def collective_kbytes_per_token(spec: ModelSpec, tp: int, compress: bool) -> float:
+    """Bytes each device exchanges per decoded token (the JAX package's model, unchanged).
+    Mirrors the reference's S/R socket counters (root broadcast+gather per layer,
+    tasks.cpp:44-94) with ring-collective wire costs:
+
+    - per layer, two activation all-reduces (attention-out + ffn-out), each
+      2x(tp-1)/tp of its payload. Compressed, the payload is the Q80 wire format (int8
+      values + f16 scale per 32-block = 34/32 bytes/elem) moved by the two-phase
+      quantized reduce (parallel/collectives.py): all-to-all then all-gather, each
+      (tp-1)/tp of the compressed payload, so the same 2x(tp-1)/tp factor holds;
+    - one logits all-gather: each device contributes its vocab/tp slice and receives
+      the rest, (tp-1)/tp of the full f32 logits row."""
+    if tp <= 1:
+        return 0.0
+    elem = 34 / 32 if compress else 4  # Q80 wire bytes/elem vs f32
+    per_layer = 2 * spec.dim * elem  # attention-out psum + ffn-out psum payloads
+    layers = 2 * (tp - 1) / tp * spec.n_layers * per_layer
+    logits = (tp - 1) / tp * spec.vocab_size * 4
+    return (layers + logits) / 1024.0
+
+
 def window_bucket(pos_end: int, seq_len: int, minimum: int) -> int | None:
     """Smallest window bucket (a power of two from `minimum` up) covering cache positions
     [0, pos_end) of a seq_len cache; None: the whole cache."""
@@ -134,9 +172,29 @@ class Engine:
                  batch: int = 1, kv_pool: tuple[int, int] | None = None,
                  paged_kernel: bool | None = None, fused_prologue: bool | None = None,
                  cuda_graph: bool = True, kv_cache_storage: str | None = None,
-                 kv_cache_resident: int = 1024, kv_cache_dir: str | None = None):
+                 kv_cache_resident: int = 1024, kv_cache_dir: str | None = None,
+                 mesh=None, tp: int | None = None, compress_collectives: bool = False):
         self.spec = spec
         self.tokenizer = tokenizer
+        # tp= (the JAX Engine's) builds this rank's mesh over the process group the
+        # caller initialised (parallel/mesh.py init_multihost, or parallel/launch.py);
+        # mesh= takes one built already, as dllama's ranks do
+        if mesh is None and tp is not None and tp > 1:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(tp=tp, device=resolve_device(device))
+        if mesh is not None:
+            if tp is not None and tp != mesh.tp:
+                raise ValueError(f"tp={tp} against a mesh of tp={mesh.tp}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} against the mesh's {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self.tp = mesh.tp if mesh is not None else 1
+        self.compress = bool(compress_collectives)
+        if self.tp > 1:
+            self._refuse_under_tp(batch=batch, kv_pool=kv_pool,
+                                  kv_cache_storage=kv_cache_storage)
         self.device = resolve_device(device)
         on_gpu = self.device.type == "cuda"
         # bf16 activations and caches on the card halve cache traffic (the matvec
@@ -193,13 +251,37 @@ class Engine:
 
             self.store = HostKVStore(spec, self.kv_resident, storage=kv_cache_storage,
                                      directory=kv_cache_dir, dtype=self.dtype)
-        params = params_to(params, self.device)
+        # one card repacks the weights on itself; a rank repacks and cuts them where the
+        # caller holds them (the host, for Engine.load) and moves only its shard, so its
+        # card never holds the whole model (the JAX package's device_put of each shard)
+        if mesh is None:
+            params = params_to(params, self.device)
         if self.use_kernels:
-            params = prepare_for_cuda(params, keep_gate_pair=self.fused_matmul)
+            params = prepare_for_cuda(params, tp=self.tp, spec=spec,
+                                      keep_gate_pair=self.fused_matmul)
+        # every shard's weight bytes one decode step streams; a card streams 1/tp of it
+        self.decode_weight_bytes = decode_stream_bytes(params, spec)
+        # the rank's step over the mesh where it has merge points (None: the one-card
+        # step)
+        self._sharded = None
+        if mesh is not None:
+            from ..parallel.tp import make_sharded_forward, merge_mesh, shard_params
+
+            params = params_to(shard_params(params, mesh, spec), self.device)
+            if merge_mesh(mesh, self.compress) is not None:
+                self._sharded = make_sharded_forward(
+                    spec, mesh, dtype=self.dtype, use_kernels=self.use_kernels,
+                    compress_collectives=self.compress,
+                    fused_prologue=self.fused_prologue)
         self.params = params
-        self.decode_weight_bytes = decode_stream_bytes(self.params, spec)
+        self._measured_traffic = None  # the decode step's CollectiveTraffic, once counted
         self.rope = RopeTables.create(spec, self.device)
-        if kv_pool is not None:
+        if self.tp > 1:
+            from ..parallel.tp import init_sharded_kv_cache
+
+            self.k_cache, self.v_cache = init_sharded_kv_cache(spec, mesh, batch,
+                                                               dtype=self.dtype)
+        elif kv_pool is not None:
             self.k_cache, self.v_cache = init_kv_pool(spec, *kv_pool, dtype=self.dtype,
                                                       device=self.device)
         elif self.paged:
@@ -211,10 +293,63 @@ class Engine:
             self.k_cache, self.v_cache = init_kv_cache(spec, batch, dtype=self.dtype,
                                                        device=self.device)
         self.pos = 0
-        # the decode steps replay CUDA graphs on the card with the kernels on
-        self.cuda_graph = bool(cuda_graph) and on_gpu and bool(self.use_kernels)
+        # the decode steps replay CUDA graphs on the card with the kernels on; a tp step
+        # runs eagerly (its collectives are host calls a capture cannot hold on gloo)
+        self.cuda_graph = (bool(cuda_graph) and on_gpu and bool(self.use_kernels)
+                           and self.tp == 1)
         self.graphs = StepGraphs(self.device, self.cuda_graph)
         self._init_steps()
+
+    @staticmethod
+    def _refuse_under_tp(batch: int = 1, kv_pool=None, kv_cache_storage=None,
+                         device_loop: bool = False, speculative: bool = False) -> None:
+        """What a tp > 1 engine cannot run yet, each naming its ROADMAP item."""
+        if batch != 1 or kv_pool is not None:
+            raise ValueError("batch > 1 and the block pool under tp > 1 (BatchEngine and "
+                             "api_server over tp) are not in the port yet (ROADMAP Queue A "
+                             "item 1)")
+        if kv_cache_storage in ("host", "disc"):
+            raise ValueError("the host KV spill is single-card (tp=1), as in the JAX "
+                             "package; the spill under tp is ROADMAP Queue A item 1")
+        for flag, on in (("--device-loop", device_loop), ("--speculative", speculative)):
+            if on:
+                raise ValueError(f"{flag} under tp > 1 is not in the port yet (ROADMAP "
+                                 "Queue A item 1: CUDA graphs and device loops under tp on "
+                                 "NCCL, speculation under tp)")
+
+    def collective_stats(self) -> CollectiveTraffic:
+        """The collectives of one T=1 decode step, counted as they are issued
+        (parallel/traffic.py): the port's counterpart of the JAX engine's traced-step
+        accounting. Runs one decode step of token 0 at the current position without
+        advancing it (the next step at this position writes its own rows over the
+        probe's); every rank must call it, as every rank runs the step. Memoized, and
+        published as the decode_t1 gauges."""
+        if self._measured_traffic is None:
+            if self._sharded is None:
+                self._measured_traffic = CollectiveTraffic()
+            else:
+                if self.pos >= self.spec.seq_len:
+                    raise ValueError("collective_stats needs a free cache position")
+                window = self._window_for(self.pos + 1)
+                self._tok1.fill_(0)
+                self._pos1.fill_(self.pos)
+                with self.mesh.counter.window() as traffic:
+                    self._step_t1(window)
+                self._measured_traffic = traffic
+            publish_traffic(self._measured_traffic, program="decode_t1")
+        return self._measured_traffic
+
+    def _fill_traffic(self, stats: GenerationStats) -> None:
+        """Per-token S/R from the counted decode step where one was counted, else the
+        model; the provenance goes with the numbers."""
+        if self._measured_traffic is not None:
+            kb = self._measured_traffic.sent_bytes_per_device / 1024.0
+            stats.sent_kbytes_per_token = stats.recv_kbytes_per_token = kb
+            stats.traffic_source = "measured"
+        else:
+            stats.sent_kbytes_per_token = stats.recv_kbytes_per_token = (
+                collective_kbytes_per_token(self.spec, self.tp, self.compress))
+            stats.traffic_source = "modeled"
 
     def _init_steps(self) -> None:
         """The static step buffers and the step caches built on them."""
@@ -353,11 +488,7 @@ class Engine:
                                              lambda: self._step_t1(window))
                 else:
                     toks = torch.from_numpy(tokens)[None, :].to(self.device)
-                    logits, _, _ = forward(
-                        self.params, self.spec, self.rope, toks, self.k_cache,
-                        self.v_cache, self.pos, dtype=self.dtype,
-                        use_kernels=self.use_kernels, attn_window=window,
-                        fused_prologue=self.fused_prologue)
+                    logits = self._dense_step(toks, self.pos, window)
                 if self.paged:
                     # warm phase: slot == position; the new rows go to the authoritative
                     # store, which the cold partials read once the ring wraps
@@ -421,21 +552,27 @@ class Engine:
             _DISP_PREFILL.observe(time.perf_counter() - t0)
             return out
 
+    def _dense_step(self, toks: torch.Tensor, pos, window: int | None) -> torch.Tensor:
+        """One forward step of (1, T) tokens at `pos` on the dense caches, written in
+        place: on one card, or this rank's step over the mesh (parallel/tp.py
+        make_sharded_forward). Returns (1, T, vocab) logits."""
+        if self._sharded is not None:
+            logits, _, _ = self._sharded(self.params, self.rope, toks, self.k_cache,
+                                         self.v_cache, pos, attn_window=window)
+            return logits
+        logits, _, _ = forward(
+            self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache, pos,
+            dtype=self.dtype, use_kernels=self.use_kernels, attn_window=window,
+            fused_prologue=self.fused_prologue)
+        return logits
+
     def _step_block(self, toks: torch.Tensor, window: int | None) -> torch.Tensor:
         """A verify block's step on its static tokens and the static position."""
-        logits, _, _ = forward(
-            self.params, self.spec, self.rope, toks, self.k_cache, self.v_cache,
-            self._pos1, dtype=self.dtype, use_kernels=self.use_kernels,
-            attn_window=window, fused_prologue=self.fused_prologue)
-        return logits
+        return self._dense_step(toks, self._pos1, window)
 
     def _step_t1(self, window: int | None) -> torch.Tensor:
         """The one-token step on the static token and position: (1, 1, vocab) logits."""
-        logits, _, _ = forward(
-            self.params, self.spec, self.rope, self._tok1, self.k_cache, self.v_cache,
-            self._pos1, dtype=self.dtype, use_kernels=self.use_kernels,
-            attn_window=window, fused_prologue=self.fused_prologue)
-        return logits
+        return self._dense_step(self._tok1, self._pos1, window)
 
     def step_rows(self, tokens_rows, starts, tables: torch.Tensor | None,
                   reads: list[tuple[int, int]], coins: tuple | None = None):
@@ -505,6 +642,8 @@ class Engine:
                 break
             t0 = time.perf_counter()
             token = sampler.sample(logits)
+            if self.tp > 1:
+                token = broadcast_int(token, self.mesh)  # rank 0's pick, on every rank
             out.append(token)
             stats.generated_tokens += 1
             if on_token is not None:
@@ -526,6 +665,7 @@ class Engine:
         """Host generation loop: prefill + sample/step until max_tokens, context end, or
         stop_check truth. on_token(token_id) streams tokens out."""
         stats = GenerationStats()
+        self._fill_traffic(stats)
         logits = self.prefill(prompt_tokens, stats)
         return self._decode(logits, max_tokens, sampler, stats, on_token, stop_check), stats
 
@@ -536,6 +676,8 @@ class Engine:
         exactly generate()'s tokens, usually in fewer dispatches."""
         from .speculative import generate_speculative
 
+        if self.tp > 1:
+            self._refuse_under_tp(speculative=True)
         return generate_speculative(self, prompt_tokens, max_tokens, sampler, k=k,
                                     on_token=on_token, stop_check=stop_check,
                                     history_tokens=history_tokens)
@@ -550,6 +692,9 @@ class Engine:
         request falls back (one warning per engine). history_tokens (speculative only):
         the whole cached context for the n-gram proposer when prompt_tokens is a
         prefix-reuse delta."""
+        if self.tp > 1:
+            self._refuse_under_tp(device_loop=device_loop_chunk > 0,
+                                  speculative=speculative_k > 0)
         if speculative_k > 0:
             if getattr(sampler, "temperature", 0.0) == 0.0:
                 return self.generate_speculative(prompt_tokens, max_tokens, sampler,
@@ -602,6 +747,8 @@ class Engine:
         cache rows past it are overwritten by later writes."""
         from .device_loop import prng_key, split
 
+        if self.tp > 1:
+            self._refuse_under_tp(device_loop=True)
         if self.paged:
             raise RuntimeError("the device loop writes a plain cache; a paged engine "
                                "decodes through the host loop (generate_with)")

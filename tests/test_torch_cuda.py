@@ -1929,3 +1929,68 @@ def test_paged_engine_keeps_ring_and_projections_on_card(cuda):
     assert paged.k_cache.is_cuda and paged.v_cache.is_cuda
     assert paged.store.k.device.type == "cpu" and paged.pos == 73
     assert all(t.data.is_cuda for t in paged.params["blocks"].values() if hasattr(t, "data"))
+
+
+@pytest.mark.cuda
+def test_collectives_on_cuda_tensors_over_gloo_match_the_cpu_world(cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo (the host-staged wire that lets ranks share one
+    card): psum, quantized_psum (its quantize the prologue kernel) and the single-phase
+    gather on CUDA tensors give the CPU world's results bit for bit, with the same
+    counted bytes."""
+    from distributed_llama_tpu_torch.parallel import launch
+
+    rng = np.random.RandomState(4)
+    cases = [{"partials": rng.randn(2, *shape).astype(np.float32)}
+             for shape in ((1, 1, 4096), (2, 3, 96), (1, 8, 4096))]
+    torch.save(cases, tmp_path / "cases.pt")
+    runs = {}
+    for dev in ("cpu", "cuda:0"):
+        (tmp_path / dev).mkdir()
+        runs[dev] = launch.run("torch_tp_ranks:collective_cases", 2, dev, backend="gloo",
+                               args=(str(tmp_path / "cases.pt"),),
+                               workdir=str(tmp_path / dev), deadline=300)
+    for r in range(2):
+        for got, want in zip(runs["cuda:0"][r], runs["cpu"][r]):
+            for key in want:
+                if key.endswith("_traffic"):
+                    assert got[key] == want[key], key
+                else:
+                    np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_eager_and_captured(cuda):
+    """An NCCL world of one on cuda:0: the f32 all-reduce, the Q80 two-phase wire (a Q80
+    round trip over one member) and the logits gather, eager and captured in a CUDA
+    graph replayed on new inputs, each equal to what it must compute
+    (chip_smoke.tp_rank_nccl_one)."""
+    from distributed_llama_tpu_torch.parallel import launch
+
+    got = launch.run("chip_smoke:tp_rank_nccl_one", 1, "cuda:0", backend="nccl",
+                     deadline=300)[0]
+    assert got == {"eager": True, "graph": True}
+
+
+@pytest.mark.cuda
+def test_q4_matmul_route_takes_the_tp_shard_k_on_the_card(cuda):
+    """On the card the M > 1 route gate is csrc/q4_matmul.cu's own (K a multiple of 64):
+    Llama-2-7B's w2 shard at tp = 2 (K = 5504, K/2 not a multiple of the JAX kernel's
+    128-lane tile) takes q4_matmul and matches its plain version within 1e-3·max (f32
+    output); the same weight on the CPU keeps the JAX package's gate (dequantize)."""
+    from distributed_llama_tpu_torch.ops import matmul as tmm
+    from distributed_llama_tpu_torch.quants import QTensor
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n, k = 256, 5504
+    packed = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, generator=gen,
+                           device=cuda)
+    scales = (torch.rand(n, k // 32, generator=gen, device=cuda) * 0.004 + 0.002).half()
+    w = QTensor(FloatType.Q40, packed, scales, layout="i4p")
+    x = torch.randn(8, k, generator=gen, device=cuda).to(torch.bfloat16)
+    assert tmm.q4_mm_supported(w, 8)
+    assert not tmm.q4_mm_supported(w.to("cpu"), 8)
+    tmm.reset_kernel_selections()
+    y = tmm.qmatmul(x, w, use_kernels="all", out_dtype=torch.float32)
+    assert set(tmm.kernel_selections().values()) == {"q4_mm"}
+    ref = mm.q4_matmul_plain(x, packed, scales)
+    assert float((y - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
