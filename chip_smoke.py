@@ -11,11 +11,12 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             Q40 weights, and with the fused prologue on Q40 and on Q80 weights (logits
             within tolerance, identical greedy tokens for 8 steps), and the fused
             BatchEngine on 4 staggered requests (identical greedy tokens, logits step by
-            step within tolerance); then the fused BatchEngine with two constrained
-            rows (a JSON schema, a regex) and two free ones, speculation off (masked
-            super-steps) and on (masked verify blocks), and the model drafter's scan (a
-            self-draft, 4 rows, 4 turns): the card's tokens and drafts the CPU's outside
-            near-ties held by the CPU's and an exact-sum run's logits
+            step within tolerance); then, at 1 layer, the fused BatchEngine with two
+            constrained rows (a JSON schema, a regex) and two free ones, speculation
+            off (masked super-steps) and on (masked verify blocks), and the model
+            drafter's scan (a self-draft, 4 rows, 4 turns): the card's tokens and
+            drafts the CPU's outside near-ties held by the CPU's and an exact-sum run's
+            logits
   model     Engine at full Llama-2-7B (32 layers, random Q40 weights drawn on the card in
             i4p layout, bf16, prefill_kernel), each one-token step a CUDA graph replay: a
             100-token prompt (chunks 64, 8, 1) and 64 greedy tokens, every kernel's
@@ -54,7 +55,7 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             displacing conversation, 16 steps' logits bit-identical to a fresh prefill,
             graph replays, and a follow-up turn on the resident rewind. Any cache
             degradation (warn_degraded) fails the phase
-  spec      speculative decoding: (1) the fused BatchEngine(speculative=8) at 2 layers of
+  spec      speculative decoding: (1) the fused BatchEngine(speculative=8) at 1 layer of
             Llama-2-7B width in f32, card against CPU, 4 staggered requests whose blocks
             are drafted from a speculation-off run's tokens (half of them corrupted at
             the third draft): the card's tokens and verify turns the CPU's (a near-tie
@@ -147,7 +148,7 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             them through the expert entry — 16 steps' logits bit-identical graph and
             eager, the device loop's tokens the host loop's, ms/token, idle share and
             busy against the token's byte floor), the distinct experts each layer chose,
-            and the peak memory; Mixtral on random Q80 weights (i8, 8 layers: the
+            and the peak memory; Mixtral on random Q80 weights (i8, 4 layers: the
             q8_matvec expert entry's path); Mixtral at 1 layer in f32, card against CPU
             (the Engine, and the fused BatchEngine on 4 staggered requests); Grok-1's
             block at full width (grok1_l2: 2 layers, 16 greedy tokens, graph against
@@ -185,6 +186,21 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             an NCCL world of one (the collectives eager and in a CUDA graph), two NCCL
             ranks on one card (NCCL's words), NCCL across two cards where the machine
             has them
+  tpserve   the serving path over tp (parallel/replay.py): q4_matmul (M = 8 and 64),
+            q4_gated_matmul and paged_attention (16 heads, with SDPA) against their
+            plain versions at Llama-2-7B's tp = 2 serving shard shapes, timed as the tp
+            phase times its kernels; then the fused 8-slot BatchEngine (superstep 8
+            pipelined, paged KV, prefix cache, speculative 8) at full 7B depth on the
+            serve phase's seed, tp = 2 on the Q80 wire as two ranks on cuda:0 over gloo,
+            rank 0 leading and rank 1 replaying: 8 staggered requests, a prefix hit, a
+            verify block, and two completions through api_server on the same world;
+            rank 1's device token blocks equal rank 0's, each request's first-step
+            logits within TP_FIRST_TOL of a tp = 1 BatchEngine on the card on the same
+            requests, the greedy tokens tp = 1's or parting only at a near-tie
+            (TPSERVE_TIE, tp = 1's own logits there), each dispatch kind's counted wire
+            bytes on collective_bytes_per_step, the pool drained, and each rank's #3,
+            #4 (none: the residual epilogue is off under tp), #5 and #9 launches on the
+            schedule of its forward steps
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
@@ -252,7 +268,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # times are not taken with profiler hooks installed
 ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
               "resil", "tenancy", "disagg", "obs", "constrain", "draft", "moe", "spill",
-              "tp", "kernels", "cli")
+              "tp", "tpserve", "kernels", "cli")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -2075,12 +2091,14 @@ def phase_parity(state: dict) -> None:
             log(f"[parity] 2-layer Llama-2-7B width, f32, {label} with the fused prologue: "
                 f"{report}")
         log(f"[parity] 2-layer Llama-2-7B width, f32: {serving_parity()}")
-        p8 = _random_i4p_params(spec, cpu, seed=8, gate_pair=True, lo=1)
+        # the grammar and drafter parities at 1 layer (2 until the tpserve phase came:
+        # depth cut for time)
+        p8 = _random_i4p_params(_llama2_7b(n_layers=1), cpu, seed=8, gate_pair=True, lo=1)
         for label, check in (("constrained", constrain_parity), ("the drafter",
                                                                   drafter_parity)):
             t0 = time.perf_counter()
             report = check(p8)
-            log(f"[parity] 2-layer Llama-2-7B width, f32, {label}: {report} "
+            log(f"[parity] 1-layer Llama-2-7B width, f32, {label}: {report} "
                 f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -4156,8 +4174,9 @@ class _ReferenceDrafts:
         return len(self.propose(row, k)) >= min_draft
 
 
-def spec_parity(n_layers: int = 2, max_tokens: int = 16) -> str:
-    """The fused BatchEngine(speculative=8) at full Llama-2-7B width, 2 layers, f32 with
+def spec_parity(n_layers: int = 1, max_tokens: int = 16) -> str:
+    """The fused BatchEngine(speculative=8) at full Llama-2-7B width, 1 layer (2 until
+    the tpserve phase came: depth cut for time), f32 with
     seeded weights (nibbles 1..15, so greedy streams vary), on 4 staggered requests
     (superstep 4, pipelined): a speculation-off CPU run gives each request's reference
     tokens; then the CPU with the kernels' plain versions and the card with the kernels
@@ -4283,15 +4302,16 @@ def _parity_streams(spec, params, prompts, card, cpu, what: str
     return ties
 
 
-def constrain_parity(params, n_layers: int = 2, max_tokens: int = 16) -> str:
+def constrain_parity(params, n_layers: int = 1, max_tokens: int = 16) -> str:
     """The masked super-step and the masked verify in the fused BatchEngine at full
-    Llama-2-7B width, 2 layers, f32 with seeded weights (nibbles 1..15): the card with
+    Llama-2-7B width, 1 layer (2 until the tpserve phase came: depth cut for time), f32
+    with seeded weights (nibbles 1..15): the card with
     the kernels against the CPU with their plain versions, 4 requests admitted together
     (the schema, the branchy regex, 2 unconstrained; prompts of 8 and 16 tokens, so the
     prefill takes few dispatches), greedy, speculative 8: the grammar proposer's forced
     chains run in masked verify blocks and the branch points in masked super-steps. The
     card's tokens are the CPU's outside near-ties, every constrained output is valid,
-    and both masked builds run on both. `params`: the 2-layer CPU weights (seed 8,
+    and both masked builds run on both. `params`: the 1-layer CPU weights (seed 8,
     nibbles 1..15) in the gate-pair layout."""
     from distributed_llama_tpu_torch.constrain import compile_grammar
     from distributed_llama_tpu_torch.models.params import params_to
@@ -4337,8 +4357,8 @@ def constrain_parity(params, n_layers: int = 2, max_tokens: int = 16) -> str:
                           + "; ".join(t for _, _, t in ties)) + f" {runs['cpu'][0]}")
 
 
-def drafter_parity(params, n_layers: int = 2, turns: int = 3) -> str:
-    """The drafter's catch-up + draft scan at full Llama-2-7B width, 2 layers, f32 with
+def drafter_parity(params, n_layers: int = 1, turns: int = 3) -> str:
+    """The drafter's catch-up + draft scan at full Llama-2-7B width, 1 layer, f32 with
     seeded weights (a self-draft): the card with the kernels (each scan step a CUDA
     graph) against the CPU with their plain versions, 4 rows of different prompts, each
     turn's pushes the CPU's drafts' first two and one correction token: the card's
@@ -4387,7 +4407,7 @@ def drafter_parity(params, n_layers: int = 2, turns: int = 3) -> str:
 
 
 def phase_spec(state: dict) -> None:
-    """Speculative decoding: card-against-CPU parity at 2 layers, then full Llama-2-7B
+    """Speculative decoding: card-against-CPU parity at 1 layer, then full Llama-2-7B
     (the serve phase's weights) in the batched engine and the single-sequence Engine."""
     t0 = time.perf_counter()
     log(f"[spec] parity: {spec_parity()} ({time.perf_counter() - t0:.1f} s)")
@@ -4601,9 +4621,9 @@ def _resil_transient(be, prompts, ref8, wall_ref: float, numbers: dict) -> None:
     issues: list[tuple[float, int]] = []
     real = be._dispatched
 
-    def timed(kind, call):
+    def timed(kind, call, *shape):
         n, t = be.retries, time.perf_counter()
-        out = real(kind, call)
+        out = real(kind, call, *shape)
         if kind == "super_step":
             issues.append((time.perf_counter() - t, be.retries - n))
         return out
@@ -6287,9 +6307,10 @@ def phase_moe(state: dict) -> None:
     del params
     torch.cuda.empty_cache()
 
-    # Q80 Mixtral (i8 layout) at 8 layers: the q8_matvec expert entry's path; the M > 1
-    # prefill chunks dequantize the i8 experts (the JAX package's route too)
-    spec8 = _mixtral_8x7b(n_layers=8)
+    # Q80 Mixtral (i8 layout) at 4 layers (8 until the tpserve phase came: depth cut for
+    # time): the q8_matvec expert entry's path; the M > 1 prefill chunks dequantize the
+    # i8 experts (the JAX package's route too)
+    spec8 = _mixtral_8x7b(n_layers=4)
     params = _random_moe_params(spec8, dev, seed=23, fmt="q80")
     L = spec8.n_layers
     launches = _moe_decode(state, "moe q80", spec8, params, 16, dict(fused_prologue=False),
@@ -6669,12 +6690,13 @@ def _wire_launches(t: int, spec, tp: int) -> int:
     return 2 * spec.n_layers * (pieces(t * spec.dim) + pieces(t * spec.dim // tp))
 
 
-def _mm_launches(spec, tp: int) -> int:
+def _mm_launches(spec, tp: int, gate_pair: bool = False) -> int:
     """q4_matmul's launches in one M > 1 step of a rank: the projections whose shard
     passes the card's route gate (ops/matmul.py q4_mm_supported: K a multiple of 64, as
-    csrc/q4_matmul.cu takes it), at tp = 2 all four, w2's K = 5504 included, and
-    wcls."""
-    ks = (spec.dim, spec.dim // tp, spec.dim, spec.hidden_dim // tp)  # wqkv wo w13 w2
+    csrc/q4_matmul.cu takes it), at tp = 2 all of them, w2's K = 5504 included, and
+    wcls. `gate_pair`: w1 and w3 apart (two launches where w13 takes one)."""
+    ks = (spec.dim, spec.dim // tp) + (spec.dim,) * (2 if gate_pair else 1) + (
+        spec.hidden_dim // tp,)  # wqkv wo w13 (or w1 w3) w2
     return spec.n_layers * sum(k % 64 == 0 for k in ks) + 1  # + wcls
 
 
@@ -6720,21 +6742,23 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def tp_rank_full(mesh, wires):
-    """(b) on one rank: Llama-2-7B (the model phase's seed) drawn on the card tensor by
-    tensor into host memory, as Engine.load holds a `.m` file, then for each wire an
-    Engine on the card from those host weights: bf16, prefill_kernel, the 100-token
-    prompt and TP_TOKENS greedy tokens, ms per one-token step (this rank's wall, the
-    logits on the host), the counted wire bytes of every step, launches against the
-    schedule, and the card's memory from the Engine on: resident, peak, and what the
-    rank must hold (its shard and its KV caches)."""
+def tp_rank_full(mesh, wires, serve=None):
+    """(b) on one rank: Llama-2-7B (the serve phase's seed, w1/w3 apart: the Engine here
+    merges them, the serving engine keeps them) drawn on the card tensor by tensor into
+    host memory, as Engine.load holds a `.m` file, then for each wire an Engine on the
+    card from those host weights: bf16, prefill_kernel, the 100-token prompt and
+    TP_TOKENS greedy tokens, ms per one-token step (this rank's wall, the logits on the
+    host), the counted wire bytes of every step, launches against the schedule, and the
+    card's memory from the Engine on: resident, peak, and what the rank must hold (its
+    shard and its KV caches). With `serve` = (prompts, hit), the tpserve phase's serving
+    run follows on the same world and the same host weights (`_tpserve_on_rank`)."""
     from distributed_llama_tpu_torch.parallel.collectives import broadcast_int
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
     spec = _llama2_7b()
     dev = mesh.device
     counters = _single_counters()
-    host = _random_i4p_params(spec, dev, seed=11, to="cpu")
+    host = _random_i4p_params(spec, dev, seed=13, gate_pair=True, to="cpu")
     gc.collect()
     torch.cuda.empty_cache()
     out = {}
@@ -6774,6 +6798,9 @@ def tp_rank_full(mesh, wires):
                      "peak": torch.cuda.max_memory_allocated(dev) - base}
         del eng
         torch.cuda.empty_cache()
+    if serve is not None:
+        gc.collect()
+        out["serve"] = _tpserve_on_rank(mesh, host, *serve)
     return out
 
 
@@ -6969,98 +6996,47 @@ def _tp_shard_kernels(gen, dev, rate: float) -> None:
         "profiler, weights rotated past the L2: " + "; ".join(rows))
 
 
-def phase_tp(state: dict) -> None:
-    """Tensor parallelism on one card: (a) f32 parity of two ranks on cuda:0 over gloo
-    against the CPU, (b) Llama-2-7B at full depth with tp = 2, (c) NCCL. Two ranks
-    time-slice one card and their wire is staged through the host: the times are a
-    wiring figure, not a tensor-parallel speed."""
-    import multiprocessing
-
+def _tp_full(state: dict, dev) -> None:
+    """(b): Llama-2-7B at 32 layers, bf16, tp = 2 on cuda:0, Q80 wire and raw wire,
+    against the tp = 1 engine on the card."""
     from distributed_llama_tpu_torch.parallel import launch
     from distributed_llama_tpu_torch.runtime.engine import (Engine, GenerationStats,
                                                             collective_kbytes_per_token)
 
-    dev = torch.device("cuda")
-    _tp_shard_kernels(torch.Generator(device=dev).manual_seed(17), dev, state["rate"])
-
-    # (a) f32 parity, 2 layers at full 7B width, raw and Q80 wire, Q40 and Q80 weights
-    t0 = time.perf_counter()
-    ref1 = {w: _tp_cpu_reference(w) for w in ("q40", "q80")}
-    # the Q80 wire's own CPU run (tp = 2 over gloo, plain versions): its numerics are the
-    # wire's, which tp = 1 has not
-    ref2 = launch.run("chip_smoke:tp_rank_parity", TP, "cpu",
-                      args=([("q40", True, None), ("q80", True, None)],), deadline=600)
-    cases = [("q40", False, ref1["q40"][1]), ("q40", True, ref2[0][0]["tokens"]),
-             ("q80", False, ref1["q80"][1]), ("q80", True, ref2[0][1]["tokens"])]
-    card = launch.run("chip_smoke:tp_rank_parity", TP, "cuda:0", backend="gloo",
-                      args=(cases,), deadline=600)
-    spec2 = _llama2_7b(n_layers=2)
-    matvec = {"q40": "q4_matvec", "q80": "q8_matvec"}
-    for i, (weights, compress, _) in enumerate(cases):
-        tag = f"{weights.upper()} weights, {'Q80' if compress else 'raw'} wire"
-        # the Q40 weights' rule is 2e-3; Q80 weights take engine_parity's crossing
-        # rule's 2e-2: the tp split sums each projection in another f32 order than one
-        # card, and q8_matvec quantizes every activation row to Q80, where a value within
-        # an ulp of a rounding boundary moves a code
-        tol = 2e-3 if weights == "q40" else 2e-2
-        want = ref2[0][i // 2]["logits"] if compress else ref1[weights][0]
-        worst, ties = _tp_held(f"(a) {tag}", card[0][i]["logits"], want, tol)
-        wire_note = ""
-        if compress:
-            # the Q80 wire against tp = 1: the wire's own error, over the steps whose
-            # fed history is still tp = 1's (the wire's greedy tokens may part from it)
-            fed, toks1 = card[0][i]["tokens"], ref1[weights][1]
-            part = next((k for k, (a, b) in enumerate(zip(fed, toks1)) if a != b), None)
-            upto = TP_STEPS + 1 if part is None else part + 1
-            dev1 = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in
-                       zip(card[0][i]["logits"][:upto], ref1[weights][0][:upto]))
-            wire_note = (f"; against the CPU's tp=1 {dev1:.3e}·max over the first {upto} "
-                         f"steps, the wire's greedy tokens "
-                         + ("tp=1's" if part is None else f"part from tp=1's at step {part}"))
-        steps = TP_STEPS + 1  # the 1-token tail of the prompt and the fed steps
-        per = 4 * spec2.n_layers + 1
-        sched = {matvec[weights]: steps * per, "decode_attention": steps * spec2.n_layers,
-                 "q4_matmul": _mm_launches(spec2, TP) if weights == "q40" else 0,
-                 "quantize_q80": (_wire_launches(8, spec2, TP) + steps
-                                  * _wire_launches(1, spec2, TP)) if compress else 0}
-        for r in range(TP):
-            got = {k: card[r][i]["launches"][k] for k in sched}
-            if got != sched:
-                raise AssertionError(f"[tp] (a) {tag} rank {r}: launches {got}, "
-                                     f"schedule {sched}")
-        model = collective_kbytes_per_token(spec2, TP, compress) * 1024
-        if any(card[r][i]["bytes_per_step"] != model for r in range(TP)):
-            raise AssertionError(f"[tp] (a) {tag}: counted bytes "
-                                 f"{[c[i]['bytes_per_step'] for c in card]} != {model}")
-        log(f"[tp] (a) 2-layer Llama-2-7B width, f32, {tag}, 2 ranks on cuda:0 over gloo "
-            f"against the CPU {'tp=2 run of the same wire' if compress else 'tp=1 run'}: "
-            f"9-token prompt + {TP_STEPS} steps, greedy picks "
-            + (f"identical but at near-ties (step, gap/max) {ties}" if ties
-               else "identical")
-            + f", worst max|Δlogits|/max {worst:.3e} (rule {tol:.0e}){wire_note}; "
-            f"launches per rank {json.dumps(sched)}; wire {model:.0f} B a step")
-    log(f"[tp] (a) done in {time.perf_counter() - t0:.1f} s")
-
-    # (b) Llama-2-7B at 32 layers, bf16, tp = 2 on cuda:0, Q80 wire and raw wire
     t0 = time.perf_counter()
     spec = _llama2_7b()
-    ref = Engine(spec, _random_i4p_params(spec, dev, seed=11), prefill_kernel=True)
+    params = _random_i4p_params(spec, dev, seed=13, gate_pair=True)
+    ref = Engine(spec, params, prefill_kernel=True)
     first1 = ref.prefill(_prompt_100(spec))
     toks1 = ref._decode(first1, TP_TOKENS, _CheckedSampler(spec.vocab_size),
                         GenerationStats())
     del ref
+    # the tpserve phase's serving run shares this world and its host draw, and its tp = 1
+    # reference these weights
+    serve = None
+    if "tpserve" in state["phases"]:
+        state["tpserve_params"] = params
+        serve = _tpserve_prompts(spec)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+    t_world = time.perf_counter()
     full = launch.run("chip_smoke:tp_rank_full", TP, "cuda:0", backend="gloo",
-                      args=(("q80", "raw"),), deadline=900)
-    per, L = 4 * spec.n_layers + 1, spec.n_layers
+                      args=(("q80", "raw"), serve), deadline=900)
+    if serve is not None:
+        state["tpserve_world"] = ([r.pop("serve") for r in full],
+                                  time.perf_counter() - t_world)
+    # the serve phase's weights keep w1 and w3 apart (drawn in the kernels' layout, no
+    # fusion): five decode matvecs a layer, and wcls
+    per, L = 5 * spec.n_layers + 1, spec.n_layers
     for wire in ("q80", "raw"):
         r0 = full[0][wire]
         model = collective_kbytes_per_token(spec, TP, wire == "q80") * 1024
         sched = {"q4_matvec": TP_TOKENS * per, "decode_attention": TP_TOKENS * L,
                  "quantize_q80": TP_TOKENS * _wire_launches(1, spec, TP)
                  if wire == "q80" else 0}
-        pre = {"q4_matmul": 5 * _mm_launches(spec, TP), "q4_matvec": 4 * per,
+        pre = {"q4_matmul": 5 * _mm_launches(spec, TP, gate_pair=True),
+               "q4_matvec": 4 * per,
                "decode_attention": 4 * L,
                "quantize_q80": (_wire_launches(64, spec, TP) + 4 * _wire_launches(8, spec, TP)
                                 + 4 * _wire_launches(1, spec, TP)) if wire == "q80" else 0}
@@ -7109,7 +7085,40 @@ def phase_tp(state: dict) -> None:
             + f" GiB (held within shard + KV + {TP_PEAK_MARGIN / 2**30:.2f} GiB)")
     log(f"[tp] (b) done in {time.perf_counter() - t0:.1f} s")
 
-    # (c) NCCL: a world of one, eager and captured; two ranks on one card; two cards
+
+class _Background(threading.Thread):
+    """fn() on a thread of its own (host work beside the card's); result() joins it and
+    returns what fn returned, or raises what it raised."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self._fn, self._out, self._err = fn, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self._out = self._fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised in result()
+            self._err = e
+
+    def result(self, timeout: float = 1800):
+        self.join(timeout)
+        if self.is_alive():
+            raise AssertionError("a background task did not finish in time")
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def _tp_nccl(cases: list, ref1: dict) -> list[str]:
+    """(c) NCCL: a world of one, eager and captured; two ranks on one card; two cards
+    where the machine has them. Returns the log lines (it runs beside (a)'s card
+    world: separate processes, nothing timed)."""
+    import multiprocessing
+
+    from distributed_llama_tpu_torch.parallel import launch
+
+    lines = []
     t0 = time.perf_counter()
     one = launch.run("chip_smoke:tp_rank_nccl_one", 1, "cuda:0", backend="nccl",
                      deadline=300)[0]
@@ -7128,20 +7137,524 @@ def phase_tp(state: dict) -> None:
             p.join(30)
             if p.is_alive():
                 p.kill()
-    log(f"[tp] (c) NCCL world of one on cuda:0: all-reduce, the Q80 two-phase wire and "
-        f"the logits gather bit-exact eager and in a CUDA graph replayed on new inputs; "
-        f"two NCCL ranks on cuda:0: rank 0 {words[0]!r}; rank 1 {words[1]!r}")
+    lines.append(f"[tp] (c) NCCL world of one on cuda:0: all-reduce, the Q80 two-phase "
+                 f"wire and the logits gather bit-exact eager and in a CUDA graph replayed "
+                 f"on new inputs; two NCCL ranks on cuda:0: rank 0 {words[0]!r}; rank 1 "
+                 f"{words[1]!r}")
     if torch.cuda.device_count() >= 2:
         across = launch.run("chip_smoke:tp_rank_parity", TP, ["cuda:0", "cuda:1"],
                             backend="nccl", args=(cases[:1],), deadline=600)
         worst, _ = _tp_held("(c) NCCL cuda:0 + cuda:1", across[0][0]["logits"],
                             ref1["q40"][0])
-        log(f"[tp] (c) (a)'s Q40 raw-wire case over NCCL on cuda:0 and cuda:1: worst "
-            f"{worst:.3e}")
+        lines.append(f"[tp] (c) (a)'s Q40 raw-wire case over NCCL on cuda:0 and cuda:1: "
+                     f"worst {worst:.3e}")
     else:
-        log(f"[tp] (c) NCCL across cards not run: torch.cuda.device_count() is "
-            f"{torch.cuda.device_count()} on this machine")
-    log(f"[tp] (c) done in {time.perf_counter() - t0:.1f} s")
+        lines.append(f"[tp] (c) NCCL across cards not run: torch.cuda.device_count() is "
+                     f"{torch.cuda.device_count()} on this machine")
+    lines.append(f"[tp] (c) done in {time.perf_counter() - t0:.1f} s (beside (a)'s card "
+                 "world)")
+    return lines
+
+
+def phase_tp(state: dict) -> None:
+    """Tensor parallelism on one card: (a) f32 parity of two ranks on cuda:0 over gloo
+    against the CPU, (b) Llama-2-7B at full depth with tp = 2, (c) NCCL. Two ranks
+    time-slice one card and their wire is staged through the host: the times are a
+    wiring figure, not a tensor-parallel speed."""
+    from distributed_llama_tpu_torch.parallel import launch
+    from distributed_llama_tpu_torch.runtime.engine import collective_kbytes_per_token
+
+    dev = torch.device("cuda")
+    # (a)'s CPU references run on the host beside the card's work (the shard kernels and
+    # (b)), which they do not depend on: the tp = 1 runs, and the Q80 wire's own CPU run
+    # (tp = 2 over gloo, plain versions), whose numerics are the wire's, which tp = 1
+    # has not
+    t_cpu = time.perf_counter()
+    refs = _Background(lambda: (
+        {w: _tp_cpu_reference(w) for w in ("q40", "q80")},
+        launch.run("chip_smoke:tp_rank_parity", TP, "cpu",
+                   args=([("q40", True, None), ("q80", True, None)],), deadline=600),
+        time.perf_counter() - t_cpu))
+    _tp_shard_kernels(torch.Generator(device=dev).manual_seed(17), dev, state["rate"])
+    _tp_full(state, dev)
+
+    # (a) f32 parity, 2 layers at full 7B width, raw and Q80 wire, Q40 and Q80 weights
+    t0 = time.perf_counter()
+    ref1, ref2, cpu_s = refs.result()
+    log(f"[tp] (a) the CPU references took {cpu_s:.1f} s beside the shard kernels and "
+        f"(b); waited {time.perf_counter() - t0:.1f} s more")
+    cases = [("q40", False, ref1["q40"][1]), ("q40", True, ref2[0][0]["tokens"]),
+             ("q80", False, ref1["q80"][1]), ("q80", True, ref2[0][1]["tokens"])]
+    nccl = _Background(lambda: _tp_nccl(cases, ref1))  # (c), beside (a)'s card world
+    card = launch.run("chip_smoke:tp_rank_parity", TP, "cuda:0", backend="gloo",
+                      args=(cases,), deadline=600)
+    spec2 = _llama2_7b(n_layers=2)
+    matvec = {"q40": "q4_matvec", "q80": "q8_matvec"}
+    for i, (weights, compress, _) in enumerate(cases):
+        tag = f"{weights.upper()} weights, {'Q80' if compress else 'raw'} wire"
+        # the Q40 weights' rule is 2e-3; Q80 weights take engine_parity's crossing
+        # rule's 2e-2: the tp split sums each projection in another f32 order than one
+        # card, and q8_matvec quantizes every activation row to Q80, where a value within
+        # an ulp of a rounding boundary moves a code
+        tol = 2e-3 if weights == "q40" else 2e-2
+        want = ref2[0][i // 2]["logits"] if compress else ref1[weights][0]
+        worst, ties = _tp_held(f"(a) {tag}", card[0][i]["logits"], want, tol)
+        wire_note = ""
+        if compress:
+            # the Q80 wire against tp = 1: the wire's own error, over the steps whose
+            # fed history is still tp = 1's (the wire's greedy tokens may part from it)
+            fed, toks1 = card[0][i]["tokens"], ref1[weights][1]
+            part = next((k for k, (a, b) in enumerate(zip(fed, toks1)) if a != b), None)
+            upto = TP_STEPS + 1 if part is None else part + 1
+            dev1 = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in
+                       zip(card[0][i]["logits"][:upto], ref1[weights][0][:upto]))
+            wire_note = (f"; against the CPU's tp=1 {dev1:.3e}·max over the first {upto} "
+                         f"steps, the wire's greedy tokens "
+                         + ("tp=1's" if part is None else f"part from tp=1's at step {part}"))
+        steps = TP_STEPS + 1  # the 1-token tail of the prompt and the fed steps
+        per = 4 * spec2.n_layers + 1
+        sched = {matvec[weights]: steps * per, "decode_attention": steps * spec2.n_layers,
+                 "q4_matmul": _mm_launches(spec2, TP) if weights == "q40" else 0,
+                 "quantize_q80": (_wire_launches(8, spec2, TP) + steps
+                                  * _wire_launches(1, spec2, TP)) if compress else 0}
+        for r in range(TP):
+            got = {k: card[r][i]["launches"][k] for k in sched}
+            if got != sched:
+                raise AssertionError(f"[tp] (a) {tag} rank {r}: launches {got}, "
+                                     f"schedule {sched}")
+        model = collective_kbytes_per_token(spec2, TP, compress) * 1024
+        if any(card[r][i]["bytes_per_step"] != model for r in range(TP)):
+            raise AssertionError(f"[tp] (a) {tag}: counted bytes "
+                                 f"{[c[i]['bytes_per_step'] for c in card]} != {model}")
+        log(f"[tp] (a) 2-layer Llama-2-7B width, f32, {tag}, 2 ranks on cuda:0 over gloo "
+            f"against the CPU {'tp=2 run of the same wire' if compress else 'tp=1 run'}: "
+            f"9-token prompt + {TP_STEPS} steps, greedy picks "
+            + (f"identical but at near-ties (step, gap/max) {ties}" if ties
+               else "identical")
+            + f", worst max|Δlogits|/max {worst:.3e} (rule {tol:.0e}){wire_note}; "
+            f"launches per rank {json.dumps(sched)}; wire {model:.0f} B a step")
+    log(f"[tp] (a) done in {time.perf_counter() - t0:.1f} s")
+    for line in nccl.result():
+        log(line)
+
+
+
+
+# --------------------------------------------------------------------------------------
+# tpserve: the BatchEngine and api_server over tp = 2 (parallel/replay.py), one card
+# --------------------------------------------------------------------------------------
+
+# prompt tokens of the 8 staggered requests (request i+1 at request i's first token);
+# request 3's prompt repeats a 6-token pattern, so its n-gram proposer drafts at once
+TPSERVE_PROMPTS = (40, 9, 17, 30, 12, 20, 9, 16)
+TPSERVE_TOKENS = 16
+TPSERVE_HIT = 37  # the prefix hit: request 0's first 32 tokens (2 blocks) + 5 new ones
+TPSERVE_SPEC = 8
+# forward-step launches of a rank at tp = 2 on the serve weights (separate w1/w3): #3
+# on wqkv, wo (K = 2048), w2 (K = 5504) a layer and wcls; #5 on w1·w3; #9; never #4
+# (the residual epilogue is off where partial sums merge: models/forward.py)
+TPSERVE_PER_FORWARD = {"q4_matmul": 3 * 32 + 1, "q4_matmul_res": 0, "q4_gated_matmul": 32,
+                       "paged_attention": 32}
+# where two greedy picks may part: the reference's own top two within this of max|logits|
+TPSERVE_TIE = 2e-3
+# the serving engine of this phase: the serve phase's, with the prefix cache and
+# speculation on
+TPSERVE_ENGINE = dict(slots=8, fused_matmul=True, kv_block_tokens=16, superstep=SERVE_K,
+                      pipeline=True, prefix_cache=True, speculative=TPSERVE_SPEC)
+# the decode shard shapes of the serving path at tp = 2 as (N, K): wqkv, wo, w2, wcls (#3)
+TPSERVE_MM = ((6144, 4096), (4096, 2048), (4096, 5504), (16000, 4096))
+
+
+def _tpserve_prompts(spec) -> tuple[list, list]:
+    gen = torch.Generator().manual_seed(29)
+    prompts = [[1] + torch.randint(3, spec.vocab_size, (n - 1,), generator=gen).tolist()
+               for n in TPSERVE_PROMPTS]
+    pattern = torch.randint(3, spec.vocab_size, (6,), generator=gen).tolist()
+    prompts[3] = [1] + (pattern * 5)[:TPSERVE_PROMPTS[3] - 1]
+    hit = prompts[0][:32] + torch.randint(3, spec.vocab_size, (TPSERVE_HIT - 32,),
+                                          generator=gen).tolist()
+    return prompts, hit
+
+
+def _first_logits_tap(be) -> dict:
+    """Record each request's first-step logits (its row of the dispatch that ingests its
+    last prompt token): request id -> f32 logits."""
+    firsts: dict = {}
+    inner = be._prefill_step
+
+    def tapped(slot, riders=()):
+        req = slot.req
+        inner(slot, riders)
+        if (req is not None and slot.req is req and not slot.pending
+                and slot.last_logits is not None and id(req) not in firsts):
+            firsts[id(req)] = np.array(slot.last_logits, dtype=np.float32)
+    be._prefill_step = tapped
+    return firsts
+
+
+def _tpserve_workload(be, prompts, hit) -> dict:
+    """The phase's requests on one BatchEngine: the 8 staggered prompts, then a prompt
+    sharing request 0's first two blocks (a directory remap). Greedy throughout; each
+    request's tokens, first-step logits and TTFT, the engine's dispatch counts."""
+    firsts = _first_logits_tap(be)
+    t0 = time.perf_counter()
+    reqs, _ = staggered(be, prompts, TPSERVE_TOKENS, after=1)
+    wall = time.perf_counter() - t0
+    _settle_cache(be)
+    reqs.append(be.submit(hit, TPSERVE_TOKENS, _CheckedSampler(be.spec.vocab_size)))
+    reqs[-1].wait(timeout=900)
+    _settle_cache(be)
+    return {"tokens": [r.out for r in reqs], "firsts": [firsts.get(id(r)) for r in reqs],
+            "ttft_ms": [(r.first_token_t - r.submit_t) * 1e3 for r in reqs], "wall": wall,
+            "verify_steps": be.verify_steps, "super_steps": be.super_steps,
+            "chained": be.chained, "remapped": be.remapped_blocks,
+            "hits": be.prefix_cache.stats()["hits"],
+            "dispatch_ms": {k: list(v) for k, v in be.dispatch_ms.items()}}
+
+
+def _tpserve_http(be) -> tuple[list, float]:
+    """Two concurrent chat completions (one SSE) through the port's api_server on `be`
+    (rank 0's engine of the world), a synthetic 32000-piece tokenizer: (status, finish,
+    text) each and the wall seconds."""
+    from distributed_llama_tpu_torch.apps.api_server import serve
+    from distributed_llama_tpu_torch.runtime.sampler import Sampler
+    from distributed_llama_tpu_torch.tokenizer import TemplateType, Tokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath = os.path.join(tmp, "synthetic.t")
+        _synthetic_tokenizer(tpath, be.spec.vocab_size)
+        be.tokenizer = Tokenizer.load(tpath)
+    srv = serve(None, "127.0.0.1", 0, TemplateType.LLAMA2,
+                Sampler(be.spec.vocab_size, 0.0, 0.9, 1), batch_engine=be)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    bodies = [{"messages": [{"role": "user", "content": f"hello w{i} w{11 * i}"}],
+               "max_tokens": 12, "temperature": 0, "stream": i == 0} for i in range(2)]
+    results: list = [None, None]
+
+    def call(i):
+        try:
+            results[i] = _http_post(url, bodies[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = e
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        stats = json.loads(urllib.request.urlopen(url + "/v1/stats", timeout=60).read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    wall = time.perf_counter() - t0
+    out = []
+    for i, res in enumerate(results):
+        if not isinstance(res, tuple):
+            raise AssertionError(f"[tpserve] http request {i} failed: {res!r}")
+        status, _ctype, raw = res
+        if bodies[i]["stream"]:
+            events = [ln[6:] for ln in raw.split("\n") if ln.startswith("data: ")]
+            chunks = [json.loads(e) for e in events[:-1]]
+            finish = chunks[-1]["choices"][0]["finish_reason"]
+            text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+        else:
+            payload = json.loads(raw)
+            finish = payload["choices"][0]["finish_reason"]
+            text = payload["choices"][0]["message"]["content"]
+        out.append((status, finish, text))
+    return out + [stats.get("collectives")], wall
+
+
+def tpserve_rank(mesh, prompts, hit):
+    """One rank of a world of the tpserve phase's own (where the tp phase did not run
+    and share its world): Llama-2-7B (the serve phase's seed, separate w1/w3) drawn on
+    the card tensor by tensor into host memory, then `_tpserve_on_rank`."""
+    host = _random_i4p_params(_llama2_7b(), mesh.device, seed=13, gate_pair=True,
+                              to="cpu")
+    gc.collect()
+    return _tpserve_on_rank(mesh, host, prompts, hit)
+
+
+def _tpserve_on_rank(mesh, host, prompts, hit):
+    """The tpserve phase's serving run on one rank: the fused BatchEngine over the mesh
+    (the Q80 wire, the server's default) built from the host weights. Rank 0 runs the
+    workload and two completions through api_server, then closes; rank 1 follows. Each
+    rank returns its device-sampled token blocks, its #3/#4/#5/#9 launches over the
+    whole run, and its card memory from the engine on."""
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    spec = _llama2_7b()
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    be = BatchEngine(spec, host, mesh=mesh, compress_collectives=True, **TPSERVE_ENGINE)
+    load_s = time.perf_counter() - t0
+    gc.collect()
+    eng = be.engine
+    assert eng.use_kernels == "fused" and eng.paged_kernel and not eng.cuda_graph
+    be.token_log = []
+    counters = _serve_counters()
+    _zero(counters)
+    out = {"load_s": load_s, "resident": torch.cuda.memory_allocated(dev) - base}
+    if mesh.rank == 0:
+        try:
+            out["work"] = _tpserve_workload(be, prompts, hit)
+            out["collectives"] = be.collective_stats()
+            out["drained"] = (be.release_idle(), be.kv_pool.n_blocks)
+            out["http"], out["http_wall"] = _tpserve_http(be)
+            out["forwards"] = be.dispatches + be.loop_steps - be.loop_steps // SERVE_K
+        finally:
+            be.close()
+    else:
+        out["replayed"] = be.follow()
+    out["launches"] = _read(counters)
+    out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["blocks"] = be.token_blocks()
+    return out
+
+
+def _tpserve_shard_kernels(state, gen, dev, rate: float) -> None:
+    """#3 (M = 8 and 64: a decode step's and an 8-token chunk's 8 rows), #5 and #9 at
+    Llama-2-7B's tp = 2 serving shard shapes, against their plain versions (the kernels
+    phase's tolerances), timed as the tp phase times its kernels: torch.profiler's
+    device time, one launch a call, the weights (and caches) rotated past the L2, a
+    bound beside each; for #9 one SDPA call over the same keys too. Kept in
+    state["tp_serve_rows"] for the log."""
+    from distributed_llama_tpu_torch.ops import paged_attention as pa
+    from distributed_llama_tpu_torch.ops import q4_gated_matmul as gm
+    from distributed_llama_tpu_torch.ops import q4_matmul as mm
+
+    rows = state.setdefault("tp_serve_rows", [])
+
+    def row(what, err, dv, plain, nbytes, ops, peak, lib=None):
+        bnd = bound(nbytes, ops, peak, rate)
+        rows.append(f"{what}: max|err| {err:.2e}, device {dv:.5f} ms, plain {plain:.4f} "
+                    f"ms" + ("" if lib is None else f", sdpa {lib:.5f} ms")
+                    + f", bound {bnd[0]:.3g} ms ({bnd[1]}), {bnd[0] / dv:.3f} of it")
+
+    for n, k in TPSERVE_MM:
+        wbytes = n * k // 2 + n * k // 32 * 2
+        copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
+        ws = [_random_i4p(n, k, gen, dev) for _ in range(copies)]
+        for m in (8, 64):
+            x = torch.randn(m, k, generator=gen, device=dev).to(BF16)
+            err, _ = _bf16_err(mm._launch(x, *ws[0], out_dtype=BF16),
+                               mm.q4_matmul_plain(x, *ws[0]))
+            dv = _one_launch_time(lambda i: mm._launch(x, *ws[i % copies], out_dtype=BF16),
+                                  20, "q4_matmul_tc_kernel")[1]
+            plain = _all_kernels_ms(lambda i: mm.q4_matmul_plain(x, *ws[i % copies]), 3)
+            row(f"q4_matmul M={m} N={n} K={k}", err, dv, plain,
+                wbytes + m * k * 2 + m * n * 2, 2 * m * n * k, "bf16")
+        del ws
+    n, k = 5504, 4096
+    wbytes = 2 * (n * k // 2 + n * k // 32 * 2)
+    copies = max(1, min(16, math.ceil(2 * L2_BYTES / wbytes)))
+    pairs = [(_random_i4p(n, k, gen, dev), _random_i4p(n, k, gen, dev))
+             for _ in range(copies)]
+    for m in (8, 64):
+        x = torch.randn(m, k, generator=gen, device=dev).to(BF16)
+        err, _ = _bf16_err(gm._launch(x, *pairs[0], "silu", out_dtype=BF16),
+                           gm.q4_gated_matmul_plain(x, *pairs[0], "silu"))
+        dv = _one_launch_time(lambda i: gm._launch(x, *pairs[i % copies], "silu",
+                                                   out_dtype=BF16), 20,
+                              "q4_gated_tc_kernel")[1]
+        plain = _all_kernels_ms(
+            lambda i: gm.q4_gated_matmul_plain(x, *pairs[i % copies], "silu"), 3)
+        row(f"q4_gated_matmul M={m} N={n} K={k} silu", err, dv, plain,
+            wbytes + m * k * 2 + m * n * 2, 4 * m * n * k, "bf16")
+    del pairs
+    b, hk, hs, bt, n_layers = 8, 16, 128, 16, 8  # 8 layers of pools: past the L2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for win, t in ((256, 1), (256, 8), (2048, 1), (2048, 8)):
+        n_blocks = b * (win // bt) + 1
+        kc = torch.randn(n_layers, n_blocks, hk, bt, hs, generator=gen,
+                         device=dev).to(BF16)
+        vc = torch.randn(n_layers, n_blocks, hk, bt, hs, generator=gen,
+                         device=dev).to(BF16)
+        lengths = [max(win - t - 37 * i, 0) for i in range(b)]
+        tables = torch.zeros(b, win // bt, dtype=torch.int32)
+        for r in range(b):
+            tables[r] = torch.arange(1 + r * (win // bt), 1 + (r + 1) * (win // bt))
+        tables = tables.to(dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        layers = [torch.tensor([li], dtype=torch.int32, device=dev)
+                  for li in range(n_layers)]
+        q = torch.randn(b, t, hk, hs, generator=gen, device=dev)
+        kn = torch.randn(b, hk, t, hs, generator=gen, device=dev).to(BF16)
+        vn = torch.randn(b, hk, t, hs, generator=gen, device=dev).to(BF16)
+        n_read = win // bt
+        out = pa._launch(q, kc, vc, kn, vn, tables, lens, layers[1], n_read)
+        ref = pa.paged_attention_plain(q, kc, vc, kn, vn, tables, lens, 1, n_read=n_read)
+        err, tol = (out - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+        if err > tol or not torch.isfinite(out).all():
+            raise AssertionError(f"[tpserve] paged_attention 16 heads T={t} win={win}: "
+                                 f"{err:.3e} > {tol:.3e}")
+        dv = _one_launch_time(lambda i: pa._launch(q, kc, vc, kn, vn, tables, lens,
+                                                   layers[i % n_layers], n_read), 30,
+                              "paged_attn_kernel")[1]
+        plain = _all_kernels_ms(lambda i: pa.paged_attention_plain(
+            q, kc, vc, kn, vn, tables, lens, i % n_layers, n_read=n_read), 5)
+        lmax = max(lengths) + t
+        kf = torch.zeros(b, hk, lmax, hs, dtype=BF16, device=dev)
+        vf = torch.zeros_like(kf)
+        mask = torch.zeros(b, 1, t, lmax, dtype=torch.bool, device=dev)
+        for r, ln in enumerate(lengths):
+            kw, vw = pa.paged_gather_kv(kc, vc, 1, tables[r:r + 1], -(-ln // bt) or 1)
+            kf[r, :, :ln], vf[r, :, :ln] = kw[0, :, :ln], vw[0, :, :ln]
+            kf[r, :, ln:ln + t], vf[r, :, ln:ln + t] = kn[r], vn[r]
+            mask[r, 0, :, :ln] = True
+            mask[r, 0, :, ln:ln + t] = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+        qb = q.permute(0, 2, 1, 3).to(BF16)
+        lib = _all_kernels_ms(lambda i: sdpa(qb, kf, vf, attn_mask=mask), 30)
+        nbytes = (sum(2 * hk * ln * hs * 2 for ln in lengths) + q.numel() * 4
+                  + 2 * kn.numel() * 2 + out.numel() * 4)
+        ops = sum(2 * 4 * hk * hs * (t * ln + t * (t + 1) // 2) for ln in lengths)
+        row(f"paged_attention B={b} T={t} win={win} 16 heads", err, dv, plain, nbytes, ops,
+            "bf16", lib)
+        del kc, vc, kf, vf
+    log("[tpserve] serving shard-shape kernels against their plain versions, device "
+        "times from the profiler, weights and pools rotated past the L2: "
+        + "; ".join(rows))
+
+
+def _tpserve_tie(ref_be, prompt, common: list, pick1: int, pick2: int) -> float:
+    """The tp = 1 reference's logits where two greedy runs part: `prompt` + the tokens
+    both decoded, one more token on the reference engine (its first-step logits at that
+    position). Returns the gap between the two picks' logits over max|logits|."""
+    firsts = _first_logits_tap(ref_be)
+    req = ref_be.submit(prompt + common, 1, _CheckedSampler(ref_be.spec.vocab_size))
+    req.wait(timeout=900)
+    lg = firsts[id(req)]
+    return float(abs(lg[pick1] - lg[pick2]) / np.abs(lg).max())
+
+
+def phase_tpserve(state: dict) -> None:
+    """The serving path over tensor parallelism: Llama-2-7B at full depth, the fused
+    8-slot BatchEngine (superstep 8 pipelined, paged KV, prefix cache, speculation 8) at
+    tp = 2 as two ranks time-slicing cuda:0 over gloo (the wire staged through the
+    host: a wiring figure, not a tp speed), rank 0 leading, rank 1 replaying its
+    operations; held against a tp = 1 BatchEngine on the card on the same weights and
+    requests (the same dispatch shapes)."""
+    from distributed_llama_tpu_torch.parallel import launch
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+    from distributed_llama_tpu_torch.runtime.engine import collective_bytes_per_step
+
+    dev = torch.device("cuda")
+    _tpserve_shard_kernels(state, torch.Generator(device=dev).manual_seed(23), dev,
+                           state["rate"])
+    spec = _llama2_7b()
+    prompts, hit = _tpserve_prompts(spec)
+    shared = state.pop("tpserve_world", None)
+    if shared is not None:  # run on the tp phase's world, after its (b)
+        world, world_s = shared
+    else:
+        t0 = time.perf_counter()
+        world = launch.run("chip_smoke:tpserve_rank", TP, "cuda:0", backend="gloo",
+                           args=(prompts, hit), deadline=900)
+        world_s = time.perf_counter() - t0
+    lead, follower = world
+    work = lead["work"]
+
+    # the tp = 1 reference on the card: the serve phase's weights, the same requests
+    t0 = time.perf_counter()
+    params = state.pop("tpserve_params", None) or _random_i4p_params(
+        spec, dev, seed=13, gate_pair=True)
+    ref = BatchEngine(spec, params, device="cuda", **TPSERVE_ENGINE)
+    try:
+        want = _tpserve_workload(ref, prompts, hit)
+        ties, first_err = [], []
+        for i, (got, wnt) in enumerate(zip(work["firsts"], want["firsts"])):
+            err = float(np.abs(got - wnt).max() / np.abs(wnt).max())
+            if err > TP_FIRST_TOL["q80"] or not np.isfinite(got).all():
+                raise AssertionError(f"[tpserve] request {i}: first-step logits "
+                                     f"{err:.3e}·max from tp=1, tolerance "
+                                     f"{TP_FIRST_TOL['q80']}")
+            first_err.append(err)
+        asked = prompts + [hit]
+        for i, (got, wnt) in enumerate(zip(work["tokens"], want["tokens"])):
+            part = next((j for j, (a, b) in enumerate(zip(got, wnt)) if a != b), None)
+            if part is None:
+                if len(got) != len(wnt):
+                    raise AssertionError(f"[tpserve] request {i}: {len(got)} tokens, "
+                                         f"tp=1 {len(wnt)}")
+                continue
+            gap = _tpserve_tie(ref, asked[i], wnt[:part], wnt[part], got[part])
+            if gap > TPSERVE_TIE:
+                raise AssertionError(f"[tpserve] request {i}: greedy picks part from tp=1 "
+                                     f"at token {part}, where tp=1's logits of the two "
+                                     f"lie {gap:.3e}·max apart (> {TPSERVE_TIE})")
+            ties.append((i, part, round(gap, 6)))
+    finally:
+        ref.close()
+        del ref
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    if lead["blocks"] != follower["blocks"] or not lead["blocks"]:
+        n = next((j for j, (a, b) in enumerate(zip(lead["blocks"], follower["blocks"]))
+                  if a != b), None)
+        raise AssertionError(f"[tpserve] rank 1's token blocks differ from rank 0's (of "
+                             f"{len(lead['blocks'])}, first at {n})")
+    if not (work["verify_steps"] > 0 and work["super_steps"] > 0 and work["chained"] > 0
+            and work["remapped"] >= 2 and work["hits"] >= 1):
+        raise AssertionError(f"[tpserve] the workload missed a path: {work}")
+    free, n_blocks = lead["drained"]
+    if free != n_blocks - 1:
+        raise AssertionError(f"[tpserve] the pool did not drain: {free} of {n_blocks}")
+    sched = {k: v * lead["forwards"] for k, v in TPSERVE_PER_FORWARD.items()}
+    for r, rank in enumerate(world):
+        if rank["launches"] != sched:
+            raise AssertionError(f"[tpserve] rank {r} launches {rank['launches']}, "
+                                 f"schedule {sched} ({lead['forwards']} forward steps)")
+    coll = lead["collectives"]
+    for kind, row in coll["last"].items():
+        model = collective_bytes_per_step(spec, TP, True, row["rows"], row["t"])
+        if row["sent_bytes_per_device"] != model * row["steps"]:
+            raise AssertionError(f"[tpserve] {kind}: counted {row['sent_bytes_per_device']}"
+                                 f" B, model {model * row['steps']}")
+    http = lead["http"]
+    for status, finish, _text in http[:2]:
+        if status != 200 or finish not in ("stop", "length"):
+            raise AssertionError(f"[tpserve] http: {http}")
+    if (http[2] or {}).get("tp") != TP:
+        raise AssertionError(f"[tpserve] /v1/stats collectives {http[2]}")
+    ms = {k: (round(float(np.mean(v)), 3), len(v)) for k, v in work["dispatch_ms"].items()
+          if v}
+    state["tpserve_launches"] = {k: [w["launches"][k] for w in world] for k in sched}
+    log(f"[tpserve] Llama-2-7B 32 layers bf16 Q40, fused BatchEngine (8 slots, superstep "
+        f"{SERVE_K} pipelined, paged KV, prefix cache, speculative {TPSERVE_SPEC}) at tp=2 "
+        f"on the Q80 wire, two ranks time-slicing cuda:0 over gloo (host-staged: a wiring "
+        f"figure, not a tp speed): 8 staggered requests ({sum(TPSERVE_PROMPTS)} prompt "
+        f"tokens, {TPSERVE_TOKENS} greedy tokens each) in {work['wall']:.1f} s, then a "
+        f"prefix hit ({work['remapped']} blocks remapped); rank 1 replayed "
+        f"{follower['replayed']} operations and sampled the same "
+        f"{len(lead['blocks'])} device token blocks as rank 0; verify blocks "
+        f"{work['verify_steps']}, super-steps {work['super_steps']} ({work['chained']} "
+        f"chained); first-step logits within {max(first_err):.3e}·max of tp=1 on the card "
+        f"(tolerance {TP_FIRST_TOL['q80']}); greedy tokens "
+        + (f"part from tp=1 only at near-ties (request, token, gap/max) {ties}" if ties
+           else "identical to tp=1's")
+        + f"; launches per rank over {lead['forwards']} forward steps "
+        f"{json.dumps(sched)} on both ranks; wire per dispatch kind = "
+        f"collective_bytes_per_step (exact): "
+        + ", ".join(f"{k} {v['sent_bytes_per_device']:.0f} B ({v['rows']}x{v['t']}x"
+                    f"{v['steps']})" for k, v in coll["last"].items())
+        + f"; rank 0 dispatch ms (mean, count) {json.dumps(ms)}; TTFT ms "
+        + ", ".join(f"{t:.0f}" for t in work["ttft_ms"])
+        + f"; the pool drained ({free} of {n_blocks} free); api_server on the same world: "
+        f"2 completions in {lead['http_wall']:.1f} s ("
+        + "; ".join(f"{s} {f} {len(t)} chars" for s, f, t in http[:2])
+        + f"); memory per rank: built in "
+        + ", ".join(f"{w['load_s']:.1f}" for w in world) + " s, resident "
+        + ", ".join(f"{w['resident'] / 2**30:.3f}" for w in world) + " GiB, peak "
+        + ", ".join(f"{w['peak'] / 2**30:.3f}" for w in world)
+        + f" GiB; world {world_s:.1f} s"
+        + (" (the tp phase's, its (b) included)" if shared is not None else "")
+        + f", tp=1 reference {ref_s:.1f} s")
 
 
 def phase_cli(state: dict) -> None:
@@ -7167,9 +7680,25 @@ def phase_cli(state: dict) -> None:
         tpath_json = os.path.join(tmp, "trace.json")
         f32 = cmd + ["--dtype", "float32"]
         tp2 = f32 + ["--tp", "2", "--device", "cuda:0", "--dist-backend", "gloo"]
-        runs = [subprocess.run(c, cwd=ROOT, capture_output=True, timeout=300)
-                for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json], f32,
-                          tp2 + ["--buffer-float-type", "f32"], tp2)]
+        # the five CLI runs and the Q80 wire's world on cuda:0 at once: independent
+        # processes sharing the card (nothing here is timed)
+        procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE)
+                 for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json], f32,
+                           tp2 + ["--buffer-float-type", "f32"], tp2)]
+        try:
+            from distributed_llama_tpu_torch.parallel import launch
+
+            card = launch.run("chip_smoke:cli_rank_q80", 2, "cuda:0", backend="gloo",
+                              args=(mpath, tpath, None), deadline=300)
+            runs = [subprocess.CompletedProcess(p.args, 0, *p.communicate(timeout=300))
+                    for p in procs]
+            for r, p in zip(runs, procs):
+                r.returncode = p.returncode
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
         for res in runs:
             # random weights emit arbitrary byte pieces: decode leniently
             out = res.stdout.decode("utf-8", "replace")
@@ -7180,7 +7709,7 @@ def phase_cli(state: dict) -> None:
             spans = collections.Counter(e["name"] for e in json.load(f)["traceEvents"]
                                         if e.get("ph") == "X")
         texts = [r.stdout.rstrip(b"\n").split(b"\n")[-1] for r in runs]
-        q80_note = _cli_q80_wire(mpath, tpath, texts[4], texts[2])
+        q80_note = _cli_q80_wire(mpath, tpath, texts[4], texts[2], card)
     if not spans["engine.prefill"] or not spans["engine.device_loop"]:
         raise AssertionError(f"cli: dllama --trace wrote the spans {dict(spans)}")
     out = runs[0].stdout.decode("utf-8", "replace")
@@ -7227,29 +7756,29 @@ def cli_rank_q80(mesh, mpath: str, tpath: str, feed):
     return {"tokens": toks, "text": text, "logits": logits if mesh.rank == 0 else None}
 
 
-def _cli_q80_wire(mpath: str, tpath: str, printed: bytes, printed_tp1: bytes) -> str:
+def _cli_q80_wire(mpath: str, tpath: str, printed: bytes, printed_tp1: bytes,
+                  card: list) -> str:
     """The card's Q80-wire CLI text, held: the same generation in a world of 2 on
-    cuda:0 must print it; that run's logits, held by `_tp_held` (2e-3·max|logits|, the
-    near-tie rule) against the same wire's world of 2 on the CPU fed the same tokens;
-    where its tokens part from tp = 1's (the CPU, fed the same tokens), tp = 1's own
-    top-two gap there and the wire's deviation, logged. Returns the log's note."""
+    cuda:0 (`card`, cli_rank_q80's results) must print it; that run's logits, held by
+    `_tp_held` (2e-3·max|logits|, the near-tie rule) against the same wire's world of 2
+    on the CPU fed the same tokens; where its tokens part from tp = 1's (the CPU, fed the
+    same tokens, beside the CPU world), tp = 1's own top-two gap there and the wire's
+    deviation, logged. Returns the log's note."""
     from distributed_llama_tpu_torch.parallel import launch
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
-    card = launch.run("chip_smoke:cli_rank_q80", 2, "cuda:0", backend="gloo",
-                      args=(mpath, tpath, None), deadline=300)
     if any(r["text"] != printed for r in card):
         raise AssertionError(f"cli: the Q80 wire's CLI printed {printed!r}, the same run "
                              f"in a world of 2 {card[0]['text']!r}")
     toks = card[0]["tokens"]
-    cpu = launch.run("chip_smoke:cli_rank_q80", 2, "cpu", args=(mpath, tpath, toks),
-                     deadline=300)
-    worst, ties = _tp_held("cli Q80 wire, the card against the CPU", card[0]["logits"],
-                           cpu[0]["logits"])
+    cpu = _Background(lambda: launch.run("chip_smoke:cli_rank_q80", 2, "cpu",
+                                         args=(mpath, tpath, toks), deadline=300))
     eng = Engine.load(mpath, tpath, device="cpu", dtype=torch.float32, use_kernels=True)
     ref = [eng.prefill(eng.tokenizer.encode("hello", add_bos=True))]
     for t in toks[:-1]:
         ref.append(eng.infer_chunk([t]))
+    worst, ties = _tp_held("cli Q80 wire, the card against the CPU", card[0]["logits"],
+                           cpu.result()[0]["logits"])
     part = next((i for i, (t, w) in enumerate(zip(toks, ref)) if t != int(np.argmax(w))),
                 None)
     if part is None:
@@ -7283,6 +7812,9 @@ def kernels_line(state: dict) -> str:
             "bound_by": max(by, key=by.get), "library_ms": rec["library_ms"],
             "work": "sum over " + "; ".join(rec["work"]),
         })
+        if name in state.get("tpserve_launches", {}):
+            # the serving path over tp: each rank's launches in the tpserve world
+            rows[-1]["tpserve_launches"] = state["tpserve_launches"][name]
     return json.dumps({"kernels": rows})
 
 

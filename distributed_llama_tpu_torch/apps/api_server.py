@@ -54,6 +54,18 @@ per-request timelines, by completion id or trace id; `--flight-requests`, `--slo
 `traceparent` header is adopted, and its trace id follows the request into the
 scheduler's spans and flight events.
 
+Tensor parallelism (`--tp N`, parallel/): the model split over N ranks, started as
+local processes (parallel/launch.py) or joined one per host with `--pod`; `--buffer-
+float-type` picks the wire (q80 by default), `--dist-backend` the backend. Rank 0 binds
+the port, prints, writes the trace and runs the whole host side; the other ranks replay
+its device operations on their shards (parallel/replay.py: the BatchEngine's at `--batch
+N`, each generation of the single-sequence Engine at `--batch 1`, which keeps its
+resident-conversation rewind but no cross-conversation pool under tp). `/v1/stats` and
+`/metrics` carry the counted collectives. A rank that fails ends the job with a nonzero
+exit; SIGTERM drains on rank 0, which then ends the other ranks. Refused under tp
+(ValueError, naming its ROADMAP item): `--draft-model`, `--supervisor-threshold`,
+`--role prefill|decode` and `/v1/kv`, the KV spill.
+
 Runs on the GPU unless `--device cpu` is given.
 """
 
@@ -195,8 +207,9 @@ class ApiState:
         if engine is not None:
             from ..cache import SingleSlotCache, make_prefix_cache
 
-            # a paged engine (the host KV spill) keeps resident-only reuse: no pool
-            pc = None if engine.paged else make_prefix_cache(
+            # a paged engine (the host KV spill) keeps resident-only reuse: no pool; nor
+            # does a tp engine, whose followers hold no pool of their heads' rows
+            pc = None if engine.paged or engine.tp > 1 else make_prefix_cache(
                 engine.k_cache.shape, engine.k_cache.element_size(), slots=1,
                 prefix_cache=prefix_cache, blocks=prefix_cache_blocks,
                 block_tokens=prefix_block_tokens, q80=prefix_cache_q80)
@@ -283,10 +296,21 @@ def _stats_payload(state: ApiState) -> dict:
         from ..constrain import compile_stats
 
         out["constrain"] = dict(be.constrain_stats(), compile=compile_stats())
+        if be.collective_stats() is not None:
+            out["collectives"] = be.collective_stats()
     elif state.engine is not None:
         eng = state.engine
         out["engine"] = {"pos": eng.pos, "seq_len": eng.spec.seq_len, "paged": eng.paged,
                          "device": str(eng.device), "cuda_graph": eng.cuda_graph}
+        if eng.tp > 1:
+            # the decode step's counted collectives (measured once, on every rank, at
+            # start-up) and the rank's running total
+            t = eng.collective_stats()
+            out["collectives"] = {
+                "tp": eng.tp, "wire": "q80" if eng.compress else "f32",
+                "decode_t1": {"sent_bytes_per_device": t.sent_bytes_per_device,
+                              "counts": dict(t.counts)},
+                "sent_bytes_total": eng.mesh.counter.total.sent_bytes_per_device}
     # which kernel each matmul shape took: the readable view of
     # matmul_kernel_selected_total
     inner = be.engine if be is not None else state.engine
@@ -491,6 +515,10 @@ def run_completion(state: ApiState, body: dict, emit, *, journal=None,
     imported = 0
     ks = body.get("kv_source")
     if isinstance(ks, dict) and state.batch_engine is not None:
+        if state.batch_engine.engine.tp > 1:
+            # refused loudly, not a silent local prefill
+            raise ValueError("KV import (kv_source) under tp > 1 is not in the port yet "
+                             "(ROADMAP Queue A item 1 (c): /v1/kv under tp)")
         # a disaggregated admission: a prefill replica already computed this prompt's
         # KV; its blocks go into the prefix cache before admission, so the lookup remaps
         # them instead of prefilling. Any failure returns 0: a plain local prefill
@@ -861,6 +889,10 @@ class Handler(BaseHTTPRequestHandler):
             self._error(501, "KV transfer requires a batched engine (--batch > 1)",
                         "invalid_request_error")
             return
+        if be.engine.tp > 1:
+            self._error(501, "KV export under tp > 1 is not in the port yet (ROADMAP "
+                        "Queue A item 1 (c): /v1/kv under tp)", "invalid_request_error")
+            return
         try:
             faults.fire("disagg.prefill")
             if state.draining:
@@ -1084,6 +1116,11 @@ def serve(engine: Engine | None, host: str = "0.0.0.0", port: int = 9990,
                          "constructed with speculative=K (the BatchEngine owns the "
                          "batched draft-verify path)")
     runner = batch_engine or engine
+    if (supervisor_threshold > 0 and batch_engine is not None
+            and batch_engine.engine.tp > 1):
+        raise ValueError("--supervisor-threshold under tp > 1 is not in the port yet "
+                         "(ROADMAP Queue A item 1 (c): the hung-engine supervisor "
+                         "under tp)")
     # one policy authority per replica: the batch engine's own registry, so the server
     # and the scheduler agree on every tenant's weight and bucket
     if tenants is None and batch_engine is not None:
@@ -1165,7 +1202,7 @@ def install_sigterm_drain(server: QuietServer, state: ApiState,
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from .dllama import _FT, add_kv_storage_flags
+    from .dllama import _FT, add_kv_storage_flags, add_parallel_flags
 
     p = argparse.ArgumentParser(prog="dllama-api", description=__doc__.split("\n\n")[0])
     p.add_argument("--model", required=True)
@@ -1327,11 +1364,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
     add_kv_storage_flags(p)
+    add_parallel_flags(p)
     return p
 
 
 def check_args(p: argparse.ArgumentParser, args) -> None:
     """Refuse flag combinations the engines cannot serve (argparse exit 2)."""
+    if args.pod and None in (args.coordinator, args.num_processes, args.process_id):
+        p.error("--pod needs --coordinator, --num-processes and --process-id")
     if args.batch > 1 and args.kv_cache_storage in ("host", "disc"):
         # refuse loudly rather than allocate the full-seq_len device cache in exactly
         # the overflow case the flag exists for
@@ -1339,27 +1379,52 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
                 "single-sequence. For long-context serving use --batch 1.")
 
 
+def check_tp(args) -> None:
+    """What the server cannot run under tp > 1, before any rank starts: a ValueError
+    naming its ROADMAP item (the engines refuse the same)."""
+    tp = args.num_processes if args.pod else (args.tp or 1)
+    if tp <= 1:
+        return
+    if args.draft_model:
+        raise ValueError("--draft-model under tp > 1 is not in the port yet (ROADMAP "
+                         "Queue A item 1 (c): the drafter under tp)")
+    if args.supervisor_threshold > 0:
+        raise ValueError("--supervisor-threshold under tp > 1 is not in the port yet "
+                         "(ROADMAP Queue A item 1 (c): the hung-engine supervisor "
+                         "under tp)")
+    if args.role != "both":
+        raise ValueError(f"--role {args.role} (KV export and import over /v1/kv) under "
+                         "tp > 1 is not in the port yet (ROADMAP Queue A item 1 (c): "
+                         "/v1/kv under tp)")
+    Engine._refuse_under_tp(kv_cache_storage=args.kv_cache_storage)
+
+
 def engine_kwargs(args) -> dict:
     """Engine keyword arguments of parsed `main` arguments. Batched serving always
     fuses: every serving dispatch has M = slots x T > 1 rows, which without the fused
     rung would dequantize every weight on every step. Where the kernels do not run (the
-    CPU, or --no-kernels) the Engine turns fused_matmul off itself."""
-    return dict(device=args.device,
-                dtype=(None if args.dtype == "auto"
-                       else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
-                use_kernels=False if args.no_kernels else None,
-                prefill_kernel=args.prefill_kernel,
-                fused_matmul=args.fused_matmul or args.batch > 1,
-                fused_prologue=args.prologue)
+    CPU, or --no-kernels) the Engine turns fused_matmul off itself. A rank of a tp job
+    (`args.mesh`) runs on its mesh's device, with the wire --buffer-float-type picks."""
+    mesh = getattr(args, "mesh", None)
+    kw = dict(device=args.device if mesh is None else mesh.device,
+              dtype=(None if args.dtype == "auto"
+                     else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
+              use_kernels=False if args.no_kernels else None,
+              prefill_kernel=args.prefill_kernel,
+              fused_matmul=args.fused_matmul or args.batch > 1,
+              fused_prologue=args.prologue)
+    if mesh is not None:
+        kw.update(mesh=mesh, compress_collectives=args.buffer_float_type == "q80")
+    return kw
 
 
-def build_server(args) -> QuietServer:
-    """The engine and the bound server of parsed `main` arguments; the server's
-    `api_state` holds both engines."""
+def build_engines(args, tenants=None):
+    """The engines of parsed `main` arguments: (Engine or None, BatchEngine or None,
+    the --batch 1 control channel under tp or None). Every rank of a tp job builds the
+    same (each constructor is collective there); rank 0's --batch 1 Engine is wrapped
+    in an EngineLeader, whose generations the others replay."""
     from .dllama import _FT
 
-    # tenant policy is operator configuration: a malformed spec fails before any load
-    tenants = TenantRegistry.parse(args.tenants) if args.tenants else None
     kw = engine_kwargs(args)
     cache_kw = dict(prefix_cache=not args.no_prefix_cache,
                     prefix_cache_blocks=args.prefix_cache_blocks,
@@ -1368,28 +1433,64 @@ def build_server(args) -> QuietServer:
     load_kw = dict(max_seq_len=args.max_seq_len,
                    weights_ftype=_FT[args.weights_float_type]
                    if args.weights_float_type else None)
-    batch_engine = engine = None
     if args.batch > 1:
         from ..runtime.batch_engine import BatchEngine
 
-        batch_engine = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
-                                        superstep=max(args.superstep, 1),
-                                        pipeline=args.pipeline, paged_kv=not args.no_paged_kv,
-                                        # the drafter needs the verify path: --draft-model
-                                        # without --speculative takes the default width
-                                        speculative=(args.speculative or (
-                                            (args.draft_k or 8) if args.draft_model
-                                            else 0)),
-                                        draft_model=args.draft_model,
-                                        draft_k=args.draft_k,
-                                        kv_block_tokens=args.kv_block_tokens,
-                                        kv_pool_blocks=args.kv_pool_blocks,
-                                        max_queue=args.max_queue,
-                                        queue_ttl=args.queue_ttl, tenants=tenants,
-                                        slo_ttft_interactive=args.slo_ttft_interactive,
-                                        slo_ttft_batch=args.slo_ttft_batch,
-                                        slo_tpot_interactive=args.slo_tpot,
-                                        **cache_kw, **load_kw, **kw)
+        be = BatchEngine.load(args.model, args.tokenizer, slots=args.batch,
+                              superstep=max(args.superstep, 1),
+                              pipeline=args.pipeline, paged_kv=not args.no_paged_kv,
+                              # the drafter needs the verify path: --draft-model without
+                              # --speculative takes the default width
+                              speculative=(args.speculative or (
+                                  (args.draft_k or 8) if args.draft_model else 0)),
+                              draft_model=args.draft_model, draft_k=args.draft_k,
+                              kv_block_tokens=args.kv_block_tokens,
+                              kv_pool_blocks=args.kv_pool_blocks,
+                              max_queue=args.max_queue, queue_ttl=args.queue_ttl,
+                              tenants=tenants,
+                              slo_ttft_interactive=args.slo_ttft_interactive,
+                              slo_ttft_batch=args.slo_ttft_batch,
+                              slo_tpot_interactive=args.slo_tpot,
+                              **cache_kw, **load_kw, **kw)
+        return None, be, None
+    engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw,
+                         kv_cache_storage=args.kv_cache_storage,
+                         kv_cache_resident=args.kv_cache_resident,
+                         kv_cache_dir=args.kv_cache_dir)
+    if engine.tp <= 1:
+        return engine, None, None
+    from ..parallel.replay import ControlChannel, EngineLeader
+
+    # every rank measures the decode step's collectives at the same point (the
+    # /metrics and /v1/stats gauges), then opens the control channel
+    engine.collective_stats()
+    channel = ControlChannel(engine.mesh)
+    return (EngineLeader(engine, channel) if channel.leader else engine), None, channel
+
+
+def build_server(args) -> QuietServer:
+    """The engine and the bound server of parsed `main` arguments; the server's
+    `api_state` holds both engines."""
+    # tenant policy is operator configuration: a malformed spec fails before any load
+    tenants = TenantRegistry.parse(args.tenants) if args.tenants else None
+    cache_kw = dict(prefix_cache=not args.no_prefix_cache,
+                    prefix_cache_blocks=args.prefix_cache_blocks,
+                    prefix_block_tokens=args.prefix_cache_block_tokens,
+                    prefix_cache_q80=args.prefix_cache_q80)
+    if args.batch <= 1:
+        from .dllama import check_kv_storage
+
+        if args.draft_model:
+            print("⚠️  --draft-model needs the batched verify path: add --batch N (N > 1). "
+                  "Serving WITHOUT model-based drafting.", file=sys.stderr)
+        check_kv_storage(args)  # the paged mode's cost notice, as the CLI's
+    engine, batch_engine, channel = build_engines(args, tenants)
+    tp_note = ""
+    inner = batch_engine.engine if batch_engine is not None else engine
+    if inner.tp > 1:
+        tp_note = (f", tp={inner.tp} over {inner.mesh.backend}, "
+                   f"{'Q80' if inner.compress else 'f32'} wire")
+    if batch_engine is not None:
         spec = batch_engine.spec
         pool = batch_engine.kv_pool
         print(f"⏩ Continuous batching: {args.batch} slots, "
@@ -1403,26 +1504,17 @@ def build_server(args) -> QuietServer:
                  else "")
               + f" (device="
               f"{batch_engine.engine.device}, kernels={batch_engine.engine.use_kernels}, "
-              f"CUDA graphs={batch_engine.engine.cuda_graph})")
+              f"CUDA graphs={batch_engine.engine.cuda_graph}{tp_note})")
     else:
-        from .dllama import check_kv_storage
-
-        if args.draft_model:
-            print("⚠️  --draft-model needs the batched verify path: add --batch N (N > 1). "
-                  "Serving WITHOUT model-based drafting.", file=sys.stderr)
-        check_kv_storage(args)  # the paged mode's cost notice, as the CLI's
-        engine = Engine.load(args.model, args.tokenizer, **load_kw, **kw,
-                             kv_cache_storage=args.kv_cache_storage,
-                             kv_cache_resident=args.kv_cache_resident,
-                             kv_cache_dir=args.kv_cache_dir)
         spec = engine.spec
         print(f"⏩ Serving one sequence at a time (device={engine.device}, "
               f"kernels={engine.use_kernels}, prefix cache "
-              f"{'off' if args.no_prefix_cache or engine.paged else 'on'}"
+              + ("resident rewind only" if engine.tp > 1 else
+                 "off" if args.no_prefix_cache or engine.paged else "on")
               + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "")
-              + ")")
+              + f"{tp_note})")
     seed = args.seed if args.seed is not None else _now()
-    return serve(engine, args.host, args.port,
+    server = serve(engine, args.host, args.port,
                  TemplateType(args.chat_template) if args.chat_template
                  else TemplateType.UNKNOWN,
                  Sampler(spec.vocab_size, args.temperature, args.topp, seed),
@@ -1435,32 +1527,135 @@ def build_server(args) -> QuietServer:
                  flight_requests=args.flight_requests, slow_log=args.slow_log,
                  slow_threshold=args.slow_threshold,
                  **(cache_kw if batch_engine is None else {}))
+    if channel is not None:
+        # the --batch 1 followers hear from rank 0 at least every HEARTBEAT_S, between
+        # generations (the generation lock is every sender's)
+        channel.start_heartbeat(lambda: server.api_state.lock)
+    return server
 
 
-def main(argv=None) -> None:
+def _watch_world(server: QuietServer, failed: list) -> None:
+    """Rank 0 of a tp job: stop serving once the world failed (an operation that
+    failed after the other ranks were sent it); the server then exits nonzero."""
+    state = server.api_state
+    while True:
+        time.sleep(0.25)
+        be = state.batch_engine
+        broken = be.broken if be is not None else getattr(state.engine, "broken", None)
+        if broken is not None:
+            failed.append(broken)
+            print(f"🔴 the tp world failed ({broken!r}): stopping the server",
+                  file=sys.stderr, flush=True)
+            server.shutdown()
+            return
+
+
+def run_server(args) -> None:
+    """Build and serve until shutdown (the single-card server, or rank 0 of a tp job);
+    raises SystemExit(1) when a tp world failed."""
     from .dllama import dump_trace, install_trace
 
-    faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
-    p = build_parser()
-    args = p.parse_args(argv)
-    check_args(p, args)
     install_trace(args)  # --trace: before the load, so its spans are recorded too
     server = build_server(args)
     # SIGTERM: /healthz turns to draining, admissions stop, in-flight requests finish
     install_sigterm_drain(server, server.api_state, args.drain_timeout)
+    failed: list = []
+    if getattr(args, "mesh", None) is not None:
+        threading.Thread(target=_watch_world, args=(server, failed), daemon=True,
+                         name="tp-watch").start()
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
-        if server.api_state.supervisor is not None:
-            server.api_state.supervisor.stop()
-        if server.api_state.batch_engine is not None:
+        state = server.api_state
+        if state.supervisor is not None:
+            state.supervisor.stop()
+        if state.batch_engine is not None:
             # after a drain this finds nothing left; on Ctrl-C the waiters get
-            # EngineClosed instead of a scheduler left running
-            server.api_state.batch_engine.close()
+            # EngineClosed instead of a scheduler left running (under tp it ends the
+            # other ranks' replay)
+            state.batch_engine.close()
+        elif hasattr(state.engine, "close") and not failed:
+            with state.lock:  # after the last generation: ends the followers' replay
+                state.engine.close()
         dump_trace(args)  # --trace: write the span buffer on shutdown
+    if failed:
+        raise SystemExit(1)
+
+
+def follow_rank(args) -> None:
+    """A rank > 0 of a tp job: build the same engines, then replay rank 0's device
+    operations until rank 0 closes (stdout silenced: only rank 0 prints)."""
+    from ..parallel.replay import follow_engine
+
+    sys.stdout = open(os.devnull, "w")
+    engine, batch_engine, channel = build_engines(args)
+    mesh = args.mesh
+    print(f"🔷 tp rank {mesh.rank}/{mesh.tp} replaying rank 0 (pid {os.getpid()})",
+          file=sys.stderr, flush=True)
+    if batch_engine is not None:
+        batch_engine.follow()
+        batch_engine.close()
+    else:
+        follow_engine(engine, channel)
+
+
+def rank_main(mesh, argv: list[str]) -> None:
+    """One local rank of `api_server --tp N` (parallel/launch.py): rank 0 serves, the
+    others follow it."""
+    args = build_parser().parse_args(argv)
+    args.mesh = mesh
+    if mesh.rank == 0:
+        faults.install_from_env()  # chaos applies to the leader's host side
+        run_server(args)
+    else:
+        follow_rank(args)
+
+
+def _launch_local(args, argv: list[str]) -> None:
+    """--tp N without --pod: N local ranks; SIGTERM is passed on to rank 0, whose drain
+    ends the others. A rank that fails stops every rank and exits nonzero."""
+    import signal
+
+    from ..parallel import launch
+    from ..parallel.mesh import backend_for
+    from .dllama import rank_devices
+
+    devices = rank_devices(args.device, args.tp)
+    try:
+        launch.run("distributed_llama_tpu_torch.apps.api_server:rank_main", args.tp,
+                   devices, args=(argv,),
+                   backend=args.dist_backend or backend_for(devices[0]),
+                   forward_signals=(signal.SIGTERM,))
+    except launch.RankFailed as e:
+        raise SystemExit(f"❌ {e}") from e
+
+
+def main(argv=None) -> None:
+    p = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = p.parse_args(argv)
+    check_args(p, args)
+    check_tp(args)
+    if (args.tp or 1) > 1 and not args.pod:
+        _launch_local(args, argv)
+        return
+    if args.pod:
+        from ..parallel.mesh import backend_for, init_multihost, make_pod_mesh
+
+        device = torch.device(args.device)
+        init_multihost(args.coordinator, args.num_processes, args.process_id,
+                       args.dist_backend or backend_for(device))
+        args.mesh = make_pod_mesh(tp=args.tp, device=device)
+        print(f"🌐 Pod process {args.mesh.rank}/{args.num_processes} on {device} "
+              f"({args.mesh.backend})", file=sys.stderr)
+        if args.mesh.rank != 0:
+            follow_rank(args)
+            return
+    faults.install_from_env()  # DLLAMA_FAULTS chaos configuration
+    run_server(args)
 
 
 if __name__ == "__main__":

@@ -196,10 +196,8 @@ def check_tp(args) -> None:
 
     if args.draft_model:
         raise ValueError("--draft-model under tp > 1 is not in the port yet (ROADMAP "
-                         "Queue A item 1: speculation and the drafter under tp)")
-    Engine._refuse_under_tp(device_loop=args.device_loop > 0,
-                            speculative=args.speculative > 0,
-                            kv_cache_storage=args.kv_cache_storage)
+                         "Queue A item 1 (c): the drafter under tp)")
+    Engine._refuse_under_tp(kv_cache_storage=args.kv_cache_storage)
 
 
 def rank_devices(device: str, tp: int) -> list[str]:

@@ -131,6 +131,11 @@ class KVBlockPool:
         # (prefix_cache.fetch) concurrently with locked put/demote
         self._seq = itertools.count(1)
         self.demoted_blocks = 0  # lifetime hot->Q80 demotions (stats)
+        # listener(event, handle or handles, tag): "put" (a block landed under the
+        # handle, from the rows the caller tagged), "free" and "q80" (blocks demoted to
+        # the Q80 tier). A tp leader's BatchEngine sets it, so every follower's
+        # ShadowBlockPool takes the same decisions for its own KV heads
+        self.listener = None
 
     def __len__(self) -> int:
         return len(self._blocks)
@@ -147,16 +152,19 @@ class KVBlockPool:
 
     # ------------------------------------------------------------------
 
-    def put(self, k, v) -> int | None:
+    def put(self, k, v, tag: int = 0) -> int | None:
         """Commit one block (copies taken; tensors on any device, or numpy arrays);
         returns a handle, or None when the pool is at capacity (caller evicts via the
-        radix index and retries)."""
+        radix index and retries). `tag` goes to the listener: the block's first token
+        within the rows the caller read (ShadowBlockPool.put)."""
         if self.full:
             return None
         assert tuple(k.shape) == tuple(v.shape)
         h = self._next_handle
         self._next_handle += 1
         self._blocks[h] = _Block(host_rows(k), host_rows(v), next(self._seq))
+        if self.listener is not None:
+            self.listener("put", h, tag)
         self._maybe_demote()
         return h
 
@@ -178,6 +186,8 @@ class KVBlockPool:
 
     def free(self, handle: int) -> None:
         del self._blocks[handle]
+        if self.listener is not None:
+            self.listener("free", handle, 0)
 
     # ------------------------------------------------------------------
 
@@ -191,8 +201,50 @@ class KVBlockPool:
         if excess <= 0:
             return
         compressible = (b for b in hot if q80_compressible(b.shape))
-        for b in heapq.nsmallest(excess, compressible, key=lambda b: b.seq):
+        demoted = heapq.nsmallest(excess, compressible, key=lambda b: b.seq)
+        for b in demoted:
             b.kq = q80_compress(b.k)
             b.vq = q80_compress(b.v)
             b.k = b.v = None
             self.demoted_blocks += 1
+        if demoted and self.listener is not None:
+            ids = {id(b) for b in demoted}
+            self.listener("q80", [h for h, b in self._blocks.items() if id(b) in ids], 0)
+
+
+class ShadowBlockPool:
+    """A tp follower's host tier: the blocks of its own KV heads under the handles its
+    leader's KVBlockPool gave out, with the leader's decisions replayed (parallel/
+    replay.py): `read` holds the rows the leader's next puts take (a demoted pool block
+    or a harvested span), `put` files a block of them under the leader's handle, `q80`
+    moves blocks to the Q80 tier as the leader's LRU did, `free` drops one. No policy of
+    its own: every rank's tier holds its heads of the same blocks in the same tier."""
+
+    def __init__(self, block_tokens: int):
+        self.block_tokens = block_tokens
+        self._rows: tuple | None = None  # (k, v) host rows (L, hk, n, hs) last read
+        self._blocks: dict[int, _Block] = {}
+
+    def read(self, k, v) -> None:
+        self._rows = (host_rows(k), host_rows(v))
+
+    def put(self, handle: int, tag: int) -> None:
+        k, v = self._rows
+        bt = self.block_tokens
+        self._blocks[handle] = _Block(k[:, :, tag:tag + bt].clone(),
+                                      v[:, :, tag:tag + bt].clone(), 0)
+
+    def q80(self, handles) -> None:
+        for h in handles:
+            b = self._blocks[h]
+            b.kq, b.vq = q80_compress(b.k), q80_compress(b.v)
+            b.k = b.v = None
+
+    def free(self, handle: int) -> None:
+        del self._blocks[handle]
+
+    def get(self, handle: int) -> tuple[torch.Tensor, torch.Tensor]:
+        b = self._blocks[handle]
+        if not b.cold:
+            return b.k, b.v
+        return q80_restore(b.kq, b.shape, b.dtype), q80_restore(b.vq, b.shape, b.dtype)

@@ -64,6 +64,33 @@ _TREE_NODES = metrics.gauge(
     "prefix_cache_tree_nodes", "Nodes in the radix index")
 
 
+def pack_rows(get, handles: list, block_tokens: int, skip: int,
+              tokens: int) -> torch.Tensor:
+    """Rows [skip, tokens) of the chain of blocks `handles` (block i holds tokens
+    [i·bt, (i+1)·bt)) as one (2, L, hk, tokens - skip, hs) CPU tensor, each block copied
+    straight into place; get(handle) -> (k, v) host rows. PrefixCache.fetch_packed's
+    body, and a tp follower's seed from its own ShadowBlockPool."""
+    bt = block_tokens
+    n = tokens - skip
+    first = skip // bt
+    off = skip - first * bt
+    out = None
+    col = 0
+    for h in handles[first:]:
+        bk, bv = get(h)
+        if out is None:
+            L, hk, _, hs = bk.shape
+            out = torch.empty((2, L, hk, n, hs), dtype=bk.dtype)
+        m = min(bk.shape[2] - off, n - col)
+        out[0, :, :, col:col + m] = bk[:, :, off:off + m]
+        out[1, :, :, col:col + m] = bv[:, :, off:off + m]
+        col += m
+        off = 0
+        if col >= n:
+            break
+    return out
+
+
 @dataclass
 class PrefixLease:
     """Refcount pin on the radix chain a request was seeded from. `tokens` is the seeded
@@ -132,25 +159,8 @@ class PrefixCache:
 
         Runs outside the facade lock: a cold fetch dequantizes, which must not stall
         concurrent lookups/inserts. The lease's refs pin the blocks."""
-        bt = self.block_tokens
-        n = lease.tokens - skip
-        first = skip // bt
-        off = skip - first * bt
-        out = None
-        col = 0
-        for node in lease.nodes[first:]:
-            bk, bv = self.pool.get(node.handle)
-            if out is None:
-                L, hk, _, hs = bk.shape
-                out = torch.empty((2, L, hk, n, hs), dtype=bk.dtype)
-            m = min(bk.shape[2] - off, n - col)
-            out[0, :, :, col:col + m] = bk[:, :, off:off + m]
-            out[1, :, :, col:col + m] = bv[:, :, off:off + m]
-            col += m
-            off = 0
-            if col >= n:
-                break
-        return out
+        return pack_rows(self.pool.get, [node.handle for node in lease.nodes],
+                         self.block_tokens, skip, lease.tokens)
 
     def mark_seeded(self, lease: PrefixLease, used_tokens: int) -> None:
         """The caller scattered this lease's rows: count the hit. `used_tokens` is the
@@ -246,7 +256,7 @@ class PrefixCache:
                     nonlocal created
                     lo = (i - have) * bt
                     h = self.pool.put(k_rows[:, :, lo:lo + bt],
-                                      v_rows[:, :, lo:lo + bt])
+                                      v_rows[:, :, lo:lo + bt], tag=lo)
                     if h is not None:  # None: leases pinned the whole pool
                         created += 1
                     return h

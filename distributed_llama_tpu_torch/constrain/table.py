@@ -95,6 +95,22 @@ class ConstraintTable:
             cur = max(cur, off + size)
         return cur if self.cap - cur >= n else None
 
+    def dirty_payload(self) -> list[tuple[int, np.ndarray, np.ndarray]]:
+        """The spans device() will copy next, with their rows: [(off, mask rows int32,
+        delta rows)]. A tp leader sends them with its masked dispatch, so every
+        follower's table (apply_payload) holds the same states."""
+        return [(off, self._mask[off:off + n].view(np.int32).copy(),
+                 self._delta[off:off + n].copy()) for off, n in self._dirty]
+
+    def apply_payload(self, spans) -> None:
+        """A follower's side of dirty_payload: write the leader's rows and mark them for
+        the next device()."""
+        for off, mask, delta in spans:
+            n = len(mask)
+            self._mask[off:off + n] = mask.view(np.uint32)
+            self._delta[off:off + n] = delta
+            self._dirty.append((off, n))
+
     def device(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(mask, delta) on the device: always the same two tensors, with every span an
         attach or detach dirtied copied in first."""

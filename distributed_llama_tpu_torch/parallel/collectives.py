@@ -189,9 +189,16 @@ def _gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
 def broadcast_int(value: int, mesh, src: int = 0) -> int:
     """Rank src's integer on every rank (the sampled token: each rank's sampler runs,
     rank src's pick is the one every rank feeds)."""
+    return broadcast_ints([value], mesh, src)[0]
+
+
+def broadcast_ints(values: list[int], mesh, src: int = 0) -> list[int]:
+    """Rank src's integers on every rank, in one broadcast (rank src's token and its
+    stop decision, the Engine's _deliver). The other ranks' values are placeholders of
+    the same length."""
     if mesh.tp <= 1:
-        return value
-    t = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+        return list(values)
+    t = torch.tensor(list(values), dtype=torch.int64, device=mesh.device)
     dist.broadcast(t, src, group=mesh.group)
     mesh.counter.record("broadcast", t.numel() * t.element_size(), mesh.tp)
-    return int(t.item())
+    return [int(v) for v in t.tolist()]

@@ -20,6 +20,7 @@ import importlib
 import multiprocessing
 import os
 import shutil
+import signal
 import tempfile
 import time
 
@@ -58,6 +59,7 @@ def _rank_main(rank: int, world: int, target: str, init_url: str, backend: str,
 
 
 def _stop(procs) -> None:
+    procs = [p for p in procs if p.pid is not None]  # started ones only
     for p in procs:
         if p.is_alive():
             p.terminate()
@@ -68,9 +70,21 @@ def _stop(procs) -> None:
             p.join(5)
 
 
+def _forward_to(proc, signums):
+    """Install handlers that pass each of `signums` on to `proc` (the launcher's main
+    thread only); returns the handlers to restore."""
+    old = {}
+    for sig in signums:
+        try:
+            old[sig] = signal.signal(sig, lambda s, _f: proc.pid and os.kill(proc.pid, s))
+        except ValueError:  # not the main thread: nothing is forwarded
+            break
+    return old
+
+
 def run(target: str, world: int, devices, *, args: tuple = (), backend: str | None = None,
         timeout: float = DEFAULT_TIMEOUT, deadline: float | None = None,
-        workdir: str | None = None) -> list:
+        workdir: str | None = None, forward_signals: tuple = ()) -> list:
     """Run `target` ("package.module:function", called as function(mesh, *args)) on
     `world` local ranks and return each rank's result, rank order.
 
@@ -79,8 +93,10 @@ def run(target: str, world: int, devices, *, args: tuple = (), backend: str | No
     parallel.mesh.backend_for). timeout: seconds a collective waits for a peer before its
     rank raises. deadline: seconds the whole job may take (None: no limit beyond the
     ranks' own timeouts). workdir: the rendezvous file and the results go there (default:
-    a temporary directory, removed afterwards). Raises RankFailed when a rank exits
-    nonzero or the deadline passes; every rank is stopped first."""
+    a temporary directory, removed afterwards). forward_signals: signals this process
+    passes on to rank 0 while the job runs (the tp server's SIGTERM drain, which rank 0
+    runs and ends the other ranks with). Raises RankFailed when a rank exits nonzero or
+    the deadline passes; every rank is stopped first."""
     devs = list(devices) if isinstance(devices, (list, tuple)) else [devices] * world
     if len(devs) != world:
         raise ValueError(f"{len(devs)} devices for {world} ranks")
@@ -98,9 +114,11 @@ def run(target: str, world: int, devices, *, args: tuple = (), backend: str | No
                                args, paths[r]))
              for r in range(world)]
     end = None if deadline is None else time.monotonic() + deadline
+    restore = {}
     try:
         for p in procs:
             p.start()
+        restore = _forward_to(procs[0], forward_signals)
         while True:
             codes = [p.exitcode for p in procs]
             failed = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
@@ -117,6 +135,8 @@ def run(target: str, world: int, devices, *, args: tuple = (), backend: str | No
             time.sleep(_POLL_S)
         return [torch.load(p, weights_only=False) for p in paths]
     finally:
+        for sig, handler in restore.items():
+            signal.signal(sig, handler)
         _stop(procs)
         if own:
             shutil.rmtree(workdir, ignore_errors=True)

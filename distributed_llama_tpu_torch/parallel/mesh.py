@@ -8,7 +8,7 @@ sizes, the process group of the tp axis and the device it runs on.
 
 The axes keep the JAX names (dp: independent sequences, sp: ring attention over the KV
 sequence axis, tp: tensor parallelism, the reference's nSlices). Only tp is wired in the
-port so far; dp > 1 and sp > 1 are refused (ROADMAP Queue A).
+port so far; dp > 1 and sp > 1 are refused (ROADMAP Queue A items 1 (a) and 2).
 
 The rank's device is always the caller's: nothing here picks a device by local rank, so
 two ranks may share one card (gloo stages CUDA tensors through the host) or run on the
@@ -62,8 +62,7 @@ def _refuse_axes(sp: int, dp: int | None) -> None:
                          "(ROADMAP Queue A item 2)")
     if dp not in (None, 1):
         raise ValueError(f"dp={dp}: data parallelism over the mesh is not in the port yet "
-                         "(ROADMAP Queue A item 1, BatchEngine and api_server over tp and "
-                         "dp)")
+                         "(ROADMAP Queue A item 1 (a): dp, a two-axis process grid)")
 
 
 def make_mesh(tp: int | None = None, sp: int = 1, dp: int = 1, *, device=None,

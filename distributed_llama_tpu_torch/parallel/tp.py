@@ -117,11 +117,19 @@ def shard_params(params: dict[str, Any], mesh: Mesh, spec: ModelSpec | None = No
 
 
 def init_sharded_kv_cache(spec: ModelSpec, mesh: Mesh, batch: int = 1,
-                          dtype=torch.float32, seq_len: int | None = None):
+                          dtype=torch.float32, seq_len: int | None = None,
+                          kv_pool: tuple[int, int] | None = None):
     """Zeroed KV caches of this rank's heads: (L, B, effective_kv_heads/tp, S, hs) on the
-    mesh's device. The one cache constructor of every sharded entry point, so none can
-    forget the replicated heads."""
+    mesh's device, or with kv_pool=(n_blocks, block_tokens) the block pools (L, N,
+    effective_kv_heads/tp, bt, hs) of the batched serving engine, sharded by KV heads as
+    the JAX package shards its pool. The one cache constructor of every sharded entry
+    point, so none can forget the replicated heads."""
     hk = effective_kv_heads(spec, mesh.tp) // mesh.tp
+    if kv_pool is not None:
+        n_blocks, bt = kv_pool
+        shape = (spec.n_layers, n_blocks, hk, bt, spec.head_size)
+        return (torch.zeros(shape, dtype=dtype, device=mesh.device),
+                torch.zeros(shape, dtype=dtype, device=mesh.device))
     s = seq_len if seq_len is not None else spec.seq_len
     shape = (spec.n_layers, batch, hk, s, spec.head_size)
     return (torch.zeros(shape, dtype=dtype, device=mesh.device),

@@ -126,6 +126,21 @@ configuration.
   drafter that fails to load or propose (its own failure: a speculative.DrafterError
   such as a vocab mismatch, or an injected `draft.*` fault) gives way to n-gram
   drafting; any other exception, a kernel's or the card's among them, propagates.
+- Tensor parallelism (`tp=`, `mesh=`, `compress_collectives=`, parallel/): every rank
+  constructs the engine, holding its shard of the weights and its KV heads of the block
+  pool. Rank 0 leads: it runs the scheduler, the samplers, the prefix directory,
+  tenancy and the grammars, and sends each device-side operation to the other ranks as
+  a descriptor of host data (`_mirror`, parallel/replay.py) just after
+  `_before_launch`, so an operation it retries runs once there. The others call
+  `follow()`, which replays each operation on their shard in the same order (`_replay`)
+  until rank 0's close: steps, super-steps (a chained one from the follower's own device
+  carry: the gathered logits, hence the device samples, are the same on every rank),
+  verify blocks, table rows, block copies, demotions into each rank's own host tier
+  (`cache/block_pool.py` ShadowBlockPool, following the leader's tier decisions),
+  promotions, dense seeds and constraint-table rows. Steps run eagerly (no CUDA graphs
+  under tp). An exception after a descriptor went out leaves the ranks out of step, so
+  it fails the world (`broken`), not a request. Refused under tp, each naming its
+  ROADMAP item: dp, the model drafter, KV export and import, recover_wedged.
 """
 
 from __future__ import annotations
@@ -465,10 +480,10 @@ class _InflightStep:
     carry is rewound to each row's frontier on the device."""
 
     __slots__ = ("rows", "k", "starts", "budget", "temps", "fetch", "tok", "pos", "rng",
-                 "t_issue", "kind", "ndraft", "chained", "cstate")
+                 "t_issue", "kind", "ndraft", "chained", "cstate", "seq")
 
     def __init__(self, rows, k, starts, budget, temps, fetch, tok, pos, rng, t_issue,
-                 kind="scan", ndraft=None, chained=False, cstate=None):
+                 kind="scan", ndraft=None, chained=False, cstate=None, seq=0):
         self.rows = rows  # list[(slot, request)] of the rows with budget > 0
         self.k = k
         self.starts = starts  # each row's expected start position
@@ -485,6 +500,7 @@ class _InflightStep:
         # masked dispatch only: device (B,) GLOBAL constraint states after the budgeted
         # emissions, which a chained masked super-step starts from
         self.cstate = cstate
+        self.seq = seq  # the engine's count of loop dispatches at this one's issue
 
 
 class BatchEngine:
@@ -503,11 +519,20 @@ class BatchEngine:
                  slo_tpot_interactive: float = 0.0,
                  paged_kv: bool = True, kv_block_tokens: int = 16,
                  kv_pool_blocks: int = 0, max_queue: int = 0, queue_ttl: float = 0.0,
-                 **engine_kw):
+                 dp: int = 1, **engine_kw):
         from ..cache import PrefixCache
         from ..constrain import GrammarProposer
 
         assert slots >= 1 and superstep >= 1
+        if dp != 1:
+            raise ValueError(f"dp={dp}: the BatchEngine over data parallelism is not in "
+                             "the port yet (ROADMAP Queue A item 1 (a): dp, with the "
+                             "dense-cache path the JAX engine takes under dp)")
+        mesh = engine_kw.get("mesh")
+        tp = mesh.tp if mesh is not None else (engine_kw.get("tp") or 1)
+        if tp > 1 and draft_model is not None:
+            raise ValueError("the model drafter under tp > 1 is not in the port yet "
+                             "(ROADMAP Queue A item 1 (c): the drafter under tp)")
         self.slots_n = slots
         self.superstep = superstep  # K: decode steps per super-step dispatch
         # chain dispatch N+1 from N's device carry while N is delivered; K = 1 has no
@@ -541,6 +566,14 @@ class BatchEngine:
             kv_pool_cfg = (max(n_blocks, w + 2), bt)
         self._eng = Engine(spec, params, tokenizer, batch=slots, kv_pool=kv_pool_cfg,
                            **engine_kw)
+        # tp: the control channel to the other ranks (parallel/replay.py), rank 0 leading
+        self._ctl = None
+        self.leader = True
+        if self._eng.tp > 1:
+            from ..parallel.replay import ControlChannel
+
+            self._ctl = ControlChannel(self._eng.mesh)
+            self.leader = self._ctl.leader
         # the model drafter: a second, small model beside the target that drafts up to
         # draft_k (default spec_k) tokens a row in one scan; n-gram lookup stays the
         # per-row fallback, and the whole proposer when the drafter does not load (its
@@ -683,6 +716,34 @@ class BatchEngine:
         self._drain = DrainRate()  # completions/s: the Retry-After estimate
         _DISPATCH_AGE.set_function(self.dispatch_age)
         _SLOTS_TOTAL.set(slots)
+        # tp: each dispatch kind's counted collectives, of its last dispatch on rank 0
+        # (collective_stats); the world's failure, once an operation failed after its
+        # descriptor went out; loop dispatches issued (a chained one names its
+        # predecessor's); the host tier the followers mirror; a follower's device carry
+        # and its own host tier
+        self.collectives: dict[str, dict] = {}
+        self.broken: BaseException | None = None
+        self._issue_seq = 0
+        self._sent_table = None
+        self._carry = None
+        self._shadow = None
+        # the device-sampled token blocks and picks in issue order when a list (tests
+        # and chip_smoke compare every rank's with rank 0's): (kind, fetch or picks)
+        self.token_log: list | None = None
+        if self._ctl is not None:
+            if self.leader:
+                tier = self._host_tier()
+                if tier is not None:
+                    tier.listener = (lambda ev, h, tag:
+                                     self._mirror("tier", ev=ev, handle=h, tag=tag))
+                self._sent_table = np.zeros_like(self._tables_np) if self.kv_pool else None
+                self._ensure_thread()
+                self._ctl.start_heartbeat(lambda: self._slock)
+            else:
+                from ..cache.block_pool import ShadowBlockPool
+
+                bt = self._kv_bt or getattr(self.prefix_cache, "block_tokens", 0)
+                self._shadow = ShadowBlockPool(bt) if bt else None
 
     @classmethod
     def load(cls, model_path: str, tokenizer_path: str | None = None, *,
@@ -731,7 +792,16 @@ class BatchEngine:
         class or a grammar larger than the constraint table, EngineDraining while
         draining, EngineClosed
         after close(), QuotaExceeded when the tenant's bucket is empty, EngineSaturated
-        when max_queue requests already wait or an SLO target sheds the class."""
+        when max_queue requests already wait or an SLO target sheds the class. Under tp
+        only rank 0 takes requests; export_kv is refused there (ValueError)."""
+        if not self.leader:
+            raise RuntimeError("a tp follower takes no requests: rank 0 submits, this "
+                               "rank runs follow()")
+        if self.broken is not None:
+            raise EngineClosed(f"the tp world failed: {self.broken!r}")
+        if export_kv and self._ctl is not None:
+            raise ValueError("KV export under tp > 1 is not in the port yet (ROADMAP "
+                             "Queue A item 1 (c): /v1/kv under tp)")
         if self._draining and not self._shutdown:
             raise EngineDraining("BatchEngine is draining (serving in-flight requests "
                                  "only)")
@@ -976,7 +1046,13 @@ class BatchEngine:
            re-initialization raised (the replica should stay unhealthy).
 
         A request submitted after the bump waits for the scheduler that its submit()
-        starts, which runs once the engine is whole again. Safe from any thread."""
+        starts, which runs once the engine is whole again. Safe from any thread. Refused
+        under tp (ValueError): the followers would have to abandon and re-initialize in
+        step with rank 0."""
+        if self._ctl is not None:
+            raise ValueError("recover_wedged under tp > 1 is not in the port yet "
+                             "(ROADMAP Queue A item 1 (c): the hung-engine supervisor "
+                             "under tp)")
         err = error if error is not None else EngineWedged(
             f"engine made no dispatch progress for {self.dispatch_age():.1f}s; in-flight "
             "requests failed (retriable) and the engine was re-initialized")
@@ -1083,6 +1159,15 @@ class BatchEngine:
             t = self._thread
         if t is not None:
             t.join(timeout=30)
+        if self._ctl is not None and self.leader and not self._ctl.closed:
+            # after the scheduler's last operation: the followers' loops end
+            self._ctl.stop_heartbeat()
+            with self._slock:
+                try:
+                    self._ctl.send("close")
+                except Exception as e:
+                    print(f"🔴 tp followers not told to close: {e!r}", file=sys.stderr,
+                          flush=True)
         # detach the watchdog callback if it is still this engine's (a later engine may
         # have claimed the gauge): a bound method left on the module-global gauge would
         # keep this engine's weights and caches alive
@@ -1315,6 +1400,15 @@ class BatchEngine:
             self._tables_dirty = False
         return self._tables_dev
 
+    def _changed_rows(self) -> dict[int, np.ndarray]:
+        """tp leader: the table rows that changed since the last descriptor carried
+        them (the followers' tables follow rank 0's)."""
+        if self._sent_table is None:
+            return {}
+        changed = np.nonzero((self._tables_np != self._sent_table).any(axis=1))[0]
+        self._sent_table[changed] = self._tables_np[changed]
+        return {int(i): self._tables_np[i].copy() for i in changed}
+
     def _table_row(self, slot: _Slot) -> None:
         """Rewrite one slot's table row from slot.blocks (filler entries point at the
         scratch block, whose contents are never read)."""
@@ -1373,12 +1467,14 @@ class BatchEngine:
         from ..cache.wire import host_rows
 
         eng = self._eng
+        self._mirror("read_block", bid=bid)  # each rank's own heads of the block
         return host_rows(eng.k_cache[:, bid]), host_rows(eng.v_cache[:, bid])
 
     def _block_copy(self, src: int, dst: int) -> None:
         """Device copy of pool block src into block dst, in place in both pools (queued
         on the stream the dispatches run on)."""
         eng = self._eng
+        self._mirror("copy", src=src, dst=dst)
         eng.k_cache[:, dst].copy_(eng.k_cache[:, src])
         eng.v_cache[:, dst].copy_(eng.v_cache[:, src])
 
@@ -1463,9 +1559,11 @@ class BatchEngine:
                         k, v = pc.fetch_cold(h)
                         nb = self._paged_alloc(1, exclude=slot)[0]
                         eng = self._eng
+                        self._mirror("promote", handle=h, dst=nb)
                         eng.k_cache[:, nb].copy_(k)
                         eng.v_cache[:, nb].copy_(v)
-                        moved += k.nbytes + v.nbytes
+                        # every rank uploads its own heads of the block: the job's bytes
+                        moved += (k.nbytes + v.nbytes) * eng.tp
                         pc.promote(node, nb)
                         self.kv_pool.decref([nb])
                         tier, h = node.handle
@@ -1544,6 +1642,8 @@ class BatchEngine:
                                                   "rewind": reuse}):
                 # the span the rewind does not hold, as one (2, L, hk, n - reuse, hs)
                 # buffer: one host->device transfer, one copy per cache tensor
+                self._mirror("seed", slot=slot.index, skip=reuse, tokens=n,
+                             handles=[node.handle for node in lease.nodes])
                 rows = pc.fetch_packed(lease, skip=reuse).to(eng.device, eng.dtype)
                 eng.k_cache[:, slot.index, :, reuse:n].copy_(rows[0])
                 eng.v_cache[:, slot.index, :, reuse:n].copy_(rows[1])
@@ -1553,7 +1653,7 @@ class BatchEngine:
 
             warn_degraded("seed", e)
             return reuse
-        self.seed_bytes += rows.numel() * rows.element_size()
+        self.seed_bytes += rows.numel() * rows.element_size() * eng.tp  # every rank's
         self.seed_ms += (time.perf_counter() - t0) * 1e3
         slot.lease = lease
         pc.mark_seeded(lease, n - reuse)
@@ -1581,7 +1681,186 @@ class BatchEngine:
         if self.kv_pool is not None:
             self._tables()
 
-    def _dispatched(self, kind: str, call):
+    # ------------------------------------------------------------------
+    # tensor parallelism: rank 0's descriptors, the followers' replay
+    # ------------------------------------------------------------------
+
+    def _host_tier(self):
+        """The host block pool the prefix cache demotes into (paged: the directory's
+        cold tier; dense: the PrefixCache's pool), or None."""
+        pc = self.prefix_cache
+        if pc is None:
+            return None
+        return pc.cold if self.kv_pool is not None else pc.pool
+
+    def _constrain_spans(self):
+        """tp leader: the constraint-table rows the next device() uploads, for the
+        masked dispatch's descriptor (None elsewhere)."""
+        if self._ctl is None:
+            return None
+        return self.constrain_table.dirty_payload()
+
+    def _mirror(self, kind: str, **payload) -> None:
+        """tp leader: send one device-side operation to the followers before running it
+        here (a no-op on one card and on the followers). Every call runs on the
+        scheduler thread or under its lock (release_idle), so one descriptor goes out
+        at a time and in the order the operations run. A dispatch's descriptor carries
+        the table rows that changed since the last one."""
+        if self._ctl is None or not self.leader:
+            return
+        if kind in ("step", "super", "verify"):
+            payload["rows"] = self._changed_rows()
+        try:
+            self._ctl.send(kind, payload)
+        except Exception as e:
+            self._world_failed(e)
+            raise
+
+    def _world_failed(self, e: BaseException) -> None:
+        """An operation failed after its descriptor went out (or the descriptor could
+        not go out): the ranks may no longer pair their collectives, so no request is
+        served again. The scheduler stops after failing the in-flight requests, and
+        `broken` tells the server (which exits nonzero)."""
+        if self.broken is not None:
+            return
+        self.broken = e
+        self._shutdown = True
+        self._ctl.stop_heartbeat()
+        print(f"🔴 tp world failed ({e!r}): the engine stops serving", file=sys.stderr,
+              flush=True)
+
+    def _note_collectives(self, kind: str, traffic, shape: tuple[int, int]) -> None:
+        """A dispatch's counted collectives (parallel/traffic.py), kept per kind with
+        its shape (slots rows x T tokens x steps) and published as the gauges of program
+        "batch_<kind>"."""
+        from ..parallel.traffic import publish_traffic
+
+        t, steps = shape
+        self.collectives[kind] = {
+            "sent_bytes_per_device": traffic.sent_bytes_per_device,
+            "payload_bytes": traffic.total_payload_bytes, "counts": dict(traffic.counts),
+            "rows": self.slots_n, "t": t, "steps": steps}
+        publish_traffic(traffic, program=f"batch_{kind}")
+
+    def collective_stats(self) -> dict | None:
+        """Under tp: the wire, the rank's running total of counted wire bytes and the
+        last dispatch of each kind's counted collectives (None on one card). The bytes a
+        dispatch sends are collective_bytes_per_step(spec, tp, wire, rows, t) per step."""
+        if self._ctl is None:
+            return None
+        eng = self._eng
+        return {"tp": eng.tp, "wire": "q80" if eng.compress else "f32",
+                "sent_bytes_total": eng.mesh.counter.total.sent_bytes_per_device,
+                "descriptors": self._ctl.sent, "last": dict(self.collectives)}
+
+    def token_blocks(self) -> list:
+        """The logged device samples (token_log), resolved: per loop dispatch its token
+        block (and a verify's accepted lengths) as lists, per step its device picks."""
+        out = []
+        for kind, x in self.token_log or []:
+            out.append((kind, x if kind == "step" else [a.tolist() for a in x()]))
+        return out
+
+    def follow(self) -> int:
+        """A tp follower (rank > 0): replay rank 0's operations on this rank's shard, in
+        rank 0's order, until rank 0 closes its engine. Returns the operations replayed.
+        An exception ends the rank (and the job with it)."""
+        if self._ctl is None or self.leader:
+            raise RuntimeError("follow() runs on a tp follower (rank > 0)")
+        from ..parallel.replay import follow
+
+        return follow(self._ctl, self._replay)
+
+    def _replay(self, kind: str, p: dict) -> None:
+        """A follower: run one of rank 0's operations (its _mirror descriptor) here."""
+        eng = self._eng
+        for i, row in p.get("rows", {}).items():
+            self._tables_np[i] = row
+            self._tables_dirty = True
+        if kind == "step":
+            tables = self._tables() if self.kv_pool is not None else None
+            coins = p["coins"]
+            out = eng.step_rows(p["tokens"], p["starts"], tables, p["reads"], coins)
+            if self.token_log is not None:
+                picks = [None] * len(p["reads"])
+                if coins is not None:
+                    for j, tok in zip(coins[0], out[1]):
+                        picks[j] = tok
+                self.token_log.append(("step", picks))
+        elif kind in ("super", "verify"):
+            self._replay_loop(kind, p)
+        elif kind == "copy":
+            self._block_copy(p["src"], p["dst"])
+        elif kind == "read_block":
+            self._shadow.read(eng.k_cache[:, p["bid"]], eng.v_cache[:, p["bid"]])
+        elif kind == "read_rows":
+            sl, t0, t1 = p["slot"], p["t0"], p["t1"]
+            self._shadow.read(eng.k_cache[:, sl, :, t0:t1], eng.v_cache[:, sl, :, t0:t1])
+        elif kind == "tier":
+            ev, h = p["ev"], p["handle"]
+            if ev == "put":
+                self._shadow.put(h, p["tag"])
+            else:
+                getattr(self._shadow, ev)(h)
+        elif kind == "promote":
+            k, v = self._shadow.get(p["handle"])
+            eng.k_cache[:, p["dst"]].copy_(k)
+            eng.v_cache[:, p["dst"]].copy_(v)
+        elif kind == "seed":
+            from ..cache.prefix_cache import pack_rows
+
+            lo, hi = p["skip"], p["tokens"]
+            rows = pack_rows(self._shadow.get, p["handles"], self._shadow.block_tokens,
+                             lo, hi).to(eng.device, eng.dtype)
+            eng.k_cache[:, p["slot"], :, lo:hi].copy_(rows[0])
+            eng.v_cache[:, p["slot"], :, lo:hi].copy_(rows[1])
+        else:
+            raise ValueError(f"a BatchEngine follower cannot replay {kind!r}")
+
+    def _replay_loop(self, kind: str, p: dict) -> None:
+        """A follower's super-step or verify block: the same loop on the same host
+        inputs, or, chained, on its own carry of the dispatch rank 0 chained from."""
+        eng = self._eng
+        masked = p["masked"]
+        if p["cspans"]:
+            if self.constrain_table is None:
+                from ..constrain import ConstraintTable
+
+                self.constrain_table = ConstraintTable(self.spec.vocab_size,
+                                                       self.constrain_states,
+                                                       device=eng.device)
+            self.constrain_table.apply_payload(p["cspans"])
+        tables = self._tables() if self.kv_pool is not None else None
+        if kind == "super":
+            loop = self._batched_loop(p["k"], p["mode"], p["window"], masked)
+            cin = p["cstate"]
+            if p["chain"] is None:
+                tok_in, pos_in, rng_in = p["tokens"], p["starts"], p["rng"]
+            else:
+                seq, tok_in, pos_in, rng_in, cst = self._carry
+                if seq != p["chain"]:
+                    raise RuntimeError(f"rank 0 chained from dispatch {p['chain']}, this "
+                                       f"rank's carry is dispatch {seq}'s")
+                cin = cst if cin is None else cin
+            constrain = (cin, *self.constrain_table.device()) if masked else None
+            out = loop(eng.rope, tok_in, eng.k_cache, eng.v_cache, pos_in, rng_in,
+                       p["temps"], p["topps"], p["budget"], tables, constrain=constrain)
+            block, carry = out[:1], out[1:4]
+            cst = out[6] if masked else None
+        else:
+            loop = self._verify_loop(p["t"], p["mode"], p["window"], masked)
+            constrain = ((p["cstate"], *self.constrain_table.device()) if masked
+                         else None)
+            out = loop(eng.rope, p["props"], eng.k_cache, eng.v_cache, p["starts"],
+                       p["rng"], p["temps"], p["topps"], p["ndraft"], tables,
+                       constrain=constrain)
+            block, carry = out[:2], out[2:5]
+            cst = out[7] if masked else None
+        self._carry = (p["seq"], *carry, cst)
+        if self.token_log is not None:
+            self.token_log.append((kind, copy_to_host(*block)))
+
+    def _dispatched(self, kind: str, call, shape: tuple[int, int] = (1, 1)):
         """Run one device dispatch with transient-fault retry. `call` runs
         _before_launch before its first launch. A failure classify()-ed 'transient' and
         raised before that point (an injected TransientDispatchError at a fault point)
@@ -1590,7 +1869,9 @@ class BatchEngine:
         raised after the first launch, propagates (engine scope: a replay advances its
         buffers in place). The fault point `batch.dispatch` fires (kind, attempt)
         before each attempt. The epoch is checked before the first launch and after the
-        call; a mismatch raises _StaleEpoch."""
+        call; a mismatch raises _StaleEpoch. Under tp `shape` = (T, steps) of the
+        dispatch names what its counted collectives (`collectives[kind]`) cover, and a
+        failure after the descriptor went out (the launch mark) fails the world."""
         delay = RETRY_BACKOFF
         attempt = 0
         # the thread's epoch, not a fresh read: a bump landing before this call must
@@ -1600,7 +1881,12 @@ class BatchEngine:
             self._tls.launched = False
             try:
                 faults.fire("batch.dispatch", kind=kind, attempt=attempt)
-                out = call()
+                if self._ctl is None:
+                    out = call()
+                else:
+                    with self._eng.mesh.counter.window() as traffic:
+                        out = call()
+                    self._note_collectives(kind, traffic, shape)
                 if self._epoch != epoch:
                     raise _StaleEpoch()
                 self._last_dispatch_t = time.monotonic()
@@ -1608,6 +1894,8 @@ class BatchEngine:
             except Exception as e:
                 if self._epoch != epoch:
                     raise _StaleEpoch() from None
+                if self._ctl is not None and self._tls.launched:
+                    self._world_failed(e)
                 if (classify(e) != "transient" or self._tls.launched
                         or attempt >= MAX_RETRIES):
                     raise
@@ -1640,6 +1928,8 @@ class BatchEngine:
             # the coins after the launch mark: an attempt is retried only before it,
             # so no coin is drawn twice
             coins = self._coins(samplers, [self._slots[r] for r, _ in reads])
+            self._mirror("step", tokens=tokens_rows, starts=starts, reads=reads,
+                         coins=coins)
             out = self._eng.step_rows(tokens_rows, starts, tables, reads, coins)
             if coins is None:
                 return out
@@ -1647,7 +1937,9 @@ class BatchEngine:
             for j, tok in zip(coins[0], toks):
                 picks[j] = tok
             return logits
-        logits = self._dispatched(kind, call)
+        logits = self._dispatched(kind, call, (t, 1))
+        if self.token_log is not None:
+            self.token_log.append(("step", list(picks)))
         # the step's logits are on the host: the reference the next decode issue's
         # device-idle gap is measured from
         self._gap_t = time.perf_counter()
@@ -1744,6 +2036,7 @@ class BatchEngine:
                 from ..cache.wire import host_rows
 
                 def harvest(t0: int, t1: int):
+                    self._mirror("read_rows", slot=slot.index, t0=t0, t1=t1)
                     return (host_rows(eng.k_cache[:, slot.index, :, t0:t1]),
                             host_rows(eng.v_cache[:, slot.index, :, t0:t1]))
 
@@ -1792,6 +2085,9 @@ class BatchEngine:
         inserts them (admission seeds the slot's rows from it). Blocks of another
         geometry are refused. Returns the token span the cache now covers (0: nothing
         imported, the request prefills locally)."""
+        if self._ctl is not None:
+            raise ValueError("KV import under tp > 1 is not in the port yet (ROADMAP "
+                             "Queue A item 1 (c): /v1/kv under tp)")
         pc = self.prefix_cache
         if pc is None:
             return 0
@@ -2342,7 +2638,8 @@ class BatchEngine:
                 self.spec, eng.params, k, mode=mode, dtype=eng.dtype,
                 use_kernels=eng.use_kernels, attn_window=window,
                 fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
-                paged_kernel=eng.paged_kernel, graphs=eng.graphs, masked=masked)
+                paged_kernel=eng.paged_kernel, graphs=eng.graphs, masked=masked,
+                mesh=eng._merge, compress_collectives=eng.compress)
         return self._loops[key]
 
     def _verify_loop(self, t: int, mode: str, window: int | None, masked: bool = False):
@@ -2358,7 +2655,8 @@ class BatchEngine:
                 self.spec, eng.params, t, mode=mode, dtype=eng.dtype,
                 use_kernels=eng.use_kernels, attn_window=window,
                 fused_prologue=eng.fused_prologue, kv_block_tokens=self._kv_bt,
-                paged_kernel=eng.paged_kernel, graphs=eng.graphs, masked=masked)
+                paged_kernel=eng.paged_kernel, graphs=eng.graphs, masked=masked,
+                mesh=eng._merge, compress_collectives=eng.compress)
         return self._loops[key]
 
     def _verify_block_for(self, t: int) -> int:
@@ -2474,29 +2772,40 @@ class BatchEngine:
             _DISPATCH_GAP.observe(max(time.perf_counter() - self._gap_t, 0.0))
         t_issue = time.perf_counter()
         tables = self._tables_dev if self.kv_pool is not None else None
-        constrain = None
+        constrain = cstate = cspans = None
         if masked:
             # a verify is never chained from a predecessor, so its constraint states come
             # from the delivered host mirrors, as its sampler states do; a mask fault in
             # _cstate_vec parks that row on the universal state, where the masked step
             # leaves its logits as they are
-            constrain = (self._cstate_vec(), *self.constrain_table.device())
+            cstate = self._cstate_vec()
+            cspans = self._constrain_spans()
+            constrain = (cstate, *self.constrain_table.device())
             _CONSTRAIN_DISPATCHES.inc()
+        self._issue_seq += 1
+        seq = self._issue_seq
+
+        def guard():
+            self._before_launch()
+            self._mirror("verify", seq=seq, t=t, mode=mode, window=window, masked=masked,
+                         props=props, starts=starts, rng=rng, temps=temps, topps=topps,
+                         ndraft=ndraft, cstate=cstate, cspans=cspans)
 
         def call():
             out = loop(eng.rope, props, eng.k_cache, eng.v_cache, starts, rng, temps,
-                       topps, ndraft, tables, guard=self._before_launch,
-                       constrain=constrain)
+                       topps, ndraft, tables, guard=guard, constrain=constrain)
             toks, acc, tok, pos, rng_out = out[:5]
             return copy_to_host(toks, acc), tok, pos, rng_out, out[7] if masked else None
         with trace.span("batch.verify_issue",
                         {"block": t, "rows": len(rows),
                          "drafted": sum(max(n, 0) for n in ndraft)}):
-            fetch, tok, pos, rng_out, cst = self._dispatched("verify", call)
+            fetch, tok, pos, rng_out, cst = self._dispatched("verify", call, (t, 1))
+        if self.token_log is not None:
+            self.token_log.append(("verify", fetch))
         _PIPELINE_DEPTH.set(1)
         self.dispatches += 1
         return _InflightStep(rows, t, starts, budget, temps, fetch, tok, pos, rng_out,
-                             t_issue, kind="verify", ndraft=ndraft, cstate=cst)
+                             t_issue, kind="verify", ndraft=ndraft, cstate=cst, seq=seq)
 
     def _drafts_ready(self, rows: list) -> bool:
         """Would a verify dispatch have drafts to work with? The accept-aware chain
@@ -2694,7 +3003,8 @@ class BatchEngine:
             _DISPATCH_GAP.observe(0.0)  # chained: the device never went idle
         t_issue = time.perf_counter()
         tables = self._tables_dev if self.kv_pool is not None else None
-        constrain = None
+        constrain = cspans = None
+        cin = None
         if masked:
             # the constraint carry: a chained dispatch starts from its predecessor's
             # device states (as from its tokens and samplers), an unchained one from the
@@ -2702,25 +3012,41 @@ class BatchEngine:
             # decides, so a chain does not cross from an unmasked build to a masked one
             cin = (chain.cstate if chain is not None and chain.cstate is not None
                    else self._cstate_vec())
+            cspans = self._constrain_spans()
             constrain = (cin, *self.constrain_table.device())
             _CONSTRAIN_DISPATCHES.inc()
+        self._issue_seq += 1
+        seq = self._issue_seq
+
+        def guard():
+            self._before_launch()
+            # a chained dispatch's carry is each follower's own: only host values travel
+            host = chain is None
+            self._mirror("super", seq=seq, chain=None if host else chain.seq, k=k,
+                         mode=mode, window=window, masked=masked,
+                         tokens=tok_in if host else None, starts=pos_in if host else None,
+                         rng=rng_in if host else None, temps=temps, topps=topps,
+                         budget=budget, cspans=cspans,
+                         cstate=cin if masked and not isinstance(cin, torch.Tensor)
+                         else None)
 
         def call():
             out = loop(eng.rope, tok_in, eng.k_cache, eng.v_cache, pos_in, rng_in, temps,
-                       topps, budget, tables, guard=self._before_launch,
-                       constrain=constrain)
+                       topps, budget, tables, guard=guard, constrain=constrain)
             toks, tok, pos, rng_out = out[:4]
             return copy_to_host(toks), tok, pos, rng_out, out[6] if masked else None
         # the issue returns once the graph replays are queued; the wait for the block
         # and its delivery are the batch.super_step span
         with trace.span("batch.super_step_issue",
                         {"k": k, "rows": len(rows), "chained": chain is not None}):
-            fetch, tok, pos, rng_out, cst = self._dispatched("super_step", call)
+            fetch, tok, pos, rng_out, cst = self._dispatched("super_step", call, (1, k))
+        if self.token_log is not None:
+            self.token_log.append(("super", fetch))
         _PIPELINE_DEPTH.set(2 if chain is not None else 1)
         self.dispatches += 1
         self.loop_steps += k
         return _InflightStep(rows, k, starts, budget, temps, fetch, tok, pos, rng_out,
-                             t_issue, chained=chain is not None, cstate=cst)
+                             t_issue, chained=chain is not None, cstate=cst, seq=seq)
 
     def _deliver_super_step(self, fl: _InflightStep) -> dict[int, str]:
         """Wait for an issued super-step's (K, B) block (or a verify's (T, B) targets

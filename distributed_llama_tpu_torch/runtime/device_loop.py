@@ -206,7 +206,8 @@ def uniform(key: torch.Tensor) -> torch.Tensor:
 def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "greedy",
                      dtype=torch.float32, use_kernels=False,
                      attn_window: int | None = None, fused_prologue: bool = False,
-                     graphs: StepGraphs | None = None):
+                     graphs: StepGraphs | None = None, mesh=None,
+                     compress_collectives: bool = False):
     """Build fn(rope, token, kc, vc, start_pos, key, temperature, topp) ->
     (tokens (n_steps,), last_logits (vocab,), kc, vc).
 
@@ -218,7 +219,9 @@ def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "gree
 
     The outputs are the loop's static device buffers, valid until its next call; a
     captured step runs on the caches it was first called with. With `graphs` enabled
-    each step is one CUDA graph replay."""
+    each step is one CUDA graph replay. `mesh` and `compress_collectives` are forward's:
+    this rank's tp step (every rank runs the loop with the same inputs, and the gathered
+    logits, hence the samples, are the same on every rank)."""
     assert mode in ("greedy", "sample"), mode
     st: dict = {}
 
@@ -226,7 +229,8 @@ def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "gree
         tok, pos, i = st["tok"], st["pos"], st["step"]
         logits, _, _ = forward(params, spec, st["rope"], tok[None, :], st["kc"], st["vc"],
                                pos[0], dtype=dtype, use_kernels=use_kernels,
-                               attn_window=attn_window, fused_prologue=fused_prologue)
+                               attn_window=attn_window, fused_prologue=fused_prologue,
+                               mesh=mesh, compress_collectives=compress_collectives)
         row = logits[:, -1].float()  # (1, vocab)
         if mode == "greedy":
             nxt = row.argmax(-1)
@@ -277,7 +281,8 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
                              attn_window: int | None = None,
                              fused_prologue: bool = False, kv_block_tokens: int = 0,
                              paged_kernel: bool = False,
-                             graphs: StepGraphs | None = None, masked: bool = False):
+                             graphs: StepGraphs | None = None, masked: bool = False,
+                             mesh=None, compress_collectives: bool = False):
     """Batched K-step super-step: n_steps decode steps for all B cache rows, sampling on
     the device — the serving-path counterpart of make_decode_loop.
 
@@ -316,7 +321,11 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
     values or a previous masked call's device carry, mask and delta the table's static
     buffers, which the captured steps read — and appends the final state to its outputs.
     Rows at state 0 (the universal row) sample as the unmasked build does. Each step of
-    the masked build is its own graph (key suffix "mask")."""
+    the masked build is its own graph (key suffix "mask").
+
+    `mesh` and `compress_collectives` are forward's: under tp every rank runs the loop
+    on the same inputs, and since the gathered logits are the same on every rank, so
+    are the samples and the carry (a follower chains from its own carry)."""
     assert mode in ("greedy", "sample"), mode
     paged = kv_block_tokens > 0
     seq_len = spec.seq_len
@@ -333,7 +342,8 @@ def make_batched_decode_loop(spec: ModelSpec, params, n_steps: int, *,
                                attn_window=attn_window,
                                block_tables=st["tables"] if paged else None,
                                block_tokens=kv_block_tokens, paged_kernel=paged_kernel,
-                               fused_prologue=fused_prologue)
+                               fused_prologue=fused_prologue, mesh=mesh,
+                               compress_collectives=compress_collectives)
         rows = logits[:, -1].float()  # (B, vocab)
         if masked:
             cst = ints[5]
@@ -405,7 +415,8 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
                              attn_window: int | None = None,
                              fused_prologue: bool = False, kv_block_tokens: int = 0,
                              paged_kernel: bool = False,
-                             graphs: StepGraphs | None = None, masked: bool = False):
+                             graphs: StepGraphs | None = None, masked: bool = False,
+                             mesh=None, compress_collectives: bool = False):
     """Batched draft-verify step: ONE (B, T=block) forward ingests each row's proposal
     block, and acceptance on the device turns it into up to T tokens per row — the
     speculative counterpart of make_batched_decode_loop (the JAX package's
@@ -463,7 +474,8 @@ def make_batched_verify_loop(spec: ModelSpec, params, block: int, *,
                                attn_window=attn_window,
                                block_tables=st["tables"] if paged else None,
                                block_tokens=kv_block_tokens, paged_kernel=paged_kernel,
-                               fused_prologue=fused_prologue)
+                               fused_prologue=fused_prologue, mesh=mesh,
+                               compress_collectives=compress_collectives)
         rows = logits.float()  # (B, T, vocab)
         if masked:
             # automaton states along the proposal path: position i is masked by the state

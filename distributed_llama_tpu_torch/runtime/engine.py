@@ -28,13 +28,17 @@ store after each; past it every step runs forward(paged_cold=store.cold_attend) 
 and appends its rows before pos advances.
 
 Tensor parallelism (`tp`, `mesh`, parallel/): one Engine per rank, each holding its
-shard of the weights and its KV heads (parallel/tp.py), every rank running the same
-steps on the same tokens; the forward pass reduces the partial sums over the mesh
-(through the Q80 wire with `compress_collectives`). Rank 0's sampled token is broadcast
-so no rank can decode another token. A tp step runs eagerly: the gloo wire is host-side
-and cannot be captured in a CUDA graph, so cuda_graph is off under tp > 1. The device
-loop, speculation, the host KV spill, batch > 1 and the block pool are refused there
-(ROADMAP Queue A).
+shard of the weights and its KV heads (parallel/tp.py; a block pool is sharded by KV
+heads too), every rank running the same steps on the same tokens; the forward pass
+reduces the partial sums over the mesh (through the Q80 wire with
+`compress_collectives`). Rank 0 decides what every rank decodes: its sampled token, and
+whether its stop check or its token callback ended the generation, are broadcast
+(`_deliver`), so no rank can decode another token or stop elsewhere. The device loop and
+n-gram speculation run on every rank alike: the gathered logits are the same on every
+rank, so are their picks, and only each chunk's or turn's stop is broadcast. A tp step
+runs eagerly: the gloo wire is host-side and cannot be captured in a CUDA graph, so
+cuda_graph is off under tp > 1. The host KV spill is refused there (single-card, as in
+the JAX package).
 
 The engine runs on `cuda` unless the caller passes device="cpu" (or a mesh on the CPU);
 without a GPU and without device="cpu" it raises. It never moves to the CPU on its own.
@@ -54,7 +58,7 @@ from ..models.params import Params, decode_stream_bytes, params_to, prepare_for_
 from ..models.spec import ModelSpec
 from ..obs import flight, metrics, trace
 from ..ops.rope import RopeTables
-from ..parallel.collectives import broadcast_int
+from ..parallel.collectives import broadcast_ints
 from ..parallel.traffic import CollectiveTraffic, publish_traffic
 from ..quants import FloatType
 from ..resilience import faults
@@ -124,6 +128,12 @@ class GenerationStats:
         return 1000.0 / self.avg_token_ms if self.token_ms else 0.0
 
 
+class LeaderAborted(RuntimeError):
+    """Raised on a tp follower when rank 0's generation ended in an exception of its
+    own (a token callback or stop check that raised): the follower's generation ends
+    where rank 0's did, with the same cache position."""
+
+
 def resolve_device(device=None) -> torch.device:
     """`cuda` unless told otherwise; raise when CUDA is asked for and absent."""
     dev = torch.device(device if device is not None else "cuda")
@@ -152,6 +162,19 @@ def collective_kbytes_per_token(spec: ModelSpec, tp: int, compress: bool) -> flo
     layers = 2 * (tp - 1) / tp * spec.n_layers * per_layer
     logits = (tp - 1) / tp * spec.vocab_size * 4
     return (layers + logits) / 1024.0
+
+
+def collective_bytes_per_step(spec: ModelSpec, tp: int, compress: bool, rows: int,
+                              t: int) -> float:
+    """Bytes each device exchanges for one batched forward step of `rows` rows of `t`
+    tokens (the BatchEngine's prefill, mixed, one-token and verify steps; a super-step
+    of K steps sends K times this at t = 1): collective_kbytes_per_token for every token
+    position the step computes, parked and scratch positions included, since each
+    all-reduce and the logits gather carry the whole (B, T) activation. The payload of
+    each merge point is (rows·t) rows of dim, so the per-token model scales exactly
+    while dim/32 divides by tp (the two-phase Q80 wire; otherwise its one-phase
+    fallback moves more)."""
+    return collective_kbytes_per_token(spec, tp, compress) * 1024.0 * rows * t
 
 
 def window_bucket(pos_end: int, seq_len: int, minimum: int) -> int | None:
@@ -193,8 +216,7 @@ class Engine:
         self.tp = mesh.tp if mesh is not None else 1
         self.compress = bool(compress_collectives)
         if self.tp > 1:
-            self._refuse_under_tp(batch=batch, kv_pool=kv_pool,
-                                  kv_cache_storage=kv_cache_storage)
+            self._refuse_under_tp(kv_cache_storage=kv_cache_storage)
         self.device = resolve_device(device)
         on_gpu = self.device.type == "cuda"
         # bf16 activations and caches on the card halve cache traffic (the matvec
@@ -264,11 +286,15 @@ class Engine:
         # the rank's step over the mesh where it has merge points (None: the one-card
         # step)
         self._sharded = None
+        # the mesh the batched steps and the device loops reduce over (None: no merge
+        # points), the same rule as the one-sequence step's
+        self._merge = None
         if mesh is not None:
             from ..parallel.tp import make_sharded_forward, merge_mesh, shard_params
 
             params = params_to(shard_params(params, mesh, spec), self.device)
-            if merge_mesh(mesh, self.compress) is not None:
+            self._merge = merge_mesh(mesh, self.compress)
+            if self._merge is not None:
                 self._sharded = make_sharded_forward(
                     spec, mesh, dtype=self.dtype, use_kernels=self.use_kernels,
                     compress_collectives=self.compress,
@@ -279,8 +305,8 @@ class Engine:
         if self.tp > 1:
             from ..parallel.tp import init_sharded_kv_cache
 
-            self.k_cache, self.v_cache = init_sharded_kv_cache(spec, mesh, batch,
-                                                               dtype=self.dtype)
+            self.k_cache, self.v_cache = init_sharded_kv_cache(
+                spec, mesh, batch, dtype=self.dtype, kv_pool=kv_pool)
         elif kv_pool is not None:
             self.k_cache, self.v_cache = init_kv_pool(spec, *kv_pool, dtype=self.dtype,
                                                       device=self.device)
@@ -301,21 +327,11 @@ class Engine:
         self._init_steps()
 
     @staticmethod
-    def _refuse_under_tp(batch: int = 1, kv_pool=None, kv_cache_storage=None,
-                         device_loop: bool = False, speculative: bool = False) -> None:
-        """What a tp > 1 engine cannot run yet, each naming its ROADMAP item."""
-        if batch != 1 or kv_pool is not None:
-            raise ValueError("batch > 1 and the block pool under tp > 1 (BatchEngine and "
-                             "api_server over tp) are not in the port yet (ROADMAP Queue A "
-                             "item 1)")
+    def _refuse_under_tp(kv_cache_storage=None) -> None:
+        """What a tp > 1 engine cannot run, naming its ROADMAP item."""
         if kv_cache_storage in ("host", "disc"):
             raise ValueError("the host KV spill is single-card (tp=1), as in the JAX "
-                             "package; the spill under tp is ROADMAP Queue A item 1")
-        for flag, on in (("--device-loop", device_loop), ("--speculative", speculative)):
-            if on:
-                raise ValueError(f"{flag} under tp > 1 is not in the port yet (ROADMAP "
-                                 "Queue A item 1: CUDA graphs and device loops under tp on "
-                                 "NCCL, speculation under tp)")
+                             "package; the spill under tp is ROADMAP Queue A item 1 (c)")
 
     def collective_stats(self) -> CollectiveTraffic:
         """The collectives of one T=1 decode step, counted as they are issued
@@ -594,7 +610,8 @@ class Engine:
             attn_window=self._window_for(max(s + t for s in starts)),
             block_tables=tables if self.kv_pool is not None else None,
             block_tokens=bt, paged_kernel=self.paged_kernel,
-            fused_prologue=self.fused_prologue)
+            fused_prologue=self.fused_prologue, mesh=self._merge,
+            compress_collectives=self.compress)
         rows = torch.tensor([r for r, _ in reads], dtype=torch.long, device=self.device)
         cols = torch.tensor([c for _, c in reads], dtype=torch.long, device=self.device)
         sel = logits[rows, cols]
@@ -641,14 +658,12 @@ class Engine:
             if self.pos >= self.spec.seq_len:
                 break
             t0 = time.perf_counter()
-            token = sampler.sample(logits)
-            if self.tp > 1:
-                token = broadcast_int(token, self.mesh)  # rank 0's pick, on every rank
+            # under tp, rank 0's pick and its stop decision, on every rank
+            (token,), stop = self._deliver([sampler.sample(logits)], on_token, stop_check,
+                                           sync_tokens=True)
             out.append(token)
             stats.generated_tokens += 1
-            if on_token is not None:
-                on_token(token)
-            if stop_check is not None and stop_check(token):
+            if stop is not None:
                 break
             if self.pos >= self.spec.seq_len:
                 break
@@ -659,6 +674,48 @@ class Engine:
             stats.infer_ms.append((t2 - t1) * 1000.0)
             stats.token_ms.append((t2 - t0) * 1000.0)
         return out
+
+    def _deliver(self, tokens: list[int], on_token, stop_check, sync_tokens: bool = False
+                 ) -> tuple[list[int], int | None]:
+        """Hand `tokens` out through on_token until stop_check holds: returns the tokens
+        and the index of the one that stopped (None: no stop). Under tp rank 0 decides:
+        its callbacks run, and its stop index goes to every rank in one broadcast (with
+        its tokens too when `sync_tokens`, rank 0's host samples); the other ranks call
+        on_token on what rank 0 delivered and never their stop_check. A callback that
+        raises on rank 0 is raised there, and LeaderAborted on the other ranks, before
+        any of them moves its position."""
+        stop, err = None, None
+        if self.tp <= 1 or self.mesh.rank == 0:
+            try:
+                for i, t in enumerate(tokens):
+                    if on_token is not None:
+                        on_token(t)
+                    if stop_check is not None and stop_check(t):
+                        stop = i
+                        break
+            except BaseException as e:
+                if self.tp <= 1:
+                    raise
+                err = e
+        if self.tp <= 1:
+            return tokens, stop
+        code = -2 if err is not None else (-1 if stop is None else stop)
+        got = broadcast_ints([code] + (list(tokens) if sync_tokens else []), self.mesh)
+        if err is not None:
+            try:
+                err.tp_synced = True  # every rank stopped here: the world is intact
+            except AttributeError:  # an exception type without instance attributes
+                pass
+            raise err
+        if got[0] == -2:
+            raise LeaderAborted("rank 0's generation raised in its token callback")
+        if sync_tokens:
+            tokens = got[1:]
+        stop = None if got[0] == -1 else got[0]
+        if self.mesh.rank != 0 and on_token is not None:
+            for t in tokens[:len(tokens) if stop is None else stop + 1]:
+                on_token(t)
+        return tokens, stop
 
     def generate(self, prompt_tokens: list[int], max_tokens: int, sampler,
                  on_token=None, stop_check=None) -> tuple[list[int], GenerationStats]:
@@ -676,8 +733,6 @@ class Engine:
         exactly generate()'s tokens, usually in fewer dispatches."""
         from .speculative import generate_speculative
 
-        if self.tp > 1:
-            self._refuse_under_tp(speculative=True)
         return generate_speculative(self, prompt_tokens, max_tokens, sampler, k=k,
                                     on_token=on_token, stop_check=stop_check,
                                     history_tokens=history_tokens)
@@ -692,9 +747,6 @@ class Engine:
         request falls back (one warning per engine). history_tokens (speculative only):
         the whole cached context for the n-gram proposer when prompt_tokens is a
         prefix-reuse delta."""
-        if self.tp > 1:
-            self._refuse_under_tp(device_loop=device_loop_chunk > 0,
-                                  speculative=speculative_k > 0)
         if speculative_k > 0:
             if getattr(sampler, "temperature", 0.0) == 0.0:
                 return self.generate_speculative(prompt_tokens, max_tokens, sampler,
@@ -727,7 +779,8 @@ class Engine:
             self._decode_loops[key] = make_decode_loop(
                 self.spec, self.params, chunk, mode=mode, dtype=self.dtype,
                 use_kernels=self.use_kernels, attn_window=window,
-                fused_prologue=self.fused_prologue, graphs=self.graphs)
+                fused_prologue=self.fused_prologue, graphs=self.graphs, mesh=self._merge,
+                compress_collectives=self.compress)
         return self._decode_loops[key]
 
     def generate_chunked(self, prompt_tokens: list[int], max_tokens: int, sampler,
@@ -747,8 +800,6 @@ class Engine:
         cache rows past it are overwritten by later writes."""
         from .device_loop import prng_key, split
 
-        if self.tp > 1:
-            self._refuse_under_tp(device_loop=True)
         if self.paged:
             raise RuntimeError("the device loop writes a plain cache; a paged engine "
                                "decodes through the host loop (generate_with)")
@@ -793,18 +844,17 @@ class Engine:
                          ms=round(dt_full, 3))
             # per-token time: the dispatch computes `chunk` tokens even when fewer are kept
             dt_ms = dt_full / chunk
-            for i, t in enumerate(tokens):
+            # every rank's loop sampled the same tokens; under tp rank 0's stop decides
+            _, stop = self._deliver(tokens, on_token, stop_check)
+            kept = tokens if stop is None else tokens[:stop + 1]
+            for t in kept:
                 out.append(t)
                 stats.generated_tokens += 1
                 stats.token_ms.append(dt_ms)
                 stats.infer_ms.append(dt_ms)
-                if on_token is not None:
-                    on_token(t)
-                if stop_check is not None and stop_check(t):
-                    done = True
-                    self.pos += i + 1
-                    break
+            self.pos += len(kept)
+            if stop is not None:
+                done = True
             else:
-                self.pos += len(tokens)
                 token = tokens[-1]
         return out, stats

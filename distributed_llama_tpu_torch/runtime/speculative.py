@@ -598,22 +598,18 @@ def generate_speculative(engine, prompt_tokens: list[int], max_tokens: int,
         dt_full = (time.perf_counter() - t0) * 1000.0
         stats.spec_step_ms.append(dt_full)
         dt_ms = dt_full / len(emitted)
-        stop_j = None
-        for j, tok in enumerate(emitted):
+        # the turn's tokens up to max_tokens, through the callbacks until a stop (under
+        # tp, rank 0's stop on every rank: engine._deliver)
+        emit = emitted[:max_tokens - len(out)]
+        _, stop_j = engine._deliver(emit, on_token, stop_check)
+        for tok in emit if stop_j is None else emit[:stop_j + 1]:
             out.append(tok)
             history.append(tok)
             stats.generated_tokens += 1
             _ENGINE_DECODE_TOKENS.inc()
             stats.token_ms.append(dt_ms)
             stats.infer_ms.append(dt_ms)
-            if on_token is not None:
-                on_token(tok)
-            if stop_check is not None and stop_check(tok):
-                done = True
-                stop_j = j
-                break
-            if len(out) >= max_tokens:
-                break
+        done = stop_j is not None
         # rewind to the verified frontier: rows beyond it were computed from
         # rejected inputs (masked reads make the stale rows invisible). On a
         # stop at emitted index j the frontier excludes the stop token's

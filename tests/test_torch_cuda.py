@@ -1971,6 +1971,60 @@ def test_nccl_world_of_one_eager_and_captured(cuda):
     assert got == {"eager": True, "graph": True}
 
 
+# Llama-2-7B's projections at tp = 2 as one rank's shard (N, K), the shapes the tp
+# serving path runs #3 at: wqkv (N/2), wo (K = dim/2), w2 (K = hidden/2 = 5504, a
+# multiple of 64) and wcls (vocab/2); w1/w3 take #5 at N = hidden/2
+TP2_SERVE_MM = ((6144, 4096), (4096, 2048), (4096, 5504), (16000, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("n,k", TP2_SERVE_MM)
+def test_q4_matmul_kernel_at_the_tp2_serving_shard_shapes(cuda, m, n, k):
+    """#3 at the serving shard shapes (8 rows of one token, 8 rows of an 8-token chunk),
+    bf16 rows as the paths feed it: one launch, within 1e-3·max of its plain version."""
+    packed, scales = _planes(n, k, cuda, seed=n + k + m)
+    x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    before = mm.launches
+    got = mm._launch(x, packed, scales)
+    torch.cuda.synchronize()
+    assert mm.launches == before + 1
+    assert _rel_err(got, mm.q4_matmul_plain(x, packed, scales)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 64])
+def test_q4_gated_matmul_kernel_at_the_tp2_shard(cuda, m):
+    """#5 on a rank's w1/w3 shard at tp = 2 (N = 11008/2, K = 4096): one launch, within
+    1e-3·max of its plain version."""
+    n, k = 5504, 4096
+    w1, w3 = _planes(n, k, cuda, seed=m + 12), _planes(n, k, cuda, seed=m + 13)
+    x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    before = gm.launches
+    got = gm._launch(x, w1, w3, "silu")
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1
+    assert _rel_err(got, gm.q4_gated_matmul_plain(x, w1, w3, "silu")) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 8, 9])
+def test_paged_attention_kernel_over_a_tp2_rank_heads(cuda, t):
+    """#9 over one rank's 16 of Llama-2-7B's 32 KV heads (hs 128, bf16 pools), at a
+    decode step, an 8-token chunk and a T = 9 verify block: one launch, within 1e-4·max
+    of its plain version."""
+    q, kc, vc, kn, vn, tables, lens, w = _paged_inputs(
+        cuda, torch.bfloat16, t, 1, 16, 128, [0, 37, 300, 16, 5, 129, 64, 250], seed=t)
+    layer = torch.ones(1, dtype=torch.int32, device=cuda)
+    before = pa.launches
+    got = pa._launch(q, kc, vc, kn, vn, tables, lens, layer, w)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = pa.paged_attention_plain(q, kc, vc, kn, vn, tables, lens, 1, n_read=w)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < 1e-4
+
+
 @pytest.mark.cuda
 def test_q4_matmul_route_takes_the_tp_shard_k_on_the_card(cuda):
     """On the card the M > 1 route gate is csrc/q4_matmul.cu's own (K a multiple of 64):

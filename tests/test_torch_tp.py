@@ -59,6 +59,7 @@ from distributed_llama_tpu_torch.parallel.sharding import (check_divisibility,
                                                            param_split_axes)
 from distributed_llama_tpu_torch.parallel.tp import shard_params
 from distributed_llama_tpu_torch.quants import QTensor
+from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
 from distributed_llama_tpu_torch.runtime.engine import Engine, collective_kbytes_per_token
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -400,13 +401,16 @@ def test_counted_traffic_equals_model_and_jax_collective_stats(model_files, engi
 
 
 def test_engine_refuses_what_tp_cannot_run():
-    with pytest.raises(ValueError, match="Queue A item 1"):
-        Engine._refuse_under_tp(batch=2)
-    with pytest.raises(ValueError, match="single-card"):
+    """What stays refused under tp (batch > 1, the pool, the device loop and
+    speculation run there now: tests/test_torch_tp_serve.py): the spill, dp, the model
+    drafter, and a tp without a process group."""
+    with pytest.raises(ValueError, match=r"single-card.*Queue A item 1 \(c\)"):
         Engine._refuse_under_tp(kv_cache_storage="host")
-    for flag in ("device_loop", "speculative"):
-        with pytest.raises(ValueError, match="Queue A item 1"):
-            Engine._refuse_under_tp(**{flag: True})
+    with pytest.raises(ValueError, match=r"Queue A item 1 \(a\): dp"):
+        BatchEngine(port_spec(tp_spec()), {"blocks": {}}, device="cpu", dp=2)
+    with pytest.raises(ValueError, match=r"Queue A item 1 \(c\): the drafter"):
+        BatchEngine(port_spec(tp_spec()), {"blocks": {}}, device="cpu", tp=2,
+                    speculative=4, draft_model="drafter.m")
     with pytest.raises(RuntimeError, match="process group"):
         Engine(port_spec(tp_spec()), {"blocks": {}}, device="cpu", tp=2)
 
@@ -477,8 +481,8 @@ def test_tp_above_the_visible_cards_raises(model_files):
                      str(max(n + 1, 2))])
     assert dllama.rank_devices("cuda:0", n + 1) == ["cuda:0"] * (n + 1)
     assert dllama.rank_devices("cpu", 2) == ["cpu", "cpu"]
-    with pytest.raises(ValueError, match="Queue A item 1"):
+    with pytest.raises(ValueError, match=r"Queue A item 1 \(c\): the drafter"):
         dllama.main(["generate", "--model", mpath, "--tokenizer", tpath, "--tp", "2",
-                     "--device", "cpu", "--device-loop", "4"])
+                     "--device", "cpu", "--draft-model", mpath])
     r = launch.run("torch_tp_ranks:ranks_and_devices", 2, "cpu")
     assert r == [(0, 2, "cpu", "gloo"), (1, 2, "cpu", "gloo")]
