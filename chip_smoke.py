@@ -247,11 +247,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -265,10 +267,18 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the model phase runs before the profiler-timed kernel phase, so its host-side step
-# times are not taken with profiler hooks installed
-ALL_PHASES = ("env", "build", "parity", "model", "q80", "serve", "http", "prefix", "spec",
-              "resil", "tenancy", "disagg", "obs", "constrain", "draft", "moe", "spill",
-              "tp", "tpserve", "kernels", "cli")
+# times are not taken with profiler hooks installed; the parity phase (with the moe
+# phase's parities) runs last but one, its CPU sides computed by the reference process
+# (`_CpuRefs`) during REF_PHASES
+ALL_PHASES = ("env", "build", "model", "q80", "serve", "http", "prefix", "spec", "resil",
+              "tenancy", "disagg", "obs", "constrain", "draft", "moe", "spill", "tp",
+              "tpserve", "sp", "kernels", "parity", "cli")
+# the phases the reference process may run beside: the card's work there times no host
+# path (the build; the kernels phase's device times; the parities' checks) or stops it
+# while it does (the sp runs' timed loops, `_refs_paused`; the tp and tpserve wiring
+# figures are taken beside the tp phase's own CPU references and it); it is stopped
+# during every other phase, whose host-bound times it would change
+REF_PHASES = ("build", "tp", "tpserve", "sp", "kernels", "parity")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -1703,9 +1713,59 @@ class _SharedDequant:
         self._mm.dequant_bf16 = self._fn
 
 
+def _serving_setup(n_layers, spec, params, prompt_lens):
+    """serving_parity's model, weights (CPU tensors), engine arguments and prompts."""
+    spec = spec or _llama2_7b(n_layers=n_layers)
+    if params is None:  # CPU tensors: the gate-pair layout the fused engine takes
+        params = _random_i4p_params(spec, torch.device("cpu"), seed=8, gate_pair=True)
+    kw = dict(slots=4, dtype=torch.float32, use_kernels=True, fused_matmul=True)
+    rng = np.random.RandomState(4)
+    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in prompt_lens]
+    return spec, params, kw, prompts
+
+
+def _serving_run(spec, params, kw, prompts, dev, max_tokens: int, after: int, rec=None,
+                 force=None):
+    """One staggered run of serving_parity's fused BatchEngine on `dev`: its requests
+    and samplers (each row kept, and where `rec` records the forward pass's calls, the
+    count of calls before it)."""
+    from distributed_llama_tpu_torch.models.params import params_to
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    be = BatchEngine(spec, params_to(params, dev), device=dev, **kw)
+    assert be.engine.use_kernels == "fused" and be.engine.paged_kernel
+    try:
+        return staggered(be, prompts, max_tokens, after=after, keep=True, force=force,
+                         mark=(lambda: len(rec.calls)) if rec else None)
+    finally:
+        be.close()
+
+
+def _serving_cpu(n_layers: int = 2, max_tokens: int = 6, spec=None,
+                 prompt_lens=(8, 12, 4, 19), crossing_tol: bool = False, after: int = 2,
+                 params=None) -> dict:
+    """serving_parity's CPU side (its arguments but `fed`): the requests' tokens, the
+    kept logits rows and their call marks, and with crossing_tol the recorded calls and
+    router choices. Independent of the card's run, so it runs once, on its own (the CPU
+    reference process, `_CpuRefs`, or inline)."""
+    spec, params, kw, prompts = _serving_setup(n_layers, spec, params, prompt_lens)
+    rec = _Crossings() if crossing_tol else None
+    try:
+        rc, sc = _serving_run(spec, params, kw, prompts, "cpu", max_tokens, after, rec)
+        out = {"tokens": [r.out for r in rc], "kept": [x.kept for x in sc],
+               "marks": [x.marks for x in sc], "calls": [], "routes": []}
+        if rec:
+            out["calls"], out["routes"] = rec.take(), rec.take_routes()
+    finally:
+        if rec:
+            rec.close()
+    return out
+
+
 def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
                    prompt_lens=(8, 12, 4, 19), crossing_tol: bool = False,
-                   after: int = 2, fed: bool = False, params=None) -> str:
+                   after: int = 2, fed: bool = False, params=None,
+                   cpu_run: dict | None = None) -> str:
     """The fused BatchEngine at full Llama-2-7B width (or `spec`'s) in f32 with seeded
     weights: the card with the kernels against the CPU with their plain versions, on 4
     staggered requests (prompts of `prompt_lens` tokens), the card decoding the CPU's
@@ -1721,35 +1781,24 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
     report gives where the first value rounded differently and the router choices that
     differ; with `fed` (crossing_tol too) another card run takes the CPU run's operands
     at every kernel call, as `engine_parity`'s, and its logits must be within
-    2e-3·max|logits| at every row. `params` (CPU tensors) replace the seeded draw."""
-    from distributed_llama_tpu_torch.models.params import params_to
-    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
-
-    spec = spec or _llama2_7b(n_layers=n_layers)
-    if params is None:  # CPU tensors: the gate-pair layout the fused engine takes
-        params = _random_i4p_params(spec, torch.device("cpu"), seed=8, gate_pair=True)
-    kw = dict(slots=4, dtype=torch.float32, use_kernels=True, fused_matmul=True)
-    rng = np.random.RandomState(4)
-    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in prompt_lens]
+    2e-3·max|logits| at every row. `params` (CPU tensors) replace the seeded draw.
+    `cpu_run`: the CPU side (`_serving_cpu` with the same arguments), computed
+    beforehand; None runs it here."""
+    if cpu_run is None:
+        cpu_run = _serving_cpu(n_layers, max_tokens, spec, prompt_lens, crossing_tol, after,
+                               params)
+    spec, params, kw, prompts = _serving_setup(n_layers, spec, params, prompt_lens)
+    tokens, calls_c, routes_c = cpu_run["tokens"], cpu_run["calls"], cpu_run["routes"]
+    kept_c, marks_c = cpu_run["kept"], cpu_run["marks"]
     # the BatchEngine at superstep 1 runs its steps eagerly, so the recorder can copy
     # each call's rows to the host
     rec = _Crossings() if crossing_tol else None
-    mark = (lambda: len(rec.calls)) if rec else None
 
     def run(dev, force=None):
-        be = BatchEngine(spec, params_to(params, dev), device=dev, **kw)
-        assert be.engine.use_kernels == "fused" and be.engine.paged_kernel
-        try:
-            return staggered(be, prompts, max_tokens, after=after, keep=True,
-                             force=force, mark=mark)
-        finally:
-            be.close()
+        return _serving_run(spec, params, kw, prompts, dev, max_tokens, after, rec, force)
 
     fed_report = ""
     try:
-        rc, sc = run("cpu")
-        calls_c, routes_c = (rec.take(), rec.take_routes()) if rec else ([], [])
-        tokens = [r.out for r in rc]
         rg, sg = run("cuda", force=tokens)
         calls_g, routes_g = (rec.take(), rec.take_routes()) if rec else ([], [])
         if fed:
@@ -1761,7 +1810,7 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
                 rec.take()
             fed_worst = 0.0
             for i in range(len(prompts)):
-                for step, (lf, lc) in enumerate(zip(sf[i].kept, sc[i].kept)):
+                for step, (lf, lc) in enumerate(zip(sf[i].kept, kept_c[i])):
                     err, tol = float(np.abs(lf - lc).max()), 2e-3 * float(np.abs(lc).max())
                     fed_worst = max(fed_worst, err / tol)
                     if err > tol:
@@ -1780,7 +1829,7 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
     def crossed(i, step) -> int:
         if rec is None:
             return 0
-        n = sc[i].marks[step]
+        n = marks_c[i][step]
         if sg[i].marks[step] != n:
             raise AssertionError(f"serving parity: request {i} step {step} came after "
                                  f"{sg[i].marks[step]} calls on the card, {n} on the CPU")
@@ -1790,10 +1839,10 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
 
     worst, steps, ties = 0.0, 0, []
     for i in range(len(prompts)):
-        if rg[i].out != tokens[i] or len(sg[i].kept) != len(sc[i].kept):
+        if rg[i].out != tokens[i] or len(sg[i].kept) != len(kept_c[i]):
             raise AssertionError(f"serving parity: request {i} decoded {rg[i].out} on the "
                                  f"card, not the CPU's {tokens[i]}")
-        for step, (lg, lc) in enumerate(zip(sg[i].kept, sc[i].kept)):
+        for step, (lg, lc) in enumerate(zip(sg[i].kept, kept_c[i])):
             err = float(np.abs(lg - lc).max())
             tol = (2e-2 if crossed(i, step) else 2e-3) * float(np.abs(lc).max())
             worst = max(worst, err / tol)
@@ -1823,7 +1872,7 @@ def serving_parity(n_layers: int = 2, max_tokens: int = 6, spec=None,
             _, sw = run("cpu", force=tokens)
         seen = []
         for i, step, tc, tg, gap, tol in ties:
-            lw, lc, lg = sw[i].kept[step], sc[i].kept[step], sg[i].kept[step]
+            lw, lc, lg = sw[i].kept[step], kept_c[i][step], sg[i].kept[step]
             gw = abs(float(lw[tc] - lw[tg]))
             if gw >= tol:
                 raise AssertionError(f"serving parity: request {i} step {step}: exact sums "
@@ -1975,8 +2024,33 @@ class _Crossings:
             setattr(mod, name, fn)
 
 
+def _engine_cpu(spec, params, steps: int = 8, **kw) -> dict:
+    """engine_parity's CPU side: the Engine with the plain versions on the CPU weights,
+    f32, the 9-token prompt and `steps` greedy steps, each step's chunk, the calls and
+    router choices `_Crossings` recorded and its logits. It depends on nothing of the
+    card's run (each card step takes the CPU's token), so it runs once, on its own: in
+    the CPU reference process (`_CpuRefs`) beside the card's phases, or inline."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    cpu = Engine(spec, params, device="cpu", dtype=torch.float32, use_kernels=True, **kw)
+    chunk = [1] + [int(t) for t in np.random.RandomState(3).randint(3, 32000, 8)]
+    rec = _Crossings()
+    out = []  # (chunk, calls, routes, logits) of every step
+    try:
+        lc = cpu.prefill(chunk)
+        for step in range(steps + 1):
+            out.append((chunk, rec.take(), rec.take_routes(), lc))
+            if step == steps:
+                break
+            chunk = [int(np.argmax(lc))]
+            lc = cpu.infer_chunk(chunk)
+    finally:
+        rec.close()
+    return {"steps": out}
+
+
 def engine_parity(spec, params, crossing_tol: bool = False, steps: int = 8,
-                  fed: bool = False, **kw) -> str:
+                  fed: bool = False, cpu_run: dict | None = None, **kw) -> str:
     """The Engine on the card with the kernels against the CPU with their plain versions
     on the same weights (CPU tensors), f32: a 9-token prompt and `steps` greedy steps. Greedy
     tokens must be identical at every step, and the logits within 2e-3·max|logits|
@@ -1992,10 +2066,14 @@ def engine_parity(spec, params, crossing_tol: bool = False, steps: int = 8,
     logits to 2e-3·max|logits| at every step, so what rounded differently in the first
     run is shown to be the cause of any excess over 2e-3. The report also gives where the
     first value rounded differently and the router choices (token-layer pairs) that
-    differ between the card's and the CPU's first runs."""
+    differ between the card's and the CPU's first runs. `cpu_run`: the CPU side
+    (`_engine_cpu` with the same arguments), computed beforehand; None runs it here."""
     from distributed_llama_tpu_torch.models.params import params_to
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
+    if cpu_run is None:
+        cpu_run = _engine_cpu(spec, params, steps, **kw)
+    cpu_steps = cpu_run["steps"]
     kw = dict(dtype=torch.float32, use_kernels=True, **kw)
 
     # eager steps: _Crossings copies each row to the host, which a graph capture cannot
@@ -2003,22 +2081,18 @@ def engine_parity(spec, params, crossing_tol: bool = False, steps: int = 8,
     def card():
         return Engine(spec, params_to(params, "cuda"), device="cuda", cuda_graph=False, **kw)
     gpu = card()
-    cpu = Engine(spec, params, device="cpu", **kw)
-    prompt = [1] + [int(t) for t in np.random.RandomState(3).randint(3, 32000, 8)]
     rec = _Crossings()
-    cpu_steps = []  # (chunk, the CPU's calls, the CPU's logits) of every step
     try:
-        lg, cg, rg = gpu.prefill(prompt), rec.take(), rec.take_routes()
-        lc, cc, rc = cpu.prefill(prompt), rec.take(), rec.take_routes()
         worst, crossed, first, flips, pairs = 0.0, 0, None, 0, 0
-        toks_g, toks_c, chunk = [], [], prompt
-        for step in range(steps + 1):
+        toks_g, toks_c = [], []
+        for step, (chunk, cc, rc, lc) in enumerate(cpu_steps):
+            lg = gpu.prefill(chunk) if step == 0 else gpu.infer_chunk(chunk)
+            cg, rg = rec.take(), rec.take_routes()
             crossed += rec.count(cg, cc)
             if first is None and crossed:
                 first = f"step {step}, " + rec.first(cc, cg)
             f, p = rec.route_flips(rg, rc)
             flips, pairs = flips + f, pairs + p
-            cpu_steps.append((chunk, cc, lc))
             err = float(np.abs(lg - lc).max())
             tol = (2e-2 if crossed and crossing_tol else 2e-3) * float(np.abs(lc).max())
             worst = max(worst, err / tol)
@@ -2034,19 +2108,17 @@ def engine_parity(spec, params, crossing_tol: bool = False, steps: int = 8,
             if tg != tc:
                 raise AssertionError(f"parity: greedy tokens diverge at step {step}: "
                                      f"{toks_g} vs {toks_c}")
-            chunk = [tc]
-            lg, cg, rg = gpu.infer_chunk(chunk), rec.take(), rec.take_routes()
-            lc, cc, rc = cpu.infer_chunk(chunk), rec.take(), rec.take_routes()
         routes = (f"; router choices differing {flips} of {pairs} token-layer pairs"
                   if pairs else "")
-        report = (f"prefill {len(prompt)} tokens + {steps} greedy steps, tokens identical "
-                  f"{toks_g}; {crossed} activation values rounded differently (first at "
-                  f"{first or 'none'}){routes}; worst max|Δlogits|/tol {worst:.3f}")
+        report = (f"prefill {len(cpu_steps[0][0])} tokens + {steps} greedy steps, tokens "
+                  f"identical {toks_g}; {crossed} activation values rounded differently "
+                  f"(first at {first or 'none'}){routes}; worst max|Δlogits|/tol "
+                  f"{worst:.3f}")
         if fed:
             del gpu
             torch.cuda.empty_cache()
             gpu, fed_worst = card(), 0.0
-            for step, (chunk, cc, lc) in enumerate(cpu_steps):
+            for step, (chunk, cc, _, lc) in enumerate(cpu_steps):
                 rec.feed = cc
                 lf = gpu.prefill(chunk) if step == 0 else gpu.infer_chunk(chunk)
                 rec.feed = None
@@ -2067,39 +2139,278 @@ def engine_parity(spec, params, crossing_tol: bool = False, steps: int = 8,
     return report
 
 
+# ------------------------------------------------------------------ CPU references
+
+# the parities' CPU sides, by name, in the order the reference process computes them;
+# each group shares one `_SharedDequant` (its CPU weights decoded once), as the phases
+# ran them
+CPU_REF_GROUPS = {"parity": ("engine_q40", "engine_q40_prologue", "engine_q80_prologue",
+                             "serving", "constrain", "drafter"),
+                  "moe": ("moe_grok",), "moe_mixtral": ("moe_mixtral", "moe_serving")}
+CPU_REF_THREADS = 6  # the reference process's torch threads (the card host has 8 cores)
+
+
+def _parity_weights() -> dict:
+    """The parity phase's CPU weights, drawn on the CPU from their seeds (the same bits in
+    any process): 2 layers at 7B width in Q40 and Q80, and the gate-pair 1-layer set of
+    the grammar and drafter parities."""
+    spec, cpu = _llama2_7b(n_layers=2), torch.device("cpu")
+    return {"q40": _random_i4p_params(spec, cpu, seed=7),
+            "q80": _random_i8_params(spec, cpu, seed=9),
+            "p8": _random_i4p_params(_llama2_7b(n_layers=1), cpu, seed=8, gate_pair=True,
+                                     lo=1)}
+
+
+def _moe_parity_weights(dev) -> dict:
+    """The moe phase's parity weights, drawn on the card from their seeds and copied to
+    the host: grok1_l2's first layer and 1 layer of Mixtral width."""
+    from distributed_llama_tpu_torch.models.params import params_to
+
+    grok = _random_moe_params(_grok1(), dev, seed=27)
+    out = {"grok": params_to(_first_layer(grok), "cpu")}
+    del grok
+    out["mixtral"] = params_to(_random_moe_params(_mixtral_8x7b(n_layers=1), dev, seed=25),
+                               "cpu")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_serving_kw() -> dict:
+    """The moe phase's serving parity at 1 layer of Mixtral width: 4 requests x 2
+    tokens, each arriving at the previous one's first token."""
+    return dict(spec=_mixtral_8x7b(n_layers=1), max_tokens=2, prompt_lens=(8, 9, 1, 8),
+                crossing_tol=True, after=1)
+
+
+def _cpu_ref(name: str, w: dict):
+    """One parity's CPU side by name, on the weights `w` (`_parity_weights` and
+    `_moe_parity_weights`)."""
+    spec2 = _llama2_7b(n_layers=2)
+    if name == "engine_q40":
+        return _engine_cpu(spec2, w["q40"], prefill_kernel=True)
+    if name == "engine_q40_prologue":
+        return _engine_cpu(spec2, w["q40"], prefill_kernel=True, fused_prologue=True)
+    if name == "engine_q80_prologue":
+        return _engine_cpu(spec2, w["q80"], prefill_kernel=True, fused_prologue=True)
+    if name == "serving":
+        return _serving_cpu()
+    if name == "constrain":
+        return _constrain_parity_run(w["p8"], "cpu")
+    if name == "drafter":
+        return _drafter_cpu(w["p8"])
+    if name == "moe_grok":
+        return _engine_cpu(_grok1(n_layers=1), w["grok"], steps=1, prefill_kernel=True)
+    if name == "moe_mixtral":
+        return _engine_cpu(_mixtral_8x7b(n_layers=1), w["mixtral"], steps=4,
+                           prefill_kernel=True)
+    if name == "moe_serving":
+        return _serving_cpu(**_moe_serving_kw(), params=w["mixtral"])
+    raise ValueError(name)
+
+
+def _cpu_ref_main(conn, groups: list, moe: bool) -> None:
+    """The reference process: draw the moe weights on the card first (the parent waits
+    for "drawn" before its timed phases), then compute each group's references in
+    order, each sent back pickled as soon as it is done; an exception is sent in its
+    place and ends the process."""
+    import pickle
+    import traceback
+
+    os.nice(19)  # the card's host work keeps the cores it needs
+    torch.set_num_threads(CPU_REF_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "drawn"
+    try:
+        w = _moe_parity_weights(torch.device("cuda")) if moe else {}
+        conn.send_bytes(pickle.dumps(("drawn", True, None)))
+        if "parity" in groups:
+            w.update(_parity_weights())
+        for group in groups:
+            with _SharedDequant() if group != "moe" else contextlib.nullcontext():
+                for name in CPU_REF_GROUPS[group]:
+                    t0 = time.perf_counter()
+                    out = _cpu_ref(name, w)
+                    conn.send_bytes(pickle.dumps((name, True,
+                                                  (out, time.perf_counter() - t0))))
+    except BaseException:  # noqa: BLE001 — sent to the parent, which raises it
+        conn.send_bytes(pickle.dumps((name, False, traceback.format_exc())))
+    finally:
+        conn.close()
+
+
+class _CpuRefs:
+    """The CPU sides of the parity and moe phases' parities (`CPU_REF_GROUPS`), computed
+    once a run in a process of their own, spawned at the start, at the lowest CPU
+    priority and with CPU_REF_THREADS torch threads, beside the card's work that times
+    no host path: it runs during REF_PHASES and is stopped during every other phase
+    (`run_beside`), and the parity phase, late in the run, finds them ready. The process
+    first draws the moe parities' weights on the card and copies them to the host;
+    `drawn()` waits for that (the build phase calls it). A thread here receives each
+    reference as it comes; `get(name)` waits for one and returns it, and a failure in
+    the process raises there."""
+
+    def __init__(self, phases):
+        import multiprocessing
+
+        self.moe = "moe" in phases
+        groups = (["parity"] if "parity" in phases else []) + (
+            ["moe", "moe_mixtral"] if self.moe else [])
+        self.results: dict = {}
+        self.cv = threading.Condition()
+        self.ended = False
+        self.wait_s = 0.0
+        self.proc = None
+        if not groups:
+            return
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_cpu_ref_main, args=(child, groups, self.moe),
+                                name="cpu-refs", daemon=True)
+        self.proc.start()
+        os.environ[REF_PID_ENV] = str(self.proc.pid)  # for the ranks' _refs_paused
+        child.close()
+        threading.Thread(target=self._receive, daemon=True, name="cpu-refs").start()
+
+    def _receive(self) -> None:
+        import pickle
+
+        try:
+            while True:
+                name, ok, out = pickle.loads(self.conn.recv_bytes())
+                with self.cv:
+                    self.results[name] = (ok, out)
+                    self.cv.notify_all()
+        except (EOFError, OSError):
+            with self.cv:
+                self.ended = True
+                self.cv.notify_all()
+
+    def _take(self, name: str, timeout: float = 3600.0):
+        if self.proc.is_alive():
+            os.kill(self.proc.pid, signal.SIGCONT)  # waited for: it runs
+        t0 = time.perf_counter()
+        with self.cv:
+            while name not in self.results:
+                if self.ended:
+                    raise AssertionError(f"the CPU reference process ended (code "
+                                         f"{self.proc.exitcode}) before {name}")
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"the CPU reference {name} took over {timeout} s")
+                self.cv.wait(5.0)
+            ok, out = self.results.pop(name)
+        self.wait_s += time.perf_counter() - t0
+        if not ok:
+            raise AssertionError(f"the CPU reference process failed at {name}:\n{out}")
+        return out
+
+    def drawn(self) -> None:
+        if self.proc is not None and self.moe:
+            self._take("drawn")
+
+    def run_beside(self, phase: str) -> None:
+        """Let the process run during `phase` if it is one of REF_PHASES, else stop it
+        (SIGSTOP) until one is."""
+        if self.proc is None or not self.proc.is_alive():
+            return
+        os.kill(self.proc.pid, signal.SIGCONT if phase in REF_PHASES else signal.SIGSTOP)
+
+    def get(self, name: str):
+        """The reference `name`; logs how long it took there and how long it was
+        waited for here."""
+        t0 = time.perf_counter()
+        with self.cv:  # a failure sent in place of the one asked for ends the process
+            failed = [(k, v[1]) for k, v in self.results.items() if not v[0]]
+        if failed:
+            raise AssertionError(f"the CPU reference process failed at {failed[0][0]}:\n"
+                                 f"{failed[0][1]}")
+        out, took = self._take(name)
+        log(f"[cpu refs] {name}: {took:.1f} s in the reference process, waited "
+            f"{time.perf_counter() - t0:.1f} s")
+        return out
+
+    def close(self) -> None:
+        os.environ.pop(REF_PID_ENV, None)
+        if self.proc is not None:
+            if self.proc.is_alive():
+                os.kill(self.proc.pid, signal.SIGCONT)
+            self.proc.join(5)
+            if self.proc.is_alive():
+                self.proc.terminate()
+                self.proc.join(10)
+            self.conn.close()
+            self.proc = None
+
+
+REF_PID_ENV = "CHIP_SMOKE_REF_PID"
+
+
+@contextlib.contextmanager
+def _refs_paused(mesh):
+    """Stop the CPU reference process (`_CpuRefs`, its pid in REF_PID_ENV) while a loop
+    whose host wall time is measured runs, from rank 0 of the loop's world, and let it go
+    on after; yields whether it stopped it. Only a process that runs and is a child of
+    this rank's parent is stopped: a pid freed by the reference process's end and taken
+    again is left alone."""
+    pid = int(os.environ.get(REF_PID_ENV) or 0)
+    stopped = False
+    if mesh.rank == 0 and pid:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except OSError:
+            state, ppid = "", "0"
+        if state in ("R", "S", "D") and int(ppid) == os.getppid():
+            os.kill(pid, signal.SIGSTOP)
+            stopped = True
+    try:
+        yield stopped
+    finally:
+        if stopped:
+            os.kill(pid, signal.SIGCONT)
+
+
+def _ref(state: dict, name: str):
+    """A parity's CPU side from the reference process, or None (computed inline) when
+    the run has none."""
+    refs = state.get("cpu_refs")
+    return refs.get(name) if refs is not None and refs.proc is not None else None
+
+
 def phase_parity(state: dict) -> None:
     from distributed_llama_tpu_torch.ops import prologue as pro
     from distributed_llama_tpu_torch.ops import q4_matvec as mv
     from distributed_llama_tpu_torch.ops import q8_matvec as q8
 
     spec = _llama2_7b(n_layers=2)
-    cpu = torch.device("cpu")
-    q40 = _random_i4p_params(spec, cpu, seed=7)
+    w = _parity_weights()
     with _SharedDequant():
-        log(f"[parity] 2-layer Llama-2-7B width, f32, Q40: "
-            f"{engine_parity(spec, q40, prefill_kernel=True)}")
-        for label, params, counter in (("Q40", q40, lambda: mv.q80_launches),
-                                       ("Q80", _random_i8_params(spec, cpu, seed=9),
-                                        lambda: q8.q80_launches)):
+        report = engine_parity(spec, w["q40"], prefill_kernel=True,
+                               cpu_run=_ref(state, "engine_q40"))
+        log(f"[parity] 2-layer Llama-2-7B width, f32, Q40: {report}")
+        for label, params, counter in (("Q40", w["q40"], lambda: mv.q80_launches),
+                                       ("Q80", w["q80"], lambda: q8.q80_launches)):
+            cpu_run = _ref(state, f"engine_{label.lower()}_prologue")
             before = (counter(), pro.rmsnorm_launches, pro.quantize_launches)
             report = engine_parity(spec, params, crossing_tol=True, prefill_kernel=True,
-                                   fused_prologue=True)
+                                   fused_prologue=True, cpu_run=cpu_run)
             after = (counter(), pro.rmsnorm_launches, pro.quantize_launches)
             if not all(a > b for a, b in zip(after, before)):
                 raise AssertionError(f"parity {label} prologue: kernels not launched "
                                      f"{before} -> {after}")
             log(f"[parity] 2-layer Llama-2-7B width, f32, {label} with the fused prologue: "
                 f"{report}")
-        log(f"[parity] 2-layer Llama-2-7B width, f32: {serving_parity()}")
+        log(f"[parity] 2-layer Llama-2-7B width, f32: "
+            f"{serving_parity(cpu_run=_ref(state, 'serving'))}")
         # the grammar and drafter parities at 1 layer (2 until the tpserve phase came:
         # depth cut for time)
-        p8 = _random_i4p_params(_llama2_7b(n_layers=1), cpu, seed=8, gate_pair=True, lo=1)
-        for label, check in (("constrained", constrain_parity), ("the drafter",
-                                                                  drafter_parity)):
+        for label, check, key in (("constrained", constrain_parity, "constrain"),
+                                  ("the drafter", drafter_parity, "drafter")):
             t0 = time.perf_counter()
-            report = check(p8)
+            report = check(w["p8"], cpu_run=_ref(state, key))
             log(f"[parity] 1-layer Llama-2-7B width, f32, {label}: {report} "
                 f"({time.perf_counter() - t0:.1f} s)")
+    if "moe" in state["phases"]:
+        _moe_parities(state)
 
 
 def phase_model(state: dict) -> None:
@@ -4302,7 +4613,54 @@ def _parity_streams(spec, params, prompts, card, cpu, what: str
     return ties
 
 
-def constrain_parity(params, n_layers: int = 1, max_tokens: int = 16) -> str:
+def _constrain_setup(n_layers: int):
+    """constrain_parity's model, vocab, grammars and prompts."""
+    from distributed_llama_tpu_torch.constrain import compile_grammar
+
+    spec = _llama2_7b(n_layers=n_layers)
+    # the synthetic tokenizer's vocab: one token a byte, so the schema has forced chains
+    vocab, eos = _constrain_vocab(spec.vocab_size)
+    grammars = [compile_grammar("json_schema", CONSTRAIN_SCHEMA, vocab, eos),
+                compile_grammar("regex", CONSTRAIN_REGEX, vocab, eos), None, None]
+    rng = np.random.RandomState(9)
+    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (7, 15, 7, 15)]
+    return spec, eos, grammars, prompts
+
+
+def _constrain_parity_run(params, dev: str, n_layers: int = 1, max_tokens: int = 16
+                          ) -> tuple:
+    """constrain_parity's run on one device: (outputs, masked builds run, verify
+    blocks), each masked build run and each constrained output valid. The CPU's run
+    depends on nothing of the card's, so it runs once, on its own (`_CpuRefs`)."""
+    from distributed_llama_tpu_torch.models.params import params_to
+    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
+
+    spec, eos, grammars, prompts = _constrain_setup(n_layers)
+    be = BatchEngine(spec, params_to(params, dev), device=dev, slots=4,
+                     dtype=torch.float32, use_kernels=True, fused_matmul=True,
+                     superstep=4, speculative=SPEC_K, prefix_cache=False)
+    try:
+        with be._slock:
+            reqs = [be.submit(list(p), max_tokens, _CheckedSampler(spec.vocab_size),
+                              **({} if g is None else dict(constraint=g[0])))
+                    for p, g in zip(prompts, grammars)]
+        outs = [r.wait(timeout=900) for r in reqs]
+        keys = be.engine.graphs.keys() if dev == "cuda" else list(be._loops)
+        masked = sorted({"verify" if "verify" in str(k[0]) else "scan"
+                         for k in keys if k[-1] == "mask"})
+        run = (outs, masked, be.verify_steps)
+        if masked != ["scan", "verify"] or be.constrain_degraded:
+            raise AssertionError(f"constrain parity ({dev}): masked builds run {masked}"
+                                 f", {be.constrain_degraded} degraded")
+    finally:
+        be.close()
+    for i in range(2):
+        _constrain_valid(grammars[i][0], run[0][i], eos, f"constrain parity {dev} {i}")
+    return run
+
+
+def constrain_parity(params, n_layers: int = 1, max_tokens: int = 16,
+                     cpu_run: tuple | None = None) -> str:
     """The masked super-step and the masked verify in the fused BatchEngine at full
     Llama-2-7B width, 1 layer (2 until the tpserve phase came: depth cut for time), f32
     with seeded weights (nibbles 1..15): the card with
@@ -4312,41 +4670,11 @@ def constrain_parity(params, n_layers: int = 1, max_tokens: int = 16) -> str:
     chains run in masked verify blocks and the branch points in masked super-steps. The
     card's tokens are the CPU's outside near-ties, every constrained output is valid,
     and both masked builds run on both. `params`: the 1-layer CPU weights (seed 8,
-    nibbles 1..15) in the gate-pair layout."""
-    from distributed_llama_tpu_torch.constrain import compile_grammar
-    from distributed_llama_tpu_torch.models.params import params_to
-    from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
-
-    spec = _llama2_7b(n_layers=n_layers)
-    # the synthetic tokenizer's vocab: one token a byte, so the schema has forced chains
-    vocab, eos = _constrain_vocab(spec.vocab_size)
-    grammars = [compile_grammar("json_schema", CONSTRAIN_SCHEMA, vocab, eos),
-                compile_grammar("regex", CONSTRAIN_REGEX, vocab, eos), None, None]
-    rng = np.random.RandomState(9)
-    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (7, 15, 7, 15)]
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        be = BatchEngine(spec, params_to(params, dev), device=dev, slots=4,
-                         dtype=torch.float32, use_kernels=True, fused_matmul=True,
-                         superstep=4, speculative=SPEC_K, prefix_cache=False)
-        try:
-            with be._slock:
-                reqs = [be.submit(list(p), max_tokens, _CheckedSampler(spec.vocab_size),
-                                  **({} if g is None else dict(constraint=g[0])))
-                        for p, g in zip(prompts, grammars)]
-            outs = [r.wait(timeout=900) for r in reqs]
-            keys = be.engine.graphs.keys() if dev == "cuda" else list(be._loops)
-            masked = sorted({"verify" if "verify" in str(k[0]) else "scan"
-                             for k in keys if k[-1] == "mask"})
-            runs[dev] = (outs, masked, be.verify_steps)
-            if masked != ["scan", "verify"] or be.constrain_degraded:
-                raise AssertionError(f"constrain parity ({dev}): masked builds run {masked}"
-                                     f", {be.constrain_degraded} degraded")
-        finally:
-            be.close()
-        for i in range(2):
-            _constrain_valid(grammars[i][0], runs[dev][0][i], eos,
-                             f"constrain parity {dev} {i}")
+    nibbles 1..15) in the gate-pair layout. `cpu_run`: the CPU's `_constrain_parity_run`,
+    computed beforehand; None runs it here."""
+    spec, _, _, prompts = _constrain_setup(n_layers)
+    runs = {"cpu": cpu_run or _constrain_parity_run(params, "cpu", n_layers, max_tokens),
+            "cuda": _constrain_parity_run(params, "cuda", n_layers, max_tokens)}
     ties = _parity_streams(spec, params, prompts, runs["cuda"][0], runs["cpu"][0],
                            "constrain parity request")
     torch.cuda.empty_cache()
@@ -4357,31 +4685,58 @@ def constrain_parity(params, n_layers: int = 1, max_tokens: int = 16) -> str:
                           + "; ".join(t for _, _, t in ties)) + f" {runs['cpu'][0]}")
 
 
-def drafter_parity(params, n_layers: int = 1, turns: int = 3) -> str:
+def _drafter_prompts(spec) -> list:
+    rng = np.random.RandomState(11)
+    return [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (12, 30, 7, 44)]
+
+
+def _drafter_cpu(params, n_layers: int = 1, turns: int = 3) -> list:
+    """drafter_parity's CPU side: the CPU drafter's drafts each turn, each turn's pushes
+    their first two and one correction token. Independent of the card's run, so it runs
+    once, on its own (`_CpuRefs`, or inline)."""
+    from distributed_llama_tpu_torch.draft.drafter import ModelDrafter
+
+    spec = _llama2_7b(n_layers=n_layers)
+    d = ModelDrafter(spec, params, slots=4, target_spec=spec, device="cpu",
+                     dtype=torch.float32, use_kernels="fused")
+    for r, p in enumerate(_drafter_prompts(spec)):
+        d.attach(r, p)
+    out = []
+    for _ in range(turns):
+        drafts = d.propose_batch({r: 8 for r in range(4)})
+        out.append(drafts)
+        for r in sorted(drafts):
+            for t in drafts[r][:2] + [(drafts[r][2] + 1) % spec.vocab_size]:
+                d.push(r, t)
+    return out
+
+
+def drafter_parity(params, n_layers: int = 1, turns: int = 3,
+                   cpu_run: list | None = None) -> str:
     """The drafter's catch-up + draft scan at full Llama-2-7B width, 1 layer, f32 with
     seeded weights (a self-draft): the card with the kernels (each scan step a CUDA
     graph) against the CPU with their plain versions, 4 rows of different prompts, each
     turn's pushes the CPU's drafts' first two and one correction token: the card's
     drafts the CPU's outside near-ties, turn after turn, and its prefill and scan ran.
-    `params`: as constrain_parity's."""
+    `params`: as constrain_parity's. `cpu_run`: the CPU's drafts (`_drafter_cpu`),
+    computed beforehand; None runs it here."""
     from distributed_llama_tpu_torch.draft.drafter import ModelDrafter
     from distributed_llama_tpu_torch.models.params import params_to
 
+    if cpu_run is None:
+        cpu_run = _drafter_cpu(params, n_layers, turns)
     spec = _llama2_7b(n_layers=n_layers)
-    rng = np.random.RandomState(11)
-    prompts = [[1] + rng.randint(3, spec.vocab_size, n).tolist() for n in (12, 30, 7, 44)]
-    drafters = {dev: ModelDrafter(spec, params_to(params, dev), slots=4, target_spec=spec,
-                                  device=dev, dtype=torch.float32, use_kernels="fused")
-                for dev in ("cpu", "cuda")}
-    streams = {dev: [list(p) for p in prompts] for dev in drafters}
-    for d in drafters.values():
-        for r, p in enumerate(prompts):
-            d.attach(r, p)
+    prompts = _drafter_prompts(spec)
+    drafters = {"cuda": ModelDrafter(spec, params_to(params, "cuda"), slots=4,
+                                     target_spec=spec, device="cuda", dtype=torch.float32,
+                                     use_kernels="fused")}
+    streams = {"cpu": [list(p) for p in prompts]}
+    for r, p in enumerate(prompts):
+        drafters["cuda"].attach(r, p)
     ties = []
     for turn in range(turns):
-        want = {r: 8 for r in range(4)}
-        cpu = drafters["cpu"].propose_batch(want)
-        card = drafters["cuda"].propose_batch(want)
+        cpu = cpu_run[turn]
+        card = drafters["cuda"].propose_batch({r: 8 for r in range(4)})
         if set(cpu) != set(card):
             raise AssertionError(f"drafter parity turn {turn}: rows {sorted(card)} on the "
                                  f"card, {sorted(cpu)} on the CPU")
@@ -6274,9 +6629,8 @@ def _moe_decode(state: dict, tag: str, spec, params, n: int, kw: dict, t1: dict,
 
 
 def phase_moe(state: dict) -> None:
-    """Mixtral-8x7B at full size, its Q80 path, parity at Mixtral width, Grok-1's block."""
-    from distributed_llama_tpu_torch.models.params import params_to
-
+    """Mixtral-8x7B at full size, its Q80 path, Grok-1's block; the parities at Mixtral
+    and Grok-1 width (`_moe_parities`) in the parity phase where that runs."""
     dev = torch.device("cuda")
     gc.collect()  # the earlier phases' engines, caught in reference cycles
     torch.cuda.empty_cache()
@@ -6329,40 +6683,41 @@ def phase_moe(state: dict) -> None:
                 {"q4_matvec": 2 * L + 1, "q4_matvec_expert": 4 * L, "decode_attention": L},
                 {"q4_matmul": 18 * L + 1}, "Grok-1 (grok1_l2)")
 
-    # card against CPU in f32 on the weights drawn on the card (copied to the host):
-    # grok1_l2's first layer, then 1 layer of Mixtral width (the Engine, and the fused
-    # BatchEngine).
-    # Each takes the crossing rule (`engine_parity`) and a fed run, which must hold
-    # 2e-3·max|logits| and every kernel call to its plain version on the CPU's
-    # operands: the card runs of this script found these models' logits moved past
-    # 2e-3·max by values that rounded differently (grok1_l2: 3.3e-2 against 7.5e-3, with
-    # 1.86M values rounded differently), and the fed run and the router choices show
-    # where that comes from. Depth of the CPU side cut to keep the run short: grok1_l2's
-    # first layer prefill + 1 step, Mixtral width at 1 layer (2 until the tp phase came)
-    # 4 steps, the serving parity 4 requests x 2 tokens, each arriving at the previous
-    # one's first token.
-    t0 = time.perf_counter()
-    cpu_params = params_to(_first_layer(params), "cpu")
     del params
     torch.cuda.empty_cache()
-    report = engine_parity(_grok1(n_layers=1), cpu_params, True, steps=1, fed=True,
-                           prefill_kernel=True)
+    if "parity" not in state["phases"]:
+        _moe_parities(state)  # else the parity phase runs them, its CPU sides ready
+
+
+def _moe_parities(state: dict) -> None:
+    """The moe phase's parities, card against CPU in f32 on weights drawn on the card
+    and copied to the host (`_moe_parity_weights`): grok1_l2's first layer, then 1 layer
+    of Mixtral width (the Engine, and the fused BatchEngine). Each takes the crossing
+    rule (`engine_parity`) and a fed run, which must hold 2e-3·max|logits| and every
+    kernel call to its plain version on the CPU's operands: the card runs of this script
+    found these models' logits moved past 2e-3·max by values that rounded differently
+    (grok1_l2: 3.3e-2 against 7.5e-3, with 1.86M values rounded differently), and the
+    fed run and the router choices show where that comes from. Depth of the CPU side cut
+    to keep the run short: grok1_l2's first layer prefill + 1 step, Mixtral width at 1
+    layer (2 until the tp phase came) 4 steps, the serving parity 4 requests x 2 tokens,
+    each arriving at the previous one's first token. The CPU sides come from the
+    reference process (`_CpuRefs`), which drew the same weights."""
+    t0 = time.perf_counter()
+    w = _moe_parity_weights(torch.device("cuda"))
+    report = engine_parity(_grok1(n_layers=1), w["grok"], True, steps=1, fed=True,
+                           prefill_kernel=True, cpu_run=_ref(state, "moe_grok"))
     log(f"[moe] parity, grok1_l2's first layer, f32, Q40: {report} "
         f"({time.perf_counter() - t0:.1f} s)")
-    del cpu_params
     spec2 = _mixtral_8x7b(n_layers=1)
     t0 = time.perf_counter()
-    cpu_params = params_to(_random_moe_params(spec2, dev, seed=25), "cpu")
-    torch.cuda.empty_cache()
     with _SharedDequant():  # one CPU model for both: its experts decoded once
-        report = engine_parity(spec2, cpu_params, True, steps=4, fed=True,
-                               prefill_kernel=True)
+        report = engine_parity(spec2, w["mixtral"], True, steps=4, fed=True,
+                               prefill_kernel=True, cpu_run=_ref(state, "moe_mixtral"))
         log(f"[moe] parity, 1-layer Mixtral width, f32, Q40: {report} "
             f"({time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
-        report = serving_parity(spec=spec2, max_tokens=2, prompt_lens=(8, 9, 1, 8),
-                                crossing_tol=True, after=1, fed=True, params=cpu_params)
-    del cpu_params
+        report = serving_parity(**_moe_serving_kw(), fed=True, params=w["mixtral"],
+                                cpu_run=_ref(state, "moe_serving"))
     log(f"[moe] parity, 1-layer Mixtral width, f32: {report} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -6742,7 +7097,7 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def tp_rank_full(mesh, wires, serve=None):
+def tp_rank_full(mesh, wires, serve=None, sp: bool = False):
     """(b) on one rank: Llama-2-7B (the serve phase's seed, w1/w3 apart: the Engine here
     merges them, the serving engine keeps them) drawn on the card tensor by tensor into
     host memory, as Engine.load holds a `.m` file, then for each wire an Engine on the
@@ -6751,7 +7106,8 @@ def tp_rank_full(mesh, wires, serve=None):
     host), the counted wire bytes of every step, launches against the schedule, and the
     card's memory from the Engine on: resident, peak, and what the rank must hold (its
     shard and its KV caches). With `serve` = (prompts, hit), the tpserve phase's serving
-    run follows on the same world and the same host weights (`_tpserve_on_rank`)."""
+    run follows on the same world and the same host weights (`_tpserve_on_rank`); with
+    `sp`, the sp phase's (a) on an sp = 2 mesh over the same two ranks (`_sp_on_rank`)."""
     from distributed_llama_tpu_torch.parallel.collectives import broadcast_int
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
@@ -6801,6 +7157,10 @@ def tp_rank_full(mesh, wires, serve=None):
     if serve is not None:
         gc.collect()
         out["serve"] = _tpserve_on_rank(mesh, host, *serve)
+    if sp:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["sp"] = _sp_on_rank(mesh, host, _llama2_7b())
     return out
 
 
@@ -7010,6 +7370,10 @@ def _tp_full(state: dict, dev) -> None:
     first1 = ref.prefill(_prompt_100(spec))
     toks1 = ref._decode(first1, TP_TOKENS, _CheckedSampler(spec.vocab_size),
                         GenerationStats())
+    sp = "sp" in state["phases"]
+    if sp:  # the sp phase's (a) runs on this world and holds itself to this engine
+        ref.reset()
+        state["sp_ref"] = _sp_reference(ref)
     del ref
     # the tpserve phase's serving run shares this world and its host draw, and its tp = 1
     # reference these weights
@@ -7022,10 +7386,12 @@ def _tp_full(state: dict, dev) -> None:
     torch.cuda.empty_cache()
     t_world = time.perf_counter()
     full = launch.run("chip_smoke:tp_rank_full", TP, "cuda:0", backend="gloo",
-                      args=(("q80", "raw"), serve), deadline=900)
+                      args=(("q80", "raw"), serve, sp), deadline=900)
     if serve is not None:
         state["tpserve_world"] = ([r.pop("serve") for r in full],
                                   time.perf_counter() - t_world)
+    if sp:
+        state["sp_world"] = [r.pop("sp") for r in full]
     # the serve phase's weights keep w1 and w3 apart (drawn in the kernels' layout, no
     # fusion): five decode matvecs a layer, and wcls
     per, L = 5 * spec.n_layers + 1, spec.n_layers
@@ -7657,6 +8023,522 @@ def phase_tpserve(state: dict) -> None:
         + f", tp=1 reference {ref_s:.1f} s")
 
 
+# --------------------------------------------------------------------------------------
+# sp: sequence parallelism (ops/ring_attention.py) on one card, over gloo
+# --------------------------------------------------------------------------------------
+
+SP = 2
+SP_PROMPT = 248  # prefill chunks 64 x 3 and 8 x 7; the decode steps cross the 256 bucket
+SP_TOKENS = 16
+# first-step logits of every rank against tp = 1 on the card, x max|logits|, by (b)'s
+# wire (None: (a)): the ring and the dense path sum attention in another order, the
+# kernels round through bf16 (in (b)'s f32 run too, where the unbiased draw's logits
+# show it more), and the Q80 wire moves (b)'s further (PERF.md §6: set before the run)
+SP_FIRST_TOL = {None: 5e-3, "raw": 2e-2, "q80": 5e-2}
+SP_GRID_LAYERS = 2  # (b): the 2 x 2 grid's depth at 7B width
+SP_LOOP_CHUNK = 8  # (b)'s device loop
+SP_SPEC_K = 4  # (b)'s prompt-lookup speculation, on a prompt of one repeated 8-gram
+# the ring alone against dense attention at 7B's attention shapes, x max|dense|: f32
+# queries over bf16 blocks, the two differing only in the order of their sums
+SP_PROBE_TOL = 1e-5
+
+
+def _sp_prompt(spec, period: int | None = None) -> list[int]:
+    """The sp runs' prompt: SP_PROMPT seeded random tokens after BOS, or with `period`
+    its first `period` tokens repeated to the same length (speculation's prompt)."""
+    toks = [1] + torch.randint(3, spec.vocab_size, (SP_PROMPT - 1,),
+                               generator=torch.Generator().manual_seed(19)).tolist()
+    return toks if period is None else (toks[:period] * SP_PROMPT)[:SP_PROMPT]
+
+
+def _sp_reference(eng, period: int | None = None, path: str | None = None) -> dict:
+    """A tp = 1 engine on the card (one-token steps as graph replays) on the sp prompt:
+    the first-step logits, SP_TOKENS greedy tokens and the logits row each was picked
+    from. With `path` ("loop" or "spec"), also that path's own tokens at tp = 1
+    ("same"); for "loop" the host run takes the device loop's prefill (the prompt but its
+    last token, which enters as a step)."""
+    from distributed_llama_tpu_torch.runtime.engine import GenerationStats
+
+    prompt = _sp_prompt(eng.spec, period)
+    if path == "loop":
+        eng.prefill(prompt[:-1])
+        first = eng.infer_chunk(prompt[-1:])
+    else:
+        first = eng.prefill(prompt)
+    smp = _CheckedSampler(eng.spec.vocab_size, keep=True)
+    toks = eng._decode(first, SP_TOKENS, smp, GenerationStats())
+    eng.reset()
+    out = {"first": first, "tokens": toks, "rows": smp.kept}
+    if path is not None:
+        out["same"] = _sp_path(eng, path, prompt)
+        eng.reset()
+    return out
+
+
+def _sp_path(eng, path: str, prompt: list[int]) -> list[int]:
+    """SP_TOKENS greedy tokens through the device loop or prompt-lookup speculation."""
+    smp = _CheckedSampler(eng.spec.vocab_size)
+    if path == "loop":
+        return eng.generate_chunked(prompt, SP_TOKENS, smp, chunk=SP_LOOP_CHUNK)[0]
+    toks, st = eng.generate_speculative(prompt, SP_TOKENS, smp, k=SP_SPEC_K)
+    if not st.spec_steps > 0:
+        raise AssertionError("[sp] speculation verified nothing")
+    return toks
+
+
+def _sp_permute_model(spec, tp: int, pos_end: int, itemsize: int = 2) -> int:
+    """Shift payload bytes of one step reaching pos_end: each layer rotates K and V
+    sp - 1 times, each block (1, hk/tp, ceil(window/sp), hs) in the cache dtype, the
+    window the Engine's bucket for pos_end (runtime/engine.py window_bucket)."""
+    from distributed_llama_tpu_torch.runtime.engine import window_bucket
+
+    window = window_bucket(pos_end, spec.seq_len, 256)
+    slots = spec.seq_len // SP if window is None else -(-window // SP)
+    hk = spec.n_kv_heads // tp
+    return spec.n_layers * 2 * (SP - 1) * hk * slots * spec.head_size * itemsize
+
+
+@contextlib.contextmanager
+def _ring_shifts_timed(acc: list):
+    """Add to acc[0] the wall seconds the ring spends inside its shifts while the block
+    runs (ops/ring_attention.py's ring_shift_start and each RingShift.wait: on gloo the
+    copies through host memory, the exchange and the wait for the peer). The card is
+    drained before each shift starts, so the compute queued before it is not counted
+    (the host-staged shift waits for it anyway)."""
+    import distributed_llama_tpu_torch.ops.ring_attention as ra
+
+    real = ra.ring_shift_start
+
+    def start(tensors, mesh):
+        torch.cuda.synchronize(tensors[0].device)
+        t0 = time.perf_counter()
+        shift = real(tensors, mesh)
+        acc[0] += time.perf_counter() - t0
+        wait = shift.wait
+
+        def timed_wait():
+            t1 = time.perf_counter()
+            try:
+                return wait()
+            finally:
+                acc[0] += time.perf_counter() - t1
+
+        shift.wait = timed_wait
+        return shift
+
+    ra.ring_shift_start = start
+    try:
+        yield
+    finally:
+        ra.ring_shift_start = real
+
+
+@contextlib.contextmanager
+def _ring_broken():
+    """The controls' ring: every received block zeroed (a host-staged receive that never
+    landed); nothing is sent or received while the block runs."""
+    import distributed_llama_tpu_torch.ops.ring_attention as ra
+
+    class Zeroed:
+        def __init__(self, tensors):
+            self.tensors = tensors
+
+        def wait(self):
+            return [torch.zeros_like(t) for t in self.tensors]
+
+    real = ra.ring_shift_start
+    ra.ring_shift_start = lambda tensors, mesh: Zeroed(tensors)
+    try:
+        yield
+    finally:
+        ra.ring_shift_start = real
+
+
+def _dense_attention(q, k, v):
+    """Causal GQA attention of q (1, T, hq, hs) f32 over k, v (1, hk, P, hs) whose last T
+    positions are q's own, in f32: (1, T, hq·hs)."""
+    t, hq, hs = q.shape[1:]
+    g, n = hq // k.shape[1], k.shape[2]
+    kk, vv = (x.float().repeat_interleave(g, 1) for x in (k, v))
+    s = torch.einsum("bthd,bhsd->bhts", q, kk) / math.sqrt(hs)
+    cols = torch.arange(n, device=q.device)
+    rows = n - t + torch.arange(t, device=q.device)
+    s = s.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
+    return torch.einsum("bhts,bhsd->bthd", s.softmax(-1), vv).reshape(1, t, hq * hs)
+
+
+def _sp_ring_probe(mesh) -> dict:
+    """ring_attention alone on this rank's stripe at Llama-2-7B's attention shapes (32
+    query heads of 128 over hk/tp KV heads, the 256 window bucket: 128 slots a rank;
+    garbage past live_end = SP_PROMPT), on unit-normal q, K and V drawn alike on every
+    rank, against dense attention over the whole cache on the card: a decode step (T = 1)
+    and an 8-token chunk, with the ring working and with every received block zeroed
+    (the control). Returns {T: (err, control's err)}, each x max|dense|."""
+    from distributed_llama_tpu_torch.ops.ring_attention import ring_attention
+
+    spec = _llama2_7b()
+    hq, hk, hs = spec.n_heads, spec.n_kv_heads // mesh.tp, spec.head_size
+    dev, window, p = mesh.device, 256, SP_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(191)
+    k, v = (torch.randn(1, hk, window, hs, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    stripe = slice(mesh.sp_rank, None, SP)
+    out = {}
+    for t in (1, 8):
+        q = torch.randn(1, t, hq, hs, generator=gen, device=dev)
+        kc, vc = (torch.randn(1, hk, t, hs, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        dense = _dense_attention(q, torch.cat([k[:, :, :p], kc], 2),
+                                 torch.cat([v[:, :, :p], vc], 2))
+
+        def ring():
+            return ring_attention(q, k[:, :, stripe], v[:, :, stripe],
+                                  p + torch.arange(t, device=dev), mesh=mesh, live_end=p,
+                                  chunk=(kc, vc, p), striped=True,
+                                  window_slots=window // SP)
+
+        good = ring()
+        with _ring_broken():
+            bad = ring()
+        scale = float(dense.abs().max())
+        out[t] = (float((good - dense).abs().max()) / scale,
+                  float((bad - dense).abs().max()) / scale)
+    return out
+
+
+def _sp_on_rank(world, host, spec, wires=(None,), dtype=torch.bfloat16):
+    """The sp runs of one rank: for each wire (None: tp = 1, the (a) mesh of SP ranks;
+    "raw" or "q80": the (b) grid's tp = 2 wire) an Engine over the (sp, tp) mesh of the
+    launcher's world, built from the host weights: `dtype`, prefill_kernel, `generate` on
+    the SP_PROMPT prompt for SP_TOKENS greedy tokens (rank 0's picks delivered to every
+    rank by the Engine), the CPU reference process stopped meanwhile. Per decode step:
+    this rank's wall ms, the ms inside the ring's shifts, its counted shift and wire
+    bytes; the token broadcasts' bytes, the launches of prefill and decode, the first
+    logits, and the card's memory from the Engine on: peak and what the rank must hold
+    (its weights and its stripe of the KV caches). Then the control: the prompt's first
+    logits with every received block zeroed. (a) adds the ring alone against dense
+    attention (`_sp_ring_probe`); (b) the device loop and prompt-lookup speculation."""
+    from distributed_llama_tpu_torch.parallel.mesh import make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    dev = world.device
+    counters = _single_counters()
+    out = {}
+    for wire in wires:
+        mesh = make_mesh(tp=world.size // SP, sp=SP, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        eng = Engine(spec, host, mesh=mesh, prefill_kernel=True, dtype=dtype,
+                     compress_collectives=wire == "q80")
+        assert eng.sp == SP and not eng.cuda_graph
+        gc.collect()
+        held = (_tree_bytes(eng.params) + eng.k_cache.numel() * eng.k_cache.element_size()
+                + eng.v_cache.numel() * eng.v_cache.element_size())
+        probe = eng.collective_stats()  # the decode step's traffic at position 0
+        run = {"prefill_launches": None}
+        steps, shift_ms = [], []
+        infer = eng.infer_chunk
+
+        def on_token(_tok):  # the first token ends the prefill
+            if run["prefill_launches"] is None:
+                run["prefill_launches"] = _read(counters)
+                _zero(counters)
+
+        def step(tokens):  # a decode step: its traffic and its time inside the shifts
+            if run["prefill_launches"] is None:
+                return infer(tokens)
+            acc = [0.0]
+            with mesh.counter.window() as traffic, _ring_shifts_timed(acc):
+                logits = infer(tokens)
+            steps.append((dict(traffic.payload_bytes), dict(traffic.counts),
+                          traffic.sent_bytes_per_device))
+            shift_ms.append(acc[0] * 1e3)
+            return logits
+
+        eng.infer_chunk = step
+        smp = _CheckedSampler(spec.vocab_size, keep=True)
+        _zero(counters)
+        with _refs_paused(mesh) as refs_stopped, mesh.counter.window() as whole:
+            tokens, stats = eng.generate(_sp_prompt(spec), SP_TOKENS, smp,
+                                         on_token=on_token)
+        del eng.infer_chunk
+        row = out[wire or "tp1"] = {
+            "rank": mesh.rank, "s": mesh.sp_rank, "t": mesh.tp_rank, "first": smp.kept[0],
+            "itemsize": eng.k_cache.element_size(),
+            "tokens": tokens, "ms": stats.infer_ms, "shift_ms": shift_ms, "steps": steps,
+            "prefill_ms": stats.prefill_ms, "refs_stopped": refs_stopped,
+            "bcast": (whole.payload_bytes.get("broadcast"), whole.counts.get("broadcast")),
+            "prefill_launches": run["prefill_launches"],
+            "launches": _read(counters), "held": held,
+            "probe": (dict(probe.payload_bytes), probe.sent_bytes_per_device),
+            "peak": torch.cuda.max_memory_allocated(dev) - base}
+        eng.reset()
+        with _ring_broken():
+            row["broken_first"] = eng.prefill(_sp_prompt(spec))
+        eng.reset()
+        if wire is None:
+            row["ring_probe"] = _sp_ring_probe(mesh)
+        else:
+            row["loop_tokens"] = _sp_path(eng, "loop", _sp_prompt(spec))
+            eng.reset()
+            row["spec_tokens"] = _sp_path(eng, "spec", _sp_prompt(spec, 8))
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank_alone(mesh):
+    """(a) on a world of its own (where the tp phase did not run and share its world):
+    Llama-2-7B (the serve phase's seed) drawn on the card into host memory."""
+    host = _random_i4p_params(_llama2_7b(), mesh.device, seed=13, gate_pair=True,
+                              to="cpu")
+    gc.collect()
+    return _sp_on_rank(mesh, host, _llama2_7b())
+
+
+def _sp_grid_params(dev, to=None):
+    """(b)'s draw: nibbles from 1..15, whose q and k share no common direction, so
+    attention spreads over the window and the logits see every block of the ring (on
+    (a)'s draw they barely do: PERF.md §6)."""
+    spec = _llama2_7b(n_layers=SP_GRID_LAYERS)
+    return spec, _random_i4p_params(spec, dev, seed=29, lo=1, to=to)
+
+
+def sp_rank_grid(mesh, wires):
+    """(b) on one rank of the 2 x 2 grid: the 2-layer weights drawn on the card into host
+    memory, then each wire's run in f32 (`_sp_on_rank`)."""
+    spec, host = _sp_grid_params(mesh.device, to="cpu")
+    return _sp_on_rank(mesh, host, spec, wires, dtype=torch.float32)
+
+
+def _sp_held(tag: str, got: list, ref: dict) -> str:
+    """Greedy tokens against tp = 1's: identical to its host run or to its run of the
+    same path (ref["same"], where given), or parting from the host run at a near-tie
+    (tp = 1's own logits put the two picks within NEAR_TIE·max|logits| of each other;
+    past it the histories differ). Returns the log's note."""
+    if got == ref.get("same"):
+        return f"identical to tp=1's run of the same path ({len(got)})"
+    part = next((j for j, (a, b) in enumerate(zip(got, ref["tokens"])) if a != b), None)
+    if part is None:
+        if len(got) != len(ref["tokens"]):
+            raise AssertionError(f"[sp] {tag}: {len(got)} tokens, tp=1 {len(ref['tokens'])}")
+        return f"identical to tp=1's ({len(got)})"
+    row = ref["rows"][part]
+    a, b = ref["tokens"][part], got[part]
+    gap = float(row[a] - row[b]) / float(np.abs(row).max())
+    if gap > NEAR_TIE:
+        raise AssertionError(f"[sp] {tag}: greedy picks part from tp=1 at token {part} "
+                             f"({b} against {a}), {gap:.3e}·max apart in tp=1's logits "
+                             f"(> {NEAR_TIE})")
+    return (f"part from tp=1 at token {part} of {len(got)}, a near-tie: tp=1's logits put "
+            f"{a} and {b} {gap:.3e}·max apart (< {NEAR_TIE})")
+
+
+def _sp_first_err(ranks: list, ref: dict, key: str = "first") -> float:
+    """The largest first-step logit error of any rank against tp = 1, x max|logits|."""
+    scale = float(np.abs(ref["first"]).max())
+    return max(float(np.abs(row[key] - ref["first"]).max()) / scale for row in ranks)
+
+
+def _sp_check(tag: str, spec, tp: int, ranks: list, ref: dict, tol: float,
+              compress: bool, sched: dict, pre: dict) -> tuple[str, float]:
+    """One sp run's checks against its tp = 1 reference; returns its log line and its
+    control's first-step error (checked by the caller)."""
+    from distributed_llama_tpu_torch.runtime.engine import collective_kbytes_per_token
+
+    r0 = ranks[0]
+    for r, row in enumerate(ranks):
+        if row["tokens"] != r0["tokens"]:
+            raise AssertionError(f"[sp] {tag}: rank {r} decoded other tokens than rank 0")
+        got = {k: row["launches"][k] for k in sched}
+        got_pre = {k: row["prefill_launches"][k] for k in pre}
+        if got != sched or got_pre != pre:
+            raise AssertionError(f"[sp] {tag} rank {r}: launches {got} / prefill {got_pre}, "
+                                 f"schedule {sched} / {pre}")
+        if row["peak"] > row["held"] + TP_PEAK_MARGIN:
+            raise AssertionError(f"[sp] {tag} rank {r}: peak {row['peak'] / 2**30:.3f} GiB "
+                                 f"against its weights and KV stripe "
+                                 f"{row['held'] / 2**30:.3f} GiB + "
+                                 f"{TP_PEAK_MARGIN / 2**30:.2f}")
+        # the Engine's _deliver: rank 0's stop code and token, two int64, a token
+        if row["bcast"] != (16 * SP_TOKENS, SP_TOKENS):
+            raise AssertionError(f"[sp] {tag} rank {r}: token broadcasts (bytes, count) "
+                                 f"{row['bcast']}")
+        wire = collective_kbytes_per_token(spec, tp, compress) * 1024
+        if len(row["steps"]) != SP_TOKENS:
+            raise AssertionError(f"[sp] {tag} rank {r}: {len(row['steps'])} decode steps")
+        for i, (payload, counts, sent) in enumerate(row["steps"]):
+            pos_end = SP_PROMPT + i + 1
+            perm = _sp_permute_model(spec, tp, pos_end, row["itemsize"])
+            if (payload.get("collective-permute") != perm
+                    or counts.get("collective-permute") != 2 * spec.n_layers * (SP - 1)
+                    or sent != perm + wire):
+                raise AssertionError(f"[sp] {tag} rank {r} step {i}: permute "
+                                     f"{payload.get('collective-permute')} B "
+                                     f"(model {perm}), sent {sent} (model {perm + wire})")
+        if row["probe"][0].get("collective-permute") != _sp_permute_model(
+                spec, tp, 1, row["itemsize"]):
+            raise AssertionError(f"[sp] {tag} rank {r}: collective_stats {row['probe']}")
+    err, broken = _sp_first_err(ranks, ref), _sp_first_err(ranks, ref, "broken_first")
+    if err > tol or not all(np.isfinite(row["first"]).all() for row in ranks):
+        raise AssertionError(f"[sp] {tag}: first-step logits {err:.3e}·max from tp=1, "
+                             f"tolerance {tol} (the control: {broken:.3e})")
+    spread = max(float(np.abs(row["first"] - r0["first"]).max()) for row in ranks)
+    held = _sp_held(tag, r0["tokens"], ref)
+    ms, shift = np.array(r0["ms"]), np.array(r0["shift_ms"])
+    perm0 = _sp_permute_model(spec, tp, SP_PROMPT + 1, r0["itemsize"])
+    perm1 = _sp_permute_model(spec, tp, SP_PROMPT + SP_TOKENS, r0["itemsize"])
+    quiet = ("the CPU reference process stopped meanwhile" if r0["refs_stopped"] else
+             "no CPU reference process running")
+    line = (f"{SP_PROMPT}-token prompt {r0['prefill_ms']:.1f} ms, {SP_TOKENS} greedy tokens "
+            f"through Engine.generate {ms.mean():.3f} ms/token (rank 0's step wall; min "
+            f"{ms.min():.3f}, median {np.median(ms):.3f}, max {ms.max():.3f}), of which "
+            f"{shift.mean():.3f} ms inside the ring's shifts (min {shift.min():.3f}, max "
+            f"{shift.max():.3f}: host copies, the gloo exchange, the wait for the peer; "
+            f"{quiet}); "
+            f"first-step logits of every rank {err:.3e}·max from tp=1 on the card "
+            f"(tolerance {tol}); the ranks' first logits differ by at most {spread:.3e}; "
+            f"greedy tokens {held}; shift bytes a step = the model ({perm0} B at the 256 "
+            f"bucket, {perm1} B at 512: {2 * spec.n_layers * (SP - 1)} permutes of "
+            f"ceil(window/{SP}) slots), wire {collective_kbytes_per_token(spec, tp, compress) * 1024:.0f} "
+            f"B a step, token broadcast 16 B a step; launches per rank {json.dumps(sched)} "
+            f"+ prefill {json.dumps(pre)}; memory per rank: weights + KV stripe "
+            + ", ".join(f"{row['held'] / 2**30:.3f}" for row in ranks) + " GiB, peak "
+            + ", ".join(f"{row['peak'] / 2**30:.3f}" for row in ranks) + " GiB")
+    return line, broken
+
+
+def _sp_control(tag: str, err: float, tol: float) -> str:
+    """The control (every received block zeroed) must fail the check it is the control
+    of; returns the log's note."""
+    if not err > tol:
+        raise AssertionError(f"[sp] {tag}: with every received block zeroed the check "
+                             f"still passes ({err:.3e}·max, tolerance {tol}): it cannot "
+                             f"tell a broken ring")
+    return f"{err:.3e}·max with every received block zeroed ({err / tol:.1f}x the tolerance)"
+
+
+def _sp_grid_wire(wire: str, spec, ranks: list, ref: dict, ref_loop: dict, ref_rep: dict,
+                  chunks: int) -> str:
+    """(b)'s checks of one wire over the 2 x 2 grid's ranks; returns its log line."""
+    L = spec.n_layers
+    sched = {"q4_matvec": SP_TOKENS * (4 * L + 1), "decode_attention": 0, "q4_matmul": 0,
+             "quantize_q80": SP_TOKENS * _wire_launches(1, spec, 2) if wire == "q80" else 0}
+    pre = {"q4_matmul": chunks * _mm_launches(spec, 2), "q4_matvec": 0,
+           "decode_attention": 0,
+           "quantize_q80": (SP_PROMPT // 64 * _wire_launches(64, spec, 2)
+                            + SP_PROMPT % 64 // 8 * _wire_launches(8, spec, 2))
+           if wire == "q80" else 0}
+    tol = SP_FIRST_TOL[wire]
+    line, broken = _sp_check(f"(b) {wire}", spec, 2, ranks, ref, tol, wire == "q80",
+                             sched, pre)
+    control = _sp_control(f"(b) {wire}", broken, tol)
+    for key in ("loop_tokens", "spec_tokens"):
+        if any(row[key] != ranks[0][key] for row in ranks):
+            raise AssertionError(f"[sp] (b) {wire}: the ranks' {key} differ")
+    loop = _sp_held(f"(b) {wire} device loop", ranks[0]["loop_tokens"], ref_loop)
+    spec_note = _sp_held(f"(b) {wire} speculation", ranks[0]["spec_tokens"], ref_rep)
+    return (f"[sp] (b) 2 x 2 grid (sp=2 x tp=2), Llama-2-7B width at {L} layers, f32 Q40 "
+            f"(nibbles 1..15), {wire} wire, four ranks time-slicing cuda:0 over gloo: "
+            f"{line}; the control {control}; the device loop (chunk {SP_LOOP_CHUNK}, rank "
+            f"0's pick broadcast each step) {loop}; prompt-lookup speculation (k "
+            f"{SP_SPEC_K}, rank 0's turns sent to every rank) on a prompt of one repeated "
+            f"8-gram {spec_note}")
+
+
+def phase_sp(state: dict) -> None:
+    """Sequence parallelism on one card: (a) Llama-2-7B at full depth, sp = 2, tp = 1
+    (the tp phase's world of two ranks on cuda:0 over gloo, its host draw), with the ring
+    alone against dense attention at its shapes; (b) a 2 x 2 (sp x tp) grid, four ranks
+    on cuda:0 at 7B width and 2 layers in f32, raw and Q80 wire, with the device loop and
+    prompt-lookup speculation; each held against a tp = 1 Engine on the card on the
+    same weights, and each check against its control, the ring with every received block
+    zeroed. The ring's blocks are staged through the host (gloo takes no CUDA tensor to
+    send): the times are a wiring figure, not an sp speed."""
+    from distributed_llama_tpu_torch.parallel import launch
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    spec = _llama2_7b()
+    t0 = time.perf_counter()
+    ref = state.pop("sp_ref", None)
+    if ref is None:
+        eng = Engine(spec, _random_i4p_params(spec, dev, seed=13, gate_pair=True),
+                     prefill_kernel=True)
+        ref = _sp_reference(eng)
+        del eng
+        torch.cuda.empty_cache()
+    world = state.pop("sp_world", None)
+    shared = world is not None
+    if world is None:
+        world = launch.run("chip_smoke:sp_rank_alone", SP, "cuda:0", backend="gloo",
+                           sp=SP, deadline=900)
+    L = spec.n_layers
+    # w1 and w3 apart (the serve phase's draw): five decode matvecs a layer, and wcls;
+    # every M > 1 prefill chunk through q4_matmul; the ring in place of decode_attention
+    per = 5 * L + 1
+    sched = {"q4_matvec": SP_TOKENS * per, "decode_attention": 0, "q4_matmul": 0,
+             "quantize_q80": 0}
+    chunks = SP_PROMPT // 64 + SP_PROMPT % 64 // 8
+    pre = {"q4_matmul": chunks * _mm_launches(spec, 1, gate_pair=True), "q4_matvec": 0,
+           "decode_attention": 0, "quantize_q80": 0}
+    rows = [r["tp1"] for r in world]
+    line, broken_a = _sp_check("(a)", spec, 1, rows, ref, SP_FIRST_TOL[None], False,
+                               sched, pre)
+    launches = {k: world[0]["tp1"]["launches"][k] + world[0]["tp1"]["prefill_launches"][k]
+                for k in ("q4_matvec", "q4_matmul")}
+    probe = {t: (max(r["ring_probe"][t][0] for r in rows),
+                 min(r["ring_probe"][t][1] for r in rows)) for t in rows[0]["ring_probe"]}
+    for t, (err, bad) in probe.items():
+        if err > SP_PROBE_TOL:
+            raise AssertionError(f"[sp] (a) the ring alone, T={t}: {err:.3e}·max from "
+                                 f"dense attention, tolerance {SP_PROBE_TOL}")
+        _sp_control(f"(a) the ring alone, T={t}", bad, SP_PROBE_TOL)
+    log(f"[sp] (a) Llama-2-7B 32 layers bf16 Q40, sp=2 tp=1, two ranks time-slicing cuda:0 "
+        f"over gloo (the ring host-staged: a wiring figure, not an sp speed), each "
+        f"holding the whole model "
+        f"and every other position's KV: {line}; the control, every received block "
+        f"zeroed: first-step logits {broken_a:.3e}·max from tp=1 ("
+        + ("fails the check" if broken_a > SP_FIRST_TOL[None] else
+           "passes the check: on this draw the logits cannot tell a broken ring")
+        + "); the ring alone at these attention shapes (32 heads of 128, 128 slots a "
+        "rank, unit-normal q, K, V) against dense attention on the card: "
+        + "; ".join(f"T={t} {err:.3e}·max (tolerance {SP_PROBE_TOL}), the control "
+                    + _sp_control(f"(a) T={t}", bad, SP_PROBE_TOL)
+                    for t, (err, bad) in probe.items())
+        + "; " + ("on the tp phase's world and host draw (its time is in the tp phase's)"
+                  if shared else f"on a world of its own ({time.perf_counter() - t0:.1f} s "
+                  f"with the tp=1 reference)"))
+
+    # (b) the 2 x 2 grid at 2 layers in f32: the tp = 1 references here, on the same draw
+    t0 = time.perf_counter()
+    spec2, params2 = _sp_grid_params(dev)
+    eng = Engine(spec2, params2, prefill_kernel=True, dtype=torch.float32)
+    ref2, ref2_loop = _sp_reference(eng), _sp_reference(eng, path="loop")
+    ref2_rep = _sp_reference(eng, 8, path="spec")
+    del eng, params2
+    torch.cuda.empty_cache()
+    grid = launch.run("chip_smoke:sp_rank_grid", 2 * SP, "cuda:0", backend="gloo", sp=SP,
+                      args=(("raw", "q80"),), deadline=600)
+    failed = []
+    for wire in ("raw", "q80"):
+        ranks = sorted((r[wire] for r in grid), key=lambda row: row["rank"])
+        try:  # both wires are checked and logged before a failure of either is raised
+            log(_sp_grid_wire(wire, spec2, ranks, ref2, ref2_loop, ref2_rep, chunks))
+        except AssertionError as e:
+            failed.append(e)
+            continue
+        if wire == "q80":
+            launches["quantize_q80"] = (ranks[0]["launches"]["quantize_q80"]
+                                        + ranks[0]["prefill_launches"]["quantize_q80"])
+    if failed:
+        raise AssertionError("; ".join(map(str, failed)))
+    log(f"[sp] (b) done in {time.perf_counter() - t0:.1f} s")
+    # each run's launches a rank: (a) for the matvec and the matmul, (b)'s Q80 wire
+    state["sp_launches"] = launches
+
+
 def phase_cli(state: dict) -> None:
     from distributed_llama_tpu_torch.formats.mfile import params_file_order, write_model
     from distributed_llama_tpu_torch.formats.tfile import TokenizerData, write_tokenizer
@@ -7679,13 +8561,15 @@ def phase_cli(state: dict) -> None:
                "hello", "--temperature", "0", "--seed", "1"]
         tpath_json = os.path.join(tmp, "trace.json")
         f32 = cmd + ["--dtype", "float32"]
-        tp2 = f32 + ["--tp", "2", "--device", "cuda:0", "--dist-backend", "gloo"]
-        # the five CLI runs and the Q80 wire's world on cuda:0 at once: independent
+        one_card = ["--device", "cuda:0", "--dist-backend", "gloo"]
+        tp2 = f32 + ["--tp", "2"] + one_card
+        # the six CLI runs and the Q80 wire's world on cuda:0 at once: independent
         # processes sharing the card (nothing here is timed)
         procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE)
                  for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json], f32,
-                           tp2 + ["--buffer-float-type", "f32"], tp2)]
+                           tp2 + ["--buffer-float-type", "f32"], tp2,
+                           f32 + ["--sp", "2"] + one_card)]
         try:
             from distributed_llama_tpu_torch.parallel import launch
 
@@ -7717,13 +8601,17 @@ def phase_cli(state: dict) -> None:
     text1, text2 = texts[2:4]
     if text1 != text2:
         raise AssertionError(f"cli: --tp 2 printed {text2!r}, --tp 1 {text1!r}")
-    loaded2 = [ln for ln in runs[3].stdout.decode("utf-8", "replace").splitlines()
-               if ln.startswith("⏩")]
+    if texts[5] != text1:
+        raise AssertionError(f"cli: --sp 2 printed {texts[5]!r}, --sp 1 {text1!r}")
+    loaded2, loaded_sp = ([ln for ln in runs[i].stdout.decode("utf-8", "replace").splitlines()
+                           if ln.startswith("⏩")] for i in (3, 5))
     log(f"[cli] dllama generate exited 0: {loaded[0] if loaded else out[-200:]!r}; "
         f"with --device-loop 8 --trace: spans {json.dumps(dict(spans))}; --tp 2 --device "
         f"cuda:0 --dist-backend gloo --dtype float32 --buffer-float-type f32 "
-        f"({loaded2[0] if loaded2 else ''}) printed --tp 1's f32 text; the same on the "
-        f"Q80 wire (the CLI's default): {q80_note}")
+        f"({loaded2[0] if loaded2 else ''}) printed --tp 1's f32 text; --sp 2 --device "
+        f"cuda:0 --dist-backend gloo --dtype float32 ({loaded_sp[0] if loaded_sp else ''}) "
+        f"printed --sp 1's f32 text {text1!r}; the same as --tp 2 on the Q80 wire (the "
+        f"CLI's default): {q80_note}")
 
 
 CLI_STEPS = 16  # the cli phase's generated tokens
@@ -7815,6 +8703,9 @@ def kernels_line(state: dict) -> str:
         if name in state.get("tpserve_launches", {}):
             # the serving path over tp: each rank's launches in the tpserve world
             rows[-1]["tpserve_launches"] = state["tpserve_launches"][name]
+        if name in state.get("sp_launches", {}):
+            # the sp path: rank 0's launches in the sp runs ((a) at 7B, (b)'s Q80 wire)
+            rows[-1]["sp_launches"] = state["sp_launches"][name]
     return json.dumps({"kernels": rows})
 
 
@@ -7834,12 +8725,23 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     state: dict = {"kernel_rows": {}, "launches": {}, "phases": phases}
     t0 = time.perf_counter()
-    for name in ALL_PHASES:
-        if name in phases or name == "env":
-            t = time.perf_counter()
-            globals()[f"phase_{name}"](state)
-            log(f"[{name}] done in {time.perf_counter() - t:.1f} s")
-    log(f"[total] {time.perf_counter() - t0:.1f} s")
+    # the parities' CPU sides, computed beside the card's phases from here on
+    state["cpu_refs"] = refs = _CpuRefs(phases)
+    seconds = {}
+    try:
+        for name in ALL_PHASES:
+            if name in phases or name == "env":
+                t = time.perf_counter()
+                refs.run_beside(name)
+                globals()[f"phase_{name}"](state)
+                if name == "build":
+                    refs.drawn()  # its card draws done before any timed phase
+                seconds[name] = round(time.perf_counter() - t, 1)
+                log(f"[{name}] done in {seconds[name]:.1f} s")
+    finally:
+        refs.close()
+    log(f"[total] {time.perf_counter() - t0:.1f} s; phases (s) {json.dumps(seconds)}; "
+        f"waited {refs.wait_s:.1f} s for the CPU references")
     # launches come from the model, q80, serve, spec and moe phases' runs
     if {"kernels", "model", "q80", "serve", "spec", "moe"} <= set(phases):
         log(kernels_line(state))

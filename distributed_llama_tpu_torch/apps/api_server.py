@@ -66,6 +66,11 @@ exit; SIGTERM drains on rank 0, which then ends the other ranks. Refused under t
 (ValueError, naming its ROADMAP item): `--draft-model`, `--supervisor-threshold`,
 `--role prefill|decode` and `/v1/kv`, the KV spill.
 
+Sequence parallelism (`--sp N`, ops/ring_attention.py) serves `--batch 1` only: the
+single-sequence Engine's KV cache striped over N ranks (with `--tp M`, N x M ranks),
+rank 0 leading as under tp. `--batch > 1 --sp > 1` is refused, as the JAX server
+refuses it: per-row cache positions do not fit the ring cache.
+
 Runs on the GPU unless `--device cpu` is given.
 """
 
@@ -208,8 +213,8 @@ class ApiState:
             from ..cache import SingleSlotCache, make_prefix_cache
 
             # a paged engine (the host KV spill) keeps resident-only reuse: no pool; nor
-            # does a tp engine, whose followers hold no pool of their heads' rows
-            pc = None if engine.paged or engine.tp > 1 else make_prefix_cache(
+            # does a tp or sp engine, whose followers hold no pool of their heads' rows
+            pc = None if engine.paged or engine.ranks > 1 else make_prefix_cache(
                 engine.k_cache.shape, engine.k_cache.element_size(), slots=1,
                 prefix_cache=prefix_cache, blocks=prefix_cache_blocks,
                 block_tokens=prefix_block_tokens, q80=prefix_cache_q80)
@@ -302,12 +307,12 @@ def _stats_payload(state: ApiState) -> dict:
         eng = state.engine
         out["engine"] = {"pos": eng.pos, "seq_len": eng.spec.seq_len, "paged": eng.paged,
                          "device": str(eng.device), "cuda_graph": eng.cuda_graph}
-        if eng.tp > 1:
+        if eng.ranks > 1:
             # the decode step's counted collectives (measured once, on every rank, at
             # start-up) and the rank's running total
             t = eng.collective_stats()
             out["collectives"] = {
-                "tp": eng.tp, "wire": "q80" if eng.compress else "f32",
+                "tp": eng.tp, "sp": eng.sp, "wire": "q80" if eng.compress else "f32",
                 "decode_t1": {"sent_bytes_per_device": t.sent_bytes_per_device,
                               "counts": dict(t.counts)},
                 "sent_bytes_total": eng.mesh.counter.total.sent_bytes_per_device}
@@ -1372,6 +1377,10 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
     """Refuse flag combinations the engines cannot serve (argparse exit 2)."""
     if args.pod and None in (args.coordinator, args.num_processes, args.process_id):
         p.error("--pod needs --coordinator, --num-processes and --process-id")
+    if args.batch > 1 and args.sp > 1:
+        # JAX apps/api_server.py:1490-1492
+        p.error("--batch > 1 requires --sp 1: per-row cache positions are "
+                "incompatible with the sequence-sharded (ring) cache")
     if args.batch > 1 and args.kv_cache_storage in ("host", "disc"):
         # refuse loudly rather than allocate the full-seq_len device cache in exactly
         # the overflow case the flag exists for
@@ -1380,14 +1389,14 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
 
 
 def check_tp(args) -> None:
-    """What the server cannot run under tp > 1, before any rank starts: a ValueError
-    naming its ROADMAP item (the engines refuse the same)."""
-    tp = args.num_processes if args.pod else (args.tp or 1)
-    if tp <= 1:
+    """What the server cannot run under tp > 1 or sp > 1, before any rank starts: the
+    CLI's refusals (dllama.check_tp) and the server's own, each a ValueError naming its
+    ROADMAP item (the engines refuse the same)."""
+    from . import dllama
+
+    dllama.check_tp(args)
+    if dllama.job_ranks(args) <= 1:
         return
-    if args.draft_model:
-        raise ValueError("--draft-model under tp > 1 is not in the port yet (ROADMAP "
-                         "Queue A item 1 (c): the drafter under tp)")
     if args.supervisor_threshold > 0:
         raise ValueError("--supervisor-threshold under tp > 1 is not in the port yet "
                          "(ROADMAP Queue A item 1 (c): the hung-engine supervisor "
@@ -1396,7 +1405,6 @@ def check_tp(args) -> None:
         raise ValueError(f"--role {args.role} (KV export and import over /v1/kv) under "
                          "tp > 1 is not in the port yet (ROADMAP Queue A item 1 (c): "
                          "/v1/kv under tp)")
-    Engine._refuse_under_tp(kv_cache_storage=args.kv_cache_storage)
 
 
 def engine_kwargs(args) -> dict:
@@ -1414,7 +1422,9 @@ def engine_kwargs(args) -> dict:
               fused_matmul=args.fused_matmul or args.batch > 1,
               fused_prologue=args.prologue)
     if mesh is not None:
-        kw.update(mesh=mesh, compress_collectives=args.buffer_float_type == "q80")
+        # the Q80 wire reduces the tp partial sums: an sp-only job (tp = 1) has none
+        kw.update(mesh=mesh,
+                  compress_collectives=args.buffer_float_type == "q80" and mesh.tp > 1)
     return kw
 
 
@@ -1457,7 +1467,7 @@ def build_engines(args, tenants=None):
                          kv_cache_storage=args.kv_cache_storage,
                          kv_cache_resident=args.kv_cache_resident,
                          kv_cache_dir=args.kv_cache_dir)
-    if engine.tp <= 1:
+    if engine.ranks <= 1:
         return engine, None, None
     from ..parallel.replay import ControlChannel, EngineLeader
 
@@ -1490,6 +1500,8 @@ def build_server(args) -> QuietServer:
     if inner.tp > 1:
         tp_note = (f", tp={inner.tp} over {inner.mesh.backend}, "
                    f"{'Q80' if inner.compress else 'f32'} wire")
+    if inner.sp > 1:
+        tp_note += f", sp={inner.sp} ring over {inner.mesh.backend}"
     if batch_engine is not None:
         spec = batch_engine.spec
         pool = batch_engine.kv_pool
@@ -1509,7 +1521,7 @@ def build_server(args) -> QuietServer:
         spec = engine.spec
         print(f"⏩ Serving one sequence at a time (device={engine.device}, "
               f"kernels={engine.use_kernels}, prefix cache "
-              + ("resident rewind only" if engine.tp > 1 else
+              + ("resident rewind only" if engine.ranks > 1 else
                  "off" if args.no_prefix_cache or engine.paged else "on")
               + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "")
               + f"{tp_note})")
@@ -1593,7 +1605,7 @@ def follow_rank(args) -> None:
     sys.stdout = open(os.devnull, "w")
     engine, batch_engine, channel = build_engines(args)
     mesh = args.mesh
-    print(f"🔷 tp rank {mesh.rank}/{mesh.tp} replaying rank 0 (pid {os.getpid()})",
+    print(f"🔷 tp rank {mesh.rank}/{mesh.size} replaying rank 0 (pid {os.getpid()})",
           file=sys.stderr, flush=True)
     if batch_engine is not None:
         batch_engine.follow()
@@ -1615,18 +1627,19 @@ def rank_main(mesh, argv: list[str]) -> None:
 
 
 def _launch_local(args, argv: list[str]) -> None:
-    """--tp N without --pod: N local ranks; SIGTERM is passed on to rank 0, whose drain
-    ends the others. A rank that fails stops every rank and exits nonzero."""
+    """--tp N --sp M without --pod: N·M local ranks; SIGTERM is passed on to rank 0,
+    whose drain ends the others. A rank that fails stops every rank and exits nonzero."""
     import signal
 
     from ..parallel import launch
     from ..parallel.mesh import backend_for
-    from .dllama import rank_devices
+    from .dllama import local_ranks, rank_devices
 
-    devices = rank_devices(args.device, args.tp)
+    n = local_ranks(args)
+    devices = rank_devices(args.device, n)
     try:
-        launch.run("distributed_llama_tpu_torch.apps.api_server:rank_main", args.tp,
-                   devices, args=(argv,),
+        launch.run("distributed_llama_tpu_torch.apps.api_server:rank_main", n,
+                   devices, args=(argv,), sp=args.sp,
                    backend=args.dist_backend or backend_for(devices[0]),
                    forward_signals=(signal.SIGTERM,))
     except launch.RankFailed as e:
@@ -1639,7 +1652,9 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     check_args(p, args)
     check_tp(args)
-    if (args.tp or 1) > 1 and not args.pod:
+    from .dllama import local_ranks
+
+    if local_ranks(args) > 1 and not args.pod:
         _launch_local(args, argv)
         return
     if args.pod:
@@ -1648,7 +1663,7 @@ def main(argv=None) -> None:
         device = torch.device(args.device)
         init_multihost(args.coordinator, args.num_processes, args.process_id,
                        args.dist_backend or backend_for(device))
-        args.mesh = make_pod_mesh(tp=args.tp, device=device)
+        args.mesh = make_pod_mesh(tp=args.tp, sp=args.sp, device=device)
         print(f"🌐 Pod process {args.mesh.rank}/{args.num_processes} on {device} "
               f"({args.mesh.backend})", file=sys.stderr)
         if args.mesh.rank != 0:

@@ -27,6 +27,12 @@ device `--device` names (`--device cuda:0` with `--dist-backend gloo` shares one
 `--dist-backend` is the port's own: torch.distributed needs its backend named where ranks
 share a card or run on the CPU. Only rank 0 prints; in chat mode it reads the console
 and hands every line to the other ranks.
+
+Sequence parallelism (the JAX package's `--sp N`, ops/ring_attention.py): the KV cache's
+sequence axis is striped over N ranks and each step's attention runs as a ring over
+them; with `--tp M` the job is an N x M grid of N·M ranks (rank r at sp index r // M, tp
+index r % M), started and placed as --tp's ranks are. The long-context path that needs
+no host spill: refused with --kv-cache-storage host|disc and --draft-model.
 """
 
 from __future__ import annotations
@@ -118,19 +124,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def add_parallel_flags(p: argparse.ArgumentParser) -> None:
-    """--tp, --buffer-float-type, --pod and its rendezvous, --dist-backend."""
+    """--tp, --sp, --buffer-float-type, --pod and its rendezvous, --dist-backend."""
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel ranks: every projection sharded, the KV cache by "
                         "heads, the partial sums reduced per layer (parallel/)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (ring attention over the KV cache): the "
+                        "cache's sequence axis striped over them, the KV blocks rotating "
+                        "around the ring each step (ops/ring_attention.py); with --tp, "
+                        "sp x tp ranks")
     p.add_argument("--buffer-float-type", default="q80",
                    choices=["f32", "f16", "q40", "q80"],
                    help="the tp wire: q80 reduces the partial sums through the Q80-"
                         "compressed all-reduce (the reference's wire compression, "
                         "tasks.cpp:96-135); any other value sends f32")
     p.add_argument("--pod", action="store_true",
-                   help="join a job of one process per host over torch.distributed and "
-                        "put every process on the tp axis (the reference's `dllama "
-                        "worker` + --workers bootstrap, dllama.cpp:205-221); needs "
+                   help="join a job of one process per host over torch.distributed, "
+                        "--sp of them on the sp axis and the rest on tp (the reference's "
+                        "`dllama worker` + --workers bootstrap, dllama.cpp:205-221); needs "
                         "--coordinator, --num-processes and --process-id. Run the same "
                         "command on every host")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -188,32 +199,50 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
 
 
 def check_tp(args) -> None:
-    """What tp > 1 cannot be combined with yet, before any rank starts (the engine
-    refuses the same; ROADMAP Queue A)."""
-    if (args.tp or 1) <= 1:
+    """What tp > 1 or sp > 1 cannot be combined with yet, before any rank starts (the
+    engine refuses the same; ROADMAP Queue A). api_server's check_tp adds the server's
+    own refusals to these."""
+    if args.sp < 1:
+        raise ValueError(f"--sp {args.sp} must be at least 1")
+    ranks = job_ranks(args)
+    if ranks <= 1:
         return
     from ..runtime.engine import Engine
 
     if args.draft_model:
-        raise ValueError("--draft-model under tp > 1 is not in the port yet (ROADMAP "
-                         "Queue A item 1 (c): the drafter under tp)")
-    Engine._refuse_under_tp(kv_cache_storage=args.kv_cache_storage)
+        raise ValueError("--draft-model under tp > 1 or sp > 1 is not in the port yet "
+                         "(ROADMAP Queue A item 1 (c): the drafter under tp)")
+    if ranks > args.sp:
+        Engine._refuse_under_tp(kv_cache_storage=args.kv_cache_storage)
+    if args.sp > 1:
+        Engine._refuse_under_sp(kv_cache_storage=args.kv_cache_storage)
 
 
-def rank_devices(device: str, tp: int) -> list[str]:
-    """Each local rank's device: `cpu` for all on the CPU, rank i on cuda:i for a bare
-    `cuda`, or every rank on the one card a `cuda:K` names. A tp larger than the visible
-    cards raises unless one card is named."""
+def job_ranks(args) -> int:
+    """Ranks of the job: --num-processes under --pod, else the local ones."""
+    return args.num_processes if args.pod else local_ranks(args)
+
+
+def local_ranks(args) -> int:
+    """Ranks a local job starts: --tp x --sp."""
+    return (args.tp or 1) * args.sp
+
+
+def rank_devices(device: str, n: int) -> list[str]:
+    """Each of n local ranks' device: `cpu` for all on the CPU, rank i on cuda:i for a
+    bare `cuda`, or every rank on the one card a `cuda:K` names. More ranks than visible
+    cards raise unless one card is named."""
     dev = torch.device(device)
     if dev.type == "cpu":
-        return ["cpu"] * tp
+        return ["cpu"] * n
     if dev.index is not None:
-        return [str(dev)] * tp
-    n = torch.cuda.device_count()
-    if tp > n:
-        raise ValueError(f"--tp {tp} needs {tp} cards, {n} visible; name one card "
-                         "(--device cuda:0 --dist-backend gloo) to run every rank on it")
-    return [f"cuda:{i}" for i in range(tp)]
+        return [str(dev)] * n
+    visible = torch.cuda.device_count()
+    if n > visible:
+        raise ValueError(f"{n} ranks (--tp x --sp) need {n} cards, {visible} visible; "
+                         "name one card (--device cuda:0 --dist-backend gloo) to run "
+                         "every rank on it")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 _GRACEFUL_STOP = None  # threading.Event set by the first SIGTERM
@@ -272,6 +301,9 @@ def make_engine(args) -> Engine:
           + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "")
           + (f", tp={engine.tp} over {mesh.backend}"
              + (", Q80 wire" if engine.compress else ", f32 wire") if tp > 1 else "")
+          + (f", sp={engine.sp} ring over {mesh.backend}"
+             + (" (host-staged)" if mesh.backend == "gloo"
+                and engine.device.type == "cuda" else "") if engine.sp > 1 else "")
           + ")")
     spec = engine.spec
     moe = ("n_experts", "n_active_experts") if spec.is_moe else ()
@@ -292,7 +324,7 @@ def mode_inference(args) -> None:
     tok = engine.tokenizer
     prompt = tok.encode(args.prompt or "Hello world", add_bos=True)
     pieces: list[bytes] = []
-    if engine.tp > 1:
+    if engine.ranks > 1:
         # the decode step's collectives, counted as issued, so the S/R columns are
         # measured (the reference counted socket bytes; dllama.cpp:76-93)
         mt = engine.collective_stats()
@@ -312,10 +344,10 @@ def mode_inference(args) -> None:
     # H = host sampling and bookkeeping; under tp, S/R = wire kB a token per device
     for i, (g, inf) in enumerate(zip(stats.token_ms, stats.infer_ms)):
         sr = (f"S {stats.sent_kbytes_per_token:8.0f} kB R "
-              f"{stats.recv_kbytes_per_token:8.0f} kB " if engine.tp > 1 else "")
+              f"{stats.recv_kbytes_per_token:8.0f} kB " if engine.ranks > 1 else "")
         print(f"🔶 G {g:7.2f} ms I {inf:7.2f} ms H {g - inf:7.2f} ms "
               f"{sr}{pieces[i].decode('utf-8', 'replace')}")
-    if engine.tp > 1:
+    if engine.ranks > 1:
         print(f"S/R source:          {stats.traffic_source} per-device ring bytes")
     print(f"Generated tokens:    {stats.generated_tokens}")
     print(f"Avg tokens / second: {stats.tokens_per_second:.2f}")
@@ -359,19 +391,21 @@ def mode_generate(args) -> None:
 
 
 def _line_reader(mesh, inbox):
-    """The chat's console: stdin on one process; under tp rank 0 reads it (local ranks:
-    the lines the launching process forwards to `inbox`, "" at the end; --pod: its own
-    stdin) and every rank receives rank 0's line."""
-    if mesh is None or mesh.tp <= 1:
+    """The chat's console: stdin on one process; under tp or sp rank 0 reads it (local
+    ranks: the lines the launching process forwards to `inbox`, "" at the end; --pod:
+    its own stdin) and every rank receives rank 0's line."""
+    if mesh is None or mesh.size <= 1:
         return sys.stdin.readline
     import torch.distributed as dist
+
+    group = mesh.everyone
 
     def read() -> str:
         line = None
         if mesh.rank == 0:
             line = inbox.get() if inbox is not None else sys.stdin.readline()
         box = [line]
-        dist.broadcast_object_list(box, src=0, group=mesh.group)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
         return box[0]
     return read
 
@@ -450,8 +484,8 @@ def dump_trace(args) -> None:
 
 
 def rank_main(mesh, argv: list[str], inbox=None) -> None:
-    """One local rank of `dllama --tp N` (parallel/launch.py): the mode on this rank's
-    mesh. Only rank 0 prints and writes the trace."""
+    """One local rank of `dllama --tp N --sp M` (parallel/launch.py): the mode on this
+    rank's mesh. Only rank 0 prints and writes the trace."""
     args = build_parser().parse_args(argv)
     args.mesh, args.inbox = mesh, inbox
     if mesh.rank != 0:
@@ -473,11 +507,13 @@ def _run(args) -> None:
 
 
 def _launch_local(args, argv: list[str]) -> None:
-    """--tp N without --pod: N local ranks, the console forwarded to rank 0 in chat."""
+    """--tp N --sp M without --pod: N·M local ranks, the console forwarded to rank 0 in
+    chat."""
     from ..parallel import launch
     from ..parallel.mesh import backend_for
 
-    devices = rank_devices(args.device, args.tp)
+    n = local_ranks(args)
+    devices = rank_devices(args.device, n)
     inbox = None
     if args.mode == "chat":
         import multiprocessing
@@ -491,8 +527,9 @@ def _launch_local(args, argv: list[str]) -> None:
             inbox.put("")
         threading.Thread(target=forward_console, daemon=True).start()
     try:
-        launch.run("distributed_llama_tpu_torch.apps.dllama:rank_main", args.tp, devices,
-                   args=(argv, inbox), backend=args.dist_backend or backend_for(devices[0]))
+        launch.run("distributed_llama_tpu_torch.apps.dllama:rank_main", n, devices,
+                   args=(argv, inbox), backend=args.dist_backend or backend_for(devices[0]),
+                   sp=args.sp)
     except launch.RankFailed as e:
         raise SystemExit(f"❌ {e}") from e
 
@@ -508,7 +545,7 @@ def main(argv=None) -> None:
         print("⚠️  --draft-model needs the batched verify path — it is an api_server "
               "--batch > 1 feature; the sequential CLI keeps prompt-lookup drafting "
               "(--speculative).", file=sys.stderr)
-    if (args.tp or 1) > 1 and not args.pod:
+    if local_ranks(args) > 1 and not args.pod:
         _launch_local(args, argv)
         return
     if args.pod:
@@ -517,7 +554,7 @@ def main(argv=None) -> None:
         device = torch.device(args.device)
         init_multihost(args.coordinator, args.num_processes, args.process_id,
                        args.dist_backend or backend_for(device))
-        args.mesh = make_pod_mesh(tp=args.tp, device=device)
+        args.mesh = make_pod_mesh(tp=args.tp, sp=args.sp, device=device)
         print(f"🌐 Pod process {args.mesh.rank}/{args.num_processes} on {device} "
               f"({args.mesh.backend})", file=sys.stderr)
         if args.mesh.rank != 0:

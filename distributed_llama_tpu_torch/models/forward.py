@@ -57,6 +57,14 @@ vocab-split logits are gathered along their last axis. The reduction comes befor
 residual join, so the wo and w2 kernels' residual epilogue is off whenever the merge
 points are on. Attention runs on the rank's heads; the router, the norms and rope are
 replicated.
+
+Sequence parallelism (`sp_mesh`, ops/ring_attention.py): the dense caches are this rank's
+stripe of the sequence axis (L, 1, hk, S/sp, hs), slot j holding position j·sp + m on sp
+rank m. Each layer's attention is the ring over the committed rows (live_end =
+start_pos) of the window bucket's ceil(window/sp) slots, plus the chunk's own K/V as a
+register block; after the last layer the chunk's rows are committed into their owners'
+slots (commit_kv_rows_striped). One scalar start_pos for the sequence: per-row
+positions, the block pool and the hot ring are refused under sp, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..ops.kernels import gelu_tanh, rmsnorm, silu
 from ..ops.matmul import qmatmul, qmatmul_gated, qmatmul_q80
 from ..ops.paged_attention import paged_attention, paged_gather_kv
 from ..ops.prologue import prologue_supported, quantize_q80_row, rmsnorm_quantize_q80
+from ..ops.ring_attention import commit_kv_rows_striped, ring_attention
 from ..ops.rope import RopeTables, apply_rope
 from ..parallel.collectives import all_gather_last, psum
 from ..quants import QTensor
@@ -109,7 +118,7 @@ class _Step:
 
     def __init__(self, spec, rope, start_pos, positions, use_kernels, window,
                  block_tables, block_tokens, paged_kernel, lengths, layer_ids, prologue,
-                 paged_cold=None, mesh=None, compress=False):
+                 paged_cold=None, mesh=None, compress=False, sp_mesh=None):
         self.spec = spec
         self.rope = rope
         self.start_pos = start_pos  # int, 0-d int64 tensor, or (B,) int64 tensor
@@ -126,6 +135,7 @@ class _Step:
         self.per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
         self.mesh = mesh  # the tp merge points are on (parallel/), or None
         self.compress = compress  # the merge points reduce through the Q80 wire
+        self.sp_mesh = sp_mesh  # the caches are this rank's sp stripe (the ring), or None
 
     def merge(self, y: torch.Tensor) -> torch.Tensor:
         """A tp merge point: the sum of every rank's partial y (y itself without a
@@ -181,8 +191,17 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
         nb = min(-(-(st.window or w_total * bt) // bt), w_total)  # table entries read
     else:
         win = st.window or kc.shape[3]
-    if st.paged_cold is not None:
-        att = _ring_attention(q, k_t, v_t, kc[layer_idx], vc[layer_idx], layer_idx, st)
+    if st.sp_mesh is not None:
+        # the striped ring over the committed rows of the window's ceil(window/sp)
+        # slots, the chunk's own K/V folded in as a register block (JAX forward.py:174)
+        sp = st.sp_mesh.sp
+        wl = None if st.window is None else min(-(-st.window // sp), kc.shape[3])
+        att = ring_attention(q, kc[layer_idx], vc[layer_idx], st.positions,
+                             mesh=st.sp_mesh, live_end=start, chunk=(k_t, v_t, start),
+                             striped=True, window_slots=wl).to(x.dtype)
+    elif st.paged_cold is not None:
+        att = _hot_ring_attention(q, k_t, v_t, kc[layer_idx], vc[layer_idx], layer_idx,
+                                  st)
         att = att.reshape(b, t, hq * hs).to(x.dtype)
     elif paged and st.paged_kernel:
         # the kernel reads the table's blocks straight out of the pools
@@ -232,7 +251,7 @@ def _attention(x, bp, layer_idx: int, st: _Step, kc, vc, residual):
     return (y if residual is None else residual + y), (k_t, v_t)
 
 
-def _ring_attention(q, k_t, v_t, kl, vl, layer_idx: int, st: _Step):
+def _hot_ring_attention(q, k_t, v_t, kl, vl, layer_idx: int, st: _Step):
     """Attention of the chunk against the hot ring (B, hk, R, hs) plus the host's cold
     partial, merged by log-sum-exp. Slot j's newest committed position is
     p_j = j + R·floor((start - 1 - j) / R) (< start by construction; negative: never
@@ -394,7 +413,7 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
             attn_window: int | None = None, block_tables: torch.Tensor | None = None,
             block_tokens: int = 0, paged_kernel: bool = False,
             fused_prologue: bool = False, paged_cold=None, mesh=None,
-            compress_collectives: bool = False):
+            compress_collectives: bool = False, sp_mesh=None):
     """Run T tokens through the model at cache position start_pos.
 
     tokens: (B, T) integer tensor. start_pos: one offset for all rows — an int, or a
@@ -426,6 +445,9 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     compress_collectives. None runs one card's model with no merge points (also what a
     one-member mesh without compression means: parallel/tp.py make_sharded_forward).
 
+    sp_mesh: this rank's mesh when its sp axis (> 1) shards the caches' sequence axis,
+    striped (the module docstring); it needs one scalar start_pos and dense caches.
+
     Returns (logits (B, T, vocab) f32, k_cache, v_cache) with the chunk's rows committed
     in place; with paged_cold also (k_rows, v_rows), the chunk's rows (L, B, hk, T, hs)."""
     dev = tokens.device
@@ -433,6 +455,12 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     per_row = isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1
     if block_tables is not None and not (per_row and block_tokens >= 1):
         raise ValueError("the block-pool layout needs block_tokens and per-row start_pos")
+    if sp_mesh is not None and (per_row or block_tables is not None
+                                or paged_cold is not None):
+        # JAX forward.py:713 and :726-733
+        raise ValueError("sequence parallelism (sp > 1) needs one scalar start_pos and the "
+                         "dense striped caches: per-row positions, the block pool and the "
+                         "host KV spill's hot ring are refused under sp")
     if paged_cold is not None and (per_row or block_tables is not None
                                    or t > k_cache.shape[3]):
         raise ValueError(f"the hot-ring layout needs a scalar start_pos, dense caches and "
@@ -454,7 +482,7 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
                     and not per_row and prologue_supported(spec.dim))
     st = _Step(spec, rope, start_pos, positions, use_kernels, attn_window, block_tables,
                block_tokens, paged_kernel, lengths, layer_ids, prologue, paged_cold, mesh,
-               compress_collectives)
+               compress_collectives, sp_mesh)
     x = params["embedding"][tokens].to(dtype)
     if spec.arch_type == ArchType.GROK1:
         # the scale in x's dtype, as the JAX package's weakly typed constant
@@ -470,6 +498,10 @@ def forward(params: dict[str, Any], spec: ModelSpec, rope: RopeTables,
     if block_tables is not None:
         commit_paged(k_cache, v_cache, k_new, v_new, positions, block_tables,
                      block_tokens)
+    elif sp_mesh is not None:
+        # the striped commit: each sp rank writes the chunk positions it owns
+        # (JAX forward.py:785-790)
+        commit_kv_rows_striped(k_cache, v_cache, k_new, v_new, start_pos, mesh=sp_mesh)
     elif paged_cold is not None:
         # ring commit: position p into slot p mod R (the chunk may wrap); the rows it
         # overwrites live on in the host store, which the caller appends these rows to

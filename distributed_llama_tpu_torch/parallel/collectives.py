@@ -1,4 +1,5 @@
-"""The tp axis's collectives over torch.distributed, with the Q80-compressed all-reduce.
+"""The mesh's collectives over torch.distributed: the tp axis's merge points with the
+Q80-compressed all-reduce, the sp axis's ring shift, and the world's broadcast.
 
 The port's copy of the JAX package's parallel/collectives.py. The reference compresses
 every inter-node activation transfer to Q80 (f32 -> int8 + f16 scale per 32-block)
@@ -25,6 +26,14 @@ value round-half-even(x·(127/absmax)). On a CUDA tensor the quantization is ker
 q4_matvec.quantize_row), one launch per prologue-sized piece of the flattened tensor (32-
 blocks never straddle a row, so the flat tensor quantizes as its rows do); on the CPU it
 is the plain version. Every collective is recorded on the mesh's TrafficCounter.
+
+The ring shift (`ring_shift_start`, the JAX package's `jax.lax.ppermute` in
+ops/ring_attention.py) sends each tensor to sp index (idx - 1) mod sp and receives its
+replacement from (idx + 1) mod sp, every send and receive posted in one
+`dist.batch_isend_irecv`, so no rank blocks on its neighbour. NCCL moves CUDA tensors
+themselves; over gloo a CUDA tensor is staged through host memory (the mesh's backend
+decides, never a caught error). Each tensor shifted is one "collective-permute" of its
+bytes, as the JAX package counts each ppermute.
 """
 
 from __future__ import annotations
@@ -187,18 +196,67 @@ def _gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def broadcast_int(value: int, mesh, src: int = 0) -> int:
-    """Rank src's integer on every rank (the sampled token: each rank's sampler runs,
-    rank src's pick is the one every rank feeds)."""
+    """Rank src's integer on every rank of the job (the sampled token: each rank's
+    sampler runs, rank src's pick is the one every rank feeds)."""
     return broadcast_ints([value], mesh, src)[0]
 
 
 def broadcast_ints(values: list[int], mesh, src: int = 0) -> list[int]:
-    """Rank src's integers on every rank, in one broadcast (rank src's token and its
-    stop decision, the Engine's _deliver). The other ranks' values are placeholders of
-    the same length."""
-    if mesh.tp <= 1:
+    """Rank src's integers on every rank of the job, tp and sp axes alike, in one
+    broadcast (rank src's token and its stop decision, the Engine's _deliver): under sp
+    each rank's logits may differ from another's in their last bits (each combines the
+    ring's blocks in its own order), so one rank decides for all. The other ranks'
+    values are placeholders of the same length."""
+    if mesh.size <= 1:
         return list(values)
     t = torch.tensor(list(values), dtype=torch.int64, device=mesh.device)
-    dist.broadcast(t, src, group=mesh.group)
-    mesh.counter.record("broadcast", t.numel() * t.element_size(), mesh.tp)
-    return [int(v) for v in t.tolist()]
+    return [int(v) for v in broadcast_tensor(t, mesh, src).tolist()]
+
+
+def broadcast_tensor(t: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
+    """Rank src's tensor t, in place, on every rank of the job (the device loop's token
+    under sp)."""
+    if mesh.size <= 1:
+        return t
+    group = mesh.everyone
+    dist.broadcast(t, dist.get_global_rank(group, src), group=group)
+    mesh.counter.record("broadcast", t.numel() * t.element_size(), mesh.size)
+    return t
+
+
+class RingShift:
+    """A ring shift in flight (ring_shift_start): wait() returns the tensors received
+    from sp index (idx + 1) mod sp, on the device the sent ones were on."""
+
+    def __init__(self, works, received, device, staged: bool):
+        self._works, self._received = works, received
+        self._device, self._staged = device, staged
+
+    def wait(self) -> list[torch.Tensor]:
+        for w in self._works:
+            w.wait()
+        if self._staged:
+            return [r.to(self._device) for r in self._received]
+        return self._received
+
+
+def ring_shift_start(tensors: list[torch.Tensor], mesh) -> RingShift:
+    """Post the sp axis's shift of every tensor (the module docstring): each goes to sp
+    index (idx - 1) mod sp, its replacement comes from (idx + 1) mod sp. At sp = 2 both
+    neighbours are one rank. A neighbour that fails makes wait() raise after the mesh's
+    timeout."""
+    sp, idx = mesh.sp, mesh.sp_rank
+    peers = dist.get_process_group_ranks(mesh.sp_group)  # global ranks, sp index order
+    left, right = peers[(idx - 1) % sp], peers[(idx + 1) % sp]
+    device = tensors[0].device
+    staged = mesh.backend == "gloo" and device.type == "cuda"
+    send = [t.contiguous().cpu() if staged else t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in send]
+    ops = [dist.P2POp(dist.isend, t, left, group=mesh.sp_group, tag=i)
+           for i, t in enumerate(send)]
+    ops += [dist.P2POp(dist.irecv, t, right, group=mesh.sp_group, tag=i)
+            for i, t in enumerate(received)]
+    works = dist.batch_isend_irecv(ops)
+    for t in send:
+        mesh.counter.record("collective-permute", t.numel() * t.element_size(), sp)
+    return RingShift(works, received, device, staged)

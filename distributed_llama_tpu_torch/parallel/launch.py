@@ -1,12 +1,12 @@
 """Start local ranks, run a named port function on each, and fail the job as one.
 
 The JAX package needs no launcher: its single controller drives every local device. The
-port runs one process per rank (parallel/mesh.py), so `dllama --tp N` and the tests
-start N processes here with the `spawn` start method (a fresh interpreter that imports
-torch and the port, never the parent's state) and a `file://` rendezvous in a directory
-the job owns (no TCP port to race for). Each rank joins the process group, builds its
-Mesh on the device it is given, calls `module:function(mesh, *args)` and leaves its
-return value in a file for the parent.
+port runs one process per rank (parallel/mesh.py), so `dllama --tp N --sp M` and the
+tests start N·M processes here with the `spawn` start method (a fresh interpreter that
+imports torch and the port, never the parent's state) and a `file://` rendezvous in a
+directory the job owns (no TCP port to race for). Each rank joins the process group,
+builds its Mesh on the device it is given, calls `module:function(mesh, *args)` and
+leaves its return value in a file for the parent.
 
 The parent watches every rank: one that exits nonzero (an exception, a collective that
 timed out) or outlives the job's deadline makes it stop the others and raise, so a dead
@@ -37,7 +37,8 @@ class RankFailed(RuntimeError):
 
 
 def _rank_main(rank: int, world: int, target: str, init_url: str, backend: str,
-               device: str, timeout: float, args: tuple, result_path: str) -> None:
+               device: str, timeout: float, args: tuple, result_path: str,
+               sp: int = 1) -> None:
     """One rank: join the job, run target(mesh, *args), save what it returns."""
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -52,7 +53,7 @@ def _rank_main(rank: int, world: int, target: str, init_url: str, backend: str,
     try:
         module, name = target.split(":")
         fn = getattr(importlib.import_module(module), name)
-        result = fn(make_mesh(tp=world, device=dev), *args)
+        result = fn(make_mesh(tp=world // sp, sp=sp, device=dev, timeout=timeout), *args)
         torch.save(result, result_path)
     finally:
         dist.destroy_process_group()
@@ -84,9 +85,10 @@ def _forward_to(proc, signums):
 
 def run(target: str, world: int, devices, *, args: tuple = (), backend: str | None = None,
         timeout: float = DEFAULT_TIMEOUT, deadline: float | None = None,
-        workdir: str | None = None, forward_signals: tuple = ()) -> list:
+        workdir: str | None = None, forward_signals: tuple = (), sp: int = 1) -> list:
     """Run `target` ("package.module:function", called as function(mesh, *args)) on
-    `world` local ranks and return each rank's result, rank order.
+    `world` local ranks and return each rank's result, rank order. `sp` of them lie on
+    the mesh's sp axis and world // sp on its tp axis (rank r at s = r // tp, t = r % tp).
 
     devices: one device for every rank ("cpu", "cuda:0": ranks may share a card) or a
     list with one device per rank. backend: gloo or nccl (default: the device's,
@@ -100,6 +102,8 @@ def run(target: str, world: int, devices, *, args: tuple = (), backend: str | No
     devs = list(devices) if isinstance(devices, (list, tuple)) else [devices] * world
     if len(devs) != world:
         raise ValueError(f"{len(devs)} devices for {world} ranks")
+    if sp < 1 or world % sp:
+        raise ValueError(f"sp={sp} must divide the {world} ranks")
     backend = backend or backend_for(devs[0])
     own = workdir is None
     workdir = tempfile.mkdtemp(prefix="dllama_ranks_") if own else workdir
@@ -111,7 +115,7 @@ def run(target: str, world: int, devices, *, args: tuple = (), backend: str | No
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                          args=(r, world, target, init_url, backend, str(devs[r]), timeout,
-                               args, paths[r]))
+                               args, paths[r], sp))
              for r in range(world)]
     end = None if deadline is None else time.monotonic() + deadline
     restore = {}

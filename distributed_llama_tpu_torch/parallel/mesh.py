@@ -4,16 +4,20 @@ The counterpart of the JAX package's parallel/mesh.py. There a single controller
 every chip through a jax.sharding.Mesh with the named axes dp, sp and tp. Here each rank
 is a process of its own (parallel/launch.py starts local ranks, `dllama --pod` joins one
 process per host), and a `Mesh` is what one rank knows of the job: its rank, the axis
-sizes, the process group of the tp axis and the device it runs on.
+sizes, the process groups of its tp and sp axes and of the whole job, and the device it
+runs on.
 
 The axes keep the JAX names (dp: independent sequences, sp: ring attention over the KV
-sequence axis, tp: tensor parallelism, the reference's nSlices). Only tp is wired in the
-port so far; dp > 1 and sp > 1 are refused (ROADMAP Queue A items 1 (a) and 2).
+sequence axis, tp: tensor parallelism, the reference's nSlices). The grid is (sp, tp):
+rank r sits at s = r // tp, t = r % tp, as JAX's `reshape(dp, sp, tp)` lays devices
+out. Each s has a tp group (the merge points' collectives), each t an sp group (the
+ring's shifts); the world group carries what every rank must hear (the sampled token,
+the stop decision). dp > 1 is refused (ROADMAP Queue A: dp on this grid).
 
 The rank's device is always the caller's: nothing here picks a device by local rank, so
-two ranks may share one card (gloo stages CUDA tensors through the host) or run on the
-CPU. The backend follows the device (cpu: gloo, cuda: nccl) unless the caller names one,
-and nothing switches it after a failure.
+several ranks may share one card (gloo stages CUDA tensors through the host) or run on
+the CPU. The backend follows the device (cpu: gloo, cuda: nccl) unless the caller names
+one, and nothing switches it after a failure.
 """
 
 from __future__ import annotations
@@ -35,9 +39,11 @@ DEFAULT_TIMEOUT = 300.0
 
 @dataclass
 class Mesh:
-    """One rank's view of a (dp, sp, tp) job: `group` is the tp axis's process group
-    (None for a one-member axis that needs no peers), `device` the torch device this rank
-    computes on, `counter` the collectives this rank issued (parallel/traffic.py)."""
+    """One rank's view of a (dp, sp, tp) job: `rank` is its rank in the job (r = s·tp +
+    t), `group` the tp axis's process group and `sp_group` the sp axis's (None for a
+    one-member axis that needs no peers), `world_group` every rank of the job (None: the
+    tp group, which a job without sp is), `device` the torch device this rank computes
+    on, `counter` the collectives this rank issued (parallel/traffic.py)."""
 
     rank: int
     shape: dict
@@ -45,10 +51,36 @@ class Mesh:
     device: torch.device
     backend: str | None = None
     counter: TrafficCounter = field(default_factory=TrafficCounter)
+    sp_group: object = None
+    world_group: object = None
 
     @property
     def tp(self) -> int:
         return self.shape[AXIS_TP]
+
+    @property
+    def sp(self) -> int:
+        return self.shape.get(AXIS_SP, 1)
+
+    @property
+    def size(self) -> int:
+        """Ranks in the job: dp·sp·tp."""
+        return self.shape.get(AXIS_DP, 1) * self.sp * self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index on the tp axis (its weight and KV-head shard)."""
+        return self.rank % self.tp
+
+    @property
+    def sp_rank(self) -> int:
+        """This rank's index on the sp axis (its stripe of the KV sequence axis)."""
+        return self.rank // self.tp % self.sp
+
+    @property
+    def everyone(self):
+        """The group of every rank in the job (None for a job of one)."""
+        return self.world_group if self.world_group is not None else self.group
 
 
 def backend_for(device) -> str:
@@ -56,40 +88,69 @@ def backend_for(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def _refuse_axes(sp: int, dp: int | None) -> None:
-    if sp != 1:
-        raise ValueError(f"sp={sp}: ring attention and --sp are not in the port yet "
-                         "(ROADMAP Queue A item 2)")
+def _refuse_dp(dp: int | None) -> None:
     if dp not in (None, 1):
         raise ValueError(f"dp={dp}: data parallelism over the mesh is not in the port yet "
-                         "(ROADMAP Queue A item 1 (a): dp, a two-axis process grid)")
+                         "(ROADMAP Queue A item 1 (a): dp, on the (sp, tp) grid)")
 
 
 def make_mesh(tp: int | None = None, sp: int = 1, dp: int = 1, *, device=None,
-              group=None) -> Mesh:
+              group=None, timeout: float = DEFAULT_TIMEOUT) -> Mesh:
     """This rank's (dp, sp, tp) mesh. tp defaults to the world size of the initialized
-    process group (1 without one); `group` (default: the whole world) carries the tp
-    axis. A tp > 1 needs an initialized process group whose world is tp ranks; a tp of 1
-    needs none. `device` is this rank's device (default: the current CUDA device)."""
-    _refuse_axes(sp, dp)
+    process group over sp (1 without one); `group` (default: the whole world) holds the
+    job's sp·tp ranks. More than one rank needs an initialized process group of exactly
+    that many; a mesh of one needs none. Under sp > 1 and tp > 1 every rank creates every
+    tp group and then every sp group, in one order, as torch.distributed's new_group
+    needs (`timeout`: their collectives' wait for a peer). `device` is this rank's device
+    (default: the current CUDA device)."""
+    _refuse_dp(dp)
+    if sp < 1:
+        raise ValueError(f"sp={sp} must be at least 1")
     ready = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size(group) if ready else 1
     if tp is None:
-        tp = world
+        if world % sp:
+            raise ValueError(f"sp={sp} must divide the process group's {world} ranks")
+        tp = world // sp
     if tp < 1:
         raise ValueError(f"tp={tp} must be at least 1")
-    if tp > 1 and not ready:
-        raise RuntimeError(f"tp={tp} needs an initialized torch.distributed process group "
-                           "(parallel.mesh.init_multihost, or the ranks that "
-                           "parallel/launch.py starts)")
-    if tp > 1 and world != tp:
-        raise ValueError(f"mesh 1x1x{tp} needs {tp} ranks, the process group has {world}")
+    n = sp * tp
+    if n > 1 and not ready:
+        raise RuntimeError(f"a mesh of {n} ranks (sp={sp}, tp={tp}) needs an initialized "
+                           "torch.distributed process group (parallel.mesh.init_multihost, "
+                           "or the ranks that parallel/launch.py starts)")
+    if n > 1 and world != n:
+        raise ValueError(f"mesh 1x{sp}x{tp} needs {n} ranks, the process group has "
+                         f"{world}")
     dev = torch.device(device) if device is not None else torch.device(
         "cuda", torch.cuda.current_device())
-    rank = dist.get_rank(group) if ready and tp > 1 else 0
-    grp = (group if group is not None else dist.group.WORLD) if tp > 1 else None
-    return Mesh(rank=rank, shape={AXIS_DP: 1, AXIS_SP: 1, AXIS_TP: tp}, group=grp,
-                device=dev, backend=dist.get_backend(grp) if grp is not None else None)
+    if n == 1:
+        return Mesh(rank=0, shape={AXIS_DP: 1, AXIS_SP: 1, AXIS_TP: 1}, group=None,
+                    device=dev)
+    whole = group if group is not None else dist.group.WORLD
+    rank = dist.get_rank(whole)
+    members = dist.get_process_group_ranks(whole)
+    tp_grp, sp_grp = _axis_groups(whole, members, rank, sp, tp, timeout)
+    return Mesh(rank=rank, shape={AXIS_DP: 1, AXIS_SP: sp, AXIS_TP: tp}, group=tp_grp,
+                device=dev, backend=dist.get_backend(whole), sp_group=sp_grp,
+                world_group=whole)
+
+
+def _axis_groups(whole, members: list[int], rank: int, sp: int, tp: int,
+                 timeout: float):
+    """This rank's tp and sp groups of the (sp, tp) grid over the group `whole`, whose
+    global ranks are `members` in group rank order: `whole` where one axis spans it,
+    None for a one-member axis, else one new group per row (tp) or column (sp), every
+    one created in one order on every rank."""
+    if sp == 1 or tp == 1:
+        return (whole if tp > 1 else None), (whole if sp > 1 else None)
+    s, t = divmod(rank, tp)
+    td = datetime.timedelta(seconds=timeout)
+    rows = [dist.new_group([members[i * tp + j] for j in range(tp)], timeout=td)
+            for i in range(sp)]
+    cols = [dist.new_group([members[i * tp + j] for i in range(sp)], timeout=td)
+            for j in range(tp)]
+    return rows[s], cols[t]
 
 
 def init_multihost(coordinator: str | None, num_processes: int, process_id: int,
@@ -115,14 +176,18 @@ def init_multihost(coordinator: str | None, num_processes: int, process_id: int,
 
 def make_pod_mesh(tp: int | None = None, sp: int = 1, dp: int | None = None, *,
                   device=None) -> Mesh:
-    """The mesh over every process of a multi-process job (after init_multihost): all
-    ranks on the tp axis. The JAX package places dp across slices and tp inside one;
-    with dp and sp refused here, the whole job is one tp group."""
-    _refuse_axes(sp, dp)
+    """The (sp, tp) mesh over every process of a multi-process job (after
+    init_multihost); tp defaults to world // sp. The JAX package places dp across slices
+    and sp and tp inside one; with dp refused here, the job is one (sp, tp) grid."""
+    _refuse_dp(dp)
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_pod_mesh needs init_multihost first")
     world = dist.get_world_size()
-    if tp is not None and tp != world:
-        raise ValueError(f"tp={tp} must span the job's {world} processes (dp and sp are "
-                         "not in the port yet)")
-    return make_mesh(tp=world, device=device)
+    if sp < 1 or world % sp:
+        raise ValueError(f"sp={sp} must divide the job's {world} processes")
+    if tp is None:
+        tp = world // sp
+    if tp * sp != world:
+        raise ValueError(f"tp={tp} x sp={sp} must span the job's {world} processes (dp "
+                         "is not in the port yet)")
+    return make_mesh(tp=tp, sp=sp, device=device)

@@ -1,4 +1,5 @@
-"""Serving over tensor parallelism: rank 0 leads, the other ranks replay its dispatches.
+"""Serving over tensor (and sequence) parallelism: rank 0 leads, the other ranks replay
+its dispatches.
 
 This module has no JAX counterpart. The JAX package serves over tp from a single
 controller: one process drives every chip of the mesh, so its scheduler, samplers and
@@ -26,7 +27,7 @@ raises.
 - `follow`: a follower's receive loop over an `apply(kind, payload)`.
 - `EngineLeader` / `follow_engine`: the --batch 1 server's single-sequence Engine,
   whose generate calls are mirrored whole (the Engine broadcasts rank 0's tokens and
-  stops itself: runtime/engine.py `_deliver`).
+  stops itself: runtime/engine.py `_deliver`), over tp, sp or both: world rank 0 leads.
 - The BatchEngine's operations are mirrored by the engine itself
   (runtime/batch_engine.py `_mirror` on rank 0, `follow()` / `_replay` on the others).
 """
@@ -47,13 +48,13 @@ HEARTBEAT_S = 10.0
 
 
 class ControlChannel:
-    """The tp job's control group (gloo, every rank of the mesh's tp group): rank 0
-    broadcasts (kind, payload) descriptors, every other rank receives them in order.
-    Creating it is a collective: every rank constructs it at the same point."""
+    """The job's control group (gloo, every rank of the mesh, its tp and sp axes alike):
+    rank 0 broadcasts (kind, payload) descriptors, every other rank receives them in
+    order. Creating it is a collective: every rank constructs it at the same point."""
 
     def __init__(self, mesh, timeout: float = DEFAULT_TIMEOUT):
         self.rank = mesh.rank
-        self.group = dist.new_group(ranks=dist.get_process_group_ranks(mesh.group),
+        self.group = dist.new_group(ranks=dist.get_process_group_ranks(mesh.everyone),
                                     backend="gloo",
                                     timeout=datetime.timedelta(seconds=timeout))
         self._src = dist.get_global_rank(self.group, 0)

@@ -1,4 +1,5 @@
-"""Tensor-parallel execution: this rank's shard of the weights and caches, and its step.
+"""Tensor- and sequence-parallel execution: this rank's shard of the weights and caches,
+and its step.
 
 The port's counterpart of the JAX package's parallel/tp.py. There `jax.device_put` with
 NamedShardings places every tensor on the mesh and one shard_map'd program runs on every
@@ -7,7 +8,8 @@ whole `.m` file), cuts its own slice there (`shard_params`), places only that sl
 its device and runs models/forward.py on it with the merge points on
 (`make_sharded_forward`). This replaces the reference's weight streaming
 to workers (transformer.cpp:432-451) and its per-layer broadcast/gather tasks
-(tasks.cpp:44-94).
+(tasks.cpp:44-94). Under sp the weights are whole on every sp rank of a tp index, and the
+caches hold this rank's stripe of the sequence axis (ops/ring_attention.py).
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ def shard_params(params: dict[str, Any], mesh: Mesh, spec: ModelSpec | None = No
     replicated per KV head first (effective_kv_heads). The shards are localized: a rank's
     i4p shard is one self-contained pack (models/params.py localize_qtensors)."""
     check_moe_sharding(moe_sharding)
-    tp, rank = mesh.tp, mesh.rank
+    tp, rank = mesh.tp, mesh.tp_rank
     for name, t in params["blocks"].items():
         if name in _FUSE_GROUPS and isinstance(t, QTensor) and t.row_groups != tp:
             raise ValueError(
@@ -119,19 +121,25 @@ def shard_params(params: dict[str, Any], mesh: Mesh, spec: ModelSpec | None = No
 def init_sharded_kv_cache(spec: ModelSpec, mesh: Mesh, batch: int = 1,
                           dtype=torch.float32, seq_len: int | None = None,
                           kv_pool: tuple[int, int] | None = None):
-    """Zeroed KV caches of this rank's heads: (L, B, effective_kv_heads/tp, S, hs) on the
-    mesh's device, or with kv_pool=(n_blocks, block_tokens) the block pools (L, N,
-    effective_kv_heads/tp, bt, hs) of the batched serving engine, sharded by KV heads as
-    the JAX package shards its pool. The one cache constructor of every sharded entry
-    point, so none can forget the replicated heads."""
+    """Zeroed KV caches of this rank's heads and sequence stripe: (L, B,
+    effective_kv_heads/tp, S/sp, hs) on the mesh's device (the JAX package's
+    kv_cache_pspec_for_mesh), or with kv_pool=(n_blocks, block_tokens) the block pools
+    (L, N, effective_kv_heads/tp, bt, hs) of the batched serving engine, sharded by KV
+    heads as the JAX package shards its pool (tp only). The one cache constructor of
+    every sharded entry point, so none can forget the replicated heads."""
     hk = effective_kv_heads(spec, mesh.tp) // mesh.tp
     if kv_pool is not None:
+        if mesh.sp > 1:
+            raise ValueError("the KV block pool is tp-only: the sequence-sharded (ring) "
+                             "cache is dense")
         n_blocks, bt = kv_pool
         shape = (spec.n_layers, n_blocks, hk, bt, spec.head_size)
         return (torch.zeros(shape, dtype=dtype, device=mesh.device),
                 torch.zeros(shape, dtype=dtype, device=mesh.device))
     s = seq_len if seq_len is not None else spec.seq_len
-    shape = (spec.n_layers, batch, hk, s, spec.head_size)
+    if s % mesh.sp:
+        raise ValueError(f"sp={mesh.sp} must divide the cache's {s} positions")
+    shape = (spec.n_layers, batch, hk, s // mesh.sp, spec.head_size)
     return (torch.zeros(shape, dtype=dtype, device=mesh.device),
             torch.zeros(shape, dtype=dtype, device=mesh.device))
 
@@ -151,21 +159,29 @@ def make_sharded_forward(spec: ModelSpec, mesh: Mesh, *, dtype=torch.float32,
                          compress_collectives: bool = False,
                          attn_window: int | None = None, fused_prologue: bool = False,
                          moe_sharding: str = "slice"):
-    """This rank's forward step over the mesh's tp axis: fn(params, rope, tokens,
+    """This rank's forward step over the mesh's tp and sp axes: fn(params, rope, tokens,
     k_cache, v_cache, start_pos, attn_window=) -> (logits (B, T, vocab) f32, k_cache,
     v_cache), with the shard from shard_params and the caches from
     init_sharded_kv_cache; `attn_window` defaults to the one given here. Every rank
     calls it with the same tokens and positions. The Engine's steps under a mesh run
-    through it."""
+    through it.
+
+    Under sp > 1 the step runs the striped ring over the sequence-sharded caches, and
+    it refuses per-row start positions (a (B,) start_pos), as forward does, after the
+    JAX package's make_sharded_forward (tp.py:153-176, forward.py:713); the block pool
+    has no sp form (init_sharded_kv_cache). The port's forward writes the cache only
+    after the scan, so JAX's refusal of the in-scan write under sp needs no counterpart
+    here."""
     check_moe_sharding(moe_sharding)
-    check_divisibility(spec, mesh.tp, moe_sharding=moe_sharding)
+    check_divisibility(spec, mesh.tp, mesh.sp, moe_sharding=moe_sharding)
     merge = merge_mesh(mesh, compress_collectives)
+    ring = mesh if mesh.sp > 1 else None
     window = attn_window
 
     def step(params, rope, tokens, k_cache, v_cache, start_pos, attn_window=window):
         return forward(params, spec, rope, tokens, k_cache, v_cache, start_pos,
                        dtype=dtype, use_kernels=use_kernels, attn_window=attn_window,
                        fused_prologue=fused_prologue, mesh=merge,
-                       compress_collectives=compress_collectives)
+                       compress_collectives=compress_collectives, sp_mesh=ring)
 
     return step

@@ -529,6 +529,10 @@ class BatchEngine:
                              "the port yet (ROADMAP Queue A item 1 (a): dp, with the "
                              "dense-cache path the JAX engine takes under dp)")
         mesh = engine_kw.get("mesh")
+        if (engine_kw.get("sp") or 1) > 1 or (mesh is not None and mesh.sp > 1):
+            # JAX runtime/batch_engine.py:510-513
+            raise ValueError("continuous batching needs per-row cache positions, which the "
+                             "sequence-sharded (ring) cache does not support")
         tp = mesh.tp if mesh is not None else (engine_kw.get("tp") or 1)
         if tp > 1 and draft_model is not None:
             raise ValueError("the model drafter under tp > 1 is not in the port yet "

@@ -37,6 +37,7 @@ import torch
 
 from ..models.forward import forward
 from ..models.spec import ModelSpec
+from ..parallel.collectives import broadcast_tensor
 from ..resilience import faults
 from .step_graph import StepGraphs, upload
 
@@ -207,7 +208,7 @@ def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "gree
                      dtype=torch.float32, use_kernels=False,
                      attn_window: int | None = None, fused_prologue: bool = False,
                      graphs: StepGraphs | None = None, mesh=None,
-                     compress_collectives: bool = False):
+                     compress_collectives: bool = False, sp_mesh=None):
     """Build fn(rope, token, kc, vc, start_pos, key, temperature, topp) ->
     (tokens (n_steps,), last_logits (vocab,), kc, vc).
 
@@ -221,7 +222,9 @@ def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "gree
     captured step runs on the caches it was first called with. With `graphs` enabled
     each step is one CUDA graph replay. `mesh` and `compress_collectives` are forward's:
     this rank's tp step (every rank runs the loop with the same inputs, and the gathered
-    logits, hence the samples, are the same on every rank)."""
+    logits, hence the samples, are the same on every rank). `sp_mesh` is forward's too:
+    the caches are this rank's sp stripe, and since each sp rank's logits may differ in
+    their last bits, every step feeds rank 0's pick, broadcast over the whole job."""
     assert mode in ("greedy", "sample"), mode
     st: dict = {}
 
@@ -230,12 +233,15 @@ def make_decode_loop(spec: ModelSpec, params, n_steps: int, *, mode: str = "gree
         logits, _, _ = forward(params, spec, st["rope"], tok[None, :], st["kc"], st["vc"],
                                pos[0], dtype=dtype, use_kernels=use_kernels,
                                attn_window=attn_window, fused_prologue=fused_prologue,
-                               mesh=mesh, compress_collectives=compress_collectives)
+                               mesh=mesh, compress_collectives=compress_collectives,
+                               sp_mesh=sp_mesh)
         row = logits[:, -1].float()  # (1, vocab)
         if mode == "greedy":
             nxt = row.argmax(-1)
         else:
             nxt = device_sample(row, fold_in(st["key"], i), st["temp"], st["topp"])
+        if sp_mesh is not None:
+            nxt = broadcast_tensor(nxt.contiguous(), sp_mesh)
         st["toks"].index_copy_(0, i, nxt)
         st["row"].copy_(row[0])
         tok.copy_(nxt)

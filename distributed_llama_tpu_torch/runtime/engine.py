@@ -40,6 +40,15 @@ runs eagerly: the gloo wire is host-side and cannot be captured in a CUDA graph,
 cuda_graph is off under tp > 1. The host KV spill is refused there (single-card, as in
 the JAX package).
 
+Sequence parallelism (`sp`, ops/ring_attention.py): the ranks of the (sp, tp) grid
+(parallel/mesh.py) each hold a stripe of the KV cache's sequence axis, and every step's
+attention is the ring over them. One sequence at one scalar position, so batch > 1, the
+block pool and the host KV spill are refused under sp (the JAX engine's rules). Each sp
+rank combines the ring's blocks in its own order, so its logits may differ from
+another's in their last bits: rank 0 decides every token over the whole job (the host
+loop's `_deliver`, one broadcast a step in the device loop, the verify turn's tokens in
+speculation). Steps run eagerly, as under tp; a mesh of one keeps its graphs.
+
 The engine runs on `cuda` unless the caller passes device="cpu" (or a mesh on the CPU);
 without a GPU and without device="cpu" it raises. It never moves to the CPU on its own.
 """
@@ -196,27 +205,34 @@ class Engine:
                  paged_kernel: bool | None = None, fused_prologue: bool | None = None,
                  cuda_graph: bool = True, kv_cache_storage: str | None = None,
                  kv_cache_resident: int = 1024, kv_cache_dir: str | None = None,
-                 mesh=None, tp: int | None = None, compress_collectives: bool = False):
+                 mesh=None, tp: int | None = None, sp: int = 1,
+                 compress_collectives: bool = False):
         self.spec = spec
         self.tokenizer = tokenizer
-        # tp= (the JAX Engine's) builds this rank's mesh over the process group the
-        # caller initialised (parallel/mesh.py init_multihost, or parallel/launch.py);
-        # mesh= takes one built already, as dllama's ranks do
-        if mesh is None and tp is not None and tp > 1:
+        # tp= and sp= (the JAX Engine's) build this rank's mesh over the process group
+        # the caller initialised (parallel/mesh.py init_multihost, or
+        # parallel/launch.py); mesh= takes one built already, as dllama's ranks do
+        if mesh is None and ((tp is not None and tp > 1) or sp > 1):
             from ..parallel.mesh import make_mesh
 
-            mesh = make_mesh(tp=tp, device=resolve_device(device))
+            mesh = make_mesh(tp=tp, sp=sp, device=resolve_device(device))
         if mesh is not None:
             if tp is not None and tp != mesh.tp:
                 raise ValueError(f"tp={tp} against a mesh of tp={mesh.tp}")
+            if sp != 1 and sp != mesh.sp:
+                raise ValueError(f"sp={sp} against a mesh of sp={mesh.sp}")
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} against the mesh's {mesh.device}")
             device = mesh.device
         self.mesh = mesh
         self.tp = mesh.tp if mesh is not None else 1
+        self.sp = mesh.sp if mesh is not None else 1
         self.compress = bool(compress_collectives)
         if self.tp > 1:
             self._refuse_under_tp(kv_cache_storage=kv_cache_storage)
+        if self.sp > 1:
+            self._refuse_under_sp(kv_cache_storage=kv_cache_storage, kv_pool=kv_pool,
+                                  batch=batch)
         self.device = resolve_device(device)
         on_gpu = self.device.type == "cuda"
         # bf16 activations and caches on the card halve cache traffic (the matvec
@@ -294,7 +310,7 @@ class Engine:
 
             params = params_to(shard_params(params, mesh, spec), self.device)
             self._merge = merge_mesh(mesh, self.compress)
-            if self._merge is not None:
+            if self._merge is not None or self.sp > 1:
                 self._sharded = make_sharded_forward(
                     spec, mesh, dtype=self.dtype, use_kernels=self.use_kernels,
                     compress_collectives=self.compress,
@@ -302,7 +318,7 @@ class Engine:
         self.params = params
         self._measured_traffic = None  # the decode step's CollectiveTraffic, once counted
         self.rope = RopeTables.create(spec, self.device)
-        if self.tp > 1:
+        if self.tp > 1 or self.sp > 1:
             from ..parallel.tp import init_sharded_kv_cache
 
             self.k_cache, self.v_cache = init_sharded_kv_cache(
@@ -319,12 +335,32 @@ class Engine:
             self.k_cache, self.v_cache = init_kv_cache(spec, batch, dtype=self.dtype,
                                                        device=self.device)
         self.pos = 0
-        # the decode steps replay CUDA graphs on the card with the kernels on; a tp step
-        # runs eagerly (its collectives are host calls a capture cannot hold on gloo)
+        # the decode steps replay CUDA graphs on the card with the kernels on; a tp or sp
+        # step runs eagerly (its collectives are host calls a capture cannot hold on gloo)
         self.cuda_graph = (bool(cuda_graph) and on_gpu and bool(self.use_kernels)
-                           and self.tp == 1)
+                           and self.ranks == 1)
         self.graphs = StepGraphs(self.device, self.cuda_graph)
         self._init_steps()
+
+    @property
+    def ranks(self) -> int:
+        """Ranks that run this engine's steps together: tp·sp (1 on one card)."""
+        return self.tp * self.sp
+
+    @staticmethod
+    def _refuse_under_sp(kv_cache_storage=None, kv_pool=None, batch: int = 1) -> None:
+        """What an sp > 1 engine cannot run (the JAX Engine's rules, engine.py:187-191 and
+        :308-310): the ring cache holds one sequence at one scalar position."""
+        if kv_cache_storage in ("host", "disc"):
+            raise ValueError("the host KV spill is single-card (sp=1): the sequence-sharded "
+                             "(ring) cache is the other long-context path, not one to "
+                             "combine with it")
+        if kv_pool is not None:
+            raise ValueError("the device KV block pool is incompatible with sp > 1: the "
+                             "sequence-sharded (ring) cache is dense")
+        if batch != 1:
+            raise ValueError("sp > 1 runs one sequence (batch=1): per-row cache positions "
+                             "are incompatible with the sequence-sharded (ring) cache")
 
     @staticmethod
     def _refuse_under_tp(kv_cache_storage=None) -> None:
@@ -451,8 +487,9 @@ class Engine:
         [start, start + n) of every batch row, in place (the captured steps read these
         tensors), then move pos forward to start + n: the prefix cache's seed
         (cache/single_slot.py). The one forward move of pos; seek only rewinds."""
-        if self.kv_pool is not None or self.paged:
-            raise RuntimeError("seed_rows writes the dense cache layout")
+        if self.kv_pool is not None or self.paged or self.sp > 1:
+            raise RuntimeError("seed_rows writes the dense cache layout (not a block pool, "
+                               "a hot ring or an sp stripe)")
         assert start == self.pos, f"seed at {start} with the live context at {self.pos}"
         end = start + k_rows.shape[2]
         if end > self.spec.seq_len:
@@ -469,9 +506,9 @@ class Engine:
         steps already issued."""
         from ..cache.wire import host_rows
 
-        if self.paged:
+        if self.paged or self.sp > 1:
             raise RuntimeError("read_rows reads the dense cache layout; a paged engine's "
-                               "history is its host store")
+                               "history is its host store, an sp rank's a stripe")
         return (host_rows(self.k_cache[:, 0, :, t0:t1]),
                 host_rows(self.v_cache[:, 0, :, t0:t1]))
 
@@ -678,14 +715,15 @@ class Engine:
     def _deliver(self, tokens: list[int], on_token, stop_check, sync_tokens: bool = False
                  ) -> tuple[list[int], int | None]:
         """Hand `tokens` out through on_token until stop_check holds: returns the tokens
-        and the index of the one that stopped (None: no stop). Under tp rank 0 decides:
+        and the index of the one that stopped (None: no stop). Under tp or sp rank 0 (of
+        the whole job) decides:
         its callbacks run, and its stop index goes to every rank in one broadcast (with
         its tokens too when `sync_tokens`, rank 0's host samples); the other ranks call
         on_token on what rank 0 delivered and never their stop_check. A callback that
         raises on rank 0 is raised there, and LeaderAborted on the other ranks, before
         any of them moves its position."""
         stop, err = None, None
-        if self.tp <= 1 or self.mesh.rank == 0:
+        if self.ranks <= 1 or self.mesh.rank == 0:
             try:
                 for i, t in enumerate(tokens):
                     if on_token is not None:
@@ -694,10 +732,10 @@ class Engine:
                         stop = i
                         break
             except BaseException as e:
-                if self.tp <= 1:
+                if self.ranks <= 1:
                     raise
                 err = e
-        if self.tp <= 1:
+        if self.ranks <= 1:
             return tokens, stop
         code = -2 if err is not None else (-1 if stop is None else stop)
         got = broadcast_ints([code] + (list(tokens) if sync_tokens else []), self.mesh)
@@ -716,6 +754,16 @@ class Engine:
             for t in tokens[:len(tokens) if stop is None else stop + 1]:
                 on_token(t)
         return tokens, stop
+
+    def _agree(self, tokens: list[int], cap: int) -> list[int]:
+        """Rank 0's list of at most `cap` tokens on every rank of an sp job (a verify
+        turn's picks, which each sp rank takes from logits of its own combine order), in
+        one broadcast; unchanged without sp."""
+        if self.sp <= 1:
+            return tokens
+        got = broadcast_ints([len(tokens)] + list(tokens) + [0] * (cap - len(tokens)),
+                             self.mesh)
+        return got[1:1 + got[0]]
 
     def generate(self, prompt_tokens: list[int], max_tokens: int, sampler,
                  on_token=None, stop_check=None) -> tuple[list[int], GenerationStats]:
@@ -780,7 +828,8 @@ class Engine:
                 self.spec, self.params, chunk, mode=mode, dtype=self.dtype,
                 use_kernels=self.use_kernels, attn_window=window,
                 fused_prologue=self.fused_prologue, graphs=self.graphs, mesh=self._merge,
-                compress_collectives=self.compress)
+                compress_collectives=self.compress,
+                sp_mesh=self.mesh if self.sp > 1 else None)
         return self._decode_loops[key]
 
     def generate_chunked(self, prompt_tokens: list[int], max_tokens: int, sampler,

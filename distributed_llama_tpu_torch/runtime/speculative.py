@@ -585,6 +585,10 @@ def generate_speculative(engine, prompt_tokens: list[int], max_tokens: int,
                 accepted += 1
             else:
                 break
+        # under sp each rank verified on logits of its own ring order: rank 0's turn
+        # holds (the accepted drafts, then one correction)
+        emitted = engine._agree(emitted, len(block))
+        accepted = len(emitted) - 1
         stats.spec_accepted += accepted
         stats.spec_turns.append((len(out), len(draft), accepted))
         _VERIFY_STEPS.inc()

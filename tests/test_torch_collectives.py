@@ -184,7 +184,8 @@ def test_traffic_counter_windows_and_gauges():
 
 
 def test_mesh_refuses_sp_dp_and_needs_a_group():
-    with pytest.raises(ValueError, match="Queue A item 2"):
+    # sp is on the grid now (tests/test_torch_ring.py): like tp it needs a process group
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(tp=1, sp=2, device="cpu")
     with pytest.raises(ValueError, match=r"Queue A item 1 \(a\): dp"):
         make_mesh(tp=1, dp=2, device="cpu")

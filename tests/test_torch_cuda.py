@@ -1959,6 +1959,39 @@ def test_collectives_on_cuda_tensors_over_gloo_match_the_cpu_world(cuda, tmp_pat
 
 
 @pytest.mark.cuda
+def test_ring_attention_on_cuda_tensors_over_gloo_matches_the_cpu_world(cuda, tmp_path):
+    """Two sp ranks on cuda:0 over gloo (each shift staged through the host): the ring,
+    contiguous and striped (live_end, the chunk's register block, window_slots), on CUDA
+    tensors within f32 summation order of the CPU world's, with the same counted shift
+    bytes."""
+    from distributed_llama_tpu_torch.parallel import launch
+
+    rng = np.random.RandomState(6)
+    cases = []
+    for t, striped in ((1, False), (5, False), (1, True), (5, True)):
+        case = {"sp": 2, "striped": striped, "positions": (11 + np.arange(t)),
+                "q": rng.randn(1, t, 8, 16).astype(np.float32),
+                "k": rng.randn(1, 4, 32, 16).astype(np.float32),
+                "v": rng.randn(1, 4, 32, 16).astype(np.float32)}
+        if striped:
+            case.update(live_end=11, window_slots=8,
+                        chunk=(rng.randn(1, 4, t, 16).astype(np.float32),
+                               rng.randn(1, 4, t, 16).astype(np.float32), 11))
+        cases.append(case)
+    torch.save(cases, tmp_path / "ring.pt")
+    runs = {}
+    for dev in ("cpu", "cuda:0"):
+        (tmp_path / dev).mkdir()
+        runs[dev] = launch.run("torch_sp_ranks:ring_cases", 2, dev, backend="gloo", sp=2,
+                               args=(str(tmp_path / "ring.pt"),),
+                               workdir=str(tmp_path / dev), deadline=300)
+    for r in range(2):
+        for got, want in zip(runs["cuda:0"][r], runs["cpu"][r]):
+            np.testing.assert_allclose(got["out"], want["out"], atol=2e-5, rtol=1e-4)
+            assert (got["permute"], got["count"]) == (want["permute"], want["count"])
+
+
+@pytest.mark.cuda
 def test_nccl_world_of_one_eager_and_captured(cuda):
     """An NCCL world of one on cuda:0: the f32 all-reduce, the Q80 two-phase wire (a Q80
     round trip over one member) and the logits gather, eager and captured in a CUDA

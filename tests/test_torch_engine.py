@@ -184,6 +184,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from distributed_llama_tpu_torch.constrain import table  # noqa: F401
         from distributed_llama_tpu_torch.draft import drafter, loop  # noqa: F401
         from distributed_llama_tpu_torch.parallel import replay  # noqa: F401
+        from distributed_llama_tpu_torch.ops import ring_attention  # noqa: F401
         from distributed_llama_tpu_torch.runtime.batch_engine import BatchEngine
         from distributed_llama_tpu_torch.runtime.sampler import Sampler
         from distributed_llama_tpu_torch.models.params import init_random_params
