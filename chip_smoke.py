@@ -201,6 +201,19 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             bytes on collective_bytes_per_step, the pool drained, and each rank's #3,
             #4 (none: the residual epilogue is off under tp), #5 and #9 launches on the
             schedule of its forward steps
+  ep        expert parallelism (moe_sharding="expert"), two ranks on cuda:0 over gloo on
+            the tp phase's world: Mixtral-8x7B at full width and 8 layers (the moe
+            phase's draw; a 100-token prompt and 16 greedy tokens through
+            Engine.generate) and grok1_l2 (8 + 8), tp = 2 with 4 whole experts a rank,
+            against a tp = 1 Engine on the card (the greedy tokens or a near-tie, or
+            for Mixtral tp = 2 slice's tokens on the same draw where those part from
+            tp = 1 too; the first logits' spread logged) and, for Mixtral, beside
+            tp = 2 slice; the MoE FFN alone at layer 0 (one row and 8) against one card's
+            within EP_PROBE_TOL; launches per rank on the schedule, the expert entries'
+            owned computes summed over the ranks exactly 4L a token, the wire bytes the
+            model, each rank's peak within its shard + KV + TP_PEAK_MARGIN; each check
+            beside its control, the MoE merge skipped on every rank, which must fail
+            it
   kernels   each kernel against its plain torch version on the card at the main paths'
             shapes: max|err| against its tolerance, time per launch after warm-up,
             the plain version's time, the bound, and a PyTorch yardstick where one
@@ -220,7 +233,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             time beside the matvecs alone and its byte bound); the matvecs' expert
             entries at Mixtral-8x7B's expert shapes, each call reading another expert of
             an 8-expert stack from its device index, beside the 2-D entry on the same
-            planes
+            planes, and their owner window (a rank holding experts 4..7): inside it
+            bit-identical to the one-card window, outside exact zeros, the owned-compute
+            counter, the owned and the window-miss launch timed
   cli       `python -m distributed_llama_tpu_torch.apps.dllama generate` on a tiny
             .m/.t pair written by the port's writers, then with `--device-loop 8
             --trace`: the trace holds engine.prefill and engine.device_loop spans; then
@@ -229,7 +244,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
             (the default): its text is that of the same generation in a world of 2 on
             cuda:0, whose logits are held (2e-3·max|logits|, the near-tie rule) against
             the same wire's world of 2 on the CPU fed its tokens; where its tokens part
-            from tp = 1's, tp = 1's own top-two gap there is logged
+            from tp = 1's, tp = 1's own top-two gap there is logged; on a Mixtral-shaped
+            pair `--tp 2 --moe-sharding expert` prints `--moe-sharding slice`'s f32 text
 
 When the model, q80, serve, spec, moe and kernels phases all ran, it prints before the
 last line {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
@@ -272,13 +288,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (`_CpuRefs`) during REF_PHASES
 ALL_PHASES = ("env", "build", "model", "q80", "serve", "http", "prefix", "spec", "resil",
               "tenancy", "disagg", "obs", "constrain", "draft", "moe", "spill", "tp",
-              "tpserve", "sp", "kernels", "parity", "cli")
+              "tpserve", "sp", "ep", "kernels", "parity", "cli")
 # the phases the reference process may run beside: the card's work there times no host
 # path (the build; the kernels phase's device times; the parities' checks) or stops it
-# while it does (the sp runs' timed loops, `_refs_paused`; the tp and tpserve wiring
+# while it does (the sp and ep runs' timed loops, `_refs_paused`; the tp and tpserve wiring
 # figures are taken beside the tp phase's own CPU references and it); it is stopped
 # during every other phase, whose host-bound times it would change
-REF_PHASES = ("build", "tp", "tpserve", "sp", "kernels", "parity")
+REF_PHASES = ("build", "tp", "tpserve", "sp", "ep", "kernels", "parity")
 SOURCES = ("q4_matvec", "q4_matmul", "decode_attention", "q4_gated_matmul",
            "paged_attention", "q8_matvec", "prologue")
 _TPU = "distributed_llama_tpu/ops/"
@@ -1272,6 +1288,8 @@ def _kernels_experts(state: dict, gen, dev, rate: float) -> None:
             f"{round(dv2, 5)} ms ({how2}); the expert entry {round(dv, 5)} ms, "
             f"{dv - dv2:+.5f} ms for the index read; expert 3 bit-identical to the 2-D "
             f"entry on its planes")
+        _expert_window(state, name, launch, plain, kw, x, w, sc, es, n, k, wbytes, rate,
+                       kname, dev)
         # a decode token: 2 experts in each layer, each once through gu and once
         # through down (Mixtral-8x7B 32 layers, grok1_l2 2)
         calls = 2 * (32 if model == "Mixtral-8x7B" else 2)
@@ -1282,6 +1300,61 @@ def _kernels_experts(state: dict, gen, dev, rate: float) -> None:
     for (name, model, calls), (dv, dv2, bnd) in per_token.items():
         log(f"[kernels] {name} per {model} decode token ({calls} gu + {calls} down "
             f"calls): {dv:.3f} ms, the 2-D entry {dv2:.3f} ms, bound {bnd:.3f} ms")
+
+
+def _expert_window(state: dict, name: str, launch, plain, kw: dict, x, w, sc, es: list,
+                   n: int, k: int, wbytes: int, rate: float, kname: str, dev) -> None:
+    """The expert entry's owner window at one shape, a rank holding experts [4, 8) of
+    the 8-expert stack (tp = 2 under moe_sharding="expert"): an index inside it (both
+    ends and between) computes local matrix e - 4, bit-identical to the one-card window
+    (0, 8) on the whole stack (itself bit-identical to the 2-D entry: the row above); an
+    index outside it (below, and past the model at 8 and -1) writes exact zeros in bf16
+    and f32, as the plain version does; the card's owned-compute counter rises once per
+    launch that computed. Then the owned launch (each call another local expert, the
+    local stack 1x+ past the L2) and the window-miss launch (no weight byte read) are
+    timed; the miss's bound is its index read and its zeros, latency-bound."""
+    from distributed_llama_tpu_torch.ops import q4_matvec as mv
+    from distributed_llama_tpu_torch.ops import q8_matvec as q8
+
+    mod = mv if name.startswith("q4") else q8
+    n_e = len(es)
+    lo = n_e // 2
+    wl, scl = w[lo:], sc[lo:]
+    past = [torch.tensor([e], dtype=torch.int64, device=dev) for e in (n_e, -1)]
+    mod.owned.reset(dev)
+    computed = 0
+    for e, idx in [(e, es[e]) for e in range(n_e)] + list(zip((n_e, -1), past)):
+        got = launch(x, wl, scl, out_dtype=BF16, e=idx, e_lo=lo, **kw)
+        got32 = launch(x, wl, scl, e=idx, e_lo=lo, **kw)
+        ref = plain(x, wl, scl, idx, lo)
+        if lo <= e < n_e:
+            whole = launch(x, w, sc, out_dtype=BF16, e=idx, **kw)
+            computed += 3
+            if not torch.equal(got, whole) or not torch.equal(ref, plain(x, w, sc, idx)):
+                raise AssertionError(f"{name} N={n} K={k}: expert {e} in the window "
+                                     f"[{lo}, {n_e}) differs from the window (0, {n_e})")
+        elif got.any() or got32.any() or ref.any():
+            raise AssertionError(f"{name} N={n} K={k}: expert {e} outside the window "
+                                 f"[{lo}, {n_e}) wrote non-zero values")
+    if mod.owned.value(dev) != computed:
+        raise AssertionError(f"{name} N={n} K={k}: owned computes "
+                             f"{mod.owned.value(dev)}, launches that computed {computed}")
+    _, own, own_how, _ = _one_launch_time(
+        lambda i: launch(x, wl, scl, out_dtype=BF16, e=es[lo + i % lo], e_lo=lo, **kw), 50,
+        kname)
+    _, miss, miss_how, _ = _one_launch_time(
+        lambda i: launch(x, wl, scl, out_dtype=BF16, e=es[i % lo], e_lo=lo, **kw), 50,
+        kname)
+    b_own = bound(wbytes + k * 2 + n * 2, 2 * n * k, "int8", rate)
+    b_miss = bound(8 + n * 2, 0, "int8", rate)
+    state.setdefault("expert_window", {})[(name, n, k)] = (own, miss, b_own[0], b_miss[0])
+    log(f"[kernels] {name} N={n} K={k} owner window [{lo}, {n_e}): experts {lo}..{n_e - 1} "
+        f"bit-identical to the window (0, {n_e}), experts 0..{lo - 1}, {n_e} and -1 exact "
+        f"zeros (bf16 and f32 out, and the plain version), owned computes {computed} = "
+        f"the launches that computed; the owned launch {own:.5f} ms ({own_how}; bound "
+        f"{b_own[0]:.5f} ms by bytes, {b_own[0] / own:.2f} of it), the window-miss launch "
+        f"{miss:.5f} ms ({miss_how}; bound {b_miss[0]:.6f} ms: its index read and "
+        f"{n * 2} B of zeros, latency-bound)")
 
 
 def _synced_time(fn, iters: int, names: tuple[str, ...]) -> float:
@@ -1508,13 +1581,14 @@ def _first_layer(params):
     return dict(params, blocks={k: cut(v) for k, v in params["blocks"].items()})
 
 
-def _random_moe_params(spec, dev, seed: int, fmt: str = "q40"):
+def _random_moe_params(spec, dev, seed: int, fmt: str = "q40", to=None):
     """Mixtral or Grok-1 params with random weights drawn on `dev` directly in the
     kernels' layouts, one layer at a time (the transient is one layer's), from a seeded
     torch.Generator: wqkv, wo, the merged [up | gate] expert stack moe_gu and moe_down,
     and wcls in i4p (fmt "q40") or i8 ("q80"); the router planar in the same type (the
     forward pass dequantizes it, as the JAX package runs it); the norms (and Grok-1's
-    rms_moe and rms_ffn2).
+    rms_moe and rms_ffn2). With `to`, the stacks are assembled there and every tensor
+    moves there as soon as it is drawn: the same weights, and `dev` holds one layer's.
 
     Two choices keep the routing alive over 32 layers of random weights. The embedding
     has unit scale after Grok-1's multiplier, as a projection of a unit-RMS row has: at
@@ -1533,6 +1607,7 @@ def _random_moe_params(spec, dev, seed: int, fmt: str = "q40"):
     L, d, h, e = spec.n_layers, spec.dim, spec.hidden_dim, spec.n_experts
     q40 = fmt == "q40"
     ft = FloatType.Q40 if q40 else FloatType.Q80
+    out = dev if to is None else torch.device(to)
 
     def draw(shape):  # one (..., N, K) block of weights in the kernel layout
         if q40:
@@ -1541,8 +1616,8 @@ def _random_moe_params(spec, dev, seed: int, fmt: str = "q40"):
 
     def layered(*shape):  # (L, ..., N, K), drawn layer by layer
         first = draw(shape[1:])
-        data = torch.empty((L, *first[0].shape), dtype=first[0].dtype, device=dev)
-        scales = torch.empty((L, *first[1].shape), dtype=first[1].dtype, device=dev)
+        data = torch.empty((L, *first[0].shape), dtype=first[0].dtype, device=out)
+        scales = torch.empty((L, *first[1].shape), dtype=first[1].dtype, device=out)
         data[0], scales[0] = first
         del first
         for li in range(1, L):
@@ -1550,19 +1625,21 @@ def _random_moe_params(spec, dev, seed: int, fmt: str = "q40"):
         return QTensor(ft, data, scales, layout="i4p" if q40 else "i8")
 
     def norm(*shape):
-        return 1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)
+        return (1.0 + 0.02 * torch.randn(*shape, generator=gen, device=dev)).to(out)
 
     # the router as the file holds it: planar blocks of the weights' type
     data, scales = draw((L, e, d))
-    router = QTensor(ft, data.reshape(L, e, d // 32, -1), scales.half())
+    router = QTensor(ft, data.reshape(L, e, d // 32, -1).to(out), scales.half().to(out))
     blocks = {"wqkv": layered(L, d + 2 * spec.kv_dim, d), "wo": layered(L, d, d),
               "router": router, "moe_gu": layered(L, e, 2 * h, d),
               "moe_down": layered(L, e, d, h), "rms_att": norm(L, d), "rms_ffn": norm(L, d)}
     if spec.arch_type == ArchType.GROK1:
         blocks.update(rms_moe=norm(L, d), rms_ffn2=norm(L, d))
-    wcls = QTensor(ft, *draw((spec.vocab_size, d)), layout="i4p" if q40 else "i8")
+    wcls = QTensor(ft, *(a.to(out) for a in draw((spec.vocab_size, d))),
+                   layout="i4p" if q40 else "i8")
     emb = 1.0 / GROK_EMBEDDING_SCALE if spec.arch_type == ArchType.GROK1 else 1.0
-    return {"embedding": emb * torch.randn(spec.vocab_size, d, generator=gen, device=dev),
+    return {"embedding": (emb * torch.randn(spec.vocab_size, d, generator=gen,
+                                            device=dev)).to(out),
             "blocks": blocks, "rms_final": norm(d), "wcls": wcls}
 
 
@@ -7097,7 +7174,7 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def tp_rank_full(mesh, wires, serve=None, sp: bool = False):
+def tp_rank_full(mesh, wires, serve=None, sp: bool = False, ep: dict | None = None):
     """(b) on one rank: Llama-2-7B (the serve phase's seed, w1/w3 apart: the Engine here
     merges them, the serving engine keeps them) drawn on the card tensor by tensor into
     host memory, as Engine.load holds a `.m` file, then for each wire an Engine on the
@@ -7107,7 +7184,9 @@ def tp_rank_full(mesh, wires, serve=None, sp: bool = False):
     card's memory from the Engine on: resident, peak, and what the rank must hold (its
     shard and its KV caches). With `serve` = (prompts, hit), the tpserve phase's serving
     run follows on the same world and the same host weights (`_tpserve_on_rank`); with
-    `sp`, the sp phase's (a) on an sp = 2 mesh over the same two ranks (`_sp_on_rank`)."""
+    `sp`, the sp phase's (a) on an sp = 2 mesh over the same two ranks (`_sp_on_rank`);
+    with `ep` (each model's tp = 1 tokens), the ep phase's runs on the same two ranks
+    (`_ep_on_rank`), after the 7B host weights are freed."""
     from distributed_llama_tpu_torch.parallel.collectives import broadcast_int
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
@@ -7161,6 +7240,11 @@ def tp_rank_full(mesh, wires, serve=None, sp: bool = False):
         gc.collect()
         torch.cuda.empty_cache()
         out["sp"] = _sp_on_rank(mesh, host, _llama2_7b())
+    if ep is not None:
+        del host
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ep"] = _ep_on_rank(mesh, ep)
     return out
 
 
@@ -7375,6 +7459,7 @@ def _tp_full(state: dict, dev) -> None:
         ref.reset()
         state["sp_ref"] = _sp_reference(ref)
     del ref
+    ep = "ep" in state["phases"]
     # the tpserve phase's serving run shares this world and its host draw, and its tp = 1
     # reference these weights
     serve = None
@@ -7384,14 +7469,20 @@ def _tp_full(state: dict, dev) -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    fed = None
+    if ep:  # the ep phase's runs share this world; their tp = 1 references run here
+        state["ep_ref"] = {m: _ep_reference(m, dev) for m in ("mixtral", "grok")}
+        fed = _ep_fed(state["ep_ref"])
     t_world = time.perf_counter()
     full = launch.run("chip_smoke:tp_rank_full", TP, "cuda:0", backend="gloo",
-                      args=(("q80", "raw"), serve, sp), deadline=900)
+                      args=(("q80", "raw"), serve, sp, fed), deadline=900)
     if serve is not None:
         state["tpserve_world"] = ([r.pop("serve") for r in full],
                                   time.perf_counter() - t_world)
     if sp:
         state["sp_world"] = [r.pop("sp") for r in full]
+    if ep:
+        state["ep_world"] = [r.pop("ep") for r in full]
     # the serve phase's weights keep w1 and w3 apart (drawn in the kernels' layout, no
     # fusion): five decode matvecs a layer, and wcls
     per, L = 5 * spec.n_layers + 1, spec.n_layers
@@ -8539,21 +8630,552 @@ def phase_sp(state: dict) -> None:
     state["sp_launches"] = launches
 
 
+# --------------------------------------------------------------------------------------
+# ep: expert parallelism (moe_sharding="expert") on the tp phase's world, one card
+# --------------------------------------------------------------------------------------
+
+EP = 2
+# (a) Mixtral-8x7B's depth: the slice run on the same draw (each rank regrouping the
+# whole model it holds) and the time budget cut it from 32 (`_ep_depth` logs the figures)
+EP_LAYERS = 8
+EP_TOKENS = 16  # (a): greedy tokens after the 100-token prompt
+EP_GROK = (8, 8)  # (b): grok1_l2's prompt tokens and greedy tokens
+EP_SEEDS = {"mixtral": 21, "grok": 27}  # the moe phase's draws
+# the fed runs with every router forced to tp = 1's top-k (`_RouterLog`): each step's
+# logits against tp = 1's eager run on that routing, x max|logits|. Set from the card
+# runs of perf/ep_spread.py (PERF.md §6): on Mixtral's 8 layers the forced runs' worst
+# step was 7.092e-02 (expert) and 6.025e-02 (slice, the parent tree's and this tree's
+# alike), the fed runs with the MoE merge skipped ~1.3. Unforced, the routers flip where
+# bf16 rounding crosses a near-tie of tp = 1's top-k, and the logits part by ~1·max: one
+# card's own f32 run does the same to its bf16 run (68 flips, 1.109·max), so the
+# free-running tokens and the unforced fed run are logged beside their router flips
+EP_FED_TOL = 0.15
+# the MoE FFN alone at layer 0 (`_ep_moe_probe`), the expert-sharded body merged over the
+# ranks against one card's on the same bf16 rows, x max|one card|: the same expert
+# outputs (the entries bit-identical in and out of the window), summed in another order
+# and through the f32 all-reduce (PERF.md §6, set before the run)
+EP_PROBE_TOL = 1e-2
+
+
+def _ep_spec(model: str):
+    return _mixtral_8x7b(EP_LAYERS) if model == "mixtral" else _grok1()
+
+
+def _ep_prompt(model: str, spec) -> list[int]:
+    if model == "mixtral":
+        return _prompt_100(spec)
+    return [1] + torch.randint(3, spec.vocab_size, (EP_GROK[0] - 1,),
+                               generator=torch.Generator().manual_seed(23)).tolist()
+
+
+def _ep_tokens(model: str) -> int:
+    return EP_TOKENS if model == "mixtral" else EP_GROK[1]
+
+
+def _i4p_bytes(n: int, k: int) -> int:
+    return n * k // 2 + n * k // 32 * 2
+
+
+def _ep_depth() -> str:
+    """Why (a) runs EP_LAYERS of Mixtral-8x7B's 32: the log's note. Every rank holds the
+    whole model on its host for the Engine to cut its shard from, and the slice run on
+    the same draw regroups it there or on the card (moe_gu's rows interleaved, moe_down
+    unpacked and packed per column group: about two more copies of the expert stacks);
+    and the phases' time budget."""
+    spec = _mixtral_8x7b()
+    d, h, e = spec.dim, spec.hidden_dim, spec.n_experts
+    layer = (_i4p_bytes(d + 2 * spec.kv_dim, d) + _i4p_bytes(d, d)
+             + e * (_i4p_bytes(2 * h, d) + _i4p_bytes(d, h)))
+    experts = spec.n_layers * e * (_i4p_bytes(2 * h, d) + _i4p_bytes(d, h))
+    full = spec.n_layers * layer + _i4p_bytes(spec.vocab_size, d) + spec.vocab_size * d * 4
+    with open("/proc/meminfo") as f:
+        host = int(next(ln for ln in f if ln.startswith("MemTotal")).split()[1]) << 10
+    card = torch.cuda.get_device_properties(0).total_memory
+    need = EP * (full + 2 * experts)
+    return (f"depth {EP_LAYERS} of 32: at 32 layers each of the {EP} ranks holds the "
+            f"whole {full / 1e9:.2f} GB model to cut its shard from, and the slice run on "
+            f"the same draw regroups its {experts / 1e9:.2f} GB of expert stacks (about two "
+            f"more copies): {need / 2**30:.1f} GiB across the ranks against the host's "
+            f"{host / 2**30:.1f} GiB and the card's {card / 2**30:.1f} GiB, beside the "
+            f"phases' 900 s budget")
+
+
+@contextlib.contextmanager
+def _moe_merge_skipped():
+    """The ep checks' control: the merge point after the MoE FFN skipped on every rank
+    (the attention and logits merges kept), so each rank's FFN output holds only the
+    active experts it owns. A working owner split must fail the check under it."""
+    from distributed_llama_tpu_torch.models import forward as fw
+
+    real_moe, real_merge = fw._moe_ffn, fw._Step.merge
+    pending = threading.local()
+
+    def moe(*args, **kw):
+        pending.skip = True  # _block merges the MoE output next
+        return real_moe(*args, **kw)
+
+    def merge(self, y):
+        if getattr(pending, "skip", False):
+            pending.skip = False
+            return y
+        return real_merge(self, y)
+
+    fw._moe_ffn, fw._Step.merge = moe, merge
+    try:
+        yield
+    finally:
+        fw._moe_ffn, fw._Step.merge = real_moe, real_merge
+
+
+class _RouterLog:
+    """forward._route wrapped: each call's top-k and its sorted probabilities kept on
+    the host, and with `force` (an earlier run's top-k, call by call) every call takes
+    that call's experts, weighted by its own router's probabilities there (renormalized),
+    so two runs share their routing and differ only where the arithmetic does. Eager
+    steps only: a captured step replays without calling it."""
+
+    def __init__(self, force: list | None = None):
+        self.calls, self.force = [], force
+
+    def __enter__(self):
+        from distributed_llama_tpu_torch.models import forward as fw
+        from distributed_llama_tpu_torch.ops.matmul import qmatmul
+
+        self.fw, self.real = fw, fw._route
+
+        def route(xb, bp, spec):
+            top_i, w = self.real(xb, bp, spec)
+            probs = torch.softmax(qmatmul(xb, bp["router"], use_kernels=False).float(), -1)
+            if self.force is not None:
+                top_i = torch.as_tensor(self.force[len(self.calls)], device=xb.device)
+                p = probs.gather(-1, top_i)
+                w = p / p.sum(dim=-1, keepdim=True)
+            self.calls.append((top_i.cpu().numpy(),
+                               torch.sort(probs, dim=-1, descending=True)[0].cpu().numpy()))
+            return top_i, w
+
+        fw._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.fw._route = self.real
+
+
+def _fed_run(eng, spec, prompt: list, tokens: list, force: list | None = None):
+    """Generate from position 0 with `tokens` fed (every rank's sampler forced): every
+    step's logits and the router log (`_RouterLog`, the routing forced to `force`)."""
+    eng.reset()
+    smp = _CheckedSampler(spec.vocab_size, keep=True, force=tokens)
+    with _RouterLog(force) as routes:
+        eng.generate(prompt, len(tokens), smp)
+    return smp.kept, routes.calls
+
+
+def _router_flips(routes: list, ref: list, k: int) -> list:
+    """(call, row, ref's gap p_k - p_k+1) wherever a run's top-k (`routes`, call by call)
+    chose other experts than `ref`'s (a `_RouterLog`'s calls)."""
+    out = []
+    for c, (got, (want, probs)) in enumerate(zip(routes, ref)):
+        for t in range(got.shape[1]):
+            if set(got[0, t].tolist()) != set(want[0, t].tolist()):
+                out.append((c, t, float(probs[0, t, k - 1] - probs[0, t, k])))
+    return out
+
+
+def _ep_reference(model: str, dev) -> dict:
+    """The tp = 1 engine on the card (one-token steps as graph replays) on the draw:
+    the first-step logits, the greedy tokens and the logits row each was picked from,
+    ms/token. Then one card's fed runs of those tokens, eagerly: bf16 with every
+    router's top-k kept (the routing the tp = 2 forced runs take), and the witness of
+    one card's own rounding, f32 on that routing."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine, GenerationStats
+
+    spec = _ep_spec(model)
+    params = _random_moe_params(spec, dev, seed=EP_SEEDS[model])
+    prompt = _ep_prompt(model, spec)
+    eng = Engine(spec, params, prefill_kernel=True)
+    first = eng.prefill(prompt)
+    smp = _CheckedSampler(spec.vocab_size, keep=True)
+    stats = GenerationStats()
+    toks = eng._decode(first, _ep_tokens(model), smp, stats)
+    out = {"first": first, "tokens": toks, "rows": smp.kept, "ms": stats.infer_ms}
+    del eng
+    eng = Engine(spec, params, prefill_kernel=True, cuda_graph=False)
+    out["eager"], out["routes"] = _fed_run(eng, spec, prompt, toks)
+    del eng
+    eng = Engine(spec, params, prefill_kernel=True, cuda_graph=False, dtype=torch.float32)
+    out["f32"], _ = _fed_run(eng, spec, prompt, toks, [c[0] for c in out["routes"]])
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_fed(refs: dict) -> dict:
+    """What the ranks take of each model's tp = 1 reference: its greedy tokens and its
+    eager run's routing."""
+    return {m: {"tokens": r["tokens"], "force": [c[0] for c in r["routes"]]}
+            for m, r in refs.items()}
+
+
+def _ep_moe_probe(mesh, spec, host, shard) -> dict:
+    """The MoE FFN alone at layer 0 of the draw, bf16, on seeded unit-normal rows: one
+    row (the expert entries with the owner window) and 8 rows (the local experts' loop
+    through q4_matmul). This rank's expert-sharded body merged over the ranks (the
+    step's f32 all-reduce) against the whole layer's one-card `_moe_ffn` on this card,
+    and the control, the rank's own output unmerged. Returns per row count (error,
+    control error) x max|one card|."""
+    from distributed_llama_tpu_torch.models import forward as fw
+    from distributed_llama_tpu_torch.models.params import params_to
+    from distributed_llama_tpu_torch.parallel.collectives import psum
+
+    dev = mesh.device
+    whole = params_to({k: v for k, v in fw.layer_params(host["blocks"], 0).items()
+                       if k == "router" or k.startswith("moe_")}, dev)
+    local = fw.layer_params(shard["blocks"], 0)
+    gen = torch.Generator().manual_seed(29)
+    out = {}
+    for t in (1, 8):
+        xb = torch.randn(1, t, spec.dim, generator=gen).to(dev, torch.bfloat16)
+        kernels = True if t == 1 else "all"
+        want = fw._moe_ffn(xb, whole, spec, kernels).float()
+        mine = fw._moe_ffn(xb, local, spec, kernels, mesh)
+        got = psum(mine, mesh).float()
+        scale = float(want.abs().max())
+        out[t] = (float((got - want).abs().max()) / scale,
+                  float((mine.float() - want).abs().max()) / scale)
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_run(mesh, model: str, params, moe_sharding: str, counters, fed: dict) -> dict:
+    """One Engine over the tp = EP mesh from `params` (host weights, or card weights for
+    the slice run), bf16, prefill_kernel, raw wire: generate on the model's prompt and
+    greedy tokens (rank 0's picks delivered to every rank), the CPU reference process
+    stopped meanwhile. Per decode step the counted wire bytes; the launches and the
+    expert entries' owned computes (the card's counter) of the prefill and the decode;
+    the first logits, rank wall ms a step, and the card's memory from the Engine on:
+    peak and what the rank must hold (its shard and KV caches). Then the fed runs, tp =
+    1's tokens fed (`fed`: its tokens and its routing), every step's logits kept: with
+    the routers free (their top-k kept) and forced to tp = 1's. Under "expert" the probe
+    (`_ep_moe_probe`) and the control follow: the forced fed run with the MoE merge
+    skipped on every rank."""
+    from distributed_llama_tpu_torch.ops import q4_matvec as mv
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    dev = mesh.device
+    spec = _ep_spec(model)
+    prompt = _ep_prompt(model, spec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    eng = Engine(spec, params, mesh=mesh, prefill_kernel=True, moe_sharding=moe_sharding)
+    gc.collect()
+    held = (_tree_bytes(eng.params) + eng.k_cache.numel() * eng.k_cache.element_size()
+            + eng.v_cache.numel() * eng.v_cache.element_size())
+    run = {"prefill": None}
+    steps = []
+    infer = eng.infer_chunk
+
+    def on_token(_tok):  # the first token ends the prefill
+        if run["prefill"] is None:
+            run["prefill"] = (_read(counters), mv.owned.value(dev))
+            _zero(counters)
+            mv.owned.reset(dev)
+
+    def step(tokens):  # a decode step: its counted wire bytes
+        if run["prefill"] is None:
+            return infer(tokens)
+        with mesh.counter.window() as traffic:
+            logits = infer(tokens)
+        steps.append(traffic.sent_bytes_per_device)
+        return logits
+
+    eng.infer_chunk = step
+    smp = _CheckedSampler(spec.vocab_size, keep=True)
+    _zero(counters)
+    mv.owned.reset(dev)
+    with _refs_paused(mesh) as refs_stopped:
+        tokens, stats = eng.generate(prompt, _ep_tokens(model), smp, on_token=on_token)
+    del eng.infer_chunk
+    row = {"rank": mesh.rank, "first": smp.kept[0], "tokens": tokens,
+           "ms": stats.infer_ms, "prefill_ms": stats.prefill_ms, "steps": steps,
+           "refs_stopped": refs_stopped, "prefill_launches": run["prefill"][0],
+           "prefill_owned": run["prefill"][1], "launches": _read(counters),
+           "owned": mv.owned.value(dev), "held": held,
+           "peak": torch.cuda.max_memory_allocated(dev) - base,
+           "experts": eng.params["blocks"]["moe_gu"].shape[1]}
+
+    row["fed"], routes = _fed_run(eng, spec, prompt, fed["tokens"])
+    row["routes"] = [c[0] for c in routes]
+    row["forced"], _ = _fed_run(eng, spec, prompt, fed["tokens"], fed["force"])
+    if moe_sharding == "expert":
+        row["probe"] = _ep_moe_probe(mesh, spec, params, eng.params)
+        with _moe_merge_skipped():
+            row["broken"], _ = _fed_run(eng, spec, prompt, fed["tokens"], fed["force"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ep_on_rank(mesh, fed: dict) -> dict:
+    """The ep runs of one rank of the tp = EP world: (a) Mixtral-8x7B at EP_LAYERS drawn
+    on the card into host memory (the moe phase's draw), the expert-sharded Engine from
+    it, then the slice-sharded Engine on the same draw (its weights on the card, where
+    the Engine regroups them); (b) grok1_l2 the same way, expert-sharded only. `fed`:
+    each model's tp = 1 greedy tokens and routing (`_ep_fed`), which the fed runs take."""
+    from distributed_llama_tpu_torch.models.params import params_to
+
+    dev = mesh.device
+    counters = _single_counters()
+    out = {}
+    for model in ("mixtral", "grok"):
+        spec = _ep_spec(model)
+        host = _random_moe_params(spec, dev, seed=EP_SEEDS[model], to="cpu")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[model] = _ep_run(mesh, model, host, "expert", counters, fed[model])
+        if model == "mixtral":
+            card = params_to(host, dev)
+            del host
+            out["mixtral_slice"] = _ep_run(mesh, model, card, "slice", counters,
+                                           fed[model])
+            del card
+        else:
+            del host
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank_alone(mesh, fed: dict):
+    """The ep runs on a world of their own (where the tp phase did not run to share its
+    world)."""
+    return _ep_on_rank(mesh, fed)
+
+
+def _ep_schedule(model: str, spec) -> tuple[dict, dict, int]:
+    """Each rank's launches under "expert": per decode token wqkv, wo (q4_matvec) and
+    wcls, the k = 2 experts' gu and down through the expert entry (every rank launches;
+    a rank that does not own the expert writes zeros), attention once a layer; per M > 1
+    prompt chunk (64 or 8 tokens) q4_matmul on wqkv, wo, the el local experts' gu and
+    down and wcls: (2 + 2·el)·L + 1; the prompt's one-token steps as decode tokens.
+    Returns (decode, prefill, the prompt's one-token steps)."""
+    L, el = spec.n_layers, spec.n_experts // EP
+    n = _ep_tokens(model)
+    p = len(_ep_prompt(model, spec))
+    chunks, ones = p // 64 + p % 64 // 8, p % 8
+    one = {"q4_matvec": 2 * L + 1, "q4_matvec_expert": 4 * L, "decode_attention": L,
+           "q4_matmul": 0}
+    decode = {k: n * v for k, v in one.items()}
+    prefill = {k: ones * v for k, v in one.items()}
+    prefill["q4_matmul"] = chunks * ((2 + 2 * el) * L + 1)
+    return decode, prefill, ones
+
+
+def _ep_check(model: str, ranks: list, slice_ranks: list | None, ref: dict) -> str:
+    """(a) or (b)'s checks against the tp = 1 engine; returns the log line. Every figure
+    is logged before a failed check raises."""
+    from distributed_llama_tpu_torch.runtime.engine import collective_kbytes_per_token
+
+    spec = _ep_spec(model)
+    tag = "(a) Mixtral-8x7B" if model == "mixtral" else "(b) grok1_l2"
+    L, el = spec.n_layers, spec.n_experts // EP
+    decode, prefill, ones = _ep_schedule(model, spec)
+    n = _ep_tokens(model)
+    wire = collective_kbytes_per_token(spec, EP, False) * 1024
+    r0 = ranks[0]
+    failed = []
+    for r, row in enumerate(ranks):
+        if row["tokens"] != r0["tokens"]:
+            failed.append(f"rank {r} decoded other tokens than rank 0")
+        if row["experts"] != el:
+            failed.append(f"rank {r}: {row['experts']} experts a layer")
+        got = {k: row["launches"][k] for k in decode}
+        got_pre = {k: row["prefill_launches"][k] for k in prefill}
+        if got != decode or got_pre != prefill:
+            failed.append(f"rank {r}: launches {got} / prefill {got_pre}")
+        if len(row["steps"]) != n or any(b != wire for b in row["steps"]):
+            failed.append(f"rank {r}: counted wire bytes a step {row['steps']}")
+        if row["peak"] > row["held"] + TP_PEAK_MARGIN:
+            failed.append(f"rank {r}: peak {row['peak'] / 2**30:.3f} GiB against its "
+                          f"shard and KV {row['held'] / 2**30:.3f} GiB + "
+                          f"{TP_PEAK_MARGIN / 2**30:.2f}")
+    # each active expert has exactly one owner: the ranks' computes sum to 4L a token
+    owned = [row["owned"] for row in ranks]
+    owned_pre = [row["prefill_owned"] for row in ranks]
+    if sum(owned) != 4 * L * n or sum(owned_pre) != 4 * L * ones:
+        failed.append(f"owned computes {owned} / {owned_pre}, the model "
+                      f"{4 * L * n} / {4 * L * ones} summed")
+    # the check holds every rank's merged output; its control fails where any rank's
+    # own output is off
+    probe = {t: (max(row["probe"][t][0] for row in ranks),
+                 max(row["probe"][t][1] for row in ranks)) for t in r0["probe"]}
+    for t, (err, bad) in probe.items():
+        if err > EP_PROBE_TOL:
+            failed.append(f"the MoE FFN alone at T={t}: {err:.3e}·max from one card")
+        if not bad > EP_PROBE_TOL:
+            failed.append(f"the MoE FFN alone at T={t} unmerged passes its check "
+                          f"({bad:.3e}·max)")
+    scale = float(np.abs(ref["first"]).max())
+    k = spec.n_active_experts
+
+    def worst(rows, want) -> float:  # the largest step's max|Δlogits|, x max|logits|
+        return max(float(np.abs(g - w).max()) for g, w in zip(rows, want)) / scale
+
+    if not all(np.isfinite(row["first"]).all() for row in ranks):
+        failed.append("non-finite first logits")
+    # every rank's forced fed run (tp = 1's tokens and routing), each step against tp =
+    # 1's eager run on that routing; its control, the MoE merge skipped, must fail it
+    forced = max(worst(row["forced"], ref["eager"]) for row in ranks)
+    broken = worst(r0["broken"], ref["eager"])
+    witness = worst(ref["f32"], ref["eager"])
+    if forced > EP_FED_TOL:
+        failed.append(f"the forced fed run's worst step {forced:.3e}·max from tp=1's "
+                      f"(tolerance {EP_FED_TOL})")
+    if not broken > EP_FED_TOL:
+        failed.append(f"with the MoE merge skipped the forced fed run still passes "
+                      f"({broken:.3e}·max)")
+    # the forced run's picks: tp = 1's, or another where tp = 1's top two lie within the
+    # step's held error
+    ties = []
+    for j, (row, want) in enumerate(zip(r0["forced"], ref["eager"])):
+        a, b = ref["tokens"][j], int(np.argmax(row))
+        if a != b:
+            ties.append(f"step {j} {b} for {a}, {float(want[a] - want[b]) / scale:.3e}·max "
+                        f"apart in tp=1's logits")
+    picks = ("tp=1's at every step" if not ties else
+             f"tp=1's but at near-ties ({'; '.join(ties)})")
+    # the real path, routers free: logged beside its router flips against tp = 1's
+    first = max(float(np.abs(row["first"] - ref["first"]).max()) for row in ranks) / scale
+    flips = _router_flips(r0["routes"], ref["routes"], k)
+    part = next((j for j, (a, b) in enumerate(zip(r0["tokens"], ref["tokens"])) if a != b),
+                None)
+    if part is None:
+        free = f"tp=1's ({n})"
+    else:
+        row = ref["rows"][part]
+        a, b = ref["tokens"][part], r0["tokens"][part]
+        free = (f"tp=1's up to token {part}, where tp=1's logits put {a} and {b} "
+                f"{float(row[a] - row[b]) / float(np.abs(row).max()):.3e}·max apart")
+    flip_note = (f"{len(flips)} router flips against tp=1's (the first at router call "
+                 f"{flips[0][0]} row {flips[0][1]}, tp=1's k-th and next probabilities "
+                 f"{flips[0][2]:.3e} apart there; the widest gap {max(f[2] for f in flips):.3e})"
+                 if flips else "no router flip against tp=1's")
+    ms = np.array(r0["ms"])
+    ms1 = np.array(ref["ms"])
+    quiet = ("the CPU reference process stopped" if r0["refs_stopped"] else
+             "no CPU reference process running")
+    line = (f"[ep] {tag} {L} layers bf16 Q40, tp={EP} moe_sharding=expert ({el} experts a "
+            f"rank), raw wire, two ranks time-slicing cuda:0 over gloo (a wiring figure, "
+            f"not an EP speed): {len(_ep_prompt(model, spec))}-token prompt "
+            f"{r0['prefill_ms']:.1f} ms, {n} greedy tokens through Engine.generate "
+            f"{ms.mean():.3f} ms/token (rank 0's step wall; min {ms.min():.3f}, median "
+            f"{np.median(ms):.3f}, max {ms.max():.3f}; {quiet}; tp=1 on the card "
+            f"{ms1.mean():.3f}); fed tp=1's tokens with the routers forced to tp=1's top-k, "
+            f"every rank's worst step {forced:.3e}·max from tp=1's eager run on that "
+            f"routing (tolerance {EP_FED_TOL}; one card's f32 run on it {witness:.3e} from "
+            f"its bf16 run), the control with the MoE merge skipped on every rank "
+            f"{broken:.3e} ({broken / EP_FED_TOL:.1f}x: fails), its picks {picks}; the "
+            f"routers free (logged): first-step logits {first:.3e}·max from tp=1, the fed "
+            f"run's worst step {worst(r0['fed'], ref['rows']):.3e}, {flip_note}, the "
+            f"free-running tokens {free}; the MoE FFN alone at layer 0 "
+            f"(expert-sharded, merged) against one card's: "
+            + "; ".join(f"T={t} {e:.3e}·max (tolerance {EP_PROBE_TOL}), unmerged {b:.3e}"
+                        f" ({b / EP_PROBE_TOL:.1f}x)" for t, (e, b) in probe.items())
+            + f"; wire {wire:.0f} B a step = collective_kbytes_per_token (exact); launches "
+            f"per rank {json.dumps(decode)} + prefill {json.dumps(prefill)}; the expert "
+            f"entry's owned computes per rank {owned} (decode) + {owned_pre} (the prompt's "
+            f"one-token steps), summed {sum(owned)} = 4·L·{n} and {sum(owned_pre)} = "
+            f"4·L·{ones}: one owner an active expert; memory per rank: shard + KV "
+            + ", ".join(f"{row['held'] / 2**30:.3f}" for row in ranks) + " GiB, peak "
+            + ", ".join(f"{row['peak'] / 2**30:.3f}" for row in ranks) + " GiB")
+    if slice_ranks is not None:
+        s0 = slice_ranks[0]
+        if any(row["tokens"] != s0["tokens"] for row in slice_ranks):
+            failed.append("slice: the ranks decoded other tokens")
+        s_forced = max(worst(row["forced"], ref["eager"]) for row in slice_ranks)
+        if s_forced > EP_FED_TOL:
+            failed.append(f"slice: the forced fed run's worst step {s_forced:.3e}·max from "
+                          f"tp=1's (tolerance {EP_FED_TOL})")
+        sms = np.array(s0["ms"])
+        line += (f"; beside it tp={EP} moe_sharding=slice on the same draw (the weights "
+                 f"regrouped on the card): {sms.mean():.3f} ms/token (min {sms.min():.3f}, "
+                 f"max {sms.max():.3f}), the forced fed run's worst step {s_forced:.3e}·max "
+                 f"(tolerance {EP_FED_TOL}); routers free: first-step logits "
+                 f"{float(np.abs(s0['first'] - ref['first']).max()) / scale:.3e}·max from "
+                 f"tp=1 and {float(np.abs(s0['first'] - r0['first']).max()) / scale:.3e} "
+                 f"from expert's, the fed run's worst step "
+                 f"{worst(s0['fed'], ref['rows']):.3e}, "
+                 f"{len(_router_flips(s0['routes'], ref['routes'], k))} router flips")
+    log(line)
+    if failed:
+        raise AssertionError(f"[ep] {tag}: " + "; ".join(failed))
+    return line
+
+
+def phase_ep(state: dict) -> None:
+    """Expert parallelism on one card (moe_sharding="expert", the expert entries' owner
+    window): (a) Mixtral-8x7B at full width, EP_LAYERS deep (`_ep_depth`), and (b)
+    grok1_l2, each tp = 2 expert-sharded as two ranks time-slicing cuda:0 over gloo on
+    the tp phase's world (its own where the tp phase did not run), against a tp = 1
+    Engine on the card on the moe phase's draws; (a) also beside tp = 2 slice-sharded
+    on the same draw. Each check (tokens, first logits) beside its control, the MoE merge
+    skipped on every rank; the launches per rank, the owned computes summed over the
+    ranks, the wire bytes and each rank's peak exactly or within their bounds. Host
+    staged: a wiring figure, not an EP speed."""
+    from distributed_llama_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    refs = state.pop("ep_ref", None)
+    if refs is None:
+        refs = {m: _ep_reference(m, dev) for m in ("mixtral", "grok")}
+    world = state.pop("ep_world", None)
+    shared = world is not None
+    if world is None:
+        world = launch.run("chip_smoke:ep_rank_alone", EP, "cuda:0", backend="gloo",
+                           args=(_ep_fed(refs),),
+                           deadline=900)
+    log(f"[ep] (a) {_ep_depth()}")
+    _ep_check("mixtral", [r["mixtral"] for r in world], [r["mixtral_slice"] for r in world],
+              refs["mixtral"])
+    _ep_check("grok", [r["grok"] for r in world], None, refs["grok"])
+    # rank 0's launches in the ep runs, (a) and (b) expert-sharded
+    state["ep_launches"] = {
+        k: sum(world[0][m]["launches"][k] + world[0][m]["prefill_launches"][k]
+               for m in ("mixtral", "grok"))
+        for k in ("q4_matvec", "q4_matvec_expert", "q4_matmul", "decode_attention")}
+    log("[ep] " + ("on the tp phase's world (its time is in the tp phase's)" if shared
+                   else f"on a world of its own: {time.perf_counter() - t0:.1f} s with the "
+                        f"tp=1 references"))
+
+
 def phase_cli(state: dict) -> None:
     from distributed_llama_tpu_torch.formats.mfile import params_file_order, write_model
     from distributed_llama_tpu_torch.formats.tfile import TokenizerData, write_tokenizer
     from distributed_llama_tpu_torch.models.params import init_random_params
-    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
+    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec, RopeType
     from distributed_llama_tpu_torch.quants import FloatType
 
     vocab = [b"<unk>", b"<s>", b"</s>"] + [bytes([i]) for i in range(256)] + [b" ", b"he",
                                                                           b"llo"]
     spec = ModelSpec(arch_type=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2,
                      n_heads=4, n_kv_heads=2, vocab_size=len(vocab), seq_len=128).resolved()
+    # a Mixtral-shaped pair for --moe-sharding: 4 experts, 2 a rank at tp = 2
+    moe = ModelSpec(arch_type=ArchType.MIXTRAL, dim=256, hidden_dim=512, n_layers=2,
+                    n_heads=4, n_kv_heads=2, vocab_size=len(vocab), seq_len=128,
+                    n_experts=4, n_active_experts=2, rope_type=RopeType.FALCON).resolved()
     with tempfile.TemporaryDirectory() as tmp:
         mpath, tpath = os.path.join(tmp, "tiny.m"), os.path.join(tmp, "tiny.t")
         params = init_random_params(spec, FloatType.Q40, seed=2)
         write_model(mpath, spec, params_file_order(spec, params), FloatType.Q40)
+        moe_path = os.path.join(tmp, "moe.m")
+        params = init_random_params(moe, FloatType.Q40, seed=3)
+        write_model(moe_path, moe, params_file_order(moe, params), FloatType.Q40)
         write_tokenizer(tpath, TokenizerData(vocab=vocab, scores=[0.0] * 259 + [-1.0] * 3,
                                              bos_id=1, eos_id=2, max_token_length=4))
         cmd = [sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama", "generate",
@@ -8563,13 +9185,17 @@ def phase_cli(state: dict) -> None:
         f32 = cmd + ["--dtype", "float32"]
         one_card = ["--device", "cuda:0", "--dist-backend", "gloo"]
         tp2 = f32 + ["--tp", "2"] + one_card
-        # the six CLI runs and the Q80 wire's world on cuda:0 at once: independent
+        moe_tp2 = [moe_path if a == mpath else a for a in tp2] + ["--buffer-float-type",
+                                                                  "f32"]
+        # the eight CLI runs and the Q80 wire's world on cuda:0 at once: independent
         # processes sharing the card (nothing here is timed)
         procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE)
                  for c in (cmd, cmd + ["--device-loop", "8", "--trace", tpath_json], f32,
                            tp2 + ["--buffer-float-type", "f32"], tp2,
-                           f32 + ["--sp", "2"] + one_card)]
+                           f32 + ["--sp", "2"] + one_card,
+                           moe_tp2 + ["--moe-sharding", "expert"],
+                           moe_tp2 + ["--moe-sharding", "slice"])]
         try:
             from distributed_llama_tpu_torch.parallel import launch
 
@@ -8603,15 +9229,24 @@ def phase_cli(state: dict) -> None:
         raise AssertionError(f"cli: --tp 2 printed {text2!r}, --tp 1 {text1!r}")
     if texts[5] != text1:
         raise AssertionError(f"cli: --sp 2 printed {texts[5]!r}, --sp 1 {text1!r}")
-    loaded2, loaded_sp = ([ln for ln in runs[i].stdout.decode("utf-8", "replace").splitlines()
-                           if ln.startswith("⏩")] for i in (3, 5))
+    if texts[6] != texts[7]:
+        raise AssertionError(f"cli: --moe-sharding expert printed {texts[6]!r}, "
+                             f"--moe-sharding slice {texts[7]!r}")
+    loaded2, loaded_sp, loaded_ep = (
+        [ln for ln in runs[i].stdout.decode("utf-8", "replace").splitlines()
+         if ln.startswith("⏩")] for i in (3, 5, 6))
+    if not loaded_ep or "experts whole over tp" not in loaded_ep[0]:
+        raise AssertionError(f"cli: --moe-sharding expert loaded {loaded_ep}")
     log(f"[cli] dllama generate exited 0: {loaded[0] if loaded else out[-200:]!r}; "
         f"with --device-loop 8 --trace: spans {json.dumps(dict(spans))}; --tp 2 --device "
         f"cuda:0 --dist-backend gloo --dtype float32 --buffer-float-type f32 "
         f"({loaded2[0] if loaded2 else ''}) printed --tp 1's f32 text; --sp 2 --device "
         f"cuda:0 --dist-backend gloo --dtype float32 ({loaded_sp[0] if loaded_sp else ''}) "
         f"printed --sp 1's f32 text {text1!r}; the same as --tp 2 on the Q80 wire (the "
-        f"CLI's default): {q80_note}")
+        f"CLI's default): {q80_note}; on a Mixtral-shaped pair (4 experts) --tp 2 "
+        f"--moe-sharding expert --device cuda:0 --dist-backend gloo --dtype float32 "
+        f"--buffer-float-type f32 ({loaded_ep[0]}) printed --moe-sharding slice's f32 "
+        f"text {texts[6]!r}")
 
 
 CLI_STEPS = 16  # the cli phase's generated tokens
@@ -8706,6 +9341,9 @@ def kernels_line(state: dict) -> str:
         if name in state.get("sp_launches", {}):
             # the sp path: rank 0's launches in the sp runs ((a) at 7B, (b)'s Q80 wire)
             rows[-1]["sp_launches"] = state["sp_launches"][name]
+        if name in state.get("ep_launches", {}):
+            # the ep path: rank 0's launches in the expert-sharded runs ((a) and (b))
+            rows[-1]["ep_launches"] = state["ep_launches"][name]
     return json.dumps({"kernels": rows})
 
 

@@ -1420,7 +1420,7 @@ def engine_kwargs(args) -> dict:
               use_kernels=False if args.no_kernels else None,
               prefill_kernel=args.prefill_kernel,
               fused_matmul=args.fused_matmul or args.batch > 1,
-              fused_prologue=args.prologue)
+              fused_prologue=args.prologue, moe_sharding=args.moe_sharding)
     if mesh is not None:
         # the Q80 wire reduces the tp partial sums: an sp-only job (tp = 1) has none
         kw.update(mesh=mesh,

@@ -124,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def add_parallel_flags(p: argparse.ArgumentParser) -> None:
-    """--tp, --sp, --buffer-float-type, --pod and its rendezvous, --dist-backend."""
+    """--tp, --sp, --moe-sharding, --buffer-float-type, --pod and its rendezvous,
+    --dist-backend."""
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel ranks: every projection sharded, the KV cache by "
                         "heads, the partial sums reduced per layer (parallel/)")
@@ -133,6 +134,12 @@ def add_parallel_flags(p: argparse.ArgumentParser) -> None:
                         "cache's sequence axis striped over them, the KV blocks rotating "
                         "around the ring each step (ops/ring_attention.py); with --tp, "
                         "sp x tp ranks")
+    p.add_argument("--moe-sharding", default="slice", choices=["slice", "expert"],
+                   help="MoE expert placement over the tp axis: 'slice' TP-slices "
+                        "every expert's hidden dim (the reference's scheme); "
+                        "'expert' shards WHOLE experts (each chip owns E/tp experts "
+                        "— the capacity axis for Grok-1-314B-class expert weights; "
+                        "requires n_experts %% tp == 0)")
     p.add_argument("--buffer-float-type", default="q80",
                    choices=["f32", "f16", "q40", "q80"],
                    help="the tp wire: q80 reduces the partial sums through the Q80-"
@@ -216,6 +223,22 @@ def check_tp(args) -> None:
         Engine._refuse_under_tp(kv_cache_storage=args.kv_cache_storage)
     if args.sp > 1:
         Engine._refuse_under_sp(kv_cache_storage=args.kv_cache_storage)
+    check_moe_layout(args)
+
+
+def check_moe_layout(args) -> None:
+    """--moe-sharding expert needs --tp to divide the model's experts (the header's
+    n_experts): the JAX package's check_divisibility message, before any rank
+    starts."""
+    tp = args.tp or 1
+    if args.moe_sharding != "expert" or tp <= 1:
+        return
+    from ..formats.mfile import read_spec
+
+    spec, _, _ = read_spec(args.model)
+    if spec.is_moe and spec.n_experts % tp:
+        raise ValueError(f"expert sharding: tp={tp} must divide "
+                         f"n_experts={spec.n_experts}")
 
 
 def job_ranks(args) -> int:
@@ -289,6 +312,7 @@ def make_engine(args) -> Engine:
         weights_ftype=_FT[args.weights_float_type] if args.weights_float_type else None,
         device=args.device if mesh is None else None, mesh=mesh,
         compress_collectives=args.buffer_float_type == "q80" and tp > 1,
+        moe_sharding=args.moe_sharding,
         dtype=(None if args.dtype == "auto"
                else torch.bfloat16 if args.dtype == "bfloat16" else torch.float32),
         use_kernels=False if args.no_kernels else None,
@@ -300,7 +324,9 @@ def make_engine(args) -> Engine:
           f"prologue={engine.fused_prologue}"
           + (f", paged KV ring of {engine.kv_resident}" if engine.paged else "")
           + (f", tp={engine.tp} over {mesh.backend}"
-             + (", Q80 wire" if engine.compress else ", f32 wire") if tp > 1 else "")
+             + (", Q80 wire" if engine.compress else ", f32 wire")
+             + (", experts whole over tp" if engine.moe_sharding == "expert" else "")
+             if tp > 1 else "")
           + (f", sp={engine.sp} ring over {mesh.backend}"
              + (" (host-staged)" if mesh.backend == "gloo"
                 and engine.device.type == "cuda" else "") if engine.sp > 1 else "")

@@ -34,12 +34,19 @@
 //   the lanes holding it) or copied, then the other slots: row loads issued behind the
 //   whole ring wait for the megabytes of weights ahead of them in the memory system.
 // - Experts (the q4/q8 expert entries, float row only): the weights are one layer's
-//   stack of E matrices and a one-element index in device memory, written by the
-//   router's top-k just ahead in the stream, says which. Every block loads the index
-//   first, with its row loads, and offsets its weight and scale bases by e·n rows
-//   before its first bulk copy: one dependent load ahead of the ring, and no copy of
-//   the expert, no host read of the index, so a captured step replays with the index
-//   the router writes that step (the JAX package's dynamic_slice_in_dim on the stack).
+//   stack of the n_local matrices a rank owns, experts [e_lo, e_lo + n_local) (all E
+//   of them on one card: the window (0, E)), and a one-element index in device memory,
+//   written by the router's top-k just ahead in the stream, says which expert. Every
+//   block loads the index first and offsets its weight and scale bases by
+//   (e - e_lo)·n rows before its first bulk copy: one dependent load ahead of the ring,
+//   and no copy of the expert, no host read of the index, so a captured step replays
+//   with the index the router writes that step (the JAX package's dynamic_slice_in_dim
+//   on the stack). An index outside the window (an expert another rank owns, under
+//   expert parallelism) makes each block write zeros to its rows and return before it
+//   reads a weight or scale byte: the JAX package's lax.cond(owner, compute, zeros),
+//   at the cost of a launch and the index read. One block of a launch that computes adds
+//   one to a device counter (`owned`), so a run can count the owners' computes without
+//   reading an index on the host.
 // - The pre-quantized row comes from the fused prologue (csrc/prologue.cu), the kernel
 //   just ahead in the stream. That entry is launched with programmatic stream
 //   serialization (PDL): its blocks are scheduled as soon as the prologue has started,
@@ -104,10 +111,12 @@ struct Params {
   int n, k, out_bf16;
   int rs, stages, gw;  // rows per slot, slots, warps per row
   int pre;             // slots issued before griddepcontrol.wait (kPrequantized)
-  // the expert entries: w and s hold a stack of n_experts (n, k) matrices, and the
-  // kernel reads which one from *e, in device memory (clamped into the stack)
+  // the expert entries: w and s hold a stack of n_local (n, k) matrices, experts
+  // [e_lo, e_lo + n_local) of the layer (the owner window), and the kernel reads which
+  // expert from *e, in device memory; a launch that computes adds one to *owned
   const long long* e;
-  int n_experts;
+  int e_lo, n_local;
+  int* owned;
 };
 
 inline Params make_params(const void* x, const void* xq, const void* sx, const void* w,
@@ -128,7 +137,9 @@ inline Params make_params(const void* x, const void* xq, const void* sx, const v
   p.gw = gw;
   p.pre = pre;
   p.e = nullptr;
-  p.n_experts = 0;
+  p.e_lo = 0;
+  p.n_local = 0;
+  p.owned = nullptr;
   return p;
 }
 
@@ -391,11 +402,21 @@ __device__ void run(const Params& p) {
   // the other half, so the 8 lanes of a shared-memory phase hit distinct banks
   const int h0 = (lane >> 2) & 1;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
-  // the expert entries: the index, clamped into the stack, picks the matrix
+  // the expert entries: an index inside the owner window picks local matrix e - e_lo;
+  // one outside it writes zeros to the block's rows and reads no weight or scale byte
+  // (the same index in every thread, so the whole block leaves before any barrier)
   const uint8_t* wbase = p.w;
   const char* sbase = static_cast<const char*>(p.s);
   if (p.e != nullptr) {
-    const long long e = min(max(*p.e, 0LL), static_cast<long long>(p.n_experts - 1));
+    const long long e = *p.e - p.e_lo;
+    if (e < 0 || e >= p.n_local) {
+      for (int i = threadIdx.x; i < nrows; i += kThreads)
+        store_y(p.y, p.out_bf16, static_cast<size_t>(r0) + i, 0.f);
+      return;
+    }
+    // the last block always has rows (r1 = n): it counts the launch
+    if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0 && p.owned != nullptr)
+      atomicAdd(p.owned, 1);
     wbase += e * p.n * static_cast<long long>(rb);
     sbase += e * p.n * static_cast<long long>(srow);
   }
@@ -640,7 +661,7 @@ int launch(const Params& p, int grid, cudaStream_t st) {
   constexpr bool kPdl = MODE == kPrequantized;
   const int smem = layout(FMT, MODE, p.k, p.rs, p.stages, p.gw).total;
   if (smem > kMaxSmem || p.rs < 1 || p.stages < 2 || p.gw < 1 || kWarps % p.gw || grid < 1 ||
-      (p.e != nullptr && (MODE != kQuantize || p.n_experts < 1)) ||
+      (p.e != nullptr && (MODE != kQuantize || p.n_local < 1 || p.e_lo < 0)) ||
       (MODE == kPrequantized && (p.pre < 1 || p.pre > p.stages)) ||
       (MODE == kPrecise && (p.stages - 1) * layout(FMT, MODE, p.k, p.rs, p.stages, p.gw).stage <
                                4 * p.k))

@@ -1,8 +1,8 @@
 // q4_matvec: y = W·x for one activation row against Q40 weights in the i4p
 // split-plane layout, with x quantized to Q80 inside the kernel (entry `q4_matvec`; entry
-// `q4_matvec_expert` against one expert of a layer's stack, chosen by an index in device
-// memory) or given already quantized as xq int8 + sx f32 block scales (entry
-// `q4_matvec_q80`).
+// `q4_matvec_expert` against one expert of the experts a rank holds, chosen by an index
+// in device memory, zeros for an expert outside its window) or given already quantized
+// as xq int8 + sx f32 block scales (entry `q4_matvec_q80`).
 //
 // Replaces distributed_llama_tpu/ops/pallas_q4.py `_q4_matvec` (kernel body
 // `_matvec_kernel` -> `_unpack_dot_epilogue`) together with the Q80 row quantizer
@@ -57,16 +57,21 @@ extern "C" int q4_matvec(const void* x, int x_bf16, const void* wp, const void* 
                       p, grid, st);
 }
 
-// The expert entry: wp (n_experts, n, k/2) and ws (n_experts, n, k/32), one layer's
-// stack; e: one int64 in device memory, the expert (clamped into [0, n_experts)); the
-// rest as q4_matvec, computed against matrix e of the stack.
+// The expert entry: wp (n_local, n, k/2) and ws (n_local, n, k/32), the experts
+// [e_lo, e_lo + n_local) of one layer's stack (the owner window; (0, E) on one card);
+// e: one int64 in device memory, the expert. Inside the window y is computed as
+// q4_matvec against local matrix e - e_lo, and *owned (an int32 in device memory, or
+// null) gains one; outside it y is zeros and no weight or scale byte is read.
 extern "C" int q4_matvec_expert(const void* x, int x_bf16, const void* wp, const void* ws,
-                                const void* e, int n_experts, void* y, int out_bf16, int n,
-                                int k, int rs, int stages, int gw, int grid, void* stream) {
+                                const void* e, int e_lo, int n_local, void* owned, void* y,
+                                int out_bf16, int n, int k, int rs, int stages, int gw,
+                                int grid, void* stream) {
   mvs::Params p = mvs::make_params(x, nullptr, nullptr, wp, ws, y, out_bf16, n, k, rs,
                                    stages, gw);
   p.e = static_cast<const long long*>(e);
-  p.n_experts = n_experts;
+  p.e_lo = e_lo;
+  p.n_local = n_local;
+  p.owned = static_cast<int*>(owned);
   const auto st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? mvs::launch<mvs::kI4p, mvs::kQuantize, Entry<mvs::kQuantize, true>>(
                       p, grid, st)

@@ -15,8 +15,8 @@
 //                  P[n,b] = sum_{j in block b} W8[n,j] * x[j]           (f32 sums)
 //                  y[n]   = sum_b s[n,b] * P[n,b]
 // y is written as f32 or bf16 (rounded once). q8_matvec_expert is q8_matvec (quantized
-// row) against one expert of a layer's (E, n, k) stack, chosen by an index in device
-// memory.
+// row) against one expert of the (n_local, n, k) stack of experts a rank holds, chosen
+// by an index in device memory; an expert outside that window gives zeros.
 //
 // What bounds it on an H100: bytes. One decode token streams every weight once at
 // 1.125 B/weight (1 B of int8 plus a 4-byte scale per 32) and does 2 integer ops per
@@ -72,16 +72,22 @@ extern "C" int q8_matvec(const void* x, int x_bf16, int precise, const void* w8,
                  : launch_mode<mvs::kQuantize>(p, x_bf16, grid, st);
 }
 
-// The expert entry: w8 (n_experts, n, k) and ws (n_experts, n, k/32), one layer's stack;
-// e: one int64 in device memory, the expert (clamped into [0, n_experts)); the rest as
-// q8_matvec with the row quantized, computed against matrix e of the stack.
+// The expert entry: w8 (n_local, n, k) and ws (n_local, n, k/32), the experts
+// [e_lo, e_lo + n_local) of one layer's stack (the owner window; (0, E) on one card);
+// e: one int64 in device memory, the expert. Inside the window y is computed as
+// q8_matvec with the row quantized, against local matrix e - e_lo, and *owned (an
+// int32 in device memory, or null) gains one; outside it y is zeros and no weight or
+// scale byte is read.
 extern "C" int q8_matvec_expert(const void* x, int x_bf16, const void* w8, const void* ws,
-                                const void* e, int n_experts, void* y, int out_bf16, int n,
-                                int k, int rs, int stages, int gw, int grid, void* stream) {
+                                const void* e, int e_lo, int n_local, void* owned, void* y,
+                                int out_bf16, int n, int k, int rs, int stages, int gw,
+                                int grid, void* stream) {
   mvs::Params p = mvs::make_params(x, nullptr, nullptr, w8, ws, y, out_bf16, n, k, rs,
                                    stages, gw);
   p.e = static_cast<const long long*>(e);
-  p.n_experts = n_experts;
+  p.e_lo = e_lo;
+  p.n_local = n_local;
+  p.owned = static_cast<int*>(owned);
   return launch_mode<mvs::kQuantize>(p, x_bf16, grid, static_cast<cudaStream_t>(stream));
 }
 

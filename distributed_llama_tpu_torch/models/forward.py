@@ -15,7 +15,11 @@ The MoE FFN (`_moe_ffn`) takes the JAX package's three routes by the same gates:
 row with the kernels on runs the k chosen experts through the matvecs' expert entries
 (the index stays on the device: a captured step replays with each step's experts); up
 to n_experts token-expert pairs gather and dequantize the chosen experts; more run the
-expert-major loop over all E experts, each masked by its routing weights.
+expert-major loop over all E experts, each masked by its routing weights. Under expert
+parallelism (a tp mesh whose shard holds E/tp whole experts) the first and last routes
+run on the shard's owner window (the JAX package's expert-sharded body): each rank
+computes the active experts it owns, through the expert entries' owner window at
+one-token decode, and the MoE output's merge point sums the owners' contributions.
 
 Deferred write: every layer's attention reads only the COMMITTED cache slots
 (< start_pos) plus the chunk's own k/v; the chunk's rows of all layers are written into
@@ -56,7 +60,9 @@ where the JAX package calls psum: after wo, after w2 and after the MoE down proj
 vocab-split logits are gathered along their last axis. The reduction comes before the
 residual join, so the wo and w2 kernels' residual epilogue is off whenever the merge
 points are on. Attention runs on the rank's heads; the router, the norms and rope are
-replicated.
+replicated. The MoE stacks are either a slice of every expert's hidden axis
+(moe_sharding="slice") or E/tp whole experts ("expert"); the merge point after the MoE
+FFN is the same in both layouts.
 
 Sequence parallelism (`sp_mesh`, ops/ring_attention.py): the dense caches are this rank's
 stripe of the sequence axis (L, 1, hk, S/sp, hs), slot j holding position j·sp + m on sp
@@ -316,11 +322,13 @@ def _gated_split(y, act, gate_first: bool):
     return act(a) * b if gate_first else a * act(b)
 
 
-def _expert_out(xb, bp, e, act, use_kernels):
+def _expert_out(xb, bp, e, act, use_kernels, e_lo: int | None = None):
     """Expert e's output down(up(x) * act(gate(x))), from the merged [up | gate] stack or
-    the separate pair; e a Python int or a one-element index tensor (`qmatmul`)."""
+    the separate pair; e a Python int or a one-element index tensor (`qmatmul`). e_lo:
+    the stack holds experts [e_lo, e_lo + n_local) and e is a global index, which only
+    the expert entries take (zeros where the window does not hold e)."""
     def project(x, w):
-        return qmatmul(x, w, use_kernels=use_kernels, expert=e)
+        return qmatmul(x, w, use_kernels=use_kernels, expert=e, expert_lo=e_lo)
     if "moe_gu" in bp:
         hb = _gated_split(project(xb, bp["moe_gu"]), act, gate_first=False)
     else:
@@ -346,28 +354,53 @@ def _route(xb, bp, spec: ModelSpec):
     return top_i, top_p / top_p.sum(dim=-1, keepdim=True)
 
 
-def _moe_ffn(xb, bp, spec: ModelSpec, use_kernels):
+def _moe_ffn(xb, bp, spec: ModelSpec, use_kernels, mesh=None):
     """Top-k MoE FFN on the normalized block input xb (grokMoeRouter..grokMoeBlock2,
     grok1-tasks.cpp:56-228), by the JAX package's gates:
     (a) one row with the kernels on and i4p/i8 stacks: the k experts in top-k order
         through the matvecs' expert entries, out += out_e · w_j;
     (b) b·t·k <= n_experts: gather the chosen experts, dequantize, einsum;
-    (c) otherwise: expert-major over all E experts, each expert's rows weighted by its
-        routing weight (zero where a token did not choose it), summed in expert order."""
+    (c) otherwise: expert-major over the stack's experts, each expert's rows weighted by
+        its routing weight (zero where a token did not choose it), summed in expert
+        order.
+    Under a tp `mesh` whose shard holds el < n_experts experts (expert parallelism,
+    moe_sharding="expert"; the JAX package's _moe_ffn_expert_sharded) the stack is the
+    owner window [e_lo, e_lo + el), e_lo = tp_rank·el, and this rank computes only the
+    active experts it owns; the caller's merge point sums the ranks' outputs. Route (a)
+    then takes every one-token step of up to 2E token-expert pairs, row by row: with the
+    kernels the entries read the global index on the device, every rank launches and a
+    rank that does not own the expert writes zeros without reading its weights;
+    without them the JAX package's owner test keeps the product against the clamped
+    local index where the rank owns the expert (no host read of the index). (b) is not
+    taken, and (c) loops over the el local experts against the combine weights' window
+    (JAX's combine_local)."""
     b, t, _ = xb.shape
     k = spec.n_active_experts
     act = _act(spec)
     top_i, weights = _route(xb, bp, spec)
     merged = "moe_gu" in bp
     stack = bp["moe_gu"] if merged else bp["moe_up"]
-    if use_kernels and b * t == 1 and stack.layout in ("i4p", "i8"):
-        # the expert index stays on the device: each entry reads it from top_i
-        out = torch.zeros_like(xb)
-        idx, wts = top_i.reshape(k), weights.reshape(k)
-        for j in range(k):
-            out = out + _expert_out(xb, bp, idx[j:j + 1], act, True) * wts[j].to(xb.dtype)
-        return out
-    if b * t * k <= spec.n_experts:
+    el = stack.shape[0]  # the shard's expert count
+    sharded = mesh is not None and el != spec.n_experts
+    e_lo = mesh.tp_rank * el if sharded else 0
+    entries = bool(use_kernels) and stack.layout in ("i4p", "i8")
+    if t == 1 and (b * k <= 2 * spec.n_experts if sharded else entries and b == 1):
+        rows = []
+        for r in range(b):
+            row_x, row_out = xb[r:r + 1], torch.zeros_like(xb[r:r + 1])
+            for j in range(k):
+                e = top_i[r, 0, j:j + 1]  # the global index, on the device
+                if entries:
+                    out_e = _expert_out(row_x, bp, e, act, True, e_lo=e_lo)
+                else:
+                    rel = e - e_lo
+                    owner = (rel >= 0) & (rel < el)
+                    out_e = _expert_out(row_x, bp, rel.clamp(0, el - 1), act, use_kernels)
+                    out_e = torch.where(owner, out_e, torch.zeros_like(out_e))
+                row_out = row_out + out_e * weights[r, 0, j].to(xb.dtype)
+            rows.append(row_out)
+        return torch.cat(rows, dim=0) if b > 1 else rows[0]
+    if not sharded and b * t * k <= spec.n_experts:
         down_w = _gather_expert(bp["moe_down"], top_i).dequantize(dtype=xb.dtype)
         if merged:
             gu_w = _gather_expert(bp["moe_gu"], top_i).dequantize(dtype=xb.dtype)
@@ -384,8 +417,8 @@ def _moe_ffn(xb, bp, spec: ModelSpec, use_kernels):
     one_hot = (top_i[..., None] == experts).to(xb.dtype)  # (B, T, K, E)
     combine = torch.einsum("btke,btk->ebt", one_hot, weights.to(xb.dtype))
     acc = torch.zeros_like(xb)
-    for e in range(stack.shape[0]):  # a Python int: a view, the kernel routes of M > 1
-        acc = acc + _expert_out(xb, bp, e, act, use_kernels) * combine[e][..., None]
+    for e in range(el):  # a Python int: a view, the kernel routes of M > 1
+        acc = acc + _expert_out(xb, bp, e, act, use_kernels) * combine[e_lo + e][..., None]
     return acc
 
 
@@ -397,12 +430,12 @@ def _block(x, bp, li: int, st: _Step, kc, vc):
         attn_out, kv = _attention(x, bp, li, st, kc, vc, residual=None)
         x = x + rmsnorm(attn_out, bp["rms_ffn"], spec.norm_eps)
         xb = rmsnorm(x, bp["rms_moe"], spec.norm_eps)
-        moe_out = st.merge(_moe_ffn(xb, bp, spec, st.use_kernels))
+        moe_out = st.merge(_moe_ffn(xb, bp, spec, st.use_kernels, st.mesh))
         return x + rmsnorm(moe_out, bp["rms_ffn2"], spec.norm_eps), kv
     x, kv = _attention(x, bp, li, st, kc, vc, residual=x)
     if spec.is_moe:
         xb = rmsnorm(x, bp["rms_ffn"], spec.norm_eps)
-        return x + st.merge(_moe_ffn(xb, bp, spec, st.use_kernels)), kv
+        return x + st.merge(_moe_ffn(xb, bp, spec, st.use_kernels, st.mesh)), kv
     return _dense_ffn(x, bp, spec, st.use_kernels, residual=x, prologue=st.prologue,
                       merge=None if st.mesh is None else st.merge), kv
 

@@ -182,15 +182,23 @@ def _interleave_rows(leaves: list[torch.Tensor], tp: int, row_axis: int) -> torc
     return out.reshape(*out.shape[:row_axis], -1, *out.shape[row_axis + 2:])
 
 
+def _moe_expert_whole(name: str, moe_sharding: str) -> bool:
+    """A MoE stack that shards by whole experts (moe_sharding="expert"): its rows are
+    not interleaved per tp group and its in axis is not packed per tp column group."""
+    return moe_sharding == "expert" and name.startswith("moe_")
+
+
 def fuse_matvec_groups(blocks: Params, spec: ModelSpec | None = None, tp: int = 1,
-                       skip: tuple[str, ...] = ()) -> Params:
+                       skip: tuple[str, ...] = (), moe_sharding: str = "slice") -> Params:
     """Replace wq/wk/wv -> wqkv, w1/w3 -> w13 and moe_up/moe_gate -> moe_gu with
     row-concatenated planar tensors, interleaved per tp group (row_groups=tp), where
     every member is kernel-convertible and all share one float type, except the groups
     named in `skip`. The QKV group stays separate when KV-head replication is on (tp >
     n_kv_heads rewrites the wk/wv rows at shard time) or cannot be ruled out (tp > 1 and
-    no spec), as in the JAX package. Quant blocks run along the in axis, so row
-    concatenation never touches block structure."""
+    no spec), as in the JAX package. Under moe_sharding="expert" moe_gu concatenates
+    with no interleave (row_groups=1): whole experts shard over tp, rows stay whole.
+    Quant blocks run along the in axis, so row concatenation never touches block
+    structure."""
     out = dict(blocks)
     for fused, members in _FUSE_GROUPS.items():
         if fused in skip:
@@ -199,14 +207,16 @@ def fuse_matvec_groups(blocks: Params, spec: ModelSpec | None = None, tp: int = 
         if not all(_kernel_convertible(t) for t in ts) or len({t.ftype for t in ts}) != 1:
             continue
         axis = _FUSE_ROW_AXIS[fused]
-        if any(t.shape[axis] % tp for t in ts):
+        groups = 1 if _moe_expert_whole(fused, moe_sharding) else tp
+        if any(t.shape[axis] % groups for t in ts):
             continue
         if fused == "wqkv" and tp > 1 and (
                 spec is None or effective_kv_heads(spec, tp) != spec.n_kv_heads):
             continue
-        out[fused] = QTensor(ts[0].ftype, _interleave_rows([t.data for t in ts], tp, axis),
-                             _interleave_rows([t.scales for t in ts], tp, axis),
-                             row_groups=tp)
+        out[fused] = QTensor(ts[0].ftype,
+                             _interleave_rows([t.data for t in ts], groups, axis),
+                             _interleave_rows([t.scales for t in ts], groups, axis),
+                             row_groups=groups)
         for m in members:
             del out[m]
     return out
@@ -219,11 +229,21 @@ def _i4p_values(t: QTensor) -> torch.Tensor:
     return q.reshape(*t.data.shape[:-1], t.data.shape[-1] * 2)
 
 
-def _regroup(name: str, t: QTensor, tp: int, spec: ModelSpec | None) -> QTensor:
+def _regroup(name: str, t: QTensor, tp: int, spec: ModelSpec | None,
+             moe_sharding: str = "slice") -> QTensor:
     """A weight already in a kernel layout (drawn or prepared for one card) made ready
     for shard_params at this tp: a fused group's one-group rows interleaved per tp group,
     and a column-split i4p tensor re-packed within each tp column group (int8 planes
-    where K/tp breaks the i4p alignment, as _decode_layout decides)."""
+    where K/tp breaks the i4p alignment, as _decode_layout decides). Under
+    moe_sharding="expert" the MoE stacks stay as one card holds them (whole experts:
+    row_groups 1, groups 1); a stack regrouped for "slice" cannot shard by experts."""
+    if _moe_expert_whole(name, moe_sharding):
+        if t.row_groups != 1 or t.groups != 1:
+            raise ValueError(f"{name} is packed for moe_sharding='slice' (row interleave "
+                             f"{t.row_groups}, column groups {t.groups}); expert "
+                             "sharding keeps whole experts: prepare it from one card's "
+                             "layout")
+        return t
     if name in _FUSE_GROUPS and t.row_groups != tp:
         if t.row_groups != 1:
             raise ValueError(f"{name} is interleaved for tp={t.row_groups}, not {tp}")
@@ -254,7 +274,8 @@ def _regroup(name: str, t: QTensor, tp: int, spec: ModelSpec | None) -> QTensor:
 
 
 def prepare_for_cuda(params: Params, tp: int = 1, spec: ModelSpec | None = None,
-                     fuse: bool = True, keep_gate_pair: bool = False) -> Params:
+                     fuse: bool = True, keep_gate_pair: bool = False,
+                     moe_sharding: str = "slice") -> Params:
     """Repack the dense matmul weights and the MoE expert stacks into the decode-kernel
     layouts (i4p packed nibbles for Q40 whose K per tp column group is a multiple of 64,
     int8 planes for every other Q40 and all Q80; the leading layer and expert axes are
@@ -267,17 +288,21 @@ def prepare_for_cuda(params: Params, tp: int = 1, spec: ModelSpec | None = None,
 
     Weights already in a kernel layout keep their layout; at tp > 1 a fused group whose
     rows are not interleaved and a column-split i4p tensor packed for another tp are
-    regrouped for this tp."""
+    regrouped for this tp. Under moe_sharding="expert" (whole experts over tp, the JAX
+    package's prepare_for_pallas(moe_sharding=)) the MoE stacks keep one card's layout:
+    moe_gu concatenated with no interleave, moe_down packed with groups=1."""
     out: Params = {"embedding": params["embedding"], "blocks": {},
                    "rms_final": params["rms_final"]}
     blocks = (fuse_matvec_groups(params["blocks"], spec, tp,
-                                 skip=("w13",) if keep_gate_pair else ())
+                                 skip=("w13",) if keep_gate_pair else (),
+                                 moe_sharding=moe_sharding)
               if fuse else params["blocks"])
     for name, t in blocks.items():
         if (name in _DENSE_MATMULS or name in _FUSE_GROUPS) and _kernel_convertible(t):
-            out["blocks"][name] = _decode_layout(t, tp, name in _COL_SHARDED)
+            out["blocks"][name] = _decode_layout(
+                t, tp, name in _COL_SHARDED and not _moe_expert_whole(name, moe_sharding))
         elif tp > 1 and isinstance(t, QTensor) and t.layout in ("i4p", "i8"):
-            out["blocks"][name] = _regroup(name, t, tp, spec)
+            out["blocks"][name] = _regroup(name, t, tp, spec, moe_sharding)
         else:
             out["blocks"][name] = t
     wcls = params["wcls"]

@@ -16,8 +16,10 @@ the subset the dense Llama path reaches):
   `q4_gated_supported` -> kernel 5, `q4_gated_matmul`;
 - one expert of a layer's MoE stack (`expert=`): a Python int is a view of the stack and
   takes the routes above; an index tensor with one row and `use_kernels` on ->
-  `q4_matvec_expert` on i4p stacks, `q8_matvec_expert` on i8 stacks, otherwise the
-  expert is sliced and dequantized;
+  `q4_matvec_expert` on i4p stacks, `q8_matvec_expert` on i8 stacks (with `expert_lo`,
+  the stack holds the owner window [expert_lo, expert_lo + n_local) of an
+  expert-sharded rank, and an index outside it gives zeros), otherwise the expert is
+  sliced and dequantized;
 - everything else -> dequantize to x's dtype, then a float32-accumulated product (the
   counterpart of the JAX package's `_qmatmul_xla`).
 
@@ -118,7 +120,8 @@ def _res_add(y: torch.Tensor, residual: torch.Tensor, out_dtype) -> torch.Tensor
 
 def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
             out_dtype=None, residual: torch.Tensor | None = None,
-            expert: torch.Tensor | int | None = None) -> torch.Tensor:
+            expert: torch.Tensor | int | None = None,
+            expert_lo: int | None = None) -> torch.Tensor:
     """y = x @ W^T for W of logical shape (out, in); x: (..., in) -> (..., out).
 
     use_kernels: False = dequantize path everywhere; True = kernel 1 (i4p) or q8_matvec
@@ -132,7 +135,9 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
     expert: W is one layer's MoE stack (E, out, in) and the product takes its expert
     `expert`: a Python int (a view of the stack), or a one-element int64 tensor on x's
     device, which the matvecs' expert entries read themselves (no copy of the expert, no
-    host read of the index)."""
+    host read of the index). expert_lo: the stack holds experts [expert_lo, expert_lo +
+    E) of the model (the owner window of an expert-sharded rank), which only the expert
+    entries take: zeros for an index outside the window; any other route raises."""
     m = math.prod(x.shape[:-1])
     out_dtype = out_dtype or x.dtype
     if isinstance(expert, int):
@@ -144,7 +149,7 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
             y = q4_matvec(x, w, out_dtype=out_dtype)
         else:
             _record("q4_matvec_expert", m, w, op=op)
-            y = q4_matvec_expert(x, w, expert, out_dtype=out_dtype)
+            y = q4_matvec_expert(x, w, expert, out_dtype=out_dtype, e_lo=expert_lo or 0)
         return y if residual is None else _res_add(y, residual, out_dtype)
     if use_kernels and m == 1 and w.layout == "i8":
         if expert is None:
@@ -152,8 +157,11 @@ def qmatmul(x: torch.Tensor, w: QTensor, *, use_kernels: bool | str = False,
             y = q8_matvec(x, w, out_dtype=out_dtype)
         else:
             _record("q8_matvec_expert", m, w, op=op)
-            y = q8_matvec_expert(x, w, expert, out_dtype=out_dtype)
+            y = q8_matvec_expert(x, w, expert, out_dtype=out_dtype, e_lo=expert_lo or 0)
         return y if residual is None else _res_add(y, residual, out_dtype)
+    if expert_lo is not None:
+        raise ValueError("an owner window (expert_lo) is taken only by the matvecs' "
+                         "expert entries: one row, the kernels on, an i4p or i8 stack")
     if expert is not None:
         w = expert_of(w, expert)
     if use_kernels in FUSED_POLICIES and m > 1 and q4_mm_supported(w, m):

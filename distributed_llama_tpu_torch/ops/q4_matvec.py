@@ -16,17 +16,21 @@ P[n,b] of (nibble-8) with the int8 row is an exact integer, and y[n] = Σ_b
 rounds y once to the caller's dtype (f32 or bf16), as `.to()` does after the plain
 version: one launch per call.
 
-`q4_matvec_expert` is the float entry against one expert of a layer's (E, N, K/2)
-stack, chosen by a one-element int64 index in device memory that the kernel reads itself
-(clamped into the stack, as the JAX package's dynamic_slice_in_dim clamps): the MoE
-decode step passes the router's top-k without copying the expert or reading the index on
-the host, so a captured step replays with each step's experts. Its bound and numerics
-are q4_matvec's at the expert's (N, K).
+`q4_matvec_expert` is the float entry against one expert of the (n_local, N, K/2) stack
+of experts [e_lo, e_lo + n_local) a card holds (its owner window: all E on one card,
+E/tp under expert parallelism), chosen by a one-element int64 index in device memory
+that the kernel reads itself: the MoE decode step passes the router's top-k without
+copying the expert or reading the index on the host, so a captured step replays with
+each step's experts. An index inside the window computes against local matrix
+e - e_lo, with q4_matvec's bound and numerics at the expert's (N, K); one outside it
+gives exact zeros and reads no weight byte (the JAX package's lax.cond(owner, compute,
+zeros) of its expert-sharded body), costing a launch. `owned` counts, on the card, the
+launches that computed.
 
 `q4_matvec`, `q4_matvec_expert` and `q4_matvec_q80` take the plain version for CPU
 tensors and launch the kernel for CUDA tensors; `launches` counts the float entry's
-launches, `expert_launches` the expert entry's, `q80_launches` the pre-quantized
-entry's.
+launches, `expert_launches` the expert entry's (inside the window or not),
+`q80_launches` the pre-quantized entry's.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ q80_launches = 0
 MAX_K = mv_plan.MAX_K
 _P, _I = cuda_build.P, cuda_build.I
 _SIGNATURES = {"q4_matvec": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
-               "q4_matvec_expert": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 7 + [_P],
+               "q4_matvec_expert": [_P, _I, _P, _P, _P, _I, _I, _P, _P] + [_I] * 7 + [_P],
                "q4_matvec_q80": [_P] * 5 + [_I] * 8 + [_P],
                "q4_matvec_blocks_per_sm": [_I] * 6}
 # output dtypes the kernel writes (out_bf16)
@@ -88,25 +92,79 @@ def q4_matvec_plain(x_row: torch.Tensor, packed: torch.Tensor,
     return q4_matvec_q80_plain(*quantize_row(x_row), packed, scales)
 
 
+class OwnedCounter:
+    """The expert entries' count of launches that computed (an index inside the owner
+    window), kept on the card: one int32 a device, which the kernel adds one to. It is
+    allocated at the first launch on a device (outside a CUDA graph's capture, so a
+    captured launch adds to the same counter on every replay)."""
+
+    def __init__(self):
+        self._counts: dict[int, torch.Tensor] = {}
+
+    def tensor(self, dev) -> torch.Tensor:
+        i = torch.device(dev).index or 0
+        if i not in self._counts:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the owned-compute counter must exist before a CUDA "
+                                   "graph captures an expert entry: launch one eagerly "
+                                   "first")
+            self._counts[i] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{i}")
+        return self._counts[i]
+
+    def value(self, dev) -> int:
+        return int(self.tensor(dev).item())
+
+    def reset(self, dev) -> None:
+        self.tensor(dev).zero_()
+
+
+owned = OwnedCounter()
+
+
 def expert_slice(stack: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """Matrix e of a stack (E, ...), e a one-element integer tensor clamped into
-    [0, E): the plain versions' counterpart of the expert entries' own index read."""
+    [0, E): the index_select of the dequantizing route (the JAX package's
+    dynamic_slice_in_dim, which clamps)."""
     idx = e.reshape(1).long().clamp(0, stack.shape[0] - 1)
     return torch.index_select(stack, 0, idx)[0]
 
 
+def expert_window(stack: torch.Tensor, e: torch.Tensor,
+                  e_lo: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain versions' counterpart of the expert entries' own index read: a stack
+    (n_local, ...) holding experts [e_lo, e_lo + n_local) and e a one-element integer
+    tensor -> (matrix e - e_lo, whether e lies in the window), both without a host read;
+    outside the window the matrix is a clamped index's, whose product the caller
+    discards."""
+    rel = e.reshape(1).long() - e_lo
+    inside = (rel >= 0) & (rel < stack.shape[0])
+    idx = rel.clamp(0, stack.shape[0] - 1)
+    return torch.index_select(stack, 0, idx)[0], inside[0]
+
+
+def windowed(y: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
+    """y where the expert is in the window, exact zeros where it is not."""
+    return torch.where(inside, y, torch.zeros_like(y))
+
+
 def q4_matvec_expert_plain(x_row: torch.Tensor, packed: torch.Tensor,
-                           scales: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """The expert entry's function in plain torch: x_row (K,), packed (E, N, K/2) u8
-    i4p, scales (E, N, K/32) f16, e one-element int -> `q4_matvec_plain` against
-    expert e."""
-    return q4_matvec_plain(x_row, expert_slice(packed, e), expert_slice(scales, e))
+                           scales: torch.Tensor, e: torch.Tensor,
+                           e_lo: int = 0) -> torch.Tensor:
+    """The expert entry's function in plain torch: x_row (K,), packed (n_local, N, K/2)
+    u8 i4p and scales (n_local, N, K/32) f16 holding experts [e_lo, e_lo + n_local),
+    e one-element int -> `q4_matvec_plain` against local matrix e - e_lo, or zeros (N,)
+    where e lies outside the window."""
+    wp, inside = expert_window(packed, e, e_lo)
+    ws, _ = expert_window(scales, e, e_lo)
+    return windowed(q4_matvec_plain(x_row, wp, ws), inside)
 
 
-def check_expert_index(what: str, e: torch.Tensor, dev) -> None:
+def check_expert_index(what: str, e: torch.Tensor, dev, e_lo: int) -> None:
     if e.dtype != torch.int64 or e.numel() != 1 or e.device != dev:
         raise ValueError(f"{what} takes the expert as one int64 on {dev}, got "
                          f"{e.dtype} {tuple(e.shape)} on {e.device}")
+    if e_lo < 0:
+        raise ValueError(f"{what}: the owner window starts at {e_lo}")
 
 
 def _check_weights(what: str, packed: torch.Tensor, scales: torch.Tensor, dev,
@@ -136,9 +194,10 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x_row: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-            out_dtype=torch.float32, e: torch.Tensor | None = None) -> torch.Tensor:
-    """The float entry; with `e`, the expert entry against matrix e of the (E, N, K/2)
-    stack `packed`."""
+            out_dtype=torch.float32, e: torch.Tensor | None = None,
+            e_lo: int = 0) -> torch.Tensor:
+    """The float entry; with `e`, the expert entry against the (n_local, N, K/2) stack
+    `packed` of experts [e_lo, e_lo + n_local)."""
     global launches, expert_launches
     what = "q4_matvec" if e is None else "q4_matvec_expert"
     if x_row.dtype not in (torch.float32, torch.bfloat16):
@@ -163,11 +222,11 @@ def _launch(x_row: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                            y.data_ptr(), ob, n, k, r.rs, r.stages, r.gw, p.grid,
                            cuda_build.stream_of(x_row))
     else:
-        check_expert_index(what, e, dev)
+        check_expert_index(what, e, dev, e_lo)
         rc = lib.q4_matvec_expert(x_row.data_ptr(), int(xb), packed.data_ptr(),
-                                  scales.data_ptr(), e.data_ptr(), packed.shape[0],
-                                  y.data_ptr(), ob, n, k, r.rs, r.stages, r.gw, p.grid,
-                                  cuda_build.stream_of(x_row))
+                                  scales.data_ptr(), e.data_ptr(), e_lo, packed.shape[0],
+                                  owned.tensor(dev).data_ptr(), y.data_ptr(), ob, n, k,
+                                  r.rs, r.stages, r.gw, p.grid, cuda_build.stream_of(x_row))
     cuda_build.check(rc, what)
     if e is None:
         launches += 1
@@ -223,10 +282,11 @@ def q4_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None) -> torch.Tensor:
 
 
 def q4_matvec_expert(x: torch.Tensor, w: QTensor, e: torch.Tensor, *,
-                     out_dtype=None) -> torch.Tensor:
+                     out_dtype=None, e_lo: int = 0) -> torch.Tensor:
     """Decode-path matmul against one expert: x (..., K) with leading dims multiplying
-    to 1, w one layer's i4p-layout expert stack (E, N, K), e a one-element int64 tensor
-    on x's device -> (..., N) in out_dtype (default x's)."""
+    to 1, w one layer's i4p-layout stack (n_local, N, K) of experts [e_lo, e_lo +
+    n_local), e a one-element int64 tensor on x's device -> (..., N) in out_dtype
+    (default x's), zeros where e lies outside the window."""
     if w.layout != "i4p" or w.groups != 1 or w.data.ndim != 3:
         raise ValueError("q4_matvec_expert needs a 3-D i4p expert stack packed with "
                          "groups=1")
@@ -237,9 +297,9 @@ def q4_matvec_expert(x: torch.Tensor, w: QTensor, e: torch.Tensor, *,
     x_row = x.reshape(x.shape[-1])
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cuda":
-        y = _launch(x_row, w.data, w.scales, out_dtype, e=e)
+        y = _launch(x_row, w.data, w.scales, out_dtype, e=e, e_lo=e_lo)
     elif x.device.type == "cpu":
-        y = q4_matvec_expert_plain(x_row, w.data, w.scales, e).to(out_dtype)
+        y = q4_matvec_expert_plain(x_row, w.data, w.scales, e, e_lo).to(out_dtype)
     else:
         raise ValueError(f"q4_matvec_expert: no kernel for device {x.device}")
     return y.reshape(*lead, y.shape[0])

@@ -19,14 +19,16 @@ of the port passes `precise`, as none of the JAX package's does. The kernel roun
 once to the caller's dtype (f32 or bf16), as `.to()` does after the plain version: one
 launch per call.
 
-`q8_matvec_expert` is the quantizing entry against one expert of a layer's (E, N, K)
-stack, chosen by a one-element int64 index in device memory that the kernel reads
-itself (ops/q4_matvec.py says why).
+`q8_matvec_expert` is the quantizing entry against one expert of the (n_local, N, K)
+stack of experts [e_lo, e_lo + n_local) a card holds (its owner window), chosen by a
+one-element int64 index in device memory that the kernel reads itself; an index outside
+the window gives exact zeros and reads no weight byte (ops/q4_matvec.py says why).
+`owned` counts, on the card, the launches that computed.
 
 The entries take the plain version for CPU tensors and launch the kernel for CUDA
 tensors. `launches` counts the quantizing entry's launches, `expert_launches` the
-expert entry's, `precise_launches` the precise mode's, `q80_launches` the pre-quantized
-entry's.
+expert entry's (inside the window or not), `precise_launches` the precise mode's,
+`q80_launches` the pre-quantized entry's.
 """
 
 from __future__ import annotations
@@ -37,18 +39,20 @@ import torch
 
 from ..quants import QK, QTensor
 from . import cuda_build, mv_plan
-from .q4_matvec import OUT_DTYPES, aligned, check_expert_index, expert_slice, quantize_row
+from .q4_matvec import (OUT_DTYPES, OwnedCounter, aligned, check_expert_index,
+                        expert_window, quantize_row, windowed)
 
 launches = 0
 expert_launches = 0
 precise_launches = 0
 q80_launches = 0
+owned = OwnedCounter()
 
 MAX_K = mv_plan.MAX_K
 _PRECISE_MAX_K = mv_plan.PRECISE_MAX_K
 _P, _I = cuda_build.P, cuda_build.I
 _SIGNATURES = {"q8_matvec": [_P, _I, _I, _P, _P, _P] + [_I] * 7 + [_P],
-               "q8_matvec_expert": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 7 + [_P],
+               "q8_matvec_expert": [_P, _I, _P, _P, _P, _I, _I, _P, _P] + [_I] * 7 + [_P],
                "q8_matvec_q80": [_P] * 5 + [_I] * 8 + [_P],
                "q8_matvec_blocks_per_sm": [_I] * 6}
 
@@ -78,10 +82,14 @@ def q8_matvec_plain(x_row: torch.Tensor, w8: torch.Tensor,
 
 
 def q8_matvec_expert_plain(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
-                           e: torch.Tensor) -> torch.Tensor:
-    """The expert entry's function in plain torch: x_row (K,), w8 (E, N, K) int8,
-    scales (E, N, K/32) f32, e one-element int -> `q8_matvec_plain` against expert e."""
-    return q8_matvec_plain(x_row, expert_slice(w8, e), expert_slice(scales, e))
+                           e: torch.Tensor, e_lo: int = 0) -> torch.Tensor:
+    """The expert entry's function in plain torch: x_row (K,), w8 (n_local, N, K) int8
+    and scales (n_local, N, K/32) f32 holding experts [e_lo, e_lo + n_local), e
+    one-element int -> `q8_matvec_plain` against local matrix e - e_lo, or zeros (N,)
+    where e lies outside the window."""
+    w, inside = expert_window(w8, e, e_lo)
+    ws, _ = expert_window(scales, e, e_lo)
+    return windowed(q8_matvec_plain(x_row, w, ws), inside)
 
 
 def q8_matvec_precise_plain(x_row: torch.Tensor, w8: torch.Tensor,
@@ -111,9 +119,9 @@ def _check_weights(what: str, w8: torch.Tensor, scales: torch.Tensor, dev,
 
 def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
             precise: bool = False, out_dtype=torch.float32,
-            e: torch.Tensor | None = None) -> torch.Tensor:
+            e: torch.Tensor | None = None, e_lo: int = 0) -> torch.Tensor:
     """The float entry (quantizing, or precise); with `e`, the expert entry against
-    matrix e of the (E, N, K) stack `w8`."""
+    the (n_local, N, K) stack `w8` of experts [e_lo, e_lo + n_local)."""
     global launches, precise_launches, expert_launches
     what = "q8_matvec" if e is None else "q8_matvec_expert"
     if x_row.dtype not in (torch.float32, torch.bfloat16):
@@ -140,11 +148,11 @@ def _launch(x_row: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
                            scales.data_ptr(), y.data_ptr(), ob, n, k, r.rs, r.stages, r.gw,
                            p.grid, cuda_build.stream_of(x_row))
     else:
-        check_expert_index(what, e, dev)
+        check_expert_index(what, e, dev, e_lo)
         rc = lib.q8_matvec_expert(x_row.data_ptr(), int(xb), w8.data_ptr(),
-                                  scales.data_ptr(), e.data_ptr(), w8.shape[0],
-                                  y.data_ptr(), ob, n, k, r.rs, r.stages, r.gw, p.grid,
-                                  cuda_build.stream_of(x_row))
+                                  scales.data_ptr(), e.data_ptr(), e_lo, w8.shape[0],
+                                  owned.tensor(dev).data_ptr(), y.data_ptr(), ob, n, k,
+                                  r.rs, r.stages, r.gw, p.grid, cuda_build.stream_of(x_row))
     cuda_build.check(rc, what)
     if e is not None:
         expert_launches += 1
@@ -209,10 +217,11 @@ def q8_matvec(x: torch.Tensor, w: QTensor, *, out_dtype=None,
 
 
 def q8_matvec_expert(x: torch.Tensor, w: QTensor, e: torch.Tensor, *,
-                     out_dtype=None) -> torch.Tensor:
+                     out_dtype=None, e_lo: int = 0) -> torch.Tensor:
     """Decode-path matmul against one expert: x (..., K) with leading dims multiplying
-    to 1, w one layer's i8-layout expert stack (E, N, K), e a one-element int64 tensor
-    on x's device -> (..., N) in out_dtype (default x's)."""
+    to 1, w one layer's i8-layout stack (n_local, N, K) of experts [e_lo, e_lo +
+    n_local), e a one-element int64 tensor on x's device -> (..., N) in out_dtype
+    (default x's), zeros where e lies outside the window."""
     if w.layout != "i8" or w.data.ndim != 3:
         raise ValueError("q8_matvec_expert needs a 3-D i8-layout expert stack")
     lead = x.shape[:-1]
@@ -222,9 +231,9 @@ def q8_matvec_expert(x: torch.Tensor, w: QTensor, e: torch.Tensor, *,
     x_row = x.reshape(x.shape[-1])
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cuda":
-        y = _launch(x_row, w.data, w.scales, out_dtype=out_dtype, e=e)
+        y = _launch(x_row, w.data, w.scales, out_dtype=out_dtype, e=e, e_lo=e_lo)
     elif x.device.type == "cpu":
-        y = q8_matvec_expert_plain(x_row, w.data, w.scales, e).to(out_dtype)
+        y = q8_matvec_expert_plain(x_row, w.data, w.scales, e, e_lo).to(out_dtype)
     else:
         raise ValueError(f"q8_matvec_expert: no kernel for device {x.device}")
     return y.reshape(*lead, y.shape[0])

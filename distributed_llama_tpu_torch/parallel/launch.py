@@ -55,6 +55,10 @@ def _rank_main(rank: int, world: int, target: str, init_url: str, backend: str,
         fn = getattr(importlib.import_module(module), name)
         result = fn(make_mesh(tp=world // sp, sp=sp, device=dev, timeout=timeout), *args)
         torch.save(result, result_path)
+        # the ranks leave together: a rank that tore its connections down first could cut
+        # a peer's last receive short (a follower still reading rank 0's "close" aborted
+        # with "terminate called without an active exception" under load)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -49,8 +49,11 @@ _BLOCK_SPLITS = {
     "rms_ffn2": None,
 }
 
-# expert parallelism (the JAX package's moe_sharding="expert"): whole experts over tp.
-# Kept for the expert-sharded MoE body, which the port does not run yet
+# expert parallelism (the JAX package's moe_sharding="expert"): the MoE stacks split by
+# whole experts over tp, rank t holding experts [t·E/tp, (t+1)·E/tp) whole (the capacity
+# axis for MoE models whose expert weights dwarf one card). The forward's expert-sharded
+# body (models/forward.py) runs on such a shard: each rank computes the active experts it
+# owns, and the MoE output's merge point sums them
 _EP_SPLITS = {
     "moe_up": 1,      # (L, E->tp, hidden, dim), experts whole
     "moe_gate": 1,
@@ -59,18 +62,19 @@ _EP_SPLITS = {
 }
 
 
+MOE_SHARDINGS = ("slice", "expert")
+
+
 def check_moe_sharding(moe_sharding: str) -> None:
-    if moe_sharding == "expert":
-        raise ValueError("moe_sharding='expert' (whole experts over tp) is not in the port "
-                         "yet (ROADMAP Queue A item 3); use 'slice'")
-    if moe_sharding != "slice":
+    if moe_sharding not in MOE_SHARDINGS:
         raise ValueError(f"moe_sharding {moe_sharding!r}: 'slice' or 'expert'")
 
 
 def param_split_axes(params: dict, moe_sharding: str = "slice") -> dict:
-    """The split axis (or None) of every tensor of a params dict, in its shape. The
-    expert placement's table is here for the expert-sharded body; shard_params refuses
-    it (check_moe_sharding) while the forward has no such body."""
+    """The split axis (or None) of every tensor of a params dict, in its shape: under
+    moe_sharding="expert" the MoE stacks split along their expert axis (_EP_SPLITS),
+    as the JAX package's param_pspecs places them."""
+    check_moe_sharding(moe_sharding)
     blocks = {k: _BLOCK_SPLITS[k] for k in params["blocks"]}
     if moe_sharding == "expert":
         blocks.update({k: v for k, v in _EP_SPLITS.items() if k in blocks})

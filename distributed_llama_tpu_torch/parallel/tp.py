@@ -6,10 +6,12 @@ NamedShardings places every tensor on the mesh and one shard_map'd program runs 
 device; here every rank holds the whole model on its host (as each JAX host loads the
 whole `.m` file), cuts its own slice there (`shard_params`), places only that slice on
 its device and runs models/forward.py on it with the merge points on
-(`make_sharded_forward`). This replaces the reference's weight streaming
-to workers (transformer.cpp:432-451) and its per-layer broadcast/gather tasks
-(tasks.cpp:44-94). Under sp the weights are whole on every sp rank of a tp index, and the
-caches hold this rank's stripe of the sequence axis (ops/ring_attention.py).
+(`make_sharded_forward`). This replaces the reference's weight streaming to workers
+(transformer.cpp:432-451) and its per-layer broadcast/gather tasks (tasks.cpp:44-94).
+Under moe_sharding="expert" a rank's MoE stacks are E/tp whole experts rather than a
+slice of every expert's hidden axis. Under sp the weights are whole on every sp rank of a
+tp index, and the caches hold this rank's stripe of the sequence axis
+(ops/ring_attention.py).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any
 import torch
 
 from ..models.forward import forward
-from ..models.params import _FUSE_GROUPS, localize_qtensors
+from ..models.params import _FUSE_GROUPS, _moe_expert_whole, localize_qtensors
 from ..models.spec import ModelSpec
 from ..quants import QTensor
 from .mesh import Mesh
@@ -75,19 +77,32 @@ def shard_params(params: dict[str, Any], mesh: Mesh, spec: ModelSpec | None = No
     the whole model every rank holds.
 
     Fused matvec groups must carry the row interleave of this tp (prepare_for_cuda with
-    the deployment's tp), and a column-split i4p tensor must be packed per tp column
-    group: either mismatch would silently scramble the split, so it raises. With the
-    spec, the divisibility checks run and, when tp > n_kv_heads, wk/wv rows are
-    replicated per KV head first (effective_kv_heads). The shards are localized: a rank's
-    i4p shard is one self-contained pack (models/params.py localize_qtensors)."""
+    the deployment's tp and moe_sharding), and a column-split i4p tensor must be packed
+    per tp column group: either mismatch would silently scramble the split, so it
+    raises. Under moe_sharding="expert" each MoE stack is cut along its expert axis
+    (rank t keeps experts [t·E/tp, (t+1)·E/tp) whole), so moe_gu must be fused with no
+    interleave and every stack packed with groups=1, as the JAX package's shard_params
+    expects. With the spec, the divisibility checks run and, when tp > n_kv_heads, wk/wv
+    rows are replicated per KV head first (effective_kv_heads). The shards are
+    localized: a rank's i4p shard is one self-contained pack (models/params.py
+    localize_qtensors)."""
     check_moe_sharding(moe_sharding)
     tp, rank = mesh.tp, mesh.tp_rank
     for name, t in params["blocks"].items():
-        if name in _FUSE_GROUPS and isinstance(t, QTensor) and t.row_groups != tp:
+        if not isinstance(t, QTensor):
+            continue
+        whole = _moe_expert_whole(name, moe_sharding)
+        expected = 1 if whole else tp
+        if name in _FUSE_GROUPS and t.row_groups != expected:
             raise ValueError(
                 f"{name} was fused with row interleave {t.row_groups}, but this mesh "
-                f"shards it over {tp} group(s) (tp={tp}, moe_sharding={moe_sharding}): "
-                "run prepare_for_cuda with the deployment's tp")
+                f"shards it over {expected} group(s) (tp={tp}, moe_sharding="
+                f"{moe_sharding}): run prepare_for_cuda with the deployment's tp and "
+                "moe_sharding")
+        if whole and t.groups != 1:
+            raise ValueError(f"{name} is packed per {t.groups} tp column groups, but "
+                             "moe_sharding='expert' keeps whole experts: run "
+                             "prepare_for_cuda with moe_sharding='expert'")
     if spec is not None:
         check_divisibility(spec, tp, moe_sharding=moe_sharding)
         hk_eff = effective_kv_heads(spec, tp)
@@ -171,7 +186,13 @@ def make_sharded_forward(spec: ModelSpec, mesh: Mesh, *, dtype=torch.float32,
     JAX package's make_sharded_forward (tp.py:153-176, forward.py:713); the block pool
     has no sp form (init_sharded_kv_cache). The port's forward writes the cache only
     after the scan, so JAX's refusal of the in-scan write under sp needs no counterpart
-    here."""
+    here.
+
+    moe_sharding="expert": the shard's MoE stacks hold whole experts
+    (shard_params(moe_sharding="expert")); forward runs its expert-sharded body, which
+    it recognizes, as the JAX package's forward does, by a local stack of fewer than
+    n_experts experts under a mesh. The checks here take the layout's divisibility
+    rule (n_experts % tp)."""
     check_moe_sharding(moe_sharding)
     check_divisibility(spec, mesh.tp, mesh.sp, moe_sharding=moe_sharding)
     merge = merge_mesh(mesh, compress_collectives)

@@ -126,12 +126,13 @@ configuration.
   drafter that fails to load or propose (its own failure: a speculative.DrafterError
   such as a vocab mismatch, or an injected `draft.*` fault) gives way to n-gram
   drafting; any other exception, a kernel's or the card's among them, propagates.
-- Tensor parallelism (`tp=`, `mesh=`, `compress_collectives=`, parallel/): every rank
-  constructs the engine, holding its shard of the weights and its KV heads of the block
-  pool. Rank 0 leads: it runs the scheduler, the samplers, the prefix directory,
-  tenancy and the grammars, and sends each device-side operation to the other ranks as
-  a descriptor of host data (`_mirror`, parallel/replay.py) just after
-  `_before_launch`, so an operation it retries runs once there. The others call
+- Tensor parallelism (`tp=`, `mesh=`, `compress_collectives=`, `moe_sharding=`,
+  parallel/): every rank constructs the engine, holding its shard of the weights (a MoE
+  model's experts sliced, or E/tp of them whole under moe_sharding="expert") and its KV
+  heads of the block pool. Rank 0 leads: it runs the scheduler, the samplers, the
+  prefix directory, tenancy and the grammars, and sends each device-side operation to
+  the other ranks as a descriptor of host data (`_mirror`, parallel/replay.py) just
+  after `_before_launch`, so an operation it retries runs once there. The others call
   `follow()`, which replays each operation on their shard in the same order (`_replay`)
   until rank 0's close: steps, super-steps (a chained one from the follower's own device
   carry: the gathered logits, hence the device samples, are the same on every rank),

@@ -38,7 +38,10 @@ n-gram speculation run on every rank alike: the gathered logits are the same on 
 rank, so are their picks, and only each chunk's or turn's stop is broadcast. A tp step
 runs eagerly: the gloo wire is host-side and cannot be captured in a CUDA graph, so
 cuda_graph is off under tp > 1. The host KV spill is refused there (single-card, as in
-the JAX package).
+the JAX package). A MoE model's experts split over tp in one of two layouts
+(`moe_sharding`): "slice" cuts every expert's hidden axis, "expert" gives each rank E/tp
+whole experts (expert parallelism), of which it computes the active ones it owns; the
+same merge point sums the MoE output in both.
 
 Sequence parallelism (`sp`, ops/ring_attention.py): the ranks of the (sp, tp) grid
 (parallel/mesh.py) each hold a stripe of the KV cache's sequence axis, and every step's
@@ -68,6 +71,7 @@ from ..models.spec import ModelSpec
 from ..obs import flight, metrics, trace
 from ..ops.rope import RopeTables
 from ..parallel.collectives import broadcast_ints
+from ..parallel.sharding import check_moe_sharding
 from ..parallel.traffic import CollectiveTraffic, publish_traffic
 from ..quants import FloatType
 from ..resilience import faults
@@ -206,8 +210,13 @@ class Engine:
                  cuda_graph: bool = True, kv_cache_storage: str | None = None,
                  kv_cache_resident: int = 1024, kv_cache_dir: str | None = None,
                  mesh=None, tp: int | None = None, sp: int = 1,
-                 compress_collectives: bool = False):
+                 compress_collectives: bool = False, moe_sharding: str = "slice"):
         self.spec = spec
+        # the MoE experts' placement over tp (parallel/sharding.py), "slice" for a dense
+        # model as in the JAX engine; inert on one card and at tp = 1 (whole experts
+        # over one rank are the model), as the JAX engine's is
+        check_moe_sharding(moe_sharding)
+        self.moe_sharding = moe_sharding if spec.is_moe else "slice"
         self.tokenizer = tokenizer
         # tp= and sp= (the JAX Engine's) build this rank's mesh over the process group
         # the caller initialised (parallel/mesh.py init_multihost, or
@@ -296,7 +305,8 @@ class Engine:
             params = params_to(params, self.device)
         if self.use_kernels:
             params = prepare_for_cuda(params, tp=self.tp, spec=spec,
-                                      keep_gate_pair=self.fused_matmul)
+                                      keep_gate_pair=self.fused_matmul,
+                                      moe_sharding=self.moe_sharding)
         # every shard's weight bytes one decode step streams; a card streams 1/tp of it
         self.decode_weight_bytes = decode_stream_bytes(params, spec)
         # the rank's step over the mesh where it has merge points (None: the one-card
@@ -308,13 +318,14 @@ class Engine:
         if mesh is not None:
             from ..parallel.tp import make_sharded_forward, merge_mesh, shard_params
 
-            params = params_to(shard_params(params, mesh, spec), self.device)
+            params = params_to(shard_params(params, mesh, spec,
+                                            moe_sharding=self.moe_sharding), self.device)
             self._merge = merge_mesh(mesh, self.compress)
             if self._merge is not None or self.sp > 1:
                 self._sharded = make_sharded_forward(
                     spec, mesh, dtype=self.dtype, use_kernels=self.use_kernels,
                     compress_collectives=self.compress,
-                    fused_prologue=self.fused_prologue)
+                    fused_prologue=self.fused_prologue, moe_sharding=self.moe_sharding)
         self.params = params
         self._measured_traffic = None  # the decode step's CollectiveTraffic, once counted
         self.rope = RopeTables.create(spec, self.device)

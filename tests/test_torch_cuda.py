@@ -28,7 +28,10 @@ tokens of their uninterrupted, monolithic runs at the same batch shape, exactly.
 constrained-decoding tests hold a masked step's graph replay to the eager step bit for
 bit (a grammar attached after the capture included, its table's buffers at the same
 addresses) and a constrained engine's tokens with graphs to those without; the drafter
-test holds the scan's graph replay to the eager scan's drafts, exactly."""
+test holds the scan's graph replay to the eager scan's drafts, exactly. The expert
+entries' owner window (expert parallelism) holds an index inside it bit-identical to the
+one-card window, one outside it to exact zeros, and the owned-compute counter to the
+launches that computed, in a CUDA graph's replays too."""
 
 import numpy as np
 import pytest
@@ -1054,19 +1057,79 @@ def _expert_stack(fmt, n_e, n, k, dev, seed):
 def test_moe_expert_entries_match_plain(cuda, fmt, n, k, out_dtype):
     """The expert entry against its plain version on each expert of a 4-expert stack
     (the `_matvec_close` tolerances), bit-identical to the 2-D entry on that expert's
-    planes, one launch per call on its own counter; an index past either end clamps."""
+    planes, one launch per call on its own counter; an index past either end lies
+    outside the one-card window (0, 4) and gives exact zeros, as the plain version
+    does."""
     w, s, launch, plain, mod = _expert_stack(fmt, 4, n, k, cuda, seed=n + k)
     x = torch.randn(k, device=cuda).to(torch.bfloat16)
-    for e, at in ((0, 0), (2, 2), (3, 3), (-1, 0), (7, 3)):
+    for e, at in ((0, 0), (2, 2), (3, 3), (-1, None), (7, None)):
         idx = torch.tensor([e], dtype=torch.int64, device=cuda)
         before = (mod.expert_launches, mod.launches)
         got = launch(x, w, s, out_dtype=out_dtype, e=idx)
         got32 = launch(x, w, s, e=idx)
         assert (mod.expert_launches, mod.launches) == (before[0] + 2, before[1])
+        if at is None:
+            torch.cuda.synchronize()
+            assert not got.any() and not got32.any(), f"expert {e}"
+            assert torch.equal(plain(x, w, s, idx), torch.zeros_like(got32))
+            continue
         two_d = launch(x, w[at], s[at], out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert torch.equal(got, two_d), f"expert {e}"
         _matvec_close(got, plain(x, w, s, idx), got32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q4", "q8"])
+@pytest.mark.parametrize("n,k", [(28672, 4096), (4096, 14336), (65536, 6144),
+                                 (6144, 32768)])
+def test_moe_expert_owner_window(cuda, fmt, n, k):
+    """The owner window at Mixtral's and grok1_l2's expert shapes: a rank holding
+    experts [4, 8) of 8. An index inside it (both ends) computes local matrix e - 4:
+    bit-identical to the one-card window (0, 8) on the whole stack and to the 2-D entry,
+    within `_matvec_close` of the plain version; an index outside it (both sides, and
+    past the model) writes exact zeros in either output type. The owned-compute counter
+    rises once per launch that computed and never for one outside the window, and a
+    launch captured in a CUDA graph counts at every replay that computes."""
+    w, s, launch, plain, mod = _expert_stack(fmt, 8, n, k, cuda, seed=n + 3 * k)
+    lo = 4
+    wl, sl = w[lo:].contiguous(), s[lo:].contiguous()
+    x = torch.randn(k, device=cuda).to(torch.bfloat16)
+    mod.owned.reset(cuda)
+    computed = 0
+    for e in (4, 7, 5, 3, 0, 8, -1):
+        idx = torch.tensor([e], dtype=torch.int64, device=cuda)
+        before = mod.expert_launches
+        got = launch(x, wl, sl, out_dtype=torch.bfloat16, e=idx, e_lo=lo)
+        got32 = launch(x, wl, sl, e=idx, e_lo=lo)
+        assert mod.expert_launches == before + 2
+        torch.cuda.synchronize()
+        if lo <= e < 8:
+            computed += 2
+            whole = launch(x, w, s, out_dtype=torch.bfloat16, e=idx)
+            two_d = launch(x, w[e], s[e], out_dtype=torch.bfloat16)
+            computed += 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, whole) and torch.equal(got, two_d), f"expert {e}"
+            _matvec_close(got, plain(x, wl, sl, idx, lo), got32)
+        else:
+            assert not got.any() and not got32.any(), f"expert {e}"
+            assert not plain(x, wl, sl, idx, lo).any()
+        assert mod.owned.value(cuda) == computed, f"expert {e}"
+    idx = torch.tensor([lo], dtype=torch.int64, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(x, wl, sl, out_dtype=torch.bfloat16, e=idx, e_lo=lo)
+    mod.owned.reset(cuda)
+    for e in (4, 1, 6, 9):
+        idx.fill_(e)
+        graph.replay()
+        torch.cuda.synchronize()
+        if lo <= e < 8:
+            assert torch.equal(out, launch(x, w[e], s[e], out_dtype=torch.bfloat16)), e
+        else:
+            assert not out.any(), e
+    assert mod.owned.value(cuda) == 2  # the replays at 4 and 6
 
 
 @pytest.mark.cuda

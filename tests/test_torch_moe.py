@@ -293,7 +293,9 @@ def test_zero_router_ties_pick_the_lowest_experts(arch):
 @pytest.mark.parametrize("fmt", ["q4", "q8"])
 def test_expert_entries_plain_equal_slice_then_2d_entry(fmt):
     """The expert entries' plain versions are the 2-D entries' against the sliced expert,
-    bit for bit; an index past either end clamps into the stack."""
+    bit for bit; an index past either end lies outside the one-card window (0, E) and
+    gives exact zeros there, while the dequantize route clamps it into the stack (the
+    JAX package's dynamic_slice_in_dim)."""
     rng = np.random.RandomState(7)
     e_n, n, k = 4, 96, 256
     x = torch.from_numpy(rng.randn(k).astype(np.float32))
@@ -312,6 +314,8 @@ def test_expert_entries_plain_equal_slice_then_2d_entry(fmt):
     for e, at in ((0, 0), (2, 2), (3, 3), (-1, 0), (9, 3)):
         idx = torch.tensor([e])
         want = two_d(x, w[at], s[at])
+        if e != at:  # outside the window: zeros from the entries
+            want = torch.zeros_like(want)
         assert torch.equal(plain(x, w, s, idx), want)
         assert torch.equal(entry(x[None, None], qt, idx)[0, 0], want)
         got = tmm.qmatmul(x[None, None], qt, use_kernels=True, expert=idx)

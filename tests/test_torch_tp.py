@@ -5,7 +5,8 @@ JAX package's, on the CPU.
   prepare_for_cuda(tp=)) equals the matching addressable shard of the JAX package's
   shard_params on the 8-device CPU mesh byte for byte: Q40 planar, i4p packed per tp
   column group (wo, w2, moe_down), fused wqkv / w13 / moe_gu with rows interleaved per tp
-  group, Q80 int8 planes, KV-head replication. No world needed: a Mesh names the rank.
+  group, Q80 int8 planes, KV-head replication, and under moe_sharding="expert" the MoE
+  stacks cut by whole experts. No world needed: a Mesh names the rank.
 - The sharded forward over gloo worlds of 2 and 4 ranks (parallel/launch.py): a 5-token
   prefill and one decode step held against the JAX package's make_sharded_forward and
   its unsharded forward at tests/test_tp.py's atol 1e-4, rtol 1e-3, for Llama Q40,
@@ -115,26 +116,30 @@ SHARD_CASES = {
     "kv_replication_planar": (tp_spec(n_kv_heads=2), FloatType.Q40, False),
     "kv_replication_kernel_layouts": (tp_spec(n_kv_heads=2), FloatType.Q40, True),
     "mixtral_kernel_layouts": (tp_spec(ArchType.MIXTRAL), FloatType.Q40, True),
+    # moe_sharding="expert": the MoE stacks cut along E, whole experts a rank
+    "mixtral_expert_kernel_layouts": (tp_spec(ArchType.MIXTRAL), FloatType.Q40, True),
 }
+SHARD_MOE = {"mixtral_expert_kernel_layouts": "expert"}
 
 
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("name", list(SHARD_CASES))
 def test_shards_equal_jax_shard_params_byte_for_byte(name, tp):
     spec, ftype, kernels = SHARD_CASES[name]
+    moe = SHARD_MOE.get(name, "slice")
     jp = init_random_params(spec, ftype, seed=5)
     tparams = params_from_numpy(to_numpy_tree(jp))
     if kernels:
-        jp = prepare_for_pallas(jp, tp, spec=spec)
-        tparams = prepare_for_cuda(tparams, tp=tp, spec=port_spec(spec))
+        jp = prepare_for_pallas(jp, tp, spec=spec, moe_sharding=moe)
+        tparams = prepare_for_cuda(tparams, tp=tp, spec=port_spec(spec), moe_sharding=moe)
     jmesh = jmake_mesh(tp=tp)
-    jsh = jshard(jp, jmesh, spec)
+    jsh = jshard(jp, jmesh, spec, moe_sharding=moe)
     devices = list(jmesh.devices.flat)
     seen_layouts = set()
     for r in range(tp):
         mesh = Mesh(rank=r, shape={"dp": 1, "sp": 1, "tp": tp}, group=None,
                     device=torch.device("cpu"))
-        mine = shard_params(tparams, mesh, port_spec(spec))
+        mine = shard_params(tparams, mesh, port_spec(spec), moe_sharding=moe)
         leaves = [("embedding", mine["embedding"], jsh["embedding"]),
                   ("rms_final", mine["rms_final"], jsh["rms_final"]),
                   ("wcls", mine["wcls"], jsh["wcls"])]
@@ -171,10 +176,27 @@ def test_replicated_kv_rows_and_split_axes():
     assert axes["wcls"] == 0 and axes["embedding"] is None
     expert = param_split_axes({"blocks": {"moe_down": None}}, "expert")
     assert expert["blocks"]["moe_down"] == 1
-    mesh = Mesh(rank=0, shape={"dp": 1, "sp": 1, "tp": 2}, group=None,
-                device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="Queue A item 3"):
-        shard_params({"blocks": {}}, mesh, moe_sharding="expert")
+    # the expert placement: each rank's MoE stacks are its E/tp whole experts, moe_gu
+    # [up | gate] with no tp interleave, every stack one card's pack
+    spec = tp_spec(ArchType.MIXTRAL)
+    tparams = prepare_for_cuda(params_from_numpy(to_numpy_tree(init_random_params(
+        spec, FloatType.Q40, seed=5))), tp=2, spec=port_spec(spec), moe_sharding="expert")
+    el = spec.n_experts // 2
+    for r in range(2):
+        mesh = Mesh(rank=r, shape={"dp": 1, "sp": 1, "tp": 2}, group=None,
+                    device=torch.device("cpu"))
+        mine = shard_params(tparams, mesh, port_spec(spec), moe_sharding="expert")
+        assert mine["blocks"]["moe_gu"].row_groups == 1
+        for name in ("moe_gu", "moe_down"):
+            whole, part = tparams["blocks"][name], mine["blocks"][name]
+            assert part.groups == 1 and part.shape[1] == el, name
+            assert torch.equal(part.data, whole.data[:, r * el:(r + 1) * el]), name
+            assert torch.equal(part.scales, whole.scales[:, r * el:(r + 1) * el]), name
+    # a stack interleaved for "slice" cannot shard by whole experts
+    sliced = prepare_for_cuda(params_from_numpy(to_numpy_tree(init_random_params(
+        spec, FloatType.Q40, seed=5))), tp=2, spec=port_spec(spec))
+    with pytest.raises(ValueError, match="moe_down is packed per 2 tp column groups"):
+        shard_params(sliced, mesh, port_spec(spec), moe_sharding="expert")
 
 
 def test_divisibility_errors_without_a_world():
